@@ -1,0 +1,28 @@
+"""PyTorch + CUDA port of ``distributed_tensorflow_example_tpu``.
+
+The JAX package beside this one is the reference: every module here
+keeps its counterpart's name, its parameter names and layouts, and its
+mixed-precision rounding points, so the same numpy inputs give the
+same answers on both sides (``tests/test_torch_*.py`` hold the port to
+that).  Inside, the idiom is PyTorch: plain functions on tensors, an
+explicit ``device`` everywhere, ``torch.Generator`` for randomness.
+
+This package imports ``torch`` and never ``jax``, and nothing of the
+JAX package: where it needs one of that package's pure-Python modules
+(the serving scheduler, admission, faults) it carries its own copy.
+
+Every TPU (Pallas) kernel on a ported path is a CUDA C++ kernel for
+Hopper (``sm_90a``) under ``ops/csrc/``, built with ``nvcc`` at first
+use and bound through ``ctypes`` (``ops/_build.py``).  Each wrapper
+in ``ops/fused.py`` runs its plain PyTorch version for CPU tensors
+only; for a CUDA tensor it launches the kernel or raises.
+
+Ported so far: the serving path (``serving/cli.py`` -> ``serving/
+engine.DecodeEngine`` -> prefill + paged decode) with the fused
+LayerNorm, LayerNorm+residual and grouped-FFN kernels.  ROADMAP.md
+queues the rest.
+"""
+
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

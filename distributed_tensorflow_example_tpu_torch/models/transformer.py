@@ -1,0 +1,378 @@
+"""Transformer family: the serving subset (lm objective, one device).
+
+The counterpart of the JAX package's ``models/transformer.py`` for
+what decoding needs: ``TransformerSpec`` (same field names and
+defaults, torch dtypes), ``param_shapes``/``init``, the LayerNorm
+dispatch (``_ln``/``_ln_residual``: the fused CUDA kernels under
+``spec.fused_ln``), ``_block_forward``/``_ffn_block`` (dense FFN, or the
+fp8 grouped-FFN kernel under ``spec.fp8_ffn``) and the KV-cached
+decode (``init_decode_cache``, ``_DenseKV``, ``_decode_forward``,
+``decode_step``, ``generate``).
+
+Params are a flat ``{name: tensor}`` dict with the JAX package's
+names and layouts (``Wqkv`` is ``[d, 3, d]``), so ``convert.py``
+carries weights across unchanged.
+
+Mixed precision follows the JAX package's rounding points exactly:
+matmuls take ``compute_dtype`` operands with f32 accumulation (here
+the operands are rounded to ``compute_dtype`` and multiplied in f32:
+a bf16 ``torch.matmul`` would round its output to bf16), q/k/v are
+rounded to ``compute_dtype`` before attention and the cache stores
+them so, the score product runs in ``compute_dtype`` and is cast to
+f32 after, the probabilities are cast back before the value product,
+and the residual stream ``h`` is f32.
+
+Not ported yet (ROADMAP.md): training (``apply``, dropout, the
+backward), tensor/sequence/expert parallelism, and MoE —
+``num_experts > 0`` raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional
+
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..ops.ring_attention import NEG_INF, attention, softmax
+from .mlp import _ACTIVATIONS
+
+Params = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerSpec:
+    input_size: int = 784
+    num_classes: int = 10
+    seq_len: int = 28
+    d_model: int = 128
+    n_heads: int = 4
+    num_blocks: int = 2
+    d_ff: int = 256
+    activation: str = "gelu"
+    objective: str = "classify"    # classify | lm (decode serves lm)
+    vocab_size: int = 256
+    attention: str = "dense"       # dense | flash (decode runs dense)
+    sp_impl: str = "ring"
+    causal: bool = False
+    num_experts: int = 0           # > 0 (MoE) is not ported yet
+    moe_topk: int = 1
+    aux_loss_weight: float = 0.0
+    dropout_rate: float = 0.0
+    moe_dispatch: str = "dense"
+    capacity_factor: float = 1.25
+    fused_ln: bool = False         # LayerNorms run the fused CUDA kernel
+                                   # (ops/fused.fused_layer_norm[_residual])
+    grouped_moe: bool = False
+    fp8_ffn: bool = False          # FFN matmuls on fp8-e4m3-rounded
+                                   # operands through the grouped-FFN
+                                   # kernel (ops/fused.fp8_dense_ffn)
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.float32
+
+    @property
+    def d_feature(self) -> int:
+        if self.objective == "lm":
+            if self.seq_len != self.input_size:
+                raise ValueError(
+                    f"objective='lm' tokenizes every input scalar: "
+                    f"seq_len ({self.seq_len}) must equal input_size "
+                    f"({self.input_size})")
+            return 1
+        if self.input_size % self.seq_len:
+            raise ValueError(
+                f"input_size={self.input_size} not divisible by "
+                f"seq_len={self.seq_len}")
+        return self.input_size // self.seq_len
+
+    @property
+    def d_head(self) -> int:
+        if self.d_model % self.n_heads:
+            raise ValueError(
+                f"d_model={self.d_model} not divisible by "
+                f"n_heads={self.n_heads}")
+        return self.d_model // self.n_heads
+
+
+def _check_ported(spec: TransformerSpec) -> None:
+    if spec.num_experts:
+        raise NotImplementedError(
+            "MoE (num_experts > 0) is not ported to the PyTorch package "
+            "yet; ROADMAP.md queues MoE decode")
+
+
+def param_shapes(spec: TransformerSpec) -> Dict[str, tuple]:
+    """Analytic ``{name: shape}`` map (the JAX package's layout)."""
+    _check_ported(spec)
+    d, ff, f = spec.d_model, spec.d_ff, spec.d_feature
+    if spec.objective == "lm":
+        shapes: Dict[str, tuple] = {
+            "W_emb": (spec.vocab_size, d), "pos": (spec.seq_len, d),
+            "lnf_g": (d,), "lnf_b": (d,),
+            "W_head": (d, spec.vocab_size), "b_head": (spec.vocab_size,),
+        }
+    else:
+        shapes = {
+            "W_in": (f, d), "b_in": (d,), "pos": (spec.seq_len, d),
+            "lnf_g": (d,), "lnf_b": (d,),
+            "W_head": (d, spec.num_classes),
+            "b_head": (spec.num_classes,),
+        }
+    for i in range(spec.num_blocks):
+        shapes.update({
+            f"L{i}_ln1_g": (d,), f"L{i}_ln1_b": (d,),
+            f"L{i}_Wqkv": (d, 3, d), f"L{i}_bqkv": (3, d),
+            f"L{i}_Wo": (d, d), f"L{i}_bo": (d,),
+            f"L{i}_ln2_g": (d,), f"L{i}_ln2_b": (d,),
+            f"L{i}_W1": (d, ff), f"L{i}_b1": (ff,),
+            f"L{i}_W2": (ff, d), f"L{i}_b2": (d,),
+        })
+    return shapes
+
+
+def init(spec: TransformerSpec, seed: int = 0,
+         device: DeviceLike = None) -> Params:
+    """Seeded init with the JAX package's distributions: weights
+    ``N(0,1)/sqrt(fan_in)``, ``pos``/``W_emb`` ``0.02*N(0,1)``, zero
+    biases, unit LayerNorm gains.  The bits come from a
+    ``torch.Generator`` seeded with ``seed``, so they differ from
+    JAX's; carry JAX params across with ``convert.params_from_numpy``
+    where the bits matter."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    pd = spec.param_dtype
+    p: Params = {}
+    for name, shape in param_shapes(spec).items():
+        if name in ("pos", "W_emb"):
+            w = torch.randn(shape, generator=gen, device=dev) * 0.02
+            p[name] = w.to(pd)
+        elif "W" in name:
+            w = torch.randn(shape, generator=gen, device=dev)
+            p[name] = (w / math.sqrt(shape[0])).to(pd)
+        elif name.endswith("_g"):
+            p[name] = torch.ones(shape, dtype=pd, device=dev)
+        else:
+            p[name] = torch.zeros(shape, dtype=pd, device=dev)
+    return p
+
+
+def _block_params(params: Params, i: int) -> Params:
+    """Block ``i``'s leaves under their unprefixed names."""
+    pre = f"L{i}_"
+    return {k[len(pre):]: v for k, v in params.items() if k.startswith(pre)}
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float32)
+
+
+def _cast_mm(a: torch.Tensor, w: torch.Tensor, cdt) -> torch.Tensor:
+    """``a @ w`` with ``cdt`` operands and f32 accumulation."""
+    return torch.matmul(_f32(a.to(cdt)), _f32(w.to(cdt)))
+
+
+def _layer_norm(x, g, b):
+    """Reference LayerNorm (f32 statistics and output, last axis)."""
+    x = _f32(x)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + 1e-6) * _f32(g) + _f32(b)
+
+
+def _ln(spec: TransformerSpec, x, g, b):
+    """The model's LayerNorm: the fused kernel under ``spec.fused_ln``,
+    the reference otherwise."""
+    if spec.fused_ln:
+        from ..ops.fused import fused_layer_norm
+
+        return fused_layer_norm(x, g, b)
+    return _layer_norm(x, g, b)
+
+
+def _ln_residual(spec: TransformerSpec, h, branch, g, b):
+    """``s = h + branch; return (LN(s), s)`` — one kernel pass under
+    ``spec.fused_ln``."""
+    if spec.fused_ln:
+        from ..ops.fused import fused_layer_norm_residual
+
+        return fused_layer_norm_residual(h, branch, g, b)
+    s = h + branch
+    return _layer_norm(s, g, b), s
+
+
+def _mm(params_or_bp: Params, a, w_name: str, b_name: str, cdt):
+    """``a @ W + b`` with ``cdt`` operands and f32 out."""
+    return _cast_mm(a, params_or_bp[w_name], cdt) \
+        + _f32(params_or_bp[b_name])
+
+
+def _block_forward(spec: TransformerSpec, bp: Params, h, act, cdt,
+                   kv_out: Optional[list] = None):
+    """One pre-LN block on ``h`` [B, S, D] (f32): dense causal or full
+    attention, the attention residual add fused into ln2, then the
+    FFN half.  ``kv_out``: a list to append this block's ``(k, v)``
+    [B, S, H, Dh] (in ``cdt``) to — the prefill captures them for the
+    paged cache.  Returns ``h``."""
+    b, s, d = h.shape
+    a = _ln(spec, h, bp["ln1_g"], bp["ln1_b"])
+    qkv = torch.einsum("bsd,dte->bste", _f32(a.to(cdt)),
+                       _f32(bp["Wqkv"].to(cdt))) + _f32(bp["bqkv"])
+    q, k, v = (qkv[:, :, t].to(cdt) for t in range(3))
+    shape = (b, s, bp["Wqkv"].shape[-1] // spec.d_head, spec.d_head)
+    if kv_out is not None:
+        kv_out.append((k.reshape(shape), v.reshape(shape)))
+    att = attention(q.reshape(shape), k.reshape(shape), v.reshape(shape),
+                    causal=spec.causal)
+    branch = _mm(bp, att.reshape(b, s, -1).to(cdt), "Wo", "bo", cdt)
+    a2, h = _ln_residual(spec, h, branch, bp["ln2_g"], bp["ln2_b"])
+    return _ffn_block(spec, bp, h, act, cdt, a=a2)
+
+
+def _ffn_block(spec: TransformerSpec, bp: Params, h, act, cdt, a=None):
+    """The LN2 + FFN residual half of a block, shared by the prefill
+    and the decode step.  ``h`` [B, S, D] -> ``h``; ``a`` is the ln2
+    output when the caller already has it."""
+    _check_ported(spec)
+    if a is None:
+        a = _ln(spec, h, bp["ln2_g"], bp["ln2_b"])
+    if spec.fp8_ffn:
+        from ..ops.fused import fp8_dense_ffn
+
+        bsz, s, d = a.shape
+        ffn = fp8_dense_ffn(spec.activation, cdt, a.reshape(bsz * s, d),
+                            bp["W1"], bp["b1"], bp["W2"],
+                            bp["b2"]).reshape(bsz, s, -1)
+        return h + ffn
+    a = act(_mm(bp, a, "W1", "b1", cdt)).to(cdt)
+    return h + _mm(bp, a, "W2", "b2", cdt)
+
+
+def init_decode_cache(spec: TransformerSpec, batch: int,
+                      heads: Optional[int] = None,
+                      device: DeviceLike = None) -> Params:
+    """Per-block contiguous KV cache ``{k{i}/v{i}: [B, S, H, Dh]}`` in
+    the compute dtype, preallocated at the full sequence length."""
+    dev = resolve_device(device)
+    shape = (batch, spec.seq_len, heads or spec.n_heads, spec.d_head)
+    cache: Params = {}
+    for i in range(spec.num_blocks):
+        cache[f"k{i}"] = torch.zeros(shape, dtype=spec.compute_dtype,
+                                     device=dev)
+        cache[f"v{i}"] = torch.zeros(shape, dtype=spec.compute_dtype,
+                                     device=dev)
+    return cache
+
+
+class _DenseKV:
+    """KV adapter for the contiguous ``[B, S, H, Dh]`` cache at one
+    scalar decode position: writes row ``pos`` in place and returns
+    the whole cache as the attention operands."""
+
+    def __init__(self, spec: TransformerSpec, cache: Params, pos: int):
+        self.cache = cache
+        self.pos = int(pos)
+        dev = cache["k0"].device
+        self.valid = (torch.arange(spec.seq_len, device=dev)
+                      <= self.pos)[None, None]
+
+    def update(self, i: int, kk, vv):
+        ck, cv = self.cache[f"k{i}"], self.cache[f"v{i}"]
+        ck[:, self.pos] = kk
+        cv[:, self.pos] = vv
+        return ck, cv, self.valid
+
+
+def _decode_forward(spec: TransformerSpec, params: Params, token, pos, kv):
+    """The one KV-cached decode forward, shared by the contiguous
+    ``decode_step`` and the paged ``serving.kv_cache.paged_decode_step``.
+    ``token`` [B] long; ``pos`` an int (contiguous) or [B] (paged);
+    ``kv.update(i, k, v) -> (keys, values, mask)``.  Returns f32
+    logits [B, V]."""
+    if spec.objective != "lm":
+        raise ValueError("decode serves the lm objective only")
+    cdt = spec.compute_dtype
+    b = token.shape[0]
+    dh = spec.d_head
+    h = _f32(params["W_emb"])[token] + _f32(params["pos"])[pos]   # [B, D]
+    act = _ACTIVATIONS[spec.activation]
+    sqrt_dh = torch.sqrt(torch.tensor(float(dh), dtype=torch.float32,
+                                      device=h.device))
+    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=h.device)
+    for i in range(spec.num_blocks):
+        bp = _block_params(params, i)
+        hn = bp["Wqkv"].shape[-1] // dh
+        a = _ln(spec, h, bp["ln1_g"], bp["ln1_b"])
+        qkv = torch.einsum("bd,dte->bte", _f32(a.to(cdt)),
+                           _f32(bp["Wqkv"].to(cdt))) + _f32(bp["bqkv"])
+        q, kk, vv = (qkv[:, t].to(cdt).reshape(b, hn, dh)
+                     for t in range(3))
+        ck, cv, valid = kv.update(i, kk, vv)
+        # the score product in the cache dtype, cast after, divided by
+        # sqrt(dh) in f32 (the decode path divides where the dense
+        # attention multiplies by 1/sqrt(d): both kept as in JAX)
+        scores = torch.einsum("bhe,bshe->bhs", q, ck).to(torch.float32) \
+            / sqrt_dh
+        scores = torch.where(valid, scores, neg)
+        probs = softmax(scores, dim=-1)
+        att = torch.einsum("bhs,bshe->bhe", probs.to(cv.dtype),
+                           cv).reshape(b, hn * dh)
+        h = h + _mm(bp, att.to(cdt), "Wo", "bo", cdt)
+        h = _ffn_block(spec, bp, h[:, None], act, cdt)[:, 0]
+    hf = _ln(spec, h, params["lnf_g"], params["lnf_b"])
+    return _f32(_mm(params, hf, "W_head", "b_head", cdt))
+
+
+@torch.no_grad()
+def decode_step(spec: TransformerSpec, params: Params, cache: Params,
+                token: torch.Tensor, pos: int):
+    """One KV-cached decode step at scalar position ``pos``: returns
+    (logits [B, V], cache).  The cache is updated in place (the JAX
+    version returns an updated copy unless its buffers are donated)."""
+    kv = _DenseKV(spec, cache, pos)
+    return _decode_forward(spec, params, token.long(), pos, kv), kv.cache
+
+
+@torch.no_grad()
+def generate(spec: TransformerSpec, params: Params, prompt: torch.Tensor,
+             generator: Optional[torch.Generator] = None,
+             temperature: float = 1.0) -> torch.Tensor:
+    """Complete ``prompt`` [B, P] int tokens to the full ``seq_len``
+    with KV-cached decoding (prompt positions teacher-forced).
+    ``generator=None`` or ``temperature <= 0`` decodes greedily;
+    otherwise samples at ``temperature`` (Gumbel-max with noise from
+    ``generator``).  Returns [B, seq_len] tokens on the prompt's
+    device."""
+    b, p = prompt.shape
+    s = spec.seq_len
+    dev = prompt.device
+    cache = init_decode_cache(spec, b, heads=params["L0_Wqkv"].shape[-1]
+                              // spec.d_head, device=dev)
+    tokens = torch.zeros((b, s), dtype=torch.long, device=dev)
+    tokens[:, :p] = prompt.long()
+    greedy = generator is None or temperature <= 0
+    for pos in range(s - 1):
+        logits, cache = decode_step(spec, params, cache, tokens[:, pos], pos)
+        if greedy:
+            nxt = torch.argmax(logits, dim=-1)
+        else:
+            nxt = _gumbel_argmax(logits / float(temperature), generator)
+        if pos + 1 >= p:
+            tokens[:, pos + 1] = nxt
+    return tokens
+
+
+def _gumbel_argmax(logits: torch.Tensor,
+                   generator: torch.Generator) -> torch.Tensor:
+    """A categorical draw per row by the Gumbel-max trick (the method
+    ``jax.random.categorical`` uses; the bits differ)."""
+    u = torch.rand(logits.shape, generator=generator,
+                   device=logits.device, dtype=torch.float32)
+    tiny = torch.finfo(torch.float32).tiny
+    gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
+    return torch.argmax(logits + gumbel, dim=-1)
+
+
+__all__ = ["TransformerSpec", "param_shapes", "init", "init_decode_cache",
+           "decode_step", "generate"]

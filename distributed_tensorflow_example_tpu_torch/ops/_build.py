@@ -1,0 +1,137 @@
+"""Build and load the port's CUDA kernels (``ops/csrc/*.cu``).
+
+The sources have a plain C interface.  ``nvcc`` compiles each one for
+Hopper (``sm_90a``) into an object — all of them at once, one process
+each — and links the objects into one shared library under
+``build/kernels/`` at the repo root (a directory ``.gitignore``
+lists), named by a hash of the sources so an edited source rebuilds.
+``ctypes`` loads it; the wrappers in ``ops/fused.py`` pass pointers
+and the current stream as integers.
+
+Nothing here runs at import: the first wrapper call on a CUDA tensor
+builds and loads the library.  A build that fails raises with the
+compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> argtypes of every C entry point the wrappers call
+SIGNATURES = {
+    # x, g, b, y, rows, d, dtype, stream
+    "dtx_layer_norm_fwd": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # x, r, g, b, y, s, rows, d, dtype, stream
+    "dtx_layer_norm_residual_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "dtx_layer_norm_max_d": (),
+    # x, w1, b1, w2, b2, h1, out, E, C, d, ff, act, dtype, stream
+    "dtx_grouped_ffn_fwd": (_P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+# what the last build in this process did: seconds, compiler output
+last_build: dict = {}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def nvcc() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else
+    ``/usr/local/cuda/bin/nvcc``, else ``nvcc`` on the PATH."""
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the port's CUDA kernels are "
+            "built from ops/csrc at first use on the card")
+    return found
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile every source (in parallel) and link the library; returns
+    its path.  An existing library for the same source hash is reused.
+    ``verbose`` adds ``-Xptxas -v`` (registers, shared memory, spills
+    per kernel) to the compiler output kept in ``last_build``."""
+    out = BUILD_DIR / f"libdtx_torch_kernels-{_digest()}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cc = nvcc()
+    extra = ("-Xptxas", "-v") if verbose else ()
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [cc, *ARCH_FLAGS, *NVCC_FLAGS, *extra, "-c", str(src),
+                   "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = []
+        failed = []
+        for src, _obj, p in procs:
+            text, _ = p.communicate()
+            log.append(f"== {src.name}\n{text}")
+            if p.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+        tmp_lib = Path(tmp) / out.name
+        link = subprocess.run(
+            [cc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib),
+             *(str(o) for _s, o, _p in procs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        # atomic publish: a concurrent build sees a whole file or none
+        os.replace(tmp_lib, out)
+    last_build.update(seconds=time.monotonic() - t0, log="\n".join(log),
+                      path=str(out))
+    return out
+
+
+def load(verbose: bool = False) -> ctypes.CDLL:
+    """The loaded kernel library (built at the first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build(verbose=verbose)))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib

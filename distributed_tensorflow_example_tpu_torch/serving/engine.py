@@ -1,0 +1,674 @@
+"""DecodeEngine: continuous-batching inference over the paged cache.
+
+The execution half of the serving stack: the pure-Python scheduler
+(``serving/scheduler.py``) decides membership and shapes, this engine
+executes each ``TickPlan`` on the device:
+
+- one **prefill** per admitted request, at its bucketed prompt width —
+  the block forward over the whole prompt, captured into the request's
+  pages, emitting the first generated token;
+- one **decode** step per tick over the live ragged batch, padded to a
+  batch bucket with a block table of a bucketed width, with sampling
+  on the device (greedy argmax / temperature draw per sequence), so
+  the logits never leave the card; only the [B] sampled tokens do.
+
+The shapes come from the same finite bucket ladders as the JAX
+package's engine.  PyTorch runs eagerly, so nothing is compiled per
+shape here; the buckets still matter: under ``fp8_ffn`` the
+per-tensor scales span the whole padded batch (dead decode slots and
+prefill pad rows included), so the port feeds exactly the batches the
+JAX engine feeds and its numbers match.
+
+Request surface and fail-open behaviour follow the JAX package's
+engine: ``submit`` / ``result`` / ``cancel`` / ``step`` /
+``run_until_idle`` / ``start`` / ``stop`` / ``stats``, deadlines, a
+bounded queue (``max_queue``, typed ``ShedError``), brownout, and
+``engine_retries`` supervision with bounded backoff.  The span
+recorder, SLO specs and restart narrator are not ported yet: those
+arguments must be None.
+
+Thread model: ``submit()`` may be called from any thread (the HTTP
+handlers); ``step()`` — or the ``start()``-ed background loop —
+executes ticks under the engine lock.
+"""
+
+from __future__ import annotations
+
+import collections
+import math
+import os
+import re
+import sys
+import threading
+import time
+import traceback
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import kv_cache as kvc
+from . import scheduler as sched_lib
+from ..device import DeviceLike, resolve_device
+from .admission import BrownoutPolicy, ShedError, retry_after_hint
+from .faults import InjectedFault
+from .scheduler import SCRATCH_PAGE
+
+# rolling window for the latency percentiles stats() reports
+STATS_WINDOW = 2048
+# supervised-restart backoff: base doubles per consecutive crash up to
+# the cap, and resets on the first healthy tick
+RESTART_BACKOFF_BASE_S = 0.05
+RESTART_BACKOFF_MAX_S = 2.0
+# completed requests retained for result() pickup before the oldest
+# are evicted
+RETAIN_FINISHED = 4096
+
+_TRACEPARENT_RE = re.compile(
+    r"^([0-9a-f]{2})-([0-9a-f]{32})-([0-9a-f]{16})-([0-9a-f]{2})$")
+
+
+def backoff_s(attempt: int, base_s: float = 1.0, factor: float = 2.0,
+              cap_s: float = 60.0) -> float:
+    """Exponential backoff: ``min(base * factor**attempt, cap)``;
+    ``attempt`` counts completed retries (0 -> base)."""
+    if attempt < 0:
+        raise ValueError(f"attempt={attempt} must be >= 0")
+    return min(float(base_s) * float(factor) ** int(attempt),
+               float(cap_s))
+
+
+def parse_traceparent(header) -> Optional[Tuple[str, str]]:
+    """``(trace_id, parent_id)`` from a W3C ``traceparent`` header, or
+    None when absent, malformed or all-zero (a bad header degrades to
+    a fresh trace, never to a rejected request)."""
+    if not isinstance(header, str):
+        return None
+    m = _TRACEPARENT_RE.match(header.strip().lower())
+    if not m:
+        return None
+    _ver, trace_id, parent_id, _flags = m.groups()
+    if trace_id == "0" * 32 or parent_id == "0" * 16:
+        return None
+    return trace_id, parent_id
+
+
+def new_trace_id() -> str:
+    """A fresh 32-hex (128-bit) W3C trace id."""
+    return os.urandom(16).hex()
+
+
+def _percentile(vals: List[float], q: float) -> Optional[float]:
+    if not vals:
+        return None
+    return float(np.percentile(vals, q * 100.0))
+
+
+class _Result:
+    __slots__ = ("event", "prompt", "tokens", "arrival_t", "first_t",
+                 "finish_t", "error", "status", "attempts")
+
+    def __init__(self, prompt, arrival_t: float):
+        self.event = threading.Event()
+        self.prompt = prompt
+        self.tokens: List[int] = []
+        self.arrival_t = arrival_t
+        self.first_t: Optional[float] = None
+        self.finish_t: Optional[float] = None
+        self.error: Optional[str] = None
+        self.attempts: Optional[int] = None
+        # "result" | "timeout" | "failed" once the event is set
+        self.status: Optional[str] = None
+
+
+class DecodeEngine:
+    """Continuous-batching decode over a paged KV cache on ``device``
+    (None = the card; ``"cpu"`` must be asked for).
+
+    ``num_pages=0`` sizes the pool for ``max_batch`` worst-case
+    (``max_len``) sequences plus the scratch page; ``max_len`` (prompt
+    + generated) defaults to, and may not exceed, ``spec.seq_len``.
+    ``seed`` seeds the sampling generators: request ``rid``'s prefill
+    draws from seed domain ``2*rid`` and decode tick ``t`` from
+    ``2*t+1``, the JAX engine's even/odd split.
+
+    Fail-open knobs (off by default): ``max_queue`` (typed shedding),
+    ``deadline_ms`` (typed ``timeout`` terminal), ``brownout``
+    (admission.BrownoutPolicy on page occupancy), ``engine_retries``
+    (supervised restart with re-queue), ``faults`` (faults.FaultPlan).
+    """
+
+    def __init__(self, spec, params, page_size: int = 16,
+                 num_pages: int = 0, max_batch: int = 8,
+                 max_len: int = 0, seed: int = 0, kv_quant: str = "",
+                 recorder=None, max_queue: int = 0,
+                 deadline_ms: float = 0.0, engine_retries: int = 0,
+                 brownout: Optional[BrownoutPolicy] = None,
+                 faults=None, slos=None, restart_narrator=None,
+                 device: DeviceLike = None):
+        if spec.objective != "lm":
+            raise ValueError("the decode engine serves the lm "
+                             "objective only")
+        for name, val in (("recorder", recorder), ("slos", slos),
+                          ("restart_narrator", restart_narrator)):
+            if val is not None:
+                raise NotImplementedError(
+                    f"DecodeEngine({name}=...): request tracing, SLOs and "
+                    f"the restart narrator are not ported to the PyTorch "
+                    f"package yet (ROADMAP.md queues the tracing stack)")
+        self.device = resolve_device(device)
+        self.spec = spec
+        self.params = {k: v.to(self.device) for k, v in params.items()}
+        self.page_size = int(page_size)
+        self.kv_quant = str(kv_quant or "")
+        self.max_len = int(max_len) or spec.seq_len
+        if self.max_len > spec.seq_len:
+            raise ValueError(
+                f"max_len={self.max_len} exceeds the positional "
+                f"table's seq_len={spec.seq_len}")
+        pages_per_seq = max(1, math.ceil((self.max_len - 1)
+                                         / self.page_size))
+        self.num_pages = int(num_pages) or 1 + max_batch * pages_per_seq
+        self.faults = faults
+        self.max_queue = int(max_queue)
+        self.deadline_ms = float(deadline_ms)
+        self.engine_retries = int(engine_retries)
+        if self.max_queue < 0 or self.deadline_ms < 0 \
+                or self.engine_retries < 0:
+            raise ValueError("max_queue, deadline_ms and "
+                             "engine_retries must be >= 0")
+        self.brownout = brownout
+        self.max_batch = int(max_batch)
+        self.sched = sched_lib.ContinuousScheduler(
+            self.num_pages, self.page_size, max_batch, faults=faults)
+        self.prompt_buckets = sched_lib.shape_buckets(
+            max(1, self.max_len - 1))
+        self._heads = kvc.local_heads(spec, self.params)
+        self.cache = self._new_cache()
+        self._seed = int(seed)
+        self._lock = threading.RLock()
+        self._results: Dict[int, _Result] = {}
+        self._temps: Dict[int, float] = {}
+        self._last_tok: Dict[int, int] = {}
+        self._finished_order: collections.deque = collections.deque()
+        self._lat_ms: collections.deque = collections.deque(
+            maxlen=STATS_WINDOW)
+        self._ttft_ms: collections.deque = collections.deque(
+            maxlen=STATS_WINDOW)
+        self._completed = 0
+        self._failure: Optional[str] = None
+        self._traces: Dict[int, tuple] = {}
+        self._next_rid = 0
+        self._accepted = 0
+        self._tick = 0
+        self._prefills = 0
+        self._tokens_out = 0
+        self._shed = 0
+        self._timeouts = 0
+        self._failed = 0
+        self._requeued = 0
+        self._restarts = 0
+        self._queue_peak = 0
+        self._brownout_active = False
+        self._brownout_clamped = 0
+        self._consec_crashes = 0
+        # monotonic tick-boundary counter: the FaultPlan clock (a
+        # supervised restart resets the scheduler's own tick count)
+        self._boundaries = 0
+        self._started_t: Optional[float] = None
+        self.shapes_used: set = set()
+        self._thread: Optional[threading.Thread] = None
+        self._running = False
+        self._work = threading.Condition()
+
+    def _new_cache(self) -> dict:
+        return kvc.init_paged_cache(self.spec, self.num_pages,
+                                    self.page_size, heads=self._heads,
+                                    quant=self.kv_quant, device=self.device)
+
+    def _generator(self, domain: int) -> torch.Generator:
+        """The sampling generator of one seed domain (even: a request's
+        prefill, odd: a decode tick)."""
+        g = torch.Generator(device=self.device)
+        g.manual_seed((self._seed * 0x9E3779B97F4A7C15 + domain)
+                      % (1 << 63))
+        return g
+
+    # ---- request surface ----
+    def submit(self, prompt, max_new_tokens: int,
+               temperature: float = 0.0,
+               deadline_ms: Optional[float] = None,
+               traceparent: Optional[str] = None) -> int:
+        """Queue a request (``prompt``: iterable of int token ids);
+        returns its rid.  Thread-safe.  ``deadline_ms`` bounds the
+        request's time in the system (None = the engine default; 0 =
+        none).  Raises ``ShedError`` when the bounded queue is full.
+        ``traceparent`` (W3C) carries the caller's trace id onto the
+        result."""
+        ctx = parse_traceparent(traceparent)
+        if ctx is not None:
+            trace_id, parent_id = ctx
+        else:
+            trace_id, parent_id = new_trace_id(), None
+        prompt = [int(t) for t in prompt]
+        if not prompt:
+            raise ValueError("empty prompt")
+        if any(not 0 <= t < self.spec.vocab_size for t in prompt):
+            raise ValueError("prompt token outside the vocabulary")
+        if len(prompt) + int(max_new_tokens) > self.max_len:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new_tokens "
+                f"({max_new_tokens}) exceeds max_len={self.max_len}")
+        now = time.monotonic()
+        with self._lock:
+            if self._failure is not None:
+                raise RuntimeError(
+                    f"decode engine failed: {self._failure}")
+            if self.max_queue and len(self.sched.waiting) >= self.max_queue:
+                rid = self._next_rid
+                self._next_rid += 1
+                self._shed += 1
+                raise ShedError(
+                    f"queue full ({len(self.sched.waiting)} waiting, "
+                    f"max_queue={self.max_queue})",
+                    retry_after_s=self._retry_after_s(), rid=rid)
+            dl_ms = self.deadline_ms if deadline_ms is None \
+                else float(deadline_ms)
+            deadline = now + dl_ms / 1e3 if dl_ms > 0 else None
+            rid = self._next_rid
+            self.sched.submit(rid, len(prompt), int(max_new_tokens),
+                              arrival=now, deadline=deadline,
+                              trace_id=trace_id, parent_id=parent_id)
+            self._next_rid += 1
+            self._accepted += 1
+            self._queue_peak = max(self._queue_peak,
+                                   len(self.sched.waiting))
+            self._results[rid] = _Result(prompt, now)
+            self._temps[rid] = float(temperature)
+            self._traces[rid] = (trace_id, parent_id)
+        with self._work:
+            self._work.notify()
+        return rid
+
+    def trace_context(self, rid: int) -> Optional[tuple]:
+        """``(trace_id, parent_id)`` for an accepted rid, else None."""
+        with self._lock:
+            return self._traces.get(int(rid))
+
+    def _retry_after_s(self) -> float:
+        return retry_after_hint(_percentile(list(self._lat_ms), 0.50))
+
+    def cancel(self, rid: int) -> bool:
+        """Retire ``rid`` at the next tick boundary (typed ``timeout``
+        terminal, reason "cancel").  False when unknown or already
+        terminal."""
+        with self._lock:
+            res = self._results.get(rid)
+            if res is None or res.event.is_set():
+                return False
+            ok = self.sched.cancel(rid)
+        with self._work:
+            self._work.notify()
+        return ok
+
+    def result(self, rid: int, timeout: Optional[float] = None):
+        """Block until rid completes: ``{"rid", "status": "result",
+        "prompt", "tokens", "latency_ms", "ttft_ms", "trace_id"}``, or
+        ``{"rid", "status", "error", "trace_id"}`` for a typed
+        ``timeout``/``failed`` terminal, or None when ``timeout``
+        elapsed first."""
+        res = self._results[rid]
+        if not res.event.wait(timeout):
+            return None
+        trace = self._traces.get(rid)
+        extra = {"trace_id": trace[0]} if trace else {}
+        if res.error is not None:
+            out = {"rid": rid, "status": res.status or "failed",
+                   "error": res.error, **extra}
+            if res.attempts is not None:
+                out["attempts"] = res.attempts
+            return out
+        return {
+            "rid": rid,
+            "status": "result",
+            "prompt": list(res.prompt),
+            "tokens": list(res.tokens),
+            "latency_ms": round((res.finish_t - res.arrival_t) * 1e3, 3),
+            "ttft_ms": round((res.first_t - res.arrival_t) * 1e3, 3),
+            **extra,
+        }
+
+    # ---- execution ----
+    def step(self) -> bool:
+        """Execute one scheduler tick (admissions' prefills + the
+        shared decode step); False when there was nothing to do.  The
+        order at each boundary: brownout verdict -> plan (expiring
+        deadlines/cancels first) -> finalize expirations -> injected
+        crash/stall -> execute."""
+        with self._lock:
+            t0 = time.monotonic()
+            if self._started_t is None:
+                self._started_t = t0
+            self._update_brownout()
+            plan = self.sched.plan_tick(now=t0)
+            self._finalize_expired(self.sched.take_expired(), t0)
+            self.sched.finished.clear()
+            if plan is None:
+                return False
+            boundary = self._boundaries
+            self._boundaries += 1
+            if self.faults is not None:
+                if self.faults.crash(boundary):
+                    raise InjectedFault(
+                        f"injected crash at tick boundary {boundary}")
+                stall = (self.faults.stall(boundary)
+                         + self.faults.delay_s)
+                if stall > 0:
+                    time.sleep(stall)
+            for rid in plan.prefills:
+                self._run_prefill(rid)
+            decodes = [r for r in plan.decodes
+                       if not self.sched._seq(r).done]
+            if decodes:
+                self._run_decode(decodes, plan)
+            self._consec_crashes = 0
+            return True
+
+    def _update_brownout(self) -> None:
+        if self.brownout is None:
+            return
+        occ = self.sched.alloc.in_use / self.sched.alloc.usable
+        self._brownout_active = self.brownout.update(
+            self._brownout_active, occ, None)
+        self.sched.brownout = (
+            (self.brownout.clamp_new_tokens,
+             self.brownout.admit_per_tick)
+            if self._brownout_active else None)
+        self._brownout_clamped = self.sched.brownout_clamped
+
+    def _finalize_expired(self, pairs, now: float) -> None:
+        for rid, reason in pairs:
+            res = self._results.get(rid)
+            self._timeouts += 1
+            if res is None or res.event.is_set():
+                continue
+            res.status = "timeout"
+            res.error = ("cancelled by client" if reason == "cancel"
+                         else "deadline exceeded")
+            res.finish_t = now
+            self._seal(rid, res)
+
+    def run_until_idle(self) -> int:
+        """Drive ticks until every submitted request completed; returns
+        the number of executed ticks.  Supervision applies as in the
+        background loop."""
+        n = 0
+        while True:
+            try:
+                did = self.step()
+            except Exception as e:  # noqa: BLE001 — supervised loop
+                if self.engine_retries > 0 and self._recover(e):
+                    continue
+                raise
+            if not did:
+                with self._lock:
+                    if self.sched.idle:
+                        return n
+                time.sleep(0.001)
+                continue
+            n += 1
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def _sample(self, logits, temps: np.ndarray, domain: int):
+        """[B] sampled tokens as a host array; no noise is drawn when
+        every row is greedy."""
+        gen = self._generator(domain) if (temps > 0).any() else None
+        nxt = kvc.sample_tokens(logits, gen, self._tensor(temps))
+        return nxt.cpu().numpy()
+
+    def _run_prefill(self, rid: int) -> None:
+        seq = self.sched._seq(rid)
+        res = self._results[rid]
+        p = len(res.prompt)
+        pb = sched_lib.bucket_for(p, self.prompt_buckets)
+        wp = max(1, math.ceil(pb / self.page_size))
+        self.shapes_used.add(("prefill", pb, wp))
+        bt = np.full((1, wp), SCRATCH_PAGE, np.int64)
+        own = seq.pages[:wp]
+        bt[0, :len(own)] = own
+        toks = np.zeros((1, pb), np.int64)
+        toks[0, :p] = res.prompt
+        logits, self.cache = kvc.prefill_into_pages(
+            self.spec, self.params, self.cache, self._tensor(bt),
+            self._tensor(toks), self._tensor(np.asarray([p], np.int64)))
+        tok = int(self._sample(
+            logits, np.asarray([self._temps[rid]], np.float32),
+            2 * rid)[0])
+        now = time.monotonic()
+        res.tokens.append(tok)
+        res.first_t = now
+        self._last_tok[rid] = tok
+        self._prefills += 1
+        self._tokens_out += 1
+        self.sched.record_prefill(rid, now=now)
+        if seq.done:
+            self._finish(rid, now)
+
+    def _run_decode(self, rids: List[int], plan) -> None:
+        b, w = plan.batch_bucket, plan.kv_pages
+        self.shapes_used.add(("decode", b, w))
+        bt = np.full((b, w), SCRATCH_PAGE, np.int64)
+        tok = np.zeros((b,), np.int64)
+        pos = np.zeros((b,), np.int64)
+        temp = np.zeros((b,), np.float32)
+        for i, rid in enumerate(rids):
+            seq = self.sched._seq(rid)
+            own = seq.pages[:w]
+            bt[i, :len(own)] = own
+            tok[i] = self._last_tok[rid]
+            pos[i] = seq.length - 1
+            temp[i] = self._temps[rid]
+        self._tick += 1
+        logits, self.cache = kvc.paged_decode_step(
+            self.spec, self.params, self.cache, self._tensor(bt),
+            self._tensor(tok), self._tensor(pos))
+        out = self._sample(logits, temp, 2 * self._tick + 1)
+        now = time.monotonic()
+        for i, rid in enumerate(rids):
+            t = int(out[i])
+            self._results[rid].tokens.append(t)
+            self._last_tok[rid] = t
+            self._tokens_out += 1
+        self.sched.record_decode(rids, now=now)
+        for rid in rids:
+            if self.sched._seq(rid).done:
+                self._finish(rid, now)
+
+    def _finish(self, rid: int, now: float) -> None:
+        res = self._results[rid]
+        res.finish_t = now
+        res.status = "result"
+        self._completed += 1
+        self._lat_ms.append((now - res.arrival_t) * 1e3)
+        if res.first_t is not None:
+            self._ttft_ms.append((res.first_t - res.arrival_t) * 1e3)
+        self._seal(rid, res)
+
+    def _seal(self, rid: int, res: "_Result") -> None:
+        """The one terminal-sealing path (caller holds the lock)."""
+        self._temps.pop(rid, None)
+        self._last_tok.pop(rid, None)
+        self._finished_order.append(rid)
+        while len(self._finished_order) > RETAIN_FINISHED:
+            evicted = self._finished_order.popleft()
+            self._results.pop(evicted, None)
+            self._traces.pop(evicted, None)
+        res.event.set()
+
+    # ---- background loop (the HTTP front door's worker) ----
+    def start(self) -> None:
+        with self._work:
+            if self._running:
+                return
+            self._running = True
+        self._thread = threading.Thread(target=self._loop,
+                                        name="dtx-decode-engine",
+                                        daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        with self._work:
+            self._running = False
+            self._work.notify()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+
+    def _loop(self) -> None:
+        while True:
+            with self._work:
+                if not self._running:
+                    return
+            try:
+                did = self.step()
+            except Exception as e:   # noqa: BLE001 — the one thread
+                # every request depends on must not die silently
+                if self.engine_retries > 0 and self._recover(e):
+                    continue
+                self._fail(e)
+                return
+            if not did:
+                with self._work:
+                    if self._running:
+                        self._work.wait(timeout=0.02)
+
+    # ---- supervision (engine_retries > 0) ----
+    def _recover(self, e: BaseException) -> bool:
+        """A tick crashed under supervision: rebuild the scheduler and
+        the cache, re-queue every admitted-but-unfinished request (its
+        tokens discarded, prefill re-run) unless its retry budget is
+        spent (typed ``failed`` terminal), then back off.  Returns
+        True (the loop resumes)."""
+        msg = f"{type(e).__name__}: {e}"
+        now = time.monotonic()
+        with self._lock:
+            self._restarts += 1
+            self._consec_crashes += 1
+            old = self.sched
+            inflight = list(old.live)
+            waiting = list(old.waiting)
+            sys.stderr.write(
+                f"dtx-serve: engine loop crashed ({msg}); supervised "
+                f"restart {self._restarts} with {len(inflight)} "
+                f"in-flight re-queued\n")
+            self.sched = sched_lib.ContinuousScheduler(
+                self.num_pages, self.page_size, self.max_batch,
+                faults=self.faults)
+            # the FaultPlan's clocks and the tick index survive
+            self.sched.alloc.alloc_calls = old.alloc.alloc_calls
+            self.sched.alloc.injected_fails = old.alloc.injected_fails
+            self.sched.brownout_clamped = old.brownout_clamped
+            self.sched.ticks = old.ticks
+            self.sched._cancelled = set(old._cancelled)
+            self._finalize_expired(old.take_expired(), now)
+            self.cache = self._new_cache()
+            survivors = []
+            for s in inflight:
+                s.pages = []          # freed with the dead allocator
+                s.attempts += 1
+                res = self._results.get(s.rid)
+                if res is None or res.event.is_set():
+                    continue
+                if s.attempts > self.engine_retries:
+                    self._finalize_failed(
+                        s.rid, f"engine crashed {s.attempts} times "
+                               f"on this request "
+                               f"(engine_retries={self.engine_retries}"
+                               f"): {msg}",
+                        attempts=s.attempts, now=now)
+                    continue
+                res.tokens.clear()
+                res.first_t = None
+                self._last_tok.pop(s.rid, None)
+                self._requeued += 1
+                survivors.append(s)
+            for s in sorted(survivors + waiting,
+                            key=lambda st: (st.arrival, st.rid)):
+                self.sched.requeue(s)
+            self.sched._cancelled &= {s.rid for s in self.sched.waiting}
+            wait_s = backoff_s(self._consec_crashes - 1,
+                               base_s=RESTART_BACKOFF_BASE_S,
+                               cap_s=RESTART_BACKOFF_MAX_S)
+        if wait_s > 0:
+            time.sleep(wait_s)
+        with self._work:
+            self._work.notify()
+        return True
+
+    def _finalize_failed(self, rid: int, msg: str, attempts: int,
+                         now: float) -> None:
+        res = self._results.get(rid)
+        if res is None or res.event.is_set():
+            return
+        self._failed += 1
+        res.status = "failed"
+        res.error = msg
+        res.attempts = int(attempts)
+        res.finish_t = now
+        self._seal(rid, res)
+
+    def _fail(self, e: BaseException) -> None:
+        """A tick raised without supervision: record the failure,
+        refuse new submits, and fail every pending request now."""
+        msg = f"{type(e).__name__}: {e}"
+        sys.stderr.write(f"dtx-serve: decode engine loop died: {msg}\n"
+                         f"{traceback.format_exc()}")
+        with self._lock:
+            self._failure = msg
+            for res in self._results.values():
+                if res.finish_t is None and res.error is None:
+                    res.error = msg
+                    res.status = "failed"
+                    self._failed += 1
+                    res.event.set()
+        with self._work:
+            self._running = False
+
+    # ---- observability ----
+    def stats(self) -> dict:
+        """Point-in-time serving counters and rolling-window latency
+        percentiles (the JAX engine's ``stats()`` keys)."""
+        with self._lock:
+            lats = list(self._lat_ms)
+            ttfts = list(self._ttft_ms)
+            wall = (time.monotonic() - self._started_t
+                    if self._started_t is not None else 0.0)
+            toks = self._tokens_out
+            occ = self.sched.alloc.in_use / self.sched.alloc.usable
+            return {
+                "requests_total": self._accepted,
+                "completed_total": self._completed,
+                "inflight": len(self.sched.live),
+                "queued": len(self.sched.waiting),
+                "latency_p50_ms": _percentile(lats, 0.50),
+                "latency_p99_ms": _percentile(lats, 0.99),
+                "ttft_p50_ms": _percentile(ttfts, 0.50),
+                "ttft_p99_ms": _percentile(ttfts, 0.99),
+                "tokens_generated_total": toks,
+                "tokens_per_sec": (toks / wall if wall > 0 and toks
+                                   else None),
+                "page_occupancy_frac": round(occ, 6),
+                "decode_ticks_total": self._tick,
+                "prefills_total": self._prefills,
+                "shed_total": self._shed,
+                "timeout_total": self._timeouts,
+                "failed_total": self._failed,
+                "requeued_total": self._requeued,
+                "engine_restarts_total": self._restarts,
+                "queue_limit": self.max_queue,
+                "queue_peak": self._queue_peak,
+                "brownout_active": int(self._brownout_active),
+                "brownout_clamped_total": self._brownout_clamped,
+            }

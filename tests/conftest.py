@@ -48,6 +48,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running acceptance test, excluded "
         "from the tier-1 sweep (-m 'not slow')")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (the PyTorch port's CUDA "
+        "kernels); skips where torch.cuda.is_available() is false")
 
 
 @pytest.fixture(scope="session")
