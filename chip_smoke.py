@@ -21,7 +21,28 @@ Phases (any failure exits nonzero; none is caught and skipped):
    request's prefill logits held against the port's CPU path on the
    same params;
 4. start the CLI's HTTP server in process on an ephemeral port and
-   complete one ``POST /generate``.
+   complete one ``POST /generate``;
+
+and for the MLP trainer (``main.py`` -> ``train/loop.run``):
+
+2b. hold the MLP forward kernel (``mlp_forward``) against its plain
+    version at the trainer's two shapes — the reference MLP (100 rows,
+    784-100-10, sigmoid, f32) and the wide one (8192 rows,
+    784-4096-4096-10, relu, bf16) — logits and hiddens, and the logits
+    layer alone on the kernel's last hidden — and time it beside its
+    plain version, a cuBLAS ``addmm`` chain and its bound;
+5. train at full width: the JAX repo's ``mxu_wide_pallas`` bench
+   configuration (784-4096-4096-10, relu, bf16 compute over f32
+   params, global batch 8192, ``--pallas``, SGD) for one epoch of 8
+   steps on synthetic MNIST, launch counters zeroed just before and
+   read just after (``mlp_forward`` must have launched), every printed
+   cost finite; print the median step time and examples/s; then one
+   step from the same initial state on the card and on the port's CPU
+   path, the updated params held against each other;
+6. the reference command line on the card: ``main.py --pallas
+   --training_epochs=1`` (784-100-10 sigmoid f32, batch 100, 550
+   steps), its stdout held to the reference's format and its event
+   file read back.
 
 The last two lines of stdout are the kernel report JSON and the
 result JSON; the card's name and power limit come just before them.
@@ -31,10 +52,16 @@ nonzero without one.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import os
+import re
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 
@@ -63,6 +90,46 @@ FFN_ATOL = 1e-3
 # boundary moves one operand by up to 6%; 0.1 absolute is ~25 bf16 ulps
 # at magnitude 1.
 LOGITS_ATOL = 0.1
+# MLP forward, kernel vs plain version, (logits, hiddens) each relative
+# to max(1, the output's largest magnitude).  f32 (the reference
+# shape): each pre-activation sums 784 products in another order,
+# ~1e-5 absolute at these magnitudes, which the activation passes on
+# with slope up to 1: 1e-4.  bf16 (the wide shape): the plain version's
+# products run on the tensor cores, whose f32 sums take another order
+# than the kernel's; a hidden whose two pre-activations straddle a bf16
+# rounding boundary lands one bf16 ulp (2^-8 of its magnitude) apart, so
+# hiddens within 2^-7 of their scale.  0.65% of the second layer's
+# hiddens flip so (scripts/torch_mlp_rounding.py), and the logits sum
+# 4096 of them: 1.1e-3 to 1.3e-3 of their scale on the H100, so the
+# logits are held to 1e-2, the bound the CPU tests hold bf16 to against
+# JAX.  A wrong tile or a missed K slice is off by O(1) relative.
+MLP_RTOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2 ** -7)}
+# the logits layer against the plain layer on the kernel's own last
+# hidden (no flip carries over from an earlier layer): only the order
+# of the f32 sums differs, ~2e-6 of their scale on the H100 at the wide
+# shape, held to 1e-5
+MLP_LAYER_RTOL = 1e-5
+# one full-width SGD step, card vs the port's CPU path: the update
+# (new - old params) per leaf, relative to its largest magnitude.  Both
+# round the same operands to bf16; the f32 sums run in other orders, so
+# a few bf16 roundings of hiddens and of the backward's operands land
+# one ulp (2^-8) apart and carry into the gradient sums: 2e-2 of the
+# update's scale, where a wrong gradient is off by O(1).
+STEP_RTOL = 2e-2
+
+STEP_RE = re.compile(
+    r"^Step: \d+,  Epoch: [ \d]\d,  Batch: [ \d]{3} of [ \d]{3},"
+    r"  Cost: \d+\.\d{4},  AvgTime: +\d+\.\d{2}ms$")
+# the serving path's kernels (phase 3) and the trainer's (phases 5, 6)
+SERVE_WRAPPERS = ("fused_layer_norm", "fused_layer_norm_residual",
+                  "moe_grouped_matmul")
+TRAIN_WRAPPERS = ("mlp_forward",)
+# the JAX repo's mxu_wide_pallas bench row, one epoch of 8 steps
+WIDE_TRAIN = dict(hidden_sizes=(4096, 4096), activation="relu",
+                  compute_dtype="bfloat16", batch_size=8192, pallas=True,
+                  dataset="synthetic", synthetic_train_size=8 * 8192,
+                  synthetic_test_size=10000, training_epochs=1,
+                  summaries=False, frequency=1, seed=1)
 
 FULL_WIDTH = dict(input_size=1024, seq_len=1024, vocab_size=256,
                   d_model=1024, n_heads=8, num_blocks=4, d_ff=4096,
@@ -253,6 +320,110 @@ def check_grouped_ffn(card: str) -> list:
     return [("grouped_ffn", rows_list)]
 
 
+def check_mlp_forward(card: str) -> list:
+    """B1 at the trainer's two shapes, the main path's (the wide one)
+    first."""
+    from distributed_tensorflow_example_tpu_torch.models import mlp
+    from distributed_tensorflow_example_tpu_torch.ops import fused
+
+    shapes = [(8192, (4096, 4096), "relu", torch.bfloat16),
+              (100, (100,), "sigmoid", torch.float32)]
+    rows_list = []
+    for n, hidden, act_name, cdt in shapes:
+        spec = mlp.MLPSpec(hidden_sizes=hidden, activation=act_name,
+                           compute_dtype=cdt)
+        sizes = spec.layer_sizes
+        L = spec.num_layers
+
+        def make(i, spec=spec, n=n, cdt=cdt):
+            # the kernel's operands as the training step hands them over:
+            # x and W rounded to the compute dtype, f32 biases
+            g = _gen(9000 + n + i)
+            p = {}
+            for j in range(1, L + 1):
+                p[f"W{j}"] = torch.randn(sizes[j - 1], sizes[j], generator=g,
+                                         device="cuda").to(cdt)
+                p[f"b{j}"] = 0.1 * torch.randn(sizes[j], generator=g,
+                                               device="cuda")
+            x = torch.rand(n, sizes[0], generator=g, device="cuda").to(cdt)
+            return (spec, p, x)
+
+        esz = torch.tensor([], dtype=cdt).element_size()
+        weights = sum(sizes[j - 1] * sizes[j] for j in range(1, L + 1))
+        nbytes = (n * sizes[0] * esz + weights * esz
+                  + sum(sizes[1:]) * 4
+                  + sum(n * s_ * esz for s_ in sizes[1:-1])
+                  + n * sizes[-1] * 4)
+        flops = 2 * n * weights
+        sets = copies(make, nbytes)
+        # the logits through the wrapper the trainer calls; the hiddens
+        # (which the wrapper keeps for its backward) from the launches
+        # beneath it
+        with torch.no_grad():
+            logits = fused.mlp_forward(*sets[0])
+        _, hiddens = fused._mlp_forward_cuda(*sets[0])
+        ref_logits, ref_hiddens = fused.mlp_forward_reference(*sets[0])
+        torch.cuda.synchronize()
+        rtol_logits, rtol_hidden = MLP_RTOL[cdt]
+        scale = max(1.0, float(ref_logits.abs().max()))
+        err = float((logits - ref_logits).abs().max())
+        if not err <= rtol_logits * scale:
+            raise AssertionError(f"mlp_forward N={n} {sizes}: logits max "
+                                 f"|kernel - plain| {err} > {rtol_logits} "
+                                 f"x {scale}")
+        for j, (h, hr) in enumerate(zip(hiddens, ref_hiddens), start=1):
+            hs = max(1.0, float(hr.float().abs().max()))
+            he = float((h.float() - hr.float()).abs().max())
+            if not he <= rtol_hidden * hs:
+                raise AssertionError(f"mlp_forward N={n}: hidden {j} max "
+                                     f"|kernel - plain| {he} > "
+                                     f"{rtol_hidden} x {hs}")
+        # the logits layer alone, on the kernel's last hidden
+        last = mlp.dot_f32(hiddens[-1], sets[0][1][f"W{L}"], cdt) \
+            + sets[0][1][f"b{L}"]
+        layer_err = float((logits - last).abs().max())
+        if not layer_err <= MLP_LAYER_RTOL * scale:
+            raise AssertionError(f"mlp_forward N={n}: logits layer max "
+                                 f"|kernel - plain| {layer_err} > "
+                                 f"{MLP_LAYER_RTOL} x {scale}")
+
+        def lib(spec_, p, x):
+            # cuBLAS in the compute dtype with the bias folded in, then
+            # the activation: a yardstick of speed, not of the rounding
+            act = mlp._ACTIVATIONS[spec_.activation]
+            h = x
+            for j in range(1, spec_.num_layers + 1):
+                h = torch.addmm(p[f"b{j}"].to(h.dtype), h, p[f"W{j}"])
+                if j < spec_.num_layers:
+                    h = act(h)
+            return h
+
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / PEAK_FLOPS[cdt]
+        with torch.no_grad():
+            row = dict(rows=n, sizes=list(sizes), dtype=str(cdt),
+                       max_abs_err=err, rel_err=err / scale,
+                       logits_layer_rel_err=layer_err / scale,
+                       ms=device_ms(fused.mlp_forward, sets),
+                       plain_ms=device_ms(fused.mlp_forward_reference,
+                                          sets),
+                       library_ms=device_ms(lib, sets),
+                       bound_ms=max(t_bytes, t_ops) * 1e3,
+                       bound_by=("bytes" if t_bytes >= t_ops
+                                 else "operations"),
+                       bytes=nbytes, flops=flops)
+        log(f"[kernel] mlp_forward N={n} {'-'.join(map(str, sizes))} "
+            f"{act_name} {str(cdt).split('.')[-1]}: max_abs_err={err:.4g} "
+            f"(scale {scale:.4g}, tol {rtol_logits} x scale); logits "
+            f"layer alone {layer_err / scale:.3g} of scale (tol "
+            f"{MLP_LAYER_RTOL}); kernel "
+            f"{row['ms']:.5f} ms, plain {row['plain_ms']:.5f} ms, library "
+            f"{row['library_ms']:.5f} ms, bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}) on {card}")
+        rows_list.append(row)
+    return [("mlp_forward", rows_list)]
+
+
 def phase_serve(card: str, device: str = "cuda",
                 width: dict = FULL_WIDTH) -> dict:
     from distributed_tensorflow_example_tpu_torch.models import (
@@ -289,8 +460,8 @@ def phase_serve(card: str, device: str = "cuda",
     sync()
     wall = time.monotonic() - t0
     counts = fused.launch_counts()
-    for name, n in counts.items():
-        if n <= 0 and device == "cuda":
+    for name in SERVE_WRAPPERS:
+        if counts[name] <= 0 and device == "cuda":
             raise AssertionError(f"{name} never launched on the main path")
     results = [eng.result(r, timeout=0) for r in rids]
     for res in results:
@@ -366,6 +537,131 @@ def phase_http(flags=FULL_WIDTH_FLAGS) -> None:
         f"ttft {doc['ttft_ms']} ms, latency {doc['latency_ms']} ms")
 
 
+def _run_captured(fn, *args):
+    """``fn(*args)`` with its stdout captured, then echoed line by line;
+    returns ``(result, stdout)``."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*args)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"  | {line}")
+    return res, out
+
+
+def _train_counts(phase: str) -> dict:
+    from distributed_tensorflow_example_tpu_torch.ops import fused
+
+    torch.cuda.synchronize()
+    counts = fused.launch_counts()
+    for name in TRAIN_WRAPPERS:
+        if counts[name] <= 0:
+            raise AssertionError(f"{phase}: {name} never launched on the "
+                                 f"main path")
+    return counts
+
+
+def phase_train(card: str) -> dict:
+    """The trainer at full width (WIDE_TRAIN) on the card, then one step
+    from one initial state on the card and on the CPU."""
+    from distributed_tensorflow_example_tpu_torch.config import Config
+    from distributed_tensorflow_example_tpu_torch.data import mnist
+    from distributed_tensorflow_example_tpu_torch.ops import fused
+    from distributed_tensorflow_example_tpu_torch.parallel import step
+    from distributed_tensorflow_example_tpu_torch.train import loop, optim
+    from distributed_tensorflow_example_tpu_torch.train.state import (
+        TrainState, create_train_state)
+
+    cfg = Config(**WIDE_TRAIN, device="cuda")
+    torch.cuda.synchronize()
+    fused.reset_launch_counts()
+    res, out = _run_captured(loop.run, cfg)
+    counts = _train_counts("train")
+    costs = re.findall(r"Cost: ([^,\s]+)", out)
+    if len(costs) != res["steps"] + 1 or not all(
+            math.isfinite(float(c)) for c in costs):
+        raise AssertionError(f"train: printed costs {costs}")
+    if not re.search(r"^Test-Accuracy: \d+\.\d{2}$", out, flags=re.M):
+        raise AssertionError("train: no Test-Accuracy line")
+    step_ms = [float(m) for m in re.findall(r"AvgTime: +(\d+\.\d+)ms",
+                                            out)]
+    med = statistics.median(step_ms)
+    log(f"[train] {res['steps']} steps of global batch "
+        f"{res['global_batch']} ({cfg.hidden_sizes} {cfg.activation} "
+        f"{cfg.compute_dtype}, --pallas) on {card}: median step {med:.2f} ms ({cfg.batch_size / med * 1e3:.1f} "
+        f"examples/s), steps {step_ms} ms; whole run incl. eval "
+        f"{res['total_time_s']:.3f} s; launches {counts}")
+
+    spec = loop.make_spec(cfg)
+    opt = optim.make_optimizer(cfg, res["steps"])
+    body = step.make_sync_step_body(cfg, spec, opt)
+    on_card = create_train_state(spec, opt, seed=cfg.seed, device="cuda")
+    cpu_params = {k: v.cpu() for k, v in on_card.params.items()}
+    on_cpu = TrainState(on_card.step.cpu(), cpu_params,
+                        opt.init(cpu_params))
+    batch = mnist.synthesize_split(cfg.batch_size, seed=cfg.seed)
+    x, y = torch.from_numpy(batch.images), torch.from_numpy(batch.labels)
+    new_card, cost_card, _ = body(on_card, x.cuda(), y.cuda())
+    t0 = time.monotonic()
+    new_cpu, cost_cpu, _ = body(on_cpu, x, y)
+    cpu_s = time.monotonic() - t0
+    worst = 0.0
+    for k, old in cpu_params.items():
+        d_card = new_card.params[k].cpu() - old
+        d_cpu = new_cpu.params[k] - old
+        scale = float(d_cpu.abs().max())
+        rel = float((d_card - d_cpu).abs().max()) / max(scale, 1e-30)
+        worst = max(worst, rel)
+        if not rel <= STEP_RTOL:
+            raise AssertionError(f"train: one step, {k} update card vs CPU "
+                                 f"differs by {rel} of its scale {scale} "
+                                 f"> {STEP_RTOL}")
+    log(f"[train] one step card vs CPU path: cost {float(cost_card):.6g} "
+        f"vs {float(cost_cpu):.6g}, worst update difference {worst:.3g} of "
+        f"its scale (tol {STEP_RTOL}); CPU step {cpu_s:.1f} s")
+    return dict(counts=counts, step_ms_median=med, step_ms=step_ms,
+                examples_per_s=cfg.batch_size / med * 1e3)
+
+
+def phase_cli(card: str) -> dict:
+    """The reference command line (its defaults plus --pallas, one
+    epoch) on the card: stdout in the reference's format, the event
+    file read back."""
+    from distributed_tensorflow_example_tpu_torch import main as cli
+    from distributed_tensorflow_example_tpu_torch.ops import fused
+    from distributed_tensorflow_example_tpu_torch.utils.summary import (
+        read_event_file)
+
+    with tempfile.TemporaryDirectory() as logs:
+        torch.cuda.synchronize()
+        fused.reset_launch_counts()
+        rc, out = _run_captured(cli.main, ["--pallas", "--training_epochs=1",
+                                           f"--logs_path={logs}"])
+        counts = _train_counts("cli")
+        files = [f for f in os.listdir(logs) if f.startswith("events.")]
+        if rc != 0 or len(files) != 1:
+            raise AssertionError(f"cli: exit {rc}, event files {files}")
+        events = read_event_file(os.path.join(logs, files[0]))
+    lines = out.strip().split("\n")
+    steps = [ln for ln in lines if ln.startswith("Step:")]
+    if not (lines[0] == "Variables initialized ..." and len(steps) == 6
+            and all(STEP_RE.match(ln) for ln in steps)
+            and re.match(r"^Test-Accuracy: \d+\.\d{2}$", lines[-4])
+            and re.match(r"^Total Time: \d+\.\d{2}s$", lines[-3])
+            and re.match(r"^Final Cost: \d+\.\d{4}$", lines[-2])
+            and lines[-1] == "done"):
+        raise AssertionError("cli: stdout is not the reference's format")
+    scalars = [e for e in events if e["scalars"]]
+    if len(scalars) != 550 or any(set(e["scalars"]) != {"cost", "accuracy"}
+                                  for e in scalars) \
+            or sum(1 for e in events if e["graph_nodes"]) != 1:
+        raise AssertionError(f"cli: event file holds {len(scalars)} "
+                             f"scalar events")
+    log(f"[cli] reference format, 550 steps, {len(events)} events read back "
+        f"on {card}; launches {counts}")
+    return dict(counts=counts)
+
+
 KERNEL_META = {
     "layer_norm": dict(
         wrapper="fused_layer_norm",
@@ -385,6 +681,12 @@ KERNEL_META = {
                "grouped_ffn.cu",
         replaces="distributed_tensorflow_example_tpu/ops/pallas_fused.py:"
                  "518"),
+    "mlp_forward": dict(
+        wrapper="mlp_forward",
+        source="distributed_tensorflow_example_tpu_torch/ops/csrc/"
+               "mlp_forward.cu",
+        replaces="distributed_tensorflow_example_tpu/ops/pallas_fused.py:"
+                 "71"),
 }
 
 
@@ -398,13 +700,20 @@ def main() -> int:
         f"python {sys.version.split()[0]} on {card}")
     t0 = time.monotonic()
     phase_build()
-    measured = check_layer_norm(card) + check_grouped_ffn(card)
+    measured = (check_layer_norm(card) + check_grouped_ffn(card)
+                + check_mlp_forward(card))
     counts = phase_serve(card)
     phase_http()
+    train = phase_train(card)
+    phase_cli(card)
+    # each kernel's launches on its own main path: the full-width serve
+    # (phase 3) for the serving kernels, the full-width training run
+    # (phase 5) for the MLP forward
+    counts.update({k: train["counts"][k] for k in TRAIN_WRAPPERS})
     kernels = []
     for name, rows in measured:
         meta = KERNEL_META[name]
-        head = rows[0]          # the decode shape: what every tick runs
+        head = rows[0]          # the main path's shape (decode; wide MLP)
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"],

@@ -9,7 +9,8 @@ explicit ``device`` everywhere, ``torch.Generator`` for randomness.
 
 This package imports ``torch`` and never ``jax``, and nothing of the
 JAX package: where it needs one of that package's pure-Python modules
-(the serving scheduler, admission, faults) it carries its own copy.
+(the serving scheduler, admission, faults, the MNIST pipeline, the
+TensorBoard writer) it carries its own copy.
 
 Every TPU (Pallas) kernel on a ported path is a CUDA C++ kernel for
 Hopper (``sm_90a``) under ``ops/csrc/``, built with ``nvcc`` at first
@@ -19,8 +20,9 @@ only; for a CUDA tensor it launches the kernel or raises.
 
 Ported so far: the serving path (``serving/cli.py`` -> ``serving/
 engine.DecodeEngine`` -> prefill + paged decode) with the fused
-LayerNorm, LayerNorm+residual and grouped-FFN kernels.  ROADMAP.md
-queues the rest.
+LayerNorm, LayerNorm+residual and grouped-FFN kernels, and the MLP
+trainer (``main.py`` -> ``train/loop.run``) with the fused MLP forward
+kernel under ``--pallas``.  ROADMAP.md queues the rest.
 """
 
 from .device import resolve_device

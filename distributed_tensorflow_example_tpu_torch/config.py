@@ -1,18 +1,26 @@
-"""Flags of the port's serving front door.
+"""Flags of the port's front doors: the serving CLI and the trainer.
 
-The serving subset of the JAX package's ``config.py``, with the same
-flag names and defaults, so one command line drives either package's
-``serving/cli.py``.  Flags of features the port does not have yet are
-still parsed, and the CLI refuses them with a message naming ROADMAP.md
-instead of ignoring them.  ``--device`` is the port's own: the card
-(``cuda``) unless ``cpu`` is asked for.
+The serving and training subsets of the JAX package's ``config.py``, with
+the same flag names and defaults, so one command line drives either
+package.  ``build_parser`` is ``serving/cli.py``'s: flags of serving
+features the port does not have yet are still parsed, and the CLI
+refuses them with a message naming ROADMAP.md instead of ignoring them.
+``build_train_parser`` is ``main.py``'s: it knows the ported training
+flags only, and refuses every other flag of the JAX trainer (exit 2,
+naming ROADMAP.md) rather than ignore it.  ``--device`` is the port's
+own: the card (``cuda``) unless ``cpu`` is asked for.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
+
+
+class Unported(ValueError):
+    """A flag, value or mode of the JAX package that the port does not
+    have yet; the message names ROADMAP.md.  The CLIs exit 2 on it."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +57,47 @@ class Config:
     slo: str = ""
     replicas: int = 1
     replay: str = ""
+    # ---- training (main.py -> train/loop.run) ----
+    job_name: str = ""              # "", "ps" or "worker"; ps is absorbed
+    task_index: int = 0             # the process rank
+    coordinator_address: str = ""   # host:port of rank 0; "" = one process
+    num_processes: int = 1
+    batch_size: int = 100           # global batch size
+    learning_rate: float = 0.0005
+    training_epochs: int = 20
+    logs_path: str = "/tmp/mnist/1"
+    frequency: int = 100            # steps between throughput prints
+    num_classes: int = 10
+    hidden_sizes: Tuple[int, ...] = (100,)
+    naive_ce: bool = False
+    label_smoothing: float = 0.0
+    optimizer: str = "sgd"
+    lr_schedule: str = "constant"
+    warmup_steps: int = 0
+    schedule_steps: int = 0
+    lr_min_factor: float = 0.0
+    weight_decay: float = 0.0
+    grad_clip: float = 0.0
+    grad_accum: int = 1
+    momentum: float = 0.9
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    adam_moments_dtype: str = "float32"
+    grad_reduce: str = "mean"
+    pallas: bool = False            # MLP forward through the B1 kernel
+    data_dir: str = "MNIST_data"
+    dataset: str = "auto"
+    synthetic_train_size: int = 55000
+    synthetic_test_size: int = 10000
+    shard_data: bool = True
+    summaries: bool = True
+    summaries_all_hosts: bool = False
+    eval_all_hosts: bool = False
+    checkpoint_every: int = 0       # steps; 0 = only at exit
+    keep_checkpoints: int = 0
+    eval_batch_size: int = 2000
+    fast_loop: bool = True          # accepted; the port's loop is host-fed
     # ---- the port's own ----
     device: Optional[str] = None    # None = cuda
 
@@ -135,3 +184,135 @@ def validate_serving_config(cfg: Config) -> None:
 
 def parse_config(argv: Sequence[str] | None = None) -> Config:
     return Config(**vars(build_parser().parse_args(argv)))
+
+
+def _parse_hidden(s: str) -> Tuple[int, ...]:
+    return tuple(int(x) for x in s.replace(",", " ").split())
+
+
+def build_train_parser() -> argparse.ArgumentParser:
+    """The JAX trainer's flags that the port has, with its defaults."""
+    p = argparse.ArgumentParser(
+        prog="distributed_tensorflow_example_tpu_torch.main",
+        description="Train the reference MNIST MLP with the PyTorch port "
+                    "(on the card unless --device cpu).  Flags of the JAX "
+                    "trainer that are not ported exit 2 (ROADMAP.md).")
+    d = Config()
+    p.add_argument("--job_name", type=str, default=d.job_name,
+                   help="Either 'ps' or 'worker' (reference parity; there "
+                        "is no ps role — 'ps' trains as a worker)")
+    p.add_argument("--task_index", type=int, default=d.task_index,
+                   help="index of this process (its rank)")
+    p.add_argument("--coordinator_address", type=str,
+                   default=d.coordinator_address,
+                   help="host:port of rank 0 (torch.distributed TCP init)")
+    p.add_argument("--num_processes", type=int, default=d.num_processes)
+    p.add_argument("--batch_size", type=int, default=d.batch_size)
+    p.add_argument("--learning_rate", type=float, default=d.learning_rate)
+    p.add_argument("--training_epochs", type=int, default=d.training_epochs)
+    p.add_argument("--logs_path", type=str, default=d.logs_path)
+    p.add_argument("--seed", type=int, default=d.seed)
+    p.add_argument("--frequency", type=int, default=d.frequency)
+    p.add_argument("--model", type=str, default=d.model,
+                   choices=["mlp", "transformer"])
+    p.add_argument("--input_size", type=int, default=d.input_size)
+    p.add_argument("--num_classes", type=int, default=d.num_classes)
+    p.add_argument("--hidden_sizes", type=_parse_hidden,
+                   default=d.hidden_sizes, metavar="H1,H2,...",
+                   help="e.g. 100 or 256,128")
+    p.add_argument("--activation", type=str, default=d.activation,
+                   choices=["sigmoid", "relu", "tanh", "gelu"])
+    p.add_argument("--param_dtype", type=str, default=d.param_dtype)
+    p.add_argument("--compute_dtype", type=str, default=d.compute_dtype)
+    p.add_argument("--naive_ce", action="store_true")
+    p.add_argument("--label_smoothing", type=float,
+                   default=d.label_smoothing)
+    p.add_argument("--optimizer", type=str, default=d.optimizer,
+                   choices=["sgd", "momentum", "adam"])
+    p.add_argument("--lr_schedule", type=str, default=d.lr_schedule,
+                   choices=["constant", "cosine", "linear"])
+    p.add_argument("--warmup_steps", type=int, default=d.warmup_steps)
+    p.add_argument("--schedule_steps", type=int, default=d.schedule_steps)
+    p.add_argument("--lr_min_factor", type=float, default=d.lr_min_factor)
+    p.add_argument("--weight_decay", type=float, default=d.weight_decay)
+    p.add_argument("--grad_clip", type=float, default=d.grad_clip)
+    p.add_argument("--grad_accum", type=int, default=d.grad_accum)
+    p.add_argument("--momentum", type=float, default=d.momentum)
+    p.add_argument("--adam_b1", type=float, default=d.adam_b1)
+    p.add_argument("--adam_b2", type=float, default=d.adam_b2)
+    p.add_argument("--adam_eps", type=float, default=d.adam_eps)
+    p.add_argument("--adam_moments_dtype", type=str,
+                   default=d.adam_moments_dtype,
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--grad_reduce", type=str, default=d.grad_reduce,
+                   choices=["mean", "sum"])
+    p.add_argument("--pallas", action="store_true",
+                   help="run the MLP forward (train and eval) through the "
+                        "fused CUDA kernel (sigmoid/tanh/relu)")
+    p.add_argument("--data_dir", type=str, default=d.data_dir)
+    p.add_argument("--dataset", type=str, default=d.dataset,
+                   choices=["auto", "mnist", "synthetic"])
+    p.add_argument("--synthetic_train_size", type=int,
+                   default=d.synthetic_train_size)
+    p.add_argument("--synthetic_test_size", type=int,
+                   default=d.synthetic_test_size)
+    p.add_argument("--no_shard_data", dest="shard_data",
+                   action="store_false")
+    p.add_argument("--no_summaries", dest="summaries", action="store_false")
+    p.add_argument("--summaries_all_hosts", action="store_true")
+    p.add_argument("--eval_all_hosts", action="store_true")
+    p.add_argument("--checkpoint_dir", type=str, default=d.checkpoint_dir)
+    p.add_argument("--checkpoint_every", type=int,
+                   default=d.checkpoint_every)
+    p.add_argument("--keep_checkpoints", type=int,
+                   default=d.keep_checkpoints)
+    p.add_argument("--eval_batch_size", type=int, default=d.eval_batch_size)
+    p.add_argument("--no_fast_loop", dest="fast_loop", action="store_false",
+                   help="accepted for the JAX trainer's command lines; the "
+                        "port's loop feeds one batch per step from the "
+                        "host either way (the device-resident epoch is "
+                        "queued in ROADMAP.md)")
+    p.add_argument("--device", type=str, default=d.device,
+                   choices=["cuda", "cpu"],
+                   help="where training runs (default: the card)")
+    return p
+
+
+def parse_train_config(argv: Sequence[str] | None = None) -> Config:
+    """The trainer's flags; any flag the port does not have exits 2 with
+    a message naming ROADMAP.md."""
+    p = build_train_parser()
+    ns, rest = p.parse_known_args(argv)
+    if rest:
+        flags = sorted({a.split("=", 1)[0] for a in rest
+                        if a.startswith("-")}) or rest
+        p.error(f"{', '.join(flags)}: not ported to the PyTorch trainer "
+                f"yet (see ROADMAP.md Queue A)")
+    return Config(**vars(ns))
+
+
+def validate_train_config(cfg: Config) -> None:
+    """Value checks of the ported training flags; ``Unported`` for a
+    mode of the JAX trainer the port does not have."""
+    if cfg.model != "mlp":
+        raise Unported("--model=transformer training is not ported to the "
+                       "PyTorch trainer yet (ROADMAP.md Queue A, slice 3)")
+    if cfg.batch_size < 1 or cfg.training_epochs < 0 or cfg.frequency < 1:
+        raise ValueError("batch_size and frequency must be >= 1, "
+                         "training_epochs >= 0")
+    if not 0.0 <= cfg.label_smoothing < 1.0:
+        raise ValueError(
+            f"label_smoothing={cfg.label_smoothing} must be in [0, 1)")
+    if cfg.weight_decay < 0 or cfg.grad_clip < 0:
+        raise ValueError("weight_decay and grad_clip must be >= 0")
+    if cfg.grad_accum < 1:
+        raise ValueError(f"grad_accum={cfg.grad_accum} must be >= 1")
+    if cfg.keep_checkpoints < 0:
+        raise ValueError(
+            f"keep_checkpoints={cfg.keep_checkpoints} must be >= 0")
+    if cfg.eval_batch_size < 1:
+        raise ValueError(
+            f"eval_batch_size={cfg.eval_batch_size} must be >= 1")
+    if cfg.num_processes < 1 or not 0 <= cfg.task_index < cfg.num_processes:
+        raise ValueError(f"task_index={cfg.task_index} must be in "
+                         f"[0, num_processes={cfg.num_processes})")

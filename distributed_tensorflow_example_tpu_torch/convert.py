@@ -11,6 +11,12 @@
   ``ckpt-*.npz`` under a directory), found the way the JAX
   ``dtx-serve`` finds them: by the tail of each saved tree path, with
   bf16 leaves decoded from their 16-bit containers.
+- ``mlp_params_from_numpy(np_params, spec, device)``: the same as
+  ``params_from_numpy`` for an ``MLPSpec`` (``{W1, b1, ...}``).
+- ``train_state_from_checkpoint(path, spec, optimizer, device)``: a
+  whole training state (step, params, optimizer slots) out of a JAX
+  training checkpoint, the keys matched exactly
+  (``utils/checkpoint.restore_checkpoint``).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
+from .models import mlp
 from .models import transformer as tfm
 
 
@@ -46,13 +53,9 @@ def _decode_leaf(a: np.ndarray, dtype_name: str) -> torch.Tensor:
     return _to_tensor(a.view(np.dtype(dtype_name)))
 
 
-def params_from_numpy(np_params: Dict[str, np.ndarray],
-                      spec: tfm.TransformerSpec,
-                      device: DeviceLike = None) -> tfm.Params:
-    """The JAX package's numpy params as the port's params (same names
-    and layouts) in ``spec.param_dtype`` on ``device``."""
+def _params_from_numpy(np_params, expect: Dict[str, Tuple[int, ...]],
+                       param_dtype, device: DeviceLike):
     dev = resolve_device(device)
-    expect = tfm.param_shapes(spec)
     missing = sorted(set(expect) - set(np_params))
     extra = sorted(set(np_params) - set(expect))
     if missing or extra:
@@ -65,8 +68,43 @@ def params_from_numpy(np_params: Dict[str, np.ndarray],
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                              f"{shape}")
-        out[name] = t.to(device=dev, dtype=spec.param_dtype)
+        out[name] = t.to(device=dev, dtype=param_dtype)
     return out
+
+
+def params_from_numpy(np_params: Dict[str, np.ndarray],
+                      spec: tfm.TransformerSpec,
+                      device: DeviceLike = None) -> tfm.Params:
+    """The JAX package's numpy params as the port's params (same names
+    and layouts) in ``spec.param_dtype`` on ``device``."""
+    return _params_from_numpy(np_params, tfm.param_shapes(spec),
+                              spec.param_dtype, device)
+
+
+def mlp_params_from_numpy(np_params: Dict[str, np.ndarray],
+                          spec: mlp.MLPSpec,
+                          device: DeviceLike = None) -> mlp.Params:
+    """The JAX package's MLP params (``{W1: [s0, s1], b1: [s1], ...}`` as
+    numpy) as the port's, in ``spec.param_dtype`` on ``device``."""
+    return _params_from_numpy(np_params, mlp.param_shapes(spec),
+                              spec.param_dtype, device)
+
+
+def train_state_from_checkpoint(path: str, spec: mlp.MLPSpec, optimizer,
+                                device: DeviceLike = None):
+    """``(TrainState, step, epoch)`` from a JAX training checkpoint (a
+    ``.npz``, or the newest ``ckpt-*.npz`` under a directory) written
+    for ``spec`` with ``optimizer``'s slots."""
+    from .train.state import create_train_state
+    from .utils.checkpoint import latest_checkpoint, restore_checkpoint
+
+    if os.path.isdir(path):
+        found = latest_checkpoint(path)
+        if found is None:
+            raise FileNotFoundError(f"no ckpt-*.npz under {path}")
+        path = found
+    template = create_train_state(spec, optimizer, device=device)
+    return restore_checkpoint(path, template)
 
 
 def params_from_checkpoint(path: str, spec: tfm.TransformerSpec,
@@ -103,4 +141,5 @@ def params_from_checkpoint(path: str, spec: tfm.TransformerSpec,
     return params_from_numpy(found, spec, device), path
 
 
-__all__ = ["params_from_numpy", "params_from_checkpoint"]
+__all__ = ["params_from_numpy", "params_from_checkpoint",
+           "mlp_params_from_numpy", "train_state_from_checkpoint"]

@@ -1,2 +1,3 @@
-"""Model families of the port (the serving subset of the transformer so
-far; ``mlp`` holds only the shared activation table)."""
+"""Model families of the port: the MLP (``mlp``, with the activation
+table every family shares) and the serving subset of the transformer
+(``transformer``)."""

@@ -43,6 +43,8 @@ SIGNATURES = {
     # x, w1, b1, w2, b2, h1, out, E, C, d, ff, act, dtype, stream
     "dtx_grouped_ffn_fwd": (_P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _P),
+    # A, W, bias, out, M, N, K, act, dtype, last, stream
+    "dtx_mlp_layer_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,6 @@
-"""Fused LayerNorm (+ residual add) and the grouped FFN: the wrappers
-of the port's hand-written Hopper kernels, each beside its plain
-PyTorch version.
+"""Fused LayerNorm (+ residual add), the grouped FFN and the MLP
+forward: the wrappers of the port's hand-written Hopper kernels, each
+beside its plain PyTorch version.
 
 =========================  ==============================  ==========================
 wrapper                    CUDA source (ops/csrc/)         TPU kernel it replaces
@@ -8,6 +8,7 @@ wrapper                    CUDA source (ops/csrc/)         TPU kernel it replace
 fused_layer_norm           layer_norm.cu                   pallas_fused._ln_fwd_kernel
 fused_layer_norm_residual  layer_norm.cu                   pallas_fused._ln_res_fwd_kernel
 moe_grouped_matmul         grouped_ffn.cu (two launches)   pallas_fused._moe_kernel
+mlp_forward                mlp_forward.cu (one per layer)  pallas_fused._make_kernel
 =========================  ==============================  ==========================
 
 ``fp8_grouped_matmul`` and ``fp8_dense_ffn`` are no kernels of their
@@ -16,7 +17,8 @@ own: they round the operands with ``ops/quant.fp8_round`` and call
 
 Dispatch is by the device of the tensors given: for CPU tensors a
 wrapper computes its plain version (``*_reference``, the same op
-sequence as the JAX package's ``_ln_rows`` / ``_moe_kernel``); for
+sequence as the JAX package's ``_ln_rows`` / ``_moe_kernel`` /
+``_layer``); for
 CUDA tensors it checks device, dtype, shape and contiguity, allocates
 its outputs with ``torch.empty``, launches on the current stream and
 raises if the launch returns an error.  There is no fallback from the
@@ -24,10 +26,16 @@ kernel to the plain version.
 
 Every wrapper carries ``launches``, a plain integer it raises by one
 each time it launches its kernel (``moe_grouped_matmul`` counts one
-per call, which is two CUDA launches); ``launch_counts`` and
-``reset_launch_counts`` read and zero them, so a run can show that
-its main path went through the kernels.  Forward only: the backward
-kernels come with the training slice.
+per call, which is two CUDA launches; ``mlp_forward`` one per call, L
+launches for L layers); ``launch_counts`` and ``reset_launch_counts``
+read and zero them, so a run can show that its main path went through
+the kernels.
+
+``mlp_forward`` is differentiable (``torch.autograd.Function``): its
+backward is the JAX package's ``_bwd``, plain matrix products as there
+(the TPU package has no backward kernel for it).  The other wrappers
+are forward only; their backward kernels come with the transformer
+training slice.
 """
 
 from __future__ import annotations
@@ -35,13 +43,18 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ..models.mlp import _ACTIVATIONS
+from ..models.mlp import _ACTIVATIONS, apply_with_hiddens, dot_f32
 
 LN_EPS = 1e-6
 
 # dtype and activation codes of the C interface (ops/csrc/*.cu)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODES = {"gelu": 0, "relu": 1, "tanh": 2, "sigmoid": 3}
+# activations whose derivative is a function of the saved activation
+# output (the hiddens mlp_forward keeps); gelu needs the pre-activation,
+# so the training step gates --pallas on this set (the JAX package's
+# pallas_fused.SUPPORTED_ACTIVATIONS)
+SUPPORTED_MLP_ACTIVATIONS = ("sigmoid", "tanh", "relu")
 
 
 # ---------------------------------------------------------------------------
@@ -79,6 +92,23 @@ def grouped_ffn_reference(activation, cdt, buf, we1, be1, we2, be2):
     h1 = act(z1).to(cdt)
     return torch.bmm(h1.to(torch.float32), we2.to(cdt).to(torch.float32)) \
         + be2.to(torch.float32)[:, None]
+
+
+# ``(logits, hiddens)``: the plain MLP forward is the model's own
+mlp_forward_reference = apply_with_hiddens
+
+
+def _act_grad(name: str, h):
+    """d act / dz from the activation output ``h`` (in h's dtype, as
+    the JAX ``_act_grad``): sigmoid' = h(1-h), tanh' = 1-h^2,
+    relu' = h > 0."""
+    if name == "sigmoid":
+        return h * (1.0 - h)
+    if name == "tanh":
+        return 1.0 - h * h
+    if name == "relu":
+        return (h > 0).to(h.dtype)
+    raise NotImplementedError(name)
 
 
 # ---------------------------------------------------------------------------
@@ -204,6 +234,98 @@ def moe_grouped_matmul(activation: str, cdt, buf, we1, be1, we2, be2):
     return out
 
 
+def _mlp_names(spec):
+    return [f"{p}{i}" for i in range(1, spec.num_layers + 1)
+            for p in ("W", "b")]
+
+
+def _mlp_forward_cuda(spec, params, x):
+    """The ``mlp_forward.cu`` kernel, one launch per layer; returns
+    ``(logits, hiddens)`` like ``mlp_forward_reference``."""
+    cdt = spec.compute_dtype
+    if cdt not in _DTYPE_CODES:
+        raise ValueError(f"compute dtype {cdt}: the kernel takes "
+                         f"{list(_DTYPE_CODES)}")
+    if spec.activation not in SUPPORTED_MLP_ACTIVATIONS:
+        raise ValueError(f"activation {spec.activation!r}: the kernel "
+                         f"takes {list(SUPPORTED_MLP_ACTIVATIONS)}")
+    sizes = spec.layer_sizes
+    n = x.shape[0]
+    _require("x", x, shape=(n, sizes[0]))
+    h = x.to(cdt)
+    hiddens = []
+    L = spec.num_layers
+    for i in range(1, L + 1):
+        w = params[f"W{i}"]
+        _require(f"W{i}", w, shape=(sizes[i - 1], sizes[i]))
+        w = w.to(cdt)
+        b = _f32_vector(f"b{i}", params[f"b{i}"], sizes[i])
+        last = i == L
+        out = torch.empty((n, sizes[i]),
+                          dtype=torch.float32 if last else cdt,
+                          device=x.device)
+        _launch("dtx_mlp_layer_fwd", h.data_ptr(), w.data_ptr(),
+                b.data_ptr(), out.data_ptr(), n, sizes[i], sizes[i - 1],
+                _ACT_CODES[spec.activation], _DTYPE_CODES[cdt], int(last))
+        if not last:
+            hiddens.append(out)
+            h = out
+    mlp_forward.launches += 1
+    return out, tuple(hiddens)
+
+
+class _MLPForward(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or its plain version (CPU), keeping
+    the hiddens.  Backward: the JAX package's ``_bwd`` — products on
+    cdt-rounded operands with f32 accumulation, the delta chain in f32,
+    gradients cast to the params' dtype and dx (when x needs one) to
+    x's."""
+
+    @staticmethod
+    def forward(ctx, spec, x, *flat):
+        params = dict(zip(_mlp_names(spec), flat))
+        if _on_cpu(x, *flat):
+            logits, hiddens = mlp_forward_reference(spec, params, x)
+        else:
+            logits, hiddens = _mlp_forward_cuda(spec, params, x)
+        ctx.spec = spec
+        ctx.save_for_backward(x, *flat, *hiddens)
+        return logits
+
+    @staticmethod
+    def backward(ctx, g):
+        spec = ctx.spec
+        cdt = spec.compute_dtype
+        L = spec.num_layers
+        names = _mlp_names(spec)
+        x, *rest = ctx.saved_tensors
+        params = dict(zip(names, rest[:2 * L]))
+        hiddens = rest[2 * L:]
+        acts = (x, *hiddens)            # the inputs of layers 1..L
+        grads = {}
+        delta = g.to(torch.float32)     # dL/dz_L; the chain stays f32
+        for i in range(L, 0, -1):
+            grads[f"W{i}"] = dot_f32(acts[i - 1].T, delta, cdt)
+            grads[f"b{i}"] = torch.sum(delta, dim=0)
+            if i > 1:
+                da = dot_f32(delta, params[f"W{i}"].T, cdt)
+                delta = da * _act_grad(spec.activation,
+                                       hiddens[i - 2]).to(torch.float32)
+        dx = (dot_f32(delta, params["W1"].T, cdt).to(x.dtype)
+              if ctx.needs_input_grad[1] else None)
+        return (None, dx, *(grads[k].to(params[k].dtype) for k in names))
+
+
+def mlp_forward(spec, params, x):
+    """f32 logits of the MLP ``spec`` (the drop-in for ``models.mlp.
+    apply`` on the ``--pallas`` path), differentiable in ``params`` and
+    ``x``.  CUDA: one ``mlp_forward.cu`` launch per layer, hiddens
+    kept for the backward; x [N, s_0] contiguous, cdt f32 or bf16,
+    activation sigmoid/tanh/relu."""
+    return _MLPForward.apply(spec, x, *(params[k] for k in
+                                        _mlp_names(spec)))
+
+
 def _fp8_operands(buf, we1, we2):
     """Round the three matmul operands onto their per-expert fp8 grids
     (axis (1, 2): everything but the leading expert dim)."""
@@ -229,7 +351,7 @@ def fp8_dense_ffn(activation: str, cdt, x2, w1, b1, w2, b2):
 
 
 KERNEL_WRAPPERS = (fused_layer_norm, fused_layer_norm_residual,
-                   moe_grouped_matmul)
+                   moe_grouped_matmul, mlp_forward)
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0
 
@@ -246,6 +368,7 @@ def reset_launch_counts() -> None:
 
 __all__ = ["fused_layer_norm", "fused_layer_norm_residual",
            "moe_grouped_matmul", "fp8_grouped_matmul", "fp8_dense_ffn",
-           "layer_norm_reference", "layer_norm_residual_reference",
-           "grouped_ffn_reference", "launch_counts", "reset_launch_counts",
-           "KERNEL_WRAPPERS"]
+           "mlp_forward", "layer_norm_reference",
+           "layer_norm_residual_reference", "grouped_ffn_reference",
+           "mlp_forward_reference", "SUPPORTED_MLP_ACTIVATIONS",
+           "launch_counts", "reset_launch_counts", "KERNEL_WRAPPERS"]

@@ -1,0 +1,2 @@
+"""The synchronous data-parallel step of the port (``step``): gradients
+all-reduced with ``torch.distributed`` across processes."""

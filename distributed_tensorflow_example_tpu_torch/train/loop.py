@@ -1,0 +1,223 @@
+"""The training loop: the host path of the JAX package's
+``train/loop.py``, for the MLP.
+
+``run(cfg)`` loads the data, builds the seeded train state on the card
+(``cfg.device``; the CPU only when asked for), then walks
+``training_epochs`` epochs of ``EpochIterator`` batches, one synchronous
+data-parallel step per batch (``parallel/step.py``).  It prints the
+reference's stdout byte for byte modulo the values:
+
+    Variables initialized ...
+    Step: N,  Epoch:  E,  Batch:   B of 550,  Cost: C,  AvgTime: T.TTms
+    ...
+    Test-Accuracy: A
+    Total Time: S.SSs
+    Final Cost: C
+    done
+
+writes the ``cost``/``accuracy`` scalar summaries every step and the
+graph record once (``--logs_path``; chief only unless
+``--summaries_all_hosts``), saves ``.npz`` checkpoints in the JAX
+package's layout (``--checkpoint_dir``, every ``--checkpoint_every``
+steps and at the end) and returns the JAX ``run``'s result keys.
+
+The JAX package's default fast path (the whole epoch as one compiled
+scan over a device-resident dataset) is not ported: the port feeds one
+batch per step from the host whether or not ``--no_fast_loop`` is given.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .. import cluster
+from ..config import Config, validate_train_config
+from ..data import EpochIterator, load_datasets
+from ..device import dtype_from_name, resolve_device
+from ..models.mlp import MLPSpec
+from ..parallel import step as step_lib
+from ..utils import checkpoint as ckpt_lib
+from ..utils.summary import SummaryWriter, mlp_graph_nodes
+from .optim import make_optimizer
+from .state import create_train_state
+
+
+def make_spec(cfg: Config) -> MLPSpec:
+    """The MLP the flags describe."""
+    return MLPSpec(
+        input_size=cfg.input_size,
+        hidden_sizes=tuple(cfg.hidden_sizes),
+        num_classes=cfg.num_classes,
+        activation=cfg.activation,
+        param_dtype=dtype_from_name(cfg.param_dtype),
+        compute_dtype=dtype_from_name(cfg.compute_dtype),
+    )
+
+
+def _global_batch(cfg: Config, dp: int) -> int:
+    """Round the global batch up to a multiple of the process count."""
+    b = cfg.batch_size
+    if b % dp:
+        b = ((b + dp - 1) // dp) * dp
+        print(f"NOTE: batch_size {cfg.batch_size} rounded up to {b} "
+              f"(must divide data-parallel degree {dp})")
+    return b
+
+
+def _print_window(step: int, epoch: int, batch_i: int, batch_count: int,
+                  cost: float, elapsed_time: float, frequency: int) -> None:
+    """The reference's throughput print, byte for byte."""
+    print("Step: %d," % (step + 1),
+          " Epoch: %2d," % (epoch + 1),
+          " Batch: %3d of %3d," % (batch_i + 1, batch_count),
+          " Cost: %.4f," % cost,
+          " AvgTime: %3.2fms" % float(elapsed_time * 1000 / frequency))
+
+
+def _eval_accuracy(eval_step, params, images: np.ndarray,
+                   labels: np.ndarray, chunk: int, device) -> float:
+    """Accuracy over a whole split, in chunks of ``chunk`` examples; the
+    last chunk is zero-padded and masked, as in the JAX package."""
+    n = images.shape[0]
+    chunk = max(1, min(chunk, n))
+    correct = 0.0
+    for off in range(0, n, chunk):
+        x = images[off: off + chunk]
+        y = labels[off: off + chunk]
+        valid = x.shape[0]
+        if valid < chunk:
+            pad = chunk - valid
+            x = np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
+            y = np.concatenate([y, np.zeros((pad,) + y.shape[1:], y.dtype)])
+        mask = (np.arange(chunk) < valid).astype(np.float32)
+        correct += float(eval_step(params, torch.from_numpy(x).to(device),
+                                   torch.from_numpy(y).to(device),
+                                   torch.from_numpy(mask).to(device)))
+    return correct / n
+
+
+def run(cfg: Config) -> Dict[str, Any]:
+    """Train per the config; returns the metrics the reference prints
+    (the JAX ``run``'s result keys)."""
+    validate_train_config(cfg)
+    dev = resolve_device(cfg.device)
+    spec = make_spec(cfg)
+    cluster.bootstrap(cfg)
+    writer = None
+    try:
+        proc_idx = cluster.process_index()
+        proc_cnt = cluster.process_count()
+        chief = proc_idx == 0
+
+        dataset = load_datasets(
+            cfg.data_dir, cfg.dataset, seed=0,
+            synthetic_train_size=cfg.synthetic_train_size,
+            synthetic_test_size=cfg.synthetic_test_size,
+            input_size=cfg.input_size)
+        global_batch = _global_batch(cfg, proc_cnt)
+        total_steps = cfg.training_epochs * max(
+            1, dataset.train.images.shape[0] // global_batch)
+        optimizer = make_optimizer(cfg, total_steps)
+        state = create_train_state(spec, optimizer, seed=cfg.seed,
+                                   device=dev)
+        train_step = step_lib.make_sync_step_body(cfg, spec, optimizer)
+        eval_step = step_lib.build_eval_step(cfg, spec)
+        print("Variables initialized ...")
+
+        if cfg.summaries and (chief or cfg.summaries_all_hosts):
+            writer = SummaryWriter(cfg.logs_path)
+            writer.add_graph(mlp_graph_nodes(
+                cfg.input_size, tuple(cfg.hidden_sizes), cfg.num_classes,
+                cfg.activation, optimizer=cfg.optimizer))
+
+        def save_state(step: int, resume_epoch: int) -> None:
+            if chief:
+                ckpt_lib.save_checkpoint(cfg.checkpoint_dir, state, step,
+                                         resume_epoch)
+                if cfg.keep_checkpoints:
+                    ckpt_lib.prune_checkpoints(cfg.checkpoint_dir,
+                                               cfg.keep_checkpoints)
+
+        ckpt_enabled = bool(cfg.checkpoint_dir and cfg.checkpoint_every)
+        last_ckpt_step = 0
+
+        epochs_done = 0
+        begin_time = time.time()
+        frequency = cfg.frequency
+        cost = float("nan")
+        examples_seen = 0
+        iterator = EpochIterator(
+            dataset.train, batch_size=global_batch // proc_cnt,
+            seed=cfg.seed, shard=cfg.shard_data, process_index=proc_idx,
+            process_count=proc_cnt)
+        start_time = time.time()
+        steps_done = 0
+        for epoch in range(cfg.training_epochs):
+            batch_count = iterator.batches_per_epoch
+            count = 0
+            for i, (batch_x, batch_y) in enumerate(iterator.epoch(epoch)):
+                x = torch.from_numpy(batch_x).to(dev)
+                y = torch.from_numpy(batch_y).to(dev)
+                state, cost_dev, acc_dev = train_step(state, x, y)
+                steps_done += 1
+                examples_seen += global_batch
+                if writer is not None:
+                    # the reference writes cost and accuracy every step
+                    cost = float(cost_dev)
+                    writer.add_scalars(steps_done, {
+                        "cost": cost, "accuracy": float(acc_dev)})
+                count += 1
+                if count % frequency == 0 or i + 1 == batch_count:
+                    cost = float(cost_dev)
+                    elapsed_time = time.time() - start_time
+                    start_time = time.time()
+                    _print_window(steps_done, epoch, i, batch_count, cost,
+                                  elapsed_time, frequency)
+                    count = 0
+                every = cfg.checkpoint_every
+                if ckpt_enabled and (steps_done // every
+                                     > last_ckpt_step // every):
+                    save_state(steps_done, epoch)
+                    last_ckpt_step = steps_done
+            epochs_done = epoch + 1
+
+        test_acc = _eval_accuracy(eval_step, state.params,
+                                  dataset.test.images, dataset.test.labels,
+                                  cfg.eval_batch_size, dev)
+        total_time = time.time() - begin_time
+        cost = float(cost)
+        if chief or cfg.eval_all_hosts:
+            print("Test-Accuracy: %2.2f" % test_acc)
+        if chief:
+            print("Total Time: %3.2fs" % float(total_time))
+            print("Final Cost: %.4f" % cost)
+        if cfg.checkpoint_dir:
+            save_state(steps_done, cfg.training_epochs)
+        if chief:
+            print("done")
+    finally:
+        if writer is not None:
+            writer.close()
+        cluster.shutdown()
+    return {
+        "test_accuracy": test_acc,
+        "total_time_s": total_time,
+        "final_cost": cost,
+        "steps": steps_done,
+        "examples_seen": examples_seen,
+        "examples_per_sec": (examples_seen / total_time
+                             if total_time > 0 else 0.0),
+        "dataset_source": dataset.source,
+        "devices": proc_cnt,
+        "global_batch": global_batch,
+        "fast_loop": False,
+        "epochs_completed": epochs_done,
+        "stopped_early": False,
+        "anomalies": 0,
+        "skipped_steps": 0,
+        "profile_windows": 0,
+    }

@@ -16,6 +16,7 @@ checked by ``chip_smoke.py``.
 import pytest
 import torch
 
+from distributed_tensorflow_example_tpu_torch.models import mlp
 from distributed_tensorflow_example_tpu_torch.ops import fused
 
 
@@ -130,7 +131,7 @@ def test_wrappers_count_launches_and_refuse_bad_input_on_card(card):
     torch.cuda.synchronize()
     assert fused.launch_counts() == {
         "fused_layer_norm": 1, "fused_layer_norm_residual": 1,
-        "moe_grouped_matmul": 1}
+        "moe_grouped_matmul": 1, "mlp_forward": 0}
     with pytest.raises(ValueError, match="contiguous"):
         fused.fused_layer_norm(torch.randn(64, 4, device=card).t(), g, b)
     with pytest.raises(ValueError, match="CPU or all on one CUDA"):
@@ -140,3 +141,122 @@ def test_wrappers_count_launches_and_refuse_bad_input_on_card(card):
         fused.fused_layer_norm(wide, torch.ones(12257, device=card),
                                torch.zeros(12257, device=card))
     assert fused.launch_counts()["fused_layer_norm"] == 1
+
+
+# (rows, hidden sizes, activation, compute dtype): rows not a multiple
+# of the 64-row tile, the reference's 784 input width (not a multiple
+# of the 32-deep K slice) and narrow 100/10 layers, both dtypes
+MLP_SHAPES = [
+    (1, (100,), "sigmoid", torch.float32),
+    (100, (100,), "sigmoid", torch.float32),
+    (130, (37, 65), "tanh", torch.float32),
+    (257, (100,), "relu", torch.bfloat16),
+    (70, (300, 129), "relu", torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hidden,act,cdt", MLP_SHAPES)
+def test_mlp_forward_kernel_matches_plain_on_card(card, n, hidden, act,
+                                                  cdt):
+    """B1 against its plain version on the card.  f32: each
+    pre-activation sums 784 products in another order (~1e-5 absolute
+    at these magnitudes), which tanh passes on with slope up to 1, so
+    hiddens and logits within 1e-4 of max(1, their scale).  bf16: a
+    hidden whose pre-activations straddle a bf16 rounding boundary lands
+    one bf16 ulp apart (hiddens within 2^-7 of their scale, logits
+    1e-3)."""
+    spec = mlp.MLPSpec(hidden_sizes=hidden, activation=act,
+                       compute_dtype=cdt)
+    params = mlp.init(spec, seed=n, device=card)
+    gen = torch.Generator(device=card).manual_seed(n)
+    for k in params:
+        if k.startswith("b"):
+            params[k] = 0.1 * torch.randn(params[k].shape, generator=gen,
+                                          device=card)
+    x = torch.rand(n, 784, generator=gen, device=card)
+    logits, hiddens = fused._mlp_forward_cuda(spec, params, x)
+    want, want_h = fused.mlp_forward_reference(spec, params, x)
+    tol, tol_h = (1e-4, 1e-4) if cdt == torch.float32 else (1e-3, 2 ** -7)
+    atol = tol * max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(logits, want, rtol=0, atol=atol)
+    # the wrapper the trainer calls: the same launches, the same logits
+    torch.testing.assert_close(fused.mlp_forward(spec, params, x), logits,
+                               rtol=0, atol=0)
+    assert [h.dtype for h in hiddens] == [cdt] * len(hidden)
+    for h, w in zip(hiddens, want_h):
+        scale = max(1.0, float(w.float().abs().max()))
+        torch.testing.assert_close(h.float(), w.float(), rtol=0,
+                                   atol=tol_h * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_mlp_forward_gradients_on_card_match_cpu(card, cdt):
+    """The autograd backward on the card (the kernel's hiddens; bf16
+    products on the tensor cores with f32 output) against the same
+    function on the CPU: 1e-4 of each gradient's scale in f32, 2e-2 in
+    bf16.  One call is one counted launch."""
+    spec = mlp.MLPSpec(hidden_sizes=(48, 20), activation="relu",
+                       compute_dtype=cdt)
+    params = mlp.init(spec, seed=0, device=card)
+    x = torch.rand(70, 784, device=card)
+
+    def grads(dev):
+        leaves = {k: v.detach().to(dev).clone().requires_grad_(True)
+                  for k, v in params.items()}
+        xx = x.detach().to(dev).clone().requires_grad_(True)
+        fused.mlp_forward(spec, leaves, xx).square().mean().backward()
+        return {**{k: v.grad.cpu() for k, v in leaves.items()},
+                "x": xx.grad.cpu()}
+
+    fused.reset_launch_counts()
+    on_card = grads(card)
+    assert fused.launch_counts()["mlp_forward"] == 1
+    on_cpu = grads("cpu")
+    tol = 1e-4 if cdt == torch.float32 else 2e-2
+    for k, want in on_cpu.items():
+        torch.testing.assert_close(on_card[k], want, rtol=0,
+                                   atol=tol * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["relu", "gelu"])
+def test_plain_mlp_gradients_on_card_match_cpu(card, act):
+    """The plain ``mlp.apply`` in bf16 (the step without ``--pallas``,
+    and gelu with it), differentiated by autograd through ``dot_f32``'s
+    tensor-core products on the card, against the same function on the
+    CPU: logits within 1e-3 and gradients within 2e-2 of their scale."""
+    spec = mlp.MLPSpec(hidden_sizes=(48, 20), activation=act,
+                       compute_dtype=torch.bfloat16)
+    params = mlp.init(spec, seed=1, device=card)
+    x = torch.rand(70, 784, device=card)
+
+    def run(dev):
+        leaves = {k: v.detach().to(dev).clone().requires_grad_(True)
+                  for k, v in params.items()}
+        logits = mlp.apply(spec, leaves, x.to(dev))
+        logits.square().mean().backward()
+        return {"logits": logits.detach().cpu(),
+                **{k: v.grad.cpu() for k, v in leaves.items()}}
+
+    on_card, on_cpu = run(card), run("cpu")
+    assert on_card["logits"].dtype == torch.float32
+    assert on_card["W1"].dtype == torch.float32
+    for k, want in on_cpu.items():
+        tol = 1e-3 if k == "logits" else 2e-2
+        torch.testing.assert_close(on_card[k], want, rtol=0,
+                                   atol=tol * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_mlp_forward_refuses_what_the_kernel_does_not_take(card):
+    spec = mlp.MLPSpec(hidden_sizes=(16,), activation="gelu")
+    params = mlp.init(spec, device=card)
+    with pytest.raises(ValueError, match="activation"):
+        fused.mlp_forward(spec, params, torch.rand(4, 784, device=card))
+    spec = mlp.MLPSpec(hidden_sizes=(16,))
+    params = mlp.init(spec, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.mlp_forward(spec, params,
+                          torch.rand(784, 4, device=card).t())

@@ -19,6 +19,8 @@ from distributed_tensorflow_example_tpu.ops import pallas_fused as jpf
 from distributed_tensorflow_example_tpu.ops import quant as jquant
 from distributed_tensorflow_example_tpu.ops import ring_attention as jring
 from distributed_tensorflow_example_tpu_torch import device as tdevice
+from distributed_tensorflow_example_tpu_torch.models.mlp import MLPSpec
+from distributed_tensorflow_example_tpu_torch.models.mlp import init as mlp_init
 from distributed_tensorflow_example_tpu_torch.ops import fused
 from distributed_tensorflow_example_tpu_torch.ops import paged_attention as tpa
 from distributed_tensorflow_example_tpu_torch.ops import quant as tquant
@@ -223,9 +225,14 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
     fused.moe_grouped_matmul("gelu", torch.float32, x[None],
                              torch.randn(1, 16, 8), torch.zeros(1, 8),
                              torch.randn(1, 8, 16), torch.zeros(1, 16))
+    spec = MLPSpec(input_size=16, hidden_sizes=(8,), num_classes=4)
+    params = mlp_init(spec, device="cpu")
+    torch.testing.assert_close(
+        fused.mlp_forward(spec, params, x),
+        fused.mlp_forward_reference(spec, params, x)[0], rtol=0, atol=0)
     assert fused.launch_counts() == {
         "fused_layer_norm": 0, "fused_layer_norm_residual": 0,
-        "moe_grouped_matmul": 0}
+        "moe_grouped_matmul": 0, "mlp_forward": 0}
 
 
 def test_wrappers_refuse_mixed_or_foreign_devices():
