@@ -9,9 +9,11 @@ Phases (any failure exits nonzero; none is caught and skipped):
    the compiler's register/spill report;
 2. hold each kernel (fused LayerNorm, LayerNorm+residual, grouped FFN)
    against its plain PyTorch version on the card at the serving path's
-   shapes, with the tolerance stated below, and time the kernel, the
-   plain version and a PyTorch library yardstick beside the card's
-   bound (bytes / 3.35 TB/s or operations / peak rate);
+   shapes (and the two LayerNorm forms at the transformer trainer's
+   65,536 x 1024 f32 rows too), with the tolerance stated below, and
+   time the kernel, the plain version and a PyTorch library yardstick
+   beside the card's bound (bytes / 3.35 TB/s or operations / peak
+   rate);
 3. serve at full width — the decode bench model (d_model 1024, 8
    heads, 4 blocks, d_ff 4096, seq_len 1024, vocab 256, bf16 compute,
    f32 params, fused_ln + fp8_ffn) through ``DecodeEngine`` on the card:
@@ -42,10 +44,35 @@ and for the MLP trainer (``main.py`` -> ``train/loop.run``):
 6. the reference command line on the card: ``main.py --pallas
    --training_epochs=1`` (784-100-10 sigmoid f32, batch 100, 550
    steps), its stdout held to the reference's format and its event
-   file read back.
+   file read back;
 
-The last two lines of stdout are the kernel report JSON and the
-result JSON; the card's name and power limit come just before them.
+and for the transformer trainer (``main.py --model=transformer`` ->
+``train/loop.run``):
+
+2c. hold the flash forward (both forms), flash dq, flash dk/dv and the
+    LayerNorm backward against their plain versions on the card — the
+    attention kernels compared at [1, 8192, 8, 128] bf16 causal (the
+    plain scores of the full batch would take 17 GB) and at two ragged
+    shapes, timed at the path's [8, 8192, 8, 128], where each batch
+    element of the timed launches' outputs is held against the plain
+    version on that element's inputs; the LayerNorm
+    backward at 65,536 x 1024 f32 — and time each beside its plain
+    version, a PyTorch library call and its bound;
+7. train at full width: the JAX repo's ``transformer_wide_long`` bench
+   configuration (causal flash attention, --fused_ln, d_model 1024, 8
+   heads of 128, 4 blocks, d_ff 4096, S 8192, bf16 compute, Adam with
+   bf16 moments, batch 8) for 4 steps on synthetic data with a test set
+   of 8, launch counters zeroed just before and read just after (every
+   kernel of the path must have launched), every printed cost finite;
+   print the median step time, tokens/s, model TFLOP/s and the peak
+   memory;
+7b. one step of the same model cut to 1 block, S 2048, batch 2, from
+    one initial state on the card and on the port's CPU path, the
+    updates held against each other.
+
+The last two lines of stdout are the kernel report JSON (each kernel's
+launches on its first main path, and under ``launches_by_path`` on
+every path that ran it) and the result JSON; the card's name and power limit come just before them.
 The script imports nothing of JAX; it needs one card and exits
 nonzero without one.
 """
@@ -120,16 +147,57 @@ STEP_RTOL = 2e-2
 STEP_RE = re.compile(
     r"^Step: \d+,  Epoch: [ \d]\d,  Batch: [ \d]{3} of [ \d]{3},"
     r"  Cost: \d+\.\d{4},  AvgTime: +\d+\.\d{2}ms$")
-# the serving path's kernels (phase 3) and the trainer's (phases 5, 6)
+# flash attention, kernel vs plain version on the same inputs: bf16 at
+# the path's shape, where the forward rounds p to bf16 against the
+# running max of each 64-key tile and the plain version against the
+# row's final max (one bf16 ulp per element), and o, dq, dk, dv sum
+# thousands of such terms: 1e-2 of each output's scale, the bound the
+# CPU tests hold bf16 to against JAX; f32 sums in other orders: 1e-4.
+# A wrong tile or a missed mask is off by O(1) of scale.
+FLASH_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# LayerNorm backward (f32): dx per row and dg/db summed over 65,536 rows
+# in another order: 1e-4 of each output's scale
+LN_BWD_RTOL = 1e-4
+# one full-width transformer step (1 block, S 2048, batch 2), card vs
+# the port's CPU path, SGD so the update is -lr x the gradient: bf16
+# products on the tensor cores sum in another order than the CPU's f32
+# products of the same bf16 operands, so bf16 roundings of activations,
+# of p and of ds land one ulp (2^-8) apart here and there and carry
+# into the gradient sums: 2e-2 of each update's scale, where a wrong
+# gradient is off by O(1)
+TFM_STEP_RTOL = 2e-2
+
+# the serving path's kernels (phase 3), the MLP trainer's (phases 5, 6)
+# and the transformer trainer's (phase 7)
 SERVE_WRAPPERS = ("fused_layer_norm", "fused_layer_norm_residual",
                   "moe_grouped_matmul")
 TRAIN_WRAPPERS = ("mlp_forward",)
+TFM_WRAPPERS = ("fused_layer_norm", "fused_layer_norm_residual",
+                "layer_norm_backward", "flash_forward", "flash_dq",
+                "flash_dkv")
 # the JAX repo's mxu_wide_pallas bench row, one epoch of 8 steps
 WIDE_TRAIN = dict(hidden_sizes=(4096, 4096), activation="relu",
                   compute_dtype="bfloat16", batch_size=8192, pallas=True,
                   dataset="synthetic", synthetic_train_size=8 * 8192,
                   synthetic_test_size=10000, training_epochs=1,
                   summaries=False, frequency=1, seed=1)
+
+# the JAX repo's transformer_wide_long bench row (bench.py), 4 steps
+WIDE_LONG_FLAGS = [
+    "--model=transformer", "--attention=flash", "--causal", "--fused_ln",
+    "--input_size=32768", "--seq_len=8192", "--d_model=1024",
+    "--n_heads=8", "--num_blocks=4", "--d_ff=4096",
+    "--compute_dtype=bfloat16", "--optimizer=adam",
+    "--adam_moments_dtype=bfloat16", "--learning_rate=1e-3",
+    "--batch_size=8", "--dataset=synthetic", "--synthetic_train_size=32",
+    "--synthetic_test_size=8", "--no_summaries", "--frequency=1",
+    "--training_epochs=1"]
+# phase 7b: the same widths cut to 1 block, S 2048, batch 2, SGD
+STEP_CHECK_FLAGS = [
+    "--model=transformer", "--attention=flash", "--causal", "--fused_ln",
+    "--input_size=8192", "--seq_len=2048", "--d_model=1024", "--n_heads=8",
+    "--num_blocks=1", "--d_ff=4096", "--compute_dtype=bfloat16",
+    "--optimizer=sgd", "--learning_rate=1e-2", "--batch_size=2"]
 
 FULL_WIDTH = dict(input_size=1024, seq_len=1024, vocab_size=256,
                   d_model=1024, n_heads=8, num_blocks=4, d_ff=4096,
@@ -177,6 +245,23 @@ def device_ms(fn, arg_sets, reps: int = 3) -> float:
     return start.elapsed_time(end) / (reps * n)
 
 
+def event_ms(fn, args, reps: int = 3) -> float:
+    """Device time of one ``fn(*args)`` call in ms, for calls long
+    enough (milliseconds) that host launch overhead does not count and
+    whose temporaries are too large to keep one set per call of a CUDA
+    graph: one warm-up call, then ``reps`` calls between CUDA events."""
+    fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def copies(make, bytes_per_set: int):
     """Enough independent input sets to exceed twice the L2 cache."""
     k = min(64, max(1, math.ceil(2 * L2_BYTES / max(1, bytes_per_set))))
@@ -209,7 +294,9 @@ def check_layer_norm(card: str) -> list:
     for residual in (False, True):
         name = "layer_norm_residual" if residual else "layer_norm"
         rows_list = []
-        for rows in (8, 512):
+        # the decode and prefill rows of the serve, then the transformer
+        # trainer's 8 x 8192 rows
+        for rows in (8, 512, 8 * 8192):
             def make(i, rows=rows):
                 g = _gen(100 * rows + i)
                 x = torch.randn(rows, d, generator=g, device="cuda")
@@ -422,6 +509,234 @@ def check_mlp_forward(card: str) -> list:
             f"({row['bound_by']}) on {card}")
         rows_list.append(row)
     return [("mlp_forward", rows_list)]
+
+
+def _errs(got, want) -> tuple:
+    """(max |got - want|, that over the largest |want|)."""
+    err = float((got.float() - want.float()).abs().max())
+    return err, err / max(float(want.float().abs().max()), 1e-30)
+
+
+def _flash_bytes_flops(b, s, h, d, causal, which):
+    """(bytes, flops) the card must move and do for one call: each
+    input read once and each output written once (bf16 q, k, v, do; f32
+    m, l, dlt and f32 outputs), and the products over the (q, key)
+    pairs the causal mask leaves: 4d flops per pair for the forward
+    (q.k, p.v), 6d for dq (q.k, do.v, ds.k), 8d for dk/dv (q.k, do.v,
+    p.do, ds.q)."""
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    elem = b * s * h * d
+    rows = b * s * h
+    if which == "stats":
+        return 3 * elem * 2 + elem * 4 + 2 * rows * 4, 4 * d * pairs
+    if which == "normalized":
+        return 3 * elem * 2 + elem * 2, 4 * d * pairs
+    if which == "dq":
+        return 4 * elem * 2 + 3 * rows * 4 + elem * 4, 6 * d * pairs
+    return 4 * elem * 2 + 3 * rows * 4 + 2 * elem * 4, 8 * d * pairs
+
+
+def _bound(nbytes, flops, dtype=torch.bfloat16):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_flash(card: str) -> list:
+    """B5 (both forms), B6 and B7 against their plain versions, then
+    timed at the path's shape."""
+    import torch.nn.functional as F
+
+    from distributed_tensorflow_example_tpu_torch.ops import (
+        flash_attention as fa)
+
+    cdt = torch.bfloat16
+    tol = FLASH_TOL[cdt]
+
+    def inputs(b, s, h, d, seed):
+        g = _gen(seed)
+        return [torch.randn(b, s, h, d, generator=g, device="cuda").to(cdt)
+                for _ in range(4)]
+
+    # per kernel: (largest absolute error, largest error of scale)
+    errs = {"flash_forward": (0.0, 0.0), "flash_dq": (0.0, 0.0),
+            "flash_dkv": (0.0, 0.0)}
+    # the path's length at batch 1, then two ragged shapes
+    for b, s, h, d, causal in ((1, 8192, 8, 128, True),
+                               (2, 1000, 8, 128, True),
+                               (1, 300, 8, 64, False)):
+        q, k, v, do = inputs(b, s, h, d, 11000 + s)
+        o_r = fa.flash_attention_reference(q, k, v, causal)
+        acc_r, m_r, l_r = fa.flash_stats_reference(q, k, v, causal)
+        acc, m, l = fa.flash_forward(q, k, v, causal, stats=True)
+        fwd = max(_errs(fa.flash_forward(q, k, v, causal), o_r),
+                  _errs(acc, acc_r), _errs(m, m_r), _errs(l, l_r),
+                  key=lambda e: e[1])
+        dlt = torch.sum(do.float() * o_r.float(), dim=-1)
+        want = fa.flash_backward_reference(q, k, v, do, m_r, l_r, dlt,
+                                           causal)
+        dq = fa.flash_dq(q, k, v, do, m_r, l_r, dlt, causal)
+        dk, dv = fa.flash_dkv(q, k, v, do, m_r, l_r, dlt, causal)
+        torch.cuda.synchronize()
+        e_dq = _errs(dq, want[0])
+        e_dkv = max(_errs(dk, want[1]), _errs(dv, want[2]),
+                    key=lambda e: e[1])
+        log(f"[kernel] flash [{b}, {s}, {h}, {d}] bf16 causal={causal}: "
+            f"forward {fwd[1]:.3g}, dq {e_dq[1]:.3g}, dk/dv {e_dkv[1]:.3g} "
+            f"of scale (tol {tol}); max abs {fwd[0]:.3g}, {e_dq[0]:.3g}, "
+            f"{e_dkv[0]:.3g}")
+        for name, e in (("flash_forward", fwd), ("flash_dq", e_dq),
+                        ("flash_dkv", e_dkv)):
+            if not e[1] <= tol:
+                raise AssertionError(f"{name} [{b}, {s}, {h}, {d}] causal="
+                                     f"{causal}: {e[1]} of scale > {tol}")
+            errs[name] = (max(errs[name][0], e[0]),
+                          max(errs[name][1], e[1]))
+        del o_r, acc_r, want, acc, dq, dk, dv
+        torch.cuda.empty_cache()
+
+    # the plain versions' times at batch 1 (the full batch's plain
+    # scores would take 17 GB), the kernels' at the path's batch 8
+    q1, k1, v1, do1 = inputs(1, 8192, 8, 128, 12001)
+    acc1, m1, l1 = fa.flash_forward(q1, k1, v1, True, stats=True)
+    o1 = (acc1 / l1[..., None]).to(cdt)
+    dlt1 = torch.sum(do1.float() * o1.float(), dim=-1)
+    plain = {
+        "stats": event_ms(fa.flash_stats_reference, (q1, k1, v1, True), 2),
+        "normalized": event_ms(fa.flash_attention_reference,
+                               (q1, k1, v1, True), 2),
+        "dq": event_ms(lambda *a: fa.flash_backward_reference(*a)[0],
+                       (q1, k1, v1, do1, m1, l1, dlt1, True), 2),
+        "dkv": event_ms(lambda *a: fa.flash_backward_reference(*a)[1:],
+                        (q1, k1, v1, do1, m1, l1, dlt1, True), 2),
+    }
+    del q1, k1, v1, do1, acc1, m1, l1, o1, dlt1
+    torch.cuda.empty_cache()
+
+    shape = (8, 8192, 8, 128)
+    q, k, v, do = inputs(*shape, 12002)
+    acc, m, l = fa.flash_forward(q, k, v, True, stats=True)
+    o = (acc / l[..., None]).to(cdt)
+    dlt = torch.sum(do.float() * o.float(), dim=-1)
+    # the path's own batch-8 launches, each batch element held against
+    # the plain version on that element's inputs (batch-1 memory); the
+    # backward kernels take the stats kernel's m and l and its dlt
+    o_n = fa.flash_forward(q, k, v, True)
+    dq = fa.flash_dq(q, k, v, do, m, l, dlt, True)
+    dk, dv = fa.flash_dkv(q, k, v, do, m, l, dlt, True)
+    torch.cuda.synchronize()
+    for i in range(shape[0]):
+        e = slice(i, i + 1)
+        acc_r, m_r, l_r = fa.flash_stats_reference(q[e], k[e], v[e], True)
+        fwd = max(_errs(o_n[e], fa.flash_attention_reference(
+            q[e], k[e], v[e], True)), _errs(acc[e], acc_r),
+            _errs(m[e], m_r), _errs(l[e], l_r), key=lambda x: x[1])
+        del acc_r, m_r, l_r
+        want = fa.flash_backward_reference(q[e], k[e], v[e], do[e], m[e],
+                                           l[e], dlt[e], True)
+        e_dq = _errs(dq[e], want[0])
+        e_dkv = max(_errs(dk[e], want[1]), _errs(dv[e], want[2]),
+                    key=lambda x: x[1])
+        del want
+        for name, er in (("flash_forward", fwd), ("flash_dq", e_dq),
+                         ("flash_dkv", e_dkv)):
+            if not er[1] <= tol:
+                raise AssertionError(f"{name} {list(shape)} batch element "
+                                     f"{i}: {er[1]} of scale > {tol}")
+            errs[name] = (max(errs[name][0], er[0]),
+                          max(errs[name][1], er[1]))
+        log(f"[kernel] flash {list(shape)} bf16 causal, batch element {i}: "
+            f"forward {fwd[1]:.3g}, dq {e_dq[1]:.3g}, dk/dv {e_dkv[1]:.3g} "
+            f"of scale (tol {tol}); max abs {fwd[0]:.3g}, {e_dq[0]:.3g}, "
+            f"{e_dkv[0]:.3g}")
+    del acc, o_n, dq, dk, dv
+    torch.cuda.empty_cache()
+    kern = {
+        "stats": event_ms(fa.flash_forward, (q, k, v, True, True)),
+        "normalized": event_ms(fa.flash_forward, (q, k, v, True)),
+        "dq": event_ms(fa.flash_dq, (q, k, v, do, m, l, dlt, True)),
+        "dkv": event_ms(fa.flash_dkv, (q, k, v, do, m, l, dlt, True)),
+    }
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_fwd = event_ms(lambda a, b_, c: F.scaled_dot_product_attention(
+        a, b_, c, is_causal=True), (qt, kt, vt))
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    gt = do.transpose(1, 2)
+    lib_bwd = event_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), gt, retain_graph=True), ())
+    del out, qg, kg, vg
+
+    rows = []
+    for name, form, lib in (("flash_forward", "stats", lib_fwd),
+                            ("flash_forward", "normalized", lib_fwd),
+                            ("flash_dq", "dq", lib_bwd),
+                            ("flash_dkv", "dkv", lib_bwd)):
+        nbytes, flops = _flash_bytes_flops(*shape, True, form)
+        bound, by = _bound(nbytes, flops)
+        row = dict(kernel=name, form=form, shape=list(shape), dtype="bf16",
+                   causal=True, ms=kern[form], plain_ms=plain[form],
+                   plain_shape=[1, 8192, 8, 128], library_ms=lib,
+                   library_call=("scaled_dot_product_attention(is_causal="
+                                 "True) " + ("forward" if name ==
+                                             "flash_forward" else
+                                             "backward (dq, dk and dv "
+                                             "together)")),
+                   bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops,
+                   tflops=flops / kern[form] / 1e9,
+                   max_abs_err=errs[name][0], rel_err=errs[name][1])
+        log(f"[kernel] {name} ({form}) {shape} bf16 causal: kernel "
+            f"{kern[form]:.3f} ms ({row['tflops']:.2f} TFLOP/s), plain "
+            f"{plain[form]:.3f} ms at batch 1, library {lib:.3f} ms, "
+            f"bound {bound:.3f} ms ({by}) on {card}")
+        rows.append(row)
+    del q, k, v, do, m, l, o, dlt
+    torch.cuda.empty_cache()
+    return [("flash_forward", [r for r in rows
+                               if r["kernel"] == "flash_forward"]),
+            ("flash_dq", [r for r in rows if r["kernel"] == "flash_dq"]),
+            ("flash_dkv", [r for r in rows if r["kernel"] == "flash_dkv"])]
+
+
+def check_layer_norm_backward(card: str) -> list:
+    """B4 at the path's 65,536 x 1024 f32 against its plain version."""
+    import torch.nn.functional as F
+
+    from distributed_tensorflow_example_tpu_torch.ops import fused
+
+    rows_n, d = 8 * 8192, 1024
+    g_ = _gen(13000)
+    x = 2 * torch.randn(rows_n, d, generator=g_, device="cuda") + 0.5
+    dy = torch.randn(rows_n, d, generator=g_, device="cuda")
+    gam = 1 + 0.1 * torch.randn(d, generator=g_, device="cuda")
+    got = fused.layer_norm_backward(dy, x, gam)
+    want = fused.layer_norm_backward_reference(dy, x, gam)
+    torch.cuda.synchronize()
+    abs_err, err = max((_errs(a, b) for a, b in zip(got, want)),
+                       key=lambda e: e[1])
+    if not err <= LN_BWD_RTOL:
+        raise AssertionError(f"layer_norm_backward: {err} of scale > "
+                             f"{LN_BWD_RTOL}")
+    xg = x.detach().requires_grad_(True)
+    gg = gam.detach().requires_grad_(True)
+    bg = torch.zeros(d, device="cuda", requires_grad=True)
+    y = F.layer_norm(xg, (d,), gg, bg, eps=fused.LN_EPS)
+    lib = event_ms(lambda: torch.autograd.grad(y, (xg, gg, bg), dy,
+                                               retain_graph=True), (), 10)
+    nbytes = 3 * rows_n * d * 4 + 3 * d * 4
+    bound, by = _bound(nbytes, 15 * rows_n * d, torch.float32)
+    row = dict(rows=rows_n, d=d, dtype="f32", max_abs_err=abs_err,
+               rel_err=err,
+               ms=event_ms(fused.layer_norm_backward, (dy, x, gam), 10),
+               plain_ms=event_ms(fused.layer_norm_backward_reference,
+                                 (dy, x, gam), 3),
+               library_ms=lib, bound_ms=bound, bound_by=by, bytes=nbytes)
+    log(f"[kernel] layer_norm_backward rows={rows_n} d={d} f32: "
+        f"{err:.3g} of scale (tol {LN_BWD_RTOL}), kernel {row['ms']:.4f} "
+        f"ms, plain {row['plain_ms']:.4f} ms, library {lib:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}) on {card}")
+    return [("layer_norm_backward", [row])]
 
 
 def phase_serve(card: str, device: str = "cuda",
@@ -662,6 +977,109 @@ def phase_cli(card: str) -> dict:
     return dict(counts=counts)
 
 
+def phase_transformer_train(card: str) -> dict:
+    """The transformer trainer at the ``transformer_wide_long`` width
+    (WIDE_LONG_FLAGS, parsed as the CLI parses them) on the card."""
+    from distributed_tensorflow_example_tpu_torch.config import (
+        parse_train_config)
+    from distributed_tensorflow_example_tpu_torch.models import (
+        transformer as tfm)
+    from distributed_tensorflow_example_tpu_torch.ops import fused
+    from distributed_tensorflow_example_tpu_torch.train import loop
+
+    cfg = parse_train_config(WIDE_LONG_FLAGS)
+    spec = loop.make_spec(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused.reset_launch_counts()
+    res, out = _run_captured(loop.run, cfg)
+    torch.cuda.synchronize()
+    counts = fused.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name in TFM_WRAPPERS:
+        if counts[name] <= 0:
+            raise AssertionError(f"transformer train: {name} never "
+                                 f"launched on the main path")
+    steps = res["steps"]
+    # per step: 9 LayerNorm backwards (ln1, ln2 per block, lnf), one
+    # flash dq and one dk/dv per block
+    want = {"layer_norm_backward": 9 * steps, "flash_dq": 4 * steps,
+            "flash_dkv": 4 * steps}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"transformer train: launches {counts}, "
+                             f"expected {want}")
+    costs = re.findall(r"Cost: ([^,\s]+)", out)
+    if steps != 4 or len(costs) != steps + 1 or not all(
+            math.isfinite(float(c)) for c in costs):
+        raise AssertionError(f"transformer train: {steps} steps, printed "
+                             f"costs {costs}")
+    step_ms = [float(m) for m in re.findall(r"AvgTime: +(\d+\.\d+)ms",
+                                            out)]
+    med = statistics.median(step_ms)
+    tokens = cfg.batch_size * spec.seq_len
+    flops = tfm.flops_per_step(spec, cfg.batch_size)
+    row = dict(steps=steps, step_ms=step_ms, step_ms_median=med,
+               tokens_per_s=tokens / med * 1e3,
+               model_tflops_per_s=flops / (med / 1e3) / 1e12,
+               flops_per_step=flops, peak_gib=peak_gib,
+               total_s=res["total_time_s"], counts=counts)
+    log(f"[tfm-train] transformer_wide_long, {steps} steps of batch "
+        f"{cfg.batch_size} x S {spec.seq_len} on {card}: median step "
+        f"{med:.1f} ms, {row['tokens_per_s']:.0f} tokens/s, "
+        f"{row['model_tflops_per_s']:.2f} model TFLOP/s "
+        f"({flops / 1e12:.2f} TFLOP/step), peak memory {peak_gib:.2f} GiB; "
+        f"steps {step_ms} ms; whole run incl. eval {res['total_time_s']:.2f}"
+        f" s; launches {counts}")
+    return row
+
+
+def phase_transformer_step(card: str) -> dict:
+    """One step of the full-width transformer cut to 1 block, S 2048,
+    batch 2 (STEP_CHECK_FLAGS) from one initial state on the card and on
+    the port's CPU path."""
+    from distributed_tensorflow_example_tpu_torch.config import (
+        parse_train_config)
+    from distributed_tensorflow_example_tpu_torch.data import mnist
+    from distributed_tensorflow_example_tpu_torch.parallel import step
+    from distributed_tensorflow_example_tpu_torch.train import loop, optim
+    from distributed_tensorflow_example_tpu_torch.train.state import (
+        TrainState, create_train_state)
+
+    cfg = parse_train_config(STEP_CHECK_FLAGS)
+    spec = loop.make_spec(cfg)
+    opt = optim.make_optimizer(cfg, 1)
+    body = step.make_sync_step_body(cfg, spec, opt)
+    on_card = create_train_state(spec, opt, seed=cfg.seed, device="cuda")
+    cpu_params = {k: v.cpu() for k, v in on_card.params.items()}
+    on_cpu = TrainState(on_card.step.cpu(), cpu_params, opt.init(cpu_params))
+    batch = mnist.synthesize_split(cfg.batch_size, seed=cfg.seed,
+                                   input_size=cfg.input_size)
+    x, y = torch.from_numpy(batch.images), torch.from_numpy(batch.labels)
+    new_card, cost_card, _ = body(on_card, x.cuda(), y.cuda())
+    t0 = time.monotonic()
+    new_cpu, cost_cpu, _ = body(on_cpu, x, y)
+    cpu_s = time.monotonic() - t0
+    worst = 0.0
+    for k, old in cpu_params.items():
+        d_card = new_card.params[k].cpu() - old
+        d_cpu = new_cpu.params[k] - old
+        scale = float(d_cpu.abs().max())
+        rel = float((d_card - d_cpu).abs().max()) / max(scale, 1e-30)
+        worst = max(worst, rel)
+        if not rel <= TFM_STEP_RTOL:
+            raise AssertionError(f"transformer step: {k} update card vs "
+                                 f"CPU differs by {rel} of its scale "
+                                 f"{scale} > {TFM_STEP_RTOL}")
+    if not math.isfinite(float(cost_card)):
+        raise AssertionError(f"transformer step: cost {float(cost_card)}")
+    log(f"[tfm-step] one step (1 block, S {spec.seq_len}, batch "
+        f"{cfg.batch_size}, d_model {spec.d_model}) card vs CPU path: cost "
+        f"{float(cost_card):.6g} vs {float(cost_cpu):.6g}, worst update "
+        f"difference {worst:.3g} of its scale (tol {TFM_STEP_RTOL}); CPU "
+        f"step {cpu_s:.1f} s")
+    return dict(worst=worst)
+
+
 KERNEL_META = {
     "layer_norm": dict(
         wrapper="fused_layer_norm",
@@ -687,7 +1105,34 @@ KERNEL_META = {
                "mlp_forward.cu",
         replaces="distributed_tensorflow_example_tpu/ops/pallas_fused.py:"
                  "71"),
+    "layer_norm_backward": dict(
+        wrapper="layer_norm_backward",
+        source="distributed_tensorflow_example_tpu_torch/ops/csrc/"
+               "layer_norm.cu",
+        replaces="distributed_tensorflow_example_tpu/ops/pallas_fused.py:"
+                 "306"),
+    "flash_forward": dict(
+        wrapper="flash_forward",
+        source="distributed_tensorflow_example_tpu_torch/ops/csrc/"
+               "flash_attention.cu",
+        replaces="distributed_tensorflow_example_tpu/ops/flash_attention.py:"
+                 "181"),
+    "flash_dq": dict(
+        wrapper="flash_dq",
+        source="distributed_tensorflow_example_tpu_torch/ops/csrc/"
+               "flash_attention.cu",
+        replaces="distributed_tensorflow_example_tpu/ops/flash_attention.py:"
+                 "281"),
+    "flash_dkv": dict(
+        wrapper="flash_dkv",
+        source="distributed_tensorflow_example_tpu_torch/ops/csrc/"
+               "flash_attention.cu",
+        replaces="distributed_tensorflow_example_tpu/ops/flash_attention.py:"
+                 "324"),
 }
+# the kernels whose launches the report takes from phase 7's run
+TFM_REPORT = ("layer_norm_backward", "flash_forward", "flash_dq",
+              "flash_dkv")
 
 
 def main() -> int:
@@ -701,23 +1146,34 @@ def main() -> int:
     t0 = time.monotonic()
     phase_build()
     measured = (check_layer_norm(card) + check_grouped_ffn(card)
-                + check_mlp_forward(card))
+                + check_mlp_forward(card) + check_flash(card)
+                + check_layer_norm_backward(card))
     counts = phase_serve(card)
     phase_http()
     train = phase_train(card)
     phase_cli(card)
+    tfm_train = phase_transformer_train(card)
+    phase_transformer_step(card)
     # each kernel's launches on its own main path: the full-width serve
-    # (phase 3) for the serving kernels, the full-width training run
-    # (phase 5) for the MLP forward
+    # (phase 3) for the serving kernels, the full-width MLP training run
+    # (phase 5) for the MLP forward, the full-width transformer training
+    # run (phase 7) for the LayerNorm backward and the flash kernels
+    by_path = {"serve": dict(counts), "mlp_train": train["counts"],
+               "transformer_train": tfm_train["counts"]}
     counts.update({k: train["counts"][k] for k in TRAIN_WRAPPERS})
+    counts.update({k: tfm_train["counts"][k] for k in TFM_REPORT})
     kernels = []
     for name, rows in measured:
         meta = KERNEL_META[name]
-        head = rows[0]          # the main path's shape (decode; wide MLP)
+        head = rows[0]          # the main path's shape (decode; wide
+                                # MLP; the flash stats form, training's)
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"],
             "launches": counts[meta["wrapper"]],
+            "launches_by_path": {p: c[meta["wrapper"]]
+                                 for p, c in by_path.items()
+                                 if c[meta["wrapper"]] > 0},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -729,6 +1185,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(f"[done] all phases passed in {time.monotonic() - t0:.1f} s")
+    log(f"[tfm-train] peak memory {tfm_train['peak_gib']:.2f} GiB, median "
+        f"step {tfm_train['step_ms_median']:.1f} ms on {smi}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

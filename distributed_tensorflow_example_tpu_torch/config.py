@@ -6,8 +6,12 @@ package.  ``build_parser`` is ``serving/cli.py``'s: flags of serving
 features the port does not have yet are still parsed, and the CLI
 refuses them with a message naming ROADMAP.md instead of ignoring them.
 ``build_train_parser`` is ``main.py``'s: it knows the ported training
-flags only, and refuses every other flag of the JAX trainer (exit 2,
-naming ROADMAP.md) rather than ignore it.  ``--device`` is the port's
+flags only (the MLP's and the single-device transformer's), and refuses
+every other flag of the JAX trainer (exit 2, naming ROADMAP.md) rather
+than ignore it: MoE (``--num_experts``, ``--grouped_moe``), ``--fp8_ffn``
+training, and sequence, tensor and pipeline parallelism
+(``--sequence_parallel``, ``--sp_impl``, ``--model_parallel``,
+``--pipeline_parallel``) among them.  ``--device`` is the port's
 own: the card (``cuda``) unless ``cpu`` is asked for.
 """
 
@@ -31,6 +35,7 @@ class Config:
     objective: str = "classify"     # ... and lm
     input_size: int = 784           # = seq_len for the lm objective
     vocab_size: int = 256
+    seq_len: int = 28               # classify: input viewed as tokens
     d_model: int = 128
     n_heads: int = 4
     num_blocks: int = 2
@@ -39,6 +44,13 @@ class Config:
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     num_experts: int = 0            # MoE: not ported yet
+    attention: str = "dense"        # dense | flash; --pallas also
+                                    # selects flash for the transformer
+    causal: bool = False            # causal mask (lm is always causal)
+    dropout_rate: float = 0.0       # transformer training-only dropout
+    remat: bool = False             # recompute the forward in backward
+    sample_after: int = 0           # lm: generate N samples after training
+    sample_temperature: float = 1.0 # 0 = greedy
     fused_ln: bool = False          # LayerNorms through the fused kernels
     fp8_ffn: bool = False           # FFN on fp8-rounded operands
     checkpoint_dir: str = ""
@@ -85,7 +97,8 @@ class Config:
     adam_eps: float = 1e-8
     adam_moments_dtype: str = "float32"
     grad_reduce: str = "mean"
-    pallas: bool = False            # MLP forward through the B1 kernel
+    pallas: bool = False            # MLP forward through the B1 kernel;
+                                    # flash attention for the transformer
     data_dir: str = "MNIST_data"
     dataset: str = "auto"
     synthetic_train_size: int = 55000
@@ -113,6 +126,12 @@ def _pages(s: str) -> int:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    """The serving CLI's flags, the JAX ``dtx-serve`` names and
+    defaults.  ``--attention`` and ``--pallas`` only set the spec's
+    attention field and change nothing the server computes: the JAX
+    serving path runs its prefill and decode dense whatever that field
+    says, and so does the port.  They are kept so that a JAX serving
+    command line parses unchanged."""
     p = argparse.ArgumentParser(
         prog="distributed_tensorflow_example_tpu_torch.serving.cli",
         description="Serve POST /generate from the PyTorch port's "
@@ -134,6 +153,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--param_dtype", type=str, default=d.param_dtype)
     p.add_argument("--compute_dtype", type=str, default=d.compute_dtype)
     p.add_argument("--num_experts", type=int, default=d.num_experts)
+    p.add_argument("--attention", type=str, default=d.attention,
+                   choices=["dense", "flash"],
+                   help="the spec's attention backend (the prefill and "
+                        "the decode run dense whatever it says, as in "
+                        "the JAX package)")
+    p.add_argument("--pallas", action="store_true",
+                   help="select flash attention (the JAX CLI's rule)")
     p.add_argument("--fused_ln", action="store_true",
                    help="run every LayerNorm (ln1, ln2 with the fused "
                         "residual add, lnf) through the fused CUDA "
@@ -194,9 +220,10 @@ def build_train_parser() -> argparse.ArgumentParser:
     """The JAX trainer's flags that the port has, with its defaults."""
     p = argparse.ArgumentParser(
         prog="distributed_tensorflow_example_tpu_torch.main",
-        description="Train the reference MNIST MLP with the PyTorch port "
-                    "(on the card unless --device cpu).  Flags of the JAX "
-                    "trainer that are not ported exit 2 (ROADMAP.md).")
+        description="Train the reference MNIST MLP, or the transformer, "
+                    "with the PyTorch port (on the card unless --device "
+                    "cpu).  Flags of the JAX trainer that are not ported "
+                    "exit 2 (ROADMAP.md).")
     d = Config()
     p.add_argument("--job_name", type=str, default=d.job_name,
                    help="Either 'ps' or 'worker' (reference parity; there "
@@ -217,6 +244,38 @@ def build_train_parser() -> argparse.ArgumentParser:
                    choices=["mlp", "transformer"])
     p.add_argument("--input_size", type=int, default=d.input_size)
     p.add_argument("--num_classes", type=int, default=d.num_classes)
+    p.add_argument("--objective", type=str, default=d.objective,
+                   choices=["classify", "lm"],
+                   help="transformer: labeled classification or "
+                        "autoregressive next-token prediction over the "
+                        "discretized inputs (seq_len = input_size, "
+                        "causal)")
+    p.add_argument("--vocab_size", type=int, default=d.vocab_size)
+    p.add_argument("--seq_len", type=int, default=d.seq_len)
+    p.add_argument("--d_model", type=int, default=d.d_model)
+    p.add_argument("--n_heads", type=int, default=d.n_heads)
+    p.add_argument("--num_blocks", type=int, default=d.num_blocks)
+    p.add_argument("--d_ff", type=int, default=d.d_ff)
+    p.add_argument("--attention", type=str, default=d.attention,
+                   choices=["dense", "flash"],
+                   help="transformer attention: dense, or the flash CUDA "
+                        "kernels (--pallas selects them too)")
+    p.add_argument("--causal", action="store_true")
+    p.add_argument("--fused_ln", action="store_true",
+                   help="transformer: every LayerNorm (ln1, ln2 with the "
+                        "residual add, lnf) through the fused CUDA "
+                        "kernels, forward and backward")
+    p.add_argument("--dropout_rate", type=float, default=d.dropout_rate,
+                   help="transformer training-only dropout (embedding + "
+                        "per-block residual branches)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the forward's activations in the "
+                        "backward instead of keeping them")
+    p.add_argument("--sample_after", type=int, default=d.sample_after,
+                   help="lm only: generate N samples after training "
+                        "(saved to logs_path/samples.npz)")
+    p.add_argument("--sample_temperature", type=float,
+                   default=d.sample_temperature)
     p.add_argument("--hidden_sizes", type=_parse_hidden,
                    default=d.hidden_sizes, metavar="H1,H2,...",
                    help="e.g. 100 or 256,128")
@@ -248,7 +307,8 @@ def build_train_parser() -> argparse.ArgumentParser:
                    choices=["mean", "sum"])
     p.add_argument("--pallas", action="store_true",
                    help="run the MLP forward (train and eval) through the "
-                        "fused CUDA kernel (sigmoid/tanh/relu)")
+                        "fused CUDA kernel (sigmoid/tanh/relu); for the "
+                        "transformer, select flash attention")
     p.add_argument("--data_dir", type=str, default=d.data_dir)
     p.add_argument("--dataset", type=str, default=d.dataset,
                    choices=["auto", "mnist", "synthetic"])
@@ -294,9 +354,6 @@ def parse_train_config(argv: Sequence[str] | None = None) -> Config:
 def validate_train_config(cfg: Config) -> None:
     """Value checks of the ported training flags; ``Unported`` for a
     mode of the JAX trainer the port does not have."""
-    if cfg.model != "mlp":
-        raise Unported("--model=transformer training is not ported to the "
-                       "PyTorch trainer yet (ROADMAP.md Queue A, slice 3)")
     if cfg.batch_size < 1 or cfg.training_epochs < 0 or cfg.frequency < 1:
         raise ValueError("batch_size and frequency must be >= 1, "
                          "training_epochs >= 0")
@@ -313,6 +370,11 @@ def validate_train_config(cfg: Config) -> None:
     if cfg.eval_batch_size < 1:
         raise ValueError(
             f"eval_batch_size={cfg.eval_batch_size} must be >= 1")
+    if not 0.0 <= cfg.dropout_rate < 1.0:
+        raise ValueError(
+            f"dropout_rate={cfg.dropout_rate} must be in [0, 1)")
+    if cfg.sample_after < 0:
+        raise ValueError(f"sample_after={cfg.sample_after} must be >= 0")
     if cfg.num_processes < 1 or not 0 <= cfg.task_index < cfg.num_processes:
         raise ValueError(f"task_index={cfg.task_index} must be in "
                          f"[0, num_processes={cfg.num_processes})")

@@ -14,7 +14,8 @@
 - ``mlp_params_from_numpy(np_params, spec, device)``: the same as
   ``params_from_numpy`` for an ``MLPSpec`` (``{W1, b1, ...}``).
 - ``train_state_from_checkpoint(path, spec, optimizer, device)``: a
-  whole training state (step, params, optimizer slots) out of a JAX
+  whole training state (step, params, optimizer slots) of either
+  family (an ``MLPSpec`` or a ``TransformerSpec``) out of a JAX
   training checkpoint, the keys matched exactly
   (``utils/checkpoint.restore_checkpoint``).
 """
@@ -90,11 +91,12 @@ def mlp_params_from_numpy(np_params: Dict[str, np.ndarray],
                               spec.param_dtype, device)
 
 
-def train_state_from_checkpoint(path: str, spec: mlp.MLPSpec, optimizer,
+def train_state_from_checkpoint(path: str, spec, optimizer,
                                 device: DeviceLike = None):
     """``(TrainState, step, epoch)`` from a JAX training checkpoint (a
     ``.npz``, or the newest ``ckpt-*.npz`` under a directory) written
-    for ``spec`` with ``optimizer``'s slots."""
+    for ``spec`` (an ``MLPSpec`` or a ``TransformerSpec``) with
+    ``optimizer``'s slots, e.g. Adam's bf16 moments."""
     from .train.state import create_train_state
     from .utils.checkpoint import latest_checkpoint, restore_checkpoint
 

@@ -1,3 +1,3 @@
 """Model families of the port: the MLP (``mlp``, with the activation
-table every family shares) and the serving subset of the transformer
-(``transformer``)."""
+table every family shares) and the transformer without experts, for
+serving and training (``transformer``)."""

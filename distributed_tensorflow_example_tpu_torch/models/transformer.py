@@ -1,30 +1,39 @@
-"""Transformer family: the serving subset (lm objective, one device).
+"""Transformer family: training (classify and lm objectives) and the
+KV-cached decode, on one device.
 
-The counterpart of the JAX package's ``models/transformer.py`` for
-what decoding needs: ``TransformerSpec`` (same field names and
-defaults, torch dtypes), ``param_shapes``/``init``, the LayerNorm
-dispatch (``_ln``/``_ln_residual``: the fused CUDA kernels under
-``spec.fused_ln``), ``_block_forward``/``_ffn_block`` (dense FFN, or the
-fp8 grouped-FFN kernel under ``spec.fp8_ffn``) and the KV-cached
-decode (``init_decode_cache``, ``_DenseKV``, ``_decode_forward``,
+The counterpart of the JAX package's ``models/transformer.py``:
+``TransformerSpec`` (same field names and defaults, torch dtypes),
+``param_shapes``/``init``, ``tokenize``, the LayerNorm dispatch
+(``_ln``/``_ln_residual``: the fused CUDA kernels, forward and
+backward, under ``spec.fused_ln``), the attention dispatch (``_attend``:
+the flash kernels under ``spec.attention == "flash"``, the dense
+``attention`` otherwise), ``_dropout``, ``_block_forward``/``_ffn_block``
+(dense FFN, or the fp8 grouped-FFN kernel under ``spec.fp8_ffn``,
+inference only), ``apply`` (logits, differentiable by autograd),
+``num_params``/``flops_per_step``, and the KV-cached decode
+(``init_decode_cache``, ``_DenseKV``, ``_decode_forward``,
 ``decode_step``, ``generate``).
 
 Params are a flat ``{name: tensor}`` dict with the JAX package's
 names and layouts (``Wqkv`` is ``[d, 3, d]``), so ``convert.py``
 carries weights across unchanged.
 
-Mixed precision follows the JAX package's rounding points exactly:
-matmuls take ``compute_dtype`` operands with f32 accumulation (here
-the operands are rounded to ``compute_dtype`` and multiplied in f32:
-a bf16 ``torch.matmul`` would round its output to bf16), q/k/v are
-rounded to ``compute_dtype`` before attention and the cache stores
-them so, the score product runs in ``compute_dtype`` and is cast to
-f32 after, the probabilities are cast back before the value product,
-and the residual stream ``h`` is f32.
+Mixed precision follows the JAX package's rounding points: matmuls
+take ``compute_dtype`` operands with f32 accumulation
+(``models.mlp.dot_f32``: on the card a bf16 product runs on the tensor
+cores with an f32 output, elsewhere the rounded operands are multiplied
+in f32), q/k/v are rounded to ``compute_dtype`` before attention and
+the cache stores them so, the score product runs in ``compute_dtype``
+and is cast to f32 after, the probabilities are cast back before the
+value product, and the residual stream ``h`` is f32.
 
-Not ported yet (ROADMAP.md): training (``apply``, dropout, the
-backward), tensor/sequence/expert parallelism, and MoE —
-``num_experts > 0`` raises.
+Dropout draws its masks from a ``torch.Generator`` seeded per site from
+the step's seed and a salt (``_dropout``); JAX's ``fold_in``/
+``bernoulli`` bits cannot be reproduced, so dropout > 0 is held to its
+own properties, not to JAX's masks.
+
+Not ported yet (ROADMAP.md): tensor/sequence/expert/pipeline
+parallelism, MoE (``num_experts > 0`` raises) and fp8 FFN training.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..ops.ring_attention import NEG_INF, attention, softmax
-from .mlp import _ACTIVATIONS
+from .mlp import _ACTIVATIONS, dot_f32
 
 Params = Dict[str, torch.Tensor]
 
@@ -54,13 +63,17 @@ class TransformerSpec:
     activation: str = "gelu"
     objective: str = "classify"    # classify | lm (decode serves lm)
     vocab_size: int = 256
-    attention: str = "dense"       # dense | flash (decode runs dense)
+    attention: str = "dense"       # dense | flash (the flash kernels,
+                                   # ops/flash_attention); decode and
+                                   # the serving prefill run dense
     sp_impl: str = "ring"
     causal: bool = False
     num_experts: int = 0           # > 0 (MoE) is not ported yet
     moe_topk: int = 1
     aux_loss_weight: float = 0.0
-    dropout_rate: float = 0.0
+    dropout_rate: float = 0.0      # training-only dropout on the
+                                   # embedded input and each block's
+                                   # attention/FFN outputs
     moe_dispatch: str = "dense"
     capacity_factor: float = 1.25
     fused_ln: bool = False         # LayerNorms run the fused CUDA kernel
@@ -169,8 +182,12 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 
 def _cast_mm(a: torch.Tensor, w: torch.Tensor, cdt) -> torch.Tensor:
-    """``a @ w`` with ``cdt`` operands and f32 accumulation."""
-    return torch.matmul(_f32(a.to(cdt)), _f32(w.to(cdt)))
+    """``a @ w`` with ``cdt`` operands and f32 accumulation, for ``a``
+    ``[..., K]`` and ``w`` ``[K, ...]`` (``models.mlp.dot_f32`` on the
+    flattened operands)."""
+    out = dot_f32(a.reshape(-1, a.shape[-1]), w.reshape(w.shape[0], -1),
+                  cdt)
+    return out.reshape(*a.shape[:-1], *w.shape[1:])
 
 
 def _layer_norm(x, g, b):
@@ -208,32 +225,82 @@ def _mm(params_or_bp: Params, a, w_name: str, b_name: str, cdt):
         + _f32(params_or_bp[b_name])
 
 
+def tokenize(spec: TransformerSpec, x: torch.Tensor) -> torch.Tensor:
+    """Discretize float inputs in [0, 1] to int64 tokens ``[B, S]``
+    (from ``[B, S]`` or ``[B, S, 1]``): the lm objective's vocabulary,
+    one token per input scalar (round half to even, as ``jnp.round``)."""
+    v = spec.vocab_size
+    flat = x.reshape(x.shape[0], -1).to(torch.float32)
+    return torch.clamp(torch.round(flat * (v - 1)), 0, v - 1).long()
+
+
+def _site_seed(rng: int, salt: int) -> int:
+    """A 63-bit generator seed for one dropout site of one step."""
+    return (int(rng) * 0x9E3779B97F4A7C15 + int(salt)) % (1 << 63)
+
+
+def _dropout(h, spec: TransformerSpec, rng: Optional[int], salt: int):
+    """Inverted dropout: keep-mask / keep_prob, only when a training
+    ``rng`` (the step's integer seed) is given — eval passes None and
+    never drops.  The mask comes from a ``torch.Generator`` seeded with
+    (rng, salt), so ``salt`` decorrelates the sites within one forward
+    and a recompute (``--remat``) draws the same mask."""
+    if rng is None or not spec.dropout_rate:
+        return h
+    keep = 1.0 - spec.dropout_rate
+    gen = torch.Generator(device=h.device).manual_seed(_site_seed(rng, salt))
+    mask = torch.rand(h.shape, generator=gen, device=h.device) < keep
+    return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype,
+                                                   device=h.device)
+                       ).to(h.dtype)
+
+
+def _attend(spec: TransformerSpec, q, k, v):
+    """[B, S, H, Dh] in/out by the backend ``spec.attention`` names: the
+    flash kernels (``ops/flash_attention.flash_attention``) or the dense
+    ``ops/ring_attention.attention``.  (The JAX ``_attend`` without its
+    sequence-parallel branch, which is not ported.)"""
+    if spec.attention == "flash":
+        from ..ops.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, spec.causal)
+    if spec.attention == "dense":
+        return attention(q, k, v, causal=spec.causal)
+    raise ValueError(f"unknown attention {spec.attention!r}: expected "
+                     f"'dense' or 'flash'")
+
+
 def _block_forward(spec: TransformerSpec, bp: Params, h, act, cdt,
-                   kv_out: Optional[list] = None):
-    """One pre-LN block on ``h`` [B, S, D] (f32): dense causal or full
-    attention, the attention residual add fused into ln2, then the
-    FFN half.  ``kv_out``: a list to append this block's ``(k, v)``
-    [B, S, H, Dh] (in ``cdt``) to — the prefill captures them for the
-    paged cache.  Returns ``h``."""
+                   kv_out: Optional[list] = None, dropout_rng=None,
+                   block: int = 0):
+    """One pre-LN block on ``h`` [B, S, D] (f32): attention by
+    ``_attend``, the attention residual add fused into ln2, then the
+    FFN half, with dropout on both residual branches when
+    ``dropout_rng`` is given (sites ``2 * block`` and ``2 * block + 1``).
+    ``kv_out``: a list to append this block's ``(k, v)`` [B, S, H, Dh]
+    (in ``cdt``) to — the prefill captures them for the paged cache.
+    Returns ``h``."""
     b, s, d = h.shape
     a = _ln(spec, h, bp["ln1_g"], bp["ln1_b"])
-    qkv = torch.einsum("bsd,dte->bste", _f32(a.to(cdt)),
-                       _f32(bp["Wqkv"].to(cdt))) + _f32(bp["bqkv"])
+    qkv = _cast_mm(a, bp["Wqkv"], cdt) + _f32(bp["bqkv"])   # [B, S, 3, e]
     q, k, v = (qkv[:, :, t].to(cdt) for t in range(3))
     shape = (b, s, bp["Wqkv"].shape[-1] // spec.d_head, spec.d_head)
     if kv_out is not None:
         kv_out.append((k.reshape(shape), v.reshape(shape)))
-    att = attention(q.reshape(shape), k.reshape(shape), v.reshape(shape),
-                    causal=spec.causal)
-    branch = _mm(bp, att.reshape(b, s, -1).to(cdt), "Wo", "bo", cdt)
+    att = _attend(spec, q.reshape(shape), k.reshape(shape),
+                  v.reshape(shape))
+    branch = _dropout(_mm(bp, att.reshape(b, s, -1).to(cdt), "Wo", "bo",
+                          cdt), spec, dropout_rng, 2 * block)
     a2, h = _ln_residual(spec, h, branch, bp["ln2_g"], bp["ln2_b"])
-    return _ffn_block(spec, bp, h, act, cdt, a=a2)
+    return _ffn_block(spec, bp, h, act, cdt, a=a2, dropout_rng=dropout_rng,
+                      block=block)
 
 
-def _ffn_block(spec: TransformerSpec, bp: Params, h, act, cdt, a=None):
-    """The LN2 + FFN residual half of a block, shared by the prefill
-    and the decode step.  ``h`` [B, S, D] -> ``h``; ``a`` is the ln2
-    output when the caller already has it."""
+def _ffn_block(spec: TransformerSpec, bp: Params, h, act, cdt, a=None,
+               dropout_rng=None, block: int = 0):
+    """The LN2 + FFN residual half of a block, shared by the training
+    forward, the prefill and the decode step.  ``h`` [B, S, D] -> ``h``;
+    ``a`` is the ln2 output when the caller already has it."""
     _check_ported(spec)
     if a is None:
         a = _ln(spec, h, bp["ln2_g"], bp["ln2_b"])
@@ -244,9 +311,64 @@ def _ffn_block(spec: TransformerSpec, bp: Params, h, act, cdt, a=None):
         ffn = fp8_dense_ffn(spec.activation, cdt, a.reshape(bsz * s, d),
                             bp["W1"], bp["b1"], bp["W2"],
                             bp["b2"]).reshape(bsz, s, -1)
-        return h + ffn
+        return h + _dropout(ffn, spec, dropout_rng, 2 * block + 1)
     a = act(_mm(bp, a, "W1", "b1", cdt)).to(cdt)
-    return h + _mm(bp, a, "W2", "b2", cdt)
+    return h + _dropout(_mm(bp, a, "W2", "b2", cdt), spec, dropout_rng,
+                        2 * block + 1)
+
+
+def apply(spec: TransformerSpec, params: Params, x: torch.Tensor,
+          with_aux: bool = False, dropout_rng=None):
+    """Forward to f32 logits, differentiable by autograd: ``[B,
+    num_classes]`` (classify: the blocks' mean over tokens through the
+    head) or ``[B, S, vocab]`` (lm: per-position vocab logits).  ``x``:
+    ``[B, input_size]`` (viewed as ``seq_len`` tokens) or ``[B, S, F]``.
+    ``dropout_rng``: the step's integer seed (training) or None (eval).
+    ``with_aux`` also returns the MoE balance loss, 0.0 for the dense
+    FFN."""
+    _check_ported(spec)
+    cdt = spec.compute_dtype
+    b = x.shape[0]
+    s, f = spec.seq_len, spec.d_feature
+    pos = _f32(params["pos"])
+    if spec.objective == "lm":
+        h = _f32(params["W_emb"])[tokenize(spec, x)] + pos[None]
+    else:
+        h = x.reshape(b, s, f).to(cdt)
+        h = _mm(params, h, "W_in", "b_in", cdt) + pos[None]
+    act = _ACTIVATIONS[spec.activation]
+    h = _dropout(h, spec, dropout_rng, 0x9999)   # embedding dropout
+    for i in range(spec.num_blocks):
+        h = _block_forward(spec, _block_params(params, i), h, act, cdt,
+                           dropout_rng=dropout_rng, block=i)
+    h = _ln(spec, h, params["lnf_g"], params["lnf_b"])
+    if spec.objective != "lm":
+        h = torch.mean(h, dim=1)                 # [B, D]
+    logits = _f32(_mm(params, h, "W_head", "b_head", cdt))
+    if with_aux:
+        return logits, torch.zeros((), dtype=torch.float32,
+                                   device=logits.device)
+    return logits
+
+
+def num_params(spec: TransformerSpec) -> int:
+    return sum(math.prod(s) for s in param_shapes(spec).values())
+
+
+def flops_per_step(spec: TransformerSpec, batch: int) -> float:
+    """Analytic fwd+bwd matmul+attention FLOPs per training step (fwd
+    2*MACs, bwd 4*MACs; attention 4*B*H*S^2*Dh forward, halved under
+    causal, 3.5x for fwd+bwd): the JAX package's accounting, dense FFN
+    only (MoE is not ported)."""
+    _check_ported(spec)
+    d, ff, f, s = spec.d_model, spec.d_ff, spec.d_feature, spec.seq_len
+    macs_tok = f * d + spec.num_blocks * (3 * d * d + d * d + 2 * d * ff)
+    head = (s * d * spec.vocab_size if spec.objective == "lm"
+            else d * spec.num_classes)
+    macs = batch * (s * macs_tok + head)
+    attn = 4.0 * batch * spec.n_heads * s * s * spec.d_head \
+        * spec.num_blocks * (0.5 if spec.causal else 1.0)
+    return 6.0 * macs + 3.5 * attn
 
 
 def init_decode_cache(spec: TransformerSpec, batch: int,
@@ -374,5 +496,6 @@ def _gumbel_argmax(logits: torch.Tensor,
     return torch.argmax(logits + gumbel, dim=-1)
 
 
-__all__ = ["TransformerSpec", "param_shapes", "init", "init_decode_cache",
+__all__ = ["TransformerSpec", "param_shapes", "init", "tokenize", "apply",
+           "num_params", "flops_per_step", "init_decode_cache",
            "decode_step", "generate"]

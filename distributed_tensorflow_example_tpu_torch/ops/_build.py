@@ -5,8 +5,9 @@ Hopper (``sm_90a``) into an object — all of them at once, one process
 each — and links the objects into one shared library under
 ``build/kernels/`` at the repo root (a directory ``.gitignore``
 lists), named by a hash of the sources so an edited source rebuilds.
-``ctypes`` loads it; the wrappers in ``ops/fused.py`` pass pointers
-and the current stream as integers.
+``ctypes`` loads it; the wrappers in ``ops/fused.py`` and
+``ops/flash_attention.py`` pass pointers and the current stream as
+integers.
 
 Nothing here runs at import: the first wrapper call on a CUDA tensor
 builds and loads the library.  A build that fails raises with the
@@ -33,6 +34,7 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # name -> argtypes of every C entry point the wrappers call
 SIGNATURES = {
     # x, g, b, y, rows, d, dtype, stream
@@ -40,11 +42,27 @@ SIGNATURES = {
     # x, r, g, b, y, s, rows, d, dtype, stream
     "dtx_layer_norm_residual_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "dtx_layer_norm_max_d": (),
+    # dy, x, g, dx, part, dg, db, rows, d, ctas, dtype, stream
+    "dtx_layer_norm_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "dtx_layer_norm_bwd_max_ctas": (),
     # x, w1, b1, w2, b2, h1, out, E, C, d, ff, act, dtype, stream
     "dtx_grouped_ffn_fwd": (_P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _P),
     # A, W, bias, out, M, N, K, act, dtype, last, stream
     "dtx_mlp_layer_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, o, acc, m, l, B, S, H, D, causal, stats, dtype, qscale,
+    # stream
+    "dtx_flash_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _I, _F, _P),
+    # q, k, v, do, m, l, dlt, dq, B, S, H, D, causal, dtype, qscale,
+    # scale, stream
+    "dtx_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _F, _F, _P),
+    # q, k, v, do, m, l, dlt, dk, dv, B, S, H, D, causal, dtype, qscale,
+    # inv_log2e, stream
+    "dtx_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _I, _I, _F, _F, _P),
+    "dtx_flash_max_d": (),
 }
 
 _lock = threading.Lock()

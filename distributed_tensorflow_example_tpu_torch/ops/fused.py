@@ -1,48 +1,56 @@
-"""Fused LayerNorm (+ residual add), the grouped FFN and the MLP
-forward: the wrappers of the port's hand-written Hopper kernels, each
-beside its plain PyTorch version.
+"""Fused LayerNorm (+ residual add) with its backward, the grouped FFN
+and the MLP forward: the wrappers of the port's hand-written Hopper
+kernels, each beside its plain PyTorch version.
 
-=========================  ==============================  ==========================
-wrapper                    CUDA source (ops/csrc/)         TPU kernel it replaces
-=========================  ==============================  ==========================
-fused_layer_norm           layer_norm.cu                   pallas_fused._ln_fwd_kernel
-fused_layer_norm_residual  layer_norm.cu                   pallas_fused._ln_res_fwd_kernel
-moe_grouped_matmul         grouped_ffn.cu (two launches)   pallas_fused._moe_kernel
-mlp_forward                mlp_forward.cu (one per layer)  pallas_fused._make_kernel
-=========================  ==============================  ==========================
+==========================  ==============================  ==========================
+wrapper                     CUDA source (ops/csrc/)         TPU kernel it replaces
+==========================  ==============================  ==========================
+fused_layer_norm            layer_norm.cu                   pallas_fused._ln_fwd_kernel
+fused_layer_norm_residual   layer_norm.cu                   pallas_fused._ln_res_fwd_kernel
+layer_norm_backward         layer_norm.cu (two launches)    pallas_fused._ln_bwd_kernel
+moe_grouped_matmul          grouped_ffn.cu (two launches)   pallas_fused._moe_kernel
+mlp_forward                 mlp_forward.cu (one per layer)  pallas_fused._make_kernel
+==========================  ==============================  ==========================
 
-``fp8_grouped_matmul`` and ``fp8_dense_ffn`` are no kernels of their
-own: they round the operands with ``ops/quant.fp8_round`` and call
-``moe_grouped_matmul``, as in the JAX package.
+The flash-attention kernels have their wrappers in ``ops/
+flash_attention.py``.  ``fp8_grouped_matmul`` and ``fp8_dense_ffn`` are
+no kernels of their own: they round the operands with ``ops/
+quant.fp8_round`` and call ``moe_grouped_matmul``, as in the JAX
+package.
 
 Dispatch is by the device of the tensors given: for CPU tensors a
 wrapper computes its plain version (``*_reference``, the same op
-sequence as the JAX package's ``_ln_rows`` / ``_moe_kernel`` /
-``_layer``); for
-CUDA tensors it checks device, dtype, shape and contiguity, allocates
-its outputs with ``torch.empty``, launches on the current stream and
-raises if the launch returns an error.  There is no fallback from the
-kernel to the plain version.
+sequence as the JAX package's ``_ln_rows`` / ``_ln_bwd_rows`` /
+``_moe_kernel`` / ``_layer``); for CUDA tensors it checks device,
+dtype, shape and contiguity, allocates its outputs with
+``torch.empty``, launches on the current stream and raises if the
+launch returns an error.  There is no fallback from the kernel to the
+plain version.
 
 Every wrapper carries ``launches``, a plain integer it raises by one
-each time it launches its kernel (``moe_grouped_matmul`` counts one
-per call, which is two CUDA launches; ``mlp_forward`` one per call, L
-launches for L layers); ``launch_counts`` and ``reset_launch_counts``
-read and zero them, so a run can show that its main path went through
-the kernels.
+each time it launches its kernel (``moe_grouped_matmul`` and
+``layer_norm_backward`` count one per call, which is two CUDA launches;
+``mlp_forward`` one per call, L launches for L layers);
+``launch_counts`` and ``reset_launch_counts`` (from ``ops/_counts.py``)
+read and zero them, the flash-attention wrappers' included, so a run
+can show that its main path went through the kernels.
 
-``mlp_forward`` is differentiable (``torch.autograd.Function``): its
-backward is the JAX package's ``_bwd``, plain matrix products as there
-(the TPU package has no backward kernel for it).  The other wrappers
-are forward only; their backward kernels come with the transformer
-training slice.
+``fused_layer_norm`` and ``fused_layer_norm_residual`` are
+differentiable (``torch.autograd.Function``): their backward is the
+JAX package's ``_fused_ln_bwd`` / ``_fused_ln_res_bwd`` over
+``layer_norm_backward`` (the residual form routes ``dx + ds`` to both
+inputs).  ``mlp_forward`` is differentiable too: its backward is the
+JAX package's ``_bwd``, plain matrix products as there (the TPU
+package has no backward kernel for it).  ``moe_grouped_matmul`` is
+forward only (its backward comes with MoE training, ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, _counts
+from ._counts import launch_counts, reset_launch_counts
 from ..models.mlp import _ACTIVATIONS, apply_with_hiddens, dot_f32
 
 LN_EPS = 1e-6
@@ -70,6 +78,23 @@ def layer_norm_reference(x, g, b):
     var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
     return (x32 - mu) * torch.rsqrt(var + LN_EPS) * g.to(torch.float32) \
         + b.to(torch.float32)
+
+
+def layer_norm_backward_reference(dy, x, g):
+    """``(dx f32 [x.shape], dg f32 [d], db f32 [d])``: the closed-form
+    LayerNorm backward on f32 rows (the JAX package's ``_ln_bwd_rows``)
+    with the statistics recomputed from ``x``, plus ``dg = sum dy*xh``
+    and ``db = sum dy`` over every row."""
+    x32, dy32 = x.to(torch.float32), dy.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + LN_EPS)
+    xh = (x32 - mu) * rstd
+    w = dy32 * g.to(torch.float32)
+    dx = rstd * (w - torch.mean(w, dim=-1, keepdim=True)
+                 - xh * torch.mean(w * xh, dim=-1, keepdim=True))
+    rows = tuple(range(dy.ndim - 1))
+    return dx, torch.sum(dy32 * xh, dim=rows), torch.sum(dy32, dim=rows)
 
 
 def layer_norm_residual_reference(x, r, g, b):
@@ -153,22 +178,23 @@ def _f32_vector(name: str, v: torch.Tensor, n: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# public wrappers (the JAX package's names and signatures, forward only)
+# public wrappers (the JAX package's names and signatures)
 # ---------------------------------------------------------------------------
 
 
-def fused_layer_norm(x, g, b):
-    """LayerNorm of ``x`` (any rank, last axis ``d``) with f32
-    statistics and f32 output.  CUDA: the ``layer_norm.cu`` kernel,
-    one block per row; x f32 or bf16, g/b [d]."""
+def _ln_max_d(name: str, d: int) -> None:
+    limit = _build.load().dtx_layer_norm_max_d()
+    if d > limit:
+        raise ValueError(f"{name}: d={d} exceeds the kernel's limit {limit}")
+
+
+def _ln_forward(x, g, b):
     if _on_cpu(x, g, b):
         return layer_norm_reference(x, g, b)
     d = x.shape[-1]
     _require("x", x, dtypes=_DTYPE_CODES)
     g32, b32 = _f32_vector("g", g, d), _f32_vector("b", b, d)
-    if d > _build.load().dtx_layer_norm_max_d():
-        raise ValueError(f"fused_layer_norm: d={d} exceeds the kernel's "
-                         f"limit {_build.load().dtx_layer_norm_max_d()}")
+    _ln_max_d("fused_layer_norm", d)
     y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     _launch("dtx_layer_norm_fwd", x.data_ptr(), g32.data_ptr(),
             b32.data_ptr(), y.data_ptr(), x.numel() // d, d,
@@ -177,20 +203,14 @@ def fused_layer_norm(x, g, b):
     return y
 
 
-def fused_layer_norm_residual(x, r, g, b):
-    """``s = x + r`` (rounded to their dtype), ``y = LN(s)``; returns
-    ``(y f32, s)``.  CUDA: the residual form of the ``layer_norm.cu``
-    kernel, one pass over x and r; x and r of one dtype (f32 or
-    bf16)."""
+def _ln_residual_forward(x, r, g, b):
     if _on_cpu(x, r, g, b):
         return layer_norm_residual_reference(x, r, g, b)
     d = x.shape[-1]
     _require("x", x, dtypes=_DTYPE_CODES)
     _require("r", r, shape=x.shape, dtypes=(x.dtype,))
     g32, b32 = _f32_vector("g", g, d), _f32_vector("b", b, d)
-    if d > _build.load().dtx_layer_norm_max_d():
-        raise ValueError(f"fused_layer_norm_residual: d={d} exceeds the "
-                         f"kernel's limit")
+    _ln_max_d("fused_layer_norm_residual", d)
     y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     s = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     _launch("dtx_layer_norm_residual_fwd", x.data_ptr(), r.data_ptr(),
@@ -198,6 +218,94 @@ def fused_layer_norm_residual(x, r, g, b):
             x.numel() // d, d, _DTYPE_CODES[x.dtype])
     fused_layer_norm_residual.launches += 1
     return y, s
+
+
+def layer_norm_backward(dy, x, g):
+    """``(dx f32 [x.shape], dg f32 [d], db f32 [d])`` of LayerNorm at
+    ``x`` (the forward's input, or its residual sum) for the cotangent
+    ``dy`` of its f32 output.  CUDA: the backward of ``layer_norm.cu``,
+    one pass over the rows by strips of CTAs plus a deterministic
+    second pass that sums their dg/db partials; dy f32, x f32 or bf16,
+    both contiguous, g [d]."""
+    if _on_cpu(dy, x, g):
+        return layer_norm_backward_reference(dy, x, g)
+    d = x.shape[-1]
+    _require("x", x, dtypes=_DTYPE_CODES)
+    _require("dy", dy, shape=x.shape, dtypes=(torch.float32,))
+    g32 = _f32_vector("g", g, d)
+    _ln_max_d("layer_norm_backward", d)
+    rows = x.numel() // d
+    dx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    dg = torch.empty((d,), dtype=torch.float32, device=x.device)
+    db = torch.empty((d,), dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return dx, dg.zero_(), db.zero_()
+    ctas = min(rows, _build.load().dtx_layer_norm_bwd_max_ctas())
+    part = torch.empty((2, ctas, d), dtype=torch.float32, device=x.device)
+    _launch("dtx_layer_norm_bwd", dy.data_ptr(), x.data_ptr(),
+            g32.data_ptr(), dx.data_ptr(), part.data_ptr(), dg.data_ptr(),
+            db.data_ptr(), rows, d, ctas, _DTYPE_CODES[x.dtype])
+    layer_norm_backward.launches += 1
+    return dx, dg, db
+
+
+class _FusedLayerNorm(torch.autograd.Function):
+    """Forward: the LayerNorm kernel (CUDA) or its plain version (CPU).
+    Backward: the JAX ``_fused_ln_bwd`` — ``layer_norm_backward`` at
+    the saved ``x``, each gradient cast to its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, g, b):
+        ctx.save_for_backward(x, g)
+        ctx.b_dtype = b.dtype
+        return _ln_forward(x, g, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, g = ctx.saved_tensors
+        dx, dg, db = layer_norm_backward(
+            dy.to(torch.float32).contiguous(), x, g)
+        return dx.to(x.dtype), dg.to(g.dtype), db.to(ctx.b_dtype)
+
+
+class _FusedLayerNormResidual(torch.autograd.Function):
+    """Forward: ``(LN(x + r), x + r)`` by the residual kernel (CUDA) or
+    its plain version (CPU).  Backward: the JAX ``_fused_ln_res_bwd`` —
+    ``layer_norm_backward`` at the saved sum s, ``dx + ds`` (f32) routed
+    to both x and r."""
+
+    @staticmethod
+    def forward(ctx, x, r, g, b):
+        y, s = _ln_residual_forward(x, r, g, b)
+        ctx.save_for_backward(s, g)
+        ctx.dtypes = (x.dtype, r.dtype, b.dtype)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        s, g = ctx.saved_tensors
+        x_dt, r_dt, b_dt = ctx.dtypes
+        dx, dg, db = layer_norm_backward(
+            dy.to(torch.float32).contiguous(), s, g)
+        d_sum = dx + ds.to(torch.float32)
+        return d_sum.to(x_dt), d_sum.to(r_dt), dg.to(g.dtype), db.to(b_dt)
+
+
+def fused_layer_norm(x, g, b):
+    """LayerNorm of ``x`` (any rank, last axis ``d``) with f32
+    statistics and f32 output, differentiable in x, g and b.  CUDA: the
+    ``layer_norm.cu`` kernel, one block per row; x f32 or bf16, g/b
+    [d]; the backward runs ``layer_norm_backward``."""
+    return _FusedLayerNorm.apply(x, g, b)
+
+
+def fused_layer_norm_residual(x, r, g, b):
+    """``s = x + r`` (rounded to their dtype), ``y = LN(s)``; returns
+    ``(y f32, s)``, differentiable in all four inputs.  CUDA: the
+    residual form of the ``layer_norm.cu`` kernel, one pass over x and
+    r; x and r of one dtype (f32 or bf16); the backward runs
+    ``layer_norm_backward`` at s."""
+    return _FusedLayerNormResidual.apply(x, r, g, b)
 
 
 def moe_grouped_matmul(activation: str, cdt, buf, we1, be1, we2, be2):
@@ -351,22 +459,12 @@ def fp8_dense_ffn(activation: str, cdt, x2, w1, b1, w2, b2):
 
 
 KERNEL_WRAPPERS = (fused_layer_norm, fused_layer_norm_residual,
-                   moe_grouped_matmul, mlp_forward)
-for _w in KERNEL_WRAPPERS:
-    _w.launches = 0
-
-
-def launch_counts() -> dict:
-    """``{wrapper name: launches}`` for every kernel wrapper."""
-    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
-
-
-def reset_launch_counts() -> None:
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
+                   layer_norm_backward, moe_grouped_matmul, mlp_forward)
+_counts.register(*KERNEL_WRAPPERS)
 
 
 __all__ = ["fused_layer_norm", "fused_layer_norm_residual",
+           "layer_norm_backward", "layer_norm_backward_reference",
            "moe_grouped_matmul", "fp8_grouped_matmul", "fp8_dense_ffn",
            "mlp_forward", "layer_norm_reference",
            "layer_norm_residual_reference", "grouped_ffn_reference",

@@ -10,61 +10,130 @@ psum-equivalence guarantee; the sums run in another order, so equal to
 float rounding).  The reported cost and accuracy are averaged over the
 processes the same way.
 
-``--pallas`` routes the MLP forward through the fused kernel
-(``ops.fused.mlp_forward``) for the activations whose backward it
-carries (sigmoid, tanh, relu); any other activation runs the plain
-``models.mlp.apply``, as in the JAX package.  Tensor, sequence, expert
-and pipeline parallelism, FSDP/ZeRO, local SGD, ``--on_anomaly`` and the
-``--histograms`` norms are not ported (ROADMAP.md Queue A).
+Two model families: the MLP, whose ``--pallas`` routes the forward
+through the fused kernel (``ops.fused.mlp_forward``) for the activations
+whose backward it carries (sigmoid, tanh, relu; any other activation
+runs the plain ``models.mlp.apply``, as in the JAX package), and the
+transformer (``models.transformer.apply``: its kernels are chosen on the
+spec, flash attention and the fused LayerNorms), with the classify or
+the lm (next-token) objective, per-step dropout masks and ``--remat``.
+Tensor, sequence, expert and pipeline parallelism, FSDP/ZeRO, local SGD,
+``--on_anomaly`` and the ``--histograms`` norms are not ported
+(ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.utils.checkpoint import checkpoint
 
 from .. import cluster
 from ..models import mlp
+from ..models import transformer as tfm
 from ..ops import fused, losses, metrics
 from ..train.optim import clip_by_global_norm
 from ..train.state import TrainState
 
 
-def forward_local(spec: mlp.MLPSpec, params, x, use_pallas: bool = False):
-    """Logits of the MLP: the fused kernel under ``--pallas`` for the
-    activations it supports, else the plain forward."""
+def param_shapes(spec) -> dict:
+    """``{name: shape}`` of either family's params."""
+    if isinstance(spec, tfm.TransformerSpec):
+        return tfm.param_shapes(spec)
+    return mlp.param_shapes(spec)
+
+
+def forward_local(spec, params, x, use_pallas: bool = False,
+                  dropout_rng: Optional[int] = None):
+    """Logits: the transformer's ``apply`` (its kernels chosen on the
+    spec), or the MLP's fused kernel under ``--pallas`` for the
+    activations it supports, else the plain MLP forward."""
+    if isinstance(spec, tfm.TransformerSpec):
+        return tfm.apply(spec, params, x, dropout_rng=dropout_rng)
     if use_pallas and spec.activation in fused.SUPPORTED_MLP_ACTIVATIONS:
         return fused.mlp_forward(spec, params, x)
     return mlp.apply(spec, params, x)
 
 
+def _lm_stats(spec, logits, tokens):
+    """Per-example next-token sums from per-position vocab logits:
+    ``(nll_sum [B], correct_sum [B], count [B])`` over the S-1 valid
+    positions (position t predicts token t+1; the last position has no
+    target)."""
+    b = logits.shape[0]
+    logp = torch.log_softmax(logits, dim=-1)
+    targets = tokens[:, 1:]
+    nll = -torch.gather(logp[:, :-1], -1, targets[..., None])[..., 0]
+    correct = (torch.argmax(logits[:, :-1], dim=-1) == targets)
+    count = torch.full((b,), float(nll.shape[1]), dtype=torch.float32,
+                       device=logits.device)
+    return (torch.sum(nll, dim=1), torch.sum(correct, dim=1).to(
+        torch.float32), count)
+
+
 def _loss_and_acc(spec, params, x, y, naive: bool, use_pallas: bool,
-                  label_smoothing: float = 0.0):
-    """``(cost, accuracy)`` of the classify objective on one batch."""
-    logits = forward_local(spec, params, x, use_pallas)
+                  label_smoothing: float = 0.0, remat: bool = False,
+                  dropout_rng: Optional[int] = None):
+    """``(cost, accuracy)`` on one batch: the classify objective's cross
+    entropy, or for the lm objective the mean next-token cross entropy
+    and accuracy (``y`` unused).  ``remat`` recomputes the whole forward
+    in the backward (``torch.utils.checkpoint``, the JAX
+    ``jax.checkpoint`` around the forward)."""
+
+    def fwd(p, xx):
+        return forward_local(spec, p, xx, use_pallas, dropout_rng)
+
+    if remat:
+        logits = checkpoint(fwd, params, x, use_reentrant=False)
+    else:
+        logits = fwd(params, x)
+    if getattr(spec, "objective", "classify") == "lm":
+        nll, correct, count = _lm_stats(spec, logits, tfm.tokenize(spec, x))
+        total = torch.sum(count)
+        return torch.sum(nll) / total, torch.sum(correct) / total
     cost = losses.cross_entropy(logits, y, naive=naive,
                                 label_smoothing=label_smoothing)
     return cost, metrics.accuracy(logits, y)
 
 
-def make_sync_step_body(cfg, spec: mlp.MLPSpec, optimizer) -> Callable:
+def make_step_rng(cfg, spec) -> Callable:
+    """``state -> the step's dropout seed`` (an int; None when the spec
+    does not drop): seed x step, and the process index, so every
+    data shard draws its own masks — the counterpart of the JAX
+    ``make_step_rng`` (the same stream after a resume; other bits)."""
+    dropping = getattr(spec, "dropout_rate", 0.0) > 0
+
+    def step_rng(state: TrainState) -> Optional[int]:
+        if not dropping:
+            return None
+        return (((cfg.seed ^ 0xD0C0) << 40) + (int(state.step) << 8)
+                + cluster.process_index())
+
+    return step_rng
+
+
+def make_sync_step_body(cfg, spec, optimizer) -> Callable:
     """``(state, x, y) -> (state, cost, acc)`` over this process's slice
     ``x``/``y`` of the global batch: ``grad_accum`` microbatches (the
     mean of their gradients), the all-reduce across processes,
     ``grad_clip``, the optimizer update, ``step + 1``."""
-    names = sorted(mlp.param_shapes(spec))
+    names = sorted(param_shapes(spec))
+    step_rng = make_step_rng(cfg, spec)
+    remat = getattr(cfg, "remat", False)
 
-    def grad_of(params, x, y):
+    def grad_of(params, x, y, rng):
         leaves = {k: params[k].detach().requires_grad_(True) for k in names}
         cost, acc = _loss_and_acc(spec, leaves, x, y, cfg.naive_ce,
-                                  cfg.pallas, cfg.label_smoothing)
+                                  cfg.pallas, cfg.label_smoothing, remat,
+                                  rng)
         grads = torch.autograd.grad(cost, [leaves[k] for k in names])
         return cost.detach(), acc, dict(zip(names, grads))
 
     def body(state: TrainState, x, y) -> Tuple[TrainState, torch.Tensor,
                                                torch.Tensor]:
+        rng = step_rng(state)
         n = cfg.grad_accum
         if n > 1:
             if x.shape[0] % n:
@@ -72,15 +141,15 @@ def make_sync_step_body(cfg, spec: mlp.MLPSpec, optimizer) -> Callable:
                     f"per-process batch {x.shape[0]} must divide into "
                     f"grad_accum={n} microbatches")
             xs, ys = x.chunk(n), y.chunk(n)
-            cost, acc, grads = grad_of(state.params, xs[0], ys[0])
+            cost, acc, grads = grad_of(state.params, xs[0], ys[0], rng)
             for xc, yc in zip(xs[1:], ys[1:]):
-                c, a, g = grad_of(state.params, xc, yc)
+                c, a, g = grad_of(state.params, xc, yc, rng)
                 grads = {k: grads[k] + g[k] for k in names}
                 cost, acc = cost + c, acc + a
             grads = {k: g / n for k, g in grads.items()}
             cost, acc = cost / n, acc / n
         else:
-            cost, acc, grads = grad_of(state.params, x, y)
+            cost, acc, grads = grad_of(state.params, x, y, rng)
         world = cluster.process_count()
         if world > 1:
             for g in grads.values():
@@ -99,17 +168,46 @@ def make_sync_step_body(cfg, spec: mlp.MLPSpec, optimizer) -> Callable:
     return body
 
 
-def build_eval_step(cfg, spec: mlp.MLPSpec) -> Callable:
+def eval_chunk_cap(spec, eval_batch_size: int) -> int:
+    """Examples per eval chunk: the caller's batch size, capped for
+    transformers so one chunk's forward stays within a ~2 GB activation
+    budget (the JAX package's estimate, unchanged: per example ~8 f32
+    [S, H, max(Dh, 128)] tensors plus the two FFN hiddens, the
+    [S, vocab] logits for lm, and the [H, S, S] scores for dense
+    attention)."""
+    cap = eval_batch_size
+    if isinstance(spec, tfm.TransformerSpec):
+        budget = 2 * 1024 ** 3
+        dh_pad = max(spec.d_head, 128)
+        per_example = 4 * spec.seq_len * (
+            8 * spec.n_heads * dh_pad + 2 * spec.d_ff)
+        if spec.objective == "lm":
+            per_example += 4 * spec.seq_len * spec.vocab_size
+        if spec.attention == "dense":
+            per_example += 8 * spec.n_heads * spec.seq_len ** 2
+        cap = min(cap, max(1, budget // per_example))
+    return cap
+
+
+def _eval_correct(spec, logits, x, y):
+    """Per-example 'correct' value for eval: the 0/1 classification hit,
+    or — lm objective — the example's mean next-token accuracy."""
+    if getattr(spec, "objective", "classify") == "lm":
+        _nll, c, cnt = _lm_stats(spec, logits, tfm.tokenize(spec, x))
+        return c / cnt
+    return (torch.argmax(logits, -1)
+            == torch.argmax(y, -1)).to(torch.float32)
+
+
+def build_eval_step(cfg, spec) -> Callable:
     """``(params, x, y, mask) -> correct-prediction count`` (an f32
     scalar tensor) over one chunk; ``mask`` zeroes the padding rows.
     Every process evaluates the whole set it is given, so no collective
-    runs."""
+    runs.  Eval never drops."""
 
     @torch.no_grad()
     def eval_step(params, x, y, mask):
         logits = forward_local(spec, params, x, cfg.pallas)
-        correct = (torch.argmax(logits, -1)
-                   == torch.argmax(y, -1)).to(torch.float32)
-        return torch.sum(correct * mask)
+        return torch.sum(_eval_correct(spec, logits, x, y) * mask)
 
     return eval_step

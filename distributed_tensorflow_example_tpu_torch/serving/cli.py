@@ -44,7 +44,9 @@ GENERATE_DEADLINE_GRACE_S = 5.0
 def spec_from_cfg(cfg):
     """The lm transformer spec of the JAX ``dtx-serve``'s
     ``_spec_from_cfg``: seq_len = input_size, causal, ``sigmoid``
-    (the training default) served as gelu."""
+    (the training default) served as gelu, ``--pallas`` selects flash
+    attention.  (The prefill and the decode run dense attention
+    whatever the spec says, as in the JAX package.)"""
     from ..device import dtype_from_name
     from ..models.transformer import TransformerSpec
 
@@ -55,6 +57,7 @@ def spec_from_cfg(cfg):
         num_blocks=cfg.num_blocks, d_ff=cfg.d_ff,
         activation=(cfg.activation if cfg.activation != "sigmoid"
                     else "gelu"),
+        attention="flash" if cfg.pallas else cfg.attention,
         causal=True, num_experts=cfg.num_experts,
         fused_ln=cfg.fused_ln, fp8_ffn=cfg.fp8_ffn,
         param_dtype=dtype_from_name(cfg.param_dtype),

@@ -111,13 +111,16 @@ def prefill_into_pages(spec: tfm.TransformerSpec, params, cache,
     ``lengths[b]`` are pad), scatter every block's k/v rows into the
     pages, and return (logits at position ``lengths[b]-1`` [B, V],
     cache).  Causal attention keeps pad rows out of live positions.
-    Attention is dense whatever ``spec.attention`` says (ragged
-    prompt widths are never tile-aligned; the JAX package does the
-    same)."""
+    Attention is dense whatever ``spec.attention`` says: the JAX
+    package's prefill replaces a flash spec with a dense one (the
+    decode path's score math, which ``decode_step`` mirrors), and so
+    does this one."""
     if spec.objective != "lm":
         raise ValueError("prefill serves the lm objective only")
     if not spec.causal:
         raise ValueError("prefill requires a causal spec (lm decode)")
+    if spec.attention != "dense":
+        spec = dataclasses.replace(spec, attention="dense")
     cdt = spec.compute_dtype
     b, p = tokens.shape
     tokens = tokens.long()

@@ -1,5 +1,5 @@
 """The training loop: the host path of the JAX package's
-``train/loop.py``, for the MLP.
+``train/loop.py``, for the MLP and the transformer.
 
 ``run(cfg)`` loads the data, builds the seeded train state on the card
 (``cfg.device``; the CPU only when asked for), then walks
@@ -17,7 +17,10 @@ reference's stdout byte for byte modulo the values:
 
 writes the ``cost``/``accuracy`` scalar summaries every step and the
 graph record once (``--logs_path``; chief only unless
-``--summaries_all_hosts``), saves ``.npz`` checkpoints in the JAX
+``--summaries_all_hosts``), evaluates the test split in chunks
+(``step.eval_chunk_cap`` bounds a transformer's), for the lm objective
+samples ``--sample_after`` sequences with the KV-cached ``generate``
+into ``logs_path/samples.npz``, saves ``.npz`` checkpoints in the JAX
 package's layout (``--checkpoint_dir``, every ``--checkpoint_every``
 steps and at the end) and returns the JAX ``run``'s result keys.
 
@@ -28,6 +31,7 @@ batch per step from the host whether or not ``--no_fast_loop`` is given.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Dict
 
@@ -38,16 +42,42 @@ from .. import cluster
 from ..config import Config, validate_train_config
 from ..data import EpochIterator, load_datasets
 from ..device import dtype_from_name, resolve_device
+from ..models import transformer as tfm
 from ..models.mlp import MLPSpec
 from ..parallel import step as step_lib
 from ..utils import checkpoint as ckpt_lib
-from ..utils.summary import SummaryWriter, mlp_graph_nodes
+from ..utils.summary import (SummaryWriter, mlp_graph_nodes,
+                             transformer_graph_nodes)
 from .optim import make_optimizer
 from .state import create_train_state
 
 
-def make_spec(cfg: Config) -> MLPSpec:
-    """The MLP the flags describe."""
+def make_spec(cfg: Config):
+    """The model the flags describe (the JAX ``make_spec``): for the
+    transformer, the lm objective tokenizes every input scalar
+    (seq_len = input_size) and is causal, ``sigmoid`` (the reference
+    default) runs as gelu, and ``--pallas`` selects flash attention."""
+    if cfg.model == "transformer":
+        lm = cfg.objective == "lm"
+        return tfm.TransformerSpec(
+            input_size=cfg.input_size,
+            num_classes=cfg.num_classes,
+            objective=cfg.objective,
+            vocab_size=cfg.vocab_size,
+            seq_len=cfg.input_size if lm else cfg.seq_len,
+            d_model=cfg.d_model,
+            n_heads=cfg.n_heads,
+            num_blocks=cfg.num_blocks,
+            d_ff=cfg.d_ff,
+            activation=(cfg.activation if cfg.activation != "sigmoid"
+                        else "gelu"),
+            attention="flash" if cfg.pallas else cfg.attention,
+            dropout_rate=cfg.dropout_rate,
+            causal=True if lm else cfg.causal,
+            fused_ln=cfg.fused_ln,
+            param_dtype=dtype_from_name(cfg.param_dtype),
+            compute_dtype=dtype_from_name(cfg.compute_dtype),
+        )
     return MLPSpec(
         input_size=cfg.input_size,
         hidden_sizes=tuple(cfg.hidden_sizes),
@@ -100,6 +130,30 @@ def _eval_accuracy(eval_step, params, images: np.ndarray,
     return correct / n
 
 
+def _sample(cfg: Config, spec, params, images: np.ndarray, device,
+            chief: bool) -> None:
+    """KV-cached decoding from the first test examples' opening
+    ``seq_len // 8`` tokens (greedy at ``--sample_temperature`` 0), saved
+    by the chief to ``logs_path/samples.npz`` as the JAX trainer saves
+    them."""
+    n_s = min(cfg.sample_after, images.shape[0])
+    if not n_s:
+        return
+    prompt_len = max(1, spec.seq_len // 8)
+    prompts = tfm.tokenize(spec, torch.from_numpy(images[:n_s]).to(
+        device))[:, :prompt_len]
+    gen = (torch.Generator(device=device).manual_seed(cfg.seed)
+           if cfg.sample_temperature > 0 else None)
+    samples = tfm.generate(spec, params, prompts, generator=gen,
+                           temperature=cfg.sample_temperature)
+    if chief:
+        os.makedirs(cfg.logs_path, exist_ok=True)
+        path = os.path.join(cfg.logs_path, "samples.npz")
+        np.savez(path, samples=samples.cpu().numpy().astype(np.int32),
+                 prompt_len=prompt_len, vocab_size=spec.vocab_size)
+        print(f"Sampled {n_s} sequences -> {path}")
+
+
 def run(cfg: Config) -> Dict[str, Any]:
     """Train per the config; returns the metrics the reference prints
     (the JAX ``run``'s result keys)."""
@@ -130,9 +184,13 @@ def run(cfg: Config) -> Dict[str, Any]:
 
         if cfg.summaries and (chief or cfg.summaries_all_hosts):
             writer = SummaryWriter(cfg.logs_path)
-            writer.add_graph(mlp_graph_nodes(
-                cfg.input_size, tuple(cfg.hidden_sizes), cfg.num_classes,
-                cfg.activation, optimizer=cfg.optimizer))
+            if cfg.model == "transformer":
+                writer.add_graph(transformer_graph_nodes(cfg.num_blocks))
+            else:
+                writer.add_graph(mlp_graph_nodes(
+                    cfg.input_size, tuple(cfg.hidden_sizes),
+                    cfg.num_classes, cfg.activation,
+                    optimizer=cfg.optimizer))
 
         def save_state(step: int, resume_epoch: int) -> None:
             if chief:
@@ -185,9 +243,10 @@ def run(cfg: Config) -> Dict[str, Any]:
                     last_ckpt_step = steps_done
             epochs_done = epoch + 1
 
-        test_acc = _eval_accuracy(eval_step, state.params,
-                                  dataset.test.images, dataset.test.labels,
-                                  cfg.eval_batch_size, dev)
+        test_acc = _eval_accuracy(
+            eval_step, state.params, dataset.test.images,
+            dataset.test.labels,
+            step_lib.eval_chunk_cap(spec, cfg.eval_batch_size), dev)
         total_time = time.time() - begin_time
         cost = float(cost)
         if chief or cfg.eval_all_hosts:
@@ -195,6 +254,10 @@ def run(cfg: Config) -> Dict[str, Any]:
         if chief:
             print("Total Time: %3.2fs" % float(total_time))
             print("Final Cost: %.4f" % cost)
+        if cfg.sample_after > 0 and cfg.model == "transformer" \
+                and cfg.objective == "lm":
+            _sample(cfg, spec, state.params, dataset.test.images, dev,
+                    chief)
         if cfg.checkpoint_dir:
             save_state(steps_done, cfg.training_epochs)
         if chief:

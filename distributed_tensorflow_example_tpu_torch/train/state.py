@@ -15,21 +15,22 @@ from ..device import DeviceLike, resolve_device
 @dataclasses.dataclass
 class TrainState:
     step: torch.Tensor      # global_step, an int32 scalar
-    params: Any             # {W1, b1, ...}
+    params: Any             # {name: tensor} of the model family
     opt_state: Any          # the optimizer's slots (``()`` for SGD)
 
 
 def create_train_state(spec, optimizer, seed: int = 1,
                        device: DeviceLike = None) -> TrainState:
-    """The seeded init (``models.mlp.init``) and its optimizer state on
-    ``device``.  Only the MLP family trains in the port so far."""
+    """The seeded init of either family (``models.mlp.init`` or
+    ``models.transformer.init``) and its optimizer state on
+    ``device``."""
     from ..models import mlp
+    from ..models import transformer as tfm
 
-    if not isinstance(spec, mlp.MLPSpec):
-        raise NotImplementedError(
-            "training the transformer family is not ported yet "
-            "(ROADMAP.md Queue A, slice 3)")
     dev = resolve_device(device)
-    params = mlp.init(spec, seed=seed, device=dev)
+    if isinstance(spec, tfm.TransformerSpec):
+        params = tfm.init(spec, seed=seed, device=dev)
+    else:
+        params = mlp.init(spec, seed=seed, device=dev)
     return TrainState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       params=params, opt_state=optimizer.init(params))

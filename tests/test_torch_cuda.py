@@ -18,6 +18,7 @@ import torch
 
 from distributed_tensorflow_example_tpu_torch.models import mlp
 from distributed_tensorflow_example_tpu_torch.ops import fused
+from distributed_tensorflow_example_tpu_torch.ops import flash_attention as fa
 
 
 @pytest.fixture
@@ -131,7 +132,9 @@ def test_wrappers_count_launches_and_refuse_bad_input_on_card(card):
     torch.cuda.synchronize()
     assert fused.launch_counts() == {
         "fused_layer_norm": 1, "fused_layer_norm_residual": 1,
-        "moe_grouped_matmul": 1, "mlp_forward": 0}
+        "layer_norm_backward": 0, "moe_grouped_matmul": 1,
+        "mlp_forward": 0, "flash_forward": 0, "flash_dq": 0,
+        "flash_dkv": 0}
     with pytest.raises(ValueError, match="contiguous"):
         fused.fused_layer_norm(torch.randn(64, 4, device=card).t(), g, b)
     with pytest.raises(ValueError, match="CPU or all on one CUDA"):
@@ -260,3 +263,144 @@ def test_mlp_forward_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         fused.mlp_forward(spec, params,
                           torch.rand(784, 4, device=card).t())
+
+
+def _close_scaled(got, want, tol, what, floor=1e-6):
+    scale = max(float(want.float().abs().max()), floor)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * scale, f"{what}: max |diff| {err} > {tol} x {scale}"
+
+
+# kernel vs plain version on the same inputs: f32 sums in other orders
+# (1e-4 of scale); bf16: the forward rounds p against the running max of
+# its 64-key tiles where the plain version rounds against the row's
+# final max, one bf16 ulp (2^-8) per element, and o itself is bf16
+# (1e-2 of scale); the backward recomputes p from the same saved
+# statistics on both sides, so only f32 sum orders and the rare bf16
+# rounding flip of ds differ (1e-2 of scale in bf16 all the same).  The
+# gradients' scale is floored at 1, the size of the N(0, 1) terms they
+# sum: at S = 1 the one key has p = 1, so ds = dp - dlt is exactly 0 and
+# dq and dk are the rounding noise of two O(1) sums on either side
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 63, 300, 1024])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain_on_card(card, dtype, causal, s):
+    """B5 (both forms), B6 and B7 against their plain versions at head
+    dims 16, 64 and 128, batch 2 and 3 heads, with the backward fed the
+    plain forward's statistics."""
+    tol = FLASH_TOL[dtype]
+    for d in (16, 64, 128):
+        gen = torch.Generator(device=card).manual_seed(s * 1000 + d)
+        q, k, v, do = (torch.randn(2, s, 3, d, generator=gen,
+                                   device=card).to(dtype)
+                       for _ in range(4))
+        what = f"{dtype} causal={causal} S={s} D={d}"
+        _close_scaled(fa.flash_forward(q, k, v, causal),
+                      fa.flash_attention_reference(q, k, v, causal), tol,
+                      f"o {what}")
+        acc, m, l = fa.flash_forward(q, k, v, causal, stats=True)
+        acc_r, m_r, l_r = fa.flash_stats_reference(q, k, v, causal)
+        for got, want, name in ((acc, acc_r, "acc"), (m, m_r, "m"),
+                                (l, l_r, "l")):
+            _close_scaled(got, want, tol, f"{name} {what}")
+        o = fa.flash_attention_reference(q, k, v, causal)
+        dlt = torch.sum(do.float() * o.float(), dim=-1)
+        want = fa.flash_backward_reference(q, k, v, do, m_r, l_r, dlt,
+                                           causal)
+        got = (fa.flash_dq(q, k, v, do, m_r, l_r, dlt, causal),
+               *fa.flash_dkv(q, k, v, do, m_r, l_r, dlt, causal))
+        for g_, w_, name in zip(got, want, ("dq", "dk", "dv")):
+            _close_scaled(g_, w_, tol, f"{name} {what}", floor=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_gradients_on_card_match_cpu(card, dtype):
+    """``flash_attention`` under autograd (B5 stats, B6, B7) on the card
+    against the same function on the CPU (plain versions), causal at a
+    ragged S of 300: one launch of each kernel per call."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    q, k, v, g = (torch.randn(2, 300, 2, 64, generator=gen, device=card)
+                  .to(dtype) for _ in range(4))
+
+    def run(dev):
+        leaves = [t.detach().to(dev).clone().requires_grad_(True)
+                  for t in (q, k, v)]
+        o = fa.flash_attention(*leaves, True)
+        return (o.detach().cpu(), *torch.autograd.grad(o, leaves,
+                                                       g.to(dev)))
+
+    fused.reset_launch_counts()
+    on_card = run(card)
+    torch.cuda.synchronize()
+    counts = fused.launch_counts()
+    assert (counts["flash_forward"], counts["flash_dq"],
+            counts["flash_dkv"]) == (1, 1, 1)
+    for got, want, name in zip(on_card, run("cpu"), ("o", "dq", "dk", "dv")):
+        assert got.dtype == dtype
+        _close_scaled(got.cpu(), want, FLASH_TOL[dtype], name)
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(card):
+    q = torch.randn(1, 64, 2, 130, device=card)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        fa.flash_forward(q, q, q, True)
+    q = torch.randn(1, 64, 2, 16, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_forward(q.transpose(1, 2), q.transpose(1, 2),
+                         q.transpose(1, 2), True)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_forward(q, q.to(torch.bfloat16), q, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 129, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_backward_kernel_matches_plain_on_card(card, dtype,
+                                                          rows):
+    """B4 against its plain version at d 1024 and 96: dx, dg and db
+    within 1e-4 of their scale (f32 sums in other orders; dg and db sum
+    over up to 1000 rows)."""
+    for d in (1024, 96):
+        gen = torch.Generator(device=card).manual_seed(rows + d)
+        x = (3 * torch.randn(rows, d, generator=gen, device=card)
+             + 1).to(dtype)
+        dy = torch.randn(rows, d, generator=gen, device=card)
+        g = 1 + 0.1 * torch.randn(d, generator=gen, device=card)
+        got = fused.layer_norm_backward(dy, x, g)
+        want = fused.layer_norm_backward_reference(dy, x, g)
+        for a, b, name in zip(got, want, ("dx", "dg", "db")):
+            _close_scaled(a, b, 1e-4, f"{name} rows={rows} d={d} {dtype}")
+
+
+@pytest.mark.cuda
+def test_layer_norm_gradients_on_card_match_cpu(card):
+    """``fused_layer_norm`` and ``fused_layer_norm_residual`` under
+    autograd (B2/B3 forward, B4 backward) on the card against the CPU
+    path, rank 3: 1e-4 of each gradient's scale."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    x, r = (torch.randn(2, 37, 96, generator=gen, device=card)
+            for _ in range(2))
+    g = 1 + 0.1 * torch.randn(96, generator=gen, device=card)
+    b = 0.1 * torch.randn(96, generator=gen, device=card)
+
+    def run(dev):
+        xs, rs, gs, bs = (t.detach().to(dev).clone().requires_grad_(True)
+                          for t in (x, r, g, b))
+        y1 = fused.fused_layer_norm(xs, gs, bs)
+        y2, s2 = fused.fused_layer_norm_residual(xs, rs, gs, bs)
+        loss = (y1 * y1).sum() + (y2 * torch.cos(y1)).sum() \
+            + (s2 * s2).sum()
+        return torch.autograd.grad(loss, (xs, rs, gs, bs))
+
+    fused.reset_launch_counts()
+    on_card = run(card)
+    torch.cuda.synchronize()
+    assert fused.launch_counts()["layer_norm_backward"] == 2
+    for got, want, name in zip(on_card, run("cpu"), "xrgb"):
+        _close_scaled(got.cpu(), want, 1e-4, name)

@@ -232,7 +232,9 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
         fused.mlp_forward_reference(spec, params, x)[0], rtol=0, atol=0)
     assert fused.launch_counts() == {
         "fused_layer_norm": 0, "fused_layer_norm_residual": 0,
-        "moe_grouped_matmul": 0, "mlp_forward": 0}
+        "layer_norm_backward": 0, "moe_grouped_matmul": 0,
+        "mlp_forward": 0, "flash_forward": 0, "flash_dq": 0,
+        "flash_dkv": 0}
 
 
 def test_wrappers_refuse_mixed_or_foreign_devices():
