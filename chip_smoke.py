@@ -70,6 +70,31 @@ and for the transformer trainer (``main.py --model=transformer`` ->
     one initial state on the card and on the port's CPU path, the
     updates held against each other.
 
+and for MoE training (``main.py --model=transformer --num_experts=64
+--moe_dispatch=alltoall --grouped_moe [--fp8_ffn]`` -> ``train/loop.run``):
+
+2d. hold B8's training form (``moe_grouped_matmul_z1``: out and the f32
+    pre-activation z1) against its plain version at the path's
+    [64, 640, 1024] x ff 2048 bf16 gelu, at a ragged C and at E = 1 (the
+    dense fp8 case), and time it beside its plain version, a
+    ``baddbmm`` + gelu + ``baddbmm`` yardstick and its bound; time the
+    four plain products of its backward there too;
+8.  train at full width: the JAX repo's ``moe_wide`` bench row (E 64,
+    top-1, capacity factor 1.25 -> C 640, causal flash attention,
+    d_model 1024, 8 heads of 128, 2 blocks, d_ff 2048, S 1024, bf16
+    compute, Adam with bf16 moments, batch 32) for 4 steps with a test
+    set of 8, first under ``--grouped_moe``, then under ``--grouped_moe
+    --fp8_ffn``; launch counters zeroed just before and read just after
+    each run (B5, B6, B7, B8's training form and, in eval, its primal
+    form must have launched), every printed cost finite; print the
+    median step time, tokens/s, model TFLOP/s and the peak memory;
+8b. one step of the same model cut to 1 block, E 8, S 256, batch 4, top-2,
+    ``--moe_aux_weight=0.01`` and capacity factor 1.0 (tokens drop) from
+    one initial state on the card and on the port's CPU path: the
+    router's choices compared first (the count that differ printed),
+    then, with the CPU step held to the card's choices, the updates held
+    against each other.
+
 The last two lines of stdout are the kernel report JSON (each kernel's
 launches on its first main path, and under ``launches_by_path`` on
 every path that ran it) and the result JSON; the card's name and power limit come just before them.
@@ -167,6 +192,27 @@ LN_BWD_RTOL = 1e-4
 # gradient is off by O(1)
 TFM_STEP_RTOL = 2e-2
 
+# B8's training form (phase 2d), kernel vs plain version on the same
+# inputs at the path's shape, each relative to the output's largest
+# magnitude: out as the primal form (a bf16 hidden may round one ulp
+# apart where the two f32 pre-activations straddle a boundary; out sums
+# 2048 of them: 1e-3 of scale); z1, the f32 sum of the same 1024 exact
+# bf16 products in another order: 1e-5 of scale.  A wrong tile, a missed
+# K slice or a z1 stored off by a row is off by O(1) of scale.
+Z1_OUT_RTOL = 1e-3
+Z1_RTOL = 1e-5
+# one full-width MoE step (1 block, E 8, S 256, batch 4, top-2), card vs
+# the port's CPU path held to the card's routing, SGD: as TFM_STEP_RTOL,
+# bf16 roundings of activations, of p, of the expert hidden and of the
+# backward's operands land one ulp apart here and there: 2e-2 of each
+# update's scale.
+MOE_STEP_RTOL = 2e-2
+# the share of tokens whose routing may differ card vs CPU before the
+# router counts as wrong: a choice flips only where two probabilities
+# tie within the bf16 noise of the router's input; a wrong sort, tie
+# rule or product moves most of them
+MOE_FLIP_LIMIT = 0.01
+
 # the serving path's kernels (phase 3), the MLP trainer's (phases 5, 6)
 # and the transformer trainer's (phase 7)
 SERVE_WRAPPERS = ("fused_layer_norm", "fused_layer_norm_residual",
@@ -198,6 +244,31 @@ STEP_CHECK_FLAGS = [
     "--input_size=8192", "--seq_len=2048", "--d_model=1024", "--n_heads=8",
     "--num_blocks=1", "--d_ff=4096", "--compute_dtype=bfloat16",
     "--optimizer=sgd", "--learning_rate=1e-2", "--batch_size=2"]
+
+# the JAX repo's moe_wide bench row (bench.py), 4 steps; phase 8 runs it
+# with --grouped_moe, then with --grouped_moe --fp8_ffn
+MOE_WIDE_FLAGS = [
+    "--model=transformer", "--num_experts=64", "--moe_dispatch=alltoall",
+    "--moe_topk=1", "--capacity_factor=1.25", "--attention=flash",
+    "--causal", "--input_size=4096", "--seq_len=1024", "--d_model=1024",
+    "--n_heads=8", "--num_blocks=2", "--d_ff=2048",
+    "--compute_dtype=bfloat16", "--optimizer=adam",
+    "--adam_moments_dtype=bfloat16", "--learning_rate=1e-3",
+    "--batch_size=32", "--dataset=synthetic", "--synthetic_train_size=128",
+    "--synthetic_test_size=8", "--no_summaries", "--frequency=1",
+    "--training_epochs=1"]
+MOE_WRAPPERS = ("flash_forward", "flash_dq", "flash_dkv",
+                "moe_grouped_matmul_z1", "moe_grouped_matmul")
+# phase 8b: the same widths cut to 1 block, E 8, S 256, batch 4, top-2
+# with the balance loss and a capacity factor of 1.0 (C 256 for 2048
+# units over 8 experts: the fuller experts drop), SGD
+MOE_STEP_FLAGS = [
+    "--model=transformer", "--num_experts=8", "--moe_dispatch=alltoall",
+    "--moe_topk=2", "--capacity_factor=1.0", "--moe_aux_weight=0.01",
+    "--grouped_moe", "--attention=flash", "--causal", "--input_size=1024",
+    "--seq_len=256", "--d_model=1024", "--n_heads=8", "--num_blocks=1",
+    "--d_ff=2048", "--compute_dtype=bfloat16", "--optimizer=sgd",
+    "--learning_rate=1e-2", "--batch_size=4"]
 
 FULL_WIDTH = dict(input_size=1024, seq_len=1024, vocab_size=256,
                   d_model=1024, n_heads=8, num_blocks=4, d_ff=4096,
@@ -375,7 +446,7 @@ def check_grouped_ffn(card: str) -> list:
                   + c * d * 4)
         sets = copies(make, nbytes)
         out = fused.moe_grouped_matmul(*sets[0])
-        ref = fused.grouped_ffn_reference(*sets[0])
+        ref = fused.grouped_ffn_reference(*sets[0])[0]
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         if not err <= FFN_ATOL:
@@ -562,8 +633,11 @@ def check_flash(card: str) -> list:
     # per kernel: (largest absolute error, largest error of scale)
     errs = {"flash_forward": (0.0, 0.0), "flash_dq": (0.0, 0.0),
             "flash_dkv": (0.0, 0.0)}
-    # the path's length at batch 1, then two ragged shapes
+    # the transformer path's length at batch 1, the MoE path's whole
+    # batch (about 1 GB of f32 scores per plain tensor), then two ragged
+    # shapes
     for b, s, h, d, causal in ((1, 8192, 8, 128, True),
+                               (32, 1024, 8, 128, True),
                                (2, 1000, 8, 128, True),
                                (1, 300, 8, 64, False)):
         q, k, v, do = inputs(b, s, h, d, 11000 + s)
@@ -737,6 +811,132 @@ def check_layer_norm_backward(card: str) -> list:
         f"ms, plain {row['plain_ms']:.4f} ms, library {lib:.4f} ms, bound "
         f"{bound:.4f} ms ({by}) on {card}")
     return [("layer_norm_backward", [row])]
+
+
+def check_grouped_ffn_z1(card: str) -> list:
+    """B8's training form (``want_z1``) against its plain version at the
+    path's [64, 640, 1024] x 2048, a ragged C and E = 1, and its primal
+    form at the path's training and eval shapes; then timed at the
+    path's shape with the four plain products of its backward."""
+    from distributed_tensorflow_example_tpu_torch.models.mlp import (
+        _ACTIVATIONS, dot_f32)
+    from distributed_tensorflow_example_tpu_torch.ops import fused
+
+    d, ff, cdt = 1024, 2048, torch.bfloat16
+    gelu = _ACTIVATIONS["gelu"]
+
+    def make(e, c, seed):
+        # the operands as the path hands them to the kernel: the buffer
+        # and the weights cast to bf16, f32 biases; z1 ~ N(0, 1)
+        g = _gen(seed)
+        return ("gelu", cdt,
+                torch.randn(e, c, d, generator=g, device="cuda").to(cdt),
+                (torch.randn(e, d, ff, generator=g, device="cuda")
+                 / d ** 0.5).to(cdt),
+                0.1 * torch.randn(e, ff, generator=g, device="cuda"),
+                (torch.randn(e, ff, d, generator=g, device="cuda")
+                 / ff ** 0.5).to(cdt),
+                0.1 * torch.randn(e, d, generator=g, device="cuda"))
+
+    worst = dict(out=(0.0, 0.0), z1=(0.0, 0.0))
+    for e, c in ((64, 640), (8, 300), (1, 1000)):
+        args = make(e, c, 15000 + c)
+        out, z1 = fused.moe_grouped_matmul_z1(*args)
+        ref_out, ref_z1 = fused.grouped_ffn_reference(*args)
+        torch.cuda.synchronize()
+        e_out, e_z1 = _errs(out, ref_out), _errs(z1, ref_z1)
+        log(f"[kernel] grouped_ffn_z1 [{e}, {c}, {d}] ff={ff} bf16 gelu: "
+            f"out {e_out[1]:.3g} of scale (tol {Z1_OUT_RTOL}), z1 "
+            f"{e_z1[1]:.3g} of scale (tol {Z1_RTOL}); max abs "
+            f"{e_out[0]:.3g}, {e_z1[0]:.3g}")
+        if not (e_out[1] <= Z1_OUT_RTOL and e_z1[1] <= Z1_RTOL):
+            raise AssertionError(f"grouped_ffn_z1 [{e}, {c}, {d}]: out "
+                                 f"{e_out[1]}, z1 {e_z1[1]} of scale")
+        worst = {k: (max(worst[k][0], er[0]), max(worst[k][1], er[1]))
+                 for k, er in (("out", e_out), ("z1", e_z1))}
+        del out, z1, ref_out, ref_z1, args
+        torch.cuda.empty_cache()
+
+    # the primal form as the path runs it, through the wrappers it calls:
+    # training's C 640 and eval's C 160 (8 test examples, T 8192:
+    # ceil(1.25 x 8192 / 64)), and the fp8 wrapper on f32 masters
+    # against the plain version on its rounded operands
+    primal = (0.0, 0.0)
+    for e, c, fp8 in ((64, 640, False), (64, 160, False), (64, 160, True)):
+        args = make(e, c, 15500 + c + fp8)
+        if fp8:
+            args = args[:2] + tuple(t.float() for t in args[2:])
+            out = fused.fp8_grouped_matmul(*args)
+            bq, w1q, w2q = fused._fp8_operands(args[2], args[3], args[5])
+            ref_out = fused.grouped_ffn_reference(
+                "gelu", cdt, bq, w1q, args[4], w2q, args[6])[0]
+        else:
+            out = fused.moe_grouped_matmul(*args)
+            ref_out = fused.grouped_ffn_reference(*args)[0]
+        torch.cuda.synchronize()
+        er = _errs(out, ref_out)
+        log(f"[kernel] grouped_ffn primal form [{e}, {c}, {d}] ff={ff} "
+            f"bf16 gelu{' fp8' if fp8 else ''}: out {er[1]:.3g} of scale "
+            f"(tol {Z1_OUT_RTOL}); max abs {er[0]:.3g}")
+        if not er[1] <= Z1_OUT_RTOL:
+            raise AssertionError(f"grouped_ffn primal form [{e}, {c}, {d}] "
+                                 f"fp8={fp8}: out {er[1]} of scale")
+        primal = (max(primal[0], er[0]), max(primal[1], er[1]))
+        del out, ref_out, args
+        torch.cuda.empty_cache()
+
+    e, c = 64, 640
+    args = make(e, c, 15999)
+    x, w1, b1, w2, b2 = args[2:]
+
+    def lib(act, cdt_, x_, w1_, b1_, w2_, b2_):
+        # cuBLAS bf16 products with the bias folded in (bf16 out): a
+        # yardstick of speed, not of the same rounding
+        h = gelu(torch.baddbmm(b1_[:, None].to(cdt_), x_, w1_))
+        return torch.baddbmm(b2_[:, None].to(cdt_), h, w2_)
+
+    ms = event_ms(fused.moe_grouped_matmul_z1, args)
+    primal_ms = event_ms(fused.moe_grouped_matmul, args)
+    plain_ms = event_ms(fused.grouped_ffn_reference, args)
+    library_ms = event_ms(lib, args)
+    # the backward (no kernel in either package): its four products on
+    # the path's operands, and the whole of it
+    _, z1 = fused.moe_grouped_matmul_z1(*args)
+    g = _gen(16000)
+    cot = torch.randn(e, c, d, generator=g, device="cuda")
+    dz1 = torch.randn(e, c, ff, generator=g, device="cuda")
+    h1 = gelu(z1).to(cdt)
+    products = {"dWe2 = h1^T g": (h1.mT, cot), "dh1 = g We2^T": (cot, w2.mT),
+                "dWe1 = buf^T dz1": (x.mT, dz1),
+                "dbuf = dz1 We1^T": (dz1, w1.mT)}
+    bwd_ms = {k: event_ms(lambda a, b_: dot_f32(a, b_, cdt), v)
+              for k, v in products.items()}
+    bwd_total_ms = event_ms(fused._grouped_backward,
+                            ("gelu", cdt, (x, w1, b1, w2, b2, z1), cot))
+    nbytes = (e * c * d * 2 + 2 * e * d * ff * 2 + e * ff * 4 + e * d * 4
+              + e * c * d * 4 + e * c * ff * 4)
+    flops = 4 * e * c * d * ff
+    bound, by = _bound(nbytes, flops)
+    row = dict(experts=e, rows=c, d=d, ff=ff, dtype="bf16",
+               activation="gelu", max_abs_err=worst["z1"][0],
+               rel_err=worst["z1"][1], out_max_abs_err=worst["out"][0],
+               out_rel_err=worst["out"][1], primal_max_abs_err=primal[0],
+               primal_rel_err=primal[1], ms=ms, primal_ms=primal_ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               library_call="baddbmm bf16 + gelu + baddbmm",
+               bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops,
+               tflops=flops / ms / 1e9, backward_products_ms=bwd_ms,
+               backward_ms=bwd_total_ms)
+    log(f"[kernel] grouped_ffn_z1 [{e}, {c}, {d}] ff={ff} bf16: kernel "
+        f"{ms:.3f} ms ({row['tflops']:.2f} TFLOP/s; primal form "
+        f"{primal_ms:.3f} ms), plain {plain_ms:.3f} ms, library "
+        f"{library_ms:.3f} ms, bound {bound:.3f} ms ({by}); backward "
+        f"{bwd_total_ms:.3f} ms, products "
+        + ", ".join(f"{k} {v:.3f}" for k, v in bwd_ms.items())
+        + f" ms on {card}")
+    del args, x, w1, b1, w2, b2, z1, cot, dz1, h1, products
+    torch.cuda.empty_cache()
+    return [("grouped_ffn_z1", [row])]
 
 
 def phase_serve(card: str, device: str = "cuda",
@@ -1080,6 +1280,166 @@ def phase_transformer_step(card: str) -> dict:
     return dict(worst=worst)
 
 
+def phase_moe_train(card: str) -> list:
+    """The trainer at the ``moe_wide`` width (MOE_WIDE_FLAGS, parsed as
+    the CLI parses them) on the card, under ``--grouped_moe`` and then
+    under ``--grouped_moe --fp8_ffn``."""
+    from distributed_tensorflow_example_tpu_torch.config import (
+        parse_train_config)
+    from distributed_tensorflow_example_tpu_torch.models import (
+        transformer as tfm)
+    from distributed_tensorflow_example_tpu_torch.ops import fused
+    from distributed_tensorflow_example_tpu_torch.train import loop
+
+    rows = []
+    for extra in (["--grouped_moe"], ["--grouped_moe", "--fp8_ffn"]):
+        cfg = parse_train_config(MOE_WIDE_FLAGS + extra)
+        spec = loop.make_spec(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fused.reset_launch_counts()
+        res, out = _run_captured(loop.run, cfg)
+        torch.cuda.synchronize()
+        counts = fused.launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        what = "moe train " + " ".join(extra)
+        for name in MOE_WRAPPERS:
+            if counts[name] <= 0:
+                raise AssertionError(f"{what}: {name} never launched on "
+                                     f"the main path")
+        steps = res["steps"]
+        # per step and block: one training-form B8, one flash dq, one
+        # flash dk/dv
+        want = {"moe_grouped_matmul_z1": 2 * steps, "flash_dq": 2 * steps,
+                "flash_dkv": 2 * steps}
+        if any(counts[k] != n for k, n in want.items()):
+            raise AssertionError(f"{what}: launches {counts}, expected "
+                                 f"{want}")
+        costs = re.findall(r"Cost: ([^,\s]+)", out)
+        if steps != 4 or len(costs) != steps + 1 or not all(
+                math.isfinite(float(c)) for c in costs):
+            raise AssertionError(f"{what}: {steps} steps, printed costs "
+                                 f"{costs}")
+        step_ms = [float(m) for m in re.findall(r"AvgTime: +(\d+\.\d+)ms",
+                                                out)]
+        med = statistics.median(step_ms)
+        tokens = cfg.batch_size * spec.seq_len
+        flops = tfm.flops_per_step(spec, cfg.batch_size)
+        row = dict(flags=extra, steps=steps, step_ms=step_ms,
+                   step_ms_median=med, tokens_per_s=tokens / med * 1e3,
+                   model_tflops_per_s=flops / (med / 1e3) / 1e12,
+                   flops_per_step=flops, params=tfm.num_params(spec),
+                   peak_gib=peak_gib, total_s=res["total_time_s"],
+                   counts=counts)
+        log(f"[moe-train] moe_wide {' '.join(extra)}, {steps} steps of "
+            f"batch {cfg.batch_size} x S {spec.seq_len} (E "
+            f"{spec.num_experts}, {row['params']} params) on {card}: "
+            f"median step {med:.1f} ms, {row['tokens_per_s']:.0f} "
+            f"tokens/s, {row['model_tflops_per_s']:.2f} model TFLOP/s "
+            f"({flops / 1e12:.2f} TFLOP/step), peak memory {peak_gib:.2f} "
+            f"GiB; steps {step_ms} ms; whole run incl. eval "
+            f"{res['total_time_s']:.2f} s; launches {counts}")
+        rows.append(row)
+    return rows
+
+
+def phase_moe_step(card: str) -> dict:
+    """One step of the ``moe_wide`` widths cut to 1 block, E 8, S 256,
+    batch 4, top-2 (MOE_STEP_FLAGS) from one initial state on the card
+    and on the port's CPU path.  The router's choices are compared
+    first: a choice flips where two probabilities tie within the bf16
+    noise of the router's input, and a flipped token sends its gradient
+    to another expert, so the count is printed and held to
+    MOE_FLIP_LIMIT, and the CPU step then takes the card's choices (its
+    own probabilities gathered at them) so that the updates compare the
+    same computation."""
+    from distributed_tensorflow_example_tpu_torch.config import (
+        parse_train_config)
+    from distributed_tensorflow_example_tpu_torch.data import mnist
+    from distributed_tensorflow_example_tpu_torch.models import (
+        transformer as tfm)
+    from distributed_tensorflow_example_tpu_torch.parallel import step
+    from distributed_tensorflow_example_tpu_torch.train import loop, optim
+    from distributed_tensorflow_example_tpu_torch.train.state import (
+        TrainState, create_train_state)
+
+    cfg = parse_train_config(MOE_STEP_FLAGS)
+    spec = loop.make_spec(cfg)
+    opt = optim.make_optimizer(cfg, 1)
+    body = step.make_sync_step_body(cfg, spec, opt)
+    on_card = create_train_state(spec, opt, seed=cfg.seed, device="cuda")
+    cpu_params = {k: v.cpu() for k, v in on_card.params.items()}
+    on_cpu = TrainState(on_card.step.cpu(), cpu_params, opt.init(cpu_params))
+    batch = mnist.synthesize_split(cfg.batch_size, seed=cfg.seed,
+                                   input_size=cfg.input_size)
+    x, y = torch.from_numpy(batch.images), torch.from_numpy(batch.labels)
+    orig_route = tfm._route_topk
+    orig_sparse = tfm._sparse_route
+    card_idx, card_keep, flips = [], [], []
+
+    def record(spec_, x_, wr, cdt):
+        out = orig_sparse(spec_, x_, wr, cdt)
+        card_idx.append(out[5].cpu())
+        card_keep.append(out[3].cpu())
+        return out
+
+    def card_choices(spec_, probs):
+        _gates, own = orig_route(spec_, probs)
+        idx = card_idx[len(flips)].to(probs.device)
+        flips.append(int((own != idx).any(dim=-1).sum()))
+        gates = torch.gather(probs, -1, idx)
+        if spec_.moe_topk > 1:
+            gates = gates / torch.sum(gates, dim=-1, keepdim=True)
+        return gates, idx
+
+    try:
+        tfm._sparse_route = record
+        new_card, cost_card, _ = body(on_card, x.cuda(), y.cuda())
+        tfm._sparse_route = orig_sparse
+        tfm._route_topk = card_choices
+        t0 = time.monotonic()
+        new_cpu, cost_cpu, _ = body(on_cpu, x, y)
+        cpu_s = time.monotonic() - t0
+    finally:
+        tfm._sparse_route = orig_sparse
+        tfm._route_topk = orig_route
+    tokens = cfg.batch_size * spec.seq_len
+    dropped = int((~card_keep[0]).sum())
+    log(f"[moe-step] routing card vs CPU path (1 block, E "
+        f"{spec.num_experts}, top-{spec.moe_topk}, {tokens} tokens, C "
+        f"{math.ceil(spec.capacity_factor * tokens * spec.moe_topk / spec.num_experts)}):"
+        f" {flips[0]} tokens choose otherwise on the CPU (limit "
+        f"{MOE_FLIP_LIMIT} x {tokens}); {dropped} of "
+        f"{card_keep[0].numel()} units dropped on the card")
+    if len(flips) != 1 or flips[0] > MOE_FLIP_LIMIT * tokens:
+        raise AssertionError(f"moe step: routing differs card vs CPU on "
+                             f"{flips} tokens")
+    if dropped == 0:
+        raise AssertionError("moe step: no unit dropped at capacity "
+                             "factor 1.0")
+    worst = 0.0
+    for k, old in cpu_params.items():
+        d_card = new_card.params[k].cpu() - old
+        d_cpu = new_cpu.params[k] - old
+        scale = float(d_cpu.abs().max())
+        rel = float((d_card - d_cpu).abs().max()) / max(scale, 1e-30)
+        worst = max(worst, rel)
+        if not rel <= MOE_STEP_RTOL:
+            raise AssertionError(f"moe step: {k} update card vs CPU "
+                                 f"differs by {rel} of its scale {scale} "
+                                 f"> {MOE_STEP_RTOL}")
+    if not math.isfinite(float(cost_card)):
+        raise AssertionError(f"moe step: cost {float(cost_card)}")
+    log(f"[moe-step] one step (1 block, E {spec.num_experts}, S "
+        f"{spec.seq_len}, batch {cfg.batch_size}, d_model {spec.d_model}, "
+        f"aux weight {spec.aux_loss_weight}) card vs CPU path: cost "
+        f"{float(cost_card):.6g} vs {float(cost_cpu):.6g}, worst update "
+        f"difference {worst:.3g} of its scale (tol {MOE_STEP_RTOL}); CPU "
+        f"step {cpu_s:.1f} s")
+    return dict(worst=worst, flips=flips[0], dropped=dropped)
+
+
 KERNEL_META = {
     "layer_norm": dict(
         wrapper="fused_layer_norm",
@@ -1129,6 +1489,13 @@ KERNEL_META = {
                "flash_attention.cu",
         replaces="distributed_tensorflow_example_tpu/ops/flash_attention.py:"
                  "324"),
+    # B8's training form (want_z1): the same TPU kernel, its second form
+    "grouped_ffn_z1": dict(
+        wrapper="moe_grouped_matmul_z1",
+        source="distributed_tensorflow_example_tpu_torch/ops/csrc/"
+               "grouped_ffn.cu",
+        replaces="distributed_tensorflow_example_tpu/ops/pallas_fused.py:"
+                 "518"),
 }
 # the kernels whose launches the report takes from phase 7's run
 TFM_REPORT = ("layer_norm_backward", "flash_forward", "flash_dq",
@@ -1147,21 +1514,30 @@ def main() -> int:
     phase_build()
     measured = (check_layer_norm(card) + check_grouped_ffn(card)
                 + check_mlp_forward(card) + check_flash(card)
-                + check_layer_norm_backward(card))
+                + check_layer_norm_backward(card)
+                + check_grouped_ffn_z1(card))
     counts = phase_serve(card)
     phase_http()
     train = phase_train(card)
     phase_cli(card)
     tfm_train = phase_transformer_train(card)
     phase_transformer_step(card)
+    moe_train = phase_moe_train(card)
+    phase_moe_step(card)
     # each kernel's launches on its own main path: the full-width serve
     # (phase 3) for the serving kernels, the full-width MLP training run
     # (phase 5) for the MLP forward, the full-width transformer training
-    # run (phase 7) for the LayerNorm backward and the flash kernels
+    # run (phase 7) for the LayerNorm backward and the flash kernels,
+    # the full-width MoE run under --grouped_moe (phase 8) for B8's
+    # training form
     by_path = {"serve": dict(counts), "mlp_train": train["counts"],
-               "transformer_train": tfm_train["counts"]}
+               "transformer_train": tfm_train["counts"],
+               "moe_train": moe_train[0]["counts"],
+               "moe_train_fp8": moe_train[1]["counts"]}
     counts.update({k: train["counts"][k] for k in TRAIN_WRAPPERS})
     counts.update({k: tfm_train["counts"][k] for k in TFM_REPORT})
+    counts["moe_grouped_matmul_z1"] = \
+        moe_train[0]["counts"]["moe_grouped_matmul_z1"]
     kernels = []
     for name, rows in measured:
         meta = KERNEL_META[name]
@@ -1187,6 +1563,10 @@ def main() -> int:
     log(f"[done] all phases passed in {time.monotonic() - t0:.1f} s")
     log(f"[tfm-train] peak memory {tfm_train['peak_gib']:.2f} GiB, median "
         f"step {tfm_train['step_ms_median']:.1f} ms on {smi}")
+    for row in moe_train:
+        log(f"[moe-train] {' '.join(row['flags'])}: peak memory "
+            f"{row['peak_gib']:.2f} GiB, median step "
+            f"{row['step_ms_median']:.1f} ms on {smi}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

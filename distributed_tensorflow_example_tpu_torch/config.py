@@ -6,11 +6,11 @@ package.  ``build_parser`` is ``serving/cli.py``'s: flags of serving
 features the port does not have yet are still parsed, and the CLI
 refuses them with a message naming ROADMAP.md instead of ignoring them.
 ``build_train_parser`` is ``main.py``'s: it knows the ported training
-flags only (the MLP's and the single-device transformer's), and refuses
-every other flag of the JAX trainer (exit 2, naming ROADMAP.md) rather
-than ignore it: MoE (``--num_experts``, ``--grouped_moe``), ``--fp8_ffn``
-training, and sequence, tensor and pipeline parallelism
-(``--sequence_parallel``, ``--sp_impl``, ``--model_parallel``,
+flags only (the MLP's and the single-device transformer's, MoE and
+``--fp8_ffn`` included), and refuses every other flag of the JAX trainer
+(exit 2, naming ROADMAP.md) rather than ignore it: expert, sequence,
+tensor and pipeline parallelism (``--expert_parallel``,
+``--sequence_parallel``, ``--sp_impl``, ``--model_parallel``,
 ``--pipeline_parallel``) among them.  ``--device`` is the port's
 own: the card (``cuda``) unless ``cpu`` is asked for.
 """
@@ -43,7 +43,13 @@ class Config:
     activation: str = "sigmoid"     # sigmoid serves as gelu (JAX CLI rule)
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
-    num_experts: int = 0            # MoE: not ported yet
+    num_experts: int = 0            # > 0: MoE FFN (training; the
+                                    # serving CLI refuses it)
+    moe_topk: int = 1               # experts per token (1 = Switch)
+    moe_dispatch: str = "dense"     # dense (exact) | alltoall (sparse)
+    capacity_factor: float = 1.25   # alltoall: C = ceil(cf * T * k / E)
+    moe_aux_weight: float = 0.0     # weight of the balance loss
+    grouped_moe: bool = False       # sparse expert FFN through B8
     attention: str = "dense"        # dense | flash; --pallas also
                                     # selects flash for the transformer
     causal: bool = False            # causal mask (lm is always causal)
@@ -261,6 +267,34 @@ def build_train_parser() -> argparse.ArgumentParser:
                    help="transformer attention: dense, or the flash CUDA "
                         "kernels (--pallas selects them too)")
     p.add_argument("--causal", action="store_true")
+    p.add_argument("--num_experts", type=int, default=d.num_experts,
+                   help="transformer FFN becomes a top-k MoE with this "
+                        "many experts (0 = dense FFN)")
+    p.add_argument("--moe_topk", type=int, default=d.moe_topk,
+                   help="experts per token (1 = Switch; 2 = GShard "
+                        "top-2, gates renormalized)")
+    p.add_argument("--moe_dispatch", type=str, default=d.moe_dispatch,
+                   choices=["dense", "alltoall"],
+                   help="MoE token routing: exact dense dispatch vs "
+                        "capacity-limited sparse dispatch")
+    p.add_argument("--capacity_factor", type=float,
+                   default=d.capacity_factor,
+                   help="alltoall dispatch: per-expert buffer = "
+                        "ceil(cf * tokens * k / E)")
+    p.add_argument("--moe_aux_weight", type=float, default=d.moe_aux_weight,
+                   help="weight of the Switch load-balance auxiliary "
+                        "loss (0 = off)")
+    p.add_argument("--grouped_moe", action="store_true",
+                   help="alltoall dispatch: run the expert FFN through "
+                        "the grouped-FFN CUDA kernel (forward and its "
+                        "training form)")
+    p.add_argument("--fp8_ffn", action="store_true",
+                   help="transformer: run the FFN matmuls (dense W1/W2 "
+                        "and the sparse expert FFN) on fp8-e4m3-rounded "
+                        "operands with pow2 scales through the "
+                        "grouped-FFN CUDA kernel, straight-through "
+                        "gradients to the master weights (MoE needs "
+                        "--moe_dispatch=alltoall)")
     p.add_argument("--fused_ln", action="store_true",
                    help="transformer: every LayerNorm (ln1, ln2 with the "
                         "residual add, lnf) through the fused CUDA "
@@ -378,3 +412,31 @@ def validate_train_config(cfg: Config) -> None:
     if cfg.num_processes < 1 or not 0 <= cfg.task_index < cfg.num_processes:
         raise ValueError(f"task_index={cfg.task_index} must be in "
                          f"[0, num_processes={cfg.num_processes})")
+    if cfg.num_experts < 0:
+        raise ValueError(f"num_experts={cfg.num_experts} must be >= 0")
+    if cfg.num_experts and cfg.model != "transformer":
+        raise ValueError("--num_experts applies to --model=transformer only")
+    if cfg.num_experts and cfg.capacity_factor <= 0:
+        raise ValueError(
+            f"capacity_factor={cfg.capacity_factor} must be > 0")
+    if cfg.num_experts and not 1 <= cfg.moe_topk <= cfg.num_experts:
+        raise ValueError(
+            f"moe_topk={cfg.moe_topk} must be in [1, num_experts="
+            f"{cfg.num_experts}]")
+    if cfg.moe_aux_weight and not cfg.num_experts:
+        raise ValueError("--moe_aux_weight requires --num_experts > 0")
+    if cfg.moe_aux_weight < 0:
+        raise ValueError(
+            f"moe_aux_weight={cfg.moe_aux_weight} must be >= 0")
+    if cfg.fp8_ffn:
+        if cfg.model != "transformer":
+            raise ValueError(
+                "--fp8_ffn rounds the transformer FFN matmul "
+                "operands; the MLP family has no FFN blocks "
+                "(--model=transformer)")
+        if cfg.num_experts and cfg.moe_dispatch != "alltoall":
+            raise ValueError(
+                "--fp8_ffn quantizes the MoE expert FFN through the "
+                "sparse grouped kernel; use --moe_dispatch=alltoall "
+                "(dense dispatch computes every expert on every "
+                "token and never reaches it)")

@@ -58,10 +58,11 @@ class MLPSpec:
 
 def dot_f32(a: torch.Tensor, b: torch.Tensor, cdt: torch.dtype
             ) -> torch.Tensor:
-    """``a @ b`` (2-D) on operands rounded to ``cdt``, accumulated and
-    returned in f32 (JAX's ``preferred_element_type=float32``).  On the
-    card a bf16 product runs on the tensor cores with an f32 output
-    (``torch.mm(..., out_dtype=float32)``); elsewhere the rounded
+    """``a @ b`` (2-D, or batched 3-D ``[E, M, K] @ [E, K, N]``) on
+    operands rounded to ``cdt``, accumulated and returned in f32 (JAX's
+    ``preferred_element_type=float32``).  On the card a bf16 product
+    runs on the tensor cores with an f32 output (``torch.mm`` /
+    ``torch.bmm`` with ``out_dtype=float32``); elsewhere the rounded
     operands are multiplied as f32: a bf16 x bf16 product is exact in
     f32, so only the order of the f32 sums differs.  (``torch.matmul``
     of two bf16 tensors would round its result to bf16.)  f32 products
@@ -72,15 +73,21 @@ def dot_f32(a: torch.Tensor, b: torch.Tensor, cdt: torch.dtype
                         b.to(cdt).to(torch.float32))
 
 
+def _mm_out_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    mm = torch.mm if a.ndim == 2 else torch.bmm
+    return mm(a, b, out_dtype=torch.float32)
+
+
 class _MmBf16F32(torch.autograd.Function):
-    """``torch.mm(a, b, out_dtype=float32)`` on bf16 operands, which
-    has no autograd formula of its own; the gradients are the same kind
-    of product, the f32 cotangent rounded to bf16, returned in bf16."""
+    """``torch.mm`` / ``torch.bmm`` with ``out_dtype=float32`` on bf16
+    operands, which have no autograd formula of their own; the
+    gradients are the same kind of product, the f32 cotangent rounded to
+    bf16, returned in bf16."""
 
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
-        return torch.mm(a, b, out_dtype=torch.float32)
+        return _mm_out_f32(a, b)
 
     @staticmethod
     def backward(ctx, g):
@@ -88,9 +95,9 @@ class _MmBf16F32(torch.autograd.Function):
         g = g.to(torch.bfloat16)
         da = db = None
         if ctx.needs_input_grad[0]:
-            da = torch.mm(g, b.T, out_dtype=torch.float32).to(a.dtype)
+            da = _mm_out_f32(g, b.mT).to(a.dtype)
         if ctx.needs_input_grad[1]:
-            db = torch.mm(a.T, g, out_dtype=torch.float32).to(b.dtype)
+            db = _mm_out_f32(a.mT, g).to(b.dtype)
         return da, db
 
 

@@ -8,11 +8,15 @@ The counterpart of the JAX package's ``models/transformer.py``:
 backward, under ``spec.fused_ln``), the attention dispatch (``_attend``:
 the flash kernels under ``spec.attention == "flash"``, the dense
 ``attention`` otherwise), ``_dropout``, ``_block_forward``/``_ffn_block``
-(dense FFN, or the fp8 grouped-FFN kernel under ``spec.fp8_ffn``,
-inference only), ``apply`` (logits, differentiable by autograd),
-``num_params``/``flops_per_step``, and the KV-cached decode
-(``init_decode_cache``, ``_DenseKV``, ``_decode_forward``,
-``decode_step``, ``generate``).
+(the dense FFN, the fp8 grouped-FFN kernel under ``spec.fp8_ffn``, or
+the mixture of experts: ``_route_topk``, ``_load_balance_loss``, dense
+dispatch ``_moe_ffn`` and the capacity-limited sparse dispatch
+``_moe_ffn_sparse`` = ``_sparse_route`` -> ``_grouped_expert_ffn`` ->
+``_sparse_combine``, whose expert FFN runs the grouped-FFN kernel under
+``spec.grouped_moe`` or ``spec.fp8_ffn``), ``apply`` (logits and the
+balance loss, differentiable by autograd), ``num_params``/
+``flops_per_step``, and the KV-cached decode (``init_decode_cache``,
+``_DenseKV``, ``_decode_forward``, ``decode_step``, ``generate``).
 
 Params are a flat ``{name: tensor}`` dict with the JAX package's
 names and layouts (``Wqkv`` is ``[d, 3, d]``), so ``convert.py``
@@ -32,8 +36,15 @@ the step's seed and a salt (``_dropout``); JAX's ``fold_in``/
 ``bernoulli`` bits cannot be reproduced, so dropout > 0 is held to its
 own properties, not to JAX's masks.
 
+Routing follows the JAX package's integers exactly: top-k by a stable
+descending sort (the lower expert index first on a tie, as
+``jax.lax.top_k``), rank-major dispatch units, slots from a stable
+argsort and ``searchsorted(side="left")``, dropped units in a trash row
+past the buffer.
+
 Not ported yet (ROADMAP.md): tensor/sequence/expert/pipeline
-parallelism, MoE (``num_experts > 0`` raises) and fp8 FFN training.
+parallelism and MoE decode (``_decode_forward`` raises on
+``num_experts > 0``).
 """
 
 from __future__ import annotations
@@ -68,20 +79,25 @@ class TransformerSpec:
                                    # the serving prefill run dense
     sp_impl: str = "ring"
     causal: bool = False
-    num_experts: int = 0           # > 0 (MoE) is not ported yet
-    moe_topk: int = 1
+    num_experts: int = 0           # 0 = dense FFN; > 0 = MoE FFN
+    moe_topk: int = 1              # 1 = Switch (raw top gate), > 1 =
+                                   # GShard (gates renormalized)
     aux_loss_weight: float = 0.0
     dropout_rate: float = 0.0      # training-only dropout on the
                                    # embedded input and each block's
                                    # attention/FFN outputs
-    moe_dispatch: str = "dense"
-    capacity_factor: float = 1.25
+    moe_dispatch: str = "dense"    # dense (exact) | alltoall (capacity-
+                                   # limited sparse dispatch)
+    capacity_factor: float = 1.25  # alltoall: C = ceil(cf * T * k / E)
     fused_ln: bool = False         # LayerNorms run the fused CUDA kernel
                                    # (ops/fused.fused_layer_norm[_residual])
-    grouped_moe: bool = False
+    grouped_moe: bool = False      # the sparse expert FFN through the
+                                   # grouped-FFN kernel (ops/fused.
+                                   # moe_grouped_matmul)
     fp8_ffn: bool = False          # FFN matmuls on fp8-e4m3-rounded
                                    # operands through the grouped-FFN
-                                   # kernel (ops/fused.fp8_dense_ffn)
+                                   # kernel (ops/fused.fp8_dense_ffn /
+                                   # fp8_grouped_matmul)
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
 
@@ -109,16 +125,8 @@ class TransformerSpec:
         return self.d_model // self.n_heads
 
 
-def _check_ported(spec: TransformerSpec) -> None:
-    if spec.num_experts:
-        raise NotImplementedError(
-            "MoE (num_experts > 0) is not ported to the PyTorch package "
-            "yet; ROADMAP.md queues MoE decode")
-
-
 def param_shapes(spec: TransformerSpec) -> Dict[str, tuple]:
     """Analytic ``{name: shape}`` map (the JAX package's layout)."""
-    _check_ported(spec)
     d, ff, f = spec.d_model, spec.d_ff, spec.d_feature
     if spec.objective == "lm":
         shapes: Dict[str, tuple] = {
@@ -139,16 +147,28 @@ def param_shapes(spec: TransformerSpec) -> Dict[str, tuple]:
             f"L{i}_Wqkv": (d, 3, d), f"L{i}_bqkv": (3, d),
             f"L{i}_Wo": (d, d), f"L{i}_bo": (d,),
             f"L{i}_ln2_g": (d,), f"L{i}_ln2_b": (d,),
-            f"L{i}_W1": (d, ff), f"L{i}_b1": (ff,),
-            f"L{i}_W2": (ff, d), f"L{i}_b2": (d,),
         })
+        if spec.num_experts:
+            e = spec.num_experts
+            shapes.update({
+                f"L{i}_Wr": (d, e),                 # router
+                f"L{i}_We1": (e, d, ff), f"L{i}_be1": (e, ff),
+                f"L{i}_We2": (e, ff, d), f"L{i}_be2": (e, d),
+            })
+        else:
+            shapes.update({
+                f"L{i}_W1": (d, ff), f"L{i}_b1": (ff,),
+                f"L{i}_W2": (ff, d), f"L{i}_b2": (d,),
+            })
     return shapes
 
 
 def init(spec: TransformerSpec, seed: int = 0,
          device: DeviceLike = None) -> Params:
     """Seeded init with the JAX package's distributions: weights
-    ``N(0,1)/sqrt(fan_in)``, ``pos``/``W_emb`` ``0.02*N(0,1)``, zero
+    ``N(0,1)/sqrt(fan_in)`` (the fan-in is ``shape[-2]`` for the
+    ``[E, fan_in, fan_out]`` expert weights, ``shape[0]`` otherwise),
+    ``pos``/``W_emb`` ``0.02*N(0,1)``, zero
     biases, unit LayerNorm gains.  The bits come from a
     ``torch.Generator`` seeded with ``seed``, so they differ from
     JAX's; carry JAX params across with ``convert.params_from_numpy``
@@ -163,7 +183,9 @@ def init(spec: TransformerSpec, seed: int = 0,
             p[name] = w.to(pd)
         elif "W" in name:
             w = torch.randn(shape, generator=gen, device=dev)
-            p[name] = (w / math.sqrt(shape[0])).to(pd)
+            fan_in = (shape[-2] if name.endswith(("We1", "We2"))
+                      else shape[0])
+            p[name] = (w / math.sqrt(fan_in)).to(pd)
         elif name.endswith("_g"):
             p[name] = torch.ones(shape, dtype=pd, device=dev)
         else:
@@ -270,6 +292,135 @@ def _attend(spec: TransformerSpec, q, k, v):
                      f"'dense' or 'flash'")
 
 
+def _load_balance_loss(spec: TransformerSpec, probs, top1_idx):
+    """Switch Transformer's load-balance loss for one MoE block,
+    ``E * sum_e f_e * P_e``: ``f_e`` the fraction of tokens whose first
+    choice is expert e (counts, no gradient), ``P_e`` the mean router
+    probability on e.  ``probs`` is ``[..., E]``."""
+    e = spec.num_experts
+    f = torch.mean(torch.nn.functional.one_hot(
+        top1_idx.reshape(-1), e).to(torch.float32), dim=0)
+    p = torch.mean(probs.reshape(-1, e), dim=0)
+    return e * torch.sum(f * p)
+
+
+def _route_topk(spec: TransformerSpec, probs):
+    """``(gates [..., k], idx [..., k])``, the router's top-k choices:
+    a stable descending sort, so on a tie the lower expert index comes
+    first, as in ``jax.lax.top_k`` (``torch.topk`` makes no such
+    promise).  Top-1 keeps the raw winning probability as the gate
+    (Switch); k > 1 renormalizes the gates among the chosen (GShard).
+    Differentiable through the gate values."""
+    k = spec.moe_topk
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = vals[..., :k], idx[..., :k]
+    if k > 1:
+        gates = gates / torch.sum(gates, dim=-1, keepdim=True)
+    return gates, idx
+
+
+def _moe_ffn(spec: TransformerSpec, bp: Params, a, act, cdt):
+    """Top-k MoE FFN by dense dispatch: every expert on every token, the
+    gate-weighted one-hot selection combines them (exact: no capacity,
+    nothing dropped).  ``a`` [B, S, d] -> ``(out f32, aux)``."""
+    e = spec.num_experts
+    probs = softmax(_cast_mm(a, bp["Wr"], cdt), dim=-1)     # [B, S, E]
+    gates, idx = _route_topk(spec, probs)                   # [B, S, k]
+    sel = torch.sum(torch.nn.functional.one_hot(idx, e).to(torch.float32)
+                    * gates[..., None], dim=-2)             # [B, S, E]
+    b, s, _ = a.shape
+    h1 = _cast_mm(a, bp["We1"].permute(1, 0, 2), cdt) \
+        + _f32(bp["be1"])                                   # [B, S, E, ff]
+    h1 = act(h1).to(cdt)
+    h2 = dot_f32(h1.reshape(b * s, e, -1).transpose(0, 1), bp["We2"], cdt)
+    h2 = h2.transpose(0, 1).reshape(b, s, e, -1) + _f32(bp["be2"])
+    out = torch.einsum("bsed,bse->bsd", h2, sel)
+    return out, _load_balance_loss(spec, probs, idx[..., 0])
+
+
+def _sparse_route(spec: TransformerSpec, x, wr, cdt):
+    """Router, slotting and scatter: ``x`` [T, d] -> ``(buf [E, C, d]
+    f32, slot [k*T], gates [T, k], keep [k*T], probs [T, E], idx [T,
+    k])`` with ``C = ceil(capacity_factor * T * k / E)``.  Each
+    (token, choice) pair is a unit, flattened rank-major, so every
+    token's first choice claims a slot before any second choice; a
+    unit's position in its expert's buffer is its rank in a stable sort
+    by expert less its group's first rank; units past C (and only they)
+    go to the trash row ``E * C``, which the buffer drops."""
+    t, d = x.shape
+    e, k = spec.num_experts, spec.moe_topk
+    cap = max(1, math.ceil(spec.capacity_factor * t * k / e))
+    probs = softmax(dot_f32(x, wr, cdt), dim=-1)            # [T, E]
+    gates, idx = _route_topk(spec, probs)                   # [T, k]
+    flat_e = idx.T.reshape(k * t)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    group_start = torch.searchsorted(sorted_e, sorted_e, side="left")
+    pos_sorted = torch.arange(k * t, device=x.device) - group_start
+    pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+    keep = pos < cap
+    slot = torch.where(keep, flat_e * cap + pos,
+                       torch.full_like(pos, e * cap))
+    xk = _f32(x)[None].expand(k, t, d).reshape(k * t, d)
+    buf = torch.zeros((e * cap + 1, d), dtype=torch.float32,
+                      device=x.device).index_add(0, slot, xk)
+    return (buf[:-1].reshape(e, cap, d), slot, gates, keep, probs, idx)
+
+
+def _grouped_expert_ffn(spec: TransformerSpec, buf, we1, be1, we2, be2,
+                        act, cdt):
+    """The per-expert two-matmul FFN ``[E, C, d] -> [E, C, d]`` (f32):
+    the grouped-FFN kernel on fp8-rounded operands under
+    ``spec.fp8_ffn`` (``ops/fused.fp8_grouped_matmul``), the kernel
+    under ``spec.grouped_moe`` (``ops/fused.moe_grouped_matmul``),
+    else two batched products with the [E, C, ff] hidden between."""
+    if spec.fp8_ffn:
+        from ..ops.fused import fp8_grouped_matmul
+
+        return fp8_grouped_matmul(spec.activation, cdt, buf, we1, be1,
+                                  we2, be2)
+    if spec.grouped_moe:
+        from ..ops.fused import moe_grouped_matmul
+
+        return moe_grouped_matmul(spec.activation, cdt, buf, we1, be1,
+                                  we2, be2)
+    h1 = act(dot_f32(buf, we1, cdt) + _f32(be1)[:, None]).to(cdt)
+    return dot_f32(h1, we2, cdt) + _f32(be2)[:, None]
+
+
+def _sparse_combine(h2, slot, gates, keep):
+    """Each unit's output row gathered from its slot (the trash row
+    reads 0), gate-weighted and summed over the k choices: [T, d].  The
+    gather is ``index_select``, whose backward is one ``index_add`` (on
+    the card an atomic add per row; kept slots are one to one, so each
+    kept row gets exactly one); advanced indexing's backward sorts the
+    indices first, which took ~22 ms a block at ``moe_wide`` on the
+    H100."""
+    t, k = gates.shape
+    d = h2.shape[-1]
+    h2_flat = torch.cat([h2.reshape(-1, d),
+                         torch.zeros((1, d), dtype=h2.dtype,
+                                     device=h2.device)])
+    picked = h2_flat.index_select(0, slot).reshape(k, t, d)
+    w = gates.T * keep.to(torch.float32).reshape(k, t)
+    return torch.sum(picked * w[..., None], dim=0)
+
+
+def _moe_ffn_sparse(spec: TransformerSpec, bp: Params, a, act, cdt):
+    """Capacity-limited top-k MoE FFN (Switch/GShard): ``_sparse_route``
+    -> ``_grouped_expert_ffn`` -> ``_sparse_combine``; dropped units add
+    nothing and the residual carries their tokens.  ``a`` [B, S, d] ->
+    ``(out f32, aux)``; with ``capacity_factor >= E`` nothing drops and
+    it equals ``_moe_ffn`` up to the order of f32 sums."""
+    b, s, d = a.shape
+    buf, slot, gates, keep, probs, idx = _sparse_route(
+        spec, a.reshape(b * s, d), bp["Wr"], cdt)
+    h2 = _grouped_expert_ffn(spec, buf, bp["We1"], bp["be1"], bp["We2"],
+                             bp["be2"], act, cdt)
+    out = _sparse_combine(h2, slot, gates, keep)
+    return out.reshape(b, s, d), _load_balance_loss(spec, probs, idx[:, 0])
+
+
 def _block_forward(spec: TransformerSpec, bp: Params, h, act, cdt,
                    kv_out: Optional[list] = None, dropout_rng=None,
                    block: int = 0):
@@ -279,7 +430,8 @@ def _block_forward(spec: TransformerSpec, bp: Params, h, act, cdt,
     ``dropout_rng`` is given (sites ``2 * block`` and ``2 * block + 1``).
     ``kv_out``: a list to append this block's ``(k, v)`` [B, S, H, Dh]
     (in ``cdt``) to — the prefill captures them for the paged cache.
-    Returns ``h``."""
+    Returns ``(h, aux)``, aux the block's MoE balance loss (0 for the
+    dense FFN)."""
     b, s, d = h.shape
     a = _ln(spec, h, bp["ln1_g"], bp["ln1_b"])
     qkv = _cast_mm(a, bp["Wqkv"], cdt) + _f32(bp["bqkv"])   # [B, S, 3, e]
@@ -298,23 +450,34 @@ def _block_forward(spec: TransformerSpec, bp: Params, h, act, cdt,
 
 def _ffn_block(spec: TransformerSpec, bp: Params, h, act, cdt, a=None,
                dropout_rng=None, block: int = 0):
-    """The LN2 + FFN residual half of a block, shared by the training
-    forward, the prefill and the decode step.  ``h`` [B, S, D] -> ``h``;
-    ``a`` is the ln2 output when the caller already has it."""
-    _check_ported(spec)
+    """The LN2 + FFN residual half of a block (dense, fp8 or MoE),
+    shared by the training forward, the prefill and the decode step.
+    ``h`` [B, S, D] -> ``(h, aux)``; ``a`` is the ln2 output when the
+    caller already has it."""
     if a is None:
         a = _ln(spec, h, bp["ln2_g"], bp["ln2_b"])
-    if spec.fp8_ffn:
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if spec.num_experts:
+        if spec.moe_dispatch == "alltoall":
+            moe = _moe_ffn_sparse
+        elif spec.moe_dispatch == "dense":
+            moe = _moe_ffn
+        else:
+            raise ValueError(
+                f"unknown moe_dispatch {spec.moe_dispatch!r}: expected "
+                f"'dense' or 'alltoall'")
+        ffn, aux = moe(spec, bp, a, act, cdt)
+    elif spec.fp8_ffn:
         from ..ops.fused import fp8_dense_ffn
 
         bsz, s, d = a.shape
         ffn = fp8_dense_ffn(spec.activation, cdt, a.reshape(bsz * s, d),
                             bp["W1"], bp["b1"], bp["W2"],
                             bp["b2"]).reshape(bsz, s, -1)
-        return h + _dropout(ffn, spec, dropout_rng, 2 * block + 1)
-    a = act(_mm(bp, a, "W1", "b1", cdt)).to(cdt)
-    return h + _dropout(_mm(bp, a, "W2", "b2", cdt), spec, dropout_rng,
-                        2 * block + 1)
+    else:
+        ffn = _mm(bp, act(_mm(bp, a, "W1", "b1", cdt)).to(cdt), "W2", "b2",
+                  cdt)
+    return h + _dropout(ffn, spec, dropout_rng, 2 * block + 1), aux
 
 
 def apply(spec: TransformerSpec, params: Params, x: torch.Tensor,
@@ -324,9 +487,8 @@ def apply(spec: TransformerSpec, params: Params, x: torch.Tensor,
     head) or ``[B, S, vocab]`` (lm: per-position vocab logits).  ``x``:
     ``[B, input_size]`` (viewed as ``seq_len`` tokens) or ``[B, S, F]``.
     ``dropout_rng``: the step's integer seed (training) or None (eval).
-    ``with_aux`` also returns the MoE balance loss, 0.0 for the dense
-    FFN."""
-    _check_ported(spec)
+    ``with_aux`` also returns the per-block mean of the MoE balance
+    loss (0 for the dense FFN)."""
     cdt = spec.compute_dtype
     b = x.shape[0]
     s, f = spec.seq_len, spec.d_feature
@@ -338,16 +500,17 @@ def apply(spec: TransformerSpec, params: Params, x: torch.Tensor,
         h = _mm(params, h, "W_in", "b_in", cdt) + pos[None]
     act = _ACTIVATIONS[spec.activation]
     h = _dropout(h, spec, dropout_rng, 0x9999)   # embedding dropout
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(spec.num_blocks):
-        h = _block_forward(spec, _block_params(params, i), h, act, cdt,
-                           dropout_rng=dropout_rng, block=i)
+        h, aux_i = _block_forward(spec, _block_params(params, i), h, act,
+                                  cdt, dropout_rng=dropout_rng, block=i)
+        aux = aux + aux_i
     h = _ln(spec, h, params["lnf_g"], params["lnf_b"])
     if spec.objective != "lm":
         h = torch.mean(h, dim=1)                 # [B, D]
     logits = _f32(_mm(params, h, "W_head", "b_head", cdt))
     if with_aux:
-        return logits, torch.zeros((), dtype=torch.float32,
-                                   device=logits.device)
+        return logits, aux / spec.num_blocks
     return logits
 
 
@@ -358,11 +521,19 @@ def num_params(spec: TransformerSpec) -> int:
 def flops_per_step(spec: TransformerSpec, batch: int) -> float:
     """Analytic fwd+bwd matmul+attention FLOPs per training step (fwd
     2*MACs, bwd 4*MACs; attention 4*B*H*S^2*Dh forward, halved under
-    causal, 3.5x for fwd+bwd): the JAX package's accounting, dense FFN
-    only (MoE is not ported)."""
-    _check_ported(spec)
+    causal, 3.5x for fwd+bwd): the JAX package's accounting.  The
+    sparse MoE FFN counts ``capacity_factor * k`` tokens' worth of
+    expert FFN per token, the dense-dispatch one every expert; both add
+    the router."""
     d, ff, f, s = spec.d_model, spec.d_ff, spec.d_feature, spec.seq_len
-    macs_tok = f * d + spec.num_blocks * (3 * d * d + d * d + 2 * d * ff)
+    if spec.num_experts and spec.moe_dispatch == "alltoall":
+        ffn = spec.capacity_factor * spec.moe_topk * (d * ff + ff * d) \
+            + d * spec.num_experts
+    elif spec.num_experts:
+        ffn = spec.num_experts * (d * ff + ff * d) + d * spec.num_experts
+    else:
+        ffn = d * ff + ff * d
+    macs_tok = f * d + spec.num_blocks * (3 * d * d + d * d + ffn)
     head = (s * d * spec.vocab_size if spec.objective == "lm"
             else d * spec.num_classes)
     macs = batch * (s * macs_tok + head)
@@ -414,6 +585,10 @@ def _decode_forward(spec: TransformerSpec, params: Params, token, pos, kv):
     logits [B, V]."""
     if spec.objective != "lm":
         raise ValueError("decode serves the lm objective only")
+    if spec.num_experts:
+        raise NotImplementedError(
+            "MoE decode is not ported to the PyTorch package yet "
+            "(ROADMAP.md Queue A, slice 4)")
     cdt = spec.compute_dtype
     b = token.shape[0]
     dh = spec.d_head
@@ -441,7 +616,7 @@ def _decode_forward(spec: TransformerSpec, params: Params, token, pos, kv):
         att = torch.einsum("bhs,bshe->bhe", probs.to(cv.dtype),
                            cv).reshape(b, hn * dh)
         h = h + _mm(bp, att.to(cdt), "Wo", "bo", cdt)
-        h = _ffn_block(spec, bp, h[:, None], act, cdt)[:, 0]
+        h = _ffn_block(spec, bp, h[:, None], act, cdt)[0][:, 0]
     hf = _ln(spec, h, params["lnf_g"], params["lnf_b"])
     return _f32(_mm(params, hf, "W_head", "b_head", cdt))
 

@@ -45,8 +45,9 @@ SIGNATURES = {
     # dy, x, g, dx, part, dg, db, rows, d, ctas, dtype, stream
     "dtx_layer_norm_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "dtx_layer_norm_bwd_max_ctas": (),
-    # x, w1, b1, w2, b2, h1, out, E, C, d, ff, act, dtype, stream
-    "dtx_grouped_ffn_fwd": (_P, _P, _P, _P, _P, _P, _P,
+    # x, w1, b1, w2, b2, h1, out, z1 (NULL = the primal form), E, C, d,
+    # ff, act, dtype, stream
+    "dtx_grouped_ffn_fwd": (_P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _P),
     # A, W, bias, out, M, N, K, act, dtype, last, stream
     "dtx_mlp_layer_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

@@ -47,7 +47,12 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 // The tiled GEMM with a fused bias + activation epilogue that the grouped
 // FFN (grouped_ffn.cu, two launches) and the MLP forward (mlp_forward.cu,
 // one launch per layer) share:
-//   out[e] = round_to_OutT(act(A[e] @ B[e] + bias[e]))
+//   z[e] = A[e] @ B[e] + bias[e]                 (f32; stored when kWithZ)
+//   out[e] = round_to_OutT(act(z[e]))
+// kWithZ (the grouped FFN's training form only) also writes the f32
+// pre-activation z to z_out, the residual its backward differentiates
+// the activation at; every other instantiation takes z_out = nullptr and
+// compiles to the same epilogue as before.
 // Each block computes a 64 x 64 output tile over 32-deep K slices staged
 // through shared memory as f32 (exact for bf16 inputs), each thread a
 // 4 x 4 register tile with f32 FMA accumulation.  Every load and store is
@@ -95,13 +100,14 @@ __device__ __forceinline__ float activate(float v, int act) {
 }
 
 // out[e] = act(A[e] @ B[e] + bias[e]) for A [E, M, K], B [E, K, N],
-// bias [E, N], out [E, M, N]; grid (ceil(N/64), ceil(M/64), E).
-template <typename T, typename OutT>
+// bias [E, N], out [E, M, N] (and z_out [E, M, N] f32 when kWithZ);
+// grid (ceil(N/64), ceil(M/64), E).
+template <typename T, typename OutT, bool kWithZ = false>
 __global__ void __launch_bounds__(kGemmThreads)
     gemm_bias_act_kernel(const T* __restrict__ A, const T* __restrict__ B,
                          const float* __restrict__ bias,
-                         OutT* __restrict__ out, int M, int N, int K,
-                         int act) {
+                         OutT* __restrict__ out, float* __restrict__ z_out,
+                         int M, int N, int K, int act) {
   __shared__ __align__(16) float As[kBK][kBM + kAPad];
   __shared__ __align__(16) float Bs[kBK][kBN];
   const size_t e = blockIdx.z;
@@ -109,6 +115,7 @@ __global__ void __launch_bounds__(kGemmThreads)
   B += e * (size_t)K * (size_t)N;
   bias += e * (size_t)N;
   out += e * (size_t)M * (size_t)N;
+  if (kWithZ) z_out += e * (size_t)M * (size_t)N;
   const int m0 = blockIdx.y * kBM;
   const int n0 = blockIdx.x * kBN;
   const int tid = threadIdx.x;
@@ -165,8 +172,9 @@ __global__ void __launch_bounds__(kGemmThreads)
     for (int j = 0; j < kTN; ++j) {
       const int gn = n0 + tx * kTN + j;
       if (gn >= N) continue;
-      out[(size_t)gm * N + gn] =
-          from_f32<OutT>(activate(acc[i][j] + bias[gn], act));
+      const float z = acc[i][j] + bias[gn];
+      if (kWithZ) z_out[(size_t)gm * N + gn] = z;
+      out[(size_t)gm * N + gn] = from_f32<OutT>(activate(z, act));
     }
   }
 }

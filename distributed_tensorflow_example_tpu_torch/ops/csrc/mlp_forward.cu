@@ -43,11 +43,11 @@ cudaError_t mlp_layer(const void* A, const void* W, const float* bias,
   if (last) {
     gemm_bias_act_kernel<T, float><<<grid, block, 0, stream>>>(
         static_cast<const T*>(A), static_cast<const T*>(W), bias,
-        static_cast<float*>(out), M, N, K, kIdentity);
+        static_cast<float*>(out), nullptr, M, N, K, kIdentity);
   } else {
     gemm_bias_act_kernel<T, T><<<grid, block, 0, stream>>>(
         static_cast<const T*>(A), static_cast<const T*>(W), bias,
-        static_cast<T*>(out), M, N, K, act);
+        static_cast<T*>(out), nullptr, M, N, K, act);
   }
   return cudaGetLastError();
 }

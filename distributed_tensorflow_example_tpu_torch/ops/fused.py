@@ -9,13 +9,14 @@ fused_layer_norm            layer_norm.cu                   pallas_fused._ln_fwd
 fused_layer_norm_residual   layer_norm.cu                   pallas_fused._ln_res_fwd_kernel
 layer_norm_backward         layer_norm.cu (two launches)    pallas_fused._ln_bwd_kernel
 moe_grouped_matmul          grouped_ffn.cu (two launches)   pallas_fused._moe_kernel
+moe_grouped_matmul_z1       grouped_ffn.cu (two launches)   the same, want_z1=True
 mlp_forward                 mlp_forward.cu (one per layer)  pallas_fused._make_kernel
 ==========================  ==============================  ==========================
 
 The flash-attention kernels have their wrappers in ``ops/
 flash_attention.py``.  ``fp8_grouped_matmul`` and ``fp8_dense_ffn`` are
 no kernels of their own: they round the operands with ``ops/
-quant.fp8_round`` and call ``moe_grouped_matmul``, as in the JAX
+quant.fp8_round`` and run the grouped FFN's kernel, as in the JAX
 package.
 
 Dispatch is by the device of the tensors given: for CPU tensors a
@@ -28,8 +29,9 @@ launch returns an error.  There is no fallback from the kernel to the
 plain version.
 
 Every wrapper carries ``launches``, a plain integer it raises by one
-each time it launches its kernel (``moe_grouped_matmul`` and
-``layer_norm_backward`` count one per call, which is two CUDA launches;
+each time it launches its kernel (``moe_grouped_matmul``,
+``moe_grouped_matmul_z1`` and ``layer_norm_backward`` count one per
+call, which is two CUDA launches;
 ``mlp_forward`` one per call, L launches for L layers);
 ``launch_counts`` and ``reset_launch_counts`` (from ``ops/_counts.py``)
 read and zero them, the flash-attention wrappers' included, so a run
@@ -41,8 +43,13 @@ JAX package's ``_fused_ln_bwd`` / ``_fused_ln_res_bwd`` over
 ``layer_norm_backward`` (the residual form routes ``dx + ds`` to both
 inputs).  ``mlp_forward`` is differentiable too: its backward is the
 JAX package's ``_bwd``, plain matrix products as there (the TPU
-package has no backward kernel for it).  ``moe_grouped_matmul`` is
-forward only (its backward comes with MoE training, ROADMAP.md).
+package has no backward kernel for it).  ``moe_grouped_matmul`` and
+``fp8_grouped_matmul`` (and through it ``fp8_dense_ffn``) are
+differentiable (``_GroupedFFN``): with a gradient to take, the forward
+runs B8's training form, ``moe_grouped_matmul_z1``, which also writes
+the f32 pre-activation; without one, the primal form (eval, serving).
+Their backward is the JAX package's ``_moe_grouped_bwd``, plain batched
+products as there.
 """
 
 from __future__ import annotations
@@ -106,17 +113,19 @@ def layer_norm_residual_reference(x, r, g, b):
 
 
 def grouped_ffn_reference(activation, cdt, buf, we1, be1, we2, be2):
-    """Per expert: ``act(x @ W1 + b1)`` rounded to ``cdt``, then
-    ``@ W2 + b2`` in f32.  Products take ``cdt`` operands with f32
-    accumulation: the operands are rounded to ``cdt`` and multiplied
-    in f32, which is exact for bf16 inputs."""
+    """``(out, z1)``: per expert the f32 pre-activation ``z1 = x @ W1 +
+    b1``, ``act(z1)`` rounded to ``cdt``, then ``out = @ W2 + b2`` in
+    f32.  Products take ``cdt`` operands with f32 accumulation: the
+    operands are rounded to ``cdt`` and multiplied in f32, which is
+    exact for bf16 inputs."""
     act = _ACTIVATIONS[activation]
     z1 = torch.bmm(buf.to(cdt).to(torch.float32),
                    we1.to(cdt).to(torch.float32)) \
         + be1.to(torch.float32)[:, None]
     h1 = act(z1).to(cdt)
-    return torch.bmm(h1.to(torch.float32), we2.to(cdt).to(torch.float32)) \
+    out = torch.bmm(h1.to(torch.float32), we2.to(cdt).to(torch.float32)) \
         + be2.to(torch.float32)[:, None]
+    return out, z1
 
 
 # ``(logits, hiddens)``: the plain MLP forward is the model's own
@@ -308,15 +317,18 @@ def fused_layer_norm_residual(x, r, g, b):
     return _FusedLayerNormResidual.apply(x, r, g, b)
 
 
-def moe_grouped_matmul(activation: str, cdt, buf, we1, be1, we2, be2):
-    """Grouped FFN ``[E, C, d] -> [E, C, d]`` (f32 out): per expert
-    ``act(buf @ We1 + be1)`` rounded to ``cdt``, then ``@ We2 + be2``.
-    Matmul operands are cast to ``cdt`` (f32 or bf16), biases to f32.
-    CUDA: the two launches of ``grouped_ffn.cu`` with an [E, C, ff]
-    ``cdt`` hidden in between."""
+def _grouped_forward(activation: str, cdt, buf, we1, be1, we2, be2,
+                     want_z1: bool):
+    """``(out [E, C, d] f32, z1 [E, C, ff] f32 or None)``: the JAX
+    ``_moe_grouped_forward``.  CUDA: the two launches of
+    ``grouped_ffn.cu``, with an [E, C, ff] ``cdt`` hidden in between and,
+    when ``want_z1`` (the training form), the f32 pre-activation written
+    by the first launch's epilogue; counted on ``moe_grouped_matmul``
+    (primal form) or ``moe_grouped_matmul_z1`` (training form)."""
     if _on_cpu(buf, we1, be1, we2, be2):
-        return grouped_ffn_reference(activation, cdt, buf, we1, be1, we2,
-                                     be2)
+        out, z1 = grouped_ffn_reference(activation, cdt, buf, we1, be1,
+                                        we2, be2)
+        return out, (z1 if want_z1 else None)
     if activation not in _ACT_CODES:
         raise ValueError(f"activation {activation!r}: the kernel takes "
                          f"{sorted(_ACT_CODES)}")
@@ -334,12 +346,102 @@ def moe_grouped_matmul(activation: str, cdt, buf, we1, be1, we2, be2):
     b1, b2 = be1.to(torch.float32), be2.to(torch.float32)
     h1 = torch.empty((e, c, ff), dtype=cdt, device=buf.device)
     out = torch.empty((e, c, d), dtype=torch.float32, device=buf.device)
+    z1 = (torch.empty((e, c, ff), dtype=torch.float32, device=buf.device)
+          if want_z1 else None)
     _launch("dtx_grouped_ffn_fwd", x.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), h1.data_ptr(),
-            out.data_ptr(), e, c, d, ff, _ACT_CODES[activation],
-            _DTYPE_CODES[cdt])
-    moe_grouped_matmul.launches += 1
-    return out
+            out.data_ptr(), z1.data_ptr() if want_z1 else None, e, c, d, ff,
+            _ACT_CODES[activation], _DTYPE_CODES[cdt])
+    if want_z1:
+        moe_grouped_matmul_z1.launches += 1
+    else:
+        moe_grouped_matmul.launches += 1
+    return out, z1
+
+
+def _grouped_backward(activation: str, cdt, res, g):
+    """The JAX ``_moe_grouped_bwd``: plain batched products (``cdt``
+    operands, f32 accumulation, as XLA's einsums there; each operand,
+    the f32 cotangent ``g`` and ``dz1`` included, rounded to ``cdt``),
+    ``h1`` recomputed as ``act(z1)`` rounded to ``cdt``, the activation
+    differentiated at the saved f32 ``z1``, the bias gradients f32 sums,
+    each cotangent cast to its primal's dtype."""
+    buf, we1, be1, we2, be2, z1 = res
+    act = _ACTIVATIONS[activation]
+
+    def mm(a, b):
+        return dot_f32(a, b, cdt)
+
+    h1 = act(z1).to(cdt)
+    dwe2 = mm(h1.mT, g)
+    dbe2 = torch.sum(g.to(torch.float32), dim=1)
+    dh1 = mm(g, we2.mT)
+    with torch.enable_grad():
+        z = z1.detach().requires_grad_(True)
+        (dz1,) = torch.autograd.grad(act(z), z, dh1)
+    dwe1 = mm(buf.mT, dz1)
+    dbe1 = torch.sum(dz1, dim=1)
+    dbuf = mm(dz1, we1.mT)
+    return tuple(dv.to(p.dtype) for dv, p in zip(
+        (dbuf, dwe1, dbe1, dwe2, dbe2), (buf, we1, be1, we2, be2)))
+
+
+class _GroupedFFN(torch.autograd.Function):
+    """The custom VJP of ``moe_grouped_matmul`` (``fp8=False``) and of
+    ``fp8_grouped_matmul`` (``fp8=True``).  Forward: the training form
+    (``want_z1``), saving ``(buf, we1, be1, we2, be2, z1)``; under fp8
+    the operands are rounded first and the ROUNDED ones are saved, so
+    the backward differentiates what the forward ran and the cotangents
+    land on the master tensors unrounded (``fp8_round`` is treated as
+    the identity, straight through).  Backward: ``_grouped_backward``."""
+
+    @staticmethod
+    def forward(ctx, activation, cdt, fp8, buf, we1, be1, we2, be2):
+        if fp8:
+            buf, we1, we2 = _fp8_operands(buf, we1, we2)
+        out, z1 = _grouped_forward(activation, cdt, buf, we1, be1, we2,
+                                   be2, want_z1=True)
+        ctx.save_for_backward(buf, we1, be1, we2, be2, z1)
+        ctx.activation, ctx.cdt = activation, cdt
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _grouped_backward(ctx.activation, ctx.cdt,
+                                  ctx.saved_tensors, g)
+        return (None, None, None, *grads)
+
+
+def _grouped(activation: str, cdt, fp8: bool, buf, we1, be1, we2, be2):
+    """``moe_grouped_matmul`` (``fp8`` False) or ``fp8_grouped_matmul``:
+    the training form through ``_GroupedFFN`` when a gradient is to be
+    taken, as the JAX custom VJP does, else the primal form."""
+    args = (buf, we1, be1, we2, be2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _GroupedFFN.apply(activation, cdt, fp8, *args)
+    if fp8:
+        buf, we1, we2 = _fp8_operands(buf, we1, we2)
+    return _grouped_forward(activation, cdt, buf, we1, be1, we2, be2,
+                            want_z1=False)[0]
+
+
+def moe_grouped_matmul(activation: str, cdt, buf, we1, be1, we2, be2):
+    """Grouped FFN ``[E, C, d] -> [E, C, d]`` (f32 out): per expert
+    ``act(buf @ We1 + be1)`` rounded to ``cdt``, then ``@ We2 + be2``.
+    Matmul operands are cast to ``cdt`` (f32 or bf16), biases to f32.
+    Differentiable (``_GroupedFFN``): when a gradient is needed the
+    forward runs the training form (``want_z1``), otherwise the primal
+    form."""
+    return _grouped(activation, cdt, False, buf, we1, be1, we2, be2)
+
+
+def moe_grouped_matmul_z1(activation: str, cdt, buf, we1, be1, we2, be2):
+    """``(out, z1)``: the training form of the grouped FFN (B8 with
+    ``want_z1``), which the backward of ``moe_grouped_matmul`` and
+    ``fp8_grouped_matmul`` runs as its forward; z1 [E, C, ff] is the f32
+    pre-activation."""
+    return _grouped_forward(activation, cdt, buf, we1, be1, we2, be2,
+                            want_z1=True)
 
 
 def _mlp_names(spec):
@@ -445,9 +547,10 @@ def _fp8_operands(buf, we1, we2):
 
 def fp8_grouped_matmul(activation: str, cdt, buf, we1, be1, we2, be2):
     """``moe_grouped_matmul`` on fp8-e4m3-rounded operands (pow2
-    per-expert scales; biases and accumulation stay f32)."""
-    bq, w1q, w2q = _fp8_operands(buf, we1, we2)
-    return moe_grouped_matmul(activation, cdt, bq, w1q, be1, w2q, be2)
+    per-expert scales; biases and accumulation stay f32), with
+    straight-through gradients to the master ``buf``, ``we1``, ``we2``
+    (``_GroupedFFN``)."""
+    return _grouped(activation, cdt, True, buf, we1, be1, we2, be2)
 
 
 def fp8_dense_ffn(activation: str, cdt, x2, w1, b1, w2, b2):
@@ -459,13 +562,15 @@ def fp8_dense_ffn(activation: str, cdt, x2, w1, b1, w2, b2):
 
 
 KERNEL_WRAPPERS = (fused_layer_norm, fused_layer_norm_residual,
-                   layer_norm_backward, moe_grouped_matmul, mlp_forward)
+                   layer_norm_backward, moe_grouped_matmul,
+                   moe_grouped_matmul_z1, mlp_forward)
 _counts.register(*KERNEL_WRAPPERS)
 
 
 __all__ = ["fused_layer_norm", "fused_layer_norm_residual",
            "layer_norm_backward", "layer_norm_backward_reference",
-           "moe_grouped_matmul", "fp8_grouped_matmul", "fp8_dense_ffn",
+           "moe_grouped_matmul", "moe_grouped_matmul_z1",
+           "fp8_grouped_matmul", "fp8_dense_ffn",
            "mlp_forward", "layer_norm_reference",
            "layer_norm_residual_reference", "grouped_ffn_reference",
            "mlp_forward_reference", "SUPPORTED_MLP_ACTIVATIONS",

@@ -15,8 +15,10 @@ through the fused kernel (``ops.fused.mlp_forward``) for the activations
 whose backward it carries (sigmoid, tanh, relu; any other activation
 runs the plain ``models.mlp.apply``, as in the JAX package), and the
 transformer (``models.transformer.apply``: its kernels are chosen on the
-spec, flash attention and the fused LayerNorms), with the classify or
-the lm (next-token) objective, per-step dropout masks and ``--remat``.
+spec, flash attention, the fused LayerNorms and the grouped expert FFN),
+with the classify or the lm (next-token) objective, the MoE balance loss
+in the objective (``--moe_aux_weight``), per-step dropout masks and
+``--remat``.
 Tensor, sequence, expert and pipeline parallelism, FSDP/ZeRO, local SGD,
 ``--on_anomaly`` and the ``--histograms`` norms are not ported
 (ROADMAP.md Queue A).
@@ -46,12 +48,14 @@ def param_shapes(spec) -> dict:
 
 
 def forward_local(spec, params, x, use_pallas: bool = False,
-                  dropout_rng: Optional[int] = None):
+                  dropout_rng: Optional[int] = None, with_aux: bool = False):
     """Logits: the transformer's ``apply`` (its kernels chosen on the
     spec), or the MLP's fused kernel under ``--pallas`` for the
-    activations it supports, else the plain MLP forward."""
+    activations it supports, else the plain MLP forward.  ``with_aux``
+    (transformer only) returns ``(logits, the MoE balance loss)``."""
     if isinstance(spec, tfm.TransformerSpec):
-        return tfm.apply(spec, params, x, dropout_rng=dropout_rng)
+        return tfm.apply(spec, params, x, with_aux=with_aux,
+                         dropout_rng=dropout_rng)
     if use_pallas and spec.activation in fused.SUPPORTED_MLP_ACTIVATIONS:
         return fused.mlp_forward(spec, params, x)
     return mlp.apply(spec, params, x)
@@ -76,26 +80,35 @@ def _lm_stats(spec, logits, tokens):
 def _loss_and_acc(spec, params, x, y, naive: bool, use_pallas: bool,
                   label_smoothing: float = 0.0, remat: bool = False,
                   dropout_rng: Optional[int] = None):
-    """``(cost, accuracy)`` on one batch: the classify objective's cross
-    entropy, or for the lm objective the mean next-token cross entropy
-    and accuracy (``y`` unused).  ``remat`` recomputes the whole forward
-    in the backward (``torch.utils.checkpoint``, the JAX
-    ``jax.checkpoint`` around the forward)."""
+    """``(objective, (cost, accuracy))`` on one batch.  The cost is the
+    classify objective's cross entropy, or for the lm objective the mean
+    next-token cross entropy (``y`` unused); the objective, which the
+    gradients flow from, adds ``aux_loss_weight`` x the MoE balance loss
+    to it (the reported cost stays plain CE), as in the JAX package.
+    ``remat`` recomputes the whole forward in the backward
+    (``torch.utils.checkpoint``, the JAX ``jax.checkpoint`` around the
+    forward)."""
+    is_tfm = isinstance(spec, tfm.TransformerSpec)
+    aux_w = spec.aux_loss_weight if is_tfm else 0.0
 
     def fwd(p, xx):
-        return forward_local(spec, p, xx, use_pallas, dropout_rng)
+        if is_tfm:
+            return forward_local(spec, p, xx, use_pallas, dropout_rng,
+                                 with_aux=True)
+        return forward_local(spec, p, xx, use_pallas, dropout_rng), 0.0
 
     if remat:
-        logits = checkpoint(fwd, params, x, use_reentrant=False)
+        logits, aux = checkpoint(fwd, params, x, use_reentrant=False)
     else:
-        logits = fwd(params, x)
+        logits, aux = fwd(params, x)
     if getattr(spec, "objective", "classify") == "lm":
         nll, correct, count = _lm_stats(spec, logits, tfm.tokenize(spec, x))
         total = torch.sum(count)
-        return torch.sum(nll) / total, torch.sum(correct) / total
+        cost = torch.sum(nll) / total
+        return cost + aux_w * aux, (cost, torch.sum(correct) / total)
     cost = losses.cross_entropy(logits, y, naive=naive,
                                 label_smoothing=label_smoothing)
-    return cost, metrics.accuracy(logits, y)
+    return cost + aux_w * aux, (cost, metrics.accuracy(logits, y))
 
 
 def make_step_rng(cfg, spec) -> Callable:
@@ -125,10 +138,10 @@ def make_sync_step_body(cfg, spec, optimizer) -> Callable:
 
     def grad_of(params, x, y, rng):
         leaves = {k: params[k].detach().requires_grad_(True) for k in names}
-        cost, acc = _loss_and_acc(spec, leaves, x, y, cfg.naive_ce,
-                                  cfg.pallas, cfg.label_smoothing, remat,
-                                  rng)
-        grads = torch.autograd.grad(cost, [leaves[k] for k in names])
+        objective, (cost, acc) = _loss_and_acc(
+            spec, leaves, x, y, cfg.naive_ce, cfg.pallas,
+            cfg.label_smoothing, remat, rng)
+        grads = torch.autograd.grad(objective, [leaves[k] for k in names])
         return cost.detach(), acc, dict(zip(names, grads))
 
     def body(state: TrainState, x, y) -> Tuple[TrainState, torch.Tensor,

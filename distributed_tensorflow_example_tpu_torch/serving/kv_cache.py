@@ -131,8 +131,8 @@ def prefill_into_pages(spec: tfm.TransformerSpec, params, cache,
                                           _page_size(cache))
     for i in range(spec.num_blocks):
         kv_out: list = []
-        h = tfm._block_forward(spec, tfm._block_params(params, i), h, act,
-                               cdt, kv_out=kv_out)
+        h, _ = tfm._block_forward(spec, tfm._block_params(params, i), h,
+                                  act, cdt, kv_out=kv_out)
         (kk, vv), = kv_out                                # [B, P, H, Dh]
         pa.scatter_prefill_rows(cache[f"k{i}"], page_ids, rows, kk)
         pa.scatter_prefill_rows(cache[f"v{i}"], page_ids, rows, vv)

@@ -74,7 +74,14 @@ def make_spec(cfg: Config):
             attention="flash" if cfg.pallas else cfg.attention,
             dropout_rate=cfg.dropout_rate,
             causal=True if lm else cfg.causal,
+            num_experts=cfg.num_experts,
+            moe_topk=cfg.moe_topk,
+            moe_dispatch=cfg.moe_dispatch,
+            capacity_factor=cfg.capacity_factor,
+            aux_loss_weight=cfg.moe_aux_weight,
             fused_ln=cfg.fused_ln,
+            grouped_moe=cfg.grouped_moe,
+            fp8_ffn=cfg.fp8_ffn,
             param_dtype=dtype_from_name(cfg.param_dtype),
             compute_dtype=dtype_from_name(cfg.compute_dtype),
         )

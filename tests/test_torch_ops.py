@@ -233,7 +233,7 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
     assert fused.launch_counts() == {
         "fused_layer_norm": 0, "fused_layer_norm_residual": 0,
         "layer_norm_backward": 0, "moe_grouped_matmul": 0,
-        "mlp_forward": 0, "flash_forward": 0, "flash_dq": 0,
+        "moe_grouped_matmul_z1": 0, "mlp_forward": 0, "flash_forward": 0, "flash_dq": 0,
         "flash_dkv": 0}
 
 

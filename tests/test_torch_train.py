@@ -473,7 +473,7 @@ def test_two_gloo_processes_equal_one(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [
     ["--sync_period=2"], ["--fsdp"],
-    ["--model=transformer", "--num_experts=4"],
+    ["--model=transformer", "--expert_parallel=2"],
     ["--dataset=mnist", "--data_dir=/nonexistent-mnist-dir"]])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
     """A flag, value or mode of the JAX trainer the port lacks exits 2

@@ -65,9 +65,24 @@ def test_init_is_seeded_and_shaped():
     assert abs(float(a["L0_W1"].std()) * 32 ** 0.5 - 1.0) < 0.1
 
 
-def test_moe_is_not_ported_yet():
+def test_moe_param_shapes_and_init_scaling_match_jax():
+    """The MoE leaves (router ``Wr``, expert ``We1``/``be1``/``We2``/
+    ``be2``) in JAX's shapes and order; the expert weights scaled by
+    their ``shape[-2]`` fan-in, as JAX's init scales them (the bits
+    differ); MoE decode is refused, naming ROADMAP.md."""
+    spec = ttfm.TransformerSpec(**_BASE, num_experts=3)
+    shapes = ttfm.param_shapes(spec)
+    assert list(shapes.items()) == list(jtfm.param_shapes(
+        jtfm.TransformerSpec(**_BASE, num_experts=3)).items())
+    assert shapes["L1_We1"] == (3, 32, 64) and "L0_W1" not in shapes
+    p = ttfm.init(spec, seed=2, device="cpu")
+    assert abs(float(p["L0_We1"].std()) * 32 ** 0.5 - 1.0) < 0.1
+    assert abs(float(p["L0_We2"].std()) * 64 ** 0.5 - 1.0) < 0.1
+    assert abs(float(p["L0_Wr"].std()) * 32 ** 0.5 - 1.0) < 0.3
+    assert torch.all(p["L1_be1"] == 0) and torch.all(p["L1_be2"] == 0)
+    cache = ttfm.init_decode_cache(spec, 1, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttfm.param_shapes(ttfm.TransformerSpec(**_BASE, num_experts=2))
+        ttfm.decode_step(spec, p, cache, torch.zeros(1, dtype=torch.long), 0)
 
 
 def test_decode_step_matches_jax(pair):

@@ -102,8 +102,8 @@ def test_block_forward_dispatches_on_spec_attention():
     tact = ttfm._ACTIVATIONS["gelu"]
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tfa, "flash_attention", sentinel)
-        got = ttfm._block_forward(tspec, bp_t, torch.from_numpy(h), tact,
-                                  torch.float32)
+        got, _ = ttfm._block_forward(tspec, bp_t, torch.from_numpy(h),
+                                     tact, torch.float32)
         assert calls == [True]
         ttfm._block_forward(dataclasses.replace(tspec, attention="dense"),
                             bp_t, torch.from_numpy(h), tact, torch.float32)
@@ -167,7 +167,7 @@ def test_num_params_and_flops_match_jax_at_transformer_wide_long():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--num_experts=4"], ["--grouped_moe"], ["--fp8_ffn"],
+    ["--expert_parallel=2"], ["--fsdp"], ["--zero_opt"],
     ["--sequence_parallel=2"], ["--model_parallel=2"],
     ["--pipeline_parallel=2"], ["--sp_impl=ulysses"]])
 def test_cli_refuses_unported_transformer_flags(argv, capsys):
