@@ -6,7 +6,7 @@ Phases (any failure exits nonzero; none is caught and skipped):
 
 1. build the CUDA kernels from ``distributed_tensorflow_example_tpu_
    torch/ops/csrc`` with nvcc for sm_90a, and print the build time and
-   the compiler's register/spill report;
+   each kernel's registers and spills from the compiler's report;
 2. hold each kernel (fused LayerNorm, LayerNorm+residual, grouped FFN)
    against its plain PyTorch version on the card at the serving path's
    shapes (and the two LayerNorm forms at the transformer trainer's
@@ -57,7 +57,10 @@ and for the transformer trainer (``main.py --model=transformer`` ->
     element of the timed launches' outputs is held against the plain
     version on that element's inputs; the LayerNorm
     backward at 65,536 x 1024 f32 — and time each beside its plain
-    version, a PyTorch library call and its bound;
+    version, a PyTorch library call and its bound; the rows of the
+    bf16 tensor-core forward and dq also carry their design, registers
+    and spilled bytes (from the compiler's report of the loaded
+    library's build);
 7. train at full width: the JAX repo's ``transformer_wide_long`` bench
    configuration (causal flash attention, --fused_ln, d_model 1024, 8
    heads of 128, 4 blocks, d_ff 4096, S 8192, bf16 compute, Adam with
@@ -339,18 +342,59 @@ def copies(make, bytes_per_set: int):
     return [make(i) for i in range(k)]
 
 
+def ptxas_usage(text: str) -> dict:
+    """{mangled kernel name: {"regs", "spill_stores", "spill_loads"}}
+    from the compiler's ``-Xptxas -v`` report."""
+    usage: dict = {}
+    cur = None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            cur = usage.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur.update(spill_stores=int(m.group(1)),
+                       spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["regs"] = int(m.group(1))
+    return usage
+
+
+# the bf16 tensor-core kernels behind B5's two forms and B6 at the
+# path's causal shape (fragments of their mangled names), and their
+# registers and spills from the compiler's report of the loaded
+# library's build (phase 1)
+FLASH_TC = {"stats": "flash_fwd_tc_kernelILb1ELb1EE",
+            "normalized": "flash_fwd_tc_kernelILb1ELb0EE",
+            "dq": "flash_dq_tc_kernelILb1EE"}
+FLASH_USAGE: dict = {}
+
+
 def phase_build():
     from distributed_tensorflow_example_tpu_torch.ops import _build
 
     t0 = time.monotonic()
-    _build.build(verbose=True)
+    _build.build()
     _build.load()
     secs = time.monotonic() - t0
-    log(f"[build] kernels built and loaded in {secs:.2f} s "
-        f"({_build.last_build.get('path', 'cached')})")
-    for line in (_build.last_build.get("log") or "").splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            log(f"[build]   {line.strip()}")
+    how = ("built and loaded" if _build.last_build.get("seconds") is not None
+           else "reused and loaded")
+    log(f"[build] kernels {how} in {secs:.2f} s "
+        f"({_build.last_build.get('path')})")
+    usage = ptxas_usage(_build.last_build.get("log") or "")
+    for form, frag in FLASH_TC.items():
+        found = [u for name, u in usage.items() if frag in name]
+        if len(found) != 1 or "regs" not in found[0]:
+            raise RuntimeError(f"the compiler's report names {len(found)} "
+                               f"kernels with registers matching {frag}")
+        use = FLASH_USAGE[form] = found[0]
+        log(f"[build]   {frag}: {use['regs']} registers, spill stores "
+            f"{use.get('spill_stores', 0)} B, loads "
+            f"{use.get('spill_loads', 0)} B")
 
 
 def _gen(seed: int):
@@ -760,10 +804,18 @@ def check_flash(card: str) -> list:
                    bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops,
                    tflops=flops / kern[form] / 1e9,
                    max_abs_err=errs[name][0], rel_err=errs[name][1])
+        if form in FLASH_USAGE:
+            use = FLASH_USAGE[form]
+            row.update(design="wgmma+cp.async", regs=use["regs"],
+                       spill_bytes=(use.get("spill_stores", 0)
+                                    + use.get("spill_loads", 0)))
         log(f"[kernel] {name} ({form}) {shape} bf16 causal: kernel "
             f"{kern[form]:.3f} ms ({row['tflops']:.2f} TFLOP/s), plain "
             f"{plain[form]:.3f} ms at batch 1, library {lib:.3f} ms, "
-            f"bound {bound:.3f} ms ({by}) on {card}")
+            f"bound {bound:.3f} ms ({by}) on {card}"
+            + (f"; {row['design']}, {row['regs']} registers, "
+               f"{row['spill_bytes']} B spilled"
+               if "design" in row else ""))
         rows.append(row)
     del q, k, v, do, m, l, o, dlt
     torch.cuda.empty_cache()
@@ -1474,13 +1526,13 @@ KERNEL_META = {
     "flash_forward": dict(
         wrapper="flash_forward",
         source="distributed_tensorflow_example_tpu_torch/ops/csrc/"
-               "flash_attention.cu",
+               "flash_attention_tc.cu",
         replaces="distributed_tensorflow_example_tpu/ops/flash_attention.py:"
                  "181"),
     "flash_dq": dict(
         wrapper="flash_dq",
         source="distributed_tensorflow_example_tpu_torch/ops/csrc/"
-               "flash_attention.cu",
+               "flash_attention_tc.cu",
         replaces="distributed_tensorflow_example_tpu/ops/flash_attention.py:"
                  "281"),
     "flash_dkv": dict(
@@ -1554,6 +1606,7 @@ def main() -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
+            **{k: head[k] for k in ("design", "regs") if k in head},
             "shapes": rows,
         })
     smi = subprocess.run(

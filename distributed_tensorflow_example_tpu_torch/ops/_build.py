@@ -100,17 +100,22 @@ def nvcc() -> str:
     return found
 
 
-def build(verbose: bool = False) -> Path:
+def build() -> Path:
     """Compile every source (in parallel) and link the library; returns
     its path.  An existing library for the same source hash is reused.
-    ``verbose`` adds ``-Xptxas -v`` (registers, shared memory, spills
-    per kernel) to the compiler output kept in ``last_build``."""
+    The compiler output, with ``-Xptxas -v``'s registers, shared memory
+    and spills per kernel, is kept beside the library (``.log``) and in
+    ``last_build`` (``seconds`` is None for a library that was reused)."""
     out = BUILD_DIR / f"libdtx_torch_kernels-{_digest()}.so"
+    log_file = out.with_suffix(".log")
     if out.exists():
+        if last_build.get("path") != str(out):   # not built by this process
+            last_build.update(seconds=None, path=str(out), log=(
+                log_file.read_text() if log_file.exists() else ""))
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cc = nvcc()
-    extra = ("-Xptxas", "-v") if verbose else ()
+    extra = ("-Xptxas", "-v")
     t0 = time.monotonic()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
@@ -137,19 +142,22 @@ def build(verbose: bool = False) -> Path:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        tmp_log = Path(tmp) / log_file.name
+        tmp_log.write_text("\n".join(log))
         # atomic publish: a concurrent build sees a whole file or none
+        os.replace(tmp_log, log_file)
         os.replace(tmp_lib, out)
     last_build.update(seconds=time.monotonic() - t0, log="\n".join(log),
                       path=str(out))
     return out
 
 
-def load(verbose: bool = False) -> ctypes.CDLL:
+def load() -> ctypes.CDLL:
     """The loaded kernel library (built at the first call)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build(verbose=verbose)))
+            lib = ctypes.CDLL(str(build()))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)

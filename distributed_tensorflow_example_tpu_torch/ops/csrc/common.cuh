@@ -1,6 +1,7 @@
 // Shared helpers for the port's hand-written Hopper kernels: dtype
-// codes of the C interface, f32 conversions, a block-wide sum, and the
-// tiled GEMM with a fused bias + activation epilogue.
+// codes of the C interface, f32 conversions, a block-wide sum, the
+// shared-memory opt-in of a launch, and the tiled GEMM with a fused
+// bias + activation epilogue.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -42,6 +43,16 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return v;
 }
 
+// A kernel whose dynamic shared memory is above the 48 KB a launch gets
+// without an opt-in: the opt-in, set once per instantiation (``done``).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* done) {
+  if (*done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) *done = true;
+  return err;
+}
 
 // ---------------------------------------------------------------------------
 // The tiled GEMM with a fused bias + activation epilogue that the grouped

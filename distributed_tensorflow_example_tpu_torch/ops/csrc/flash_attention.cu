@@ -28,25 +28,35 @@
 // and dk/dv 2.2e12 per call, against 3 x 134 MB of bf16 inputs: far
 // above the card's ~295 operations per byte.
 //
-// The design: the TPU kernels walk a sequential grid whose innermost
-// dimension carries the running statistics in VMEM scratch over 1024-wide
-// tiles.  Here the loop over the streamed tiles runs inside one CTA of
-// 256 threads, over 64-row tiles staged in shared memory as f32 (exact
-// for bf16 inputs; 116-167 KB, so one CTA per SM).  Each thread owns a
-// 4 x 4 block of the 64 x 64 score tile (rows ty + 16i, columns tx + 16j:
-// 16-byte shared loads along the head dim, conflict-free), so a row's
-// max and sum are 16-lane shuffles, and a 4 x 8 block of the 64 x 128
-// output (columns 4tx.. and 64 + 4tx..).  The score tile goes through
-// shared memory once, rounded to T, for the p . v (or ds . k) product.
-// Causal: key tiles above the diagonal are never visited (forward and dq
-// stop at the diagonal tile, dk/dv start at it); only the diagonal tile
-// and the ragged last tile mask.  Key tile 0 comes first, so every row's
-// running max is finite before a fully masked row could appear (the JAX
-// module docstring's ordering argument).  Rows and keys past S are
-// guarded (zero in shared memory, masked out of the softmax, never
-// stored), so any S runs without padding.  Arithmetic is f32 FMA on the
-// CUDA cores: no tensor cores, no TMA, no overlap of the tile loads with
-// compute.  That is the work of a later change.
+// Which kernel runs: the C entry points below route the bf16 forward
+// (both forms) and the bf16 dq to flash_attention_tc.cu, which runs
+// every product on the tensor cores.  This file keeps the f32
+// instantiations of all three and the bf16 dk/dv.  f32 stays on the
+// CUDA cores on purpose: the tensor cores take f32 only as TF32, which
+// keeps about three digits, against the 1e-4 of scale that f32
+// attention is held to (tests/test_torch_cuda.py, chip_smoke.py) and
+// the JAX package's f32 products.
+//
+// The design of the kernels here: the TPU kernels walk a sequential grid
+// whose innermost dimension carries the running statistics in VMEM
+// scratch over 1024-wide tiles.  Here the loop over the streamed tiles
+// runs inside one CTA of 256 threads, over 64-row tiles staged in shared
+// memory as f32 (exact for bf16 inputs; 116-167 KB, so one CTA per SM).
+// Each thread owns a 4 x 4 block of the 64 x 64 score tile (rows ty +
+// 16i, columns tx + 16j: 16-byte shared loads along the head dim,
+// conflict-free), so a row's max and sum are 16-lane shuffles, and a 4 x
+// 8 block of the 64 x 128 output (columns 4tx.. and 64 + 4tx..).  The
+// score tile goes through shared memory once, rounded to T, for the p .
+// v (or ds . k) product.  Causal: key tiles above the diagonal are never
+// visited (forward and dq stop at the diagonal tile, dk/dv start at it);
+// only the diagonal tile and the ragged last tile mask.  Key tile 0
+// comes first, so every row's running max is finite before a fully
+// masked row could appear (the JAX module docstring's ordering
+// argument).  Rows and keys past S are guarded (zero in shared memory,
+// masked out of the softmax, never stored), so any S runs without
+// padding.  Arithmetic is f32 FMA on the CUDA cores, tile loads are
+// synchronous: the bf16 dk/dv is the next kernel to move onto the
+// tensor-core helpers of tc.cuh (ROADMAP.md).
 #include "common.cuh"
 
 namespace dtx {
@@ -190,12 +200,14 @@ __device__ __forceinline__ float row_sum16(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// forward: grid (q tiles, B*H); heavier causal tiles are scheduled first
+// forward (f32): grid (q tiles, B*H); heavier causal tiles are scheduled
+// first
 // ---------------------------------------------------------------------------
-template <typename T, bool kCausal, bool kStats>
+template <bool kCausal, bool kStats>
 __global__ void __launch_bounds__(kFlashThreads, 1)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
+    flash_fwd_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ acc_out, float* __restrict__ m_out,
                      float* __restrict__ l_out, int S, int H, int D,
                      float qscale) {
@@ -214,7 +226,7 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
   const int n_kt = (S + kTile - 1) / kTile;
   const int last = kCausal ? qt : n_kt - 1;
 
-  load_tile<T, true>(Qs, q, b, h, q0, S, H, D, qscale);
+  load_tile<float, true>(Qs, q, b, h, q0, S, H, D, qscale);
   float m[4], l[4], acc[4][8];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -227,8 +239,8 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
   for (int kt = 0; kt <= last; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the last iteration is done with Ks, Vs and Ps
-    load_tile<T, false>(Ks, k, b, h, k0, S, H, D, 1.f);
-    load_tile<T, false>(Vs, v, b, h, k0, S, H, D, 1.f);
+    load_tile<float, false>(Ks, k, b, h, k0, S, H, D, 1.f);
+    load_tile<float, false>(Vs, v, b, h, k0, S, H, D, 1.f);
     __syncthreads();
     float s[4][4];
     tile_scores(Qs, Ks, ty, tx, dpad, s);
@@ -252,7 +264,7 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
       for (int j = 0; j < 4; ++j) {
         const float p = exp2f(s[i][j] - m_new);
         ps += p;
-        Ps[(ty + 16 * i) * kPLd + tx + 16 * j] = round_to<T>(p);
+        Ps[(ty + 16 * i) * kPLd + tx + 16 * j] = p;
       }
       l[i] = l[i] * alpha + row_sum16(ps);
       m[i] = m_new;
@@ -283,19 +295,20 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         const int col = out_col(tx, c);
-        if (col < D) o[base * D + col] = from_f32<T>(acc[i][c] / den);
+        if (col < D) o[base * D + col] = acc[i][c] / den;
       }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// dq: grid (q tiles, B*H); streams key tiles 0..(causal frontier)
+// dq (f32): grid (q tiles, B*H); streams key tiles 0..(causal frontier)
 // ---------------------------------------------------------------------------
-template <typename T, bool kCausal>
+template <bool kCausal>
 __global__ void __launch_bounds__(kFlashThreads, 1)
-    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+    flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ m_in,
                     const float* __restrict__ l_in,
                     const float* __restrict__ dlt_in, float* __restrict__ dq,
@@ -316,8 +329,8 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
   const int n_kt = (S + kTile - 1) / kTile;
   const int last = kCausal ? qt : n_kt - 1;
 
-  load_tile<T, true>(Qs, q, b, h, q0, S, H, D, qscale);
-  load_tile<T, false>(dOs, dout, b, h, q0, S, H, D, 1.f);
+  load_tile<float, true>(Qs, q, b, h, q0, S, H, D, qscale);
+  load_tile<float, false>(dOs, dout, b, h, q0, S, H, D, 1.f);
   float mlog2[4], lden[4], dl[4], acc[4][8];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -333,8 +346,8 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
   for (int kt = 0; kt <= last; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();
-    load_tile<T, false>(Ks, k, b, h, k0, S, H, D, 1.f);
-    load_tile<T, false>(Vs, v, b, h, k0, S, H, D, 1.f);
+    load_tile<float, false>(Ks, k, b, h, k0, S, H, D, 1.f);
+    load_tile<float, false>(Vs, v, b, h, k0, S, H, D, 1.f);
     __syncthreads();
     float s[4][4], dp[4][4];
     tile_scores(Qs, Ks, ty, tx, dpad, s);
@@ -348,7 +361,7 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
         const bool masked = qp >= S || kp >= S || (kCausal && kp > qp);
         const float p = masked ? 0.f : exp2f(s[i][j] - mlog2[i]) / lden[i];
         const float ds = p * (dp[i][j] - dl[i]);
-        Ds[(ty + 16 * i) * kPLd + tx + 16 * j] = round_to<T>(ds);
+        Ds[(ty + 16 * i) * kPLd + tx + 16 * j] = ds;
       }
     __syncthreads();
     tile_accumulate(Ds, Ks, ty, tx, acc);
@@ -458,52 +471,41 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
   }
 }
 
-// the dynamic shared memory each kernel needs is above the 48 KB a
-// launch gets without an opt-in; set once per instantiation
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* done) {
-  if (*done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) *done = true;
-  return err;
-}
-
 bool check_geom(int B, int S, int H, int D) {
   return B >= 1 && S >= 1 && H >= 1 && D >= 1 && D <= kMaxD &&
          (long long)B * H <= 65535;
 }
 
-template <typename T, bool kCausal, bool kStats>
+template <bool kCausal, bool kStats>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 void* acc, void* m, void* l, int B, int S, int H, int D,
                 float qscale, cudaStream_t st) {
   static bool ready = false;
-  auto kernel = flash_fwd_kernel<T, kCausal, kStats>;
+  auto kernel = flash_fwd_kernel<kCausal, kStats>;
   cudaError_t err = allow_smem(kernel, kFwdSmem, &ready);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kTile - 1) / kTile, B * H);
   kernel<<<grid, kFlashThreads, kFwdSmem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(acc), static_cast<float*>(m),
       static_cast<float*>(l), S, H, D, qscale);
   return cudaGetLastError();
 }
 
-template <typename T, bool kCausal>
+template <bool kCausal>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* m, const void* l,
                    const void* dlt, void* dq, int B, int S, int H, int D,
                    float qscale, float scale, cudaStream_t st) {
   static bool ready = false;
-  auto kernel = flash_dq_kernel<T, kCausal>;
+  auto kernel = flash_dq_kernel<kCausal>;
   cudaError_t err = allow_smem(kernel, kDqSmem, &ready);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kTile - 1) / kTile, B * H);
   kernel<<<grid, kFlashThreads, kDqSmem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(m), static_cast<const float*>(l),
       static_cast<const float*>(dlt), static_cast<float*>(dq), S, H, D,
       qscale, scale);
@@ -530,6 +532,17 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
 }
 
 }  // namespace
+
+// bf16 forward and dq on the tensor cores (flash_attention_tc.cu)
+cudaError_t flash_fwd_bf16(const void* q, const void* k, const void* v,
+                           void* o, void* acc, void* m, void* l, int B,
+                           int S, int H, int D, bool causal, bool stats,
+                           float qscale, cudaStream_t st);
+cudaError_t flash_dq_bf16(const void* q, const void* k, const void* v,
+                          const void* dout, const void* m, const void* l,
+                          const void* dlt, void* dq, int B, int S, int H,
+                          int D, bool causal, float qscale, float scale,
+                          cudaStream_t st);
 }  // namespace dtx
 
 // C interface (ctypes).  q, k, v, o, do: [B, S, H, D] contiguous of
@@ -544,24 +557,20 @@ extern "C" int dtx_flash_fwd(const void* q, const void* k, const void* v,
   using namespace dtx;
   if (!check_geom(B, S, H, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int sel = (causal ? 1 : 0) | (stats ? 2 : 0);
-#define DTX_FWD(T)                                                           \
-  switch (sel) {                                                             \
-    case 0: return (int)fwd<T, false, false>(q, k, v, o, acc, m, l, B, S, H, \
-                                             D, qscale, st);                 \
-    case 1: return (int)fwd<T, true, false>(q, k, v, o, acc, m, l, B, S, H,  \
-                                            D, qscale, st);                  \
-    case 2: return (int)fwd<T, false, true>(q, k, v, o, acc, m, l, B, S, H,  \
-                                            D, qscale, st);                  \
-    default: return (int)fwd<T, true, true>(q, k, v, o, acc, m, l, B, S, H,  \
-                                            D, qscale, st);                  \
+  if (dtype == kBFloat16)
+    return (int)flash_fwd_bf16(q, k, v, o, acc, m, l, B, S, H, D, causal,
+                               stats, qscale, st);
+  if (dtype != kFloat32) return (int)cudaErrorInvalidValue;
+  switch ((causal ? 1 : 0) | (stats ? 2 : 0)) {
+    case 0: return (int)fwd<false, false>(q, k, v, o, acc, m, l, B, S, H, D,
+                                          qscale, st);
+    case 1: return (int)fwd<true, false>(q, k, v, o, acc, m, l, B, S, H, D,
+                                         qscale, st);
+    case 2: return (int)fwd<false, true>(q, k, v, o, acc, m, l, B, S, H, D,
+                                         qscale, st);
+    default: return (int)fwd<true, true>(q, k, v, o, acc, m, l, B, S, H, D,
+                                         qscale, st);
   }
-  switch (dtype) {
-    case kFloat32: DTX_FWD(float)
-    case kBFloat16: DTX_FWD(__nv_bfloat16)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef DTX_FWD
 }
 
 extern "C" int dtx_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -575,18 +584,13 @@ extern "C" int dtx_flash_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
-      return causal ? (int)bwd_dq<float, true>(q, k, v, dout, m, l, dlt, dq,
-                                               B, S, H, D, qscale, scale, st)
-                    : (int)bwd_dq<float, false>(q, k, v, dout, m, l, dlt, dq,
-                                                B, S, H, D, qscale, scale,
-                                                st);
+      return causal ? (int)bwd_dq<true>(q, k, v, dout, m, l, dlt, dq, B, S,
+                                        H, D, qscale, scale, st)
+                    : (int)bwd_dq<false>(q, k, v, dout, m, l, dlt, dq, B, S,
+                                         H, D, qscale, scale, st);
     case kBFloat16:
-      return causal ? (int)bwd_dq<__nv_bfloat16, true>(
-                          q, k, v, dout, m, l, dlt, dq, B, S, H, D, qscale,
-                          scale, st)
-                    : (int)bwd_dq<__nv_bfloat16, false>(
-                          q, k, v, dout, m, l, dlt, dq, B, S, H, D, qscale,
-                          scale, st);
+      return (int)flash_dq_bf16(q, k, v, dout, m, l, dlt, dq, B, S, H, D,
+                                causal, qscale, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

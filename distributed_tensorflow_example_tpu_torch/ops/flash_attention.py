@@ -2,13 +2,20 @@
 Hopper kernels, their plain versions, and the differentiable
 ``flash_attention`` (the JAX package's ``ops/flash_attention.py``).
 
-========================  ========================  ==============================
-wrapper                   CUDA source (ops/csrc/)   TPU kernel it replaces
-========================  ========================  ==============================
-flash_forward             flash_attention.cu        flash_attention._make_kernel
-flash_dq                  flash_attention.cu        flash_attention._make_dq_kernel
-flash_dkv                 flash_attention.cu        flash_attention._make_dkv_kernel
-========================  ========================  ==============================
+========================  ===========================  ==============================
+wrapper                   CUDA source (ops/csrc/)      TPU kernel it replaces
+========================  ===========================  ==============================
+flash_forward             bf16: flash_attention_tc.cu  flash_attention._make_kernel
+                          f32: flash_attention.cu
+flash_dq                  bf16: flash_attention_tc.cu  flash_attention._make_dq_kernel
+                          f32: flash_attention.cu
+flash_dkv                 flash_attention.cu           flash_attention._make_dkv_kernel
+========================  ===========================  ==============================
+
+The bf16 forward and dq run every product on the tensor cores
+(warpgroup MMAs, wgmma, over bf16 tiles in shared memory fed by
+asynchronous copies); f32 and dk/dv run f32 FMA on the CUDA cores (``flash_attention.cu``'s note
+says why f32 stays there).
 
 Layouts are the JAX package's: q, k, v, o and do are ``[B, S, H, D]``;
 the softmax statistics m (natural log), l and ``dlt = rowsum(do * o)``
@@ -182,8 +189,10 @@ def _check(q, k, v, do=None, stats=()):
 def flash_forward(q, k, v, causal: bool = False, stats: bool = False):
     """B5.  ``stats=False``: the normalized output ``[B, S, H, D]`` in
     q's dtype; ``stats=True``: ``(acc f32 [B,S,H,D], m, l f32
-    [B,S,H])``.  Equal q/k lengths.  CUDA: ``flash_fwd_kernel``, one CTA
-    per (64-row q tile, batch*head)."""
+    [B,S,H])``.  Equal q/k lengths.  CUDA: one CTA per (q tile,
+    batch*head) streaming 64-key tiles; bf16 ``flash_fwd_tc_kernel``
+    (128-row q tiles, two warpgroups on the tensor cores), f32
+    ``flash_fwd_kernel`` (64-row q tiles, f32 FMA)."""
     if _on_cpu(q, k, v):
         if stats:
             return flash_stats_reference(q, k, v, causal)
@@ -208,9 +217,11 @@ def flash_forward(q, k, v, causal: bool = False, stats: bool = False):
 
 
 def flash_dq(q, k, v, do, m, l, dlt, causal: bool = False):
-    """B6: dq f32 ``[B, S, H, D]`` from the saved statistics.  CUDA:
-    ``flash_dq_kernel``, one CTA per (q tile, batch*head), streaming key
-    tiles up to the causal frontier."""
+    """B6: dq f32 ``[B, S, H, D]`` from the saved statistics.  CUDA: one
+    CTA per (q tile, batch*head), streaming key tiles up to the causal
+    frontier; bf16 ``flash_dq_tc_kernel`` (128-row q tiles, two
+    warpgroups on the tensor cores), f32 ``flash_dq_kernel`` (64-row q
+    tiles, f32 FMA)."""
     if _on_cpu(q, k, v, do, m, l, dlt):
         return flash_backward_reference(q, k, v, do, m, l, dlt, causal)[0]
     _check(q, k, v, do, (m, l, dlt))

@@ -361,37 +361,106 @@ def _close_scaled(got, want, tol, what, floor=1e-6):
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
+def _check_flash_kernels(q, k, v, do, causal, tol, what):
+    """B5 (both forms), B6 and B7 against their plain versions on the
+    same inputs, the backward fed the plain forward's statistics."""
+    _close_scaled(fa.flash_forward(q, k, v, causal),
+                  fa.flash_attention_reference(q, k, v, causal), tol,
+                  f"o {what}")
+    acc, m, l = fa.flash_forward(q, k, v, causal, stats=True)
+    acc_r, m_r, l_r = fa.flash_stats_reference(q, k, v, causal)
+    for got, want, name in ((acc, acc_r, "acc"), (m, m_r, "m"),
+                            (l, l_r, "l")):
+        _close_scaled(got, want, tol, f"{name} {what}")
+    o = fa.flash_attention_reference(q, k, v, causal)
+    dlt = torch.sum(do.float() * o.float(), dim=-1)
+    want = fa.flash_backward_reference(q, k, v, do, m_r, l_r, dlt, causal)
+    got = (fa.flash_dq(q, k, v, do, m_r, l_r, dlt, causal),
+           *fa.flash_dkv(q, k, v, do, m_r, l_r, dlt, causal))
+    for g_, w_, name in zip(got, want, ("dq", "dk", "dv")):
+        _close_scaled(g_, w_, tol, f"{name} {what}", floor=1.0)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("s", [1, 63, 300, 1024])
+@pytest.mark.parametrize("s", [1, 63, 65, 127, 129, 300, 1024])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_match_plain_on_card(card, dtype, causal, s):
     """B5 (both forms), B6 and B7 against their plain versions at head
-    dims 16, 64 and 128, batch 2 and 3 heads, with the backward fed the
-    plain forward's statistics."""
-    tol = FLASH_TOL[dtype]
-    for d in (16, 64, 128):
+    dims 16, 20, 64, 96 and 128, batch 2 and 3 heads.  S 65, 127 and 129
+    straddle the 64-row tiles' edges; D 20 (not a multiple of 8) takes
+    the bf16 kernels' scalar loads, the others their 16-byte
+    asynchronous copies; 16 and 20 pad the head dim to the MMA depth."""
+    for d in (16, 20, 64, 96, 128):
         gen = torch.Generator(device=card).manual_seed(s * 1000 + d)
         q, k, v, do = (torch.randn(2, s, 3, d, generator=gen,
                                    device=card).to(dtype)
                        for _ in range(4))
-        what = f"{dtype} causal={causal} S={s} D={d}"
-        _close_scaled(fa.flash_forward(q, k, v, causal),
-                      fa.flash_attention_reference(q, k, v, causal), tol,
-                      f"o {what}")
-        acc, m, l = fa.flash_forward(q, k, v, causal, stats=True)
-        acc_r, m_r, l_r = fa.flash_stats_reference(q, k, v, causal)
-        for got, want, name in ((acc, acc_r, "acc"), (m, m_r, "m"),
-                                (l, l_r, "l")):
-            _close_scaled(got, want, tol, f"{name} {what}")
-        o = fa.flash_attention_reference(q, k, v, causal)
-        dlt = torch.sum(do.float() * o.float(), dim=-1)
-        want = fa.flash_backward_reference(q, k, v, do, m_r, l_r, dlt,
-                                           causal)
-        got = (fa.flash_dq(q, k, v, do, m_r, l_r, dlt, causal),
-               *fa.flash_dkv(q, k, v, do, m_r, l_r, dlt, causal))
-        for g_, w_, name in zip(got, want, ("dq", "dk", "dv")):
-            _close_scaled(g_, w_, tol, f"{name} {what}", floor=1.0)
+        _check_flash_kernels(q, k, v, do, causal, FLASH_TOL[dtype],
+                             f"{dtype} causal={causal} S={s} D={d}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_large_score_spread_on_card(card, dtype, causal):
+    """q and k scaled by 4 (log2-domain scores with a spread of ~16 x
+    log2(e) per row), so a row's running max moves across key tiles and
+    the accumulator's rescale by alpha = exp2(m_old - m_new) carries
+    real weight: S 1000 over 16 key tiles, D 128."""
+    gen = torch.Generator(device=card).manual_seed(4)
+    q, k, v, do = (torch.randn(2, 1000, 2, 128, generator=gen, device=card)
+                   for _ in range(4))
+    q, k, v, do = ((4 * q).to(dtype), (4 * k).to(dtype), v.to(dtype),
+                   do.to(dtype))
+    _check_flash_kernels(q, k, v, do, causal, FLASH_TOL[dtype],
+                         f"{dtype} causal={causal} spread x4")
+
+
+def _sass_functions(lib_path):
+    """{mangled kernel name: its SASS} of the built kernel library."""
+    import os
+    import subprocess
+
+    from distributed_tensorflow_example_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib_path)], check=True,
+                          capture_output=True, text=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            cur = line.split("Function : ", 1)[1].strip()
+            funcs[cur] = []
+        elif cur is not None:
+            funcs[cur].append(line)
+    return {name: "\n".join(body) for name, body in funcs.items()}
+
+
+@pytest.mark.cuda
+def test_flash_bf16_kernels_use_tensor_cores(card):
+    """The bf16 forward (4 instantiations: causal x stats) and dq (2)
+    issue tensor-core MMAs (HMMA or HGMMA in their SASS); the f32
+    forward (4) and dq (2) issue none (f32 attention stays on f32 FMA:
+    TF32 would break its 1e-4);
+    the old bf16 instantiations of the CUDA-core forward and dq are
+    gone."""
+    from distributed_tensorflow_example_tpu_torch.ops import _build
+
+    funcs = _sass_functions(_build.build())
+    tensor_ops = ("HMMA", "HGMMA")
+    tc = {n: f for n, f in funcs.items()
+          if "flash_fwd_tc_kernel" in n or "flash_dq_tc_kernel" in n}
+    assert sum("flash_fwd_tc_kernel" in n for n in tc) == 4, sorted(funcs)
+    assert sum("flash_dq_tc_kernel" in n for n in tc) == 2, sorted(funcs)
+    for name, sass in tc.items():
+        assert any(op in sass for op in tensor_ops), name
+    plain = {n: f for n, f in funcs.items()
+             if "flash_fwd_kernel" in n or "flash_dq_kernel" in n}
+    assert len(plain) == 6, sorted(funcs)
+    for name, sass in plain.items():
+        assert "__nv_bfloat16" not in name, name
+        assert not any(op in sass for op in tensor_ops), name
 
 
 @pytest.mark.cuda
