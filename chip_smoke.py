@@ -32,7 +32,9 @@ and for the MLP trainer (``main.py`` -> ``train/loop.run``):
     784-100-10, sigmoid, f32) and the wide one (8192 rows,
     784-4096-4096-10, relu, bf16) — logits and hiddens, and the logits
     layer alone on the kernel's last hidden — and time it beside its
-    plain version, a cuBLAS ``addmm`` chain and its bound;
+    plain version, a cuBLAS ``addmm`` chain and its bound; the bf16 row
+    carries the tensor-core GEMM's registers and spills, TFLOP/s and the
+    factor against the ``addmm`` chain;
 5. train at full width: the JAX repo's ``mxu_wide_pallas`` bench
    configuration (784-4096-4096-10, relu, bf16 compute over f32
    params, global batch 8192, ``--pallas``, SGD) for one epoch of 8
@@ -58,9 +60,10 @@ and for the transformer trainer (``main.py --model=transformer`` ->
     version on that element's inputs; the LayerNorm
     backward at 65,536 x 1024 f32 — and time each beside its plain
     version, a PyTorch library call and its bound; the rows of the
-    bf16 tensor-core forward and dq also carry their design, registers
-    and spilled bytes (from the compiler's report of the loaded
-    library's build);
+    bf16 tensor-core forward, dq and dk/dv also carry their design,
+    registers and spilled bytes (from the compiler's report of the
+    loaded library's build), TFLOP/s and the factor against the library
+    call;
 7. train at full width: the JAX repo's ``transformer_wide_long`` bench
    configuration (causal flash attention, --fused_ln, d_model 1024, 8
    heads of 128, 4 blocks, d_ff 4096, S 8192, bf16 compute, Adam with
@@ -364,14 +367,18 @@ def ptxas_usage(text: str) -> dict:
     return usage
 
 
-# the bf16 tensor-core kernels behind B5's two forms and B6 at the
-# path's causal shape (fragments of their mangled names), and their
-# registers and spills from the compiler's report of the loaded
-# library's build (phase 1)
+# the bf16 tensor-core kernels behind B5's two forms, B6 and B7 at the
+# path's causal shape and behind B1's bf16 layers (fragments of their
+# mangled names), and their registers and spills from the compiler's
+# report of the loaded library's build (phase 1)
 FLASH_TC = {"stats": "flash_fwd_tc_kernelILb1ELb1EE",
             "normalized": "flash_fwd_tc_kernelILb1ELb0EE",
-            "dq": "flash_dq_tc_kernelILb1EE"}
+            "dq": "flash_dq_tc_kernelILb1EE",
+            "dkv": "flash_dkv_tc_kernelILb1EE"}
 FLASH_USAGE: dict = {}
+MLP_TC = {"hidden": "gemm_bias_act_tc_kernelI13__nv_bfloat16E",
+          "logits": "gemm_bias_act_tc_kernelIfE"}
+MLP_USAGE: dict = {}
 
 
 def phase_build():
@@ -386,15 +393,17 @@ def phase_build():
     log(f"[build] kernels {how} in {secs:.2f} s "
         f"({_build.last_build.get('path')})")
     usage = ptxas_usage(_build.last_build.get("log") or "")
-    for form, frag in FLASH_TC.items():
-        found = [u for name, u in usage.items() if frag in name]
-        if len(found) != 1 or "regs" not in found[0]:
-            raise RuntimeError(f"the compiler's report names {len(found)} "
-                               f"kernels with registers matching {frag}")
-        use = FLASH_USAGE[form] = found[0]
-        log(f"[build]   {frag}: {use['regs']} registers, spill stores "
-            f"{use.get('spill_stores', 0)} B, loads "
-            f"{use.get('spill_loads', 0)} B")
+    for frags, into in ((FLASH_TC, FLASH_USAGE), (MLP_TC, MLP_USAGE)):
+        for form, frag in frags.items():
+            found = [u for name, u in usage.items() if frag in name]
+            if len(found) != 1 or "regs" not in found[0]:
+                raise RuntimeError(f"the compiler's report names "
+                                   f"{len(found)} kernels with registers "
+                                   f"matching {frag}")
+            use = into[form] = found[0]
+            log(f"[build]   {frag}: {use['regs']} registers, spill stores "
+                f"{use.get('spill_stores', 0)} B, loads "
+                f"{use.get('spill_loads', 0)} B")
 
 
 def _gen(seed: int):
@@ -614,14 +623,25 @@ def check_mlp_forward(card: str) -> list:
                        bound_by=("bytes" if t_bytes >= t_ops
                                  else "operations"),
                        bytes=nbytes, flops=flops)
+        row.update(tflops=flops / row["ms"] / 1e9,
+                   x_library=row["ms"] / row["library_ms"])
+        if cdt == torch.bfloat16:
+            use = MLP_USAGE["hidden"]
+            row.update(design="wgmma+cp.async", regs=use["regs"],
+                       spill_bytes=(use.get("spill_stores", 0)
+                                    + use.get("spill_loads", 0)))
         log(f"[kernel] mlp_forward N={n} {'-'.join(map(str, sizes))} "
             f"{act_name} {str(cdt).split('.')[-1]}: max_abs_err={err:.4g} "
             f"(scale {scale:.4g}, tol {rtol_logits} x scale); logits "
             f"layer alone {layer_err / scale:.3g} of scale (tol "
             f"{MLP_LAYER_RTOL}); kernel "
-            f"{row['ms']:.5f} ms, plain {row['plain_ms']:.5f} ms, library "
-            f"{row['library_ms']:.5f} ms, bound {row['bound_ms']:.5f} ms "
-            f"({row['bound_by']}) on {card}")
+            f"{row['ms']:.5f} ms ({row['tflops']:.2f} TFLOP/s), plain "
+            f"{row['plain_ms']:.5f} ms, library "
+            f"{row['library_ms']:.5f} ms (kernel {row['x_library']:.2f}x), "
+            f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}) on {card}"
+            + (f"; {row['design']}, {row['regs']} registers, "
+               f"{row['spill_bytes']} B spilled" if "design" in row
+               else ""))
         rows_list.append(row)
     return [("mlp_forward", rows_list)]
 
@@ -803,6 +823,7 @@ def check_flash(card: str) -> list:
                                              "together)")),
                    bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops,
                    tflops=flops / kern[form] / 1e9,
+                   x_library=kern[form] / lib,
                    max_abs_err=errs[name][0], rel_err=errs[name][1])
         if form in FLASH_USAGE:
             use = FLASH_USAGE[form]
@@ -811,7 +832,8 @@ def check_flash(card: str) -> list:
                                     + use.get("spill_loads", 0)))
         log(f"[kernel] {name} ({form}) {shape} bf16 causal: kernel "
             f"{kern[form]:.3f} ms ({row['tflops']:.2f} TFLOP/s), plain "
-            f"{plain[form]:.3f} ms at batch 1, library {lib:.3f} ms, "
+            f"{plain[form]:.3f} ms at batch 1, library {lib:.3f} ms "
+            f"(kernel {row['x_library']:.2f}x), "
             f"bound {bound:.3f} ms ({by}) on {card}"
             + (f"; {row['design']}, {row['regs']} registers, "
                f"{row['spill_bytes']} B spilled"
@@ -1514,7 +1536,7 @@ KERNEL_META = {
     "mlp_forward": dict(
         wrapper="mlp_forward",
         source="distributed_tensorflow_example_tpu_torch/ops/csrc/"
-               "mlp_forward.cu",
+               "gemm_tc.cuh",
         replaces="distributed_tensorflow_example_tpu/ops/pallas_fused.py:"
                  "71"),
     "layer_norm_backward": dict(
@@ -1538,7 +1560,7 @@ KERNEL_META = {
     "flash_dkv": dict(
         wrapper="flash_dkv",
         source="distributed_tensorflow_example_tpu_torch/ops/csrc/"
-               "flash_attention.cu",
+               "flash_attention_tc.cu",
         replaces="distributed_tensorflow_example_tpu/ops/flash_attention.py:"
                  "324"),
     # B8's training form (want_z1): the same TPU kernel, its second form
@@ -1606,7 +1628,8 @@ def main() -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
-            **{k: head[k] for k in ("design", "regs") if k in head},
+            **{k: head[k] for k in ("design", "regs", "spill_bytes",
+                                    "tflops", "x_library") if k in head},
             "shapes": rows,
         })
     smi = subprocess.run(

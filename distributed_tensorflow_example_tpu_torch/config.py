@@ -75,6 +75,12 @@ class Config:
     slo: str = ""
     replicas: int = 1
     replay: str = ""
+    replay_speed: float = 1.0       # --replay's time compression
+    fleet_retries: int = 2          # --replicas fleet: failovers
+    breaker: str = ""               # --replicas fleet: circuit breaker
+    span_rotate_mb: float = 0.0     # --trace_spans: rotate past this
+    span_keep: int = 3              # --trace_spans: rotated segments
+    status_cache_s: float = 15.0    # status server's response cache TTL
     # ---- training (main.py -> train/loop.run) ----
     job_name: str = ""              # "", "ps" or "worker"; ps is absorbed
     task_index: int = 0             # the process rank
@@ -191,6 +197,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--slo", type=str, default=d.slo)
     p.add_argument("--replicas", type=int, default=d.replicas)
     p.add_argument("--replay", type=str, default=d.replay)
+    p.add_argument("--replay_speed", type=float, default=d.replay_speed)
+    p.add_argument("--fleet_retries", type=int, default=d.fleet_retries)
+    p.add_argument("--breaker", type=str, default=d.breaker)
+    p.add_argument("--span_rotate_mb", type=float,
+                   default=d.span_rotate_mb)
+    p.add_argument("--span_keep", type=int, default=d.span_keep)
+    p.add_argument("--status_cache_s", type=float,
+                   default=d.status_cache_s)
     p.add_argument("--device", type=str, default=d.device,
                    choices=["cuda", "cpu"],
                    help="where the engine runs (default: the card)")

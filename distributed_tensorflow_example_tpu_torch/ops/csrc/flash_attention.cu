@@ -9,7 +9,7 @@
 //
 // What they compute, per (batch, head) over q, k, v [B, S, H, D] of one
 // dtype T (f32 or bf16; T is also the compute dtype, as in the JAX
-// package):
+// package; this file's kernels take f32, flash_attention_tc.cu's bf16):
 //   q2 = round_T(q * log2(e)/sqrt(D))              (prescaled once)
 //   s  = q2 . k^T   in f32, log2 domain; causal: s = -1e30 where key > query
 //   forward, online over key tiles: m = running max, p = exp2(s - m),
@@ -28,10 +28,10 @@
 // and dk/dv 2.2e12 per call, against 3 x 134 MB of bf16 inputs: far
 // above the card's ~295 operations per byte.
 //
-// Which kernel runs: the C entry points below route the bf16 forward
-// (both forms) and the bf16 dq to flash_attention_tc.cu, which runs
-// every product on the tensor cores.  This file keeps the f32
-// instantiations of all three and the bf16 dk/dv.  f32 stays on the
+// Which kernel runs: the C entry points below route every bf16 call
+// (the forward in both forms, dq and dk/dv) to flash_attention_tc.cu,
+// which runs every product on the tensor cores.  This file keeps the
+// f32 kernels of all three.  f32 stays on the
 // CUDA cores on purpose: the tensor cores take f32 only as TF32, which
 // keeps about three digits, against the 1e-4 of scale that f32
 // attention is held to (tests/test_torch_cuda.py, chip_smoke.py) and
@@ -41,13 +41,13 @@
 // whose innermost dimension carries the running statistics in VMEM
 // scratch over 1024-wide tiles.  Here the loop over the streamed tiles
 // runs inside one CTA of 256 threads, over 64-row tiles staged in shared
-// memory as f32 (exact for bf16 inputs; 116-167 KB, so one CTA per SM).
+// memory (116-167 KB, so one CTA per SM).
 // Each thread owns a 4 x 4 block of the 64 x 64 score tile (rows ty +
 // 16i, columns tx + 16j: 16-byte shared loads along the head dim,
 // conflict-free), so a row's max and sum are 16-lane shuffles, and a 4 x
 // 8 block of the 64 x 128 output (columns 4tx.. and 64 + 4tx..).  The
-// score tile goes through shared memory once, rounded to T, for the p .
-// v (or ds . k) product.  Causal: key tiles above the diagonal are never
+// score tile goes through shared memory once for the p . v (or ds . k)
+// product.  Causal: key tiles above the diagonal are never
 // visited (forward and dq stop at the diagonal tile, dk/dv start at it);
 // only the diagonal tile and the ragged last tile mask.  Key tile 0
 // comes first, so every row's running max is finite before a fully
@@ -55,8 +55,7 @@
 // argument).  Rows and keys past S are guarded (zero in shared memory,
 // masked out of the softmax, never stored), so any S runs without
 // padding.  Arithmetic is f32 FMA on the CUDA cores, tile loads are
-// synchronous: the bf16 dk/dv is the next kernel to move onto the
-// tensor-core helpers of tc.cuh (ROADMAP.md).
+// synchronous.
 #include "common.cuh"
 
 namespace dtx {
@@ -77,20 +76,16 @@ constexpr size_t kDqSmem = (4 * kTile * kLd + kTile * kPLd) * sizeof(float);
 constexpr size_t kDkvSmem =
     (4 * kTile * kLd + 2 * kTile * kPLd + 3 * kTile) * sizeof(float);
 
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_f32(from_f32<T>(v));
-}
-
-// rows [row0, row0 + 64) of head (b, h) of a [B, S, H, D] tensor into
-// dst [64][kLd] as f32; with kPrescale each value is multiplied by
-// ``mul`` and rounded back to T (the JAX _prescale).  Rows >= S and
-// columns >= D are zero.  All loads are issued before the stores.
-template <typename T, bool kPrescale>
+// rows [row0, row0 + 64) of head (b, h) of a [B, S, H, D] f32 tensor
+// into dst [64][kLd]; with kPrescale each value is multiplied by ``mul``
+// (the JAX _prescale, whose rounding to f32 is the product's own).  Rows
+// >= S and columns >= D are zero.  All loads are issued before the
+// stores.
+template <bool kPrescale>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst,
-                                          const T* __restrict__ src, int b,
-                                          int h, int row0, int S, int H,
-                                          int D, float mul) {
+                                          const float* __restrict__ src,
+                                          int b, int h, int row0, int S,
+                                          int H, int D, float mul) {
   constexpr int kPer = kTile * kMaxD / kFlashThreads;  // 32
   float reg[kPer];
 #pragma unroll
@@ -101,8 +96,8 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst,
     const int row = row0 + r;
     float v = 0.f;
     if (row < S && c < D) {
-      v = to_f32(src[(((size_t)b * S + row) * H + h) * (size_t)D + c]);
-      if (kPrescale) v = round_to<T>(v * mul);
+      v = src[(((size_t)b * S + row) * H + h) * (size_t)D + c];
+      if (kPrescale) v *= mul;
     }
     reg[t] = v;
   }
@@ -226,7 +221,7 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
   const int n_kt = (S + kTile - 1) / kTile;
   const int last = kCausal ? qt : n_kt - 1;
 
-  load_tile<float, true>(Qs, q, b, h, q0, S, H, D, qscale);
+  load_tile<true>(Qs, q, b, h, q0, S, H, D, qscale);
   float m[4], l[4], acc[4][8];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -239,8 +234,8 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
   for (int kt = 0; kt <= last; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the last iteration is done with Ks, Vs and Ps
-    load_tile<float, false>(Ks, k, b, h, k0, S, H, D, 1.f);
-    load_tile<float, false>(Vs, v, b, h, k0, S, H, D, 1.f);
+    load_tile<false>(Ks, k, b, h, k0, S, H, D, 1.f);
+    load_tile<false>(Vs, v, b, h, k0, S, H, D, 1.f);
     __syncthreads();
     float s[4][4];
     tile_scores(Qs, Ks, ty, tx, dpad, s);
@@ -329,8 +324,8 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
   const int n_kt = (S + kTile - 1) / kTile;
   const int last = kCausal ? qt : n_kt - 1;
 
-  load_tile<float, true>(Qs, q, b, h, q0, S, H, D, qscale);
-  load_tile<float, false>(dOs, dout, b, h, q0, S, H, D, 1.f);
+  load_tile<true>(Qs, q, b, h, q0, S, H, D, qscale);
+  load_tile<false>(dOs, dout, b, h, q0, S, H, D, 1.f);
   float mlog2[4], lden[4], dl[4], acc[4][8];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -346,8 +341,8 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
   for (int kt = 0; kt <= last; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();
-    load_tile<float, false>(Ks, k, b, h, k0, S, H, D, 1.f);
-    load_tile<float, false>(Vs, v, b, h, k0, S, H, D, 1.f);
+    load_tile<false>(Ks, k, b, h, k0, S, H, D, 1.f);
+    load_tile<false>(Vs, v, b, h, k0, S, H, D, 1.f);
     __syncthreads();
     float s[4][4], dp[4][4];
     tile_scores(Qs, Ks, ty, tx, dpad, s);
@@ -384,10 +379,11 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
 // dk/dv: grid (key tiles, B*H); streams q tiles from the first that sees
 // this key tile (the diagonal one under causal) to the end
 // ---------------------------------------------------------------------------
-template <typename T, bool kCausal>
+template <bool kCausal>
 __global__ void __launch_bounds__(kFlashThreads, 1)
-    flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+    flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ m_in,
                      const float* __restrict__ l_in,
                      const float* __restrict__ dlt_in,
@@ -412,8 +408,8 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
   const int dpad = (D + 3) & ~3;
   const int n_qt = (S + kTile - 1) / kTile;
 
-  load_tile<T, false>(Ks, k, b, h, k0, S, H, D, 1.f);
-  load_tile<T, false>(Vs, v, b, h, k0, S, H, D, 1.f);
+  load_tile<false>(Ks, k, b, h, k0, S, H, D, 1.f);
+  load_tile<false>(Vs, v, b, h, k0, S, H, D, 1.f);
   float dka[4][8], dva[4][8];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -423,8 +419,8 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
   for (int qt = kCausal ? kt : 0; qt < n_qt; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();
-    load_tile<T, true>(Qs, q, b, h, q0, S, H, D, qscale);
-    load_tile<T, false>(dOs, dout, b, h, q0, S, H, D, 1.f);
+    load_tile<true>(Qs, q, b, h, q0, S, H, D, qscale);
+    load_tile<false>(dOs, dout, b, h, q0, S, H, D, 1.f);
     if (threadIdx.x < kTile) {
       const int row = q0 + threadIdx.x;
       const size_t base = ((size_t)b * S + row) * H + h;
@@ -447,8 +443,8 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
         const bool masked = qp >= S || kp >= S || (kCausal && kp > qp);
         const float p = masked ? 0.f : exp2f(s[i][j] - mls[qc]) / lds[qc];
         const float ds = p * (dp[i][j] - dls[qc]);
-        Ps[(ty + 16 * i) * kPLd + qc] = round_to<T>(p);
-        Ds[(ty + 16 * i) * kPLd + qc] = round_to<T>(ds);
+        Ps[(ty + 16 * i) * kPLd + qc] = p;
+        Ds[(ty + 16 * i) * kPLd + qc] = ds;
       }
     __syncthreads();
     tile_accumulate(Ps, dOs, ty, tx, dva);
@@ -512,19 +508,19 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, bool kCausal>
+template <bool kCausal>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const void* m, const void* l,
                     const void* dlt, void* dk, void* dv, int B, int S, int H,
                     int D, float qscale, float inv_log2e, cudaStream_t st) {
   static bool ready = false;
-  auto kernel = flash_dkv_kernel<T, kCausal>;
+  auto kernel = flash_dkv_kernel<kCausal>;
   cudaError_t err = allow_smem(kernel, kDkvSmem, &ready);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kTile - 1) / kTile, B * H);
   kernel<<<grid, kFlashThreads, kDkvSmem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(m), static_cast<const float*>(l),
       static_cast<const float*>(dlt), static_cast<float*>(dk),
       static_cast<float*>(dv), S, H, D, qscale, inv_log2e);
@@ -533,7 +529,7 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// bf16 forward and dq on the tensor cores (flash_attention_tc.cu)
+// bf16 forward, dq and dk/dv on the tensor cores (flash_attention_tc.cu)
 cudaError_t flash_fwd_bf16(const void* q, const void* k, const void* v,
                            void* o, void* acc, void* m, void* l, int B,
                            int S, int H, int D, bool causal, bool stats,
@@ -543,6 +539,11 @@ cudaError_t flash_dq_bf16(const void* q, const void* k, const void* v,
                           const void* dlt, void* dq, int B, int S, int H,
                           int D, bool causal, float qscale, float scale,
                           cudaStream_t st);
+cudaError_t flash_dkv_bf16(const void* q, const void* k, const void* v,
+                           const void* dout, const void* m, const void* l,
+                           const void* dlt, void* dk, void* dv, int B, int S,
+                           int H, int D, bool causal, float qscale,
+                           float inv_log2e, cudaStream_t st);
 }  // namespace dtx
 
 // C interface (ctypes).  q, k, v, o, do: [B, S, H, D] contiguous of
@@ -608,19 +609,14 @@ extern "C" int dtx_flash_bwd_dkv(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
-      return causal ? (int)bwd_dkv<float, true>(q, k, v, dout, m, l, dlt, dk,
-                                                dv, B, S, H, D, qscale,
-                                                inv_log2e, st)
-                    : (int)bwd_dkv<float, false>(q, k, v, dout, m, l, dlt,
-                                                 dk, dv, B, S, H, D, qscale,
-                                                 inv_log2e, st);
+      return causal ? (int)bwd_dkv<true>(q, k, v, dout, m, l, dlt, dk, dv,
+                                         B, S, H, D, qscale, inv_log2e, st)
+                    : (int)bwd_dkv<false>(q, k, v, dout, m, l, dlt, dk, dv,
+                                          B, S, H, D, qscale, inv_log2e,
+                                          st);
     case kBFloat16:
-      return causal ? (int)bwd_dkv<__nv_bfloat16, true>(
-                          q, k, v, dout, m, l, dlt, dk, dv, B, S, H, D,
-                          qscale, inv_log2e, st)
-                    : (int)bwd_dkv<__nv_bfloat16, false>(
-                          q, k, v, dout, m, l, dlt, dk, dv, B, S, H, D,
-                          qscale, inv_log2e, st);
+      return (int)flash_dkv_bf16(q, k, v, dout, m, l, dlt, dk, dv, B, S, H,
+                                 D, causal, qscale, inv_log2e, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,14 +1,15 @@
 // Flash attention in bf16 on Hopper's tensor cores: the forward
-// (normalized output, or the raw softmax statistics the backward keeps)
-// and the dq backward.  ``dtx_flash_fwd`` and ``dtx_flash_bwd_dq``
-// (flash_attention.cu) route bf16 here; f32 stays on that file's
-// CUDA-core kernels, and so does the dk/dv backward in both dtypes.
+// (normalized output, or the raw softmax statistics the backward keeps),
+// the dq backward and the dk/dv backward.  ``dtx_flash_fwd``,
+// ``dtx_flash_bwd_dq`` and ``dtx_flash_bwd_dkv`` (flash_attention.cu)
+// route bf16 here; f32 stays on that file's CUDA-core kernels.
 //
 // Replaces the TPU kernels in distributed_tensorflow_example_tpu/ops/
 // flash_attention.py:
-//   flash_fwd_tc_kernel  <- _make_kernel     (call in _flash_call)
-//   flash_dq_tc_kernel   <- _make_dq_kernel  (first call in
-//                                             _flash_backward_flat)
+//   flash_fwd_tc_kernel  <- _make_kernel      (call in _flash_call)
+//   flash_dq_tc_kernel   <- _make_dq_kernel   (first call in
+//                                              _flash_backward_flat)
+//   flash_dkv_tc_kernel  <- _make_dkv_kernel  (second call there)
 // with the rounding points and constants of those kernels (see the note
 // at the head of flash_attention.cu): q2 = round_bf16(q * f32(log2(e) /
 // sqrt(D))) once, when the q tile lands; s = q2 . k^T in f32, log2
@@ -17,19 +18,23 @@
 // acc = acc * alpha + round_bf16(p) . v; normalized o = round_bf16(acc /
 // max(l, 1e-30)), stats acc (f32), m * ln(2), l; dq recomputes p =
 // exp2(s - m * log2(e)) / max(l, 1e-30), ds = p * (dp - dlt) with dp =
-// do . v^T, and dq = sum round_bf16(ds) . k, times f32(1/sqrt(D)).
+// do . v^T, and dq = sum round_bf16(ds) . k, times f32(1/sqrt(D));
+// dk/dv recompute p and ds the same way on the transposed tile (keys x
+// q rows) and store, f32, dv = sum round_bf16(p)^T . do and dk = sum
+// round_bf16(ds)^T . q2 times f32(1/log2(e)).
 //
 // What bounds them on an H100: operations.  At the training path's
-// [8, 8192, 8, 128] causal the forward is 1.1e12 flops and dq 1.65e12
-// against at most 0.6 GB of inputs and outputs, far above the card's
-// ~295 bf16 operations per byte; only the tensor cores come near that
-// rate.  The CUDA-core kernels they replace ran at 9 and 12 TFLOP/s on
-// an H100: scalar f32 FMA at two FMAs per float read from shared memory,
-// tiles widened to f32 (one CTA per SM), synchronous tile loads, and the
-// score tile sent through shared memory for the second product.
+// [8, 8192, 8, 128] causal the forward is 1.1e12 flops, dq 1.65e12 and
+// dk/dv 2.2e12 against at most 0.6 GB of inputs and outputs, far above
+// the card's ~295 bf16 operations per byte; only the tensor cores come
+// near that rate.  The CUDA-core kernels they replace ran at 9, 12 and
+// 17 TFLOP/s on an H100: scalar f32 FMA at two FMAs per float read from
+// shared memory, tiles widened to f32 (one CTA per SM), synchronous tile
+// loads, and the score tile sent through shared memory for the second
+// product.
 //
-// The design (FlashAttention-3's products and overlap, without its TMA
-// producer warps):
+// The design of the forward and dq (FlashAttention-3's products and
+// overlap, without its TMA producer warps):
 //   * a CTA of two warpgroups (8 warps) owns a 128-row q tile, each
 //     warpgroup 64 rows, and streams 64-key tiles: grid (q tiles, B*H),
 //     the heaviest causal q tiles first (qt = gridDim.x - 1 -
@@ -74,6 +79,29 @@
 //     multiple of 8 (and 16-byte aligned tensors) takes the asynchronous
 //     copies, any other D guarded scalar loads, on the same tensor
 //     cores.
+// dk/dv (FlashAttention-2/3's backward, without TMA):
+//   * a CTA of two warpgroups owns a 128-key tile, each warpgroup 64
+//     keys; K and V stay resident in shared memory (64 KB) and the
+//     64-row q tiles, from the first that sees the key tile (causal) to
+//     the end, stream through a ring of four (Q, dO, m, l, dlt) stages
+//     two tiles ahead (196 KB in all, one CTA per SM): grid (key tiles,
+//     B*H), key tile 0, the heaviest under causal, first;
+//   * the products: s^T = k . q2^T and dp^T = v . do^T (n 64) read K, V,
+//     Q and dO k-major; dv += round(p)^T . do and dk += round(ds)^T . q2
+//     (n 128) take p^T and ds^T from registers (their accumulator rows
+//     are already keys) and read dO and Q MN-major.  dk and dv (64 + 64
+//     f32 a thread) stay in registers over the whole stream;
+//   * m, l and dlt belong to the tile's columns (q rows): each stage
+//     holds them in shared memory (4-byte cp.async), and each thread
+//     reads the columns 8j + 2t, +1 it holds;
+//   * q2 = round_bf16(q * qscale) is made in place when a q tile has
+//     landed, one pass over the stage a tile ahead of its use, with m *
+//     log2(e), max(l, 1e-30) and its reciprocal;
+//   * dk and dv of one tile run on the tensor cores under the next
+//     tile's ring barrier and are retired with its s^T and dp^T;
+//   * masking as above, on the transposed tile: keys past their q row
+//     (causal), and q rows or keys past S, give p = 0 and ds = 0; only
+//     tiles that cross the diagonal or S test anything.
 // Registers and spills of each instantiation (-Xptxas -v) are printed
 // by chip_smoke.py and kept in PERF.md.  TMA loads from producer warps,
 // in place of every thread's cp.async and a CTA barrier per key tile,
@@ -485,6 +513,245 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// dk/dv: grid (key tiles of kBq, B*H); the key tile's K and V stay
+// resident, each warpgroup owning 64 keys, and the 64-row q tiles from
+// the first that sees the key tile (causal) to the end stream through a
+// ring of (Q, dO, statistics) stages
+// ---------------------------------------------------------------------------
+constexpr int kStatRows = 4 * kTile;   // m, l, dlt and 1/l of a q tile
+constexpr size_t kDkvStage = 2 * kTileElems * sizeof(bf16)
+                             + kStatRows * sizeof(float);
+constexpr size_t kDkvSmem = 2 * kBq * tc::kTileCols * sizeof(bf16)
+                            + kStages * kDkvStage;
+static_assert(kDkvStage % 128 == 0, "stages keep the tiles' alignment");
+
+// One stage: the q tile's Q (q2 after prepare), dO and its rows' f32
+// statistics: m (m * log2(e) after prepare), l (max(l, 1e-30)), dlt and
+// 1 / max(l, 1e-30), each kTile floats.  Tile i of the CTA (q tile
+// first + i) sits in stage i % kStages.  advance(i) opens tile i: tile i
+// (prepared) is visible to every thread and to wgmma, tile i + 1 has
+// landed and is prepared, and tile i + 2's copies go into the stage of
+// tile i - 2, whose products every warpgroup has retired.
+struct QRing {
+  unsigned char* base;
+  const bf16* q;
+  const bf16* dout;
+  const float* m;
+  const float* l;
+  const float* dlt;
+  int first, n, S, H, D, b, h;
+  size_t ld, head;
+  float qscale;
+  bool vec;
+
+  __device__ __forceinline__ bf16* qs(int i) const {
+    return reinterpret_cast<bf16*>(base + (i % kStages) * kDkvStage);
+  }
+  __device__ __forceinline__ bf16* dos(int i) const {
+    return qs(i) + kTileElems;
+  }
+  __device__ __forceinline__ float* stats(int i) const {
+    return reinterpret_cast<float*>(qs(i) + 2 * kTileElems);
+  }
+  __device__ __forceinline__ void load(int i) const {
+    const int q0 = (first + i) * kTile;
+    tc::load_tile<kTile, kThreads>(qs(i), q + head + q0 * ld, ld, S - q0, D,
+                                   vec);
+    tc::load_tile<kTile, kThreads>(dos(i), dout + head + q0 * ld, ld,
+                                   S - q0, D, vec);
+    if (threadIdx.x < 3 * kTile) {
+      const int which = threadIdx.x / kTile;
+      const int r = threadIdx.x % kTile;
+      const bool valid = q0 + r < S;
+      const size_t at = valid ? ((size_t)b * S + q0 + r) * H + h : 0;
+      const float* src = which == 0 ? m : which == 1 ? l : dlt;
+      tc::cp_async4(stats(i) + which * kTile + r, src + at, valid);
+    }
+  }
+  // the landed tile i made what the products and the elementwise pass
+  // read: q2 = round_bf16(q * qscale) in place (the JAX rounding point),
+  // m * log2(e), max(l, 1e-30) and its reciprocal
+  __device__ __forceinline__ void prepare(int i) const {
+    uint4* t = reinterpret_cast<uint4*>(qs(i));
+#pragma unroll
+    for (int j = 0; j < kTileElems / 8 / kThreads; ++j) {
+      uint4 raw = t[threadIdx.x + j * kThreads];
+      uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+        w[e] = tc::pack_bf16(f.x * qscale, f.y * qscale);
+      }
+      t[threadIdx.x + j * kThreads] = raw;
+    }
+    if (threadIdx.x < kTile) {
+      float* st = stats(i);
+      const int r = threadIdx.x;
+      st[r] *= kLog2e;
+      const float den = fmaxf(st[kTile + r], kTiny);
+      st[kTile + r] = den;
+      st[3 * kTile + r] = 1.f / den;
+    }
+  }
+  // tiles 0 and 1 in flight (tile 0 with the caller's K and V), then
+  // tile 0 landed and prepared
+  __device__ __forceinline__ void start() const {
+    load(0);
+    tc::cp_async_commit();
+    if (n > 1) load(1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
+    __syncthreads();
+    prepare(0);
+  }
+  __device__ __forceinline__ void advance(int i) const {
+    tc::cp_async_wait<0>();
+    tc::fence_proxy_async();
+    __syncthreads();
+    if (i + 1 < n) prepare(i + 1);
+    if (i + 2 < n) load(i + 2);
+    tc::cp_async_commit();
+  }
+};
+
+template <bool kCausal>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ m_in,
+                        const float* __restrict__ l_in,
+                        const float* __restrict__ dlt_in,
+                        float* __restrict__ dk, float* __restrict__ dv,
+                        int S, int H, int D, float qscale, float inv_log2e,
+                        int vec) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // resident
+  bf16* Vs = Ks + kBq * tc::kTileCols;
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const int k0 = blockIdx.x * kBq;   // key tile 0 (the most q tiles) first
+  const int wg0 = (threadIdx.x >> 7) * 64;   // the warpgroup's keys
+  const int row0 = (threadIdx.x >> 5) * 16;  // the warp's keys
+  const int lane = threadIdx.x & 31;
+  const size_t ld = (size_t)H * D;
+  const size_t head = (size_t)b * S * ld + (size_t)h * D;
+  // causal: from the q tile holding the key tile's first key
+  const int first = kCausal ? k0 / kTile : 0;
+  const QRing ring{smem_raw + 2 * kBq * tc::kTileCols * sizeof(bf16),
+                   q, dout, m_in, l_in, dlt_in, first,
+                   (S + kTile - 1) / kTile - first, S, H, D, b, h, ld, head,
+                   qscale, vec != 0};
+
+  // K and V ride in the first copy group with q tile 0
+  tc::load_tile<kBq, kThreads>(Ks, k + head + k0 * ld, ld, S - k0, D,
+                               vec != 0);
+  tc::load_tile<kBq, kThreads>(Vs, v + head + k0 * ld, ld, S - k0, D,
+                               vec != 0);
+  ring.start();
+
+  const bf16* Kw = Ks + tc::il_off(wg0, 0);
+  const bf16* Vw = Vs + tc::il_off(wg0, 0);
+  // the thread's keys: rows g and g + 8 of the warp's 16 (r = 0, 1)
+  const int krow = k0 + row0 + (lane >> 2);
+  float dka[64], dva[64], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dka[i] = dva[i] = 0.f;
+  tc::fence_regs(dka);
+  tc::fence_regs(dva);
+
+  for (int i = 0; i < ring.n; ++i) {
+    ring.advance(i);
+    const bf16* Qt = ring.qs(i);
+    const bf16* dOt = ring.dos(i);
+    const float* st = ring.stats(i);
+    const int q0 = (first + i) * kTile;
+    // s^T = k . q2^T and dp^T = v . do^T: 64 keys x 64 q rows
+    tc::fence_regs(s);
+    tc::fence_regs(dp);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < tc::kTileCols / 16; ++ks)
+      tc::wgmma_m64n64k16_ss<0>(s, desc_k(Kw, ks), desc_k(Qt, ks), ks);
+#pragma unroll
+    for (int ks = 0; ks < tc::kTileCols / 16; ++ks)
+      tc::wgmma_m64n64k16_ss<0>(dp, desc_k(Vw, ks), desc_k(dOt, ks), ks);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();   // also retires the last tile's dk and dv
+    tc::fence_regs(s);
+    tc::fence_regs(dp);
+
+    // masked (key past the q row under causal, or either past S): s =
+    // -1e30, so p = 0 and ds = 0.  Only tiles that cross the diagonal or
+    // S test anything.
+    if ((kCausal && krow - (lane >> 2) + 15 > q0) || q0 + kTile > S ||
+        krow - (lane >> 2) + 16 > S) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int kp = krow + 8 * ((e >> 1) & 1);
+        const int qp = q0 + (e >> 2) * 8 + 2 * (lane & 3) + (e & 1);
+        if (qp >= S || kp >= S || (kCausal && kp > qp)) s[e] = kNegInf;
+      }
+    }
+    // p = exp2(s - m log2(e)) / max(l, 1e-30), unrounded; ds = p (dp -
+    // dlt); both per q column, rounded to bf16 as the A operands of the
+    // next products (the JAX round_T(p), round_T(ds) points)
+    uint32_t pa[kTile / 16][4], da[kTile / 16][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = j * 8 + 2 * (lane & 3);
+      const float2 ml = *reinterpret_cast<const float2*>(st + c);
+      const float2 den = *reinterpret_cast<const float2*>(st + kTile + c);
+      const float2 dl = *reinterpret_cast<const float2*>(st + 2 * kTile + c);
+      const float2 rl = *reinterpret_cast<const float2*>(st + 3 * kTile + c);
+#pragma unroll
+      for (int e = 4 * j; e < 4 * j + 4; ++e) {
+        const bool odd = e & 1;
+        const float p = div_rn(fexp2(s[e] - (odd ? ml.y : ml.x)),
+                               odd ? den.y : den.x, odd ? rl.y : rl.x);
+        dp[e] = p * (dp[e] - (odd ? dl.y : dl.x));
+        s[e] = p;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      tc::c_to_a(pa[kk], &s[8 * kk], &s[8 * kk + 4]);
+      tc::c_to_a(da[kk], &dp[8 * kk], &dp[8 * kk + 4]);
+    }
+    // dv += round(p)^T . do, dk += round(ds)^T . q2 (q rows reduced: do
+    // and q2 read MN-major), issued; retired under the next tile's s^T
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      tc::wgmma_m64n128k16_rs<1>(dva, pa[kk], desc_mn(dOt, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      tc::wgmma_m64n128k16_rs<1>(dka, da[kk], desc_mn(Qt, kk), 1);
+    tc::wgmma_commit();
+  }
+  tc::wgmma_wait<0>();
+  tc::fence_regs(dka);
+  tc::fence_regs(dva);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = krow + 8 * r;
+    if (row >= S) continue;
+    const size_t base = ((size_t)b * S + row) * H + h;
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n * 8 + 2 * (lane & 3) + e;
+        if (col >= D) continue;
+        dk[base * D + col] = dka[4 * n + 2 * r + e] * inv_log2e;
+        dv[base * D + col] = dva[4 * n + 2 * r + e];
+      }
+  }
+}
+
 // 16-byte copies need D a multiple of 8 and every tensor 16-byte aligned
 bool vec_ok(int D, std::initializer_list<const void*> ptrs) {
   if (D % 8 != 0) return false;
@@ -529,9 +796,29 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <bool kCausal>
+cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
+                    const void* dout, const void* m, const void* l,
+                    const void* dlt, void* dk, void* dv, int B, int S, int H,
+                    int D, float qscale, float inv_log2e, cudaStream_t st) {
+  static bool ready = false;
+  auto kernel = flash_dkv_tc_kernel<kCausal>;
+  cudaError_t err = allow_smem(kernel, kDkvSmem, &ready);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + kBq - 1) / kBq, B * H);
+  kernel<<<grid, kThreads, kDkvSmem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(m), static_cast<const float*>(l),
+      static_cast<const float*>(dlt), static_cast<float*>(dk),
+      static_cast<float*>(dv), S, H, D, qscale, inv_log2e,
+      vec_ok(D, {q, k, v, dout}));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// the bf16 routes of dtx_flash_fwd and dtx_flash_bwd_dq
+// the bf16 routes of dtx_flash_fwd, dtx_flash_bwd_dq and dtx_flash_bwd_dkv
 cudaError_t flash_fwd_bf16(const void* q, const void* k, const void* v,
                            void* o, void* acc, void* m, void* l, int B,
                            int S, int H, int D, bool causal, bool stats,
@@ -556,6 +843,17 @@ cudaError_t flash_dq_bf16(const void* q, const void* k, const void* v,
                                qscale, scale, st)
                 : bwd_dq<false>(q, k, v, dout, m, l, dlt, dq, B, S, H, D,
                                 qscale, scale, st);
+}
+
+cudaError_t flash_dkv_bf16(const void* q, const void* k, const void* v,
+                           const void* dout, const void* m, const void* l,
+                           const void* dlt, void* dk, void* dv, int B, int S,
+                           int H, int D, bool causal, float qscale,
+                           float inv_log2e, cudaStream_t st) {
+  return causal ? bwd_dkv<true>(q, k, v, dout, m, l, dlt, dk, dv, B, S, H,
+                                D, qscale, inv_log2e, st)
+                : bwd_dkv<false>(q, k, v, dout, m, l, dlt, dk, dv, B, S, H,
+                                 D, qscale, inv_log2e, st);
 }
 
 }  // namespace dtx

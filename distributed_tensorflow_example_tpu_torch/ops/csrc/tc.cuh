@@ -1,9 +1,11 @@
 // Tensor-core building blocks for the port's Hopper kernels (sm_90a):
 // Hopper's warpgroup MMA (wgmma) with its shared-memory matrix
-// descriptors, the tile layout those descriptors read, 16-byte
-// asynchronous global -> shared copies (cp.async) that fill it, the
-// ldmatrix load of an A operand into registers, and the bf16 packing of
-// an f32 accumulator into the A operand of the next product.
+// descriptors, the tile layouts those descriptors read (no-swizzle core
+// matrices, and the 128-byte swizzle), asynchronous global -> shared
+// copies that fill them (cp.async of 16 or 4 bytes, and TMA boxes that
+// complete on an mbarrier), the ldmatrix load of an A operand into
+// registers, and the bf16 packing of an f32 accumulator into the A
+// operand of the next product.
 //
 // Register layouts (g = lane / 4, t = lane % 4).  A wgmma m64nNk16 is
 // issued by a warpgroup of 4 warps; warp w of the group holds rows
@@ -17,6 +19,7 @@
 // feeds the next product without leaving registers.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,6 +67,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared (a strided f32 row statistic, a pair of bf16
+// in a row of even width); zero-filled where ``valid`` is false
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 
@@ -175,6 +188,121 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* __restrict__ dst,
     }
     dst[il_off(r, c >> 3) + (c & 7)] = __float2bfloat16_rn(x);
   }
+}
+
+// ---------------------------------------------------------------------------
+// TMA (the tensor memory accelerator): one thread asks for a whole 2-D
+// box of a tensor; the copy lands in shared memory, 128-byte swizzled,
+// and completes on an mbarrier that counts the bytes.  Boxes past the
+// tensor's edge are zero-filled.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// the barrier inits visible to the other threads and to the async proxy
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// one arrival that also expects ``bytes`` of asynchronous copies
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// wait until the phase of parity ``parity`` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// the box at element coordinates (c0 innermost, c1) of the tensor map
+// into ``dst`` (1024-byte aligned for the 128-byte swizzle)
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The 128-byte swizzled tile (what TMA writes with
+// CU_TENSOR_MAP_SWIZZLE_128B, and wgmma reads with layout type 1):
+// rows of 128 bytes (64 bf16), the 16-byte chunk c of row r stored at
+// chunk c ^ (r % 8); 8 rows make a 1024-byte atom.  Element offset of
+// (row, col) in a tile of 64-wide rows:
+__device__ __forceinline__ int sw128_off(int row, int col) {
+  return row * 64 + ((((col >> 3) ^ row) & 7) << 3) + (col & 7);
+}
+
+// descriptor of a 128-byte swizzled operand at ``p`` (within a 1024-byte
+// aligned atom): k-major, SBO = 1024 (the next 8 rows), steps of 16
+// along K advance ``p`` by 32 bytes; MN-major, LBO = the stride of the
+// next 64 columns, SBO = 1024 (the next 8 rows of K), steps of 16 along
+// K advance ``p`` by 16 rows
+__device__ __forceinline__ uint64_t gmma_desc_sw128(const void* p,
+                                                    uint32_t lbo) {
+  return gmma_desc(p, lbo, 1024) | (uint64_t)1 << 62;
+}
+
+// The tensor map of a row-major bf16 matrix [outer][inner] (rows
+// ``row_bytes`` apart, a multiple of 16; ``base`` 16-byte aligned) read
+// in boxes of [box_outer][box_inner] elements, box_inner * 2 <= 128,
+// written 128-byte swizzled.  cuTensorMapEncodeTiled is looked up at run
+// time through the CUDA runtime, so nothing links against libcuda.
+inline cudaError_t encode_sw128_map(CUtensorMap* map, const void* base,
+                                    uint64_t inner, uint64_t outer,
+                                    uint64_t row_bytes, uint32_t box_inner,
+                                    uint32_t box_outer) {
+  using Encode = CUresult (*)(
+      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+      const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+      const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+      CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (fn == nullptr || found != cudaDriverEntryPointSuccess)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -301,6 +429,45 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float d[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float d[64],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
 }
 

@@ -80,6 +80,13 @@ def unported_flags(cfg) -> list:
         out.append("--kv_quant")
     if cfg.num_experts:
         out.append("--num_experts")
+    # flags of the fleet, replay, span and status-server features, which
+    # the port does not have either: refused when set off their defaults
+    defaults = config_lib.Config()
+    for name in ("replay_speed", "fleet_retries", "breaker",
+                 "span_rotate_mb", "span_keep", "status_cache_s"):
+        if getattr(cfg, name) != getattr(defaults, name):
+            out.append(f"--{name}")
     return out
 
 

@@ -263,6 +263,47 @@ def test_mlp_forward_kernel_matches_plain_on_card(card, n, hidden, act,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [(256,), (4096, 136)])
+def test_mlp_tensor_core_copy_routes_agree_on_card(card, hidden):
+    """B1's bf16 GEMM takes a tile by TMA where the operand's rows are a
+    multiple of 16 bytes and the tensor 16-byte aligned, and by 4-byte
+    cp.async copies where it is only 4-byte aligned: the same values land
+    in the same swizzled places of shared memory, so the two routes give
+    the same bits.  x and every W shifted by 2 elements take the second
+    route (N 136: TMA boxes past the last column, zero-filled)."""
+    bf16 = torch.bfloat16
+    spec = mlp.MLPSpec(hidden_sizes=hidden, activation="relu",
+                       compute_dtype=bf16)
+    params = mlp.init(spec, seed=3, device=card)
+    gen = torch.Generator(device=card).manual_seed(3)
+    for k in params:
+        params[k] = (params[k].to(bf16) if k.startswith("W") else
+                     0.1 * torch.randn(params[k].shape, generator=gen,
+                                       device=card))
+    x = torch.rand(300, 784, generator=gen, device=card).to(bf16)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 2, dtype=t.dtype, device=card)
+        view = buf[2:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 4
+        return view
+
+    logits, hiddens = fused._mlp_forward_cuda(spec, params, x)
+    moved = {k: shifted(v) if k.startswith("W") else v
+             for k, v in params.items()}
+    logits2, hiddens2 = fused._mlp_forward_cuda(spec, moved, shifted(x))
+    assert torch.equal(logits, logits2)
+    for h, h2 in zip(hiddens, hiddens2):
+        assert torch.equal(h, h2)
+    # and neither is wrong: the wide MLP's bf16 logits bound
+    # (chip_smoke.MLP_RTOL), as 4096 hiddens sum their rounding flips
+    want = fused.mlp_forward_reference(spec, params, x)[0]
+    torch.testing.assert_close(logits, want, rtol=0,
+                               atol=1e-2 * max(1.0, float(want.abs().max())))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
 def test_mlp_forward_gradients_on_card_match_cpu(card, cdt):
     """The autograd backward on the card (the kernel's hiddens; bf16
@@ -439,27 +480,41 @@ def _sass_functions(lib_path):
 
 @pytest.mark.cuda
 def test_flash_bf16_kernels_use_tensor_cores(card):
-    """The bf16 forward (4 instantiations: causal x stats) and dq (2)
-    issue tensor-core MMAs (HMMA or HGMMA in their SASS); the f32
-    forward (4) and dq (2) issue none (f32 attention stays on f32 FMA:
-    TF32 would break its 1e-4);
-    the old bf16 instantiations of the CUDA-core forward and dq are
-    gone."""
+    """The bf16 forward (4 instantiations: causal x stats), dq (2) and
+    dk/dv (2), and B1's bf16 GEMM (2: hidden and logits outputs), issue
+    tensor-core MMAs (HMMA or HGMMA in their SASS; HGMMA for dk/dv and
+    the GEMM, which are wgmma only); the f32 forward (4), dq (2) and
+    dk/dv (2) and the CUDA-core GEMM ``gemm_bias_act_kernel`` (the f32
+    MLP layers and the grouped FFN) issue none (f32 attention and the
+    f32 MLP stay on f32 FMA: TF32 would break their 1e-4); the old bf16
+    instantiations of the CUDA-core forward, dq and dk/dv are gone."""
     from distributed_tensorflow_example_tpu_torch.ops import _build
 
     funcs = _sass_functions(_build.build())
     tensor_ops = ("HMMA", "HGMMA")
     tc = {n: f for n, f in funcs.items()
-          if "flash_fwd_tc_kernel" in n or "flash_dq_tc_kernel" in n}
+          if "flash_fwd_tc_kernel" in n or "flash_dq_tc_kernel" in n
+          or "flash_dkv_tc_kernel" in n or "gemm_bias_act_tc_kernel" in n}
     assert sum("flash_fwd_tc_kernel" in n for n in tc) == 4, sorted(funcs)
     assert sum("flash_dq_tc_kernel" in n for n in tc) == 2, sorted(funcs)
+    assert sum("flash_dkv_tc_kernel" in n for n in tc) == 2, sorted(funcs)
+    assert sum("gemm_bias_act_tc_kernel" in n for n in tc) == 2, \
+        sorted(funcs)
     for name, sass in tc.items():
         assert any(op in sass for op in tensor_ops), name
+        if "flash_dkv_tc_kernel" in name or "gemm_bias_act_tc_kernel" in name:
+            assert "HGMMA" in sass, name
     plain = {n: f for n, f in funcs.items()
-             if "flash_fwd_kernel" in n or "flash_dq_kernel" in n}
-    assert len(plain) == 6, sorted(funcs)
+             if "flash_fwd_kernel" in n or "flash_dq_kernel" in n
+             or "flash_dkv_kernel" in n}
+    assert len(plain) == 8, sorted(funcs)
     for name, sass in plain.items():
         assert "__nv_bfloat16" not in name, name
+        assert not any(op in sass for op in tensor_ops), name
+    fma_gemm = {n: f for n, f in funcs.items()
+                if "gemm_bias_act_kernel" in n}
+    assert fma_gemm, sorted(funcs)
+    for name, sass in fma_gemm.items():
         assert not any(op in sass for op in tensor_ops), name
 
 

@@ -220,10 +220,33 @@ def test_http_generate_round_trip():
 
 @pytest.mark.parametrize("extra", [["--replicas=2"], ["--replay=w.json"],
                                    ["--trace_spans"], ["--slo=x"],
-                                   ["--kv_quant=int8"]])
+                                   ["--kv_quant=int8"],
+                                   ["--breaker", "on"],
+                                   ["--fleet_retries", "1"],
+                                   ["--replay_speed", "25"],
+                                   ["--span_keep", "5"],
+                                   ["--span_rotate_mb", "1.5"],
+                                   ["--status_cache_s", "0"]])
 def test_cli_refuses_unported_flags(extra, capsys):
     assert tcli.main(_CLI_FLAGS + ["--serve_port=1"] + extra) == 2
     assert "ROADMAP" in capsys.readouterr().err
+
+
+# serving flags of features the port refuses when set: parsed, so that a
+# JAX dtx-serve command line reaches the refusal, not argparse's error
+_REFUSED_WITH_DEFAULTS = ("breaker", "fleet_retries", "replay_speed",
+                          "span_keep", "span_rotate_mb", "status_cache_s")
+
+
+def test_cli_refused_flags_parse_with_the_jax_defaults():
+    from distributed_tensorflow_example_tpu import config as jconfig
+
+    jax_args = vars(jconfig.build_parser().parse_args([]))
+    ours = tconfig.parse_config([])
+    for name in _REFUSED_WITH_DEFAULTS:
+        assert getattr(ours, name) == jax_args[name], name
+        assert type(getattr(ours, name)) is type(jax_args[name]), name
+    assert tcli.unported_flags(ours) == []
 
 
 def test_cli_needs_a_port_and_an_lm(capsys):
