@@ -13,7 +13,10 @@ Phases (any failure exits nonzero; none is caught and skipped):
    65,536 x 1024 f32 rows too), with the tolerance stated below, and
    time the kernel, the plain version and a PyTorch library yardstick
    beside the card's bound (bytes / 3.35 TB/s or operations / peak
-   rate);
+   rate); the rows carry each kernel's design, registers and spills,
+   the factor against the library call and, for the grouped FFN, its
+   TFLOP/s and its launch plan (tile width, split of K, CTAs per
+   launch);
 3. serve at full width — the decode bench model (d_model 1024, 8
    heads, 4 blocks, d_ff 4096, seq_len 1024, vocab 256, bf16 compute,
    f32 params, fused_ln + fp8_ffn) through ``DecodeEngine`` on the card:
@@ -82,9 +85,10 @@ and for MoE training (``main.py --model=transformer --num_experts=64
 2d. hold B8's training form (``moe_grouped_matmul_z1``: out and the f32
     pre-activation z1) against its plain version at the path's
     [64, 640, 1024] x ff 2048 bf16 gelu, at a ragged C and at E = 1 (the
-    dense fp8 case), and time it beside its plain version, a
-    ``baddbmm`` + gelu + ``baddbmm`` yardstick and its bound; time the
-    four plain products of its backward there too;
+    dense fp8 case), and time it and its primal form beside its plain
+    version, a ``baddbmm`` + gelu + ``baddbmm`` yardstick and its bound
+    (TFLOP/s, the factor against the yardstick, the plan, registers and
+    spills); time the four plain products of its backward there too;
 8.  train at full width: the JAX repo's ``moe_wide`` bench row (E 64,
     top-1, capacity factor 1.25 -> C 640, causal flash attention,
     d_model 1024, 8 heads of 128, 2 blocks, d_ff 2048, S 1024, bf16
@@ -376,9 +380,41 @@ FLASH_TC = {"stats": "flash_fwd_tc_kernelILb1ELb1EE",
             "dq": "flash_dq_tc_kernelILb1EE",
             "dkv": "flash_dkv_tc_kernelILb1EE"}
 FLASH_USAGE: dict = {}
-MLP_TC = {"hidden": "gemm_bias_act_tc_kernelI13__nv_bfloat16E",
-          "logits": "gemm_bias_act_tc_kernelIfE"}
+# each source that includes gemm_tc.cuh compiles its own copy of the
+# GEMM (internal linkage), so those fragments name the source too
+MLP_TC = {"hidden": ("mlp_forward_cu",
+                     "gemm_bias_act_tc_kernelI13__nv_bfloat16Li2ELb0EE"),
+          "logits": ("mlp_forward_cu", "gemm_bias_act_tc_kernelIfLi2ELb0EE")}
 MLP_USAGE: dict = {}
+# B8's bf16 products on that GEMM (bf16 hidden with and without z1, and
+# f32 output or split-K shares, at 256- and 128-wide tiles), keyed by
+# (OutT, halves, z1), and B2/B3's register path (f32 and bf16 rows)
+B8_TC = {(out, halves, z1): ("grouped_ffn_cu",
+                             f"gemm_bias_act_tc_kernelI{mangled}Li{halves}"
+                             f"ELb{int(z1)}EE")
+         for out, mangled in (("bf16", "13__nv_bfloat16"), ("f32", "f"))
+         for halves in (1, 2) for z1 in (False, True)
+         if out == "bf16" or not z1}
+B8_USAGE: dict = {}
+# and B2/B3's two routes, keyed by (name, dtype, route): the register
+# path (a warp a row) and the CTA-a-row kernel wider rows take
+LN_KERNELS = {(name, dt, route): f"{kernel}I{mangled}Lb{int(res)}EE"
+              for name, res in (("layer_norm", False),
+                                ("layer_norm_residual", True))
+              for dt, mangled in (("f32", "f"), ("bf16", "13__nv_bfloat16"))
+              for route, kernel in (("warp", "ln_fwd_warp_kernel"),
+                                    ("block", "ln_fwd_kernel"))}
+LN_USAGE: dict = {}
+LN_DESIGN = {"warp": "warp per row, registers, shuffles",
+             "block": "CTA per row, shared memory, block reductions"}
+
+
+def _usage_row(uses) -> dict:
+    """The most registers and the sum of spilled bytes over the
+    instantiations a call runs."""
+    return dict(regs=max(u["regs"] for u in uses),
+                spill_bytes=sum(u.get("spill_stores", 0)
+                                + u.get("spill_loads", 0) for u in uses))
 
 
 def phase_build():
@@ -393,21 +429,39 @@ def phase_build():
     log(f"[build] kernels {how} in {secs:.2f} s "
         f"({_build.last_build.get('path')})")
     usage = ptxas_usage(_build.last_build.get("log") or "")
-    for frags, into in ((FLASH_TC, FLASH_USAGE), (MLP_TC, MLP_USAGE)):
+    for frags, into in ((FLASH_TC, FLASH_USAGE), (MLP_TC, MLP_USAGE),
+                        (B8_TC, B8_USAGE), (LN_KERNELS, LN_USAGE)):
         for form, frag in frags.items():
-            found = [u for name, u in usage.items() if frag in name]
+            parts = (frag,) if isinstance(frag, str) else frag
+            found = [u for name, u in usage.items()
+                     if all(p in name for p in parts)]
             if len(found) != 1 or "regs" not in found[0]:
                 raise RuntimeError(f"the compiler's report names "
                                    f"{len(found)} kernels with registers "
-                                   f"matching {frag}")
+                                   f"matching {parts}")
             use = into[form] = found[0]
-            log(f"[build]   {frag}: {use['regs']} registers, spill stores "
+            log(f"[build]   {' '.join(parts)}: {use['regs']} registers, "
+                f"spill stores "
                 f"{use.get('spill_stores', 0)} B, loads "
                 f"{use.get('spill_loads', 0)} B")
 
 
 def _gen(seed: int):
     return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def _ln_route(d: int, tensors) -> str:
+    """The route layer_norm.cu's forward takes for rows ``d`` wide with
+    these operands: the register path ("warp") where d is at most
+    ``dtx_layer_norm_reg_max_d``, a multiple of the 4-value vector, and
+    every operand lies on its vector's boundary (the outputs are fresh
+    allocations, which do), else the CTA-a-row kernel ("block")."""
+    from distributed_tensorflow_example_tpu_torch.ops import _build
+
+    reg = (d <= _build.load().dtx_layer_norm_reg_max_d() and d % 4 == 0
+           and all(t.data_ptr() % (4 * t.element_size()) == 0
+                   for t in tensors))
+    return "warp" if reg else "block"
 
 
 def check_layer_norm(card: str) -> list:
@@ -462,11 +516,19 @@ def check_layer_norm(card: str) -> list:
                        plain_ms=device_ms(plain, sets),
                        library_ms=(device_ms(lib, sets) if lib else None),
                        bound_ms=bound, bound_by="bytes", bytes=nbytes)
+            route = _ln_route(d, sets[0])
+            row.update(design=LN_DESIGN[route],
+                       **_usage_row([LN_USAGE[(name, "f32", route)]]))
+            if lib:
+                row["x_library"] = row["ms"] / row["library_ms"]
             log(f"[kernel] {name} rows={rows} d={d} f32: max_abs_err="
                 f"{err:.3g} (tol {LN_ATOL}) kernel {row['ms']:.5f} ms, "
                 f"plain {row['plain_ms']:.5f} ms, library "
-                f"{row['library_ms']} ms, bound {bound:.5f} ms (bytes) "
-                f"on {card}")
+                f"{row['library_ms']} ms"
+                + (f" (kernel {row['x_library']:.2f}x)" if lib else "")
+                + f", bound {bound:.5f} ms (bytes; kernel at "
+                f"{bound / row['ms']:.1%}) on {card}; {row['design']}, "
+                f"{row['regs']} registers, {row['spill_bytes']} B spilled")
             rows_list.append(row)
         out.append((name, rows_list))
     return out
@@ -515,20 +577,50 @@ def check_grouped_ffn(card: str) -> list:
         flops = 4 * c * d * ff
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = flops / PEAK_FLOPS[cdt]
+        plan = _b8_plan(fused.moe_grouped_matmul.last_plan, 1, c, d, ff)
         row = dict(rows=c, d=d, ff=ff, max_abs_err=err,
                    ms=device_ms(fused.moe_grouped_matmul, sets),
                    plain_ms=device_ms(fused.grouped_ffn_reference, sets),
                    library_ms=device_ms(lib, sets),
                    bound_ms=max(t_bytes, t_ops) * 1e3,
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   bytes=nbytes, flops=flops)
+                   bytes=nbytes, flops=flops, **plan)
+        row.update(tflops=flops / row["ms"] / 1e9,
+                   x_library=row["ms"] / row["library_ms"])
         log(f"[kernel] grouped_ffn C={c} d={d} ff={ff} bf16: max_abs_err="
-            f"{err:.3g} (tol {FFN_ATOL}) kernel {row['ms']:.5f} ms, plain "
-            f"{row['plain_ms']:.5f} ms, library {row['library_ms']:.5f} "
-            f"ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}) on "
-            f"{card}")
+            f"{err:.3g} (tol {FFN_ATOL}) kernel {row['ms']:.5f} ms "
+            f"({row['tflops']:.2f} TFLOP/s), plain {row['plain_ms']:.5f} "
+            f"ms, library {row['library_ms']:.5f} ms (kernel "
+            f"{row['x_library']:.2f}x), bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}; kernel at "
+            f"{row['bound_ms'] / row['ms']:.1%}) on {card}; {row['design']}, "
+            f"CTAs per launch {row['ctas']}, {row['regs']} registers, "
+            f"{row['spill_bytes']} B spilled")
         rows_list.append(row)
     return [("grouped_ffn", rows_list)]
+
+
+def _b8_plan(plan, e: int, c: int, d: int, ff: int,
+             z1: bool = False) -> dict:
+    """What the bf16 grouped FFN launched at [E, C, d] x ff under
+    ``plan`` (the wrapper's ``last_plan``): its design, the CTAs of each
+    launch (a split launch's shares; its sum's launch noted), and the
+    registers and spills of the tensor-core instantiations it ran."""
+    from distributed_tensorflow_example_tpu_torch.ops import fused
+
+    uses, parts = [], []
+    for i, (halves, splits) in enumerate(plan):
+        # launch 1 unsplit writes the bf16 hidden (and z1); a split
+        # launch writes f32 shares, launch 2 f32 out
+        fused_epi = i == 0 and splits == 1
+        uses.append(B8_USAGE[("bf16" if fused_epi else "f32", halves,
+                              z1 and fused_epi)])
+        parts.append(f"launch {i + 1} 128x{128 * halves}"
+                     + (f", K in {splits} shares + sum" if splits > 1
+                        else ""))
+    return dict(design="wgmma+TMA, " + "; ".join(parts), plan=plan,
+                ctas=list(fused.grouped_ffn_ctas(plan, e, c, d, ff)),
+                **_usage_row(uses))
 
 
 def check_mlp_forward(card: str) -> list:
@@ -627,7 +719,7 @@ def check_mlp_forward(card: str) -> list:
                    x_library=row["ms"] / row["library_ms"])
         if cdt == torch.bfloat16:
             use = MLP_USAGE["hidden"]
-            row.update(design="wgmma+cp.async", regs=use["regs"],
+            row.update(design="wgmma+TMA", regs=use["regs"],
                        spill_bytes=(use.get("spill_stores", 0)
                                     + use.get("spill_loads", 0)))
         log(f"[kernel] mlp_forward N={n} {'-'.join(map(str, sizes))} "
@@ -991,6 +1083,8 @@ def check_grouped_ffn_z1(card: str) -> list:
               + e * c * d * 4 + e * c * ff * 4)
     flops = 4 * e * c * d * ff
     bound, by = _bound(nbytes, flops)
+    plan = _b8_plan(fused.moe_grouped_matmul_z1.last_plan, e, c, d, ff,
+                    z1=True)
     row = dict(experts=e, rows=c, d=d, ff=ff, dtype="bf16",
                activation="gelu", max_abs_err=worst["z1"][0],
                rel_err=worst["z1"][1], out_max_abs_err=worst["out"][0],
@@ -999,15 +1093,20 @@ def check_grouped_ffn_z1(card: str) -> list:
                plain_ms=plain_ms, library_ms=library_ms,
                library_call="baddbmm bf16 + gelu + baddbmm",
                bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops,
-               tflops=flops / ms / 1e9, backward_products_ms=bwd_ms,
-               backward_ms=bwd_total_ms)
+               tflops=flops / ms / 1e9, primal_tflops=flops / primal_ms / 1e9,
+               x_library=ms / library_ms,
+               primal_x_library=primal_ms / library_ms,
+               backward_products_ms=bwd_ms, backward_ms=bwd_total_ms, **plan)
     log(f"[kernel] grouped_ffn_z1 [{e}, {c}, {d}] ff={ff} bf16: kernel "
-        f"{ms:.3f} ms ({row['tflops']:.2f} TFLOP/s; primal form "
-        f"{primal_ms:.3f} ms), plain {plain_ms:.3f} ms, library "
+        f"{ms:.3f} ms ({row['tflops']:.2f} TFLOP/s, {row['x_library']:.2f}x "
+        f"the library; primal form {primal_ms:.3f} ms, "
+        f"{row['primal_tflops']:.2f} TFLOP/s, "
+        f"{row['primal_x_library']:.2f}x), plain {plain_ms:.3f} ms, library "
         f"{library_ms:.3f} ms, bound {bound:.3f} ms ({by}); backward "
         f"{bwd_total_ms:.3f} ms, products "
         + ", ".join(f"{k} {v:.3f}" for k, v in bwd_ms.items())
-        + f" ms on {card}")
+        + f" ms on {card}; {row['design']}, CTAs per launch {row['ctas']}, "
+        f"{row['regs']} registers, {row['spill_bytes']} B spilled")
     del args, x, w1, b1, w2, b2, z1, cot, dz1, h1, products
     torch.cuda.empty_cache()
     return [("grouped_ffn_z1", [row])]

@@ -42,13 +42,15 @@ SIGNATURES = {
     # x, r, g, b, y, s, rows, d, dtype, stream
     "dtx_layer_norm_residual_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "dtx_layer_norm_max_d": (),
+    "dtx_layer_norm_reg_max_d": (),
     # dy, x, g, dx, part, dg, db, rows, d, ctas, dtype, stream
     "dtx_layer_norm_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "dtx_layer_norm_bwd_max_ctas": (),
-    # x, w1, b1, w2, b2, h1, out, z1 (NULL = the primal form), E, C, d,
-    # ff, act, dtype, stream
-    "dtx_grouped_ffn_fwd": (_P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _P),
+    # x, w1, b1, w2, b2, h1, out, z1 (NULL = the primal form), part
+    # (NULL = no split), E, C, d, ff, act, dtype, halves1, splits1,
+    # halves2, splits2, stream
+    "dtx_grouped_ffn_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # A, W, bias, out, M, N, K, act, dtype, last, stream
     "dtx_mlp_layer_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, o, acc, m, l, B, S, H, D, causal, stats, dtype, qscale,

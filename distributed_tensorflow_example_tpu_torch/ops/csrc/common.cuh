@@ -93,7 +93,9 @@ __device__ __forceinline__ float activate(float v, int act) {
   switch (act) {
     case kGelu: {
       // jax.nn.gelu's default tanh approximation:
-      // x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3)))
+      // x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3))), written as
+      // PyTorch's CUDA gelu writes it (the card's plain version), so that
+      // at equal z the two round a bf16 hidden alike
       const float k = 0.7978845608028654f;
       const float cube = v * v * v;
       const float cdf = 0.5f * (1.0f + tanhf(k * (v + 0.044715f * cube)));

@@ -18,14 +18,22 @@
 // f32, and the card's 3.35 TB/s is the limit, or, at the decode shape
 // (8 rows), the launch itself.
 //
-// The design: the TPU kernel tiles 128 rows into VMEM.  Here one CTA
-// of 256 threads owns one row: the row is read from device memory
-// once (coalesced, neighbouring threads on neighbouring elements),
-// kept in shared memory as f32 (4 KB at d=1024), and the two-pass
-// mean/variance runs over that copy with warp-shuffle reductions, so
-// the variance is the exact two-pass form of the reference rather
-// than E[x^2]-E[x]^2.  y is written once.  Rows are independent, so
-// nothing carries between CTAs.
+// The design: the TPU kernel tiles 128 rows into VMEM.  Here rows up to
+// kLnRegMaxD = 1024 wide (every path's d_model) take the register path,
+// ln_fwd_warp_kernel: one warp owns a row, each lane 32 of its values at
+// d = 1024, read as 16-byte vectors of 4 f32 (8-byte vectors of 4 bf16),
+// neighbouring lanes on neighbouring vectors; the row stays in registers
+// and the mean and then the exact two-pass variance (not E[x^2]-E[x]^2)
+// reduce by warp shuffles alone, so no shared memory and no block
+// barrier lies on the path.  g and b are read once per warp and kept in
+// registers across the rows it walks (row = warp, warp + W, ...), with a
+// grid sized to the card's resident warps.  y is written once, as
+// vectors.  Rows wider than that, or whose width is not a multiple of 4
+// or whose tensors are not aligned to the vectors, take ln_fwd_kernel:
+// one CTA of 256 threads a row, the row read once (coalesced) into
+// shared memory as f32 (up to kLnMaxD = 12256 wide), the same two-pass
+// statistics over that copy with block-wide reductions.  Rows are
+// independent, so nothing carries between warps or CTAs.
 //
 // The backward, per row of the saved normalization input x (or the
 // residual sum s) and the f32 cotangent dy:
@@ -42,6 +50,8 @@
 // a [2, G, d] buffer; a second launch sums the G partials of each
 // column in a fixed order, so dg/db are deterministic.
 #include "common.cuh"
+
+#include <cstdint>
 
 namespace dtx {
 namespace {
@@ -86,11 +96,160 @@ __global__ void __launch_bounds__(kLnThreads)
   }
 }
 
+// the register path: rows up to kLnRegMaxD wide, kLnVec values a lane
+// per vector, kLnRegIters vectors a lane, kLnRegWarps rows in flight a CTA
+constexpr int kLnVec = 4;
+constexpr int kLnRegMaxD = 1024;
+constexpr int kLnRegIters = kLnRegMaxD / (32 * kLnVec);
+constexpr int kLnRegWarps = 8;
+
+__device__ __forceinline__ void load_vec(const float* p, float v[kLnVec]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
+                                         float v[kLnVec]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&q.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&q.y));
+  v[0] = lo.x;
+  v[1] = lo.y;
+  v[2] = hi.x;
+  v[3] = hi.y;
+}
+
+__device__ __forceinline__ void store_vec(float* p, const float v[kLnVec]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p,
+                                          const float v[kLnVec]) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 q;
+  q.x = *reinterpret_cast<uint32_t*>(&lo);
+  q.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = q;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// one warp a row (d <= kLnRegMaxD, d % kLnVec == 0, every tensor aligned
+// to its vector); lane l holds columns 4 (32 i + l) .. + 3 for i <
+// kLnRegIters, those past d empty
+template <typename T, bool kResidual>
+__global__ void __launch_bounds__(kLnRegWarps * 32)
+    ln_fwd_warp_kernel(const T* __restrict__ x, const T* __restrict__ r,
+                       const float* __restrict__ g,
+                       const float* __restrict__ b, float* __restrict__ y,
+                       T* __restrict__ s, int rows, int d) {
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * kLnRegWarps;
+  float gv[kLnRegIters][kLnVec], bv[kLnRegIters][kLnVec];
+#pragma unroll
+  for (int i = 0; i < kLnRegIters; ++i) {
+    const int c = (32 * i + lane) * kLnVec;
+    if (c < d) {
+      load_vec(g + c, gv[i]);
+      load_vec(b + c, bv[i]);
+    }
+  }
+  for (int row = blockIdx.x * kLnRegWarps + (threadIdx.x >> 5); row < rows;
+       row += warps) {
+    const size_t base = (size_t)row * (size_t)d;
+    float v[kLnRegIters][kLnVec];
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < kLnRegIters; ++i) {
+      const int c = (32 * i + lane) * kLnVec;
+      if (c >= d) continue;
+      load_vec(x + base + c, v[i]);
+      if (kResidual) {
+        float rv[kLnVec];
+        load_vec(r + base + c, rv);
+        // s rounded to T; the statistics are taken from the rounded s
+#pragma unroll
+        for (int j = 0; j < kLnVec; ++j)
+          v[i][j] = to_f32(from_f32<T>(v[i][j] + rv[j]));
+        store_vec(s + base + c, v[i]);
+      }
+#pragma unroll
+      for (int j = 0; j < kLnVec; ++j) acc += v[i][j];
+    }
+    const float mu = warp_sum(acc) / (float)d;
+    acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < kLnRegIters; ++i) {
+      if ((32 * i + lane) * kLnVec >= d) continue;
+#pragma unroll
+      for (int j = 0; j < kLnVec; ++j) {
+        const float c = v[i][j] - mu;
+        acc += c * c;
+      }
+    }
+    const float rstd = rsqrtf(warp_sum(acc) / (float)d + kLnEps);
+#pragma unroll
+    for (int i = 0; i < kLnRegIters; ++i) {
+      const int c = (32 * i + lane) * kLnVec;
+      if (c >= d) continue;
+      float o[kLnVec];
+#pragma unroll
+      for (int j = 0; j < kLnVec; ++j)
+        o[j] = (v[i][j] - mu) * rstd * gv[i][j] + bv[i][j];
+      store_vec(y + base + c, o);
+    }
+  }
+}
+
+// whether every tensor of a launch lies on its vector's boundary
+template <typename T>
+bool vec_aligned(const void* x, const void* r, const float* g,
+                 const float* b, const float* y, const void* s) {
+  const uintptr_t t = sizeof(T) * kLnVec, f = sizeof(float) * kLnVec;
+  auto at = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
+  return at(x) % t == 0 && at(r) % t == 0 && at(s) % t == 0 &&
+         at(g) % f == 0 && at(b) % f == 0 && at(y) % f == 0;
+}
+
 template <typename T, bool kResidual>
 cudaError_t launch(const void* x, const void* r, const float* g,
                    const float* b, float* y, void* s, int rows, int d,
                    cudaStream_t stream) {
   if (rows == 0) return cudaSuccess;
+  if (d <= kLnRegMaxD && d % kLnVec == 0 &&
+      vec_aligned<T>(x, r, g, b, y, s)) {
+    // the grid: every warp resident at once (blocks a CTA can keep on an
+    // SM x the SMs), no more than the rows need
+    static int resident = 0;
+    if (resident == 0) {
+      int dev = 0, sms = 0, per_sm = 0;
+      cudaError_t err = cudaGetDevice(&dev);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, ln_fwd_warp_kernel<T, kResidual>, kLnRegWarps * 32, 0);
+      if (err != cudaSuccess) return err;
+      resident = sms * per_sm;
+    }
+    const int need = (rows + kLnRegWarps - 1) / kLnRegWarps;
+    const int grid = need < resident ? need : resident;
+    ln_fwd_warp_kernel<T, kResidual><<<grid, kLnRegWarps * 32, 0, stream>>>(
+            static_cast<const T*>(x), static_cast<const T*>(r), g, b, y,
+            static_cast<T*>(s), rows, d);
+    return cudaGetLastError();
+  }
   ln_fwd_kernel<T, kResidual>
       <<<rows, kLnThreads, (size_t)d * sizeof(float), stream>>>(
           static_cast<const T*>(x), static_cast<const T*>(r), g, b, y,
@@ -239,6 +398,9 @@ extern "C" int dtx_layer_norm_residual_fwd(const void* x, const void* r,
 }
 
 extern "C" int dtx_layer_norm_max_d() { return dtx::kLnMaxD; }
+
+// the widest row the forwards' register path (ln_fwd_warp_kernel) takes
+extern "C" int dtx_layer_norm_reg_max_d() { return dtx::kLnRegMaxD; }
 
 // dy: [rows, d] f32; x: [rows, d] of ``dtype`` (the forward's input, or
 // its residual sum s); g: [d] f32; dx: [rows, d] f32; part: [2, ctas, d]

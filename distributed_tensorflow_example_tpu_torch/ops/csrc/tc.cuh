@@ -232,14 +232,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
-// the box at element coordinates (c0 innermost, c1) of the tensor map
-// into ``dst`` (1024-byte aligned for the 128-byte swizzle)
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            int c0, int c1, uint64_t* bar) {
+// the box at element coordinates (c0 innermost, c1, c2) of a rank-3
+// tensor map, e.g. (K, rows, expert) of a batch of matrices, into
+// ``dst`` (1024-byte aligned for the 128-byte swizzle), completing on
+// ``bar``; a box never crosses into the next c2 plane, and what lies past
+// an edge of its own plane is zero
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(smem_addr(bar))
       : "memory");
 }
@@ -263,15 +267,18 @@ __device__ __forceinline__ uint64_t gmma_desc_sw128(const void* p,
   return gmma_desc(p, lbo, 1024) | (uint64_t)1 << 62;
 }
 
-// The tensor map of a row-major bf16 matrix [outer][inner] (rows
-// ``row_bytes`` apart, a multiple of 16; ``base`` 16-byte aligned) read
-// in boxes of [box_outer][box_inner] elements, box_inner * 2 <= 128,
-// written 128-byte swizzled.  cuTensorMapEncodeTiled is looked up at run
-// time through the CUDA runtime, so nothing links against libcuda.
+// The rank-3 tensor map of a batch of ``depth`` >= 1 row-major bf16
+// matrices [depth][outer][inner] (rows ``row_bytes`` apart and matrices
+// ``plane_bytes`` apart, both multiples of 16; ``base`` 16-byte aligned)
+// read in boxes of [1][box_outer][box_inner] elements (tma_load_3d),
+// box_inner * 2 <= 128, written 128-byte swizzled; one matrix is depth 1.
+// cuTensorMapEncodeTiled is looked up at run time through the CUDA
+// runtime, so nothing links against libcuda.
 inline cudaError_t encode_sw128_map(CUtensorMap* map, const void* base,
                                     uint64_t inner, uint64_t outer,
                                     uint64_t row_bytes, uint32_t box_inner,
-                                    uint32_t box_outer) {
+                                    uint32_t box_outer, uint64_t depth,
+                                    uint64_t plane_bytes) {
   using Encode = CUresult (*)(
       CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
       const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -293,13 +300,13 @@ inline cudaError_t encode_sw128_map(CUtensorMap* map, const void* base,
       return cudaErrorNotSupported;
     encode = reinterpret_cast<Encode>(fn);
   }
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t elem_strides[2] = {1, 1};
+  const cuuint64_t dims[3] = {inner, outer, depth};
+  const cuuint64_t strides[2] = {row_bytes, plane_bytes};
+  const cuuint32_t box[3] = {box_inner, box_outer, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+      dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

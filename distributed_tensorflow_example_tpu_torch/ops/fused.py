@@ -8,8 +8,8 @@ wrapper                     CUDA source (ops/csrc/)         TPU kernel it replac
 fused_layer_norm            layer_norm.cu                   pallas_fused._ln_fwd_kernel
 fused_layer_norm_residual   layer_norm.cu                   pallas_fused._ln_res_fwd_kernel
 layer_norm_backward         layer_norm.cu (two launches)    pallas_fused._ln_bwd_kernel
-moe_grouped_matmul          grouped_ffn.cu (two launches)   pallas_fused._moe_kernel
-moe_grouped_matmul_z1       grouped_ffn.cu (two launches)   the same, want_z1=True
+moe_grouped_matmul          grouped_ffn.cu (2-4 launches)   pallas_fused._moe_kernel
+moe_grouped_matmul_z1       grouped_ffn.cu (2-4 launches)   the same, want_z1=True
 mlp_forward                 mlp_forward.cu (one per layer)  pallas_fused._make_kernel
 ==========================  ==============================  ==========================
 
@@ -31,7 +31,8 @@ plain version.
 Every wrapper carries ``launches``, a plain integer it raises by one
 each time it launches its kernel (``moe_grouped_matmul``,
 ``moe_grouped_matmul_z1`` and ``layer_norm_backward`` count one per
-call, which is two CUDA launches;
+call, which is two CUDA launches, or up to four for a grouped FFN whose
+plan splits K;
 ``mlp_forward`` one per call, L launches for L layers);
 ``launch_counts`` and ``reset_launch_counts`` (from ``ops/_counts.py``)
 read and zero them, the flash-attention wrappers' included, so a run
@@ -53,6 +54,8 @@ products as there.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -303,8 +306,9 @@ class _FusedLayerNormResidual(torch.autograd.Function):
 def fused_layer_norm(x, g, b):
     """LayerNorm of ``x`` (any rank, last axis ``d``) with f32
     statistics and f32 output, differentiable in x, g and b.  CUDA: the
-    ``layer_norm.cu`` kernel, one block per row; x f32 or bf16, g/b
-    [d]; the backward runs ``layer_norm_backward``."""
+    ``layer_norm.cu`` kernel, one warp a row held in registers up to
+    1024 wide, one block a row beyond; x f32 or bf16, g/b [d]; the
+    backward runs ``layer_norm_backward``."""
     return _FusedLayerNorm.apply(x, g, b)
 
 
@@ -317,14 +321,69 @@ def fused_layer_norm_residual(x, r, g, b):
     return _FusedLayerNormResidual.apply(x, r, g, b)
 
 
+# the tensor-core GEMM's tile (gemm_tc.cuh): 128 rows, 128 x halves
+# columns, K in 64-deep slices
+_TC_ROWS, _TC_HALF, _TC_DEPTH = 128, 128, 64
+
+
+def product_ctas(e: int, m: int, n: int, halves: int, splits: int) -> int:
+    """CTAs of one batched product [E, M, K] x [E, K, N] on the
+    tensor-core GEMM with 128 x (128 halves) tiles and K in ``splits``
+    shares (``gemm_tc.cuh``'s grid)."""
+    return e * -(-m // _TC_ROWS) * -(-n // (_TC_HALF * halves)) * splits
+
+
+def _product_plan(e: int, m: int, n: int, k: int, sms: int):
+    """``(halves, splits)`` of one batched product [E, M, K] x [E, K,
+    N] on the tensor-core GEMM: 128 x 256 tiles (halves 2) where they
+    give at least one CTA an SM, else 128 x 128 tiles; where those are
+    still fewer than the SMs, K in ``splits`` equal shares of 64-deep
+    slices so that tiles x splits fills one wave (splits as large as
+    that allows, none of them empty)."""
+    for halves in (2, 1):
+        tiles = product_ctas(e, m, n, halves, 1)
+        if tiles >= sms:
+            return halves, 1
+    slices = -(-k // _TC_DEPTH)
+    splits = max(1, min(slices, sms // max(tiles, 1)))
+    per = -(-slices // splits)
+    return 1, -(-slices // per)
+
+
+@functools.lru_cache(maxsize=None)
+def grouped_ffn_plan(e: int, c: int, d: int, ff: int, sms: int):
+    """The bf16 grouped FFN's launch plan on a card of ``sms`` SMs:
+    ``((halves1, splits1), (halves2, splits2))`` for launch 1 (x [E, C,
+    d] @ W1 [E, d, ff]) and launch 2 (h1 @ W2 [E, ff, d]), as
+    ``_product_plan`` picks them (``grouped_ffn.cu``'s header lists the
+    plans of the paths' shapes)."""
+    return (_product_plan(e, c, ff, d, sms), _product_plan(e, c, d, ff, sms))
+
+
+def grouped_ffn_ctas(plan, e: int, c: int, d: int, ff: int):
+    """``(CTAs of launch 1, CTAs of launch 2)`` of the grouped FFN at
+    [E, C, d] x ff under ``plan`` (a split launch's shares counted, its
+    sum's launch not)."""
+    (h1, s1), (h2, s2) = plan
+    return product_ctas(e, c, ff, h1, s1), product_ctas(e, c, d, h2, s2)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _grouped_forward(activation: str, cdt, buf, we1, be1, we2, be2,
                      want_z1: bool):
     """``(out [E, C, d] f32, z1 [E, C, ff] f32 or None)``: the JAX
-    ``_moe_grouped_forward``.  CUDA: the two launches of
+    ``_moe_grouped_forward``.  CUDA: the two products of
     ``grouped_ffn.cu``, with an [E, C, ff] ``cdt`` hidden in between and,
     when ``want_z1`` (the training form), the f32 pre-activation written
-    by the first launch's epilogue; counted on ``moe_grouped_matmul``
-    (primal form) or ``moe_grouped_matmul_z1`` (training form)."""
+    by the first product's epilogue; in bf16 on the tensor cores by the
+    plan of ``grouped_ffn_plan`` (a split-K product adds its f32 shares
+    in a scratch ``part`` in a second launch), in f32 on the CUDA cores;
+    counted on ``moe_grouped_matmul`` (primal form) or
+    ``moe_grouped_matmul_z1`` (training form)."""
     if _on_cpu(buf, we1, be1, we2, be2):
         out, z1 = grouped_ffn_reference(activation, cdt, buf, we1, be1,
                                         we2, be2)
@@ -344,18 +403,26 @@ def _grouped_forward(activation: str, cdt, buf, we1, be1, we2, be2,
     _require("be2", be2, shape=(e, d))
     x, w1, w2 = buf.to(cdt), we1.to(cdt), we2.to(cdt)
     b1, b2 = be1.to(torch.float32), be2.to(torch.float32)
-    h1 = torch.empty((e, c, ff), dtype=cdt, device=buf.device)
-    out = torch.empty((e, c, d), dtype=torch.float32, device=buf.device)
-    z1 = (torch.empty((e, c, ff), dtype=torch.float32, device=buf.device)
+    dev = buf.device
+    h1 = torch.empty((e, c, ff), dtype=cdt, device=dev)
+    out = torch.empty((e, c, d), dtype=torch.float32, device=dev)
+    z1 = (torch.empty((e, c, ff), dtype=torch.float32, device=dev)
           if want_z1 else None)
+    plan = ((2, 1), (2, 1))             # the f32 form: FMA, no split
+    if cdt == torch.bfloat16:
+        plan = grouped_ffn_plan(e, c, d, ff, _sm_count(dev.index))
+    shares = max(plan[0][1] * ff if plan[0][1] > 1 else 0,
+                 plan[1][1] * d if plan[1][1] > 1 else 0)
+    part = (torch.empty((shares * e * c,), dtype=torch.float32, device=dev)
+            if shares else None)
     _launch("dtx_grouped_ffn_fwd", x.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), h1.data_ptr(),
-            out.data_ptr(), z1.data_ptr() if want_z1 else None, e, c, d, ff,
-            _ACT_CODES[activation], _DTYPE_CODES[cdt])
-    if want_z1:
-        moe_grouped_matmul_z1.launches += 1
-    else:
-        moe_grouped_matmul.launches += 1
+            out.data_ptr(), z1.data_ptr() if want_z1 else None,
+            part.data_ptr() if part is not None else None, e, c, d, ff,
+            _ACT_CODES[activation], _DTYPE_CODES[cdt], *plan[0], *plan[1])
+    counted = moe_grouped_matmul_z1 if want_z1 else moe_grouped_matmul
+    counted.launches += 1
+    counted.last_plan = plan
     return out, z1
 
 
@@ -573,5 +640,6 @@ __all__ = ["fused_layer_norm", "fused_layer_norm_residual",
            "fp8_grouped_matmul", "fp8_dense_ffn",
            "mlp_forward", "layer_norm_reference",
            "layer_norm_residual_reference", "grouped_ffn_reference",
-           "mlp_forward_reference", "SUPPORTED_MLP_ACTIVATIONS",
+           "mlp_forward_reference", "grouped_ffn_plan", "grouped_ffn_ctas",
+           "SUPPORTED_MLP_ACTIVATIONS",
            "launch_counts", "reset_launch_counts", "KERNEL_WRAPPERS"]

@@ -8,7 +8,8 @@
 //   mode 1: 16-byte loads into registers, then shared stores, same
 //           tiles;
 //   mode 2: TMA, one thread asking for three [128][64] boxes a tile,
-//           128-byte swizzled, completing on an mbarrier.
+//           128-byte swizzled, completing on an mbarrier (the rank-3
+//           tensor map of gemm_tc.cuh, here of one matrix).
 // Each CTA reads its own 384 rows (``private``: from device memory) or
 // every CTA the same 384 rows (``shared``: from L2).  Built and run by
 // scripts/torch_copy_bench.py.
@@ -39,8 +40,8 @@ __global__ void __launch_bounds__(256, 1)
       if (threadIdx.x == 0) {
         tc::mbar_expect_tx(&full[t % 4], kStage * sizeof(bf16));
         for (int j = 0; j < 3; ++j)
-          tc::tma_load_2d(st + j * 128 * 64, &map, (t % 64) * 64,
-                          row0 + j * 128, &full[t % 4]);
+          tc::tma_load_3d(st + j * 128 * 64, &map, (t % 64) * 64,
+                          row0 + j * 128, 0, &full[t % 4]);
       }
     } else {
       // three [64][128] tiles (16 KB each) in load_tile's layout
@@ -95,7 +96,7 @@ extern "C" int copy_bench(int mode, const void* src, unsigned long long ld,
   CUtensorMap map = {};
   if (mode == 2) {
     cudaError_t e = tc::encode_sw128_map(&map, src, ld, rows, ld * 2, 64,
-                                         128);
+                                         128, 1, rows * ld * 2);
     if (e != cudaSuccess) return (int)e;
   }
   auto run = [&](auto kernel) {

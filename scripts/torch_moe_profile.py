@@ -44,8 +44,9 @@ sys.path.insert(0, _REPO)
 # name fragments of the port's kernels in the profiler's table
 OWN_KERNELS = {"flash_fwd_": "flash forward (B5)",
                "flash_dq_": "flash dq (B6)",
-               "flash_dkv_kernel": "flash dk/dv (B7)",
-               "gemm_bias_act_kernel": "grouped FFN (B8)"}
+               "flash_dkv_": "flash dk/dv (B7)",
+               "gemm_bias_act_tc_kernel": "grouped FFN (B8)",
+               "split_k_sum_kernel": "grouped FFN split-K sum (B8)"}
 
 
 def _ranged(label: str, fn):

@@ -35,9 +35,9 @@ sys.path.insert(0, _REPO)
 # name fragments of the port's kernels in the profiler's table
 OWN_KERNELS = {"flash_fwd_": "flash forward (B5)",
                "flash_dq_": "flash dq (B6)",
-               "flash_dkv_kernel": "flash dk/dv (B7)",
+               "flash_dkv_": "flash dk/dv (B7)",
                "ln_bwd": "LayerNorm backward (B4)",
-               "ln_fwd_kernel": "LayerNorm forward (B2, B3)"}
+               "ln_fwd_": "LayerNorm forward (B2, B3)"}
 
 
 def main(argv=None) -> int:

@@ -52,7 +52,9 @@ def test_layer_norm_kernels_match_plain_on_card(card, dtype):
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
 def test_grouped_ffn_kernel_matches_plain_on_card(card, cdt):
     """The grouped FFN kernel against its plain version on the card at a
-    ragged shape (E=2, C=70, d=96, ff=200): 1e-3 of the output scale."""
+    ragged shape (E=2, C=70, d=96, ff=200): 1e-3 of the output scale.
+    f32 runs the CUDA-core GEMM; bf16 the tensor-core GEMM with every
+    operand by TMA and, on a 132-SM card, K split in both products."""
     gen = torch.Generator(device=card).manual_seed(1)
     e, c, d, ff = 2, 70, 96, 200
     args = (torch.randn(e, c, d, generator=gen, device=card),
@@ -79,6 +81,32 @@ def test_layer_norm_kernel_odd_shapes_on_card(card, rows, d):
     torch.testing.assert_close(fused.fused_layer_norm(x, g, b),
                                fused.layer_norm_reference(x, g, b),
                                rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_register_path_edges_on_card(card, dtype, rows):
+    """B2 and B3 at the register path's widest row (one warp a row, 32
+    values a lane at 1024) and 4 past it (one block a row), at 1 and 8
+    rows: y within 1e-4, s bitwise."""
+    from distributed_tensorflow_example_tpu_torch.ops import _build
+
+    limit = _build.load().dtx_layer_norm_reg_max_d()
+    for d in (limit, limit + 4):
+        gen = torch.Generator(device=card).manual_seed(rows + d)
+        x = (3 * torch.randn(rows, d, generator=gen, device=card)
+             + 1).to(dtype)
+        r = torch.randn(rows, d, generator=gen, device=card).to(dtype)
+        g = torch.randn(d, generator=gen, device=card)
+        b = torch.randn(d, generator=gen, device=card)
+        torch.testing.assert_close(fused.fused_layer_norm(x, g, b),
+                                   fused.layer_norm_reference(x, g, b),
+                                   rtol=0, atol=1e-4)
+        y, s_ = fused.fused_layer_norm_residual(x, r, g, b)
+        y_ref, s_ref = fused.layer_norm_residual_reference(x, r, g, b)
+        assert torch.equal(s_, s_ref), d
+        torch.testing.assert_close(y, y_ref, rtol=0, atol=1e-4)
 
 
 @pytest.mark.cuda
@@ -128,6 +156,73 @@ def test_grouped_ffn_z1_form_matches_plain_on_card(card, cdt, e, c):
                                atol=1e-3 * float(want_out.abs().max()))
     torch.testing.assert_close(z1, want_z1, rtol=0,
                                atol=1e-5 * float(want_z1.abs().max()))
+
+
+# bf16 B8 on the tensor cores: (E, C, d, ff) and the routes it takes.
+# x [E, C, d] and h1 [E, C, ff] are read with rows of d and ff, W1 with
+# rows of ff, W2 with rows of d: TMA where the width is a multiple of 8,
+# 4-byte cp.async pairs where it is even, scalar loads where it is odd.
+# The plans are those of a 132-SM H100 (grouped_ffn_plan): (halves,
+# splits) of launch 1 and launch 2.
+TC_FFN_CASES = [
+    # ragged C: TMA everywhere; plans ((1, 1), (1, 2)), ((2, 1), (1, 1)),
+    # ((1, 1), (1, 2)): a 129-row C spans two 128-row tiles, a 300-row C
+    # three; 1024-wide rows, 2048-wide hidden
+    pytest.param(3, 129, 1024, 2048, id="tma-C129"),
+    pytest.param(8, 300, 1024, 2048, id="tma-C300-wide-tiles"),
+    pytest.param(2, 70, 256, 512, id="tma-C70"),
+    # E 1 at the serve's decode and prefill rows: the split-K plans
+    # ((1, 4), (1, 16)) and ((1, 1), (1, 4)), TMA everywhere
+    pytest.param(1, 8, 1024, 4096, id="tma-decode-split"),
+    pytest.param(1, 512, 1024, 4096, id="tma-prefill-split"),
+    # d 96 by TMA, ff 202: W1 and h1 by 4-byte pairs (a ragged K of 96
+    # in launch 1, zero-filled past the last column in both)
+    pytest.param(2, 70, 96, 202, id="pairs-ff202"),
+    # d 98: x and W2 by pairs; ff 201: W1 and h1 by scalar loads
+    pytest.param(2, 70, 98, 201, id="pairs-d98-scalar-ff201"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,d,ff", TC_FFN_CASES)
+def test_grouped_ffn_tensor_core_path_matches_plain_on_card(card, e, c, d,
+                                                            ff):
+    """B8 in bf16 (both forms) on the tensor cores against its plain
+    version, at ragged C, at E 1 where the plan splits K, and at widths
+    TMA cannot take: out within 1e-3 of its scale (a bf16 hidden may
+    round one ulp apart where the two f32 pre-activations straddle a
+    boundary) and the f32 z1 within 1e-5 of its scale (the same exact
+    bf16 products summed in another order)."""
+    bf16 = torch.bfloat16
+    args = _ffn_args(card, 30 + c + d, e, c, d, ff)
+    want_out, want_z1 = fused.grouped_ffn_reference("gelu", bf16, *args)
+    out, z1 = fused.moe_grouped_matmul_z1("gelu", bf16, *args)
+    primal = fused.moe_grouped_matmul("gelu", bf16, *args)
+    torch.cuda.synchronize()
+    assert z1.shape == (e, c, ff) and z1.dtype == torch.float32
+    for got, want, tol, name in ((out, want_out, 1e-3, "out"),
+                                 (primal, want_out, 1e-3, "primal out"),
+                                 (z1, want_z1, 1e-5, "z1")):
+        _close_scaled(got, want, tol, f"{name} [{e}, {c}, {d}] x {ff}")
+
+
+@pytest.mark.cuda
+def test_grouped_ffn_split_k_is_deterministic_on_card(card):
+    """At decode rows the plan splits K in both products, and the f32
+    shares are summed in a fixed order by a second launch, with no
+    atomics: two calls give the same bits, out and z1."""
+    e, c, d, ff = 1, 8, 1024, 4096
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    plan = fused.grouped_ffn_plan(e, c, d, ff, sms)
+    assert plan[0][1] > 1 and plan[1][1] > 1, plan
+    args = _ffn_args(card, 40, e, c, d, ff)
+    out_a, z1_a = fused.moe_grouped_matmul_z1("gelu", torch.bfloat16, *args)
+    out_b, z1_b = fused.moe_grouped_matmul_z1("gelu", torch.bfloat16, *args)
+    primal_a = fused.moe_grouped_matmul("gelu", torch.bfloat16, *args)
+    primal_b = fused.moe_grouped_matmul("gelu", torch.bfloat16, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(out_a, out_b) and torch.equal(z1_a, z1_b)
+    assert torch.equal(primal_a, primal_b) and torch.equal(primal_a, out_a)
 
 
 @pytest.mark.cuda
@@ -481,13 +576,17 @@ def _sass_functions(lib_path):
 @pytest.mark.cuda
 def test_flash_bf16_kernels_use_tensor_cores(card):
     """The bf16 forward (4 instantiations: causal x stats), dq (2) and
-    dk/dv (2), and B1's bf16 GEMM (2: hidden and logits outputs), issue
+    dk/dv (2), and the bf16 tensor-core GEMM that B1's layers and B8's
+    two products share (8: B1's hidden and logits outputs; B8's bf16
+    hidden with and without z1 and its f32 output or split-K shares,
+    each at 256- and 128-wide tiles), issue
     tensor-core MMAs (HMMA or HGMMA in their SASS; HGMMA for dk/dv and
     the GEMM, which are wgmma only); the f32 forward (4), dq (2) and
     dk/dv (2) and the CUDA-core GEMM ``gemm_bias_act_kernel`` (the f32
-    MLP layers and the grouped FFN) issue none (f32 attention and the
-    f32 MLP stay on f32 FMA: TF32 would break their 1e-4); the old bf16
-    instantiations of the CUDA-core forward, dq and dk/dv are gone."""
+    MLP layers and the f32 grouped FFN) issue none (f32 attention, the
+    f32 MLP and the f32 FFN stay on f32 FMA: TF32 would break their 1e-4
+    and 1e-3); no bf16 instantiation of the CUDA-core forward, dq, dk/dv
+    or GEMM is left."""
     from distributed_tensorflow_example_tpu_torch.ops import _build
 
     funcs = _sass_functions(_build.build())
@@ -498,8 +597,22 @@ def test_flash_bf16_kernels_use_tensor_cores(card):
     assert sum("flash_fwd_tc_kernel" in n for n in tc) == 4, sorted(funcs)
     assert sum("flash_dq_tc_kernel" in n for n in tc) == 2, sorted(funcs)
     assert sum("flash_dkv_tc_kernel" in n for n in tc) == 2, sorted(funcs)
-    assert sum("gemm_bias_act_tc_kernel" in n for n in tc) == 2, \
-        sorted(funcs)
+    # each source that includes gemm_tc.cuh has its own copy (internal
+    # linkage): B1's two in mlp_forward.cu; B8's six in grouped_ffn.cu,
+    # bf16 out at both widths with and without z1, f32 out at both
+    gemm = sorted(n for n in tc if "gemm_bias_act_tc_kernel" in n)
+    assert len(gemm) == 8, gemm
+    for src, frags in (("mlp_forward_cu", ("I13__nv_bfloat16Li2ELb0E",
+                                           "IfLi2ELb0E")),
+                       ("grouped_ffn_cu", ("I13__nv_bfloat16Li2ELb0E",
+                                           "I13__nv_bfloat16Li2ELb1E",
+                                           "I13__nv_bfloat16Li1ELb0E",
+                                           "I13__nv_bfloat16Li1ELb1E",
+                                           "IfLi2ELb0E", "IfLi1ELb0E"))):
+        mine = [n for n in gemm if src in n]
+        assert len(mine) == len(frags), (src, gemm)
+        for frag in frags:
+            assert sum(frag in n for n in mine) == 1, (src, frag, gemm)
     for name, sass in tc.items():
         assert any(op in sass for op in tensor_ops), name
         if "flash_dkv_tc_kernel" in name or "gemm_bias_act_tc_kernel" in name:
@@ -515,6 +628,7 @@ def test_flash_bf16_kernels_use_tensor_cores(card):
                 if "gemm_bias_act_kernel" in n}
     assert fma_gemm, sorted(funcs)
     for name, sass in fma_gemm.items():
+        assert "__nv_bfloat16" not in name, name
         assert not any(op in sass for op in tensor_ops), name
 
 

@@ -258,3 +258,56 @@ def test_resolve_device_never_falls_back_to_cpu():
             tdevice.resolve_device("cuda")
     with pytest.raises(ValueError):
         tdevice.resolve_device("meta")
+
+
+# the bf16 grouped FFN's launch plans on an H100 (132 SMs) at the paths'
+# shapes, as grouped_ffn.cu's header lists them: (halves, splits) of
+# launch 1 and launch 2, and their CTAs
+PATH_PLANS = [
+    # decode: E 1, C 8, d 1024, ff 4096
+    ((1, 8, 1024, 4096), ((1, 4), (1, 16)), (128, 128)),
+    # prefill: C 512
+    ((1, 512, 1024, 4096), ((1, 1), (1, 4)), (128, 128)),
+    # moe_wide training: E 64, C 640, d 1024, ff 2048
+    ((64, 640, 1024, 2048), ((2, 1), (2, 1)), (2560, 1280)),
+    # moe_wide eval: C 160
+    ((64, 160, 1024, 2048), ((2, 1), (2, 1)), (1024, 512)),
+]
+
+
+@pytest.mark.parametrize("shape,plan,ctas", PATH_PLANS,
+                         ids=["decode", "prefill", "moe_wide", "moe_eval"])
+def test_grouped_ffn_plan_at_the_paths_shapes(shape, plan, ctas):
+    """The plan ``grouped_ffn_plan`` picks at each path's shape on 132
+    SMs, and the CTAs each launch then has."""
+    e, c, d, ff = shape
+    got = fused.grouped_ffn_plan(e, c, d, ff, 132)
+    assert got == plan
+    assert fused.grouped_ffn_ctas(got, e, c, d, ff) == ctas
+
+
+@pytest.mark.parametrize("sms", [132, 114, 8])
+def test_grouped_ffn_plan_fills_one_wave_with_equal_shares(sms):
+    """Over a grid of shapes: 256-wide tiles only where they give at
+    least one CTA an SM, 128-wide where those do; a split only where
+    even the 128-wide tiles are fewer than the SMs, then no more CTAs
+    than one wave, each share of K nonempty and none larger than the
+    first, and a split of 2 or more wherever two shares fit in one
+    wave (an empty buffer, C 0, included)."""
+    for e in (1, 2, 8, 64):
+        for c in (0, 1, 8, 70, 129, 512, 640):
+            for n, k in ((4096, 1024), (1024, 4096), (200, 96), (201, 98)):
+                halves, splits = fused._product_plan(e, c, n, k, sms)
+                wide = fused.product_ctas(e, c, n, 2, 1)
+                narrow = fused.product_ctas(e, c, n, 1, 1)
+                slices = -(-k // 64)
+                assert (halves == 2) == (wide >= sms)
+                if halves == 2 or narrow >= sms:
+                    assert splits == 1
+                    continue
+                assert halves == 1 and 1 <= splits <= slices
+                assert narrow * splits <= max(sms, narrow)
+                per = -(-slices // splits)
+                assert (splits - 1) * per < slices      # last share nonempty
+                if 2 * narrow <= sms and slices >= 2:
+                    assert splits >= 2
