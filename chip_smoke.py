@@ -31,13 +31,15 @@ Phases (any failure exits nonzero; none is caught and skipped):
 and for the MLP trainer (``main.py`` -> ``train/loop.run``):
 
 2b. hold the MLP forward kernel (``mlp_forward``) against its plain
-    version at the trainer's two shapes — the reference MLP (100 rows,
-    784-100-10, sigmoid, f32) and the wide one (8192 rows,
-    784-4096-4096-10, relu, bf16) — logits and hiddens, and the logits
-    layer alone on the kernel's last hidden — and time it beside its
-    plain version, a cuBLAS ``addmm`` chain and its bound; the bf16 row
-    carries the tensor-core GEMM's registers and spills, TFLOP/s and the
-    factor against the ``addmm`` chain;
+    version at the trainer's shapes — the wide one (8192 rows,
+    784-4096-4096-10, relu, bf16) and the reference MLP (784-100-10,
+    sigmoid, f32) at a training step's 100 rows and eval's 2000 — logits
+    and hiddens, and the logits layer alone on the kernel's last hidden
+    — and time it beside its plain version, a cuBLAS ``addmm`` chain and
+    its bound; every row carries its design, the GEMM's registers and
+    spills, TFLOP/s and the factor against the ``addmm`` chain, the f32
+    rows also the split of K of each layer (a kernel entry of their own,
+    ``mlp_forward_f32``, whose launches are phase 6's);
 5. train at full width: the JAX repo's ``mxu_wide_pallas`` bench
    configuration (784-4096-4096-10, relu, bf16 compute over f32
    params, global batch 8192, ``--pallas``, SGD) for one epoch of 8
@@ -61,7 +63,10 @@ and for the transformer trainer (``main.py --model=transformer`` ->
     shapes, timed at the path's [8, 8192, 8, 128], where each batch
     element of the timed launches' outputs is held against the plain
     version on that element's inputs; the LayerNorm
-    backward at 65,536 x 1024 f32 — and time each beside its plain
+    backward at 65,536 x 1024 f32, whose row also carries the route it
+    took (``variant``: "warp" or "block"), its count of dg/db partial
+    rows and the time of each of its two launches (``torch.profiler``,
+    after every other phase) — and time each beside its plain
     version, a PyTorch library call and its bound; the rows of the
     bf16 tensor-core forward, dq and dk/dv also carry their design,
     registers and spilled bytes (from the compiler's report of the
@@ -328,19 +333,49 @@ def device_ms(fn, arg_sets, reps: int = 3) -> float:
 
 def event_ms(fn, args, reps: int = 3) -> float:
     """Device time of one ``fn(*args)`` call in ms, for calls long
-    enough (milliseconds) that host launch overhead does not count and
-    whose temporaries are too large to keep one set per call of a CUDA
-    graph: one warm-up call, then ``reps`` calls between CUDA events."""
+    enough (a few hundred us or more) that host launch overhead does not
+    count and whose temporaries are too large to keep one set per call
+    of a CUDA graph: one warm-up call, then ``reps`` calls between CUDA
+    events.  One more call is enqueued before the first event, so the
+    card is busy while the host enqueues the first timed call: the
+    window holds no wait for the host."""
     fn(*args)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    fn(*args)
     start.record()
     for _ in range(reps):
         fn(*args)
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def launch_us(fn, args, calls: int = 10) -> dict:
+    """{kernel name: device us per call} of ``calls`` calls of
+    ``fn(*args)`` under ``torch.profiler`` (CUDA activity only), after
+    one call outside it: the time of each launch a call makes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        out[ev.key[:80]] = us / calls
+    if not out:
+        raise RuntimeError("the profiler recorded no device time")
+    return out
 
 
 def copies(make, bytes_per_set: int):
@@ -407,6 +442,28 @@ LN_KERNELS = {(name, dt, route): f"{kernel}I{mangled}Lb{int(res)}EE"
 LN_USAGE: dict = {}
 LN_DESIGN = {"warp": "warp per row, registers, shuffles",
              "block": "CTA per row, shared memory, block reductions"}
+# B4's kernels, keyed by (route, dtype), and the second launch that sums
+# its dg/db partial rows; B1's f32 GEMM by its load routes (16-byte
+# vectors or scalars for A, W): the reference MLP's first layer takes
+# (vector, vector), its logits layer (N 10) (vector, scalar)
+LN_BWD_KERNELS = {
+    **{(route, dt): f"{kernel}I{mangled}EE"
+       for dt, mangled in (("f32", "f"), ("bf16", "13__nv_bfloat16"))
+       for route, kernel in (("warp", "ln_bwd_warp_kernel"),
+                             ("block", "ln_bwd_kernel"))},
+    "reduce": "ln_bwd_reduce_kernel"}
+LN_BWD_USAGE: dict = {}
+# (the column sum is a programmatic dependent launch: its profiled time
+# starts while the row pass's last CTAs run)
+LN_BWD_DESIGN = {
+    "warp": "warp per row in registers, next row prefetched, shuffles, "
+            "per-warp dg/db partials in shared memory, persistent grid; "
+            "fixed-order column sum, dependent launch",
+    "block": "CTA per row, shared memory, block reductions; fixed-order "
+             "column sum, dependent launch"}
+MLP_F32 = {(va, vb): f"fma_gemm_kernelILb{int(va)}ELb{int(vb)}EE"
+           for va in (True, False) for vb in (True, False)}
+MLP_F32_USAGE: dict = {}
 
 
 def _usage_row(uses) -> dict:
@@ -430,7 +487,9 @@ def phase_build():
         f"({_build.last_build.get('path')})")
     usage = ptxas_usage(_build.last_build.get("log") or "")
     for frags, into in ((FLASH_TC, FLASH_USAGE), (MLP_TC, MLP_USAGE),
-                        (B8_TC, B8_USAGE), (LN_KERNELS, LN_USAGE)):
+                        (B8_TC, B8_USAGE), (LN_KERNELS, LN_USAGE),
+                        (LN_BWD_KERNELS, LN_BWD_USAGE),
+                        (MLP_F32, MLP_F32_USAGE)):
         for form, frag in frags.items():
             parts = (frag,) if isinstance(frag, str) else frag
             found = [u for name, u in usage.items()
@@ -456,11 +515,10 @@ def _ln_route(d: int, tensors) -> str:
     ``dtx_layer_norm_reg_max_d``, a multiple of the 4-value vector, and
     every operand lies on its vector's boundary (the outputs are fresh
     allocations, which do), else the CTA-a-row kernel ("block")."""
-    from distributed_tensorflow_example_tpu_torch.ops import _build
+    from distributed_tensorflow_example_tpu_torch.ops import _build, fused
 
     reg = (d <= _build.load().dtx_layer_norm_reg_max_d() and d % 4 == 0
-           and all(t.data_ptr() % (4 * t.element_size()) == 0
-                   for t in tensors))
+           and fused._vec_aligned(*tensors))
     return "warp" if reg else "block"
 
 
@@ -630,7 +688,8 @@ def check_mlp_forward(card: str) -> list:
     from distributed_tensorflow_example_tpu_torch.ops import fused
 
     shapes = [(8192, (4096, 4096), "relu", torch.bfloat16),
-              (100, (100,), "sigmoid", torch.float32)]
+              (100, (100,), "sigmoid", torch.float32),
+              (2000, (100,), "sigmoid", torch.float32)]
     rows_list = []
     for n, hidden, act_name, cdt in shapes:
         spec = mlp.MLPSpec(hidden_sizes=hidden, activation=act_name,
@@ -722,6 +781,17 @@ def check_mlp_forward(card: str) -> list:
             row.update(design="wgmma+TMA", regs=use["regs"],
                        spill_bytes=(use.get("spill_stores", 0)
                                     + use.get("spill_loads", 0)))
+        else:
+            # the plan of the call checked above; the layers' load routes
+            # as mlp_forward.cu picks them (fresh tensors are aligned)
+            _, plan = fused.mlp_forward.last_plan
+            uses = [MLP_F32_USAGE[(sizes[j - 1] % 4 == 0,
+                                   sizes[j] % 4 == 0)]
+                    for j in range(1, L + 1)]
+            row.update(design="FMA, 32x32 tiles, K split over a cluster "
+                              "(DSMEM sum): (splits, CTAs) per layer "
+                              f"{list(plan)}",
+                       plan=[list(p) for p in plan], **_usage_row(uses))
         log(f"[kernel] mlp_forward N={n} {'-'.join(map(str, sizes))} "
             f"{act_name} {str(cdt).split('.')[-1]}: max_abs_err={err:.4g} "
             f"(scale {scale:.4g}, tol {rtol_logits} x scale); logits "
@@ -735,7 +805,7 @@ def check_mlp_forward(card: str) -> list:
                f"{row['spill_bytes']} B spilled" if "design" in row
                else ""))
         rows_list.append(row)
-    return [("mlp_forward", rows_list)]
+    return [("mlp_forward", rows_list[:1]), ("mlp_forward_f32", rows_list[1:])]
 
 
 def _errs(got, want) -> tuple:
@@ -945,11 +1015,8 @@ def check_layer_norm_backward(card: str) -> list:
 
     from distributed_tensorflow_example_tpu_torch.ops import fused
 
-    rows_n, d = 8 * 8192, 1024
-    g_ = _gen(13000)
-    x = 2 * torch.randn(rows_n, d, generator=g_, device="cuda") + 0.5
-    dy = torch.randn(rows_n, d, generator=g_, device="cuda")
-    gam = 1 + 0.1 * torch.randn(d, generator=g_, device="cuda")
+    rows_n, d = LN_BWD_SHAPE
+    dy, x, gam = _ln_bwd_inputs()
     got = fused.layer_norm_backward(dy, x, gam)
     want = fused.layer_norm_backward_reference(dy, x, gam)
     torch.cuda.synchronize()
@@ -966,17 +1033,55 @@ def check_layer_norm_backward(card: str) -> list:
                                                retain_graph=True), (), 10)
     nbytes = 3 * rows_n * d * 4 + 3 * d * 4
     bound, by = _bound(nbytes, 15 * rows_n * d, torch.float32)
+    # the plan of the call checked above (route, CTAs = dg/db partial
+    # rows); the time of each of its two launches is taken last of all
+    # (ln_bwd_launch_split), so that no profiler session runs before a
+    # timed phase
+    route, ctas = fused.layer_norm_backward.last_plan
     row = dict(rows=rows_n, d=d, dtype="f32", max_abs_err=abs_err,
                rel_err=err,
                ms=event_ms(fused.layer_norm_backward, (dy, x, gam), 10),
                plain_ms=event_ms(fused.layer_norm_backward_reference,
                                  (dy, x, gam), 3),
-               library_ms=lib, bound_ms=bound, bound_by=by, bytes=nbytes)
+               library_ms=lib, bound_ms=bound, bound_by=by, bytes=nbytes,
+               variant=route, partials=ctas, design=LN_BWD_DESIGN[route],
+               **_usage_row([LN_BWD_USAGE[(route, "f32")],
+                             LN_BWD_USAGE["reduce"]]))
+    row["x_library"] = row["ms"] / lib
     log(f"[kernel] layer_norm_backward rows={rows_n} d={d} f32: "
         f"{err:.3g} of scale (tol {LN_BWD_RTOL}), kernel {row['ms']:.4f} "
-        f"ms, plain {row['plain_ms']:.4f} ms, library {lib:.4f} ms, bound "
-        f"{bound:.4f} ms ({by}) on {card}")
+        f"ms, plain {row['plain_ms']:.4f} ms, library {lib:.4f} ms (kernel "
+        f"{row['x_library']:.2f}x), bound {bound:.4f} ms ({by}; kernel at "
+        f"{bound / row['ms']:.1%}) on {card}; {route} route, {ctas} "
+        f"partial rows; {row['design']}, {row['regs']} registers, "
+        f"{row['spill_bytes']} B spilled")
     return [("layer_norm_backward", [row])]
+
+
+# B4's check: the path's rows, and its inputs from one seed
+LN_BWD_SHAPE = (8 * 8192, 1024)
+
+
+def _ln_bwd_inputs():
+    rows_n, d = LN_BWD_SHAPE
+    g_ = _gen(13000)
+    x = 2 * torch.randn(rows_n, d, generator=g_, device="cuda") + 0.5
+    dy = torch.randn(rows_n, d, generator=g_, device="cuda")
+    gam = 1 + 0.1 * torch.randn(d, generator=g_, device="cuda")
+    return dy, x, gam
+
+
+def ln_bwd_launch_split(card: str, row: dict) -> None:
+    """The device time of each of B4's two launches at the path's shape
+    (``torch.profiler``), into its report row."""
+    from distributed_tensorflow_example_tpu_torch.ops import fused
+
+    row["launches_us"] = launch_us(fused.layer_norm_backward,
+                                   _ln_bwd_inputs())
+    log(f"[kernel] layer_norm_backward rows={LN_BWD_SHAPE[0]} d="
+        f"{LN_BWD_SHAPE[1]} f32, each launch: "
+        + ", ".join(f"{k} {v:.2f} us" for k, v in row["launches_us"].items())
+        + f" on {card} (the column sum's time starts at its early launch)")
 
 
 def check_grouped_ffn_z1(card: str) -> list:
@@ -1638,6 +1743,14 @@ KERNEL_META = {
                "gemm_tc.cuh",
         replaces="distributed_tensorflow_example_tpu/ops/pallas_fused.py:"
                  "71"),
+    # B1's f32 layers (the reference MLP, phase 6's run): the same TPU
+    # kernel, its f32 form
+    "mlp_forward_f32": dict(
+        wrapper="mlp_forward", path="mlp_cli",
+        source="distributed_tensorflow_example_tpu_torch/ops/csrc/"
+               "mlp_forward.cu",
+        replaces="distributed_tensorflow_example_tpu/ops/pallas_fused.py:"
+                 "71"),
     "layer_norm_backward": dict(
         wrapper="layer_norm_backward",
         source="distributed_tensorflow_example_tpu_torch/ops/csrc/"
@@ -1692,11 +1805,12 @@ def main() -> int:
     counts = phase_serve(card)
     phase_http()
     train = phase_train(card)
-    phase_cli(card)
+    cli = phase_cli(card)
     tfm_train = phase_transformer_train(card)
     phase_transformer_step(card)
     moe_train = phase_moe_train(card)
     phase_moe_step(card)
+    ln_bwd_launch_split(card, dict(measured)["layer_norm_backward"][0])
     # each kernel's launches on its own main path: the full-width serve
     # (phase 3) for the serving kernels, the full-width MLP training run
     # (phase 5) for the MLP forward, the full-width transformer training
@@ -1704,6 +1818,7 @@ def main() -> int:
     # the full-width MoE run under --grouped_moe (phase 8) for B8's
     # training form
     by_path = {"serve": dict(counts), "mlp_train": train["counts"],
+               "mlp_cli": cli["counts"],
                "transformer_train": tfm_train["counts"],
                "moe_train": moe_train[0]["counts"],
                "moe_train_fp8": moe_train[1]["counts"]}
@@ -1719,7 +1834,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"],
-            "launches": counts[meta["wrapper"]],
+            "launches": (by_path[meta["path"]] if "path" in meta
+                         else counts)[meta["wrapper"]],
             "launches_by_path": {p: c[meta["wrapper"]]
                                  for p, c in by_path.items()
                                  if c[meta["wrapper"]] > 0},
@@ -1728,7 +1844,9 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             **{k: head[k] for k in ("design", "regs", "spill_bytes",
-                                    "tflops", "x_library") if k in head},
+                                    "tflops", "x_library", "variant",
+                                    "partials", "launches_us", "plan")
+               if k in head},
             "shapes": rows,
         })
     smi = subprocess.run(

@@ -55,9 +55,9 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* done) {
 }
 
 // ---------------------------------------------------------------------------
-// The tiled GEMM with a fused bias + activation epilogue that the grouped
-// FFN (grouped_ffn.cu, two launches) and the MLP forward (mlp_forward.cu,
-// one launch per layer) share:
+// The tiled GEMM with a fused bias + activation epilogue of the grouped
+// FFN's f32 form (grouped_ffn.cu, two launches; the f32 MLP forward has
+// its own split-K GEMM in mlp_forward.cu):
 //   z[e] = A[e] @ B[e] + bias[e]                 (f32; stored when kWithZ)
 //   out[e] = round_to_OutT(act(z[e]))
 // kWithZ (the grouped FFN's training form only) also writes the f32

@@ -44,11 +44,26 @@
 // math).  It is bound by bytes too: dy and x read once, dx written once
 // (805 MB at 65,536 x 1024 f32, 0.24 ms at 3.35 TB/s).  The TPU kernel
 // carries dg/db in one [1, d] block across its sequential grid; CTAs run
-// in no order here, so each CTA walks a strip of rows (row = cta,
-// cta + G, ...), keeps its own dg/db partial sums in shared memory
-// (each column owned by one thread, so no atomics), and writes them to
-// a [2, G, d] buffer; a second launch sums the G partials of each
-// column in a fixed order, so dg/db are deterministic.
+// in no order here.  Rows the forward's register path would take take
+// ln_bwd_warp_kernel: a persistent grid of the CTAs the card holds at
+// once (planned by ops/fused.layer_norm_backward_plan from the SM count
+// and this kernel's occupancy: a few hundred), four warps a CTA, one
+// warp a row, x and dy read as 16-byte (bf16 x: 8-byte) vectors into
+// registers, the mean, the two-pass variance, sum(w) and sum(w * xh) by
+// warp shuffles alone, dx written as vectors, the next row's x and dy
+// loaded while this one is worked on, and each warp's dg/db partials for
+// its lane's columns kept in its own rows of shared memory over every
+// row it walks; the CTA adds its warps' partials in warp order once, at
+// the end, into its row of a [2, G, d] buffer.  Other rows take
+// ln_bwd_kernel: one CTA of 256 threads a row at a time over a strip of
+// rows (row = cta, cta + G, ...), x and dy staged in shared memory as
+// f32, block-wide reductions, the partials in shared memory (each
+// column owned by one thread, so no atomics).  Either way a second
+// launch, ln_bwd_reduce_kernel, sums the G partials of each column over
+// CTAs that each own 16 columns, in a fixed order, so dg and db are the
+// same bits on every run of a card and no float atomics are used; it is
+// a programmatic dependent launch, so its launch latency hides under
+// the row pass's tail.
 #include "common.cuh"
 
 #include <cstdint>
@@ -276,11 +291,10 @@ int dispatch(const void* x, const void* r, const void* g, const void* b,
   }
 }
 
-// CTAs of the backward: about eight per SM of an H100, each walking
-// rows/G rows; G = min(rows, kLnBwdCtas) is the wrapper's choice
-constexpr int kLnBwdCtas = 132 * 8;
-// x row, dy row and the two partial-sum rows: 4d floats, an opt-in above
-// 48 KB of dynamic shared memory (d <= kLnMaxD keeps it under 227 KB)
+// the backward's CTA-a-row kernel (rows the register path does not
+// take): x row, dy row and the two partial-sum rows, 4d floats, an
+// opt-in above 48 KB of dynamic shared memory (d <= kLnMaxD keeps it
+// under 227 KB)
 constexpr size_t kLnBwdMaxSmem = 4 * (size_t)kLnMaxD * sizeof(float);
 
 template <typename T>
@@ -341,39 +355,236 @@ __global__ void __launch_bounds__(kLnThreads)
   }
 }
 
-// dg[c] = sum over the G partials of column c, in CTA order (then db)
-__global__ void ln_bwd_reduce_kernel(const float* __restrict__ part,
-                                     float* __restrict__ dg,
-                                     float* __restrict__ db, int G, int d) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= 2 * d) return;
-  const int which = i / d;
-  const int col = i % d;
-  const float* p = part + (size_t)which * G * d + col;
-  float s = 0.f;
-  for (int r = 0; r < G; ++r) s += p[(size_t)r * d];
-  (which == 0 ? dg : db)[col] = s;
+// the backward's register path: kLnBwdWarps rows in flight a CTA, one
+// warp a row, rows up to kLnRegMaxD wide as in the forward's register
+// path.  Each warp walks rows row = warp, warp + W, ... over the grid's
+// W warps, loading the next row's x and dy into registers while it works
+// on this one, and adds this row's dg/db terms for its lane's columns
+// into its own partial rows in shared memory (registers could not hold
+// them beside two rows in flight); at the end the CTA adds its warps'
+// partials in warp order into the CTA's row of ``part``.
+constexpr int kLnBwdWarps = 4;
+
+// x and dy of one row into registers, lane l holding columns 4 (32 i +
+// l) .. + 3 for i < kLnRegIters, those past d untouched
+template <typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ x,
+                                         const float* __restrict__ dy,
+                                         size_t base, int d, int lane,
+                                         float xv[kLnRegIters][kLnVec],
+                                         float dv[kLnRegIters][kLnVec]) {
+#pragma unroll
+  for (int i = 0; i < kLnRegIters; ++i) {
+    const int c = (32 * i + lane) * kLnVec;
+    if (c >= d) continue;
+    load_vec(x + base + c, xv[i]);
+    load_vec(dy + base + c, dv[i]);
+  }
 }
+
+template <typename T>
+__global__ void __launch_bounds__(kLnBwdWarps * 32)
+    ln_bwd_warp_kernel(const float* __restrict__ dy, const T* __restrict__ x,
+                       const float* __restrict__ g, float* __restrict__ dx,
+                       float* __restrict__ part, int rows, int d) {
+  // [kLnBwdWarps][2][d]: each warp's dg partial row, then its db row
+  extern __shared__ __align__(16) float stage[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = gridDim.x * kLnBwdWarps;
+  float* mine = stage + (size_t)warp * 2 * d;
+  for (int c = lane * kLnVec; c < d; c += 32 * kLnVec) {
+    const float zero[kLnVec] = {0.f, 0.f, 0.f, 0.f};
+    store_vec(mine + c, zero);
+    store_vec(mine + d + c, zero);
+  }
+  float nx[kLnRegIters][kLnVec], nd[kLnRegIters][kLnVec];  // the next row
+  int row = blockIdx.x * kLnBwdWarps + warp;
+  if (row < rows) load_row(x, dy, (size_t)row * d, d, lane, nx, nd);
+  for (; row < rows; row += warps) {
+    const size_t base = (size_t)row * (size_t)d;
+    // xv holds x, then xh; dv holds dy, then w = dy * g
+    float xv[kLnRegIters][kLnVec], dv[kLnRegIters][kLnVec];
+#pragma unroll
+    for (int i = 0; i < kLnRegIters; ++i)
+#pragma unroll
+      for (int j = 0; j < kLnVec; ++j) {
+        xv[i][j] = nx[i][j];
+        dv[i][j] = nd[i][j];
+      }
+    if (row + warps < rows)
+      load_row(x, dy, (size_t)(row + warps) * d, d, lane, nx, nd);
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < kLnRegIters; ++i) {
+      if ((32 * i + lane) * kLnVec >= d) continue;
+#pragma unroll
+      for (int j = 0; j < kLnVec; ++j) acc += xv[i][j];
+    }
+    const float mu = warp_sum(acc) / (float)d;
+    acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < kLnRegIters; ++i) {
+      if ((32 * i + lane) * kLnVec >= d) continue;
+#pragma unroll
+      for (int j = 0; j < kLnVec; ++j) {
+        const float c = xv[i][j] - mu;
+        acc += c * c;
+      }
+    }
+    const float rstd = rsqrtf(warp_sum(acc) / (float)d + kLnEps);
+    float sw = 0.f, swx = 0.f;
+#pragma unroll
+    for (int i = 0; i < kLnRegIters; ++i) {
+      const int c = (32 * i + lane) * kLnVec;
+      if (c >= d) continue;
+      float gv[kLnVec], pg[kLnVec], pb[kLnVec];
+      load_vec(g + c, gv);
+      load_vec(mine + c, pg);
+      load_vec(mine + d + c, pb);
+#pragma unroll
+      for (int j = 0; j < kLnVec; ++j) {
+        const float xh = (xv[i][j] - mu) * rstd;
+        const float w = dv[i][j] * gv[j];
+        pg[j] += dv[i][j] * xh;
+        pb[j] += dv[i][j];
+        sw += w;
+        swx += w * xh;
+        xv[i][j] = xh;
+        dv[i][j] = w;
+      }
+      store_vec(mine + c, pg);
+      store_vec(mine + d + c, pb);
+    }
+    const float mw = warp_sum(sw) / (float)d;
+    const float mwx = warp_sum(swx) / (float)d;
+#pragma unroll
+    for (int i = 0; i < kLnRegIters; ++i) {
+      const int c = (32 * i + lane) * kLnVec;
+      if (c >= d) continue;
+      float o[kLnVec];
+#pragma unroll
+      for (int j = 0; j < kLnVec; ++j)
+        o[j] = rstd * ((dv[i][j] - mw) - xv[i][j] * mwx);
+      store_vec(dx + base + c, o);
+    }
+  }
+  // the column sum may start launching (it waits for this grid to end
+  // before it reads a partial row)
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  __syncthreads();
+  const size_t G = gridDim.x;
+  for (int k = threadIdx.x; k < 2 * d; k += blockDim.x) {
+    float s = stage[k];
+#pragma unroll
+    for (int w = 1; w < kLnBwdWarps; ++w) s += stage[(size_t)w * 2 * d + k];
+    const int which = k >= d;
+    part[((size_t)which * G + blockIdx.x) * (size_t)d + (k - which * d)] = s;
+  }
+}
+
+// the register path's staging buffer at its widest row: the occupancy
+// the wrapper plans with holds for every narrower row
+constexpr size_t kLnBwdWarpSmem =
+    (size_t)kLnBwdWarps * 2 * kLnRegMaxD * sizeof(float);
+
+// dg and db from the G partial rows of each: a CTA owns kLnRedCols
+// consecutive columns of [dg | db] (2d of them) and kLnRedGroups groups
+// of threads, group t summing partial rows t, t + kLnRedGroups, ... in
+// order; the groups' sums are then added in group order, so dg and db
+// are the same bits on every run.  2d / kLnRedCols CTAs: 128 at d 1024.
+// It is launched as a programmatic dependent of the row pass (Hopper's
+// griddepcontrol): its launch overlaps the row pass's last CTAs, and it
+// waits for the whole row pass, memory included, before its first read.
+constexpr int kLnRedCols = 16;
+constexpr int kLnRedGroups = kLnThreads / kLnRedCols;
+
+__global__ void __launch_bounds__(kLnThreads)
+    ln_bwd_reduce_kernel(const float* __restrict__ part,
+                         float* __restrict__ dg, float* __restrict__ db,
+                         int G, int d) {
+  __shared__ float sums[kLnRedGroups][kLnRedCols];
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int col = threadIdx.x % kLnRedCols;
+  const int grp = threadIdx.x / kLnRedCols;
+  const int k = blockIdx.x * kLnRedCols + col;   // column of [dg | db]
+  const int which = k >= d;
+  const int c = k - which * d;
+  float s = 0.f;
+  if (k < 2 * d) {
+    const float* p = part + (size_t)which * G * d + c;
+#pragma unroll 4
+    for (int r = grp; r < G; r += kLnRedGroups) s += p[(size_t)r * d];
+  }
+  sums[grp][col] = s;
+  __syncthreads();
+  if (grp == 0 && k < 2 * d) {
+    float t = sums[0][col];
+#pragma unroll
+    for (int i = 1; i < kLnRedGroups; ++i) t += sums[i][col];
+    (which ? db : dg)[c] = t;
+  }
+}
+
+// whether the backward's row tensors lie on their vectors' boundaries
+template <typename T>
+bool bwd_vec_aligned(const float* dy, const void* x, const float* g,
+                     const float* dx) {
+  const uintptr_t t = sizeof(T) * kLnVec, f = sizeof(float) * kLnVec;
+  auto at = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
+  return at(x) % t == 0 && at(dy) % f == 0 && at(g) % f == 0 &&
+         at(dx) % f == 0;
+}
+
+template <typename T>
+int bwd_warp_ctas_per_sm() {
+  int per_sm = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, ln_bwd_warp_kernel<T>, kLnBwdWarps * 32, kLnBwdWarpSmem);
+  return err == cudaSuccess ? per_sm : -(int)err;
+}
+
+// the route codes of the C interface (ops/fused.py _LN_BWD_ROUTES)
+constexpr int kLnBwdBlock = 0;
+constexpr int kLnBwdWarp = 1;
 
 template <typename T>
 cudaError_t launch_bwd(const float* dy, const void* x, const float* g,
                        float* dx, float* part, float* dg, float* db,
-                       int rows, int d, int ctas, cudaStream_t stream) {
-  static bool ready = false;
-  if (!ready) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ln_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kLnBwdMaxSmem);
+                       int rows, int d, int ctas, int route,
+                       cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  if (route == kLnBwdWarp) {
+    if (d > kLnRegMaxD || d % kLnVec != 0 ||
+        ctas > (rows + kLnBwdWarps - 1) / kLnBwdWarps ||
+        !bwd_vec_aligned<T>(dy, x, g, dx))
+      return cudaErrorInvalidValue;
+    ln_bwd_warp_kernel<T>
+        <<<ctas, kLnBwdWarps * 32,
+           (size_t)kLnBwdWarps * 2 * d * sizeof(float), stream>>>(
+            dy, xt, g, dx, part, rows, d);
+  } else {
+    static bool ready = false;
+    const cudaError_t err =
+        allow_smem(ln_bwd_kernel<T>, kLnBwdMaxSmem, &ready);
     if (err != cudaSuccess) return err;
-    ready = true;
+    ln_bwd_kernel<T><<<ctas, kLnThreads, 4 * (size_t)d * sizeof(float),
+                       stream>>>(dy, xt, g, dx, part, rows, d);
   }
-  ln_bwd_kernel<T><<<ctas, kLnThreads, 4 * (size_t)d * sizeof(float),
-                     stream>>>(dy, static_cast<const T*>(x), g, dx, part,
-                               rows, d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ln_bwd_reduce_kernel<<<(2 * d + kLnThreads - 1) / kLnThreads, kLnThreads,
-                         0, stream>>>(part, dg, db, ctas, d);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((2 * d + kLnRedCols - 1) / kLnRedCols);
+  cfg.blockDim = dim3(kLnThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, ln_bwd_reduce_kernel,
+                           static_cast<const float*>(part), dg, db, ctas, d);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -404,16 +615,20 @@ extern "C" int dtx_layer_norm_reg_max_d() { return dtx::kLnRegMaxD; }
 
 // dy: [rows, d] f32; x: [rows, d] of ``dtype`` (the forward's input, or
 // its residual sum s); g: [d] f32; dx: [rows, d] f32; part: [2, ctas, d]
-// f32 scratch; dg, db: [d] f32.  1 <= ctas <= min(rows,
-// dtx_layer_norm_bwd_max_ctas()).  Two launches; returns the cudaError_t
-// of the first that fails (0 = success).
+// f32 scratch; dg, db: [d] f32.  ``route`` 1: the register path (d <=
+// dtx_layer_norm_reg_max_d, d a multiple of 4, dy, x, g and dx on their
+// vectors' boundaries; 1 <= ctas <= ceil(rows / 4)), 0: the CTA-a-row
+// kernel (1 <= ctas <= rows).  ops/fused.layer_norm_backward_plan picks
+// both.  Two launches; returns the cudaError_t of the first that fails
+// (0 = success).
 extern "C" int dtx_layer_norm_bwd(const void* dy, const void* x,
                                   const void* g, void* dx, void* part,
                                   void* dg, void* db, int rows, int d,
-                                  int ctas, int dtype, void* stream) {
+                                  int ctas, int route, int dtype,
+                                  void* stream) {
   using namespace dtx;
   if (rows < 1 || d < 1 || d > kLnMaxD || ctas < 1 || ctas > rows ||
-      ctas > kLnBwdCtas)
+      (route != kLnBwdBlock && route != kLnBwdWarp))
     return (int)cudaErrorInvalidValue;
   const float* dyf = static_cast<const float*>(dy);
   const float* gf = static_cast<const float*>(g);
@@ -425,13 +640,26 @@ extern "C" int dtx_layer_norm_bwd(const void* dy, const void* x,
   switch (dtype) {
     case kFloat32:
       return (int)launch_bwd<float>(dyf, x, gf, dxf, pf, dgf, dbf, rows, d,
-                                    ctas, st);
+                                    ctas, route, st);
     case kBFloat16:
       return (int)launch_bwd<__nv_bfloat16>(dyf, x, gf, dxf, pf, dgf, dbf,
-                                            rows, d, ctas, st);
+                                            rows, d, ctas, route, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-extern "C" int dtx_layer_norm_bwd_max_ctas() { return dtx::kLnBwdCtas; }
+// CTAs of the register path's backward that one SM holds at once (its
+// occupancy at kLnBwdWarps warps and the widest row's staging buffer),
+// for x of ``dtype``; a negative cudaError_t if the query fails
+extern "C" int dtx_layer_norm_bwd_ctas_per_sm(int dtype) {
+  using namespace dtx;
+  switch (dtype) {
+    case kFloat32:
+      return bwd_warp_ctas_per_sm<float>();
+    case kBFloat16:
+      return bwd_warp_ctas_per_sm<__nv_bfloat16>();
+    default:
+      return -(int)cudaErrorInvalidValue;
+  }
+}

@@ -184,6 +184,11 @@ def _launch(fn_name: str, *args) -> None:
                            f"cudaError_t {err}")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _f32_vector(name: str, v: torch.Tensor, n: int) -> torch.Tensor:
     _require(name, v, shape=(n,))
     return v.to(torch.float32)
@@ -232,13 +237,53 @@ def _ln_residual_forward(x, r, g, b):
     return y, s
 
 
+# the LayerNorm backward's routes (layer_norm.cu's route codes): the
+# register path, a warp a row, and the CTA-a-row kernel
+_LN_BWD_ROUTES = {"block": 0, "warp": 1}
+# the widest row of the register path (dtx_layer_norm_reg_max_d), its
+# rows in flight a CTA (kLnBwdWarps), and the CTA-a-row kernel's CTAs an SM
+_LN_REG_MAX_D, _LN_BWD_WARPS, _LN_BWD_BLOCK_CTAS_PER_SM = 1024, 4, 8
+
+
+def layer_norm_backward_plan(rows: int, d: int, aligned: bool, sms: int,
+                             per_sm: int):
+    """``(route, ctas)`` of the LayerNorm backward at [rows, d] on a card
+    of ``sms`` SMs: the register path ("warp") where d is at most 1024
+    and a multiple of 4 and ``aligned`` (every row tensor on its
+    vector's boundary), on a persistent grid of the CTAs the card holds
+    at once (``per_sm`` an SM: the kernel's occupancy, from
+    ``dtx_layer_norm_bwd_ctas_per_sm``) and no more than its rows fill;
+    else the CTA-a-row kernel ("block") on 8 CTAs an SM and no more than
+    the rows.  ``ctas`` is also the count of dg/db partial rows: the
+    scratch is [2, ctas, d] f32."""
+    if aligned and d <= _LN_REG_MAX_D and d % 4 == 0:
+        return "warp", max(1, min(sms * per_sm, -(-rows // _LN_BWD_WARPS)))
+    return "block", max(1, min(rows, _LN_BWD_BLOCK_CTAS_PER_SM * sms))
+
+
+@functools.lru_cache(maxsize=None)
+def _ln_bwd_ctas_per_sm(dtype_code: int) -> int:
+    per_sm = _build.load().dtx_layer_norm_bwd_ctas_per_sm(dtype_code)
+    if per_sm <= 0:
+        raise RuntimeError(f"dtx_layer_norm_bwd_ctas_per_sm: cudaError_t "
+                           f"{-per_sm}")
+    return per_sm
+
+
+def _vec_aligned(*tensors) -> bool:
+    """Whether every tensor's base lies on a 4-element vector's boundary."""
+    return all(t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors)
+
+
 def layer_norm_backward(dy, x, g):
     """``(dx f32 [x.shape], dg f32 [d], db f32 [d])`` of LayerNorm at
     ``x`` (the forward's input, or its residual sum) for the cotangent
-    ``dy`` of its f32 output.  CUDA: the backward of ``layer_norm.cu``,
-    one pass over the rows by strips of CTAs plus a deterministic
-    second pass that sums their dg/db partials; dy f32, x f32 or bf16,
-    both contiguous, g [d]."""
+    ``dy`` of its f32 output.  CUDA: the backward of ``layer_norm.cu`` by
+    the plan of ``layer_norm_backward_plan`` (recorded as ``last_plan``,
+    ``(route, ctas)``): one pass over the rows, a warp a row in
+    registers up to 1024 wide or a CTA a row beyond, leaving ``ctas``
+    rows of dg/db partials, then a second launch that sums them in a
+    fixed order; dy f32, x f32 or bf16, both contiguous, g [d]."""
     if _on_cpu(dy, x, g):
         return layer_norm_backward_reference(dy, x, g)
     d = x.shape[-1]
@@ -252,12 +297,16 @@ def layer_norm_backward(dy, x, g):
     db = torch.empty((d,), dtype=torch.float32, device=x.device)
     if rows == 0:
         return dx, dg.zero_(), db.zero_()
-    ctas = min(rows, _build.load().dtx_layer_norm_bwd_max_ctas())
+    code = _DTYPE_CODES[x.dtype]
+    route, ctas = layer_norm_backward_plan(
+        rows, d, _vec_aligned(dy, x, g32, dx), _sm_count(x.device.index),
+        _ln_bwd_ctas_per_sm(code))
     part = torch.empty((2, ctas, d), dtype=torch.float32, device=x.device)
     _launch("dtx_layer_norm_bwd", dy.data_ptr(), x.data_ptr(),
             g32.data_ptr(), dx.data_ptr(), part.data_ptr(), dg.data_ptr(),
-            db.data_ptr(), rows, d, ctas, _DTYPE_CODES[x.dtype])
+            db.data_ptr(), rows, d, ctas, _LN_BWD_ROUTES[route], code)
     layer_norm_backward.launches += 1
+    layer_norm_backward.last_plan = (route, ctas)
     return dx, dg, db
 
 
@@ -366,11 +415,6 @@ def grouped_ffn_ctas(plan, e: int, c: int, d: int, ff: int):
     sum's launch not)."""
     (h1, s1), (h2, s2) = plan
     return product_ctas(e, c, ff, h1, s1), product_ctas(e, c, d, h2, s2)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _grouped_forward(activation: str, cdt, buf, we1, be1, we2, be2,
@@ -516,9 +560,33 @@ def _mlp_names(spec):
             for p in ("W", "b")]
 
 
+# the f32 MLP layer's GEMM (mlp_forward.cu): 32 x 32 output tiles, K in
+# 32-deep slices split over at most the 8 CTAs of a portable cluster,
+# split until about 4 CTAs stand on every SM
+_F32_TILE, _F32_DEPTH, _F32_MAX_SPLITS, _F32_CTAS_PER_SM = 32, 32, 8, 4
+
+
+@functools.lru_cache(maxsize=None)
+def mlp_f32_plan(m: int, n: int, k: int, sms: int):
+    """``(splits, ctas)`` of one f32 MLP layer, [m, k] @ [k, n], on a
+    card of ``sms`` SMs: the 32 x 32 output tiles, each with K split in
+    ``splits`` equal shares of 32-deep slices (none empty; at most 8, the
+    CTAs of a cluster, and at most the slices) as far as it takes to
+    give the card 4 CTAs an SM; ``ctas`` = tiles x splits."""
+    tiles = -(-m // _F32_TILE) * -(-n // _F32_TILE)
+    slices = -(-k // _F32_DEPTH)
+    want = -(-_F32_CTAS_PER_SM * sms // max(tiles, 1))
+    splits = max(1, min(_F32_MAX_SPLITS, slices, want))
+    per = -(-slices // splits)
+    splits = -(-slices // per)
+    return splits, tiles * splits
+
+
 def _mlp_forward_cuda(spec, params, x):
     """The ``mlp_forward.cu`` kernel, one launch per layer; returns
-    ``(logits, hiddens)`` like ``mlp_forward_reference``."""
+    ``(logits, hiddens)`` like ``mlp_forward_reference``.  Records
+    ``mlp_forward.last_plan``: ``("wgmma", ())`` in bf16, ``("fma",
+    ((splits, ctas) per layer))`` in f32 (``mlp_f32_plan``)."""
     cdt = spec.compute_dtype
     if cdt not in _DTYPE_CODES:
         raise ValueError(f"compute dtype {cdt}: the kernel takes "
@@ -531,6 +599,7 @@ def _mlp_forward_cuda(spec, params, x):
     _require("x", x, shape=(n, sizes[0]))
     h = x.to(cdt)
     hiddens = []
+    plans = []
     L = spec.num_layers
     for i in range(1, L + 1):
         w = params[f"W{i}"]
@@ -541,13 +610,20 @@ def _mlp_forward_cuda(spec, params, x):
         out = torch.empty((n, sizes[i]),
                           dtype=torch.float32 if last else cdt,
                           device=x.device)
+        splits = 1
+        if cdt == torch.float32:
+            plans.append(mlp_f32_plan(n, sizes[i], sizes[i - 1],
+                                      _sm_count(x.device.index)))
+            splits = plans[-1][0]
         _launch("dtx_mlp_layer_fwd", h.data_ptr(), w.data_ptr(),
                 b.data_ptr(), out.data_ptr(), n, sizes[i], sizes[i - 1],
-                _ACT_CODES[spec.activation], _DTYPE_CODES[cdt], int(last))
+                _ACT_CODES[spec.activation], _DTYPE_CODES[cdt], int(last),
+                splits)
         if not last:
             hiddens.append(out)
             h = out
     mlp_forward.launches += 1
+    mlp_forward.last_plan = ("fma" if plans else "wgmma", tuple(plans))
     return out, tuple(hiddens)
 
 
@@ -641,5 +717,6 @@ __all__ = ["fused_layer_norm", "fused_layer_norm_residual",
            "mlp_forward", "layer_norm_reference",
            "layer_norm_residual_reference", "grouped_ffn_reference",
            "mlp_forward_reference", "grouped_ffn_plan", "grouped_ffn_ctas",
+           "layer_norm_backward_plan", "mlp_f32_plan",
            "SUPPORTED_MLP_ACTIVATIONS",
            "launch_counts", "reset_launch_counts", "KERNEL_WRAPPERS"]

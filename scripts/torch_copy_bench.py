@@ -114,7 +114,7 @@ def layers(card: str) -> list:
         def kernel():
             rc = lib.dtx_mlp_layer_fwd(a.data_ptr(), w.data_ptr(),
                                        b.data_ptr(), out.data_ptr(), m, n, k,
-                                       1, 1, last, stream)
+                                       1, 1, last, 1, stream)
             if rc:
                 raise RuntimeError(f"dtx_mlp_layer_fwd: error {rc}")
 

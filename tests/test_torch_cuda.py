@@ -357,6 +357,75 @@ def test_mlp_forward_kernel_matches_plain_on_card(card, n, hidden, act,
                                    atol=tol_h * scale)
 
 
+# B1's f32 layers at the reference MLP's rows (1, a training step's 100,
+# eval's 2000), its 784-100-10 and a 4096-wide hidden layer
+MLP_F32_SHAPES = [(n, hidden, act) for n in (1, 100, 2000)
+                  for hidden, act in (((100,), "sigmoid"), ((100,), "relu"),
+                                      ((100,), "tanh"), ((4096,), "relu"))]
+
+
+def _mlp_f32_case(card, n, hidden, act):
+    spec = mlp.MLPSpec(hidden_sizes=hidden, activation=act,
+                       compute_dtype=torch.float32)
+    params = mlp.init(spec, seed=n, device=card)
+    gen = torch.Generator(device=card).manual_seed(n)
+    for k in params:
+        if k.startswith("b"):
+            params[k] = 0.1 * torch.randn(params[k].shape, generator=gen,
+                                          device=card)
+    x = torch.rand(n, 784, generator=gen, device=card)
+    return spec, params, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hidden,act", MLP_F32_SHAPES)
+def test_mlp_f32_split_k_matches_plain_on_card(card, n, hidden, act):
+    """B1's f32 layers (K split over a cluster, the shares summed in
+    rank order) against the plain version: logits and hiddens within
+    1e-4 of max(1, their scale) (f32 sums of 784 or 4096 products in
+    another order), the same bits over two calls, and each layer's
+    split the plan's."""
+    spec, params, x = _mlp_f32_case(card, n, hidden, act)
+    logits, hiddens = fused._mlp_forward_cuda(spec, params, x)
+    sizes = spec.layer_sizes
+    assert fused.mlp_forward.last_plan == ("fma", tuple(
+        fused.mlp_f32_plan(n, sizes[i], sizes[i - 1], fused._sm_count(0))
+        for i in range(1, len(sizes))))
+    again, hiddens2 = fused._mlp_forward_cuda(spec, params, x)
+    assert torch.equal(logits, again)
+    assert all(torch.equal(a, b) for a, b in zip(hiddens, hiddens2))
+    want, want_h = fused.mlp_forward_reference(spec, params, x)
+    torch.testing.assert_close(
+        logits, want, rtol=0, atol=1e-4 * max(1.0, float(want.abs().max())))
+    for h, w in zip(hiddens, want_h):
+        assert h.dtype == torch.float32 and h.shape == w.shape
+        torch.testing.assert_close(
+            h, w, rtol=0, atol=1e-4 * max(1.0, float(w.abs().max())))
+
+
+@pytest.mark.cuda
+def test_mlp_f32_load_routes_agree_on_card(card):
+    """B1's f32 GEMM loads a row by 16-byte vectors where its width is a
+    multiple of 4 and its base 16-byte aligned, else by guarded scalar
+    loads: the same values reach the same places, so x and the weights
+    moved one float off the boundary give the same bits."""
+    spec, params, x = _mlp_f32_case(card, 100, (100,), "sigmoid")
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 4
+        return view
+
+    logits, hiddens = fused._mlp_forward_cuda(spec, params, x)
+    moved = {k: shifted(v) if k.startswith("W") else v
+             for k, v in params.items()}
+    logits2, hiddens2 = fused._mlp_forward_cuda(spec, moved, shifted(x))
+    assert torch.equal(logits, logits2)
+    assert torch.equal(hiddens[0], hiddens2[0])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hidden", [(256,), (4096, 136)])
 def test_mlp_tensor_core_copy_routes_agree_on_card(card, hidden):
@@ -582,11 +651,12 @@ def test_flash_bf16_kernels_use_tensor_cores(card):
     each at 256- and 128-wide tiles), issue
     tensor-core MMAs (HMMA or HGMMA in their SASS; HGMMA for dk/dv and
     the GEMM, which are wgmma only); the f32 forward (4), dq (2) and
-    dk/dv (2) and the CUDA-core GEMM ``gemm_bias_act_kernel`` (the f32
-    MLP layers and the f32 grouped FFN) issue none (f32 attention, the
-    f32 MLP and the f32 FFN stay on f32 FMA: TF32 would break their 1e-4
-    and 1e-3); no bf16 instantiation of the CUDA-core forward, dq, dk/dv
-    or GEMM is left."""
+    dk/dv (2) and the CUDA-core GEMMs, ``gemm_bias_act_kernel`` (the f32
+    grouped FFN) and ``fma_gemm_kernel`` (the f32 MLP layers, its 4 load
+    routes), issue none (f32 attention, the f32 MLP and the f32 FFN stay
+    on f32 FMA: TF32 would break their 1e-4 and 1e-3); no bf16
+    instantiation of the CUDA-core forward, dq, dk/dv or GEMMs is
+    left."""
     from distributed_tensorflow_example_tpu_torch.ops import _build
 
     funcs = _sass_functions(_build.build())
@@ -625,8 +695,9 @@ def test_flash_bf16_kernels_use_tensor_cores(card):
         assert "__nv_bfloat16" not in name, name
         assert not any(op in sass for op in tensor_ops), name
     fma_gemm = {n: f for n, f in funcs.items()
-                if "gemm_bias_act_kernel" in n}
-    assert fma_gemm, sorted(funcs)
+                if "gemm_bias_act_kernel" in n or "fma_gemm_kernel" in n}
+    assert sum("fma_gemm_kernel" in n for n in fma_gemm) == 4, sorted(funcs)
+    assert any("gemm_bias_act_kernel" in n for n in fma_gemm), sorted(funcs)
     for name, sass in fma_gemm.items():
         assert "__nv_bfloat16" not in name, name
         assert not any(op in sass for op in tensor_ops), name
@@ -673,24 +744,88 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(card):
         fa.flash_forward(q, q.to(torch.bfloat16), q, True)
 
 
+# B4's routes by row width at aligned tensors: the register path up to
+# 1024 wide where the width is a multiple of 4 (96, 1000, 1024), the
+# CTA-a-row kernel for 1001 (not a multiple of 4) and 1536 (wider than
+# the registers hold)
+LN_BWD_ROUTE_BY_D = {96: "warp", 1000: "warp", 1001: "block", 1024: "warp",
+                     1536: "block"}
+
+
+def _ln_bwd_expected_plan(rows, d, dtype, aligned=True):
+    return fused.layer_norm_backward_plan(
+        rows, d, aligned, fused._sm_count(0),
+        fused._ln_bwd_ctas_per_sm(fused._DTYPE_CODES[dtype]))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [1, 129, 1000])
+@pytest.mark.parametrize("rows", [1, 7, 129, 1000, 65539])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_layer_norm_backward_kernel_matches_plain_on_card(card, dtype,
                                                           rows):
-    """B4 against its plain version at d 1024 and 96: dx, dg and db
-    within 1e-4 of their scale (f32 sums in other orders; dg and db sum
-    over up to 1000 rows)."""
-    for d in (1024, 96):
+    """B4 against its plain version at d 96, 1000, 1001, 1024 and 1536,
+    on both routes (fewer rows than the warps in flight included): dx, dg
+    and db within 1e-4 of their scale (f32 sums in other orders; dg and
+    db sum over up to 65,539 rows), and the route and CTA count the
+    wrapper records are the plan's."""
+    for d, route in LN_BWD_ROUTE_BY_D.items():
         gen = torch.Generator(device=card).manual_seed(rows + d)
         x = (3 * torch.randn(rows, d, generator=gen, device=card)
              + 1).to(dtype)
         dy = torch.randn(rows, d, generator=gen, device=card)
         g = 1 + 0.1 * torch.randn(d, generator=gen, device=card)
         got = fused.layer_norm_backward(dy, x, g)
+        assert fused.layer_norm_backward.last_plan == \
+            _ln_bwd_expected_plan(rows, d, dtype)
+        assert fused.layer_norm_backward.last_plan[0] == route
         want = fused.layer_norm_backward_reference(dy, x, g)
         for a, b, name in zip(got, want, ("dx", "dg", "db")):
             _close_scaled(a, b, 1e-4, f"{name} rows={rows} d={d} {dtype}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1024, 1536])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_backward_is_deterministic_on_card(card, dtype, d):
+    """dx, dg and db are the same bits over two calls on either route:
+    each warp walks its rows in order, the CTA adds its warps in order
+    and the partial rows are summed in a fixed order, with no atomics."""
+    gen = torch.Generator(device=card).manual_seed(d)
+    x = (2 * torch.randn(65539, d, generator=gen, device=card)).to(dtype)
+    dy = torch.randn(65539, d, generator=gen, device=card)
+    g = 1 + 0.1 * torch.randn(d, generator=gen, device=card)
+    first = fused.layer_norm_backward(dy, x, g)
+    second = fused.layer_norm_backward(dy, x, g)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_backward_misaligned_rows_take_the_block_route(card,
+                                                                   dtype):
+    """x or dy whose base is off its vector's boundary (a view one
+    element into a buffer) goes to the CTA-a-row kernel, with the same
+    result as the aligned call within 1e-4 of scale."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    rows, d = 300, 1024
+    x = (2 * torch.randn(rows, d, generator=gen, device=card)).to(dtype)
+    dy = torch.randn(rows, d, generator=gen, device=card)
+    g = 1 + 0.1 * torch.randn(d, generator=gen, device=card)
+    want = fused.layer_norm_backward(dy, x, g)
+    assert fused.layer_norm_backward.last_plan[0] == "warp"
+    for moved in ("x", "dy"):
+        t = x if moved == "x" else dy
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        args = (dy, view, g) if moved == "x" else (view, x, g)
+        got = fused.layer_norm_backward(*args)
+        assert fused.layer_norm_backward.last_plan == \
+            _ln_bwd_expected_plan(rows, d, dtype, aligned=False)
+        assert fused.layer_norm_backward.last_plan[0] == "block"
+        for a, b, name in zip(got, want, ("dx", "dg", "db")):
+            _close_scaled(a, b, 1e-4, f"{name} {moved} moved")
 
 
 @pytest.mark.cuda

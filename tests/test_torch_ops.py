@@ -311,3 +311,97 @@ def test_grouped_ffn_plan_fills_one_wave_with_equal_shares(sms):
                 assert (splits - 1) * per < slices      # last share nonempty
                 if 2 * narrow <= sms and slices >= 2:
                     assert splits >= 2
+
+
+# B4 (the LayerNorm backward) at the transformer trainer's 65,536 x 1024
+# rows, and at the row counts the card tests run, on cards of 132, 114
+# and 8 SMs holding 3 of its register-path CTAs an SM: (rows, sms) ->
+# (route, CTAs = dg/db partial rows)
+LN_BWD_PLANS = [
+    ((65536, 132), ("warp", 396)),
+    ((65536, 114), ("warp", 342)),
+    ((65536, 8), ("warp", 24)),
+    ((1, 132), ("warp", 1)),
+    ((7, 132), ("warp", 2)),
+    ((129, 132), ("warp", 33)),
+]
+
+
+@pytest.mark.parametrize("shape,plan", LN_BWD_PLANS,
+                         ids=[f"{r}x{s}" for (r, s), _ in LN_BWD_PLANS])
+def test_layer_norm_backward_plan_at_the_paths_shapes(shape, plan):
+    """The register path's persistent grid at d 1024: one wave of the
+    CTAs the card holds (a few hundred partial rows where the old
+    CTA-a-row kernel wrote 1056), fewer where the rows are fewer."""
+    rows, sms = shape
+    assert fused.layer_norm_backward_plan(rows, 1024, True, sms, 3) == plan
+
+
+@pytest.mark.parametrize("sms", [132, 114, 8])
+def test_layer_norm_backward_plan_fills_one_wave(sms):
+    """Over a grid of shapes: the register path exactly where d is at
+    most 1024, a multiple of 4 and the tensors aligned; there, no more
+    CTAs than one wave holds, none without a row (4 rows in flight a
+    CTA) and a full wave wherever the rows fill it; elsewhere the
+    CTA-a-row kernel on at most 8 CTAs an SM and one row a CTA at
+    least."""
+    for per_sm in (1, 3, 4):
+        for rows in (1, 3, 4, 5, 129, 1000, 65539):
+            for d in (1, 96, 1000, 1020, 1024, 1028, 1536):
+                for aligned in (True, False):
+                    route, ctas = fused.layer_norm_backward_plan(
+                        rows, d, aligned, sms, per_sm)
+                    reg = aligned and d <= 1024 and d % 4 == 0
+                    assert route == ("warp" if reg else "block")
+                    assert 1 <= ctas <= rows
+                    if reg:
+                        assert ctas <= sms * per_sm
+                        assert 4 * (ctas - 1) < rows
+                        if rows >= 4 * sms * per_sm:
+                            assert ctas == sms * per_sm
+                    else:
+                        assert ctas == min(rows, 8 * sms)
+
+
+# B1's f32 layers at the reference MLP's shapes on 132 SMs: (M, N, K) ->
+# (splits of K, CTAs) for the training step's 100 rows and eval's 2000
+MLP_F32_PLANS = [
+    ((100, 100, 784), (7, 112)),
+    ((100, 10, 100), (4, 16)),
+    ((2000, 100, 784), (3, 756)),
+    ((2000, 10, 100), (4, 252)),
+]
+
+
+@pytest.mark.parametrize("shape,plan", MLP_F32_PLANS,
+                         ids=["train_l1", "train_l2", "eval_l1", "eval_l2"])
+def test_mlp_f32_plan_at_the_paths_shapes(shape, plan):
+    """At 100 rows the first layer's 16 tiles split K 7 ways (112 CTAs
+    where 64 x 64 tiles gave 4), the logits layer's 4 tiles 4 ways; at
+    2000 rows 252 tiles split 3 ways."""
+    assert fused.mlp_f32_plan(*shape, 132) == plan
+
+
+@pytest.mark.parametrize("sms", [132, 114, 8])
+def test_mlp_f32_plan_splits_k_in_equal_shares(sms):
+    """Over a grid of shapes: 1 to 8 shares (a cluster), no more than
+    the 32-deep slices, each nonempty and none larger than the first;
+    one share fewer would leave the card under 4 CTAs an SM, none where
+    the tiles alone reach that; as many as the slices allow where even 8
+    do not; CTAs = tiles x splits."""
+    for m in (0, 1, 100, 129, 2000, 8192):
+        for n in (1, 10, 37, 100, 4096):
+            for k in (1, 31, 33, 100, 784, 4096):
+                splits, ctas = fused.mlp_f32_plan(m, n, k, sms)
+                tiles = -(-m // 32) * -(-n // 32)
+                slices = -(-k // 32)
+                per = -(-slices // splits)
+                assert 1 <= splits <= min(8, slices)
+                assert (splits - 1) * per < slices
+                assert ctas == tiles * splits
+                assert tiles * (splits - 1) < 4 * sms
+                if tiles >= 4 * sms:
+                    assert splits == 1
+                if tiles * min(8, slices) <= 4 * sms:
+                    cap = min(8, slices)
+                    assert splits == -(-slices // -(-slices // cap))
