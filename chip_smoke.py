@@ -43,15 +43,24 @@ and for the MLP trainer (``main.py`` -> ``train/loop.run``):
 5. train at full width: the JAX repo's ``mxu_wide_pallas`` bench
    configuration (784-4096-4096-10, relu, bf16 compute over f32
    params, global batch 8192, ``--pallas``, SGD) for one epoch of 8
-   steps on synthetic MNIST, launch counters zeroed just before and
-   read just after (``mlp_forward`` must have launched), every printed
-   cost finite; print the median step time and examples/s; then one
-   step from the same initial state on the card and on the port's CPU
-   path, the updated params held against each other;
+   steps on synthetic MNIST three ways — the default (the device-
+   resident epoch, the step replayed as a CUDA graph), ``fast_loop=
+   False`` (the host path) and ``fast_loop=False, device_prefetch=
+   True`` — launch counters zeroed just before and read just after
+   each run (``mlp_forward`` must have launched; the default run's
+   counts are the path's), every printed cost finite, the two host
+   paths' costs equal; print each run's median step time, examples/s
+   and peak memory; then the graph's epochs timed alone after its
+   capture, one epoch of the graph held bitwise against the same epoch
+   run eagerly on the card (per-step costs, accuracies, final params),
+   the epoch permutation at n 65,536 and 55,000 bitwise card against
+   CPU, and one step from the same initial state on the card and on
+   the port's CPU path, the updated params held against each other;
 6. the reference command line on the card: ``main.py --pallas
    --training_epochs=1`` (784-100-10 sigmoid f32, batch 100, 550
-   steps), its stdout held to the reference's format and its event
-   file read back;
+   steps, the default fast path: B1's f32 launches counted through the
+   graph's replays), its stdout held to the reference's format and its
+   event file read back (550 scalar events, one graph record);
 
 and for the transformer trainer (``main.py --model=transformer`` ->
 ``train/loop.run``):
@@ -76,10 +85,12 @@ and for the transformer trainer (``main.py --model=transformer`` ->
    configuration (causal flash attention, --fused_ln, d_model 1024, 8
    heads of 128, 4 blocks, d_ff 4096, S 8192, bf16 compute, Adam with
    bf16 moments, batch 8) for 4 steps on synthetic data with a test set
-   of 8, launch counters zeroed just before and read just after (every
-   kernel of the path must have launched), every printed cost finite;
-   print the median step time, tokens/s, model TFLOP/s and the peak
-   memory;
+   of 8 on the default fast path (the device-resident epoch, run
+   eagerly), launch counters zeroed just before and read just after
+   (every kernel of the path must have launched), every printed cost
+   finite; print the median step time (the run's wall over its steps,
+   its first step and eval included), tokens/s, model TFLOP/s and the
+   peak memory, and the step time of a warm epoch of the same runner;
 7b. one step of the same model cut to 1 block, S 2048, batch 2, from
     one initial state on the card and on the port's CPU path, the
     updates held against each other.
@@ -99,10 +110,11 @@ and for MoE training (``main.py --model=transformer --num_experts=64
     d_model 1024, 8 heads of 128, 2 blocks, d_ff 2048, S 1024, bf16
     compute, Adam with bf16 moments, batch 32) for 4 steps with a test
     set of 8, first under ``--grouped_moe``, then under ``--grouped_moe
-    --fp8_ffn``; launch counters zeroed just before and read just after
-    each run (B5, B6, B7, B8's training form and, in eval, its primal
-    form must have launched), every printed cost finite; print the
-    median step time, tokens/s, model TFLOP/s and the peak memory;
+    --fp8_ffn``, on the eager device-resident epoch; launch counters
+    zeroed just before and read just after each run (B5, B6, B7, B8's
+    training form and, in eval, its primal form must have launched),
+    every printed cost finite; print the median step time, tokens/s,
+    model TFLOP/s, the peak memory and a warm epoch's step time;
 8b. one step of the same model cut to 1 block, E 8, S 256, batch 4, top-2,
     ``--moe_aux_weight=0.01`` and capacity factor 1.0 (tokens drop) from
     one initial state on the card and on the port's CPU path: the
@@ -1354,41 +1366,129 @@ def _train_counts(phase: str) -> dict:
     return counts
 
 
-def phase_train(card: str) -> dict:
-    """The trainer at full width (WIDE_TRAIN) on the card, then one step
-    from one initial state on the card and on the CPU."""
-    from distributed_tensorflow_example_tpu_torch.config import Config
-    from distributed_tensorflow_example_tpu_torch.data import mnist
+def _wide_run(cfg, what: str) -> dict:
+    """``loop.run(cfg)`` on the card with the launch counts zeroed just
+    before and read just after: its counts, the median of its printed
+    step times, its examples/s and its peak memory."""
     from distributed_tensorflow_example_tpu_torch.ops import fused
-    from distributed_tensorflow_example_tpu_torch.parallel import step
-    from distributed_tensorflow_example_tpu_torch.train import loop, optim
-    from distributed_tensorflow_example_tpu_torch.train.state import (
-        TrainState, create_train_state)
+    from distributed_tensorflow_example_tpu_torch.train import loop
 
-    cfg = Config(**WIDE_TRAIN, device="cuda")
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     fused.reset_launch_counts()
     res, out = _run_captured(loop.run, cfg)
-    counts = _train_counts("train")
+    counts = _train_counts(what)
+    if res["fast_loop"] != cfg.fast_loop:
+        raise AssertionError(f"{what}: took fast_loop={res['fast_loop']}")
     costs = re.findall(r"Cost: ([^,\s]+)", out)
     if len(costs) != res["steps"] + 1 or not all(
             math.isfinite(float(c)) for c in costs):
-        raise AssertionError(f"train: printed costs {costs}")
+        raise AssertionError(f"{what}: printed costs {costs}")
     if not re.search(r"^Test-Accuracy: \d+\.\d{2}$", out, flags=re.M):
-        raise AssertionError("train: no Test-Accuracy line")
+        raise AssertionError(f"{what}: no Test-Accuracy line")
     step_ms = [float(m) for m in re.findall(r"AvgTime: +(\d+\.\d+)ms",
                                             out)]
     med = statistics.median(step_ms)
-    log(f"[train] {res['steps']} steps of global batch "
-        f"{res['global_batch']} ({cfg.hidden_sizes} {cfg.activation} "
-        f"{cfg.compute_dtype}, --pallas) on {card}: median step {med:.2f} ms ({cfg.batch_size / med * 1e3:.1f} "
-        f"examples/s), steps {step_ms} ms; whole run incl. eval "
-        f"{res['total_time_s']:.3f} s; launches {counts}")
+    return dict(counts=counts, step_ms_median=med, step_ms=step_ms,
+                examples_per_s=cfg.batch_size / med * 1e3,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                total_s=res["total_time_s"], steps=res["steps"],
+                costs=[float(c) for c in costs[:-1]])
 
+
+def phase_train(card: str) -> dict:
+    """The trainer at full width (WIDE_TRAIN) on the card three ways —
+    the default (the device-resident epoch, the step a CUDA graph), the
+    host path and the host path under --device_prefetch — then the
+    graph's replays timed alone, the graph epoch held against the same
+    epoch run eagerly, the permutation card against CPU, and one step
+    from one initial state on the card and on the CPU."""
+    import dataclasses
+
+    from distributed_tensorflow_example_tpu_torch.config import Config
+    from distributed_tensorflow_example_tpu_torch.data import mnist
+    from distributed_tensorflow_example_tpu_torch.parallel import epoch, step
+    from distributed_tensorflow_example_tpu_torch.train import loop, optim
+    from distributed_tensorflow_example_tpu_torch.train.state import (
+        TrainState, create_train_state)
+    from distributed_tensorflow_example_tpu_torch.utils import prng
+
+    cfg = Config(**WIDE_TRAIN, device="cuda")
+    runs = {"graph": _wide_run(cfg, "train")}
+    runs["host"] = _wide_run(dataclasses.replace(cfg, fast_loop=False),
+                             "train --no_fast_loop")
+    runs["host_prefetch"] = _wide_run(
+        dataclasses.replace(cfg, fast_loop=False, device_prefetch=True),
+        "train --no_fast_loop --device_prefetch")
+    for name, r in runs.items():
+        log(f"[train] {name}: {r['steps']} steps of global batch "
+            f"{cfg.batch_size} ({cfg.hidden_sizes} {cfg.activation} "
+            f"{cfg.compute_dtype}, --pallas) on {card}: median step "
+            f"{r['step_ms_median']:.3f} ms ({r['examples_per_s']:.1f} "
+            f"examples/s), steps {r['step_ms']} ms; peak memory "
+            f"{r['peak_gib']:.3f} GiB; whole run incl. eval "
+            f"{r['total_s']:.3f} s; launches {r['counts']}")
+    if runs["host"]["costs"] != runs["host_prefetch"]["costs"]:
+        raise AssertionError(f"train: --device_prefetch printed costs "
+                             f"{runs['host_prefetch']['costs']} differ "
+                             f"from the blocking path's "
+                             f"{runs['host']['costs']}")
+
+    # the same device-resident epoch three epochs more: the graph's
+    # replays timed alone (the run's AvgTime above includes the warm-up
+    # and the capture, as JAX's includes its compile), and, from one
+    # state, the graph's per-step costs against the eager epoch's
     spec = loop.make_spec(cfg)
-    opt = optim.make_optimizer(cfg, res["steps"])
+    opt = optim.make_optimizer(cfg, runs["graph"]["steps"])
+    data = mnist.synthesize_split(cfg.synthetic_train_size, seed=1)
+    img, lbl, spe = epoch.shard_dataset(data.images, data.labels,
+                                        cfg.batch_size, "cuda")
+    key = prng.PRNGKey(cfg.seed + epoch.SHUFFLE_SALT)
+    start = create_train_state(spec, opt, seed=cfg.seed, device="cuda")
+    graph = epoch.build_epoch_runner(cfg, spec, opt, spe, "cuda")
+    eager = epoch._EagerRunner(cfg, spec, opt, spe, 1)
+    g_state, g_costs, g_accs = graph(epoch._clone_state(start), img, lbl,
+                                     key, 0)
+    e_state, e_costs, e_accs = eager(epoch._clone_state(start), img, lbl,
+                                     key, 0)
+    e_costs, e_accs = e_costs[0], e_accs[0]
+    if not (torch.equal(g_costs, e_costs) and torch.equal(g_accs, e_accs)):
+        raise AssertionError(f"train: the graph epoch's costs "
+                             f"{g_costs.tolist()} differ from the eager "
+                             f"epoch's {e_costs.tolist()}")
+    for k in g_state.params:
+        if not torch.equal(g_state.params[k], e_state.params[k]):
+            raise AssertionError(f"train: graph vs eager epoch, {k} "
+                                 f"differs")
+    del e_state, eager
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    replay_ms = []
+    for e in range(1, 4):
+        ev[0].record()
+        g_state, _c, _a = graph(g_state, img, lbl, key, e)
+        ev[1].record()
+        torch.cuda.synchronize()
+        replay_ms.append(ev[0].elapsed_time(ev[1]) / spe)
+    replay_med = statistics.median(replay_ms)
+    log(f"[train] graph epoch vs the same epoch run eagerly on the card: "
+        f"{spe} per-step costs and accuracies and the final params "
+        f"bitwise equal (tol 0); the graph's epochs after the capture: "
+        f"{[round(t, 4) for t in replay_ms]} ms a step (shuffle "
+        f"included), median {replay_med:.4f} ms ("
+        f"{cfg.batch_size / replay_med * 1e3:.1f} examples/s) on {card}")
+    del g_state, graph
+    for n in (65536, 55000):
+        k = prng.fold_in(prng.fold_in(key, 0), 0)
+        if not torch.equal(prng.permutation(k, n, "cuda").cpu(),
+                           prng.permutation(k, n, "cpu")):
+            raise AssertionError(f"train: permutation of {n} differs "
+                                 f"card vs CPU")
+    log("[train] the epoch permutation at n 65536 and 55000: card and "
+        "CPU bitwise equal")
+
     body = step.make_sync_step_body(cfg, spec, opt)
-    on_card = create_train_state(spec, opt, seed=cfg.seed, device="cuda")
+    on_card = start
     cpu_params = {k: v.cpu() for k, v in on_card.params.items()}
     on_cpu = TrainState(on_card.step.cpu(), cpu_params,
                         opt.init(cpu_params))
@@ -1412,8 +1512,8 @@ def phase_train(card: str) -> dict:
     log(f"[train] one step card vs CPU path: cost {float(cost_card):.6g} "
         f"vs {float(cost_cpu):.6g}, worst update difference {worst:.3g} of "
         f"its scale (tol {STEP_RTOL}); CPU step {cpu_s:.1f} s")
-    return dict(counts=counts, step_ms_median=med, step_ms=step_ms,
-                examples_per_s=cfg.batch_size / med * 1e3)
+    return dict(counts=runs["graph"]["counts"], runs=runs,
+                replay_ms_median=replay_med, replay_ms=replay_ms)
 
 
 def phase_cli(card: str) -> dict:
@@ -1450,9 +1550,45 @@ def phase_cli(card: str) -> dict:
             or sum(1 for e in events if e["graph_nodes"]) != 1:
         raise AssertionError(f"cli: event file holds {len(scalars)} "
                              f"scalar events")
+    step_ms = [float(m) for m in re.findall(r"AvgTime: +(\d+\.\d+)ms",
+                                            out)]
     log(f"[cli] reference format, 550 steps, {len(events)} events read back "
-        f"on {card}; launches {counts}")
-    return dict(counts=counts)
+        f"on {card}; AvgTime {step_ms} ms a step; launches {counts}")
+    return dict(counts=counts, step_ms=step_ms)
+
+
+def _epoch_step_ms(cfg) -> float:
+    """The device-resident epoch of ``cfg`` through the runner the
+    trainer builds (the MLP's step a CUDA graph, the transformer's
+    eager), from a fresh state: one epoch to warm up, then one timed
+    with CUDA events; ms a step, the epoch's shuffle included.  The
+    run's own ``AvgTime`` averages its first step and its eval into
+    every step, as the JAX fast path's does."""
+    from distributed_tensorflow_example_tpu_torch.data import mnist
+    from distributed_tensorflow_example_tpu_torch.parallel import epoch
+    from distributed_tensorflow_example_tpu_torch.train import loop, optim
+    from distributed_tensorflow_example_tpu_torch.train.state import (
+        create_train_state)
+    from distributed_tensorflow_example_tpu_torch.utils import prng
+
+    spec = loop.make_spec(cfg)
+    data = mnist.synthesize_split(cfg.synthetic_train_size, seed=1,
+                                  input_size=cfg.input_size)
+    img, lbl, spe = epoch.shard_dataset(data.images, data.labels,
+                                        cfg.batch_size, "cuda")
+    opt = optim.make_optimizer(cfg, 2 * spe)
+    state = create_train_state(spec, opt, seed=cfg.seed, device="cuda")
+    run = epoch.build_epoch_runner(cfg, spec, opt, spe, "cuda")
+    key = prng.PRNGKey(cfg.seed + epoch.SHUFFLE_SALT)
+    state, _c, _a = run(state, img, lbl, key, 0)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    state, costs, _a = run(state, img, lbl, key, 1)
+    ev[1].record()
+    torch.cuda.synchronize()
+    if not torch.isfinite(costs).all():
+        raise AssertionError(f"epoch runner: costs {costs.tolist()}")
+    return ev[0].elapsed_time(ev[1]) / spe
 
 
 def phase_transformer_train(card: str) -> dict:
@@ -1496,7 +1632,9 @@ def phase_transformer_train(card: str) -> dict:
     med = statistics.median(step_ms)
     tokens = cfg.batch_size * spec.seq_len
     flops = tfm.flops_per_step(spec, cfg.batch_size)
+    epoch_ms = _epoch_step_ms(cfg)
     row = dict(steps=steps, step_ms=step_ms, step_ms_median=med,
+               epoch_step_ms=epoch_ms,
                tokens_per_s=tokens / med * 1e3,
                model_tflops_per_s=flops / (med / 1e3) / 1e12,
                flops_per_step=flops, peak_gib=peak_gib,
@@ -1507,7 +1645,8 @@ def phase_transformer_train(card: str) -> dict:
         f"{row['model_tflops_per_s']:.2f} model TFLOP/s "
         f"({flops / 1e12:.2f} TFLOP/step), peak memory {peak_gib:.2f} GiB; "
         f"steps {step_ms} ms; whole run incl. eval {res['total_time_s']:.2f}"
-        f" s; launches {counts}")
+        f" s; launches {counts}; the device-resident epoch after a warm "
+        f"one: {epoch_ms:.2f} ms a step")
     return row
 
 
@@ -1604,7 +1743,9 @@ def phase_moe_train(card: str) -> list:
         med = statistics.median(step_ms)
         tokens = cfg.batch_size * spec.seq_len
         flops = tfm.flops_per_step(spec, cfg.batch_size)
+        epoch_ms = _epoch_step_ms(cfg)
         row = dict(flags=extra, steps=steps, step_ms=step_ms,
+                   epoch_step_ms=epoch_ms,
                    step_ms_median=med, tokens_per_s=tokens / med * 1e3,
                    model_tflops_per_s=flops / (med / 1e3) / 1e12,
                    flops_per_step=flops, params=tfm.num_params(spec),
@@ -1617,7 +1758,9 @@ def phase_moe_train(card: str) -> list:
             f"tokens/s, {row['model_tflops_per_s']:.2f} model TFLOP/s "
             f"({flops / 1e12:.2f} TFLOP/step), peak memory {peak_gib:.2f} "
             f"GiB; steps {step_ms} ms; whole run incl. eval "
-            f"{res['total_time_s']:.2f} s; launches {counts}")
+            f"{res['total_time_s']:.2f} s; launches {counts}; the "
+            f"device-resident epoch after a warm one: {epoch_ms:.2f} ms a "
+            f"step")
         rows.append(row)
     return rows
 
@@ -1854,12 +1997,19 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(f"[done] all phases passed in {time.monotonic() - t0:.1f} s")
+    for name, r in train["runs"].items():
+        log(f"[train] {name}: median step {r['step_ms_median']:.3f} ms, "
+            f"peak memory {r['peak_gib']:.3f} GiB on {smi}")
+    log(f"[train] graph replays alone: median step "
+        f"{train['replay_ms_median']:.4f} ms on {smi}")
     log(f"[tfm-train] peak memory {tfm_train['peak_gib']:.2f} GiB, median "
-        f"step {tfm_train['step_ms_median']:.1f} ms on {smi}")
+        f"step {tfm_train['step_ms_median']:.1f} ms, warm epoch "
+        f"{tfm_train['epoch_step_ms']:.2f} ms a step on {smi}")
     for row in moe_train:
         log(f"[moe-train] {' '.join(row['flags'])}: peak memory "
             f"{row['peak_gib']:.2f} GiB, median step "
-            f"{row['step_ms_median']:.1f} ms on {smi}")
+            f"{row['step_ms_median']:.1f} ms, warm epoch "
+            f"{row['epoch_step_ms']:.2f} ms a step on {smi}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -20,9 +20,12 @@ only; for a CUDA tensor it launches the kernel or raises.
 
 Ported so far: the serving path (``serving/cli.py`` -> ``serving/
 engine.DecodeEngine`` -> prefill + paged decode) with the fused
-LayerNorm, LayerNorm+residual and grouped-FFN kernels, and the MLP
-trainer (``main.py`` -> ``train/loop.run``) with the fused MLP forward
-kernel under ``--pallas``.  ROADMAP.md queues the rest.
+LayerNorm, LayerNorm+residual and grouped-FFN kernels, and the
+one-card MLP and transformer trainers (``main.py`` -> ``train/
+loop.run``: by default the device-resident epoch of ``parallel/
+epoch.py``, the MLP's step replayed as a CUDA graph) with the fused MLP
+forward, flash attention, LayerNorm backward and grouped-FFN training
+kernels.  ROADMAP.md queues the rest.
 """
 
 from .device import resolve_device

@@ -122,7 +122,21 @@ class Config:
     checkpoint_every: int = 0       # steps; 0 = only at exit
     keep_checkpoints: int = 0
     eval_batch_size: int = 2000
-    fast_loop: bool = True          # accepted; the port's loop is host-fed
+    fast_loop: bool = True          # the device-resident epoch
+                                    # (parallel/epoch.py) where the gate
+                                    # allows; False: the host-fed loop
+    device_prefetch: bool = False   # host path: commit upcoming batches
+                                    # from pinned buffers on a copy
+                                    # stream ahead of their steps
+                                    # (data/prefetch.DevicePrefetcher);
+                                    # bit-exact with the blocking copy
+    prefetch_depth: int = 0         # device-prefetch lookahead in
+                                    # batches; 0 = the default for the
+                                    # device (1 on the CPU, 8 on the card)
+    dispatch_depth: int = 0         # host path: steps in flight on the
+                                    # card before the host waits on the
+                                    # oldest; 0 = the default for the
+                                    # device (1 on the CPU, 32 on the card)
     # ---- the port's own ----
     device: Optional[str] = None    # None = cuda
 
@@ -234,6 +248,17 @@ def parse_config(argv: Sequence[str] | None = None) -> Config:
 
 def _parse_hidden(s: str) -> Tuple[int, ...]:
     return tuple(int(x) for x in s.replace(",", " ").split())
+
+
+def _depth(s: str) -> int:
+    """Queue/lookahead depth flag value: >= 1 (the device's default is
+    selected by NOT passing the flag, never by 0)."""
+    v = int(s)
+    if v < 1:
+        raise argparse.ArgumentTypeError(
+            f"depth {v} must be >= 1 (omit the flag for the device's "
+            f"default)")
+    return v
 
 
 def build_train_parser() -> argparse.ArgumentParser:
@@ -366,6 +391,21 @@ def build_train_parser() -> argparse.ArgumentParser:
                    default=d.synthetic_test_size)
     p.add_argument("--no_shard_data", dest="shard_data",
                    action="store_false")
+    p.add_argument("--device_prefetch", action="store_true",
+                   help="host path: commit upcoming batches from pinned "
+                        "host buffers on a copy stream ahead of "
+                        "consumption, so the copy of batch N+1 overlaps "
+                        "the step of batch N (bit-exact with the "
+                        "blocking copy; the default fast path keeps the "
+                        "dataset on the card and ignores this)")
+    p.add_argument("--prefetch_depth", type=_depth, default=d.prefetch_depth,
+                   help="device-prefetch lookahead in batches (>= 1; "
+                        "omit for the device's default: 1 on the CPU, 8 "
+                        "on the card)")
+    p.add_argument("--dispatch_depth", type=_depth, default=d.dispatch_depth,
+                   help="max steps in flight on the host path (>= 1; "
+                        "omit for the device's default: 1 on the CPU, "
+                        "32 on the card)")
     p.add_argument("--no_summaries", dest="summaries", action="store_false")
     p.add_argument("--summaries_all_hosts", action="store_true")
     p.add_argument("--eval_all_hosts", action="store_true")
@@ -376,10 +416,10 @@ def build_train_parser() -> argparse.ArgumentParser:
                    default=d.keep_checkpoints)
     p.add_argument("--eval_batch_size", type=int, default=d.eval_batch_size)
     p.add_argument("--no_fast_loop", dest="fast_loop", action="store_false",
-                   help="accepted for the JAX trainer's command lines; the "
-                        "port's loop feeds one batch per step from the "
-                        "host either way (the device-resident epoch is "
-                        "queued in ROADMAP.md)")
+                   help="feed one batch per step from the host instead "
+                        "of the default device-resident epoch (the whole "
+                        "split on the card, shuffled there each epoch; "
+                        "the MLP's step replayed as a CUDA graph)")
     p.add_argument("--device", type=str, default=d.device,
                    choices=["cuda", "cpu"],
                    help="where training runs (default: the card)")
@@ -415,6 +455,12 @@ def validate_train_config(cfg: Config) -> None:
     if cfg.keep_checkpoints < 0:
         raise ValueError(
             f"keep_checkpoints={cfg.keep_checkpoints} must be >= 0")
+    if cfg.dispatch_depth < 0:
+        raise ValueError(f"dispatch_depth={cfg.dispatch_depth} must be "
+                         f">= 0 (0 = the device's default)")
+    if cfg.prefetch_depth < 0:
+        raise ValueError(f"prefetch_depth={cfg.prefetch_depth} must be "
+                         f">= 0 (0 = the device's default)")
     if cfg.eval_batch_size < 1:
         raise ValueError(
             f"eval_batch_size={cfg.eval_batch_size} must be >= 1")

@@ -24,7 +24,7 @@ import dataclasses
 import gzip
 import os
 import struct
-from typing import Iterator, Tuple
+from typing import Iterator, List, Tuple
 
 import numpy as np
 
@@ -265,11 +265,10 @@ class EpochIterator:
         """Whole batches only: the remainder of an epoch is dropped."""
         return self._local_examples() // self.batch_size
 
-    def epoch(self, epoch_index: int | None = None
-              ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        """One shuffled pass, keyed by ``(seed, epoch_index)`` (default:
-        an internal counter).  The permutation is drawn at this call,
-        not at the first ``next``."""
+    def batch_indices(self, epoch_index: int | None = None
+                      ) -> List[np.ndarray]:
+        """The example indices of each batch of one shuffled pass, keyed
+        by ``(seed, epoch_index)`` (default: an internal counter)."""
         if epoch_index is None:
             epoch_index = self._epoch
         rng = np.random.RandomState([self._seed & 0x7FFFFFFF, epoch_index])
@@ -278,10 +277,13 @@ class EpochIterator:
         if self.shard and self.process_count > 1:
             perm = perm[self.process_index:: self.process_count]
             perm = perm[: self._local_examples()]
+        return [perm[b * self.batch_size: (b + 1) * self.batch_size]
+                for b in range(self.batches_per_epoch)]
 
-        def _batches():
-            for b in range(self.batches_per_epoch):
-                idx = perm[b * self.batch_size: (b + 1) * self.batch_size]
-                yield self.split.images[idx], self.split.labels[idx]
-
-        return _batches()
+    def epoch(self, epoch_index: int | None = None
+              ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """One shuffled pass (``batch_indices``) as numpy batches.  The
+        permutation is drawn at this call, not at the first ``next``."""
+        batches = self.batch_indices(epoch_index)
+        return ((self.split.images[idx], self.split.labels[idx])
+                for idx in batches)

@@ -4,7 +4,9 @@ Each wrapper module (``fused``, ``flash_attention``) registers its
 wrappers here when it is imported; a wrapper raises its ``launches``
 by one each time it launches its kernel.  ``launch_counts`` and
 ``reset_launch_counts`` read and zero every registered wrapper's count,
-so a run can show that its main path went through the kernels.
+so a run can show that its main path went through the kernels.  A CUDA
+graph's replay runs no Python, so the code that replays one raises the
+counts by the launches its capture recorded (``add_launches``).
 Importing ``ops`` imports both wrapper modules, so the registry is
 complete whichever of them a caller imports.
 """
@@ -29,3 +31,12 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for w in _WRAPPERS:
         w.launches = 0
+
+
+def add_launches(counts: dict) -> None:
+    """Raise each named wrapper's count by its number in ``counts`` (a
+    ``launch_counts``-shaped difference; a negative number takes back
+    what a capture counted without launching)."""
+    by_name = {w.__name__: w for w in _WRAPPERS}
+    for name, n in counts.items():
+        by_name[name].launches += n

@@ -36,7 +36,15 @@ plan splits K;
 ``mlp_forward`` one per call, L launches for L layers);
 ``launch_counts`` and ``reset_launch_counts`` (from ``ops/_counts.py``)
 read and zero them, the flash-attention wrappers' included, so a run
-can show that its main path went through the kernels.
+can show that its main path went through the kernels.  A CUDA graph's
+replay runs no Python: the device-resident epoch (``parallel/
+epoch.py``) counts the launches of the step it captures once and adds
+them on each replay (``_counts.add_launches``).  The kernels capture as
+they are: each launches on ``torch.cuda.current_stream()`` (the capture
+stream), B1's bf16 tensor maps are encoded on the host at capture into
+the launch's parameters, its f32 layers' ``cudaLaunchKernelEx`` with a
+cluster dimension records as a graph node, and the graph pool's
+addresses stay fixed across replays.
 
 ``fused_layer_norm`` and ``fused_layer_norm_residual`` are
 differentiable (``torch.autograd.Function``): their backward is the

@@ -19,6 +19,11 @@ spec, flash attention, the fused LayerNorms and the grouped expert FFN),
 with the classify or the lm (next-token) objective, the MoE balance loss
 in the objective (``--moe_aux_weight``), per-step dropout masks and
 ``--remat``.
+
+The step (``make_sync_step_body``) reads nothing back from the card
+when it is given the host's step index, so the device-resident epoch
+(``parallel/epoch.py``) captures the MLP's in a CUDA graph and runs the
+transformer's without a per-step host sync.
 Tensor, sequence, expert and pipeline parallelism, FSDP/ZeRO, local SGD,
 ``--on_anomaly`` and the ``--histograms`` norms are not ported
 (ROADMAP.md Queue A).
@@ -112,26 +117,37 @@ def _loss_and_acc(spec, params, x, y, naive: bool, use_pallas: bool,
 
 
 def make_step_rng(cfg, spec) -> Callable:
-    """``state -> the step's dropout seed`` (an int; None when the spec
-    does not drop): seed x step, and the process index, so every
-    data shard draws its own masks — the counterpart of the JAX
-    ``make_step_rng`` (the same stream after a resume; other bits)."""
+    """``(state, step_index) -> the step's dropout seed`` (an int; None
+    when the spec does not drop): seed x step, and the process index, so
+    every data shard draws its own masks — the counterpart of the JAX
+    ``make_step_rng`` (the same stream after a resume; other bits).  The
+    step is ``step_index`` when the caller knows it on the host (the
+    device-resident epoch does), else ``int(state.step)``, which reads
+    the card."""
     dropping = getattr(spec, "dropout_rate", 0.0) > 0
 
-    def step_rng(state: TrainState) -> Optional[int]:
+    def step_rng(state: TrainState,
+                 step_index: Optional[int] = None) -> Optional[int]:
         if not dropping:
             return None
-        return (((cfg.seed ^ 0xD0C0) << 40) + (int(state.step) << 8)
+        step = int(state.step) if step_index is None else step_index
+        return (((cfg.seed ^ 0xD0C0) << 40) + (step << 8)
                 + cluster.process_index())
 
     return step_rng
 
 
 def make_sync_step_body(cfg, spec, optimizer) -> Callable:
-    """``(state, x, y) -> (state, cost, acc)`` over this process's slice
-    ``x``/``y`` of the global batch: ``grad_accum`` microbatches (the
-    mean of their gradients), the all-reduce across processes,
-    ``grad_clip``, the optimizer update, ``step + 1``."""
+    """``(state, x, y, step_index=None) -> (state, cost, acc)`` over this
+    process's slice ``x``/``y`` of the global batch: ``grad_accum``
+    microbatches (the mean of their gradients), the all-reduce across
+    processes, ``grad_clip``, the optimizer update, ``step + 1``.
+
+    The step is capturable in a CUDA graph: it reads nothing back from
+    the card, as long as the caller passes ``step_index`` (the value of
+    ``state.step``, known on the host) where the spec drops — otherwise
+    the dropout seed reads ``state.step`` (``make_step_rng``).  The
+    results are the same either way."""
     names = sorted(param_shapes(spec))
     step_rng = make_step_rng(cfg, spec)
     remat = getattr(cfg, "remat", False)
@@ -144,9 +160,9 @@ def make_sync_step_body(cfg, spec, optimizer) -> Callable:
         grads = torch.autograd.grad(objective, [leaves[k] for k in names])
         return cost.detach(), acc, dict(zip(names, grads))
 
-    def body(state: TrainState, x, y) -> Tuple[TrainState, torch.Tensor,
-                                               torch.Tensor]:
-        rng = step_rng(state)
+    def body(state: TrainState, x, y, step_index: Optional[int] = None
+             ) -> Tuple[TrainState, torch.Tensor, torch.Tensor]:
+        rng = step_rng(state, step_index)
         n = cfg.grad_accum
         if n > 1:
             if x.shape[0] % n:

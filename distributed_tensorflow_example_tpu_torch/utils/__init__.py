@@ -1,2 +1,3 @@
-"""TensorBoard event files (``summary``) and ``.npz`` checkpoints in the
-JAX package's layout (``checkpoint``)."""
+"""TensorBoard event files (``summary``), ``.npz`` checkpoints in the
+JAX package's layout (``checkpoint``) and the port's copy of the
+``jax.random`` functions the fast path shuffles with (``prng``)."""

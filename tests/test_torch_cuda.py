@@ -1,5 +1,8 @@
 """The PyTorch port's CUDA kernels against their plain versions, on
-the card.
+the card; and the trainer's device-resident epoch there: the MLP's
+step as a CUDA graph against the same epoch run eagerly, the launch
+counts across replays, the epoch permutation card against CPU, and the
+pinned copy-stream prefetch against blocking copies.
 
 Every test here carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is false (the kernels have no CPU mode).
@@ -854,3 +857,136 @@ def test_layer_norm_gradients_on_card_match_cpu(card):
     assert fused.launch_counts()["layer_norm_backward"] == 2
     for got, want, name in zip(on_card, run("cpu"), "xrgb"):
         _close_scaled(got.cpu(), want, 1e-4, name)
+
+
+# ---------------------------------------------------------------------------
+# the device-resident epoch: the MLP step as a CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def _mlp_epoch_setup(card, cdt, n=8 * 96, batch=96):
+    from distributed_tensorflow_example_tpu_torch.config import Config
+    from distributed_tensorflow_example_tpu_torch.data import mnist
+    from distributed_tensorflow_example_tpu_torch.parallel import epoch
+    from distributed_tensorflow_example_tpu_torch.train import loop, optim
+    from distributed_tensorflow_example_tpu_torch.train.state import (
+        create_train_state)
+
+    cfg = Config(hidden_sizes=(96, 48), activation="relu",
+                 compute_dtype=cdt, pallas=True, optimizer="adam",
+                 learning_rate=0.01, batch_size=batch, device="cuda")
+    spec = loop.make_spec(cfg)
+    opt = optim.make_optimizer(cfg, 16)
+    split = mnist.synthesize_split(n + 5, seed=2)
+    img, lbl, spe = epoch.shard_dataset(split.images, split.labels, batch,
+                                        card)
+    assert img.dtype == torch.uint8 and spe == n // batch
+    state = create_train_state(spec, opt, seed=4, device=card)
+    return cfg, spec, opt, img, lbl, spe, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_graph_epoch_matches_eager_epoch_on_card(card, cdt):
+    """Two epochs of the MLP step replayed as a CUDA graph against the
+    same device-resident epoch run eagerly, from one state: the same
+    kernels in the same order, so the per-step costs and accuracies and
+    the final params and Adam slots agree bitwise."""
+    from distributed_tensorflow_example_tpu_torch.parallel import epoch
+    from distributed_tensorflow_example_tpu_torch.train.optim import (
+        tree_leaves)
+    from distributed_tensorflow_example_tpu_torch.utils import prng
+
+    cfg, spec, opt, img, lbl, spe, state = _mlp_epoch_setup(card, cdt)
+    assert epoch.captures(spec, card)
+    key = prng.PRNGKey(cfg.seed + epoch.SHUFFLE_SALT)
+    outs = []
+    for cls in (epoch._GraphRunner, epoch._EagerRunner):
+        st = epoch._clone_state(state)
+        run = cls(cfg, spec, opt, spe, 2)
+        st, costs, accs = run(st, img, lbl, key, 0)
+        outs.append((st, costs, accs))
+    (g, gc, ga), (e, ec, ea) = outs
+    assert torch.equal(gc, ec) and torch.equal(ga, ea)
+    assert torch.isfinite(gc).all() and int(g.step) == int(e.step) == 2 * spe
+    for a, b in zip(tree_leaves(g.params) + tree_leaves(g.opt_state),
+                    tree_leaves(e.params) + tree_leaves(e.opt_state),
+                    strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_graph_replays_raise_the_launch_counts_on_card(card):
+    """``launch_counts()`` stays true across replays: the warm-up's real
+    launches plus one captured step's launches per replay (the capture
+    itself launches nothing); a second call of the same runner replays
+    without capturing again."""
+    from distributed_tensorflow_example_tpu_torch.ops import fused
+    from distributed_tensorflow_example_tpu_torch.parallel import epoch
+    from distributed_tensorflow_example_tpu_torch.utils import prng
+
+    cfg, spec, opt, img, lbl, spe, state = _mlp_epoch_setup(card,
+                                                            "bfloat16")
+    key = prng.PRNGKey(1)
+    run = epoch.build_epoch_runner(cfg, spec, opt, spe, card)
+    fused.reset_launch_counts()
+    state, costs, _ = run(state, img, lbl, key, 0)
+    torch.cuda.synchronize()
+    graph = run.run1.graph
+    assert run.run1.delta == {"mlp_forward": 1}
+    assert fused.launch_counts()["mlp_forward"] == epoch.WARMUP_STEPS + spe
+    state, costs2, _ = run(state, img, lbl, key, 1)
+    torch.cuda.synchronize()
+    assert run.run1.graph is graph
+    assert fused.launch_counts()["mlp_forward"] == (epoch.WARMUP_STEPS
+                                                    + 2 * spe)
+    assert int(state.step) == 2 * spe
+    assert not torch.equal(costs, costs2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 100, 4099, 55000, 65536])
+def test_permutation_on_card_matches_cpu(card, n):
+    """The fast path's per-epoch permutation drawn on the card equals
+    the one drawn on the CPU, bit for bit (the CPU one is held to
+    ``jax.random.permutation`` by tests/test_torch_prng.py)."""
+    from distributed_tensorflow_example_tpu_torch.utils import prng
+
+    key = prng.fold_in(prng.fold_in(prng.PRNGKey(1 + 0x5EED), 0), 3)
+    got = prng.permutation(key, n, card)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), prng.permutation(key, n, "cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["numpy", "pinned"])
+def test_device_prefetch_batches_equal_blocking_copies_on_card(card,
+                                                               source):
+    """``DevicePrefetcher`` over ``CopyStreamCommit``: non-blocking
+    copies from pinned memory on a copy stream (numpy batches pinned by
+    the commit, or ``pinned_batches`` gathered straight into pinned
+    memory, as the trainer's producer does), each batch taken on the
+    current stream after its event, equal to the blocking copies."""
+    from distributed_tensorflow_example_tpu_torch.data import (
+        CopyStreamCommit, DevicePrefetcher, EpochIterator, mnist,
+        pinned_batches, take)
+
+    split = mnist.synthesize_split(300, seed=5)
+    it = EpochIterator(split, batch_size=32, seed=1, shard=False)
+    want = [(torch.from_numpy(x).to(card), torch.from_numpy(y).to(card))
+            for x, y in it.epoch(0)]
+    if source == "pinned":
+        batches = list(pinned_batches(split, it.batch_indices(0)))
+        assert all(x.is_pinned() and y.is_pinned() for x, y in batches)
+    else:
+        batches = it.epoch(0)
+    feed = DevicePrefetcher(CopyStreamCommit(card), depth=3)
+    got = []
+    for item in feed.rewind(batches):
+        assert item[0].device.type == "cuda" and item[2] is not None
+        x, y = take(*item)
+        got.append((x * 1, y * 1))      # used on the current stream
+    feed.close()
+    assert len(got) == len(want) == 300 // 32
+    for (gx, gy), (wx, wy) in zip(got, want):
+        assert torch.equal(gx, wx) and torch.equal(gy, wy)

@@ -4,13 +4,15 @@ Data, optimizers, the synchronous step, the whole ``run`` (stdout,
 summaries, checkpoints both ways), two gloo processes against one, and
 the CLI's refusals.  The same numpy inputs, and the JAX package's own
 initial params (carried across with ``convert.mlp_params_from_numpy``),
-go through both sides.  The JAX ``run`` is its host path
-(``fast_loop=False``) with ``--pallas``, whose Pallas kernel runs in
-interpret mode on the CPU.  Tolerances, all f32 unless stated: the two
-sides sum in different orders, so parameters agree to ~1e-6 relative
-after a few updates (asserted within 1e-5, 1e-4 after a whole run);
-printed costs are compared as parsed numbers within 1e-3 (they print
-four decimals); bf16 Adam moments within one bf16 ulp (2^-7 relative).
+go through both sides.  The ``run`` on both sides is the host path
+(``fast_loop=False``; the default fast path has its own file,
+``tests/test_torch_epoch.py``) with ``--pallas``, whose Pallas kernel
+runs in interpret mode on the CPU.  Tolerances, all f32 unless stated:
+the two sides sum in different orders, so parameters agree to ~1e-6
+relative after a few updates (asserted within 1e-5, 1e-4 after a whole
+run); printed costs are compared as parsed numbers within 1e-3 (they
+print four decimals); bf16 Adam moments within one bf16 ulp (2^-7
+relative).
 """
 
 import contextlib
@@ -293,7 +295,7 @@ def both_runs(tmp_path_factory):
     jcfg = jconfig.Config(**RUN_KW, fast_loop=False, data_parallel=1,
                           logs_path=str(tmp / "jax_logs"),
                           checkpoint_dir=str(tmp / "jax_ckpt"))
-    tcfg = tconfig.Config(**RUN_KW, device="cpu",
+    tcfg = tconfig.Config(**RUN_KW, fast_loop=False, device="cpu",
                           logs_path=str(tmp / "torch_logs"),
                           checkpoint_dir=str(tmp / "torch_ckpt"))
     init_np = _jax_init_np(jloop.make_spec(jcfg), RUN_KW["seed"])
@@ -435,7 +437,7 @@ def test_two_gloo_processes_equal_one(tmp_path, capsys):
               "--synthetic_train_size=400", "--synthetic_test_size=100",
               "--batch_size=40", "--hidden_sizes=16", "--learning_rate=0.3",
               "--optimizer=momentum", "--frequency=4", "--no_summaries",
-              "--training_epochs=1", "--seed=5"]
+              "--training_epochs=1", "--seed=5", "--no_fast_loop"]
     port = _free_port()
     two = [_cli(common + [f"--task_index={r}",
                           f"--coordinator_address=127.0.0.1:{port}",

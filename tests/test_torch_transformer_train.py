@@ -182,7 +182,7 @@ def both_runs(tmp_path_factory):
     jcfg = jconfig.Config(**RUN_KW, fast_loop=False, data_parallel=1,
                           logs_path=str(tmp / "jax_logs"),
                           checkpoint_dir=str(tmp / "jax_ckpt"))
-    tcfg = tconfig.Config(**RUN_KW, device="cpu",
+    tcfg = tconfig.Config(**RUN_KW, fast_loop=False, device="cpu",
                           logs_path=str(tmp / "torch_logs"),
                           checkpoint_dir=str(tmp / "torch_ckpt"))
     jspec = jloop.make_spec(jcfg)
