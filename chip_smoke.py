@@ -25,8 +25,34 @@ Phases (any failure exits nonzero; none is caught and skipped):
    kernel must have launched), outputs checked, and the first
    request's prefill logits held against the port's CPU path on the
    same params;
+3b. the same model, params and requests with ``kv_quant="int8"``
+    (int8 pools with f32 scale planes), run int8, bf16, bf16, int8: B2,
+    B3 and B8 must launch; the medians of tokens/s, TTFT p50 and decode
+    ms/tick of each pool printed, both pools' bytes read from the
+    tensors, the share of
+    requests whose tokens equal the bf16 pool's; the first request's
+    prefill logits with the int8 pool held against the port's CPU path
+    (LOGITS_ATOL), and one chained int8 paged decode step after it
+    against the bf16 pool's (INT8_DECODE_ATOL);
+3c. the same requests through ``moe_wide``'s MoE as an lm (E 64, top-1,
+    2 blocks, d_ff 2048, 537 M expert params, bf16 over f32,
+    ``--fused_ln``), decoded by dense dispatch: B2 and B3 must launch,
+    B8 must not; tokens/s, TTFT p50, ms/tick and peak memory printed;
+    a 16-token prompt's prefill card vs the port's CPU path, the
+    routing choices first (MOE_FLIP_LIMIT), then the logits with the
+    CPU path held to the card's choices (LOGITS_ATOL);
 4. start the CLI's HTTP server in process on an ephemeral port and
    complete one ``POST /generate``;
+4b. the same under ``--trace_spans --slo=ttft_p99_ms<=250,
+    error_rate<=0.01`` with its logs in a temporary directory: GET
+    ``/trace?rid=0`` (the record holds submit, admit, prefill,
+    first_token and retire), ``/slo`` (the parsed specs' document) and
+    ``/explain?rid=0`` (its segments tile at least 0.99 of the wall),
+    every span row of the file valid;
+4c. the phase 3 serve with a span recorder on and off, interleaved over
+    5 rounds: the median tokens/s ratio and the host time inside the
+    recorder's emit per tick printed (not gated: host-bound readings
+    move between calls);
 
 and for the MLP trainer (``main.py`` -> ``train/loop.run``):
 
@@ -124,7 +150,8 @@ and for MoE training (``main.py --model=transformer --num_experts=64
 
 The last two lines of stdout are the kernel report JSON (each kernel's
 launches on its first main path, and under ``launches_by_path`` on
-every path that ran it) and the result JSON; the card's name and power limit come just before them.
+every path that ran it: ``serve``, ``serve_int8``, ``serve_moe``, the
+trainers') and the result JSON; the card's name and power limit come just before them.
 The script imports nothing of JAX; it needs one card and exits
 nonzero without one.
 """
@@ -142,6 +169,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -1229,30 +1257,47 @@ def check_grouped_ffn_z1(card: str) -> list:
     return [("grouped_ffn_z1", [row])]
 
 
-def phase_serve(card: str, device: str = "cuda",
-                width: dict = FULL_WIDTH) -> dict:
-    from distributed_tensorflow_example_tpu_torch.models import (
-        transformer as tfm)
-    from distributed_tensorflow_example_tpu_torch.ops import fused
-    from distributed_tensorflow_example_tpu_torch.serving import (
-        kv_cache as kvc)
-    from distributed_tensorflow_example_tpu_torch.serving import (
-        scheduler as sched_lib)
-    from distributed_tensorflow_example_tpu_torch.serving.engine import (
-        DecodeEngine)
+def _sync(device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
 
-    spec = tfm.TransformerSpec(**width, compute_dtype=torch.bfloat16)
-    params = tfm.init(spec, seed=0, device=device)
-    eng = DecodeEngine(spec, params, page_size=16, max_batch=8,
-                       device=device)
+
+def _serve_requests(spec):
+    """The serve's 8 ragged greedy requests: prompts of 32-300 tokens,
+    32 new tokens each (both scaled with seq_len for a narrow
+    rehearsal)."""
     rng = np.random.RandomState(0)
     lo, hi = 32 * spec.seq_len // 1024, 300 * spec.seq_len // 1024
     lens = [int(n) for n in rng.randint(lo, hi + 1, size=8)]
-    n_new = 32 * spec.seq_len // 1024
     prompts = [rng.randint(0, spec.vocab_size, size=n).tolist()
                for n in lens]
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    sync()
+    return prompts, 32 * spec.seq_len // 1024
+
+
+def pool_bytes(cache: dict) -> int:
+    """The paged pool's bytes, read from its tensors (values and scale
+    planes)."""
+    return sum(t.numel() * t.element_size() for t in cache.values())
+
+
+def serve_run(spec, params, device: str = "cuda", kv_quant: str = "",
+              recorder=None) -> dict:
+    """The serve's requests through a fresh ``DecodeEngine``, tick by
+    tick: launch counters zeroed just before and read just after, every
+    result checked (typed result, 32 tokens in the vocabulary).
+    Returns the counts, tokens/s, TTFT p50, the median decode tick
+    (tick 0 runs the 8 prefills and one decode; the rest decode only),
+    the pool's bytes, the peak memory and the engine."""
+    from distributed_tensorflow_example_tpu_torch.ops import fused
+    from distributed_tensorflow_example_tpu_torch.serving.engine import (
+        DecodeEngine)
+
+    eng = DecodeEngine(spec, params, page_size=16, max_batch=8,
+                       kv_quant=kv_quant, recorder=recorder, device=device)
+    prompts, n_new = _serve_requests(spec)
+    _sync(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     fused.reset_launch_counts()
     t0 = time.monotonic()
     rids = [eng.submit(p, n_new) for p in prompts]
@@ -1262,59 +1307,287 @@ def phase_serve(card: str, device: str = "cuda",
         if not eng.step():
             break
         tick_s.append(time.monotonic() - ts)
-    sync()
+    _sync(device)
     wall = time.monotonic() - t0
     counts = fused.launch_counts()
-    for name in SERVE_WRAPPERS:
-        if counts[name] <= 0 and device == "cuda":
-            raise AssertionError(f"{name} never launched on the main path")
     results = [eng.result(r, timeout=0) for r in rids]
     for res in results:
         if res is None or res["status"] != "result" \
                 or len(res["tokens"]) != n_new \
                 or not all(0 <= t < spec.vocab_size for t in res["tokens"]):
             raise AssertionError(f"bad serving result: {res}")
-    st = eng.stats()
     toks = sum(len(r["tokens"]) for r in results)
-    # tick 0 runs the 8 prefills (+ one decode); the rest decode only
-    decode_ms = float(np.median(tick_s[1:])) * 1e3
-    log(f"[serve] {len(rids)} requests (prompts {min(lens)}-{max(lens)}, "
-        f"{n_new} new tokens, greedy) in {wall:.3f} s on {card}: "
-        f"{toks / wall:.1f} tokens/s, TTFT p50 {st['ttft_p50_ms']:.2f} ms,"
-        f" decode {decode_ms:.3f} ms/tick (median of {len(tick_s) - 1}), "
-        f"prefill tick {tick_s[0] * 1e3:.2f} ms; launches {counts}")
+    return dict(
+        counts=counts, wall=wall, tps=toks / wall,
+        ttft_p50=eng.stats()["ttft_p50_ms"],
+        tick_ms=float(np.median(tick_s[1:])) * 1e3,
+        prefill_tick_ms=tick_s[0] * 1e3, ticks=len(tick_s),
+        tokens=[r["tokens"] for r in results], prompts=prompts,
+        n_new=n_new, pool_bytes=pool_bytes(eng.cache),
+        peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                  if device == "cuda" else 0.0), eng=eng)
 
+
+def _require(counts: dict, launched, absent, label: str,
+             device: str) -> None:
+    """Each kernel in ``launched`` launched on the path, none in
+    ``absent`` (on the card; CPU tensors take the plain versions)."""
+    if device != "cuda":
+        return
+    for name in launched:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} never launched on the {label} "
+                                 f"path")
+    for name in absent:
+        if counts[name] != 0:
+            raise AssertionError(f"{name} launched {counts[name]} times on "
+                                 f"the {label} path, which never reaches "
+                                 f"it")
+
+
+def _prefill(spec, params, prompt, dev: str, kv_quant: str = ""):
+    """``prefill_into_pages`` of one prompt at its bucket on ``dev``:
+    (f32 logits on the CPU, the pool)."""
+    from distributed_tensorflow_example_tpu_torch.serving import (
+        kv_cache as kvc)
+    from distributed_tensorflow_example_tpu_torch.serving import (
+        scheduler as sched_lib)
+
+    pb = sched_lib.bucket_for(len(prompt),
+                              sched_lib.shape_buckets(spec.seq_len - 1))
+    wp = math.ceil(pb / 16)
+    toks = np.zeros((1, pb), np.int64)
+    toks[0, :len(prompt)] = prompt
+    cache = kvc.init_paged_cache(spec, wp + 2, 16, quant=kv_quant,
+                                 device=dev)
+    logits, cache = kvc.prefill_into_pages(
+        spec, params, cache, torch.arange(1, wp + 1, device=dev)[None],
+        torch.from_numpy(toks).to(dev),
+        torch.tensor([len(prompt)], device=dev))
+    return logits.float().cpu(), cache, pb
+
+
+def _check_prefill(spec, params, prompt, device: str, label: str,
+                   kv_quant: str = "") -> float:
+    """The prompt's prefill logits on ``device`` (kernels on the card)
+    against the port's CPU path (plain versions) on the same params,
+    held to LOGITS_ATOL."""
+    on_dev, _, pb = _prefill(spec, params, prompt, device, kv_quant)
+    on_cpu, _, _ = _prefill(spec, {k: v.cpu() for k, v in params.items()},
+                            prompt, "cpu", kv_quant)
+    if not (torch.isfinite(on_dev).all()
+            and on_dev.shape == (1, spec.vocab_size)):
+        raise AssertionError(f"{label}: prefill logits not finite / wrong "
+                             f"shape")
+    err = float((on_dev - on_cpu).abs().max())
+    log(f"[{label}] prefill logits (prompt {len(prompt)}, bucket {pb}"
+        f"{', int8 pool' if kv_quant else ''}) card vs CPU path: "
+        f"max_abs_err={err:.4g} (tol {LOGITS_ATOL}), argmax equal: "
+        f"{int(on_dev.argmax()) == int(on_cpu.argmax())}")
+    if not err <= LOGITS_ATOL:
+        raise AssertionError(f"{label}: prefill logits differ from the CPU "
+                             f"path by {err} > {LOGITS_ATOL}")
+    return err
+
+
+def phase_serve(card: str, device: str = "cuda",
+                width: dict = FULL_WIDTH) -> dict:
+    from distributed_tensorflow_example_tpu_torch.models import (
+        transformer as tfm)
+
+    spec = tfm.TransformerSpec(**width, compute_dtype=torch.bfloat16)
+    params = tfm.init(spec, seed=0, device=device)
+    run = serve_run(spec, params, device)
+    _require(run["counts"], SERVE_WRAPPERS, (), "serve", device)
+    lens = [len(p) for p in run["prompts"]]
+    log(f"[serve] {len(lens)} requests (prompts {min(lens)}-{max(lens)}, "
+        f"{run['n_new']} new tokens, greedy) in {run['wall']:.3f} s on "
+        f"{card}: {run['tps']:.1f} tokens/s, TTFT p50 "
+        f"{run['ttft_p50']:.2f} ms, decode {run['tick_ms']:.3f} ms/tick "
+        f"(median of {run['ticks'] - 1}), prefill tick "
+        f"{run['prefill_tick_ms']:.2f} ms; launches {run['counts']}")
     # the first request's prefill logits: card (kernels) vs the port's
     # CPU path (plain versions), same params, same padded batch
-    p = prompts[0]
-    pb = sched_lib.bucket_for(len(p), eng.prompt_buckets)
-    wp = math.ceil(pb / 16)
-    toks_np = np.zeros((1, pb), np.int64)
-    toks_np[0, :len(p)] = p
-    bt = torch.arange(1, wp + 1)[None]
+    _check_prefill(spec, params, run["prompts"][0], device, "serve")
+    run.pop("eng")
+    return dict(run, spec=spec, params=params)
 
-    def prefill(dev, prm):
-        cache = kvc.init_paged_cache(spec, wp + 1, 16, device=dev)
-        logits, _ = kvc.prefill_into_pages(
-            spec, prm, cache, bt.to(dev), torch.from_numpy(toks_np).to(dev),
-            torch.tensor([len(p)], device=dev))
-        return logits.float().cpu()
 
-    on_card = prefill(device, eng.params)
-    on_cpu = prefill("cpu", {k: v.cpu() for k, v in eng.params.items()})
-    if not (torch.isfinite(on_card).all() and on_card.shape
-            == (1, spec.vocab_size)):
-        raise AssertionError("prefill logits not finite / wrong shape")
-    err = float((on_card - on_cpu).abs().max())
-    same_argmax = int(on_card.argmax()) == int(on_cpu.argmax())
-    log(f"[serve] prefill logits (prompt {len(p)}, bucket {pb}) card vs "
-        f"CPU path: max_abs_err={err:.4g} (tol {LOGITS_ATOL}), argmax "
-        f"equal: {same_argmax}")
-    if not err <= LOGITS_ATOL:
-        raise AssertionError(f"prefill logits differ from the CPU path by "
-                             f"{err} > {LOGITS_ATOL}")
-    del eng
-    return counts
+# one chained int8 paged decode step against the compute-dtype pool's on
+# the same prompt and token: the bound JAX's tests/test_serving.py holds
+# int8 decode to (0.1 absolute on the logits)
+INT8_DECODE_ATOL = 0.1
+
+
+def phase_serve_int8(card: str, base: dict, device: str = "cuda") -> dict:
+    """The phase 3 model and requests with ``kv_quant="int8"``, run
+    int8, bf16, bf16, int8 (phase 3's own run carries the card's
+    warm-up): B2, B3 and B8 launch on both int8 runs; the medians of
+    tokens/s, TTFT p50 and ms/tick of each pool, both pools' bytes and
+    the share of requests whose tokens equal the bf16 pool's; the first
+    request's prefill logits with the int8 pool, card vs the port's CPU
+    path; one chained int8 paged decode step against the bf16 pool's."""
+    from distributed_tensorflow_example_tpu_torch.serving import (
+        kv_cache as kvc)
+
+    spec, params = base["spec"], base["params"]
+    runs = {"int8": [], "": []}
+    for quant in ("int8", "", "", "int8"):
+        r = serve_run(spec, params, device, kv_quant=quant)
+        _require(r["counts"], SERVE_WRAPPERS, (),
+                 "serve_int8" if quant else "serve", device)
+        runs[quant].append(r)
+    run = runs["int8"][0]
+    if run["eng"].cache["k0"].dtype != torch.int8:
+        raise AssertionError("serve_int8: the pool is not int8")
+    bf16 = runs[""][0]
+    same = sum(a == b for a, b in zip(run["tokens"], bf16["tokens"]))
+    ratio = run["pool_bytes"] / bf16["pool_bytes"]
+    med = {q: {k: float(np.median([r[k] for r in rs]))
+               for k in ("tps", "ttft_p50", "tick_ms")}
+           for q, rs in runs.items()}
+    log(f"[serve-int8] medians of 2 runs each, int8 / bf16 pool: "
+        f"{med['int8']['tps']:.1f} / {med['']['tps']:.1f} tokens/s, TTFT "
+        f"p50 {med['int8']['ttft_p50']:.2f} / {med['']['ttft_p50']:.2f} ms,"
+        f" decode {med['int8']['tick_ms']:.3f} / {med['']['tick_ms']:.3f} "
+        f"ms/tick on {card}; pool {run['pool_bytes']} B against "
+        f"{bf16['pool_bytes']} B bf16 ({ratio:.4f}; (Dh + 4) / (2 Dh) = "
+        f"{(spec.d_head + 4) / (2 * spec.d_head):.4f}); {same} of "
+        f"{len(run['tokens'])} requests' tokens equal the bf16 pool's; "
+        f"launches {run['counts']}")
+    prompt = run["prompts"][0]
+    _check_prefill(spec, params, prompt, device, "serve-int8", "int8")
+    # one chained decode step after the prefill, int8 pool vs bf16 pool
+    steps = {}
+    for quant in ("", "int8"):
+        logits, cache, pb = _prefill(spec, params, prompt, device, quant)
+        wp = cache["k0"].shape[0] - 2
+        bt = torch.arange(1, wp + 2, device=device)[None]
+        tok = torch.tensor([int(logits.argmax())], device=device)
+        pos = torch.tensor([len(prompt)], device=device)
+        out, _ = kvc.paged_decode_step(spec, params, cache, bt, tok, pos)
+        steps[quant] = out.float().cpu()
+    err = float((steps["int8"] - steps[""]).abs().max())
+    log(f"[serve-int8] one chained decode step after the prefill, int8 "
+        f"pool vs bf16 pool on the card: max_abs_err={err:.4g} (tol "
+        f"{INT8_DECODE_ATOL}), argmax equal: "
+        f"{int(steps['int8'].argmax()) == int(steps[''].argmax())}")
+    if not (torch.isfinite(steps["int8"]).all() and err <= INT8_DECODE_ATOL):
+        raise AssertionError(f"serve_int8: int8 decode differs from the "
+                             f"bf16 pool's by {err} > {INT8_DECODE_ATOL}")
+    for rs in runs.values():
+        for r in rs:
+            r.pop("eng")
+    return dict(run, **med["int8"], bf16_warm=med[""], same=same,
+                pool_ratio=ratio, decode_err=err)
+
+
+# moe_wide's widths as an lm (the MoE model the port trains, phase 8):
+# E 64 top-1, 2 blocks, d_ff 2048; serving routes it by dense dispatch
+MOE_SERVE = dict(FULL_WIDTH, num_blocks=2, d_ff=2048, num_experts=64,
+                 moe_topk=1, fp8_ffn=False)
+# the short prompt whose prefill is held card vs CPU (a 16-token bucket
+# keeps the CPU side's 64 experts to seconds)
+MOE_CHECK_PROMPT = 16
+
+
+def phase_serve_moe(card: str, device: str = "cuda",
+                    width: dict = MOE_SERVE) -> dict:
+    """The serve's requests through a MoE lm at ``moe_wide``'s widths:
+    B2 and B3 launch, B8 never (dense dispatch computes every expert by
+    plain products); tokens/s, TTFT p50, ms/tick and peak memory; a
+    short prompt's prefill, card vs the port's CPU path: the top-1
+    routing choices first (the flips counted and held to
+    MOE_FLIP_LIMIT), then, with the CPU path held to the card's
+    choices, the logits (LOGITS_ATOL)."""
+    from distributed_tensorflow_example_tpu_torch.models import (
+        transformer as tfm)
+
+    spec = tfm.TransformerSpec(**width, compute_dtype=torch.bfloat16)
+    params = tfm.init(spec, seed=0, device=device)
+    n_expert = sum(v.numel() for k, v in params.items()
+                   if k.split("_", 1)[-1] in ("We1", "We2", "be1", "be2"))
+    run = serve_run(spec, params, device)
+    _require(run["counts"], ("fused_layer_norm", "fused_layer_norm_residual"),
+             ("moe_grouped_matmul", "moe_grouped_matmul_z1"), "serve_moe",
+             device)
+    log(f"[serve-moe] E {spec.num_experts} top-{spec.moe_topk}, "
+        f"{spec.num_blocks} blocks, d_ff {spec.d_ff} ({n_expert / 1e6:.1f} M "
+        f"expert params): {run['tps']:.1f} tokens/s, TTFT p50 "
+        f"{run['ttft_p50']:.2f} ms, decode {run['tick_ms']:.3f} ms/tick, "
+        f"prefill tick {run['prefill_tick_ms']:.2f} ms, peak memory "
+        f"{run['peak_gib']:.3f} GiB on {card}; launches {run['counts']}")
+    prompt = min(run["prompts"], key=len)[:MOE_CHECK_PROMPT]
+    orig_route = tfm._route_topk
+    card_idx, flips = [], []
+
+    def record(spec_, probs):
+        gates, idx = orig_route(spec_, probs)
+        card_idx.append(idx.cpu())
+        return gates, idx
+
+    def card_choices(spec_, probs):
+        _gates, own = orig_route(spec_, probs)
+        idx = card_idx[len(flips)].to(probs.device)
+        flips.append(int((own != idx).any(dim=-1).sum()))
+        gates = torch.gather(probs, -1, idx)
+        if spec_.moe_topk > 1:
+            gates = gates / torch.sum(gates, dim=-1, keepdim=True)
+        return gates, idx
+
+    try:
+        tfm._route_topk = record
+        on_dev, _, pb = _prefill(spec, params, prompt, device)
+        tfm._route_topk = card_choices
+        t0 = time.monotonic()
+        on_cpu, _, _ = _prefill(spec, {k: v.cpu() for k, v in
+                                       params.items()}, prompt, "cpu")
+        cpu_s = time.monotonic() - t0
+    finally:
+        tfm._route_topk = orig_route
+    routed = pb * spec.num_blocks
+    err = float((on_dev - on_cpu).abs().max())
+    log(f"[serve-moe] prefill (prompt {len(prompt)}, bucket {pb}) card vs "
+        f"CPU path: {sum(flips)} of {routed} routing choices differ (limit "
+        f"{MOE_FLIP_LIMIT} x {routed}); with the card's choices "
+        f"max_abs_err={err:.4g} (tol {LOGITS_ATOL}), argmax equal: "
+        f"{int(on_dev.argmax()) == int(on_cpu.argmax())}; CPU prefill "
+        f"{cpu_s:.1f} s")
+    if len(flips) != spec.num_blocks or sum(flips) > MOE_FLIP_LIMIT * routed:
+        raise AssertionError(f"serve_moe: routing differs card vs CPU on "
+                             f"{flips} tokens")
+    if not (torch.isfinite(on_dev).all() and err <= LOGITS_ATOL):
+        raise AssertionError(f"serve_moe: prefill logits differ from the "
+                             f"CPU path by {err} > {LOGITS_ATOL}")
+    run.pop("eng")
+    del params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return dict(run, flips=sum(flips), expert_params=n_expert)
+
+
+def _post_generate(port: int, timeout: float = 300) -> dict:
+    body = json.dumps({"prompt": list(range(1, 17)),
+                       "max_new_tokens": 8}).encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/generate", data=body,
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        code = resp.status
+        doc = json.loads(resp.read())
+    if code != 200 or doc.get("status") != "result" \
+            or len(doc.get("tokens", [])) != 8:
+        raise AssertionError(f"POST /generate answered {code}: {doc}")
+    return doc
+
+
+def _get_json(port: int, path: str):
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=60) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
 
 
 def phase_http(flags=FULL_WIDTH_FLAGS) -> None:
@@ -1324,22 +1597,129 @@ def phase_http(flags=FULL_WIDTH_FLAGS) -> None:
     cfg = config.parse_config(flags + ["--serve_port=0"])
     server, engine = cli.serve(cfg, 0)
     try:
-        body = json.dumps({"prompt": list(range(1, 17)),
-                           "max_new_tokens": 8}).encode()
-        req = urllib.request.Request(
-            f"http://127.0.0.1:{server.port}/generate", data=body,
-            headers={"Content-Type": "application/json"})
-        with urllib.request.urlopen(req, timeout=300) as resp:
-            code = resp.status
-            doc = json.loads(resp.read())
+        doc = _post_generate(server.port)
     finally:
         server.close()
         engine.stop()
-    if code != 200 or doc.get("status") != "result" \
-            or len(doc.get("tokens", [])) != 8:
-        raise AssertionError(f"POST /generate answered {code}: {doc}")
     log(f"[http] POST /generate -> 200, {len(doc['tokens'])} tokens, "
         f"ttft {doc['ttft_ms']} ms, latency {doc['latency_ms']} ms")
+
+
+# the traced serve's flags (phase 4b); the SLO specs are the ones the
+# served request is read against on /slo
+TRACE_FLAGS = ["--trace_spans", "--slo=ttft_p99_ms<=250,error_rate<=0.01"]
+# a waterfall's segments must tile at least this share of its wall
+WATERFALL_MIN_FRAC = 0.99
+
+
+def phase_http_traced(flags=FULL_WIDTH_FLAGS) -> dict:
+    """The CLI's server with ``--trace_spans --slo=...`` and logs in a
+    temporary directory: one POST /generate, then /trace?rid=0 (the
+    record holds submit, admit, prefill, first_token and retire), /slo
+    (the parsed specs' document) and /explain?rid=0 (its segments tile
+    at least WATERFALL_MIN_FRAC of submit->terminal); every span row in
+    the file passes the port's validator."""
+    from distributed_tensorflow_example_tpu_torch import config
+    from distributed_tensorflow_example_tpu_torch.obs import schema
+    from distributed_tensorflow_example_tpu_torch.serving import cli
+
+    with tempfile.TemporaryDirectory() as logs:
+        cfg = config.parse_config(flags + TRACE_FLAGS + [
+            "--serve_port=0", f"--logs_path={logs}"])
+        server, engine = cli.serve(cfg, 0)
+        try:
+            doc = _post_generate(server.port)
+            # the retire lands at the engine's next boundary
+            deadline = time.monotonic() + 60
+            while True:
+                code, tr = _get_json(server.port, "/trace?rid=0")
+                if code == 200 and tr["record"].get("terminal") == "result":
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"/trace?rid=0: {code} {tr}")
+                time.sleep(0.02)
+            _, slo = _get_json(server.port, "/slo")
+            _, ex = _get_json(server.port, "/explain?rid=0")
+        finally:
+            server.close()
+            engine.stop()
+            engine.recorder.close()
+        errs = schema.validate_span_file(engine.recorder.path)
+        with open(engine.recorder.path) as f:
+            n_rows = sum(1 for line in f if line.strip())
+    rec = tr["record"]
+    missing = [e for e in ("submit", "admit", "prefill", "first_token",
+                           "retire") if f"{e}_t" not in rec]
+    if missing or not rec["complete"] or rec["trace_id"] != doc["trace_id"]:
+        raise AssertionError(f"/trace?rid=0 record lacks {missing}: {rec}")
+    if slo.get("kind") != "slo_report" or [s["name"] for s in slo["slos"]] \
+            != ["ttft_p99_ms", "error_rate"] or slo["requests"] != 1:
+        raise AssertionError(f"/slo: {slo}")
+    wf = ex["waterfalls"]
+    if len(wf) != 1 or not wf[0]["complete"]:
+        raise AssertionError(f"/explain?rid=0: {ex}")
+    frac = wf[0]["segment_sum_ms"] / wf[0]["wall_ms"]
+    if not frac >= WATERFALL_MIN_FRAC:
+        raise AssertionError(f"/explain?rid=0: segments tile {frac} of the "
+                             f"wall < {WATERFALL_MIN_FRAC}")
+    if errs or n_rows < 6:
+        raise AssertionError(f"span file ({n_rows} rows): {errs[:5]}")
+    segs = {k: v for k, v in wf[0]["segments"].items() if v}
+    log(f"[http-traced] POST /generate -> 200 (ttft {doc['ttft_ms']} ms); "
+        f"/trace?rid=0 complete ({len(tr['events'])} rows); /slo ok="
+        f"{slo['ok']} over {slo['requests']} request(s); /explain?rid=0 "
+        f"wall {wf[0]['wall_ms']} ms, segments {segs}, tiling {frac:.6f} of "
+        f"it; {n_rows} span rows valid")
+    return dict(frac=frac, rows=n_rows)
+
+
+def phase_trace_overhead(card: str, base: dict, rounds: int = 5,
+                         device: str = "cuda") -> dict:
+    """The phase 3 serve with a span recorder on and off, interleaved
+    (off, on / on, off / ...) over ``rounds`` rounds: the median of
+    each round's tokens/s on over off, and the host time spent inside
+    the recorder's ``emit`` per decode tick (the instrumentation's own
+    cost, read apart from the host's run-to-run noise).  Printed, not
+    gated: host-bound readings move between calls."""
+    from distributed_tensorflow_example_tpu_torch.obs.spans import (
+        SpanRecorder)
+
+    class TimedRecorder(SpanRecorder):
+        emit_s = 0.0
+        rows = 0
+
+        def emit(self, event, **fields):
+            t = time.perf_counter()
+            super().emit(event, **fields)
+            self.emit_s += time.perf_counter() - t
+            self.rows += 1
+
+    ratios, emit_ms, rows, tick_ms = [], [], [], []
+    with tempfile.TemporaryDirectory() as logs:
+        for r in range(rounds):
+            tps = {}
+            for traced in ((False, True) if r % 2 == 0 else (True, False)):
+                rec = TimedRecorder(logs) if traced else None
+                run = serve_run(base["spec"], base["params"], device,
+                                recorder=rec)
+                if rec is not None:
+                    rec.close()
+                    emit_ms.append(rec.emit_s * 1e3 / run["ticks"])
+                    rows.append(rec.rows / run["ticks"])
+                    tick_ms.append(run["wall"] * 1e3 / run["ticks"])
+                tps[traced] = run["tps"]
+            ratios.append(tps[True] / tps[False])
+    out = dict(ratio=float(np.median(ratios)),
+               emit_ms=float(np.median(emit_ms)),
+               rows=float(np.median(rows)),
+               tick_ms=float(np.median(tick_ms)))
+    log(f"[trace-overhead] serve tokens/s with spans over without, "
+        f"{rounds} interleaved rounds on {card}: "
+        f"{', '.join(f'{x:.4f}' for x in ratios)}; median "
+        f"{out['ratio']:.4f}; inside emit {out['emit_ms']:.4f} ms a tick "
+        f"({out['rows']:.2f} rows a tick), "
+        f"{out['emit_ms'] / out['tick_ms']:.5f} of the traced tick's wall")
+    return out
 
 
 def _run_captured(fn, *args):
@@ -1945,8 +2325,15 @@ def main() -> int:
                 + check_mlp_forward(card) + check_flash(card)
                 + check_layer_norm_backward(card)
                 + check_grouped_ffn_z1(card))
-    counts = phase_serve(card)
+    serve = phase_serve(card)
+    counts = dict(serve["counts"])
+    serve_int8 = phase_serve_int8(card, serve)
+    serve_moe = phase_serve_moe(card)
     phase_http()
+    phase_http_traced()
+    trace = phase_trace_overhead(card, serve)
+    del serve["params"]
+    torch.cuda.empty_cache()
     train = phase_train(card)
     cli = phase_cli(card)
     tfm_train = phase_transformer_train(card)
@@ -1955,12 +2342,15 @@ def main() -> int:
     phase_moe_step(card)
     ln_bwd_launch_split(card, dict(measured)["layer_norm_backward"][0])
     # each kernel's launches on its own main path: the full-width serve
-    # (phase 3) for the serving kernels, the full-width MLP training run
+    # (phase 3) for the serving kernels (the int8 and MoE serves, phases
+    # 3b and 3c, under launches_by_path), the full-width MLP training run
     # (phase 5) for the MLP forward, the full-width transformer training
     # run (phase 7) for the LayerNorm backward and the flash kernels,
     # the full-width MoE run under --grouped_moe (phase 8) for B8's
     # training form
-    by_path = {"serve": dict(counts), "mlp_train": train["counts"],
+    by_path = {"serve": dict(counts), "serve_int8": serve_int8["counts"],
+               "serve_moe": serve_moe["counts"],
+               "mlp_train": train["counts"],
                "mlp_cli": cli["counts"],
                "transformer_train": tfm_train["counts"],
                "moe_train": moe_train[0]["counts"],
@@ -1997,6 +2387,21 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(f"[done] all phases passed in {time.monotonic() - t0:.1f} s")
+    for name, r in (("bf16 pool (first run)", serve),
+                    ("bf16 pool (warm, median of 2)",
+                     dict(serve_int8["bf16_warm"],
+                          pool_bytes=serve["pool_bytes"],
+                          peak_gib=serve["peak_gib"])),
+                    ("int8 pool (median of 2)", serve_int8),
+                    ("MoE, bf16 pool", serve_moe)):
+        log(f"[serve] {name}: {r['tps']:.1f} tokens/s, TTFT p50 "
+            f"{r['ttft_p50']:.2f} ms, {r['tick_ms']:.3f} ms/tick, pool "
+            f"{r['pool_bytes']} B, peak memory {r['peak_gib']:.3f} GiB on "
+            f"{smi}")
+    log(f"[serve] int8 pool / bf16 pool bytes {serve_int8['pool_ratio']:.4f}"
+        f"; tokens equal in {serve_int8['same']} of 8 requests; spans on / "
+        f"off tokens/s median {trace['ratio']:.4f}, inside emit "
+        f"{trace['emit_ms']:.4f} ms a tick on {smi}")
     for name, r in train["runs"].items():
         log(f"[train] {name}: median step {r['step_ms_median']:.3f} ms, "
             f"peak memory {r['peak_gib']:.3f} GiB on {smi}")

@@ -43,8 +43,8 @@ class Config:
     activation: str = "sigmoid"     # sigmoid serves as gelu (JAX CLI rule)
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
-    num_experts: int = 0            # > 0: MoE FFN (training; the
-                                    # serving CLI refuses it)
+    num_experts: int = 0            # > 0: MoE FFN (decode and prefill
+                                    # route it by dense dispatch)
     moe_topk: int = 1               # experts per token (1 = Switch)
     moe_dispatch: str = "dense"     # dense (exact) | alltoall (sparse)
     capacity_factor: float = 1.25   # alltoall: C = ceil(cf * T * k / E)
@@ -65,21 +65,22 @@ class Config:
     decode_page_size: int = 16
     decode_pages: int = 0
     decode_max_batch: int = 8
-    kv_quant: str = ""              # int8: not ported yet
+    kv_quant: str = ""              # "" | int8: the paged KV pools
     deadline_ms: float = 0.0
     max_queue: int = 0
     brownout: str = ""
     engine_retries: int = 0
-    # not ported yet: the CLI refuses these when set
-    trace_spans: bool = False
-    slo: str = ""
+    trace_spans: bool = False       # request spans under logs_path
+    slo: str = ""                   # the SLO DSL; "" = the defaults
+    span_rotate_mb: float = 0.0     # --trace_spans: rotate past this
+    span_keep: int = 3              # --trace_spans: rotated segments
+    # not ported yet: the serving CLI refuses these when set
+    outer_quant: str = ""           # multi-site outer sync compression
     replicas: int = 1
     replay: str = ""
     replay_speed: float = 1.0       # --replay's time compression
     fleet_retries: int = 2          # --replicas fleet: failovers
     breaker: str = ""               # --replicas fleet: circuit breaker
-    span_rotate_mb: float = 0.0     # --trace_spans: rotate past this
-    span_keep: int = 3              # --trace_spans: rotated segments
     status_cache_s: float = 15.0    # status server's response cache TTL
     # ---- training (main.py -> train/loop.run) ----
     job_name: str = ""              # "", "ps" or "worker"; ps is absorbed
@@ -178,7 +179,22 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["sigmoid", "relu", "tanh", "gelu"])
     p.add_argument("--param_dtype", type=str, default=d.param_dtype)
     p.add_argument("--compute_dtype", type=str, default=d.compute_dtype)
-    p.add_argument("--num_experts", type=int, default=d.num_experts)
+    p.add_argument("--num_classes", type=int, default=d.num_classes)
+    p.add_argument("--num_experts", type=int, default=d.num_experts,
+                   help="the FFN becomes a top-k MoE with this many "
+                        "experts; the prefill and the decode route it "
+                        "by exact dense dispatch, as in the JAX package")
+    p.add_argument("--moe_topk", type=int, default=d.moe_topk,
+                   help="experts per token (1 = Switch; 2 = GShard "
+                        "top-2, gates renormalized)")
+    p.add_argument("--moe_dispatch", type=str, default=d.moe_dispatch,
+                   choices=["dense", "alltoall"],
+                   help="the spec's MoE routing (serving routes dense "
+                        "whatever it says)")
+    p.add_argument("--capacity_factor", type=float,
+                   default=d.capacity_factor)
+    p.add_argument("--moe_aux_weight", type=float, default=d.moe_aux_weight)
+    p.add_argument("--grouped_moe", action="store_true")
     p.add_argument("--attention", type=str, default=d.attention,
                    choices=["dense", "flash"],
                    help="the spec's attention backend (the prefill and "
@@ -195,6 +211,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(pow2 scales) through the grouped-FFN CUDA "
                         "kernel")
     p.add_argument("--checkpoint_dir", type=str, default=d.checkpoint_dir)
+    p.add_argument("--logs_path", type=str, default=d.logs_path,
+                   help="where --trace_spans writes spans.<proc>.jsonl")
     p.add_argument("--serve_port", type=int, default=d.serve_port)
     p.add_argument("--decode_page_size", type=int,
                    default=d.decode_page_size)
@@ -202,27 +220,72 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--decode_max_batch", type=int,
                    default=d.decode_max_batch)
     p.add_argument("--kv_quant", type=str, default=d.kv_quant,
+                   choices=["", "int8"],
+                   help="paged KV pools as int8 with a per-row, per-head "
+                        "f32 scale plane (about half the bytes of bf16)")
+    p.add_argument("--outer_quant", type=str, default=d.outer_quant,
                    choices=["", "int8"])
     p.add_argument("--deadline_ms", type=float, default=d.deadline_ms)
     p.add_argument("--max_queue", type=int, default=d.max_queue)
     p.add_argument("--brownout", type=str, default=d.brownout)
     p.add_argument("--engine_retries", type=int, default=d.engine_retries)
-    p.add_argument("--trace_spans", action="store_true")
-    p.add_argument("--slo", type=str, default=d.slo)
+    p.add_argument("--trace_spans", action="store_true",
+                   help="record request-lifecycle spans to "
+                        "<logs_path>/spans.<proc>.jsonl, feeding /trace, "
+                        "/slo, /explain and the brownout's burn rate")
+    p.add_argument("--slo", type=str, default=d.slo,
+                   help="SLO specs for /slo and the brownout: "
+                        "comma-separated NAME<=VALUE with NAME one of "
+                        "ttft_p99_ms / latency_p99_ms / error_rate "
+                        "(empty = the defaults)")
     p.add_argument("--replicas", type=int, default=d.replicas)
     p.add_argument("--replay", type=str, default=d.replay)
     p.add_argument("--replay_speed", type=float, default=d.replay_speed)
     p.add_argument("--fleet_retries", type=int, default=d.fleet_retries)
     p.add_argument("--breaker", type=str, default=d.breaker)
     p.add_argument("--span_rotate_mb", type=float,
-                   default=d.span_rotate_mb)
-    p.add_argument("--span_keep", type=int, default=d.span_keep)
+                   default=d.span_rotate_mb,
+                   help="rotate each spans.<proc>.jsonl before it "
+                        "exceeds this many MB (0 = never)")
+    p.add_argument("--span_keep", type=int, default=d.span_keep,
+                   help="rotated span segments kept per process")
     p.add_argument("--status_cache_s", type=float,
                    default=d.status_cache_s)
     p.add_argument("--device", type=str, default=d.device,
                    choices=["cuda", "cpu"],
                    help="where the engine runs (default: the card)")
     return p
+
+
+def validate_quant_config(cfg: Config) -> None:
+    """The ``--kv_quant`` and ``--fp8_ffn`` legs of the JAX package's
+    quantization matrix, raised before any model is built:
+    ``kv_quant`` reshapes the paged serving cache, which decodes the lm
+    transformer only; ``fp8_ffn`` rounds the transformer FFN's operands,
+    and a dense-dispatch MoE never reaches the grouped expert kernel
+    the fp8 path rides.  (``--outer_quant`` is refused by the serving
+    CLI before this runs: the multi-site outer sync is not ported.)"""
+    if cfg.kv_quant not in ("", "int8"):
+        raise ValueError(f"kv_quant={cfg.kv_quant!r}: expected '' or "
+                         f"'int8'")
+    if cfg.kv_quant:
+        if cfg.model != "transformer" or cfg.objective != "lm":
+            raise ValueError(
+                "--kv_quant quantizes the paged serving KV cache, which "
+                "decodes the lm transformer only: it needs "
+                "--model=transformer --objective=lm")
+    if cfg.fp8_ffn:
+        if cfg.model != "transformer":
+            raise ValueError(
+                "--fp8_ffn rounds the transformer FFN matmul "
+                "operands; the MLP family has no FFN blocks "
+                "(--model=transformer)")
+        if cfg.num_experts and cfg.moe_dispatch != "alltoall":
+            raise ValueError(
+                "--fp8_ffn quantizes the MoE expert FFN through the "
+                "sparse grouped kernel; use --moe_dispatch=alltoall "
+                "(dense dispatch computes every expert on every "
+                "token and never reaches it)")
 
 
 def validate_serving_config(cfg: Config) -> None:

@@ -42,9 +42,9 @@ descending sort (the lower expert index first on a tie, as
 argsort and ``searchsorted(side="left")``, dropped units in a trash row
 past the buffer.
 
-Not ported yet (ROADMAP.md): tensor/sequence/expert/pipeline
-parallelism and MoE decode (``_decode_forward`` raises on
-``num_experts > 0``).
+The decode routes a MoE spec by dense dispatch, as the JAX package's
+does.  Not ported yet (ROADMAP.md): tensor/sequence/expert/pipeline
+parallelism.
 """
 
 from __future__ import annotations
@@ -582,13 +582,14 @@ def _decode_forward(spec: TransformerSpec, params: Params, token, pos, kv):
     ``decode_step`` and the paged ``serving.kv_cache.paged_decode_step``.
     ``token`` [B] long; ``pos`` an int (contiguous) or [B] (paged);
     ``kv.update(i, k, v) -> (keys, values, mask)``.  Returns f32
-    logits [B, V]."""
+    logits [B, V].  A MoE spec decodes by exact dense dispatch whatever
+    ``spec.moe_dispatch`` says, as in the JAX package: training's
+    capacity pool spans the whole [B, S] token population, which a
+    step at one position per sequence cannot reproduce."""
     if spec.objective != "lm":
         raise ValueError("decode serves the lm objective only")
-    if spec.num_experts:
-        raise NotImplementedError(
-            "MoE decode is not ported to the PyTorch package yet "
-            "(ROADMAP.md Queue A, slice 4)")
+    if spec.moe_dispatch != "dense":
+        spec = dataclasses.replace(spec, moe_dispatch="dense")
     cdt = spec.compute_dtype
     b = token.shape[0]
     dh = spec.d_head

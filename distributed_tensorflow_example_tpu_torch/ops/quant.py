@@ -1,5 +1,11 @@
-"""fp8 (e4m3) rounding with power-of-two scales — the part of the JAX
-package's ``ops/quant.py`` that the fp8 FFN uses.
+"""Symmetric int8 quantization and fp8 (e4m3) rounding with power-of-two
+scales — the parts of the JAX package's ``ops/quant.py`` that the int8
+paged KV pools and the fp8 FFN use.
+
+int8 is symmetric per axis: ``q = clip(round(x / s), -127, 127)`` with
+``s = amax / 127`` (1.0 for an all-zero tile), rounding half to even,
+and ``dequantize`` is one multiply, bit for bit as the JAX package
+computes them on the CPU.
 
 A pow2 scale only shifts the exponent, so ``x / s`` and ``q * s`` are
 exact in any binary float format: the rounded values sit exactly on a
@@ -14,6 +20,10 @@ import math
 
 import torch
 
+# symmetric int8: q in [-127, 127] (no -128, so dequantize is one
+# multiply and the format is sign-stable)
+INT8_MAX = 127.0
+
 # largest finite float8_e4m3fn magnitude; the cast does not saturate
 # to it (out-of-range values become nan), hence the explicit clip
 FP8_E4M3_MAX = 448.0
@@ -26,6 +36,42 @@ def _amax(x: torch.Tensor, axis=None) -> torch.Tensor:
     if axis is None:
         axis = tuple(range(a.dim()))
     return torch.amax(a, dim=axis, keepdim=True)
+
+
+def int8_scale(amax: torch.Tensor) -> torch.Tensor:
+    """Symmetric int8 scale of a tile whose largest magnitude is
+    ``amax``: ``amax / 127``, 1.0 where the tile is all zero (q is then
+    0 whatever the scale)."""
+    amax = torch.as_tensor(amax, dtype=torch.float32)
+    # a full tensor, not a scalar: a division by a scalar is a multiply
+    # by its rounded reciprocal, which is not amax / 127 for every amax
+    return torch.where(amax > 0.0, amax / torch.full_like(amax, INT8_MAX),
+                       torch.ones_like(amax))
+
+
+def quantize_int8(x: torch.Tensor, axis=None):
+    """``(q int8, scale f32)``: ``axis`` is the axis or axes the scale
+    reduces over (None = one scale for the tensor), kept as size-1 dims
+    so ``q * scale`` broadcasts.  Rounds half to even, clipped to
+    [-127, 127]."""
+    scale = int8_scale(_amax(x, axis))
+    q = torch.clamp(torch.round(x.to(torch.float32) / scale),
+                    -INT8_MAX, INT8_MAX).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``q * scale`` in f32, cast to ``dtype``; ``scale`` must broadcast
+    (``quantize_int8`` keeps its reduced dims)."""
+    return (q.to(torch.float32) * scale).to(dtype)
+
+
+def int8_roundtrip(x: torch.Tensor, axis=None) -> torch.Tensor:
+    """``dequantize_int8(*quantize_int8(x, axis))`` in f32: the values an
+    int8 wire carries, each within ``amax / 254`` of ``x``."""
+    q, scale = quantize_int8(x, axis)
+    return dequantize_int8(q, scale)
 
 
 def pow2_scale(amax: torch.Tensor, fmt_max: float = FP8_E4M3_MAX):
@@ -84,4 +130,5 @@ def fp8_round(x: torch.Tensor, axis=None, scale=None) -> torch.Tensor:
     return (q * scale).to(x.dtype)
 
 
-__all__ = ["FP8_E4M3_MAX", "pow2_scale", "fp8_round"]
+__all__ = ["INT8_MAX", "FP8_E4M3_MAX", "int8_scale", "quantize_int8",
+           "dequantize_int8", "int8_roundtrip", "pow2_scale", "fp8_round"]

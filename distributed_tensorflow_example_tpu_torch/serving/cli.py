@@ -17,10 +17,22 @@ serves with stdlib ``http.server``:
   response keys (``rid``, ``status``, ``prompt``, ``tokens``,
   ``latency_ms``, ``ttft_ms``, ``trace_id``); 503 + ``Retry-After``
   when shed, 504 on a deadline, 400 on a bad request;
-- ``GET /healthz`` — ``{"ok": true, "serving": <engine stats>}``.
+- ``GET /healthz`` — ``{"ok": true, "serving": <engine stats>}``;
+- ``GET /slo`` — the burn-rate verdict of the ``--slo`` specs;
+- ``GET /trace?rid=N`` — one request's reconstructed lifecycle and its
+  raw span rows (400 without an integer rid, 404 for an unknown one);
+- ``GET /explain[?rid=N][&trace=ID]`` — per-request latency waterfalls
+  and their summary;
 
-``--replicas`` > 1, ``--replay``, ``--trace_spans`` and ``--slo`` are
-not ported yet: the CLI exits 2 with a message naming ROADMAP.md.
+the last three with the JAX status server's payloads, read from the
+span recorder's ring (``--trace_spans``; without it they see no
+requests).  ``--kv_quant=int8`` stores the paged pools as int8, and a
+MoE model (``--num_experts``) decodes by exact dense dispatch.
+
+The fleet (``--replicas`` > 1, ``--breaker``, ``--fleet_retries``),
+replay (``--replay``, ``--replay_speed``), the status server's cache
+(``--status_cache_s``) and ``--outer_quant`` are not ported yet: set,
+the CLI exits 2 with a message naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional, Sequence
+from urllib.parse import parse_qs
 
 from .. import config as config_lib
 
@@ -45,21 +58,27 @@ def spec_from_cfg(cfg):
     """The lm transformer spec of the JAX ``dtx-serve``'s
     ``_spec_from_cfg``: seq_len = input_size, causal, ``sigmoid``
     (the training default) served as gelu, ``--pallas`` selects flash
-    attention.  (The prefill and the decode run dense attention
-    whatever the spec says, as in the JAX package.)"""
+    attention, every MoE field carried.  (The prefill and the decode
+    run dense attention and dense MoE dispatch whatever the spec says,
+    as in the JAX package.)"""
     from ..device import dtype_from_name
     from ..models.transformer import TransformerSpec
 
     return TransformerSpec(
-        input_size=cfg.input_size, objective="lm",
-        vocab_size=cfg.vocab_size, seq_len=cfg.input_size,
+        input_size=cfg.input_size, num_classes=cfg.num_classes,
+        objective="lm", vocab_size=cfg.vocab_size,
+        seq_len=cfg.input_size,
         d_model=cfg.d_model, n_heads=cfg.n_heads,
         num_blocks=cfg.num_blocks, d_ff=cfg.d_ff,
         activation=(cfg.activation if cfg.activation != "sigmoid"
                     else "gelu"),
         attention="flash" if cfg.pallas else cfg.attention,
-        causal=True, num_experts=cfg.num_experts,
-        fused_ln=cfg.fused_ln, fp8_ffn=cfg.fp8_ffn,
+        causal=True, num_experts=cfg.num_experts, moe_topk=cfg.moe_topk,
+        moe_dispatch=cfg.moe_dispatch,
+        capacity_factor=cfg.capacity_factor,
+        aux_loss_weight=cfg.moe_aux_weight,
+        fused_ln=cfg.fused_ln, grouped_moe=cfg.grouped_moe,
+        fp8_ffn=cfg.fp8_ffn,
         param_dtype=dtype_from_name(cfg.param_dtype),
         compute_dtype=dtype_from_name(cfg.compute_dtype),
     )
@@ -72,27 +91,24 @@ def unported_flags(cfg) -> list:
         out.append("--replicas")
     if cfg.replay:
         out.append("--replay")
-    if cfg.trace_spans:
-        out.append("--trace_spans")
-    if cfg.slo:
-        out.append("--slo")
-    if cfg.kv_quant:
-        out.append("--kv_quant")
-    if cfg.num_experts:
-        out.append("--num_experts")
-    # flags of the fleet, replay, span and status-server features, which
-    # the port does not have either: refused when set off their defaults
+    if cfg.outer_quant:
+        out.append("--outer_quant")
+    # flags of the fleet, replay and status-server features, which the
+    # port does not have either: refused when set off their defaults
     defaults = config_lib.Config()
     for name in ("replay_speed", "fleet_retries", "breaker",
-                 "span_rotate_mb", "span_keep", "status_cache_s"):
+                 "status_cache_s"):
         if getattr(cfg, name) != getattr(defaults, name):
             out.append(f"--{name}")
     return out
 
 
 def build_engine(cfg):
-    """The ``DecodeEngine`` the flags describe (not started)."""
+    """The ``DecodeEngine`` the flags describe (not started), with a
+    ``SpanRecorder`` under ``<logs_path>`` when ``--trace_spans`` is
+    set (close it with ``engine.recorder.close()`` when done)."""
     from ..models import transformer as tfm
+    from ..obs import slo as slo_lib
     from .admission import parse_brownout
     from .engine import DecodeEngine
 
@@ -108,19 +124,87 @@ def build_engine(cfg):
         print("dtx-serve (torch): no --checkpoint_dir — serving a seeded "
               "random init (demo mode)", file=sys.stderr)
         params = tfm.init(spec, seed=cfg.seed, device=cfg.device)
+    recorder = None
+    if cfg.trace_spans:
+        from ..obs.spans import SpanRecorder
+
+        recorder = SpanRecorder(
+            cfg.logs_path,
+            rotate_bytes=int(cfg.span_rotate_mb * 1024 * 1024),
+            keep=cfg.span_keep)
+        print(f"dtx-serve (torch): request spans -> {recorder.path}"
+              + (f" (rotate at {cfg.span_rotate_mb:g} MB, keep "
+                 f"{cfg.span_keep})" if cfg.span_rotate_mb > 0
+                 else ""))
     return DecodeEngine(
         spec, params, page_size=cfg.decode_page_size,
         num_pages=cfg.decode_pages, max_batch=cfg.decode_max_batch,
-        seed=cfg.seed, max_queue=cfg.max_queue,
-        deadline_ms=cfg.deadline_ms, engine_retries=cfg.engine_retries,
-        brownout=parse_brownout(cfg.brownout), device=cfg.device)
+        seed=cfg.seed, kv_quant=cfg.kv_quant, recorder=recorder,
+        max_queue=cfg.max_queue, deadline_ms=cfg.deadline_ms,
+        engine_retries=cfg.engine_retries,
+        brownout=parse_brownout(cfg.brownout),
+        slos=slo_lib.parse_specs(cfg.slo), device=cfg.device)
+
+
+# the GET endpoints GenerateServer answers (its 404 names them)
+ENDPOINTS = ["/generate", "/healthz", "/slo", "/trace", "/explain"]
+
+
+def _span_rows(engine) -> list:
+    """The /slo, /trace and /explain data: the recorder's ring (no file
+    re-read per request); no rows without a recorder."""
+    rec = getattr(engine, "recorder", None)
+    return rec.snapshot() if rec is not None else []
+
+
+def get_doc(engine, path: str, query: str):
+    """``(status code, JSON doc)`` of a GET on ``path`` with the query
+    string ``query``: the JAX status server's payloads, status codes
+    and error bodies for /slo, /trace and /explain."""
+    from ..obs import slo as slo_lib
+    from ..obs import waterfall as wf_lib
+    from ..obs.spans import trace_record
+
+    if path == "/healthz":
+        return 200, {"ok": True, "serving": engine.stats()}
+    if path == "/slo":
+        return 200, slo_lib.evaluate(
+            slo_lib.records_from_spans(_span_rows(engine)),
+            specs=engine.slos)
+    if path == "/trace":
+        rid = (parse_qs(query).get("rid") or [None])[0]
+        try:
+            rid = int(rid)
+        except (TypeError, ValueError):
+            return 400, {"error": "/trace needs ?rid=N (an integer "
+                                  "request id)"}
+        doc = trace_record(_span_rows(engine), rid)
+        if doc is None:
+            return 404, {"error": f"rid {rid} not in the span stream "
+                                  f"tails"}
+        return 200, doc
+    if path == "/explain":
+        q = parse_qs(query)
+        docs = wf_lib.waterfalls(_span_rows(engine))
+        rid_q = (q.get("rid") or [None])[0]
+        if rid_q is not None:
+            try:
+                rid_q = int(rid_q)
+            except ValueError:
+                return 400, {"error": "?rid=N must be an integer"}
+            docs = [d for d in docs if d["rid"] == rid_q]
+        trace_q = (q.get("trace") or [None])[0]
+        if trace_q is not None:
+            docs = [d for d in docs if d.get("trace_id") == trace_q]
+        return 200, {"summary": wf_lib.summarize(docs), "waterfalls": docs}
+    return 404, {"error": f"unknown path {path!r}", "endpoints": ENDPOINTS}
 
 
 class GenerateServer:
-    """``POST /generate`` + ``GET /healthz`` over one engine, from a
-    daemon thread.  ``start(port)`` binds (0 = an ephemeral port) and
-    returns the bound port, or None when the bind fails; ``close()``
-    shuts the listener down."""
+    """``POST /generate`` and the GET endpoints of ``get_doc`` over one
+    engine, from a daemon thread.  ``start(port)`` binds (0 = an
+    ephemeral port) and returns the bound port, or None when the bind
+    fails; ``close()`` shuts the listener down."""
 
     def __init__(self, engine):
         self.engine = engine
@@ -147,17 +231,17 @@ class GenerateServer:
                 self.wfile.write(body)
 
             def do_GET(self):
-                path = self.path.split("?", 1)[0].rstrip("/") or "/"
-                if path == "/healthz":
-                    self._send(200, {"ok": True, "serving": engine.stats()})
-                else:
-                    self._send(404, {"error": f"unknown path {path!r}",
-                                     "endpoints": ["/generate",
-                                                   "/healthz"]})
+                path, _, query = self.path.partition("?")
+                path = path.rstrip("/") or "/"
+                try:
+                    code, doc = get_doc(engine, path, query)
+                except Exception as e:  # a bad read must not kill serving
+                    code, doc = 500, {"error": f"{type(e).__name__}: {e}"}
+                self._send(code, doc)
 
             def do_POST(self):
+                from ..obs.spans import format_traceparent, new_span_id
                 from .admission import ShedError, retry_after_header
-                from .engine import new_trace_id
 
                 path = self.path.split("?", 1)[0].rstrip("/") or "/"
                 if path != "/generate":
@@ -197,9 +281,8 @@ class GenerateServer:
                     self._send(503, {"error": f"{type(e).__name__}: {e}"})
                     return
                 ctx = engine.trace_context(rid)
-                headers = ({"traceparent": f"00-{ctx[0]}-"
-                                           f"{new_trace_id()[:16]}-01"}
-                           if ctx else None)
+                headers = ({"traceparent": format_traceparent(
+                    ctx[0], new_span_id())} if ctx else None)
                 if deadline_ms is None:
                     deadline_ms = engine.deadline_ms
                 wait_s = GENERATE_TIMEOUT_S
@@ -245,13 +328,15 @@ class GenerateServer:
 def serve(cfg, port: int):
     """Build and start the engine and the HTTP server on ``port`` (0 =
     ephemeral); returns ``(server, engine)``, both running — close the
-    server and stop the engine when done.  Raises RuntimeError when
-    the port cannot be bound."""
+    server, stop the engine and close its recorder (if any) when done.
+    Raises RuntimeError when the port cannot be bound."""
     engine = build_engine(cfg)
     engine.start()
     server = GenerateServer(engine)
     if server.start(port) is None:
         engine.stop()
+        if engine.recorder is not None:
+            engine.recorder.close()
         raise RuntimeError(f"could not bind port {port}")
     return server, engine
 
@@ -272,8 +357,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
               f"the PyTorch package yet (see ROADMAP.md Queue A)",
               file=sys.stderr)
         return 2
+    from ..obs import slo as slo_lib
+
     try:
+        config_lib.validate_quant_config(cfg)
         config_lib.validate_serving_config(cfg)
+        slo_lib.parse_specs(cfg.slo)
     except ValueError as e:
         print(f"dtx-serve (torch): {e}", file=sys.stderr)
         return 2
@@ -285,7 +374,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print(f"dtx-serve (torch): POST /generate on :{server.port} "
           f"(device={engine.device} page_size={engine.page_size} "
           f"pages={engine.num_pages} max_batch={engine.max_batch} "
-          f"max_len={engine.max_len})", flush=True)
+          f"max_len={engine.max_len}"
+          + (f" kv_quant={engine.kv_quant}" if engine.kv_quant else "")
+          + (f" deadline_ms={engine.deadline_ms:g}"
+             if engine.deadline_ms else "")
+          + (f" max_queue={engine.max_queue}"
+             if engine.max_queue else "")
+          + (" brownout=on" if engine.brownout is not None else "")
+          + ")", flush=True)
     try:
         while True:
             time.sleep(3600)
@@ -294,6 +390,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     finally:
         server.close()
         engine.stop()
+        if engine.recorder is not None:
+            engine.recorder.close()
     return 0
 
 

@@ -22,10 +22,13 @@ JAX engine feeds and its numbers match.
 Request surface and fail-open behaviour follow the JAX package's
 engine: ``submit`` / ``result`` / ``cancel`` / ``step`` /
 ``run_until_idle`` / ``start`` / ``stop`` / ``stats``, deadlines, a
-bounded queue (``max_queue``, typed ``ShedError``), brownout, and
-``engine_retries`` supervision with bounded backoff.  The span
-recorder, SLO specs and restart narrator are not ported yet: those
-arguments must be None.
+bounded queue (``max_queue``, typed ``ShedError``), brownout on page
+occupancy and on the fast-window SLO burn rate, and ``engine_retries``
+supervision with bounded backoff.  A span recorder
+(``obs/spans.SpanRecorder``) threads both layers: the scheduler
+narrates admission, the engine adds the execution milestones at the
+JAX engine's sites, with its event names and fields, in its order.
+The restart narrator is not ported yet: that argument must be None.
 
 Thread model: ``submit()`` may be called from any thread (the HTTP
 handlers); ``step()`` — or the ``start()``-ed background loop —
@@ -36,8 +39,6 @@ from __future__ import annotations
 
 import collections
 import math
-import os
-import re
 import sys
 import threading
 import time
@@ -50,12 +51,16 @@ import torch
 from . import kv_cache as kvc
 from . import scheduler as sched_lib
 from ..device import DeviceLike, resolve_device
+from ..obs.spans import new_trace_id, parse_traceparent
 from .admission import BrownoutPolicy, ShedError, retry_after_hint
 from .faults import InjectedFault
 from .scheduler import SCRATCH_PAGE
 
 # rolling window for the latency percentiles stats() reports
 STATS_WINDOW = 2048
+# brownout burn-rate recompute cadence, in tick boundaries: the SLO
+# fold over the span ring is O(ring), too heavy for every tick
+BURN_EVERY = 32
 # supervised-restart backoff: base doubles per consecutive crash up to
 # the cap, and resets on the first healthy tick
 RESTART_BACKOFF_BASE_S = 0.05
@@ -63,9 +68,6 @@ RESTART_BACKOFF_MAX_S = 2.0
 # completed requests retained for result() pickup before the oldest
 # are evicted
 RETAIN_FINISHED = 4096
-
-_TRACEPARENT_RE = re.compile(
-    r"^([0-9a-f]{2})-([0-9a-f]{32})-([0-9a-f]{16})-([0-9a-f]{2})$")
 
 
 def backoff_s(attempt: int, base_s: float = 1.0, factor: float = 2.0,
@@ -76,26 +78,6 @@ def backoff_s(attempt: int, base_s: float = 1.0, factor: float = 2.0,
         raise ValueError(f"attempt={attempt} must be >= 0")
     return min(float(base_s) * float(factor) ** int(attempt),
                float(cap_s))
-
-
-def parse_traceparent(header) -> Optional[Tuple[str, str]]:
-    """``(trace_id, parent_id)`` from a W3C ``traceparent`` header, or
-    None when absent, malformed or all-zero (a bad header degrades to
-    a fresh trace, never to a rejected request)."""
-    if not isinstance(header, str):
-        return None
-    m = _TRACEPARENT_RE.match(header.strip().lower())
-    if not m:
-        return None
-    _ver, trace_id, parent_id, _flags = m.groups()
-    if trace_id == "0" * 32 or parent_id == "0" * 16:
-        return None
-    return trace_id, parent_id
-
-
-def new_trace_id() -> str:
-    """A fresh 32-hex (128-bit) W3C trace id."""
-    return os.urandom(16).hex()
 
 
 def _percentile(vals: List[float], q: float) -> Optional[float]:
@@ -134,8 +116,13 @@ class DecodeEngine:
 
     Fail-open knobs (off by default): ``max_queue`` (typed shedding),
     ``deadline_ms`` (typed ``timeout`` terminal), ``brownout``
-    (admission.BrownoutPolicy on page occupancy), ``engine_retries``
-    (supervised restart with re-queue), ``faults`` (faults.FaultPlan).
+    (admission.BrownoutPolicy on page occupancy and, with a recorder,
+    the fast-window burn rate of ``slos``: obs/slo.SLOSpec list, None =
+    the defaults), ``engine_retries`` (supervised restart with
+    re-queue), ``faults`` (faults.FaultPlan).  ``recorder``
+    (obs/spans.SpanRecorder) records every request's lifecycle;
+    ``kv_quant="int8"`` stores the paged pools as int8 with scale
+    planes.
     """
 
     def __init__(self, spec, params, page_size: int = 16,
@@ -149,13 +136,11 @@ class DecodeEngine:
         if spec.objective != "lm":
             raise ValueError("the decode engine serves the lm "
                              "objective only")
-        for name, val in (("recorder", recorder), ("slos", slos),
-                          ("restart_narrator", restart_narrator)):
-            if val is not None:
-                raise NotImplementedError(
-                    f"DecodeEngine({name}=...): request tracing, SLOs and "
-                    f"the restart narrator are not ported to the PyTorch "
-                    f"package yet (ROADMAP.md queues the tracing stack)")
+        if restart_narrator is not None:
+            raise NotImplementedError(
+                "DecodeEngine(restart_narrator=...): the restart "
+                "narrator is not ported to the PyTorch package yet "
+                "(ROADMAP.md Queue A, with the resilience modules)")
         self.device = resolve_device(device)
         self.spec = spec
         self.params = {k: v.to(self.device) for k, v in params.items()}
@@ -169,6 +154,7 @@ class DecodeEngine:
         pages_per_seq = max(1, math.ceil((self.max_len - 1)
                                          / self.page_size))
         self.num_pages = int(num_pages) or 1 + max_batch * pages_per_seq
+        self.recorder = recorder
         self.faults = faults
         self.max_queue = int(max_queue)
         self.deadline_ms = float(deadline_ms)
@@ -178,9 +164,11 @@ class DecodeEngine:
             raise ValueError("max_queue, deadline_ms and "
                              "engine_retries must be >= 0")
         self.brownout = brownout
+        self.slos = slos
         self.max_batch = int(max_batch)
         self.sched = sched_lib.ContinuousScheduler(
-            self.num_pages, self.page_size, max_batch, faults=faults)
+            self.num_pages, self.page_size, max_batch,
+            recorder=recorder, faults=faults)
         self.prompt_buckets = sched_lib.shape_buckets(
             max(1, self.max_len - 1))
         self._heads = kvc.local_heads(spec, self.params)
@@ -215,6 +203,8 @@ class DecodeEngine:
         # monotonic tick-boundary counter: the FaultPlan clock (a
         # supervised restart resets the scheduler's own tick count)
         self._boundaries = 0
+        self._burn_cache: Tuple[int, Optional[float]] = (-BURN_EVERY,
+                                                         None)
         self._started_t: Optional[float] = None
         self.shapes_used: set = set()
         self._thread: Optional[threading.Thread] = None
@@ -244,7 +234,7 @@ class DecodeEngine:
         request's time in the system (None = the engine default; 0 =
         none).  Raises ``ShedError`` when the bounded queue is full.
         ``traceparent`` (W3C) carries the caller's trace id onto the
-        result."""
+        result and onto every span the request emits."""
         ctx = parse_traceparent(traceparent)
         if ctx is not None:
             trace_id, parent_id = ctx
@@ -265,20 +255,38 @@ class DecodeEngine:
                 raise RuntimeError(
                     f"decode engine failed: {self._failure}")
             if self.max_queue and len(self.sched.waiting) >= self.max_queue:
+                # the shed rid is consumed (span-stream rids stay
+                # unique); requests_total counts accepted ones only
                 rid = self._next_rid
                 self._next_rid += 1
                 self._shed += 1
+                retry_s = self._retry_after_s()
+                if self.recorder is not None:
+                    extra = {"trace_id": trace_id}
+                    if parent_id is not None:
+                        extra["parent_id"] = parent_id
+                    self.recorder.emit(
+                        "shed", rid=rid, reason="queue",
+                        tick=self.sched.ticks,
+                        queued=len(self.sched.waiting), **extra)
                 raise ShedError(
                     f"queue full ({len(self.sched.waiting)} waiting, "
                     f"max_queue={self.max_queue})",
-                    retry_after_s=self._retry_after_s(), rid=rid)
+                    retry_after_s=retry_s, rid=rid)
             dl_ms = self.deadline_ms if deadline_ms is None \
                 else float(deadline_ms)
             deadline = now + dl_ms / 1e3 if dl_ms > 0 else None
             rid = self._next_rid
+            # the prompt-block fingerprint rides the submit span
+            fingerprint = None
+            if self.recorder is not None:
+                from ..obs.workload import prompt_fingerprint
+
+                fingerprint = prompt_fingerprint(prompt)
             self.sched.submit(rid, len(prompt), int(max_new_tokens),
                               arrival=now, deadline=deadline,
-                              trace_id=trace_id, parent_id=parent_id)
+                              trace_id=trace_id, parent_id=parent_id,
+                              fingerprint=fingerprint)
             self._next_rid += 1
             self._accepted += 1
             self._queue_peak = max(self._queue_peak,
@@ -365,12 +373,20 @@ class DecodeEngine:
                          + self.faults.delay_s)
                 if stall > 0:
                     time.sleep(stall)
+            exec_t0 = time.monotonic()
             for rid in plan.prefills:
                 self._run_prefill(rid)
             decodes = [r for r in plan.decodes
                        if not self.sched._seq(r).done]
             if decodes:
                 self._run_decode(decodes, plan)
+            if self.recorder is not None:
+                # close the tick the scheduler's tick row opened:
+                # dur_ms is the execution wall only, so an injected
+                # stall shows up as the waterfall's decode_stall
+                self.recorder.emit(
+                    "tick_done", tick=self.sched.ticks - 1,
+                    dur_ms=round((time.monotonic() - exec_t0) * 1e3, 3))
             self._consec_crashes = 0
             return True
 
@@ -379,12 +395,33 @@ class DecodeEngine:
             return
         occ = self.sched.alloc.in_use / self.sched.alloc.usable
         self._brownout_active = self.brownout.update(
-            self._brownout_active, occ, None)
+            self._brownout_active, occ, self._fast_burn())
         self.sched.brownout = (
             (self.brownout.clamp_new_tokens,
              self.brownout.admit_per_tick)
             if self._brownout_active else None)
         self._brownout_clamped = self.sched.brownout_clamped
+
+    def _fast_burn(self) -> Optional[float]:
+        """Max fast-window SLO burn rate over the recorder's ring (None
+        without a recorder), recomputed every ``BURN_EVERY``
+        boundaries."""
+        if self.recorder is None:
+            return None
+        at, val = self._burn_cache
+        if self._boundaries - at < BURN_EVERY:
+            return val
+        from ..obs import slo as slo_lib
+
+        doc = slo_lib.evaluate(
+            slo_lib.records_from_spans(self.recorder.snapshot()),
+            specs=self.slos)
+        burns = [(d.get("windows") or {}).get("fast", {}).get("burn_rate")
+                 for d in doc.get("slos") or []]
+        burns = [b for b in burns if isinstance(b, (int, float))]
+        val = max(burns) if burns else None
+        self._burn_cache = (self._boundaries, val)
+        return val
 
     def _finalize_expired(self, pairs, now: float) -> None:
         for rid, reason in pairs:
@@ -435,6 +472,9 @@ class DecodeEngine:
         pb = sched_lib.bucket_for(p, self.prompt_buckets)
         wp = max(1, math.ceil(pb / self.page_size))
         self.shapes_used.add(("prefill", pb, wp))
+        if self.recorder is not None:
+            self.recorder.emit("prefill", rid=rid, bucket=pb,
+                               pages_width=wp)
         bt = np.full((1, wp), SCRATCH_PAGE, np.int64)
         own = seq.pages[:wp]
         bt[0, :len(own)] = own
@@ -452,6 +492,9 @@ class DecodeEngine:
         self._last_tok[rid] = tok
         self._prefills += 1
         self._tokens_out += 1
+        if self.recorder is not None:
+            self.recorder.emit("first_token", rid=rid, ttft_ms=round(
+                (now - res.arrival_t) * 1e3, 3))
         self.sched.record_prefill(rid, now=now)
         if seq.done:
             self._finish(rid, now)
@@ -559,14 +602,21 @@ class DecodeEngine:
             old = self.sched
             inflight = list(old.live)
             waiting = list(old.waiting)
+            if self.recorder is not None:
+                self.recorder.emit(
+                    "engine_restart", restart=self._restarts,
+                    reason=msg, rids=[s.rid for s in inflight],
+                    tick=old.ticks)
             sys.stderr.write(
                 f"dtx-serve: engine loop crashed ({msg}); supervised "
                 f"restart {self._restarts} with {len(inflight)} "
                 f"in-flight re-queued\n")
             self.sched = sched_lib.ContinuousScheduler(
                 self.num_pages, self.page_size, self.max_batch,
-                faults=self.faults)
-            # the FaultPlan's clocks and the tick index survive
+                recorder=self.recorder, faults=self.faults)
+            # the FaultPlan's clocks and the tick index survive (the
+            # span stream's tick index stays monotonic across the
+            # restart: the SLO windows and the waterfall slide over it)
             self.sched.alloc.alloc_calls = old.alloc.alloc_calls
             self.sched.alloc.injected_fails = old.alloc.injected_fails
             self.sched.brownout_clamped = old.brownout_clamped
@@ -593,6 +643,13 @@ class DecodeEngine:
                 res.first_t = None
                 self._last_tok.pop(s.rid, None)
                 self._requeued += 1
+                if self.recorder is not None:
+                    # the requeue keeps the request's trace_id
+                    extra = ({"trace_id": s.trace_id}
+                             if s.trace_id else {})
+                    self.recorder.emit("requeue", rid=s.rid,
+                                       attempt=s.attempts,
+                                       tick=self.sched.ticks, **extra)
                 survivors.append(s)
             for s in sorted(survivors + waiting,
                             key=lambda st: (st.arrival, st.rid)):
@@ -617,6 +674,11 @@ class DecodeEngine:
         res.error = msg
         res.attempts = int(attempts)
         res.finish_t = now
+        if self.recorder is not None:
+            trace = self._traces.get(rid)
+            extra = {"trace_id": trace[0]} if trace else {}
+            self.recorder.emit("failed", rid=rid, reason=msg,
+                               attempts=int(attempts), **extra)
         self._seal(rid, res)
 
     def _fail(self, e: BaseException) -> None:
@@ -627,11 +689,17 @@ class DecodeEngine:
                          f"{traceback.format_exc()}")
         with self._lock:
             self._failure = msg
-            for res in self._results.values():
+            for rid, res in self._results.items():
                 if res.finish_t is None and res.error is None:
                     res.error = msg
                     res.status = "failed"
                     self._failed += 1
+                    if self.recorder is not None:
+                        # no retire follows: mark the lifecycle failed
+                        trace = self._traces.get(rid)
+                        extra = {"trace_id": trace[0]} if trace else {}
+                        self.recorder.emit("error", rid=rid,
+                                           reason=msg, **extra)
                     res.event.set()
         with self._work:
             self._running = False
@@ -671,4 +739,5 @@ class DecodeEngine:
                 "queue_peak": self._queue_peak,
                 "brownout_active": int(self._brownout_active),
                 "brownout_clamped_total": self._brownout_clamped,
+                "kv_quant": self.kv_quant,
             }

@@ -1,11 +1,14 @@
 """Where a full-width serving tick of the PyTorch port spends its time.
 
     python3 scripts/torch_serving_profile.py [--ticks 8] [--out FILE]
+        [--kv_quant int8] [--moe] [--spans]
 
 Builds the ``chip_smoke.py`` serving configuration on the card (the
 decode bench model: d_model 1024, 8 heads, 4 blocks, d_ff 4096,
-seq_len 1024, bf16 compute, f32 params, ``fused_ln`` + ``fp8_ffn``),
-admits the same 8 ragged requests, and runs the first tick (the 8
+seq_len 1024, bf16 compute, f32 params, ``fused_ln`` + ``fp8_ffn``;
+``--moe``: ``chip_smoke.MOE_SERVE``, the E 64 MoE lm decoded by dense
+dispatch), with int8 pools under ``--kv_quant int8`` and a span
+recorder under ``--spans``, admits the same 8 ragged requests, and runs the first tick (the 8
 prefills) and then ``--ticks`` decode-only ticks: once timed on the
 host clock, then again under ``torch.profiler``.  Prints, per phase:
 host wall per tick (the unprofiled pass), device busy time per tick
@@ -69,6 +72,9 @@ def _print(phase: str, doc: dict, card: str, top: int = 14) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=8)
+    ap.add_argument("--kv_quant", default="", choices=["", "int8"])
+    ap.add_argument("--moe", action="store_true")
+    ap.add_argument("--spans", action="store_true")
     ap.add_argument("--out", default=os.path.join(
         _REPO, "build", "torch_serving_profile.json"))
     args = ap.parse_args(argv)
@@ -82,10 +88,19 @@ def main(argv=None) -> int:
         DecodeEngine)
 
     card = torch.cuda.get_device_name(0)
-    spec = tfm.TransformerSpec(**chip_smoke.FULL_WIDTH,
-                               compute_dtype=torch.bfloat16)
+    width = chip_smoke.MOE_SERVE if args.moe else chip_smoke.FULL_WIDTH
+    spec = tfm.TransformerSpec(**width, compute_dtype=torch.bfloat16)
+    recorder = None
+    if args.spans:
+        import tempfile
+
+        from distributed_tensorflow_example_tpu_torch.obs.spans import (
+            SpanRecorder)
+
+        recorder = SpanRecorder(tempfile.mkdtemp())
     eng = DecodeEngine(spec, tfm.init(spec, seed=0, device="cuda"),
-                       page_size=16, max_batch=8, device="cuda")
+                       page_size=16, max_batch=8, kv_quant=args.kv_quant,
+                       recorder=recorder, device="cuda")
     rng = np.random.RandomState(0)
     lens = [int(n) for n in rng.randint(32, 301, size=8)]
     n_new = 2 + args.ticks
@@ -96,9 +111,9 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     prompts = [rng.randint(0, spec.vocab_size, size=n).tolist()
                for n in lens]
-    report = {"card": card, "config": dict(chip_smoke.FULL_WIDTH,
-                                           compute_dtype="bfloat16",
-                                           prompts=lens)}
+    report = {"card": card, "config": dict(
+        width, compute_dtype="bfloat16", prompts=lens,
+        kv_quant=args.kv_quant, spans=args.spans)}
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
     def run_batch(profiled: bool):

@@ -990,3 +990,113 @@ def test_device_prefetch_batches_equal_blocking_copies_on_card(card,
     assert len(got) == len(want) == 300 // 32
     for (gx, gy), (wx, wy) in zip(got, want):
         assert torch.equal(gx, wx) and torch.equal(gy, wy)
+
+
+def _lm(**kw):
+    from distributed_tensorflow_example_tpu_torch.models import (
+        transformer as tfm)
+
+    spec = tfm.TransformerSpec(
+        input_size=64, seq_len=64, d_model=64, n_heads=2, num_blocks=2,
+        d_ff=128, objective="lm", vocab_size=64, causal=True,
+        fused_ln=True, compute_dtype=torch.bfloat16, **kw)
+    return spec, tfm.init(spec, seed=3, device="cpu")
+
+
+@pytest.mark.cuda
+def test_int8_paged_decode_on_card_matches_cpu(card):
+    """Six chained int8 paged decode steps of 3 sequences (bf16, fused
+    LayerNorms: B2 and B3 on the card) against the port's CPU path on
+    the same params and tokens: logits within 5e-2 absolute (bf16 rows
+    round apart where the two sides' f32 sums differ, and an int8 value
+    then one step apart), the int8 pools within one step and the scale
+    planes within 1e-2 relative."""
+    from distributed_tensorflow_example_tpu_torch.serving import (
+        kv_cache as kvc)
+
+    spec, params = _lm()
+    b, steps, ps = 3, 6, 4
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, 64, (steps, b), generator=gen)
+    per = steps // ps + 1
+    bt = torch.tensor([[1 + i * per + j for j in range(per)]
+                       for i in range(b)])
+    caches = {d: kvc.init_paged_cache(spec, 1 + b * per, ps, quant="int8",
+                                      device=d) for d in ("cpu", card)}
+    on_card = {k: v.to(card) for k, v in params.items()}
+    fused.reset_launch_counts()
+    for pos in range(steps):
+        posv = torch.full((b,), pos)
+        got, caches[card] = kvc.paged_decode_step(
+            spec, on_card, caches[card], bt.to(card), toks[pos].to(card),
+            posv.to(card))
+        want, caches["cpu"] = kvc.paged_decode_step(
+            spec, params, caches["cpu"], bt, toks[pos], posv)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=5e-2)
+    assert fused.launch_counts()["fused_layer_norm"] > 0
+    for k, want in caches["cpu"].items():
+        got = caches[card][k].cpu()
+        assert got.dtype == want.dtype, k
+        if k.endswith("_s"):
+            torch.testing.assert_close(got, want, rtol=1e-2, atol=0)
+        else:
+            assert int((got.int() - want.int()).abs().max()) <= 1, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topk", [1, 2])
+def test_moe_decode_step_on_card_matches_cpu(card, topk):
+    """Eight contiguous decode steps of a MoE lm (E 4, dense dispatch,
+    bf16) on the card against the port's CPU path: logits within 5e-2
+    absolute; no grouped-FFN launch (dense dispatch never reaches
+    it)."""
+    from distributed_tensorflow_example_tpu_torch.models import (
+        transformer as tfm)
+
+    spec, params = _lm(num_experts=4, moe_topk=topk,
+                       moe_dispatch="alltoall")
+    on_card = {k: v.to(card) for k, v in params.items()}
+    gen = torch.Generator().manual_seed(topk)
+    toks = torch.randint(0, 64, (8, 2), generator=gen)
+    caches = {"cpu": tfm.init_decode_cache(spec, 2, device="cpu"),
+              card: tfm.init_decode_cache(spec, 2, device=card)}
+    fused.reset_launch_counts()
+    for pos in range(8):
+        got, caches[card] = tfm.decode_step(spec, on_card, caches[card],
+                                            toks[pos].to(card), pos)
+        want, caches["cpu"] = tfm.decode_step(spec, params, caches["cpu"],
+                                              toks[pos], pos)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=5e-2)
+    counts = fused.launch_counts()
+    assert counts["moe_grouped_matmul"] == 0
+    assert counts["fused_layer_norm"] > 0
+
+
+@pytest.mark.cuda
+def test_traced_engine_on_card_writes_a_valid_span_file(card, tmp_path):
+    """A traced engine on the card (int8 pools, a SpanRecorder and SLO
+    specs): every request completes, its lifecycle reconstructs
+    complete, its waterfall tiles its wall, and every row of the span
+    file validates."""
+    from distributed_tensorflow_example_tpu_torch.obs import (
+        schema, slo, spans, waterfall)
+    from distributed_tensorflow_example_tpu_torch.serving.engine import (
+        DecodeEngine)
+
+    spec, params = _lm()
+    rec = spans.SpanRecorder(str(tmp_path))
+    eng = DecodeEngine(spec, params, page_size=4, max_batch=2,
+                       kv_quant="int8", recorder=rec,
+                       slos=slo.parse_specs("ttft_p99_ms<=60000"),
+                       device=card)
+    rids = [eng.submit(list(range(1, n)), 5) for n in (4, 9, 6)]
+    eng.run_until_idle()
+    eng.step()
+    rec.close()
+    assert all(eng.result(r)["status"] == "result" for r in rids)
+    rows = spans.read_spans(rec.path)
+    recs = spans.reconstruct(rows)
+    assert all(recs[(0, r)]["complete"] for r in rids)
+    docs = waterfall.waterfalls(rows)
+    assert len(docs) == 3 and waterfall.summarize(docs)["sum_to_wall_ok"]
+    assert schema.validate_span_file(rec.path) == []

@@ -9,11 +9,17 @@ CPU, at the ``tests/test_serving.py`` sizes (f32).
   ``max_batch`` (not to ``generate``: the fp8 per-tensor scale spans the
   whole padded decode batch, so batching changes the numbers).
 - The copied pure-Python scheduler agrees with the JAX package's; the
-  HTTP front door answers ``POST /generate``; the fail-open surface
-  (cancel, shed, supervised restart) behaves as in the JAX engine.
+  HTTP front door answers ``POST /generate`` and, with ``--trace_spans``,
+  ``GET /slo``, ``/trace`` and ``/explain`` with the JAX status server's
+  payloads and error bodies; the fail-open surface (cancel, shed,
+  supervised restart) behaves as in the JAX engine.
+- The CLI parses every serving flag of a JAX command line with the JAX
+  defaults, validates as the JAX CLI does (exit 2) and refuses only the
+  fleet, replay and status-cache flags.
 """
 
 import json
+import time
 import urllib.error
 import urllib.request
 
@@ -31,6 +37,7 @@ from distributed_tensorflow_example_tpu.serving.engine import (
 from distributed_tensorflow_example_tpu_torch import config as tconfig
 from distributed_tensorflow_example_tpu_torch import convert
 from distributed_tensorflow_example_tpu_torch.models import transformer as ttfm
+from distributed_tensorflow_example_tpu_torch.obs import slo as slo_lib
 from distributed_tensorflow_example_tpu_torch.serving import cli as tcli
 from distributed_tensorflow_example_tpu_torch.serving import kv_cache as tkvc
 from distributed_tensorflow_example_tpu_torch.serving import scheduler as tsched
@@ -165,11 +172,13 @@ def test_engine_fail_open_surface(plain):
 
 
 def test_engine_refuses_unported_arguments(plain):
+    """Only the restart narrator is refused now; an unknown pool format
+    raises as in JAX; no card means no default device."""
     tspec, tp = plain[:2]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecodeEngine(tspec, tp, recorder=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecodeEngine(tspec, tp, kv_quant="int8", device="cpu")
+        DecodeEngine(tspec, tp, restart_narrator=object(), device="cpu")
+    with pytest.raises(ValueError, match="int8"):
+        DecodeEngine(tspec, tp, kv_quant="int4", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             DecodeEngine(tspec, tp)
@@ -219,17 +228,45 @@ def test_http_generate_round_trip():
 
 
 @pytest.mark.parametrize("extra", [["--replicas=2"], ["--replay=w.json"],
-                                   ["--trace_spans"], ["--slo=x"],
-                                   ["--kv_quant=int8"],
                                    ["--breaker", "on"],
                                    ["--fleet_retries", "1"],
                                    ["--replay_speed", "25"],
-                                   ["--span_keep", "5"],
-                                   ["--span_rotate_mb", "1.5"],
-                                   ["--status_cache_s", "0"]])
+                                   ["--status_cache_s", "0"],
+                                   ["--outer_quant=int8"]])
 def test_cli_refuses_unported_flags(extra, capsys):
     assert tcli.main(_CLI_FLAGS + ["--serve_port=1"] + extra) == 2
     assert "ROADMAP" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("extra", [["--trace_spans"],
+                                   ["--slo=ttft_p99_ms<=250"],
+                                   ["--kv_quant=int8"],
+                                   ["--num_experts=4", "--moe_topk=2"],
+                                   ["--trace_spans", "--span_keep", "5"],
+                                   ["--trace_spans", "--span_rotate_mb",
+                                    "1.5"]])
+def test_cli_accepts_the_ported_flags(extra, tmp_path):
+    """The six flags the port refused until this slice: no refusal, the
+    validation passes, and the engine they describe is built (int8
+    pools, a MoE spec, a recorder rotating as asked, the parsed SLOs)."""
+    cfg = tconfig.parse_config(_CLI_FLAGS + ["--serve_port=1",
+                                             f"--logs_path={tmp_path}"]
+                               + extra)
+    assert tcli.unported_flags(cfg) == []
+    tconfig.validate_quant_config(cfg)
+    tconfig.validate_serving_config(cfg)
+    eng = tcli.build_engine(cfg)
+    assert eng.kv_quant == cfg.kv_quant
+    assert eng.spec.num_experts == cfg.num_experts
+    assert eng.spec.moe_topk == cfg.moe_topk
+    assert [s.name for s in eng.slos] == \
+        [s.name for s in slo_lib.parse_specs(cfg.slo)]
+    assert (eng.recorder is not None) == cfg.trace_spans
+    if eng.recorder is not None:
+        assert eng.recorder.keep == cfg.span_keep
+        assert eng.recorder.rotate_bytes == \
+            int(cfg.span_rotate_mb * 1024 * 1024)
+        eng.recorder.close()
 
 
 # serving flags of features the port refuses when set: parsed, so that a
@@ -255,6 +292,130 @@ def test_cli_needs_a_port_and_an_lm(capsys):
     assert parse_brownout("occ=0.5").occupancy_lo == round(0.5 * 5 / 6, 6)
 
 
+# the serving flags of a JAX MoE + tracing dtx-serve command line
+_JAX_SERVE_LINE = _CLI_FLAGS[:-1] + [
+    "--serve_port=1", "--num_experts=4", "--moe_topk=2",
+    "--moe_dispatch=alltoall", "--capacity_factor=2.0",
+    "--moe_aux_weight=0.01", "--grouped_moe", "--num_classes=7",
+    "--trace_spans", "--slo=ttft_p99_ms<=250,error_rate<=0.01",
+    "--span_rotate_mb=2", "--span_keep=4", "--logs_path=/tmp/x",
+    "--kv_quant=int8"]
+
+
+def test_cli_moe_and_trace_flags_parse_as_in_jax():
+    """The flags this slice added parse with JAX's defaults and types,
+    a JAX MoE + tracing command line parses to the same values in both
+    packages, and the port's spec carries every MoE field as JAX's
+    ``_spec_from_cfg`` does."""
+    from distributed_tensorflow_example_tpu import config as jconfig
+    from distributed_tensorflow_example_tpu.serving import cli as jcli
+
+    names = ("moe_topk", "moe_dispatch", "capacity_factor",
+             "moe_aux_weight", "grouped_moe", "num_classes", "logs_path",
+             "outer_quant", "kv_quant", "num_experts", "trace_spans", "slo",
+             "span_rotate_mb", "span_keep")
+    jax_args = vars(jconfig.build_parser().parse_args([]))
+    ours = tconfig.parse_config([])
+    for name in names:
+        assert getattr(ours, name) == jax_args[name], name
+        assert type(getattr(ours, name)) is type(jax_args[name]), name
+    jcfg = jconfig.parse_config(_JAX_SERVE_LINE)
+    tcfg = tconfig.parse_config(_JAX_SERVE_LINE + ["--device=cpu"])
+    for name in names:
+        assert getattr(tcfg, name) == getattr(jcfg, name), name
+    jspec, tspec = jcli._spec_from_cfg(jcfg), tcli.spec_from_cfg(tcfg)
+    for f in ("num_classes", "num_experts", "moe_topk", "moe_dispatch",
+              "capacity_factor", "aux_loss_weight", "grouped_moe",
+              "fused_ln", "fp8_ffn", "seq_len", "attention"):
+        assert getattr(tspec, f) == getattr(jspec, f), f
+    assert tcli.unported_flags(tcfg) == []
+
+
+@pytest.mark.parametrize("extra", [["--fp8_ffn", "--num_experts", "4"],
+                                   ["--kv_quant=int8",
+                                    "--objective=classify"],
+                                   ["--slo=p99<=1"]])
+def test_cli_validation_exits_2_in_both_packages(extra, capsys):
+    """``--fp8_ffn`` with a dense-dispatch MoE, ``--kv_quant`` off the lm
+    objective and a bad SLO spec: both CLIs exit 2 before building a
+    model."""
+    from distributed_tensorflow_example_tpu.serving import cli as jcli
+
+    argv = _CLI_FLAGS[:-1] + ["--serve_port=1"] + extra
+    assert jcli.main(argv) == 2
+    assert tcli.main(argv + ["--device=cpu"]) == 2
+    err = capsys.readouterr().err
+    assert "ROADMAP" not in err
+
+
+def _get(port, path):
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def test_http_slo_trace_explain(tmp_path):
+    """``--trace_spans --slo``: after one POST /generate, /slo is the
+    evaluated document of the parsed specs, /trace?rid=0 the request's
+    reconstructed record and rows, /explain its waterfall tiling the
+    wall; the 400 and 404 bodies are the JAX status server's; an
+    unknown path's 404 names the endpoints; every span row
+    validates."""
+    from distributed_tensorflow_example_tpu_torch.obs import schema
+
+    cfg = tconfig.parse_config(_CLI_FLAGS + [
+        "--trace_spans", "--slo=ttft_p99_ms<=60000,error_rate<=0.01",
+        f"--logs_path={tmp_path}"])
+    server, engine = tcli.serve(cfg, 0)
+    try:
+        port = server.port
+        code, doc, _ = _post(port, {"prompt": [3, 1, 7],
+                                    "max_new_tokens": 4})
+        assert code == 200, doc
+        # the retire lands at the engine's next boundary
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            code, tr = _get(port, "/trace?rid=0")
+            if code == 200 and tr["record"].get("terminal") == "result":
+                break
+            time.sleep(0.05)
+        rec = tr["record"]
+        assert rec["complete"] and rec["trace_id"] == "ab" * 16
+        assert {e["event"] for e in tr["events"]} >= {
+            "submit", "admit", "prefill", "first_token", "tick", "retire"}
+        code, slo = _get(port, "/slo")
+        assert code == 200 and slo["kind"] == "slo_report"
+        assert [s["name"] for s in slo["slos"]] == ["ttft_p99_ms",
+                                                    "error_rate"]
+        assert slo["requests"] == 1 and slo["ok"]
+        code, ex = _get(port, "/explain?rid=0")
+        assert code == 200 and len(ex["waterfalls"]) == 1
+        wf = ex["waterfalls"][0]
+        assert wf["complete"] and wf["terminal"] == "result"
+        assert wf["segment_sum_ms"] >= 0.99 * wf["wall_ms"]
+        assert ex["summary"]["sum_to_wall_ok"]
+        code, ex = _get(port, "/explain?trace=" + "ab" * 16)
+        assert code == 200 and [w["rid"] for w in ex["waterfalls"]] == [0]
+        assert _get(port, "/trace") == (
+            400, {"error": "/trace needs ?rid=N (an integer request id)"})
+        assert _get(port, "/trace?rid=x")[0] == 400
+        assert _get(port, "/trace?rid=99") == (
+            404, {"error": "rid 99 not in the span stream tails"})
+        assert _get(port, "/explain?rid=x") == (
+            400, {"error": "?rid=N must be an integer"})
+        code, doc = _get(port, "/metrics")
+        assert code == 404 and doc["endpoints"] == [
+            "/generate", "/healthz", "/slo", "/trace", "/explain"]
+    finally:
+        server.close()
+        engine.stop()
+        engine.recorder.close()
+    assert schema.validate_span_file(engine.recorder.path) == []
+
+
 def test_chip_smoke_serving_phases_rehearse_on_cpu():
     """``chip_smoke.py``'s serving and HTTP phases, rehearsed on the CPU
     at a narrow width: the same engine calls, result checks and the
@@ -264,11 +425,44 @@ def test_chip_smoke_serving_phases_rehearse_on_cpu():
 
     narrow = dict(chip_smoke.FULL_WIDTH, input_size=128, seq_len=128,
                   d_model=32, n_heads=2, num_blocks=2, d_ff=64)
-    counts = chip_smoke.phase_serve("cpu", device="cpu", width=narrow)
-    assert set(counts.values()) == {0}
+    run = chip_smoke.phase_serve("cpu", device="cpu", width=narrow)
+    assert set(run["counts"].values()) == {0}
     flags = [f for f in chip_smoke.FULL_WIDTH_FLAGS
              if not f.startswith(("--input_size", "--d_model", "--n_heads",
                                   "--d_ff"))]
     chip_smoke.phase_http(flags + ["--input_size=128", "--d_model=32",
                                    "--n_heads=2", "--d_ff=64",
                                    "--device=cpu"])
+
+
+def test_chip_smoke_int8_moe_and_traced_phases_rehearse_on_cpu():
+    """The phases this slice added to ``chip_smoke.py``, rehearsed on
+    the CPU at a narrow width: the int8 serve beside the bf16 pool's
+    (the pool's bytes at (Dh + 4) / (2 Dh) of it, the chained decode
+    step within its bound), the MoE serve (E 4, its routing and prefill
+    held CPU vs CPU: no flip, exact), the traced HTTP serve and the
+    trace-overhead rounds."""
+    import chip_smoke
+
+    narrow = dict(chip_smoke.FULL_WIDTH, input_size=128, seq_len=128,
+                  d_model=32, n_heads=2, num_blocks=2, d_ff=64)
+    run = chip_smoke.phase_serve("cpu", device="cpu", width=narrow)
+    int8 = chip_smoke.phase_serve_int8("cpu", run, device="cpu")
+    dh = narrow["d_model"] // narrow["n_heads"]
+    assert int8["pool_ratio"] == pytest.approx((dh + 4) / (2 * dh))
+    assert int8["decode_err"] <= chip_smoke.INT8_DECODE_ATOL
+    moe = chip_smoke.phase_serve_moe(
+        "cpu", device="cpu",
+        width=dict(chip_smoke.MOE_SERVE, input_size=128, seq_len=128,
+                   d_model=32, n_heads=2, d_ff=64, num_experts=4))
+    assert moe["flips"] == 0 and set(moe["counts"].values()) == {0}
+    flags = [f for f in chip_smoke.FULL_WIDTH_FLAGS
+             if not f.startswith(("--input_size", "--d_model", "--n_heads",
+                                  "--d_ff"))]
+    traced = chip_smoke.phase_http_traced(
+        flags + ["--input_size=128", "--d_model=32", "--n_heads=2",
+                 "--d_ff=64", "--device=cpu"])
+    assert traced["frac"] >= chip_smoke.WATERFALL_MIN_FRAC
+    trace = chip_smoke.phase_trace_overhead("cpu", run, rounds=1,
+                                            device="cpu")
+    assert trace["ratio"] > 0 and trace["rows"] >= 2

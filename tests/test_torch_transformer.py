@@ -69,7 +69,8 @@ def test_moe_param_shapes_and_init_scaling_match_jax():
     """The MoE leaves (router ``Wr``, expert ``We1``/``be1``/``We2``/
     ``be2``) in JAX's shapes and order; the expert weights scaled by
     their ``shape[-2]`` fan-in, as JAX's init scales them (the bits
-    differ); MoE decode is refused, naming ROADMAP.md."""
+    differ); a MoE decode step gives JAX's logits on the same params
+    (within 1e-5: both route by exact dense dispatch)."""
     spec = ttfm.TransformerSpec(**_BASE, num_experts=3)
     shapes = ttfm.param_shapes(spec)
     assert list(shapes.items()) == list(jtfm.param_shapes(
@@ -81,8 +82,14 @@ def test_moe_param_shapes_and_init_scaling_match_jax():
     assert abs(float(p["L0_Wr"].std()) * 32 ** 0.5 - 1.0) < 0.3
     assert torch.all(p["L1_be1"] == 0) and torch.all(p["L1_be2"] == 0)
     cache = ttfm.init_decode_cache(spec, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttfm.decode_step(spec, p, cache, torch.zeros(1, dtype=torch.long), 0)
+    got, _ = ttfm.decode_step(spec, p, cache,
+                              torch.zeros(1, dtype=torch.long), 0)
+    jspec = jtfm.TransformerSpec(**_BASE, num_experts=3)
+    want, _ = jtfm.decode_step(
+        jspec, {k: jnp.asarray(v.numpy()) for k, v in p.items()},
+        jtfm.init_decode_cache(jspec, 1), jnp.zeros(1, jnp.int32), 0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
 
 
 def test_decode_step_matches_jax(pair):
