@@ -53,6 +53,30 @@ Phases (any failure exits nonzero; none is caught and skipped):
     5 rounds: the median tokens/s ratio and the host time inside the
     recorder's emit per tick printed (not gated: host-bound readings
     move between calls);
+4d. one engine on the status server (phase 4b's flags plus
+    ``--engine_retries=1``, its logs seeded with one metrics stream in
+    the JAX package's row format): after one POST /generate, /status
+    carries the engine's stats, /metrics dtx_generate_*, dtx_slo_* and
+    dtx_waterfall_* gauges, /report a run report the port's schema
+    accepts, /fleet an exactly-once one-source fleet report; the restart
+    narrator is armed;
+4e. the fleet: phase 3's 8 requests POSTed at once to one engine behind
+    the status server, then to two replicas at full width behind
+    ``RouterServer`` (``--replicas=2 --trace_spans --engine_retries=1``,
+    one params copy): every answer 200 with its tokens, launch counters
+    zeroed just before and read just after the fleet's requests (B2, B3
+    and B8 must launch; the ``fleet`` path of the report), /status
+    listing both replicas with health and breaker, /metrics the
+    dtx_router_* gauges, the port's fleet report over replica0, replica1
+    and router exactly-once; then a router over one replica, the
+    requests submitted before its engine starts, bitwise equal to a bare
+    engine's tokens; both serves' tokens/s and TTFT p50 printed (not
+    gated);
+4f. chaos: three replicas at phase 3's model, replica 0 crashing at tick
+    boundaries 1-4 under ``engine_retries=1``: every request ends in a
+    typed terminal, at least one failed over with its trace id, the
+    fleet report is exactly-once with clean failover chains, and
+    restarts.jsonl holds the narrator's valid engine_restart rows;
 
 and for the MLP trainer (``main.py`` -> ``train/loop.run``):
 
@@ -150,8 +174,8 @@ and for MoE training (``main.py --model=transformer --num_experts=64
 
 The last two lines of stdout are the kernel report JSON (each kernel's
 launches on its first main path, and under ``launches_by_path`` on
-every path that ran it: ``serve``, ``serve_int8``, ``serve_moe``, the
-trainers') and the result JSON; the card's name and power limit come just before them.
+every path that ran it: ``serve``, ``serve_int8``, ``serve_moe``,
+``fleet``, the trainers') and the result JSON; the card's name and power limit come just before them.
 The script imports nothing of JAX; it needs one card and exits
 nonzero without one.
 """
@@ -1673,6 +1697,347 @@ def phase_http_traced(flags=FULL_WIDTH_FLAGS) -> dict:
     return dict(frac=frac, rows=n_rows)
 
 
+def _get_text(port: int, path: str) -> tuple:
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=60) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _wait_retired(port: int, rid: int, timeout: float = 60.0) -> dict:
+    """Poll /trace?rid=N until the request's record holds its typed
+    terminal (the retire row lands at the engine's next boundary)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        code, tr = _get_json(port, f"/trace?rid={rid}")
+        if code == 200 and tr["record"].get("terminal") is not None:
+            return tr
+        if time.monotonic() > deadline:
+            raise AssertionError(f"/trace?rid={rid}: {code} {tr}")
+        time.sleep(0.02)
+
+
+def _metrics_fixture(logs: str) -> None:
+    """One metrics stream in the JAX package's row format (a window row
+    and a run_end event of a 100-step run) in ``logs``, for /report to
+    fold: the port's trainer writes no metrics stream yet, and the run
+    report needs one."""
+    from distributed_tensorflow_example_tpu_torch.obs import schema
+
+    t = time.time()
+    window = dict(kind="window", v=schema.SCHEMA_VERSION, t=t, proc=0,
+                  step=100, epoch=0, cost=1.5, path="host", steps=100,
+                  window_wall_s=2.0, step_time_p50_ms=20.0,
+                  step_time_p95_ms=25.0, step_time_max_ms=30.0,
+                  data_wait_s=0.1, h2d_s=0.1, dispatch_s=0.5,
+                  device_wait_s=1.0, ckpt_s=0.0, host_s=0.3,
+                  examples_per_sec=5000.0, tokens_per_sec=None,
+                  model_flops_per_step=1e9, tflops_per_sec=None, mfu=None,
+                  rss_bytes=None, device_memory=None)
+    end = dict(kind="event", v=schema.SCHEMA_VERSION, t=t + 0.5, proc=0,
+               event="run_end", steps=100, total_time_s=2.5,
+               test_accuracy=0.9, compile_s=0.2)
+    with open(os.path.join(logs, "metrics.0.jsonl"), "w") as f:
+        for row in (window, end):
+            if schema.validate_metrics_row(row):
+                raise AssertionError(schema.validate_metrics_row(row))
+            f.write(json.dumps(row) + "\n")
+
+
+def phase_status(flags=FULL_WIDTH_FLAGS) -> dict:
+    """One engine on the status server (phase 4d): the phase 4b flags
+    plus ``--engine_retries=1``, logs in a temporary directory seeded
+    with one metrics stream (``_metrics_fixture``).  After one POST
+    /generate: /status carries the engine's stats under ``serving``,
+    /metrics at least one dtx_generate_*, dtx_slo_* and dtx_waterfall_*
+    gauge, /report a run report the port's schema accepts (its restart
+    summary included), /fleet a one-source fleet report that is
+    exactly-once; the restart narrator is armed."""
+    from distributed_tensorflow_example_tpu_torch import config
+    from distributed_tensorflow_example_tpu_torch.obs import schema
+    from distributed_tensorflow_example_tpu_torch.serving import cli
+
+    with tempfile.TemporaryDirectory() as logs:
+        _metrics_fixture(logs)
+        cfg = config.parse_config(flags + TRACE_FLAGS + [
+            "--engine_retries=1", "--serve_port=0", f"--logs_path={logs}"])
+        server, engine = cli.serve(cfg, 0)
+        try:
+            doc = _post_generate(server.port)
+            _wait_retired(server.port, doc["rid"])
+            code_s, status = _get_json(server.port, "/status")
+            code_m, text = _get_text(server.port, "/metrics")
+            code_r, report = _get_json(server.port, "/report")
+            code_f, fleet = _get_json(server.port, "/fleet")
+            narrator = engine.restart_narrator
+        finally:
+            server.close()
+            cli.stop_engines([engine])
+    serving = status.get("serving") or {}
+    if code_s != 200 or serving.get("completed_total") != 1 \
+            or serving.get("requests_total") != 1:
+        raise AssertionError(f"/status: {code_s} {status}")
+    gauges = sorted({line.split()[2] for line in text.splitlines()
+                     if line.startswith("# TYPE")})
+    for family in ("dtx_generate_", "dtx_slo_", "dtx_waterfall_"):
+        if code_m != 200 or not any(g.startswith(family) for g in gauges):
+            raise AssertionError(f"/metrics ({code_m}) lacks {family}*: "
+                                 f"{gauges}")
+    errs = schema.validate_run_report(report)
+    if code_r != 200 or errs or report.get("restarts", {}).get(
+            "events") != 0:
+        raise AssertionError(f"/report ({code_r}): {errs or report}")
+    errs = schema.validate_fleet_report(fleet)
+    if code_f != 200 or errs or not fleet["exactly_once"] \
+            or len(fleet["sources"]) != 1 or fleet["requests"] != 1:
+        raise AssertionError(f"/fleet ({code_f}): {errs or fleet}")
+    if narrator is None:
+        raise AssertionError("--engine_retries=1 armed no restart narrator")
+    log(f"[status] POST /generate -> 200 (ttft {doc['ttft_ms']} ms); "
+        f"/status serving completed {serving['completed_total']}; /metrics "
+        f"{len(gauges)} gauges ({sum(g.startswith('dtx_generate_') for g in gauges)}"
+        f" dtx_generate_*, {sum(g.startswith('dtx_slo_') for g in gauges)} "
+        f"dtx_slo_*, {sum(g.startswith('dtx_waterfall_') for g in gauges)} "
+        f"dtx_waterfall_*); /report valid (goodput "
+        f"{report['goodput'].get('goodput_frac')}); /fleet exactly_once "
+        f"over {len(fleet['sources'])} source; narrator on {narrator.path}")
+    return dict(gauges=len(gauges))
+
+
+def _post_many(port: int, prompts, n_new: int) -> dict:
+    """POST every prompt at once (one thread each) and wait for all:
+    each must come back 200 with ``n_new`` tokens.  Returns the
+    responses in prompt order, the wall from the first POST to the last
+    answer, tokens/s over it and the TTFT p50 of the responses."""
+    import threading
+
+    out = [None] * len(prompts)
+
+    def one(i):
+        body = json.dumps({"prompt": prompts[i],
+                           "max_new_tokens": n_new}).encode()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/generate", data=body,
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                out[i] = (resp.status, json.loads(resp.read()))
+        except urllib.error.HTTPError as e:
+            out[i] = (e.code, json.loads(e.read()))
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.monotonic() - t0
+    for code, doc in out:
+        if code != 200 or doc.get("status") != "result" \
+                or len(doc.get("tokens", [])) != n_new:
+            raise AssertionError(f"POST /generate answered {code}: {doc}")
+    docs = [doc for _, doc in out]
+    return dict(docs=docs, wall=wall,
+                tps=sum(len(d["tokens"]) for d in docs) / wall,
+                ttft_p50=float(np.median([d["ttft_ms"] for d in docs])))
+
+
+def _settle(engines, timeout: float = 30.0) -> None:
+    """Let each engine reach its final tick boundary (the retire row
+    lands one boundary after the seal that answered the request)."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if all(not e.sched.live and not e.sched.waiting for e in engines):
+            time.sleep(0.05)
+            return
+        time.sleep(0.02)
+
+
+def phase_fleet(card: str, base: dict, flags=FULL_WIDTH_FLAGS,
+                device: str = "cuda") -> dict:
+    """The fleet (phase 4e): phase 3's 8 ragged greedy requests POSTed
+    at once to one engine behind the status server, then to two
+    replicas behind ``RouterServer`` (``--replicas=2 --trace_spans
+    --engine_retries=1``, one params copy on the card): every answer
+    200 with its tokens; the launch counters zeroed before and read
+    after the fleet's requests (B2, B3 and B8 must launch: the fleet
+    total, the counters being process-wide); /status lists the two
+    replicas with their health and breaker, /metrics the dtx_router_*
+    gauges; the port's fleet_report over replica0, replica1 and router
+    is exactly-once.  Then the requests (greedy and sampled) through a
+    router over one replica, submitted before its engine starts: tokens
+    bitwise equal to a bare engine's.  Returns the counts and both
+    serves' tokens/s and TTFT p50 (printed, not gated)."""
+    from distributed_tensorflow_example_tpu_torch import config
+    from distributed_tensorflow_example_tpu_torch.obs import (
+        collector, schema)
+    from distributed_tensorflow_example_tpu_torch.ops import fused
+    from distributed_tensorflow_example_tpu_torch.serving import cli, router
+    from distributed_tensorflow_example_tpu_torch.serving.engine import (
+        DecodeEngine)
+
+    spec, params = base["spec"], base["params"]
+    prompts, n_new = _serve_requests(spec)
+    with tempfile.TemporaryDirectory() as logs:
+        cfg = config.parse_config(flags + ["--serve_port=0",
+                                           f"--logs_path={logs}"])
+        server, engine = cli.serve(cfg, 0)
+        try:
+            one = _post_many(server.port, prompts, n_new)
+            one_ticks = engine.stats()["decode_ticks_total"]
+        finally:
+            server.close()
+            cli.stop_engines([engine])
+    with tempfile.TemporaryDirectory() as logs:
+        cfg = config.parse_config(flags + [
+            "--replicas=2", "--trace_spans", "--engine_retries=1",
+            "--serve_port=0", f"--logs_path={logs}"])
+        server, rt, engines = cli.serve_fleet(cfg, 0)
+        try:
+            _sync(device)
+            fused.reset_launch_counts()
+            fleet = _post_many(server.port, prompts, n_new)
+            _sync(device)
+            counts = fused.launch_counts()
+            code_s, status = _get_json(server.port, "/status")
+            code_m, text = _get_text(server.port, "/metrics")
+            shared = all(engines[0].params[k] is engines[1].params[k]
+                         for k in engines[0].params)
+            _settle(engines)
+            ticks = [e.stats()["decode_ticks_total"] for e in engines]
+        finally:
+            server.close()
+            cli.stop_engines(engines, rt)
+        rep = collector.fleet_report([os.path.join(logs, d) for d in
+                                      ("replica0", "replica1", "router")])
+    _require(counts, SERVE_WRAPPERS, (), "fleet", device)
+    per = (status.get("router") or {}).get("per_replica") or []
+    if code_s != 200 or [p.get("name") for p in per] != ["replica0",
+                                                          "replica1"] \
+            or not all("health" in p and "breaker" in p for p in per):
+        raise AssertionError(f"fleet /status: {code_s} {status}")
+    if code_m != 200 or "dtx_router_replicas 2" not in text:
+        raise AssertionError(f"fleet /metrics ({code_m}) lacks "
+                             f"dtx_router_*")
+    if not shared:
+        raise AssertionError("the replicas hold separate params copies")
+    errs = schema.validate_fleet_report(rep)
+    if errs or not rep["exactly_once"] or rep["requests"] != len(prompts):
+        raise AssertionError(f"fleet report: {errs or rep['errors'][:5]}")
+    # the router over one healthy replica is bitwise invisible
+    temps = [0.9 if i % 2 else 0.0 for i in range(len(prompts))]
+    toks = {}
+    for routed in (False, True):
+        eng = DecodeEngine(spec, params, page_size=16, max_batch=8, seed=5,
+                           device=device)
+        front = router.Router([eng]) if routed else eng
+        rids = [front.submit(p, n_new, temperature=t)
+                for p, t in zip(prompts, temps)]
+        eng.start()
+        try:
+            toks[routed] = [front.result(r, timeout=300)["tokens"]
+                            for r in rids]
+        finally:
+            eng.stop()
+    if toks[True] != toks[False]:
+        raise AssertionError("the router over one replica changed tokens")
+    per_replica = [p["dispatched"] for p in per]
+    log(f"[fleet] {len(prompts)} concurrent POSTs: 2 replicas (dispatched "
+        f"{per_replica}, health {[p['health'] for p in per]}, decode ticks "
+        f"{ticks}) {fleet['tps']:.1f} tokens/s, TTFT p50 "
+        f"{fleet['ttft_p50']:.2f} ms in {fleet['wall']:.3f} s; one engine "
+        f"({one_ticks} decode ticks) {one['tps']:.1f} tokens/s, TTFT p50 "
+        f"{one['ttft_p50']:.2f} ms in {one['wall']:.3f} s; "
+        f"launches {counts}; fleet report exactly_once over "
+        f"{len(rep['sources'])} sources; router over one replica: tokens "
+        f"bitwise equal to the bare engine's ({len(prompts)} requests, "
+        f"{sum(t > 0 for t in temps)} sampled)")
+    return dict(counts=counts, tps=fleet["tps"], ttft_p50=fleet["ttft_p50"],
+                one_tps=one["tps"], one_ttft_p50=one["ttft_p50"])
+
+
+def phase_chaos(card: str, base: dict, device: str = "cuda") -> dict:
+    """Chaos on the card (phase 4f): three replicas at phase 3's model,
+    replica 0 crashing at tick boundaries 1-4 under
+    ``engine_retries=1``, behind a router with ``fleet_retries=2``,
+    each with its span recorder and one restart narrator: phase 3's 8
+    requests all end in a typed terminal, at least one failed over and
+    kept its trace id, the port's fleet_report over the three replica
+    dirs and the router's is exactly-once with clean failover chains,
+    and restarts.jsonl holds the narrator's engine_restart rows, which
+    the port's validator accepts."""
+    from distributed_tensorflow_example_tpu_torch.obs import (
+        collector, schema)
+    from distributed_tensorflow_example_tpu_torch.obs.spans import (
+        SpanRecorder)
+    from distributed_tensorflow_example_tpu_torch.resilience import restart
+    from distributed_tensorflow_example_tpu_torch.serving import router
+    from distributed_tensorflow_example_tpu_torch.serving.engine import (
+        DecodeEngine)
+    from distributed_tensorflow_example_tpu_torch.serving.faults import (
+        FaultPlan)
+
+    spec, params = base["spec"], base["params"]
+    prompts, n_new = _serve_requests(spec)
+    with tempfile.TemporaryDirectory() as run_dir:
+        narrator = restart.RestartNarrator(run_dir)
+        recs = [SpanRecorder(os.path.join(run_dir, f"replica{i}"))
+                for i in range(3)]
+        router_rec = SpanRecorder(os.path.join(run_dir, "router"))
+        engines = [DecodeEngine(
+            spec, params, page_size=16, max_batch=8, seed=5,
+            engine_retries=1, recorder=recs[i], restart_narrator=narrator,
+            faults=FaultPlan(crash_at_ticks=(1, 2, 3, 4) if i == 0 else ()),
+            device=device) for i in range(3)]
+        for e in engines:
+            e.start()
+        rt = router.Router(engines, fleet_retries=2, recorder=router_rec)
+        try:
+            rids = [rt.submit(p, n_new) for p in prompts]
+            results = [rt.result(r, timeout=300) for r in rids]
+            _settle(engines)
+        finally:
+            for e in engines:
+                e.stop()
+            for rec in recs + [router_rec]:
+                rec.close()
+        rep = collector.fleet_report([os.path.join(run_dir, d) for d in
+                                      ("replica0", "replica1", "replica2",
+                                       "router")])
+        rows = restart.read_restarts(run_dir)
+        errs = schema.validate_restart_file(narrator.path)
+        stats = rt.stats()
+    terminals = [r and r.get("status") for r in results]
+    if not all(t in ("result", "timeout", "shed", "failed")
+               for t in terminals):
+        raise AssertionError(f"chaos: untyped terminals {terminals}")
+    moved = [r for r in results
+             if r["status"] == "result" and r.get("failovers")]
+    if not moved:
+        raise AssertionError("chaos: the crash plan forced no failover")
+    for r in moved:
+        if r["trace_id"] != rt.trace_context(r["rid"])[0]:
+            raise AssertionError(f"chaos: failover lost the trace: {r}")
+    fo = rep["failover"] or {}
+    if not rep["exactly_once"] or not fo.get("clean") \
+            or fo.get("chains", 0) < len(moved):
+        raise AssertionError(f"chaos fleet report: {rep['errors'][:5]} "
+                             f"{fo}")
+    if errs or not rows or {r["event"] for r in rows} != {"engine_restart"}:
+        raise AssertionError(f"chaos restarts.jsonl: {errs or rows}")
+    log(f"[chaos] 3 replicas, replica0 crashing at boundaries 1-4: "
+        f"terminals {dict((t, terminals.count(t)) for t in set(terminals))}"
+        f", {len(moved)} failed over with their trace ids, "
+        f"{stats['failovers_total']} failover hops; fleet report "
+        f"exactly_once, {fo.get('chains')} clean chains, {rep['restarts']} "
+        f"engine restarts; restarts.jsonl {len(rows)} engine_restart rows "
+        f"valid")
+    return dict(moved=len(moved), restarts=len(rows))
+
+
 def phase_trace_overhead(card: str, base: dict, rounds: int = 5,
                          device: str = "cuda") -> dict:
     """The phase 3 serve with a span recorder on and off, interleaved
@@ -2331,6 +2696,9 @@ def main() -> int:
     serve_moe = phase_serve_moe(card)
     phase_http()
     phase_http_traced()
+    phase_status()
+    fleet = phase_fleet(card, serve)
+    phase_chaos(card, serve)
     trace = phase_trace_overhead(card, serve)
     del serve["params"]
     torch.cuda.empty_cache()
@@ -2350,6 +2718,7 @@ def main() -> int:
     # training form
     by_path = {"serve": dict(counts), "serve_int8": serve_int8["counts"],
                "serve_moe": serve_moe["counts"],
+               "fleet": fleet["counts"],
                "mlp_train": train["counts"],
                "mlp_cli": cli["counts"],
                "transformer_train": tfm_train["counts"],
@@ -2398,6 +2767,10 @@ def main() -> int:
             f"{r['ttft_p50']:.2f} ms, {r['tick_ms']:.3f} ms/tick, pool "
             f"{r['pool_bytes']} B, peak memory {r['peak_gib']:.3f} GiB on "
             f"{smi}")
+    log(f"[fleet] 2 replicas behind the router, 8 concurrent POSTs: "
+        f"{fleet['tps']:.1f} tokens/s, TTFT p50 {fleet['ttft_p50']:.2f} ms; "
+        f"one engine behind the status server: {fleet['one_tps']:.1f} "
+        f"tokens/s, TTFT p50 {fleet['one_ttft_p50']:.2f} ms on {smi}")
     log(f"[serve] int8 pool / bf16 pool bytes {serve_int8['pool_ratio']:.4f}"
         f"; tokens equal in {serve_int8['same']} of 8 requests; spans on / "
         f"off tokens/s median {trace['ratio']:.4f}, inside emit "

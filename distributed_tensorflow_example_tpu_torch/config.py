@@ -74,14 +74,14 @@ class Config:
     slo: str = ""                   # the SLO DSL; "" = the defaults
     span_rotate_mb: float = 0.0     # --trace_spans: rotate past this
     span_keep: int = 3              # --trace_spans: rotated segments
-    # not ported yet: the serving CLI refuses these when set
-    outer_quant: str = ""           # multi-site outer sync compression
-    replicas: int = 1
-    replay: str = ""
-    replay_speed: float = 1.0       # --replay's time compression
+    replicas: int = 1               # > 1: a fleet behind the router
     fleet_retries: int = 2          # --replicas fleet: failovers
     breaker: str = ""               # --replicas fleet: circuit breaker
     status_cache_s: float = 15.0    # status server's response cache TTL
+    # not ported yet: the serving CLI refuses these when set
+    outer_quant: str = ""           # multi-site outer sync compression
+    replay: str = ""
+    replay_speed: float = 1.0       # --replay's time compression
     # ---- training (main.py -> train/loop.run) ----
     job_name: str = ""              # "", "ps" or "worker"; ps is absorbed
     task_index: int = 0             # the process rank
@@ -214,10 +214,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--logs_path", type=str, default=d.logs_path,
                    help="where --trace_spans writes spans.<proc>.jsonl")
     p.add_argument("--serve_port", type=int, default=d.serve_port)
-    p.add_argument("--decode_page_size", type=int,
+    p.add_argument("--decode_page_size", type=_depth,
                    default=d.decode_page_size)
     p.add_argument("--decode_pages", type=_pages, default=d.decode_pages)
-    p.add_argument("--decode_max_batch", type=int,
+    p.add_argument("--decode_max_batch", type=_depth,
                    default=d.decode_max_batch)
     p.add_argument("--kv_quant", type=str, default=d.kv_quant,
                    choices=["", "int8"],
@@ -238,11 +238,22 @@ def build_parser() -> argparse.ArgumentParser:
                         "comma-separated NAME<=VALUE with NAME one of "
                         "ttft_p99_ms / latency_p99_ms / error_rate "
                         "(empty = the defaults)")
-    p.add_argument("--replicas", type=int, default=d.replicas)
+    p.add_argument("--replicas", type=int, default=d.replicas,
+                   help="> 1 runs N engines behind the router (least "
+                        "loaded over health, per-replica circuit "
+                        "breakers, failover); spans of replica i under "
+                        "<logs_path>/replica<i>, the router's under "
+                        "<logs_path>/router")
     p.add_argument("--replay", type=str, default=d.replay)
     p.add_argument("--replay_speed", type=float, default=d.replay_speed)
-    p.add_argument("--fleet_retries", type=int, default=d.fleet_retries)
-    p.add_argument("--breaker", type=str, default=d.breaker)
+    p.add_argument("--fleet_retries", type=int, default=d.fleet_retries,
+                   help="--replicas fleet: the other replicas a request "
+                        "may fail over to after a typed failure")
+    p.add_argument("--breaker", type=str, default=d.breaker,
+                   help="--replicas fleet: the per-replica circuit "
+                        "breaker, empty or 'on' for the defaults, else "
+                        "key=value over failures/base/cap/jitter/floor/"
+                        "seed")
     p.add_argument("--span_rotate_mb", type=float,
                    default=d.span_rotate_mb,
                    help="rotate each spans.<proc>.jsonl before it "
@@ -250,7 +261,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--span_keep", type=int, default=d.span_keep,
                    help="rotated span segments kept per process")
     p.add_argument("--status_cache_s", type=float,
-                   default=d.status_cache_s)
+                   default=d.status_cache_s,
+                   help="the status server's /report, /fleet and "
+                        "/explain cache lifetime (0 = recompute on "
+                        "every request)")
     p.add_argument("--device", type=str, default=d.device,
                    choices=["cuda", "cpu"],
                    help="where the engine runs (default: the card)")
@@ -289,20 +303,49 @@ def validate_quant_config(cfg: Config) -> None:
 
 
 def validate_serving_config(cfg: Config) -> None:
-    """Value checks of the serving flags (raised before any model is
-    built), plus the ``--brownout`` DSL parse."""
+    """Value checks of the serving flags, raised before any model is
+    built (the JAX package's checks and messages), plus the
+    ``--brownout`` and ``--breaker`` DSL parses."""
     if cfg.deadline_ms < 0:
-        raise ValueError(f"deadline_ms={cfg.deadline_ms} must be >= 0")
+        raise ValueError(
+            f"deadline_ms={cfg.deadline_ms} must be >= 0 (0 = no "
+            f"default deadline)")
     if cfg.max_queue < 0:
-        raise ValueError(f"max_queue={cfg.max_queue} must be >= 0")
+        raise ValueError(
+            f"max_queue={cfg.max_queue} must be >= 0 (0 = unbounded)")
     if cfg.engine_retries < 0:
         raise ValueError(
-            f"engine_retries={cfg.engine_retries} must be >= 0")
+            f"engine_retries={cfg.engine_retries} must be >= 0 (0 = "
+            f"fail-closed, no supervision)")
+    if cfg.span_rotate_mb < 0:
+        raise ValueError(
+            f"span_rotate_mb={cfg.span_rotate_mb} must be >= 0 (0 = "
+            f"never rotate)")
+    if cfg.status_cache_s < 0:
+        raise ValueError(
+            f"status_cache_s={cfg.status_cache_s} must be >= 0 (0 = "
+            f"recompute on every request)")
+    if cfg.span_keep < 1:
+        raise ValueError(
+            f"span_keep={cfg.span_keep} must be >= 1 (at least one "
+            f"rotated segment is retained while rotation is on)")
     if cfg.replicas < 1:
-        raise ValueError(f"replicas={cfg.replicas} must be >= 1")
+        raise ValueError(
+            f"replicas={cfg.replicas} must be >= 1 (1 = single-"
+            f"engine front door, > 1 = fleet behind the router)")
+    if cfg.fleet_retries < 0:
+        raise ValueError(
+            f"fleet_retries={cfg.fleet_retries} must be >= 0 (0 = "
+            f"no cross-replica failover)")
+    if cfg.replay_speed <= 0:
+        raise ValueError(
+            f"replay_speed={cfg.replay_speed} must be > 0 (1.0 = "
+            f"recorded pace, 2.0 = twice as fast)")
     from .serving.admission import parse_brownout
+    from .serving.health import parse_breaker
 
     parse_brownout(cfg.brownout)
+    parse_breaker(cfg.breaker)
 
 
 def parse_config(argv: Sequence[str] | None = None) -> Config:

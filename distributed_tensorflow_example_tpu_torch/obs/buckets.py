@@ -1,5 +1,6 @@
-"""The name registries the serving spans and waterfalls use — the port's
-copy of the JAX package's ``obs/buckets.py`` (its serving part).
+"""The name registries of the port's ``obs/`` — its copy of the JAX
+package's ``obs/buckets.py`` (all but the trace and named scopes, which
+name JAX regions).
 
 ``SPAN_EVENTS`` is the one vocabulary of the ``spans.<proc>.jsonl``
 stream: ``SpanRecorder.emit`` refuses any other name, and
@@ -13,9 +14,14 @@ through the legacy ``error`` row an unsupervised loop death).
 supervised loop restart (carrying the in-flight rids, like a tick
 row); ``tick_done`` closes the tick the scheduler's ``tick`` row
 opened, with the execution-only ``dur_ms``.  ``phase`` is the training
-side's span and ``route``/``failover`` the fleet router's narration;
-the port emits neither yet, and the names stay so that a JAX stream
-validates here.
+side's span (the port's trainer emits none yet; the name stays so that a
+JAX stream validates here) and ``route``/``failover`` the fleet router's
+narration.
+
+``WINDOW_BUCKETS``/``HOST_BUCKET`` name the timing fields of a metrics
+window row and ``GOODPUT_BUCKETS`` the run report's wall decomposition
+(``obs/aggregate.py``); ``RESTART_EVENTS`` is the vocabulary of the
+``restarts.jsonl`` timeline (``resilience/restart.RestartNarrator``).
 """
 
 from __future__ import annotations
@@ -39,3 +45,27 @@ WATERFALL_SEGMENTS = ("queue_wait", "brownout_clamp_delay", "prefill",
 
 # valid "phase" span names (the training side's phase rows)
 PHASE_SCOPES = ("round", "outer_sync", "ckpt")
+
+# host-loop per-window charge buckets (field "<name>_s" in every metrics
+# window row; "host" is the residual field computed from them)
+WINDOW_BUCKETS = ("data_wait", "h2d", "dispatch", "device_wait", "ckpt")
+
+# the residual bucket name (field "host_s"): wall not charged above
+HOST_BUCKET = "host"
+
+# run-level goodput/badput decomposition, in presentation order ("train"
+# is the goodput bucket, "eval"/"sample" auxiliary useful work, the rest
+# badput); aggregate.BUCKETS re-exports this
+GOODPUT_BUCKETS = ("train", "compile", "data_wait", "h2d", "ckpt",
+                   "host", "eval", "sample", "anomaly_skipped",
+                   "straggler_idle", "untracked")
+
+# restart-timeline events (RestartNarrator appends them to
+# restarts.jsonl; obs/aggregate.py folds them into the run report): the
+# preemption/recovery lifecycle, the chief-side elastic decisions, and
+# "engine_restart", the serving supervisor's entry (the decode-engine
+# loop died and was restarted in place with its in-flight requests
+# re-queued)
+RESTART_EVENTS = ("preempt", "snapshot", "resumed", "dead_proc",
+                  "attempt_start", "attempt_exit", "retry", "reform",
+                  "give_up", "engine_restart")

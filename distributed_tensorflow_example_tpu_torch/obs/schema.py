@@ -1,6 +1,8 @@
-"""The span-row and waterfall contracts and their validators — the
-port's copy of the parts of the JAX package's ``obs/schema.py`` that the
-serving spans read and write.
+"""The row and document contracts of the port's ``obs/`` and their
+validators — the port's copy of the parts of the JAX package's
+``obs/schema.py`` that its serving stack reads and writes: the span
+rows, the metrics rows the status server and the run report read, the
+restart timeline, the run report, the fleet report and the waterfall.
 
 ``SCHEMA_VERSION`` is the JAX package's (10), so the two packages'
 streams validate against each other.  Validators return a list of error
@@ -13,9 +15,61 @@ from __future__ import annotations
 import json
 from typing import Any, Dict, List
 
+from .buckets import HOST_BUCKET, WINDOW_BUCKETS
+
 _NUM = (int, float)
 
 SCHEMA_VERSION = 10
+
+# every metrics row's envelope
+METRICS_COMMON = {
+    "kind": (str,),
+    "t": _NUM,
+    "proc": (int,),
+    "v": (int,),
+}
+
+# kind == "window": the per-window training telemetry row
+METRICS_WINDOW = {
+    "step": (int,),
+    "epoch": (int,),
+    "cost": _NUM + (str,),  # non-finite costs stringify (strict JSON)
+    "path": (str,),
+    "steps": (int,),
+    "window_wall_s": _NUM,
+    "step_time_p50_ms": _NUM,
+    "step_time_p95_ms": _NUM,
+    "step_time_max_ms": _NUM,
+    "data_wait_s": _NUM,
+    "h2d_s": _NUM,
+    "dispatch_s": _NUM,
+    "device_wait_s": _NUM,
+    "ckpt_s": _NUM,
+    "host_s": _NUM,
+    "examples_per_sec": _NUM + (type(None),),
+    "tokens_per_sec": _NUM + (type(None),),
+    "model_flops_per_step": _NUM,
+    "tflops_per_sec": _NUM + (type(None),),
+    "mfu": _NUM + (type(None),),
+    "rss_bytes": (int, type(None)),
+    "device_memory": (dict, type(None)),
+}
+
+# the per-bucket timing fields above are the bucket registry spelled
+# out; the two must not drift
+_BUCKET_FIELDS = {f"{b}_s" for b in WINDOW_BUCKETS + (HOST_BUCKET,)}
+_SCHEMA_BUCKET_FIELDS = {k for k in METRICS_WINDOW
+                         if k.endswith("_s") and k != "window_wall_s"}
+if _SCHEMA_BUCKET_FIELDS != _BUCKET_FIELDS:
+    raise AssertionError(
+        f"METRICS_WINDOW bucket fields {sorted(_SCHEMA_BUCKET_FIELDS)} "
+        f"out of sync with obs/buckets.py WINDOW_BUCKETS "
+        f"{sorted(_BUCKET_FIELDS)}")
+
+# kind == "event": point events; free-form payload beyond these
+METRICS_EVENT = {
+    "event": (str,),
+}
 
 # the envelope of every span row
 SPAN_COMMON = {
@@ -148,6 +202,125 @@ def validate_span_file(path: str) -> List[str]:
     return errs
 
 
+# one restart-timeline row (resilience/restart.RestartNarrator appends
+# these to <logs_path>/restarts.jsonl); the event vocabulary is
+# obs/buckets.RESTART_EVENTS and the payload beyond the envelope is
+# free-form
+RESTART_EVENT = {
+    "kind": (str,),          # "restart"
+    "v": (int,),
+    "t": _NUM,
+    "proc": (int,),
+    "event": (str,),
+}
+
+
+def validate_restart_row(row: Dict[str, Any],
+                         where: str = "row") -> List[str]:
+    """Validate one restarts.jsonl row: version first, then the
+    envelope, then the event vocabulary."""
+    if not isinstance(row, dict):
+        return [f"{where}: not an object"]
+    verrs = _version_errs(row, "v", where)
+    if verrs:
+        return verrs
+    errs = _check(row, RESTART_EVENT, where)
+    if row.get("kind") != "restart":
+        errs.append(f"{where}: kind is {row.get('kind')!r}, expected "
+                    f"'restart'")
+    event = row.get("event")
+    if isinstance(event, str):
+        from .buckets import RESTART_EVENTS
+
+        if event not in RESTART_EVENTS:
+            errs.append(f"{where}: unknown restart event {event!r} "
+                        f"(known: {sorted(RESTART_EVENTS)})")
+    return errs
+
+
+def validate_restart_file(path: str) -> List[str]:
+    """Validate every line of a restarts.jsonl file."""
+    errs: List[str] = []
+    with open(path) as f:
+        for i, line in enumerate(f, 1):
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                row = json.loads(line)
+            except ValueError as e:
+                errs.append(f"line {i}: not JSON ({e})")
+                continue
+            errs += validate_restart_row(row, where=f"line {i}")
+    return errs
+
+
+# the run report obs/aggregate.py produces (the status server's
+# /report); top-level contract only, the goodput bucket names are
+# aggregate.BUCKETS
+RUN_REPORT = {
+    "v": (int,),
+    "kind": (str,),          # "run_report"
+    "logs_path": (str,),
+    "generated_t": _NUM,
+    "partial": (bool,),
+    "procs": (int,),
+    "steps": (int, type(None)),
+    "wall_s": _NUM,
+    "test_accuracy": _NUM + (type(None),),
+    "goodput": (dict,),
+    "step_time": (dict,),
+    "throughput": (dict,),
+    "trajectory": (list,),
+    "stragglers": (dict,),
+    "anomalies": (dict,),
+    "restarts": (dict,),
+    "timeline": (list,),
+    "schema_errors": (list,),
+}
+
+
+# the fleet report obs/collector.py produces (the status server's
+# /fleet and the dtx_fleet_* gauges): N source dirs' streams merged into
+# one timeline, with the fleet-wide exactly-once verdict, the federated
+# SLO (obs/slo.fleet_evaluate), the queueing analytics
+# (obs/queueing.py) and the failover chains the router produced
+FLEET_REPORT = {
+    "v": (int,),
+    "kind": (str,),          # "fleet_report"
+    "generated_t": _NUM,
+    "sources": (list,),
+    "rows": (int,),
+    "requests": (int,),
+    "exactly_once": (bool,),
+    "errors": (list,),
+    "restarts": (int,),
+    "slo": (dict, type(None)),
+    "queueing": (dict, type(None)),
+    "failover": (dict, type(None)),
+}
+
+
+def validate_fleet_report(doc: Dict[str, Any],
+                          where: str = "fleet") -> List[str]:
+    """Validate a collector fleet report (top-level contract and the
+    per-source entry shape)."""
+    if not isinstance(doc, dict):
+        return [f"{where}: not an object"]
+    verrs = _version_errs(doc, "v", where)
+    if verrs:
+        return verrs
+    errs = _check(doc, FLEET_REPORT, where)
+    if doc.get("kind") != "fleet_report":
+        errs.append(f"{where}: kind is {doc.get('kind')!r}, expected "
+                    f"'fleet_report'")
+    for i, src in enumerate(doc.get("sources") or []):
+        errs += _check(src, {"source": (str,), "rows": (int,),
+                             "skew_s": _NUM, "procs": (int,)},
+                       f"{where}.sources[{i}]")
+    return errs
+
+
 # one per-request waterfall document (obs/waterfall.py): "segments"
 # maps every obs/buckets.WATERFALL_SEGMENTS name to ms; "intervals"
 # carries the absolute (t0, t1, segment) triples
@@ -197,6 +370,48 @@ def validate_waterfall(doc: Dict[str, Any],
     return errs
 
 
+def validate_metrics_row(row: Dict[str, Any],
+                         where: str = "row") -> List[str]:
+    """Validate one metrics JSONL row (window or event)."""
+    if not isinstance(row, dict):
+        return [f"{where}: not an object"]
+    verrs = _version_errs(row, "v", where)
+    if verrs:
+        return verrs
+    errs = _check(row, METRICS_COMMON, where)
+    kind = row.get("kind")
+    if kind == "window":
+        errs += _check(row, METRICS_WINDOW, where)
+    elif kind == "event":
+        errs += _check(row, METRICS_EVENT, where)
+    elif kind is not None:
+        errs.append(f"{where}: unknown kind {kind!r}")
+    return errs
+
+
+def validate_run_report(doc: Dict[str, Any],
+                        where: str = "report") -> List[str]:
+    """Validate an aggregate.py run report (its top-level contract and
+    the goodput bucket names)."""
+    if not isinstance(doc, dict):
+        return [f"{where}: not an object"]
+    verrs = _version_errs(doc, "v", where)
+    if verrs:
+        return verrs
+    errs = _check(doc, RUN_REPORT, where)
+    if doc.get("kind") != "run_report":
+        errs.append(f"{where}: kind is {doc.get('kind')!r}, expected "
+                    f"'run_report'")
+    buckets = (doc.get("goodput") or {}).get("buckets")
+    if isinstance(buckets, dict):
+        from .buckets import GOODPUT_BUCKETS
+
+        missing = [b for b in GOODPUT_BUCKETS if b not in buckets]
+        if missing:
+            errs.append(f"{where}: goodput.buckets missing {missing}")
+    return errs
+
+
 def _check(doc: Dict[str, Any], spec: Dict[str, tuple],
            where: str) -> List[str]:
     errs = []
@@ -231,6 +446,10 @@ def _version_errs(doc: Dict[str, Any], field: str, where: str) -> List[str]:
     return []
 
 
-__all__ = ["SCHEMA_VERSION", "SPAN_COMMON", "SPAN_FIELDS", "SPAN_REQUIRED",
-           "WATERFALL", "validate_span_row", "validate_span_file",
-           "validate_waterfall"]
+__all__ = ["SCHEMA_VERSION", "METRICS_COMMON", "METRICS_WINDOW",
+           "METRICS_EVENT", "SPAN_COMMON", "SPAN_FIELDS", "SPAN_REQUIRED",
+           "RESTART_EVENT", "RUN_REPORT", "FLEET_REPORT", "WATERFALL",
+           "validate_metrics_row", "validate_span_row",
+           "validate_span_file", "validate_restart_row",
+           "validate_restart_file", "validate_run_report",
+           "validate_fleet_report", "validate_waterfall"]

@@ -1,6 +1,5 @@
 """Declarative serving SLOs with multi-window burn-rate evaluation — the
-port's copy of the JAX package's ``obs/slo.py`` (all but the fleet's
-``fleet_evaluate``).
+port's copy of the JAX package's ``obs/slo.py``.
 
 - An **SLO spec** promises that an ``objective`` fraction of requests
   (default 99%) is good: a latency metric (``ttft_ms`` / ``latency_ms``)
@@ -14,8 +13,10 @@ port's copy of the JAX package's ``obs/slo.py`` (all but the fleet's
 Windows slide over the scheduler's tick index, not wall time, so the
 verdict is deterministic.  Records come from the span stream
 (``records_from_spans``); ``evaluate`` is a pure function over them.
-The engine's brownout reads the fast window's burn rate, and the
-serving CLI's ``/slo`` endpoint the whole document.
+The engine's brownout and the router's health probe read the fast
+window's burn rate, the status server's ``/slo`` the whole document;
+``fleet_evaluate`` is the federated form over a merged multi-source
+stream (the fleet report's ``slo`` section).
 """
 
 from __future__ import annotations
@@ -155,7 +156,7 @@ def records_from_spans(rows: Iterable[Dict[str, Any]]) -> List[Dict[str, Any]]:
             "proc": proc,
             "rid": rid,
             # the fleet collector's source stamp (None on a
-            # single-engine stream)
+            # single-engine stream) — fleet_evaluate groups on it
             "source": rec.get("source"),
             "terminal": terminal or "failed",
             "retire_tick": int(rt),
@@ -265,5 +266,87 @@ def evaluate(records: List[Dict[str, Any]],
     }
 
 
+def _source_of(rec: Dict[str, Any]) -> str:
+    """A record's fleet-source label: the collector's ``source`` stamp
+    when present, else the process index (a single-dir multi-proc run
+    federates per process)."""
+    src = rec.get("source")
+    return str(src) if src else f"proc{rec.get('proc', 0)}"
+
+
+def fleet_evaluate(records: List[Dict[str, Any]],
+                   specs: Optional[Iterable[SLOSpec]] = None,
+                   now_tick: Optional[int] = None) -> Dict[str, Any]:
+    """Federated SLO evaluation over a merged multi-source stream.
+
+    Evaluates the fleet (the union of every source's records) and each
+    source separately, all against ONE shared ``now_tick`` (the newest
+    retire_tick fleet-wide) — the alignment that makes the closed-form
+    identity exact: because the per-source record sets PARTITION the
+    fleet set inside every window, the fleet's bad/request counts are
+    the integer sums of the per-source counts, and the fleet burn rate
+    is exactly ``round((Σ bad_s / Σ n_s) / budget, 6)`` — the
+    request-weighted combination of the per-source bad fractions.
+    The ``identity`` section re-derives the fleet burn from the
+    per-source window counts and checks the equalities exactly (no
+    tolerance); a violation means the merge double-counted or dropped
+    a record, which is precisely what it is there to catch.
+
+    Returns ``{"kind": "fleet_slo_report", fleet, per_source,
+    identity, ...}``; ``ok`` requires the fleet verdict AND the
+    identity to hold."""
+    specs = list(DEFAULT_SLOS if specs is None else specs)
+    records = list(records)
+    if now_tick is None:
+        now_tick = max((r["retire_tick"] for r in records), default=0)
+    sources = sorted({_source_of(r) for r in records})
+    fleet = evaluate(records, specs, now_tick=now_tick)
+    per_source = {
+        s: evaluate([r for r in records if _source_of(r) == s],
+                    specs, now_tick=now_tick)
+        for s in sources
+    }
+    checks: List[Dict[str, Any]] = []
+    holds = True
+    for i, spec in enumerate(specs):
+        budget = 1.0 - spec.objective
+        for label in ("fast", "slow"):
+            fw = fleet["slos"][i]["windows"][label]
+            sum_bad = sum(
+                per_source[s]["slos"][i]["windows"][label]["bad"]
+                for s in sources)
+            sum_n = sum(
+                per_source[s]["slos"][i]["windows"][label]["requests"]
+                for s in sources)
+            recombined = (round((sum_bad / sum_n) / budget, 6)
+                          if sum_n and budget > 0 else 0.0)
+            ok = (fw["bad"] == sum_bad
+                  and fw["requests"] == sum_n
+                  and fw["burn_rate"] == recombined)
+            holds = holds and ok
+            checks.append({
+                "slo": spec.name, "window": label,
+                "fleet_bad": fw["bad"],
+                "sum_source_bad": sum_bad,
+                "fleet_requests": fw["requests"],
+                "sum_source_requests": sum_n,
+                "fleet_burn": fw["burn_rate"],
+                "recombined_burn": recombined,
+                "holds": ok,
+            })
+    return {
+        "v": SCHEMA_VERSION,
+        "kind": "fleet_slo_report",
+        "now_tick": int(now_tick),
+        "sources": sources,
+        "fleet": fleet,
+        "per_source": per_source,
+        "identity": {"holds": holds, "checks": checks},
+        "breaches": fleet["breaches"],
+        "ok": fleet["ok"] and holds,
+    }
+
+
 __all__ = ["FAST_WINDOW", "SLOW_WINDOW", "BURN_THRESHOLD", "SLOSpec",
-           "DEFAULT_SLOS", "parse_specs", "records_from_spans", "evaluate"]
+           "DEFAULT_SLOS", "parse_specs", "records_from_spans", "evaluate",
+           "fleet_evaluate"]

@@ -212,7 +212,7 @@ def flash_forward(q, k, v, causal: bool = False, stats: bool = False):
     _launch("dtx_flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             *ptrs, b, s, h, d, int(causal), int(stats),
             _DTYPE_CODES[q.dtype], _qscale(d))
-    flash_forward.launches += 1
+    _counts.count(flash_forward)
     return (acc, m, l) if stats else o
 
 
@@ -231,7 +231,7 @@ def flash_dq(q, k, v, do, m, l, dlt, causal: bool = False):
             do.data_ptr(), m.data_ptr(), l.data_ptr(), dlt.data_ptr(),
             dq.data_ptr(), b, s, h, d, int(causal), _DTYPE_CODES[q.dtype],
             _qscale(d), float(np.float32(1.0 / np.sqrt(d))))
-    flash_dq.launches += 1
+    _counts.count(flash_dq)
     return dq
 
 
@@ -250,7 +250,7 @@ def flash_dkv(q, k, v, do, m, l, dlt, causal: bool = False):
             dk.data_ptr(), dv.data_ptr(), b, s, h, d, int(causal),
             _DTYPE_CODES[q.dtype], _qscale(d),
             float(np.float32(1.0 / _LOG2E)))
-    flash_dkv.launches += 1
+    _counts.count(flash_dkv)
     return dk, dv
 
 

@@ -224,7 +224,7 @@ def _ln_forward(x, g, b):
     _launch("dtx_layer_norm_fwd", x.data_ptr(), g32.data_ptr(),
             b32.data_ptr(), y.data_ptr(), x.numel() // d, d,
             _DTYPE_CODES[x.dtype])
-    fused_layer_norm.launches += 1
+    _counts.count(fused_layer_norm)
     return y
 
 
@@ -241,7 +241,7 @@ def _ln_residual_forward(x, r, g, b):
     _launch("dtx_layer_norm_residual_fwd", x.data_ptr(), r.data_ptr(),
             g32.data_ptr(), b32.data_ptr(), y.data_ptr(), s.data_ptr(),
             x.numel() // d, d, _DTYPE_CODES[x.dtype])
-    fused_layer_norm_residual.launches += 1
+    _counts.count(fused_layer_norm_residual)
     return y, s
 
 
@@ -313,7 +313,7 @@ def layer_norm_backward(dy, x, g):
     _launch("dtx_layer_norm_bwd", dy.data_ptr(), x.data_ptr(),
             g32.data_ptr(), dx.data_ptr(), part.data_ptr(), dg.data_ptr(),
             db.data_ptr(), rows, d, ctas, _LN_BWD_ROUTES[route], code)
-    layer_norm_backward.launches += 1
+    _counts.count(layer_norm_backward)
     layer_norm_backward.last_plan = (route, ctas)
     return dx, dg, db
 
@@ -473,7 +473,7 @@ def _grouped_forward(activation: str, cdt, buf, we1, be1, we2, be2,
             part.data_ptr() if part is not None else None, e, c, d, ff,
             _ACT_CODES[activation], _DTYPE_CODES[cdt], *plan[0], *plan[1])
     counted = moe_grouped_matmul_z1 if want_z1 else moe_grouped_matmul
-    counted.launches += 1
+    _counts.count(counted)
     counted.last_plan = plan
     return out, z1
 
@@ -630,7 +630,7 @@ def _mlp_forward_cuda(spec, params, x):
         if not last:
             hiddens.append(out)
             h = out
-    mlp_forward.launches += 1
+    _counts.count(mlp_forward)
     mlp_forward.last_plan = ("fma" if plans else "wgmma", tuple(plans))
     return out, tuple(hiddens)
 

@@ -1,57 +1,50 @@
-"""The port's serving front door (one engine).
+"""The port's serving front door: ``dtx-serve`` over one engine or a
+fleet.
 
     python -m distributed_tensorflow_example_tpu_torch.serving.cli \\
         --serve_port 8437 --model=transformer --objective=lm \\
         --input_size=1024 --vocab_size=256 --d_model=1024 --n_heads=8 \\
         --num_blocks=4 --d_ff=4096 --activation=gelu \\
-        --compute_dtype=bfloat16 --fused_ln --fp8_ffn
+        --compute_dtype=bfloat16 --fused_ln --fp8_ffn [--replicas 2]
 
 Builds the transformer spec from the JAX package's flag names, loads
 params from a JAX training checkpoint (``--checkpoint_dir``) or makes a
-seeded random init (demo mode), starts the continuous-batching
-``DecodeEngine`` on the card (``--device cpu`` to run on the CPU), and
-serves with stdlib ``http.server``:
+seeded random init (demo mode) on the card once (``--device cpu`` to run
+on the CPU), and serves with stdlib ``http.server``:
 
-- ``POST /generate`` — ``{"prompt": [ints], "max_new_tokens": N,
-  "temperature": t, "deadline_ms": d}`` -> the JAX front door's
-  response keys (``rid``, ``status``, ``prompt``, ``tokens``,
-  ``latency_ms``, ``ttft_ms``, ``trace_id``); 503 + ``Retry-After``
-  when shed, 504 on a deadline, 400 on a bad request;
-- ``GET /healthz`` — ``{"ok": true, "serving": <engine stats>}``;
-- ``GET /slo`` — the burn-rate verdict of the ``--slo`` specs;
-- ``GET /trace?rid=N`` — one request's reconstructed lifecycle and its
-  raw span rows (400 without an integer rid, 404 for an unknown one);
-- ``GET /explain[?rid=N][&trace=ID]`` — per-request latency waterfalls
-  and their summary;
+- one engine (``--replicas 1``): the continuous-batching
+  ``DecodeEngine`` behind ``obs/serve.StatusServer`` — ``POST
+  /generate``, ``GET /``, ``/status``, ``/metrics``, ``/report``,
+  ``/slo``, ``/trace?rid=N``, ``/fleet``, ``/explain`` with the JAX
+  status server's payloads and codes, and ``/healthz``;
+- a fleet (``--replicas N`` > 1): N engines sharing the one copy of the
+  params on the card, each with its own thread, behind
+  ``serving/router.RouterServer`` — ``POST /generate`` placed least
+  loaded over health with per-replica circuit breakers (``--breaker``)
+  and failover (``--fleet_retries``), ``GET /status`` with the
+  per-replica section, ``/metrics`` with the ``dtx_router_*`` gauges;
+  SIGTERM drains.
 
-the last three with the JAX status server's payloads, read from the
-span recorder's ring (``--trace_spans``; without it they see no
-requests).  ``--kv_quant=int8`` stores the paged pools as int8, and a
-MoE model (``--num_experts``) decodes by exact dense dispatch.
+``--trace_spans`` records request spans under ``<logs_path>`` (one
+engine) or ``<logs_path>/replica<i>`` and ``<logs_path>/router`` (a
+fleet); ``--engine_retries`` > 0 supervises each engine loop and
+narrates every restart to ``<logs_path>/restarts.jsonl``;
+``--status_cache_s`` is the status server's cache lifetime;
+``--kv_quant=int8`` stores the paged pools as int8, and a MoE model
+(``--num_experts``) decodes by exact dense dispatch.
 
-The fleet (``--replicas`` > 1, ``--breaker``, ``--fleet_retries``),
-replay (``--replay``, ``--replay_speed``), the status server's cache
-(``--status_cache_s``) and ``--outer_quant`` are not ported yet: set,
-the CLI exits 2 with a message naming ROADMAP.md.
+Replay (``--replay``, ``--replay_speed``) and ``--outer_quant`` are not
+ported yet: set, the CLI exits 2 with a message naming ROADMAP.md.
 """
 
 from __future__ import annotations
 
-import json
+import os
 import sys
-import threading
 import time
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, Optional, Sequence
-from urllib.parse import parse_qs
+from typing import Optional, Sequence
 
 from .. import config as config_lib
-
-# the /generate handler's ceiling wait; a request with its own
-# deadline waits deadline + grace (the engine retires it AT the
-# deadline with a typed timeout terminal)
-GENERATE_TIMEOUT_S = 600.0
-GENERATE_DEADLINE_GRACE_S = 5.0
 
 
 def spec_from_cfg(cfg):
@@ -87,32 +80,23 @@ def spec_from_cfg(cfg):
 def unported_flags(cfg) -> list:
     """The set flags of features the port does not have yet."""
     out = []
-    if cfg.replicas > 1:
-        out.append("--replicas")
     if cfg.replay:
         out.append("--replay")
     if cfg.outer_quant:
         out.append("--outer_quant")
-    # flags of the fleet, replay and status-server features, which the
-    # port does not have either: refused when set off their defaults
-    defaults = config_lib.Config()
-    for name in ("replay_speed", "fleet_retries", "breaker",
-                 "status_cache_s"):
-        if getattr(cfg, name) != getattr(defaults, name):
-            out.append(f"--{name}")
+    if cfg.replay_speed != config_lib.Config().replay_speed:
+        out.append("--replay_speed")
     return out
 
 
-def build_engine(cfg):
-    """The ``DecodeEngine`` the flags describe (not started), with a
-    ``SpanRecorder`` under ``<logs_path>`` when ``--trace_spans`` is
-    set (close it with ``engine.recorder.close()`` when done)."""
+def load_params(cfg, spec) -> dict:
+    """The served params on ``cfg.device``, loaded once: from the JAX
+    training checkpoint under ``--checkpoint_dir``, else a seeded random
+    init (demo mode).  Engines built over this dict share its tensors
+    (``DecodeEngine`` moves params with ``.to``, a no-op on the same
+    device), so N replicas hold one copy."""
     from ..models import transformer as tfm
-    from ..obs import slo as slo_lib
-    from .admission import parse_brownout
-    from .engine import DecodeEngine
 
-    spec = spec_from_cfg(cfg)
     if cfg.checkpoint_dir:
         from ..convert import params_from_checkpoint
 
@@ -120,22 +104,56 @@ def build_engine(cfg):
                                               device=cfg.device)
         print(f"dtx-serve (torch): params restored from {path}",
               file=sys.stderr)
-    else:
-        print("dtx-serve (torch): no --checkpoint_dir — serving a seeded "
-              "random init (demo mode)", file=sys.stderr)
-        params = tfm.init(spec, seed=cfg.seed, device=cfg.device)
-    recorder = None
-    if cfg.trace_spans:
-        from ..obs.spans import SpanRecorder
+        return params
+    print("dtx-serve (torch): no --checkpoint_dir — serving a seeded "
+          "random init (demo mode)", file=sys.stderr)
+    return tfm.init(spec, seed=cfg.seed, device=cfg.device)
 
-        recorder = SpanRecorder(
-            cfg.logs_path,
-            rotate_bytes=int(cfg.span_rotate_mb * 1024 * 1024),
-            keep=cfg.span_keep)
+
+def make_recorder(cfg, sub: str = ""):
+    """A ``SpanRecorder`` under ``<logs_path>[/sub]`` when
+    ``--trace_spans`` is set, else None."""
+    if not cfg.trace_spans:
+        return None
+    from ..obs.spans import SpanRecorder
+
+    return SpanRecorder(
+        os.path.join(cfg.logs_path, sub) if sub else cfg.logs_path,
+        rotate_bytes=int(cfg.span_rotate_mb * 1024 * 1024),
+        keep=cfg.span_keep)
+
+
+def make_narrator(cfg):
+    """The ``RestartNarrator`` on ``<logs_path>/restarts.jsonl`` when
+    ``--engine_retries`` > 0 (the JAX ``dtx-serve``'s rule, one engine
+    or a fleet), else None."""
+    if cfg.engine_retries <= 0:
+        return None
+    from ..resilience.restart import RestartNarrator
+
+    return RestartNarrator(cfg.logs_path)
+
+
+def build_engine(cfg, spec=None, params=None, sub: str = "",
+                 narrator=None):
+    """The ``DecodeEngine`` the flags describe (not started), over
+    ``params`` (None: ``load_params``), with a recorder under
+    ``<logs_path>[/sub]`` when ``--trace_spans`` is set (close it with
+    ``engine.recorder.close()`` when done) and ``narrator`` (None: a
+    new one when ``--engine_retries`` > 0)."""
+    from ..obs import slo as slo_lib
+    from .admission import parse_brownout
+    from .engine import DecodeEngine
+
+    spec = spec if spec is not None else spec_from_cfg(cfg)
+    if params is None:
+        params = load_params(cfg, spec)
+    recorder = make_recorder(cfg, sub)
+    if recorder is not None and not sub:
         print(f"dtx-serve (torch): request spans -> {recorder.path}"
               + (f" (rotate at {cfg.span_rotate_mb:g} MB, keep "
                  f"{cfg.span_keep})" if cfg.span_rotate_mb > 0
-                 else ""))
+                 else ""), file=sys.stderr)
     return DecodeEngine(
         spec, params, page_size=cfg.decode_page_size,
         num_pages=cfg.decode_pages, max_batch=cfg.decode_max_batch,
@@ -143,202 +161,115 @@ def build_engine(cfg):
         max_queue=cfg.max_queue, deadline_ms=cfg.deadline_ms,
         engine_retries=cfg.engine_retries,
         brownout=parse_brownout(cfg.brownout),
-        slos=slo_lib.parse_specs(cfg.slo), device=cfg.device)
+        slos=slo_lib.parse_specs(cfg.slo),
+        restart_narrator=(narrator if narrator is not None
+                          else make_narrator(cfg)),
+        device=cfg.device)
 
 
-# the GET endpoints GenerateServer answers (its 404 names them)
-ENDPOINTS = ["/generate", "/healthz", "/slo", "/trace", "/explain"]
+def build_fleet(cfg):
+    """``(router, engines)``: ``--replicas`` engines (not started) over
+    one ``load_params`` copy, engine i's recorder under
+    ``<logs_path>/replica<i>``, one shared narrator, behind a ``Router``
+    with ``--fleet_retries`` and the ``--breaker`` policy and its own
+    recorder under ``<logs_path>/router``."""
+    from .health import parse_breaker
+    from .router import Router
+
+    spec = spec_from_cfg(cfg)
+    params = load_params(cfg, spec)
+    narrator = make_narrator(cfg)
+    engines = [build_engine(cfg, spec, params, sub=f"replica{i}",
+                            narrator=narrator)
+               for i in range(cfg.replicas)]
+    router = Router(engines, fleet_retries=cfg.fleet_retries,
+                    breaker=parse_breaker(cfg.breaker or "on"),
+                    recorder=make_recorder(cfg, "router"))
+    return router, engines
 
 
-def _span_rows(engine) -> list:
-    """The /slo, /trace and /explain data: the recorder's ring (no file
-    re-read per request); no rows without a recorder."""
-    rec = getattr(engine, "recorder", None)
-    return rec.snapshot() if rec is not None else []
-
-
-def get_doc(engine, path: str, query: str):
-    """``(status code, JSON doc)`` of a GET on ``path`` with the query
-    string ``query``: the JAX status server's payloads, status codes
-    and error bodies for /slo, /trace and /explain."""
-    from ..obs import slo as slo_lib
-    from ..obs import waterfall as wf_lib
-    from ..obs.spans import trace_record
-
-    if path == "/healthz":
-        return 200, {"ok": True, "serving": engine.stats()}
-    if path == "/slo":
-        return 200, slo_lib.evaluate(
-            slo_lib.records_from_spans(_span_rows(engine)),
-            specs=engine.slos)
-    if path == "/trace":
-        rid = (parse_qs(query).get("rid") or [None])[0]
-        try:
-            rid = int(rid)
-        except (TypeError, ValueError):
-            return 400, {"error": "/trace needs ?rid=N (an integer "
-                                  "request id)"}
-        doc = trace_record(_span_rows(engine), rid)
-        if doc is None:
-            return 404, {"error": f"rid {rid} not in the span stream "
-                                  f"tails"}
-        return 200, doc
-    if path == "/explain":
-        q = parse_qs(query)
-        docs = wf_lib.waterfalls(_span_rows(engine))
-        rid_q = (q.get("rid") or [None])[0]
-        if rid_q is not None:
-            try:
-                rid_q = int(rid_q)
-            except ValueError:
-                return 400, {"error": "?rid=N must be an integer"}
-            docs = [d for d in docs if d["rid"] == rid_q]
-        trace_q = (q.get("trace") or [None])[0]
-        if trace_q is not None:
-            docs = [d for d in docs if d.get("trace_id") == trace_q]
-        return 200, {"summary": wf_lib.summarize(docs), "waterfalls": docs}
-    return 404, {"error": f"unknown path {path!r}", "endpoints": ENDPOINTS}
-
-
-class GenerateServer:
-    """``POST /generate`` and the GET endpoints of ``get_doc`` over one
-    engine, from a daemon thread.  ``start(port)`` binds (0 = an
-    ephemeral port) and returns the bound port, or None when the bind
-    fails; ``close()`` shuts the listener down."""
-
-    def __init__(self, engine):
-        self.engine = engine
-        self.port: Optional[int] = None
-        self._httpd: Optional[ThreadingHTTPServer] = None
-        self._thread: Optional[threading.Thread] = None
-
-    def start(self, port: int, host: str = "") -> Optional[int]:
-        engine = self.engine
-
-        class Handler(BaseHTTPRequestHandler):
-            def log_message(self, *a):
-                pass
-
-            def _send(self, code: int, doc: dict,
-                      headers: Optional[Dict[str, str]] = None) -> None:
-                body = json.dumps(doc).encode()
-                self.send_response(code)
-                self.send_header("Content-Type", "application/json")
-                self.send_header("Content-Length", str(len(body)))
-                for k, v in (headers or {}).items():
-                    self.send_header(k, v)
-                self.end_headers()
-                self.wfile.write(body)
-
-            def do_GET(self):
-                path, _, query = self.path.partition("?")
-                path = path.rstrip("/") or "/"
-                try:
-                    code, doc = get_doc(engine, path, query)
-                except Exception as e:  # a bad read must not kill serving
-                    code, doc = 500, {"error": f"{type(e).__name__}: {e}"}
-                self._send(code, doc)
-
-            def do_POST(self):
-                from ..obs.spans import format_traceparent, new_span_id
-                from .admission import ShedError, retry_after_header
-
-                path = self.path.split("?", 1)[0].rstrip("/") or "/"
-                if path != "/generate":
-                    self._send(404, {"error": f"unknown POST path "
-                                              f"{path!r}"})
-                    return
-                try:
-                    n = int(self.headers.get("Content-Length") or 0)
-                    req = json.loads(self.rfile.read(n) or b"{}")
-                    prompt = req.get("prompt")
-                    if not isinstance(prompt, list):
-                        raise ValueError(
-                            "'prompt' must be a list of token ids")
-                    deadline_ms = req.get("deadline_ms")
-                    if deadline_ms is not None:
-                        deadline_ms = float(deadline_ms)
-                        if deadline_ms < 0:
-                            raise ValueError("'deadline_ms' must be "
-                                             ">= 0")
-                    rid = engine.submit(
-                        prompt, int(req.get("max_new_tokens", 16)),
-                        temperature=float(req.get("temperature", 0.0)),
-                        deadline_ms=deadline_ms,
-                        traceparent=self.headers.get("traceparent"))
-                except ShedError as e:
-                    self._send(503, {"error": str(e), "status": "shed",
-                                     "retry_after_s": e.retry_after_s},
-                               headers={"Retry-After": str(
-                                   retry_after_header(e.retry_after_s))})
-                    return
-                except (ValueError, TypeError, KeyError) as e:
-                    self._send(400, {"error": f"{type(e).__name__}: {e}"})
-                    return
-                except RuntimeError as e:
-                    # the engine loop died: the server is up,
-                    # generation is not
-                    self._send(503, {"error": f"{type(e).__name__}: {e}"})
-                    return
-                ctx = engine.trace_context(rid)
-                headers = ({"traceparent": format_traceparent(
-                    ctx[0], new_span_id())} if ctx else None)
-                if deadline_ms is None:
-                    deadline_ms = engine.deadline_ms
-                wait_s = GENERATE_TIMEOUT_S
-                if deadline_ms and deadline_ms > 0:
-                    wait_s = min(wait_s, deadline_ms / 1e3
-                                 + GENERATE_DEADLINE_GRACE_S)
-                res = engine.result(rid, timeout=wait_s)
-                if res is None:
-                    engine.cancel(rid)
-                    self._send(504, {"error": "generation timed out",
-                                     "status": "timeout", "rid": rid},
-                               headers=headers)
-                elif res.get("status") == "timeout":
-                    self._send(504, res, headers=headers)
-                elif "error" in res:
-                    self._send(500, res, headers=headers)
-                else:
-                    self._send(200, res, headers=headers)
-
-        try:
-            self._httpd = ThreadingHTTPServer((host, int(port)), Handler)
-        except OSError as e:
-            print(f"dtx-serve (torch): failed to bind port {port}: {e}",
-                  file=sys.stderr)
-            return None
-        self._httpd.daemon_threads = True
-        self.port = self._httpd.server_address[1]
-        self._thread = threading.Thread(target=self._httpd.serve_forever,
-                                        name="dtx-generate", daemon=True)
-        self._thread.start()
-        return self.port
-
-    def close(self) -> None:
-        httpd, self._httpd = self._httpd, None
-        if httpd is not None:
-            httpd.shutdown()
-            httpd.server_close()
-        if self._thread is not None:
-            self._thread.join(timeout=5)
-            self._thread = None
+def stop_engines(engines, router=None) -> None:
+    """Stop every engine and close every recorder (the engines' and the
+    router's)."""
+    for e in engines:
+        e.stop()
+    recs = [e.recorder for e in engines]
+    if router is not None:
+        recs.append(router.recorder)
+    for rec in recs:
+        if rec is not None:
+            rec.close()
 
 
 def serve(cfg, port: int):
-    """Build and start the engine and the HTTP server on ``port`` (0 =
-    ephemeral); returns ``(server, engine)``, both running — close the
-    server, stop the engine and close its recorder (if any) when done.
-    Raises RuntimeError when the port cannot be bound."""
+    """Build and start one engine and the ``StatusServer`` over
+    ``<logs_path>`` on ``port`` (0 = ephemeral); returns ``(server,
+    engine)``, both running — close the server and ``stop_engines([engine])``
+    when done.  Raises RuntimeError when the port cannot be bound."""
+    from ..obs import slo as slo_lib
+    from ..obs.serve import StatusServer
+
     engine = build_engine(cfg)
     engine.start()
-    server = GenerateServer(engine)
+    server = StatusServer(cfg.logs_path, engine=engine,
+                          slos=slo_lib.parse_specs(cfg.slo),
+                          cache_ttl_s=cfg.status_cache_s)
     if server.start(port) is None:
-        engine.stop()
-        if engine.recorder is not None:
-            engine.recorder.close()
+        stop_engines([engine])
         raise RuntimeError(f"could not bind port {port}")
     return server, engine
+
+
+def serve_fleet(cfg, port: int):
+    """Build and start the ``--replicas`` fleet (``build_fleet``) behind
+    a ``RouterServer`` on ``port``; returns ``(server, router,
+    engines)``, all running — close the server and
+    ``stop_engines(engines, router)`` when done.  Raises RuntimeError
+    when the port cannot be bound."""
+    from .router import RouterServer
+
+    router, engines = build_fleet(cfg)
+    for e in engines:
+        e.start()
+    server = RouterServer(router)
+    if server.start(port) is None:
+        stop_engines(engines, router)
+        raise RuntimeError(f"could not bind port {port}")
+    return server, router, engines
+
+
+def _main_fleet(cfg) -> int:
+    """``--replicas N`` > 1: serve until SIGTERM drains the router (stop
+    admitting, finish in-flight, typed-shed the queue) or Ctrl-C."""
+    try:
+        server, router, engines = serve_fleet(cfg, cfg.serve_port)
+    except RuntimeError as e:
+        print(f"dtx-serve (torch): {e}", file=sys.stderr)
+        return 2
+    from .health import parse_breaker
+
+    server.install_sigterm()
+    print(f"dtx-serve (torch): fleet of {cfg.replicas} replicas behind "
+          f"POST /generate on :{server.port} (device={engines[0].device} "
+          f"fleet_retries={cfg.fleet_retries} breaker=failures:"
+          f"{parse_breaker(cfg.breaker or 'on').failures}"
+          + (f" engine_retries={cfg.engine_retries}"
+             if cfg.engine_retries else "")
+          + (f" spans -> {cfg.logs_path}/replica<i>"
+             if cfg.trace_spans else "") + ")", flush=True)
+    try:
+        while not router.draining:
+            time.sleep(0.5)
+        # SIGTERM drained the router: let the in-flight decodes retire
+        while any(e.stats().get("inflight", 0) for e in engines):
+            time.sleep(0.1)
+        print("dtx-serve (torch): fleet drained, exiting", flush=True)
+    except KeyboardInterrupt:
+        router.drain()
+    finally:
+        server.close()
+        stop_engines(engines, router)
+    return 0
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -366,11 +297,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     except ValueError as e:
         print(f"dtx-serve (torch): {e}", file=sys.stderr)
         return 2
+    if cfg.replicas > 1:
+        return _main_fleet(cfg)
     try:
         server, engine = serve(cfg, cfg.serve_port)
     except RuntimeError as e:
         print(f"dtx-serve (torch): {e}", file=sys.stderr)
         return 2
+    if engine.restart_narrator is not None:
+        print(f"dtx-serve (torch): engine supervision armed "
+              f"(engine_retries={cfg.engine_retries}; restarts -> "
+              f"{engine.restart_narrator.path})", flush=True)
     print(f"dtx-serve (torch): POST /generate on :{server.port} "
           f"(device={engine.device} page_size={engine.page_size} "
           f"pages={engine.num_pages} max_batch={engine.max_batch} "
@@ -389,9 +326,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         pass
     finally:
         server.close()
-        engine.stop()
-        if engine.recorder is not None:
-            engine.recorder.close()
+        stop_engines([engine])
     return 0
 
 

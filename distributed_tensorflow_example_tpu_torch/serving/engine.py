@@ -27,8 +27,11 @@ occupancy and on the fast-window SLO burn rate, and ``engine_retries``
 supervision with bounded backoff.  A span recorder
 (``obs/spans.SpanRecorder``) threads both layers: the scheduler
 narrates admission, the engine adds the execution milestones at the
-JAX engine's sites, with its event names and fields, in its order.
-The restart narrator is not ported yet: that argument must be None.
+JAX engine's sites, with its event names and fields, in its order.  A
+restart narrator (``resilience/restart.RestartNarrator``) gets one
+``engine_restart`` row per supervised restart.  The fleet router
+(``serving/router.py``) reads ``waiting_rids()`` and ``fast_burn()``
+and fails requests over with ``submit(attempts=)``.
 
 Thread model: ``submit()`` may be called from any thread (the HTTP
 handlers); ``step()`` — or the ``start()``-ed background loop —
@@ -52,6 +55,7 @@ from . import kv_cache as kvc
 from . import scheduler as sched_lib
 from ..device import DeviceLike, resolve_device
 from ..obs.spans import new_trace_id, parse_traceparent
+from ..resilience.restart import backoff_s
 from .admission import BrownoutPolicy, ShedError, retry_after_hint
 from .faults import InjectedFault
 from .scheduler import SCRATCH_PAGE
@@ -68,16 +72,6 @@ RESTART_BACKOFF_MAX_S = 2.0
 # completed requests retained for result() pickup before the oldest
 # are evicted
 RETAIN_FINISHED = 4096
-
-
-def backoff_s(attempt: int, base_s: float = 1.0, factor: float = 2.0,
-              cap_s: float = 60.0) -> float:
-    """Exponential backoff: ``min(base * factor**attempt, cap)``;
-    ``attempt`` counts completed retries (0 -> base)."""
-    if attempt < 0:
-        raise ValueError(f"attempt={attempt} must be >= 0")
-    return min(float(base_s) * float(factor) ** int(attempt),
-               float(cap_s))
 
 
 def _percentile(vals: List[float], q: float) -> Optional[float]:
@@ -119,7 +113,8 @@ class DecodeEngine:
     (admission.BrownoutPolicy on page occupancy and, with a recorder,
     the fast-window burn rate of ``slos``: obs/slo.SLOSpec list, None =
     the defaults), ``engine_retries`` (supervised restart with
-    re-queue), ``faults`` (faults.FaultPlan).  ``recorder``
+    re-queue; ``restart_narrator``, a resilience/restart.RestartNarrator,
+    narrates each restart), ``faults`` (faults.FaultPlan).  ``recorder``
     (obs/spans.SpanRecorder) records every request's lifecycle;
     ``kv_quant="int8"`` stores the paged pools as int8 with scale
     planes.
@@ -136,11 +131,6 @@ class DecodeEngine:
         if spec.objective != "lm":
             raise ValueError("the decode engine serves the lm "
                              "objective only")
-        if restart_narrator is not None:
-            raise NotImplementedError(
-                "DecodeEngine(restart_narrator=...): the restart "
-                "narrator is not ported to the PyTorch package yet "
-                "(ROADMAP.md Queue A, with the resilience modules)")
         self.device = resolve_device(device)
         self.spec = spec
         self.params = {k: v.to(self.device) for k, v in params.items()}
@@ -165,6 +155,7 @@ class DecodeEngine:
                              "engine_retries must be >= 0")
         self.brownout = brownout
         self.slos = slos
+        self.restart_narrator = restart_narrator
         self.max_batch = int(max_batch)
         self.sched = sched_lib.ContinuousScheduler(
             self.num_pages, self.page_size, max_batch,
@@ -186,6 +177,11 @@ class DecodeEngine:
         self._completed = 0
         self._failure: Optional[str] = None
         self._traces: Dict[int, tuple] = {}
+        # rid -> the attempts count seeded by submit(attempts=): the
+        # local retry budget bounds the crashes THIS engine absorbs, so
+        # the budget check offsets by it while spans keep the cumulative
+        # fleet-wide count
+        self._attempt_base: Dict[int, int] = {}
         self._next_rid = 0
         self._accepted = 0
         self._tick = 0
@@ -228,13 +224,20 @@ class DecodeEngine:
     def submit(self, prompt, max_new_tokens: int,
                temperature: float = 0.0,
                deadline_ms: Optional[float] = None,
-               traceparent: Optional[str] = None) -> int:
+               traceparent: Optional[str] = None,
+               attempts: int = 0,
+               fingerprint: Optional[list] = None) -> int:
         """Queue a request (``prompt``: iterable of int token ids);
         returns its rid.  Thread-safe.  ``deadline_ms`` bounds the
         request's time in the system (None = the engine default; 0 =
         none).  Raises ``ShedError`` when the bounded queue is full.
         ``traceparent`` (W3C) carries the caller's trace id onto the
-        result and onto every span the request emits."""
+        result and onto every span the request emits.  ``attempts``
+        seeds the supervision retry ledger (a router failing a request
+        over passes the count the old engine burned, so
+        ``engine_retries`` bounds the crashes this engine absorbs on
+        top); ``fingerprint`` replaces the submit span's prompt
+        fingerprint (a replay passes the recorded one)."""
         ctx = parse_traceparent(traceparent)
         if ctx is not None:
             trace_id, parent_id = ctx
@@ -278,8 +281,7 @@ class DecodeEngine:
             deadline = now + dl_ms / 1e3 if dl_ms > 0 else None
             rid = self._next_rid
             # the prompt-block fingerprint rides the submit span
-            fingerprint = None
-            if self.recorder is not None:
+            if fingerprint is None and self.recorder is not None:
                 from ..obs.workload import prompt_fingerprint
 
                 fingerprint = prompt_fingerprint(prompt)
@@ -287,6 +289,12 @@ class DecodeEngine:
                               arrival=now, deadline=deadline,
                               trace_id=trace_id, parent_id=parent_id,
                               fingerprint=fingerprint)
+            if attempts:
+                # a failed-over request arrives mid-ledger: the seq
+                # carries the cumulative count, the base offsets the
+                # local budget check in _recover
+                self.sched.waiting[-1].attempts = int(attempts)
+                self._attempt_base[rid] = int(attempts)
             self._next_rid += 1
             self._accepted += 1
             self._queue_peak = max(self._queue_peak,
@@ -305,6 +313,19 @@ class DecodeEngine:
 
     def _retry_after_s(self) -> float:
         return retry_after_hint(_percentile(list(self._lat_ms), 0.50))
+
+    def waiting_rids(self) -> List[int]:
+        """Rids still waiting for admission (no pages, no tokens): the
+        router's drain typed-cancels exactly these."""
+        with self._lock:
+            return [s.rid for s in self.sched.waiting]
+
+    def fast_burn(self) -> Optional[float]:
+        """The cached fast-window SLO burn rate (None without a
+        recorder): ``_fast_burn`` under the engine lock, for the
+        router's health probes from other threads."""
+        with self._lock:
+            return self._fast_burn()
 
     def cancel(self, rid: int) -> bool:
         """Retire ``rid`` at the next tick boundary (typed ``timeout``
@@ -548,6 +569,7 @@ class DecodeEngine:
             evicted = self._finished_order.popleft()
             self._results.pop(evicted, None)
             self._traces.pop(evicted, None)
+            self._attempt_base.pop(evicted, None)
         res.event.set()
 
     # ---- background loop (the HTTP front door's worker) ----
@@ -607,6 +629,11 @@ class DecodeEngine:
                     "engine_restart", restart=self._restarts,
                     reason=msg, rids=[s.rid for s in inflight],
                     tick=old.ticks)
+            if self.restart_narrator is not None:
+                self.restart_narrator.emit(
+                    "engine_restart", restart=self._restarts,
+                    reason=msg, inflight=len(inflight),
+                    queued=len(waiting))
             sys.stderr.write(
                 f"dtx-serve: engine loop crashed ({msg}); supervised "
                 f"restart {self._restarts} with {len(inflight)} "
@@ -631,7 +658,8 @@ class DecodeEngine:
                 res = self._results.get(s.rid)
                 if res is None or res.event.is_set():
                     continue
-                if s.attempts > self.engine_retries:
+                if s.attempts > self.engine_retries \
+                        + self._attempt_base.get(s.rid, 0):
                     self._finalize_failed(
                         s.rid, f"engine crashed {s.attempts} times "
                                f"on this request "

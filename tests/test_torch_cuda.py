@@ -1100,3 +1100,69 @@ def test_traced_engine_on_card_writes_a_valid_span_file(card, tmp_path):
     docs = waterfall.waterfalls(rows)
     assert len(docs) == 3 and waterfall.summarize(docs)["sum_to_wall_ok"]
     assert schema.validate_span_file(rec.path) == []
+
+
+@pytest.mark.cuda
+def test_two_engines_on_card_sum_their_launch_counts(card):
+    """Two engines over one params copy on the card, each in its own
+    thread and each given the same requests before it starts: each
+    engine's tokens equal a lone engine's, and the process-wide launch
+    counters read the fleet's total, twice the lone engine's (B2, B3
+    and B8 each launched)."""
+    from distributed_tensorflow_example_tpu_torch.serving.engine import (
+        DecodeEngine)
+
+    spec, params = _lm(fp8_ffn=True)
+    params = {k: v.to(card) for k, v in params.items()}
+    prompts = [list(range(1, n)) for n in (4, 9, 6)]
+
+    def run(n):
+        engines = [DecodeEngine(spec, params, page_size=4, max_batch=2,
+                                device=card) for _ in range(n)]
+        assert all(e.params[k] is params[k] for e in engines for k in params)
+        rids = [[e.submit(p, 5) for p in prompts] for e in engines]
+        torch.cuda.synchronize()
+        fused.reset_launch_counts()
+        for e in engines:
+            e.start()
+        toks = [[e.result(r, timeout=120)["tokens"] for r in rs]
+                for e, rs in zip(engines, rids)]
+        for e in engines:
+            e.stop()
+        torch.cuda.synchronize()
+        return toks, fused.launch_counts()
+
+    one, alone = run(1)
+    two, fleet = run(2)
+    assert two == one * 2
+    for name in ("fused_layer_norm", "fused_layer_norm_residual",
+                 "moe_grouped_matmul"):
+        assert alone[name] > 0, name
+    assert fleet == {k: 2 * v for k, v in alone.items()}
+
+
+@pytest.mark.cuda
+def test_router_over_one_engine_on_card_is_bitwise_invisible(card):
+    """Greedy and sampled requests submitted before the engine starts:
+    through a router over that one engine on the card, the tokens equal
+    the bare engine's."""
+    from distributed_tensorflow_example_tpu_torch.serving import router
+    from distributed_tensorflow_example_tpu_torch.serving.engine import (
+        DecodeEngine)
+
+    spec, params = _lm(fp8_ffn=True)
+    prompts = [list(range(1, n)) for n in (4, 9, 6, 3)]
+    temps = (0.0, 0.8, 0.0, 1.1)
+
+    def run(routed):
+        eng = DecodeEngine(spec, params, page_size=4, max_batch=2, seed=2,
+                           device=card)
+        front = router.Router([eng]) if routed else eng
+        rids = [front.submit(p, 5, temperature=t)
+                for p, t in zip(prompts, temps)]
+        eng.start()
+        out = [front.result(r, timeout=120)["tokens"] for r in rids]
+        eng.stop()
+        return out
+
+    assert run(True) == run(False)

@@ -9,13 +9,15 @@ CPU, at the ``tests/test_serving.py`` sizes (f32).
   ``max_batch`` (not to ``generate``: the fp8 per-tensor scale spans the
   whole padded decode batch, so batching changes the numbers).
 - The copied pure-Python scheduler agrees with the JAX package's; the
-  HTTP front door answers ``POST /generate`` and, with ``--trace_spans``,
-  ``GET /slo``, ``/trace`` and ``/explain`` with the JAX status server's
+  HTTP front door (``obs/serve.StatusServer`` through ``cli.serve``)
+  answers ``POST /generate`` and, with ``--trace_spans``, ``GET /slo``,
+  ``/trace``, ``/explain`` and ``/metrics`` with the JAX status server's
   payloads and error bodies; the fail-open surface (cancel, shed,
   supervised restart) behaves as in the JAX engine.
 - The CLI parses every serving flag of a JAX command line with the JAX
-  defaults, validates as the JAX CLI does (exit 2) and refuses only the
-  fleet, replay and status-cache flags.
+  defaults, validates as the JAX CLI does (exit 2), builds the fleet and
+  the status server the fleet and cache flags describe, and refuses only
+  the replay flags and ``--outer_quant``.
 """
 
 import json
@@ -171,12 +173,17 @@ def test_engine_fail_open_surface(plain):
     assert st["engine_restarts_total"] == 1 and st["requeued_total"] > 0
 
 
-def test_engine_refuses_unported_arguments(plain):
-    """Only the restart narrator is refused now; an unknown pool format
+def test_engine_refuses_unported_arguments(plain, tmp_path):
+    """No engine argument is refused any more: the restart narrator is
+    taken (and kept for the supervised restarts); an unknown pool format
     raises as in JAX; no card means no default device."""
+    from distributed_tensorflow_example_tpu_torch.resilience.restart import (
+        RestartNarrator)
+
     tspec, tp = plain[:2]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecodeEngine(tspec, tp, restart_narrator=object(), device="cpu")
+    narr = RestartNarrator(str(tmp_path))
+    assert DecodeEngine(tspec, tp, restart_narrator=narr,
+                        device="cpu").restart_narrator is narr
     with pytest.raises(ValueError, match="int8"):
         DecodeEngine(tspec, tp, kv_quant="int4", device="cpu")
     if not torch.cuda.is_available():
@@ -227,11 +234,8 @@ def test_http_generate_round_trip():
         engine.stop()
 
 
-@pytest.mark.parametrize("extra", [["--replicas=2"], ["--replay=w.json"],
-                                   ["--breaker", "on"],
-                                   ["--fleet_retries", "1"],
+@pytest.mark.parametrize("extra", [["--replay=w.json"],
                                    ["--replay_speed", "25"],
-                                   ["--status_cache_s", "0"],
                                    ["--outer_quant=int8"]])
 def test_cli_refuses_unported_flags(extra, capsys):
     assert tcli.main(_CLI_FLAGS + ["--serve_port=1"] + extra) == 2
@@ -244,17 +248,46 @@ def test_cli_refuses_unported_flags(extra, capsys):
                                    ["--num_experts=4", "--moe_topk=2"],
                                    ["--trace_spans", "--span_keep", "5"],
                                    ["--trace_spans", "--span_rotate_mb",
-                                    "1.5"]])
+                                    "1.5"],
+                                   ["--replicas=2"], ["--breaker", "on"],
+                                   ["--fleet_retries", "1"],
+                                   ["--status_cache_s", "0"]])
 def test_cli_accepts_the_ported_flags(extra, tmp_path):
-    """The six flags the port refused until this slice: no refusal, the
-    validation passes, and the engine they describe is built (int8
-    pools, a MoE spec, a recorder rotating as asked, the parsed SLOs)."""
+    """The flags the port refused until a slice ported their feature: no
+    refusal, the validation passes, and the engine they describe is built
+    (int8 pools, a MoE spec, a recorder rotating as asked, the parsed
+    SLOs); the fleet flags build the router they describe (the replicas,
+    the breaker policy, the failover budget) and ``--status_cache_s``
+    the status server's caches."""
     cfg = tconfig.parse_config(_CLI_FLAGS + ["--serve_port=1",
                                              f"--logs_path={tmp_path}"]
                                + extra)
     assert tcli.unported_flags(cfg) == []
     tconfig.validate_quant_config(cfg)
     tconfig.validate_serving_config(cfg)
+    if cfg.replicas > 1 or cfg.breaker or cfg.fleet_retries != 2:
+        from distributed_tensorflow_example_tpu_torch.serving import health
+
+        router, engines = tcli.build_fleet(cfg)
+        stats = router.stats()
+        assert stats["replicas"] == cfg.replicas == len(engines)
+        assert stats["fleet_retries"] == cfg.fleet_retries
+        assert [r["breaker"]["state"] for r in stats["per_replica"]] == \
+            ["closed"] * cfg.replicas
+        assert router._replicas[0].breaker.policy.failures == \
+            health.parse_breaker(cfg.breaker or "on").failures
+        tcli.stop_engines(engines, router)
+        return
+    if cfg.status_cache_s != 15.0:
+        server, engine = tcli.serve(cfg, 0)
+        try:
+            assert server._report_cache.ttl_s == cfg.status_cache_s
+            assert server._fleet_cache.ttl_s == cfg.status_cache_s
+            assert server.get_doc("/healthz")[0] == 200
+        finally:
+            server.close()
+            tcli.stop_engines([engine])
+        return
     eng = tcli.build_engine(cfg)
     assert eng.kv_quant == cfg.kv_quant
     assert eng.spec.num_experts == cfg.num_experts
@@ -269,8 +302,9 @@ def test_cli_accepts_the_ported_flags(extra, tmp_path):
         eng.recorder.close()
 
 
-# serving flags of features the port refuses when set: parsed, so that a
-# JAX dtx-serve command line reaches the refusal, not argparse's error
+# serving flags the port parses with the JAX defaults (the replay speed
+# is refused when set; the rest are ported), so that a JAX dtx-serve
+# command line reaches the port's handling, not argparse's error
 _REFUSED_WITH_DEFAULTS = ("breaker", "fleet_retries", "replay_speed",
                           "span_keep", "span_rotate_mb", "status_cache_s")
 
@@ -361,9 +395,9 @@ def test_http_slo_trace_explain(tmp_path):
     """``--trace_spans --slo``: after one POST /generate, /slo is the
     evaluated document of the parsed specs, /trace?rid=0 the request's
     reconstructed record and rows, /explain its waterfall tiling the
-    wall; the 400 and 404 bodies are the JAX status server's; an
-    unknown path's 404 names the endpoints; every span row
-    validates."""
+    wall; the 400 and 404 bodies are the JAX status server's; /metrics
+    carries the SLO and waterfall gauges; an unknown path's 404 names the
+    endpoints; every span row validates."""
     from distributed_tensorflow_example_tpu_torch.obs import schema
 
     cfg = tconfig.parse_config(_CLI_FLAGS + [
@@ -406,9 +440,15 @@ def test_http_slo_trace_explain(tmp_path):
             404, {"error": "rid 99 not in the span stream tails"})
         assert _get(port, "/explain?rid=x") == (
             400, {"error": "?rid=N must be an integer"})
-        code, doc = _get(port, "/metrics")
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=30) as r:
+            text = r.read().decode()
+        assert "dtx_slo_requests 1" in text
+        assert "dtx_waterfall_requests 1" in text
+        code, doc = _get(port, "/nope")
         assert code == 404 and doc["endpoints"] == [
-            "/generate", "/healthz", "/slo", "/trace", "/explain"]
+            "/status", "/metrics", "/report", "/slo", "/trace", "/fleet",
+            "/explain", "/generate", "/healthz"]
     finally:
         server.close()
         engine.stop()
@@ -466,3 +506,29 @@ def test_chip_smoke_int8_moe_and_traced_phases_rehearse_on_cpu():
     trace = chip_smoke.phase_trace_overhead("cpu", run, rounds=1,
                                             device="cpu")
     assert trace["ratio"] > 0 and trace["rows"] >= 2
+
+
+def test_chip_smoke_status_fleet_and_chaos_phases_rehearse_on_cpu():
+    """``chip_smoke.py``'s phases 4d-4f rehearsed on the CPU at a narrow
+    width: the status server's /status, /metrics, /report and /fleet
+    after one POST with the narrator armed; 8 concurrent POSTs to one
+    engine and to a two-replica fleet (the fleet report exactly-once,
+    the router over one replica bitwise invisible); three replicas under
+    the crash plan (a failover, clean chains, valid restarts.jsonl).
+    The counters stay 0: CPU tensors take the plain versions."""
+    import chip_smoke
+
+    narrow = dict(chip_smoke.FULL_WIDTH, input_size=128, seq_len=128,
+                  d_model=32, n_heads=2, num_blocks=2, d_ff=64)
+    run = chip_smoke.phase_serve("cpu", device="cpu", width=narrow)
+    flags = [f for f in chip_smoke.FULL_WIDTH_FLAGS
+             if not f.startswith(("--input_size", "--d_model", "--n_heads",
+                                  "--d_ff"))]
+    flags += ["--input_size=128", "--d_model=32", "--n_heads=2",
+              "--d_ff=64", "--device=cpu"]
+    assert chip_smoke.phase_status(flags)["gauges"] > 0
+    fleet = chip_smoke.phase_fleet("cpu", run, flags, device="cpu")
+    assert set(fleet["counts"].values()) == {0}
+    assert fleet["tps"] > 0 and fleet["one_tps"] > 0
+    chaos = chip_smoke.phase_chaos("cpu", run, device="cpu")
+    assert chaos["moved"] >= 1 and chaos["restarts"] >= 1
