@@ -77,6 +77,19 @@ Phases (any failure exits nonzero; none is caught and skipped):
     typed terminal, at least one failed over with its trace id, the
     fleet report is exactly-once with clean failover chains, and
     restarts.jsonl holds the narrator's valid engine_restart rows;
+4g. workload replay: a synthetic workload of 16 requests (shared-prefix
+    groups, 30 s relative deadlines) replayed through ``dtx-serve
+    --replay`` (``serving/cli.main`` in process, phase 3's model, the
+    engines warmed up before the replay's clock) twice under
+    ``--trace_spans`` at x2 and once with ``--replicas=2``: exit 0 with
+    the report alone on stdout, no wedged or failed terminal, equal
+    terminal multisets, B2, B3 and B8 launched (the ``replay`` path),
+    every span row stamped ``replay_of``, the first replay's stream
+    re-captured to the input's schedule and the id round-tripped through
+    ``replay_sim``, every submit at most 0.5 s behind its schedule;
+    tokens/s of each replay, the determinism_frac of the two one-engine
+    replays and the tick batch sizes of any mismatching request printed
+    (not gated);
 
 and for the MLP trainer (``main.py`` -> ``train/loop.run``):
 
@@ -106,6 +119,16 @@ and for the MLP trainer (``main.py`` -> ``train/loop.run``):
    the epoch permutation at n 65,536 and 55,000 bitwise card against
    CPU, and one step from the same initial state on the card and on
    the port's CPU path, the updated params held against each other;
+5b. the resilience store at the same widths under ``--ckpt_every=2``
+    (host path): two uninterrupted runs with bitwise equal final
+    snapshots, the second also writing a classic ``--sharded_checkpoints
+    --async_checkpoints`` checkpoint restored bitwise; the trainer in a
+    subprocess, SIGTERM'd once its step-4 snapshot is valid, exiting 143
+    through ``Preempted`` with a ``preempt`` row in restarts.jsonl; a
+    ``--resume=auto`` relaunch ending bitwise equal to the uninterrupted
+    run; B1 launched in each in-process run (the ``resilience`` paths);
+    the loop's stall per snapshot (``ckpt_stall_ms``), the writer's
+    mean write ms and the snapshot's bytes printed;
 6. the reference command line on the card: ``main.py --pallas
    --training_epochs=1`` (784-100-10 sigmoid f32, batch 100, 550
    steps, the default fast path: B1's f32 launches counted through the
@@ -175,7 +198,8 @@ and for MoE training (``main.py --model=transformer --num_experts=64
 The last two lines of stdout are the kernel report JSON (each kernel's
 launches on its first main path, and under ``launches_by_path`` on
 every path that ran it: ``serve``, ``serve_int8``, ``serve_moe``,
-``fleet``, the trainers') and the result JSON; the card's name and power limit come just before them.
+``fleet``, ``replay``, the trainers', ``resilience`` and
+``resilience_resumed``) and the result JSON; the card's name and power limit come just before them.
 The script imports nothing of JAX; it needs one card and exits
 nonzero without one.
 """
@@ -188,6 +212,7 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -1845,17 +1870,6 @@ def _post_many(port: int, prompts, n_new: int) -> dict:
                 ttft_p50=float(np.median([d["ttft_ms"] for d in docs])))
 
 
-def _settle(engines, timeout: float = 30.0) -> None:
-    """Let each engine reach its final tick boundary (the retire row
-    lands one boundary after the seal that answered the request)."""
-    deadline = time.monotonic() + timeout
-    while time.monotonic() < deadline:
-        if all(not e.sched.live and not e.sched.waiting for e in engines):
-            time.sleep(0.05)
-            return
-        time.sleep(0.02)
-
-
 def phase_fleet(card: str, base: dict, flags=FULL_WIDTH_FLAGS,
                 device: str = "cuda") -> dict:
     """The fleet (phase 4e): phase 3's 8 ragged greedy requests POSTed
@@ -1906,7 +1920,7 @@ def phase_fleet(card: str, base: dict, flags=FULL_WIDTH_FLAGS,
             code_m, text = _get_text(server.port, "/metrics")
             shared = all(engines[0].params[k] is engines[1].params[k]
                          for k in engines[0].params)
-            _settle(engines)
+            cli.settle(engines, 30.0)
             ticks = [e.stats()["decode_ticks_total"] for e in engines]
         finally:
             server.close()
@@ -1974,7 +1988,7 @@ def phase_chaos(card: str, base: dict, device: str = "cuda") -> dict:
     from distributed_tensorflow_example_tpu_torch.obs.spans import (
         SpanRecorder)
     from distributed_tensorflow_example_tpu_torch.resilience import restart
-    from distributed_tensorflow_example_tpu_torch.serving import router
+    from distributed_tensorflow_example_tpu_torch.serving import cli, router
     from distributed_tensorflow_example_tpu_torch.serving.engine import (
         DecodeEngine)
     from distributed_tensorflow_example_tpu_torch.serving.faults import (
@@ -1998,7 +2012,7 @@ def phase_chaos(card: str, base: dict, device: str = "cuda") -> dict:
         try:
             rids = [rt.submit(p, n_new) for p in prompts]
             results = [rt.result(r, timeout=300) for r in rids]
-            _settle(engines)
+            cli.settle(engines, 30.0)
         finally:
             for e in engines:
                 e.stop()
@@ -2036,6 +2050,163 @@ def phase_chaos(card: str, base: dict, device: str = "cuda") -> dict:
         f"engine restarts; restarts.jsonl {len(rows)} engine_restart rows "
         f"valid")
     return dict(moved=len(moved), restarts=len(rows))
+
+
+# phase 4g: the workload's size and pace.  16 requests at 8 a second,
+# half opening with one shared prefix, lengths scaled with seq_len, a
+# relative deadline of 30 s; replayed at REPLAY_SPEED
+REPLAY_N = 16
+REPLAY_QPS = 8.0
+REPLAY_DEADLINE_MS = 30000.0
+REPLAY_SPEED = 2.0
+# a replay must submit each request on its schedule: at most this late
+REPLAY_MAX_LAG_S = 0.5
+
+
+def _replay_cli(argv) -> dict:
+    """``serving/cli.main(argv)`` in process: exit 0 and a stdout that is
+    exactly one replay report JSON; returns the report."""
+    from distributed_tensorflow_example_tpu_torch.serving import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    out = buf.getvalue()
+    if rc != 0:
+        raise AssertionError(f"replay: dtx-serve exited {rc}: {out[-2000:]}")
+    report = json.loads(out)
+    if report.get("kind") != "replay_report":
+        raise AssertionError(f"replay: stdout is not a report: {out[:500]}")
+    return report
+
+
+def _tick_batches(run_dir: str) -> dict:
+    """rid -> the batch sizes of the decode ticks it rode, from a span
+    directory (one engine's, or a fleet's replicas)."""
+    from distributed_tensorflow_example_tpu_torch.obs import spans
+
+    out: dict = {}
+    for root, _d, files in os.walk(run_dir):
+        if any(f.startswith("spans.") for f in files):
+            for row in spans.load_spans(root):
+                if row.get("event") == "tick":
+                    for rid in row.get("rids") or ():
+                        out.setdefault(rid, []).append(row.get("batch"))
+    return out
+
+
+def phase_replay(card: str, flags=FULL_WIDTH_FLAGS,
+                 speed: float = REPLAY_SPEED,
+                 max_lag_s: float = REPLAY_MAX_LAG_S) -> dict:
+    """Workload replay (phase 4g) through ``serving/cli.main`` at phase
+    3's model: a synthetic workload of REPLAY_N requests (shared-prefix
+    groups, relative deadlines) written to a temporary file, replayed
+    twice under ``--trace_spans`` at ``speed`` and once more with
+    ``--replicas 2``.  Required: exit 0 with the report on stdout, no
+    wedged or failed terminal, the same terminal multiset in all three;
+    B2, B3 and B8 launched (counters zeroed just before the phase, on
+    the card); every span row names the workload (``replay_of``) and the
+    first replay's stream re-captures to the input's schedule: the same
+    prompt lengths, output lengths and fingerprints in arrival order
+    (its arrivals are the wall clock's, so the re-captured id differs
+    from the input's; the id itself round-trips through ``replay_sim``,
+    checked here too).  Printed: each replay's tokens/s, the
+    determinism_frac of the two one-engine replays and, for each
+    mismatching rid, the batch sizes of the ticks it rode in each.  The
+    submits must reach the engine at most ``max_lag_s`` behind their
+    schedule (read off the first replay's re-capture)."""
+    from distributed_tensorflow_example_tpu_torch.obs import (
+        schema, spans, workload)
+    from distributed_tensorflow_example_tpu_torch.ops import fused
+    from distributed_tensorflow_example_tpu_torch.serving import replay
+
+    device = "cpu" if "--device=cpu" in flags else "cuda"
+    seq = next(int(f.split("=")[1]) for f in flags
+               if f.startswith("--input_size="))
+    vocab = next((int(f.split("=")[1]) for f in flags
+                  if f.startswith("--vocab_size=")), 256)
+    doc = workload.synthetic_workload(
+        REPLAY_N, seed=0, qps=REPLAY_QPS, mean_prompt=max(2, seq // 24),
+        mean_new=max(2, seq // 32), vocab_size=vocab,
+        deadline_ms=REPLAY_DEADLINE_MS)
+    wid = doc["workload_id"]
+    reports, dirs = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "workload.json")
+        workload.write_workload(doc, path)
+        _sync(device)
+        fused.reset_launch_counts()
+        for i, extra in enumerate(([], [], ["--replicas=2"])):
+            logs = os.path.join(tmp, f"replay{i}")
+            reports.append(_replay_cli(flags + extra + [
+                f"--replay={path}", f"--replay_speed={speed:g}",
+                "--trace_spans", f"--logs_path={logs}"]))
+            dirs.append(logs)
+        _sync(device)
+        counts = fused.launch_counts()
+        rows = [r for root, _d, files in os.walk(tmp)
+                if any(f.startswith("spans.") for f in files)
+                for r in spans.load_spans(root)]
+        errs = [e for r in rows for e in schema.validate_span_row(r)]
+        cap = workload.capture(dirs[0])
+        ticks = [_tick_batches(d) for d in dirs[:2]]
+        sim_dir = os.path.join(tmp, "sim")
+        rec = replay.replay_recorder(sim_dir, wid)
+        replay.replay_sim(doc, recorder=rec)
+        rec.close()
+        sim_cap = workload.capture(sim_dir)
+    _require(counts, SERVE_WRAPPERS, (), "replay", device)
+    for rep in reports:
+        if rep["workload_id"] != wid or rep["n_requests"] != REPLAY_N:
+            raise AssertionError(f"replay report of another workload: "
+                                 f"{rep['workload_id']}")
+        bad = {t: n for t, n in rep["terminals"].items()
+               if t in ("wedged", "failed")}
+        if bad:
+            raise AssertionError(f"replay: terminals {rep['terminals']}")
+    if len({json.dumps(r["terminals"], sort_keys=True)
+            for r in reports}) != 1:
+        raise AssertionError(f"replay: terminal multisets differ: "
+                             f"{[r['terminals'] for r in reports]}")
+    if errs or not rows or {r.get("replay_of") for r in rows} != {wid}:
+        raise AssertionError(f"replay spans: {errs[:5]} replay_of "
+                             f"{ {r.get('replay_of') for r in rows} }")
+    key = ("prompt_len", "max_new_tokens", "fingerprint")
+    if [[r[k] for k in key] for r in cap["requests"]] != \
+            [[r[k] for k in key] for r in doc["requests"]]:
+        raise AssertionError("replay: the first replay's stream does not "
+                             "re-capture to the input's schedule")
+    if sim_cap["workload_id"] != wid:
+        raise AssertionError(f"replay_sim re-captured {sim_cap['workload_id']}"
+                             f", not {wid}")
+    # how late the engine took each submit against the schedule
+    lag = max(r["arrival_s"] - w["arrival_s"] / speed
+              for r, w in zip(cap["requests"], doc["requests"]))
+    if not lag <= max_lag_s:
+        raise AssertionError(f"replay: a submit reached the engine {lag} s "
+                             f"behind its schedule > {max_lag_s}")
+    ident = replay.identity(reports[0], reports[1])
+    fleet_ident = replay.identity(reports[0], reports[2])
+    tps = [r["tokens_total"] / r["wall_s"] for r in reports]
+    log(f"[replay] {wid}: {REPLAY_N} requests over {doc['duration_s']:g} s "
+        f"recorded at x{speed:g}: terminals {reports[0]['terminals']}; "
+        f"one engine {tps[0]:.1f} and {tps[1]:.1f} tokens/s, 2 replicas "
+        f"{tps[2]:.1f} tokens/s; determinism_frac {ident['determinism_frac']}"
+        f" (one engine twice), {fleet_ident['determinism_frac']} (fleet vs "
+        f"one engine); launches {counts}; {len(rows)} span rows valid, all "
+        f"replay_of {wid}; re-capture of replay 1: schedule equal, id "
+        f"{cap['workload_id']} (submits at most {lag:.4f} s behind the "
+        f"schedule); replay_sim re-capture id {sim_cap['workload_id']} "
+        f"on {card}")
+    for m in ident["mismatches"]:
+        rid = m["rid"]
+        log(f"[replay] rid {rid} differs: {m['a']} vs {m['b']}; decode "
+            f"tick batch sizes {ticks[0].get(rid)} vs {ticks[1].get(rid)}")
+    return dict(counts=counts, tps=tps,
+                determinism_frac=ident["determinism_frac"],
+                fleet_frac=fleet_ident["determinism_frac"],
+                mismatches=[m["rid"] for m in ident["mismatches"]],
+                recaptured=cap["workload_id"], lag_s=lag)
 
 
 def phase_trace_overhead(card: str, base: dict, rounds: int = 5,
@@ -2259,6 +2430,213 @@ def phase_train(card: str) -> dict:
         f"its scale (tol {STEP_RTOL}); CPU step {cpu_s:.1f} s")
     return dict(counts=runs["graph"]["counts"], runs=runs,
                 replay_ms_median=replay_med, replay_ms=replay_ms)
+
+
+# phase 5b: the mxu_wide_pallas widths (WIDE_TRAIN) as a command line,
+# one epoch of 8 steps on the host path with a snapshot every 2 steps
+RESILIENCE_FLAGS = [
+    "--hidden_sizes=4096,4096", "--activation=relu",
+    "--compute_dtype=bfloat16", "--batch_size=8192", "--pallas",
+    "--dataset=synthetic", "--synthetic_train_size=65536",
+    "--synthetic_test_size=10000", "--training_epochs=1", "--no_summaries",
+    "--frequency=1", "--seed=1", "--ckpt_every=2"]
+# the SIGTERM'd trainer: the port's main with every step from the 4th on
+# followed by a pause, so that the signal sent once the step-4 snapshot
+# is valid reaches the run before its epoch ends (the pause only waits:
+# the steps, their data and their numbers are the trainer's own)
+PACED_MAIN = (
+    "import sys, time\n"
+    "from distributed_tensorflow_example_tpu_torch import main\n"
+    "from distributed_tensorflow_example_tpu_torch.parallel import step\n"
+    "PACE, make, n = float(sys.argv[1]), step.make_sync_step_body, [0]\n"
+    "def paced(*a, **k):\n"
+    "    body = make(*a, **k)\n"
+    "    def run(*b):\n"
+    "        out = body(*b)\n"
+    "        n[0] += 1\n"
+    "        if n[0] >= 4:\n"
+    "            time.sleep(PACE)\n"
+    "        return out\n"
+    "    return run\n"
+    "step.make_sync_step_body = paced\n"
+    "sys.exit(main.main(sys.argv[2:]))\n")
+
+
+def _run_trainer(argv, what: str, device: str) -> tuple:
+    """``loop.run`` of a trainer command line in process, its launch
+    counts zeroed just before and read just after (B1 must launch on the
+    card); returns ``(result, stdout, counts)``."""
+    from distributed_tensorflow_example_tpu_torch.config import (
+        parse_train_config)
+    from distributed_tensorflow_example_tpu_torch.ops import fused
+    from distributed_tensorflow_example_tpu_torch.train import loop
+
+    cfg = parse_train_config(argv)
+    _sync(device)
+    fused.reset_launch_counts()
+    res, out = _run_captured(loop.run, cfg)
+    _sync(device)
+    counts = fused.launch_counts()
+    _require(counts, TRAIN_WRAPPERS, (), what, device)
+    if res["fast_loop"]:
+        raise AssertionError(f"{what}: took the fast path")
+    return res, out, counts
+
+
+def _newest(ckpt_dir: str) -> tuple:
+    """``({key: CPU tensor}, manifest)`` of the newest valid snapshot."""
+    from distributed_tensorflow_example_tpu_torch.resilience import manifest
+
+    found = manifest.newest_valid_snapshot(ckpt_dir)
+    if found is None:
+        raise AssertionError(f"no valid snapshot under {ckpt_dir}")
+    return manifest.restore_arrays(ckpt_dir, found[0])[0], found[0]
+
+
+def _differing(a: dict, b: dict) -> list:
+    return sorted(k for k in set(a) | set(b)
+                  if k not in a or k not in b or a[k].dtype != b[k].dtype
+                  or not torch.equal(a[k], b[k]))
+
+
+def phase_resilience(card: str, flags=RESILIENCE_FLAGS, pace: float = 1.5,
+                     device: str = "cuda") -> dict:
+    """The trainer's resilience store (phase 5b) at the mxu_wide_pallas
+    widths, one epoch of 8 steps under ``--ckpt_every=2`` on the host
+    path: (1) one uninterrupted run, twice — the second also saving a
+    classic ``--sharded_checkpoints --async_checkpoints`` checkpoint
+    every 4 steps — their final snapshots bitwise equal, and the classic
+    ``ckpt-8.shards`` restored bitwise equal to its run's final
+    snapshot; (2) the trainer in a subprocess (``PACED_MAIN``) sent
+    SIGTERM once its step-4 snapshot is valid: exit 143 through
+    ``Preempted``, ``restarts.jsonl`` holding a ``preempt`` row; (3) a
+    ``--resume=auto`` relaunch whose final snapshot is bitwise the
+    uninterrupted run's.  B1 launches in every in-process run (counters
+    zeroed just before each).  Printed: the loop's stall of each
+    periodic snapshot (``ckpt_stall_ms``), the writer's mean write ms,
+    the bytes of one snapshot and of the run's writes."""
+    from distributed_tensorflow_example_tpu_torch.config import (
+        parse_train_config)
+    from distributed_tensorflow_example_tpu_torch.resilience.restart import (
+        read_restarts)
+    from distributed_tensorflow_example_tpu_torch.train import loop
+    from distributed_tensorflow_example_tpu_torch.train.optim import (
+        make_optimizer)
+    from distributed_tensorflow_example_tpu_torch.train.state import (
+        create_train_state)
+    from distributed_tensorflow_example_tpu_torch.utils import checkpoint
+
+    flags = list(flags) + ([f"--device={device}"] if device == "cpu"
+                           else [])
+    with tempfile.TemporaryDirectory() as tmp:
+        def run_flags(name):
+            return flags + [f"--checkpoint_dir={tmp}/{name}",
+                            f"--logs_path={tmp}/{name}_logs"]
+
+        ref, _out, counts = _run_trainer(run_flags("a"), "resilience",
+                                         device)
+        again, _out, _c = _run_trainer(
+            run_flags("b") + ["--checkpoint_every=4",
+                              "--sharded_checkpoints",
+                              "--async_checkpoints"],
+            "resilience (sharded, async)", device)
+        want, wman = _newest(f"{tmp}/a")
+        twice, _m = _newest(f"{tmp}/b")
+        diff = _differing(want, twice)
+        if diff or wman["step"] != ref["steps"]:
+            raise AssertionError(f"resilience: two uninterrupted runs "
+                                 f"differ in {diff} (final step "
+                                 f"{wman['step']})")
+        cfg = parse_train_config(run_flags("b"))
+        spec = loop.make_spec(cfg)
+        template = create_train_state(
+            spec, make_optimizer(cfg, ref["steps"]), device="cpu")
+        shards = checkpoint.latest_checkpoint(f"{tmp}/b")
+        if not shards.endswith(f"ckpt-{ref['steps']:08d}.shards"):
+            raise AssertionError(f"resilience: classic checkpoint {shards}")
+        classic, step, _e = checkpoint.restore_checkpoint(shards, template)
+        diff = _differing(checkpoint.flatten_state(classic), twice)
+        if diff or step != ref["steps"]:
+            raise AssertionError(f"resilience: the sharded async checkpoint "
+                                 f"differs from the snapshot in {diff}")
+
+        # the preempted trainer
+        argv = run_flags("c")
+        env = dict(os.environ,
+                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        t0 = time.monotonic()
+        proc = subprocess.Popen(
+            [sys.executable, "-c", PACED_MAIN, str(pace)] + argv,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        try:
+            deadline = time.monotonic() + 300
+            signalled = None
+            while time.monotonic() < deadline and proc.poll() is None:
+                found = _valid_step(f"{tmp}/c")
+                if found is not None and found >= 4:
+                    proc.send_signal(signal.SIGTERM)
+                    signalled = found
+                    break
+                time.sleep(0.02)
+            out, _ = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        sub_s = time.monotonic() - t0
+        for line in out.splitlines():
+            log(f"  | {line}")
+        preempted = [ln for ln in out.splitlines()
+                     if ln.startswith("Preempted")]
+        rows = [r["event"] for r in read_restarts(f"{tmp}/c_logs")]
+        if proc.returncode != 143 or not preempted or "preempt" not in rows:
+            raise AssertionError(
+                f"resilience: the SIGTERM'd trainer exited "
+                f"{proc.returncode} (signalled after the step-{signalled} "
+                f"snapshot), Preempted lines {preempted}, restarts {rows}")
+        stopped = _newest(f"{tmp}/c")[1]
+
+        resumed, out, rcounts = _run_trainer(argv + ["--resume=auto"],
+                                             "resilience --resume=auto",
+                                             device)
+        got, gman = _newest(f"{tmp}/c")
+        diff = _differing(got, want)
+        if diff or gman["step"] != wman["step"]:
+            raise AssertionError(f"resilience: the resumed run differs from "
+                                 f"the uninterrupted one in {diff}")
+        rows = [r["event"] for r in read_restarts(f"{tmp}/c_logs")]
+    stats = ref["checkpoint_stats"]
+    snap_bytes = sum(t.numel() * t.element_size() for t in want.values())
+    stall = stats["ckpt_stall_ms"]
+    log(f"[resilience] {ref['steps']} steps of {' '.join(flags)} on the "
+        f"host path, twice: final snapshots bitwise equal; the sharded async "
+        f"classic "
+        f"checkpoint restored bitwise; the trainer SIGTERM'd after its "
+        f"step-{signalled} snapshot exited 143 with its final snapshot at "
+        f"step {stopped['step']} (+{stopped['data_state']['batches_done']} "
+        f"in-epoch batches; subprocess {sub_s:.1f} s, pace {pace:g} s a step "
+        f"from step 4); --resume=auto to step {gman['step']}: bitwise the "
+        f"uninterrupted run; restarts.jsonl {rows}; launches {counts} "
+        f"(resumed: {rcounts})")
+    log(f"[resilience] ckpt_stall_ms {stall} (median "
+        f"{statistics.median(stall):.4f}), writer: {stats['written']} "
+        f"written, {stats['coalesced']} coalesced, mean write "
+        f"{stats['ckpt_write_ms_mean']:.1f} ms, {stats['bytes_written']} "
+        f"bytes written; one snapshot {snap_bytes} bytes on {card}")
+    return dict(counts=counts, resumed_counts=rcounts, stall_ms=stall,
+                write_ms=stats["ckpt_write_ms_mean"], snap_bytes=snap_bytes,
+                bytes_written=stats["bytes_written"],
+                stopped=stopped["step"])
+
+
+def _valid_step(ckpt_dir: str):
+    """The step of the newest valid snapshot under ``ckpt_dir``, or
+    None."""
+    from distributed_tensorflow_example_tpu_torch.resilience import manifest
+
+    found = manifest.newest_valid_snapshot(ckpt_dir)
+    return None if found is None else found[0]["step"]
 
 
 def phase_cli(card: str) -> dict:
@@ -2699,10 +3077,12 @@ def main() -> int:
     phase_status()
     fleet = phase_fleet(card, serve)
     phase_chaos(card, serve)
+    replay = phase_replay(card)
     trace = phase_trace_overhead(card, serve)
     del serve["params"]
     torch.cuda.empty_cache()
     train = phase_train(card)
+    resilience = phase_resilience(card)
     cli = phase_cli(card)
     tfm_train = phase_transformer_train(card)
     phase_transformer_step(card)
@@ -2718,8 +3098,10 @@ def main() -> int:
     # training form
     by_path = {"serve": dict(counts), "serve_int8": serve_int8["counts"],
                "serve_moe": serve_moe["counts"],
-               "fleet": fleet["counts"],
+               "fleet": fleet["counts"], "replay": replay["counts"],
                "mlp_train": train["counts"],
+               "resilience": resilience["counts"],
+               "resilience_resumed": resilience["resumed_counts"],
                "mlp_cli": cli["counts"],
                "transformer_train": tfm_train["counts"],
                "moe_train": moe_train[0]["counts"],
@@ -2775,6 +3157,15 @@ def main() -> int:
         f"; tokens equal in {serve_int8['same']} of 8 requests; spans on / "
         f"off tokens/s median {trace['ratio']:.4f}, inside emit "
         f"{trace['emit_ms']:.4f} ms a tick on {smi}")
+    log(f"[replay] tokens/s {[round(t, 1) for t in replay['tps']]} (one "
+        f"engine twice, then 2 replicas), determinism_frac "
+        f"{replay['determinism_frac']} (mismatching rids "
+        f"{replay['mismatches']}) on {smi}")
+    log(f"[resilience] ckpt_stall_ms median "
+        f"{statistics.median(resilience['stall_ms']):.4f} of "
+        f"{resilience['stall_ms']}, snapshot write {resilience['write_ms']:.1f}"
+        f" ms mean, {resilience['snap_bytes']} bytes a snapshot, "
+        f"{resilience['bytes_written']} written on {smi}")
     for name, r in train["runs"].items():
         log(f"[train] {name}: median step {r['step_ms_median']:.3f} ms, "
             f"peak memory {r['peak_gib']:.3f} GiB on {smi}")

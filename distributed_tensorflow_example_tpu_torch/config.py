@@ -7,7 +7,9 @@ features the port does not have yet are still parsed, and the CLI
 refuses them with a message naming ROADMAP.md instead of ignoring them.
 ``build_train_parser`` is ``main.py``'s: it knows the ported training
 flags only (the MLP's and the single-device transformer's, MoE and
-``--fp8_ffn`` included), and refuses every other flag of the JAX trainer
+``--fp8_ffn`` included; the classic and sharded checkpoints, ``--resume``
+and the resilience store's ``--ckpt_every``; the ``ckpt`` phase spans of
+``--trace_spans``), and refuses every other flag of the JAX trainer
 (exit 2, naming ROADMAP.md) rather than ignore it: expert, sequence,
 tensor and pipeline parallelism (``--expert_parallel``,
 ``--sequence_parallel``, ``--sp_impl``, ``--model_parallel``,
@@ -70,7 +72,9 @@ class Config:
     max_queue: int = 0
     brownout: str = ""
     engine_retries: int = 0
-    trace_spans: bool = False       # request spans under logs_path
+    trace_spans: bool = False       # request spans (serving) or the
+                                    # ckpt phase spans (training) under
+                                    # logs_path
     slo: str = ""                   # the SLO DSL; "" = the defaults
     span_rotate_mb: float = 0.0     # --trace_spans: rotate past this
     span_keep: int = 3              # --trace_spans: rotated segments
@@ -78,10 +82,10 @@ class Config:
     fleet_retries: int = 2          # --replicas fleet: failovers
     breaker: str = ""               # --replicas fleet: circuit breaker
     status_cache_s: float = 15.0    # status server's response cache TTL
-    # not ported yet: the serving CLI refuses these when set
-    outer_quant: str = ""           # multi-site outer sync compression
-    replay: str = ""
+    replay: str = ""                # a workload file to replay
     replay_speed: float = 1.0       # --replay's time compression
+    # not ported yet: the serving CLI refuses it when set
+    outer_quant: str = ""           # multi-site outer sync compression
     # ---- training (main.py -> train/loop.run) ----
     job_name: str = ""              # "", "ps" or "worker"; ps is absorbed
     task_index: int = 0             # the process rank
@@ -122,6 +126,19 @@ class Config:
     eval_all_hosts: bool = False
     checkpoint_every: int = 0       # steps; 0 = only at exit
     keep_checkpoints: int = 0
+    sharded_checkpoints: bool = False  # per-process shard files + the
+                                    # chief's manifest (ckpt-N.shards/)
+    async_checkpoints: bool = False # write the shard files from a
+                                    # background thread (requires
+                                    # --sharded_checkpoints)
+    # ---- resilience (resilience/*): write-behind snapshots, SIGTERM
+    # snapshots, exact-step auto-resume ----
+    ckpt_every: int = 0             # steps between snapshots; 0 = off
+    ckpt_keep: int = 0              # newest valid snapshots kept; 0 = all
+    resume: str = ""                # "" = fresh; "latest" (bare
+                                    # --resume) = newest classic
+                                    # checkpoint; "auto" = newest valid
+                                    # resilience manifest, exact step
     eval_batch_size: int = 2000
     fast_loop: bool = True          # the device-resident epoch
                                     # (parallel/epoch.py) where the gate
@@ -244,8 +261,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "breakers, failover); spans of replica i under "
                         "<logs_path>/replica<i>, the router's under "
                         "<logs_path>/router")
-    p.add_argument("--replay", type=str, default=d.replay)
-    p.add_argument("--replay_speed", type=float, default=d.replay_speed)
+    p.add_argument("--replay", type=str, default=d.replay,
+                   help="serve no HTTP: replay this WORKLOAD json "
+                        "(obs/workload.py) open-loop through the engine "
+                        "or the --replicas fleet and print the replay "
+                        "report (exit 1 when a request wedged)")
+    p.add_argument("--replay_speed", type=float, default=d.replay_speed,
+                   help="--replay's time compression: arrivals fire at "
+                        "arrival_s / speed and relative deadlines scale "
+                        "by 1/speed")
     p.add_argument("--fleet_retries", type=int, default=d.fleet_retries,
                    help="--replicas fleet: the other replicas a request "
                         "may fail over to after a typed failure")
@@ -302,6 +326,18 @@ def validate_quant_config(cfg: Config) -> None:
                 "token and never reaches it)")
 
 
+def validate_span_config(cfg: Config) -> None:
+    """The span stream's rotation flags (both CLIs' ``--trace_spans``)."""
+    if cfg.span_rotate_mb < 0:
+        raise ValueError(
+            f"span_rotate_mb={cfg.span_rotate_mb} must be >= 0 (0 = "
+            f"never rotate)")
+    if cfg.span_keep < 1:
+        raise ValueError(
+            f"span_keep={cfg.span_keep} must be >= 1 (at least one "
+            f"rotated segment is retained while rotation is on)")
+
+
 def validate_serving_config(cfg: Config) -> None:
     """Value checks of the serving flags, raised before any model is
     built (the JAX package's checks and messages), plus the
@@ -317,18 +353,11 @@ def validate_serving_config(cfg: Config) -> None:
         raise ValueError(
             f"engine_retries={cfg.engine_retries} must be >= 0 (0 = "
             f"fail-closed, no supervision)")
-    if cfg.span_rotate_mb < 0:
-        raise ValueError(
-            f"span_rotate_mb={cfg.span_rotate_mb} must be >= 0 (0 = "
-            f"never rotate)")
+    validate_span_config(cfg)
     if cfg.status_cache_s < 0:
         raise ValueError(
             f"status_cache_s={cfg.status_cache_s} must be >= 0 (0 = "
             f"recompute on every request)")
-    if cfg.span_keep < 1:
-        raise ValueError(
-            f"span_keep={cfg.span_keep} must be >= 1 (at least one "
-            f"rotated segment is retained while rotation is on)")
     if cfg.replicas < 1:
         raise ValueError(
             f"replicas={cfg.replicas} must be >= 1 (1 = single-"
@@ -354,6 +383,17 @@ def parse_config(argv: Sequence[str] | None = None) -> Config:
 
 def _parse_hidden(s: str) -> Tuple[int, ...]:
     return tuple(int(x) for x in s.replace(",", " ").split())
+
+
+def _resume_mode(s: str) -> str:
+    """--resume value: "latest" (the bare flag) or "auto" (the
+    resilience store's exact-step resume); "" is the default passing
+    through the converter."""
+    if s not in ("", "latest", "auto"):
+        raise argparse.ArgumentTypeError(
+            f"resume mode {s!r}: expected 'latest' (bare --resume) or "
+            f"'auto' (exact-step resilience resume)")
+    return s
 
 
 def _depth(s: str) -> int:
@@ -519,7 +559,41 @@ def build_train_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint_every", type=int,
                    default=d.checkpoint_every)
     p.add_argument("--keep_checkpoints", type=int,
-                   default=d.keep_checkpoints)
+                   default=d.keep_checkpoints,
+                   help="retain only the N newest checkpoints (0 = all)")
+    p.add_argument("--sharded_checkpoints", action="store_true",
+                   help="per-process shard files + the chief's manifest "
+                        "(ckpt-N.shards/) instead of the single .npz")
+    p.add_argument("--async_checkpoints", action="store_true",
+                   help="write checkpoint shard files from a "
+                        "background thread (requires "
+                        "--sharded_checkpoints)")
+    p.add_argument("--ckpt_every", type=int, default=d.ckpt_every,
+                   help="resilience store: write-behind incremental "
+                        "snapshot every N steps (0 = off; takes the "
+                        "host path; installs the SIGTERM final-"
+                        "snapshot handler)")
+    p.add_argument("--ckpt_keep", type=int, default=d.ckpt_keep,
+                   help="resilience retention: keep the newest K "
+                        "valid snapshots and GC unreferenced objects "
+                        "(0 = keep all; requires --ckpt_every)")
+    p.add_argument("--resume", nargs="?", const="latest",
+                   default=d.resume, type=_resume_mode,
+                   help="bare --resume = newest classic checkpoint "
+                        "(epoch granularity); --resume=auto = newest "
+                        "valid resilience manifest, replayed to the "
+                        "exact step (takes the host path)")
+    p.add_argument("--trace_spans", action="store_true",
+                   help="record a ckpt phase span per checkpoint to "
+                        "<logs_path>/spans.<proc>.jsonl, every row "
+                        "under one run-level trace id")
+    p.add_argument("--span_rotate_mb", type=float,
+                   default=d.span_rotate_mb,
+                   help="rotate spans.<proc>.jsonl before it exceeds "
+                        "this many MB; 0 = never rotate")
+    p.add_argument("--span_keep", type=int, default=d.span_keep,
+                   help="rotated span segments retained (only with "
+                        "--span_rotate_mb)")
     p.add_argument("--eval_batch_size", type=int, default=d.eval_batch_size)
     p.add_argument("--no_fast_loop", dest="fast_loop", action="store_false",
                    help="feed one batch per step from the host instead "
@@ -545,6 +619,38 @@ def parse_train_config(argv: Sequence[str] | None = None) -> Config:
     return Config(**vars(ns))
 
 
+def validate_resilience_config(cfg: Config) -> None:
+    """The resilience flags' checks (the JAX ``validate_resilience_config``
+    without its ``--fsdp`` cases: the port trainer refuses ``--fsdp`` at
+    parse).
+
+    - ``--resume`` is "" (fresh), "latest" (the classic formats) or
+      "auto" (the newest valid resilience manifest, exact step);
+    - ``--ckpt_every`` snapshots through the resilience store from the
+      host path's per-step safe point and needs ``--checkpoint_dir``;
+    - ``--ckpt_keep`` is the store's retention and needs
+      ``--ckpt_every`` (the classic formats have ``--keep_checkpoints``).
+    """
+    if cfg.resume not in ("", "latest", "auto", True, False):
+        raise ValueError(
+            f"resume={cfg.resume!r}: expected '' (fresh), 'latest' "
+            f"(bare --resume / legacy True) or 'auto' (exact-step "
+            f"resilience resume)")
+    if cfg.ckpt_every < 0:
+        raise ValueError(f"ckpt_every={cfg.ckpt_every} must be >= 0")
+    if cfg.ckpt_keep < 0:
+        raise ValueError(f"ckpt_keep={cfg.ckpt_keep} must be >= 0")
+    if cfg.ckpt_keep and not cfg.ckpt_every:
+        raise ValueError(
+            "--ckpt_keep is the resilience store's retention; it "
+            "needs --ckpt_every > 0 (the classic formats use "
+            "--keep_checkpoints)")
+    if cfg.ckpt_every and not cfg.checkpoint_dir:
+        raise ValueError(
+            "--ckpt_every needs --checkpoint_dir (the resilience "
+            "store lives there)")
+
+
 def validate_train_config(cfg: Config) -> None:
     """Value checks of the ported training flags; ``Unported`` for a
     mode of the JAX trainer the port does not have."""
@@ -561,6 +667,12 @@ def validate_train_config(cfg: Config) -> None:
     if cfg.keep_checkpoints < 0:
         raise ValueError(
             f"keep_checkpoints={cfg.keep_checkpoints} must be >= 0")
+    if cfg.async_checkpoints and not cfg.sharded_checkpoints:
+        raise ValueError("--async_checkpoints requires "
+                         "--sharded_checkpoints (the portable single "
+                         "file is written by the chief synchronously)")
+    validate_span_config(cfg)
+    validate_resilience_config(cfg)
     if cfg.dispatch_depth < 0:
         raise ValueError(f"dispatch_depth={cfg.dispatch_depth} must be "
                          f">= 0 (0 = the device's default)")

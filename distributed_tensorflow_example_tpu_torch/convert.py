@@ -33,25 +33,20 @@ import torch
 from .device import DeviceLike, resolve_device
 from .models import mlp
 from .models import transformer as tfm
+from .resilience.codec import decode_array
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:
     """A numpy array as a CPU tensor; bf16 arrays (ml_dtypes, whose
     dtype numpy names "bfloat16") go through their 16-bit pattern."""
-    a = np.array(a)      # a writable copy: torch shares its memory
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
-    return torch.from_numpy(a)
+    return decode_array(a)
 
 
 def _decode_leaf(a: np.ndarray, dtype_name: str) -> torch.Tensor:
-    """A checkpoint leaf saved in a bit container (the JAX package's
-    ``utils/checkpoint._decode_leaf``: bf16 is stored as uint16 with its
-    dtype name beside it) back to a tensor of that dtype."""
-    if dtype_name == "bfloat16":
-        return torch.from_numpy(np.array(a).view(np.uint16)).view(
-            torch.bfloat16)
-    return _to_tensor(a.view(np.dtype(dtype_name)))
+    """A checkpoint leaf saved in a bit container (bf16 is stored as
+    uint16 with its dtype name beside it) back to a tensor of that
+    dtype (``resilience/codec.decode_array``)."""
+    return decode_array(a, dtype_name)
 
 
 def _params_from_numpy(np_params, expect: Dict[str, Tuple[int, ...]],

@@ -2,7 +2,8 @@
 validators — the port's copy of the parts of the JAX package's
 ``obs/schema.py`` that its serving stack reads and writes: the span
 rows, the metrics rows the status server and the run report read, the
-restart timeline, the run report, the fleet report and the waterfall.
+restart timeline, the run report, the fleet report, the waterfall and
+the workload document.
 
 ``SCHEMA_VERSION`` is the JAX package's (10), so the two packages'
 streams validate against each other.  Validators return a list of error
@@ -412,6 +413,76 @@ def validate_run_report(doc: Dict[str, Any],
     return errs
 
 
+# The portable workload document ``obs/workload.py`` distills from a
+# span dir and ``serving/replay.py`` feeds back through an engine or a
+# fleet: arrivals are offsets from the first submit (seconds),
+# deadlines relative milliseconds, ``fingerprint`` the chained
+# prompt-block hashes, ``workload_id`` a content hash of the schedule.
+WORKLOAD = {
+    "v": (int,),
+    "kind": (str,),          # "workload"
+    "workload_id": (str,),
+    "source": (str,),
+    "generated_t": _NUM,
+    "n_requests": (int,),
+    "duration_s": _NUM,
+    "requests": (list,),
+}
+
+WORKLOAD_REQUEST = {
+    "rid": (int,),
+    "arrival_s": _NUM,
+    "prompt_len": (int,),
+    "max_new_tokens": (int,),
+    "output_tokens": (int, type(None)),
+    "deadline_ms": _NUM + (type(None),),
+    "trace_id": (str, type(None)),
+    "terminal": (str, type(None)),
+    "fingerprint": (list,),
+}
+
+
+def validate_workload(doc: Dict[str, Any],
+                      where: str = "workload") -> List[str]:
+    """Validate a workload document: the top-level contract, every
+    request entry's shape, and the schedule a replay relies on (rids
+    dense from 0 in arrival order, offsets non-negative and
+    non-decreasing)."""
+    if not isinstance(doc, dict):
+        return [f"{where}: not an object"]
+    verrs = _version_errs(doc, "v", where)
+    if verrs:
+        return verrs
+    errs = _check(doc, WORKLOAD, where)
+    if doc.get("kind") != "workload":
+        errs.append(f"{where}: kind is {doc.get('kind')!r}, expected "
+                    f"'workload'")
+    reqs = doc.get("requests")
+    if isinstance(reqs, list):
+        if isinstance(doc.get("n_requests"), int) \
+                and doc["n_requests"] != len(reqs):
+            errs.append(f"{where}: n_requests {doc['n_requests']} != "
+                        f"len(requests) {len(reqs)}")
+        prev = 0.0
+        for i, req in enumerate(reqs):
+            w = f"{where}.requests[{i}]"
+            sub = _check(req, WORKLOAD_REQUEST, w)
+            errs += sub
+            if sub or not isinstance(req, dict):
+                continue
+            if req["rid"] != i:
+                errs.append(f"{w}: rid {req['rid']} != index {i} "
+                            f"(rids are dense in arrival order)")
+            if req["arrival_s"] < prev:
+                errs.append(f"{w}: arrival_s {req['arrival_s']} "
+                            f"decreases (schedule must be sorted)")
+            prev = float(req["arrival_s"])
+            if req["prompt_len"] < 1 or req["max_new_tokens"] < 1:
+                errs.append(f"{w}: prompt_len/max_new_tokens must be "
+                            f">= 1")
+    return errs
+
+
 def _check(doc: Dict[str, Any], spec: Dict[str, tuple],
            where: str) -> List[str]:
     errs = []
@@ -452,4 +523,5 @@ __all__ = ["SCHEMA_VERSION", "METRICS_COMMON", "METRICS_WINDOW",
            "validate_metrics_row", "validate_span_row",
            "validate_span_file", "validate_restart_row",
            "validate_restart_file", "validate_run_report",
-           "validate_fleet_report", "validate_waterfall"]
+           "validate_fleet_report", "validate_waterfall", "WORKLOAD",
+           "WORKLOAD_REQUEST", "validate_workload"]

@@ -33,8 +33,18 @@ narrates every restart to ``<logs_path>/restarts.jsonl``;
 ``--kv_quant=int8`` stores the paged pools as int8, and a MoE model
 (``--num_experts``) decodes by exact dense dispatch.
 
-Replay (``--replay``, ``--replay_speed``) and ``--outer_quant`` are not
-ported yet: set, the CLI exits 2 with a message naming ROADMAP.md.
+``--replay workload.json`` serves no HTTP: it feeds a captured or
+synthetic WORKLOAD (``obs/workload.py``) through one engine or the
+``--replicas`` fleet at the recorded arrival offsets, ``--replay_speed``
+times faster, and prints the replay report JSON as the only thing on
+stdout (``serving/replay.py``; exit 0, 1 when a request wedged, 2 on an
+unreadable workload).  Under ``--trace_spans`` every span row carries
+``replay_of: <workload_id>``.  The engines are warmed up before the
+replay's clock starts: the kernel library's build and the first call at
+each shape are not part of the replayed schedule.
+
+``--outer_quant`` is not ported yet: set, the CLI exits 2 with a message
+naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -79,14 +89,7 @@ def spec_from_cfg(cfg):
 
 def unported_flags(cfg) -> list:
     """The set flags of features the port does not have yet."""
-    out = []
-    if cfg.replay:
-        out.append("--replay")
-    if cfg.outer_quant:
-        out.append("--outer_quant")
-    if cfg.replay_speed != config_lib.Config().replay_speed:
-        out.append("--replay_speed")
-    return out
+    return ["--outer_quant"] if cfg.outer_quant else []
 
 
 def load_params(cfg, spec) -> dict:
@@ -110,9 +113,10 @@ def load_params(cfg, spec) -> dict:
     return tfm.init(spec, seed=cfg.seed, device=cfg.device)
 
 
-def make_recorder(cfg, sub: str = ""):
+def make_recorder(cfg, sub: str = "", replay_of: Optional[str] = None):
     """A ``SpanRecorder`` under ``<logs_path>[/sub]`` when
-    ``--trace_spans`` is set, else None."""
+    ``--trace_spans`` is set, else None; with ``replay_of`` (a workload
+    id) every row it writes carries ``replay_of``."""
     if not cfg.trace_spans:
         return None
     from ..obs.spans import SpanRecorder
@@ -120,7 +124,8 @@ def make_recorder(cfg, sub: str = ""):
     return SpanRecorder(
         os.path.join(cfg.logs_path, sub) if sub else cfg.logs_path,
         rotate_bytes=int(cfg.span_rotate_mb * 1024 * 1024),
-        keep=cfg.span_keep)
+        keep=cfg.span_keep,
+        extra={"replay_of": replay_of} if replay_of else None)
 
 
 def make_narrator(cfg):
@@ -135,12 +140,13 @@ def make_narrator(cfg):
 
 
 def build_engine(cfg, spec=None, params=None, sub: str = "",
-                 narrator=None):
+                 narrator=None, replay_of: Optional[str] = None):
     """The ``DecodeEngine`` the flags describe (not started), over
     ``params`` (None: ``load_params``), with a recorder under
     ``<logs_path>[/sub]`` when ``--trace_spans`` is set (close it with
-    ``engine.recorder.close()`` when done) and ``narrator`` (None: a
-    new one when ``--engine_retries`` > 0)."""
+    ``engine.recorder.close()`` when done; ``replay_of`` stamps its
+    rows) and ``narrator`` (None: a new one when ``--engine_retries`` >
+    0)."""
     from ..obs import slo as slo_lib
     from .admission import parse_brownout
     from .engine import DecodeEngine
@@ -148,7 +154,7 @@ def build_engine(cfg, spec=None, params=None, sub: str = "",
     spec = spec if spec is not None else spec_from_cfg(cfg)
     if params is None:
         params = load_params(cfg, spec)
-    recorder = make_recorder(cfg, sub)
+    recorder = make_recorder(cfg, sub, replay_of)
     if recorder is not None and not sub:
         print(f"dtx-serve (torch): request spans -> {recorder.path}"
               + (f" (rotate at {cfg.span_rotate_mb:g} MB, keep "
@@ -167,24 +173,27 @@ def build_engine(cfg, spec=None, params=None, sub: str = "",
         device=cfg.device)
 
 
-def build_fleet(cfg):
+def build_fleet(cfg, spec=None, params=None,
+                replay_of: Optional[str] = None):
     """``(router, engines)``: ``--replicas`` engines (not started) over
-    one ``load_params`` copy, engine i's recorder under
+    one ``load_params`` copy (or ``params``), engine i's recorder under
     ``<logs_path>/replica<i>``, one shared narrator, behind a ``Router``
     with ``--fleet_retries`` and the ``--breaker`` policy and its own
-    recorder under ``<logs_path>/router``."""
+    recorder under ``<logs_path>/router`` (``replay_of`` stamps every
+    recorder's rows)."""
     from .health import parse_breaker
     from .router import Router
 
-    spec = spec_from_cfg(cfg)
-    params = load_params(cfg, spec)
+    spec = spec if spec is not None else spec_from_cfg(cfg)
+    if params is None:
+        params = load_params(cfg, spec)
     narrator = make_narrator(cfg)
     engines = [build_engine(cfg, spec, params, sub=f"replica{i}",
-                            narrator=narrator)
+                            narrator=narrator, replay_of=replay_of)
                for i in range(cfg.replicas)]
     router = Router(engines, fleet_retries=cfg.fleet_retries,
                     breaker=parse_breaker(cfg.breaker or "on"),
-                    recorder=make_recorder(cfg, "router"))
+                    recorder=make_recorder(cfg, "router", replay_of))
     return router, engines
 
 
@@ -272,9 +281,86 @@ def _main_fleet(cfg) -> int:
     return 0
 
 
+def warm_up(cfg, spec, params) -> None:
+    """Run a throwaway engine (no recorder, no narrator) of the flags'
+    shape over ``params`` until idle: ``--decode_max_batch`` requests
+    of staggered prompt and output lengths, so the kernel library is
+    built and every decode batch bucket has run once before a replay
+    starts its clock."""
+    from .engine import DecodeEngine
+
+    eng = DecodeEngine(spec, params, page_size=cfg.decode_page_size,
+                       num_pages=cfg.decode_pages,
+                       max_batch=cfg.decode_max_batch, seed=cfg.seed,
+                       kv_quant=cfg.kv_quant, device=cfg.device)
+    top = max(1, min(eng.max_len - 1, 64))
+    for i in range(eng.max_batch):
+        eng.submit([1 + (t % (spec.vocab_size - 1))
+                    for t in range(1 + (i * top) // eng.max_batch)],
+                   min(i + 1, eng.max_len - top))
+    eng.run_until_idle()
+
+
+def settle(engines, timeout: float = 10.0) -> None:
+    """Let each engine reach its final tick boundary (the retire row
+    lands one boundary after the result that unblocked the caller)."""
+    deadline = time.monotonic() + timeout
+    for e in engines:
+        while time.monotonic() < deadline:
+            if not e.sched.live and not e.sched.waiting:
+                time.sleep(0.05)
+                break
+            time.sleep(0.02)
+
+
+def _main_replay(cfg) -> int:
+    """``--replay workload.json``: feed the WORKLOAD through one engine
+    or the ``--replicas`` fleet at its arrival offsets (scaled by
+    ``--replay_speed``) and print the replay report JSON, the only
+    thing on stdout.  Exit 0 when every request reached a typed
+    terminal, 1 when any wedged, 2 on an unreadable workload."""
+    import json
+
+    from ..obs.workload import load_workload
+    from . import replay as replay_lib
+
+    try:
+        doc = load_workload(cfg.replay)
+    except (OSError, ValueError, KeyError) as e:
+        print(f"dtx-serve (torch): --replay: {e}", file=sys.stderr)
+        return 2
+    wid = doc["workload_id"]
+    spec = spec_from_cfg(cfg)
+    params = load_params(cfg, spec)
+    warm_up(cfg, spec, params)
+    router = None
+    if cfg.replicas > 1:
+        router, engines = build_fleet(cfg, spec, params, replay_of=wid)
+        target = router
+    else:
+        engines = [build_engine(cfg, spec, params, replay_of=wid)]
+        target = engines[0]
+    for e in engines:
+        e.start()
+    print(f"dtx-serve (torch): replaying {wid} ({doc['n_requests']} "
+          f"requests over {doc['duration_s']:g}s recorded) at "
+          f"x{cfg.replay_speed:g}"
+          + (f" across {cfg.replicas} replicas"
+             if cfg.replicas > 1 else ""), file=sys.stderr)
+    try:
+        report = replay_lib.replay_engine(
+            target, doc, vocab_size=cfg.vocab_size,
+            speed=cfg.replay_speed, seed=cfg.seed)
+    finally:
+        settle(engines)
+        stop_engines(engines, router)
+    print(json.dumps(report, indent=1, sort_keys=True))
+    return 0 if not report["terminals"].get("wedged") else 1
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     cfg = config_lib.parse_config(argv)
-    if cfg.serve_port <= 0:
+    if cfg.serve_port <= 0 and not cfg.replay:
         print("dtx-serve (torch): --serve_port is required (> 0)",
               file=sys.stderr)
         return 2
@@ -297,6 +383,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     except ValueError as e:
         print(f"dtx-serve (torch): {e}", file=sys.stderr)
         return 2
+    if cfg.replay:
+        return _main_replay(cfg)
     if cfg.replicas > 1:
         return _main_fleet(cfg)
     try:

@@ -608,6 +608,12 @@ class DecodeEngine:
                 with self._work:
                     if self._running:
                         self._work.wait(timeout=0.02)
+            else:
+                # hand the interpreter to a thread blocked in submit():
+                # without the yield this thread re-takes the engine lock
+                # before the woken submitter runs, and a submit waits
+                # until the whole batch drains (seconds on the card)
+                time.sleep(0)
 
     # ---- supervision (engine_retries > 0) ----
     def _recover(self, e: BaseException) -> bool:

@@ -15,13 +15,14 @@ MLP and the transformer.
   runs eagerly.  The prints and summaries are made from the returned
   arrays, ``AvgTime`` from the run's (or the epoch's) wall over its
   steps;
-- **the host path** (``--no_fast_loop``, or several processes):
-  ``EpochIterator`` batches from one persistent producer thread
-  (``data/prefetch.EpochPrefetcher``), one synchronous data-parallel
-  step per batch (``parallel/step.py``), under ``--device_prefetch``
-  committed ahead from pinned buffers on a copy stream; at most
-  ``--dispatch_depth`` steps in flight before the host waits on the
-  oldest, and the costs the summaries need fetched once per window.
+- **the host path** (``--no_fast_loop``, several processes,
+  ``--ckpt_every`` or ``--resume=auto``): ``EpochIterator`` batches from
+  one persistent producer thread (``data/prefetch.EpochPrefetcher``),
+  one synchronous data-parallel step per batch (``parallel/step.py``),
+  under ``--device_prefetch`` committed ahead from pinned buffers on a
+  copy stream; at most ``--dispatch_depth`` steps in flight before the
+  host waits on the oldest, and the costs the summaries need fetched
+  once per window.
 
 Both print the reference's stdout byte for byte modulo the values:
 
@@ -39,9 +40,25 @@ graph record once (``--logs_path``; chief only unless
 (``step.eval_chunk_cap`` bounds a transformer's), for the lm objective
 sample ``--sample_after`` sequences with the KV-cached ``generate``
 into ``logs_path/samples.npz``, save ``.npz`` checkpoints in the JAX
-package's layout (``--checkpoint_dir``, every ``--checkpoint_every``
-steps, at epoch ends on the fast path, and at the end) and return the
-JAX ``run``'s result keys, ``"fast_loop"`` the path taken.
+package's layouts (``--checkpoint_dir``, every ``--checkpoint_every``
+steps, at epoch ends on the fast path, and at the end; one ``.npz``, or
+``ckpt-N.shards/`` under ``--sharded_checkpoints``, written from a
+background thread under ``--async_checkpoints``) and return the JAX
+``run``'s result keys, ``"fast_loop"`` the path taken.
+
+Resilience (``resilience/``): ``--ckpt_every N`` hands the state to the
+write-behind ``CheckpointWriter`` every N steps on the host path (on
+the card the device-to-host copies go into pinned buffers without
+waiting for the steps in flight; the writer waits on their event), and
+installs the SIGTERM/SIGINT handler: at the next step's safe point the
+loop lands one snapshot at the exact current step, drains the writer
+and exits through ``Preempted`` (128 + signum).  ``--resume`` restores
+the newest classic checkpoint (epoch granularity), falling forward to
+the resilience store when there is none; ``--resume=auto`` restores the
+newest valid snapshot and skips the batches of its epoch already done,
+so the run continues bitwise as if never interrupted.  Preemptions,
+snapshots and resumes land on ``<logs_path>/restarts.jsonl``, and under
+``--trace_spans`` each checkpoint is a ``ckpt`` phase span.
 """
 
 from __future__ import annotations
@@ -54,7 +71,7 @@ import numpy as np
 import torch
 
 from .. import cluster
-from ..config import Config, validate_train_config
+from ..config import Config, Unported, validate_train_config
 from ..data import (CopyStreamCommit, DevicePrefetcher, EpochIterator,
                     EpochPrefetcher, load_datasets, pinned_batches, take)
 from ..device import dtype_from_name, resolve_device
@@ -190,6 +207,47 @@ def _fetch(*tensors) -> list:
     return out
 
 
+def _host_snapshot(state, dev) -> tuple:
+    """``({key: CPU tensor}, ready)``: the state's leaves copied to the
+    host for the snapshot writer.  On the card the copies go into pinned
+    buffers with ``non_blocking`` copies on the compute stream, so the
+    host does not wait for the steps in flight; ``ready`` is the CUDA
+    event recorded after them, which the writer thread waits on.  The
+    optimizer builds new tensors each step, so the leaves copied here
+    are never written again.  On the CPU: plain copies, ``ready`` None."""
+    leaves = ckpt_lib.flatten_state(state)
+    if dev.type != "cuda":
+        return {k: v.detach().clone() for k, v in leaves.items()}, None
+    snap = {}
+    for k, v in leaves.items():
+        h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        h.copy_(v, non_blocking=True)
+        snap[k] = h
+    ready = torch.cuda.Event()
+    ready.record()
+    return snap, ready
+
+
+def _reserve_host_buffers(state, dev, sets: int = 3) -> None:
+    """Allocate and free ``sets`` sets of the pinned buffers
+    ``_host_snapshot`` takes, so the caching host allocator holds them
+    before the first snapshot: pinning 80 MB costs ~16 ms, which would
+    otherwise land on the first snapshots' stall.  Three sets: the
+    writer's pending and in-write snapshots and the one being filled."""
+    if dev.type != "cuda":
+        return
+    held = [[torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+             for v in ckpt_lib.flatten_state(state).values()]
+            for _ in range(sets)]
+    del held
+
+
+# the JAX trainer's checkpoint extras of layouts the port does not have:
+# their states would not restore into the port's template
+_FOREIGN_LAYOUTS = ("zero_dp", "sites", "fsdp_mp", "pp_stages",
+                    "pp_virtual")
+
+
 def run(cfg: Config) -> Dict[str, Any]:
     """Train per the config; returns the metrics the reference prints
     (the JAX ``run``'s result keys)."""
@@ -198,10 +256,51 @@ def run(cfg: Config) -> Dict[str, Any]:
     spec = make_spec(cfg)
     cluster.bootstrap(cfg)
     writer = None
+    # resilience handles, bound before the try so its finally can always
+    # reach them
+    ckpt_writer = None
+    preempt_handler = None
+    span_recorder = None
     try:
         proc_idx = cluster.process_index()
         proc_cnt = cluster.process_count()
         chief = proc_idx == 0
+
+        if chief and cfg.resume:
+            # a relaunch continues the same run: a reused logs_path keeps
+            # the preempted attempt's heartbeats and preemption dumps,
+            # and loses older crash leftovers
+            from ..obs.heartbeat import clear_stale_signals
+
+            clear_stale_signals(cfg.logs_path, resuming=True)
+        # the restart timeline (<logs_path>/restarts.jsonl): preemptions,
+        # snapshots and resumes, whenever the resilience path is on
+        restart_narrator = None
+        if cfg.ckpt_every or cfg.resume == "auto":
+            from ..resilience.restart import RestartNarrator
+
+            restart_narrator = RestartNarrator(cfg.logs_path,
+                                               process_index=proc_idx)
+        # --trace_spans: a ckpt phase span per checkpoint on
+        # spans.<proc>.jsonl, every row under one run-level trace id
+        run_trace_id = None
+        if cfg.trace_spans:
+            from ..obs.spans import SpanRecorder, new_trace_id
+
+            span_recorder = SpanRecorder(
+                cfg.logs_path, process_index=proc_idx,
+                rotate_bytes=int(cfg.span_rotate_mb * 1024 * 1024),
+                keep=cfg.span_keep)
+            run_trace_id = new_trace_id()
+
+        def phase_span(name: str, t0: float, **fields) -> None:
+            """One phase span: the host wall since ``t0`` under the
+            run's trace id; a no-op without --trace_spans."""
+            if span_recorder is not None:
+                span_recorder.emit(
+                    "phase", phase=name, trace_id=run_trace_id,
+                    dur_ms=round((time.perf_counter() - t0) * 1e3, 3),
+                    **fields)
 
         dataset = load_datasets(
             cfg.data_dir, cfg.dataset, seed=0,
@@ -215,9 +314,69 @@ def run(cfg: Config) -> Dict[str, Any]:
         state = create_train_state(spec, optimizer, seed=cfg.seed,
                                    device=dev)
         # the JAX gate (fast_loop, one process, shard_data or dp == 1) as
-        # far as the port has its flags; with one process dp is 1
-        fast = cfg.fast_loop and proc_cnt == 1
+        # far as the port has its flags; with one process dp is 1.  The
+        # resilience snapshots ride the host path's per-step safe point,
+        # and --resume=auto's in-epoch skip needs the host feed
+        fast = (cfg.fast_loop and proc_cnt == 1 and not cfg.ckpt_every
+                and cfg.resume != "auto")
         print("Variables initialized ...")
+
+        start_epoch = 0
+        resume_skip = 0     # --resume=auto: batches of start_epoch done
+        if cfg.resume and cfg.checkpoint_dir:
+            from ..resilience import resume as resume_lib
+
+            path, plan, flat = None, None, None
+            if cfg.resume == "auto":
+                # the resilience store's newest restorable snapshot; with
+                # none, the classic formats
+                found = resume_lib.auto_resume(cfg.checkpoint_dir)
+                if found is not None:
+                    plan, flat = found
+                    path = plan.root_path
+            if path is None:
+                path = ckpt_lib.latest_checkpoint(cfg.checkpoint_dir)
+            if path is None and cfg.resume != "auto":
+                # a bare --resume over a store only --ckpt_every filled
+                # must not start from scratch: fall forward to it
+                found = resume_lib.auto_resume(cfg.checkpoint_dir)
+                if found is not None:
+                    if found[0].batches_done and fast:
+                        raise ValueError(
+                            f"checkpoint {found[0].root_path} resumes "
+                            f"mid-epoch (+{found[0].batches_done} "
+                            f"batches): use --resume=auto (the "
+                            f"exact-step path) instead of bare "
+                            f"--resume")
+                    plan, flat = found
+                    path = plan.root_path
+            if path:
+                extras = (dict(plan.extras) if plan is not None
+                          else ckpt_lib.load_extras(path))
+                foreign = {k: extras[k] for k in _FOREIGN_LAYOUTS
+                           if k in extras}
+                if foreign:
+                    raise Unported(
+                        f"checkpoint {path} was written with {foreign}: "
+                        f"ZeRO-1, multi-site, FSDP and pipeline layouts "
+                        f"are not ported to the PyTorch trainer yet "
+                        f"(see ROADMAP.md Queue A)")
+                if plan is not None:
+                    state = ckpt_lib.rebuild_tree_validated(
+                        flat, state, ckpt_path=path)
+                    start_epoch, resume_skip = plan.epoch, plan.batches_done
+                    print(f"Resumed from {path} at epoch {start_epoch} "
+                          f"step {plan.step} (+{resume_skip} in-epoch "
+                          f"batches)")
+                    if restart_narrator is not None and chief:
+                        restart_narrator.emit(
+                            "resumed", step=int(plan.step),
+                            epoch=int(start_epoch),
+                            batches_done=int(resume_skip))
+                else:
+                    state, _, start_epoch = ckpt_lib.restore_checkpoint(
+                        path, state)
+                    print(f"Resumed from {path} at epoch {start_epoch}")
 
         if cfg.summaries and (chief or cfg.summaries_all_hosts):
             writer = SummaryWriter(cfg.logs_path)
@@ -230,12 +389,22 @@ def run(cfg: Config) -> Dict[str, Any]:
                     optimizer=cfg.optimizer))
 
         def save_state(step: int, resume_epoch: int) -> None:
-            if chief:
+            """A classic checkpoint: every process writes its shard file
+            and the chief the manifest under --sharded_checkpoints (the
+            files from a background thread under --async_checkpoints,
+            the prune once they landed); else the chief's one .npz."""
+            prune = ((lambda: ckpt_lib.prune_checkpoints(
+                cfg.checkpoint_dir, cfg.keep_checkpoints))
+                if chief and cfg.keep_checkpoints else None)
+            if cfg.sharded_checkpoints:
+                ckpt_lib.save_checkpoint_sharded(
+                    cfg.checkpoint_dir, state, step, resume_epoch,
+                    async_=cfg.async_checkpoints, on_complete=prune)
+            elif chief:
                 ckpt_lib.save_checkpoint(cfg.checkpoint_dir, state, step,
                                          resume_epoch)
-                if cfg.keep_checkpoints:
-                    ckpt_lib.prune_checkpoints(cfg.checkpoint_dir,
-                                               cfg.keep_checkpoints)
+                if prune is not None:
+                    prune()
 
         ckpt_enabled = bool(cfg.checkpoint_dir and cfg.checkpoint_every)
         last_ckpt_step = 0
@@ -246,8 +415,56 @@ def run(cfg: Config) -> Dict[str, Any]:
             nonlocal last_ckpt_step
             every = cfg.checkpoint_every
             if ckpt_enabled and step // every > last_ckpt_step // every:
+                t_ck = time.perf_counter()
                 save_state(step, resume_epoch)
+                phase_span("ckpt", t_ck, step=step)
                 last_ckpt_step = step
+
+        # the resilience store: write-behind snapshots and the SIGTERM
+        # handler (the host path only: the fast path was gated off)
+        ckpt_stall_s: list = []
+        if cfg.ckpt_every:
+            from ..resilience import signals as signals_lib
+            from ..resilience.writer import CheckpointWriter
+
+            def _on_snapshot_written(snap_step, wstats):
+                # writer thread: every persisted snapshot lands on the
+                # restart timeline with its incremental reuse counts
+                restart_narrator.emit(
+                    "snapshot", step=int(snap_step),
+                    objects_written=int(wstats["objects_written"]),
+                    objects_reused=int(wstats["objects_reused"]),
+                    bytes_written=int(wstats["bytes_written"]))
+
+            ckpt_writer = CheckpointWriter(
+                cfg.checkpoint_dir, process_index=proc_idx,
+                process_count=proc_cnt, keep=cfg.ckpt_keep,
+                on_written=_on_snapshot_written if chief else None)
+
+            def _on_preempt_signal(signum):
+                restart_narrator.emit("preempt", signal=int(signum))
+
+            preempt_handler = signals_lib.PreemptionHandler(
+                writer=ckpt_writer, on_signal=_on_preempt_signal)
+            preempt_handler.install()
+            _reserve_host_buffers(state, dev)
+
+        def snapshot_state(step: int, epoch: int,
+                           batches_done: int) -> None:
+            """Hand the current state to the write-behind writer: the
+            device-to-host copies are enqueued here (``_host_snapshot``),
+            everything else runs on the writer thread.  With several
+            processes the state is replicated: the chief hands over
+            every leaf, the others an empty part."""
+            snap, ready = ({}, None)
+            if chief:
+                snap, ready = _host_snapshot(state, dev)
+            ckpt_writer.submit(
+                int(step), int(epoch), snap,
+                data_state={"epoch": int(epoch),
+                            "batches_done": int(batches_done),
+                            "steps_done": int(step)},
+                ready=ready)
 
         # the fast path stages the splits on the device now: the data
         # load, which the reference also does before its timer starts
@@ -260,7 +477,7 @@ def run(cfg: Config) -> Dict[str, Any]:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
-        epochs_done = 0
+        epochs_done = start_epoch
         begin_time = time.time()
         frequency = cfg.frequency
         cost = float("nan")
@@ -294,26 +511,29 @@ def run(cfg: Config) -> Dict[str, Any]:
                         count = 0
                 return last
 
-            n_ep = cfg.training_epochs
+            n_ep = cfg.training_epochs - start_epoch
+            steps_done = start_epoch * batch_count
             if cfg.checkpoint_every == 0 and n_ep > 0:
                 # the whole run on the device, one fetch at its end
                 runner = epoch_lib.build_run_to_completion(
                     cfg, spec, optimizer, batch_count, n_ep, dev)
                 t0 = time.time()
                 state, costs2d, accs2d = runner(state, img_d, lbl_d,
-                                                shuffle_key, 0)
+                                                shuffle_key, start_epoch)
                 correct = fast_eval.dispatch(state.params)
                 costs2d, accs2d, correct = _fetch(costs2d, accs2d, correct)
                 test_acc = float(correct) / fast_eval.n
                 avg_step_s = (time.time() - t0) / (n_ep * batch_count)
                 for e in range(n_ep):
-                    cost = emit_epoch(e, costs2d[e], accs2d[e], avg_step_s)
-                epochs_done, steps_done = n_ep, n_ep * batch_count
+                    cost = emit_epoch(start_epoch + e, costs2d[e],
+                                      accs2d[e], avg_step_s)
+                epochs_done = cfg.training_epochs
+                steps_done = epochs_done * batch_count
             else:
                 # one epoch a call, for checkpoints between epochs
                 epoch_runner = epoch_lib.build_epoch_runner(
                     cfg, spec, optimizer, batch_count, dev)
-                for epoch in range(n_ep):
+                for epoch in range(start_epoch, cfg.training_epochs):
                     t0 = time.time()
                     state, costs, accs = epoch_runner(state, img_d, lbl_d,
                                                       shuffle_key, epoch)
@@ -334,17 +554,28 @@ def run(cfg: Config) -> Dict[str, Any]:
             # the CPU, where the "device" is the host's own cores
             window = cfg.dispatch_depth or (32 if on_card else 1)
             prefetch_depth = cfg.prefetch_depth or (8 if on_card else 1)
+            pinned = cfg.device_prefetch and on_card
+            from ..resilience.resume import skip_batches
+
             # ONE producer thread spans every epoch; under
             # --device_prefetch ONE DevicePrefetcher keeps up to
             # prefetch_depth batches committed ahead across the run, the
-            # producer gathering them into pinned memory on the card
-            def pinned_epoch(e):
-                return pinned_batches(dataset.train,
-                                      iterator.batch_indices(e))
+            # producer gathering them into pinned memory on the card.
+            # An exact-step resume starts the producer at the first batch
+            # not yet done: the epoch's permutation is drawn whole, its
+            # head is never gathered (skip_batches raises when the epoch
+            # is shorter than the snapshot's position)
+            def epoch_batches(e):
+                idx = iterator.batch_indices(e)
+                if e == start_epoch:
+                    idx = list(skip_batches(idx, resume_skip))
+                if pinned:
+                    return pinned_batches(dataset.train, idx)
+                return ((dataset.train.images[i], dataset.train.labels[i])
+                        for i in idx)
 
             prefetcher = EpochPrefetcher(
-                pinned_epoch if cfg.device_prefetch and on_card
-                else iterator.epoch, range(cfg.training_epochs))
+                epoch_batches, range(start_epoch, cfg.training_epochs))
             dev_feed = (DevicePrefetcher(CopyStreamCommit(dev),
                                          depth=prefetch_depth)
                         if cfg.device_prefetch else None)
@@ -362,15 +593,34 @@ def run(cfg: Config) -> Dict[str, Any]:
                         "accuracy": float(vals[2 * k + 1])})
                 pending.clear()
 
+            steps_done = start_epoch * iterator.batches_per_epoch \
+                + resume_skip
             start_time = time.time()
             try:
-                for epoch in range(cfg.training_epochs):
+                for epoch in range(start_epoch, cfg.training_epochs):
                     batch_count = iterator.batches_per_epoch
-                    count = 0
+                    # an exact-step resume picks the print cadence up
+                    # where the uninterrupted run would be
+                    skip = resume_skip if epoch == start_epoch else 0
+                    count = skip % frequency
                     feed = prefetcher.epoch(epoch)
                     if dev_feed is not None:
                         feed = dev_feed.rewind(feed)
-                    for i, item in enumerate(feed):
+                    for i, item in enumerate(feed, start=skip):
+                        if preempt_handler is not None \
+                                and preempt_handler.requested:
+                            # the per-step safe point: one snapshot at the
+                            # exact current position, drain, exit 128+sig
+                            t_ck = time.perf_counter()
+                            snapshot_state(steps_done, epoch, i)
+                            ckpt_writer.drain()
+                            phase_span("ckpt", t_ck, step=steps_done,
+                                       preempt=True)
+                            print(f"Preempted "
+                                  f"({preempt_handler.signal_name()}): "
+                                  f"final snapshot at step {steps_done}",
+                                  flush=True)
+                            preempt_handler.check()   # raises Preempted
                         if dev_feed is not None:
                             x, y = take(*item)
                         else:
@@ -401,6 +651,17 @@ def run(cfg: Config) -> Dict[str, Any]:
                             _print_window(steps_done, epoch, i, batch_count,
                                           cost, elapsed_time, frequency)
                             count = 0
+                        if (ckpt_writer is not None
+                                and steps_done % cfg.ckpt_every == 0):
+                            # write-behind snapshot; an epoch-final one
+                            # records the next epoch's start
+                            t_ck = time.perf_counter()
+                            ck_ep, ck_done = ((epoch, i + 1)
+                                              if i + 1 < batch_count
+                                              else (epoch + 1, 0))
+                            snapshot_state(steps_done, ck_ep, ck_done)
+                            ckpt_stall_s.append(time.perf_counter() - t_ck)
+                            phase_span("ckpt", t_ck, step=steps_done)
                         maybe_checkpoint(steps_done, epoch)
                     epochs_done = epoch + 1
                 if writer is not None:
@@ -426,15 +687,41 @@ def run(cfg: Config) -> Dict[str, Any]:
                 and cfg.objective == "lm":
             _sample(cfg, spec, state.params, dataset.test.images, dev,
                     chief)
+        ckpt_stats = None
         if cfg.checkpoint_dir:
-            save_state(steps_done, cfg.training_epochs)
+            if ckpt_writer is not None:
+                # the resilience store's exit snapshot supersedes the
+                # classic exit save (nearly free after a periodic one:
+                # unchanged leaves are reused)
+                snapshot_state(steps_done, cfg.training_epochs, 0)
+                ckpt_writer.drain()
+                ckpt_stats = dict(ckpt_writer.stats(),
+                                  ckpt_stall_ms=[round(t * 1e3, 6)
+                                                 for t in ckpt_stall_s])
+            if ckpt_writer is None or ckpt_enabled:
+                # the classic exit save still runs when the classic
+                # periodic format is in play beside the store
+                save_state(steps_done, cfg.training_epochs)
+            # a background classic writer must land before the exit
+            ckpt_lib.wait_for_pending_saves()
         if chief:
             print("done")
     finally:
         if writer is not None:
             writer.close()
+        if preempt_handler is not None:
+            preempt_handler.uninstall()
+        if ckpt_writer is not None:
+            # flush the newest captured snapshot on the crash path too; a
+            # writer error here must not mask the original exception
+            try:
+                ckpt_writer.close(drain=True, timeout=60.0)
+            except Exception as ck_err:
+                print(f"NOTE: checkpoint writer close failed: {ck_err}")
+        if span_recorder is not None:
+            span_recorder.close()
         cluster.shutdown()
-    return {
+    result = {
         "test_accuracy": test_acc,
         "total_time_s": total_time,
         "final_cost": cost,
@@ -452,3 +739,8 @@ def run(cfg: Config) -> Dict[str, Any]:
         "skipped_steps": 0,
         "profile_windows": 0,
     }
+    if ckpt_stats is not None:
+        # the port's own, under --ckpt_every: the resilience writer's
+        # stats() and the loop's stall of each periodic snapshot
+        result["checkpoint_stats"] = ckpt_stats
+    return result

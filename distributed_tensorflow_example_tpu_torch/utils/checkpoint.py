@@ -1,26 +1,53 @@
-"""Single-file ``.npz`` checkpoints in the JAX package's layout.
+"""Classic checkpoints in the JAX package's two on-disk formats, for the
+port's ``TrainState``, so a checkpoint moves either way between the
+packages.
 
-The JAX package saves its ``TrainState`` pytree as one ``.npz`` whose keys
-are the tree paths: ``.step``, ``.params/W1``, ``.opt_state/mu/W1``,
-``.opt_state/inner/count`` ..., plus ``__step__``/``__epoch__``, an
-``__dt_<key>__`` entry naming the dtype of each leaf stored in a bit
-container (bf16 as uint16, which ``np.savez`` can round-trip) and
-``__x_<name>__`` scalars of the training loop.  This module writes and
-reads the same files for the port's ``TrainState``, so a checkpoint
-moves either way between the packages.  Writes are atomic (a temporary file, then a
-rename).  The sharded format (``ckpt-N.shards/``) and ``--resume`` are
-not ported yet (ROADMAP.md Queue A).
+Keys are the JAX package's tree paths: ``.step``, ``.params/W1``,
+``.opt_state/mu/W1``, ``.opt_state/inner/count`` ...  bf16 and fp8 leaves
+are stored in same-width unsigned-int bit containers beside their dtype
+name (``resilience/codec.py``, the one codec of every format).
+
+- **Single file** ``ckpt-N.npz`` (the default): the full tree, written
+  by the chief, plus ``__step__``/``__epoch__``, an ``__dt_<key>__``
+  entry naming the dtype of each bit-encoded leaf and ``__x_<name>__``
+  scalars of the training loop.
+- **Sharded directory** ``ckpt-N.shards/`` (``--sharded_checkpoints``):
+  every process writes only its own shards to ``proc-NNNNN.npz`` (each
+  entry the shard's data and its global index bounds; the port's state
+  is replicated, so process 0 writes every leaf whole and the others
+  empty files), and the chief writes ``manifest.json`` naming every
+  expected shard file.  A checkpoint is complete when the manifest and
+  every file it names exist (all writes atomic tmp+rename), so a kill
+  mid-save leaves an ignorable partial directory.  The restore
+  reassembles the logical arrays from the index bounds, whatever number
+  of processes wrote them, so a checkpoint the JAX package wrote at any
+  topology restores here.  With ``--async_checkpoints`` the
+  device-to-host copies stay synchronous and the file writes move to a
+  background thread (``wait_for_pending_saves`` joins it and re-raises
+  its failure).
+
+``--resume`` (``train/loop.py``) restores the newest complete checkpoint
+of either format with ``latest_checkpoint`` and ``restore_checkpoint``;
+``--resume=auto`` restores from the resilience store
+(``resilience/``) through ``rebuild_tree_validated``.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
+import shutil
+import threading
 from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
+from .. import cluster
+from ..resilience.codec import (decode_array, dtype_name, encode_array,
+                                torch_dtype)
+from ..resilience.manifest import tiles_exactly
 from ..train.state import TrainState
 
 
@@ -46,15 +73,6 @@ def flatten_state(state: TrainState) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _encode(t: torch.Tensor) -> Tuple[np.ndarray, str | None]:
-    """A tensor as a savable numpy array, plus its dtype name when it is
-    stored in a bit container (bf16 as uint16)."""
-    t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
-    return t.numpy(), None
-
-
 def save_checkpoint(ckpt_dir: str, state: TrainState, step: int, epoch: int,
                     extras: dict | None = None) -> str:
     """Write ``ckpt-<step:08d>.npz`` atomically; returns its path."""
@@ -63,7 +81,7 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, step: int, epoch: int,
     tmp = path + ".tmp.npz"
     payload = {}
     for k, v in flatten_state(state).items():
-        enc, name = _encode(v)
+        enc, name = encode_array(v)
         payload[k] = enc
         if name:
             payload[f"__dt_{k}__"] = np.asarray(name)
@@ -78,7 +96,10 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, step: int, epoch: int,
 
 
 def load_extras(path: str) -> dict:
-    """The ``extras`` scalars a checkpoint carries."""
+    """The ``extras`` scalars a checkpoint of either format carries."""
+    if os.path.isdir(path):
+        with open(os.path.join(path, "manifest.json")) as f:
+            return dict(json.load(f).get("extras", {}))
     out = {}
     with np.load(path) as z:
         for k in z.files:
@@ -88,8 +109,25 @@ def load_extras(path: str) -> dict:
     return out
 
 
+def _sharded_complete(path: str) -> bool:
+    """A sharded checkpoint directory is complete when its manifest
+    exists and names only files that exist."""
+    man = os.path.join(path, "manifest.json")
+    if not os.path.isfile(man):
+        return False
+    try:
+        with open(man) as f:
+            manifest = json.load(f)
+        return all(os.path.isfile(os.path.join(path, name))
+                   for name in manifest["files"])
+    except (OSError, ValueError, KeyError):
+        return False
+
+
 def _list_checkpoints(ckpt_dir: str) -> list:
-    """``(step, filename)`` of every single-file checkpoint, by step."""
+    """``(step, name)`` of every complete checkpoint (single file or a
+    complete sharded directory), by step; temporary files and
+    incomplete directories never list."""
     if not os.path.isdir(ckpt_dir):
         return []
     found = []
@@ -97,18 +135,28 @@ def _list_checkpoints(ckpt_dir: str) -> list:
         m = re.fullmatch(r"ckpt-(\d+)\.npz", name)
         if m:
             found.append((int(m.group(1)), name))
+            continue
+        m = re.fullmatch(r"ckpt-(\d+)\.shards", name)
+        if m and _sharded_complete(os.path.join(ckpt_dir, name)):
+            found.append((int(m.group(1)), name))
     return sorted(found)
 
 
 def prune_checkpoints(ckpt_dir: str, keep: int) -> list:
-    """Delete all but the ``keep`` newest checkpoints (0 = keep all);
-    returns the deleted paths."""
+    """Delete all but the ``keep`` newest complete checkpoints (0 = keep
+    all); returns the deleted paths.  A sharded checkpoint still landing
+    is not listed and does not count toward ``keep``: the disk holds
+    keep + 1 until the next prune, never fewer than ``keep`` durable
+    ones."""
     if keep <= 0:
         return []
     deleted = []
     for _, name in _list_checkpoints(ckpt_dir)[:-keep]:
         path = os.path.join(ckpt_dir, name)
-        os.remove(path)
+        if os.path.isdir(path):
+            shutil.rmtree(path, ignore_errors=True)
+        else:
+            os.remove(path)
         deleted.append(path)
     return deleted
 
@@ -116,6 +164,125 @@ def prune_checkpoints(ckpt_dir: str, keep: int) -> list:
 def latest_checkpoint(ckpt_dir: str) -> str | None:
     found = _list_checkpoints(ckpt_dir)
     return os.path.join(ckpt_dir, found[-1][1]) if found else None
+
+
+# ---- the sharded format ----
+
+_PENDING_SAVES: list = []
+
+
+def wait_for_pending_saves() -> None:
+    """Join the background checkpoint writers (``--async_checkpoints``).
+    Called before the next save and at the end of a run, so at most one
+    write is in flight; a writer that failed re-raises here."""
+    while _PENDING_SAVES:
+        t = _PENDING_SAVES.pop()
+        t.join()
+        err = getattr(t, "error", None)
+        if err is not None:
+            raise RuntimeError(
+                f"background checkpoint write failed: {err!r}") from err
+
+
+def _bounds(shape) -> np.ndarray:
+    """The index bounds ``[[0, d] per dim]`` of a whole leaf."""
+    return np.asarray([[0, int(d)] for d in shape],
+                      np.int64).reshape(-1, 2)
+
+
+def save_checkpoint_sharded(ckpt_dir: str, state: TrainState, step: int,
+                            epoch: int, extras: dict | None = None,
+                            async_: bool = False,
+                            on_complete=None) -> str:
+    """Every process calls this; no collective runs.  Each process writes
+    its shard file atomically and the chief the manifest, so the
+    checkpoint becomes visible to ``latest_checkpoint`` only once every
+    process finished (several processes need a ``ckpt_dir`` they all
+    share).  The device-to-host copies happen here; under ``async_`` the
+    file writes and ``on_complete`` (the retention prune) run on a
+    background thread.  Returns the checkpoint directory."""
+    wait_for_pending_saves()
+    path = os.path.join(ckpt_dir, f"ckpt-{step:08d}.shards")
+    os.makedirs(path, exist_ok=True)
+    proc = cluster.process_index()
+    nprocs = cluster.process_count()
+    payload = {}
+    shapes = {}
+    for key, leaf in flatten_state(state).items():
+        shapes[key] = ([int(d) for d in leaf.shape], dtype_name(leaf))
+        if proc == 0:   # the state is replicated: process 0 holds all
+            payload[f"{key}§0"], _ = encode_array(leaf)
+            payload[f"{key}§0§idx"] = _bounds(leaf.shape)
+    fname = f"proc-{proc:05d}.npz"
+
+    def write():
+        tmp = os.path.join(path, fname + f".tmp{os.getpid()}.npz")
+        with open(tmp, "wb") as f:
+            np.savez(f, **payload)
+        os.replace(tmp, os.path.join(path, fname))
+        if proc == 0:
+            manifest = {
+                "step": int(step), "epoch": int(epoch),
+                "extras": {k: float(v) for k, v in (extras or {}).items()},
+                "nprocs": int(nprocs),
+                "files": [f"proc-{i:05d}.npz" for i in range(nprocs)],
+                "leaves": {k: {"shape": s, "dtype": d}
+                           for k, (s, d) in shapes.items()},
+            }
+            mtmp = os.path.join(path, f"manifest.tmp{os.getpid()}.json")
+            with open(mtmp, "w") as f:
+                json.dump(manifest, f)
+            os.replace(mtmp, os.path.join(path, "manifest.json"))
+        if on_complete is not None:
+            on_complete()
+
+    if async_:
+        def guarded():
+            try:
+                write()
+            except BaseException as e:  # surfaced by wait_for_pending
+                t.error = e
+
+        t = threading.Thread(target=guarded, daemon=False,
+                             name=f"ckpt-writer-{step}")
+        t.error = None
+        t.start()
+        _PENDING_SAVES.append(t)
+    else:
+        write()
+    return path
+
+
+def restore_sharded_arrays(path: str) -> Tuple[dict, int, int]:
+    """``({key: CPU tensor}, step, epoch)`` reassembled from every shard
+    file of a sharded checkpoint, each piece placed by the index bounds
+    recorded at save time."""
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    data = {k: torch.zeros(tuple(v["shape"]), dtype=torch_dtype(v["dtype"]))
+            for k, v in manifest["leaves"].items()}
+    names = {k: v["dtype"] for k, v in manifest["leaves"].items()}
+    boxes: Dict[str, list] = {k: [] for k in data}
+    for name in manifest["files"]:
+        with np.load(os.path.join(path, name)) as z:
+            for entry in z.files:
+                if entry.endswith("§idx"):
+                    continue
+                key, _j = entry.rsplit("§", 1)
+                bounds = np.asarray(z[entry + "§idx"], np.int64)
+                idx = tuple(slice(int(a), int(b)) for a, b in bounds)
+                val = z[entry]
+                data[key][idx] = decode_array(
+                    val, names[key] if val.dtype.name != names[key]
+                    else None)
+                boxes[key].append(bounds.reshape(-1, 2))
+    missing = [k for k, bs in boxes.items()
+               if not tiles_exactly(bs, data[k].shape)]
+    if missing:
+        raise ValueError(
+            f"sharded checkpoint {path} does not cover leaves "
+            f"{missing[:5]} — saved by an incompatible writer?")
+    return data, int(manifest["step"]), int(manifest["epoch"])
 
 
 def _rebuild(tree: Any, prefix: str, data: dict, path: str) -> Any:
@@ -134,23 +301,33 @@ def _rebuild(tree: Any, prefix: str, data: dict, path: str) -> Any:
     return t.to(device=tree.device, dtype=tree.dtype)
 
 
+def rebuild_tree_validated(data: dict, template: TrainState,
+                           ckpt_path: str = "<data>") -> TrainState:
+    """``data`` (``{key: tensor}``) matched by key into ``template``'s
+    structure, shape-checked, cast to its dtypes and placed on its
+    devices: the one rebuild of every format and of the resilience
+    store."""
+    return TrainState(
+        step=_rebuild(template.step, ".step", data, ckpt_path),
+        params=_rebuild(template.params, ".params", data, ckpt_path),
+        opt_state=_rebuild(template.opt_state, ".opt_state", data,
+                           ckpt_path))
+
+
 def restore_checkpoint(path: str, template: TrainState
                        ) -> Tuple[TrainState, int, int]:
-    """``(state, step, epoch)``: the checkpoint's leaves matched by key
-    into ``template``'s structure, shape-checked, cast to the template's
-    dtypes and placed on its devices."""
-    from ..convert import _decode_leaf, _to_tensor
-
-    with np.load(path) as z:
-        raw = {k: z[k] for k in z.files}
-    step = int(raw.pop("__step__"))
-    epoch = int(raw.pop("__epoch__"))
-    dts = {k[len("__dt_"):-2]: str(raw.pop(k))
-           for k in [k for k in raw if k.startswith("__dt_")]}
-    data = {k: (_decode_leaf(v, dts[k]) if k in dts else _to_tensor(v))
-            for k, v in raw.items() if not k.startswith("__")}
-    state = TrainState(
-        step=_rebuild(template.step, ".step", data, path),
-        params=_rebuild(template.params, ".params", data, path),
-        opt_state=_rebuild(template.opt_state, ".opt_state", data, path))
-    return state, step, epoch
+    """``(state, step, epoch)`` from a checkpoint of either format (a
+    ``.shards`` directory is reassembled first), rebuilt into
+    ``template`` by ``rebuild_tree_validated``."""
+    if os.path.isdir(path):
+        data, step, epoch = restore_sharded_arrays(path)
+    else:
+        with np.load(path) as z:
+            raw = {k: z[k] for k in z.files}
+        step = int(raw.pop("__step__"))
+        epoch = int(raw.pop("__epoch__"))
+        dts = {k[len("__dt_"):-2]: str(raw.pop(k))
+               for k in [k for k in raw if k.startswith("__dt_")]}
+        data = {k: decode_array(v, dts.get(k))
+                for k, v in raw.items() if not k.startswith("__")}
+    return rebuild_tree_validated(data, template, path), step, epoch

@@ -1166,3 +1166,83 @@ def test_router_over_one_engine_on_card_is_bitwise_invisible(card):
         return out
 
     assert run(True) == run(False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_host_snapshot_on_card_is_pinned_and_exact(card, dtype, tmp_path):
+    """The trainer's snapshot copy on the card: pinned host buffers
+    filled by non-blocking copies, the event recorded after them; the
+    writer waits on it, and the store restores the card's tensors
+    bitwise, while later steps keep running on the card."""
+    from distributed_tensorflow_example_tpu_torch.resilience import manifest
+    from distributed_tensorflow_example_tpu_torch.resilience.writer import (
+        CheckpointWriter)
+    from distributed_tensorflow_example_tpu_torch.train import loop
+    from distributed_tensorflow_example_tpu_torch.train.state import (
+        TrainState)
+
+    gen = torch.Generator(device=card).manual_seed(3)
+    params = {"W1": torch.randn(777, 513, generator=gen,
+                                device=card).to(dtype),
+              "b1": torch.randn(513, generator=gen, device=card)}
+    state = TrainState(torch.tensor(6, dtype=torch.int32, device=card),
+                       params, ())
+    loop._reserve_host_buffers(state, card)
+    snap, ready = loop._host_snapshot(state, card)
+    assert ready is not None and all(t.is_pinned() for t in snap.values())
+    # the card keeps working after the copies were enqueued
+    busy = params["W1"].float() @ params["W1"].float().T
+    writer = CheckpointWriter(str(tmp_path))
+    writer.submit(6, 0, snap, ready=ready)
+    writer.close()
+    found, _ = manifest.newest_valid_snapshot(str(tmp_path))
+    data, step, _ = manifest.restore_arrays(str(tmp_path), found)
+    assert step == 6 and busy.isfinite().all()
+    assert torch.equal(data[".params/W1"], params["W1"].cpu())
+    assert torch.equal(data[".params/b1"], params["b1"].cpu())
+    assert data[".params/W1"].dtype == dtype
+
+
+@pytest.mark.cuda
+def test_resumed_wide_mlp_on_card_is_bitwise(card, tmp_path):
+    """Four host-path steps of a 784-512-512-10 bf16 MLP under --pallas
+    with a snapshot every 2 steps, and the same run resumed with
+    --resume=auto from its step-2 snapshot: the final snapshots bitwise
+    equal, B1 launched in both."""
+    import contextlib
+    import io
+    import os
+
+    from distributed_tensorflow_example_tpu_torch.config import (
+        parse_train_config)
+    from distributed_tensorflow_example_tpu_torch.resilience import manifest
+    from distributed_tensorflow_example_tpu_torch.train import loop
+
+    flags = ["--hidden_sizes=512,512", "--activation=relu",
+             "--compute_dtype=bfloat16", "--batch_size=256", "--pallas",
+             "--dataset=synthetic", "--synthetic_train_size=1024",
+             "--synthetic_test_size=256", "--training_epochs=1",
+             "--no_summaries", "--ckpt_every=2"]
+
+    def run(name, extra=()):
+        fused.reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            loop.run(parse_train_config(flags + [
+                f"--checkpoint_dir={tmp_path / name}",
+                f"--logs_path={tmp_path / (name + '_logs')}"] + list(extra)))
+        torch.cuda.synchronize()
+        assert fused.launch_counts()["mlp_forward"] > 0
+        found, _ = manifest.newest_valid_snapshot(str(tmp_path / name))
+        return manifest.restore_arrays(str(tmp_path / name), found)[0]
+
+    want = run("ref")
+    run("cut")
+    cut = str(tmp_path / "cut")
+    for step, name in manifest.list_snapshots(cut):
+        if step > 2:
+            os.remove(os.path.join(cut, name))
+    got = run("cut", ["--resume=auto"])
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k

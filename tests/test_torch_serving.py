@@ -16,8 +16,8 @@ CPU, at the ``tests/test_serving.py`` sizes (f32).
   supervised restart) behaves as in the JAX engine.
 - The CLI parses every serving flag of a JAX command line with the JAX
   defaults, validates as the JAX CLI does (exit 2), builds the fleet and
-  the status server the fleet and cache flags describe, and refuses only
-  the replay flags and ``--outer_quant``.
+  the status server the fleet and cache flags describe, replays a
+  workload under ``--replay``, and refuses only ``--outer_quant``.
 """
 
 import json
@@ -234,9 +234,7 @@ def test_http_generate_round_trip():
         engine.stop()
 
 
-@pytest.mark.parametrize("extra", [["--replay=w.json"],
-                                   ["--replay_speed", "25"],
-                                   ["--outer_quant=int8"]])
+@pytest.mark.parametrize("extra", [["--outer_quant=int8"]])
 def test_cli_refuses_unported_flags(extra, capsys):
     assert tcli.main(_CLI_FLAGS + ["--serve_port=1"] + extra) == 2
     assert "ROADMAP" in capsys.readouterr().err
@@ -251,20 +249,37 @@ def test_cli_refuses_unported_flags(extra, capsys):
                                     "1.5"],
                                    ["--replicas=2"], ["--breaker", "on"],
                                    ["--fleet_retries", "1"],
-                                   ["--status_cache_s", "0"]])
-def test_cli_accepts_the_ported_flags(extra, tmp_path):
+                                   ["--status_cache_s", "0"],
+                                   ["--replay=w.json"],
+                                   ["--replay_speed", "25"]])
+def test_cli_accepts_the_ported_flags(extra, tmp_path, monkeypatch,
+                                      capsys):
     """The flags the port refused until a slice ported their feature: no
     refusal, the validation passes, and the engine they describe is built
     (int8 pools, a MoE spec, a recorder rotating as asked, the parsed
     SLOs); the fleet flags build the router they describe (the replicas,
-    the breaker policy, the failover budget) and ``--status_cache_s``
-    the status server's caches."""
+    the breaker policy, the failover budget), ``--status_cache_s``
+    the status server's caches, and ``--replay`` replays its workload
+    (the replay report on stdout, exit 0)."""
     cfg = tconfig.parse_config(_CLI_FLAGS + ["--serve_port=1",
                                              f"--logs_path={tmp_path}"]
                                + extra)
     assert tcli.unported_flags(cfg) == []
     tconfig.validate_quant_config(cfg)
     tconfig.validate_serving_config(cfg)
+    if cfg.replay:
+        from distributed_tensorflow_example_tpu_torch.obs import workload
+
+        monkeypatch.chdir(tmp_path)
+        doc = workload.synthetic_workload(3, seed=1, mean_prompt=6,
+                                          mean_new=3, vocab_size=50)
+        workload.write_workload(doc, cfg.replay)
+        capsys.readouterr()
+        assert tcli.main(_CLI_FLAGS + extra) == 0
+        report = json.loads(capsys.readouterr().out)
+        assert report["workload_id"] == doc["workload_id"]
+        assert report["terminals"] == {"result": 3}
+        return
     if cfg.replicas > 1 or cfg.breaker or cfg.fleet_retries != 2:
         from distributed_tensorflow_example_tpu_torch.serving import health
 
@@ -302,9 +317,9 @@ def test_cli_accepts_the_ported_flags(extra, tmp_path):
         eng.recorder.close()
 
 
-# serving flags the port parses with the JAX defaults (the replay speed
-# is refused when set; the rest are ported), so that a JAX dtx-serve
-# command line reaches the port's handling, not argparse's error
+# serving flags the port parses with the JAX defaults (all of them
+# ported now), so that a JAX dtx-serve command line reaches the port's
+# handling, not argparse's error
 _REFUSED_WITH_DEFAULTS = ("breaker", "fleet_retries", "replay_speed",
                           "span_keep", "span_rotate_mb", "status_cache_s")
 
@@ -532,3 +547,25 @@ def test_chip_smoke_status_fleet_and_chaos_phases_rehearse_on_cpu():
     assert fleet["tps"] > 0 and fleet["one_tps"] > 0
     chaos = chip_smoke.phase_chaos("cpu", run, device="cpu")
     assert chaos["moved"] >= 1 and chaos["restarts"] >= 1
+
+
+def test_chip_smoke_replay_phase_rehearses_on_cpu():
+    """``chip_smoke.py``'s phase 4g rehearsed on the CPU at a narrow
+    width: three ``dtx-serve --replay`` runs (one engine twice, then two
+    replicas) of the synthetic workload, every terminal typed and equal
+    across the three, the span rows stamped and re-captured to the
+    input's schedule, the id round-tripped through ``replay_sim``.  The
+    counters stay 0: CPU tensors take the plain versions.  The submit
+    lag is held to 5 s, not the card's 0.5: here a prefill of the plain
+    versions shares the CPU with the other test workers."""
+    import chip_smoke
+
+    flags = [f for f in chip_smoke.FULL_WIDTH_FLAGS
+             if not f.startswith(("--input_size", "--d_model", "--n_heads",
+                                  "--d_ff"))]
+    flags += ["--input_size=128", "--d_model=32", "--n_heads=2",
+              "--d_ff=64", "--device=cpu"]
+    rep = chip_smoke.phase_replay("cpu", flags, speed=20.0, max_lag_s=5.0)
+    assert set(rep["counts"].values()) == {0}
+    assert all(t > 0 for t in rep["tps"])
+    assert 0.0 <= rep["determinism_frac"] <= 1.0
