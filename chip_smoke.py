@@ -129,6 +129,20 @@ and for the MLP trainer (``main.py`` -> ``train/loop.run``):
     run; B1 launched in each in-process run (the ``resilience`` paths);
     the loop's stall per snapshot (``ckpt_stall_ms``), the writer's
     mean write ms and the snapshot's bytes printed;
+5c. the trainer's monitoring: the same widths on the graph path under
+    ``--metrics --log_every=4 --flight --on_anomaly=skip --status_port``
+    (the step still captured, B1's launches phase 5's, every metrics row
+    valid with 0 < mfu <= 1, /status and /metrics polled while it runs,
+    the final params bitwise a run without the flags); the blow-up
+    (``--learning_rate=1e30 --naive_ce``) skipped on the graph path
+    (skipped steps >= 1, every param finite, the first flagged step
+    printed) and halted on the host path (``AnomalyError`` inside the
+    epoch, a valid ``flight/0.json`` blaming real leaves and
+    ``flight/report.json``); the skip mask's cost over 3 interleaved
+    rounds of the graph epoch and ``--histograms``' on the host path,
+    printed; ``transformer_wide_long`` under ``--metrics
+    --profile_steps=1:2``: its Chrome trace names the bf16 flash kernels
+    and the trace scopes, its rows' MFU printed;
 6. the reference command line on the card: ``main.py --pallas
    --training_epochs=1`` (784-100-10 sigmoid f32, batch 100, 550
    steps, the default fast path: B1's f32 launches counted through the
@@ -198,8 +212,8 @@ and for MoE training (``main.py --model=transformer --num_experts=64
 The last two lines of stdout are the kernel report JSON (each kernel's
 launches on its first main path, and under ``launches_by_path`` on
 every path that ran it: ``serve``, ``serve_int8``, ``serve_moe``,
-``fleet``, ``replay``, the trainers', ``resilience`` and
-``resilience_resumed``) and the result JSON; the card's name and power limit come just before them.
+``fleet``, ``replay``, the trainers', ``resilience``,
+``resilience_resumed`` and phase 5c's ``monitoring`` runs) and the result JSON; the card's name and power limit come just before them.
 The script imports nothing of JAX; it needs one card and exits
 nonzero without one.
 """
@@ -207,16 +221,19 @@ nonzero without one.
 from __future__ import annotations
 
 import contextlib
+import glob
 import io
 import json
 import math
 import os
 import re
 import signal
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -503,6 +520,11 @@ FLASH_TC = {"stats": "flash_fwd_tc_kernelILb1ELb1EE",
             "normalized": "flash_fwd_tc_kernelILb1ELb0EE",
             "dq": "flash_dq_tc_kernelILb1EE",
             "dkv": "flash_dkv_tc_kernelILb1EE"}
+# the same kernels as a profiler's trace names them (demangled)
+FLASH_TC_DEMANGLED = {"stats": "flash_fwd_tc_kernel<true, true>",
+                      "normalized": "flash_fwd_tc_kernel<true, false>",
+                      "dq": "flash_dq_tc_kernel<true>",
+                      "dkv": "flash_dkv_tc_kernel<true>"}
 FLASH_USAGE: dict = {}
 # each source that includes gemm_tc.cuh compiles its own copy of the
 # GEMM (internal linkage), so those fragments name the source too
@@ -2462,10 +2484,12 @@ PACED_MAIN = (
     "sys.exit(main.main(sys.argv[2:]))\n")
 
 
-def _run_trainer(argv, what: str, device: str) -> tuple:
+def _run_trainer(argv, what: str, device: str, fast: bool = False,
+                 wrappers=TRAIN_WRAPPERS) -> tuple:
     """``loop.run`` of a trainer command line in process, its launch
-    counts zeroed just before and read just after (B1 must launch on the
-    card); returns ``(result, stdout, counts)``."""
+    counts zeroed just before and read just after (each of ``wrappers``,
+    B1 by default, must launch on the card), on the host path (or, with
+    ``fast``, the fast path); returns ``(result, stdout, counts)``."""
     from distributed_tensorflow_example_tpu_torch.config import (
         parse_train_config)
     from distributed_tensorflow_example_tpu_torch.ops import fused
@@ -2477,9 +2501,9 @@ def _run_trainer(argv, what: str, device: str) -> tuple:
     res, out = _run_captured(loop.run, cfg)
     _sync(device)
     counts = fused.launch_counts()
-    _require(counts, TRAIN_WRAPPERS, (), what, device)
-    if res["fast_loop"]:
-        raise AssertionError(f"{what}: took the fast path")
+    _require(counts, wrappers, (), what, device)
+    if res["fast_loop"] != fast:
+        raise AssertionError(f"{what}: took fast_loop={res['fast_loop']}")
     return res, out, counts
 
 
@@ -2637,6 +2661,355 @@ def _valid_step(ckpt_dir: str):
 
     found = manifest.newest_valid_snapshot(ckpt_dir)
     return None if found is None else found[0]["step"]
+
+
+# phase 5c: the mxu_wide_pallas widths (WIDE_TRAIN) as a command line, one
+# epoch of 8 steps on the default fast path (the step a CUDA graph)
+MONITOR_FLAGS = [f for f in RESILIENCE_FLAGS if f != "--ckpt_every=2"]
+# every monitoring flag the fast path takes
+MONITOR_ON = ["--metrics", "--log_every=4", "--flight", "--on_anomaly=skip"]
+# the blow-up injection (the JAX package's tests/test_forensics.py): the
+# first step's update is ~1e30 x the gradient, and the next step's
+# saturated softmax under the naive cross entropy gives inf/inf
+BLOWUP_FLAGS = ["--learning_rate=1e30", "--naive_ce"]
+# phase 5c (e): the transformer_wide_long run under --metrics with a
+# torch.profiler window over steps 1 and 2
+TFM_PROFILE_FLAGS = ["--metrics", "--profile_steps=1:2"]
+
+
+def _npz_params(ckpt_dir: str) -> dict:
+    """The arrays of the newest classic ``.npz`` checkpoint."""
+    from distributed_tensorflow_example_tpu_torch.utils import checkpoint
+
+    path = checkpoint.latest_checkpoint(ckpt_dir)
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+@contextlib.contextmanager
+def _held_at_run_end(seen: threading.Event, timeout: float = 30.0):
+    """Hold the trainer at its ``run_end`` metrics event until ``seen``
+    is set (at most ``timeout`` s): the fast path writes its window rows
+    at the end of the run and the status server closes with it, so a
+    poller gets this long to read them.  The pause only waits."""
+    from distributed_tensorflow_example_tpu_torch.obs import metrics
+
+    real = metrics.MetricsLogger.log_event
+
+    def log_event(self, event, **fields):
+        if event == "run_end":
+            seen.wait(timeout)
+        return real(self, event, **fields)
+
+    metrics.MetricsLogger.log_event = log_event
+    try:
+        yield
+    finally:
+        metrics.MetricsLogger.log_event = real
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _epoch_ab(cfgs: dict, rounds: int) -> dict:
+    """Warm ms a step of each config's device-resident epoch (the MLP's
+    step a CUDA graph), one runner and state each from the same seed,
+    timed with CUDA events over ``rounds`` interleaved rounds (the
+    order flips every round)."""
+    from distributed_tensorflow_example_tpu_torch.data import mnist
+    from distributed_tensorflow_example_tpu_torch.parallel import epoch
+    from distributed_tensorflow_example_tpu_torch.train import loop, optim
+    from distributed_tensorflow_example_tpu_torch.train.state import (
+        create_train_state)
+    from distributed_tensorflow_example_tpu_torch.utils import prng
+
+    first = next(iter(cfgs.values()))
+    data = mnist.synthesize_split(first.synthetic_train_size, seed=1)
+    img, lbl, spe = epoch.shard_dataset(data.images, data.labels,
+                                        first.batch_size, "cuda")
+    key = prng.PRNGKey(first.seed + epoch.SHUFFLE_SALT)
+    arms = {}
+    for name, cfg in cfgs.items():
+        spec = loop.make_spec(cfg)
+        opt = optim.make_optimizer(cfg, (2 * rounds + 1) * spe)
+        state = create_train_state(spec, opt, seed=cfg.seed, device="cuda")
+        run = epoch.build_epoch_runner(cfg, spec, opt, spe, "cuda")
+        state, _c, _a = run(state, img, lbl, key, 0)
+        arms[name] = [run, state, []]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    names = list(arms)
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            run, state, times = arms[name]
+            ev[0].record()
+            state, _c, _a = run(state, img, lbl, key, r + 1)
+            ev[1].record()
+            torch.cuda.synchronize()
+            times.append(ev[0].elapsed_time(ev[1]) / spe)
+            arms[name][1] = state
+    return {name: arm[2] for name, arm in arms.items()}
+
+
+def phase_monitoring(card: str, graph_counts: dict, flags=MONITOR_FLAGS,
+                     tfm_flags=WIDE_LONG_FLAGS, device: str = "cuda",
+                     rounds: int = 3) -> dict:
+    """The trainer's monitoring (phase 5c) at the mxu_wide_pallas widths
+    and on transformer_wide_long:
+
+    (a) the default fast path (the step a CUDA graph) under ``--metrics
+        --log_every=4 --flight --on_anomaly=skip --status_port``: the step
+        still captured, B1's launches those of phase 5's graph run, every
+        metrics row valid with ``0 < mfu <= 1``, a polling thread's
+        ``/status`` and ``/metrics`` answers carrying the run's rows, the
+        final params bitwise those of the same run without the flags;
+    (b) the blow-up under ``--on_anomaly=skip`` on the graph path: the
+        run completes, skipped steps >= 1, every param finite; the first
+        flagged step printed;
+    (c) the blow-up under ``--on_anomaly=halt``: the host path raises
+        ``AnomalyError`` before the epoch ends, ``flight/0.json`` valid
+        with reason ``anomaly_halt`` and blame on real leaves, and the
+        chief's ``flight/report.json``;
+    (d) what telemetry costs (printed, not gated): the graph epoch's warm
+        ms a step with and without the skip mask over ``rounds``
+        interleaved rounds, and the host path with and without
+        ``--histograms``;
+    (e) ``transformer_wide_long`` (``tfm_flags``) under ``--metrics
+        --profile_steps=1:2``: the Chrome trace names the bf16 flash
+        kernels (B5-B7) and the trace scopes; the rows' MFU printed.
+
+    On the CPU (a rehearsal at narrow widths, ``device="cpu"``) the
+    counters stay 0, MFU is null and (d) and the kernel names are not
+    checked."""
+    import dataclasses
+
+    from distributed_tensorflow_example_tpu_torch.config import (
+        parse_train_config)
+    from distributed_tensorflow_example_tpu_torch.obs import anomaly, flight
+    from distributed_tensorflow_example_tpu_torch.obs import metrics, schema
+    from distributed_tensorflow_example_tpu_torch.obs.buckets import (
+        TRACE_SCOPES)
+    from distributed_tensorflow_example_tpu_torch.ops import fused
+    from distributed_tensorflow_example_tpu_torch.parallel import epoch, step
+    from distributed_tensorflow_example_tpu_torch.train import loop
+
+    on_card = device == "cuda"
+    flags = list(flags) + ([] if on_card else ["--device=cpu"])
+    out = {}
+    t_phase = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        def argv(name, *extra):
+            return flags + list(extra) + [
+                f"--logs_path={tmp}/{name}", f"--checkpoint_dir={tmp}/{name}"]
+
+        # (a) everything on, the status server polled while it runs
+        t0 = time.monotonic()
+        port = _free_port()
+        seen_row, stop = threading.Event(), threading.Event()
+        answers = {"status": [], "metrics": []}
+
+        def poll():
+            while not stop.is_set():
+                try:
+                    code, doc = _get_json(port, "/status")
+                    code_m, text = _get_text(port, "/metrics")
+                except OSError:
+                    time.sleep(0.01)
+                    continue
+                if code == 200 and doc.get("last_window"):
+                    answers["status"].append(doc)
+                    if code_m == 200 and "dtx_" in text:
+                        answers["metrics"].append(text)
+                        seen_row.set()
+                time.sleep(0.005)
+
+        poller = threading.Thread(target=poll, daemon=True)
+        poller.start()
+        try:
+            with _held_at_run_end(seen_row):
+                res, _o, counts = _run_trainer(
+                    argv("mon", *MONITOR_ON, f"--status_port={port}"),
+                    "monitoring", device, fast=True)
+        finally:
+            stop.set()
+            poller.join(timeout=30)
+        mon_cfg = parse_train_config(argv("mon", *MONITOR_ON))
+        if on_card and not epoch.captures(loop.make_spec(mon_cfg), "cuda"):
+            raise AssertionError("monitoring: the step is not captured")
+        if on_card and counts["mlp_forward"] != graph_counts["mlp_forward"]:
+            raise AssertionError(f"monitoring: B1 launched "
+                                 f"{counts['mlp_forward']} times, phase 5's "
+                                 f"graph run {graph_counts['mlp_forward']}")
+        mpath = f"{tmp}/mon/metrics.0.jsonl"
+        errs = schema.validate_metrics_file(mpath)
+        rows = metrics.read_metrics(mpath)
+        windows = [r for r in rows if r["kind"] == "window"]
+        compile_ev = [r for r in rows if r.get("event") == "compile"]
+        if errs or not windows or not compile_ev:
+            raise AssertionError(f"monitoring: metrics rows {rows}, "
+                                 f"errors {errs}")
+        for r in windows:
+            mfu_ok = (r["mfu"] is not None and 0 < r["mfu"] <= 1
+                      and r["tflops_per_sec"] is not None)
+            if on_card and not mfu_ok:
+                raise AssertionError(f"monitoring: window row {r}")
+        if not answers["status"] or not answers["metrics"]:
+            raise AssertionError("monitoring: the poller got no /status "
+                                 "and /metrics answer with the run's rows")
+        live = answers["status"][-1]["last_window"]
+        if live["step"] != windows[-1]["step"]:
+            raise AssertionError(f"monitoring: /status showed {live}")
+        plain, _o, plain_counts = _run_trainer(argv("plain"), "plain",
+                                               device, fast=True)
+        got, want = _npz_params(f"{tmp}/mon"), _npz_params(f"{tmp}/plain")
+        diff = sorted(k for k in want if not np.array_equal(got[k], want[k]))
+        if diff or sorted(got) != sorted(want):
+            raise AssertionError(f"monitoring: the monitored run's params "
+                                 f"differ from the plain run's in {diff}")
+        w = windows[-1]
+        log(f"[monitoring] (a) graph path under {' '.join(MONITOR_ON)} "
+            f"--status_port: {res['steps']} steps, compile (warm-up + "
+            f"capture) {compile_ev[0]['dispatch_wall_s']} s, row: step time "
+            f"{w['step_time_p50_ms']} ms, {w['examples_per_sec']} examples/s, "
+            f"{w['tflops_per_sec']} TFLOP/s, mfu {w['mfu']}, device memory "
+            f"{w['device_memory']}; {len(answers['status'])} live /status "
+            f"answers; final params bitwise the plain run's; launches "
+            f"{counts} (plain {plain_counts}; phase 5 {graph_counts}) "
+            f"({time.monotonic() - t0:.1f} s)")
+        out.update(counts=counts, mfu=w["mfu"], row=w,
+                   compile_s=compile_ev[0]["dispatch_wall_s"])
+
+        # (b) the blow-up skipped on the graph path
+        t0 = time.monotonic()
+        skip, _o, skip_counts = _run_trainer(
+            argv("skip", *BLOWUP_FLAGS, "--on_anomaly=skip", "--metrics"),
+            "skip", device, fast=True)
+        params = _npz_params(f"{tmp}/skip")
+        flagged = [r["step"] for r in metrics.read_metrics(
+            f"{tmp}/skip/metrics.0.jsonl") if r.get("event") == "anomaly"]
+        bad = sorted(k for k, v in params.items()
+                     if v.dtype.kind == "f" and not np.isfinite(v).all())
+        if skip["skipped_steps"] < 1 or bad or not flagged:
+            raise AssertionError(f"skip: {skip['skipped_steps']} skipped, "
+                                 f"anomalies at {flagged}, non-finite {bad}")
+        log(f"[monitoring] (b) the blow-up ({' '.join(BLOWUP_FLAGS)}) under "
+            f"--on_anomaly=skip on the graph path: first flagged step "
+            f"{flagged[0]}, {skip['skipped_steps']} of {skip['steps']} steps "
+            f"skipped, every param finite; launches {skip_counts} "
+            f"({time.monotonic() - t0:.1f} s)")
+        out.update(first_flagged=flagged[0],
+                   skipped=skip["skipped_steps"], skip_counts=skip_counts)
+
+        # (c) the blow-up halted: the host path, a flight dump
+        t0 = time.monotonic()
+        halt_cfg = parse_train_config(argv(
+            "halt", *BLOWUP_FLAGS, "--on_anomaly=halt", "--metrics",
+            "--log_every=4"))
+        _sync(device)
+        fused.reset_launch_counts()
+        try:
+            _run_captured(loop.run, halt_cfg)
+        except anomaly.AnomalyError as e:
+            halted = str(e)
+        else:
+            raise AssertionError("halt: the run did not raise AnomalyError")
+        _sync(device)
+        halt_counts = fused.launch_counts()
+        _require(halt_counts, TRAIN_WRAPPERS, (), "halt", device)
+        dump_path = f"{tmp}/halt/flight/0.json"
+        doc = flight.read_flight(dump_path)
+        errs = schema.validate_flight_file(dump_path)
+        leaves = set(step.leaf_names(loop.make_spec(halt_cfg)))
+        blamed = {k for a in doc["anomalies"] for k in a["blame"]}
+        steps_per_epoch = halt_cfg.synthetic_train_size // \
+            halt_cfg.batch_size
+        if (errs or doc["reason"] != "anomaly_halt" or not blamed
+                or not blamed <= leaves
+                or doc["last_step"] >= steps_per_epoch
+                or not os.path.exists(f"{tmp}/halt/flight/report.json")):
+            raise AssertionError(f"halt: dump {doc['reason']} at step "
+                                 f"{doc['last_step']}, blame {blamed}, "
+                                 f"errors {errs}")
+        log(f"[monitoring] (c) --on_anomaly=halt on the host path: "
+            f"AnomalyError at step {doc['last_step']} of {steps_per_epoch} "
+            f"({halted[:160]}); flight/0.json valid, blame {sorted(blamed)}, "
+            f"report.json written; launches {halt_counts} "
+            f"({time.monotonic() - t0:.1f} s)")
+        out.update(halt_step=doc["last_step"], halt_counts=halt_counts)
+
+        # (d) what the telemetry costs (printed, not gated)
+        t0 = time.monotonic()
+        if on_card:
+            base = parse_train_config(MONITOR_FLAGS)
+            ab = _epoch_ab({"plain": base, "skip": dataclasses.replace(
+                base, on_anomaly="skip")}, rounds)
+            host = {}
+            for name, extra in (("plain", ()), ("histograms", (
+                    "--histograms", "--log_every=4"))):
+                h_argv = [f for f in argv(f"host_{name}", "--no_fast_loop",
+                                          *extra) if f != "--no_summaries"]
+                _r, h_out, _c = _run_trainer(h_argv, f"host {name}", device)
+                host[name] = [float(m) for m in re.findall(
+                    r"AvgTime: +(\d+\.\d+)ms", h_out)][1:]
+            out.update(skip_ab=ab, host_hist=host)
+            log(f"[monitoring] (d) graph epoch, warm ms a step, {rounds} "
+                f"interleaved rounds: plain {[round(t, 4) for t in ab['plain']]}"
+                f" (median {statistics.median(ab['plain']):.4f}), skip mask "
+                f"{[round(t, 4) for t in ab['skip']]} (median "
+                f"{statistics.median(ab['skip']):.4f}); host path steps 2-8 "
+                f"ms: plain {host['plain']} (median "
+                f"{statistics.median(host['plain']):.3f}), --histograms "
+                f"{host['histograms']} (median "
+                f"{statistics.median(host['histograms']):.3f}) on {card} "
+                f"({time.monotonic() - t0:.1f} s)")
+
+        # (e) the transformer under a profiler window
+        t0 = time.monotonic()
+        t_argv = list(tfm_flags) + TFM_PROFILE_FLAGS + [
+            f"--logs_path={tmp}/tfm"] + ([] if on_card else ["--device=cpu"])
+        tres, _o, tcounts = _run_trainer(t_argv, "transformer profile",
+                                         device, fast=True,
+                                         wrappers=TFM_WRAPPERS)
+        traces = sorted(glob.glob(f"{tmp}/tfm/profile/trace.*.json"))
+        if tres["profile_windows"] != 1 or len(traces) != 1:
+            raise AssertionError(f"profile: {tres['profile_windows']} "
+                                 f"windows, traces {traces}")
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e.get("name", "") for e in events}
+        device_names = {e.get("name", "") for e in events
+                        if e.get("cat") == "kernel"}
+        scopes = sorted(n for n in names if n in TRACE_SCOPES
+                        or n.startswith("train#"))
+        # the trace names kernels demangled ("void flash_dq_tc_kernel<
+        # true>(...)"); FLASH_TC holds the mangled fragments
+        kernels = sorted({k for k, frag in FLASH_TC.items()
+                          for n in device_names
+                          if frag in n or FLASH_TC_DEMANGLED[k] in n})
+        want_kernels = {"stats", "dq", "dkv"} if on_card else set()
+        if not scopes or not want_kernels <= set(kernels):
+            flash = sorted(n[:120] for n in names if "flash" in n)[:10]
+            raise AssertionError(f"profile: scopes {scopes}, flash kernels "
+                                 f"{kernels} ({len(device_names)} kernel "
+                                 f"names; flash names {flash}) in "
+                                 f"{traces[0]}")
+        t_rows = [r for r in metrics.read_metrics(
+            f"{tmp}/tfm/metrics.0.jsonl") if r["kind"] == "window"]
+        log(f"[monitoring] (e) transformer_wide_long under "
+            f"{' '.join(TFM_PROFILE_FLAGS)}: Chrome trace "
+            f"{os.path.getsize(traces[0])} bytes, {len(events)} events, "
+            f"{len(device_names)} kernel names, "
+            f"scopes {scopes}, flash kernels {kernels}; rows: mfu "
+            f"{[r['mfu'] for r in t_rows]}, TFLOP/s "
+            f"{[r['tflops_per_sec'] for r in t_rows]}, step time "
+            f"{[r['step_time_p50_ms'] for r in t_rows]} ms; launches "
+            f"{tcounts} ({time.monotonic() - t0:.1f} s)")
+        out.update(tfm_mfu=[r["mfu"] for r in t_rows], tfm_counts=tcounts,
+                   tfm_row=t_rows[-1] if t_rows else None)
+    log(f"[monitoring] phase 5c took {time.monotonic() - t_phase:.1f} s")
+    return out
 
 
 def phase_cli(card: str) -> dict:
@@ -3083,6 +3456,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = phase_train(card)
     resilience = phase_resilience(card)
+    monitoring = phase_monitoring(card, train["counts"])
     cli = phase_cli(card)
     tfm_train = phase_transformer_train(card)
     phase_transformer_step(card)
@@ -3102,6 +3476,10 @@ def main() -> int:
                "mlp_train": train["counts"],
                "resilience": resilience["counts"],
                "resilience_resumed": resilience["resumed_counts"],
+               "monitoring": monitoring["counts"],
+               "monitoring_skip": monitoring["skip_counts"],
+               "monitoring_halt": monitoring["halt_counts"],
+               "monitoring_tfm": monitoring["tfm_counts"],
                "mlp_cli": cli["counts"],
                "transformer_train": tfm_train["counts"],
                "moe_train": moe_train[0]["counts"],
@@ -3166,6 +3544,15 @@ def main() -> int:
         f"{resilience['stall_ms']}, snapshot write {resilience['write_ms']:.1f}"
         f" ms mean, {resilience['snap_bytes']} bytes a snapshot, "
         f"{resilience['bytes_written']} written on {smi}")
+    ab, hist = monitoring["skip_ab"], monitoring["host_hist"]
+    log(f"[monitoring] graph path mfu {monitoring['mfu']}, skip mask "
+        f"median {statistics.median(ab['skip']):.4f} vs plain "
+        f"{statistics.median(ab['plain']):.4f} ms a step; host path "
+        f"--histograms median {statistics.median(hist['histograms']):.3f} "
+        f"vs plain {statistics.median(hist['plain']):.3f} ms; blow-up first "
+        f"flagged step {monitoring['first_flagged']}, halted at step "
+        f"{monitoring['halt_step']}; transformer_wide_long mfu "
+        f"{monitoring['tfm_mfu']} on {smi}")
     for name, r in train["runs"].items():
         log(f"[train] {name}: median step {r['step_ms_median']:.3f} ms, "
             f"peak memory {r['peak_gib']:.3f} GiB on {smi}")

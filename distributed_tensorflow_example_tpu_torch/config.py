@@ -9,7 +9,10 @@ refuses them with a message naming ROADMAP.md instead of ignoring them.
 flags only (the MLP's and the single-device transformer's, MoE and
 ``--fp8_ffn`` included; the classic and sharded checkpoints, ``--resume``
 and the resilience store's ``--ckpt_every``; the ``ckpt`` phase spans of
-``--trace_spans``), and refuses every other flag of the JAX trainer
+``--trace_spans``; the monitoring flags ``--metrics``, ``--flight``,
+``--on_anomaly``, ``--status_port``, ``--histograms``, ``--profile*``,
+``--early_stop_patience`` and ``--debug_nans``; ``--profile_port`` is
+refused for good), and refuses every other flag of the JAX trainer
 (exit 2, naming ROADMAP.md) rather than ignore it: expert, sequence,
 tensor and pipeline parallelism (``--expert_parallel``,
 ``--sequence_parallel``, ``--sp_impl``, ``--model_parallel``,
@@ -155,6 +158,38 @@ class Config:
                                     # card before the host waits on the
                                     # oldest; 0 = the default for the
                                     # device (1 on the CPU, 32 on the card)
+    # ---- monitoring (obs/): telemetry rows, forensics, profiling ----
+    metrics: bool = False           # one JSON row per --log_every window
+                                    # to <logs_path>/metrics.<proc>.jsonl
+                                    # (step-time percentiles, the host
+                                    # split, examples/s, MFU, memory) +
+                                    # heartbeats and the chief's
+                                    # straggler events
+    log_every: int = 100            # metrics window in steps; also the
+                                    # --histograms summary cadence
+    flight: bool = False            # flight recorder: the last K step
+                                    # records + an env snapshot dumped to
+                                    # <logs_path>/flight/<proc>.json on a
+                                    # crash, an anomaly or SIGUSR1 (on
+                                    # whenever --on_anomaly is set)
+    flight_steps: int = 64          # the flight recorder's ring size K
+    on_anomaly: str = ""            # "" (off) | halt | dump | skip
+                                    # (obs/anomaly.py)
+    anomaly_factor: float = 10.0    # loss-EMA watchdog: flag a loss above
+                                    # factor * EMA
+    status_port: int = 0            # > 0: the chief serves /status,
+                                    # /metrics, /report over logs_path
+    histograms: bool = False        # grad-norm / param-norm / lr
+                                    # summaries every --log_every steps
+                                    # (forces the host path)
+    profile: bool = False           # whole-run torch.profiler trace
+    profile_steps: str = ""         # "START:COUNT": windowed capture
+    profile_port: int = 0           # JAX's on-demand profiler server:
+                                    # no torch counterpart, refused
+    early_stop_patience: int = 0    # > 0: stop after P epochs without a
+                                    # better validation accuracy
+    debug_nans: bool = False        # host path; FloatingPointError at
+                                    # the first non-finite loss or grad
     # ---- the port's own ----
     device: Optional[str] = None    # None = cuda
 
@@ -600,6 +635,72 @@ def build_train_parser() -> argparse.ArgumentParser:
                         "of the default device-resident epoch (the whole "
                         "split on the card, shuffled there each epoch; "
                         "the MLP's step replayed as a CUDA graph)")
+    p.add_argument("--metrics", action="store_true",
+                   help="write structured telemetry rows (step-time "
+                        "percentiles, data-wait/device split, examples/s, "
+                        "MFU, memory) to <logs_path>/metrics.<proc>.jsonl "
+                        "every --log_every steps (one row an epoch on the "
+                        "fast path), plus per-process heartbeat files and "
+                        "the chief's straggler events")
+    p.add_argument("--log_every", type=int, default=d.log_every,
+                   help="metrics window size in steps (also the "
+                        "--histograms summary cadence)")
+    p.add_argument("--flight", action="store_true",
+                   help="crash flight recorder: last --flight_steps "
+                        "step records + env snapshot dumped to "
+                        "<logs_path>/flight/<proc>.json on crash, "
+                        "anomaly or SIGUSR1 (with stack dumps)")
+    p.add_argument("--flight_steps", type=int, default=d.flight_steps,
+                   help="flight-recorder ring capacity (last K steps)")
+    p.add_argument("--on_anomaly", type=str, default=d.on_anomaly,
+                   choices=["", "halt", "dump", "skip"],
+                   help="in-step anomaly policy: halt (record + stop; "
+                        "takes the host path), dump (flight dump + "
+                        "continue), skip (the step masks the update on a "
+                        "non-finite loss or gradient, on the card and "
+                        "inside the CUDA graph; skipped steps "
+                        "accounted). Enables the flight recorder and the "
+                        "loss-EMA divergence watchdog")
+    p.add_argument("--anomaly_factor", type=float, default=d.anomaly_factor,
+                   help="divergence watchdog threshold: flag a loss "
+                        "above factor * rolling EMA")
+    p.add_argument("--status_port", type=int, default=d.status_port,
+                   help="serve live run status over HTTP on this port "
+                        "(chief only): /status JSON, /metrics "
+                        "Prometheus text, /report goodput report")
+    p.add_argument("--status_cache_s", type=float,
+                   default=d.status_cache_s,
+                   help="status-server response cache TTL in seconds "
+                        "(0 = recompute on every request)")
+    p.add_argument("--histograms", action="store_true",
+                   help="emit grad-norm/param-norm histogram and "
+                        "learning-rate summaries into the event file "
+                        "every --log_every steps (host path; no per-step "
+                        "host sync)")
+    p.add_argument("--profile", action="store_true",
+                   help="whole-run torch.profiler trace (skews perf and "
+                        "grows unboundedly; prefer --profile_steps), a "
+                        "Chrome trace under <logs_path>/profile/")
+    p.add_argument("--profile_steps", type=str, default=d.profile_steps,
+                   metavar="START:COUNT",
+                   help="windowed torch.profiler capture: trace exactly "
+                        "COUNT steps starting at global step START "
+                        "(0-based), with record_function and NVTX ranges "
+                        "named as the --metrics timing split; a Chrome "
+                        "trace under <logs_path>/profile/; replaces "
+                        "--profile")
+    p.add_argument("--profile_port", type=int, default=d.profile_port,
+                   help="refused: JAX's on-demand profiler server has no "
+                        "PyTorch counterpart (use --profile_steps)")
+    p.add_argument("--early_stop_patience", type=int,
+                   default=d.early_stop_patience,
+                   help="stop after P epochs without validation "
+                        "improvement (0 = off)")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="take the host path and raise FloatingPointError "
+                        "at the first step whose loss or gradients are "
+                        "not finite (superseded by --on_anomaly, which "
+                        "records forensics context)")
     p.add_argument("--device", type=str, default=d.device,
                    choices=["cuda", "cpu"],
                    help="where training runs (default: the card)")
@@ -616,7 +717,58 @@ def parse_train_config(argv: Sequence[str] | None = None) -> Config:
                         if a.startswith("-")}) or rest
         p.error(f"{', '.join(flags)}: not ported to the PyTorch trainer "
                 f"yet (see ROADMAP.md Queue A)")
+    if ns.profile_port:
+        p.error(PROFILE_PORT_REFUSED)
     return Config(**vars(ns))
+
+
+PROFILE_PORT_REFUSED = (
+    "--profile_port: JAX's on-demand profiler server has no PyTorch "
+    "counterpart and is refused for good (use --profile_steps START:COUNT "
+    "for a windowed torch.profiler trace)")
+
+
+def validate_monitoring_config(cfg: Config) -> None:
+    """The monitoring flags' checks, with the JAX trainer's messages."""
+    if cfg.log_every < 1:
+        raise ValueError(f"log_every={cfg.log_every} must be >= 1")
+    if cfg.histograms and not cfg.summaries:
+        raise ValueError("--histograms writes histogram summaries "
+                         "into the event file; do not combine "
+                         "with --no_summaries")
+    from .obs import tracer as tracer_lib
+
+    # raises ValueError on a malformed START:COUNT
+    window = tracer_lib.parse_profile_steps(cfg.profile_steps)
+    if window is not None and cfg.profile:
+        raise ValueError("--profile_steps replaces the whole-run "
+                         "--profile trace; drop one of the two")
+    if cfg.profile_port:
+        raise ValueError(PROFILE_PORT_REFUSED)
+    if cfg.status_port < 0:
+        raise ValueError(f"status_port={cfg.status_port} must be >= 0")
+    if cfg.status_cache_s < 0:
+        raise ValueError(
+            f"status_cache_s={cfg.status_cache_s} must be >= 0 (0 = "
+            f"recompute on every request)")
+    from .obs.anomaly import POLICIES
+
+    if cfg.on_anomaly not in POLICIES:
+        raise ValueError(
+            f"on_anomaly={cfg.on_anomaly!r}: expected one of "
+            f"{[p for p in POLICIES if p]}")
+    if cfg.on_anomaly and cfg.debug_nans:
+        raise ValueError("--debug_nans is superseded by --on_anomaly "
+                         "(it stops at the first non-finite step with no "
+                         "forensics context); drop one of the two")
+    if cfg.on_anomaly and cfg.anomaly_factor <= 1.0:
+        raise ValueError(
+            f"anomaly_factor={cfg.anomaly_factor} must be > 1")
+    if cfg.flight_steps < 1:
+        raise ValueError(f"flight_steps={cfg.flight_steps} must be >= 1")
+    if cfg.early_stop_patience < 0:
+        raise ValueError(
+            f"early_stop_patience={cfg.early_stop_patience} must be >= 0")
 
 
 def validate_resilience_config(cfg: Config) -> None:
@@ -673,6 +825,7 @@ def validate_train_config(cfg: Config) -> None:
                          "file is written by the chief synchronously)")
     validate_span_config(cfg)
     validate_resilience_config(cfg)
+    validate_monitoring_config(cfg)
     if cfg.dispatch_depth < 0:
         raise ValueError(f"dispatch_depth={cfg.dispatch_depth} must be "
                          f">= 0 (0 = the device's default)")

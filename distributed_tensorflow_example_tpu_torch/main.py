@@ -5,18 +5,22 @@
 The JAX trainer's flag names and defaults (``config.build_train_parser``)
 drive ``train/loop.run`` on the card; ``--device cpu`` runs on the CPU.
 A flag, value or mode of the JAX trainer that the port does not have yet
-exits 2 with a message naming ROADMAP.md, and so do the operator switches
-the JAX ``main`` reads from the environment (``DTX_METRICS``,
-``DTX_FLIGHT``, ``DTX_STATUS_PORT``).  The JAX platform switch
-``DTX_PLATFORM`` is not read: ``--device`` picks the device.
+exits 2 with a message naming ROADMAP.md.  The operator switches the JAX
+``main`` reads from the environment turn flags on as there:
+``DTX_METRICS=1`` is ``--metrics``, ``DTX_FLIGHT=1`` is ``--flight`` and
+``DTX_STATUS_PORT=P`` is ``--status_port=P`` (gated on the value: a
+templated ``DTX_METRICS=0`` stays off, and a flag already given wins).
+The JAX platform switch ``DTX_PLATFORM`` is not read: ``--device`` picks
+the device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 
-from .config import Unported, parse_train_config
+from .config import Config, Unported, parse_train_config
 
 
 def _env_flag(name: str) -> bool:
@@ -24,18 +28,22 @@ def _env_flag(name: str) -> bool:
             in ("1", "true", "yes", "on"))
 
 
-def main(argv=None) -> int:
-    cfg = parse_train_config(argv)
-    refused = [name for name in ("DTX_METRICS", "DTX_FLIGHT")
-               if _env_flag(name)]
+def apply_env_switches(cfg: Config) -> Config:
+    """``cfg`` with the ``DTX_METRICS``, ``DTX_FLIGHT`` and
+    ``DTX_STATUS_PORT`` switches applied, as the JAX ``main`` applies
+    them."""
+    for env_name, field in (("DTX_METRICS", "metrics"),
+                            ("DTX_FLIGHT", "flight")):
+        if _env_flag(env_name) and not getattr(cfg, field):
+            cfg = dataclasses.replace(cfg, **{field: True})
     port = os.environ.get("DTX_STATUS_PORT", "").strip()
-    if port.isdigit() and int(port):
-        refused.append("DTX_STATUS_PORT")
-    if refused:
-        print(f"dtx-train (torch): {', '.join(refused)} not ported to the "
-              f"PyTorch trainer yet (see ROADMAP.md Queue A)",
-              file=sys.stderr)
-        return 2
+    if port.isdigit() and int(port) and not cfg.status_port:
+        cfg = dataclasses.replace(cfg, status_port=int(port))
+    return cfg
+
+
+def main(argv=None) -> int:
+    cfg = apply_env_switches(parse_train_config(argv))
     from .train.loop import run
 
     try:

@@ -5,5 +5,9 @@ their federated form (``slo``), per-request latency waterfalls
 contracts (``schema``), workload capture and synthesis
 (``workload``), the status server (``serve``) and what it reads: the
 run report (``aggregate``), heartbeats (``heartbeat``), the fleet
-collector (``collector``) and its queueing analytics (``queueing``).
-Pure Python: no torch, and nothing of the JAX package."""
+collector (``collector``) and its queueing analytics (``queueing``);
+and the trainer's monitoring: the metrics stream (``metrics``), FLOPs
+and MFU (``flops``), the anomaly policy (``anomaly``), the flight
+recorder (``flight``) and the windowed profiler (``tracer``).  Nothing
+of the JAX package; ``flops``, ``metrics``, ``flight`` and ``tracer``
+read torch for the card's name, memory and profiler."""

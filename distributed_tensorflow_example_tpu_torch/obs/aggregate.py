@@ -10,8 +10,8 @@ across processes, a throughput summary, a subsampled trajectory, and an
 anomaly/restart timeline.  It is what the status server's ``/report``
 serves.  ``metrics_files`` and ``has_streams`` are the one definition of
 a run dir's streams (the status server and the fleet collector reuse
-them).  The port's trainer writes no metrics streams yet (ROADMAP.md
-Queue A), so the report reads streams in the JAX package's row format.
+them).  The port's trainer writes its streams (``--metrics``) in the
+JAX package's row format, so the report reads either package's.
 
 Everything here is a pure function over files: no torch.
 """

@@ -1,6 +1,6 @@
 """The name registries of the port's ``obs/`` — its copy of the JAX
-package's ``obs/buckets.py`` (all but the trace and named scopes, which
-name JAX regions).
+package's ``obs/buckets.py`` (all but the named scopes, which name
+regions inside JAX's compiled step).
 
 ``SPAN_EVENTS`` is the one vocabulary of the ``spans.<proc>.jsonl``
 stream: ``SpanRecorder.emit`` refuses any other name, and
@@ -19,7 +19,8 @@ JAX stream validates here) and ``route``/``failover`` the fleet router's
 narration.
 
 ``WINDOW_BUCKETS``/``HOST_BUCKET`` name the timing fields of a metrics
-window row and ``GOODPUT_BUCKETS`` the run report's wall decomposition
+window row, ``TRACE_SCOPES`` the ``torch.profiler`` and NVTX ranges the
+trainer's ``--profile_steps`` capture annotates (``obs/tracer.py``), and ``GOODPUT_BUCKETS`` the run report's wall decomposition
 (``obs/aggregate.py``); ``RESTART_EVENTS`` is the vocabulary of the
 ``restarts.jsonl`` timeline (``resilience/restart.RestartNarrator``).
 """
@@ -52,6 +53,10 @@ WINDOW_BUCKETS = ("data_wait", "h2d", "dispatch", "device_wait", "ckpt")
 
 # the residual bucket name (field "host_s"): wall not charged above
 HOST_BUCKET = "host"
+
+# valid WindowedTracer.annotate range names: the charge buckets plus the
+# host phases outside the step window
+TRACE_SCOPES = WINDOW_BUCKETS + ("eval", "checkpoint")
 
 # run-level goodput/badput decomposition, in presentation order ("train"
 # is the goodput bucket, "eval"/"sample" auxiliary useful work, the rest

@@ -6,8 +6,10 @@ boundaries with its current step and wall time (write-then-rename, so a
 reader never sees a torn file).  ``read_heartbeats`` is what the status
 server's ``/status`` and the run report read; ``straggler_report`` folds
 the files into the chief's max step lag, slowest process and oldest
-heartbeat age.  The port's trainer does not touch heartbeats yet
-(ROADMAP.md Queue A), so over a serving logs dir the readers find none.
+heartbeat age.  The trainer touches its heartbeat at every metrics
+window under ``--metrics``, and its chief writes the ``stragglers``
+events from ``straggler_report``; over a serving logs dir the readers
+find none.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 validators — the port's copy of the parts of the JAX package's
 ``obs/schema.py`` that its serving stack reads and writes: the span
 rows, the metrics rows the status server and the run report read, the
-restart timeline, the run report, the fleet report, the waterfall and
-the workload document.
+restart timeline, the run report, the fleet report, the waterfall, the
+workload document and the trainer's metrics stream and flight dumps.
 
 ``SCHEMA_VERSION`` is the JAX package's (10), so the two packages'
 streams validate against each other.  Validators return a list of error
@@ -70,6 +70,33 @@ if _SCHEMA_BUCKET_FIELDS != _BUCKET_FIELDS:
 # kind == "event": point events; free-form payload beyond these
 METRICS_EVENT = {
     "event": (str,),
+}
+
+# the trainer's flight recorder dump (obs/flight.py): flight/<proc>.json
+FLIGHT_DUMP = {
+    "version": (int,),
+    "proc": (int,),
+    "reason": (str,),
+    "t": _NUM,
+    "last_step": (int, type(None)),
+    "steps": (list,),
+    "windows": (list,),
+    "anomalies": (list,),
+    "env": (dict,),
+}
+
+# every record of a dump's steps and windows rings
+FLIGHT_STEP_RECORD = {
+    "step": (int,),
+    "t": _NUM,
+}
+
+# every record of a dump's anomalies ring (obs/anomaly.py)
+FLIGHT_ANOMALY_RECORD = {
+    "step": (int,),
+    "t": _NUM,
+    "reasons": (list,),
+    "policy": (str,),
 }
 
 # the envelope of every span row
@@ -390,6 +417,55 @@ def validate_metrics_row(row: Dict[str, Any],
     return errs
 
 
+def validate_metrics_file(path: str) -> List[str]:
+    """Validate every line of a metrics.<proc>.jsonl file."""
+    errs: List[str] = []
+    with open(path) as f:
+        for i, line in enumerate(f, 1):
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                row = json.loads(line)
+            except ValueError as e:
+                errs.append(f"line {i}: not JSON ({e})")
+                continue
+            errs += validate_metrics_row(row, where=f"line {i}")
+    return errs
+
+
+def validate_flight_dump(doc: Dict[str, Any],
+                         where: str = "dump") -> List[str]:
+    """Validate a flight/<proc>.json document, every step, window and
+    anomaly record inside it included."""
+    if not isinstance(doc, dict):
+        return [f"{where}: not an object"]
+    verrs = _version_errs(doc, "version", where)
+    if verrs:
+        return verrs
+    errs = _check(doc, FLIGHT_DUMP, where)
+    for i, rec in enumerate(doc.get("steps") or []):
+        errs += _check(rec, FLIGHT_STEP_RECORD, f"{where}.steps[{i}]")
+    for i, rec in enumerate(doc.get("windows") or []):
+        errs += _check(rec, FLIGHT_STEP_RECORD, f"{where}.windows[{i}]")
+    for i, rec in enumerate(doc.get("anomalies") or []):
+        errs += _check(rec, FLIGHT_ANOMALY_RECORD,
+                       f"{where}.anomalies[{i}]")
+    exc = doc.get("exception")
+    if exc is not None and not isinstance(exc, dict):
+        errs.append(f"{where}: exception must be an object")
+    return errs
+
+
+def validate_flight_file(path: str) -> List[str]:
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except (OSError, ValueError) as e:
+        return [f"{path}: unreadable ({e})"]
+    return validate_flight_dump(doc, where=path)
+
+
 def validate_run_report(doc: Dict[str, Any],
                         where: str = "report") -> List[str]:
     """Validate an aggregate.py run report (its top-level contract and
@@ -518,7 +594,10 @@ def _version_errs(doc: Dict[str, Any], field: str, where: str) -> List[str]:
 
 
 __all__ = ["SCHEMA_VERSION", "METRICS_COMMON", "METRICS_WINDOW",
-           "METRICS_EVENT", "SPAN_COMMON", "SPAN_FIELDS", "SPAN_REQUIRED",
+           "METRICS_EVENT", "FLIGHT_DUMP", "FLIGHT_STEP_RECORD",
+           "FLIGHT_ANOMALY_RECORD", "validate_metrics_file",
+           "validate_flight_dump", "validate_flight_file", "SPAN_COMMON",
+           "SPAN_FIELDS", "SPAN_REQUIRED",
            "RESTART_EVENT", "RUN_REPORT", "FLEET_REPORT", "WATERFALL",
            "validate_metrics_row", "validate_span_row",
            "validate_span_file", "validate_restart_row",

@@ -33,10 +33,10 @@ stdlib only (``http.server``).
 ``/report``, ``/fleet`` and ``/explain`` share one ``TTLCache`` each
 (``cache_ttl_s``, the ``--status_cache_s`` flag).  The reader side only
 reads the files a run appends to, with bounded tail reads
-(``TAIL_BYTES``).  The port's trainer writes no metrics or heartbeat
-streams yet (ROADMAP.md Queue A), so over a serving logs dir ``/status``
-reports no processes and ``/report`` answers 500 until a metrics stream
-in the JAX package's row format is there.
+(``TAIL_BYTES``).  The port's trainer writes its metrics and heartbeat
+streams under ``--metrics`` and serves this server under
+``--status_port``; over a serving logs dir ``/status`` reports no
+processes and ``/report`` answers 500 until a metrics stream is there.
 """
 
 from __future__ import annotations

@@ -36,6 +36,7 @@ that fails raises.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Tuple
 
 import numpy as np
@@ -134,14 +135,20 @@ class _Runner:
     The returned arrays are device tensors the caller fetches.  The
     state passed in is consumed, as JAX donates it (``donate_argnums``):
     the run updates that ``TrainState`` and returns it, so no second
-    copy of the params and slots outlives the first step."""
+    copy of the params and slots outlives the first step.
+    ``compile_s`` is the host wall of the CUDA graph's warm-up and
+    capture (0 for an eager runner): the trainer logs it as the
+    ``compile`` event and keeps it out of its metrics rows' step time,
+    as JAX keeps its compile out."""
 
     def __init__(self, cfg, spec, optimizer, steps_per_epoch: int,
                  num_epochs: int):
         self.cfg, self.spec = cfg, spec
         self.spe, self.num_epochs = steps_per_epoch, num_epochs
+        # under --on_anomaly=skip the body masks a flagged update
         self.body = step_lib.make_sync_step_body(cfg, spec, optimizer)
         self._shuf = None           # (images, labels), allocated once
+        self.compile_s = 0.0
 
     def _shuffle(self, img, lbl, key, epoch: int) -> None:
         """Epoch ``epoch``'s permutation on the device, and the split
@@ -219,6 +226,8 @@ class _GraphRunner(_Runner):
 
     def _capture(self, img, lbl, b: int) -> None:
         dev = img.device
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
         self._divisor = _divisor(dev)
         self._arange = torch.arange(b, dtype=torch.int64, device=dev)
         self._i = torch.zeros((), dtype=torch.int64, device=dev)
@@ -253,6 +262,8 @@ class _GraphRunner(_Runner):
                       if n != before[k]}
         _counts.add_launches({k: -n for k, n in self.delta.items()})
         self.graph = graph
+        torch.cuda.synchronize(dev)
+        self.compile_s = time.perf_counter() - t0
 
     def __call__(self, state, img, lbl, key, epoch_offset: int = 0):
         b = self._check(img)

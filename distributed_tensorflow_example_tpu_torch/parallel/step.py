@@ -23,10 +23,13 @@ in the objective (``--moe_aux_weight``), per-step dropout masks and
 The step (``make_sync_step_body``) reads nothing back from the card
 when it is given the host's step index, so the device-resident epoch
 (``parallel/epoch.py``) captures the MLP's in a CUDA graph and runs the
-transformer's without a per-step host sync.
-Tensor, sequence, expert and pipeline parallelism, FSDP/ZeRO, local SGD,
-``--on_anomaly`` and the ``--histograms`` norms are not ported
-(ROADMAP.md Queue A).
+transformer's without a per-step host sync.  The telemetry it can
+return stays on the card too: the ``--histograms`` per-leaf gradient and
+parameter norms, the ``--on_anomaly`` non-finite counts and flag, and
+under ``--on_anomaly=skip`` the update masked on that flag with
+``torch.where``, so the masked step is captured like any other.
+Tensor, sequence, expert and pipeline parallelism, FSDP/ZeRO and local
+SGD are not ported (ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -137,11 +140,62 @@ def make_step_rng(cfg, spec) -> Callable:
     return step_rng
 
 
-def make_sync_step_body(cfg, spec, optimizer) -> Callable:
+def leaf_names(spec) -> list:
+    """The params' leaf names in the order of the step's telemetry
+    vectors, spelled as the JAX package's pytree key paths (``['W1']``):
+    both packages walk the param dict in sorted key order, so the norms
+    and the non-finite counts line up leaf for leaf, and an anomaly's
+    blame names the same leaves in either package."""
+    return [f"[{k!r}]" for k in sorted(param_shapes(spec))]
+
+
+def _leaf_norms(tree: dict, names) -> torch.Tensor:
+    """Per-leaf L2 norms as one [n_leaves] f32 vector, in ``names``
+    order."""
+    return torch.sqrt(torch.stack(
+        [torch.sum(torch.square(tree[k].to(torch.float32)))
+         for k in names]))
+
+
+def _leaf_nonfinite(tree: dict, names) -> torch.Tensor:
+    """Per-leaf non-finite element counts as one [n_leaves] int32
+    vector, in ``names`` order.  ``g - g`` is 0 exactly where ``g`` is
+    finite and NaN where it is an inf or a NaN: two elementwise passes
+    where ``~isfinite`` takes five on the card."""
+    return torch.stack(
+        [torch.sum(torch.isnan(tree[k] - tree[k]), dtype=torch.int32)
+         for k in names])
+
+
+def _keep_where(flag: torch.Tensor, new, old):
+    """``new`` with every tensor leaf replaced by ``old``'s where
+    ``flag`` (a 0-d bool tensor) is set; SGD's empty slots pass
+    through."""
+    if isinstance(new, dict):
+        return {k: _keep_where(flag, new[k], old[k]) for k in new}
+    if isinstance(new, torch.Tensor):
+        return torch.where(flag, old, new)
+    return new
+
+
+def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
+                        with_anomaly: bool = False) -> Callable:
     """``(state, x, y, step_index=None) -> (state, cost, acc)`` over this
     process's slice ``x``/``y`` of the global batch: ``grad_accum``
     microbatches (the mean of their gradients), the all-reduce across
     processes, ``grad_clip``, the optimizer update, ``step + 1``.
+
+    ``with_norms`` (``--histograms``) appends ``{"grad": [n_leaves],
+    "param": [n_leaves]}``: the per-leaf L2 norms of the gradients
+    before the clip and of the updated params, f32.  ``with_anomaly``
+    (``--on_anomaly``) appends a last ``{"flag": bool, "counts":
+    [n_leaves] int32}``: "this step's loss or a gradient is not finite",
+    and the per-leaf non-finite counts of the gradients before the clip
+    (the blame vector).  Both are in ``leaf_names`` order.  Under
+    ``cfg.on_anomaly == "skip"`` the update is masked on the flag (here
+    and in the device-resident epoch, which runs this body): a flagged
+    step keeps the old params and optimizer slots, and ``step`` still
+    advances.
 
     The step is capturable in a CUDA graph: it reads nothing back from
     the card, as long as the caller passes ``step_index`` (the value of
@@ -151,6 +205,8 @@ def make_sync_step_body(cfg, spec, optimizer) -> Callable:
     names = sorted(param_shapes(spec))
     step_rng = make_step_rng(cfg, spec)
     remat = getattr(cfg, "remat", False)
+    skip = getattr(cfg, "on_anomaly", "") == "skip"
+    detect = with_anomaly or skip
 
     def grad_of(params, x, y, rng):
         leaves = {k: params[k].detach().requires_grad_(True) for k in names}
@@ -188,11 +244,26 @@ def make_sync_step_body(cfg, spec, optimizer) -> Callable:
             cost, acc = stats[0] / world, stats[1] / world
             if cfg.grad_reduce == "mean":
                 grads = {k: g / world for k, g in grads.items()}
+        # the telemetry reads the raw gradients, before the clip
+        grad_norms = _leaf_norms(grads, names) if with_norms else None
+        if detect:
+            counts = _leaf_nonfinite(grads, names)
+            flag = torch.any(counts > 0) | ~torch.isfinite(cost)
         if cfg.grad_clip > 0:
             grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
         new_params, new_opt = optimizer.update(grads, state.opt_state,
                                                state.params)
-        return TrainState(state.step + 1, new_params, new_opt), cost, acc
+        if skip:
+            # a flagged step keeps the old params and slots, on the card
+            new_params = _keep_where(flag, new_params, state.params)
+            new_opt = _keep_where(flag, new_opt, state.opt_state)
+        out = (TrainState(state.step + 1, new_params, new_opt), cost, acc)
+        if with_norms:
+            out += ({"grad": grad_norms,
+                     "param": _leaf_norms(new_params, names)},)
+        if with_anomaly:
+            out += ({"flag": flag, "counts": counts},)
+        return out
 
     return body
 

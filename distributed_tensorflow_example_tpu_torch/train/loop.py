@@ -59,6 +59,35 @@ newest valid snapshot and skips the batches of its epoch already done,
 so the run continues bitwise as if never interrupted.  Preemptions,
 snapshots and resumes land on ``<logs_path>/restarts.jsonl``, and under
 ``--trace_spans`` each checkpoint is a ``ckpt`` phase span.
+
+Monitoring (``obs/``), as in the JAX trainer:
+
+- ``--metrics``: ``<logs_path>/metrics.<proc>.jsonl``, one window row
+  every ``--log_every`` steps on the host path (``WindowTimer``'s
+  data_wait / h2d / dispatch / device_wait / ckpt / host split) and one
+  an epoch on the fast path (``path: "fast"``, ``timing:
+  "epoch_mean"``), with examples/s, tokens/s and MFU against the card's
+  peak (``obs/flops``; null on the CPU), the ``compile`` event (the
+  graph's warm-up and capture, kept out of the rows' step time), the
+  chief's ``stragglers`` events over the heartbeats, and ``run_end``;
+- ``--on_anomaly``: the step returns its non-finite flag and per-leaf
+  counts; ``skip`` masks the update on the card (in the CUDA graph
+  too), ``dump`` writes a flight dump and continues (both keep the
+  fast path, judged post hoc over each epoch's costs), ``halt`` takes
+  the host path, fetches the flags lazily and raises ``AnomalyError``;
+- ``--flight``: the ring of the last ``--flight_steps`` steps, dumped to
+  ``<logs_path>/flight/<proc>.json`` on a crash, a halt, an anomaly
+  under ``dump`` or SIGUSR1, and the chief's ``flight/report.json``;
+- ``--histograms``: per-leaf gradient and parameter norms and the
+  learning rate as summaries every ``--log_every`` steps (host path);
+- ``--profile`` / ``--profile_steps``: a ``torch.profiler`` capture
+  written as a Chrome trace under ``<logs_path>/profile/``, the host
+  phases as ``record_function`` and NVTX ranges;
+- ``--status_port``: the status server over ``logs_path`` for the run's
+  lifetime;
+- ``--early_stop_patience``: the validation split after every epoch;
+  ``--debug_nans``: the host path, ``FloatingPointError`` at the first
+  non-finite loss or gradient.
 """
 
 from __future__ import annotations
@@ -242,6 +271,21 @@ def _reserve_host_buffers(state, dev, sets: int = 3) -> None:
     del held
 
 
+def _host_lr(cfg: Config, total_steps: int):
+    """The host's mirror of ``make_optimizer``'s lr schedule: step
+    (1-based) -> learning rate, for the ``--histograms`` summaries (the
+    step on the card never exports its lr)."""
+    from .optim import schedule_multiplier
+
+    if cfg.lr_schedule == "constant" and not cfg.warmup_steps:
+        return lambda step: float(cfg.learning_rate)
+    mult = schedule_multiplier(cfg.lr_schedule, cfg.warmup_steps,
+                               cfg.schedule_steps or total_steps,
+                               cfg.lr_min_factor)
+    return lambda step: float(cfg.learning_rate) * float(
+        mult(torch.tensor(float(step), dtype=torch.float32)))
+
+
 # the JAX trainer's checkpoint extras of layouts the port does not have:
 # their states would not restore into the port's template
 _FOREIGN_LAYOUTS = ("zero_dp", "sites", "fsdp_mp", "pp_stages",
@@ -256,23 +300,40 @@ def run(cfg: Config) -> Dict[str, Any]:
     spec = make_spec(cfg)
     cluster.bootstrap(cfg)
     writer = None
-    # resilience handles, bound before the try so its finally can always
+    # handles bound before the try, so its except and finally can always
     # reach them
     ckpt_writer = None
     preempt_handler = None
     span_recorder = None
+    status_server = None
+    mlogger = None
+    flight = None
+    tracer = None
     try:
         proc_idx = cluster.process_index()
         proc_cnt = cluster.process_count()
         chief = proc_idx == 0
 
-        if chief and cfg.resume:
-            # a relaunch continues the same run: a reused logs_path keeps
-            # the preempted attempt's heartbeats and preemption dumps,
-            # and loses older crash leftovers
+        # run-start hygiene: a reused logs_path must not leak an older
+        # run's heartbeats and flight dumps into this run's straggler
+        # reports and post-mortems; a --resume relaunch continues the
+        # same run and keeps the preempted attempt's (obs/heartbeat.py)
+        if chief and (cfg.metrics or cfg.flight or cfg.on_anomaly
+                      or cfg.status_port):
             from ..obs.heartbeat import clear_stale_signals
 
-            clear_stale_signals(cfg.logs_path, resuming=True)
+            clear_stale_signals(cfg.logs_path, resuming=bool(cfg.resume))
+        # --status_port: /status, /metrics and /report over the files in
+        # logs_path (obs/serve.py), a pure reader; closed in the finally
+        if cfg.status_port and chief:
+            from ..obs.serve import StatusServer
+
+            status_server = StatusServer(cfg.logs_path,
+                                         cache_ttl_s=cfg.status_cache_s)
+            port = status_server.start(cfg.status_port)
+            if port:
+                print(f"Status server on port {port} "
+                      f"(/status /metrics /report)")
         # the restart timeline (<logs_path>/restarts.jsonl): preemptions,
         # snapshots and resumes, whenever the resilience path is on
         restart_narrator = None
@@ -311,18 +372,117 @@ def run(cfg: Config) -> Dict[str, Any]:
         total_steps = cfg.training_epochs * max(
             1, dataset.train.images.shape[0] // global_batch)
         optimizer = make_optimizer(cfg, total_steps)
+
+        # the wall spent outside the per-window buckets, on the run_end
+        # event, so obs/aggregate.py's decomposition sums to the wall
+        phase_s = {"compile": 0.0, "eval": 0.0, "sample": 0.0}
+
+        # --metrics: the per-process JSONL stream and heartbeat; MFU
+        # from obs/flops against the card's own peak (null on the CPU)
+        heartbeat = None
+        metrics_row = None
+        straggler_event = None
+        if cfg.metrics:
+            from ..obs import flops as flops_lib
+            from ..obs import heartbeat as hb_lib
+            from ..obs.metrics import MetricsLogger
+
+            mlogger = MetricsLogger(cfg.logs_path, process_index=proc_idx,
+                                    device=dev)
+            heartbeat = hb_lib.Heartbeat(cfg.logs_path,
+                                         process_index=proc_idx)
+            telemetry_start = time.time()
+            flops_step = flops_lib.model_flops_per_step(spec, global_batch)
+            peak = flops_lib.chip_peak_flops(dev)
+            toks = flops_lib.tokens_per_example(spec)
+
+            def metrics_row(step: int, epoch: int, cost: float,
+                            timing: Dict[str, Any]) -> None:
+                """One window row: identity + timing + throughput/MFU."""
+                row: Dict[str, Any] = dict(step=int(step), epoch=int(epoch),
+                                           cost=cost, **timing)
+                wall = timing.get("window_wall_s") or 0.0
+                steps_n = timing.get("steps") or 0
+                sps = steps_n / wall if wall > 0 and steps_n else None
+                row["examples_per_sec"] = (round(sps * global_batch, 3)
+                                           if sps else None)
+                row["tokens_per_sec"] = (round(sps * global_batch * toks, 1)
+                                         if sps and toks else None)
+                row["model_flops_per_step"] = flops_step
+                row["tflops_per_sec"] = (round(flops_step * sps / 1e12, 5)
+                                         if sps else None)
+                m = (flops_lib.mfu(flops_step, sps, peak, proc_cnt)
+                     if sps else None)
+                row["mfu"] = round(m, 6) if m is not None else None
+                mlogger.log_window(**row)
+
+            narrated_dead: set = set()
+
+            def straggler_event(epoch: int) -> None:
+                """The chief's straggler report over the heartbeats of
+                this attempt; a peer newly silent past the threshold
+                lands on the restart timeline once."""
+                if not chief:
+                    return
+                mlogger.log_event(
+                    "stragglers", epoch=int(epoch),
+                    **hb_lib.straggler_report(cfg.logs_path,
+                                              since=telemetry_start))
+                if restart_narrator is not None and proc_cnt > 1:
+                    from ..resilience.restart import dead_procs
+
+                    dead = set(dead_procs(
+                        hb_lib.read_heartbeats(cfg.logs_path),
+                        since=telemetry_start)) - {proc_idx}
+                    fresh = sorted(dead - narrated_dead)
+                    narrated_dead.clear()
+                    narrated_dead.update(dead)
+                    if fresh:
+                        restart_narrator.emit("dead_proc",
+                                              epoch=int(epoch), dead=fresh)
+
+        # failure forensics: the windowed profiler, the --on_anomaly
+        # policy and the flight recorder; the except below dumps the
+        # flight record on any failure, the finally stops the trace
+        from ..obs import anomaly as anomaly_lib
+        from ..obs import flight as flight_lib
+        from ..obs import tracer as tracer_lib
+
+        tracer = tracer_lib.WindowedTracer(
+            cfg.logs_path, window=tracer_lib.parse_profile_steps(
+                cfg.profile_steps), whole_run=cfg.profile, enabled=chief)
+        if cfg.flight or cfg.on_anomaly:
+            import dataclasses
+
+            flight = flight_lib.FlightRecorder(
+                cfg.logs_path, process_index=proc_idx,
+                capacity=cfg.flight_steps, config=dataclasses.asdict(cfg))
+            flight.install()
+        policy = None
+        if cfg.on_anomaly:
+            policy = anomaly_lib.AnomalyPolicy(
+                cfg.on_anomaly, leaf_names=step_lib.leaf_names(spec),
+                flight=flight, mlogger=mlogger,
+                watchdog=anomaly_lib.LossWatchdog(
+                    factor=cfg.anomaly_factor))
+
         state = create_train_state(spec, optimizer, seed=cfg.seed,
                                    device=dev)
         # the JAX gate (fast_loop, one process, shard_data or dp == 1) as
         # far as the port has its flags; with one process dp is 1.  The
         # resilience snapshots ride the host path's per-step safe point,
-        # and --resume=auto's in-epoch skip needs the host feed
+        # and --resume=auto's in-epoch skip needs the host feed;
+        # --histograms fetches the step's norms a window, halt must stop
+        # inside the epoch, and --debug_nans at the step: the host path
+        # (dump and skip compose with the fast path, as in JAX)
         fast = (cfg.fast_loop and proc_cnt == 1 and not cfg.ckpt_every
-                and cfg.resume != "auto")
+                and cfg.resume != "auto" and not cfg.histograms
+                and cfg.on_anomaly != "halt" and not cfg.debug_nans)
         print("Variables initialized ...")
 
         start_epoch = 0
         resume_skip = 0     # --resume=auto: batches of start_epoch done
+        resumed_extras: dict = {}
         if cfg.resume and cfg.checkpoint_dir:
             from ..resilience import resume as resume_lib
 
@@ -351,10 +511,10 @@ def run(cfg: Config) -> Dict[str, Any]:
                     plan, flat = found
                     path = plan.root_path
             if path:
-                extras = (dict(plan.extras) if plan is not None
-                          else ckpt_lib.load_extras(path))
-                foreign = {k: extras[k] for k in _FOREIGN_LAYOUTS
-                           if k in extras}
+                resumed_extras = (dict(plan.extras) if plan is not None
+                                  else ckpt_lib.load_extras(path))
+                foreign = {k: resumed_extras[k] for k in _FOREIGN_LAYOUTS
+                           if k in resumed_extras}
                 if foreign:
                     raise Unported(
                         f"checkpoint {path} was written with {foreign}: "
@@ -388,6 +548,47 @@ def run(cfg: Config) -> Dict[str, Any]:
                     cfg.num_classes, cfg.activation,
                     optimizer=cfg.optimizer))
 
+        # whole-run --profile starts here; --profile_steps windows open
+        # at their step.  Either way the finally stops the capture
+        tracer.begin_run()
+
+        # --early_stop_patience: the validation split after every epoch;
+        # best_val and val_wait ride the checkpoints' extras, so a
+        # resumed run replays the same early-stop trajectory
+        early = cfg.early_stop_patience > 0
+        best_val = float(resumed_extras.get("best_val", -1.0))
+        val_wait = int(resumed_extras.get("val_wait", 0))
+        eval_step = None            # the host path's, built once
+
+        def host_eval_accuracy(params, images, labels) -> float:
+            nonlocal eval_step
+            if eval_step is None:
+                eval_step = step_lib.build_eval_step(cfg, spec)
+            t0 = time.perf_counter()
+            try:
+                with tracer.annotate("eval"):
+                    return _eval_accuracy(
+                        eval_step, params, images, labels,
+                        step_lib.eval_chunk_cap(spec, cfg.eval_batch_size),
+                        dev)
+            finally:
+                phase_s["eval"] += time.perf_counter() - t0
+
+        def note_validation(val_acc: float) -> bool:
+            """Track the per-epoch validation accuracy; True = stop."""
+            nonlocal best_val, val_wait
+            if chief or cfg.eval_all_hosts:
+                print("Validation-Accuracy: %2.2f" % val_acc)
+            if val_acc > best_val + 1e-12:
+                best_val, val_wait = val_acc, 0
+                return False
+            val_wait += 1
+            return val_wait >= cfg.early_stop_patience
+
+        def ckpt_extras() -> dict | None:
+            return ({"best_val": best_val, "val_wait": val_wait}
+                    if early else None)
+
         def save_state(step: int, resume_epoch: int) -> None:
             """A classic checkpoint: every process writes its shard file
             and the chief the manifest under --sharded_checkpoints (the
@@ -399,10 +600,11 @@ def run(cfg: Config) -> Dict[str, Any]:
             if cfg.sharded_checkpoints:
                 ckpt_lib.save_checkpoint_sharded(
                     cfg.checkpoint_dir, state, step, resume_epoch,
-                    async_=cfg.async_checkpoints, on_complete=prune)
+                    ckpt_extras(), async_=cfg.async_checkpoints,
+                    on_complete=prune)
             elif chief:
                 ckpt_lib.save_checkpoint(cfg.checkpoint_dir, state, step,
-                                         resume_epoch)
+                                         resume_epoch, ckpt_extras())
                 if prune is not None:
                     prune()
 
@@ -416,7 +618,8 @@ def run(cfg: Config) -> Dict[str, Any]:
             every = cfg.checkpoint_every
             if ckpt_enabled and step // every > last_ckpt_step // every:
                 t_ck = time.perf_counter()
-                save_state(step, resume_epoch)
+                with tracer.annotate("checkpoint"):
+                    save_state(step, resume_epoch)
                 phase_span("ckpt", t_ck, step=step)
                 last_ckpt_step = step
 
@@ -460,7 +663,7 @@ def run(cfg: Config) -> Dict[str, Any]:
             if chief:
                 snap, ready = _host_snapshot(state, dev)
             ckpt_writer.submit(
-                int(step), int(epoch), snap,
+                int(step), int(epoch), snap, extras=ckpt_extras(),
                 data_state={"epoch": int(epoch),
                             "batches_done": int(batches_done),
                             "steps_done": int(step)},
@@ -474,6 +677,9 @@ def run(cfg: Config) -> Dict[str, Any]:
                 dev)
             fast_eval = epoch_lib.build_fast_eval(
                 cfg, spec, dataset.test.images, dataset.test.labels, dev)
+            fast_val = (epoch_lib.build_fast_eval(
+                cfg, spec, dataset.validation.images,
+                dataset.validation.labels, dev) if early else None)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
@@ -488,9 +694,13 @@ def run(cfg: Config) -> Dict[str, Any]:
             shuffle_key = prng.PRNGKey(cfg.seed + epoch_lib.SHUFFLE_SALT)
 
             def emit_epoch(epoch: int, costs: np.ndarray, accs: np.ndarray,
-                           avg_step_s: float) -> float:
-                """The epoch's summaries and prints from its per-step
-                arrays; returns the last printed cost."""
+                           avg_step_s: float,
+                           metrics_step_s: float | None = None) -> float:
+                """The epoch's summaries, prints and telemetry from its
+                per-step arrays; returns the last printed cost.
+                ``metrics_step_s`` leaves the graph's warm-up and
+                capture out of the metrics row (the print's AvgTime
+                keeps them, as JAX's keeps its compile)."""
                 nonlocal examples_seen
                 examples_seen += batch_count * global_batch
                 base_step = epoch * batch_count
@@ -509,42 +719,115 @@ def run(cfg: Config) -> Dict[str, Any]:
                                       batch_count, last, count * avg_step_s,
                                       frequency)
                         count = 0
+                if mlogger is not None:
+                    # one row an epoch from the returned arrays: no
+                    # per-step host timing, so the percentiles are the
+                    # epoch mean (timing "epoch_mean"), all device time
+                    m_s = (metrics_step_s if metrics_step_s is not None
+                           else avg_step_s)
+                    ms = round(m_s * 1e3, 4)
+                    wall = round(m_s * batch_count, 6)
+                    metrics_row(
+                        (epoch + 1) * batch_count, epoch, last,
+                        {"path": "fast", "timing": "epoch_mean",
+                         "steps": batch_count, "window_wall_s": wall,
+                         "step_time_p50_ms": ms, "step_time_p95_ms": ms,
+                         "step_time_max_ms": ms, "data_wait_s": 0.0,
+                         "h2d_s": 0.0, "dispatch_s": 0.0,
+                         "device_wait_s": wall, "ckpt_s": 0.0,
+                         "host_s": 0.0})
+                    heartbeat.touch((epoch + 1) * batch_count)
+                    straggler_event(epoch)
+                if flight is not None:
+                    # one enriched record an epoch: its cost and how
+                    # many of its per-step costs were not finite
+                    flight.record_window(
+                        (epoch + 1) * batch_count, epoch=epoch,
+                        path="fast", cost=float(last),
+                        nonfinite_steps=int(np.sum(~np.isfinite(costs))),
+                        step_wall_ms=round(avg_step_s * 1e3, 4))
+                if policy is not None:
+                    # post hoc over the returned costs; under skip the
+                    # step already masked the flagged updates on the card
+                    policy.on_epoch(epoch, costs, base_step=base_step)
                 return last
+
+            def log_compile(what: str, compile_s: float) -> None:
+                phase_s["compile"] += compile_s
+                if mlogger is not None:
+                    mlogger.log_event("compile", what=what,
+                                      dispatch_wall_s=round(compile_s, 3))
 
             n_ep = cfg.training_epochs - start_epoch
             steps_done = start_epoch * batch_count
-            if cfg.checkpoint_every == 0 and n_ep > 0:
+            if cfg.checkpoint_every == 0 and n_ep > 0 and not early:
                 # the whole run on the device, one fetch at its end
                 runner = epoch_lib.build_run_to_completion(
                     cfg, spec, optimizer, batch_count, n_ep, dev)
+                tracer.on_range(start_epoch * batch_count,
+                                (start_epoch + n_ep) * batch_count)
+                if flight is not None:
+                    flight.record_step(start_epoch * batch_count,
+                                       epoch=start_epoch, path="fast",
+                                       note="run_to_completion dispatched")
                 t0 = time.time()
-                state, costs2d, accs2d = runner(state, img_d, lbl_d,
-                                                shuffle_key, start_epoch)
-                correct = fast_eval.dispatch(state.params)
+                with tracer.step_annotation(start_epoch * batch_count):
+                    state, costs2d, accs2d = runner(state, img_d, lbl_d,
+                                                    shuffle_key, start_epoch)
+                log_compile("run_to_completion", runner.compile_s)
+                with tracer.annotate("eval"):
+                    correct = fast_eval.dispatch(state.params)
                 costs2d, accs2d, correct = _fetch(costs2d, accs2d, correct)
                 test_acc = float(correct) / fast_eval.n
-                avg_step_s = (time.time() - t0) / (n_ep * batch_count)
+                total_wall = time.time() - t0
+                avg_step_s = total_wall / (n_ep * batch_count)
+                metrics_step_s = max(0.0, total_wall - runner.compile_s) / (
+                    n_ep * batch_count)
                 for e in range(n_ep):
                     cost = emit_epoch(start_epoch + e, costs2d[e],
-                                      accs2d[e], avg_step_s)
+                                      accs2d[e], avg_step_s, metrics_step_s)
                 epochs_done = cfg.training_epochs
                 steps_done = epochs_done * batch_count
             else:
-                # one epoch a call, for checkpoints between epochs
+                # one epoch a call, for host control between epochs
+                # (periodic checkpoints, validation)
                 epoch_runner = epoch_lib.build_epoch_runner(
                     cfg, spec, optimizer, batch_count, dev)
                 for epoch in range(start_epoch, cfg.training_epochs):
+                    tracer.on_range(epoch * batch_count,
+                                    (epoch + 1) * batch_count)
                     t0 = time.time()
-                    state, costs, accs = epoch_runner(state, img_d, lbl_d,
-                                                      shuffle_key, epoch)
+                    with tracer.step_annotation(epoch * batch_count):
+                        state, costs, accs = epoch_runner(
+                            state, img_d, lbl_d, shuffle_key, epoch)
+                    compile_s = (epoch_runner.run1.compile_s
+                                 if epoch == start_epoch else 0.0)
+                    if epoch == start_epoch:
+                        log_compile("epoch_runner", compile_s)
                     costs, accs = _fetch(costs, accs)
-                    cost = emit_epoch(epoch, costs, accs,
-                                      (time.time() - t0) / batch_count)
+                    total_wall = time.time() - t0
+                    cost = emit_epoch(
+                        epoch, costs, accs, total_wall / batch_count,
+                        max(0.0, total_wall - compile_s) / batch_count)
                     epochs_done = epoch + 1
                     steps_done = epochs_done * batch_count
+                    # validation before the checkpoint, so the saved
+                    # best_val/val_wait include this epoch
+                    stop_now = False
+                    if early:
+                        t_ev = time.perf_counter()
+                        with tracer.annotate("eval"):
+                            stop_now = note_validation(
+                                fast_val(state.params))
+                        phase_s["eval"] += time.perf_counter() - t_ev
                     maybe_checkpoint(steps_done, epochs_done)
+                    if stop_now:
+                        break
         else:
-            train_step = step_lib.make_sync_step_body(cfg, spec, optimizer)
+            with_anomaly = policy is not None or cfg.debug_nans
+            train_step = step_lib.make_sync_step_body(
+                cfg, spec, optimizer, with_norms=cfg.histograms,
+                with_anomaly=with_anomaly)
             iterator = EpochIterator(
                 dataset.train, batch_size=global_batch // proc_cnt,
                 seed=cfg.seed, shard=cfg.shard_data,
@@ -556,6 +839,36 @@ def run(cfg: Config) -> Dict[str, Any]:
             prefetch_depth = cfg.prefetch_depth or (8 if on_card else 1)
             pinned = cfg.device_prefetch and on_card
             from ..resilience.resume import skip_batches
+
+            # --metrics/--histograms: the window timer charges the
+            # loop's existing host-side waits into named buckets; it
+            # adds no fetch of its own
+            wtimer = None
+            if mlogger is not None or cfg.histograms:
+                from ..obs.metrics import WindowTimer
+
+                wtimer = WindowTimer()
+
+            def charge(bucket: str, t0: float) -> None:
+                if wtimer is not None:
+                    wtimer.charge(bucket, time.perf_counter() - t0)
+
+            h2d_wall = [0.0]    # the commits' wall, kept out of data_wait
+
+            def commit_timed(commit):
+                """``commit``, charged into the h2d bucket and range."""
+                def timed(*args):
+                    t0 = time.perf_counter()
+                    with tracer.annotate("h2d"):
+                        out = commit(*args)
+                    h2d_wall[0] += time.perf_counter() - t0
+                    charge("h2d", t0)
+                    return out
+                return timed
+
+            def to_device(bx, by):
+                return (torch.from_numpy(bx).to(dev),
+                        torch.from_numpy(by).to(dev))
 
             # ONE producer thread spans every epoch; under
             # --device_prefetch ONE DevicePrefetcher keeps up to
@@ -574,24 +887,117 @@ def run(cfg: Config) -> Dict[str, Any]:
                 return ((dataset.train.images[i], dataset.train.labels[i])
                         for i in idx)
 
+            def timed_batches(batches, start=0):
+                """enumerate(batches, start), charging the blocking
+                next() into data_wait, less the commits inside it."""
+                it = iter(batches)
+                i = start
+                while True:
+                    t0 = time.perf_counter()
+                    h0 = h2d_wall[0]
+                    try:
+                        with tracer.annotate("data_wait"):
+                            item = next(it)
+                    except StopIteration:
+                        return
+                    if wtimer is not None:
+                        wtimer.charge("data_wait", max(
+                            0.0, time.perf_counter() - t0
+                            - (h2d_wall[0] - h0)))
+                    yield i, item
+                    i += 1
+
             prefetcher = EpochPrefetcher(
                 epoch_batches, range(start_epoch, cfg.training_epochs))
-            dev_feed = (DevicePrefetcher(CopyStreamCommit(dev),
+            dev_feed = (DevicePrefetcher(commit_timed(CopyStreamCommit(dev)),
                                          depth=prefetch_depth)
                         if cfg.device_prefetch else None)
+            take_timed = commit_timed(take)
+            to_device_timed = commit_timed(to_device)
             inflight: list = []     # events of the steps on the card
             pending: list = []      # (step, cost, acc) not yet written
+            norms_dev = None        # --histograms: the newest step's
+            lr_host = _host_lr(cfg, total_steps) if cfg.histograms else None
+            # --on_anomaly: the flags are fetched lazily, no faster than
+            # the dispatch window, and no later than the flight ring
+            # still holds the step's record (to attach its loss)
+            anom_pending: list = []     # (step, cost, anomaly outputs)
+            anom_depth = (min(window, max(1, flight.capacity - 1))
+                          if flight is not None else window)
+            compile_logged = False
+
+            def wait_device(what) -> None:
+                """Block on ``what`` (an event), charged as device_wait."""
+                t0 = time.perf_counter()
+                with tracer.annotate("device_wait"):
+                    what.synchronize()
+                charge("device_wait", t0)
+
+            def drain_anomaly(entry) -> None:
+                """One queued step's flag (and its cost) in one fetch,
+                the counts only when flagged, then the policy."""
+                sid, c_dev, a_dev = entry
+                t0 = time.perf_counter()
+                with tracer.annotate("device_wait"):
+                    flagged_h, c = _fetch(a_dev["flag"], c_dev)
+                    flagged, c = bool(flagged_h), float(c)
+                    counts = (a_dev["counts"].cpu().numpy() if flagged
+                              else None)
+                charge("device_wait", t0)
+                if flight is not None:
+                    flight.attach_loss(sid, c)
+                policy.on_step(sid, loss=c, flagged=flagged, counts=counts)
 
             def write_pending() -> None:
                 """The summaries of the pending steps, from one fetch."""
                 if not pending:
                     return
-                vals = _fetch(*(t for _s, c, a in pending for t in (c, a)))
+                t0 = time.perf_counter()
+                with tracer.annotate("device_wait"):
+                    vals = _fetch(*(t for _s, c, a in pending
+                                    for t in (c, a)))
+                charge("device_wait", t0)
                 for k, (step, _c, _a) in enumerate(pending):
                     writer.add_scalars(step, {
                         "cost": float(vals[2 * k]),
                         "accuracy": float(vals[2 * k + 1])})
                 pending.clear()
+
+            def close_window(epoch: int, cost_dev) -> None:
+                """Window boundary: the queued anomaly flags, then ONE
+                fetch (the cost and the newest norm vectors), the
+                metrics row, the flight window record, the heartbeat and
+                the histogram and lr summaries."""
+                while anom_pending:
+                    drain_anomaly(anom_pending.pop(0))
+                t0 = time.perf_counter()
+                with tracer.annotate("device_wait"):
+                    if norms_dev is not None:
+                        cost_h, g_h, p_h = _fetch(cost_dev, norms_dev["grad"],
+                                                  norms_dev["param"])
+                        norms_host = {"grad": g_h, "param": p_h}
+                    else:
+                        (cost_h,), norms_host = _fetch(cost_dev), None
+                charge("device_wait", t0)
+                cost_w = float(cost_h)
+                timing = wtimer.window_row()
+                timing["path"] = "host"
+                if mlogger is not None:
+                    metrics_row(steps_done, epoch, cost_w, timing)
+                if flight is not None:
+                    flight.record_window(
+                        steps_done, epoch=epoch, cost=cost_w, timing=timing,
+                        grad_norms=(norms_host["grad"].tolist()
+                                    if norms_host is not None else None))
+                if heartbeat is not None:
+                    heartbeat.touch(steps_done)
+                if norms_host is not None and writer is not None:
+                    writer.add_histograms(steps_done, {
+                        "grad_norm": norms_host["grad"],
+                        "param_norm": norms_host["param"]})
+                    writer.add_scalars(
+                        steps_done, {"learning_rate": lr_host(steps_done)})
+                wtimer.reset()
 
             steps_done = start_epoch * iterator.batches_per_epoch \
                 + resume_skip
@@ -606,14 +1012,19 @@ def run(cfg: Config) -> Dict[str, Any]:
                     feed = prefetcher.epoch(epoch)
                     if dev_feed is not None:
                         feed = dev_feed.rewind(feed)
-                    for i, item in enumerate(feed, start=skip):
+                    if wtimer is not None:
+                        # inter-epoch host work (validation, checkpoint)
+                        # stays out of the next window's wall
+                        wtimer.reset()
+                    for i, item in timed_batches(feed, start=skip):
                         if preempt_handler is not None \
                                 and preempt_handler.requested:
                             # the per-step safe point: one snapshot at the
                             # exact current position, drain, exit 128+sig
                             t_ck = time.perf_counter()
-                            snapshot_state(steps_done, epoch, i)
-                            ckpt_writer.drain()
+                            with tracer.annotate("checkpoint"):
+                                snapshot_state(steps_done, epoch, i)
+                                ckpt_writer.drain()
                             phase_span("ckpt", t_ck, step=steps_done,
                                        preempt=True)
                             print(f"Preempted "
@@ -622,13 +1033,57 @@ def run(cfg: Config) -> Dict[str, Any]:
                                   flush=True)
                             preempt_handler.check()   # raises Preempted
                         if dev_feed is not None:
-                            x, y = take(*item)
+                            x, y = take_timed(*item)
                         else:
-                            x = torch.from_numpy(item[0]).to(dev)
-                            y = torch.from_numpy(item[1]).to(dev)
-                        state, cost_dev, acc_dev = train_step(state, x, y)
+                            x, y = to_device_timed(*item)
+                        # the capture window opens and closes on exact
+                        # step ids; at its edges the steps in flight
+                        # must finish first
+                        if on_card and tracer.boundary(steps_done):
+                            t_edge = time.perf_counter()
+                            with tracer.annotate("device_wait"):
+                                torch.cuda.synchronize(dev)
+                            charge("device_wait", t_edge)
+                        tracer.on_step(steps_done)
+                        t_disp = time.perf_counter()
+                        with tracer.step_annotation(steps_done), \
+                                tracer.annotate("dispatch"):
+                            state, cost_dev, acc_dev, *extra = train_step(
+                                state, x, y)
+                        if wtimer is not None:
+                            t_disp = time.perf_counter() - t_disp
+                            wtimer.charge("dispatch", t_disp)
+                            if not compile_logged:
+                                # the first step's launches (the kernels'
+                                # first use) are the compile event, kept
+                                # out of the first window's throughput
+                                compile_logged = True
+                                phase_s["compile"] += t_disp
+                                if mlogger is not None:
+                                    mlogger.log_event(
+                                        "compile", what="train_step",
+                                        dispatch_wall_s=round(t_disp, 3))
+                                wtimer.reset()
+                        if cfg.histograms:
+                            norms_dev = extra[0]
                         steps_done += 1
                         examples_seen += global_batch
+                        if flight is not None:
+                            flight.record_step(steps_done, epoch=epoch,
+                                               batch_index=i)
+                        if cfg.debug_nans and bool(extra[-1]["flag"]):
+                            counts = extra[-1]["counts"].cpu().tolist()
+                            blame = {n: c for n, c in zip(
+                                step_lib.leaf_names(spec), counts) if c}
+                            raise FloatingPointError(
+                                f"--debug_nans: step {steps_done} produced "
+                                f"a non-finite loss or gradient (non-finite "
+                                f"gradient elements by leaf: {blame})")
+                        if policy is not None:
+                            anom_pending.append((steps_done, cost_dev,
+                                                 extra[-1]))
+                            if len(anom_pending) > anom_depth:
+                                drain_anomaly(anom_pending.pop(0))
                         if on_card:
                             # at most `window` steps in flight: wait on
                             # the oldest
@@ -636,7 +1091,7 @@ def run(cfg: Config) -> Dict[str, Any]:
                             done.record()
                             inflight.append(done)
                             if len(inflight) > window:
-                                inflight.pop(0).synchronize()
+                                wait_device(inflight.pop(0))
                         if writer is not None:
                             # the reference writes cost and accuracy
                             # every step; fetched once per window
@@ -645,7 +1100,10 @@ def run(cfg: Config) -> Dict[str, Any]:
                                 write_pending()
                         count += 1
                         if count % frequency == 0 or i + 1 == batch_count:
-                            cost = float(cost_dev)
+                            t_fetch = time.perf_counter()
+                            with tracer.annotate("device_wait"):
+                                cost = float(cost_dev)
+                            charge("device_wait", t_fetch)
                             elapsed_time = time.time() - start_time
                             start_time = time.time()
                             _print_window(steps_done, epoch, i, batch_count,
@@ -654,16 +1112,34 @@ def run(cfg: Config) -> Dict[str, Any]:
                         if (ckpt_writer is not None
                                 and steps_done % cfg.ckpt_every == 0):
                             # write-behind snapshot; an epoch-final one
-                            # records the next epoch's start
+                            # records the next epoch's start.  Charged
+                            # before the window may close, so the stall
+                            # lands in the window of the step it follows
                             t_ck = time.perf_counter()
                             ck_ep, ck_done = ((epoch, i + 1)
                                               if i + 1 < batch_count
                                               else (epoch + 1, 0))
-                            snapshot_state(steps_done, ck_ep, ck_done)
+                            with tracer.annotate("checkpoint"):
+                                snapshot_state(steps_done, ck_ep, ck_done)
                             ckpt_stall_s.append(time.perf_counter() - t_ck)
+                            charge("ckpt", t_ck)
                             phase_span("ckpt", t_ck, step=steps_done)
+                        if wtimer is not None:
+                            wtimer.step_done()
+                            if (wtimer.steps >= cfg.log_every
+                                    or i + 1 == batch_count):
+                                close_window(epoch, cost_dev)
                         maybe_checkpoint(steps_done, epoch)
+                    # no queued anomaly crosses into the next epoch
+                    while anom_pending:
+                        drain_anomaly(anom_pending.pop(0))
                     epochs_done = epoch + 1
+                    if mlogger is not None:
+                        straggler_event(epoch)
+                    if early and note_validation(host_eval_accuracy(
+                            state.params, dataset.validation.images,
+                            dataset.validation.labels)):
+                        break
                 if writer is not None:
                     write_pending()
             finally:
@@ -671,11 +1147,23 @@ def run(cfg: Config) -> Dict[str, Any]:
                     dev_feed.close()
                 prefetcher.close()
 
+        # a window still open when training ends closes here, after the
+        # steps in flight: the capture holds the requested steps, not the
+        # eval and shutdown (whole-run --profile keeps tracing)
+        if not tracer.whole_run:
+            if tracer.active and dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            tracer.stop()
+
         if test_acc is None:        # the whole-run path fetched it
-            test_acc = (fast_eval(state.params) if fast else _eval_accuracy(
-                step_lib.build_eval_step(cfg, spec), state.params,
-                dataset.test.images, dataset.test.labels,
-                step_lib.eval_chunk_cap(spec, cfg.eval_batch_size), dev))
+            if fast:
+                t_ev = time.perf_counter()
+                with tracer.annotate("eval"):
+                    test_acc = fast_eval(state.params)
+                phase_s["eval"] += time.perf_counter() - t_ev
+            else:
+                test_acc = host_eval_accuracy(
+                    state.params, dataset.test.images, dataset.test.labels)
         total_time = time.time() - begin_time
         cost = float(cost)
         if chief or cfg.eval_all_hosts:
@@ -683,30 +1171,67 @@ def run(cfg: Config) -> Dict[str, Any]:
         if chief:
             print("Total Time: %3.2fs" % float(total_time))
             print("Final Cost: %.4f" % cost)
+        t_sample = time.perf_counter()
         if cfg.sample_after > 0 and cfg.model == "transformer" \
                 and cfg.objective == "lm":
             _sample(cfg, spec, state.params, dataset.test.images, dev,
                     chief)
+        phase_s["sample"] += time.perf_counter() - t_sample
         ckpt_stats = None
         if cfg.checkpoint_dir:
-            if ckpt_writer is not None:
-                # the resilience store's exit snapshot supersedes the
-                # classic exit save (nearly free after a periodic one:
-                # unchanged leaves are reused)
-                snapshot_state(steps_done, cfg.training_epochs, 0)
-                ckpt_writer.drain()
-                ckpt_stats = dict(ckpt_writer.stats(),
-                                  ckpt_stall_ms=[round(t * 1e3, 6)
-                                                 for t in ckpt_stall_s])
-            if ckpt_writer is None or ckpt_enabled:
-                # the classic exit save still runs when the classic
-                # periodic format is in play beside the store
-                save_state(steps_done, cfg.training_epochs)
-            # a background classic writer must land before the exit
-            ckpt_lib.wait_for_pending_saves()
+            with tracer.annotate("checkpoint"):
+                if ckpt_writer is not None:
+                    # the resilience store's exit snapshot supersedes
+                    # the classic exit save (nearly free after a
+                    # periodic one: unchanged leaves are reused)
+                    snapshot_state(steps_done, cfg.training_epochs, 0)
+                    ckpt_writer.drain()
+                    ckpt_stats = dict(ckpt_writer.stats(),
+                                      ckpt_stall_ms=[round(t * 1e3, 6)
+                                                     for t in ckpt_stall_s])
+                if ckpt_writer is None or ckpt_enabled:
+                    # the classic exit save still runs when the classic
+                    # periodic format is in play beside the store
+                    save_state(steps_done, cfg.training_epochs)
+                # a background classic writer must land before the exit
+                ckpt_lib.wait_for_pending_saves()
+        if mlogger is not None:
+            mlogger.log_event(
+                "run_end", steps=int(steps_done),
+                total_time_s=round(total_time, 3),
+                test_accuracy=float(test_acc),
+                examples_per_sec=(round(examples_seen / total_time, 3)
+                                  if total_time > 0 else None),
+                compile_s=round(phase_s["compile"], 6),
+                eval_s=round(phase_s["eval"], 6),
+                sample_s=round(phase_s["sample"], 6),
+                **(policy.summary() if policy is not None else {}))
+            mlogger.close()
         if chief:
             print("done")
+        # a capture still open (whole-run --profile) closes before the
+        # result reads its count
+        tracer.stop()
+    except BaseException as e:
+        # the crash path: persist the flight record before propagating
+        # (callers that catch never reach the excepthook) and collate
+        # what the processes dumped into the chief's post-mortem
+        if flight is not None:
+            from ..resilience.signals import Preempted
+
+            # "sigterm" (a handled preemption, its final snapshot
+            # already durable) is the dump a --resume relaunch keeps
+            reason = ("anomaly_halt"
+                      if isinstance(e, anomaly_lib.AnomalyError)
+                      else "sigterm" if isinstance(e, Preempted)
+                      else "crash")
+            flight.dump(reason, exc=e)
+            if chief:
+                flight_lib.collate(cfg.logs_path)
+        raise
     finally:
+        if tracer is not None:
+            tracer.stop()
         if writer is not None:
             writer.close()
         if preempt_handler is not None:
@@ -718,8 +1243,14 @@ def run(cfg: Config) -> Dict[str, Any]:
                 ckpt_writer.close(drain=True, timeout=60.0)
             except Exception as ck_err:
                 print(f"NOTE: checkpoint writer close failed: {ck_err}")
+        if flight is not None:
+            flight.uninstall()
+        if mlogger is not None:
+            mlogger.close()
         if span_recorder is not None:
             span_recorder.close()
+        if status_server is not None:
+            status_server.close()
         cluster.shutdown()
     result = {
         "test_accuracy": test_acc,
@@ -734,10 +1265,11 @@ def run(cfg: Config) -> Dict[str, Any]:
         "global_batch": global_batch,
         "fast_loop": fast,
         "epochs_completed": epochs_done,
-        "stopped_early": False,
-        "anomalies": 0,
-        "skipped_steps": 0,
-        "profile_windows": 0,
+        "stopped_early": bool(early
+                              and val_wait >= cfg.early_stop_patience),
+        "anomalies": policy.anomalies if policy is not None else 0,
+        "skipped_steps": policy.skipped_steps if policy is not None else 0,
+        "profile_windows": tracer.windows_captured,
     }
     if ckpt_stats is not None:
         # the port's own, under --ckpt_every: the resilience writer's

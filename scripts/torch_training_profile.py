@@ -2,6 +2,7 @@
 on the trainer's default fast path and on its host path.
 
     python3 scripts/torch_training_profile.py [--steps 8] [--out FILE]
+        [--paths graph,host,host_prefetch] [--on_anomaly skip]
 
 Builds ``chip_smoke.py``'s full-width trainer configuration on the card
 (the JAX repo's ``mxu_wide_pallas`` bench row: 784-4096-4096-10, relu,
@@ -19,6 +20,10 @@ runs its step three ways, each as ``train/loop.run`` runs it:
 - ``host_prefetch``: the same under ``--device_prefetch`` — the
   producer gathering each batch into pinned memory, non-blocking
   copies on a copy stream, 8 batches ahead.
+
+``--on_anomaly skip`` builds every path's step with the trainer's skip
+mask (the per-leaf non-finite counts and the ``torch.where`` on their
+flag, inside the graph on the graph path); ``--paths`` picks the paths.
 
 Each runs one epoch of warm-up (the graph's capture included), then one
 epoch timed on the host clock, then one more under ``torch.profiler``.
@@ -51,6 +56,10 @@ def main(argv=None) -> int:
                     help="steps an epoch (batches of 8192)")
     ap.add_argument("--out", default=os.path.join(
         _REPO, "build", "torch_training_profile.json"))
+    ap.add_argument("--paths", default="graph,host,host_prefetch",
+                    help="comma-separated: graph, host, host_prefetch")
+    ap.add_argument("--on_anomaly", default="", choices=["", "skip"],
+                    help="the step with --on_anomaly's skip mask")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -72,7 +81,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    cfg = Config(**chip_smoke.WIDE_TRAIN, device="cuda")
+    cfg = Config(**chip_smoke.WIDE_TRAIN, device="cuda",
+                 on_anomaly=args.on_anomaly)
     spec = loop.make_spec(cfg)
     opt = optim.make_optimizer(cfg)
     n = args.steps * cfg.batch_size
@@ -123,12 +133,13 @@ def main(argv=None) -> int:
         return one_epoch
 
     report = {"card": card, "steps": args.steps,
+              "on_anomaly": args.on_anomaly,
               "config": {k: (list(v) if isinstance(v, tuple) else v)
                          for k, v in chip_smoke.WIDE_TRAIN.items()}}
-    for name, make in (("graph", graph_path),
-                       ("host", lambda: host_path(False)),
-                       ("host_prefetch", lambda: host_path(True))):
-        one_epoch = make()
+    paths = {"graph": graph_path, "host": lambda: host_path(False),
+             "host_prefetch": lambda: host_path(True)}
+    for name in args.paths.split(","):
+        one_epoch = paths[name]()
         one_epoch()                               # warm-up / capture
         torch.cuda.synchronize()
         t0 = time.monotonic()
@@ -142,7 +153,7 @@ def main(argv=None) -> int:
         doc = _kernel_table(prof, args.steps, wall)
         doc["examples_per_s"] = cfg.batch_size / doc["wall_ms_per_tick"] * 1e3
         report[name] = doc
-        _print(f"train {name}", doc, card)
+        _print(f"train {name}", doc, card, top=30)
         print(f"[train {name}] {doc['examples_per_s']:.1f} examples/s at "
               f"global batch {cfg.batch_size}")
         del one_epoch

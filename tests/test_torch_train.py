@@ -488,10 +488,19 @@ def test_cli_refuses_what_is_not_ported(argv, capsys):
     assert "ROADMAP" in capsys.readouterr().err
 
 
-def test_cli_refuses_the_jax_operator_switches(monkeypatch, capsys):
+def test_cli_refuses_the_jax_operator_switches(monkeypatch, tmp_path):
+    """The JAX ``main``'s operator switches are no longer refused: as
+    there, ``DTX_METRICS=1`` turns ``--metrics`` on (the run writes its
+    metrics stream) and ``DTX_METRICS=0`` leaves it off."""
+    argv = ["--device", "cpu", "--training_epochs=0",
+            "--synthetic_train_size=100", "--synthetic_test_size=10",
+            "--no_summaries"]
+    monkeypatch.setenv("DTX_METRICS", "0")
+    assert tmain.main(argv + [f"--logs_path={tmp_path / 'off'}"]) == 0
+    assert not (tmp_path / "off" / "metrics.0.jsonl").exists()
     monkeypatch.setenv("DTX_METRICS", "1")
-    assert tmain.main(["--device", "cpu"]) == 2
-    assert "DTX_METRICS" in capsys.readouterr().err
+    assert tmain.main(argv + [f"--logs_path={tmp_path / 'on'}"]) == 0
+    assert (tmp_path / "on" / "metrics.0.jsonl").exists()
 
 
 def test_run_needs_the_card_unless_cpu_is_asked_for():
