@@ -143,6 +143,17 @@ and for the MLP trainer (``main.py`` -> ``train/loop.run``):
     printed; ``transformer_wide_long`` under ``--metrics
     --profile_steps=1:2``: its Chrome trace names the bf16 flash kernels
     and the trace scopes, its rows' MFU printed;
+5d. data parallelism, in its own process: ``cluster.bootstrap`` sets up
+    a one-rank NCCL group from ``--coordinator_address
+    --num_processes=1``, and in it the same widths under Adam train 8
+    steps six ways through ``loop.run``: plain (graph and host path),
+    ``--zero_opt`` (host), ``--fsdp`` (graph and host),
+    ``--sync_period=2`` (graph); each run's final params bitwise the
+    plain run's on its path (``--sync_period=2``; ZeRO-1 and FSDP
+    within DP_PARAMS_RTOL), B1's launches the plain run's (11 on the
+    graph path), the all-gather, reduce-scatter and all-reduce named in
+    a ``torch.profiler`` window over the FSDP step; each strategy's step
+    ms on CUDA events, peak memory and collectives' device ms printed;
 6. the reference command line on the card: ``main.py --pallas
    --training_epochs=1`` (784-100-10 sigmoid f32, batch 100, 550
    steps, the default fast path: B1's f32 launches counted through the
@@ -213,7 +224,9 @@ The last two lines of stdout are the kernel report JSON (each kernel's
 launches on its first main path, and under ``launches_by_path`` on
 every path that ran it: ``serve``, ``serve_int8``, ``serve_moe``,
 ``fleet``, ``replay``, the trainers', ``resilience``,
-``resilience_resumed`` and phase 5c's ``monitoring`` runs) and the result JSON; the card's name and power limit come just before them.
+``resilience_resumed``, phase 5c's ``monitoring`` runs and phase 5d's
+``dp_*`` runs) and the result JSON; the card's name and power limit
+come just before them.
 The script imports nothing of JAX; it needs one card and exits
 nonzero without one.
 """
@@ -227,6 +240,7 @@ import json
 import math
 import os
 import re
+import shutil
 import signal
 import socket
 import statistics
@@ -2677,12 +2691,15 @@ BLOWUP_FLAGS = ["--learning_rate=1e30", "--naive_ce"]
 TFM_PROFILE_FLAGS = ["--metrics", "--profile_steps=1:2"]
 
 
-def _npz_params(ckpt_dir: str) -> dict:
-    """The arrays of the newest classic ``.npz`` checkpoint."""
+def _latest_ckpt(ckpt_dir: str) -> str:
     from distributed_tensorflow_example_tpu_torch.utils import checkpoint
 
-    path = checkpoint.latest_checkpoint(ckpt_dir)
-    with np.load(path) as z:
+    return checkpoint.latest_checkpoint(ckpt_dir)
+
+
+def _npz_params(ckpt_dir: str) -> dict:
+    """The arrays of the newest classic ``.npz`` checkpoint."""
+    with np.load(_latest_ckpt(ckpt_dir)) as z:
         return {k: z[k] for k in z.files}
 
 
@@ -3010,6 +3027,315 @@ def phase_monitoring(card: str, graph_counts: dict, flags=MONITOR_FLAGS,
                    tfm_row=t_rows[-1] if t_rows else None)
     log(f"[monitoring] phase 5c took {time.monotonic() - t_phase:.1f} s")
     return out
+
+
+# phase 5d: data parallelism in a one-rank NCCL group, which
+# cluster.bootstrap sets up from --coordinator_address with
+# --num_processes=1: WIDE_TRAIN under Adam, 8 steps, each strategy
+DP_BASE = dict(WIDE_TRAIN, optimizer="adam")
+# name: the strategy's flags (ZeRO-1 takes the host path, as in JAX)
+DP_RUNS = {
+    "plain": {},
+    "plain_host": dict(fast_loop=False),
+    "zero": dict(zero_opt=True, fast_loop=False),
+    "fsdp": dict(fsdp=True),
+    "fsdp_host": dict(fsdp=True, fast_loop=False),
+    "sync_period": dict(sync_period=2),
+}
+# the plain run each is held to: the same path, so the same data order
+DP_REF = {"plain": "plain", "sync_period": "plain", "fsdp": "plain",
+          "plain_host": "plain_host", "zero": "plain_host",
+          "fsdp_host": "plain_host"}
+# final params against the plain run's: --sync_period=2 bitwise (at one
+# rank a replica's mean is the replica, and the local step is the sync
+# step without its identity all-reduce and /1); ZeRO-1 and FSDP bitwise
+# or within this fraction of each leaf's scale (their Adam runs on flat
+# [chunk] views of the same elements, and the gathered params feed the
+# same kernels: no reason to differ but an elementwise kernel's
+# vectorization over another shape)
+DP_PARAMS_RTOL = 1e-6
+DP_COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter")
+
+
+def _collective_kind(name: str):
+    """``(family, collective)`` of a profiler op that records one: the
+    dispatcher's ops ("c10d::allreduce_", "c10d::_allgather_base_",
+    "c10d::_reduce_scatter_base_") or the backend's ranges
+    ("nccl:all_reduce", "gloo:all_gather", ...); else None."""
+    low = name.lower().replace("allreduce", "all_reduce").replace(
+        "allgather", "all_gather")
+    family = low.split(":", 1)[0]
+    if family not in ("c10d", "nccl", "gloo"):
+        return None
+    kind = next((k for k in DP_COLLECTIVES if k in low), None)
+    return (family, kind) if kind else None
+
+
+def _dp_time(device: str, fn, n: int) -> float:
+    """The median ms of ``n`` calls of ``fn`` after one, each between
+    two CUDA events on the card (the host clock in the CPU rehearsal):
+    an eager host step is host-bound, and one slow call should not move
+    the reading."""
+    fn()
+    _sync(device)
+    times = []
+    for _ in range(n):
+        if device == "cuda":
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            fn()
+            ev[1].record()
+            torch.cuda.synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _dp_collectives_ms(device: str, fn) -> dict:
+    """``{collective: device ms}`` of one call of ``fn`` in a
+    ``torch.profiler`` window (each collective op's device time,
+    kernels and copies it launched included; host ms on the CPU)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device == "cuda" else [])
+    _sync(device)
+    with profile(activities=acts) as prof:
+        fn()
+        _sync(device)
+    by_family = {}
+    for e in prof.key_averages():
+        found = _collective_kind(e.key)
+        if found is None:
+            continue
+        family, kind = found
+        t = (getattr(e, "device_time_total", None)
+             if device == "cuda" else e.cpu_time_total)
+        out = by_family.setdefault(family, {})
+        out[kind] = out.get(kind, 0.0) + (t or 0.0) / 1e3
+    # the dispatcher's ops where the profiler records them (they hold
+    # the backend's ranges: one family, or the times count twice)
+    return by_family.get("c10d") or next(iter(by_family.values()), {})
+
+
+def dp_child(args: dict) -> dict:
+    """Phase 5d in its own process (the NCCL group lives and dies with
+    it): ``cluster.bootstrap`` sets up the one-rank group from the
+    flags; in it each strategy's full run through ``loop.run`` (given
+    the same flags, it finds the group up and leaves it so), the launch
+    counts zeroed just before and read just after; then each strategy's
+    step timed and its collectives profiled."""
+    import dataclasses
+
+    from distributed_tensorflow_example_tpu_torch import cluster
+    from distributed_tensorflow_example_tpu_torch.config import Config
+    from distributed_tensorflow_example_tpu_torch.ops import fused
+    from distributed_tensorflow_example_tpu_torch.parallel import (
+        epoch, mesh as mesh_lib, step)
+    from distributed_tensorflow_example_tpu_torch.train import loop, optim
+    from distributed_tensorflow_example_tpu_torch.train.state import (
+        create_train_state)
+    from distributed_tensorflow_example_tpu_torch.utils import prng
+
+    device = args["device"]
+    base = Config(**dict(args["base"], hidden_sizes=tuple(
+        args["base"]["hidden_sizes"])), device=device, num_processes=1,
+        task_index=0, coordinator_address=f"127.0.0.1:{_free_port()}")
+    if not cluster.bootstrap(base):
+        raise AssertionError("dp: cluster.bootstrap set up no group")
+    tmp = tempfile.mkdtemp(prefix="dtx-dp-")
+    # the six runs train on the same synthetic split: made once (4 s a
+    # time at 65,536 examples), handed to each run as load_datasets
+    real_load, loaded = loop.load_datasets, {}
+
+    def load_once(*a, **k):
+        key = repr((a, sorted(k.items())))
+        if key not in loaded:
+            loaded[key] = real_load(*a, **k)
+        return loaded[key]
+
+    loop.load_datasets = load_once
+    runs = {}
+    t_phase = time.monotonic()
+    for name, flags in DP_RUNS.items():
+        cfg = dataclasses.replace(base, **flags,
+                                  checkpoint_dir=os.path.join(tmp, name))
+        _sync(device)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        fused.reset_launch_counts()
+        t_run = time.monotonic()
+        res, out = _run_captured(loop.run, cfg)
+        _sync(device)
+        t_run = time.monotonic() - t_run
+        counts = fused.launch_counts()
+        _require(counts, TRAIN_WRAPPERS, (), f"dp {name}", device)
+        if res["fast_loop"] != cfg.fast_loop:
+            raise AssertionError(f"dp {name}: took fast_loop="
+                                 f"{res['fast_loop']}")
+        costs = re.findall(r"Cost: ([^,\s]+)", out)
+        if len(costs) != res["steps"] + 1 or not all(
+                math.isfinite(float(c)) for c in costs):
+            raise AssertionError(f"dp {name}: printed costs {costs}")
+        t_load = time.monotonic()
+        # the final checkpoint's params alone (np.load reads lazily)
+        with np.load(_latest_ckpt(cfg.checkpoint_dir)) as z:
+            params = {k: z[k] for k in z.files if k.startswith(".params/")}
+        log(f"[dp] {name}: run {t_run:.2f} s (its own total "
+            f"{res['total_time_s']:.2f} s), reading its checkpoint "
+            f"{time.monotonic() - t_load:.2f} s")
+        if cfg.sync_period > 1:     # the replicas stacked [dp, ...]
+            params = {k: v[0] for k, v in params.items()}
+        runs[name] = dict(
+            counts=counts, params=params, steps=res["steps"],
+            fast_loop=res["fast_loop"],
+            peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                      if device == "cuda" else None))
+    loop.load_datasets = real_load
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[dp] the six runs took {time.monotonic() - t_phase:.1f} s")
+    for name, r in runs.items():
+        ref = runs[DP_REF[name]]
+        r["bitwise"] = all(np.array_equal(r["params"][k], ref["params"][k])
+                           for k in ref["params"])
+        r["max_rel_err"] = max(
+            float(np.abs(r["params"][k].astype(np.float64)
+                         - ref["params"][k]).max())
+            / max(float(np.abs(ref["params"][k]).max()), 1e-30)
+            for k in ref["params"])
+        if sorted(r["params"]) != sorted(ref["params"]):
+            raise AssertionError(f"dp {name}: param keys differ")
+        if name == "sync_period" and not r["bitwise"]:
+            raise AssertionError(f"dp {name}: final params not bitwise the "
+                                 f"plain run's ({r['max_rel_err']:.3g})")
+        if not r["max_rel_err"] <= DP_PARAMS_RTOL:
+            raise AssertionError(f"dp {name}: final params differ from "
+                                 f"{DP_REF[name]}'s by {r['max_rel_err']} "
+                                 f"of scale > {DP_PARAMS_RTOL}")
+        if r["counts"]["mlp_forward"] != ref["counts"]["mlp_forward"]:
+            raise AssertionError(
+                f"dp {name}: B1 launched {r['counts']['mlp_forward']} times,"
+                f" {DP_REF[name]} {ref['counts']['mlp_forward']}")
+    for r in runs.values():
+        del r["params"]
+
+    # each strategy's step timed, and its collectives profiled, in the
+    # same group
+    if not torch.distributed.is_initialized():
+        raise AssertionError("dp: a run closed the group it found")
+    mesh = mesh_lib.build_mesh(-1)
+    spec = loop.make_spec(base)
+    data = next(iter(loaded.values())).train
+    key = prng.PRNGKey(base.seed + epoch.SHUFFLE_SALT)
+    seen = set()
+    # a first window pays the profiler's start-up and the group's first
+    # collective (the communicator's set-up): not measured
+    _dp_collectives_ms(device, lambda: torch.distributed.all_reduce(
+        torch.zeros(1, device=device)))
+    for name, flags in DP_RUNS.items():
+        cfg = dataclasses.replace(base, **flags)
+        opt = optim.make_optimizer(cfg, 8)
+        strat = loop.setup_strategy(
+            cfg, spec, opt, create_train_state(spec, opt, seed=cfg.seed,
+                                               device=device),
+            mesh, fast=cfg.fast_loop)
+        body = strat.body or step.make_sync_step_body(cfg, spec, opt)
+        img, lbl, spe = epoch.shard_dataset(data.images, data.labels,
+                                            cfg.batch_size, device)
+        state = strat.state
+        x = epoch.normalize(img[:cfg.batch_size])
+        y = lbl[:cfg.batch_size]
+
+        def eager():
+            new = body(state, x, y)[0]
+            return step.param_sync(new) if strat.sync_period else new
+
+        runner = None
+        # the graph strategies' eager bodies are their host twins': one
+        # window each pair
+        twin = {"plain": "plain_host", "fsdp": "fsdp_host"}.get(name)
+        coll = (_dp_collectives_ms(device, eager) if twin is None
+                else None)
+        seen |= set(coll) if name == "fsdp_host" else set()
+        if cfg.fast_loop:
+            runner = epoch.build_run_to_completion(
+                cfg, spec, opt, spe, 1, device, body=strat.body,
+                sync_period=strat.sync_period)
+            ep = [0]
+
+            def one_epoch():
+                nonlocal state
+                state = runner(state, img, lbl, key, ep[0])[0]
+                ep[0] += 1
+
+            step_ms = _dp_time(device, one_epoch, 3) / spe
+        else:
+            def one_step():
+                nonlocal state
+                state = body(state, x, y)[0]
+
+            step_ms = _dp_time(device, one_step, spe)
+        runs[name].update(step_ms=step_ms, collectives_ms=coll)
+        log(f"[dp] {name}: timed and profiled by "
+            f"{time.monotonic() - t_phase:.1f} s")
+        del runner, state, strat
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    for name, twin in (("plain", "plain_host"), ("fsdp", "fsdp_host")):
+        runs[name]["collectives_ms"] = runs[twin]["collectives_ms"]
+    cluster.shutdown()
+    log(f"[dp] the phase's child took {time.monotonic() - t_phase:.1f} s")
+    missing = [k for k in DP_COLLECTIVES if k not in seen]
+    if missing:
+        raise AssertionError(f"dp: the FSDP step's profiler window names "
+                             f"no {missing} collective")
+    return runs
+
+
+def phase_dp(card: str, base=DP_BASE, device: str = "cuda",
+             timeout: float = 300) -> dict:
+    """Data parallelism in a one-rank process group (phase 5d), in a
+    subprocess (``dp_child``): WIDE_TRAIN under Adam for 8 steps,
+    plain (graph and host path), ``--zero_opt``, ``--fsdp`` (graph and
+    host path) and ``--sync_period=2`` (graph).  Each run's final params
+    against the plain run's on its path (``DP_REF``: ``--sync_period=2``
+    bitwise, ZeRO-1 and FSDP within DP_PARAMS_RTOL), B1's launches equal
+    to the plain run's (11 on the graph path: 2 warm-up steps, 8 replays
+    and the eval), the all-gather, reduce-scatter and all-reduce named in
+    the profiler window over the FSDP step; prints each strategy's step
+    ms (CUDA events: the median graph epoch's replays over its steps,
+    shuffle included, or the median eager host step), peak memory and
+    collectives' device ms."""
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "dp.json")
+        args = json.dumps(dict(base=base, device=device, out=out))
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--dp-phase", args],
+            capture_output=True, text=True, timeout=timeout,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        for line in proc.stdout.splitlines() + proc.stderr.splitlines():
+            log(f"  [dp] {line}")
+        if proc.returncode:
+            raise AssertionError(f"dp: the phase's process exited "
+                                 f"{proc.returncode}")
+        with open(out) as f:
+            runs = json.load(f)
+    for name, r in runs.items():
+        log(f"[dp] {name} ({DP_RUNS[name] or 'plain'}, one-rank "
+            f"{'NCCL' if device == 'cuda' else 'gloo'} group): step "
+            f"{r['step_ms']:.4f} ms, peak memory "
+            f"{r['peak_gib'] if r['peak_gib'] is None else round(r['peak_gib'], 3)}"
+            f" GiB, collectives ms {r['collectives_ms']}, final params vs "
+            f"{DP_REF[name]}: bitwise {r['bitwise']} (max rel err "
+            f"{r['max_rel_err']:.3g}), B1 launches "
+            f"{r['counts']['mlp_forward']} on {card}")
+    log(f"[dp] phase 5d took {time.monotonic() - t0:.1f} s")
+    return runs
 
 
 def phase_cli(card: str) -> dict:
@@ -3428,6 +3754,12 @@ TFM_REPORT = ("layer_norm_backward", "flash_forward", "flash_dq",
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--dp-phase"]:     # phase 5d's own process
+        args = json.loads(sys.argv[2])
+        runs = dp_child(args)
+        with open(args["out"], "w") as f:
+            json.dump(runs, f)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this script runs on the card", file=sys.stderr)
@@ -3457,6 +3789,7 @@ def main() -> int:
     train = phase_train(card)
     resilience = phase_resilience(card)
     monitoring = phase_monitoring(card, train["counts"])
+    dp = phase_dp(card)
     cli = phase_cli(card)
     tfm_train = phase_transformer_train(card)
     phase_transformer_step(card)
@@ -3480,6 +3813,7 @@ def main() -> int:
                "monitoring_skip": monitoring["skip_counts"],
                "monitoring_halt": monitoring["halt_counts"],
                "monitoring_tfm": monitoring["tfm_counts"],
+               **{f"dp_{name}": r["counts"] for name, r in dp.items()},
                "mlp_cli": cli["counts"],
                "transformer_train": tfm_train["counts"],
                "moe_train": moe_train[0]["counts"],
@@ -3553,6 +3887,10 @@ def main() -> int:
         f"flagged step {monitoring['first_flagged']}, halted at step "
         f"{monitoring['halt_step']}; transformer_wide_long mfu "
         f"{monitoring['tfm_mfu']} on {smi}")
+    for name, r in dp.items():
+        log(f"[dp] {name}: step {r['step_ms']:.4f} ms (CUDA events), peak "
+            f"memory {r['peak_gib']:.3f} GiB, collectives device ms "
+            f"{r['collectives_ms']} in a one-rank NCCL group on {smi}")
     for name, r in train["runs"].items():
         log(f"[train] {name}: median step {r['step_ms_median']:.3f} ms, "
             f"peak memory {r['peak_gib']:.3f} GiB on {smi}")

@@ -7,6 +7,14 @@ chief.  ``--coordinator_address host:port`` is rank 0's TCP rendezvous,
 ``--task_index`` the rank and ``--num_processes`` the world size;
 ``--job_name=ps`` is accepted and explained away.  NCCL carries the
 collectives between cards, gloo between CPU processes.
+
+A process group is set up whenever a coordinator address is given, at
+any world size, one included, and the data-parallel strategies run
+their collectives whenever a group exists (``collectives``): a
+one-rank NCCL group on one card runs the same all-reduce, all-gather
+and reduce-scatter as N ranks, each over one rank.  Rank r plays
+device r of the JAX package's one-process data-parallel mesh
+(``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -17,10 +25,20 @@ import torch.distributed as dist
 from .config import Config
 from .device import resolve_device
 
+# printed by ``main`` when --compilation_cache is given: the JAX
+# trainer's persistent XLA cache directory has nothing to configure here
+COMPILATION_CACHE_NOTE = (
+    "NOTE: --compilation_cache is a no-op in the PyTorch port: it "
+    "compiles nothing at run time (its CUDA kernels are built once into "
+    "build/kernels/), and XLA's persistent compile cache has no "
+    "counterpart.")
 
-def bootstrap(cfg: Config) -> None:
-    """Join the process group the flags describe (nothing to do for one
-    process)."""
+
+def bootstrap(cfg: Config) -> bool:
+    """Join the process group the flags describe (nothing to do without
+    a coordinator address, or when the caller already set one up).
+    Returns whether this call set the group up: then its caller closes
+    it (``shutdown``); a group set up before is its owner's to close."""
     if cfg.job_name == "ps":
         print(
             "NOTE: --job_name=ps maps to a no-op under SPMD: parameters are "
@@ -28,7 +46,7 @@ def bootstrap(cfg: Config) -> None:
             "allreduce, so there is no parameter-server role. This process "
             "will participate as a regular worker."
         )
-    if cfg.coordinator_address and cfg.num_processes > 1:
+    if cfg.coordinator_address and not dist.is_initialized():
         dev = resolve_device(cfg.device)
         if dev.type == "cuda":
             torch.cuda.set_device(cfg.task_index % torch.cuda.device_count())
@@ -36,6 +54,32 @@ def bootstrap(cfg: Config) -> None:
             backend="nccl" if dev.type == "cuda" else "gloo",
             init_method=f"tcp://{cfg.coordinator_address}",
             world_size=cfg.num_processes, rank=cfg.task_index)
+        return True
+    return False
+
+
+def collectives() -> bool:
+    """Whether a process group exists, so the strategies' collectives
+    run (at any world size, one included)."""
+    return dist.is_initialized()
+
+
+def all_gather_flat(out: torch.Tensor, inp: torch.Tensor) -> None:
+    """``out`` [world * n] <- every rank's ``inp`` [n], in rank order
+    (``all_gather_single`` where torch has it, else its older name
+    ``all_gather_into_tensor``, which newer torch deprecates)."""
+    fn = (getattr(dist, "all_gather_single", None)
+          or dist.all_gather_into_tensor)
+    fn(out, inp)
+
+
+def reduce_scatter_flat(out: torch.Tensor, inp: torch.Tensor) -> None:
+    """``out`` [n] <- block ``rank`` of the sum over ranks of ``inp``
+    [world * n] (``reduce_scatter_single`` where torch has it, else
+    ``reduce_scatter_tensor``)."""
+    fn = (getattr(dist, "reduce_scatter_single", None)
+          or dist.reduce_scatter_tensor)
+    fn(out, inp)
 
 
 def process_index() -> int:

@@ -12,12 +12,17 @@ and the resilience store's ``--ckpt_every``; the ``ckpt`` phase spans of
 ``--trace_spans``; the monitoring flags ``--metrics``, ``--flight``,
 ``--on_anomaly``, ``--status_port``, ``--histograms``, ``--profile*``,
 ``--early_stop_patience`` and ``--debug_nans``; ``--profile_port`` is
-refused for good), and refuses every other flag of the JAX trainer
-(exit 2, naming ROADMAP.md) rather than ignore it: expert, sequence,
-tensor and pipeline parallelism (``--expert_parallel``,
-``--sequence_parallel``, ``--sp_impl``, ``--model_parallel``,
-``--pipeline_parallel``) among them.  ``--device`` is the port's
-own: the card (``cuda``) unless ``cpu`` is asked for.
+refused for good; the data-parallel strategies ``--data_parallel``,
+``--microbatches``, ``--sync_period``, ``--zero_opt`` and ``--fsdp``,
+with JAX's matrix of refused combinations, ``validate_strategy_config``;
+``--compilation_cache`` is accepted and explained away), and refuses
+every other flag of the JAX trainer (exit 2, naming ROADMAP.md) rather
+than ignore it: expert, sequence, tensor and pipeline parallelism and
+multi-site training (``--expert_parallel``, ``--sequence_parallel``,
+``--sp_impl``, ``--model_parallel``, ``--pipeline_parallel``,
+``--virtual_stages``, ``--pp_schedule``, ``--sites``, ``--inner_steps``,
+``--outer_*``) and ``--mnist_mirrors``.  ``--device`` is the port's own:
+the card (``cuda``) unless ``cpu`` is asked for.
 """
 
 from __future__ import annotations
@@ -117,6 +122,16 @@ class Config:
     adam_eps: float = 1e-8
     adam_moments_dtype: str = "float32"
     grad_reduce: str = "mean"
+    # ---- data parallelism (parallel/): rank r plays device r of the
+    # JAX package's one-process data-parallel mesh ----
+    data_parallel: int = -1         # -1: every rank on the data axis
+    microbatches: int = 4           # GPipe microbatches (pipeline only)
+    sync_period: int = 1            # 1 = all-reduce every step; K > 1 =
+                                    # local SGD, the async analog: each
+                                    # rank's replica averaged every K
+    zero_opt: bool = False          # ZeRO-1: optimizer slots 1/dp a rank
+    fsdp: bool = False              # ZeRO-3: params + slots 1/dp a rank
+    compilation_cache: str = "auto" # accepted, a no-op (cluster.py)
     pallas: bool = False            # MLP forward through the B1 kernel;
                                     # flash attention for the transformer
     data_dir: str = "MNIST_data"
@@ -559,6 +574,31 @@ def build_train_parser() -> argparse.ArgumentParser:
                    choices=["float32", "bfloat16"])
     p.add_argument("--grad_reduce", type=str, default=d.grad_reduce,
                    choices=["mean", "sum"])
+    p.add_argument("--data_parallel", type=int, default=d.data_parallel,
+                   help="ranks on the data axis (-1 = the world size; "
+                        "any other value must equal it: rank r plays "
+                        "device r of the JAX one-process mesh)")
+    p.add_argument("--microbatches", type=int, default=d.microbatches,
+                   help="GPipe microbatches per local batch")
+    p.add_argument("--sync_period", type=int, default=d.sync_period,
+                   help="K>1 = the LEGACY local-SGD async analog: "
+                        "divergent replicas averaged every K steps "
+                        "(each replica's per-update batch is "
+                        "batch_size/dp; the reference gave each async "
+                        "worker a FULL batch per update — use "
+                        "batch_size = dp*100 to match)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="ZeRO-3: shard params+optimizer state 1/dp per "
+                        "device")
+    p.add_argument("--zero_opt", action="store_true",
+                   help="ZeRO-1: shard OPTIMIZER state 1/dp over the "
+                        "data axis (params keep their layout)")
+    p.add_argument("--compilation_cache", type=str,
+                   default=d.compilation_cache,
+                   help="accepted and ignored: the port compiles nothing "
+                        "at run time (its CUDA kernels are built once "
+                        "into build/kernels/), and XLA's persistent "
+                        "compile cache has no PyTorch counterpart")
     p.add_argument("--pallas", action="store_true",
                    help="run the MLP forward (train and eval) through the "
                         "fused CUDA kernel (sigmoid/tanh/relu); for the "
@@ -771,15 +811,55 @@ def validate_monitoring_config(cfg: Config) -> None:
             f"early_stop_patience={cfg.early_stop_patience} must be >= 0")
 
 
+def validate_strategy_config(cfg: Config) -> None:
+    """The data-parallel strategies' matrix, with the JAX trainer's
+    messages: ``--fsdp`` and ``--zero_opt`` run on the synchronous step,
+    and the features that ride the synchronous step's outputs
+    (``--histograms``, ``--on_anomaly=skip``, ``--grad_accum``,
+    ``--dropout_rate``) are refused under ``--fsdp`` or local SGD.
+    ``--debug_nans`` reads the synchronous step's non-finite flag, which
+    the FSDP and local-SGD steps do not return: ``Unported`` there."""
+    local_sgd = cfg.sync_period > 1
+    if cfg.fsdp and local_sgd:
+        raise ValueError("--fsdp requires the synchronous step "
+                         "(sync_period=1)")
+    if cfg.zero_opt:
+        if cfg.fsdp:
+            raise ValueError("--zero_opt is redundant under --fsdp "
+                             "(ZeRO-3 already shards optimizer state)")
+        if local_sgd:
+            raise ValueError("--zero_opt requires the synchronous step "
+                             "(sync_period=1)")
+    if cfg.dropout_rate and local_sgd:
+        raise ValueError("--dropout_rate runs on the synchronous "
+                         "step (sync_period=1); the local-SGD "
+                         "replicas keep their own objectives")
+    if cfg.histograms and (cfg.fsdp or local_sgd):
+        raise ValueError("--histograms rides the synchronous SPMD "
+                         "step's norm outputs (no --fsdp, "
+                         "sync_period=1)")
+    if cfg.on_anomaly == "skip" and (cfg.fsdp or local_sgd):
+        raise ValueError("--on_anomaly=skip rides the synchronous "
+                         "step's compiled update mask (no --fsdp, "
+                         "sync_period=1); halt/dump work on any path")
+    if cfg.grad_accum > 1 and (cfg.fsdp or local_sgd):
+        raise ValueError("--grad_accum runs on the synchronous step "
+                         "(no --fsdp, sync_period=1)")
+    if cfg.debug_nans and (cfg.fsdp or local_sgd):
+        raise Unported("--debug_nans under --fsdp or --sync_period > 1: "
+                       "the port's check reads the synchronous step's "
+                       "non-finite flag (see ROADMAP.md)")
+
+
 def validate_resilience_config(cfg: Config) -> None:
-    """The resilience flags' checks (the JAX ``validate_resilience_config``
-    without its ``--fsdp`` cases: the port trainer refuses ``--fsdp`` at
-    parse).
+    """The resilience flags' checks (the JAX ``validate_resilience_config``).
 
     - ``--resume`` is "" (fresh), "latest" (the classic formats) or
       "auto" (the newest valid resilience manifest, exact step);
     - ``--ckpt_every`` snapshots through the resilience store from the
       host path's per-step safe point and needs ``--checkpoint_dir``;
+      not under ``--fsdp``, nor ``--resume=auto`` (the snapshot holds
+      full logical leaves, not FSDP's flat shards);
     - ``--ckpt_keep`` is the store's retention and needs
       ``--ckpt_every`` (the classic formats have ``--keep_checkpoints``).
     """
@@ -797,15 +877,29 @@ def validate_resilience_config(cfg: Config) -> None:
             "--ckpt_keep is the resilience store's retention; it "
             "needs --ckpt_every > 0 (the classic formats use "
             "--keep_checkpoints)")
-    if cfg.ckpt_every and not cfg.checkpoint_dir:
+    if cfg.ckpt_every:
+        if not cfg.checkpoint_dir:
+            raise ValueError(
+                "--ckpt_every needs --checkpoint_dir (the resilience "
+                "store lives there)")
+        if cfg.fsdp:
+            raise ValueError(
+                "--ckpt_every does not compose with --fsdp: the "
+                "resilience snapshot holds full logical leaves, not "
+                "the fsdp flat-sharded host layout (use "
+                "--checkpoint_every with --sharded_checkpoints)")
+    if cfg.resume == "auto" and cfg.fsdp:
         raise ValueError(
-            "--ckpt_every needs --checkpoint_dir (the resilience "
-            "store lives there)")
+            "--resume=auto restores full logical leaves from the "
+            "resilience manifest, which the fsdp flat-sharded "
+            "template cannot receive; use bare --resume with the "
+            "classic formats under --fsdp")
 
 
 def validate_train_config(cfg: Config) -> None:
     """Value checks of the ported training flags; ``Unported`` for a
     mode of the JAX trainer the port does not have."""
+    validate_strategy_config(cfg)
     if cfg.batch_size < 1 or cfg.training_epochs < 0 or cfg.frequency < 1:
         raise ValueError("batch_size and frequency must be >= 1, "
                          "training_epochs >= 0")

@@ -11,7 +11,8 @@ exits 2 with a message naming ROADMAP.md.  The operator switches the JAX
 ``DTX_STATUS_PORT=P`` is ``--status_port=P`` (gated on the value: a
 templated ``DTX_METRICS=0`` stays off, and a flag already given wins).
 The JAX platform switch ``DTX_PLATFORM`` is not read: ``--device`` picks
-the device.
+the device.  ``--compilation_cache`` is accepted and explained away with
+a one-line NOTE, as ``--job_name=ps`` is (``cluster.py``).
 """
 
 from __future__ import annotations
@@ -43,8 +44,13 @@ def apply_env_switches(cfg: Config) -> Config:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     cfg = apply_env_switches(parse_train_config(argv))
+    from .cluster import COMPILATION_CACHE_NOTE
     from .train.loop import run
+
+    if any(a.split("=", 1)[0] == "--compilation_cache" for a in argv):
+        print(COMPILATION_CACHE_NOTE)
 
     try:
         run(cfg)

@@ -1,23 +1,37 @@
 """The device-resident epoch: the trainer's default fast path (the JAX
-package's ``parallel/epoch.py``, for one process).
+package's ``parallel/epoch.py``), at any world size: rank r plays
+device r of JAX's one-process data-parallel mesh.
 
-- The whole training split is uploaded once (``shard_dataset``): trimmed
-  to ``n_keep``, a whole number of batches, and stored as uint8 where
-  the pixels are exactly k/255 (``pack_images``; real MNIST and the
-  synthetic set always are), normalized to f32 inside the step by a
-  division by ``float32(255)`` (``normalize``), so the fast path trains
-  on the same bits as the host path.
-- Each epoch draws its permutation on the device, ``jax.random.
-  permutation(fold_in(fold_in(PRNGKey(seed + 0x5EED), shard), epoch),
-  n_keep)`` bit for bit (``utils/prng.py``), gathers the split once
+- Each rank uploads its shard of the training split once
+  (``shard_dataset``): the split trimmed so every rank holds a whole
+  number of its ``batch / dp`` rows a step, and rank r the contiguous
+  shard r, stored as uint8 where the pixels are exactly k/255
+  (``pack_images``; real MNIST and the synthetic set always are),
+  normalized to f32 inside the step by a division by ``float32(255)``
+  (``normalize``), so the fast path trains on the same bits as the host
+  path.
+- Each epoch, rank r draws its permutation on the device, ``jax.random.
+  permutation(fold_in(fold_in(PRNGKey(seed + 0x5EED), r), epoch),
+  n_local)`` bit for bit (``utils/prng.py``), gathers its shard once
   into a preallocated shuffled copy (one ``index_select``), then runs
   ``steps_per_epoch`` steps over its contiguous slices.
+- The step is the synchronous one (its all-reduce inside the step,
+  captured in the CUDA graph on the card), FSDP's
+  (``parallel/fsdp.py``), or local SGD's: K local steps, then the
+  replicas' average (``step.param_sync``).  The host knows the step
+  index, so only every K-th step averages (JAX decides with
+  ``lax.cond`` on the device): on the card two graphs are captured over
+  the same buffers, the local step and the local step followed by the
+  average, and each step replays the one it needs.  Two graphs rather
+  than K steps in one: any K and any epoch length, and no step is
+  captured twice.
 - Per-step cost and accuracy are written into device arrays that the
   caller fetches once per epoch or once per run
   (``build_run_to_completion``, ``build_epoch_runner``).
 - ``build_fast_eval`` stages the test split once, in chunks of
-  ``min(eval_chunk_cap(spec, n), n)`` examples, and counts the correct
-  predictions with one fetch.
+  ``min(eval_chunk_cap(spec, n), n)`` examples rounded up to a multiple
+  of ``dp`` (rank r its rows of each chunk), and counts the correct
+  predictions, summed over the ranks, with one fetch.
 
 **Which families capture.**  The MLP family's step runs as a CUDA graph
 on the card (``CAPTURED_FAMILIES``): one step is captured after a
@@ -27,21 +41,24 @@ batch is read through a device step counter (an ``index_select`` on
 ``arange(b) + i * b`` computed in the graph, the counterpart of JAX's
 ``dynamic_slice``) and its cost and accuracy are written with
 ``index_copy_``.  An epoch is then ``steps_per_epoch`` replays and no
-host sync.  The transformer family (MoE included) runs the same
-device-resident epoch eagerly: no per-step host copy or read, the
-dropout seed from the host's step index.  On the CPU every family runs
-eagerly (there is no graph to capture).  The choice is static; a capture
-that fails raises.
+host sync.  The collectives need a process group that has already run
+one collective before the capture: the eager warm-up steps run them.
+The transformer family (MoE included) runs the same device-resident
+epoch eagerly: no per-step host copy or read, the dropout seed from the
+host's step index.  On the CPU every family runs eagerly (there is no
+graph to capture).  The choice is static; a capture that fails raises.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from .. import cluster
 from ..models import transformer as tfm
 from ..ops import _counts
 from ..train.optim import tree_leaves, tree_map
@@ -91,15 +108,20 @@ def normalize(img: torch.Tensor, divisor: torch.Tensor = None
 
 
 def shard_dataset(images: np.ndarray, labels: np.ndarray, batch: int,
-                  device) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """``(images, labels, steps_per_epoch)`` of the split on ``device``
-    for one process: trimmed to ``n_keep = (n // batch) * batch``, the
+                  device, dp: int = 1, rank: int = 0
+                  ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """``(images, labels, steps_per_epoch)`` of rank ``rank``'s shard on
+    ``device``, as JAX places device ``rank``'s: every rank holds
+    ``per_shard = (n // dp // local) * local`` rows (``local = batch //
+    dp``), rank r rows ``[r * per_shard, (r+1) * per_shard)``, the
     images packed (``pack_images``), uploaded once."""
-    n_keep = (images.shape[0] // batch) * batch
-    img = np.ascontiguousarray(pack_images(images[:n_keep]))
-    lbl = np.ascontiguousarray(labels[:n_keep], dtype=np.float32)
+    local = batch // dp
+    per_shard = (images.shape[0] // dp // local) * local
+    rows = slice(rank * per_shard, (rank + 1) * per_shard)
+    img = np.ascontiguousarray(pack_images(images[rows]))
+    lbl = np.ascontiguousarray(labels[rows], dtype=np.float32)
     return (torch.from_numpy(img).to(device),
-            torch.from_numpy(lbl).to(device), n_keep // batch)
+            torch.from_numpy(lbl).to(device), per_shard // local)
 
 
 def captures(spec, device) -> bool:
@@ -139,24 +161,39 @@ class _Runner:
     ``compile_s`` is the host wall of the CUDA graph's warm-up and
     capture (0 for an eager runner): the trainer logs it as the
     ``compile`` event and keeps it out of its metrics rows' step time,
-    as JAX keeps its compile out."""
+    as JAX keeps its compile out.
+
+    ``body`` is the step (default: the synchronous one, which masks a
+    flagged update under ``--on_anomaly=skip``); ``sync_period`` K > 0
+    runs ``step.param_sync`` after every step whose 1-based global
+    index is a multiple of K (local SGD)."""
 
     def __init__(self, cfg, spec, optimizer, steps_per_epoch: int,
-                 num_epochs: int):
+                 num_epochs: int, body: Optional[Callable] = None,
+                 sync_period: int = 0):
         self.cfg, self.spec = cfg, spec
         self.spe, self.num_epochs = steps_per_epoch, num_epochs
-        # under --on_anomaly=skip the body masks a flagged update
-        self.body = step_lib.make_sync_step_body(cfg, spec, optimizer)
+        self.body = body or step_lib.make_sync_step_body(cfg, spec,
+                                                         optimizer)
+        self.sync_period = sync_period
+        self.rank = cluster.process_index()
         self._shuf = None           # (images, labels), allocated once
         self.compile_s = 0.0
 
+    def _syncs(self, global_step: int) -> bool:
+        """Whether the step at 0-based ``global_step`` ends with the
+        replicas' average."""
+        k = self.sync_period
+        return bool(k) and (global_step + 1) % k == 0
+
     def _shuffle(self, img, lbl, key, epoch: int) -> None:
-        """Epoch ``epoch``'s permutation on the device, and the split
-        gathered through it into the preallocated shuffled copy."""
+        """Epoch ``epoch``'s permutation of this rank's shard on the
+        device, and the shard gathered through it into the preallocated
+        shuffled copy."""
         if self._shuf is None:
             self._shuf = (torch.empty_like(img), torch.empty_like(lbl))
         perm = prng.permutation(
-            prng.fold_in(prng.fold_in(key, 0), epoch), img.shape[0],
+            prng.fold_in(prng.fold_in(key, self.rank), epoch), img.shape[0],
             img.device)
         torch.index_select(img, 0, perm, out=self._shuf[0])
         torch.index_select(lbl, 0, perm, out=self._shuf[1])
@@ -187,8 +224,10 @@ class _EagerRunner(_Runner):
             for i in range(self.spe):
                 x = normalize(shuf_img[i * b:(i + 1) * b], divisor)
                 y = shuf_lbl[i * b:(i + 1) * b]
-                new, cost, acc = self.body(state, x, y,
-                                           step_index=epoch * self.spe + i)
+                g = epoch * self.spe + i
+                new, cost, acc = self.body(state, x, y, step_index=g)
+                if self._syncs(g):
+                    new = step_lib.param_sync(new)
                 state.step, state.params, state.opt_state = (
                     new.step, new.params, new.opt_state)
                 costs[e, i] = cost
@@ -198,31 +237,44 @@ class _EagerRunner(_Runner):
 
 class _GraphRunner(_Runner):
     """One step captured in a CUDA graph and replayed ``steps_per_epoch``
-    times an epoch.  The state lives in static buffers: the first call
-    takes the given state's tensors as them, and every call returns
-    them as its state (a call given another state copies it in).  The step counter
-    ``_i`` (a device int64) picks the batch, and the slot of the cost
-    and accuracy arrays, inside the graph and advances there."""
+    times an epoch (under local SGD two graphs over the same buffers:
+    the local step, and the local step followed by the average).  The
+    state lives in static buffers: the first call takes the given
+    state's tensors as them, and every call returns them as its state (a
+    call given another state copies it in).  The step counter ``_i`` (a
+    device int64) picks the batch, and the slot of the cost and accuracy
+    arrays, inside the graph and advances there."""
 
-    def __init__(self, *args):
-        super().__init__(*args)
-        self.graph = None
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.graphs = None          # {averages: CUDAGraph}
         self.static = None
-        self.delta = {}             # wrapper launches of one captured step
+        self.delta = {}             # {averages: wrapper launches of one
+                                    # captured step}
 
-    def _step(self, x_all, y_all, b: int) -> None:
-        """One step on the static buffers: the body, its results copied
-        into the state, cost and accuracy into their slots."""
+    def _step(self, x_all, y_all, b: int, average: bool) -> None:
+        """One step on the static buffers: the body (and the average),
+        its results copied into the state, cost and accuracy into their
+        slots."""
         i = torch.remainder(self._i, self.spe)
         idx = self._arange + i * b
         x = normalize(x_all.index_select(0, idx), self._divisor)
         y = y_all.index_select(0, idx)
         new, cost, acc = self.body(self.static, x, y)
+        if average:
+            new = step_lib.param_sync(new)
         _copy_state(self.static, new)
         slot = self._i.view(1)
         self._costs.index_copy_(0, slot, cost.to(torch.float32).view(1))
         self._accs.index_copy_(0, slot, acc.to(torch.float32).view(1))
         self._i.add_(1)
+
+    def _variants(self) -> tuple:
+        """The step forms the run replays: the plain step, the step
+        with the average (local SGD), or both."""
+        if self.sync_period == 1:
+            return (True,)
+        return (False, True) if self.sync_period else (False,)
 
     def _capture(self, img, lbl, b: int) -> None:
         dev = img.device
@@ -235,33 +287,42 @@ class _GraphRunner(_Runner):
         self._costs = torch.zeros(n_out, dtype=torch.float32, device=dev)
         self._accs = torch.zeros_like(self._costs)
         x_all, y_all = self._shuf
+        variants = self._variants()
         saved = _clone_state(self.static)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
+        # the eager warm-up also runs the collectives once: a group
+        # must have run one before a capture records its kernels
         with torch.cuda.stream(side):
-            for _ in range(WARMUP_STEPS):
-                self._step(x_all, y_all, b)
+            for w in range(WARMUP_STEPS):
+                self._step(x_all, y_all, b, variants[w % len(variants)])
         torch.cuda.current_stream(dev).wait_stream(side)
         _copy_state(self.static, saved)
         del saved
-        before = _counts.launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        # capture_begin/end on the side stream, not ``torch.cuda.graph``,
-        # whose entry synchronizes and empties the allocator's cache (and
-        # may run a full garbage collection): host time that grows with
-        # what the process holds, and lands in the run's timed window
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            graph.capture_begin()
-            self._step(x_all, y_all, b)
-            graph.capture_end()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        after = _counts.launch_counts()
-        # the capture recorded launches without running them
-        self.delta = {k: n - before[k] for k, n in after.items()
-                      if n != before[k]}
-        _counts.add_launches({k: -n for k, n in self.delta.items()})
-        self.graph = graph
+        self.graphs, pool = {}, None
+        for average in variants:
+            before = _counts.launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            # capture_begin/end on the side stream, not ``torch.cuda.
+            # graph``, whose entry synchronizes and empties the
+            # allocator's cache (and may run a full garbage collection):
+            # host time that grows with what the process holds, and
+            # lands in the run's timed window.  The graphs share one
+            # memory pool: they never run at once
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=pool)
+                self._step(x_all, y_all, b, average)
+                graph.capture_end()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            pool = graph.pool()
+            after = _counts.launch_counts()
+            # the capture recorded launches without running them
+            self.delta[average] = {k: n - before[k] for k, n in after.items()
+                                   if n != before[k]}
+            _counts.add_launches({k: -n for k, n in
+                                  self.delta[average].items()})
+            self.graphs[average] = graph
         torch.cuda.synchronize(dev)
         self.compile_s = time.perf_counter() - t0
 
@@ -272,35 +333,42 @@ class _GraphRunner(_Runner):
         elif state is not self.static:
             _copy_state(self.static, state)
         for e in range(self.num_epochs):
-            self._shuffle(img, lbl, key, epoch_offset + e)
-            if self.graph is None:
+            epoch = epoch_offset + e
+            self._shuffle(img, lbl, key, epoch)
+            if self.graphs is None:
                 self._capture(img, lbl, b)
             if e == 0:
                 self._i.zero_()
-            for _ in range(self.spe):
-                self.graph.replay()
-                _counts.add_launches(self.delta)
+            for i in range(self.spe):
+                average = self._syncs(epoch * self.spe + i)
+                self.graphs[average].replay()
+                _counts.add_launches(self.delta[average])
         shape = (self.num_epochs, self.spe)
         return (self.static, self._costs.view(shape).clone(),
                 self._accs.view(shape).clone())
 
 
 def build_run_to_completion(cfg, spec, optimizer, steps_per_epoch: int,
-                            num_epochs: int, device) -> Callable:
+                            num_epochs: int, device,
+                            body: Optional[Callable] = None,
+                            sync_period: int = 0) -> Callable:
     """The whole run on the device: ``(state, images, labels, key,
     epoch_offset=0) -> (state, costs [E, spe], accs [E, spe])``, the
-    step captured in a CUDA graph where ``captures(spec, device)``."""
+    step captured in a CUDA graph where ``captures(spec, device)``.
+    ``body``: the step (default the synchronous one; FSDP's, or local
+    SGD's with ``sync_period`` K)."""
     cls = _GraphRunner if captures(spec, device) else _EagerRunner
-    return cls(cfg, spec, optimizer, steps_per_epoch, num_epochs)
+    return cls(cfg, spec, optimizer, steps_per_epoch, num_epochs, body=body,
+               sync_period=sync_period)
 
 
 def build_epoch_runner(cfg, spec, optimizer, steps_per_epoch: int,
-                       device) -> Callable:
+                       device, body: Optional[Callable] = None) -> Callable:
     """One epoch a call, for host control between epochs (periodic
     checkpoints): ``(state, images, labels, key, epoch) -> (state,
     costs [spe], accs [spe])``."""
     run1 = build_run_to_completion(cfg, spec, optimizer, steps_per_epoch,
-                                   1, device)
+                                   1, device, body=body)
 
     def runner(state, img, lbl, key, epoch: int):
         state, costs, accs = run1(state, img, lbl, key, epoch)
@@ -311,14 +379,16 @@ def build_epoch_runner(cfg, spec, optimizer, steps_per_epoch: int,
 
 
 def build_fast_eval(cfg, spec, images: np.ndarray, labels: np.ndarray,
-                    device) -> Callable:
+                    device, dp: int = 1, rank: int = 0) -> Callable:
     """The test split staged on ``device`` once — packed, zero-padded to
-    whole chunks of ``min(eval_chunk_cap(spec, n), n)`` examples, the
-    padding masked — and ``params -> accuracy`` over it, with one fetch.
-    ``.dispatch(params)`` returns the correct count as a device scalar
-    without fetching it; ``.n`` is the example count."""
+    whole chunks of ``min(eval_chunk_cap(spec, n), n)`` examples rounded
+    up to a multiple of ``dp``, the padding masked, rank ``rank`` holding
+    its ``chunk / dp`` rows of each chunk as JAX's device ``rank`` does —
+    and ``params -> accuracy`` over it, the count summed over the ranks,
+    with one fetch.  ``.dispatch(params)`` returns the correct count as
+    a device scalar without fetching it; ``.n`` is the example count."""
     n = images.shape[0]
-    chunk = max(1, min(step_lib.eval_chunk_cap(spec, n), n))
+    chunk = -(-max(1, min(step_lib.eval_chunk_cap(spec, n), n)) // dp) * dp
     n_pad = -(-n // chunk) * chunk
     packed = pack_images(images)
     img = np.zeros((n_pad, images.shape[1]), packed.dtype)
@@ -326,18 +396,28 @@ def build_fast_eval(cfg, spec, images: np.ndarray, labels: np.ndarray,
     lbl = np.zeros((n_pad, labels.shape[1]), np.float32)
     lbl[:n] = labels
     mask = (np.arange(n_pad) < n).astype(np.float32)
-    img_d = torch.from_numpy(img).to(device)
-    lbl_d = torch.from_numpy(lbl).to(device)
-    mask_d = torch.from_numpy(mask).to(device)
+    local = chunk // dp
+
+    def rank_rows(a):
+        """This rank's ``local`` rows of every chunk, in order."""
+        blocks = a.reshape(n_pad // chunk, dp, local, *a.shape[1:])
+        return np.ascontiguousarray(blocks[:, rank].reshape(
+            -1, *a.shape[1:]))
+
+    img_d = torch.from_numpy(rank_rows(img)).to(device)
+    lbl_d = torch.from_numpy(rank_rows(lbl)).to(device)
+    mask_d = torch.from_numpy(rank_rows(mask)).to(device)
     divisor = _divisor(img_d.device)
-    eval_step = step_lib.build_eval_step(cfg, spec)
+    eval_step = step_lib.build_eval_step(cfg, spec, reduce=False)
 
     def dispatch(params) -> torch.Tensor:
         total = torch.zeros((), dtype=torch.float32, device=img_d.device)
-        for off in range(0, n_pad, chunk):
-            sl = slice(off, off + chunk)
+        for off in range(0, img_d.shape[0], local):
+            sl = slice(off, off + local)
             total += eval_step(params, normalize(img_d[sl], divisor),
                                lbl_d[sl], mask_d[sl])
+        if cluster.collectives():
+            dist.all_reduce(total)
         return total
 
     def evaluate(params) -> float:

@@ -28,8 +28,16 @@ return stays on the card too: the ``--histograms`` per-leaf gradient and
 parameter norms, the ``--on_anomaly`` non-finite counts and flag, and
 under ``--on_anomaly=skip`` the update masked on that flag with
 ``torch.where``, so the masked step is captured like any other.
-Tensor, sequence, expert and pipeline parallelism, FSDP/ZeRO and local
-SGD are not ported (ROADMAP.md Queue A).
+Every collective runs whenever a process group exists, at any world
+size (a one-rank NCCL group on one card runs them too), and rank r
+plays device r of JAX's one-process mesh (``parallel/mesh.py``).  With
+``zero_dp`` the update is ZeRO-1's (``parallel/zero.py``).  The async
+analog, local SGD (``--sync_period K``), is ``make_local_step_body``,
+``param_sync`` and ``consensus_params``: each rank keeps its own replica
+and applies its own gradients, and every K steps the replicas' float
+leaves are averaged.  FSDP's step is ``parallel/fsdp.py``'s.  Tensor,
+sequence, expert and pipeline parallelism are not ported (ROADMAP.md
+Queue A).
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from ..models import transformer as tfm
 from ..ops import fused, losses, metrics
 from ..train.optim import clip_by_global_norm
 from ..train.state import TrainState
+from . import zero as zero_lib
 
 
 def param_shapes(spec) -> dict:
@@ -178,8 +187,20 @@ def _keep_where(flag: torch.Tensor, new, old):
     return new
 
 
+def mean_over_ranks(cost: torch.Tensor, acc: torch.Tensor):
+    """``(cost, acc)`` averaged over the ranks (JAX's ``pmean`` over the
+    data axis): one all-reduce of both, whenever a group exists."""
+    if not cluster.collectives():
+        return cost, acc
+    stats = torch.stack([cost, acc.to(cost.dtype)])
+    dist.all_reduce(stats)
+    world = cluster.process_count()
+    return stats[0] / world, stats[1] / world
+
+
 def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
-                        with_anomaly: bool = False) -> Callable:
+                        with_anomaly: bool = False,
+                        zero_dp: int = 0) -> Callable:
     """``(state, x, y, step_index=None) -> (state, cost, acc)`` over this
     process's slice ``x``/``y`` of the global batch: ``grad_accum``
     microbatches (the mean of their gradients), the all-reduce across
@@ -197,11 +218,16 @@ def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
     step keeps the old params and optimizer slots, and ``step`` still
     advances.
 
-    The step is capturable in a CUDA graph: it reads nothing back from
-    the card, as long as the caller passes ``step_index`` (the value of
-    ``state.step``, known on the host) where the spec drops — otherwise
-    the dropout seed reads ``state.step`` (``make_step_rng``).  The
-    results are the same either way."""
+    ``zero_dp`` > 0 applies ZeRO-1's chunked update
+    (``parallel/zero.zero_update``): the optimizer slots arrive as this
+    rank's ``[chunk]`` rows and the updated params are all-gathered.
+
+    The step is capturable in a CUDA graph, all-reduce included: it
+    reads nothing back from the card, as long as the caller passes
+    ``step_index`` (the value of ``state.step``, known on the host)
+    where the spec drops — otherwise the dropout seed reads
+    ``state.step`` (``make_step_rng``).  The results are the same either
+    way."""
     names = sorted(param_shapes(spec))
     step_rng = make_step_rng(cfg, spec)
     remat = getattr(cfg, "remat", False)
@@ -235,13 +261,11 @@ def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
             cost, acc = cost / n, acc / n
         else:
             cost, acc, grads = grad_of(state.params, x, y, rng)
-        world = cluster.process_count()
-        if world > 1:
+        if cluster.collectives():
+            world = cluster.process_count()
             for g in grads.values():
                 dist.all_reduce(g)
-            stats = torch.stack([cost, acc])
-            dist.all_reduce(stats)
-            cost, acc = stats[0] / world, stats[1] / world
+            cost, acc = mean_over_ranks(cost, acc)
             if cfg.grad_reduce == "mean":
                 grads = {k: g / world for k, g in grads.items()}
         # the telemetry reads the raw gradients, before the clip
@@ -251,8 +275,13 @@ def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
             flag = torch.any(counts > 0) | ~torch.isfinite(cost)
         if cfg.grad_clip > 0:
             grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
-        new_params, new_opt = optimizer.update(grads, state.opt_state,
-                                               state.params)
+        if zero_dp:
+            new_params, new_opt = zero_lib.zero_update(
+                optimizer, grads, state.opt_state, state.params, zero_dp,
+                cluster.process_index())
+        else:
+            new_params, new_opt = optimizer.update(grads, state.opt_state,
+                                                   state.params)
         if skip:
             # a flagged step keeps the old params and slots, on the card
             new_params = _keep_where(flag, new_params, state.params)
@@ -266,6 +295,70 @@ def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
         return out
 
     return body
+
+
+def make_local_step_body(cfg, spec, optimizer, host: bool = True
+                         ) -> Callable:
+    """The async analog's step (local SGD): ``(state, x, y,
+    step_index=None) -> (state, cost, acc)`` on this rank's own replica
+    and rows, with no collective on the params: each rank applies its
+    own gradients.  The reported cost and accuracy are averaged over
+    the ranks.  The host path's step (JAX ``build_local_train_step``)
+    applies ``--grad_clip`` and ``--label_smoothing``; the
+    device-resident epoch's (``host=False``, JAX's whole-run local
+    program) applies neither, as JAX's does.  No dropout: the config
+    refuses ``--dropout_rate`` with ``--sync_period`` > 1."""
+    names = sorted(param_shapes(spec))
+    remat = getattr(cfg, "remat", False)
+    smoothing = cfg.label_smoothing if host else 0.0
+
+    def body(state: TrainState, x, y, step_index: Optional[int] = None):
+        leaves = {k: state.params[k].detach().requires_grad_(True)
+                  for k in names}
+        objective, (cost, acc) = _loss_and_acc(
+            spec, leaves, x, y, cfg.naive_ce, cfg.pallas, smoothing, remat)
+        grads = dict(zip(names, torch.autograd.grad(
+            objective, [leaves[k] for k in names])))
+        if host and cfg.grad_clip > 0:
+            grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
+        new_params, new_opt = optimizer.update(grads, state.opt_state,
+                                               state.params)
+        cost, acc = mean_over_ranks(cost.detach(), acc)
+        return TrainState(state.step + 1, new_params, new_opt), cost, acc
+
+    return body
+
+
+def _average(tree, world: int):
+    """Float leaves averaged over the ranks (all-reduce, then / world, as
+    JAX's ``pmean``); integer leaves pass through (equal on every rank
+    by construction)."""
+    if isinstance(tree, dict):
+        return {k: _average(v, world) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor) and tree.dtype.is_floating_point:
+        out = tree.clone()
+        dist.all_reduce(out)
+        return out / world
+    return tree
+
+
+def param_sync(state: TrainState) -> TrainState:
+    """Local SGD's reconciliation (JAX ``build_param_sync``): every
+    float leaf of the params and the optimizer slots averaged over the
+    ranks; integer leaves (Adam's count) pass through."""
+    if not cluster.collectives():
+        return state
+    world = cluster.process_count()
+    return TrainState(state.step, _average(state.params, world),
+                      _average(state.opt_state, world))
+
+
+def consensus_params(state: TrainState) -> dict:
+    """The replicas' mean params (JAX ``build_unstack_params``): what
+    eval, sampling and the checkpoints' consensus read in async mode."""
+    if not cluster.collectives():
+        return state.params
+    return _average(state.params, cluster.process_count())
 
 
 def eval_chunk_cap(spec, eval_batch_size: int) -> int:
@@ -299,15 +392,20 @@ def _eval_correct(spec, logits, x, y):
             == torch.argmax(y, -1)).to(torch.float32)
 
 
-def build_eval_step(cfg, spec) -> Callable:
+def build_eval_step(cfg, spec, reduce: bool = True) -> Callable:
     """``(params, x, y, mask) -> correct-prediction count`` (an f32
-    scalar tensor) over one chunk; ``mask`` zeroes the padding rows.
-    Every process evaluates the whole set it is given, so no collective
-    runs.  Eval never drops."""
+    scalar tensor) over this rank's rows of one chunk; ``mask`` zeroes
+    the padding rows.  With ``reduce`` the count is summed over the
+    ranks (JAX's ``psum`` over the data axis) whenever a process group
+    exists; the fast eval sums its chunks first and reduces once.  Eval
+    never drops."""
 
     @torch.no_grad()
     def eval_step(params, x, y, mask):
         logits = forward_local(spec, params, x, cfg.pallas)
-        return torch.sum(_eval_correct(spec, logits, x, y) * mask)
+        count = torch.sum(_eval_correct(spec, logits, x, y) * mask)
+        if reduce and cluster.collectives():
+            dist.all_reduce(count)
+        return count
 
     return eval_step

@@ -5,20 +5,20 @@ MLP and the transformer.
 (``cfg.device``; the CPU only when asked for) and trains
 ``training_epochs`` epochs on one of two paths:
 
-- **the fast path** (the default; ``fast_loop`` with one process, the
-  JAX gate): the device-resident epoch of ``parallel/epoch.py``.  The
-  split is staged on the device once, each epoch is shuffled there with
-  the JAX fast path's permutation, bit for bit, and the per-step costs
+- **the fast path** (the default; ``fast_loop``, the JAX gate): the
+  device-resident epoch of ``parallel/epoch.py``.  Each rank's shard of
+  the split is staged on the device once, each epoch is shuffled there
+  with the JAX fast path's permutation, bit for bit, and the per-step costs
   and accuracies come back once per run, or once per epoch when
   ``--checkpoint_every`` asks for host control between epochs.  The
   MLP's step replays as a CUDA graph on the card; the transformer's
   runs eagerly.  The prints and summaries are made from the returned
   arrays, ``AvgTime`` from the run's (or the epoch's) wall over its
   steps;
-- **the host path** (``--no_fast_loop``, several processes,
+- **the host path** (``--no_fast_loop``, ``--zero_opt``,
   ``--ckpt_every`` or ``--resume=auto``): ``EpochIterator`` batches from
   one persistent producer thread (``data/prefetch.EpochPrefetcher``),
-  one synchronous data-parallel step per batch (``parallel/step.py``),
+  each rank taking its rows of the global batch, one step per batch,
   under ``--device_prefetch`` committed ahead from pinned buffers on a
   copy stream; at most ``--dispatch_depth`` steps in flight before the
   host waits on the oldest, and the costs the summaries need fetched
@@ -45,6 +45,16 @@ steps, at epoch ends on the fast path, and at the end; one ``.npz``, or
 ``ckpt-N.shards/`` under ``--sharded_checkpoints``, written from a
 background thread under ``--async_checkpoints``) and return the JAX
 ``run``'s result keys, ``"fast_loop"`` the path taken.
+
+Data parallelism (``parallel/``): under a process group rank r plays
+device r of the JAX package's one-process data-parallel mesh
+(``parallel/mesh.py``), so N ranks train as JAX's ``--data_parallel=N``
+run; ``setup_strategy`` lays the state out for the synchronous step,
+ZeRO-1 (``--zero_opt``), FSDP (``--fsdp``) or local SGD
+(``--sync_period K``, the async analog), and the checkpoints keep JAX's
+layouts of each (FSDP unsharded in one file, the replicas stacked
+``[dp, ...]``, ZeRO-1's slots ``[dp, chunk]``; each rank's rows under
+``--sharded_checkpoints``).
 
 Resilience (``resilience/``): ``--ckpt_every N`` hands the state to the
 write-behind ``CheckpointWriter`` every N steps on the host path (on
@@ -92,9 +102,10 @@ Monitoring (``obs/``), as in the JAX trainer:
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -107,9 +118,13 @@ from ..device import dtype_from_name, resolve_device
 from ..models import transformer as tfm
 from ..models.mlp import MLPSpec
 from ..parallel import epoch as epoch_lib
+from ..parallel import fsdp as fsdp_lib
+from ..parallel import mesh as mesh_lib
 from ..parallel import step as step_lib
+from ..parallel import zero as zero_lib
 from ..utils import checkpoint as ckpt_lib
 from ..utils import prng
+from ..utils.sync import hard_sync
 from ..utils.summary import (SummaryWriter, mlp_graph_nodes,
                              transformer_graph_nodes)
 from .optim import make_optimizer
@@ -180,11 +195,16 @@ def _print_window(step: int, epoch: int, batch_i: int, batch_count: int,
 
 
 def _eval_accuracy(eval_step, params, images: np.ndarray,
-                   labels: np.ndarray, chunk: int, device) -> float:
-    """Accuracy over a whole split, in chunks of ``chunk`` examples; the
-    last chunk is zero-padded and masked, as in the JAX package."""
+                   labels: np.ndarray, chunk: int, device,
+                   mesh: mesh_lib.Mesh) -> float:
+    """Accuracy over a whole split, in chunks of ``chunk`` examples
+    rounded down to a multiple of dp (at least dp); the last chunk is
+    zero-padded and masked, and each rank evaluates its rows of every
+    chunk (the counts summed over the ranks), as in the JAX package."""
     n = images.shape[0]
-    chunk = max(1, min(chunk, n))
+    dp = mesh.dp
+    chunk = max(dp, (min(chunk, n) // dp) * dp)
+    rows = mesh_lib.batch_layout(mesh, chunk)
     correct = 0.0
     for off in range(0, n, chunk):
         x = images[off: off + chunk]
@@ -195,6 +215,7 @@ def _eval_accuracy(eval_step, params, images: np.ndarray,
             x = np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
             y = np.concatenate([y, np.zeros((pad,) + y.shape[1:], y.dtype)])
         mask = (np.arange(chunk) < valid).astype(np.float32)
+        x, y, mask = x[rows], y[rows], mask[rows]
         correct += float(eval_step(params, torch.from_numpy(x).to(device),
                                    torch.from_numpy(y).to(device),
                                    torch.from_numpy(mask).to(device)))
@@ -288,8 +309,87 @@ def _host_lr(cfg: Config, total_steps: int):
 
 # the JAX trainer's checkpoint extras of layouts the port does not have:
 # their states would not restore into the port's template
-_FOREIGN_LAYOUTS = ("zero_dp", "sites", "fsdp_mp", "pp_stages",
-                    "pp_virtual")
+_FOREIGN_LAYOUTS = ("sites", "pp_stages", "pp_virtual")
+
+
+def _zero_rows(key: str, leaf) -> bool:
+    """ZeRO-1's row-sharded leaves: the float optimizer slots."""
+    return key.startswith(".opt_state") and fsdp_lib.is_sharded_leaf(leaf)
+
+
+def _fsdp_rows(key: str, leaf) -> bool:
+    """FSDP's: every float leaf with a dimension."""
+    return fsdp_lib.is_sharded_leaf(leaf)
+
+
+def _replica_rows(key: str, leaf) -> bool:
+    """Local SGD's: every leaf but the step (each rank its replica,
+    stacked ``[dp, ...]`` in the global layout, as JAX stacks it)."""
+    return key != ".step"
+
+
+def _unshard_flat(data: dict, full_template) -> dict:
+    """FSDP's global ``[dp, chunk]`` leaves of ``data`` back to the
+    shapes of ``full_template`` (the others as they are)."""
+    out = dict(data)
+    for key, t in ckpt_lib.flatten_state(full_template).items():
+        if fsdp_lib.is_sharded_leaf(t):
+            out[key] = data[key].reshape(-1)[:t.numel()].reshape(t.shape)
+    return out
+
+
+@dataclasses.dataclass
+class Strategy:
+    """A data-parallel strategy's layout of the train state on this
+    rank and what runs it: ``body`` (the step; None = the synchronous
+    one the fast path builds), ``get_params`` (the full params for eval
+    and sampling; None = ``state.params``), ``row_sharded`` (the leaves
+    that are this rank's row of a global ``[dp, ...]`` checkpoint leaf),
+    ``step_scale`` (printed steps per step: dp under local SGD, whose
+    replicas each apply an update), ``sync_period`` (the runner's
+    average every K steps; 0 = none) and ``full_template`` (FSDP's full
+    shapes)."""
+    state: Any
+    body: Optional[Callable] = None
+    get_params: Optional[Callable] = None
+    row_sharded: Optional[Callable] = None
+    step_scale: int = 1
+    sync_period: int = 0
+    full_template: Any = None
+
+
+def setup_strategy(cfg: Config, spec, optimizer, state, mesh: mesh_lib.Mesh,
+                   fast: bool, with_anomaly: bool = False) -> Strategy:
+    """The strategy the flags name, from the full seeded ``state`` (the
+    same on every rank): FSDP keeps this rank's ``[chunk]`` rows, local
+    SGD the rank's own replica, ZeRO-1 its ``[chunk]`` rows of the
+    optimizer slots, plain data parallelism the replicated state."""
+    dp, rank = mesh.dp, mesh.rank
+    if cfg.fsdp:
+        full_template = fsdp_lib.shape_template(state)
+        return Strategy(
+            state=fsdp_lib.local_rows(fsdp_lib.shard_state_host(state, dp),
+                                      rank),
+            body=fsdp_lib.make_fsdp_step_body(cfg, spec, dp, optimizer,
+                                              full_template),
+            get_params=fsdp_lib.build_gather_params(full_template),
+            row_sharded=_fsdp_rows, full_template=full_template)
+    if cfg.sync_period > 1:
+        return Strategy(
+            state=state,
+            body=step_lib.make_local_step_body(cfg, spec, optimizer,
+                                               host=not fast),
+            get_params=step_lib.consensus_params, row_sharded=_replica_rows,
+            step_scale=dp, sync_period=cfg.sync_period)
+    zero_dp = dp if cfg.zero_opt else 0
+    if zero_dp:
+        state.opt_state = zero_lib.zero_opt_state(optimizer, state.params,
+                                                  dp)
+    body = None if fast else step_lib.make_sync_step_body(
+        cfg, spec, optimizer, with_norms=cfg.histograms,
+        with_anomaly=with_anomaly, zero_dp=zero_dp)
+    return Strategy(state=state, body=body,
+                    row_sharded=_zero_rows if zero_dp else None)
 
 
 def run(cfg: Config) -> Dict[str, Any]:
@@ -298,7 +398,7 @@ def run(cfg: Config) -> Dict[str, Any]:
     validate_train_config(cfg)
     dev = resolve_device(cfg.device)
     spec = make_spec(cfg)
-    cluster.bootstrap(cfg)
+    owns_group = cluster.bootstrap(cfg)
     writer = None
     # handles bound before the try, so its except and finally can always
     # reach them
@@ -313,6 +413,9 @@ def run(cfg: Config) -> Dict[str, Any]:
         proc_idx = cluster.process_index()
         proc_cnt = cluster.process_count()
         chief = proc_idx == 0
+        # the data axis: rank r plays device r of JAX's one-process mesh
+        mesh = mesh_lib.build_mesh(cfg.data_parallel)
+        dp = mesh.dp
 
         # run-start hygiene: a reused logs_path must not leak an older
         # run's heartbeats and flight dumps into this run's straggler
@@ -368,7 +471,7 @@ def run(cfg: Config) -> Dict[str, Any]:
             synthetic_train_size=cfg.synthetic_train_size,
             synthetic_test_size=cfg.synthetic_test_size,
             input_size=cfg.input_size)
-        global_batch = _global_batch(cfg, proc_cnt)
+        global_batch = _global_batch(cfg, dp)
         total_steps = cfg.training_epochs * max(
             1, dataset.train.images.shape[0] // global_batch)
         optimizer = make_optimizer(cfg, total_steps)
@@ -411,7 +514,7 @@ def run(cfg: Config) -> Dict[str, Any]:
                 row["model_flops_per_step"] = flops_step
                 row["tflops_per_sec"] = (round(flops_step * sps / 1e12, 5)
                                          if sps else None)
-                m = (flops_lib.mfu(flops_step, sps, peak, proc_cnt)
+                m = (flops_lib.mfu(flops_step, sps, peak, dp)
                      if sps else None)
                 row["mfu"] = round(m, 6) if m is not None else None
                 mlogger.log_window(**row)
@@ -452,8 +555,6 @@ def run(cfg: Config) -> Dict[str, Any]:
             cfg.logs_path, window=tracer_lib.parse_profile_steps(
                 cfg.profile_steps), whole_run=cfg.profile, enabled=chief)
         if cfg.flight or cfg.on_anomaly:
-            import dataclasses
-
             flight = flight_lib.FlightRecorder(
                 cfg.logs_path, process_index=proc_idx,
                 capacity=cfg.flight_steps, config=dataclasses.asdict(cfg))
@@ -466,18 +567,36 @@ def run(cfg: Config) -> Dict[str, Any]:
                 watchdog=anomaly_lib.LossWatchdog(
                     factor=cfg.anomaly_factor))
 
+        async_mode = cfg.sync_period > 1
+        fsdp_mode = cfg.fsdp
+        # the modes whose state needs get_params() before eval and
+        # sampling (replicas or shards)
+        unstack_mode = async_mode or fsdp_mode
+        # the JAX gate, each rank playing one device of the mesh: every
+        # rank needs its own shard of the split (shard_data or dp == 1);
+        # the resilience snapshots ride the host path's per-step safe
+        # point, and --resume=auto's in-epoch skip needs the host feed;
+        # --histograms fetches the step's norms a window, halt must stop
+        # inside the epoch, and --debug_nans at the step; ZeRO-1's flat
+        # slots are a host-path feature; the async run is one device
+        # program, with no host control for periodic checkpoints or
+        # early stopping (dump and skip compose with the fast path)
+        fast = (cfg.fast_loop and (cfg.shard_data or dp == 1)
+                and not cfg.ckpt_every and cfg.resume != "auto"
+                and not cfg.histograms and cfg.on_anomaly != "halt"
+                and not cfg.debug_nans and not cfg.zero_opt
+                and not (async_mode and (cfg.checkpoint_every
+                                         or cfg.early_stop_patience)))
+
+        # the same seeded init on every rank: no broadcast needed
         state = create_train_state(spec, optimizer, seed=cfg.seed,
                                    device=dev)
-        # the JAX gate (fast_loop, one process, shard_data or dp == 1) as
-        # far as the port has its flags; with one process dp is 1.  The
-        # resilience snapshots ride the host path's per-step safe point,
-        # and --resume=auto's in-epoch skip needs the host feed;
-        # --histograms fetches the step's norms a window, halt must stop
-        # inside the epoch, and --debug_nans at the step: the host path
-        # (dump and skip compose with the fast path, as in JAX)
-        fast = (cfg.fast_loop and proc_cnt == 1 and not cfg.ckpt_every
-                and cfg.resume != "auto" and not cfg.histograms
-                and cfg.on_anomaly != "halt" and not cfg.debug_nans)
+        strat = setup_strategy(cfg, spec, optimizer, state, mesh, fast,
+                               with_anomaly=(policy is not None
+                                             or cfg.debug_nans))
+        state, train_body = strat.state, strat.body
+        full_template, row_sharded = strat.full_template, strat.row_sharded
+        get_params, step_scale = strat.get_params, strat.step_scale
         print("Variables initialized ...")
 
         start_epoch = 0
@@ -496,7 +615,7 @@ def run(cfg: Config) -> Dict[str, Any]:
                     path = plan.root_path
             if path is None:
                 path = ckpt_lib.latest_checkpoint(cfg.checkpoint_dir)
-            if path is None and cfg.resume != "auto":
+            if path is None and cfg.resume != "auto" and not fsdp_mode:
                 # a bare --resume over a store only --ckpt_every filled
                 # must not start from scratch: fall forward to it
                 found = resume_lib.auto_resume(cfg.checkpoint_dir)
@@ -515,15 +634,27 @@ def run(cfg: Config) -> Dict[str, Any]:
                                   else ckpt_lib.load_extras(path))
                 foreign = {k: resumed_extras[k] for k in _FOREIGN_LAYOUTS
                            if k in resumed_extras}
+                if int(resumed_extras.get("fsdp_mp", 1)) != 1:
+                    foreign["fsdp_mp"] = resumed_extras["fsdp_mp"]
                 if foreign:
                     raise Unported(
                         f"checkpoint {path} was written with {foreign}: "
-                        f"ZeRO-1, multi-site, FSDP and pipeline layouts "
+                        f"multi-site, FSDP x TP and pipeline layouts "
                         f"are not ported to the PyTorch trainer yet "
                         f"(see ROADMAP.md Queue A)")
+                saved_zdp = int(resumed_extras.get("zero_dp", 0))
+                if saved_zdp != (dp if cfg.zero_opt else 0):
+                    raise ValueError(
+                        f"checkpoint {path} was written with "
+                        f"zero_dp={saved_zdp} (ZeRO-1 flat slots are "
+                        f"dp-shaped): resume needs the same --zero_opt "
+                        f"setting and data-parallel degree (this run: "
+                        f"{dp if cfg.zero_opt else 0})")
                 if plan is not None:
                     state = ckpt_lib.rebuild_tree_validated(
-                        flat, state, ckpt_path=path)
+                        ckpt_lib.take_rows(flat, state, row_sharded,
+                                           proc_idx),
+                        state, ckpt_path=path)
                     start_epoch, resume_skip = plan.epoch, plan.batches_done
                     print(f"Resumed from {path} at epoch {start_epoch} "
                           f"step {plan.step} (+{resume_skip} in-epoch "
@@ -534,8 +665,22 @@ def run(cfg: Config) -> Dict[str, Any]:
                             epoch=int(start_epoch),
                             batches_done=int(resume_skip))
                 else:
-                    state, _, start_epoch = ckpt_lib.restore_checkpoint(
-                        path, state)
+                    data, _, start_epoch = ckpt_lib.restore_arrays(path)
+                    if fsdp_mode:
+                        # a sharded FSDP checkpoint holds the saved run's
+                        # flat [dp_old, chunk] leaves, a single file the
+                        # full ones: unshard, then re-shard for this dp
+                        if os.path.isdir(path):
+                            data = _unshard_flat(data, full_template)
+                        full = ckpt_lib.rebuild_tree_validated(
+                            data, full_template, ckpt_path=path)
+                        data = ckpt_lib.flatten_state(fsdp_lib.local_rows(
+                            fsdp_lib.shard_state_host(full, dp), proc_idx))
+                    else:
+                        data = ckpt_lib.take_rows(data, state, row_sharded,
+                                                  proc_idx)
+                    state = ckpt_lib.rebuild_tree_validated(data, state,
+                                                            ckpt_path=path)
                     print(f"Resumed from {path} at epoch {start_epoch}")
 
         if cfg.summaries and (chief or cfg.summaries_all_hosts):
@@ -570,7 +715,7 @@ def run(cfg: Config) -> Dict[str, Any]:
                     return _eval_accuracy(
                         eval_step, params, images, labels,
                         step_lib.eval_chunk_cap(spec, cfg.eval_batch_size),
-                        dev)
+                        dev, mesh)
             finally:
                 phase_s["eval"] += time.perf_counter() - t0
 
@@ -586,14 +731,26 @@ def run(cfg: Config) -> Dict[str, Any]:
             return val_wait >= cfg.early_stop_patience
 
         def ckpt_extras() -> dict | None:
-            return ({"best_val": best_val, "val_wait": val_wait}
-                    if early else None)
+            extras = ({"best_val": best_val, "val_wait": val_wait}
+                      if early else {})
+            if cfg.zero_opt:
+                # the flat slot chunking is dp-shaped; resume checks it
+                extras["zero_dp"] = dp
+            if fsdp_mode and cfg.sharded_checkpoints:
+                # a sharded FSDP checkpoint stores the flat [dp, chunk]
+                # layout; resume reads the degree it was written at
+                extras["fsdp_mp"] = 1
+            return extras or None
 
         def save_state(step: int, resume_epoch: int) -> None:
-            """A classic checkpoint: every process writes its shard file
-            and the chief the manifest under --sharded_checkpoints (the
-            files from a background thread under --async_checkpoints,
-            the prune once they landed); else the chief's one .npz."""
+            """A classic checkpoint in JAX's layouts: every process writes
+            its shard file (its rows of the row-sharded leaves; FSDP's
+            flat layout as it is) and the chief the manifest under
+            --sharded_checkpoints (the files from a background thread
+            under --async_checkpoints, the prune once they landed); else
+            every rank joins the gather and the chief writes one .npz
+            (FSDP unsharded, local SGD's replicas stacked [dp, ...],
+            ZeRO-1's slots [dp, chunk])."""
             prune = ((lambda: ckpt_lib.prune_checkpoints(
                 cfg.checkpoint_dir, cfg.keep_checkpoints))
                 if chief and cfg.keep_checkpoints else None)
@@ -601,9 +758,15 @@ def run(cfg: Config) -> Dict[str, Any]:
                 ckpt_lib.save_checkpoint_sharded(
                     cfg.checkpoint_dir, state, step, resume_epoch,
                     ckpt_extras(), async_=cfg.async_checkpoints,
-                    on_complete=prune)
-            elif chief:
-                ckpt_lib.save_checkpoint(cfg.checkpoint_dir, state, step,
+                    on_complete=prune, row_sharded=row_sharded)
+                return
+            to_save = state
+            if row_sharded is not None:
+                to_save = ckpt_lib.gather_rows(state, row_sharded)
+                if fsdp_mode:
+                    to_save = _unshard_flat(to_save, full_template)
+            if chief:
+                ckpt_lib.save_checkpoint(cfg.checkpoint_dir, to_save, step,
                                          resume_epoch, ckpt_extras())
                 if prune is not None:
                     prune()
@@ -657,31 +820,41 @@ def run(cfg: Config) -> Dict[str, Any]:
             """Hand the current state to the write-behind writer: the
             device-to-host copies are enqueued here (``_host_snapshot``),
             everything else runs on the writer thread.  With several
-            processes the state is replicated: the chief hands over
-            every leaf, the others an empty part."""
-            snap, ready = ({}, None)
-            if chief:
+            processes the chief hands over every replicated leaf and
+            each rank its rows of the row-sharded ones (ZeRO-1's slots,
+            local SGD's replicas), with their global shapes."""
+            snap, ready, meta = {}, None, None
+            if chief or row_sharded is not None:
                 snap, ready = _host_snapshot(state, dev)
+                snap, meta = ckpt_lib.local_shards(snap, row_sharded)
             ckpt_writer.submit(
                 int(step), int(epoch), snap, extras=ckpt_extras(),
                 data_state={"epoch": int(epoch),
                             "batches_done": int(batches_done),
                             "steps_done": int(step)},
-                ready=ready)
+                leaf_meta=meta or None, ready=ready)
 
         # the fast path stages the splits on the device now: the data
         # load, which the reference also does before its timer starts
         if fast:
             img_d, lbl_d, batch_count = epoch_lib.shard_dataset(
                 dataset.train.images, dataset.train.labels, global_batch,
-                dev)
+                dev, dp, proc_idx)
             fast_eval = epoch_lib.build_fast_eval(
-                cfg, spec, dataset.test.images, dataset.test.labels, dev)
+                cfg, spec, dataset.test.images, dataset.test.labels, dev,
+                dp, proc_idx)
             fast_val = (epoch_lib.build_fast_eval(
                 cfg, spec, dataset.validation.images,
-                dataset.validation.labels, dev) if early else None)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+                dataset.validation.labels, dev, dp, proc_idx)
+                if early else None)
+            # the upload lands before the timed window opens
+            hard_sync((img_d, lbl_d, fast_eval.staged)
+                      + ((fast_val.staged,) if fast_val else ()))
+
+        def eval_params():
+            """The params eval and sampling read: the replicas' mean or
+            the gathered shards (a collective) under the strategies."""
+            return get_params(state) if unstack_mode else state.params
 
         epochs_done = start_epoch
         begin_time = time.time()
@@ -706,18 +879,19 @@ def run(cfg: Config) -> Dict[str, Any]:
                 base_step = epoch * batch_count
                 if writer is not None:
                     for i in range(batch_count):
-                        writer.add_scalars(base_step + i + 1, {
-                            "cost": float(costs[i]),
-                            "accuracy": float(accs[i])})
+                        writer.add_scalars(
+                            (base_step + i + 1) * step_scale, {
+                                "cost": float(costs[i]),
+                                "accuracy": float(accs[i])})
                 count = 0
                 last = float("nan")
                 for i in range(batch_count):
                     count += 1
                     if count % frequency == 0 or i + 1 == batch_count:
                         last = float(costs[i])
-                        _print_window(base_step + i + 1, epoch, i,
-                                      batch_count, last, count * avg_step_s,
-                                      frequency)
+                        _print_window((base_step + i + 1) * step_scale,
+                                      epoch, i, batch_count, last,
+                                      count * avg_step_s, frequency)
                         count = 0
                 if mlogger is not None:
                     # one row an epoch from the returned arrays: no
@@ -728,7 +902,7 @@ def run(cfg: Config) -> Dict[str, Any]:
                     ms = round(m_s * 1e3, 4)
                     wall = round(m_s * batch_count, 6)
                     metrics_row(
-                        (epoch + 1) * batch_count, epoch, last,
+                        (epoch + 1) * batch_count * step_scale, epoch, last,
                         {"path": "fast", "timing": "epoch_mean",
                          "steps": batch_count, "window_wall_s": wall,
                          "step_time_p50_ms": ms, "step_time_p95_ms": ms,
@@ -763,7 +937,8 @@ def run(cfg: Config) -> Dict[str, Any]:
             if cfg.checkpoint_every == 0 and n_ep > 0 and not early:
                 # the whole run on the device, one fetch at its end
                 runner = epoch_lib.build_run_to_completion(
-                    cfg, spec, optimizer, batch_count, n_ep, dev)
+                    cfg, spec, optimizer, batch_count, n_ep, dev,
+                    body=train_body, sync_period=strat.sync_period)
                 tracer.on_range(start_epoch * batch_count,
                                 (start_epoch + n_ep) * batch_count)
                 if flight is not None:
@@ -776,7 +951,7 @@ def run(cfg: Config) -> Dict[str, Any]:
                                                     shuffle_key, start_epoch)
                 log_compile("run_to_completion", runner.compile_s)
                 with tracer.annotate("eval"):
-                    correct = fast_eval.dispatch(state.params)
+                    correct = fast_eval.dispatch(eval_params())
                 costs2d, accs2d, correct = _fetch(costs2d, accs2d, correct)
                 test_acc = float(correct) / fast_eval.n
                 total_wall = time.time() - t0
@@ -792,7 +967,7 @@ def run(cfg: Config) -> Dict[str, Any]:
                 # one epoch a call, for host control between epochs
                 # (periodic checkpoints, validation)
                 epoch_runner = epoch_lib.build_epoch_runner(
-                    cfg, spec, optimizer, batch_count, dev)
+                    cfg, spec, optimizer, batch_count, dev, body=train_body)
                 for epoch in range(start_epoch, cfg.training_epochs):
                     tracer.on_range(epoch * batch_count,
                                     (epoch + 1) * batch_count)
@@ -818,20 +993,23 @@ def run(cfg: Config) -> Dict[str, Any]:
                         t_ev = time.perf_counter()
                         with tracer.annotate("eval"):
                             stop_now = note_validation(
-                                fast_val(state.params))
+                                fast_val(eval_params()))
                         phase_s["eval"] += time.perf_counter() - t_ev
                     maybe_checkpoint(steps_done, epochs_done)
                     if stop_now:
                         break
         else:
-            with_anomaly = policy is not None or cfg.debug_nans
-            train_step = step_lib.make_sync_step_body(
-                cfg, spec, optimizer, with_norms=cfg.histograms,
-                with_anomaly=with_anomaly)
+            # the sync step returns its non-finite flag and counts; the
+            # FSDP and local-SGD steps do not, and there the policy reads
+            # the loss at the print fetch, as in JAX
+            want_anomaly = ((policy is not None or cfg.debug_nans)
+                            and not unstack_mode)
+            # every rank draws the global batch JAX's one-process loader
+            # draws and takes its rows of it, as device r does
             iterator = EpochIterator(
-                dataset.train, batch_size=global_batch // proc_cnt,
-                seed=cfg.seed, shard=cfg.shard_data,
-                process_index=proc_idx, process_count=proc_cnt)
+                dataset.train, batch_size=global_batch, seed=cfg.seed,
+                shard=cfg.shard_data)
+            rows = mesh_lib.batch_layout(mesh, global_batch)
             on_card = dev.type == "cuda"
             # the JAX defaults for the device: deep on the card, one on
             # the CPU, where the "device" is the host's own cores
@@ -879,7 +1057,7 @@ def run(cfg: Config) -> Dict[str, Any]:
             # head is never gathered (skip_batches raises when the epoch
             # is shorter than the snapshot's position)
             def epoch_batches(e):
-                idx = iterator.batch_indices(e)
+                idx = [b[rows] for b in iterator.batch_indices(e)]
                 if e == start_epoch:
                     idx = list(skip_batches(idx, resume_skip))
                 if pinned:
@@ -983,7 +1161,8 @@ def run(cfg: Config) -> Dict[str, Any]:
                 timing = wtimer.window_row()
                 timing["path"] = "host"
                 if mlogger is not None:
-                    metrics_row(steps_done, epoch, cost_w, timing)
+                    metrics_row(steps_done * step_scale, epoch, cost_w,
+                                timing)
                 if flight is not None:
                     flight.record_window(
                         steps_done, epoch=epoch, cost=cost_w, timing=timing,
@@ -1048,7 +1227,7 @@ def run(cfg: Config) -> Dict[str, Any]:
                         t_disp = time.perf_counter()
                         with tracer.step_annotation(steps_done), \
                                 tracer.annotate("dispatch"):
-                            state, cost_dev, acc_dev, *extra = train_step(
+                            state, cost_dev, acc_dev, *extra = train_body(
                                 state, x, y)
                         if wtimer is not None:
                             t_disp = time.perf_counter() - t_disp
@@ -1067,11 +1246,14 @@ def run(cfg: Config) -> Dict[str, Any]:
                         if cfg.histograms:
                             norms_dev = extra[0]
                         steps_done += 1
+                        if async_mode and steps_done % cfg.sync_period == 0:
+                            state = step_lib.param_sync(state)
                         examples_seen += global_batch
                         if flight is not None:
                             flight.record_step(steps_done, epoch=epoch,
                                                batch_index=i)
-                        if cfg.debug_nans and bool(extra[-1]["flag"]):
+                        if cfg.debug_nans and want_anomaly \
+                                and bool(extra[-1]["flag"]):
                             counts = extra[-1]["counts"].cpu().tolist()
                             blame = {n: c for n, c in zip(
                                 step_lib.leaf_names(spec), counts) if c}
@@ -1079,7 +1261,7 @@ def run(cfg: Config) -> Dict[str, Any]:
                                 f"--debug_nans: step {steps_done} produced "
                                 f"a non-finite loss or gradient (non-finite "
                                 f"gradient elements by leaf: {blame})")
-                        if policy is not None:
+                        if policy is not None and want_anomaly:
                             anom_pending.append((steps_done, cost_dev,
                                                  extra[-1]))
                             if len(anom_pending) > anom_depth:
@@ -1095,7 +1277,8 @@ def run(cfg: Config) -> Dict[str, Any]:
                         if writer is not None:
                             # the reference writes cost and accuracy
                             # every step; fetched once per window
-                            pending.append((steps_done, cost_dev, acc_dev))
+                            pending.append((steps_done * step_scale,
+                                            cost_dev, acc_dev))
                             if len(pending) >= window:
                                 write_pending()
                         count += 1
@@ -1106,8 +1289,13 @@ def run(cfg: Config) -> Dict[str, Any]:
                             charge("device_wait", t_fetch)
                             elapsed_time = time.time() - start_time
                             start_time = time.time()
-                            _print_window(steps_done, epoch, i, batch_count,
-                                          cost, elapsed_time, frequency)
+                            if policy is not None and not want_anomaly:
+                                # FSDP and local SGD: no step flags, the
+                                # loss watchdog rides the print fetch
+                                policy.on_step(steps_done, loss=cost)
+                            _print_window(steps_done * step_scale, epoch, i,
+                                          batch_count, cost, elapsed_time,
+                                          frequency)
                             count = 0
                         if (ckpt_writer is not None
                                 and steps_done % cfg.ckpt_every == 0):
@@ -1137,7 +1325,7 @@ def run(cfg: Config) -> Dict[str, Any]:
                     if mlogger is not None:
                         straggler_event(epoch)
                     if early and note_validation(host_eval_accuracy(
-                            state.params, dataset.validation.images,
+                            eval_params(), dataset.validation.images,
                             dataset.validation.labels)):
                         break
                 if writer is not None:
@@ -1155,15 +1343,17 @@ def run(cfg: Config) -> Dict[str, Any]:
                 torch.cuda.synchronize(dev)
             tracer.stop()
 
+        final_params = None
         if test_acc is None:        # the whole-run path fetched it
+            final_params = eval_params()
             if fast:
                 t_ev = time.perf_counter()
                 with tracer.annotate("eval"):
-                    test_acc = fast_eval(state.params)
+                    test_acc = fast_eval(final_params)
                 phase_s["eval"] += time.perf_counter() - t_ev
             else:
                 test_acc = host_eval_accuracy(
-                    state.params, dataset.test.images, dataset.test.labels)
+                    final_params, dataset.test.images, dataset.test.labels)
         total_time = time.time() - begin_time
         cost = float(cost)
         if chief or cfg.eval_all_hosts:
@@ -1174,8 +1364,8 @@ def run(cfg: Config) -> Dict[str, Any]:
         t_sample = time.perf_counter()
         if cfg.sample_after > 0 and cfg.model == "transformer" \
                 and cfg.objective == "lm":
-            _sample(cfg, spec, state.params, dataset.test.images, dev,
-                    chief)
+            _sample(cfg, spec, final_params if final_params is not None
+                    else eval_params(), dataset.test.images, dev, chief)
         phase_s["sample"] += time.perf_counter() - t_sample
         ckpt_stats = None
         if cfg.checkpoint_dir:
@@ -1251,7 +1441,8 @@ def run(cfg: Config) -> Dict[str, Any]:
             span_recorder.close()
         if status_server is not None:
             status_server.close()
-        cluster.shutdown()
+        if owns_group:
+            cluster.shutdown()
     result = {
         "test_accuracy": test_acc,
         "total_time_s": total_time,
@@ -1261,7 +1452,7 @@ def run(cfg: Config) -> Dict[str, Any]:
         "examples_per_sec": (examples_seen / total_time
                              if total_time > 0 else 0.0),
         "dataset_source": dataset.source,
-        "devices": proc_cnt,
+        "devices": dp,
         "global_batch": global_batch,
         "fast_loop": fast,
         "epochs_completed": epochs_done,

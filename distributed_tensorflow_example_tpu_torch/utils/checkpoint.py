@@ -26,6 +26,15 @@ name (``resilience/codec.py``, the one codec of every format).
   background thread (``wait_for_pending_saves`` joins it and re-raises
   its failure).
 
+Under the data-parallel strategies some leaves are **row-sharded**: a
+rank holds row r of a global ``[dp, ...]`` leaf (ZeRO-1's optimizer
+slots, FSDP's flat shards, local SGD's replicas; a ``row_sharded(key,
+leaf)`` predicate names them).  The sharded format writes each rank's
+row with its global bounds (as JAX writes each device's shard), so
+JAX's ``restore_sharded_arrays`` reassembles the ``[dp, ...]`` leaf;
+``gather_rows`` all-gathers them for the chief's single file, and
+``take_rows`` picks this rank's row of a restored global leaf.
+
 ``--resume`` (``train/loop.py``) restores the newest complete checkpoint
 of either format with ``latest_checkpoint`` and ``restore_checkpoint``;
 ``--resume=auto`` restores from the resilience store
@@ -73,14 +82,17 @@ def flatten_state(state: TrainState) -> Dict[str, torch.Tensor]:
     return out
 
 
-def save_checkpoint(ckpt_dir: str, state: TrainState, step: int, epoch: int,
+def save_checkpoint(ckpt_dir: str, state, step: int, epoch: int,
                     extras: dict | None = None) -> str:
-    """Write ``ckpt-<step:08d>.npz`` atomically; returns its path."""
+    """Write ``ckpt-<step:08d>.npz`` atomically; returns its path.
+    ``state``: a ``TrainState`` or its ``{key: tensor}`` leaves (a
+    gathered global layout)."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"ckpt-{step:08d}.npz")
     tmp = path + ".tmp.npz"
     payload = {}
-    for k, v in flatten_state(state).items():
+    leaves = state if isinstance(state, dict) else flatten_state(state)
+    for k, v in leaves.items():
         enc, name = encode_array(v)
         payload[k] = enc
         if name:
@@ -190,15 +202,72 @@ def _bounds(shape) -> np.ndarray:
                       np.int64).reshape(-1, 2)
 
 
+def row_bounds(shape, rank: int) -> np.ndarray:
+    """The global bounds of row ``rank`` of a ``[dp, *shape]`` leaf."""
+    return np.asarray([[rank, rank + 1]] + [[0, int(d)] for d in shape],
+                      np.int64).reshape(-1, 2)
+
+
+def local_shards(leaves: Dict[str, Any], row_sharded=None
+                 ) -> Tuple[dict, dict]:
+    """``(shards, leaf_meta)`` of this process's part of a checkpoint:
+    each row-sharded leaf as ``[(bounds, row)]`` within its global
+    ``[dp, ...]`` shape (recorded in ``leaf_meta``), every other leaf
+    whole on process 0 only (the rest of the state is replicated)."""
+    proc = cluster.process_index()
+    dp = cluster.process_count()
+    shards, meta = {}, {}
+    for key, leaf in leaves.items():
+        if row_sharded is not None and row_sharded(key, leaf):
+            shards[key] = [(row_bounds(leaf.shape, proc), leaf[None])]
+            meta[key] = {"shape": [dp] + [int(d) for d in leaf.shape],
+                         "dtype": dtype_name(leaf)}
+        elif proc == 0:
+            shards[key] = leaf
+    return shards, meta
+
+
+def gather_rows(state: TrainState, row_sharded=None) -> Dict[str, Any]:
+    """``{key: tensor}`` of the state in its global layout, on every
+    rank: each row-sharded leaf all-gathered into ``[dp, ...]`` (as raw
+    bytes, so every dtype crosses gloo too), the others as they are.
+    A collective: every rank calls it."""
+    out = {}
+    for key, leaf in flatten_state(state).items():
+        if row_sharded is None or not row_sharded(key, leaf):
+            out[key] = leaf
+            continue
+        dp = cluster.process_count()
+        raw = leaf.detach().contiguous().reshape(-1).view(torch.uint8)
+        full = raw.new_empty(dp * raw.numel())
+        cluster.all_gather_flat(full, raw)
+        out[key] = full.view(leaf.dtype).reshape(dp, *leaf.shape)
+    return out
+
+
+def take_rows(data: Dict[str, Any], template: TrainState, row_sharded=None,
+              rank: int = 0) -> Dict[str, Any]:
+    """``data`` (a global-layout ``{key: tensor}``) with row ``rank`` of
+    each leaf that ``template`` (this rank's local state) holds
+    row-sharded."""
+    out = dict(data)
+    for key, leaf in flatten_state(template).items():
+        if row_sharded is not None and row_sharded(key, leaf):
+            out[key] = data[key][rank]
+    return out
+
+
 def save_checkpoint_sharded(ckpt_dir: str, state: TrainState, step: int,
                             epoch: int, extras: dict | None = None,
                             async_: bool = False,
-                            on_complete=None) -> str:
+                            on_complete=None, row_sharded=None) -> str:
     """Every process calls this; no collective runs.  Each process writes
     its shard file atomically and the chief the manifest, so the
     checkpoint becomes visible to ``latest_checkpoint`` only once every
     process finished (several processes need a ``ckpt_dir`` they all
-    share).  The device-to-host copies happen here; under ``async_`` the
+    share).  Each rank writes its rows of the ``row_sharded`` leaves
+    within their global ``[dp, ...]`` shape; process 0 also every other
+    leaf.  The device-to-host copies happen here; under ``async_`` the
     file writes and ``on_complete`` (the retention prune) run on a
     background thread.  Returns the checkpoint directory."""
     wait_for_pending_saves()
@@ -207,12 +276,18 @@ def save_checkpoint_sharded(ckpt_dir: str, state: TrainState, step: int,
     proc = cluster.process_index()
     nprocs = cluster.process_count()
     payload = {}
-    shapes = {}
-    for key, leaf in flatten_state(state).items():
-        shapes[key] = ([int(d) for d in leaf.shape], dtype_name(leaf))
-        if proc == 0:   # the state is replicated: process 0 holds all
-            payload[f"{key}§0"], _ = encode_array(leaf)
-            payload[f"{key}§0§idx"] = _bounds(leaf.shape)
+    leaves = flatten_state(state)
+    shapes = {key: ([int(d) for d in leaf.shape], dtype_name(leaf))
+              for key, leaf in leaves.items()}
+    shards, meta = local_shards(leaves, row_sharded)
+    for key, m in meta.items():
+        shapes[key] = (m["shape"], m["dtype"])
+    for key, val in shards.items():
+        pieces = val if isinstance(val, list) else [(_bounds(val.shape),
+                                                     val)]
+        for j, (bounds, data) in enumerate(pieces):
+            payload[f"{key}§{j}"], _ = encode_array(data)
+            payload[f"{key}§{j}§idx"] = bounds
     fname = f"proc-{proc:05d}.npz"
 
     def write():
@@ -298,7 +373,9 @@ def _rebuild(tree: Any, prefix: str, data: dict, path: str) -> Any:
     if tuple(t.shape) != tuple(tree.shape):
         raise ValueError(f"checkpoint leaf {prefix!r} shape "
                          f"{tuple(t.shape)} != expected {tuple(tree.shape)}")
-    return t.to(device=tree.device, dtype=tree.dtype)
+    # a meta template (FSDP's full shapes) keeps the data where it is
+    dev = t.device if tree.device.type == "meta" else tree.device
+    return t.to(device=dev, dtype=tree.dtype)
 
 
 def rebuild_tree_validated(data: dict, template: TrainState,
@@ -319,6 +396,13 @@ def restore_checkpoint(path: str, template: TrainState
     """``(state, step, epoch)`` from a checkpoint of either format (a
     ``.shards`` directory is reassembled first), rebuilt into
     ``template`` by ``rebuild_tree_validated``."""
+    data, step, epoch = restore_arrays(path)
+    return rebuild_tree_validated(data, template, path), step, epoch
+
+
+def restore_arrays(path: str) -> Tuple[dict, int, int]:
+    """``({key: CPU tensor}, step, epoch)``: the logical leaves of a
+    checkpoint of either format."""
     if os.path.isdir(path):
         data, step, epoch = restore_sharded_arrays(path)
     else:
@@ -330,4 +414,4 @@ def restore_checkpoint(path: str, template: TrainState
                for k in [k for k in raw if k.startswith("__dt_")]}
         data = {k: decode_array(v, dts.get(k))
                 for k, v in raw.items() if not k.startswith("__")}
-    return rebuild_tree_validated(data, template, path), step, epoch
+    return data, step, epoch

@@ -1,8 +1,11 @@
 """The PyTorch port's CUDA kernels against their plain versions, on
 the card; and the trainer's device-resident epoch there: the MLP's
 step as a CUDA graph against the same epoch run eagerly, the launch
-counts across replays, the epoch permutation card against CPU, and the
-pinned copy-stream prefetch against blocking copies.
+counts across replays, the epoch permutation card against CPU, the
+pinned copy-stream prefetch against blocking copies, and the
+data-parallel strategies' steps in a one-rank NCCL group (ZeRO-1, FSDP,
+local SGD against the plain step; their graph epochs against the eager
+ones, the collectives captured).
 
 Every test here carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is false (the kernels have no CPU mode).
@@ -932,16 +935,116 @@ def test_graph_replays_raise_the_launch_counts_on_card(card):
     fused.reset_launch_counts()
     state, costs, _ = run(state, img, lbl, key, 0)
     torch.cuda.synchronize()
-    graph = run.run1.graph
-    assert run.run1.delta == {"mlp_forward": 1}
+    graph = run.run1.graphs[False]      # the one (non-averaging) step
+    assert run.run1.delta == {False: {"mlp_forward": 1}}
     assert fused.launch_counts()["mlp_forward"] == epoch.WARMUP_STEPS + spe
     state, costs2, _ = run(state, img, lbl, key, 1)
     torch.cuda.synchronize()
-    assert run.run1.graph is graph
+    assert run.run1.graphs == {False: graph}
     assert fused.launch_counts()["mlp_forward"] == (epoch.WARMUP_STEPS
                                                     + 2 * spe)
     assert int(state.step) == 2 * spe
     assert not torch.equal(costs, costs2)
+
+
+@pytest.fixture
+def one_rank_group(card):
+    """A one-rank NCCL group on the card for the test's duration (as
+    ``cluster.bootstrap`` sets one up from ``--coordinator_address``
+    with ``--num_processes=1``)."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _strategy(cfg, spec, opt, card, flags):
+    import dataclasses
+
+    from distributed_tensorflow_example_tpu_torch.parallel import mesh
+    from distributed_tensorflow_example_tpu_torch.train import loop
+    from distributed_tensorflow_example_tpu_torch.train.state import (
+        create_train_state)
+
+    cfg = dataclasses.replace(cfg, **flags)
+    return cfg, loop.setup_strategy(
+        cfg, spec, opt, create_train_state(spec, opt, seed=4, device=card),
+        mesh.build_mesh(-1), fast=cfg.fast_loop)
+
+
+ONE_RANK_STRATEGIES = {"zero": dict(zero_opt=True, fast_loop=False),
+                       "fsdp": dict(fsdp=True),
+                       "local_sgd": dict(sync_period=2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ONE_RANK_STRATEGIES))
+def test_one_rank_group_strategy_steps_match_plain_on_card(
+        card, one_rank_group, name):
+    """In a one-rank NCCL group, two steps of ZeRO-1 (chunked Adam, the
+    params all-gathered), FSDP (params all-gathered, gradients
+    reduce-scattered) and local SGD (the local step, then the average)
+    from one state on the same batches give the synchronous step's
+    params bitwise: at one rank each collective is a copy or the
+    identity, and Adam runs elementwise on the same values."""
+    from distributed_tensorflow_example_tpu_torch.parallel import step
+    from distributed_tensorflow_example_tpu_torch.train.state import (
+        create_train_state)
+
+    cfg, spec, opt, img, lbl, spe, _state = _mlp_epoch_setup(card,
+                                                             "bfloat16")
+    plain = create_train_state(spec, opt, seed=4, device=card)
+    sync = step.make_sync_step_body(cfg, spec, opt)
+    cfg, strat = _strategy(cfg, spec, opt, card, ONE_RANK_STRATEGIES[name])
+    state = strat.state
+    for i in range(2):
+        x = img[i * 96:(i + 1) * 96].to(torch.float32) / 255.0
+        y = lbl[i * 96:(i + 1) * 96]
+        plain = sync(plain, x, y)[0]
+        state = strat.body(state, x, y)[0]
+        if strat.sync_period:
+            state = step.param_sync(state)
+    got = strat.get_params(state) if strat.get_params else state.params
+    for k, v in plain.params.items():
+        assert torch.equal(got[k], v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["plain", "fsdp", "local_sgd"])
+def test_one_rank_group_graph_epoch_matches_eager_on_card(
+        card, one_rank_group, name):
+    """The device-resident epoch in a one-rank NCCL group, its step a
+    CUDA graph with the collectives captured (the sync step's
+    all-reduce; FSDP's all-gather and reduce-scatter; local SGD's two
+    graphs, the average every second step), against the same epoch run
+    eagerly: costs and params bitwise."""
+    from distributed_tensorflow_example_tpu_torch.parallel import epoch
+    from distributed_tensorflow_example_tpu_torch.utils import prng
+
+    cfg, spec, opt, img, lbl, spe, _state = _mlp_epoch_setup(card,
+                                                             "bfloat16")
+    flags = {} if name == "plain" else ONE_RANK_STRATEGIES[name]
+    key = prng.PRNGKey(3)
+    outs = []
+    for cls in (epoch._GraphRunner, epoch._EagerRunner):
+        cfg_s, strat = _strategy(cfg, spec, opt, card, flags)
+        run = cls(cfg_s, spec, opt, spe, 1, body=strat.body,
+                  sync_period=strat.sync_period)
+        st, costs, _accs = run(strat.state, img, lbl, key, 0)
+        outs.append((st, costs))
+    (g, gc), (e, ec) = outs
+    assert torch.equal(gc, ec) and torch.isfinite(gc).all()
+    for k in g.params:
+        assert torch.equal(g.params[k], e.params[k]), k
 
 
 @pytest.mark.cuda
