@@ -154,6 +154,21 @@ and for the MLP trainer (``main.py`` -> ``train/loop.run``):
     graph path), the all-gather, reduce-scatter and all-reduce named in
     a ``torch.profiler`` window over the FSDP step; each strategy's step
     ms on CUDA events, peak memory and collectives' device ms printed;
+5e. tensor parallelism at ``--model_parallel=2`` on two gloo ranks on
+    the one card (NCCL refuses two ranks on one device; gloo stages CUDA
+    tensors through host memory, so the step times are gloo-bound, not
+    TP's across cards): each rank a subprocess (``chip_smoke.py
+    --tp-phase ARGS RANK``) that sets up the gloo group, which
+    ``loop.run`` finds up and leaves; ``transformer_wide_long`` cut to 2
+    blocks and batch 2 (3 steps, a test set of 2) plain, ``--fsdp`` and
+    ``--zero_opt``, and WIDE_TRAIN on the host path, each against a
+    one-rank run of the same flags in this process: every printed cost
+    within TP_COST_RTOL, the gathered final params within the Adam or
+    SGD bound (TP_ADAM_STEP, TP_SGD_RTOL), B2-B7 launched in every
+    transformer rank with B5-B7 on 4 heads (the wrappers' last shapes),
+    B1 0 times in the TP MLP run and 13 in its one-rank host run, the
+    captured MLP epoch refusing the gloo group; prints each run's step
+    ms (host clock), peak memory and params held per rank;
 6. the reference command line on the card: ``main.py --pallas
    --training_epochs=1`` (784-100-10 sigmoid f32, batch 100, 550
    steps, the default fast path: B1's f32 launches counted through the
@@ -224,8 +239,9 @@ The last two lines of stdout are the kernel report JSON (each kernel's
 launches on its first main path, and under ``launches_by_path`` on
 every path that ran it: ``serve``, ``serve_int8``, ``serve_moe``,
 ``fleet``, ``replay``, the trainers', ``resilience``,
-``resilience_resumed``, phase 5c's ``monitoring`` runs and phase 5d's
-``dp_*`` runs) and the result JSON; the card's name and power limit
+``resilience_resumed``, phase 5c's ``monitoring`` runs, phase 5d's
+``dp_*`` runs and phase 5e's ``tp_*`` runs, each rank's and the one-rank
+reference's) and the result JSON; the card's name and power limit
 come just before them.
 The script imports nothing of JAX; it needs one card and exits
 nonzero without one.
@@ -234,6 +250,7 @@ nonzero without one.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import glob
 import io
 import json
@@ -3338,6 +3355,377 @@ def phase_dp(card: str, base=DP_BASE, device: str = "cuda",
     return runs
 
 
+# phase 5e: tensor parallelism at --model_parallel=2 on two gloo ranks on
+# the one card (NCCL refuses two ranks on one device; gloo stages the
+# CUDA tensors through host memory, so no time here is TP's across
+# cards).  transformer_wide_long's widths cut to 2 blocks and batch 2:
+# 3 steps (6 examples) and a test set of 2; the flags after the bench
+# row's override it
+TP_TFM_CUTS = ["--num_blocks=2", "--batch_size=2",
+               "--synthetic_train_size=6", "--synthetic_test_size=2"]
+TP_TFM_FLAGS = WIDE_LONG_FLAGS + TP_TFM_CUTS
+# name: the run's command line (the MLP's: WIDE_TRAIN on the host path,
+# as Config fields).  gloo on the card's torch carries all-gather and
+# reduce-scatter of CUDA tensors (scripts/torch_gloo_cuda_probe.py,
+# PERF.md section 7), so FSDP x TP and ZeRO-1 x TP run here too
+TP_RUNS = {
+    "tp_tfm": TP_TFM_FLAGS,
+    "tp_tfm_fsdp": TP_TFM_FLAGS + ["--fsdp"],
+    "tp_tfm_zero": TP_TFM_FLAGS + ["--zero_opt"],
+    "tp_mlp": dict(WIDE_TRAIN, fast_loop=False),
+}
+TP_MP = 2
+# each printed cost against the one-rank run's: the row-split products
+# add two f32 partial sums where one rank adds one, so a bf16-rounded
+# activation can land one ulp (2^-8) apart and carry on; the mean CE of
+# the batch moves far less (phase 7b's bound for a bf16 step)
+TP_COST_RTOL = 2e-2
+# final params against the one-rank run's.  Adam normalises each
+# element's update: an element whose gradient is rounding noise (the key
+# bias, to which attention is invariant) moves up to ~lr a step in
+# either run whatever the noise, so the bound is 2 x lr x steps (x 1.05
+# for the bias-corrected step at t <= 3 and the bf16 moments).  The wide
+# MLP's SGD update is lr x g; at the reference's N(0, 1) init its logits
+# reach ~1e4 (costs ~3e4), so the softmax is one-hot and a bf16 flip of
+# the winning logit changes that row's gradient term by O(1) (the
+# one-rank run's B1 and the TP run's plain products round differently):
+# each leaf within 0.1 of the largest move the one-rank run made it
+# (the N(0, 1) weights themselves agree far closer)
+TP_ADAM_STEP = 1.05
+TP_SGD_UPDATE_RTOL = 0.1
+TP_HEADS = 8 // TP_MP
+
+
+def _tp_cfg(entry, device: str, model_parallel: int, checkpoint_dir):
+    """A ``TP_RUNS`` entry's config: a command line, or Config fields."""
+    import dataclasses
+
+    from distributed_tensorflow_example_tpu_torch.config import (
+        Config, parse_train_config)
+
+    if isinstance(entry, dict):
+        cfg = Config(**dict(entry, hidden_sizes=tuple(
+            entry.get("hidden_sizes", (100,)))))
+    else:
+        cfg = parse_train_config(entry)
+    return dataclasses.replace(cfg, device=device,
+                               model_parallel=model_parallel,
+                               checkpoint_dir=checkpoint_dir or "")
+
+
+def _tp_init(cfg, device: str) -> dict:
+    """The seeded initial params every rank of ``cfg``'s runs started
+    from, as numpy."""
+    from distributed_tensorflow_example_tpu_torch.train import loop, optim
+    from distributed_tensorflow_example_tpu_torch.train.state import (
+        create_train_state)
+
+    spec = loop.make_spec(cfg)
+    state = create_train_state(spec, optim.make_optimizer(cfg),
+                               seed=cfg.seed, device=device)
+    return {f".params/{k}": v.cpu().numpy()
+            for k, v in state.params.items()}
+
+
+def _params_held(cfg) -> int:
+    """The param elements one rank holds: its Megatron shard of each
+    leaf (and 1/dp of that under FSDP, dp 1 here)."""
+    from distributed_tensorflow_example_tpu_torch.parallel import (
+        mesh as mesh_lib, step)
+    from distributed_tensorflow_example_tpu_torch.train import loop
+
+    spec = loop.make_spec(cfg)
+    dims = mesh_lib.param_pspecs(spec, cfg.model_parallel)
+    return sum(math.prod(shape) // (cfg.model_parallel
+                                    if dims[k] is not None else 1)
+               for k, shape in step.param_shapes(spec).items())
+
+
+def _tp_run(cfg, what: str, device: str, echo: bool = True) -> dict:
+    """``loop.run(cfg)`` with the launch counts and the flash wrappers'
+    last shapes zeroed just before and read just after: the counts, the
+    shapes, the printed costs and step times, and the run's peak memory
+    above what the process held before it."""
+    from distributed_tensorflow_example_tpu_torch.ops import (
+        flash_attention, fused)
+    from distributed_tensorflow_example_tpu_torch.train import loop
+
+    _sync(device)
+    base = 0
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    fused.reset_launch_counts()
+    for w in flash_attention.KERNEL_WRAPPERS:
+        w.last_shape = None
+    t0 = time.monotonic()
+    if echo:
+        res, out = _run_captured(loop.run, cfg)
+    else:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = loop.run(cfg)
+        out = buf.getvalue()
+    _sync(device)
+    costs = [float(c) for c in re.findall(r"Cost: ([^,\s]+)", out)]
+    if len(costs) != res["steps"] + (1 if echo else 0) or not all(
+            math.isfinite(c) for c in costs):
+        raise AssertionError(f"{what}: printed costs {costs}")
+    return dict(
+        counts=fused.launch_counts(),
+        shapes={w.__name__: w.last_shape
+                for w in flash_attention.KERNEL_WRAPPERS},
+        costs=costs[:res["steps"]], steps=res["steps"],
+        fast_loop=res["fast_loop"], devices=res["devices"],
+        step_ms=[float(m) for m in re.findall(r"AvgTime: +(\d+\.\d+)ms",
+                                              out)],
+        wall_s=time.monotonic() - t0, params_held=_params_held(cfg),
+        peak_gib=((torch.cuda.max_memory_allocated() - base) / 2 ** 30
+                  if device == "cuda" else None))
+
+
+def _tp_step_ms(cfg, device: str, reps: int = 2) -> list:
+    """The host wall of ``reps`` warm steps of ``cfg``'s strategy on one
+    synthetic batch (after one untimed step), each between a barrier of
+    the group (when one is up) and a sync: under gloo, the time of the
+    host-staged collectives too."""
+    import torch.distributed as dist
+
+    from distributed_tensorflow_example_tpu_torch.data import mnist
+    from distributed_tensorflow_example_tpu_torch.parallel import (
+        mesh as mesh_lib)
+    from distributed_tensorflow_example_tpu_torch.train import loop, optim
+    from distributed_tensorflow_example_tpu_torch.train.state import (
+        create_train_state)
+
+    spec = loop.make_spec(cfg)
+    opt = optim.make_optimizer(cfg, 8)
+    mesh = mesh_lib.build_mesh(cfg.data_parallel, cfg.model_parallel)
+    strat = loop.setup_strategy(
+        cfg, spec, opt, create_train_state(spec, opt, seed=cfg.seed,
+                                           device=device), mesh, fast=False)
+    split = mnist.synthesize_split(cfg.batch_size, seed=cfg.seed,
+                                   input_size=cfg.input_size)
+    rows = mesh_lib.batch_layout(mesh, cfg.batch_size)
+    x = torch.from_numpy(split.images[rows]).to(device)
+    y = torch.from_numpy(split.labels[rows]).to(device)
+    state, times = strat.state, []
+    for i in range(reps + 1):
+        if dist.is_initialized():
+            dist.barrier()
+        _sync(device)
+        t0 = time.perf_counter()
+        state = strat.body(state, x, y)[0]
+        _sync(device)
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    del state, strat
+    return times
+
+
+def tp_child(args: dict, rank: int) -> dict:
+    """Phase 5e's rank ``rank`` (of two): a gloo group on the card set up
+    here, which ``loop.run`` finds up and leaves (``cluster.bootstrap``);
+    each run of ``args["runs"]`` (``TP_RUNS`` entries) at
+    ``--model_parallel=2`` (rank 0 writing its gathered checkpoint);
+    then, on the card, the captured MLP epoch must refuse the gloo
+    group."""
+    import torch.distributed as dist
+
+    from distributed_tensorflow_example_tpu_torch.ops import fused
+    from distributed_tensorflow_example_tpu_torch.parallel import epoch
+    from distributed_tensorflow_example_tpu_torch.train import loop
+
+    device = args["device"]
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    # a rank that dies leaves the other in a collective: gloo's timeout
+    # (30 min by default) cut to two minutes, so the phase fails fast
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{args['port']}",
+        world_size=TP_MP, rank=rank,
+        timeout=datetime.timedelta(seconds=120))
+    runs = {}
+    for name, entry in args["runs"].items():
+        cfg = _tp_cfg(entry, device, TP_MP,
+                      os.path.join(args["tmp"], f"{name}_mp{TP_MP}"))
+        runs[name] = _tp_run(cfg, f"tp {name} rank {rank}", device,
+                             echo=rank == 0)
+        runs[name]["warm_step_ms"] = _tp_step_ms(cfg, device)
+        log(f"[tp] rank {rank} {name}: {runs[name]['wall_s']:.1f} s")
+    if device == "cuda":
+        import dataclasses
+
+        cfg = dataclasses.replace(
+            _tp_cfg(TP_RUNS["tp_mlp"], device, TP_MP, None), fast_loop=True)
+        fused.reset_launch_counts()
+        refused = None
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                loop.run(cfg)
+        except ValueError as e:
+            if str(e) != epoch.GLOO_CAPTURE_REFUSED:
+                raise
+            refused = str(e)
+        if refused is None:
+            raise AssertionError("tp: the captured MLP epoch ran over gloo")
+        if fused.launch_counts()["mlp_forward"]:
+            raise AssertionError("tp: B1 launched before the refusal")
+        runs["refused"] = refused
+    dist.barrier()
+    dist.destroy_process_group()
+    return runs
+
+
+def phase_tp(card: str, device: str = "cuda", runs=None,
+             timeout: float = 600) -> dict:
+    """Tensor parallelism at mp 2 on two gloo ranks (phase 5e): for each
+    run of ``runs``, first the one-rank run of the same flags here (no
+    group), then both ranks in their own processes (``tp_child``).
+    Each rank's printed costs within TP_COST_RTOL of the one-rank run's,
+    rank 0's gathered final params within the Adam or SGD bound of its
+    checkpoint; every transformer rank launched B2-B7, B5-B7 on
+    ``TP_HEADS`` heads; the TP MLP launched no B1 (13 in its one-rank
+    host run); the captured MLP epoch refused the gloo group.  Prints
+    each run's step ms (host clock, gloo-bound), peak memory and params
+    held per rank beside the one-rank run's."""
+    t0 = time.monotonic()
+    runs = runs or TP_RUNS
+    tmp = tempfile.mkdtemp(prefix="dtx-tp-")
+    refs = {}
+    for name, entry in runs.items():
+        cfg = _tp_cfg(entry, device, 1, os.path.join(tmp, f"{name}_mp1"))
+        refs[name] = _tp_run(cfg, f"tp {name} one rank", device)
+        refs[name]["warm_step_ms"] = _tp_step_ms(cfg, device)
+        log(f"[tp] one-rank {name}: {refs[name]['wall_s']:.1f} s")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out = os.path.join(tmp, "tp.json")
+    args = json.dumps(dict(device=device, runs=runs, tmp=tmp, out=out,
+                           port=_free_port()))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-phase", args,
+         str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env, cwd=os.path.dirname(os.path.abspath(__file__)))
+        for r in range(TP_MP)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        for line in text.splitlines():
+            log(f"  [tp {r}] {line}")
+        if p.returncode:
+            raise AssertionError(f"tp: rank {r} exited {p.returncode}")
+    ranks = []
+    for r in range(TP_MP):
+        with open(f"{out}.{r}") as f:
+            ranks.append(json.load(f))
+    result, faults = {}, []
+    for name, entry in runs.items():
+        ref = refs[name]
+        cfg = _tp_cfg(entry, device, TP_MP, None)
+        mine = [rk[name] for rk in ranks]
+        for r, m in enumerate(mine):
+            if m["devices"] != TP_MP or m["steps"] != ref["steps"]:
+                faults.append(f"{name} rank {r}: {m['devices']} devices, "
+                              f"{m['steps']} steps")
+            m["cost_rel_err"] = max(abs(a - b) / max(abs(b), 1e-6)
+                                    for a, b in zip(m["costs"], ref["costs"]))
+            if (len(m["costs"]) != len(ref["costs"])
+                    or m["cost_rel_err"] > TP_COST_RTOL):
+                faults.append(f"{name} rank {r}: costs {m['costs']} vs one "
+                              f"rank {ref['costs']} (> {TP_COST_RTOL})")
+        got = {k: v for k, v in _npz_params(
+            os.path.join(tmp, f"{name}_mp{TP_MP}")).items()
+            if k.startswith(".params/")}
+        want = {k: v for k, v in _npz_params(
+            os.path.join(tmp, f"{name}_mp1")).items()
+            if k.startswith(".params/")}
+        init = _tp_init(cfg, device)
+        if sorted(got) != sorted(want):
+            faults.append(f"{name}: param keys differ")
+        adam = cfg.optimizer == "adam"
+        errs = {}
+        for k in want:
+            diff = float(np.abs(got[k].astype(np.float64) - want[k]).max())
+            update = float(np.abs(want[k].astype(np.float64)
+                                  - init[k]).max())
+            bound = (2 * cfg.learning_rate * ref["steps"] * TP_ADAM_STEP
+                     if adam else TP_SGD_UPDATE_RTOL * update)
+            errs[k] = dict(abs=diff, of_update=diff / max(update, 1e-30),
+                           bound=bound)
+            if not diff <= bound:
+                faults.append(f"{name} {k}: final params differ by "
+                              f"{diff:.3g} > {bound:.3g}")
+        if cfg.model == "transformer":
+            for r, m in enumerate(mine):
+                for w in TFM_WRAPPERS:
+                    if device == "cuda" and m["counts"][w] <= 0:
+                        faults.append(f"{name} rank {r}: {w} never launched")
+                for w in ("flash_forward", "flash_dq", "flash_dkv"):
+                    heads = (m["shapes"][w] or [0, 0, 0])[2]
+                    if device == "cuda" and heads != TP_HEADS:
+                        faults.append(f"{name} rank {r}: {w} saw {heads} "
+                                      f"heads, not {TP_HEADS}")
+        else:
+            for r, m in enumerate(mine):
+                if m["counts"]["mlp_forward"]:
+                    faults.append(f"{name} rank {r}: B1 launched "
+                                  f"{m['counts']['mlp_forward']} times")
+            if device == "cuda" and ref["counts"]["mlp_forward"] != 13:
+                faults.append(f"{name}: B1 launched "
+                              f"{ref['counts']['mlp_forward']} times in the "
+                              f"one-rank host run, not 13")
+        worst = max(e["abs"] for e in errs.values())
+        result[name] = dict(ranks=mine, ref=ref, params_max_abs_err=worst,
+                            params_err=errs)
+        for r, m in enumerate(mine):
+            log(f"[tp] {name} rank {r} (mp {TP_MP}, gloo): warm steps "
+                f"{m['warm_step_ms']} ms, the run's wall a step "
+                f"{m['step_ms'][-1]} ms (host clock, gloo-bound), peak memory "
+                f"{m['peak_gib']} GiB, {m['params_held']} params held, "
+                f"costs rel err {m['cost_rel_err']:.3g}, flash shapes "
+                f"{m['shapes']['flash_forward']} on {card}")
+        log(f"[tp] {name} one rank: warm steps {ref['warm_step_ms']} ms, "
+            f"the run's wall a step {ref['step_ms'][-1]} ms, peak memory "
+            f"{ref['peak_gib']} GiB, {ref['params_held']} params; final "
+            f"params max abs err {worst:.3g}, by leaf (abs, of the update, "
+            f"bound): " + ", ".join(
+                f"{k[8:]} {e['abs']:.3g} {e['of_update']:.3g} "
+                f"{e['bound']:.3g}" for k, e in errs.items()))
+    if device == "cuda" and "refused" not in ranks[0]:
+        faults.append("the captured-epoch refusal was not run")
+    if faults:
+        raise AssertionError("tp: " + "; ".join(faults))
+    if device == "cuda":
+        # B5 at a rank's shape: batch 2, S 8192, 4 heads of 128, the
+        # training forward's stats form
+        from distributed_tensorflow_example_tpu_torch.ops import (
+            flash_attention)
+
+        g = _gen(15)
+        q, k, v = (torch.randn((2, 8192, TP_HEADS, 128), generator=g,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        b5_ms = event_ms(
+            lambda *a: flash_attention.flash_forward(*a, causal=True,
+                                                     stats=True),
+            (q, k, v))
+        log(f"[tp] B5 at a rank's [2, 8192, {TP_HEADS}, 128] bf16 causal: "
+            f"{b5_ms:.4f} ms on {card}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[tp] phase 5e took {time.monotonic() - t0:.1f} s")
+    return dict(runs=result, b5_rank_ms=b5_ms if device == "cuda" else None)
+
+
 def phase_cli(card: str) -> dict:
     """The reference command line (its defaults plus --pallas, one
     epoch) on the card: stdout in the reference's format, the event
@@ -3760,6 +4148,12 @@ def main() -> int:
         with open(args["out"], "w") as f:
             json.dump(runs, f)
         return 0
+    if sys.argv[1:2] == ["--tp-phase"]:     # a rank of phase 5e
+        args, rank = json.loads(sys.argv[2]), int(sys.argv[3])
+        runs = tp_child(args, rank)
+        with open(f"{args['out']}.{rank}", "w") as f:
+            json.dump(runs, f)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this script runs on the card", file=sys.stderr)
@@ -3790,6 +4184,7 @@ def main() -> int:
     resilience = phase_resilience(card)
     monitoring = phase_monitoring(card, train["counts"])
     dp = phase_dp(card)
+    tp = phase_tp(card)
     cli = phase_cli(card)
     tfm_train = phase_transformer_train(card)
     phase_transformer_step(card)
@@ -3814,6 +4209,11 @@ def main() -> int:
                "monitoring_halt": monitoring["halt_counts"],
                "monitoring_tfm": monitoring["tfm_counts"],
                **{f"dp_{name}": r["counts"] for name, r in dp.items()},
+               **{f"{name}_rank{i}": m["counts"]
+                  for name, r in tp["runs"].items()
+                  for i, m in enumerate(r["ranks"])},
+               **{f"{name}_one_rank": r["ref"]["counts"]
+                  for name, r in tp["runs"].items()},
                "mlp_cli": cli["counts"],
                "transformer_train": tfm_train["counts"],
                "moe_train": moe_train[0]["counts"],
@@ -3891,6 +4291,16 @@ def main() -> int:
         log(f"[dp] {name}: step {r['step_ms']:.4f} ms (CUDA events), peak "
             f"memory {r['peak_gib']:.3f} GiB, collectives device ms "
             f"{r['collectives_ms']} in a one-rank NCCL group on {smi}")
+    for name, r in tp["runs"].items():
+        for i, m in enumerate(r["ranks"]):
+            log(f"[tp] {name} rank {i} of {TP_MP} (gloo on one card): "
+                f"warm step {statistics.median(m['warm_step_ms']):.2f} ms "
+                f"(host clock, gloo-bound), peak memory "
+                f"{m['peak_gib']:.3f} GiB, {m['params_held']} params held; "
+                f"one rank "
+                f"{statistics.median(r['ref']['warm_step_ms']):.2f} ms, "
+                f"{r['ref']['peak_gib']:.3f} GiB, "
+                f"{r['ref']['params_held']} params on {smi}")
     for name, r in train["runs"].items():
         log(f"[train] {name}: median step {r['step_ms_median']:.3f} ms, "
             f"peak memory {r['peak_gib']:.3f} GiB on {smi}")

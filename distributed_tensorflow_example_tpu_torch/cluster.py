@@ -13,8 +13,9 @@ any world size, one included, and the data-parallel strategies run
 their collectives whenever a group exists (``collectives``): a
 one-rank NCCL group on one card runs the same all-reduce, all-gather
 and reduce-scatter as N ranks, each over one rank.  Rank r plays
-device r of the JAX package's one-process data-parallel mesh
-(``parallel/mesh.py``).
+device r of the JAX package's one-process ``('data', 'model')`` mesh
+(``parallel/mesh.py``), whose sub-groups carry the collectives of each
+axis.
 """
 
 from __future__ import annotations
@@ -64,22 +65,25 @@ def collectives() -> bool:
     return dist.is_initialized()
 
 
-def all_gather_flat(out: torch.Tensor, inp: torch.Tensor) -> None:
-    """``out`` [world * n] <- every rank's ``inp`` [n], in rank order
-    (``all_gather_single`` where torch has it, else its older name
+def all_gather_flat(out: torch.Tensor, inp: torch.Tensor,
+                    group=None) -> None:
+    """``out`` [size * n] <- every member's ``inp`` [n], in group rank
+    order (``group``: a sub-group, default the world; through
+    ``all_gather_single`` where torch has it, else its older name
     ``all_gather_into_tensor``, which newer torch deprecates)."""
     fn = (getattr(dist, "all_gather_single", None)
           or dist.all_gather_into_tensor)
-    fn(out, inp)
+    fn(out, inp, group=group)
 
 
-def reduce_scatter_flat(out: torch.Tensor, inp: torch.Tensor) -> None:
-    """``out`` [n] <- block ``rank`` of the sum over ranks of ``inp``
-    [world * n] (``reduce_scatter_single`` where torch has it, else
-    ``reduce_scatter_tensor``)."""
+def reduce_scatter_flat(out: torch.Tensor, inp: torch.Tensor,
+                        group=None) -> None:
+    """``out`` [n] <- this member's block of the sum over the group of
+    ``inp`` [size * n] (``reduce_scatter_single`` where torch has it,
+    else ``reduce_scatter_tensor``)."""
     fn = (getattr(dist, "reduce_scatter_single", None)
           or dist.reduce_scatter_tensor)
-    fn(out, inp)
+    fn(out, inp, group=group)
 
 
 def process_index() -> int:

@@ -14,14 +14,15 @@ and the resilience store's ``--ckpt_every``; the ``ckpt`` phase spans of
 ``--early_stop_patience`` and ``--debug_nans``; ``--profile_port`` is
 refused for good; the data-parallel strategies ``--data_parallel``,
 ``--microbatches``, ``--sync_period``, ``--zero_opt`` and ``--fsdp``,
-with JAX's matrix of refused combinations, ``validate_strategy_config``;
+and tensor parallelism ``--model_parallel``, with JAX's refusals of
+their combinations, ``validate_strategy_config``;
 ``--compilation_cache`` is accepted and explained away), and refuses
 every other flag of the JAX trainer (exit 2, naming ROADMAP.md) rather
-than ignore it: expert, sequence, tensor and pipeline parallelism and
+than ignore it: expert, sequence and pipeline parallelism and
 multi-site training (``--expert_parallel``, ``--sequence_parallel``,
-``--sp_impl``, ``--model_parallel``, ``--pipeline_parallel``,
-``--virtual_stages``, ``--pp_schedule``, ``--sites``, ``--inner_steps``,
-``--outer_*``) and ``--mnist_mirrors``.  ``--device`` is the port's own:
+``--sp_impl``, ``--pipeline_parallel``, ``--virtual_stages``,
+``--pp_schedule``, ``--sites``, ``--inner_steps``, ``--outer_*``) and
+``--mnist_mirrors``.  ``--device`` is the port's own:
 the card (``cuda``) unless ``cpu`` is asked for.
 """
 
@@ -122,9 +123,10 @@ class Config:
     adam_eps: float = 1e-8
     adam_moments_dtype: str = "float32"
     grad_reduce: str = "mean"
-    # ---- data parallelism (parallel/): rank r plays device r of the
-    # JAX package's one-process data-parallel mesh ----
-    data_parallel: int = -1         # -1: every rank on the data axis
+    # ---- data and tensor parallelism (parallel/): rank r plays device
+    # r of the JAX package's one-process ('data', 'model') mesh ----
+    data_parallel: int = -1         # -1: world / model_parallel
+    model_parallel: int = 1         # Megatron-style TP over the hidden dim
     microbatches: int = 4           # GPipe microbatches (pipeline only)
     sync_period: int = 1            # 1 = all-reduce every step; K > 1 =
                                     # local SGD, the async analog: each
@@ -575,9 +577,14 @@ def build_train_parser() -> argparse.ArgumentParser:
     p.add_argument("--grad_reduce", type=str, default=d.grad_reduce,
                    choices=["mean", "sum"])
     p.add_argument("--data_parallel", type=int, default=d.data_parallel,
-                   help="ranks on the data axis (-1 = the world size; "
-                        "any other value must equal it: rank r plays "
+                   help="ranks on the data axis (-1 = the world size "
+                        "over --model_parallel; any other value must "
+                        "make dp x mp the world size: rank r plays "
                         "device r of the JAX one-process mesh)")
+    p.add_argument("--model_parallel", type=int, default=d.model_parallel,
+                   help="Megatron tensor parallelism: ranks on the model "
+                        "axis (rank r at data index r // mp, model index "
+                        "r %% mp)")
     p.add_argument("--microbatches", type=int, default=d.microbatches,
                    help="GPipe microbatches per local batch")
     p.add_argument("--sync_period", type=int, default=d.sync_period,
@@ -811,6 +818,15 @@ def validate_monitoring_config(cfg: Config) -> None:
             f"early_stop_patience={cfg.early_stop_patience} must be >= 0")
 
 
+# JAX's refusal of local SGD under tensor parallelism (its local step
+# and its whole-run local program raise it)
+LOCAL_SGD_TP_REFUSED = (
+    "local SGD (--sync_period K>1, the async analog) requires "
+    "model_parallel=1 — as does the first-class multi-site "
+    "path, --sites with a ('site','data') mesh "
+    "(parallel/local_sgd.py)")
+
+
 def validate_strategy_config(cfg: Config) -> None:
     """The data-parallel strategies' matrix, with the JAX trainer's
     messages: ``--fsdp`` and ``--zero_opt`` run on the synchronous step,
@@ -820,6 +836,8 @@ def validate_strategy_config(cfg: Config) -> None:
     ``--debug_nans`` reads the synchronous step's non-finite flag, which
     the FSDP and local-SGD steps do not return: ``Unported`` there."""
     local_sgd = cfg.sync_period > 1
+    if local_sgd and cfg.model_parallel != 1:
+        raise ValueError(LOCAL_SGD_TP_REFUSED)
     if cfg.fsdp and local_sgd:
         raise ValueError("--fsdp requires the synchronous step "
                          "(sync_period=1)")
@@ -959,6 +977,11 @@ def validate_train_config(cfg: Config) -> None:
                 "--fp8_ffn rounds the transformer FFN matmul "
                 "operands; the MLP family has no FFN blocks "
                 "(--model=transformer)")
+        if cfg.model_parallel > 1:
+            raise ValueError(
+                "--fp8_ffn does not compose with --model_parallel: "
+                "tensor parallelism row-splits the FFN contraction "
+                "the per-tensor fp8 scales cover")
         if cfg.num_experts and cfg.moe_dispatch != "alltoall":
             raise ValueError(
                 "--fp8_ffn quantizes the MoE expert FFN through the "

@@ -14,8 +14,11 @@ bias add and the activation run in f32; each hidden layer is rounded to
 ``compute_dtype``; the logits are f32.  ``jax.nn.gelu`` defaults to the
 tanh approximation, so ``gelu`` here is ``F.gelu(x, approximate="tanh")``.
 
-Tensor-parallel layer styles (``styles``/``model_axis``) are not ported
-yet (ROADMAP.md, slice 5).
+Tensor parallelism (``styles`` from ``parallel/mesh.layer_styles``,
+``model_axis`` the model group): a ``col`` layer holds a column slice of
+``W`` and ``b`` and its replicated input goes through ``model_copy``; a
+``row`` layer holds a row slice of ``W`` and its f32 partial product goes
+through ``model_psum`` before the bias, as JAX's ``apply`` psums it.
 """
 
 from __future__ import annotations
@@ -130,13 +133,27 @@ def param_shapes(spec: MLPSpec) -> Dict[str, Tuple[int, ...]]:
 
 def apply(spec: MLPSpec, params: Params, x: torch.Tensor, styles=None,
           model_axis=None) -> torch.Tensor:
-    """Forward pass to f32 logits (softmax left to the loss).
-    ``styles``/``model_axis`` (tensor parallelism) raise."""
-    if styles is not None or model_axis is not None:
-        raise NotImplementedError(
-            "tensor-parallel MLP layers are not ported yet (ROADMAP.md "
-            "Queue A, slice 5)")
-    return apply_with_hiddens(spec, params, x)[0]
+    """Forward pass to f32 logits (softmax left to the loss).  With
+    ``styles`` the layers run tensor-parallel over ``model_axis``
+    (module docstring); all-"rep" (or None) is the plain forward."""
+    if not styles or all(st == "rep" for st in styles):
+        return apply_with_hiddens(spec, params, x)[0]
+    from ..parallel.mesh import model_copy, model_psum
+
+    act = _ACTIVATIONS[spec.activation]
+    cdt = spec.compute_dtype
+    L = spec.num_layers
+    h = x.to(cdt)
+    for i in range(1, L + 1):
+        if styles[i - 1] == "col":
+            h = model_copy(h, model_axis)
+        acc = dot_f32(h, params[f"W{i}"], cdt)
+        if styles[i - 1] == "row":
+            acc = model_psum(acc, model_axis)
+        acc = acc + params[f"b{i}"].to(torch.float32)
+        if i == L:
+            return acc
+        h = act(acc).to(cdt)
 
 
 def apply_with_hiddens(spec: MLPSpec, params: Params, x: torch.Tensor):

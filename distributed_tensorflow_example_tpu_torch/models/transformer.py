@@ -43,8 +43,21 @@ argsort and ``searchsorted(side="left")``, dropped units in a trash row
 past the buffer.
 
 The decode routes a MoE spec by dense dispatch, as the JAX package's
-does.  Not ported yet (ROADMAP.md): tensor/sequence/expert/pipeline
-parallelism.
+does.
+
+Megatron tensor parallelism (``model_axis``: the model group of
+``parallel/mesh.py``, JAX's ``model_axis`` name): the block leaves
+arrive as their model shards (``param_pspecs``: ``Wqkv``/``bqkv`` this
+rank's heads, ``Wo`` their rows, ``W1``/``b1`` a hidden slice, ``W2``
+its rows), the attention runs on the local heads (the flash kernels see
+``[B, S, H/mp, Dh]``), the replicated input of each column-split
+product goes through ``model_copy`` and each row-split product's f32
+accumulator through ``model_psum`` before its bias (``_row_psum``), so
+the LayerNorms and the residual stream stay replicated.  A MoE block
+shards its attention only; the experts are replicated.  The decode
+(``decode_step``, ``generate``, ``generate_sharded``) runs the same way
+on a per-rank cache of the local heads.  Not ported yet (ROADMAP.md):
+sequence, expert and pipeline parallelism.
 """
 
 from __future__ import annotations
@@ -57,6 +70,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..ops.ring_attention import NEG_INF, attention, softmax
+from ..parallel.mesh import model_copy, model_psum
 from .mlp import _ACTIVATIONS, dot_f32
 
 Params = Dict[str, torch.Tensor]
@@ -163,6 +177,43 @@ def param_shapes(spec: TransformerSpec) -> Dict[str, tuple]:
     return shapes
 
 
+# the Megatron split of each block leaf (unprefixed name -> the dim split
+# over the model axis); the others are replicated
+_TP_DIMS = {"Wqkv": 2, "bqkv": 1, "Wo": 0, "bo": None,
+            "W1": 1, "b1": 0, "W2": 0, "b2": None}
+
+
+def check_tp(spec: TransformerSpec, model_parallel: int) -> None:
+    """A Megatron TP degree against the spec's dims (JAX's messages).
+    With a MoE FFN only the attention side splits, so d_ff's
+    divisibility binds the dense FFN alone."""
+    if model_parallel <= 1:
+        return
+    if spec.n_heads % model_parallel:
+        raise ValueError(
+            f"n_heads={spec.n_heads} must divide evenly over "
+            f"model_parallel={model_parallel}")
+    if not spec.num_experts and spec.d_ff % model_parallel:
+        raise ValueError(
+            f"d_ff={spec.d_ff} must divide evenly over "
+            f"model_parallel={model_parallel}")
+
+
+def param_pspecs(spec: TransformerSpec, model_axis=None
+                 ) -> Dict[str, Optional[int]]:
+    """``{name: the dim split over the model axis, or None}``: with
+    ``model_axis`` (JAX's ``param_pspecs(model_axis=...)``) the block
+    leaves of ``_TP_DIMS`` split — ``Wqkv [d, 3, d]`` on its last dim
+    (whole heads a shard), ``Wo`` and ``W2`` on dim 0 (row-split + psum),
+    ``W1``/``b1`` on the hidden dim — and the token-wise leaves (the
+    LayerNorms, the embeddings, the head, the experts) replicate."""
+    out = {}
+    for name in param_shapes(spec):
+        leaf = name.split("_", 1)[1] if name.startswith("L") else None
+        out[name] = _TP_DIMS.get(leaf) if model_axis and leaf else None
+    return out
+
+
 def init(spec: TransformerSpec, seed: int = 0,
          device: DeviceLike = None) -> Params:
     """Seeded init with the JAX package's distributions: weights
@@ -245,6 +296,13 @@ def _mm(params_or_bp: Params, a, w_name: str, b_name: str, cdt):
     """``a @ W + b`` with ``cdt`` operands and f32 out."""
     return _cast_mm(a, params_or_bp[w_name], cdt) \
         + _f32(params_or_bp[b_name])
+
+
+def _row_psum(x, w, b, cdt, model_axis):
+    """Row-split projection (JAX's ``_row_psum``): the local
+    ``[.., k_local] @ [k_local, n]`` f32 accumulator summed over
+    ``model_axis`` (``model_psum``), the bias added once after."""
+    return model_psum(_cast_mm(x, w, cdt), model_axis) + _f32(b)
 
 
 def tokenize(spec: TransformerSpec, x: torch.Tensor) -> torch.Tensor:
@@ -423,7 +481,7 @@ def _moe_ffn_sparse(spec: TransformerSpec, bp: Params, a, act, cdt):
 
 def _block_forward(spec: TransformerSpec, bp: Params, h, act, cdt,
                    kv_out: Optional[list] = None, dropout_rng=None,
-                   block: int = 0):
+                   block: int = 0, model_axis=None):
     """One pre-LN block on ``h`` [B, S, D] (f32): attention by
     ``_attend``, the attention residual add fused into ln2, then the
     FFN half, with dropout on both residual branches when
@@ -431,29 +489,35 @@ def _block_forward(spec: TransformerSpec, bp: Params, h, act, cdt,
     ``kv_out``: a list to append this block's ``(k, v)`` [B, S, H, Dh]
     (in ``cdt``) to — the prefill captures them for the paged cache.
     Returns ``(h, aux)``, aux the block's MoE balance loss (0 for the
-    dense FFN)."""
+    dense FFN).  Under ``model_axis`` the leaves are this rank's
+    Megatron shards: the attention runs on its heads, with one
+    ``model_psum`` after ``Wo`` (and one after ``W2``)."""
     b, s, d = h.shape
     a = _ln(spec, h, bp["ln1_g"], bp["ln1_b"])
-    qkv = _cast_mm(a, bp["Wqkv"], cdt) + _f32(bp["bqkv"])   # [B, S, 3, e]
+    qkv = _cast_mm(model_copy(a, model_axis), bp["Wqkv"], cdt) \
+        + _f32(bp["bqkv"])                                  # [B, S, 3, e]
     q, k, v = (qkv[:, :, t].to(cdt) for t in range(3))
     shape = (b, s, bp["Wqkv"].shape[-1] // spec.d_head, spec.d_head)
     if kv_out is not None:
         kv_out.append((k.reshape(shape), v.reshape(shape)))
     att = _attend(spec, q.reshape(shape), k.reshape(shape),
                   v.reshape(shape))
-    branch = _dropout(_mm(bp, att.reshape(b, s, -1).to(cdt), "Wo", "bo",
-                          cdt), spec, dropout_rng, 2 * block)
+    branch = _dropout(_row_psum(att.reshape(b, s, -1).to(cdt), bp["Wo"],
+                                bp["bo"], cdt, model_axis),
+                      spec, dropout_rng, 2 * block)
     a2, h = _ln_residual(spec, h, branch, bp["ln2_g"], bp["ln2_b"])
     return _ffn_block(spec, bp, h, act, cdt, a=a2, dropout_rng=dropout_rng,
-                      block=block)
+                      block=block, model_axis=model_axis)
 
 
 def _ffn_block(spec: TransformerSpec, bp: Params, h, act, cdt, a=None,
-               dropout_rng=None, block: int = 0):
+               dropout_rng=None, block: int = 0, model_axis=None):
     """The LN2 + FFN residual half of a block (dense, fp8 or MoE),
     shared by the training forward, the prefill and the decode step.
     ``h`` [B, S, D] -> ``(h, aux)``; ``a`` is the ln2 output when the
-    caller already has it."""
+    caller already has it.  Under ``model_axis`` the dense FFN is
+    column-split (``W1``) then row-split (``W2``, psummed); the MoE
+    FFN's experts are replicated; fp8 raises (JAX's guard)."""
     if a is None:
         a = _ln(spec, h, bp["ln2_g"], bp["ln2_b"])
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -468,6 +532,10 @@ def _ffn_block(spec: TransformerSpec, bp: Params, h, act, cdt, a=None,
                 f"'dense' or 'alltoall'")
         ffn, aux = moe(spec, bp, a, act, cdt)
     elif spec.fp8_ffn:
+        if model_axis is not None:
+            raise ValueError("fp8_ffn does not compose with tensor "
+                             "parallelism (the row-split FFN shards "
+                             "the contraction its scales cover)")
         from ..ops.fused import fp8_dense_ffn
 
         bsz, s, d = a.shape
@@ -475,20 +543,22 @@ def _ffn_block(spec: TransformerSpec, bp: Params, h, act, cdt, a=None,
                             bp["W1"], bp["b1"], bp["W2"],
                             bp["b2"]).reshape(bsz, s, -1)
     else:
-        ffn = _mm(bp, act(_mm(bp, a, "W1", "b1", cdt)).to(cdt), "W2", "b2",
-                  cdt)
+        hid = act(_mm(bp, model_copy(a, model_axis), "W1", "b1", cdt))
+        ffn = _row_psum(hid.to(cdt), bp["W2"], bp["b2"], cdt, model_axis)
     return h + _dropout(ffn, spec, dropout_rng, 2 * block + 1), aux
 
 
 def apply(spec: TransformerSpec, params: Params, x: torch.Tensor,
-          with_aux: bool = False, dropout_rng=None):
+          with_aux: bool = False, dropout_rng=None, model_axis=None):
     """Forward to f32 logits, differentiable by autograd: ``[B,
     num_classes]`` (classify: the blocks' mean over tokens through the
     head) or ``[B, S, vocab]`` (lm: per-position vocab logits).  ``x``:
     ``[B, input_size]`` (viewed as ``seq_len`` tokens) or ``[B, S, F]``.
     ``dropout_rng``: the step's integer seed (training) or None (eval).
     ``with_aux`` also returns the per-block mean of the MoE balance
-    loss (0 for the dense FFN)."""
+    loss (0 for the dense FFN).  ``model_axis``: the model group under
+    Megatron TP (``params`` then this rank's shards); the logits come
+    out replicated."""
     cdt = spec.compute_dtype
     b = x.shape[0]
     s, f = spec.seq_len, spec.d_feature
@@ -503,7 +573,8 @@ def apply(spec: TransformerSpec, params: Params, x: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(spec.num_blocks):
         h, aux_i = _block_forward(spec, _block_params(params, i), h, act,
-                                  cdt, dropout_rng=dropout_rng, block=i)
+                                  cdt, dropout_rng=dropout_rng, block=i,
+                                  model_axis=model_axis)
         aux = aux + aux_i
     h = _ln(spec, h, params["lnf_g"], params["lnf_b"])
     if spec.objective != "lm":
@@ -577,7 +648,8 @@ class _DenseKV:
         return ck, cv, self.valid
 
 
-def _decode_forward(spec: TransformerSpec, params: Params, token, pos, kv):
+def _decode_forward(spec: TransformerSpec, params: Params, token, pos, kv,
+                    model_axis=None):
     """The one KV-cached decode forward, shared by the contiguous
     ``decode_step`` and the paged ``serving.kv_cache.paged_decode_step``.
     ``token`` [B] long; ``pos`` an int (contiguous) or [B] (paged);
@@ -585,7 +657,9 @@ def _decode_forward(spec: TransformerSpec, params: Params, token, pos, kv):
     logits [B, V].  A MoE spec decodes by exact dense dispatch whatever
     ``spec.moe_dispatch`` says, as in the JAX package: training's
     capacity pool spans the whole [B, S] token population, which a
-    step at one position per sequence cannot reproduce."""
+    step at one position per sequence cannot reproduce.  Under
+    ``model_axis`` (TP decode) each rank attends with its heads over
+    its cache and sums after ``Wo`` and ``W2``."""
     if spec.objective != "lm":
         raise ValueError("decode serves the lm objective only")
     if spec.moe_dispatch != "dense":
@@ -616,32 +690,35 @@ def _decode_forward(spec: TransformerSpec, params: Params, token, pos, kv):
         probs = softmax(scores, dim=-1)
         att = torch.einsum("bhs,bshe->bhe", probs.to(cv.dtype),
                            cv).reshape(b, hn * dh)
-        h = h + _mm(bp, att.to(cdt), "Wo", "bo", cdt)
-        h = _ffn_block(spec, bp, h[:, None], act, cdt)[0][:, 0]
+        h = h + _row_psum(att.to(cdt), bp["Wo"], bp["bo"], cdt, model_axis)
+        h = _ffn_block(spec, bp, h[:, None], act, cdt,
+                       model_axis=model_axis)[0][:, 0]
     hf = _ln(spec, h, params["lnf_g"], params["lnf_b"])
     return _f32(_mm(params, hf, "W_head", "b_head", cdt))
 
 
 @torch.no_grad()
 def decode_step(spec: TransformerSpec, params: Params, cache: Params,
-                token: torch.Tensor, pos: int):
+                token: torch.Tensor, pos: int, model_axis=None):
     """One KV-cached decode step at scalar position ``pos``: returns
     (logits [B, V], cache).  The cache is updated in place (the JAX
-    version returns an updated copy unless its buffers are donated)."""
+    version returns an updated copy unless its buffers are donated).
+    ``model_axis``: TP decode over this rank's heads and cache."""
     kv = _DenseKV(spec, cache, pos)
-    return _decode_forward(spec, params, token.long(), pos, kv), kv.cache
+    return (_decode_forward(spec, params, token.long(), pos, kv,
+                            model_axis=model_axis), kv.cache)
 
 
 @torch.no_grad()
 def generate(spec: TransformerSpec, params: Params, prompt: torch.Tensor,
              generator: Optional[torch.Generator] = None,
-             temperature: float = 1.0) -> torch.Tensor:
+             temperature: float = 1.0, model_axis=None) -> torch.Tensor:
     """Complete ``prompt`` [B, P] int tokens to the full ``seq_len``
     with KV-cached decoding (prompt positions teacher-forced).
     ``generator=None`` or ``temperature <= 0`` decodes greedily;
     otherwise samples at ``temperature`` (Gumbel-max with noise from
     ``generator``).  Returns [B, seq_len] tokens on the prompt's
-    device."""
+    device.  ``model_axis``: TP decode (see ``generate_sharded``)."""
     b, p = prompt.shape
     s = spec.seq_len
     dev = prompt.device
@@ -651,7 +728,8 @@ def generate(spec: TransformerSpec, params: Params, prompt: torch.Tensor,
     tokens[:, :p] = prompt.long()
     greedy = generator is None or temperature <= 0
     for pos in range(s - 1):
-        logits, cache = decode_step(spec, params, cache, tokens[:, pos], pos)
+        logits, cache = decode_step(spec, params, cache, tokens[:, pos], pos,
+                                    model_axis=model_axis)
         if greedy:
             nxt = torch.argmax(logits, dim=-1)
         else:
@@ -659,6 +737,20 @@ def generate(spec: TransformerSpec, params: Params, prompt: torch.Tensor,
         if pos + 1 >= p:
             tokens[:, pos + 1] = nxt
     return tokens
+
+
+def generate_sharded(spec: TransformerSpec, params: Params,
+                     prompt: torch.Tensor, model_axis,
+                     generator: Optional[torch.Generator] = None,
+                     temperature: float = 1.0) -> torch.Tensor:
+    """``generate`` tensor-parallel over the model group ``model_axis``
+    (JAX's ``generate_sharded``): ``params`` stay this rank's Megatron
+    shards, each rank decodes its heads with its own KV cache, and the
+    row-split sums make the logits identical on every rank; every rank
+    draws with a generator seeded alike, so the returned [B, seq_len]
+    tokens are identical everywhere."""
+    return generate(spec, params, prompt, generator=generator,
+                    temperature=temperature, model_axis=model_axis)
 
 
 def _gumbel_argmax(logits: torch.Tensor,
@@ -672,6 +764,7 @@ def _gumbel_argmax(logits: torch.Tensor,
     return torch.argmax(logits + gumbel, dim=-1)
 
 
-__all__ = ["TransformerSpec", "param_shapes", "init", "tokenize", "apply",
-           "num_params", "flops_per_step", "init_decode_cache",
-           "decode_step", "generate"]
+__all__ = ["TransformerSpec", "param_shapes", "check_tp", "param_pspecs",
+           "init", "tokenize", "apply", "num_params", "flops_per_step",
+           "init_decode_cache", "decode_step", "generate",
+           "generate_sharded"]

@@ -34,7 +34,8 @@ version (``*_reference``: the same math over whole rows, no tiling); for
 CUDA tensors it checks its inputs, launches and raises on a launch
 error.  There is no fallback from a kernel to a plain version.  Each
 counts its launches in ``launches`` (``ops/_counts.py`` reads them with
-the other kernels').
+the other kernels') and keeps the ``[B, S, H, D]`` of its last launch
+in ``last_shape`` (under tensor parallelism H is the rank's heads).
 
 ``flash_attention(q, k, v, causal)`` keeps the JAX dispatch: cross-length
 q/k and non-causal S not a multiple of 256 run the dense
@@ -213,6 +214,7 @@ def flash_forward(q, k, v, causal: bool = False, stats: bool = False):
             *ptrs, b, s, h, d, int(causal), int(stats),
             _DTYPE_CODES[q.dtype], _qscale(d))
     _counts.count(flash_forward)
+    flash_forward.last_shape = (b, s, h, d)
     return (acc, m, l) if stats else o
 
 
@@ -232,6 +234,7 @@ def flash_dq(q, k, v, do, m, l, dlt, causal: bool = False):
             dq.data_ptr(), b, s, h, d, int(causal), _DTYPE_CODES[q.dtype],
             _qscale(d), float(np.float32(1.0 / np.sqrt(d))))
     _counts.count(flash_dq)
+    flash_dq.last_shape = (b, s, h, d)
     return dq
 
 
@@ -251,11 +254,14 @@ def flash_dkv(q, k, v, do, m, l, dlt, causal: bool = False):
             _DTYPE_CODES[q.dtype], _qscale(d),
             float(np.float32(1.0 / _LOG2E)))
     _counts.count(flash_dkv)
+    flash_dkv.last_shape = (b, s, h, d)
     return dk, dv
 
 
 KERNEL_WRAPPERS = (flash_forward, flash_dq, flash_dkv)
 _counts.register(*KERNEL_WRAPPERS)
+for _w in KERNEL_WRAPPERS:
+    _w.last_shape = None
 
 
 # ---------------------------------------------------------------------------

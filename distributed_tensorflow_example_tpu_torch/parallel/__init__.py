@@ -1,3 +1,5 @@
-"""The synchronous data-parallel step of the port (``step``): gradients
-all-reduced with ``torch.distributed`` across processes; and the
-device-resident epoch (``epoch``), the trainer's default fast path."""
+"""The port's parallel strategies over the ``('data', 'model')`` mesh
+(``mesh``: rank r plays device r of JAX's one-process mesh; the data and
+model groups; the Megatron operators): the synchronous step and the eval
+(``step``), ZeRO-1 (``zero``), FSDP (``fsdp``), and the device-resident
+epoch (``epoch``), the trainer's default fast path."""

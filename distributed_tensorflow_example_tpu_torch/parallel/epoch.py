@@ -1,6 +1,8 @@
 """The device-resident epoch: the trainer's default fast path (the JAX
 package's ``parallel/epoch.py``), at any world size: rank r plays
-device r of JAX's one-process data-parallel mesh.
+device r of JAX's one-process ``('data', 'model')`` mesh, so its shard
+of the split and its permutation are those of its data index (the model
+ranks of one data index share them).
 
 - Each rank uploads its shard of the training split once
   (``shard_dataset``): the split trimmed so every rank holds a whole
@@ -10,11 +12,12 @@ device r of JAX's one-process data-parallel mesh.
   normalized to f32 inside the step by a division by ``float32(255)``
   (``normalize``), so the fast path trains on the same bits as the host
   path.
-- Each epoch, rank r draws its permutation on the device, ``jax.random.
-  permutation(fold_in(fold_in(PRNGKey(seed + 0x5EED), r), epoch),
-  n_local)`` bit for bit (``utils/prng.py``), gathers its shard once
-  into a preallocated shuffled copy (one ``index_select``), then runs
-  ``steps_per_epoch`` steps over its contiguous slices.
+- Each epoch, the rank at data index d draws its permutation on the
+  device, ``jax.random.permutation(fold_in(fold_in(PRNGKey(seed +
+  0x5EED), d), epoch), n_local)`` bit for bit (``utils/prng.py``),
+  gathers its shard once into a preallocated shuffled copy (one
+  ``index_select``), then runs ``steps_per_epoch`` steps over its
+  contiguous slices.
 - The step is the synchronous one (its all-reduce inside the step,
   captured in the CUDA graph on the card), FSDP's
   (``parallel/fsdp.py``), or local SGD's: K local steps, then the
@@ -41,8 +44,11 @@ batch is read through a device step counter (an ``index_select`` on
 ``arange(b) + i * b`` computed in the graph, the counterpart of JAX's
 ``dynamic_slice``) and its cost and accuracy are written with
 ``index_copy_``.  An epoch is then ``steps_per_epoch`` replays and no
-host sync.  The collectives need a process group that has already run
-one collective before the capture: the eager warm-up steps run them.
+host sync.  The collectives need groups that have already run one
+collective before the capture: one all-reduce on each of the mesh's
+groups, and the eager warm-up steps, run them.  A CUDA graph cannot
+capture a gloo collective: under a gloo group on the card the captured
+epoch raises, naming ``--no_fast_loop``, and never falls back.
 The transformer family (MoE included) runs the same device-resident
 epoch eagerly: no per-step host copy or read, the dropout seed from the
 host's step index.  On the CPU every family runs eagerly (there is no
@@ -58,12 +64,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import cluster
 from ..models import transformer as tfm
 from ..ops import _counts
 from ..train.optim import tree_leaves, tree_map
 from ..train.state import TrainState
 from ..utils import prng
+from . import mesh as mesh_lib
 from . import step as step_lib
 
 # the model families whose step is captured in a CUDA graph on the card
@@ -170,13 +176,15 @@ class _Runner:
 
     def __init__(self, cfg, spec, optimizer, steps_per_epoch: int,
                  num_epochs: int, body: Optional[Callable] = None,
-                 sync_period: int = 0):
+                 sync_period: int = 0, mesh=None):
         self.cfg, self.spec = cfg, spec
         self.spe, self.num_epochs = steps_per_epoch, num_epochs
+        self.mesh = mesh if mesh is not None else mesh_lib.build_mesh(-1)
         self.body = body or step_lib.make_sync_step_body(cfg, spec,
-                                                         optimizer)
+                                                         optimizer,
+                                                         mesh=self.mesh)
         self.sync_period = sync_period
-        self.rank = cluster.process_index()
+        self.rank = self.mesh.data_index
         self._shuf = None           # (images, labels), allocated once
         self.compile_s = 0.0
 
@@ -289,6 +297,9 @@ class _GraphRunner(_Runner):
         x_all, y_all = self._shuf
         variants = self._variants()
         saved = _clone_state(self.static)
+        # every group of the mesh runs one collective before the capture
+        for group in mesh_lib.groups(self.mesh):
+            dist.all_reduce(torch.zeros(1, device=dev), group=group)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         # the eager warm-up also runs the collectives once: a group
@@ -348,27 +359,42 @@ class _GraphRunner(_Runner):
                 self._accs.view(shape).clone())
 
 
+# a captured epoch over a gloo group (gloo stages its collectives through
+# the host, which a CUDA graph cannot record)
+GLOO_CAPTURE_REFUSED = (
+    "the captured MLP epoch cannot run over a gloo process group on the "
+    "card: a CUDA graph records no gloo collective (gloo stages CUDA "
+    "tensors through the host); use NCCL, or take the host path with "
+    "--no_fast_loop")
+
+
 def build_run_to_completion(cfg, spec, optimizer, steps_per_epoch: int,
                             num_epochs: int, device,
                             body: Optional[Callable] = None,
-                            sync_period: int = 0) -> Callable:
+                            sync_period: int = 0, mesh=None) -> Callable:
     """The whole run on the device: ``(state, images, labels, key,
     epoch_offset=0) -> (state, costs [E, spe], accs [E, spe])``, the
-    step captured in a CUDA graph where ``captures(spec, device)``.
-    ``body``: the step (default the synchronous one; FSDP's, or local
-    SGD's with ``sync_period`` K)."""
-    cls = _GraphRunner if captures(spec, device) else _EagerRunner
+    step captured in a CUDA graph where ``captures(spec, device)``
+    (raises ``GLOO_CAPTURE_REFUSED`` when the mesh's groups are gloo's).
+    ``body``: the step (default the synchronous one over ``mesh``;
+    FSDP's, or local SGD's with ``sync_period`` K)."""
+    mesh = mesh if mesh is not None else mesh_lib.build_mesh(-1)
+    captured = captures(spec, device)
+    if captured and mesh_lib.uses_gloo(mesh):
+        raise ValueError(GLOO_CAPTURE_REFUSED)
+    cls = _GraphRunner if captured else _EagerRunner
     return cls(cfg, spec, optimizer, steps_per_epoch, num_epochs, body=body,
-               sync_period=sync_period)
+               sync_period=sync_period, mesh=mesh)
 
 
 def build_epoch_runner(cfg, spec, optimizer, steps_per_epoch: int,
-                       device, body: Optional[Callable] = None) -> Callable:
+                       device, body: Optional[Callable] = None,
+                       mesh=None) -> Callable:
     """One epoch a call, for host control between epochs (periodic
     checkpoints): ``(state, images, labels, key, epoch) -> (state,
     costs [spe], accs [spe])``."""
     run1 = build_run_to_completion(cfg, spec, optimizer, steps_per_epoch,
-                                   1, device, body=body)
+                                   1, device, body=body, mesh=mesh)
 
     def runner(state, img, lbl, key, epoch: int):
         state, costs, accs = run1(state, img, lbl, key, epoch)
@@ -379,13 +405,15 @@ def build_epoch_runner(cfg, spec, optimizer, steps_per_epoch: int,
 
 
 def build_fast_eval(cfg, spec, images: np.ndarray, labels: np.ndarray,
-                    device, dp: int = 1, rank: int = 0) -> Callable:
+                    device, dp: int = 1, rank: int = 0,
+                    mesh=None) -> Callable:
     """The test split staged on ``device`` once — packed, zero-padded to
     whole chunks of ``min(eval_chunk_cap(spec, n), n)`` examples rounded
-    up to a multiple of ``dp``, the padding masked, rank ``rank`` holding
-    its ``chunk / dp`` rows of each chunk as JAX's device ``rank`` does —
-    and ``params -> accuracy`` over it, the count summed over the ranks,
-    with one fetch.  ``.dispatch(params)`` returns the correct count as
+    up to a multiple of ``dp``, the padding masked, data index ``rank``
+    holding its ``chunk / dp`` rows of each chunk as JAX's devices of
+    that data index do — and ``params -> accuracy`` over it (this rank's
+    shards under the ``mesh``'s TP), the count summed over the data
+    group, with one fetch.  ``.dispatch(params)`` returns the correct count as
     a device scalar without fetching it; ``.n`` is the example count."""
     n = images.shape[0]
     chunk = -(-max(1, min(step_lib.eval_chunk_cap(spec, n), n)) // dp) * dp
@@ -408,7 +436,8 @@ def build_fast_eval(cfg, spec, images: np.ndarray, labels: np.ndarray,
     lbl_d = torch.from_numpy(rank_rows(lbl)).to(device)
     mask_d = torch.from_numpy(rank_rows(mask)).to(device)
     divisor = _divisor(img_d.device)
-    eval_step = step_lib.build_eval_step(cfg, spec, reduce=False)
+    mesh = mesh if mesh is not None else mesh_lib.build_mesh(-1)
+    eval_step = step_lib.build_eval_step(cfg, spec, reduce=False, mesh=mesh)
 
     def dispatch(params) -> torch.Tensor:
         total = torch.zeros((), dtype=torch.float32, device=img_d.device)
@@ -416,8 +445,7 @@ def build_fast_eval(cfg, spec, images: np.ndarray, labels: np.ndarray,
             sl = slice(off, off + local)
             total += eval_step(params, normalize(img_d[sl], divisor),
                                lbl_d[sl], mask_d[sl])
-        if cluster.collectives():
-            dist.all_reduce(total)
+        mesh_lib.data_all_reduce(total, mesh)
         return total
 
     def evaluate(params) -> float:

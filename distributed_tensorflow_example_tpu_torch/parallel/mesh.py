@@ -1,30 +1,48 @@
-"""The data axis over the process group (the part of the JAX package's
-``parallel/mesh.py`` with no tensor, sequence, expert, pipeline or site
-axis).
+"""The ``('data', 'model')`` mesh over the process group (the part of
+the JAX package's ``parallel/mesh.py`` with no sequence, expert,
+pipeline or site axis).
 
-JAX builds a ``Mesh`` over the devices of one process: under
-``--data_parallel N`` device r holds rows ``[r*B/N, (r+1)*B/N)`` of
-every global batch, shard r of the device-resident split, and a replica
-(or a 1/N shard) of the train state; gradients are summed over the
-axis by ``psum``.  The port runs one process per device, and **rank r
-plays device r**: the same rows, the same shard, the same state, the
-sums by ``torch.distributed`` collectives over the group.
+JAX lays the devices of one process out as ``np.array(devices)
+.reshape(dp, mp)``: device r sits at data index ``r // mp`` and model
+index ``r % mp``.  Under ``--data_parallel`` the batch splits over the
+data axis and gradients are summed over it by ``psum``; under
+``--model_parallel`` each layer's weights are Megatron-split over the
+model axis and the row-split products are summed over it.  The port
+runs one process per device, and **rank r plays device r**: the ranks
+that share a data index form the **model group**, the ranks that share
+a model index the **data group**, and every collective names its group
+(``Mesh.data_group``, ``Mesh.model_group``; the anomaly flag alone
+spans the world).  Every rank creates every sub-group, in the same
+order (``dist.new_group`` is collective over the world).
 
-So the data axis is the whole group.  ``--data_parallel -1`` takes the
-world size, and any other value must equal it: JAX leaves devices past
-``dp`` idle, but a rank cannot sit out the collectives of the others.
-The multi-axis builders (``build_seq_mesh``, ``build_expert_mesh``,
-``build_stage_mesh``, ``build_site_mesh``, ``build_nd_mesh``) and
-``param_pspecs`` wait for tensor, sequence, expert and pipeline
-parallelism (ROADMAP.md Queue A).
+``--data_parallel -1`` takes ``world / model_parallel``, and any other
+value must make ``dp x mp`` the world size: JAX leaves devices past
+``dp x mp`` idle, but a rank cannot sit out the collectives of the
+others.
+
+Tensor parallelism: ``layer_styles`` (the MLP's ``col``/``row``/``rep``
+alternation), ``param_pspecs`` (each leaf's dim split over the model
+axis, or None: JAX's ``PartitionSpec`` reduced to what a one-axis split
+needs), ``shard_leaf``/``gather_leaf``, and the two Megatron operators:
+``model_psum`` (all-reduce in the forward, identity in the backward:
+the transpose of JAX's ``psum``, after each row-split product) and
+``model_copy`` (identity in the forward, all-reduce in the backward:
+the transpose of the implicit ``pvary``, on the replicated input of
+each column-split product).  The multi-axis builders
+(``build_seq_mesh``, ``build_expert_mesh``, ``build_stage_mesh``,
+``build_site_mesh``, ``build_nd_mesh``) wait for sequence, expert and
+pipeline parallelism (ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Optional
+
+import torch
+import torch.distributed as dist
 
 from .. import cluster
-from ..config import Unported
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -36,63 +54,287 @@ SITE_AXIS = "site"
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The data axis: ``dp`` ranks, this process at ``rank``."""
+    """``dp x mp`` ranks, this process at ``rank``; its groups (None
+    without a process group): ``data_group`` the ranks of its model
+    index (the world at ``mp`` 1), ``model_group`` those of its data
+    index (None at ``mp`` 1: no model axis to reduce over)."""
     dp: int
     rank: int
+    mp: int = 1
+    data_group: object = dataclasses.field(default=None, compare=False,
+                                           repr=False)
+    model_group: object = dataclasses.field(default=None, compare=False,
+                                            repr=False)
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.mp
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.mp
+
+    @property
+    def devices(self) -> int:
+        return self.dp * self.mp
+
+
+# the sub-groups of each (world group, dp, mp), beside the world group
+# they belong to (held, so a later world group cannot reuse its id): a
+# run builds its mesh once, but a process may run several, and every
+# new_group is a collective over the world
+_GROUPS: dict = {}
+
+
+def _sub_groups(dp: int, mp: int, rank: int):
+    """``(data_group, model_group)`` of ``rank``: every model group
+    (consecutive ranks) and then every data group (stride ``mp``),
+    created in the same order on every rank."""
+    if mp == 1:
+        return dist.group.WORLD, None
+    world = dist.group.WORLD
+    key = (id(world), dp, mp)
+    if key not in _GROUPS:
+        model = [dist.new_group(list(range(i * mp, (i + 1) * mp)))
+                 for i in range(dp)]
+        data = [dist.new_group(list(range(m, dp * mp, mp)))
+                for m in range(mp)]
+        _GROUPS[key] = (world, data, model)
+    _world, data, model = _GROUPS[key]
+    return data[rank % mp], model[rank // mp]
 
 
 def build_mesh(data_parallel: int = -1, model_parallel: int = 1,
                world: int | None = None, rank: int | None = None) -> Mesh:
-    """The ('data',) layout over ``world`` ranks (default: the process
-    group's, 1 without one).  ``data_parallel`` -1 is the world size; a
-    value above it raises JAX's message, one below it the port's own
-    (every rank must take part in the data axis)."""
+    """The ('data', 'model') layout over ``world`` ranks (default: the
+    process group's, 1 without one), with JAX's rules and messages:
+    ``model_parallel`` must divide the world, ``data_parallel`` -1 is
+    ``world / model_parallel``, a mesh larger than the world raises;
+    one smaller raises the port's own message (every rank must take
+    part).  The groups are made when a process group is up and
+    ``world`` is not given."""
     n = cluster.process_count() if world is None else world
     r = cluster.process_index() if rank is None else rank
-    if model_parallel != 1:
-        raise Unported(f"model_parallel={model_parallel}: tensor "
-                       f"parallelism is not ported to the PyTorch trainer "
-                       f"yet (see ROADMAP.md Queue A)")
-    dp = n if data_parallel == -1 else data_parallel
+    mp = model_parallel
+    if mp < 1 or n % mp:
+        raise ValueError(f"model_parallel={mp} must divide device count {n}")
+    dp = n // mp if data_parallel == -1 else data_parallel
     if dp < 1:
         raise ValueError(f"data_parallel={dp} must be >= 1 (or -1)")
-    if dp * model_parallel > n:
+    if dp * mp > n:
+        raise ValueError(f"mesh {dp}x{mp} needs {dp * mp} devices, have {n}")
+    if dp * mp < n:
+        over = f" over model_parallel={mp}" if mp > 1 else ""
         raise ValueError(
-            f"mesh {dp}x{model_parallel} needs {dp * model_parallel} "
-            f"devices, have {n}")
-    if dp < n:
-        raise ValueError(
-            f"data_parallel={dp} leaves {n - dp} of {n} ranks off the data "
-            f"axis: in the PyTorch port every rank plays one device of the "
-            f"mesh, so --data_parallel must be -1 or the world size {n}")
-    return Mesh(dp=dp, rank=r)
+            f"data_parallel={dp} leaves {n - dp * mp} of {n} ranks off the "
+            f"mesh: in the PyTorch port every rank plays one device of the "
+            f"mesh, so --data_parallel must be -1 or the world size {n}"
+            f"{over}")
+    groups = (None, None)
+    if world is None and cluster.collectives():
+        groups = _sub_groups(dp, mp, r)
+    return Mesh(dp=dp, rank=r, mp=mp, data_group=groups[0],
+                model_group=groups[1])
+
+
+def model_axis(mesh: Mesh):
+    """The model group the Megatron operators reduce over (None without
+    tensor parallelism)."""
+    return mesh.model_group if mesh.mp > 1 else None
+
+
+def data_all_reduce(t: torch.Tensor, mesh: Mesh) -> None:
+    """Sum ``t`` in place over the data axis (whenever a group exists)."""
+    if mesh.data_group is not None:
+        dist.all_reduce(t, group=mesh.data_group)
+
+
+def model_all_reduce(t: torch.Tensor, mesh: Mesh) -> None:
+    """Sum ``t`` in place over the model axis (only under TP)."""
+    if mesh.mp > 1 and mesh.model_group is not None:
+        dist.all_reduce(t, group=mesh.model_group)
+
+
+def world_all_reduce(t: torch.Tensor) -> None:
+    """Sum ``t`` in place over every rank (JAX's psum over all axes)."""
+    if cluster.collectives():
+        dist.all_reduce(t)
+
+
+def groups(mesh: Mesh) -> list:
+    """The distinct groups the mesh's collectives run over."""
+    return [g for g in (mesh.data_group, mesh.model_group) if g is not None]
+
+
+def uses_gloo(mesh: Mesh) -> bool:
+    """Whether a collective of the mesh runs over gloo."""
+    return any(dist.get_backend(g) == "gloo" for g in groups(mesh))
+
+
+class _ModelPsum(torch.autograd.Function):
+    """All-reduce over the model group in the forward, identity in the
+    backward (the transpose of JAX's ``psum`` of a varying value)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ModelCopy(torch.autograd.Function):
+    """Identity in the forward, all-reduce over the model group in the
+    backward (the transpose of JAX's implicit ``pvary``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def _check_group(group) -> None:
+    if isinstance(group, str):
+        raise TypeError(
+            f"model_axis={group!r}: the PyTorch port reduces over the "
+            f"model group of parallel/mesh.build_mesh (a process group), "
+            f"not over a JAX mesh axis name")
+
+
+def model_psum(x: torch.Tensor, group) -> torch.Tensor:
+    """The row-split product's partial sums added over ``group`` (the
+    model group; None: ``x`` as it is)."""
+    _check_group(group)
+    return x if group is None else _ModelPsum.apply(x, group)
+
+
+def model_copy(x: torch.Tensor, group) -> torch.Tensor:
+    """A replicated activation entering a column-split product: its
+    gradient is summed over ``group`` (None: ``x`` as it is)."""
+    _check_group(group)
+    return x if group is None else _ModelCopy.apply(x, group)
+
+
+def tp_axis(spec, model_parallel: int) -> str | None:
+    """MODEL_AXIS when the transformer family runs Megatron TP (the
+    MLP's TP goes through layer_styles instead)."""
+    from ..models.transformer import TransformerSpec
+
+    return (MODEL_AXIS if model_parallel > 1
+            and isinstance(spec, TransformerSpec) else None)
 
 
 def layer_styles(spec, model_parallel: int = 1) -> list:
-    """Per-layer tensor-parallel style: every layer replicated ("rep")
-    at ``model_parallel`` 1 (the transformer's one entry, as JAX's)."""
-    from ..models.transformer import TransformerSpec
+    """Per-layer TP style (JAX's): 'col' (column-split), 'row'
+    (row-split + psum) or 'rep' (replicated).  Layers alternate col/row
+    so activations need one psum a pair; the final layer stays
+    replicated when the alternation would leave the logits split.  The
+    transformer's TP goes through ``param_pspecs``: its degree is
+    validated (``check_tp``) and one "rep" returned."""
+    from ..models import transformer
 
-    if model_parallel != 1:
-        raise Unported(f"model_parallel={model_parallel}: tensor "
-                       f"parallelism is not ported to the PyTorch trainer "
-                       f"yet (see ROADMAP.md Queue A)")
-    if isinstance(spec, TransformerSpec):
+    if isinstance(spec, transformer.TransformerSpec):
+        transformer.check_tp(spec, model_parallel)
         return ["rep"]
-    return ["rep"] * spec.num_layers
+    styles = []
+    for i in range(1, spec.num_layers + 1):
+        if model_parallel == 1:
+            styles.append("rep")
+        elif i % 2 == 1:
+            styles.append("rep" if i == spec.num_layers else "col")
+        else:
+            styles.append("row")
+    sizes = spec.layer_sizes
+    for i, st in enumerate(styles, start=1):
+        if st == "col" and sizes[i] % model_parallel:
+            raise ValueError(
+                f"layer {i} output dim {sizes[i]} not divisible by "
+                f"model_parallel={model_parallel}")
+        if st == "row" and sizes[i - 1] % model_parallel:
+            raise ValueError(
+                f"layer {i} input dim {sizes[i - 1]} not divisible by "
+                f"model_parallel={model_parallel}")
+    return styles
+
+
+def param_pspecs(spec, model_parallel: int = 1) -> Dict[str, Optional[int]]:
+    """``{param name: the dim split over the model axis, or None}``, with
+    JAX's leaf names and placements: the MLP's col layer splits ``W``'s
+    dim 1 and ``b``, its row layer ``W``'s dim 0; the transformer's
+    blocks split ``Wqkv``/``bqkv`` on their last dim (whole heads),
+    ``Wo`` and ``W2`` on dim 0, ``W1``/``b1`` on the hidden dim."""
+    from ..models import transformer
+
+    if isinstance(spec, transformer.TransformerSpec):
+        layer_styles(spec, model_parallel)
+        return transformer.param_pspecs(
+            spec, model_axis=tp_axis(spec, model_parallel))
+    out: Dict[str, Optional[int]] = {}
+    for i, st in enumerate(layer_styles(spec, model_parallel), start=1):
+        out[f"W{i}"] = {"col": 1, "row": 0}.get(st)
+        out[f"b{i}"] = 0 if st == "col" else None
+    return out
+
+
+def state_pspecs(param_dims: Dict[str, Optional[int]]):
+    """``key -> split dim or None`` over a train state's flattened keys
+    (``utils/checkpoint.flatten_state``): a param and each of its
+    optimizer slots (``.opt_state/.../W1``, the param's shape) split
+    alike; the step and the counters are replicated."""
+    def dim_of(key: str) -> Optional[int]:
+        if not key.startswith((".params/", ".opt_state/")):
+            return None
+        return param_dims.get(key.rsplit("/", 1)[-1])
+
+    return dim_of
+
+
+def shard_leaf(full: torch.Tensor, dim: Optional[int], mp: int,
+               m: int) -> torch.Tensor:
+    """Model shard ``m`` of ``mp`` of ``full`` along ``dim`` (a copy;
+    ``full`` itself when ``dim`` is None)."""
+    if dim is None or mp == 1:
+        return full
+    return full.chunk(mp, dim=dim)[m].clone()
+
+
+def gather_leaf(local: torch.Tensor, dim: Optional[int], group,
+                mp: int) -> torch.Tensor:
+    """The full leaf from every model shard: one all-gather over the
+    model group ``group``, concatenated on ``dim`` (``local`` itself
+    when it is not split)."""
+    if dim is None or mp == 1 or group is None:
+        return local
+    flat = local.detach().contiguous().reshape(-1)
+    out = flat.new_empty(mp * flat.numel())
+    cluster.all_gather_flat(out, flat, group=group)
+    return torch.cat(list(out.view(mp, *local.shape)), dim=dim)
 
 
 def batch_layout(mesh: Mesh, global_batch: int) -> slice:
     """The rows of a global batch this rank takes: the batch splits over
-    the data axis into dp equal blocks, and rank r takes block r, as
+    the data axis into dp equal blocks, and the rank at data index d
+    takes block d (the model ranks of one data index share it), as
     JAX's ``P('data')`` gives device r its block."""
     if global_batch % mesh.dp:
         raise ValueError(f"global batch {global_batch} does not split over "
                          f"data_parallel={mesh.dp}")
     b = global_batch // mesh.dp
-    return slice(mesh.rank * b, (mesh.rank + 1) * b)
+    return slice(mesh.data_index * b, (mesh.data_index + 1) * b)
 
 
 __all__ = ["DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS", "EXPERT_AXIS",
-           "STAGE_AXIS", "SITE_AXIS", "Mesh", "build_mesh", "layer_styles",
-           "batch_layout"]
+           "STAGE_AXIS", "SITE_AXIS", "Mesh", "build_mesh", "model_axis",
+           "data_all_reduce", "model_all_reduce", "world_all_reduce",
+           "groups", "uses_gloo", "model_psum", "model_copy", "tp_axis",
+           "layer_styles", "param_pspecs", "state_pspecs", "shard_leaf",
+           "gather_leaf", "batch_layout"]

@@ -1,14 +1,23 @@
-"""The synchronous data-parallel train step and the eval step (the data-
-parallel subset of the JAX package's ``parallel/step.py``).
+"""The synchronous train step and the eval step over the ``('data',
+'model')`` mesh (the data- and tensor-parallel subset of the JAX
+package's ``parallel/step.py``).
 
-One process per device.  Each process runs forward and backward on its
-slice of the global batch; the gradients are summed over the processes
-with ``torch.distributed.all_reduce`` and, under ``grad_reduce='mean'``,
-divided by the process count, so an N-process step at global batch B
-computes the one-process batch-B gradient (the JAX package's
-psum-equivalence guarantee; the sums run in another order, so equal to
-float rounding).  The reported cost and accuracy are averaged over the
-processes the same way.
+One process per device, rank r playing device r of JAX's mesh
+(``parallel/mesh.py``).  Each rank runs forward and backward on its data
+index's slice of the global batch; under ``--model_parallel`` its params
+are its Megatron shards and the forward's activation sums run over the
+model group (``models/mlp.apply`` with ``styles``, ``models/transformer``
+with ``model_axis``).  The gradients are summed over the data group with
+``torch.distributed.all_reduce`` and, under ``grad_reduce='mean'``,
+divided by dp, so a dp x mp step at global batch B computes the
+one-device batch-B gradient (the JAX package's psum-equivalence
+guarantee; the sums run in another order, so equal to float rounding).
+The reported cost and accuracy are averaged over the data group the same
+way.  A leaf split over the model axis has its squared norm and its
+non-finite count summed over the model group (``--grad_clip``,
+``--histograms``, ``--on_anomaly``), a replicated leaf's counted once,
+as JAX's ``_clip_sharded`` and ``_leaf_reduce`` do; the anomaly flag is
+summed over the world.
 
 Two model families: the MLP, whose ``--pallas`` routes the forward
 through the fused kernel (``ops.fused.mlp_forward``) for the activations
@@ -35,9 +44,9 @@ plays device r of JAX's one-process mesh (``parallel/mesh.py``).  With
 analog, local SGD (``--sync_period K``), is ``make_local_step_body``,
 ``param_sync`` and ``consensus_params``: each rank keeps its own replica
 and applies its own gradients, and every K steps the replicas' float
-leaves are averaged.  FSDP's step is ``parallel/fsdp.py``'s.  Tensor,
-sequence, expert and pipeline parallelism are not ported (ROADMAP.md
-Queue A).
+leaves are averaged (at ``model_parallel`` 1 only, as in JAX).  FSDP's
+step is ``parallel/fsdp.py``'s.  Sequence, expert and pipeline
+parallelism are not ported (ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -49,11 +58,13 @@ import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from .. import cluster
+from ..config import LOCAL_SGD_TP_REFUSED
 from ..models import mlp
 from ..models import transformer as tfm
 from ..ops import fused, losses, metrics
 from ..train.optim import clip_by_global_norm
 from ..train.state import TrainState
+from . import mesh as mesh_lib
 from . import zero as zero_lib
 
 
@@ -65,17 +76,22 @@ def param_shapes(spec) -> dict:
 
 
 def forward_local(spec, params, x, use_pallas: bool = False,
-                  dropout_rng: Optional[int] = None, with_aux: bool = False):
+                  dropout_rng: Optional[int] = None, with_aux: bool = False,
+                  styles=None, model_axis=None):
     """Logits: the transformer's ``apply`` (its kernels chosen on the
-    spec), or the MLP's fused kernel under ``--pallas`` for the
-    activations it supports, else the plain MLP forward.  ``with_aux``
-    (transformer only) returns ``(logits, the MoE balance loss)``."""
+    spec; Megatron TP over ``model_axis``), or the MLP's fused kernel
+    under ``--pallas`` for the activations it supports when every layer
+    is replicated (JAX's gate: under TP the MLP's products are plain),
+    else the MLP forward with ``styles``.  ``with_aux`` (transformer
+    only) returns ``(logits, the MoE balance loss)``."""
     if isinstance(spec, tfm.TransformerSpec):
         return tfm.apply(spec, params, x, with_aux=with_aux,
-                         dropout_rng=dropout_rng)
-    if use_pallas and spec.activation in fused.SUPPORTED_MLP_ACTIVATIONS:
+                         dropout_rng=dropout_rng, model_axis=model_axis)
+    replicated = not styles or all(st == "rep" for st in styles)
+    if (use_pallas and replicated
+            and spec.activation in fused.SUPPORTED_MLP_ACTIVATIONS):
         return fused.mlp_forward(spec, params, x)
-    return mlp.apply(spec, params, x)
+    return mlp.apply(spec, params, x, styles=styles, model_axis=model_axis)
 
 
 def _lm_stats(spec, logits, tokens):
@@ -96,7 +112,8 @@ def _lm_stats(spec, logits, tokens):
 
 def _loss_and_acc(spec, params, x, y, naive: bool, use_pallas: bool,
                   label_smoothing: float = 0.0, remat: bool = False,
-                  dropout_rng: Optional[int] = None):
+                  dropout_rng: Optional[int] = None, styles=None,
+                  model_axis=None):
     """``(objective, (cost, accuracy))`` on one batch.  The cost is the
     classify objective's cross entropy, or for the lm objective the mean
     next-token cross entropy (``y`` unused); the objective, which the
@@ -111,8 +128,9 @@ def _loss_and_acc(spec, params, x, y, naive: bool, use_pallas: bool,
     def fwd(p, xx):
         if is_tfm:
             return forward_local(spec, p, xx, use_pallas, dropout_rng,
-                                 with_aux=True)
-        return forward_local(spec, p, xx, use_pallas, dropout_rng), 0.0
+                                 with_aux=True, model_axis=model_axis)
+        return forward_local(spec, p, xx, use_pallas, dropout_rng,
+                             styles=styles, model_axis=model_axis), 0.0
 
     if remat:
         logits, aux = checkpoint(fwd, params, x, use_reentrant=False)
@@ -128,23 +146,25 @@ def _loss_and_acc(spec, params, x, y, naive: bool, use_pallas: bool,
     return cost + aux_w * aux, (cost, metrics.accuracy(logits, y))
 
 
-def make_step_rng(cfg, spec) -> Callable:
+def make_step_rng(cfg, spec, data_index: Optional[int] = None) -> Callable:
     """``(state, step_index) -> the step's dropout seed`` (an int; None
-    when the spec does not drop): seed x step, and the process index, so
-    every data shard draws its own masks — the counterpart of the JAX
+    when the spec does not drop): seed x step, and the data index
+    (default: the process index), so every data shard draws its own
+    masks while the model ranks of one data index, whose activations
+    are replicated, draw the same — the counterpart of the JAX
     ``make_step_rng`` (the same stream after a resume; other bits).  The
     step is ``step_index`` when the caller knows it on the host (the
     device-resident epoch does), else ``int(state.step)``, which reads
     the card."""
     dropping = getattr(spec, "dropout_rate", 0.0) > 0
+    index = cluster.process_index() if data_index is None else data_index
 
     def step_rng(state: TrainState,
                  step_index: Optional[int] = None) -> Optional[int]:
         if not dropping:
             return None
         step = int(state.step) if step_index is None else step_index
-        return (((cfg.seed ^ 0xD0C0) << 40) + (step << 8)
-                + cluster.process_index())
+        return (((cfg.seed ^ 0xD0C0) << 40) + (step << 8) + index)
 
     return step_rng
 
@@ -158,22 +178,69 @@ def leaf_names(spec) -> list:
     return [f"[{k!r}]" for k in sorted(param_shapes(spec))]
 
 
-def _leaf_norms(tree: dict, names) -> torch.Tensor:
+def _model_sum(v: torch.Tensor, names, sharded, mesh) -> torch.Tensor:
+    """``v`` [n_leaves] with the entries of the leaves split over the
+    model axis (``sharded``) summed over the model group, one
+    all-reduce; the replicated leaves' entries as they are (JAX's
+    ``_leaf_reduce``: each leaf psummed over the axes its spec names)."""
+    if not sharded or mesh is None or mesh.mp == 1:
+        return v
+    mask = torch.tensor([k in sharded for k in names], device=v.device)
+    part = torch.where(mask, v, torch.zeros_like(v))
+    mesh_lib.model_all_reduce(part, mesh)
+    return torch.where(mask, part, v)
+
+
+def _leaf_norms(tree: dict, names, sharded=(), mesh=None) -> torch.Tensor:
     """Per-leaf L2 norms as one [n_leaves] f32 vector, in ``names``
-    order."""
-    return torch.sqrt(torch.stack(
-        [torch.sum(torch.square(tree[k].to(torch.float32)))
-         for k in names]))
+    order, of the full leaves under TP (``_model_sum``)."""
+    sq = torch.stack([torch.sum(torch.square(tree[k].to(torch.float32)))
+                      for k in names])
+    return torch.sqrt(_model_sum(sq, names, sharded, mesh))
 
 
-def _leaf_nonfinite(tree: dict, names) -> torch.Tensor:
+def _leaf_nonfinite(tree: dict, names, sharded=(), mesh=None
+                    ) -> torch.Tensor:
     """Per-leaf non-finite element counts as one [n_leaves] int32
-    vector, in ``names`` order.  ``g - g`` is 0 exactly where ``g`` is
-    finite and NaN where it is an inf or a NaN: two elementwise passes
-    where ``~isfinite`` takes five on the card."""
-    return torch.stack(
+    vector, in ``names`` order, of the full leaves under TP.  ``g - g``
+    is 0 exactly where ``g`` is finite and NaN where it is an inf or a
+    NaN: two elementwise passes where ``~isfinite`` takes five on the
+    card."""
+    return _model_sum(torch.stack(
         [torch.sum(torch.isnan(tree[k] - tree[k]), dtype=torch.int32)
-         for k in names])
+         for k in names]), names, sharded, mesh)
+
+
+def clip_sharded(grads: dict, max_norm: float, sharded, mesh,
+                 over_data: bool = False) -> dict:
+    """The global-norm clip (JAX's ``_clip_sharded``): the square-sums of
+    the leaves split over the model axis (``sharded``) summed over the
+    model group, the replicated leaves' counted once, so every rank
+    computes the same norm and the replicated leaves stay equal;
+    ``over_data`` (FSDP's 1/dp gradient shards) sums the total over the
+    data group too.  With nothing split and nothing to sum it is
+    ``train/optim.clip_by_global_norm``, bit for bit (the same sum in
+    the same sorted-key order)."""
+    rep = sum(torch.sum(torch.square(g.to(torch.float32)))
+              for k, g in grads.items() if k not in sharded)
+    if sharded:
+        part = sum(torch.sum(torch.square(g.to(torch.float32)))
+                   for k, g in grads.items() if k in sharded)
+        mesh_lib.model_all_reduce(part, mesh)
+        rep = rep + part
+    if over_data:
+        mesh_lib.data_all_reduce(rep, mesh)
+    norm = torch.sqrt(rep)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    return {k: (g * scale).to(g.dtype) for k, g in grads.items()}
+
+
+def tp_sharded_names(spec, mesh) -> set:
+    """The param names split over the model axis (empty at mp 1)."""
+    if mesh is None or mesh.mp == 1:
+        return set()
+    return {k for k, d in mesh_lib.param_pspecs(spec, mesh.mp).items()
+            if d is not None}
 
 
 def _keep_where(flag: torch.Tensor, new, old):
@@ -187,20 +254,25 @@ def _keep_where(flag: torch.Tensor, new, old):
     return new
 
 
-def mean_over_ranks(cost: torch.Tensor, acc: torch.Tensor):
-    """``(cost, acc)`` averaged over the ranks (JAX's ``pmean`` over the
-    data axis): one all-reduce of both, whenever a group exists."""
+def mean_over_ranks(cost: torch.Tensor, acc: torch.Tensor, mesh=None):
+    """``(cost, acc)`` averaged over the data group (JAX's ``pmean``
+    over the data axis; the world without a ``mesh``): one all-reduce of
+    both, whenever a group exists."""
     if not cluster.collectives():
         return cost, acc
     stats = torch.stack([cost, acc.to(cost.dtype)])
-    dist.all_reduce(stats)
-    world = cluster.process_count()
-    return stats[0] / world, stats[1] / world
+    if mesh is None:
+        dist.all_reduce(stats)
+        n = cluster.process_count()
+    else:
+        mesh_lib.data_all_reduce(stats, mesh)
+        n = mesh.dp
+    return stats[0] / n, stats[1] / n
 
 
 def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
                         with_anomaly: bool = False,
-                        zero_dp: int = 0) -> Callable:
+                        zero_dp: int = 0, mesh=None) -> Callable:
     """``(state, x, y, step_index=None) -> (state, cost, acc)`` over this
     process's slice ``x``/``y`` of the global batch: ``grad_accum``
     microbatches (the mean of their gradients), the all-reduce across
@@ -220,7 +292,13 @@ def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
 
     ``zero_dp`` > 0 applies ZeRO-1's chunked update
     (``parallel/zero.zero_update``): the optimizer slots arrive as this
-    rank's ``[chunk]`` rows and the updated params are all-gathered.
+    rank's ``[chunk]`` rows and the updated params are all-gathered
+    over the data group.
+
+    ``mesh`` (default: the data axis over the process group) places the
+    step: under ``model_parallel`` > 1 the params and slots are this
+    rank's Megatron shards, the gradients are summed over the data group
+    only, and the clip, the norms and the counts read the full leaves.
 
     The step is capturable in a CUDA graph, all-reduce included: it
     reads nothing back from the card, as long as the caller passes
@@ -228,8 +306,12 @@ def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
     where the spec drops — otherwise the dropout seed reads
     ``state.step`` (``make_step_rng``).  The results are the same either
     way."""
+    mesh = mesh if mesh is not None else mesh_lib.build_mesh(-1)
     names = sorted(param_shapes(spec))
-    step_rng = make_step_rng(cfg, spec)
+    styles = mesh_lib.layer_styles(spec, mesh.mp)
+    model_axis = mesh_lib.model_axis(mesh)
+    sharded = tp_sharded_names(spec, mesh)
+    step_rng = make_step_rng(cfg, spec, mesh.data_index)
     remat = getattr(cfg, "remat", False)
     skip = getattr(cfg, "on_anomaly", "") == "skip"
     detect = with_anomaly or skip
@@ -238,7 +320,7 @@ def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
         leaves = {k: params[k].detach().requires_grad_(True) for k in names}
         objective, (cost, acc) = _loss_and_acc(
             spec, leaves, x, y, cfg.naive_ce, cfg.pallas,
-            cfg.label_smoothing, remat, rng)
+            cfg.label_smoothing, remat, rng, styles, model_axis)
         grads = torch.autograd.grad(objective, [leaves[k] for k in names])
         return cost.detach(), acc, dict(zip(names, grads))
 
@@ -261,24 +343,29 @@ def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
             cost, acc = cost / n, acc / n
         else:
             cost, acc, grads = grad_of(state.params, x, y, rng)
-        if cluster.collectives():
-            world = cluster.process_count()
-            for g in grads.values():
-                dist.all_reduce(g)
-            cost, acc = mean_over_ranks(cost, acc)
-            if cfg.grad_reduce == "mean":
-                grads = {k: g / world for k, g in grads.items()}
-        # the telemetry reads the raw gradients, before the clip
-        grad_norms = _leaf_norms(grads, names) if with_norms else None
         if detect:
-            counts = _leaf_nonfinite(grads, names)
-            flag = torch.any(counts > 0) | ~torch.isfinite(cost)
+            # this rank's loss, summed over every axis (JAX's all_axes),
+            # so every rank keeps or applies together
+            loss_bad = (~torch.isfinite(cost)).to(torch.int32)
+            mesh_lib.world_all_reduce(loss_bad)
+        if mesh.data_group is not None:
+            for g in grads.values():
+                dist.all_reduce(g, group=mesh.data_group)
+            cost, acc = mean_over_ranks(cost, acc, mesh)
+            if cfg.grad_reduce == "mean":
+                grads = {k: g / mesh.dp for k, g in grads.items()}
+        # the telemetry reads the raw gradients, before the clip
+        grad_norms = (_leaf_norms(grads, names, sharded, mesh)
+                      if with_norms else None)
+        if detect:
+            counts = _leaf_nonfinite(grads, names, sharded, mesh)
+            flag = torch.any(counts > 0) | (loss_bad > 0)
         if cfg.grad_clip > 0:
-            grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
+            grads = clip_sharded(grads, cfg.grad_clip, sharded, mesh)
         if zero_dp:
             new_params, new_opt = zero_lib.zero_update(
                 optimizer, grads, state.opt_state, state.params, zero_dp,
-                cluster.process_index())
+                mesh.data_index, mesh.data_group)
         else:
             new_params, new_opt = optimizer.update(grads, state.opt_state,
                                                    state.params)
@@ -289,7 +376,8 @@ def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
         out = (TrainState(state.step + 1, new_params, new_opt), cost, acc)
         if with_norms:
             out += ({"grad": grad_norms,
-                     "param": _leaf_norms(new_params, names)},)
+                     "param": _leaf_norms(new_params, names, sharded,
+                                          mesh)},)
         if with_anomaly:
             out += ({"flag": flag, "counts": counts},)
         return out
@@ -307,7 +395,10 @@ def make_local_step_body(cfg, spec, optimizer, host: bool = True
     applies ``--grad_clip`` and ``--label_smoothing``; the
     device-resident epoch's (``host=False``, JAX's whole-run local
     program) applies neither, as JAX's does.  No dropout: the config
-    refuses ``--dropout_rate`` with ``--sync_period`` > 1."""
+    refuses ``--dropout_rate`` with ``--sync_period`` > 1, and tensor
+    parallelism, with JAX's message."""
+    if getattr(cfg, "model_parallel", 1) != 1:
+        raise ValueError(LOCAL_SGD_TP_REFUSED)
     names = sorted(param_shapes(spec))
     remat = getattr(cfg, "remat", False)
     smoothing = cfg.label_smoothing if host else 0.0
@@ -392,20 +483,26 @@ def _eval_correct(spec, logits, x, y):
             == torch.argmax(y, -1)).to(torch.float32)
 
 
-def build_eval_step(cfg, spec, reduce: bool = True) -> Callable:
+def build_eval_step(cfg, spec, reduce: bool = True, mesh=None) -> Callable:
     """``(params, x, y, mask) -> correct-prediction count`` (an f32
     scalar tensor) over this rank's rows of one chunk; ``mask`` zeroes
-    the padding rows.  With ``reduce`` the count is summed over the
-    ranks (JAX's ``psum`` over the data axis) whenever a process group
+    the padding rows.  ``params`` are this rank's shards under the
+    ``mesh``'s tensor parallelism.  With ``reduce`` the count is summed
+    over the data group (JAX's ``psum`` over the data axis; the model
+    ranks of a data index count the same rows) whenever a process group
     exists; the fast eval sums its chunks first and reduces once.  Eval
     never drops."""
+    mesh = mesh if mesh is not None else mesh_lib.build_mesh(-1)
+    styles = mesh_lib.layer_styles(spec, mesh.mp)
+    model_axis = mesh_lib.model_axis(mesh)
 
     @torch.no_grad()
     def eval_step(params, x, y, mask):
-        logits = forward_local(spec, params, x, cfg.pallas)
+        logits = forward_local(spec, params, x, cfg.pallas, styles=styles,
+                               model_axis=model_axis)
         count = torch.sum(_eval_correct(spec, logits, x, y) * mask)
-        if reduce and cluster.collectives():
-            dist.all_reduce(count)
+        if reduce:
+            mesh_lib.data_all_reduce(count, mesh)
         return count
 
     return eval_step

@@ -1,5 +1,5 @@
 """ZeRO-1: optimizer slots sharded 1/dp over the data axis (the JAX
-package's ``parallel/zero.py``, at ``model_parallel`` 1).
+package's ``parallel/zero.py``), composed with tensor parallelism.
 
 The params stay replicated; every float optimizer slot is kept as one
 flat chunk a rank.  Each param leaf is flattened and zero-padded to
@@ -11,10 +11,17 @@ params on every rank.  The optimizers are elementwise, so each rank's
 chunk update is the full update restricted to its slice.  The padded
 tail stays zero: a zero gradient on a zero param leaves zero slots.
 
-On disk a slot leaf has JAX's global layout ``[dp, chunk]`` (rank r's
-chunk is row r), so a checkpoint crosses between the packages.
-Resuming needs the same ``dp``: the trainer checks the ``zero_dp``
-extra.  ZeRO-1 runs on the host path, as in JAX.
+Under ``--model_parallel`` the chunking runs on the **local** (already
+Megatron-split) flat view of each leaf, the chunk index is the rank's
+data index and the all-gather runs over its data group, as JAX chunks
+each device's local block.
+
+On disk a slot leaf has JAX's global layout: ``[dp, chunk]`` for a leaf
+replicated over the model axis (data index d's chunk is row d), and
+``[mp, dp, chunk]`` for a leaf split over it (JAX's ``[|ax1|, ..., dp,
+chunk]``), so a checkpoint crosses between the packages.  Resuming
+needs the same ``dp``: the trainer checks the ``zero_dp`` extra.
+ZeRO-1 runs on the host path, as in JAX.
 """
 
 from __future__ import annotations
@@ -52,11 +59,12 @@ def _chunk_of(a: torch.Tensor, dp: int, rank: int) -> torch.Tensor:
 
 
 def zero_update(optimizer, grads: dict, opt_state, params: dict, dp: int,
-                rank: int):
-    """``(new_params, new_opt_state)``: the optimizer on this rank's
-    chunk of the gradients, params and slots, then one all-gather a leaf
-    for the full updated params.  ``grads`` must already be summed over
-    the ranks (the sync step's all-reduce has run)."""
+                rank: int, group=None):
+    """``(new_params, new_opt_state)``: the optimizer on chunk ``rank``
+    (the data index) of the gradients, params and slots, then one
+    all-gather a leaf over the data ``group`` (default the world) for
+    the full updated (local) params.  ``grads`` must already be summed
+    over the data axis (the sync step's all-reduce has run)."""
     g_c = {k: _chunk_of(g, dp, rank) for k, g in grads.items()}
     p_c = {k: _chunk_of(p, dp, rank) for k, p in params.items()}
     new_pc, new_oc = optimizer.update(g_c, opt_state, p_c)
@@ -65,7 +73,7 @@ def zero_update(optimizer, grads: dict, opt_state, params: dict, dp: int,
         full = pc
         if cluster.collectives():
             full = pc.new_empty(dp * pc.numel())
-            cluster.all_gather_flat(full, pc.contiguous())
+            cluster.all_gather_flat(full, pc.contiguous(), group=group)
         return full[:like.numel()].reshape(like.shape).to(like.dtype)
 
     return tree_map(gather, new_pc, params), new_oc

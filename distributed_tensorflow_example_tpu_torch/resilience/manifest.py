@@ -122,6 +122,9 @@ def write_part(ckpt_dir: str, step: int, proc: int,
     None = full leaf), "enc" (original dtype name when bit-encoded)}]
     — the objects must already be written."""
     name = part_name(step, proc)
+    # a process that writes no object (its blocks all first held by
+    # another rank) may get here before any process made the directory
+    os.makedirs(ckpt_dir, exist_ok=True)
     _atomic_write_json(os.path.join(ckpt_dir, name),
                        {"format": FORMAT, "step": int(step),
                         "proc": int(proc), "entries": entries})

@@ -46,15 +46,19 @@ steps, at epoch ends on the fast path, and at the end; one ``.npz``, or
 background thread under ``--async_checkpoints``) and return the JAX
 ``run``'s result keys, ``"fast_loop"`` the path taken.
 
-Data parallelism (``parallel/``): under a process group rank r plays
-device r of the JAX package's one-process data-parallel mesh
-(``parallel/mesh.py``), so N ranks train as JAX's ``--data_parallel=N``
-run; ``setup_strategy`` lays the state out for the synchronous step,
-ZeRO-1 (``--zero_opt``), FSDP (``--fsdp``) or local SGD
-(``--sync_period K``, the async analog), and the checkpoints keep JAX's
-layouts of each (FSDP unsharded in one file, the replicas stacked
-``[dp, ...]``, ZeRO-1's slots ``[dp, chunk]``; each rank's rows under
-``--sharded_checkpoints``).
+Data and tensor parallelism (``parallel/``): under a process group rank
+r plays device r of the JAX package's one-process ``('data', 'model')``
+mesh (``parallel/mesh.py``: data index ``r // mp``, model index ``r %
+mp``), so dp x mp ranks train as JAX's ``--data_parallel=dp
+--model_parallel=mp`` run; ``setup_strategy`` lays the state out for
+the synchronous step (each rank its Megatron shards under
+``--model_parallel``), ZeRO-1 (``--zero_opt``), FSDP (``--fsdp``, FSDP x
+TP under both) or local SGD (``--sync_period K``, the async analog, at
+``model_parallel`` 1), and the checkpoints keep JAX's layouts of each
+(``utils/checkpoint.Layout``: the TP leaves and FSDP unsharded in one
+file, the replicas stacked ``[dp, ...]``, ZeRO-1's slots ``[dp, chunk]``
+or ``[mp, dp, chunk]``; under ``--sharded_checkpoints`` one rank a
+distinct block writes it).
 
 Resilience (``resilience/``): ``--ckpt_every N`` hands the state to the
 write-behind ``CheckpointWriter`` every N steps on the host path (on
@@ -223,11 +227,12 @@ def _eval_accuracy(eval_step, params, images: np.ndarray,
 
 
 def _sample(cfg: Config, spec, params, images: np.ndarray, device,
-            chief: bool) -> None:
+            chief: bool, model_axis=None) -> None:
     """KV-cached decoding from the first test examples' opening
     ``seq_len // 8`` tokens (greedy at ``--sample_temperature`` 0), saved
     by the chief to ``logs_path/samples.npz`` as the JAX trainer saves
-    them."""
+    them.  ``model_axis``: ``params`` are this rank's Megatron shards
+    and the decode runs tensor-parallel (``generate_sharded``)."""
     n_s = min(cfg.sample_after, images.shape[0])
     if not n_s:
         return
@@ -236,8 +241,13 @@ def _sample(cfg: Config, spec, params, images: np.ndarray, device,
         device))[:, :prompt_len]
     gen = (torch.Generator(device=device).manual_seed(cfg.seed)
            if cfg.sample_temperature > 0 else None)
-    samples = tfm.generate(spec, params, prompts, generator=gen,
-                           temperature=cfg.sample_temperature)
+    if model_axis is not None:
+        samples = tfm.generate_sharded(spec, params, prompts, model_axis,
+                                       generator=gen,
+                                       temperature=cfg.sample_temperature)
+    else:
+        samples = tfm.generate(spec, params, prompts, generator=gen,
+                               temperature=cfg.sample_temperature)
     if chief:
         os.makedirs(cfg.logs_path, exist_ok=True)
         path = os.path.join(cfg.logs_path, "samples.npz")
@@ -312,84 +322,108 @@ def _host_lr(cfg: Config, total_steps: int):
 _FOREIGN_LAYOUTS = ("sites", "pp_stages", "pp_virtual")
 
 
-def _zero_rows(key: str, leaf) -> bool:
-    """ZeRO-1's row-sharded leaves: the float optimizer slots."""
-    return key.startswith(".opt_state") and fsdp_lib.is_sharded_leaf(leaf)
-
-
-def _fsdp_rows(key: str, leaf) -> bool:
-    """FSDP's: every float leaf with a dimension."""
-    return fsdp_lib.is_sharded_leaf(leaf)
-
-
-def _replica_rows(key: str, leaf) -> bool:
-    """Local SGD's: every leaf but the step (each rank its replica,
-    stacked ``[dp, ...]`` in the global layout, as JAX stacks it)."""
-    return key != ".step"
-
-
-def _unshard_flat(data: dict, full_template) -> dict:
-    """FSDP's global ``[dp, chunk]`` leaves of ``data`` back to the
-    shapes of ``full_template`` (the others as they are)."""
+def _unshard_flat(data: dict, full_template, mp: int = 1,
+                  tp_dims=None) -> dict:
+    """FSDP's global ``[dp, chunk]`` (``[mp, dp, chunk]`` under TP,
+    ``tp_dims`` naming each leaf's split dim) leaves of ``data`` back to
+    the shapes of ``full_template`` (the others as they are)."""
     out = dict(data)
     for key, t in ckpt_lib.flatten_state(full_template).items():
         if fsdp_lib.is_sharded_leaf(t):
-            out[key] = data[key].reshape(-1)[:t.numel()].reshape(t.shape)
+            out[key] = fsdp_lib.unshard_leaf(
+                data[key], t, mp, tp_dims(key) if mp > 1 else None)
     return out
 
 
 @dataclasses.dataclass
 class Strategy:
-    """A data-parallel strategy's layout of the train state on this
-    rank and what runs it: ``body`` (the step; None = the synchronous
-    one the fast path builds), ``get_params`` (the full params for eval
-    and sampling; None = ``state.params``), ``row_sharded`` (the leaves
-    that are this rank's row of a global ``[dp, ...]`` checkpoint leaf),
-    ``step_scale`` (printed steps per step: dp under local SGD, whose
-    replicas each apply an update), ``sync_period`` (the runner's
-    average every K steps; 0 = none) and ``full_template`` (FSDP's full
-    shapes)."""
+    """A parallel strategy's layout of the train state on this rank and
+    what runs it: ``body`` (the step; None = the synchronous one the
+    fast path builds), ``get_params`` (the full params for eval and
+    sampling; None = ``state.params``, this rank's shards under TP),
+    ``layout`` (the blocks of the global checkpoint leaves this rank
+    holds; None = every leaf whole), ``step_scale`` (printed steps per
+    step: dp under local SGD, whose replicas each apply an update),
+    ``sync_period`` (the runner's average every K steps; 0 = none),
+    ``full_template`` (FSDP's full shapes) and ``tp_dims`` (flattened
+    key -> the dim split over the model axis, under TP)."""
     state: Any
     body: Optional[Callable] = None
     get_params: Optional[Callable] = None
-    row_sharded: Optional[Callable] = None
+    layout: Optional[ckpt_lib.Layout] = None
     step_scale: int = 1
     sync_period: int = 0
     full_template: Any = None
+    tp_dims: Optional[Callable] = None
+
+
+def _tp_local(state, dims, mesh: mesh_lib.Mesh):
+    """Each leaf's Megatron shard of this rank (``dims``: key -> split
+    dim), from the full state every rank initialised alike."""
+    return ckpt_lib.map_state(
+        lambda k, a: mesh_lib.shard_leaf(a, dims(k), mesh.mp,
+                                         mesh.model_index), state)
 
 
 def setup_strategy(cfg: Config, spec, optimizer, state, mesh: mesh_lib.Mesh,
                    fast: bool, with_anomaly: bool = False) -> Strategy:
     """The strategy the flags name, from the full seeded ``state`` (the
-    same on every rank): FSDP keeps this rank's ``[chunk]`` rows, local
-    SGD the rank's own replica, ZeRO-1 its ``[chunk]`` rows of the
-    optimizer slots, plain data parallelism the replicated state."""
-    dp, rank = mesh.dp, mesh.rank
+    same on every rank): FSDP keeps this rank's ``[chunk]`` rows (of its
+    model shard under TP), local SGD the rank's own replica, ZeRO-1 its
+    ``[chunk]`` rows of the optimizer slots, the synchronous step the
+    replicated state; under ``--model_parallel`` every layout starts
+    from this rank's Megatron shards."""
+    dp, mp = mesh.dp, mesh.mp
+    d_idx, m_idx = mesh.data_index, mesh.model_index
+    dims = mesh_lib.state_pspecs(mesh_lib.param_pspecs(spec, mp))
+    tp_dims = dims if mp > 1 else None
     if cfg.fsdp:
         full_template = fsdp_lib.shape_template(state)
+        lead = ("model", "data") if mp > 1 else ("data",)
         return Strategy(
-            state=fsdp_lib.local_rows(fsdp_lib.shard_state_host(state, dp),
-                                      rank),
+            state=fsdp_lib.local_rows(fsdp_lib.shard_state_host(
+                state, dp, mp, tp_dims), d_idx, m_idx, mp),
             body=fsdp_lib.make_fsdp_step_body(cfg, spec, dp, optimizer,
-                                              full_template),
-            get_params=fsdp_lib.build_gather_params(full_template),
-            row_sharded=_fsdp_rows, full_template=full_template)
+                                              full_template, mp, mesh),
+            get_params=fsdp_lib.build_gather_params(full_template, mesh,
+                                                    spec),
+            layout=ckpt_lib.Layout(mesh, lambda k, a: (
+                ckpt_lib.Block(lead) if fsdp_lib.is_sharded_leaf(a)
+                else None)),
+            full_template=full_template, tp_dims=tp_dims)
     if cfg.sync_period > 1:
         return Strategy(
             state=state,
             body=step_lib.make_local_step_body(cfg, spec, optimizer,
                                                host=not fast),
-            get_params=step_lib.consensus_params, row_sharded=_replica_rows,
+            get_params=step_lib.consensus_params,
+            layout=ckpt_lib.Layout(mesh, lambda k, a: (
+                ckpt_lib.Block(("data",)) if k != ".step" else None)),
             step_scale=dp, sync_period=cfg.sync_period)
+    if mp > 1:
+        state = _tp_local(state, dims, mesh)
     zero_dp = dp if cfg.zero_opt else 0
     if zero_dp:
         state.opt_state = zero_lib.zero_opt_state(optimizer, state.params,
                                                   dp)
+
+    def block(key, leaf):
+        if zero_dp and key.startswith(".opt_state") \
+                and fsdp_lib.is_sharded_leaf(leaf):
+            split = mp > 1 and dims(key) is not None
+            return ckpt_lib.Block(("model", "data") if split
+                                  else ("data",))
+        if mp > 1 and dims(key) is not None:
+            return ckpt_lib.Block(split=dims(key))
+        return None
+
     body = None if fast else step_lib.make_sync_step_body(
         cfg, spec, optimizer, with_norms=cfg.histograms,
-        with_anomaly=with_anomaly, zero_dp=zero_dp)
+        with_anomaly=with_anomaly, zero_dp=zero_dp, mesh=mesh)
     return Strategy(state=state, body=body,
-                    row_sharded=_zero_rows if zero_dp else None)
+                    layout=(ckpt_lib.Layout(mesh, block)
+                            if zero_dp or mp > 1 else None),
+                    tp_dims=tp_dims)
 
 
 def run(cfg: Config) -> Dict[str, Any]:
@@ -398,6 +432,8 @@ def run(cfg: Config) -> Dict[str, Any]:
     validate_train_config(cfg)
     dev = resolve_device(cfg.device)
     spec = make_spec(cfg)
+    if cfg.model == "transformer" and cfg.model_parallel > 1:
+        tfm.check_tp(spec, cfg.model_parallel)
     owns_group = cluster.bootstrap(cfg)
     writer = None
     # handles bound before the try, so its except and finally can always
@@ -413,8 +449,10 @@ def run(cfg: Config) -> Dict[str, Any]:
         proc_idx = cluster.process_index()
         proc_cnt = cluster.process_count()
         chief = proc_idx == 0
-        # the data axis: rank r plays device r of JAX's one-process mesh
-        mesh = mesh_lib.build_mesh(cfg.data_parallel)
+        # rank r plays device r of JAX's one-process ('data', 'model')
+        # mesh; the MLP's layer styles are checked against its widths
+        mesh = mesh_lib.build_mesh(cfg.data_parallel, cfg.model_parallel)
+        mesh_lib.layer_styles(spec, mesh.mp)
         dp = mesh.dp
 
         # run-start hygiene: a reused logs_path must not leak an older
@@ -514,7 +552,7 @@ def run(cfg: Config) -> Dict[str, Any]:
                 row["model_flops_per_step"] = flops_step
                 row["tflops_per_sec"] = (round(flops_step * sps / 1e12, 5)
                                          if sps else None)
-                m = (flops_lib.mfu(flops_step, sps, peak, dp)
+                m = (flops_lib.mfu(flops_step, sps, peak, mesh.devices)
                      if sps else None)
                 row["mfu"] = round(m, 6) if m is not None else None
                 mlogger.log_window(**row)
@@ -586,6 +624,7 @@ def run(cfg: Config) -> Dict[str, Any]:
                 and not cfg.histograms and cfg.on_anomaly != "halt"
                 and not cfg.debug_nans and not cfg.zero_opt
                 and not (async_mode and (cfg.checkpoint_every
+                                         or cfg.model_parallel > 1
                                          or cfg.early_stop_patience)))
 
         # the same seeded init on every rank: no broadcast needed
@@ -595,7 +634,7 @@ def run(cfg: Config) -> Dict[str, Any]:
                                with_anomaly=(policy is not None
                                              or cfg.debug_nans))
         state, train_body = strat.state, strat.body
-        full_template, row_sharded = strat.full_template, strat.row_sharded
+        full_template, layout = strat.full_template, strat.layout
         get_params, step_scale = strat.get_params, strat.step_scale
         print("Variables initialized ...")
 
@@ -634,14 +673,12 @@ def run(cfg: Config) -> Dict[str, Any]:
                                   else ckpt_lib.load_extras(path))
                 foreign = {k: resumed_extras[k] for k in _FOREIGN_LAYOUTS
                            if k in resumed_extras}
-                if int(resumed_extras.get("fsdp_mp", 1)) != 1:
-                    foreign["fsdp_mp"] = resumed_extras["fsdp_mp"]
                 if foreign:
                     raise Unported(
                         f"checkpoint {path} was written with {foreign}: "
-                        f"multi-site, FSDP x TP and pipeline layouts "
-                        f"are not ported to the PyTorch trainer yet "
-                        f"(see ROADMAP.md Queue A)")
+                        f"multi-site and pipeline layouts are not ported "
+                        f"to the PyTorch trainer yet (see ROADMAP.md "
+                        f"Queue A)")
                 saved_zdp = int(resumed_extras.get("zero_dp", 0))
                 if saved_zdp != (dp if cfg.zero_opt else 0):
                     raise ValueError(
@@ -652,8 +689,7 @@ def run(cfg: Config) -> Dict[str, Any]:
                         f"{dp if cfg.zero_opt else 0})")
                 if plan is not None:
                     state = ckpt_lib.rebuild_tree_validated(
-                        ckpt_lib.take_rows(flat, state, row_sharded,
-                                           proc_idx),
+                        ckpt_lib.take_local(flat, state, layout),
                         state, ckpt_path=path)
                     start_epoch, resume_skip = plan.epoch, plan.batches_done
                     print(f"Resumed from {path} at epoch {start_epoch} "
@@ -668,17 +704,23 @@ def run(cfg: Config) -> Dict[str, Any]:
                     data, _, start_epoch = ckpt_lib.restore_arrays(path)
                     if fsdp_mode:
                         # a sharded FSDP checkpoint holds the saved run's
-                        # flat [dp_old, chunk] leaves, a single file the
-                        # full ones: unshard, then re-shard for this dp
+                        # flat [(mp_old,) dp_old, chunk] leaves, a single
+                        # file the full ones: unshard at the saved degree,
+                        # then re-shard for this (dp, mp)
                         if os.path.isdir(path):
-                            data = _unshard_flat(data, full_template)
+                            mp_old = int(resumed_extras.get("fsdp_mp", 1))
+                            data = _unshard_flat(
+                                data, full_template, mp_old,
+                                mesh_lib.state_pspecs(mesh_lib.param_pspecs(
+                                    spec, mp_old)))
                         full = ckpt_lib.rebuild_tree_validated(
                             data, full_template, ckpt_path=path)
                         data = ckpt_lib.flatten_state(fsdp_lib.local_rows(
-                            fsdp_lib.shard_state_host(full, dp), proc_idx))
+                            fsdp_lib.shard_state_host(
+                                full, dp, mesh.mp, strat.tp_dims),
+                            mesh.data_index, mesh.model_index, mesh.mp))
                     else:
-                        data = ckpt_lib.take_rows(data, state, row_sharded,
-                                                  proc_idx)
+                        data = ckpt_lib.take_local(data, state, layout)
                     state = ckpt_lib.rebuild_tree_validated(data, state,
                                                             ckpt_path=path)
                     print(f"Resumed from {path} at epoch {start_epoch}")
@@ -708,7 +750,7 @@ def run(cfg: Config) -> Dict[str, Any]:
         def host_eval_accuracy(params, images, labels) -> float:
             nonlocal eval_step
             if eval_step is None:
-                eval_step = step_lib.build_eval_step(cfg, spec)
+                eval_step = step_lib.build_eval_step(cfg, spec, mesh=mesh)
             t0 = time.perf_counter()
             try:
                 with tracer.annotate("eval"):
@@ -737,20 +779,20 @@ def run(cfg: Config) -> Dict[str, Any]:
                 # the flat slot chunking is dp-shaped; resume checks it
                 extras["zero_dp"] = dp
             if fsdp_mode and cfg.sharded_checkpoints:
-                # a sharded FSDP checkpoint stores the flat [dp, chunk]
-                # layout; resume reads the degree it was written at
-                extras["fsdp_mp"] = 1
+                # a sharded FSDP checkpoint stores the flat [(mp,) dp,
+                # chunk] layout; resume reads the degree it was written at
+                extras["fsdp_mp"] = mesh.mp
             return extras or None
 
         def save_state(step: int, resume_epoch: int) -> None:
             """A classic checkpoint in JAX's layouts: every process writes
-            its shard file (its rows of the row-sharded leaves; FSDP's
+            its shard file (the blocks it is the first to hold; FSDP's
             flat layout as it is) and the chief the manifest under
             --sharded_checkpoints (the files from a background thread
             under --async_checkpoints, the prune once they landed); else
-            every rank joins the gather and the chief writes one .npz
-            (FSDP unsharded, local SGD's replicas stacked [dp, ...],
-            ZeRO-1's slots [dp, chunk])."""
+            every rank joins the gathers and the chief writes one .npz
+            (the TP leaves and FSDP unsharded, local SGD's replicas
+            stacked [dp, ...], ZeRO-1's slots [(mp,) dp, chunk])."""
             prune = ((lambda: ckpt_lib.prune_checkpoints(
                 cfg.checkpoint_dir, cfg.keep_checkpoints))
                 if chief and cfg.keep_checkpoints else None)
@@ -758,13 +800,14 @@ def run(cfg: Config) -> Dict[str, Any]:
                 ckpt_lib.save_checkpoint_sharded(
                     cfg.checkpoint_dir, state, step, resume_epoch,
                     ckpt_extras(), async_=cfg.async_checkpoints,
-                    on_complete=prune, row_sharded=row_sharded)
+                    on_complete=prune, layout=layout)
                 return
             to_save = state
-            if row_sharded is not None:
-                to_save = ckpt_lib.gather_rows(state, row_sharded)
+            if layout is not None:
+                to_save = ckpt_lib.gather_global(state, layout)
                 if fsdp_mode:
-                    to_save = _unshard_flat(to_save, full_template)
+                    to_save = _unshard_flat(to_save, full_template, mesh.mp,
+                                            strat.tp_dims)
             if chief:
                 ckpt_lib.save_checkpoint(cfg.checkpoint_dir, to_save, step,
                                          resume_epoch, ckpt_extras())
@@ -821,12 +864,13 @@ def run(cfg: Config) -> Dict[str, Any]:
             device-to-host copies are enqueued here (``_host_snapshot``),
             everything else runs on the writer thread.  With several
             processes the chief hands over every replicated leaf and
-            each rank its rows of the row-sharded ones (ZeRO-1's slots,
-            local SGD's replicas), with their global shapes."""
+            each rank the blocks it is the first to hold (the TP shards,
+            ZeRO-1's slots, local SGD's replicas), with their global
+            shapes, so the snapshot holds the global layout."""
             snap, ready, meta = {}, None, None
-            if chief or row_sharded is not None:
+            if chief or layout is not None:
                 snap, ready = _host_snapshot(state, dev)
-                snap, meta = ckpt_lib.local_shards(snap, row_sharded)
+                snap, meta = ckpt_lib.local_shards(snap, layout)
             ckpt_writer.submit(
                 int(step), int(epoch), snap, extras=ckpt_extras(),
                 data_state={"epoch": int(epoch),
@@ -839,22 +883,35 @@ def run(cfg: Config) -> Dict[str, Any]:
         if fast:
             img_d, lbl_d, batch_count = epoch_lib.shard_dataset(
                 dataset.train.images, dataset.train.labels, global_batch,
-                dev, dp, proc_idx)
+                dev, dp, mesh.data_index)
             fast_eval = epoch_lib.build_fast_eval(
                 cfg, spec, dataset.test.images, dataset.test.labels, dev,
-                dp, proc_idx)
+                dp, mesh.data_index, mesh=mesh)
             fast_val = (epoch_lib.build_fast_eval(
                 cfg, spec, dataset.validation.images,
-                dataset.validation.labels, dev, dp, proc_idx)
-                if early else None)
+                dataset.validation.labels, dev, dp, mesh.data_index,
+                mesh=mesh) if early else None)
             # the upload lands before the timed window opens
             hard_sync((img_d, lbl_d, fast_eval.staged)
                       + ((fast_val.staged,) if fast_val else ()))
 
-        def eval_params():
-            """The params eval and sampling read: the replicas' mean or
-            the gathered shards (a collective) under the strategies."""
+        def full_params():
+            """The params sampling reads: the replicas' mean or the
+            gathered shards (a collective) under the strategies, this
+            rank's Megatron shards under plain TP."""
             return get_params(state) if unstack_mode else state.params
+
+        def eval_params():
+            """The params eval reads: ``full_params``, under FSDP x TP
+            this rank's Megatron shards of them (JAX's eval of FSDP's
+            gathered params runs on the TP layout too)."""
+            params = full_params()
+            if fsdp_mode and mesh.mp > 1:
+                dims = mesh_lib.param_pspecs(spec, mesh.mp)
+                params = {k: mesh_lib.shard_leaf(v, dims[k], mesh.mp,
+                                                 mesh.model_index)
+                          for k, v in params.items()}
+            return params
 
         epochs_done = start_epoch
         begin_time = time.time()
@@ -938,7 +995,8 @@ def run(cfg: Config) -> Dict[str, Any]:
                 # the whole run on the device, one fetch at its end
                 runner = epoch_lib.build_run_to_completion(
                     cfg, spec, optimizer, batch_count, n_ep, dev,
-                    body=train_body, sync_period=strat.sync_period)
+                    body=train_body, sync_period=strat.sync_period,
+                    mesh=mesh)
                 tracer.on_range(start_epoch * batch_count,
                                 (start_epoch + n_ep) * batch_count)
                 if flight is not None:
@@ -967,7 +1025,8 @@ def run(cfg: Config) -> Dict[str, Any]:
                 # one epoch a call, for host control between epochs
                 # (periodic checkpoints, validation)
                 epoch_runner = epoch_lib.build_epoch_runner(
-                    cfg, spec, optimizer, batch_count, dev, body=train_body)
+                    cfg, spec, optimizer, batch_count, dev, body=train_body,
+                    mesh=mesh)
                 for epoch in range(start_epoch, cfg.training_epochs):
                     tracer.on_range(epoch * batch_count,
                                     (epoch + 1) * batch_count)
@@ -1364,8 +1423,13 @@ def run(cfg: Config) -> Dict[str, Any]:
         t_sample = time.perf_counter()
         if cfg.sample_after > 0 and cfg.model == "transformer" \
                 and cfg.objective == "lm":
-            _sample(cfg, spec, final_params if final_params is not None
-                    else eval_params(), dataset.test.images, dev, chief)
+            # TP decode on the shards (JAX's generate_sharded); FSDP's
+            # gathered params decode whole, as JAX's generate_dp
+            _sample(cfg, spec, final_params
+                    if final_params is not None and not fsdp_mode
+                    else full_params(), dataset.test.images, dev, chief,
+                    model_axis=(None if fsdp_mode
+                                else mesh_lib.model_axis(mesh)))
         phase_s["sample"] += time.perf_counter() - t_sample
         ckpt_stats = None
         if cfg.checkpoint_dir:
@@ -1452,7 +1516,7 @@ def run(cfg: Config) -> Dict[str, Any]:
         "examples_per_sec": (examples_seen / total_time
                              if total_time > 0 else 0.0),
         "dataset_source": dataset.source,
-        "devices": dp,
+        "devices": mesh.devices,
         "global_batch": global_batch,
         "fast_loop": fast,
         "epochs_completed": epochs_done,

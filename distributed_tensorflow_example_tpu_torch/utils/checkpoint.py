@@ -26,14 +26,18 @@ name (``resilience/codec.py``, the one codec of every format).
   background thread (``wait_for_pending_saves`` joins it and re-raises
   its failure).
 
-Under the data-parallel strategies some leaves are **row-sharded**: a
-rank holds row r of a global ``[dp, ...]`` leaf (ZeRO-1's optimizer
-slots, FSDP's flat shards, local SGD's replicas; a ``row_sharded(key,
-leaf)`` predicate names them).  The sharded format writes each rank's
-row with its global bounds (as JAX writes each device's shard), so
-JAX's ``restore_sharded_arrays`` reassembles the ``[dp, ...]`` leaf;
-``gather_rows`` all-gathers them for the chief's single file, and
-``take_rows`` picks this rank's row of a restored global leaf.
+Under the parallel strategies a rank holds a **block** of some global
+leaves (a ``Layout`` over the ``('data', 'model')`` mesh names them,
+``Block`` by ``Block``): a row of a ``[dp, ...]`` leaf (ZeRO-1's
+optimizer slots, FSDP's flat shards, local SGD's replicas), a row of an
+``[mp, dp, ...]`` one (FSDP x TP, ZeRO-1's slots of a leaf split under
+TP), or a Megatron slice of a leaf split over the model axis.  The
+sharded format has one rank per distinct block write it with its global
+bounds (as JAX writes each device's shard), so JAX's
+``restore_sharded_arrays`` reassembles the global leaf; ``gather_global``
+all-gathers the blocks over the group that holds them for the chief's
+single file, and ``take_local`` picks this rank's block of a restored
+global leaf.
 
 ``--resume`` (``train/loop.py``) restores the newest complete checkpoint
 of either format with ``latest_checkpoint`` and ``restore_checkpoint``;
@@ -43,12 +47,13 @@ of either format with ``latest_checkpoint`` and ``restore_checkpoint``;
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
 import shutil
 import threading
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -80,6 +85,22 @@ def flatten_state(state: TrainState) -> Dict[str, torch.Tensor]:
         for k, v in _walk(getattr(state, field), ""):
             out[f".{field}{k}"] = v
     return out
+
+
+def map_state(fn, state: TrainState) -> TrainState:
+    """``state`` with every leaf replaced by ``fn(key, leaf)``, ``key``
+    its ``flatten_state`` key (the step's ``.step``)."""
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{prefix}/{k}") for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(walk(v, f"{prefix}/{i}")
+                              for i, v in enumerate(tree))
+        return fn(prefix, tree)
+
+    return TrainState(fn(".step", state.step),
+                      walk(state.params, ".params"),
+                      walk(state.opt_state, ".opt_state"))
 
 
 def save_checkpoint(ckpt_dir: str, state, step: int, epoch: int,
@@ -202,74 +223,163 @@ def _bounds(shape) -> np.ndarray:
                       np.int64).reshape(-1, 2)
 
 
-def row_bounds(shape, rank: int) -> np.ndarray:
-    """The global bounds of row ``rank`` of a ``[dp, *shape]`` leaf."""
-    return np.asarray([[rank, rank + 1]] + [[0, int(d)] for d in shape],
-                      np.int64).reshape(-1, 2)
+@dataclasses.dataclass(frozen=True)
+class Block:
+    """Where a rank's leaf sits in its global leaf: ``lead`` names the
+    mesh axes of the global leaf's leading dims (each the axis's size,
+    the local leaf at the rank's index there), ``split`` the local dim
+    that is a slice of a global dim split over the model axis."""
+    lead: Tuple[str, ...] = ()
+    split: Optional[int] = None
+
+    @property
+    def varies(self) -> frozenset:
+        """The mesh axes along which the ranks' blocks differ."""
+        return frozenset(self.lead) | (
+            frozenset(("model",)) if self.split is not None else frozenset())
 
 
-def local_shards(leaves: Dict[str, Any], row_sharded=None
+class Layout:
+    """The global layout of a strategy's state over a mesh
+    (``parallel/mesh.Mesh``): ``block(key, leaf)`` -> the leaf's ``Block``
+    or None (replicated: every rank holds the whole leaf)."""
+
+    def __init__(self, mesh, block: Callable):
+        self.mesh = mesh
+        self.block = block
+
+    def coords(self, rank: int) -> Tuple[int, int]:
+        return rank // self.mesh.mp, rank % self.mesh.mp
+
+    def _size(self, axis: str) -> int:
+        return self.mesh.dp if axis == "data" else self.mesh.mp
+
+    def global_shape(self, b: Block, shape) -> list:
+        out = [int(d) for d in shape]
+        if b.split is not None:
+            out[b.split] *= self.mesh.mp
+        return [self._size(ax) for ax in b.lead] + out
+
+    def bounds(self, b: Block, shape, rank: int) -> np.ndarray:
+        """The global bounds of ``rank``'s block of a leaf of local
+        ``shape``."""
+        d, m = self.coords(rank)
+        idx = {"data": d, "model": m}
+        rows = [[idx[ax], idx[ax] + 1] for ax in b.lead]
+        for i, n in enumerate(shape):
+            lo = m * int(n) if i == b.split else 0
+            rows.append([lo, lo + int(n)])
+        return np.asarray(rows, np.int64).reshape(-1, 2)
+
+    def writes(self, b: Optional[Block], rank: int) -> bool:
+        """Whether ``rank`` writes its block: the first rank holding it
+        (index 0 along every axis the block does not vary over)."""
+        if b is None:
+            return rank == 0
+        d, m = self.coords(rank)
+        return ((d == 0 or "data" in b.varies)
+                and (m == 0 or "model" in b.varies))
+
+    def members(self, b: Block) -> Tuple[list, object]:
+        """``(ranks, group)``: the ranks whose blocks tile the leaf
+        together with this rank's, in the group's rank order, and the
+        group an all-gather over them runs on (None: this rank alone)."""
+        mesh = self.mesh
+        d, m = mesh.data_index, mesh.model_index
+        if b.varies == frozenset(("model",)):
+            return [d * mesh.mp + i for i in range(mesh.mp)], mesh.model_group
+        if b.varies == frozenset(("data",)):
+            return [i * mesh.mp + m for i in range(mesh.dp)], mesh.data_group
+        group = None
+        if mesh.data_group is not None:
+            import torch.distributed as dist
+
+            group = dist.group.WORLD
+        return list(range(mesh.dp * mesh.mp)), group
+
+
+def local_shards(leaves: Dict[str, Any], layout: Optional[Layout] = None
                  ) -> Tuple[dict, dict]:
     """``(shards, leaf_meta)`` of this process's part of a checkpoint:
-    each row-sharded leaf as ``[(bounds, row)]`` within its global
-    ``[dp, ...]`` shape (recorded in ``leaf_meta``), every other leaf
-    whole on process 0 only (the rest of the state is replicated)."""
+    each leaf of the ``layout`` that this rank writes as ``[(bounds,
+    block)]`` within its global shape (recorded in ``leaf_meta``), every
+    replicated leaf whole on process 0 only."""
     proc = cluster.process_index()
-    dp = cluster.process_count()
     shards, meta = {}, {}
     for key, leaf in leaves.items():
-        if row_sharded is not None and row_sharded(key, leaf):
-            shards[key] = [(row_bounds(leaf.shape, proc), leaf[None])]
-            meta[key] = {"shape": [dp] + [int(d) for d in leaf.shape],
-                         "dtype": dtype_name(leaf)}
-        elif proc == 0:
-            shards[key] = leaf
+        b = layout.block(key, leaf) if layout is not None else None
+        if b is None:
+            if proc == 0:
+                shards[key] = leaf
+            continue
+        meta[key] = {"shape": layout.global_shape(b, leaf.shape),
+                     "dtype": dtype_name(leaf)}
+        if layout.writes(b, proc):
+            shards[key] = [(layout.bounds(b, leaf.shape, proc),
+                            leaf.reshape((1,) * len(b.lead) + leaf.shape))]
     return shards, meta
 
 
-def gather_rows(state: TrainState, row_sharded=None) -> Dict[str, Any]:
+def gather_global(state: TrainState, layout: Optional[Layout] = None
+                  ) -> Dict[str, Any]:
     """``{key: tensor}`` of the state in its global layout, on every
-    rank: each row-sharded leaf all-gathered into ``[dp, ...]`` (as raw
-    bytes, so every dtype crosses gloo too), the others as they are.
-    A collective: every rank calls it."""
+    rank: each leaf of the ``layout`` all-gathered over the group whose
+    blocks tile it (as raw bytes, so every dtype crosses gloo too) and
+    placed by their bounds, the others as they are.  A collective: every
+    rank calls it."""
     out = {}
     for key, leaf in flatten_state(state).items():
-        if row_sharded is None or not row_sharded(key, leaf):
+        b = layout.block(key, leaf) if layout is not None else None
+        if b is None:
             out[key] = leaf
             continue
-        dp = cluster.process_count()
+        ranks, group = layout.members(b)
         raw = leaf.detach().contiguous().reshape(-1).view(torch.uint8)
-        full = raw.new_empty(dp * raw.numel())
-        cluster.all_gather_flat(full, raw)
-        out[key] = full.view(leaf.dtype).reshape(dp, *leaf.shape)
+        flat = raw
+        if group is not None:
+            flat = raw.new_empty(len(ranks) * raw.numel())
+            cluster.all_gather_flat(flat, raw, group=group)
+        blocks = flat.view(leaf.dtype).reshape(len(ranks), *leaf.shape)
+        full = leaf.new_zeros(layout.global_shape(b, leaf.shape))
+        for r, blk in zip(ranks, blocks):
+            idx = tuple(slice(int(lo), int(hi)) for lo, hi in
+                        layout.bounds(b, leaf.shape, r))
+            full[idx] = blk.reshape(full[idx].shape)
+        out[key] = full
     return out
 
 
-def take_rows(data: Dict[str, Any], template: TrainState, row_sharded=None,
-              rank: int = 0) -> Dict[str, Any]:
-    """``data`` (a global-layout ``{key: tensor}``) with row ``rank`` of
-    each leaf that ``template`` (this rank's local state) holds
-    row-sharded."""
+def take_local(data: Dict[str, Any], template: TrainState,
+               layout: Optional[Layout] = None) -> Dict[str, Any]:
+    """``data`` (a global-layout ``{key: tensor}``) with this rank's
+    block of each leaf that ``template`` (this rank's local state) holds
+    in the ``layout``."""
     out = dict(data)
+    if layout is None:
+        return out
+    rank = layout.mesh.rank
     for key, leaf in flatten_state(template).items():
-        if row_sharded is not None and row_sharded(key, leaf):
-            out[key] = data[key][rank]
+        b = layout.block(key, leaf)
+        if b is not None:
+            idx = tuple(slice(int(lo), int(hi)) for lo, hi in
+                        layout.bounds(b, leaf.shape, rank))
+            out[key] = data[key][idx].reshape(leaf.shape)
     return out
 
 
 def save_checkpoint_sharded(ckpt_dir: str, state: TrainState, step: int,
                             epoch: int, extras: dict | None = None,
                             async_: bool = False,
-                            on_complete=None, row_sharded=None) -> str:
+                            on_complete=None, layout=None) -> str:
     """Every process calls this; no collective runs.  Each process writes
     its shard file atomically and the chief the manifest, so the
     checkpoint becomes visible to ``latest_checkpoint`` only once every
     process finished (several processes need a ``ckpt_dir`` they all
-    share).  Each rank writes its rows of the ``row_sharded`` leaves
-    within their global ``[dp, ...]`` shape; process 0 also every other
-    leaf.  The device-to-host copies happen here; under ``async_`` the
-    file writes and ``on_complete`` (the retention prune) run on a
-    background thread.  Returns the checkpoint directory."""
+    share).  Each rank writes the blocks of the ``layout`` it is the
+    first to hold, within their global shapes; process 0 also every
+    replicated leaf.  The device-to-host copies happen here; under
+    ``async_`` the file writes and ``on_complete`` (the retention prune)
+    run on a background thread.  Returns the checkpoint directory."""
     wait_for_pending_saves()
     path = os.path.join(ckpt_dir, f"ckpt-{step:08d}.shards")
     os.makedirs(path, exist_ok=True)
@@ -279,7 +389,7 @@ def save_checkpoint_sharded(ckpt_dir: str, state: TrainState, step: int,
     leaves = flatten_state(state)
     shapes = {key: ([int(d) for d in leaf.shape], dtype_name(leaf))
               for key, leaf in leaves.items()}
-    shards, meta = local_shards(leaves, row_sharded)
+    shards, meta = local_shards(leaves, layout)
     for key, m in meta.items():
         shapes[key] = (m["shape"], m["dtype"])
     for key, val in shards.items():

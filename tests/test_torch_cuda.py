@@ -1047,6 +1047,102 @@ def test_one_rank_group_graph_epoch_matches_eager_on_card(
         assert torch.equal(g.params[k], e.params[k]), k
 
 
+# a rank of the two-rank TP step: a gloo group on the card (NCCL refuses
+# two ranks on one device), one SGD step of the Megatron-split state,
+# the params gathered to the full layout, the flash kernels' head count
+TP_RANK = r'''
+import datetime, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=2, rank=rank,
+                        timeout=datetime.timedelta(seconds=120))
+from distributed_tensorflow_example_tpu_torch.config import Config
+from distributed_tensorflow_example_tpu_torch.ops import flash_attention
+from distributed_tensorflow_example_tpu_torch.parallel import mesh
+from distributed_tensorflow_example_tpu_torch.train import loop, optim
+from distributed_tensorflow_example_tpu_torch.train.state import (
+    create_train_state)
+from distributed_tensorflow_example_tpu_torch.utils import checkpoint
+
+cfg = Config(**TP_CFG, model_parallel=2, device="cuda")
+spec = loop.make_spec(cfg)
+opt = optim.make_optimizer(cfg)
+m = mesh.build_mesh(-1, 2)
+strat = loop.setup_strategy(
+    cfg, spec, opt, create_train_state(spec, opt, seed=4, device="cuda"),
+    m, fast=False)
+g = torch.Generator(device="cuda").manual_seed(9)
+x = torch.rand((4, cfg.input_size), generator=g, device="cuda")
+y = torch.eye(10, device="cuda")[torch.arange(4, device="cuda") % 10]
+new, cost, _acc = strat.body(strat.state, x, y)
+full = checkpoint.gather_global(new, strat.layout)
+if rank == 0:
+    np.savez(out, cost=cost.cpu().numpy(),
+             heads=flash_attention.flash_forward.last_shape[2],
+             **{k: v.cpu().numpy() for k, v in full.items()
+                if k.startswith(".params/")})
+dist.barrier()
+dist.destroy_process_group()
+'''
+TP_CFG = dict(model="transformer", attention="flash", causal=True,
+              fused_ln=True, input_size=512, seq_len=256, d_model=256,
+              n_heads=4, num_blocks=2, d_ff=512, optimizer="sgd",
+              learning_rate=0.1, batch_size=4)
+
+
+@pytest.mark.cuda
+def test_two_rank_tp_step_matches_one_rank_on_card(card, tmp_path):
+    """Two gloo ranks at ``--model_parallel=2`` on the card: one SGD step
+    of a small f32 transformer (flash, fused LayerNorms) over the
+    Megatron shards, gathered, within 1e-4 of each leaf's scale of the
+    one-rank step from the same state on the same batch (the row-split
+    products add two f32 partial sums); B5 saw 2 of the 4 heads."""
+    import socket
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    from distributed_tensorflow_example_tpu_torch.config import Config
+    from distributed_tensorflow_example_tpu_torch.parallel import step
+    from distributed_tensorflow_example_tpu_torch.train import loop, optim
+    from distributed_tensorflow_example_tpu_torch.train.state import (
+        create_train_state)
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out = str(tmp_path / "tp.npz")
+    prog = f"TP_CFG = {TP_CFG!r}\n" + TP_RANK
+    procs = [subprocess.Popen([sys.executable, "-c", prog, str(r),
+                               str(port), out], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    cfg = Config(**TP_CFG, device="cuda")
+    spec = loop.make_spec(cfg)
+    opt = optim.make_optimizer(cfg)
+    state = create_train_state(spec, opt, seed=4, device=card)
+    g = torch.Generator(device=card).manual_seed(9)
+    x = torch.rand((4, cfg.input_size), generator=g, device=card)
+    y = torch.eye(10, device=card)[torch.arange(4, device=card) % 10]
+    new, cost, _acc = step.make_sync_step_body(cfg, spec, opt)(state, x, y)
+    with np.load(out) as z:
+        assert int(z["heads"]) == 2
+        assert abs(float(z["cost"]) - float(cost)) <= 1e-4 * abs(float(cost))
+        for k, v in new.params.items():
+            want = v.cpu().numpy()
+            scale = max(float(np.abs(want).max()), 1e-6)
+            assert np.abs(z[".params/" + k] - want).max() <= 1e-4 * scale, k
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [0, 1, 100, 4099, 55000, 65536])
 def test_permutation_on_card_matches_cpu(card, n):

@@ -148,9 +148,13 @@ def test_init_is_seeded_and_counts_params():
 
 
 def test_tensor_parallel_styles_are_refused():
+    """Tensor-parallel styles reduce over the model group of
+    ``parallel/mesh.build_mesh``: a JAX mesh axis name in its place is
+    refused (the styles themselves run; ``tests/test_torch_tensor_
+    parallel.py`` holds them against JAX)."""
     spec = tmlp.MLPSpec(input_size=4, hidden_sizes=(3,), num_classes=2)
     p = tmlp.init(spec, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="process group"):
         tmlp.apply(spec, p, torch.zeros(2, 4), styles=("col", "row"),
                    model_axis="model")
 

@@ -444,8 +444,15 @@ def test_data_parallel_layout_errors():
     assert str(e.value) == str(j.value) == "mesh 3x1 needs 3 devices, have 2"
     with pytest.raises(ValueError, match="must be -1 or the world size 4"):
         tmesh.build_mesh(2, world=4)
-    with pytest.raises(tconfig.Unported, match="ROADMAP"):
-        tmesh.build_mesh(-1, model_parallel=2, world=4)
+    mesh = tmesh.build_mesh(-1, model_parallel=2, world=4, rank=3)
+    assert (mesh.dp, mesh.mp, mesh.data_index, mesh.model_index) == (
+        2, 2, 1, 1)
+    with pytest.raises(ValueError) as e:
+        tmesh.build_mesh(-1, model_parallel=3, world=4)
+    with pytest.raises(ValueError) as j:
+        jmesh.build_mesh(-1, 3, devices=jax.devices()[:4])
+    assert str(e.value) == str(j.value) == (
+        "model_parallel=3 must divide device count 4")
     mesh = tmesh.build_mesh(-1, world=4, rank=1)
     assert tmesh.batch_layout(mesh, 40) == slice(10, 20)
     assert tmesh.layer_styles(tloop.make_spec(tconfig.Config(

@@ -474,7 +474,7 @@ def test_two_gloo_processes_equal_one(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--model_parallel=2"], ["--sites=2"],
+    ["--inner_steps=4"], ["--sites=2"],
     ["--model=transformer", "--expert_parallel=2"],
     ["--dataset=mnist", "--data_dir=/nonexistent-mnist-dir"]])
 def test_cli_refuses_what_is_not_ported(argv, capsys):

@@ -168,7 +168,8 @@ def test_num_params_and_flops_match_jax_at_transformer_wide_long():
 
 @pytest.mark.parametrize("argv", [
     ["--expert_parallel=2"], ["--virtual_stages=2"], ["--pp_schedule=1f1b"],
-    ["--sequence_parallel=2"], ["--model_parallel=2"],
+    ["--sequence_parallel=2"],
+    ["--model_parallel=2", "--pipeline_parallel=2"],
     ["--pipeline_parallel=2"], ["--sp_impl=ulysses"]])
 def test_cli_refuses_unported_transformer_flags(argv, capsys):
     """Each exits 2 with a message naming ROADMAP.md, before training."""
