@@ -169,6 +169,22 @@ and for the MLP trainer (``main.py`` -> ``train/loop.run``):
     B1 0 times in the TP MLP run and 13 in its one-rank host run, the
     captured MLP epoch refusing the gloo group; prints each run's step
     ms (host clock), peak memory and params held per rank;
+5f. multi-site local SGD at ``--sites 2`` on two gloo ranks on the one
+    card (rank r is site r; each a subprocess, ``chip_smoke.py
+    --site-phase ARGS RANK``): WIDE_TRAIN on the host path at
+    ``--inner_steps 4`` with the Nesterov outer step for 8 rounds, the
+    same under ``--outer_quant int8``, and ``transformer_wide_long``
+    cut to 2 blocks and batch 4 at ``--inner_steps 2`` (2 rounds); every
+    cost finite, both sites' params bitwise equal after every round,
+    the outer sync's payload the f32 pseudo-gradient of ``obs/flops``'
+    closed form, B1 launched in every rank of the MLP runs and B2-B7 in
+    every rank of the transformer's; then, on seeded batches at the same
+    MLP widths with SGD inner steps, ``--inner_steps 1`` with outer SGD
+    at lr 1 against the synchronous step at dp 2 and ``--inner_steps
+    4`` against ``--sync_period 4``, each within SITE_EQUIV_RTOL; prints
+    each run's round and outer-sync ms (host clock: gloo's staging, not
+    a deployment's), the bytes a round beside the closed forms, and the
+    peak memory;
 6. the reference command line on the card: ``main.py --pallas
    --training_epochs=1`` (784-100-10 sigmoid f32, batch 100, 550
    steps, the default fast path: B1's f32 launches counted through the
@@ -240,8 +256,9 @@ launches on its first main path, and under ``launches_by_path`` on
 every path that ran it: ``serve``, ``serve_int8``, ``serve_moe``,
 ``fleet``, ``replay``, the trainers', ``resilience``,
 ``resilience_resumed``, phase 5c's ``monitoring`` runs, phase 5d's
-``dp_*`` runs and phase 5e's ``tp_*`` runs, each rank's and the one-rank
-reference's) and the result JSON; the card's name and power limit
+``dp_*`` runs, phase 5e's ``tp_*`` runs, each rank's and the one-rank
+reference's, and phase 5f's ``site_*`` runs, each rank's) and the
+result JSON; the card's name and power limit
 come just before them.
 The script imports nothing of JAX; it needs one card and exits
 nonzero without one.
@@ -3469,14 +3486,16 @@ def _tp_run(cfg, what: str, device: str, echo: bool = True) -> dict:
         out = buf.getvalue()
     _sync(device)
     costs = [float(c) for c in re.findall(r"Cost: ([^,\s]+)", out)]
-    if len(costs) != res["steps"] + (1 if echo else 0) or not all(
+    # one print a step, a round under --sites (inner_steps steps)
+    prints = res["steps"] // cfg.inner_steps
+    if len(costs) != prints + (1 if echo else 0) or not all(
             math.isfinite(c) for c in costs):
         raise AssertionError(f"{what}: printed costs {costs}")
     return dict(
         counts=fused.launch_counts(),
         shapes={w.__name__: w.last_shape
                 for w in flash_attention.KERNEL_WRAPPERS},
-        costs=costs[:res["steps"]], steps=res["steps"],
+        costs=costs[:prints], steps=res["steps"],
         fast_loop=res["fast_loop"], devices=res["devices"],
         step_ms=[float(m) for m in re.findall(r"AvgTime: +(\d+\.\d+)ms",
                                               out)],
@@ -3724,6 +3743,333 @@ def phase_tp(card: str, device: str = "cuda", runs=None,
     shutil.rmtree(tmp, ignore_errors=True)
     log(f"[tp] phase 5e took {time.monotonic() - t0:.1f} s")
     return dict(runs=result, b5_rank_ms=b5_ms if device == "cuda" else None)
+
+
+# phase 5f: multi-site local SGD at --sites 2 on two gloo ranks on the
+# one card (rank r is site r at data parallelism 1; gloo stages the
+# CUDA tensors of the outer sync through host memory, so the round and
+# outer-sync times are gloo's staging, not a deployment's across sites).
+# WIDE_TRAIN on the host path at --inner_steps 4 with the Nesterov outer
+# step (8 rounds of one 8192 batch), then under --outer_quant int8;
+# transformer_wide_long cut as phase 5e cuts it, at batch 4 (a round
+# needs 2 rows a rank for its 2 inner steps): 2 rounds and a test set
+# of 2
+SITE_MLP = dict(WIDE_TRAIN, fast_loop=False, sites=2, inner_steps=4,
+                outer_optimizer="nesterov", outer_lr=0.7,
+                outer_momentum=0.9)
+SITE_TFM_CUTS = ["--num_blocks=2", "--batch_size=4",
+                 "--synthetic_train_size=8", "--synthetic_test_size=2",
+                 "--sites=2", "--inner_steps=2"]
+SITE_RUNS = {
+    "site_mlp": SITE_MLP,
+    "site_mlp_int8": dict(SITE_MLP, outer_quant="int8"),
+    "site_tfm": WIDE_LONG_FLAGS + SITE_TFM_CUTS,
+}
+SITES = 2
+# the equivalences at SGD inner steps (run (c)): every rank's products
+# are bitwise the same in both runs of a pair (B1 on the same params and
+# rows), so the params differ only by the rounding of the outer step p0
+# - 1 x mean(p0 - p) against the all-reduce's or the replicas' mean: a
+# few f32 ulps of the largest param.  The H1 pair is held after one
+# round: from the second on, those ulps reach B1's bf16 operands, and at
+# the wide MLP's N(0, 1) init (logits ~1e4, a one-hot softmax) a flipped
+# bf16 rounding moves a row's gradient by O(1) (phase 5e's note), 2.8e-3
+# of the largest param after three rounds on the card
+SITE_EQUIV_RTOL = 1e-6
+
+
+class _RoundWatch:
+    """Wraps ``local_sgd.build_local_sgd_step`` and ``_site_mean_tree``
+    while a phase 5f run trains: each round's host wall and its outer
+    sync's (synced before and after), the bytes of the leaves the round
+    hands the outer sync, its cost, and a digest of the params after it
+    (for the bitwise check across the ranks)."""
+
+    def __init__(self, device: str):
+        from distributed_tensorflow_example_tpu_torch.parallel import (
+            local_sgd)
+
+        self.lib, self.device = local_sgd, device
+        self.build, self.mean = (local_sgd.build_local_sgd_step,
+                                 local_sgd._site_mean_tree)
+        self.reset()
+        local_sgd.build_local_sgd_step = self._build
+        local_sgd._site_mean_tree = self._mean
+
+    def reset(self) -> None:
+        self.round_ms, self.sync_ms, self.bytes = [], [], []
+        self.costs, self.digests = [], []
+        self.in_round = False
+
+    def close(self) -> None:
+        self.lib.build_local_sgd_step = self.build
+        self.lib._site_mean_tree = self.mean
+
+    def _mean(self, tree, mesh):
+        if not self.in_round:
+            return self.mean(tree, mesh)
+        self.bytes.append(sum(v.numel() * v.element_size()
+                              for v in tree.values()))
+        _sync(self.device)
+        t0 = time.perf_counter()
+        out = self.mean(tree, mesh)
+        _sync(self.device)
+        self.sync_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def _build(self, *args, **kw):
+        body = self.build(*args, **kw)
+
+        def round_step(state, x, y):
+            _sync(self.device)
+            t0 = time.perf_counter()
+            self.in_round = True
+            try:
+                out = body(state, x, y)
+                _sync(self.device)
+            finally:
+                self.in_round = False
+            self.round_ms.append((time.perf_counter() - t0) * 1e3)
+            self.costs.append(float(out[1]))
+            self.digests.append(_digest(out[0].params))
+            return out
+
+        return round_step
+
+
+def _digest(params: dict) -> list:
+    """One int per leaf over the leaf's bits (each element's bit pattern
+    times a position weight, summed in int64 with wraparound): equal
+    digests on two ranks mean, with overwhelming odds, bitwise-equal
+    params; the params themselves never leave the card."""
+    out = []
+    for k in sorted(params):
+        v = params[k].detach().contiguous().reshape(-1)
+        bits = v.view({4: torch.int32, 2: torch.int16}[v.element_size()])
+        w = torch.arange(bits.numel(), device=bits.device,
+                         dtype=torch.int64) % 65521 + 1
+        out.append(int(torch.sum(bits.to(torch.int64) * w)))
+    return out
+
+
+def _site_run(cfg, what: str, device: str, watch: _RoundWatch,
+              echo: bool) -> dict:
+    """``_tp_run`` of a ``--sites`` config under the round watch (reset
+    just before): its counts, printed costs (one a round), peak memory,
+    and the rounds' walls, outer syncs, bytes, costs and digests."""
+    watch.reset()
+    out = _tp_run(cfg, what, device, echo)
+    rounds = len(watch.round_ms)
+    if out["steps"] != rounds * cfg.inner_steps or not all(
+            math.isfinite(c) for c in watch.costs):
+        raise AssertionError(f"{what}: {out['steps']} steps in {rounds} "
+                             f"rounds, round costs {watch.costs}")
+    out.update(costs=watch.costs, digests=watch.digests,
+               round_ms=watch.round_ms, sync_ms=watch.sync_ms,
+               bytes=watch.bytes, rounds=rounds)
+    return out
+
+
+def _site_equiv(base: dict, device: str, rank: int) -> dict:
+    """Run (c), on this rank's rows of four seeded batches: one round of
+    ``--inner_steps 1`` with outer SGD at lr 1 against one step of the
+    synchronous step at dp 2, and one round of ``--inner_steps 4``
+    against four ``--sync_period 4`` steps and the average; each pair's
+    final params as the largest difference over the largest param, and
+    the launch counts of all four."""
+    import dataclasses
+
+    from distributed_tensorflow_example_tpu_torch.data import mnist
+    from distributed_tensorflow_example_tpu_torch.ops import fused
+    from distributed_tensorflow_example_tpu_torch.parallel import (
+        mesh as mesh_lib, step)
+    from distributed_tensorflow_example_tpu_torch.train import loop, optim
+    from distributed_tensorflow_example_tpu_torch.train.state import (
+        create_train_state)
+
+    cfg = _tp_cfg(dict(base, optimizer="sgd", sites=1, inner_steps=1),
+                  device, 1, None)
+    spec = loop.make_spec(cfg)
+    b = cfg.batch_size
+    split = mnist.synthesize_split(4 * b, seed=cfg.seed + 7,
+                                   input_size=cfg.input_size)
+    rows = slice(rank * b // 2, (rank + 1) * b // 2)
+    batches = [(torch.from_numpy(split.images[i * b:(i + 1) * b][rows])
+                .to(device),
+                torch.from_numpy(split.labels[i * b:(i + 1) * b][rows])
+                .to(device)) for i in range(4)]
+    site, data = mesh_lib.build_site_mesh(SITES), mesh_lib.build_mesh(-1)
+
+    def strat(mesh, **flags):
+        c = dataclasses.replace(cfg, **flags)
+        opt = optim.make_optimizer(c)
+        return loop.setup_strategy(
+            c, spec, opt, create_train_state(spec, opt, seed=c.seed,
+                                             device=device), mesh,
+            fast=False)
+
+    def rel(a: dict, b_: dict) -> float:
+        return max(float((a[k].float() - b_[k].float()).abs().max())
+                   / max(float(b_[k].float().abs().max()), 1e-30)
+                   for k in b_)
+
+    sgd1 = dict(sites=SITES, outer_optimizer="sgd", outer_lr=1.0)
+    _sync(device)
+    fused.reset_launch_counts()
+    s1, sd = strat(site, inner_steps=1, **sgd1), strat(data)
+    x, y = batches[0]
+    h1 = rel(s1.body(s1.state, x, y)[0].params,
+             sd.body(sd.state, x, y)[0].params)
+    s4, sp = strat(site, inner_steps=4, **sgd1), strat(data, sync_period=4)
+    st4 = s4.body(s4.state, torch.cat([x for x, _ in batches]),
+                  torch.cat([y for _, y in batches]))[0]
+    stp = sp.state
+    for x, y in batches:
+        stp = sp.body(stp, x, y)[0]
+    stp = step.param_sync(stp)
+    h4 = rel(st4.params, stp.params)
+    _sync(device)
+    return dict(h1_vs_dp2=h1, h4_vs_sync_period4=h4,
+                counts=fused.launch_counts(), digests=_digest(st4.params))
+
+
+def site_child(args: dict, rank: int) -> dict:
+    """Phase 5f's rank ``rank`` (site ``rank``): a gloo group on the card
+    set up here, which ``loop.run`` finds up and leaves; each run of
+    ``args["runs"]`` under the round watch (rank 0 echoing its stdout),
+    then run (c)'s equivalences."""
+    import torch.distributed as dist
+
+    device = args["device"]
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{args['port']}",
+        world_size=SITES, rank=rank,
+        timeout=datetime.timedelta(seconds=120))
+    watch = _RoundWatch(device)
+    runs = {}
+    try:
+        for name, entry in args["runs"].items():
+            cfg = _tp_cfg(entry, device, 1,
+                          os.path.join(args["tmp"], name))
+            runs[name] = _site_run(cfg, f"sites {name} rank {rank}", device,
+                                   watch, echo=rank == 0)
+            log(f"[sites] rank {rank} {name}: {runs[name]['wall_s']:.1f} s")
+    finally:
+        watch.close()
+    runs["site_equiv"] = _site_equiv(args["equiv"], device, rank)
+    dist.barrier()
+    dist.destroy_process_group()
+    return runs
+
+
+def phase_sites(card: str, device: str = "cuda", runs=None,
+                equiv=None, timeout: float = 600) -> dict:
+    """Multi-site local SGD at --sites 2 on two gloo ranks (phase 5f),
+    each rank in its own process (``site_child``).  Every printed and
+    round cost finite, both ranks' params bitwise equal after every
+    round (their digests), the outer sync's payload the f32
+    pseudo-gradient (``obs/flops``' closed form over 2 sites), B1
+    launched in every rank of the MLP runs and the equivalences, B2-B7
+    in every rank of the transformer run, the equivalences within
+    SITE_EQUIV_RTOL.  Prints each run's round and outer-sync ms (host
+    clock, gloo's staging), bytes a round beside the closed forms, and
+    peak memory."""
+    from distributed_tensorflow_example_tpu_torch.obs import flops
+    from distributed_tensorflow_example_tpu_torch.train import loop
+
+    t0 = time.monotonic()
+    runs = runs or SITE_RUNS
+    equiv = equiv or WIDE_TRAIN
+    tmp = tempfile.mkdtemp(prefix="dtx-sites-")
+    out = os.path.join(tmp, "sites.json")
+    args = json.dumps(dict(device=device, runs=runs, equiv=equiv, tmp=tmp,
+                           out=out, port=_free_port()))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--site-phase", args,
+         str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env, cwd=os.path.dirname(os.path.abspath(__file__)))
+        for r in range(SITES)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        for line in text.splitlines():
+            log(f"  [sites {r}] {line}")
+        if p.returncode:
+            raise AssertionError(f"sites: rank {r} exited {p.returncode}")
+    ranks = []
+    for r in range(SITES):
+        with open(f"{out}.{r}") as f:
+            ranks.append(json.load(f))
+    faults = []
+    for name, entry in runs.items():
+        cfg = _tp_cfg(entry, device, 1, None)
+        spec = loop.make_spec(cfg)
+        mine = [rk[name] for rk in ranks]
+        f32_form = flops.local_sgd_comm_bytes_per_round(spec, SITES)
+        int8_form = flops.local_sgd_outer_quant_bytes_per_round(spec, SITES)
+        payload = 4 * flops.num_params(spec)
+        for r, m in enumerate(mine):
+            if m["devices"] != SITES or m["fast_loop"]:
+                faults.append(f"{name} rank {r}: {m['devices']} devices, "
+                              f"fast_loop {m['fast_loop']}")
+            if any(b != payload for b in m["bytes"]):
+                faults.append(f"{name} rank {r}: outer sync bytes "
+                              f"{sorted(set(m['bytes']))} != {payload}")
+            wrappers = (TFM_WRAPPERS if cfg.model == "transformer"
+                        else TRAIN_WRAPPERS)
+            for w in wrappers:
+                if device == "cuda" and m["counts"][w] <= 0:
+                    faults.append(f"{name} rank {r}: {w} never launched")
+        if mine[0]["digests"] != mine[1]["digests"]:
+            bad = [i for i, (a, b) in enumerate(zip(mine[0]["digests"],
+                                                    mine[1]["digests"]))
+                   if a != b]
+            faults.append(f"{name}: the sites' params differ after rounds "
+                          f"{bad}")
+        if mine[0]["costs"] != mine[1]["costs"]:
+            faults.append(f"{name}: the ranks' round costs differ")
+        for r, m in enumerate(mine):
+            m.update(payload=payload, f32_form=f32_form, int8_form=int8_form)
+            log(f"[sites] {name} rank {r} ({SITES} sites, gloo on one "
+                f"card): {m['rounds']} rounds of {cfg.inner_steps} inner "
+                f"steps, round ms median "
+                f"{statistics.median(m['round_ms']):.2f} of "
+                f"{[round(t, 2) for t in m['round_ms']]}, outer sync ms "
+                f"median {statistics.median(m['sync_ms']):.2f} (host clock, "
+                f"gloo's host staging), payload {payload} B a round (the "
+                f"f32 pseudo-gradient; ring all-reduce per site "
+                f"{f32_form:.0f} B, an int8 wire {int8_form:.0f} B), peak "
+                f"memory {m['peak_gib']} GiB, costs {m['costs']} on {card}")
+    eq = [rk["site_equiv"] for rk in ranks]
+    for r, e in enumerate(eq):
+        for k in ("h1_vs_dp2", "h4_vs_sync_period4"):
+            if not e[k] <= SITE_EQUIV_RTOL:
+                faults.append(f"site_equiv rank {r}: {k} {e[k]:.3g} > "
+                              f"{SITE_EQUIV_RTOL}")
+        if device == "cuda" and e["counts"]["mlp_forward"] <= 0:
+            faults.append(f"site_equiv rank {r}: B1 never launched")
+        log(f"[sites] equivalences rank {r}: H1 outer SGD(1) vs dp 2 "
+            f"{e['h1_vs_dp2']:.3g}, H4 vs --sync_period 4 "
+            f"{e['h4_vs_sync_period4']:.3g} of the largest param (bound "
+            f"{SITE_EQUIV_RTOL}) on {card}")
+    if eq[0]["digests"] != eq[1]["digests"]:
+        faults.append("site_equiv: the sites' params differ after the H4 "
+                      "round")
+    if faults:
+        raise AssertionError("sites: " + "; ".join(faults))
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[sites] phase 5f took {time.monotonic() - t0:.1f} s")
+    return dict(ranks=ranks)
 
 
 def phase_cli(card: str) -> dict:
@@ -4154,6 +4500,12 @@ def main() -> int:
         with open(f"{args['out']}.{rank}", "w") as f:
             json.dump(runs, f)
         return 0
+    if sys.argv[1:2] == ["--site-phase"]:   # a rank of phase 5f
+        args, rank = json.loads(sys.argv[2]), int(sys.argv[3])
+        runs = site_child(args, rank)
+        with open(f"{args['out']}.{rank}", "w") as f:
+            json.dump(runs, f)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this script runs on the card", file=sys.stderr)
@@ -4185,6 +4537,7 @@ def main() -> int:
     monitoring = phase_monitoring(card, train["counts"])
     dp = phase_dp(card)
     tp = phase_tp(card)
+    sites = phase_sites(card)
     cli = phase_cli(card)
     tfm_train = phase_transformer_train(card)
     phase_transformer_step(card)
@@ -4214,6 +4567,9 @@ def main() -> int:
                   for i, m in enumerate(r["ranks"])},
                **{f"{name}_one_rank": r["ref"]["counts"]
                   for name, r in tp["runs"].items()},
+               **{f"{name}_rank{i}": rk[name]["counts"]
+                  for i, rk in enumerate(sites["ranks"])
+                  for name in rk},
                "mlp_cli": cli["counts"],
                "transformer_train": tfm_train["counts"],
                "moe_train": moe_train[0]["counts"],
@@ -4301,6 +4657,17 @@ def main() -> int:
                 f"{statistics.median(r['ref']['warm_step_ms']):.2f} ms, "
                 f"{r['ref']['peak_gib']:.3f} GiB, "
                 f"{r['ref']['params_held']} params on {smi}")
+    for i, rk in enumerate(sites["ranks"]):
+        for name, m in rk.items():
+            if name == "site_equiv":
+                continue
+            log(f"[sites] {name} site {i} of {SITES} (gloo on one card): "
+                f"round {statistics.median(m['round_ms']):.2f} ms, outer "
+                f"sync {statistics.median(m['sync_ms']):.2f} ms (host "
+                f"clock, gloo's host staging), {m['payload']} B a round "
+                f"(closed forms: f32 {m['f32_form']:.0f}, int8 "
+                f"{m['int8_form']:.0f} B a site), peak memory "
+                f"{m['peak_gib']:.3f} GiB on {smi}")
     for name, r in train["runs"].items():
         log(f"[train] {name}: median step {r['step_ms_median']:.3f} ms, "
             f"peak memory {r['peak_gib']:.3f} GiB on {smi}")

@@ -14,16 +14,18 @@ and the resilience store's ``--ckpt_every``; the ``ckpt`` phase spans of
 ``--early_stop_patience`` and ``--debug_nans``; ``--profile_port`` is
 refused for good; the data-parallel strategies ``--data_parallel``,
 ``--microbatches``, ``--sync_period``, ``--zero_opt`` and ``--fsdp``,
-and tensor parallelism ``--model_parallel``, with JAX's refusals of
-their combinations, ``validate_strategy_config``;
-``--compilation_cache`` is accepted and explained away), and refuses
-every other flag of the JAX trainer (exit 2, naming ROADMAP.md) rather
-than ignore it: expert, sequence and pipeline parallelism and
-multi-site training (``--expert_parallel``, ``--sequence_parallel``,
+tensor parallelism ``--model_parallel``, with JAX's refusals of
+their combinations, ``validate_strategy_config``; multi-site local SGD
+``--sites``, ``--inner_steps``, ``--outer_optimizer``, ``--outer_lr``,
+``--outer_momentum`` and ``--outer_quant``, with JAX's
+``validate_local_sgd_config``; ``--compilation_cache`` is accepted and
+explained away), and refuses every other flag of the JAX trainer (exit
+2, naming ROADMAP.md) rather than ignore it: expert, sequence and
+pipeline parallelism (``--expert_parallel``, ``--sequence_parallel``,
 ``--sp_impl``, ``--pipeline_parallel``, ``--virtual_stages``,
-``--pp_schedule``, ``--sites``, ``--inner_steps``, ``--outer_*``) and
-``--mnist_mirrors``.  ``--device`` is the port's own:
-the card (``cuda``) unless ``cpu`` is asked for.
+``--pp_schedule``) and ``--mnist_mirrors``.  Both parsers take the
+multi-site family, as JAX's shared parser does.  ``--device`` is the
+port's own: the card (``cuda``) unless ``cpu`` is asked for.
 """
 
 from __future__ import annotations
@@ -93,8 +95,18 @@ class Config:
     status_cache_s: float = 15.0    # status server's response cache TTL
     replay: str = ""                # a workload file to replay
     replay_speed: float = 1.0       # --replay's time compression
-    # not ported yet: the serving CLI refuses it when set
-    outer_quant: str = ""           # multi-site outer sync compression
+    # ---- multi-site local SGD (parallel/local_sgd.py) ----
+    sites: int = 1                  # > 1: sites sync-DP groups over a
+                                    # ('site', 'data') layout, one outer
+                                    # pseudo-gradient mean a round
+    inner_steps: int = 1            # H: local steps a round; each round
+                                    # takes one --batch_size batch in H
+                                    # chunks
+    outer_optimizer: str = "nesterov"  # nesterov | sgd (momentum 0)
+    outer_lr: float = 0.7           # DiLoCo's recipe value
+    outer_momentum: float = 0.9
+    outer_quant: str = ""           # "" | int8: the outer sync compressed
+                                    # with per-site error feedback
     # ---- training (main.py -> train/loop.run) ----
     job_name: str = ""              # "", "ps" or "worker"; ps is absorbed
     task_index: int = 0             # the process rank
@@ -221,6 +233,42 @@ def _pages(s: str) -> int:
     return v
 
 
+def _add_site_flags(p: argparse.ArgumentParser, d: "Config") -> None:
+    """The multi-site flags with JAX's names, defaults and help (JAX's
+    one parser carries them for both front doors)."""
+    p.add_argument("--sites", type=int, default=d.sites,
+                   help="multi-site local SGD (DiLoCo-style): train "
+                        "N independent sync-DP sites over a "
+                        "('site','data') mesh, one outer "
+                        "pseudo-gradient psum crossing 'site' per "
+                        "--inner_steps local steps (model_parallel=1; "
+                        "host loop)")
+    p.add_argument("--inner_steps", type=int, default=d.inner_steps,
+                   help="H: local optimizer steps per outer sync "
+                        "under --sites > 1; one --batch_size batch "
+                        "per round, split into H chunks (comm bytes "
+                        "drop ~H-fold vs per-step sync DP)")
+    p.add_argument("--outer_optimizer", type=str,
+                   default=d.outer_optimizer,
+                   choices=["nesterov", "sgd"],
+                   help="multi-site outer update over pseudo-"
+                        "gradients (sgd = momentum 0; outer_lr=1 "
+                        "sgd = plain parameter averaging)")
+    p.add_argument("--outer_lr", type=float, default=d.outer_lr,
+                   help="outer learning rate for --sites > 1 "
+                        "(DiLoCo recipe default 0.7)")
+    p.add_argument("--outer_momentum", type=float,
+                   default=d.outer_momentum,
+                   help="outer Nesterov momentum for --sites > 1")
+    p.add_argument("--outer_quant", type=str, default=d.outer_quant,
+                   choices=["", "int8"],
+                   help="compress the multi-site outer pseudo-"
+                        "gradient sync to symmetric per-leaf int8 "
+                        "with per-site error feedback (~4x fewer "
+                        "bytes across 'site' per round; needs "
+                        "--sites > 1)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     """The serving CLI's flags, the JAX ``dtx-serve`` names and
     defaults.  ``--attention`` and ``--pallas`` only set the spec's
@@ -292,8 +340,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["", "int8"],
                    help="paged KV pools as int8 with a per-row, per-head "
                         "f32 scale plane (about half the bytes of bf16)")
-    p.add_argument("--outer_quant", type=str, default=d.outer_quant,
-                   choices=["", "int8"])
+    _add_site_flags(p, d)
     p.add_argument("--deadline_ms", type=float, default=d.deadline_ms)
     p.add_argument("--max_queue", type=int, default=d.max_queue)
     p.add_argument("--brownout", type=str, default=d.brownout)
@@ -353,11 +400,16 @@ def validate_quant_config(cfg: Config) -> None:
     ``kv_quant`` reshapes the paged serving cache, which decodes the lm
     transformer only; ``fp8_ffn`` rounds the transformer FFN's operands,
     and a dense-dispatch MoE never reaches the grouped expert kernel
-    the fp8 path rides.  (``--outer_quant`` is refused by the serving
-    CLI before this runs: the multi-site outer sync is not ported.)"""
+    the fp8 path rides, and tensor parallelism row-splits the
+    contraction its per-tensor scales cover; ``outer_quant`` compresses
+    the cross-site outer sync, which needs ``--sites`` > 1 (JAX's
+    ``validate_quant_config``, its checks in its order)."""
     if cfg.kv_quant not in ("", "int8"):
         raise ValueError(f"kv_quant={cfg.kv_quant!r}: expected '' or "
                          f"'int8'")
+    if cfg.outer_quant not in ("", "int8"):
+        raise ValueError(f"outer_quant={cfg.outer_quant!r}: expected "
+                         f"'' or 'int8'")
     if cfg.kv_quant:
         if cfg.model != "transformer" or cfg.objective != "lm":
             raise ValueError(
@@ -370,12 +422,21 @@ def validate_quant_config(cfg: Config) -> None:
                 "--fp8_ffn rounds the transformer FFN matmul "
                 "operands; the MLP family has no FFN blocks "
                 "(--model=transformer)")
+        if cfg.model_parallel > 1:
+            raise ValueError(
+                "--fp8_ffn does not compose with --model_parallel: "
+                "tensor parallelism row-splits the FFN contraction "
+                "the per-tensor fp8 scales cover")
         if cfg.num_experts and cfg.moe_dispatch != "alltoall":
             raise ValueError(
                 "--fp8_ffn quantizes the MoE expert FFN through the "
                 "sparse grouped kernel; use --moe_dispatch=alltoall "
                 "(dense dispatch computes every expert on every "
                 "token and never reaches it)")
+    if cfg.outer_quant and cfg.sites <= 1:
+        raise ValueError(
+            "--outer_quant compresses the cross-site outer "
+            "pseudo-gradient sync; it needs --sites > 1")
 
 
 def validate_span_config(cfg: Config) -> None:
@@ -594,6 +655,7 @@ def build_train_parser() -> argparse.ArgumentParser:
                         "batch_size/dp; the reference gave each async "
                         "worker a FULL batch per update — use "
                         "batch_size = dp*100 to match)")
+    _add_site_flags(p, d)
     p.add_argument("--fsdp", action="store_true",
                    help="ZeRO-3: shard params+optimizer state 1/dp per "
                         "device")
@@ -869,6 +931,60 @@ def validate_strategy_config(cfg: Config) -> None:
                        "non-finite flag (see ROADMAP.md)")
 
 
+def validate_local_sgd_config(cfg: Config) -> None:
+    """The multi-site (``--sites``) matrix, JAX's checks and messages:
+    ``sites`` > 1 selects the ('site', 'data') layout of independent
+    sync-DP groups, H = ``inner_steps`` local steps a round
+    (``parallel/local_sgd.py``).  It composes with data parallelism
+    inside each site only (no TP, FSDP, ZeRO-1 or ``--sync_period``),
+    runs on the host path, and refuses what rides the synchronous
+    step's extra outputs (``--histograms``, ``--on_anomaly=skip``) and
+    dropout."""
+    if cfg.sites < 1:
+        raise ValueError(f"sites={cfg.sites} must be >= 1")
+    if cfg.inner_steps < 1:
+        raise ValueError(f"inner_steps={cfg.inner_steps} must be >= 1")
+    if cfg.outer_optimizer not in ("nesterov", "sgd"):
+        raise ValueError(
+            f"outer_optimizer={cfg.outer_optimizer!r}: expected "
+            f"'nesterov' or 'sgd'")
+    if cfg.sites == 1:
+        if cfg.inner_steps > 1:
+            raise ValueError("--inner_steps > 1 needs --sites > 1 "
+                             "(no outer sync to amortize on one site)")
+        return
+    if cfg.model != "mlp" and cfg.model != "transformer":
+        raise ValueError(f"unknown model {cfg.model!r}")
+    if cfg.model_parallel > 1:
+        raise ValueError("--sites composes with data parallelism "
+                         "inside each site only (model_parallel=1)")
+    if cfg.sync_period > 1:
+        raise ValueError("--sites supersedes the legacy --sync_period "
+                         "local-SGD analog; use one of the two "
+                         "(--sites N --inner_steps K --outer_optimizer "
+                         "sgd --outer_lr 1 reproduces --sync_period K)")
+    if cfg.fsdp or cfg.zero_opt:
+        raise ValueError("--sites composes with within-site data "
+                         "parallelism only (no fsdp/zero_opt/"
+                         "pipeline/sequence/expert parallelism)")
+    if cfg.outer_lr <= 0:
+        raise ValueError(f"outer_lr={cfg.outer_lr} must be > 0")
+    if not 0.0 <= cfg.outer_momentum < 1.0:
+        raise ValueError(
+            f"outer_momentum={cfg.outer_momentum} must be in [0, 1)")
+    if cfg.dropout_rate:
+        raise ValueError("--dropout_rate runs on the synchronous step "
+                         "(sites=1); the multi-site round keeps its "
+                         "own per-site objectives")
+    if cfg.histograms:
+        raise ValueError("--histograms rides the synchronous step's "
+                         "norm outputs (sites=1)")
+    if cfg.on_anomaly == "skip":
+        raise ValueError("--on_anomaly=skip rides the synchronous "
+                         "step's compiled update mask (sites=1); "
+                         "halt/dump work on the multi-site path")
+
+
 def validate_resilience_config(cfg: Config) -> None:
     """The resilience flags' checks (the JAX ``validate_resilience_config``).
 
@@ -971,20 +1087,7 @@ def validate_train_config(cfg: Config) -> None:
     if cfg.moe_aux_weight < 0:
         raise ValueError(
             f"moe_aux_weight={cfg.moe_aux_weight} must be >= 0")
-    if cfg.fp8_ffn:
-        if cfg.model != "transformer":
-            raise ValueError(
-                "--fp8_ffn rounds the transformer FFN matmul "
-                "operands; the MLP family has no FFN blocks "
-                "(--model=transformer)")
-        if cfg.model_parallel > 1:
-            raise ValueError(
-                "--fp8_ffn does not compose with --model_parallel: "
-                "tensor parallelism row-splits the FFN contraction "
-                "the per-tensor fp8 scales cover")
-        if cfg.num_experts and cfg.moe_dispatch != "alltoall":
-            raise ValueError(
-                "--fp8_ffn quantizes the MoE expert FFN through the "
-                "sparse grouped kernel; use --moe_dispatch=alltoall "
-                "(dense dispatch computes every expert on every "
-                "token and never reaches it)")
+    # the multi-site matrix, then the quantization one (--fp8_ffn,
+    # --outer_quant), as the JAX trainer orders them
+    validate_local_sgd_config(cfg)
+    validate_quant_config(cfg)

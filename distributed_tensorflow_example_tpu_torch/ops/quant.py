@@ -1,11 +1,15 @@
 """Symmetric int8 quantization and fp8 (e4m3) rounding with power-of-two
-scales — the parts of the JAX package's ``ops/quant.py`` that the int8
-paged KV pools and the fp8 FFN use.
+scales (the JAX package's ``ops/quant.py``): the int8 paged KV pools, the
+fp8 FFN and the multi-site outer sync's int8 error-feedback compression
+use them.
 
 int8 is symmetric per axis: ``q = clip(round(x / s), -127, 127)`` with
 ``s = amax / 127`` (1.0 for an all-zero tile), rounding half to even,
 and ``dequantize`` is one multiply, bit for bit as the JAX package
-computes them on the CPU.
+computes them on the CPU.  Error feedback (``ef_compress_int8``) adds the
+carried residual before quantizing and returns the new residual, so the
+compressed outer sync of ``parallel/local_sgd.py`` stays unbiased over
+rounds.
 
 A pow2 scale only shifts the exponent, so ``x / s`` and ``q * s`` are
 exact in any binary float format: the rounded values sit exactly on a
@@ -74,6 +78,17 @@ def int8_roundtrip(x: torch.Tensor, axis=None) -> torch.Tensor:
     return dequantize_int8(q, scale)
 
 
+def ef_compress_int8(x: torch.Tensor, ef: torch.Tensor, axis=None):
+    """One error-feedback compression step: ``c = x + ef`` in f32, then
+    ``(int8_roundtrip(c), c - int8_roundtrip(c))``: the values the wire
+    carries and the residual the next round adds back.  The sum of the
+    carried values tracks the sum of the inputs to within one
+    quantization step, however many rounds run."""
+    c = x.to(torch.float32) + ef.to(torch.float32)
+    dq = int8_roundtrip(c, axis)
+    return dq, c - dq
+
+
 def pow2_scale(amax: torch.Tensor, fmt_max: float = FP8_E4M3_MAX):
     """The smallest power of two ``s`` with ``amax / s <= fmt_max``
     (1.0 for an all-zero tile).  The exponent is
@@ -130,5 +145,31 @@ def fp8_round(x: torch.Tensor, axis=None, scale=None) -> torch.Tensor:
     return (q * scale).to(x.dtype)
 
 
+def amax_history_init(length: int) -> torch.Tensor:
+    """A fresh rolling amax history (all zero; the first update fills
+    slot 0)."""
+    if length < 1:
+        raise ValueError(f"amax history length {length} must be >= 1")
+    return torch.zeros((int(length),), dtype=torch.float32)
+
+
+def amax_history_update(hist: torch.Tensor, x: torch.Tensor
+                        ) -> torch.Tensor:
+    """``max |x|`` written into the history's newest slot (0), the
+    oldest evicted: a roll by one, then the write."""
+    out = torch.roll(hist, 1)
+    out[0] = torch.amax(x.to(torch.float32).abs())
+    return out
+
+
+def scale_from_history(hist: torch.Tensor,
+                       fmt_max: float = FP8_E4M3_MAX) -> torch.Tensor:
+    """The delayed-scaling scale: ``pow2_scale`` of the history's max
+    (a length-1 history is just-in-time scaling)."""
+    return pow2_scale(torch.amax(hist), fmt_max)
+
+
 __all__ = ["INT8_MAX", "FP8_E4M3_MAX", "int8_scale", "quantize_int8",
-           "dequantize_int8", "int8_roundtrip", "pow2_scale", "fp8_round"]
+           "dequantize_int8", "int8_roundtrip", "ef_compress_int8",
+           "pow2_scale", "fp8_round", "amax_history_init",
+           "amax_history_update", "scale_from_history"]

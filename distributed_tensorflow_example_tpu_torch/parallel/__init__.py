@@ -1,5 +1,6 @@
 """The port's parallel strategies over the ``('data', 'model')`` mesh
 (``mesh``: rank r plays device r of JAX's one-process mesh; the data and
 model groups; the Megatron operators): the synchronous step and the eval
-(``step``), ZeRO-1 (``zero``), FSDP (``fsdp``), and the device-resident
+(``step``), ZeRO-1 (``zero``), FSDP (``fsdp``), multi-site local SGD over
+the ``('site', 'data')`` layout (``local_sgd``), and the device-resident
 epoch (``epoch``), the trainer's default fast path."""

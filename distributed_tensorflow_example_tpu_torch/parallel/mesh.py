@@ -28,10 +28,18 @@ needs), ``shard_leaf``/``gather_leaf``, and the two Megatron operators:
 the transpose of JAX's ``psum``, after each row-split product) and
 ``model_copy`` (identity in the forward, all-reduce in the backward:
 the transpose of the implicit ``pvary``, on the replicated input of
-each column-split product).  The multi-axis builders
+each column-split product).
+
+Multi-site training (``build_site_mesh``, JAX's ``('site', 'data')``
+mesh with 'site' outermost): rank r sits at site ``r // dp`` and data
+index ``r % dp``.  Its **data group** is its site's ``dp`` consecutive
+ranks (the per-step gradient all-reduce), its **site group** the ranks
+of its data index across the sites (stride ``dp``; the outer
+pseudo-gradient mean), and the batch splits over ``sites x dp`` shards,
+rank r taking shard r.  The other multi-axis builders
 (``build_seq_mesh``, ``build_expert_mesh``, ``build_stage_mesh``,
-``build_site_mesh``, ``build_nd_mesh``) wait for sequence, expert and
-pipeline parallelism (ROADMAP.md Queue A).
+``build_nd_mesh``) wait for sequence, expert and pipeline parallelism
+(ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -54,10 +62,13 @@ SITE_AXIS = "site"
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """``dp x mp`` ranks, this process at ``rank``; its groups (None
-    without a process group): ``data_group`` the ranks of its model
-    index (the world at ``mp`` 1), ``model_group`` those of its data
-    index (None at ``mp`` 1: no model axis to reduce over)."""
+    """``(sites x) dp x mp`` ranks, this process at ``rank``; its groups
+    (None without a process group): ``data_group`` the ranks of its
+    model index (within its site under ``sites`` > 1; the world at
+    ``mp`` 1 and one site, None when ``dp`` is 1 under sites),
+    ``model_group`` those of its data index (None at ``mp`` 1: no model
+    axis to reduce over), ``site_group`` those of its data index across
+    the sites (None at one site)."""
     dp: int
     rank: int
     mp: int = 1
@@ -65,18 +76,25 @@ class Mesh:
                                            repr=False)
     model_group: object = dataclasses.field(default=None, compare=False,
                                             repr=False)
+    sites: int = 1
+    site_group: object = dataclasses.field(default=None, compare=False,
+                                           repr=False)
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.mp
+        return (self.rank % (self.dp * self.mp)) // self.mp
 
     @property
     def model_index(self) -> int:
         return self.rank % self.mp
 
     @property
+    def site_index(self) -> int:
+        return self.rank // (self.dp * self.mp)
+
+    @property
     def devices(self) -> int:
-        return self.dp * self.mp
+        return self.sites * self.dp * self.mp
 
 
 # the sub-groups of each (world group, dp, mp), beside the world group
@@ -137,6 +155,60 @@ def build_mesh(data_parallel: int = -1, model_parallel: int = 1,
                 model_group=groups[1])
 
 
+def _site_groups(sites: int, dp: int, rank: int):
+    """``(data_group, site_group)`` of ``rank`` on the ('site', 'data')
+    layout: every site's data group (consecutive ranks) and then every
+    data index's site group (stride ``dp``), created in the same order
+    on every rank.  A one-rank data group is None (its all-reduce is the
+    identity), and at ``dp`` 1 the site group is the world."""
+    if dp == 1:
+        return None, dist.group.WORLD
+    world = dist.group.WORLD
+    key = ("site", id(world), sites, dp)
+    if key not in _GROUPS:
+        data = [dist.new_group(list(range(s * dp, (s + 1) * dp)))
+                for s in range(sites)]
+        site = [dist.new_group(list(range(d, sites * dp, dp)))
+                for d in range(dp)]
+        _GROUPS[key] = (world, data, site)
+    _world, data, site = _GROUPS[key]
+    return data[rank // dp], site[rank % dp]
+
+
+def build_site_mesh(sites: int, data_parallel: int = -1,
+                    world: int | None = None,
+                    rank: int | None = None) -> Mesh:
+    """The ('site', 'data') layout over ``world`` ranks (default: the
+    process group's) for multi-site local SGD (``parallel/local_sgd``):
+    ``sites`` sync-DP groups of ``data_parallel`` ranks each (-1: world
+    / sites), rank r at site ``r // dp`` and data index ``r % dp``, as
+    JAX's ``build_nd_mesh({'site': sites, 'data': dp})`` places device
+    r.  JAX's messages for a bad degree; a layout that leaves ranks
+    off raises the port's own, as ``build_mesh`` does."""
+    if sites < 1:
+        raise ValueError(f"sites={sites} must be >= 1")
+    n = cluster.process_count() if world is None else world
+    r = cluster.process_index() if rank is None else rank
+    dp = max(n // sites, 1) if data_parallel == -1 else data_parallel
+    if dp < 1:
+        raise ValueError(f"mesh axes must be >= 1, got "
+                         f"{{'site': {sites}, 'data': {dp}}}")
+    if sites * dp > n:
+        raise ValueError(f"mesh {sites}x{dp} over ('site', 'data') needs "
+                         f"{sites * dp} devices, have {n}")
+    if sites * dp < n:
+        raise ValueError(
+            f"sites={sites} x data_parallel={dp} leaves "
+            f"{n - sites * dp} of {n} ranks off the mesh: in the PyTorch "
+            f"port every rank plays one device of the mesh, so --sites x "
+            f"--data_parallel must be the world size {n}")
+    groups = (None, None)
+    if world is None and cluster.collectives():
+        groups = _site_groups(sites, dp, r)
+    return Mesh(dp=dp, rank=r, mp=1, data_group=groups[0], sites=sites,
+                site_group=groups[1])
+
+
 def model_axis(mesh: Mesh):
     """The model group the Megatron operators reduce over (None without
     tensor parallelism)."""
@@ -155,6 +227,15 @@ def model_all_reduce(t: torch.Tensor, mesh: Mesh) -> None:
         dist.all_reduce(t, group=mesh.model_group)
 
 
+def site_mean(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``t`` averaged over the site axis (JAX's ``pmean`` over 'site':
+    the sum over the site group, then / sites), a new tensor."""
+    out = t.clone()
+    if mesh.site_group is not None:
+        dist.all_reduce(out, group=mesh.site_group)
+    return out / mesh.sites
+
+
 def world_all_reduce(t: torch.Tensor) -> None:
     """Sum ``t`` in place over every rank (JAX's psum over all axes)."""
     if cluster.collectives():
@@ -163,7 +244,8 @@ def world_all_reduce(t: torch.Tensor) -> None:
 
 def groups(mesh: Mesh) -> list:
     """The distinct groups the mesh's collectives run over."""
-    return [g for g in (mesh.data_group, mesh.model_group) if g is not None]
+    return [g for g in (mesh.data_group, mesh.model_group, mesh.site_group)
+            if g is not None]
 
 
 def uses_gloo(mesh: Mesh) -> bool:
@@ -324,17 +406,23 @@ def batch_layout(mesh: Mesh, global_batch: int) -> slice:
     """The rows of a global batch this rank takes: the batch splits over
     the data axis into dp equal blocks, and the rank at data index d
     takes block d (the model ranks of one data index share it), as
-    JAX's ``P('data')`` gives device r its block."""
-    if global_batch % mesh.dp:
+    JAX's ``P('data')`` gives device r its block; under ``sites`` it
+    splits over ``sites x dp`` shards (``P(('site', 'data'))``), the
+    rank at site s and data index d taking shard ``s * dp + d``."""
+    shards = mesh.sites * mesh.dp
+    if global_batch % shards:
+        over = (f"sites={mesh.sites} x " if mesh.sites > 1 else "")
         raise ValueError(f"global batch {global_batch} does not split over "
-                         f"data_parallel={mesh.dp}")
-    b = global_batch // mesh.dp
-    return slice(mesh.data_index * b, (mesh.data_index + 1) * b)
+                         f"{over}data_parallel={mesh.dp}")
+    b = global_batch // shards
+    i = mesh.site_index * mesh.dp + mesh.data_index
+    return slice(i * b, (i + 1) * b)
 
 
 __all__ = ["DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS", "EXPERT_AXIS",
-           "STAGE_AXIS", "SITE_AXIS", "Mesh", "build_mesh", "model_axis",
-           "data_all_reduce", "model_all_reduce", "world_all_reduce",
+           "STAGE_AXIS", "SITE_AXIS", "Mesh", "build_mesh", "build_site_mesh",
+           "model_axis", "data_all_reduce", "model_all_reduce",
+           "site_mean", "world_all_reduce",
            "groups", "uses_gloo", "model_psum", "model_copy", "tp_axis",
            "layer_styles", "param_pspecs", "state_pspecs", "shard_leaf",
            "gather_leaf", "batch_layout"]

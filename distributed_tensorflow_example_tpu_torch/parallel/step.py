@@ -45,7 +45,11 @@ analog, local SGD (``--sync_period K``), is ``make_local_step_body``,
 ``param_sync`` and ``consensus_params``: each rank keeps its own replica
 and applies its own gradients, and every K steps the replicas' float
 leaves are averaged (at ``model_parallel`` 1 only, as in JAX).  FSDP's
-step is ``parallel/fsdp.py``'s.  Sequence, expert and pipeline
+step is ``parallel/fsdp.py``'s; a multi-site round
+(``parallel/local_sgd.py``) runs ``make_sync_step_body`` as its inner
+step over its site's data group.  Under ``--grad_accum`` each
+microbatch draws its own dropout masks (``microbatch_rng``, JAX's
+``fold_in`` of the microbatch index).  Sequence, expert and pipeline
 parallelism are not ported (ROADMAP.md Queue A).
 """
 
@@ -167,6 +171,17 @@ def make_step_rng(cfg, spec, data_index: Optional[int] = None) -> Callable:
         return (((cfg.seed ^ 0xD0C0) << 40) + (step << 8) + index)
 
     return step_rng
+
+
+def microbatch_rng(rng: Optional[int], i: int) -> Optional[int]:
+    """Microbatch ``i``'s dropout seed under ``--grad_accum`` > 1 (the
+    JAX ``fold_in(rng0, i)``; other bits): ``rng`` mixed with ``i``,
+    so each microbatch draws its own masks and a step's microbatch
+    seeds do not collide with another step's.  None stays None."""
+    if rng is None:
+        return None
+    return (int(rng) * 0xBF58476D1CE4E5B9 + 0x94D049BB133111EB * (i + 1)
+            ) % (1 << 63)
 
 
 def leaf_names(spec) -> list:
@@ -334,9 +349,11 @@ def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
                     f"per-process batch {x.shape[0]} must divide into "
                     f"grad_accum={n} microbatches")
             xs, ys = x.chunk(n), y.chunk(n)
-            cost, acc, grads = grad_of(state.params, xs[0], ys[0], rng)
-            for xc, yc in zip(xs[1:], ys[1:]):
-                c, a, g = grad_of(state.params, xc, yc, rng)
+            cost, acc, grads = grad_of(state.params, xs[0], ys[0],
+                                       microbatch_rng(rng, 0))
+            for i, (xc, yc) in enumerate(zip(xs[1:], ys[1:]), start=1):
+                c, a, g = grad_of(state.params, xc, yc,
+                                  microbatch_rng(rng, i))
                 grads = {k: grads[k] + g[k] for k in names}
                 cost, acc = cost + c, acc + a
             grads = {k: g / n for k, g in grads.items()}

@@ -43,8 +43,10 @@ unreadable workload).  Under ``--trace_spans`` every span row carries
 replay's clock starts: the kernel library's build and the first call at
 each shape are not part of the replayed schedule.
 
-``--outer_quant`` is not ported yet: set, the CLI exits 2 with a message
-naming ROADMAP.md.
+The CLI parses the trainer's multi-site flags too (``--sites``,
+``--inner_steps``, ``--outer_*``), as JAX's shared parser does: they
+change nothing it serves, and ``--outer_quant`` without ``--sites`` > 1
+exits 2 with JAX's message.
 """
 
 from __future__ import annotations
@@ -85,11 +87,6 @@ def spec_from_cfg(cfg):
         param_dtype=dtype_from_name(cfg.param_dtype),
         compute_dtype=dtype_from_name(cfg.compute_dtype),
     )
-
-
-def unported_flags(cfg) -> list:
-    """The set flags of features the port does not have yet."""
-    return ["--outer_quant"] if cfg.outer_quant else []
 
 
 def load_params(cfg, spec) -> dict:
@@ -367,12 +364,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if cfg.model != "transformer" or cfg.objective != "lm":
         print("dtx-serve (torch): decoding needs --model=transformer "
               "--objective=lm", file=sys.stderr)
-        return 2
-    missing = unported_flags(cfg)
-    if missing:
-        print(f"dtx-serve (torch): {', '.join(missing)} not ported to "
-              f"the PyTorch package yet (see ROADMAP.md Queue A)",
-              file=sys.stderr)
         return 2
     from ..obs import slo as slo_lib
 

@@ -58,7 +58,16 @@ TP under both) or local SGD (``--sync_period K``, the async analog, at
 (``utils/checkpoint.Layout``: the TP leaves and FSDP unsharded in one
 file, the replicas stacked ``[dp, ...]``, ZeRO-1's slots ``[dp, chunk]``
 or ``[mp, dp, chunk]``; under ``--sharded_checkpoints`` one rank a
-distinct block writes it).
+distinct block writes it).  Multi-site local SGD (``--sites S
+--inner_steps H``, ``parallel/local_sgd.py``) lays the ranks out as JAX's
+``('site', 'data')`` mesh (site ``r // dp``, data index ``r % dp``) and
+runs on the host path, one round a step: H inner steps of the
+synchronous body over the site's data group, then the outer sync
+across the sites (a ``round`` phase span a dispatch under
+``--trace_spans``); the printed steps are rounds, and the checkpoints
+stack the site copies ``[sites, ...]`` beside the outer state, with the
+``sites``, ``outer_has_momentum`` and ``outer_quant_int8`` extras
+resume checks, as JAX's do.
 
 Resilience (``resilience/``): ``--ckpt_every N`` hands the state to the
 write-behind ``CheckpointWriter`` every N steps on the host path (on
@@ -123,6 +132,7 @@ from ..models import transformer as tfm
 from ..models.mlp import MLPSpec
 from ..parallel import epoch as epoch_lib
 from ..parallel import fsdp as fsdp_lib
+from ..parallel import local_sgd as local_sgd_lib
 from ..parallel import mesh as mesh_lib
 from ..parallel import step as step_lib
 from ..parallel import zero as zero_lib
@@ -319,7 +329,7 @@ def _host_lr(cfg: Config, total_steps: int):
 
 # the JAX trainer's checkpoint extras of layouts the port does not have:
 # their states would not restore into the port's template
-_FOREIGN_LAYOUTS = ("sites", "pp_stages", "pp_virtual")
+_FOREIGN_LAYOUTS = ("pp_stages", "pp_virtual")
 
 
 def _unshard_flat(data: dict, full_template, mp: int = 1,
@@ -369,11 +379,20 @@ def setup_strategy(cfg: Config, spec, optimizer, state, mesh: mesh_lib.Mesh,
                    fast: bool, with_anomaly: bool = False) -> Strategy:
     """The strategy the flags name, from the full seeded ``state`` (the
     same on every rank): FSDP keeps this rank's ``[chunk]`` rows (of its
-    model shard under TP), local SGD the rank's own replica, ZeRO-1 its
-    ``[chunk]`` rows of the optimizer slots, the synchronous step the
-    replicated state; under ``--model_parallel`` every layout starts
-    from this rank's Megatron shards."""
+    model shard under TP), local SGD the rank's own replica, multi-site
+    training its site's copy with the outer state beside it (one round
+    a step), ZeRO-1 its ``[chunk]`` rows of the optimizer slots, the
+    synchronous step the replicated state; under ``--model_parallel``
+    every layout starts from this rank's Megatron shards."""
     dp, mp = mesh.dp, mesh.mp
+    if mesh.sites > 1:
+        outer = local_sgd_lib.outer_optimizer_from_config(cfg)
+        return Strategy(
+            state=local_sgd_lib.site_state(state, outer, cfg.outer_quant),
+            body=local_sgd_lib.build_local_sgd_step(cfg, mesh, spec,
+                                                    optimizer, outer),
+            get_params=local_sgd_lib.build_site_unstack_params(mesh),
+            layout=ckpt_lib.Layout(mesh, local_sgd_lib.site_block))
     d_idx, m_idx = mesh.data_index, mesh.model_index
     dims = mesh_lib.state_pspecs(mesh_lib.param_pspecs(spec, mp))
     tp_dims = dims if mp > 1 else None
@@ -450,10 +469,21 @@ def run(cfg: Config) -> Dict[str, Any]:
         proc_cnt = cluster.process_count()
         chief = proc_idx == 0
         # rank r plays device r of JAX's one-process ('data', 'model')
-        # mesh; the MLP's layer styles are checked against its widths
-        mesh = mesh_lib.build_mesh(cfg.data_parallel, cfg.model_parallel)
+        # mesh, or under --sites of its ('site', 'data') mesh; the MLP's
+        # layer styles are checked against its widths
+        site_mode = cfg.sites > 1
+        if site_mode:
+            mesh = mesh_lib.build_site_mesh(cfg.sites, cfg.data_parallel)
+        else:
+            mesh = mesh_lib.build_mesh(cfg.data_parallel,
+                                       cfg.model_parallel)
         mesh_lib.layer_styles(spec, mesh.mp)
         dp = mesh.dp
+        # the shards the global batch splits over: site x data
+        batch_shards = mesh.sites * dp
+        # eval reads the consensus params and splits its chunks over
+        # every rank: under --sites a data axis over the world
+        eval_mesh = mesh_lib.build_mesh(-1) if site_mode else mesh
 
         # run-start hygiene: a reused logs_path must not leak an older
         # run's heartbeats and flight dumps into this run's straggler
@@ -509,7 +539,7 @@ def run(cfg: Config) -> Dict[str, Any]:
             synthetic_train_size=cfg.synthetic_train_size,
             synthetic_test_size=cfg.synthetic_test_size,
             input_size=cfg.input_size)
-        global_batch = _global_batch(cfg, dp)
+        global_batch = _global_batch(cfg, batch_shards)
         total_steps = cfg.training_epochs * max(
             1, dataset.train.images.shape[0] // global_batch)
         optimizer = make_optimizer(cfg, total_steps)
@@ -605,11 +635,26 @@ def run(cfg: Config) -> Dict[str, Any]:
                 watchdog=anomaly_lib.LossWatchdog(
                     factor=cfg.anomaly_factor))
 
+        if site_mode:
+            # one step = one round: the rank's rows split into H
+            # inner-step chunks (grad_accum splits each chunk further)
+            per_shard = global_batch // batch_shards
+            if per_shard % cfg.inner_steps:
+                raise ValueError(
+                    f"per-shard batch {per_shard} must divide into "
+                    f"inner_steps={cfg.inner_steps} chunks (global "
+                    f"batch {global_batch} over {batch_shards} "
+                    f"site x data shards)")
+            if (per_shard // cfg.inner_steps) % cfg.grad_accum:
+                raise ValueError(
+                    f"per-shard inner-step batch "
+                    f"{per_shard // cfg.inner_steps} must divide into "
+                    f"grad_accum={cfg.grad_accum} microbatches")
         async_mode = cfg.sync_period > 1
         fsdp_mode = cfg.fsdp
         # the modes whose state needs get_params() before eval and
-        # sampling (replicas or shards)
-        unstack_mode = async_mode or fsdp_mode
+        # sampling (replicas, shards or site copies)
+        unstack_mode = async_mode or fsdp_mode or site_mode
         # the JAX gate, each rank playing one device of the mesh: every
         # rank needs its own shard of the split (shard_data or dp == 1);
         # the resilience snapshots ride the host path's per-step safe
@@ -618,11 +663,13 @@ def run(cfg: Config) -> Dict[str, Any]:
         # inside the epoch, and --debug_nans at the step; ZeRO-1's flat
         # slots are a host-path feature; the async run is one device
         # program, with no host control for periodic checkpoints or
-        # early stopping (dump and skip compose with the fast path)
+        # early stopping (dump and skip compose with the fast path); a
+        # multi-site round is one host-path step, as in JAX
         fast = (cfg.fast_loop and (cfg.shard_data or dp == 1)
                 and not cfg.ckpt_every and cfg.resume != "auto"
                 and not cfg.histograms and cfg.on_anomaly != "halt"
                 and not cfg.debug_nans and not cfg.zero_opt
+                and not site_mode
                 and not (async_mode and (cfg.checkpoint_every
                                          or cfg.model_parallel > 1
                                          or cfg.early_stop_patience)))
@@ -676,9 +723,40 @@ def run(cfg: Config) -> Dict[str, Any]:
                 if foreign:
                     raise Unported(
                         f"checkpoint {path} was written with {foreign}: "
-                        f"multi-site and pipeline layouts are not ported "
-                        f"to the PyTorch trainer yet (see ROADMAP.md "
-                        f"Queue A)")
+                        f"pipeline layouts are not ported to the "
+                        f"PyTorch trainer yet (see ROADMAP.md Queue A)")
+                if site_mode or "sites" in resumed_extras:
+                    # the [sites] axis and the outer-state tree are
+                    # pinned: a mismatch is refused with the flag to
+                    # change, as in JAX
+                    saved_sites = int(resumed_extras.get("sites", 0))
+                    saved_m = int(resumed_extras.get(
+                        "outer_has_momentum", 0))
+                    want_m = int(site_mode
+                                 and cfg.outer_optimizer == "nesterov"
+                                 and cfg.outer_momentum > 0)
+                    saved_q = int(resumed_extras.get(
+                        "outer_quant_int8", 0))
+                    want_q = int(site_mode and cfg.outer_quant == "int8")
+                    if (saved_sites != (cfg.sites if site_mode else 0)
+                            or saved_m != want_m or saved_q != want_q):
+                        raise ValueError(
+                            f"checkpoint {path} was written with "
+                            f"sites={saved_sites}, outer momentum "
+                            f"state={'yes' if saved_m else 'no'}, "
+                            f"outer_quant="
+                            f"{'int8' if saved_q else 'off'}: "
+                            f"resume needs the same --sites, a "
+                            f"momentum-compatible --outer_optimizer/"
+                            f"--outer_momentum and the same "
+                            f"--outer_quant (the error-feedback "
+                            f"residual is part of the state tree; "
+                            f"this run: sites="
+                            f"{cfg.sites if site_mode else 0}, "
+                            f"momentum state="
+                            f"{'yes' if want_m else 'no'}, "
+                            f"outer_quant="
+                            f"{'int8' if want_q else 'off'})")
                 saved_zdp = int(resumed_extras.get("zero_dp", 0))
                 if saved_zdp != (dp if cfg.zero_opt else 0):
                     raise ValueError(
@@ -750,14 +828,15 @@ def run(cfg: Config) -> Dict[str, Any]:
         def host_eval_accuracy(params, images, labels) -> float:
             nonlocal eval_step
             if eval_step is None:
-                eval_step = step_lib.build_eval_step(cfg, spec, mesh=mesh)
+                eval_step = step_lib.build_eval_step(cfg, spec,
+                                                     mesh=eval_mesh)
             t0 = time.perf_counter()
             try:
                 with tracer.annotate("eval"):
                     return _eval_accuracy(
                         eval_step, params, images, labels,
                         step_lib.eval_chunk_cap(spec, cfg.eval_batch_size),
-                        dev, mesh)
+                        dev, eval_mesh)
             finally:
                 phase_s["eval"] += time.perf_counter() - t0
 
@@ -782,6 +861,15 @@ def run(cfg: Config) -> Dict[str, Any]:
                 # a sharded FSDP checkpoint stores the flat [(mp,) dp,
                 # chunk] layout; resume reads the degree it was written at
                 extras["fsdp_mp"] = mesh.mp
+            if site_mode:
+                # the [sites] axis and the outer-state tree (momentum
+                # state exists iff momentum > 0; the residual iff int8)
+                extras.update(sites=cfg.sites,
+                              outer_has_momentum=int(
+                                  cfg.outer_optimizer == "nesterov"
+                                  and cfg.outer_momentum > 0),
+                              outer_quant_int8=int(
+                                  cfg.outer_quant == "int8"))
             return extras or None
 
         def save_state(step: int, resume_epoch: int) -> None:
@@ -1288,6 +1376,10 @@ def run(cfg: Config) -> Dict[str, Any]:
                                 tracer.annotate("dispatch"):
                             state, cost_dev, acc_dev, *extra = train_body(
                                 state, x, y)
+                        if site_mode:
+                            # one step = one round (H inner steps and
+                            # the outer sync): its host dispatch wall
+                            phase_span("round", t_disp, step=steps_done + 1)
                         if wtimer is not None:
                             t_disp = time.perf_counter() - t_disp
                             wtimer.charge("dispatch", t_disp)
@@ -1306,7 +1398,10 @@ def run(cfg: Config) -> Dict[str, Any]:
                             norms_dev = extra[0]
                         steps_done += 1
                         if async_mode and steps_done % cfg.sync_period == 0:
+                            t_sync = time.perf_counter()
                             state = step_lib.param_sync(state)
+                            phase_span("outer_sync", t_sync,
+                                       step=steps_done)
                         examples_seen += global_batch
                         if flight is not None:
                             flight.record_step(steps_done, epoch=epoch,
@@ -1511,7 +1606,9 @@ def run(cfg: Config) -> Dict[str, Any]:
         "test_accuracy": test_acc,
         "total_time_s": total_time,
         "final_cost": cost,
-        "steps": steps_done,
+        # a multi-site round is inner_steps optimizer steps: JAX's count
+        # reads the state's step
+        "steps": int(state.step) if site_mode else steps_done,
         "examples_seen": examples_seen,
         "examples_per_sec": (examples_seen / total_time
                              if total_time > 0 else 0.0),

@@ -27,11 +27,13 @@ name (``resilience/codec.py``, the one codec of every format).
   its failure).
 
 Under the parallel strategies a rank holds a **block** of some global
-leaves (a ``Layout`` over the ``('data', 'model')`` mesh names them,
-``Block`` by ``Block``): a row of a ``[dp, ...]`` leaf (ZeRO-1's
-optimizer slots, FSDP's flat shards, local SGD's replicas), a row of an
-``[mp, dp, ...]`` one (FSDP x TP, ZeRO-1's slots of a leaf split under
-TP), or a Megatron slice of a leaf split over the model axis.  The
+leaves (a ``Layout`` over the ``('data', 'model')`` or the ``('site',
+'data')`` mesh names them, ``Block`` by ``Block``): a row of a ``[dp,
+...]`` leaf (ZeRO-1's optimizer slots, FSDP's flat shards, local SGD's
+replicas), a row of an ``[mp, dp, ...]`` one (FSDP x TP, ZeRO-1's slots
+of a leaf split under TP), a row of a ``[sites, ...]`` one (multi-site
+training's params, inner slots and error-feedback residual), or a
+Megatron slice of a leaf split over the model axis.  The
 sharded format has one rank per distinct block write it with its global
 bounds (as JAX writes each device's shard), so JAX's
 ``restore_sharded_arrays`` reassembles the global leaf; ``gather_global``
@@ -241,18 +243,27 @@ class Block:
 
 class Layout:
     """The global layout of a strategy's state over a mesh
-    (``parallel/mesh.Mesh``): ``block(key, leaf)`` -> the leaf's ``Block``
+    (``parallel/mesh.Mesh``, with a 'site' axis outermost under
+    multi-site training): ``block(key, leaf)`` -> the leaf's ``Block``
     or None (replicated: every rank holds the whole leaf)."""
 
     def __init__(self, mesh, block: Callable):
         self.mesh = mesh
         self.block = block
 
-    def coords(self, rank: int) -> Tuple[int, int]:
-        return rank // self.mesh.mp, rank % self.mesh.mp
+    def coords(self, rank: int) -> Dict[str, int]:
+        """``rank``'s index along each mesh axis."""
+        m = self.mesh
+        return {"site": rank // (m.dp * m.mp),
+                "data": (rank % (m.dp * m.mp)) // m.mp, "model": rank % m.mp}
 
     def _size(self, axis: str) -> int:
-        return self.mesh.dp if axis == "data" else self.mesh.mp
+        return {"site": self.mesh.sites, "data": self.mesh.dp,
+                "model": self.mesh.mp}[axis]
+
+    def _rank(self, site: int, data: int, model: int) -> int:
+        m = self.mesh
+        return (site * m.dp + data) * m.mp + model
 
     def global_shape(self, b: Block, shape) -> list:
         out = [int(d) for d in shape]
@@ -263,11 +274,10 @@ class Layout:
     def bounds(self, b: Block, shape, rank: int) -> np.ndarray:
         """The global bounds of ``rank``'s block of a leaf of local
         ``shape``."""
-        d, m = self.coords(rank)
-        idx = {"data": d, "model": m}
+        idx = self.coords(rank)
         rows = [[idx[ax], idx[ax] + 1] for ax in b.lead]
         for i, n in enumerate(shape):
-            lo = m * int(n) if i == b.split else 0
+            lo = idx["model"] * int(n) if i == b.split else 0
             rows.append([lo, lo + int(n)])
         return np.asarray(rows, np.int64).reshape(-1, 2)
 
@@ -276,26 +286,30 @@ class Layout:
         (index 0 along every axis the block does not vary over)."""
         if b is None:
             return rank == 0
-        d, m = self.coords(rank)
-        return ((d == 0 or "data" in b.varies)
-                and (m == 0 or "model" in b.varies))
+        return all(i == 0 or ax in b.varies
+                   for ax, i in self.coords(rank).items())
 
     def members(self, b: Block) -> Tuple[list, object]:
         """``(ranks, group)``: the ranks whose blocks tile the leaf
         together with this rank's, in the group's rank order, and the
         group an all-gather over them runs on (None: this rank alone)."""
         mesh = self.mesh
-        d, m = mesh.data_index, mesh.model_index
+        s, d, m = mesh.site_index, mesh.data_index, mesh.model_index
         if b.varies == frozenset(("model",)):
-            return [d * mesh.mp + i for i in range(mesh.mp)], mesh.model_group
+            return ([self._rank(s, d, i) for i in range(mesh.mp)],
+                    mesh.model_group)
         if b.varies == frozenset(("data",)):
-            return [i * mesh.mp + m for i in range(mesh.dp)], mesh.data_group
+            return ([self._rank(s, i, m) for i in range(mesh.dp)],
+                    mesh.data_group)
+        if b.varies == frozenset(("site",)):
+            return ([self._rank(i, d, m) for i in range(mesh.sites)],
+                    mesh.site_group)
         group = None
-        if mesh.data_group is not None:
+        if mesh.data_group is not None or mesh.site_group is not None:
             import torch.distributed as dist
 
             group = dist.group.WORLD
-        return list(range(mesh.dp * mesh.mp)), group
+        return list(range(mesh.devices)), group
 
 
 def local_shards(leaves: Dict[str, Any], layout: Optional[Layout] = None

@@ -33,6 +33,7 @@ import re
 import socket
 import subprocess
 import sys
+import time
 
 import jax
 import numpy as np
@@ -160,7 +161,49 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch_ranks(plan: dict, tmp, world: int = 2, timeout: float = 240):
+def start_ranks(argvs, tmp, name: str) -> tuple:
+    """One subprocess a rank (``argvs[r]``, run by this Python from the
+    repo, one intra-op thread), its output in ``tmp/name<r>.log``:
+    ``(procs, log paths)``."""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    logs = [os.path.join(str(tmp), f"{name}{r}.log")
+            for r in range(len(argvs))]
+    procs = []
+    for argv, path in zip(argvs, logs):
+        with open(path, "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable] + argv, cwd=REPO, env=env, stdout=log,
+                stderr=subprocess.STDOUT))
+    return procs, logs
+
+
+def wait_ranks(procs, logs, timeout: float) -> None:
+    """Wait for every rank: the first to exit non-zero fails the test at
+    once with its log (its peers, left in a collective, are killed, not
+    waited for), as does a rank still running ``timeout`` seconds on."""
+    def tail(path):
+        with open(path) as f:
+            return f.read()[-3000:]
+
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            for p, path in zip(procs, logs):
+                assert p.poll() in (None, 0), tail(path)
+            assert time.monotonic() < deadline, (
+                f"ranks still running after {timeout} s: "
+                + tail(logs[0]))
+            time.sleep(0.05)
+        for p, path in zip(procs, logs):
+            assert p.returncode == 0, tail(path)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def launch_ranks(plan: dict, tmp, world: int = 2, timeout: float = 120):
     """Run ``plan`` (``{"out": dir, "jobs": [...]}``) in ``world`` gloo
     ranks at once; returns ``{(job, rank): its json}`` for the run jobs."""
     os.makedirs(plan["out"], exist_ok=True)
@@ -170,23 +213,11 @@ def launch_ranks(plan: dict, tmp, world: int = 2, timeout: float = 240):
         json.dump(plan, f)
     with open(script, "w") as f:
         f.write(RANK_SCRIPT)
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     port = free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, script, str(r), str(world), str(port), plan_path],
-        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, log[-3000:]
+    procs, logs = start_ranks(
+        [[script, str(r), str(world), str(port), plan_path]
+         for r in range(world)], tmp, "rank")
+    wait_ranks(procs, logs, timeout)
     out = {}
     for job in plan["jobs"]:
         if job.get("steps"):

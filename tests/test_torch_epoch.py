@@ -47,6 +47,10 @@ from distributed_tensorflow_example_tpu_torch.parallel import epoch as tepoch
 from distributed_tensorflow_example_tpu_torch.train import loop as tloop
 from distributed_tensorflow_example_tpu_torch.train import state as tstate
 
+# one intra-op thread: the suite runs six test workers (and the rank
+# processes) on the machine's cores, where torch would start one a core
+torch.set_num_threads(1)
+
 STEP_RE = re.compile(
     r"^Step: \d+,  Epoch: [ \d]\d,  Batch: [ \d]{3} of [ \d]{3},"
     r"  Cost: \d+\.\d{4},  AvgTime: +\d+\.\d{2}ms$")

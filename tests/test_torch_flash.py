@@ -27,6 +27,10 @@ from distributed_tensorflow_example_tpu.ops import pallas_fused as jpf
 from distributed_tensorflow_example_tpu_torch.ops import flash_attention as tfa
 from distributed_tensorflow_example_tpu_torch.ops import fused
 
+# one intra-op thread: the suite runs six test workers (and the rank
+# processes) on the machine's cores, where torch would start one a core
+torch.set_num_threads(1)
+
 TOL = {"f32": 1e-5, "bf16": 1e-2}
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}

@@ -51,6 +51,10 @@ from distributed_tensorflow_example_tpu_torch.train import loop as tloop
 
 from test_torch_monitoring import run_both
 
+# one intra-op thread: the suite runs six test workers (and the rank
+# processes) on the machine's cores, where torch would start one a core
+torch.set_num_threads(1)
+
 
 class StubProfiler:
     """Records the windowing contract instead of tracing (the stub of

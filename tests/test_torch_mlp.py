@@ -31,6 +31,10 @@ from distributed_tensorflow_example_tpu_torch.ops import fused
 from distributed_tensorflow_example_tpu_torch.ops import losses as tlosses
 from distributed_tensorflow_example_tpu_torch.ops import metrics as tmetrics
 
+# one intra-op thread: the suite runs six test workers (and the rank
+# processes) on the machine's cores, where torch would start one a core
+torch.set_num_threads(1)
+
 # (hidden sizes, activation, compute dtype name, relative tolerance)
 CASES = {
     "sigmoid1_f32": ((24,), "sigmoid", "float32", 1e-5),

@@ -34,6 +34,10 @@ from distributed_tensorflow_example_tpu_torch import convert
 from distributed_tensorflow_example_tpu_torch.models import transformer as ttfm
 from distributed_tensorflow_example_tpu_torch.ops import fused
 
+# one intra-op thread: the suite runs six test workers (and the rank
+# processes) on the machine's cores, where torch would start one a core
+torch.set_num_threads(1)
+
 TOL = {jnp.float32: 1e-5, jnp.bfloat16: 1e-2}
 _TORCH_DT = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 MOE = dict(num_classes=10, d_model=32, n_heads=2, num_blocks=2, d_ff=64,

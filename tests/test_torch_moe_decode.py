@@ -33,6 +33,10 @@ from distributed_tensorflow_example_tpu_torch.serving import kv_cache as tkvc
 from distributed_tensorflow_example_tpu_torch.serving.engine import (
     DecodeEngine)
 
+# one intra-op thread: the suite runs six test workers (and the rank
+# processes) on the machine's cores, where torch would start one a core
+torch.set_num_threads(1)
+
 _BASE = dict(input_size=32, num_classes=10, seq_len=32, d_model=32,
              n_heads=2, num_blocks=2, d_ff=64, objective="lm",
              vocab_size=50, causal=True, num_experts=4)

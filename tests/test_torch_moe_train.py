@@ -48,6 +48,10 @@ from distributed_tensorflow_example_tpu_torch.train import optim as toptim
 from distributed_tensorflow_example_tpu_torch.train import state as tstate
 from distributed_tensorflow_example_tpu_torch.utils import checkpoint as tckpt
 
+# one intra-op thread: the suite runs six test workers (and the rank
+# processes) on the machine's cores, where torch would start one a core
+torch.set_num_threads(1)
+
 TINY_MOE = dict(model="transformer", input_size=64, seq_len=16, d_model=32,
                 n_heads=2, num_blocks=2, d_ff=64, num_experts=4,
                 moe_dispatch="alltoall", moe_topk=2, capacity_factor=1.25,

@@ -67,6 +67,10 @@ from distributed_tensorflow_example_tpu_torch.train import optim as toptim
 from distributed_tensorflow_example_tpu_torch.train import state as tstate
 from distributed_tensorflow_example_tpu_torch.utils import summary as tsummary
 
+# one intra-op thread: the suite runs six test workers (and the rank
+# processes) on the machine's cores, where torch would start one a core
+torch.set_num_threads(1)
+
 
 def _close(got, want, rtol, what):
     got = np.asarray(got, np.float64)

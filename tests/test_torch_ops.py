@@ -26,6 +26,10 @@ from distributed_tensorflow_example_tpu_torch.ops import paged_attention as tpa
 from distributed_tensorflow_example_tpu_torch.ops import quant as tquant
 from distributed_tensorflow_example_tpu_torch.ops import ring_attention as tring
 
+# one intra-op thread: the suite runs six test workers (and the rank
+# processes) on the machine's cores, where torch would start one a core
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.from_numpy(np.array(a))

@@ -14,6 +14,10 @@ import torch
 from distributed_tensorflow_example_tpu_torch.parallel import epoch
 from distributed_tensorflow_example_tpu_torch.utils import prng
 
+# one intra-op thread: the suite runs six test workers (and the rank
+# processes) on the machine's cores, where torch would start one a core
+torch.set_num_threads(1)
+
 SEEDS = [0, 1, 3, 2 ** 31 - 1, 2 ** 40 + 9, -5]
 SIZES = [0, 1, 2, 100, 4099, 55000, 65536]
 

@@ -30,6 +30,8 @@ def _port_modules():
 def test_port_imports_with_jax_and_the_jax_package_poisoned():
     mods = _port_modules() + ["chip_smoke"]
     assert len(mods) >= 15
+    assert "distributed_tensorflow_example_tpu_torch.parallel.local_sgd" \
+        in mods
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'distributed_tensorflow_example_tpu'):\n"

@@ -61,6 +61,10 @@ from distributed_tensorflow_example_tpu_torch.train import optim as toptim
 from distributed_tensorflow_example_tpu_torch.train import state as tstate
 from distributed_tensorflow_example_tpu_torch.utils import checkpoint as tckpt
 
+# one intra-op thread: the suite runs six test workers (and the rank
+# processes) on the machine's cores, where torch would start one a core
+torch.set_num_threads(1)
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -294,7 +298,9 @@ def test_sigterm_then_resume_auto_is_bitwise_uninterrupted(tmp_path):
     logs, cdir = str(tmp_path / "logs"), str(tmp_path / "ckpt")
     argv = _TRAIN + ["--device=cpu", f"--checkpoint_dir={cdir}",
                      f"--logs_path={logs}"]
-    env = dict(os.environ, PYTHONPATH=_REPO)
+    # one intra-op thread, as this process: the runs compared bitwise
+    # must split their reductions alike
+    env = dict(os.environ, PYTHONPATH=_REPO, OMP_NUM_THREADS="1")
     proc = subprocess.Popen([sys.executable, "-c", _PACED_MAIN] + argv,
                             cwd=_REPO, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -526,7 +532,7 @@ def test_resume_mode_is_refused_at_parse_in_both(capsys):
         assert "resume mode" in capsys.readouterr().err
 
 
-def test_chip_smoke_resilience_phase_rehearses_on_cpu():
+def test_chip_smoke_resilience_phase_rehearses_on_cpu(monkeypatch):
     """``chip_smoke.py``'s phase 5b rehearsed on the CPU at a narrow width
     (784-16-10, batch 50, 8 steps): two uninterrupted runs bitwise equal,
     the sharded async classic checkpoint restored bitwise, the paced
@@ -534,6 +540,10 @@ def test_chip_smoke_resilience_phase_rehearses_on_cpu():
     preempt row, the --resume=auto relaunch bitwise the uninterrupted
     run.  The counters stay 0: CPU tensors take the plain versions."""
     import chip_smoke
+
+    # the paced trainer's process: one intra-op thread, as this one, so
+    # the runs compared bitwise split their reductions alike
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
 
     flags = ["--hidden_sizes=16", "--batch_size=50", "--dataset=synthetic",
              "--synthetic_train_size=400", "--synthetic_test_size=100",

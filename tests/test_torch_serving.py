@@ -49,6 +49,10 @@ from distributed_tensorflow_example_tpu_torch.serving.engine import (
     DecodeEngine)
 from distributed_tensorflow_example_tpu_torch.serving.faults import FaultPlan
 
+# one intra-op thread: the suite runs six test workers (and the rank
+# processes) on the machine's cores, where torch would start one a core
+torch.set_num_threads(1)
+
 _BASE = dict(input_size=32, num_classes=10, seq_len=32, d_model=32,
              n_heads=2, num_blocks=2, d_ff=64, objective="lm",
              vocab_size=50, causal=True)
@@ -236,8 +240,17 @@ def test_http_generate_round_trip():
 
 @pytest.mark.parametrize("extra", [["--outer_quant=int8"]])
 def test_cli_refuses_unported_flags(extra, capsys):
+    """``--outer_quant`` without ``--sites`` > 1: both CLIs exit 2 with
+    JAX's message (the port parses the multi-site flags now, as JAX's
+    shared parser does)."""
+    from distributed_tensorflow_example_tpu.serving import cli as jcli
+
     assert tcli.main(_CLI_FLAGS + ["--serve_port=1"] + extra) == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    ours = capsys.readouterr().err
+    assert jcli.main(_CLI_FLAGS[:-1] + ["--serve_port=1"] + extra) == 2
+    theirs = capsys.readouterr().err
+    assert "it needs --sites > 1" in ours
+    assert ours.split(": ", 1)[1] == theirs.split(": ", 1)[1]
 
 
 @pytest.mark.parametrize("extra", [["--trace_spans"],
@@ -247,6 +260,7 @@ def test_cli_refuses_unported_flags(extra, capsys):
                                    ["--trace_spans", "--span_keep", "5"],
                                    ["--trace_spans", "--span_rotate_mb",
                                     "1.5"],
+                                   ["--outer_quant=int8", "--sites=2"],
                                    ["--replicas=2"], ["--breaker", "on"],
                                    ["--fleet_retries", "1"],
                                    ["--status_cache_s", "0"],
@@ -264,7 +278,6 @@ def test_cli_accepts_the_ported_flags(extra, tmp_path, monkeypatch,
     cfg = tconfig.parse_config(_CLI_FLAGS + ["--serve_port=1",
                                              f"--logs_path={tmp_path}"]
                                + extra)
-    assert tcli.unported_flags(cfg) == []
     tconfig.validate_quant_config(cfg)
     tconfig.validate_serving_config(cfg)
     if cfg.replay:
@@ -321,7 +334,9 @@ def test_cli_accepts_the_ported_flags(extra, tmp_path, monkeypatch,
 # ported now), so that a JAX dtx-serve command line reaches the port's
 # handling, not argparse's error
 _REFUSED_WITH_DEFAULTS = ("breaker", "fleet_retries", "replay_speed",
-                          "span_keep", "span_rotate_mb", "status_cache_s")
+                          "span_keep", "span_rotate_mb", "status_cache_s",
+                          "sites", "inner_steps", "outer_optimizer",
+                          "outer_lr", "outer_momentum", "outer_quant")
 
 
 def test_cli_refused_flags_parse_with_the_jax_defaults():
@@ -332,7 +347,6 @@ def test_cli_refused_flags_parse_with_the_jax_defaults():
     for name in _REFUSED_WITH_DEFAULTS:
         assert getattr(ours, name) == jax_args[name], name
         assert type(getattr(ours, name)) is type(jax_args[name]), name
-    assert tcli.unported_flags(ours) == []
 
 
 def test_cli_needs_a_port_and_an_lm(capsys):
@@ -377,7 +391,6 @@ def test_cli_moe_and_trace_flags_parse_as_in_jax():
               "capacity_factor", "aux_loss_weight", "grouped_moe",
               "fused_ln", "fp8_ffn", "seq_len", "attention"):
         assert getattr(tspec, f) == getattr(jspec, f), f
-    assert tcli.unported_flags(tcfg) == []
 
 
 @pytest.mark.parametrize("extra", [["--fp8_ffn", "--num_experts", "4"],
@@ -557,7 +570,11 @@ def test_chip_smoke_replay_phase_rehearses_on_cpu():
     input's schedule, the id round-tripped through ``replay_sim``.  The
     counters stay 0: CPU tensors take the plain versions.  The submit
     lag is held to 5 s, not the card's 0.5: here a prefill of the plain
-    versions shares the CPU with the other test workers."""
+    versions shares the CPU with the other test workers.  The replay
+    runs at the card's speed (x2: 15 s deadlines); at x20 the deadlines
+    shrink to 1.5 s of wall, which the CPU engine, sharing the cores
+    with the suite's other workers, did not always keep (requests timed
+    out, differently in each replay)."""
     import chip_smoke
 
     flags = [f for f in chip_smoke.FULL_WIDTH_FLAGS
@@ -565,7 +582,7 @@ def test_chip_smoke_replay_phase_rehearses_on_cpu():
                                   "--d_ff"))]
     flags += ["--input_size=128", "--d_model=32", "--n_heads=2",
               "--d_ff=64", "--device=cpu"]
-    rep = chip_smoke.phase_replay("cpu", flags, speed=20.0, max_lag_s=5.0)
+    rep = chip_smoke.phase_replay("cpu", flags, max_lag_s=5.0)
     assert set(rep["counts"].values()) == {0}
     assert all(t > 0 for t in rep["tps"])
     assert 0.0 <= rep["determinism_frac"] <= 1.0

@@ -58,6 +58,10 @@ from distributed_tensorflow_example_tpu_torch.utils.sync import hard_sync
 from test_torch_data_parallel import (close, costs, latest_npz, launch_ranks,
                                       npz, run_jax, save_init)
 
+# one intra-op thread: the suite runs six test workers (and the rank
+# processes) on the machine's cores, where torch would start one a core
+torch.set_num_threads(1)
+
 SIZES = dict(train_size=400, test_size=100, input_size=784)
 ADAM_KW = dict(dataset="synthetic", batch_size=40, hidden_sizes=(16,),
                learning_rate=0.01, optimizer="adam", frequency=4,

@@ -42,8 +42,6 @@ the rank script also serve ``tests/test_torch_tp_state.py``.
 import json
 import os
 import re
-import subprocess
-import sys
 
 import jax
 import numpy as np
@@ -64,8 +62,13 @@ from distributed_tensorflow_example_tpu_torch.parallel import step as tstep
 from distributed_tensorflow_example_tpu_torch.train import loop as tloop
 from distributed_tensorflow_example_tpu_torch.train import optim as toptim
 from distributed_tensorflow_example_tpu_torch.train import state as tstate
-from test_torch_data_parallel import (REPO, costs, free_port, latest_npz,
-                                      npz, run_jax, save_init)
+from test_torch_data_parallel import (costs, free_port, latest_npz, npz,
+                                      run_jax, save_init, start_ranks,
+                                      wait_ranks)
+
+# one intra-op thread: the suite runs six test workers (and the rank
+# processes) on the machine's cores, where torch would start one a core
+torch.set_num_threads(1)
 
 # the ranks' program: for each phase, join this rank's world (a gloo
 # group of the ranks the phase lists with it), run the world's jobs
@@ -195,7 +198,7 @@ for phase in plan["phases"]:
 '''
 
 
-def launch(plan: dict, tmp, procs: int = 4, timeout: float = 300,
+def launch(plan: dict, tmp, procs: int = 4, timeout: float = 180,
            meanwhile=None):
     """Run ``plan`` (``{"out": dir, "phases": [[{"ranks": [...], "jobs":
     [...]}, ...], ...]}``) in ``procs`` rank subprocesses at once; each
@@ -212,24 +215,17 @@ def launch(plan: dict, tmp, procs: int = 4, timeout: float = 300,
         json.dump(plan, f)
     with open(script, "w") as f:
         f.write(RANK_SCRIPT)
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    ps = [subprocess.Popen([sys.executable, script, str(r), plan_path],
-                           cwd=REPO, env=env, stdout=subprocess.PIPE,
-                           stderr=subprocess.STDOUT, text=True)
-          for r in range(procs)]
-    logs = []
+    ps, logs = start_ranks([[script, str(r), plan_path]
+                            for r in range(procs)], tmp, "tp_rank")
     try:
         if meanwhile is not None:
             meanwhile()
-        for p in ps:
-            logs.append(p.communicate(timeout=timeout)[0])
+        wait_ranks(ps, logs, timeout)
     finally:
         for p in ps:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for p, log in zip(ps, logs):
-        assert p.returncode == 0, log[-3000:]
     out = {}
     for phase in plan["phases"]:
         for world in phase:

@@ -55,6 +55,10 @@ from test_torch_data_parallel import costs, run_jax, save_init
 from test_torch_sharded_state import _arrays, _copy_ckpt
 from test_torch_tensor_parallel import TFM_KW, close, launch
 
+# one intra-op thread: the suite runs six test workers (and the rank
+# processes) on the machine's cores, where torch would start one a core
+torch.set_num_threads(1)
+
 SIZES = dict(train_size=64, test_size=16, input_size=784)
 KW = dict(dataset="synthetic", batch_size=16, hidden_sizes=(16, 16),
           learning_rate=0.01, optimizer="adam", frequency=2,

@@ -51,6 +51,10 @@ from distributed_tensorflow_example_tpu_torch.train import state as tstate
 from distributed_tensorflow_example_tpu_torch.utils import checkpoint as tckpt
 from distributed_tensorflow_example_tpu_torch.utils import summary as tsummary
 
+# one intra-op thread: the suite runs six test workers (and the rank
+# processes) on the machine's cores, where torch would start one a core
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEP_RE = re.compile(
     r"^Step: \d+,  Epoch: [ \d]\d,  Batch: [ \d]{3} of [ \d]{3},"
@@ -474,7 +478,7 @@ def test_two_gloo_processes_equal_one(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--inner_steps=4"], ["--sites=2"],
+    ["--pipeline_parallel=2"], ["--mnist_mirrors=http://localhost:1/"],
     ["--model=transformer", "--expert_parallel=2"],
     ["--dataset=mnist", "--data_dir=/nonexistent-mnist-dir"]])
 def test_cli_refuses_what_is_not_ported(argv, capsys):

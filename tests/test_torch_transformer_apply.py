@@ -34,6 +34,10 @@ from distributed_tensorflow_example_tpu_torch.serving import cli as tcli
 from distributed_tensorflow_example_tpu_torch.serving.engine import (
     DecodeEngine)
 
+# one intra-op thread: the suite runs six test workers (and the rank
+# processes) on the machine's cores, where torch would start one a core
+torch.set_num_threads(1)
+
 TOL = 1e-5
 _SIZES = dict(num_classes=10, d_model=32, n_heads=2, num_blocks=2,
               d_ff=64, vocab_size=32)

@@ -45,6 +45,10 @@ from distributed_tensorflow_example_tpu_torch.train import optim as toptim
 from distributed_tensorflow_example_tpu_torch.train import state as tstate
 from distributed_tensorflow_example_tpu_torch.utils import checkpoint as tckpt
 
+# one intra-op thread: the suite runs six test workers (and the rank
+# processes) on the machine's cores, where torch would start one a core
+torch.set_num_threads(1)
+
 TINY = dict(model="transformer", input_size=512, seq_len=256, d_model=32,
             n_heads=2, num_blocks=2, d_ff=64, attention="flash", causal=True,
             fused_ln=True, optimizer="adam", adam_moments_dtype="bfloat16",
@@ -161,6 +165,54 @@ def test_dropout_step_seed_depends_on_the_step():
     assert rng_of(st) == rng_of(st) != rng_of(st4)
     nodrop = tloop.make_spec(tconfig.Config(**TINY))
     assert tstep.make_step_rng(cfg, nodrop)(st) is None
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_grad_accum_microbatches_draw_their_own_masks(grad_accum,
+                                                      monkeypatch):
+    """Under ``--grad_accum 2`` each microbatch seeds its dropout sites
+    from its own seed (JAX folds the microbatch index in), so the two
+    microbatches' masks differ even on equal rows; at ``grad_accum`` 1
+    the step's seed reaches every site as it is, so its masks are the
+    ones it drew before."""
+    from distributed_tensorflow_example_tpu_torch.models import (
+        transformer as ttfm)
+
+    kw = dict(TINY, num_blocks=1, dropout_rate=0.5, grad_accum=grad_accum)
+    cfg = tconfig.Config(**kw)
+    spec = tloop.make_spec(cfg)
+    opt = toptim.make_optimizer(cfg)
+    st = tstate.create_train_state(spec, opt, seed=1, device="cpu")
+    seen, masks = [], []
+    site_seed = ttfm._site_seed
+    monkeypatch.setattr(ttfm, "_site_seed", lambda rng, salt: (
+        seen.append((rng, salt)) or site_seed(rng, salt)))
+    dropout = ttfm._dropout
+
+    def keep(h, spec_, rng, salt):
+        out = dropout(h, spec_, rng, salt)
+        masks.append((salt, (out == 0).detach()))
+        return out
+
+    monkeypatch.setattr(ttfm, "_dropout", keep)
+    x, y = _batch(np.random.RandomState(6), 2, kw["input_size"])
+    x, y = np.concatenate([x[:1]] * 4), np.concatenate([y[:1]] * 4)
+    tstep.make_sync_step_body(cfg, spec, opt)(
+        st, torch.from_numpy(x), torch.from_numpy(y))
+    step_seed = tstep.make_step_rng(cfg, spec)(st)
+    sites = 3           # the embedding's and the block's two
+    assert len(seen) == sites * grad_accum
+    if grad_accum == 1:
+        assert {rng for rng, _salt in seen} == {step_seed}
+        return
+    per_mb = [{rng for rng, _salt in seen[i * sites:(i + 1) * sites]}
+              for i in range(grad_accum)]
+    assert all(len(p) == 1 for p in per_mb)
+    assert per_mb[0] != per_mb[1] and step_seed not in per_mb[0] | per_mb[1]
+    # the same site, the same rows, another microbatch: another mask
+    for i in range(sites):
+        (s0, m0), (s1, m1) = masks[i], masks[sites + i]
+        assert s0 == s1 and not torch.equal(m0, m1)
 
 
 # ---------------------------------------------------------------------------
