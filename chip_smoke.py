@@ -185,6 +185,27 @@ and for the MLP trainer (``main.py`` -> ``train/loop.run``):
     each run's round and outer-sync ms (host clock: gloo's staging, not
     a deployment's), the bytes a round beside the closed forms, and the
     peak memory;
+5g. sequence parallelism at ``--sequence_parallel 2`` on two gloo ranks
+    on the one card (each a subprocess, ``chip_smoke.py --sp-phase ARGS
+    RANK``): ``transformer_wide_long`` at phase 5e's cut on the host
+    path, under the ring and under Ulysses, against a one-rank run of
+    the same flags in this process: every printed cost within
+    SP_COST_RTOL, rank 0's final params within phase 5e's Adam bound,
+    each rank's first-step gradients (summed over the seq group) within
+    SP_GRAD_RTOL of the one-rank run's, B2-B7 launched in every rank and
+    B5-B7 exactly SP_LAUNCHES times at the rank's shape (the ring's rank
+    0 runs the diagonal block, rank 1 the diagonal and the past block),
+    the bytes a step posted to the seq axis's collectives equal to the
+    closed form, and the bytes the loopback carried during one block's
+    attention, forward and backward, within SP_WIRE_OVER of what both
+    ranks posted (gloo cannot send a CUDA tensor point to point, so
+    there the ring rotates by a zero-split ``all_to_all_single``); then B5's stats form, B6 and B7 at the
+    ring's non-causal past block and causal diagonal block [2, 4096, 8,
+    128] and at Ulysses' [2, 8192, 4, 128], each against its plain
+    version within FLASH_TOL and timed beside it, SDPA and its bound
+    (rows added to the flash kernels' report); prints each rank's
+    launches, bytes, warm step ms (host clock) and peak memory beside
+    the one-rank run's, with the card's name and power limit;
 6. the reference command line on the card: ``main.py --pallas
    --training_epochs=1`` (784-100-10 sigmoid f32, batch 100, 550
    steps, the default fast path: B1's f32 launches counted through the
@@ -257,8 +278,9 @@ every path that ran it: ``serve``, ``serve_int8``, ``serve_moe``,
 ``fleet``, ``replay``, the trainers', ``resilience``,
 ``resilience_resumed``, phase 5c's ``monitoring`` runs, phase 5d's
 ``dp_*`` runs, phase 5e's ``tp_*`` runs, each rank's and the one-rank
-reference's, and phase 5f's ``site_*`` runs, each rank's) and the
-result JSON; the card's name and power limit
+reference's, phase 5f's ``site_*`` runs, each rank's, and phase 5g's
+``sp_*`` runs, each rank's and ``sp_one_rank``; the flash kernels'
+``shapes`` also hold phase 5g's forms) and the result JSON; the card's name and power limit
 come just before them.
 The script imports nothing of JAX; it needs one card and exits
 nonzero without one.
@@ -4072,6 +4094,509 @@ def phase_sites(card: str, device: str = "cuda", runs=None,
     return dict(ranks=ranks)
 
 
+# phase 5g: sequence parallelism at --sequence_parallel 2 on two gloo
+# ranks on the one card (NCCL refuses two ranks on one device; gloo's
+# point-to-point ops take a CUDA tensor's pointer as host memory, so the
+# ring's rotations run as zero-split all_to_all_single, which gloo stages
+# through the host: the step times are gloo's staging, not SP's across
+# cards).  transformer_wide_long cut as phase 5e cuts it (2 blocks,
+# batch 2, 3 steps, a test set of 2), once under the ring and once under
+# Ulysses; each rank holds [2, 4096, 8, 128] of q/k/v (ring) or
+# [2, 8192, 4, 128] after the exchange (Ulysses).  Sequence parallelism
+# takes the host path (JAX's gate), so the one-rank run it is held to
+# takes it too (--no_fast_loop: the same batches in the same order)
+SP_DEG = 2
+SP_RUNS = {
+    "sp_ring": TP_TFM_FLAGS + ["--no_fast_loop", "--sp_impl=ring"],
+    "sp_ulysses": TP_TFM_FLAGS + ["--no_fast_loop", "--sp_impl=ulysses"],
+}
+# each printed cost against the one-rank run's: the ring merges two
+# blocks' softmax partials where one launch runs the whole row, and a
+# bf16 activation can then round one ulp apart and carry on (phase 5e's
+# bound); the final params within phase 5e's Adam bound
+SP_COST_RTOL = TP_COST_RTOL
+# the first step's gradients (summed over the token group) against the
+# one-rank run's, each leaf and the whole in relative L2.  Measured on
+# the card (H100, 700 W): 1.86e-3-1.87e-3 whole, 2.24e-3 the worst leaf
+# (the bf16 ring and Ulysses against one launch a row); two broken
+# backward rings (past blocks' dk/dv dropped, the dk/dv accumulators
+# not brought home) 0.172-0.264 whole, 0.402-1.07 the worst leaf
+SP_GRAD_RTOL = 1e-2
+# the loopback's bytes over the bytes both ranks posted: TCP/IP headers
+# and acknowledgements, and the barriers' few bytes
+SP_WIRE_OVER = 1.10
+# B5-B7's launches a rank a run (3 training steps and one eval forward,
+# 2 blocks each): the causal ring at sp 2 runs the diagonal block on
+# rank 0 (the past block it would meet second is in its future) and the
+# diagonal and the past block on rank 1; Ulysses one full-sequence
+# launch a block on every rank
+SP_LAUNCHES = {
+    "sp_ring": [dict(flash_forward=8, flash_dq=6, flash_dkv=6),
+                dict(flash_forward=16, flash_dq=12, flash_dkv=12)],
+    "sp_ulysses": [dict(flash_forward=8, flash_dq=6, flash_dkv=6)] * 2,
+}
+
+
+def _card_limit() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def _sp_cfg(entry, device: str, sp: int, checkpoint_dir):
+    import dataclasses
+
+    return dataclasses.replace(_tp_cfg(entry, device, 1, checkpoint_dir),
+                               sequence_parallel=sp)
+
+
+def _sp_closed_bytes(cfg) -> int:
+    """The bytes one rank posts to the seq axis's collectives in one
+    training step, in closed form.  Ring at n ranks, each block: the forward rotates the
+    stacked k/v (bf16) n - 1 times, the backward n - 1 times more and
+    its f32 dk/dv accumulators n times.  Ulysses, each block: the
+    stacked q/k/v exchanged to heads and the output back, and the two
+    gradients' exchanges in the backward, each sending (n - 1) / n of
+    its buffer."""
+    from distributed_tensorflow_example_tpu_torch.device import (
+        dtype_from_name)
+
+    n = cfg.sequence_parallel
+    el = torch.empty((), dtype=dtype_from_name(cfg.compute_dtype)
+                     ).element_size()
+    d = cfg.d_model // cfg.n_heads
+    block = cfg.batch_size * (cfg.seq_len // n) * cfg.n_heads * d
+    if cfg.sp_impl == "ring":
+        per = (2 * (n - 1) * 2 * block * el + n * 2 * block * 4)
+    else:
+        per = 2 * (3 * block * el + block * el) * (n - 1) // n
+    return cfg.num_blocks * per
+
+
+def _sp_step(cfg, device: str, reps: int = 2) -> dict:
+    """``reps`` warm steps of ``cfg``'s strategy on one synthetic batch
+    (after a first step from the seeded init), each between a barrier of
+    the group (when one is up) and a sync (host clock: under gloo the
+    staged collectives' time too); the bytes the last one posted over
+    the seq axis (``parallel/mesh.SEQ_BYTES``: the tensors handed to the
+    rotations and exchanges); and the first step's gradients as the
+    optimizer received them (summed over the token group, f32 numpy)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from distributed_tensorflow_example_tpu_torch.data import mnist
+    from distributed_tensorflow_example_tpu_torch.parallel import (
+        mesh as mesh_lib)
+    from distributed_tensorflow_example_tpu_torch.train import loop, optim
+    from distributed_tensorflow_example_tpu_torch.train.state import (
+        create_train_state)
+
+    spec = loop.make_spec(cfg)
+    opt = optim.make_optimizer(cfg, 8)
+    grads = {}
+
+    def update(g, opt_state, params):
+        if not grads:
+            grads.update({k: v.detach().float().cpu().numpy()
+                          for k, v in g.items()})
+        return opt.update(g, opt_state, params)
+
+    grabbing = dataclasses.replace(opt, update=update)
+    mesh = mesh_lib.build_seq_mesh(cfg.data_parallel, cfg.sequence_parallel)
+    strat = loop.setup_strategy(
+        cfg, spec, grabbing, create_train_state(spec, opt, seed=cfg.seed,
+                                                device=device), mesh,
+        fast=False)
+    split = mnist.synthesize_split(cfg.batch_size, seed=cfg.seed,
+                                   input_size=cfg.input_size)
+    rows = mesh_lib.batch_layout(mesh, cfg.batch_size)
+    cols = mesh_lib.seq_columns(mesh, cfg.input_size)
+    x = torch.from_numpy(split.images[rows][:, cols]).to(device)
+    y = torch.from_numpy(split.labels[rows]).to(device)
+    state, times, sent = strat.state, [], 0
+    for i in range(reps + 1):
+        if dist.is_initialized():
+            dist.barrier()
+        _sync(device)
+        for k in mesh_lib.SEQ_BYTES:
+            mesh_lib.SEQ_BYTES[k] = 0
+        t0 = time.perf_counter()
+        state = strat.body(state, x, y)[0]
+        _sync(device)
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+        sent = sum(mesh_lib.SEQ_BYTES.values())
+    del state, strat
+    return dict(warm_step_ms=times, step_bytes=sent, grads=grads)
+
+
+def _grad_errs(got: dict, want: dict) -> dict:
+    """Each leaf's ``||got - want|| / ||want||`` (L2), and the whole
+    gradient's under ``"all"``."""
+    errs, num, den = {}, 0.0, 0.0
+    for k, w in want.items():
+        w = w.astype(np.float64)
+        d = float(np.sum((got[k].astype(np.float64) - w) ** 2))
+        n = float(np.sum(w ** 2))
+        errs[k] = math.sqrt(d / max(n, 1e-300))
+        num, den = num + d, den + n
+    errs["all"] = math.sqrt(num / max(den, 1e-300))
+    return errs
+
+
+def _lo_bytes():
+    """The loopback device's transmitted bytes (``/proc/net/dev``), or
+    None where the file or the device is missing."""
+    try:
+        with open("/proc/net/dev") as f:
+            for line in f:
+                name, _, rest = line.partition(":")
+                if name.strip() == "lo":
+                    return int(rest.split()[8])
+    except OSError:
+        pass
+    return None
+
+
+def _sp_wire(cfg, device: str) -> dict:
+    """What one block's attention, forward and backward, at ``cfg``'s
+    layout moves between the two ranks: the bytes posted to the seq
+    axis's collectives (``SEQ_BYTES``) and the bytes the loopback device
+    carried meanwhile (both ranks' traffic, TCP/IP headers included;
+    the gloo ranks share this host), each window between barriers after
+    one untimed block."""
+    import torch.distributed as dist
+
+    from distributed_tensorflow_example_tpu_torch.device import (
+        dtype_from_name)
+    from distributed_tensorflow_example_tpu_torch.models import transformer
+    from distributed_tensorflow_example_tpu_torch.parallel import (
+        mesh as mesh_lib)
+    from distributed_tensorflow_example_tpu_torch.train import loop
+
+    spec = loop.make_spec(cfg)
+    mesh = mesh_lib.build_seq_mesh(cfg.data_parallel, cfg.sequence_parallel)
+    axis = mesh_lib.seq_axis(mesh)
+    shape = (cfg.batch_size, cfg.seq_len // cfg.sequence_parallel,
+             cfg.n_heads, cfg.d_model // cfg.n_heads)
+    g = torch.Generator(device=device).manual_seed(17 + mesh.rank)
+    cdt = dtype_from_name(cfg.compute_dtype)
+    q, k, v, do = (torch.randn(shape, generator=g, device=device).to(cdt)
+                   for _ in range(4))
+    out = {}
+    for i in range(2):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        dist.barrier()
+        for key in mesh_lib.SEQ_BYTES:
+            mesh_lib.SEQ_BYTES[key] = 0
+        before = _lo_bytes()
+        dist.barrier()
+        torch.autograd.grad(transformer._attend(spec, *leaves, axis),
+                            leaves, do)
+        _sync(device)
+        dist.barrier()
+        after = _lo_bytes()
+        out = dict(posted=sum(mesh_lib.SEQ_BYTES.values()),
+                   loopback=(None if before is None or after is None
+                             else after - before))
+    return out
+
+
+def sp_child(args: dict, rank: int) -> dict:
+    """Phase 5g's rank ``rank`` (of two): a gloo group on the card set up
+    here, which ``loop.run`` finds up and leaves; each run of
+    ``args["runs"]`` at ``--sequence_parallel 2`` (rank 0 writing the
+    checkpoint), then its warm steps, its first step's gradients against
+    the one-rank run's (``args["grads"]``) and one block's traffic."""
+    import torch.distributed as dist
+
+    device = args["device"]
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{args['port']}",
+        world_size=SP_DEG, rank=rank,
+        timeout=datetime.timedelta(seconds=120))
+    runs = {}
+    for name, entry in args["runs"].items():
+        cfg = _sp_cfg(entry, device, SP_DEG,
+                      os.path.join(args["tmp"], f"{name}_sp{SP_DEG}"))
+        runs[name] = _tp_run(cfg, f"sp {name} rank {rank}", device,
+                             echo=rank == 0)
+        step = _sp_step(cfg, device)
+        with np.load(args["grads"]) as z:
+            step["grad_errs"] = _grad_errs(step.pop("grads"), dict(z))
+        runs[name].update(step, wire=_sp_wire(cfg, device))
+        log(f"[sp] rank {rank} {name}: {runs[name]['wall_s']:.1f} s on "
+            f"{args['card']}")
+    dist.barrier()
+    dist.destroy_process_group()
+    return runs
+
+
+def check_sp_kernels(card: str) -> list:
+    """B5-B7 at the sequence-parallel path's own forms against their
+    plain versions, within FLASH_TOL, and timed beside them, a library
+    call and the bound: the ring's past block (B5's stats form, B6 and
+    B7, all non-causal) and diagonal block (causal) at a rank's [2,
+    4096, 8, 128], and Ulysses' full sequence on a rank's heads [2,
+    8192, 4, 128] (causal).  Returns rows for the flash kernels'
+    report."""
+    import torch.nn.functional as F
+
+    from distributed_tensorflow_example_tpu_torch.ops import (
+        flash_attention as fa)
+
+    cdt = torch.bfloat16
+    tol = FLASH_TOL[cdt]
+    rows = []
+    for tag, shape, causal in (("ring past block", (2, 4096, 8, 128), False),
+                               ("ring diagonal block", (2, 4096, 8, 128),
+                                True),
+                               ("ulysses", (2, 8192, 4, 128), True)):
+        g = _gen(13000 + shape[1] + int(causal))
+        q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(cdt)
+                       for _ in range(4))
+        acc, m, l = fa.flash_forward(q, k, v, causal, stats=True)
+        acc_r, m_r, l_r = fa.flash_stats_reference(q, k, v, causal)
+        fwd = max(_errs(acc, acc_r), _errs(m, m_r), _errs(l, l_r),
+                  key=lambda e: e[1])
+        o = (acc_r / l_r[..., None]).to(cdt)
+        dlt = torch.sum(do.float() * o.float(), dim=-1)
+        want = fa.flash_backward_reference(q, k, v, do, m_r, l_r, dlt,
+                                           causal)
+        dq = fa.flash_dq(q, k, v, do, m_r, l_r, dlt, causal)
+        dk, dv = fa.flash_dkv(q, k, v, do, m_r, l_r, dlt, causal)
+        e_dq = _errs(dq, want[0])
+        e_dkv = max(_errs(dk, want[1]), _errs(dv, want[2]),
+                    key=lambda e: e[1])
+        del acc, acc_r, want, dq, dk, dv
+        torch.cuda.empty_cache()
+        for name, e in (("flash_forward", fwd), ("flash_dq", e_dq),
+                        ("flash_dkv", e_dkv)):
+            if not e[1] <= tol:
+                raise AssertionError(f"sp kernels: {name} {tag} "
+                                     f"{list(shape)}: {e[1]} of scale > "
+                                     f"{tol}")
+        kern = {
+            "stats": event_ms(fa.flash_forward, (q, k, v, causal, True)),
+            "dq": event_ms(fa.flash_dq, (q, k, v, do, m, l, dlt, causal)),
+            "dkv": event_ms(fa.flash_dkv, (q, k, v, do, m, l, dlt, causal)),
+        }
+        plain = {
+            "stats": event_ms(fa.flash_stats_reference, (q, k, v, causal),
+                              1),
+            "dq": event_ms(lambda *a: fa.flash_backward_reference(*a)[0],
+                           (q, k, v, do, m, l, dlt, causal), 1),
+            "dkv": event_ms(lambda *a: fa.flash_backward_reference(*a)[1:],
+                            (q, k, v, do, m, l, dlt, causal), 1),
+        }
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_fwd = event_ms(lambda a, b_, c: F.scaled_dot_product_attention(
+            a, b_, c, is_causal=causal), (qt, kt, vt))
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        gt = do.transpose(1, 2)
+        lib_bwd = event_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), gt, retain_graph=True), ())
+        del out, qg, kg, vg
+        for name, form, e, lib in (("flash_forward", "stats", fwd, lib_fwd),
+                                   ("flash_dq", "dq", e_dq, lib_bwd),
+                                   ("flash_dkv", "dkv", e_dkv, lib_bwd)):
+            nbytes, flops = _flash_bytes_flops(*shape, causal, form)
+            bound, by = _bound(nbytes, flops)
+            rows.append(dict(
+                kernel=name, form=form, path=f"sp {tag}", shape=list(shape),
+                dtype="bf16", causal=causal, ms=kern[form],
+                plain_ms=plain[form], library_ms=lib,
+                library_call=(f"scaled_dot_product_attention(is_causal="
+                              f"{causal}) " + ("forward" if form == "stats"
+                                               else "backward (dq, dk and "
+                                                    "dv together)")),
+                bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops,
+                tflops=flops / kern[form] / 1e9, x_library=kern[form] / lib,
+                max_abs_err=e[0], rel_err=e[1]))
+            log(f"[sp-kernel] {name} ({form}) {tag} {list(shape)} bf16 "
+                f"causal={causal}: {e[1]:.3g} of scale (tol {tol}), max abs "
+                f"{e[0]:.3g}; kernel {kern[form]:.4f} ms "
+                f"({rows[-1]['tflops']:.1f} TFLOP/s), plain "
+                f"{plain[form]:.3f} ms, library {lib:.4f} ms, bound "
+                f"{bound:.4f} ms ({by}) on {card}")
+        del q, k, v, do, m, l, o, dlt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_sp(card: str, device: str = "cuda", runs=None,
+             timeout: float = 600) -> dict:
+    """Sequence parallelism at sp 2 on two gloo ranks (phase 5g): the
+    one-rank run of the same flags here (no group), then both ranks in
+    their own processes (``sp_child``) under each layout of ``runs``.
+    Each rank's printed costs within SP_COST_RTOL of the one-rank run's,
+    rank 0's final params within phase 5e's Adam bound of its
+    checkpoint; on the card B2-B7 launched in every rank, B5-B7 exactly
+    SP_LAUNCHES times and at the rank's shape, the bytes a step posted
+    to the seq axis equal to the closed form, each rank's first-step
+    gradients within SP_GRAD_RTOL of the one-rank run's and, on the
+    card, one block's loopback traffic within SP_WIRE_OVER of the bytes
+    posted.  Prints each rank's launches, bytes, gradient errors, warm
+    step ms (host clock, gloo-bound) and peak memory beside the one-rank
+    run's, each line with the card's name and power limit."""
+    t0 = time.monotonic()
+    if device == "cuda":
+        card = _card_limit()
+    runs = runs or SP_RUNS
+    tmp = tempfile.mkdtemp(prefix="dtx-sp-")
+    first = next(iter(runs.values()))
+    ref_cfg = _sp_cfg(first, device, 1, os.path.join(tmp, "one_rank"))
+    ref = _tp_run(ref_cfg, "sp one rank", device)
+    step = _sp_step(ref_cfg, device)
+    grads = os.path.join(tmp, "one_rank_grads.npz")
+    np.savez(grads, **step.pop("grads"))
+    ref["warm_step_ms"] = step["warm_step_ms"]
+    log(f"[sp] one-rank run: {ref['wall_s']:.1f} s on {card}")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out = os.path.join(tmp, "sp.json")
+    args = json.dumps(dict(device=device, runs=runs, tmp=tmp, out=out,
+                           port=_free_port(), card=card, grads=grads))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sp-phase", args,
+         str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env, cwd=os.path.dirname(os.path.abspath(__file__)))
+        for r in range(SP_DEG)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        for line in text.splitlines():
+            log(f"  [sp {r}] {line}")
+        if p.returncode:
+            raise AssertionError(f"sp: rank {r} exited {p.returncode}")
+    ranks = []
+    for r in range(SP_DEG):
+        with open(f"{out}.{r}") as f:
+            ranks.append(json.load(f))
+    want = {k: v for k, v in _npz_params(os.path.join(tmp, "one_rank"))
+            .items() if k.startswith(".params/")}
+    init = _tp_init(ref_cfg, device)
+    result, faults = {}, []
+    for name, entry in runs.items():
+        cfg = _sp_cfg(entry, device, SP_DEG, None)
+        closed = _sp_closed_bytes(cfg)
+        heads = cfg.n_heads // (SP_DEG if cfg.sp_impl == "ulysses" else 1)
+        length = cfg.seq_len // (SP_DEG if cfg.sp_impl == "ring" else 1)
+        mine = [rk[name] for rk in ranks]
+        for r, m in enumerate(mine):
+            if (m["devices"] != SP_DEG or m["steps"] != ref["steps"]
+                    or m["fast_loop"]):
+                faults.append(f"{name} rank {r}: {m['devices']} devices, "
+                              f"{m['steps']} steps, fast_loop "
+                              f"{m['fast_loop']}")
+            m["cost_rel_err"] = max(abs(a - b) / max(abs(b), 1e-6)
+                                    for a, b in zip(m["costs"], ref["costs"]))
+            if (len(m["costs"]) != len(ref["costs"])
+                    or m["cost_rel_err"] > SP_COST_RTOL):
+                faults.append(f"{name} rank {r}: costs {m['costs']} vs one "
+                              f"rank {ref['costs']} (> {SP_COST_RTOL})")
+            m["closed_bytes"] = closed
+            if m["step_bytes"] != closed:
+                faults.append(f"{name} rank {r}: {m['step_bytes']} B posted "
+                              f"a step, closed form {closed}")
+            m["grad_worst"] = max((e, k) for k, e in m["grad_errs"].items())
+            if not m["grad_worst"][0] <= SP_GRAD_RTOL:
+                faults.append(f"{name} rank {r}: the first step's gradient "
+                              f"{m['grad_worst'][1]} off the one-rank run's "
+                              f"by {m['grad_worst'][0]:.3g} (> "
+                              f"{SP_GRAD_RTOL})")
+            wire, per_block = m["wire"], closed // cfg.num_blocks
+            if wire["posted"] != per_block:
+                faults.append(f"{name} rank {r}: {wire['posted']} B posted "
+                              f"a block, closed form {per_block}")
+            if wire["loopback"] is not None and device == "cuda" and not (
+                    SP_DEG * per_block <= wire["loopback"]
+                    <= SP_DEG * per_block * SP_WIRE_OVER):
+                faults.append(f"{name} rank {r}: the loopback carried "
+                              f"{wire['loopback']} B in a block, the ranks "
+                              f"posted {SP_DEG * per_block}")
+            if device == "cuda":
+                for w in TFM_WRAPPERS:
+                    if m["counts"][w] <= 0:
+                        faults.append(f"{name} rank {r}: {w} never launched")
+                for w, n in SP_LAUNCHES[name][r].items():
+                    if m["counts"][w] != n:
+                        faults.append(f"{name} rank {r}: {w} launched "
+                                      f"{m['counts'][w]} times, predicted "
+                                      f"{n}")
+                    shape = m["shapes"][w] or [0, 0, 0, 0]
+                    if shape[1:3] != [length, heads]:
+                        faults.append(f"{name} rank {r}: {w} saw {shape}")
+        got = {k: v for k, v in _npz_params(
+            os.path.join(tmp, f"{name}_sp{SP_DEG}")).items()
+            if k.startswith(".params/")}
+        if sorted(got) != sorted(want):
+            faults.append(f"{name}: param keys differ")
+        bound = 2 * cfg.learning_rate * ref["steps"] * TP_ADAM_STEP
+        worst = 0.0
+        for k in want:
+            diff = float(np.abs(got[k].astype(np.float64) - want[k]).max())
+            worst = max(worst, diff)
+            if not diff <= bound:
+                faults.append(f"{name} {k}: final params differ by "
+                              f"{diff:.3g} > {bound:.3g}")
+        moved = max(float(np.abs(want[k].astype(np.float64) - init[k])
+                          .max()) for k in want)
+        result[name] = dict(ranks=mine, params_max_abs_err=worst,
+                            params_bound=bound, largest_update=moved)
+        for r, m in enumerate(mine):
+            log(f"[sp] {name} rank {r} (sp {SP_DEG}, gloo on one card): "
+                f"B2/B3/B4 launches {m['counts']['fused_layer_norm']}/"
+                f"{m['counts']['fused_layer_norm_residual']}/"
+                f"{m['counts']['layer_norm_backward']}, B5/B6/B7 "
+                f"{m['counts']['flash_forward']}/"
+                f"{m['counts']['flash_dq']}/{m['counts']['flash_dkv']} "
+                f"(predicted {SP_LAUNCHES[name][r]}), flash shape "
+                f"{m['shapes']['flash_forward']}, {m['step_bytes']} B "
+                f"posted a step to the seq axis's collectives (closed form "
+                f"{closed}), one block's attention forward and backward "
+                f"{m['wire']['posted']} B posted and "
+                f"{m['wire']['loopback']} B carried by the loopback for "
+                f"both ranks, first step's gradient rel L2 err "
+                f"{m['grad_errs']['all']:.3g} (worst leaf "
+                f"{m['grad_worst'][1]} {m['grad_worst'][0]:.3g}), warm "
+                f"steps {[round(t, 2) for t in m['warm_step_ms']]} ms "
+                f"(host clock, gloo-bound), peak memory {m['peak_gib']} "
+                f"GiB, costs rel err {m['cost_rel_err']:.3g} on {card}")
+        log(f"[sp] {name}: final params max abs err {worst:.3g} (bound "
+            f"{bound:.3g}; the one-rank run's largest update {moved:.3g}) "
+            f"on {card}")
+    log(f"[sp] one rank: warm steps "
+        f"{[round(t, 2) for t in ref['warm_step_ms']]} ms, peak memory "
+        f"{ref['peak_gib']} GiB, B2-B4 launches "
+        f"{ref['counts']['fused_layer_norm']}/"
+        f"{ref['counts']['fused_layer_norm_residual']}/"
+        f"{ref['counts']['layer_norm_backward']}, B5/B6/B7 "
+        f"{ref['counts']['flash_forward']}/{ref['counts']['flash_dq']}/"
+        f"{ref['counts']['flash_dkv']} on {card}")
+    if faults:
+        raise AssertionError("sp: " + "; ".join(faults))
+    shutil.rmtree(tmp, ignore_errors=True)
+    kernels = check_sp_kernels(card) if device == "cuda" else []
+    log(f"[sp] phase 5g took {time.monotonic() - t0:.1f} s on {card}")
+    return dict(runs=result, ref=ref, kernels=kernels)
+
+
 def phase_cli(card: str) -> dict:
     """The reference command line (its defaults plus --pallas, one
     epoch) on the card: stdout in the reference's format, the event
@@ -4500,6 +5025,12 @@ def main() -> int:
         with open(f"{args['out']}.{rank}", "w") as f:
             json.dump(runs, f)
         return 0
+    if sys.argv[1:2] == ["--sp-phase"]:     # a rank of phase 5g
+        args, rank = json.loads(sys.argv[2]), int(sys.argv[3])
+        runs = sp_child(args, rank)
+        with open(f"{args['out']}.{rank}", "w") as f:
+            json.dump(runs, f)
+        return 0
     if sys.argv[1:2] == ["--site-phase"]:   # a rank of phase 5f
         args, rank = json.loads(sys.argv[2]), int(sys.argv[3])
         runs = site_child(args, rank)
@@ -4538,6 +5069,9 @@ def main() -> int:
     dp = phase_dp(card)
     tp = phase_tp(card)
     sites = phase_sites(card)
+    sp = phase_sp(card)
+    for row in sp["kernels"]:
+        dict(measured)[row["kernel"]].append(row)
     cli = phase_cli(card)
     tfm_train = phase_transformer_train(card)
     phase_transformer_step(card)
@@ -4570,6 +5104,10 @@ def main() -> int:
                **{f"{name}_rank{i}": rk[name]["counts"]
                   for i, rk in enumerate(sites["ranks"])
                   for name in rk},
+               **{f"{name}_rank{i}": m["counts"]
+                  for name, r in sp["runs"].items()
+                  for i, m in enumerate(r["ranks"])},
+               "sp_one_rank": sp["ref"]["counts"],
                "mlp_cli": cli["counts"],
                "transformer_train": tfm_train["counts"],
                "moe_train": moe_train[0]["counts"],
@@ -4601,10 +5139,7 @@ def main() -> int:
                if k in head},
             "shapes": rows,
         })
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = _card_limit()
     log(f"[done] all phases passed in {time.monotonic() - t0:.1f} s")
     for name, r in (("bf16 pool (first run)", serve),
                     ("bf16 pool (warm, median of 2)",
@@ -4668,6 +5203,18 @@ def main() -> int:
                 f"(closed forms: f32 {m['f32_form']:.0f}, int8 "
                 f"{m['int8_form']:.0f} B a site), peak memory "
                 f"{m['peak_gib']:.3f} GiB on {smi}")
+    for name, r in sp["runs"].items():
+        for i, m in enumerate(r["ranks"]):
+            log(f"[sp] {name} rank {i} of {SP_DEG} (gloo on one card): "
+                f"warm step {statistics.median(m['warm_step_ms']):.2f} ms "
+                f"(host clock, gloo-bound), {m['step_bytes']} B posted a "
+                f"step to the seq axis's collectives (closed form "
+                f"{m['closed_bytes']}), {m['wire']['loopback']} B on the "
+                f"loopback for one block's attention (both ranks), first "
+                f"step's gradient rel L2 err {m['grad_errs']['all']:.3g}, peak "
+                f"memory {m['peak_gib']:.3f} GiB; one rank "
+                f"{statistics.median(sp['ref']['warm_step_ms']):.2f} ms, "
+                f"{sp['ref']['peak_gib']:.3f} GiB on {smi}")
     for name, r in train["runs"].items():
         log(f"[train] {name}: median step {r['step_ms_median']:.3f} ms, "
             f"peak memory {r['peak_gib']:.3f} GiB on {smi}")

@@ -18,14 +18,16 @@ tensor parallelism ``--model_parallel``, with JAX's refusals of
 their combinations, ``validate_strategy_config``; multi-site local SGD
 ``--sites``, ``--inner_steps``, ``--outer_optimizer``, ``--outer_lr``,
 ``--outer_momentum`` and ``--outer_quant``, with JAX's
-``validate_local_sgd_config``; ``--compilation_cache`` is accepted and
+``validate_local_sgd_config``; sequence parallelism
+``--sequence_parallel`` and ``--sp_impl``, with JAX's refusals
+(``validate_sequence_config``); ``--compilation_cache`` is accepted and
 explained away), and refuses every other flag of the JAX trainer (exit
-2, naming ROADMAP.md) rather than ignore it: expert, sequence and
-pipeline parallelism (``--expert_parallel``, ``--sequence_parallel``,
-``--sp_impl``, ``--pipeline_parallel``, ``--virtual_stages``,
-``--pp_schedule``) and ``--mnist_mirrors``.  Both parsers take the
-multi-site family, as JAX's shared parser does.  ``--device`` is the
-port's own: the card (``cuda``) unless ``cpu`` is asked for.
+2, naming ROADMAP.md) rather than ignore it: expert and pipeline
+parallelism (``--expert_parallel``, ``--pipeline_parallel``,
+``--virtual_stages``, ``--pp_schedule``) and ``--mnist_mirrors``.
+Both parsers take the multi-site family, as JAX's shared parser does.
+``--device`` is the port's own: the card (``cuda``) unless ``cpu`` is
+asked for.
 """
 
 from __future__ import annotations
@@ -140,6 +142,10 @@ class Config:
     data_parallel: int = -1         # -1: world / model_parallel
     model_parallel: int = 1         # Megatron-style TP over the hidden dim
     microbatches: int = 4           # GPipe microbatches (pipeline only)
+    sequence_parallel: int = 1      # transformer only: the token axis
+                                    # split over a ('data', 'seq') layout
+    sp_impl: str = "ring"           # ring (k/v blocks rotate) | ulysses
+                                    # (head <-> seq all-to-all)
     sync_period: int = 1            # 1 = all-reduce every step; K > 1 =
                                     # local SGD, the async analog: each
                                     # rank's replica averaged every K
@@ -648,6 +654,17 @@ def build_train_parser() -> argparse.ArgumentParser:
                         "r %% mp)")
     p.add_argument("--microbatches", type=int, default=d.microbatches,
                    help="GPipe microbatches per local batch")
+    p.add_argument("--sequence_parallel", type=int,
+                   default=d.sequence_parallel,
+                   help="transformer only: shard the token axis over a "
+                        "('data','seq') mesh (--sp_impl selects the "
+                        "layout; rank r at data index r // (sp*mp), seq "
+                        "index (r // mp) %% sp)")
+    p.add_argument("--sp_impl", type=str, default=d.sp_impl,
+                   choices=["ring", "ulysses"],
+                   help="sequence-parallel attention: the k/v ring "
+                        "(send/recv) or the head<->seq all_to_all "
+                        "(DeepSpeed-Ulysses style)")
     p.add_argument("--sync_period", type=int, default=d.sync_period,
                    help="K>1 = the LEGACY local-SGD async analog: "
                         "divergent replicas averaged every K steps "
@@ -963,7 +980,7 @@ def validate_local_sgd_config(cfg: Config) -> None:
                          "local-SGD analog; use one of the two "
                          "(--sites N --inner_steps K --outer_optimizer "
                          "sgd --outer_lr 1 reproduces --sync_period K)")
-    if cfg.fsdp or cfg.zero_opt:
+    if cfg.fsdp or cfg.zero_opt or cfg.sequence_parallel > 1:
         raise ValueError("--sites composes with within-site data "
                          "parallelism only (no fsdp/zero_opt/"
                          "pipeline/sequence/expert parallelism)")
@@ -983,6 +1000,40 @@ def validate_local_sgd_config(cfg: Config) -> None:
         raise ValueError("--on_anomaly=skip rides the synchronous "
                          "step's compiled update mask (sites=1); "
                          "halt/dump work on the multi-site path")
+
+
+# JAX's refusal of --fsdp and local SGD under --sequence_parallel (also
+# the FSDP step's, should it be handed a mesh with a seq axis)
+SP_COMPOSES_ONLY = ("--sequence_parallel composes with data and tensor "
+                    "parallelism only (no fsdp, sync_period=1)")
+
+
+def validate_sequence_config(cfg: Config, seq_len: int) -> None:
+    """The ``--sequence_parallel`` checks of the JAX trainer, its
+    messages: the transformer only, no FSDP nor local SGD, the
+    effective sequence length (``seq_len``: ``--input_size`` under
+    ``--objective=lm``) split evenly, and under ``--sp_impl=ulysses``
+    each model shard's heads split evenly."""
+    if cfg.sequence_parallel <= 1:
+        return
+    if cfg.model != "transformer":
+        raise ValueError("--sequence_parallel requires --model=transformer "
+                         "(the MLP has no token axis)")
+    if cfg.fsdp or cfg.sync_period > 1:
+        raise ValueError(SP_COMPOSES_ONLY)
+    if seq_len % cfg.sequence_parallel:
+        raise ValueError(
+            f"seq_len={seq_len} (from --input_size under "
+            f"--objective=lm, else --seq_len) must divide evenly over "
+            f"sequence_parallel={cfg.sequence_parallel}")
+    local_heads = cfg.n_heads // max(cfg.model_parallel, 1)
+    if cfg.sp_impl == "ulysses" and local_heads % cfg.sequence_parallel:
+        raise ValueError(
+            f"--sp_impl=ulysses shards attention heads: n_heads="
+            f"{cfg.n_heads} (per model shard: {local_heads}) must "
+            f"divide evenly over "
+            f"sequence_parallel={cfg.sequence_parallel} "
+            f"(use --sp_impl=ring for degrees beyond the head count)")
 
 
 def validate_resilience_config(cfg: Config) -> None:

@@ -56,8 +56,19 @@ accumulator through ``model_psum`` before its bias (``_row_psum``), so
 the LayerNorms and the residual stream stay replicated.  A MoE block
 shards its attention only; the experts are replicated.  The decode
 (``decode_step``, ``generate``, ``generate_sharded``) runs the same way
-on a per-rank cache of the local heads.  Not ported yet (ROADMAP.md):
-sequence, expert and pipeline parallelism.
+on a per-rank cache of the local heads.
+
+Sequence parallelism (``seq_axis``: ``parallel/mesh.SeqAxis``, JAX's
+``seq_axis`` name): ``x`` is this rank's contiguous block of the token
+axis, ``pos`` is sliced at the block's global offset, the attention runs
+the layout ``spec.sp_impl`` names (``ops/ring_attention``'s ring, dense
+or on the flash kernels, or ``ops/ulysses_attention``), the token-wise
+blocks need no collective, and the classifier's pooled mean is completed
+with ``pmean_seq``, so the logits come out replicated over the axis.
+The MoE balance loss averages its statistics over the token-sharding
+axes (``aux_axes``: ``parallel/mesh.TokenAxes``, JAX's ``aux_axes``)
+before it combines them.  Not ported yet (ROADMAP.md): expert and
+pipeline parallelism.
 """
 
 from __future__ import annotations
@@ -70,7 +81,8 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..ops.ring_attention import NEG_INF, attention, softmax
-from ..parallel.mesh import model_copy, model_psum
+from ..parallel.mesh import (model_copy, model_psum, pmean_seq,
+                             pmean_tokens)
 from .mlp import _ACTIVATIONS, dot_f32
 
 Params = Dict[str, torch.Tensor]
@@ -335,11 +347,28 @@ def _dropout(h, spec: TransformerSpec, rng: Optional[int], salt: int):
                        ).to(h.dtype)
 
 
-def _attend(spec: TransformerSpec, q, k, v):
-    """[B, S, H, Dh] in/out by the backend ``spec.attention`` names: the
-    flash kernels (``ops/flash_attention.flash_attention``) or the dense
-    ``ops/ring_attention.attention``.  (The JAX ``_attend`` without its
-    sequence-parallel branch, which is not ported.)"""
+def _attend(spec: TransformerSpec, q, k, v, seq_axis=None):
+    """[B, S(local), H, Dh] in/out by the backend ``spec.attention``
+    names: the flash kernels (``ops/flash_attention.flash_attention``)
+    or the dense ``ops/ring_attention.attention``.  With ``seq_axis``
+    the layout ``spec.sp_impl`` names: the ring (``ring_flash_attention``
+    on the flash kernels, ``ring_attention`` dense) or Ulysses
+    (``ulysses_attention``, flash or dense on the full sequence)."""
+    if seq_axis is not None:
+        if spec.sp_impl == "ulysses":
+            from ..ops.ulysses_attention import ulysses_attention
+
+            return ulysses_attention(q, k, v, seq_axis, causal=spec.causal,
+                                     use_flash=spec.attention == "flash")
+        if spec.sp_impl != "ring":
+            raise ValueError(
+                f"unknown sp_impl {spec.sp_impl!r}: expected 'ring' or "
+                f"'ulysses'")
+        from ..ops.ring_attention import ring_attention, ring_flash_attention
+
+        ring = (ring_flash_attention if spec.attention == "flash"
+                else ring_attention)
+        return ring(q, k, v, seq_axis, causal=spec.causal)
     if spec.attention == "flash":
         from ..ops.flash_attention import flash_attention
 
@@ -350,15 +379,22 @@ def _attend(spec: TransformerSpec, q, k, v):
                      f"'dense' or 'flash'")
 
 
-def _load_balance_loss(spec: TransformerSpec, probs, top1_idx):
+def _load_balance_loss(spec: TransformerSpec, probs, top1_idx,
+                       axes=None):
     """Switch Transformer's load-balance loss for one MoE block,
     ``E * sum_e f_e * P_e``: ``f_e`` the fraction of tokens whose first
     choice is expert e (counts, no gradient), ``P_e`` the mean router
-    probability on e.  ``probs`` is ``[..., E]``."""
+    probability on e.  ``probs`` is ``[..., E]``.  ``axes``
+    (``parallel/mesh.TokenAxes``, JAX's ``aux_axes``): the ranks the
+    tokens shard over; f and P are averaged over them before they
+    combine (``pmean_tokens``), so every rank adds the global batch's
+    loss, as JAX's ``pmean`` makes it."""
     e = spec.num_experts
     f = torch.mean(torch.nn.functional.one_hot(
         top1_idx.reshape(-1), e).to(torch.float32), dim=0)
     p = torch.mean(probs.reshape(-1, e), dim=0)
+    f = pmean_tokens(f, axes, grad=False)
+    p = pmean_tokens(p, axes)
     return e * torch.sum(f * p)
 
 
@@ -377,7 +413,7 @@ def _route_topk(spec: TransformerSpec, probs):
     return gates, idx
 
 
-def _moe_ffn(spec: TransformerSpec, bp: Params, a, act, cdt):
+def _moe_ffn(spec: TransformerSpec, bp: Params, a, act, cdt, aux_axes=None):
     """Top-k MoE FFN by dense dispatch: every expert on every token, the
     gate-weighted one-hot selection combines them (exact: no capacity,
     nothing dropped).  ``a`` [B, S, d] -> ``(out f32, aux)``."""
@@ -393,7 +429,7 @@ def _moe_ffn(spec: TransformerSpec, bp: Params, a, act, cdt):
     h2 = dot_f32(h1.reshape(b * s, e, -1).transpose(0, 1), bp["We2"], cdt)
     h2 = h2.transpose(0, 1).reshape(b, s, e, -1) + _f32(bp["be2"])
     out = torch.einsum("bsed,bse->bsd", h2, sel)
-    return out, _load_balance_loss(spec, probs, idx[..., 0])
+    return out, _load_balance_loss(spec, probs, idx[..., 0], aux_axes)
 
 
 def _sparse_route(spec: TransformerSpec, x, wr, cdt):
@@ -464,7 +500,8 @@ def _sparse_combine(h2, slot, gates, keep):
     return torch.sum(picked * w[..., None], dim=0)
 
 
-def _moe_ffn_sparse(spec: TransformerSpec, bp: Params, a, act, cdt):
+def _moe_ffn_sparse(spec: TransformerSpec, bp: Params, a, act, cdt,
+                    aux_axes=None):
     """Capacity-limited top-k MoE FFN (Switch/GShard): ``_sparse_route``
     -> ``_grouped_expert_ffn`` -> ``_sparse_combine``; dropped units add
     nothing and the residual carries their tokens.  ``a`` [B, S, d] ->
@@ -476,12 +513,14 @@ def _moe_ffn_sparse(spec: TransformerSpec, bp: Params, a, act, cdt):
     h2 = _grouped_expert_ffn(spec, buf, bp["We1"], bp["be1"], bp["We2"],
                              bp["be2"], act, cdt)
     out = _sparse_combine(h2, slot, gates, keep)
-    return out.reshape(b, s, d), _load_balance_loss(spec, probs, idx[:, 0])
+    return out.reshape(b, s, d), _load_balance_loss(spec, probs, idx[:, 0],
+                                                    aux_axes)
 
 
 def _block_forward(spec: TransformerSpec, bp: Params, h, act, cdt,
                    kv_out: Optional[list] = None, dropout_rng=None,
-                   block: int = 0, model_axis=None):
+                   block: int = 0, model_axis=None, seq_axis=None,
+                   aux_axes=None):
     """One pre-LN block on ``h`` [B, S, D] (f32): attention by
     ``_attend``, the attention residual add fused into ln2, then the
     FFN half, with dropout on both residual branches when
@@ -491,7 +530,10 @@ def _block_forward(spec: TransformerSpec, bp: Params, h, act, cdt,
     Returns ``(h, aux)``, aux the block's MoE balance loss (0 for the
     dense FFN).  Under ``model_axis`` the leaves are this rank's
     Megatron shards: the attention runs on its heads, with one
-    ``model_psum`` after ``Wo`` (and one after ``W2``)."""
+    ``model_psum`` after ``Wo`` (and one after ``W2``).  Under
+    ``seq_axis`` ``h`` is this rank's token block and the attention runs
+    the sequence-parallel layout; ``aux_axes`` reach the balance
+    loss."""
     b, s, d = h.shape
     a = _ln(spec, h, bp["ln1_g"], bp["ln1_b"])
     qkv = _cast_mm(model_copy(a, model_axis), bp["Wqkv"], cdt) \
@@ -501,17 +543,18 @@ def _block_forward(spec: TransformerSpec, bp: Params, h, act, cdt,
     if kv_out is not None:
         kv_out.append((k.reshape(shape), v.reshape(shape)))
     att = _attend(spec, q.reshape(shape), k.reshape(shape),
-                  v.reshape(shape))
+                  v.reshape(shape), seq_axis)
     branch = _dropout(_row_psum(att.reshape(b, s, -1).to(cdt), bp["Wo"],
                                 bp["bo"], cdt, model_axis),
                       spec, dropout_rng, 2 * block)
     a2, h = _ln_residual(spec, h, branch, bp["ln2_g"], bp["ln2_b"])
     return _ffn_block(spec, bp, h, act, cdt, a=a2, dropout_rng=dropout_rng,
-                      block=block, model_axis=model_axis)
+                      block=block, model_axis=model_axis, aux_axes=aux_axes)
 
 
 def _ffn_block(spec: TransformerSpec, bp: Params, h, act, cdt, a=None,
-               dropout_rng=None, block: int = 0, model_axis=None):
+               dropout_rng=None, block: int = 0, model_axis=None,
+               aux_axes=None):
     """The LN2 + FFN residual half of a block (dense, fp8 or MoE),
     shared by the training forward, the prefill and the decode step.
     ``h`` [B, S, D] -> ``(h, aux)``; ``a`` is the ln2 output when the
@@ -530,7 +573,7 @@ def _ffn_block(spec: TransformerSpec, bp: Params, h, act, cdt, a=None,
             raise ValueError(
                 f"unknown moe_dispatch {spec.moe_dispatch!r}: expected "
                 f"'dense' or 'alltoall'")
-        ffn, aux = moe(spec, bp, a, act, cdt)
+        ffn, aux = moe(spec, bp, a, act, cdt, aux_axes)
     elif spec.fp8_ffn:
         if model_axis is not None:
             raise ValueError("fp8_ffn does not compose with tensor "
@@ -548,8 +591,22 @@ def _ffn_block(spec: TransformerSpec, bp: Params, h, act, cdt, a=None,
     return h + _dropout(ffn, spec, dropout_rng, 2 * block + 1), aux
 
 
+class _ScaleGrad(torch.autograd.Function):
+    """Identity in the forward; the gradient times ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
 def apply(spec: TransformerSpec, params: Params, x: torch.Tensor,
-          with_aux: bool = False, dropout_rng=None, model_axis=None):
+          with_aux: bool = False, dropout_rng=None, model_axis=None,
+          seq_axis=None, aux_axes=None):
     """Forward to f32 logits, differentiable by autograd: ``[B,
     num_classes]`` (classify: the blocks' mean over tokens through the
     head) or ``[B, S, vocab]`` (lm: per-position vocab logits).  ``x``:
@@ -558,11 +615,19 @@ def apply(spec: TransformerSpec, params: Params, x: torch.Tensor,
     ``with_aux`` also returns the per-block mean of the MoE balance
     loss (0 for the dense FFN).  ``model_axis``: the model group under
     Megatron TP (``params`` then this rank's shards); the logits come
-    out replicated."""
+    out replicated.  ``seq_axis`` (``parallel/mesh.SeqAxis``): ``x`` is
+    this rank's block of the token axis (``[B, input_size / n]``),
+    ``pos`` sliced at its offset, the lm logits this block's
+    ``[B, S/n, vocab]`` and the classifier's replicated over the axis.
+    ``aux_axes`` (``parallel/mesh.TokenAxes``): the ranks the tokens
+    shard over, for the balance loss."""
     cdt = spec.compute_dtype
     b = x.shape[0]
     s, f = spec.seq_len, spec.d_feature
     pos = _f32(params["pos"])
+    if seq_axis is not None:
+        s = spec.seq_len // seq_axis.size
+        pos = pos[seq_axis.index * s:(seq_axis.index + 1) * s]
     if spec.objective == "lm":
         h = _f32(params["W_emb"])[tokenize(spec, x)] + pos[None]
     else:
@@ -574,12 +639,23 @@ def apply(spec: TransformerSpec, params: Params, x: torch.Tensor,
     for i in range(spec.num_blocks):
         h, aux_i = _block_forward(spec, _block_params(params, i), h, act,
                                   cdt, dropout_rng=dropout_rng, block=i,
-                                  model_axis=model_axis)
+                                  model_axis=model_axis, seq_axis=seq_axis,
+                                  aux_axes=aux_axes)
         aux = aux + aux_i
     h = _ln(spec, h, params["lnf_g"], params["lnf_b"])
+    head = params
     if spec.objective != "lm":
         h = torch.mean(h, dim=1)                 # [B, D]
-    logits = _f32(_mm(params, h, "W_head", "b_head", cdt))
+        if seq_axis is not None:
+            # the global token mean (backward: JAX's transpose, g / n);
+            # the head then runs on a value replicated over the axis,
+            # where JAX sums its gradient over 'data' only: the step
+            # sums every gradient over data x seq, so its local
+            # gradient counts 1 / n
+            h = pmean_seq(h, seq_axis)
+            head = {k: _ScaleGrad.apply(params[k], 1.0 / seq_axis.size)
+                    for k in ("W_head", "b_head")}
+    logits = _f32(_mm(head, h, "W_head", "b_head", cdt))
     if with_aux:
         return logits, aux / spec.num_blocks
     return logits

@@ -64,6 +64,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..config import Unported
 from ..models import transformer as tfm
 from ..ops import _counts
 from ..train.optim import tree_leaves, tree_map
@@ -80,6 +81,12 @@ CAPTURED_FAMILIES = ("mlp",)
 WARMUP_STEPS = 2
 # the key the per-epoch permutations fold from: PRNGKey(seed + SHUFFLE_SALT)
 SHUFFLE_SALT = 0x5EED
+# JAX's gate sends sequence parallelism to the host path: the epoch's
+# device-resident shard holds whole rows of the data index, not the seq
+# index's token columns
+SEQ_EPOCH_REFUSED = (
+    "the device-resident epoch takes no seq axis (--sequence_parallel "
+    "runs on the host path, as JAX's gate sends it; see ROADMAP.md)")
 
 
 def pack_images(images: np.ndarray) -> np.ndarray:
@@ -180,6 +187,8 @@ class _Runner:
         self.cfg, self.spec = cfg, spec
         self.spe, self.num_epochs = steps_per_epoch, num_epochs
         self.mesh = mesh if mesh is not None else mesh_lib.build_mesh(-1)
+        if self.mesh.sp > 1:
+            raise Unported(SEQ_EPOCH_REFUSED)
         self.body = body or step_lib.make_sync_step_body(cfg, spec,
                                                          optimizer,
                                                          mesh=self.mesh)

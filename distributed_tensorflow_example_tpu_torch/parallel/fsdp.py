@@ -44,6 +44,7 @@ from typing import Callable, Optional
 import torch
 
 from .. import cluster
+from ..config import SP_COMPOSES_ONLY
 from ..train.state import TrainState
 from ..utils.checkpoint import map_state
 from . import mesh as mesh_lib
@@ -197,6 +198,8 @@ def make_fsdp_step_body(cfg, spec, dp: int, optimizer,
     model group.  Capturable in a CUDA graph (it reads nothing back from
     the card)."""
     mesh = mesh if mesh is not None else mesh_lib.build_mesh(-1)
+    if mesh.sp > 1:
+        raise ValueError(SP_COMPOSES_ONLY)
     param_dims = mesh_lib.param_pspecs(spec, mp)
     shapes = tp_local_shapes(full_template, param_dims, mp)
     names = sorted(shapes)

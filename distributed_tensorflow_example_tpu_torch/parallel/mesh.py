@@ -1,6 +1,7 @@
-"""The ``('data', 'model')`` mesh over the process group (the part of
-the JAX package's ``parallel/mesh.py`` with no sequence, expert,
-pipeline or site axis).
+"""The ``('data', 'model')`` mesh over the process group, its
+``('data', 'seq'[, 'model'])`` and ``('site', 'data')`` forms (the part
+of the JAX package's ``parallel/mesh.py`` with no expert or pipeline
+axis).
 
 JAX lays the devices of one process out as ``np.array(devices)
 .reshape(dp, mp)``: device r sits at data index ``r // mp`` and model
@@ -36,10 +37,28 @@ index ``r % dp``.  Its **data group** is its site's ``dp`` consecutive
 ranks (the per-step gradient all-reduce), its **site group** the ranks
 of its data index across the sites (stride ``dp``; the outer
 pseudo-gradient mean), and the batch splits over ``sites x dp`` shards,
-rank r taking shard r.  The other multi-axis builders
-(``build_seq_mesh``, ``build_expert_mesh``, ``build_stage_mesh``,
-``build_nd_mesh``) wait for sequence, expert and pipeline parallelism
-(ROADMAP.md Queue A).
+rank r taking shard r.
+
+Sequence parallelism (``build_seq_mesh``, JAX's ``('data', 'seq'[,
+'model'])`` mesh): rank r sits at data index ``r // (sp * mp)``, seq
+index ``(r // mp) % sp`` and model index ``r % mp``, where JAX's
+``np.array(devices).reshape(dp, sp, mp)`` puts device r.  Each example's
+tokens split over the seq axis in contiguous blocks.  The **seq group**
+is the ranks of one data and model index (the ring's rotations,
+Ulysses' exchange, the pooled mean and the lm sums), the **data group**
+the ranks of one seq and model index (the cost mean, ZeRO-1's chunks),
+the model group the ranks of one data and seq index, and the **token
+group** the ranks of one model index across data and seq: the tokens
+of the global batch, whose gradients are summed there (the transpose
+of the params' implicit ``pvary`` over both axes) and over which the
+MoE balance loss averages its statistics (``token_axes``, JAX's
+``aux_axes``).  ``seq_rotate`` and ``seq_all_to_all`` are the ring's
+``ppermute`` and Ulysses' ``all_to_all``, each with its transpose as
+its backward; ``psum_tokens``/``pmean_seq``/``pmean_tokens`` the sums
+and means whose backward is JAX's transpose.  The other multi-axis
+builders (``build_expert_mesh``, ``build_stage_mesh``,
+``build_nd_mesh``) wait for expert and pipeline parallelism (ROADMAP.md
+Queue A).
 """
 
 from __future__ import annotations
@@ -62,13 +81,16 @@ SITE_AXIS = "site"
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """``(sites x) dp x mp`` ranks, this process at ``rank``; its groups
-    (None without a process group): ``data_group`` the ranks of its
-    model index (within its site under ``sites`` > 1; the world at
-    ``mp`` 1 and one site, None when ``dp`` is 1 under sites),
-    ``model_group`` those of its data index (None at ``mp`` 1: no model
-    axis to reduce over), ``site_group`` those of its data index across
-    the sites (None at one site)."""
+    """``(sites x) dp x sp x mp`` ranks, this process at ``rank``; its
+    groups (None without a process group): ``data_group`` the ranks of
+    its model and seq index (within its site under ``sites`` > 1; the
+    world at ``mp`` 1, ``sp`` 1 and one site, None when ``dp`` is 1
+    under sites), ``model_group`` those of its data and seq index (None
+    at ``mp`` 1: no model axis to reduce over), ``site_group`` those of
+    its data index across the sites (None at one site), ``seq_group``
+    those of its data and model index (None at ``sp`` 1) and
+    ``token_group`` those of its model index across data and seq (the
+    data group at ``sp`` 1)."""
     dp: int
     rank: int
     mp: int = 1
@@ -79,10 +101,20 @@ class Mesh:
     sites: int = 1
     site_group: object = dataclasses.field(default=None, compare=False,
                                            repr=False)
+    sp: int = 1
+    seq_group: object = dataclasses.field(default=None, compare=False,
+                                          repr=False)
+    seq_token_group: object = dataclasses.field(default=None, compare=False,
+                                                repr=False)
 
     @property
     def data_index(self) -> int:
-        return (self.rank % (self.dp * self.mp)) // self.mp
+        return (self.rank % (self.dp * self.sp * self.mp)) \
+            // (self.sp * self.mp)
+
+    @property
+    def seq_index(self) -> int:
+        return (self.rank // self.mp) % self.sp
 
     @property
     def model_index(self) -> int:
@@ -90,11 +122,17 @@ class Mesh:
 
     @property
     def site_index(self) -> int:
-        return self.rank // (self.dp * self.mp)
+        return self.rank // (self.dp * self.sp * self.mp)
 
     @property
     def devices(self) -> int:
-        return self.sites * self.dp * self.mp
+        return self.sites * self.dp * self.sp * self.mp
+
+    @property
+    def token_group(self):
+        """The group the gradients are summed over: the ranks of this
+        model index across the data and seq axes."""
+        return self.seq_token_group if self.sp > 1 else self.data_group
 
 
 # the sub-groups of each (world group, dp, mp), beside the world group
@@ -175,6 +213,77 @@ def _site_groups(sites: int, dp: int, rank: int):
     return data[rank // dp], site[rank % dp]
 
 
+def _seq_groups(dp: int, sp: int, mp: int, rank: int):
+    """``(data, model, seq, token)`` groups of ``rank`` on the ('data',
+    'seq', 'model') layout, every family created in the same order on
+    every rank: the model groups (consecutive ranks; None at mp 1), the
+    data groups (one a seq and model index), the seq groups (one a data
+    and model index), the token groups (one a model index; the world at
+    mp 1)."""
+    world = dist.group.WORLD
+    key = ("seq", id(world), dp, sp, mp)
+    n = dp * sp * mp
+
+    def at(d, s, m):
+        return (d * sp + s) * mp + m
+
+    if key not in _GROUPS:
+        model = ([dist.new_group([at(d, s, m) for m in range(mp)])
+                  for d in range(dp) for s in range(sp)] if mp > 1 else None)
+        data = [dist.new_group([at(d, s, m) for d in range(dp)])
+                for s in range(sp) for m in range(mp)]
+        seq = [dist.new_group([at(d, s, m) for s in range(sp)])
+               for d in range(dp) for m in range(mp)]
+        token = ([dist.new_group(list(range(m, n, mp))) for m in range(mp)]
+                 if mp > 1 else None)
+        _GROUPS[key] = (world, model, data, seq, token)
+    _world, model, data, seq, token = _GROUPS[key]
+    d, s, m = rank // (sp * mp), (rank // mp) % sp, rank % mp
+    return (data[s * mp + m], model[d * sp + s] if model else None,
+            seq[d * mp + m], token[m] if token else world)
+
+
+def build_seq_mesh(data_parallel: int, sequence_parallel: int,
+                   world: int | None = None, rank: int | None = None,
+                   model_parallel: int = 1) -> Mesh:
+    """The ('data', 'seq'[, 'model']) layout over ``world`` ranks
+    (default: the process group's) for sequence-parallel transformer
+    training: rank r at data index ``r // (sp * mp)``, seq index
+    ``(r // mp) % sp``, model index ``r % mp``, as JAX's
+    ``build_seq_mesh`` places device r.  ``data_parallel`` -1 is
+    ``world / (sp * mp)`` (JAX's trainer rule); JAX's messages for a
+    bad degree or a mesh larger than the world, the port's own for one
+    that leaves ranks off.  The groups are made when a process group is
+    up and ``world`` is not given."""
+    n = cluster.process_count() if world is None else world
+    r = cluster.process_index() if rank is None else rank
+    sp, mp = sequence_parallel, model_parallel
+    dp = (max(n // (sp * mp), 1) if data_parallel == -1
+          else data_parallel)
+    axes = {DATA_AXIS: dp, SEQ_AXIS: sp}
+    if mp > 1:
+        axes[MODEL_AXIS] = mp
+    if any(v < 1 for v in axes.values()):
+        raise ValueError(f"mesh axes must be >= 1, got {axes}")
+    need = dp * sp * mp
+    if need > n:
+        raise ValueError(
+            f"mesh {'x'.join(map(str, axes.values()))} over "
+            f"{tuple(axes)} needs {need} devices, have {n}")
+    if need < n:
+        raise ValueError(
+            f"data_parallel={dp} x sequence_parallel={sp} x "
+            f"model_parallel={mp} leaves {n - need} of {n} ranks off the "
+            f"mesh: in the PyTorch port every rank plays one device of "
+            f"the mesh, so their product must be the world size {n}")
+    groups = (None, None, None, None)
+    if world is None and cluster.collectives():
+        groups = _seq_groups(dp, sp, mp, r)
+    return Mesh(dp=dp, rank=r, mp=mp, data_group=groups[0],
+                model_group=groups[1], sp=sp, seq_group=groups[2],
+                seq_token_group=groups[3])
+
+
 def build_site_mesh(sites: int, data_parallel: int = -1,
                     world: int | None = None,
                     rank: int | None = None) -> Mesh:
@@ -244,7 +353,8 @@ def world_all_reduce(t: torch.Tensor) -> None:
 
 def groups(mesh: Mesh) -> list:
     """The distinct groups the mesh's collectives run over."""
-    return [g for g in (mesh.data_group, mesh.model_group, mesh.site_group)
+    return [g for g in (mesh.data_group, mesh.model_group, mesh.site_group,
+                        mesh.seq_group, mesh.seq_token_group)
             if g is not None]
 
 
@@ -380,6 +490,238 @@ def state_pspecs(param_dims: Dict[str, Optional[int]]):
     return dim_of
 
 
+# ---------------------------------------------------------------------------
+# the seq axis's collectives
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqAxis:
+    """The seq axis as the attention and the step see it (JAX's
+    ``seq_axis`` name inside ``shard_map``): its group (None: no
+    process group, every collective the identity), its size, this
+    rank's index on it and the global ranks of the group in seq
+    order."""
+    group: object
+    size: int
+    index: int
+    ranks: tuple
+
+
+def seq_axis(mesh: Mesh) -> Optional[SeqAxis]:
+    """The mesh's seq axis, or None at ``sp`` 1."""
+    if mesh.sp == 1:
+        return None
+    base = mesh.rank - mesh.seq_index * mesh.mp
+    return SeqAxis(mesh.seq_group, mesh.sp, mesh.seq_index,
+                   tuple(base + s * mesh.mp for s in range(mesh.sp)))
+
+
+def _live(axis: Optional[SeqAxis]) -> bool:
+    return axis is not None and axis.size > 1 and axis.group is not None
+
+
+# bytes this process posted to the seq axis's rotations and exchanges
+# (the tensors handed to the collectives, not what the transport moved),
+# read and zeroed by the code that measures a run
+SEQ_BYTES = {"rotate": 0, "all_to_all": 0}
+
+
+def _transport(axis: SeqAxis, t: torch.Tensor) -> str:
+    """How a rotation travels: ``"p2p"`` (``batch_isend_irecv``: NCCL,
+    and gloo on host tensors) or ``"a2a"`` (an ``all_to_all_single``
+    whose splits are 0 but the neighbours': gloo on CUDA tensors,
+    whose point-to-point ops take the tensor's raw pointer as host
+    memory; ``scripts/torch_gloo_cuda_probe.py``, PERF.md section 7)."""
+    if t.is_cuda and dist.get_backend(axis.group) == "gloo":
+        return "a2a"
+    return "p2p"
+
+
+class _Pending:
+    """Rotations posted and not yet waited for: ``wait()`` returns the
+    received tensors."""
+
+    def __init__(self, works, outs):
+        self.works, self.outs = works, outs
+
+    def wait(self) -> list:
+        for w in self.works:
+            w.wait()
+        return self.outs
+
+
+def rotate_start(tensors, axis: Optional[SeqAxis], shift: int = 1,
+                 transport: Optional[str] = None) -> _Pending:
+    """Post one rotation of each of ``tensors`` along the seq axis:
+    every rank sends to seq index ``+shift`` and receives from
+    ``-shift`` (JAX's ``ppermute`` with ``perm [(j, j + shift)]``); the
+    receive buffers are new tensors.  Returns at once; ``wait()`` on the
+    result gives the received tensors.  Without a live axis it gives
+    the inputs back.  ``transport`` overrides ``_transport``'s choice
+    (the CPU tests run the card's zero-split route on host tensors)."""
+    tensors = [t.contiguous() for t in tensors]
+    if not _live(axis):
+        return _Pending([], tensors)
+    n, i = axis.size, axis.index
+    dst, src = (i + shift) % n, (i - shift) % n
+    transport = transport or _transport(axis, tensors[0])
+    outs = [torch.empty_like(t) for t in tensors]
+    works = []
+    if transport == "p2p":
+        ops = []
+        for t, o in zip(tensors, outs):
+            ops.append(dist.P2POp(dist.isend, t, axis.ranks[dst],
+                                  group=axis.group))
+            ops.append(dist.P2POp(dist.irecv, o, axis.ranks[src],
+                                  group=axis.group))
+        works = dist.batch_isend_irecv(ops)
+    else:
+        for t, o in zip(tensors, outs):
+            k = t.numel()
+            send = [k if j == dst else 0 for j in range(n)]
+            recv = [k if j == src else 0 for j in range(n)]
+            works.append(dist.all_to_all_single(
+                o.view(-1), t.view(-1), recv, send, group=axis.group,
+                async_op=True))
+    SEQ_BYTES["rotate"] += sum(t.numel() * t.element_size()
+                               for t in tensors)
+    return _Pending(works, outs)
+
+
+class _SeqRotate(torch.autograd.Function):
+    """One rotation by ``shift``; its backward rotates the gradient back
+    by ``-shift`` (the transpose of ``ppermute``)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, shift):
+        ctx.axis, ctx.shift = axis, shift
+        return rotate_start([x], axis, shift).wait()[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return rotate_start([g], ctx.axis, -ctx.shift).wait()[0], None, None
+
+
+def seq_rotate(x: torch.Tensor, axis: Optional[SeqAxis],
+               shift: int = 1) -> torch.Tensor:
+    """``x`` from seq index ``-shift`` (this rank's goes to ``+shift``),
+    differentiable; ``x`` itself without a live axis."""
+    if not _live(axis):
+        return x
+    return _SeqRotate.apply(x, axis, shift)
+
+
+def _exchange(x: torch.Tensor, axis: SeqAxis) -> torch.Tensor:
+    """``all_to_all_single`` of ``x``, whose dim 0 is the seq axis's
+    size: chunk j goes to seq index j, and chunk j of the result came
+    from seq index j."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=axis.group)
+    SEQ_BYTES["all_to_all"] += x.numel() * x.element_size() \
+        * (axis.size - 1) // axis.size
+    return out
+
+
+class _SeqAllToAll(torch.autograd.Function):
+    """The exchange; its backward is the same exchange of the gradient
+    (chunk j back to where it came from: the transpose of
+    ``all_to_all``)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _exchange(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.axis), None
+
+
+def seq_all_to_all(x: torch.Tensor, axis: Optional[SeqAxis]
+                   ) -> torch.Tensor:
+    """``x`` [n, ...] laid out so that chunk j goes to seq index j ->
+    [n, ...] whose chunk j came from seq index j, differentiable; ``x``
+    itself without a live axis."""
+    if not _live(axis):
+        return x
+    return _SeqAllToAll.apply(x, axis)
+
+
+class _Psum(torch.autograd.Function):
+    """All-reduce over ``group`` (then ``/ n``) in the forward; the
+    backward scales the gradient by ``grad_scale`` and sums nothing."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, grad_scale):
+        ctx.grad_scale = grad_scale
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out / n if n != 1 else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.grad_scale if ctx.grad_scale != 1 else g, \
+            None, None, None
+
+
+def psum_seq(x: torch.Tensor, axis: Optional[SeqAxis]) -> torch.Tensor:
+    """``x`` summed over the seq axis (JAX's ``psum``): the backward
+    passes the gradient as it is (the transpose of a ``psum`` whose
+    result is replicated over the axis)."""
+    if not _live(axis):
+        return x
+    return _Psum.apply(x, axis.group, 1, 1.0)
+
+
+def pmean_seq(x: torch.Tensor, axis: Optional[SeqAxis]) -> torch.Tensor:
+    """``x`` averaged over the seq axis (JAX's ``pmean``): the backward
+    divides the gradient by the axis size (the transpose of ``psum``,
+    then ``/ n``), as the classifier's pooled mean needs."""
+    if not _live(axis):
+        return x
+    return _Psum.apply(x, axis.group, axis.size, 1.0 / axis.size)
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenAxes:
+    """The ranks a step's tokens shard over (JAX's ``aux_axes``: the
+    data axis, and the seq axis under sequence parallelism): their
+    group, how many, and the seq axis's size."""
+    group: object
+    size: int
+    sp: int = 1
+
+
+def token_axes(mesh: Mesh) -> Optional[TokenAxes]:
+    """The mesh's token-sharding axes (None when one rank holds every
+    token, or without a process group)."""
+    n = mesh.dp * mesh.sp
+    if n == 1 or mesh.token_group is None:
+        return None
+    return TokenAxes(mesh.token_group, n, mesh.sp)
+
+
+def pmean_tokens(x: torch.Tensor, axes: Optional[TokenAxes],
+                 grad: bool = True) -> torch.Tensor:
+    """``x`` averaged over the token axes (JAX's ``pmean`` over
+    ``aux_axes``).  ``grad=False`` is a plain mean (the balance loss's
+    routing fractions, which carry no gradient).  With a gradient the
+    backward is the transpose JAX's step takes: ``pmean`` transposes to
+    ``g / (dp * sp)`` on each shard, and the implicit ``pvary`` that
+    adds the replicated loss to the data-varying cost transposes to a
+    sum over 'data' (x dp), so ``g / sp``; the step then sums the
+    gradients over data x seq and divides by dp."""
+    if axes is None:
+        return x
+    if not grad:
+        out = x.detach().clone()
+        dist.all_reduce(out, group=axes.group)
+        return out / axes.size
+    return _Psum.apply(x, axes.group, axes.size, 1.0 / axes.sp)
+
+
 def shard_leaf(full: torch.Tensor, dim: Optional[int], mp: int,
                m: int) -> torch.Tensor:
     """Model shard ``m`` of ``mp`` of ``full`` along ``dim`` (a copy;
@@ -402,6 +744,16 @@ def gather_leaf(local: torch.Tensor, dim: Optional[int], group,
     return torch.cat(list(out.view(mp, *local.shape)), dim=dim)
 
 
+def seq_columns(mesh: Mesh, length: int) -> slice:
+    """The token columns of a ``[B, length]`` batch this rank takes:
+    the seq index's contiguous block (JAX's ``P('data', 'seq')``)."""
+    if length % mesh.sp:
+        raise ValueError(f"{length} columns do not split over "
+                         f"sequence_parallel={mesh.sp}")
+    w = length // mesh.sp
+    return slice(mesh.seq_index * w, (mesh.seq_index + 1) * w)
+
+
 def batch_layout(mesh: Mesh, global_batch: int) -> slice:
     """The rows of a global batch this rank takes: the batch splits over
     the data axis into dp equal blocks, and the rank at data index d
@@ -421,6 +773,10 @@ def batch_layout(mesh: Mesh, global_batch: int) -> slice:
 
 __all__ = ["DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS", "EXPERT_AXIS",
            "STAGE_AXIS", "SITE_AXIS", "Mesh", "build_mesh", "build_site_mesh",
+           "build_seq_mesh", "SeqAxis", "seq_axis",
+           "rotate_start", "seq_rotate", "seq_all_to_all", "psum_seq",
+           "pmean_seq", "TokenAxes", "token_axes", "pmean_tokens",
+           "seq_columns", "SEQ_BYTES",
            "model_axis", "data_all_reduce", "model_all_reduce",
            "site_mean", "world_all_reduce",
            "groups", "uses_gloo", "model_psum", "model_copy", "tp_axis",

@@ -49,8 +49,18 @@ step is ``parallel/fsdp.py``'s; a multi-site round
 (``parallel/local_sgd.py``) runs ``make_sync_step_body`` as its inner
 step over its site's data group.  Under ``--grad_accum`` each
 microbatch draws its own dropout masks (``microbatch_rng``, JAX's
-``fold_in`` of the microbatch index).  Sequence, expert and pipeline
-parallelism are not ported (ROADMAP.md Queue A).
+``fold_in`` of the microbatch index).
+
+Sequence parallelism (``mesh.sp`` > 1, JAX's ``('data', 'seq'[,
+'model'])`` mesh): each rank takes its data index's rows and its seq
+index's token columns (JAX's ``P('data', 'seq')``), the forward runs
+``apply(seq_axis=...)``, the lm statistics take the next block's first
+token and sum over the seq group (``_lm_stats``), and the gradients
+are summed over the token group (data x seq at one model index: the
+transpose of the params' ``pvary`` over both axes), then divided by
+dp.  The MoE balance loss averages its statistics over the token group
+at any dp (JAX's ``aux_axes``).  Expert and pipeline parallelism are
+not ported (ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -81,16 +91,19 @@ def param_shapes(spec) -> dict:
 
 def forward_local(spec, params, x, use_pallas: bool = False,
                   dropout_rng: Optional[int] = None, with_aux: bool = False,
-                  styles=None, model_axis=None):
+                  styles=None, model_axis=None, seq_axis=None,
+                  aux_axes=None):
     """Logits: the transformer's ``apply`` (its kernels chosen on the
-    spec; Megatron TP over ``model_axis``), or the MLP's fused kernel
-    under ``--pallas`` for the activations it supports when every layer
-    is replicated (JAX's gate: under TP the MLP's products are plain),
-    else the MLP forward with ``styles``.  ``with_aux`` (transformer
-    only) returns ``(logits, the MoE balance loss)``."""
+    spec; Megatron TP over ``model_axis``, sequence parallelism over
+    ``seq_axis``), or the MLP's fused kernel under ``--pallas`` for the
+    activations it supports when every layer is replicated (JAX's gate:
+    under TP the MLP's products are plain), else the MLP forward with
+    ``styles``.  ``with_aux`` (transformer only) returns ``(logits, the
+    MoE balance loss)``, its statistics averaged over ``aux_axes``."""
     if isinstance(spec, tfm.TransformerSpec):
         return tfm.apply(spec, params, x, with_aux=with_aux,
-                         dropout_rng=dropout_rng, model_axis=model_axis)
+                         dropout_rng=dropout_rng, model_axis=model_axis,
+                         seq_axis=seq_axis, aux_axes=aux_axes)
     replicated = not styles or all(st == "rep" for st in styles)
     if (use_pallas and replicated
             and spec.activation in fused.SUPPORTED_MLP_ACTIVATIONS):
@@ -98,26 +111,41 @@ def forward_local(spec, params, x, use_pallas: bool = False,
     return mlp.apply(spec, params, x, styles=styles, model_axis=model_axis)
 
 
-def _lm_stats(spec, logits, tokens):
+def _lm_stats(spec, logits, tokens, seq_axis=None):
     """Per-example next-token sums from per-position vocab logits:
     ``(nll_sum [B], correct_sum [B], count [B])`` over the S-1 valid
     positions (position t predicts token t+1; the last position has no
-    target)."""
+    target).  Under ``seq_axis`` each rank holds a token block: its last
+    position's target is the next block's first token (one rotation
+    backwards, no gradient), the global last position is masked, and
+    the sums are taken over the seq group (``psum_seq``), so every rank
+    returns the global statistics."""
     b = logits.shape[0]
     logp = torch.log_softmax(logits, dim=-1)
-    targets = tokens[:, 1:]
-    nll = -torch.gather(logp[:, :-1], -1, targets[..., None])[..., 0]
-    correct = (torch.argmax(logits[:, :-1], dim=-1) == targets)
-    count = torch.full((b,), float(nll.shape[1]), dtype=torch.float32,
-                       device=logits.device)
-    return (torch.sum(nll, dim=1), torch.sum(correct, dim=1).to(
-        torch.float32), count)
+    if seq_axis is None:
+        targets = tokens[:, 1:]
+        nll = -torch.gather(logp[:, :-1], -1, targets[..., None])[..., 0]
+        correct = (torch.argmax(logits[:, :-1], dim=-1) == targets)
+        count = torch.full((b,), float(nll.shape[1]), dtype=torch.float32,
+                           device=logits.device)
+        return (torch.sum(nll, dim=1), torch.sum(correct, dim=1).to(
+            torch.float32), count)
+    nxt = mesh_lib.rotate_start([tokens[:, 0]], seq_axis, -1).wait()[0]
+    targets = torch.cat([tokens[:, 1:], nxt[:, None]], dim=1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    correct = (torch.argmax(logits, dim=-1) == targets).to(torch.float32)
+    mask = torch.ones(nll.shape, dtype=torch.float32, device=logits.device)
+    if seq_axis.index == seq_axis.size - 1:
+        mask[:, -1] = 0.0
+    return (mesh_lib.psum_seq(torch.sum(nll * mask, dim=1), seq_axis),
+            mesh_lib.psum_seq(torch.sum(correct * mask, dim=1), seq_axis),
+            mesh_lib.psum_seq(torch.sum(mask, dim=1), seq_axis))
 
 
 def _loss_and_acc(spec, params, x, y, naive: bool, use_pallas: bool,
                   label_smoothing: float = 0.0, remat: bool = False,
                   dropout_rng: Optional[int] = None, styles=None,
-                  model_axis=None):
+                  model_axis=None, seq_axis=None, aux_axes=None):
     """``(objective, (cost, accuracy))`` on one batch.  The cost is the
     classify objective's cross entropy, or for the lm objective the mean
     next-token cross entropy (``y`` unused); the objective, which the
@@ -125,14 +153,18 @@ def _loss_and_acc(spec, params, x, y, naive: bool, use_pallas: bool,
     to it (the reported cost stays plain CE), as in the JAX package.
     ``remat`` recomputes the whole forward in the backward
     (``torch.utils.checkpoint``, the JAX ``jax.checkpoint`` around the
-    forward)."""
+    forward).  ``seq_axis``: sequence parallelism (the lm statistics
+    over the seq group); ``aux_axes``: the token-sharding ranks the
+    balance loss averages over (only when it weighs in)."""
     is_tfm = isinstance(spec, tfm.TransformerSpec)
     aux_w = spec.aux_loss_weight if is_tfm else 0.0
+    aux_axes = aux_axes if aux_w > 0 else None
 
     def fwd(p, xx):
         if is_tfm:
             return forward_local(spec, p, xx, use_pallas, dropout_rng,
-                                 with_aux=True, model_axis=model_axis)
+                                 with_aux=True, model_axis=model_axis,
+                                 seq_axis=seq_axis, aux_axes=aux_axes)
         return forward_local(spec, p, xx, use_pallas, dropout_rng,
                              styles=styles, model_axis=model_axis), 0.0
 
@@ -141,7 +173,8 @@ def _loss_and_acc(spec, params, x, y, naive: bool, use_pallas: bool,
     else:
         logits, aux = fwd(params, x)
     if getattr(spec, "objective", "classify") == "lm":
-        nll, correct, count = _lm_stats(spec, logits, tfm.tokenize(spec, x))
+        nll, correct, count = _lm_stats(spec, logits, tfm.tokenize(spec, x),
+                                        seq_axis)
         total = torch.sum(count)
         cost = torch.sum(nll) / total
         return cost + aux_w * aux, (cost, torch.sum(correct) / total)
@@ -150,13 +183,33 @@ def _loss_and_acc(spec, params, x, y, naive: bool, use_pallas: bool,
     return cost + aux_w * aux, (cost, metrics.accuracy(logits, y))
 
 
-def make_step_rng(cfg, spec, data_index: Optional[int] = None) -> Callable:
+_M64 = (1 << 64) - 1
+
+
+def _fold(h: int, v: int) -> int:
+    """``v`` folded into the state ``h``: a 63-bit seed in which every bit
+    of both depends (splitmix64's finalizer after a multiply-add), so no
+    field is lost to the 63-bit seeds the dropout sites take or to the
+    low 32 bits the CPU generator reads."""
+    z = (int(h) * 0xBF58476D1CE4E5B9 + 0x94D049BB133111EB * (int(v) + 1)
+         ) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return (z ^ (z >> 31)) >> 1
+
+
+def make_step_rng(cfg, spec, data_index: Optional[int] = None,
+                  seq_index: int = 0) -> Callable:
     """``(state, step_index) -> the step's dropout seed`` (an int; None
-    when the spec does not drop): seed x step, and the data index
-    (default: the process index), so every data shard draws its own
-    masks while the model ranks of one data index, whose activations
-    are replicated, draw the same — the counterpart of the JAX
-    ``make_step_rng`` (the same stream after a resume; other bits).  The
+    when the spec does not drop): seed x step, the data index (default:
+    the process index) and the seq index, so every token shard (each
+    data and seq index) draws its own masks while the model ranks of one
+    shard, whose activations are replicated, draw the same — the
+    counterpart of the JAX ``make_step_rng``, which folds in every
+    token-sharding axis (the same stream after a resume; other bits).
+    The seed, the step, the data index and the seq index are folded in
+    one after another (``_fold``), so every field reaches the masks:
+    runs of other seeds, and steps of one run, draw other masks.  The
     step is ``step_index`` when the caller knows it on the host (the
     device-resident epoch does), else ``int(state.step)``, which reads
     the card."""
@@ -168,7 +221,8 @@ def make_step_rng(cfg, spec, data_index: Optional[int] = None) -> Callable:
         if not dropping:
             return None
         step = int(state.step) if step_index is None else step_index
-        return (((cfg.seed ^ 0xD0C0) << 40) + (step << 8) + index)
+        return _fold(_fold(_fold(_fold(0xD0C0, cfg.seed), step), index),
+                     seq_index)
 
     return step_rng
 
@@ -180,8 +234,7 @@ def microbatch_rng(rng: Optional[int], i: int) -> Optional[int]:
     seeds do not collide with another step's.  None stays None."""
     if rng is None:
         return None
-    return (int(rng) * 0xBF58476D1CE4E5B9 + 0x94D049BB133111EB * (i + 1)
-            ) % (1 << 63)
+    return _fold(rng, i)
 
 
 def leaf_names(spec) -> list:
@@ -325,8 +378,10 @@ def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
     names = sorted(param_shapes(spec))
     styles = mesh_lib.layer_styles(spec, mesh.mp)
     model_axis = mesh_lib.model_axis(mesh)
+    seq_axis = mesh_lib.seq_axis(mesh)
+    aux_axes = mesh_lib.token_axes(mesh)
     sharded = tp_sharded_names(spec, mesh)
-    step_rng = make_step_rng(cfg, spec, mesh.data_index)
+    step_rng = make_step_rng(cfg, spec, mesh.data_index, mesh.seq_index)
     remat = getattr(cfg, "remat", False)
     skip = getattr(cfg, "on_anomaly", "") == "skip"
     detect = with_anomaly or skip
@@ -335,7 +390,8 @@ def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
         leaves = {k: params[k].detach().requires_grad_(True) for k in names}
         objective, (cost, acc) = _loss_and_acc(
             spec, leaves, x, y, cfg.naive_ce, cfg.pallas,
-            cfg.label_smoothing, remat, rng, styles, model_axis)
+            cfg.label_smoothing, remat, rng, styles, model_axis, seq_axis,
+            aux_axes)
         grads = torch.autograd.grad(objective, [leaves[k] for k in names])
         return cost.detach(), acc, dict(zip(names, grads))
 
@@ -365,9 +421,10 @@ def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
             # so every rank keeps or applies together
             loss_bad = (~torch.isfinite(cost)).to(torch.int32)
             mesh_lib.world_all_reduce(loss_bad)
-        if mesh.data_group is not None:
+        if mesh.token_group is not None:
+            # summed over data x seq (the data axis at sp 1)
             for g in grads.values():
-                dist.all_reduce(g, group=mesh.data_group)
+                dist.all_reduce(g, group=mesh.token_group)
             cost, acc = mean_over_ranks(cost, acc, mesh)
             if cfg.grad_reduce == "mean":
                 grads = {k: g / mesh.dp for k, g in grads.items()}
@@ -490,11 +547,13 @@ def eval_chunk_cap(spec, eval_batch_size: int) -> int:
     return cap
 
 
-def _eval_correct(spec, logits, x, y):
+def _eval_correct(spec, logits, x, y, seq_axis=None):
     """Per-example 'correct' value for eval: the 0/1 classification hit,
-    or — lm objective — the example's mean next-token accuracy."""
+    or — lm objective — the example's mean next-token accuracy (over
+    the whole sequence under ``seq_axis``)."""
     if getattr(spec, "objective", "classify") == "lm":
-        _nll, c, cnt = _lm_stats(spec, logits, tfm.tokenize(spec, x))
+        _nll, c, cnt = _lm_stats(spec, logits, tfm.tokenize(spec, x),
+                                 seq_axis)
         return c / cnt
     return (torch.argmax(logits, -1)
             == torch.argmax(y, -1)).to(torch.float32)
@@ -507,17 +566,21 @@ def build_eval_step(cfg, spec, reduce: bool = True, mesh=None) -> Callable:
     ``mesh``'s tensor parallelism.  With ``reduce`` the count is summed
     over the data group (JAX's ``psum`` over the data axis; the model
     ranks of a data index count the same rows) whenever a process group
-    exists; the fast eval sums its chunks first and reduces once.  Eval
-    never drops."""
+    exists; the fast eval sums its chunks first and reduces once.  Under
+    sequence parallelism ``x`` is this rank's token columns and the
+    count (replicated over the seq group) is summed over the data group
+    alone.  Eval never drops."""
     mesh = mesh if mesh is not None else mesh_lib.build_mesh(-1)
     styles = mesh_lib.layer_styles(spec, mesh.mp)
     model_axis = mesh_lib.model_axis(mesh)
+    seq_axis = mesh_lib.seq_axis(mesh)
 
     @torch.no_grad()
     def eval_step(params, x, y, mask):
         logits = forward_local(spec, params, x, cfg.pallas, styles=styles,
-                               model_axis=model_axis)
-        count = torch.sum(_eval_correct(spec, logits, x, y) * mask)
+                               model_axis=model_axis, seq_axis=seq_axis)
+        count = torch.sum(_eval_correct(spec, logits, x, y, seq_axis)
+                          * mask)
         if reduce:
             mesh_lib.data_all_reduce(count, mesh)
         return count

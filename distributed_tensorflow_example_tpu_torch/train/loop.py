@@ -67,7 +67,14 @@ across the sites (a ``round`` phase span a dispatch under
 ``--trace_spans``); the printed steps are rounds, and the checkpoints
 stack the site copies ``[sites, ...]`` beside the outer state, with the
 ``sites``, ``outer_has_momentum`` and ``outer_quant_int8`` extras
-resume checks, as JAX's do.
+resume checks, as JAX's do.  Sequence parallelism
+(``--sequence_parallel N --sp_impl {ring,ulysses}``) lays the ranks out
+as JAX's ``('data', 'seq'[, 'model'])`` mesh (data index ``r // (sp *
+mp)``, seq index ``(r // mp) % sp``, model index ``r % mp``) and runs on
+the host path, as JAX's gate sends it: each rank takes its data index's
+rows and its seq index's token columns of every batch (train and
+eval); the state is replicated over the seq axis, so the checkpoints
+are those of the same run without it.
 
 Resilience (``resilience/``): ``--ckpt_every N`` hands the state to the
 write-behind ``CheckpointWriter`` every N steps on the host path (on
@@ -124,7 +131,8 @@ import numpy as np
 import torch
 
 from .. import cluster
-from ..config import Config, Unported, validate_train_config
+from ..config import (Config, Unported, validate_sequence_config,
+                      validate_train_config)
 from ..data import (CopyStreamCommit, DevicePrefetcher, EpochIterator,
                     EpochPrefetcher, load_datasets, pinned_batches, take)
 from ..device import dtype_from_name, resolve_device
@@ -165,6 +173,7 @@ def make_spec(cfg: Config):
             activation=(cfg.activation if cfg.activation != "sigmoid"
                         else "gelu"),
             attention="flash" if cfg.pallas else cfg.attention,
+            sp_impl=cfg.sp_impl,
             dropout_rate=cfg.dropout_rate,
             causal=True if lm else cfg.causal,
             num_experts=cfg.num_experts,
@@ -214,11 +223,13 @@ def _eval_accuracy(eval_step, params, images: np.ndarray,
     """Accuracy over a whole split, in chunks of ``chunk`` examples
     rounded down to a multiple of dp (at least dp); the last chunk is
     zero-padded and masked, and each rank evaluates its rows of every
-    chunk (the counts summed over the ranks), as in the JAX package."""
+    chunk (the counts summed over the ranks), as in the JAX package;
+    under sequence parallelism its token columns of them."""
     n = images.shape[0]
     dp = mesh.dp
     chunk = max(dp, (min(chunk, n) // dp) * dp)
     rows = mesh_lib.batch_layout(mesh, chunk)
+    images = images[:, mesh_lib.seq_columns(mesh, images.shape[1])]
     correct = 0.0
     for off in range(0, n, chunk):
         x = images[off: off + chunk]
@@ -453,6 +464,7 @@ def run(cfg: Config) -> Dict[str, Any]:
     spec = make_spec(cfg)
     if cfg.model == "transformer" and cfg.model_parallel > 1:
         tfm.check_tp(spec, cfg.model_parallel)
+    validate_sequence_config(cfg, getattr(spec, "seq_len", cfg.seq_len))
     owns_group = cluster.bootstrap(cfg)
     writer = None
     # handles bound before the try, so its except and finally can always
@@ -474,6 +486,10 @@ def run(cfg: Config) -> Dict[str, Any]:
         site_mode = cfg.sites > 1
         if site_mode:
             mesh = mesh_lib.build_site_mesh(cfg.sites, cfg.data_parallel)
+        elif cfg.sequence_parallel > 1:
+            mesh = mesh_lib.build_seq_mesh(
+                cfg.data_parallel, cfg.sequence_parallel,
+                model_parallel=cfg.model_parallel)
         else:
             mesh = mesh_lib.build_mesh(cfg.data_parallel,
                                        cfg.model_parallel)
@@ -664,12 +680,13 @@ def run(cfg: Config) -> Dict[str, Any]:
         # slots are a host-path feature; the async run is one device
         # program, with no host control for periodic checkpoints or
         # early stopping (dump and skip compose with the fast path); a
-        # multi-site round is one host-path step, as in JAX
+        # multi-site round is one host-path step, and the seq axis's
+        # token columns are fed from the host, as in JAX
         fast = (cfg.fast_loop and (cfg.shard_data or dp == 1)
                 and not cfg.ckpt_every and cfg.resume != "auto"
                 and not cfg.histograms and cfg.on_anomaly != "halt"
                 and not cfg.debug_nans and not cfg.zero_opt
-                and not site_mode
+                and not site_mode and mesh.sp == 1
                 and not (async_mode and (cfg.checkpoint_every
                                          or cfg.model_parallel > 1
                                          or cfg.early_stop_patience)))
@@ -1152,11 +1169,19 @@ def run(cfg: Config) -> Dict[str, Any]:
             want_anomaly = ((policy is not None or cfg.debug_nans)
                             and not unstack_mode)
             # every rank draws the global batch JAX's one-process loader
-            # draws and takes its rows of it, as device r does
+            # draws and takes its rows of it, as device r does (and its
+            # token columns under sequence parallelism: a view of the
+            # split, gathered by rows as it is)
             iterator = EpochIterator(
                 dataset.train, batch_size=global_batch, seed=cfg.seed,
                 shard=cfg.shard_data)
             rows = mesh_lib.batch_layout(mesh, global_batch)
+            train_split = dataset.train
+            if mesh.sp > 1:
+                train_split = dataclasses.replace(
+                    dataset.train, images=dataset.train.images[
+                        :, mesh_lib.seq_columns(
+                            mesh, dataset.train.images.shape[1])])
             on_card = dev.type == "cuda"
             # the JAX defaults for the device: deep on the card, one on
             # the CPU, where the "device" is the host's own cores
@@ -1208,8 +1233,8 @@ def run(cfg: Config) -> Dict[str, Any]:
                 if e == start_epoch:
                     idx = list(skip_batches(idx, resume_skip))
                 if pinned:
-                    return pinned_batches(dataset.train, idx)
-                return ((dataset.train.images[i], dataset.train.labels[i])
+                    return pinned_batches(train_split, idx)
+                return ((train_split.images[i], train_split.labels[i])
                         for i in idx)
 
             def timed_batches(batches, start=0):

@@ -244,8 +244,10 @@ class Block:
 class Layout:
     """The global layout of a strategy's state over a mesh
     (``parallel/mesh.Mesh``, with a 'site' axis outermost under
-    multi-site training): ``block(key, leaf)`` -> the leaf's ``Block``
-    or None (replicated: every rank holds the whole leaf)."""
+    multi-site training and a 'seq' axis between 'data' and 'model'
+    under sequence parallelism, over which every leaf is replicated):
+    ``block(key, leaf)`` -> the leaf's ``Block`` or None (replicated:
+    every rank holds the whole leaf)."""
 
     def __init__(self, mesh, block: Callable):
         self.mesh = mesh
@@ -254,16 +256,20 @@ class Layout:
     def coords(self, rank: int) -> Dict[str, int]:
         """``rank``'s index along each mesh axis."""
         m = self.mesh
-        return {"site": rank // (m.dp * m.mp),
-                "data": (rank % (m.dp * m.mp)) // m.mp, "model": rank % m.mp}
+        return {"site": rank // (m.dp * m.sp * m.mp),
+                "data": (rank % (m.dp * m.sp * m.mp)) // (m.sp * m.mp),
+                "seq": (rank // m.mp) % m.sp, "model": rank % m.mp}
 
     def _size(self, axis: str) -> int:
         return {"site": self.mesh.sites, "data": self.mesh.dp,
-                "model": self.mesh.mp}[axis]
+                "seq": self.mesh.sp, "model": self.mesh.mp}[axis]
 
     def _rank(self, site: int, data: int, model: int) -> int:
+        """The rank at those coordinates and this rank's seq index
+        (every leaf is replicated over 'seq': the blocks that tile it
+        sit at one seq index)."""
         m = self.mesh
-        return (site * m.dp + data) * m.mp + model
+        return ((site * m.dp + data) * m.sp + m.seq_index) * m.mp + model
 
     def global_shape(self, b: Block, shape) -> list:
         out = [int(d) for d in shape]

@@ -16,7 +16,11 @@ with ``convert.mlp_params_from_numpy``) on the same synthetic data.
   step (SGD), and at K=3 the replicas differ between syncs and are equal
   at each boundary;
 - ``--compilation_cache=auto`` prints its NOTE and trains;
-  ``chip_smoke.py`` phase 5d rehearsed in a one-rank gloo group.
+  ``chip_smoke.py`` phase 5d rehearsed in a one-rank gloo group;
+- a top-2 MoE transformer (dense dispatch) under ``--moe_aux_weight``:
+  the balance loss's f and P are means over the data axis before they
+  combine, as JAX's ``pmean`` over ``aux_axes`` makes them, so the
+  costs and the final params equal JAX's dp=2 run.
 
 Tolerances (f32; the sums run in other orders): printed costs as parsed
 numbers within 1e-4 (one unit in their last printed place), test
@@ -287,6 +291,16 @@ CASES = {
     "local_fast": dict(sync_period=3),
     "local_host": dict(sync_period=3, fast_loop=False),
 }
+# a small top-2 MoE transformer whose balance loss weighs in the
+# gradients (4 steps, a cost printed each)
+MOE_AUX_KW = dict(model="transformer", input_size=64, seq_len=16,
+                  d_model=16, n_heads=2, num_blocks=1, d_ff=32,
+                  num_experts=4, moe_dispatch="dense", moe_topk=2,
+                  moe_aux_weight=0.01, dataset="synthetic", batch_size=16,
+                  learning_rate=0.1, optimizer="momentum", frequency=1,
+                  eval_batch_size=16, summaries=False, training_epochs=1,
+                  seed=3)
+MOE_AUX_SIZES = dict(train_size=64, test_size=16, input_size=64)
 
 
 @pytest.fixture(scope="module")
@@ -302,6 +316,11 @@ def dp_runs(tmp_path_factory):
             MLP_KW, **extra, checkpoint_dir=str(tmp / f"torch_{name}"))))
     jobs.append(dict(steps=True, init=init, cfg=dict(
         MLP_KW, optimizer="sgd", learning_rate=0.05)))
+    moe_init = str(tmp / "init_moe.npz")
+    save_init(jconfig.Config(**MOE_AUX_KW), moe_init)
+    jobs.append(dict(name="moe_aux", init=moe_init, sizes=MOE_AUX_SIZES,
+                     cfg=dict(MOE_AUX_KW,
+                              checkpoint_dir=str(tmp / "torch_moe_aux"))))
     port = launch_ranks(dict(out=str(tmp / "out"), jobs=jobs), tmp)
     jax_runs = {}
     for name, extra in CASES.items():
@@ -309,6 +328,10 @@ def dp_runs(tmp_path_factory):
                               compilation_cache="",
                               checkpoint_dir=str(tmp / f"jax_{name}"))
         jax_runs[name] = run_jax(jcfg, SIZES) + (jcfg,)
+    jcfg = jconfig.Config(**MOE_AUX_KW, data_parallel=2,
+                          compilation_cache="",
+                          checkpoint_dir=str(tmp / "jax_moe_aux"))
+    jax_runs["moe_aux"] = run_jax(jcfg, MOE_AUX_SIZES) + (jcfg,)
     return dict(port=port, jax=jax_runs, tmp=tmp)
 
 
@@ -364,6 +387,31 @@ def test_local_sgd_checkpoint_stacks_the_replicas(dp_runs):
             assert t[k].shape == j[k].shape, k
         w = t[".params/W1"]
         assert w.shape[0] == 2 and np.abs(w[0] - w[1]).max() > 0
+
+
+def test_moe_balance_loss_is_global_over_the_data_axis(dp_runs):
+    """A top-2 MoE transformer at dp 2 under ``--moe_aux_weight`` 0.01:
+    the balance loss combines f and P averaged over the data axis (JAX's
+    ``pmean`` over ``aux_axes``), so every printed cost (the first
+    step's included) is JAX's within 1e-4 and the final params within
+    1e-5 of each leaf's scale, the router's among them.  Each rank
+    adding its own local ``E * sum f * P`` moves the router's leaves
+    past that bound."""
+    j_out, j_res, jcfg = dp_runs["jax"]["moe_aux"]
+    chief = dp_runs["port"]["moe_aux", 0]
+    assert chief["error"] is None and \
+        dp_runs["port"]["moe_aux", 1]["error"] is None
+    assert chief["result"]["fast_loop"] == j_res["fast_loop"]
+    jc, tc = costs(j_out), costs(chief["stdout"])
+    assert len(tc) == len(jc) == 5          # 4 steps and the final cost
+    assert np.allclose(tc, jc, rtol=0, atol=1e-4), (tc, jc)
+    assert chief["result"]["test_accuracy"] == j_res["test_accuracy"]
+    tp = _final_params(dp_runs["tmp"] / "torch_moe_aux", False)
+    jp = _final_params(jcfg.checkpoint_dir, False)
+    assert sorted(tp) == sorted(jp)
+    assert any(k.endswith("_Wr") for k in jp)
+    for k in jp:
+        close(tp[k], jp[k], 1e-5, f"moe_aux {k}")
 
 
 def test_no_shard_data_takes_the_host_path_as_jax(dp_runs):
