@@ -206,6 +206,27 @@ and for the MLP trainer (``main.py`` -> ``train/loop.run``):
     (rows added to the flash kernels' report); prints each rank's
     launches, bytes, warm step ms (host clock) and peak memory beside
     the one-rank run's, with the card's name and power limit;
+5h. expert parallelism at ``--expert_parallel 2`` (dp 1) on two gloo
+    ranks on the one card (each a subprocess, ``chip_smoke.py
+    --ep-phase ARGS RANK``), each run against a one-rank run of the
+    same flags in this process, all on the host path: ``moe_wide``
+    under ``--grouped_moe`` for 3 steps at full width (each rank 32 of
+    the 64 experts, B8's training form once a block a step at [32, 640,
+    1024] x 2048, B5-B7 on the rank's [16, 1024, 8, 128]; costs within
+    EP_WIDE_COST_RTOL, since each token shard fills its own capacity),
+    and a 1-block E 8 cut at ample capacity (cf 8), sparse and dense,
+    whose costs are held within EP_COST_RTOL and whose first-step
+    gradients (each rank's experts against their slice) within
+    EP_GRAD_RTOL; every run's bytes a step posted to the expert axis
+    equal to the closed form and its replicated leaves bitwise equal
+    across the ranks after every step; one wide block's exchanges'
+    loopback bytes within EP_WIRE_OVER of what the ranks sent off their
+    own; then B8's training form at [32, 640, 1024] x 2048 and B5-B7 at
+    [16, 1024, 8, 128] against their plain versions, timed beside the
+    library and the bound (rows added to the report); prints each
+    rank's launches, B8's plan and shape, bytes, errors, warm step ms
+    (host clock: gloo's staging), params held and peak memory beside
+    the one-rank run's, with the card's name and power limit;
 6. the reference command line on the card: ``main.py --pallas
    --training_epochs=1`` (784-100-10 sigmoid f32, batch 100, 550
    steps, the default fast path: B1's f32 launches counted through the
@@ -278,9 +299,11 @@ every path that ran it: ``serve``, ``serve_int8``, ``serve_moe``,
 ``fleet``, ``replay``, the trainers', ``resilience``,
 ``resilience_resumed``, phase 5c's ``monitoring`` runs, phase 5d's
 ``dp_*`` runs, phase 5e's ``tp_*`` runs, each rank's and the one-rank
-reference's, phase 5f's ``site_*`` runs, each rank's, and phase 5g's
-``sp_*`` runs, each rank's and ``sp_one_rank``; the flash kernels'
-``shapes`` also hold phase 5g's forms) and the result JSON; the card's name and power limit
+reference's, phase 5f's ``site_*`` runs, each rank's, phase 5g's
+``sp_*`` runs, each rank's and ``sp_one_rank``, and phase 5h's ``ep_*``
+runs, each rank's and the one-rank run's; the flash kernels' and B8's
+training form's ``shapes`` also hold phase 5g's and 5h's forms) and the
+result JSON; the card's name and power limit
 come just before them.
 The script imports nothing of JAX; it needs one card and exits
 nonzero without one.
@@ -4339,13 +4362,21 @@ def sp_child(args: dict, rank: int) -> dict:
 
 
 def check_sp_kernels(card: str) -> list:
-    """B5-B7 at the sequence-parallel path's own forms against their
-    plain versions, within FLASH_TOL, and timed beside them, a library
-    call and the bound: the ring's past block (B5's stats form, B6 and
-    B7, all non-causal) and diagonal block (causal) at a rank's [2,
-    4096, 8, 128], and Ulysses' full sequence on a rank's heads [2,
-    8192, 4, 128] (causal).  Returns rows for the flash kernels'
-    report."""
+    """B5-B7 at the sequence-parallel path's own forms: the ring's past
+    block (B5's stats form, B6 and B7, all non-causal) and diagonal
+    block (causal) at a rank's [2, 4096, 8, 128], and Ulysses' full
+    sequence on a rank's heads [2, 8192, 4, 128] (causal)."""
+    return _flash_form_rows(card, "sp", (
+        ("ring past block", (2, 4096, 8, 128), False),
+        ("ring diagonal block", (2, 4096, 8, 128), True),
+        ("ulysses", (2, 8192, 4, 128), True)))
+
+
+def _flash_form_rows(card: str, path: str, forms) -> list:
+    """B5's stats form, B6 and B7 at each ``(tag, shape, causal)`` of
+    ``forms`` against their plain versions, within FLASH_TOL, and timed
+    beside them, a library call and the bound.  Returns rows for the
+    flash kernels' report, each under ``path``."""
     import torch.nn.functional as F
 
     from distributed_tensorflow_example_tpu_torch.ops import (
@@ -4354,10 +4385,7 @@ def check_sp_kernels(card: str) -> list:
     cdt = torch.bfloat16
     tol = FLASH_TOL[cdt]
     rows = []
-    for tag, shape, causal in (("ring past block", (2, 4096, 8, 128), False),
-                               ("ring diagonal block", (2, 4096, 8, 128),
-                                True),
-                               ("ulysses", (2, 8192, 4, 128), True)):
+    for tag, shape, causal in forms:
         g = _gen(13000 + shape[1] + int(causal))
         q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(cdt)
                        for _ in range(4))
@@ -4379,7 +4407,7 @@ def check_sp_kernels(card: str) -> list:
         for name, e in (("flash_forward", fwd), ("flash_dq", e_dq),
                         ("flash_dkv", e_dkv)):
             if not e[1] <= tol:
-                raise AssertionError(f"sp kernels: {name} {tag} "
+                raise AssertionError(f"{path} kernels: {name} {tag} "
                                      f"{list(shape)}: {e[1]} of scale > "
                                      f"{tol}")
         kern = {
@@ -4410,7 +4438,8 @@ def check_sp_kernels(card: str) -> list:
             nbytes, flops = _flash_bytes_flops(*shape, causal, form)
             bound, by = _bound(nbytes, flops)
             rows.append(dict(
-                kernel=name, form=form, path=f"sp {tag}", shape=list(shape),
+                kernel=name, form=form, path=f"{path} {tag}",
+                shape=list(shape),
                 dtype="bf16", causal=causal, ms=kern[form],
                 plain_ms=plain[form], library_ms=lib,
                 library_call=(f"scaled_dot_product_attention(is_causal="
@@ -4420,7 +4449,7 @@ def check_sp_kernels(card: str) -> list:
                 bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops,
                 tflops=flops / kern[form] / 1e9, x_library=kern[form] / lib,
                 max_abs_err=e[0], rel_err=e[1]))
-            log(f"[sp-kernel] {name} ({form}) {tag} {list(shape)} bf16 "
+            log(f"[{path}-kernel] {name} ({form}) {tag} {list(shape)} bf16 "
                 f"causal={causal}: {e[1]:.3g} of scale (tol {tol}), max abs "
                 f"{e[0]:.3g}; kernel {kern[form]:.4f} ms "
                 f"({rows[-1]['tflops']:.1f} TFLOP/s), plain "
@@ -4595,6 +4624,526 @@ def phase_sp(card: str, device: str = "cuda", runs=None,
     kernels = check_sp_kernels(card) if device == "cuda" else []
     log(f"[sp] phase 5g took {time.monotonic() - t0:.1f} s on {card}")
     return dict(runs=result, ref=ref, kernels=kernels)
+
+
+# ---------------------------------------------------------------------------
+# phase 5h: expert parallelism on two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+# two gloo ranks at --expert_parallel 2 (dp 1), each in its own process,
+# against a one-rank run of the same flags in this process (NCCL refuses
+# two ranks on one card; gloo stages every exchange through host memory,
+# so the step times are gloo's staging, not EP's across cards).  Expert
+# parallelism takes the host path (JAX's gate), so the one-rank runs take
+# it too.  (a) moe_wide at full width under sparse dispatch and
+# --grouped_moe, 3 steps: each rank holds 32 of the 64 experts and runs
+# B8's training form on [32, 640, 1024] x 2048 (its experts' rows from
+# both token shards, C 320 a shard); (b) phase 8b's 1-block E 8 cut at
+# ample capacity (cf 8: nothing drops), top-2, the balance loss, SGD,
+# 3 steps; (c) the same under dense dispatch (the expert_copy /
+# expert_psum backward)
+EP_DEG = 2
+EP_CUT_FLAGS = [
+    "--model=transformer", "--num_experts=8", "--moe_topk=2",
+    "--capacity_factor=8.0", "--moe_aux_weight=0.01", "--attention=flash",
+    "--causal", "--input_size=1024", "--seq_len=256", "--d_model=1024",
+    "--n_heads=8", "--num_blocks=1", "--d_ff=2048",
+    "--compute_dtype=bfloat16", "--optimizer=sgd", "--learning_rate=1e-2",
+    "--batch_size=4", "--dataset=synthetic", "--synthetic_train_size=12",
+    "--synthetic_test_size=4", "--no_summaries", "--frequency=1",
+    "--training_epochs=1", "--no_fast_loop"]
+EP_RUNS = {
+    "ep_wide": MOE_WIDE_FLAGS + ["--grouped_moe", "--no_fast_loop",
+                                 "--synthetic_train_size=96"],
+    "ep_sparse_cut": EP_CUT_FLAGS + ["--moe_dispatch=alltoall",
+                                     "--grouped_moe"],
+    "ep_dense_cut": EP_CUT_FLAGS + ["--moe_dispatch=dense"],
+}
+# the runs whose first-step gradients are held to the one-rank run's
+EP_CUTS = ("ep_sparse_cut", "ep_dense_cut")
+# each printed cost against the one-rank run's: at moe_wide's cf 1.25
+# each token shard fills its own capacity (C 320 of its 16 examples'
+# 16,384 tokens), so the two ranks drop other tokens than one rank does
+# (C 640 of 32,768) and the costs are held loosely (measured on the card,
+# H100 700 W: 3.95e-3); the cuts drop nothing, and are held to phase
+# 5e's bf16 bound (measured 2.79e-3 sparse, 5.64e-4 dense)
+EP_WIDE_COST_RTOL = 5e-2
+EP_COST_RTOL = TP_COST_RTOL
+# the first step's gradients (as the optimizer receives them, each
+# rank's experts against their slice of the one-rank run's) in relative
+# L2, each leaf and the whole.  Measured on the card (H100, 700 W):
+# 1.85e-3 / 6.0e-4 whole (sparse / dense cut), 2.19e-3 the worst leaf
+# (bf16 activations rounded in another order).  Four broken copies on
+# the CPU (the ln2 output or the selection entering the experts without
+# expert_copy, the balance loss's probs through it, the combine's
+# transpose dropped) put a leaf 0.0444-1.36 off
+EP_GRAD_RTOL = 1e-2
+EP_WIRE_OVER = SP_WIRE_OVER
+
+
+def _ep_cfg(entry, device: str, ep: int):
+    import dataclasses
+
+    from distributed_tensorflow_example_tpu_torch.config import (
+        parse_train_config)
+
+    return dataclasses.replace(parse_train_config(entry), device=device,
+                               expert_parallel=ep, checkpoint_dir="")
+
+
+def _ep_sizes(cfg) -> dict:
+    """One rank's shapes under ``cfg``: its rows, its capacity C (a
+    shard's, sparse), its experts El, and the params it holds (all, and
+    of the experts)."""
+    from distributed_tensorflow_example_tpu_torch.models import transformer
+    from distributed_tensorflow_example_tpu_torch.parallel import step
+    from distributed_tensorflow_example_tpu_torch.train import loop
+
+    spec = loop.make_spec(cfg)
+    ep = cfg.expert_parallel
+    sparse = spec.moe_dispatch == "alltoall" and ep > 1
+    rows = cfg.batch_size // (ep if sparse else 1)
+    cap = max(1, math.ceil(spec.capacity_factor * rows * spec.seq_len
+                           * spec.moe_topk / spec.num_experts))
+    expert = set(transformer.expert_leaves(spec))
+    shapes = step.param_shapes(spec)
+    held = {k: math.prod(v) // (ep if k in expert else 1)
+            for k, v in shapes.items()}
+    return dict(rows=rows, cap=cap, el=spec.num_experts // ep,
+                sparse=sparse, params_held=sum(held.values()),
+                expert_params_held=sum(held[k] for k in expert))
+
+
+def _ep_closed_bytes(cfg) -> int:
+    """The bytes one rank posts to the expert axis's collectives in one
+    training step, in closed form: sparse, each block four exchanges
+    (dispatch and combine, forward and backward) of the f32 ``[E, C,
+    d]`` buffer; dense, each block the partial outputs' all-reduce
+    forward and the ln2 output's and the selection's backward (f32)."""
+    z = _ep_sizes(cfg)
+    t = z["rows"] * cfg.seq_len
+    if z["sparse"]:
+        per = 4 * cfg.num_experts * z["cap"] * cfg.d_model * 4
+    else:
+        per = (2 * t * cfg.d_model + t * cfg.num_experts) * 4
+    return cfg.num_blocks * per
+
+
+def _ep_step(cfg, device: str, reps: int = 2, grads: bool = False) -> dict:
+    """``reps`` warm steps of ``cfg``'s strategy on one synthetic batch
+    (after a first step from the seeded init), each between a barrier of
+    the group (when one is up) and a sync (host clock: under gloo the
+    staged exchanges' time too); the bytes the last one posted to the
+    expert axis (``parallel/mesh.EP_BYTES``); a digest of the replicated
+    leaves after every step; the flash wrappers' last shapes (a
+    training step's); with ``grads`` the first step's gradients as the
+    optimizer received them (f32 numpy; this rank's experts)."""
+    import dataclasses
+    import hashlib
+
+    import torch.distributed as dist
+
+    from distributed_tensorflow_example_tpu_torch.data import mnist
+    from distributed_tensorflow_example_tpu_torch.models import transformer
+    from distributed_tensorflow_example_tpu_torch.ops import flash_attention
+    from distributed_tensorflow_example_tpu_torch.parallel import (
+        mesh as mesh_lib)
+    from distributed_tensorflow_example_tpu_torch.train import loop, optim
+    from distributed_tensorflow_example_tpu_torch.train.state import (
+        create_train_state)
+
+    spec = loop.make_spec(cfg)
+    opt = optim.make_optimizer(cfg, 8)
+    got = {}
+
+    def update(g, opt_state, params):
+        if grads and not got:
+            got.update({k: v.detach().float().cpu().numpy()
+                        for k, v in g.items()})
+        return opt.update(g, opt_state, params)
+
+    grabbing = dataclasses.replace(opt, update=update)
+    mesh = loop.train_mesh(cfg, spec)
+    strat = loop.setup_strategy(
+        cfg, spec, grabbing, create_train_state(spec, opt, seed=cfg.seed,
+                                                device=device), mesh,
+        fast=False)
+    split = mnist.synthesize_split(cfg.batch_size, seed=cfg.seed,
+                                   input_size=cfg.input_size)
+    rows = mesh_lib.batch_layout(mesh, cfg.batch_size)
+    x = torch.from_numpy(split.images[rows]).to(device)
+    y = torch.from_numpy(split.labels[rows]).to(device)
+    expert = set(transformer.expert_leaves(spec))
+    state, times, sent, digests = strat.state, [], 0, []
+    for i in range(reps + 1):
+        if dist.is_initialized():
+            dist.barrier()
+        _sync(device)
+        for k in mesh_lib.EP_BYTES:
+            mesh_lib.EP_BYTES[k] = 0
+        t0 = time.perf_counter()
+        state = strat.body(state, x, y)[0]
+        _sync(device)
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+        sent = sum(mesh_lib.EP_BYTES.values())
+        h = hashlib.sha256()
+        for k in sorted(state.params):
+            if k not in expert:
+                h.update(state.params[k].detach().cpu().numpy().tobytes())
+        digests.append(h.hexdigest())
+    shapes = {w.__name__: w.last_shape
+              for w in flash_attention.KERNEL_WRAPPERS}
+    del state, strat
+    return dict(warm_step_ms=times, step_bytes=sent, digests=digests,
+                train_shapes=shapes, grads=got)
+
+
+def _ep_wire(cfg, device: str) -> dict:
+    """What one MoE block's FFN, forward and backward, at ``cfg``'s
+    layout moves between the two ranks: the bytes posted to the expert
+    axis's exchanges (``EP_BYTES``) and the bytes the loopback device
+    carried meanwhile (both ranks' traffic), each window between
+    barriers after one untimed block."""
+    import torch.distributed as dist
+
+    from distributed_tensorflow_example_tpu_torch import convert
+    from distributed_tensorflow_example_tpu_torch.models import transformer
+    from distributed_tensorflow_example_tpu_torch.models.mlp import (
+        _ACTIVATIONS)
+    from distributed_tensorflow_example_tpu_torch.parallel import (
+        mesh as mesh_lib)
+    from distributed_tensorflow_example_tpu_torch.train import loop
+
+    spec = loop.make_spec(cfg)
+    mesh = loop.train_mesh(cfg, spec)
+    axis = mesh_lib.expert_axis(mesh)
+    z = _ep_sizes(cfg)
+    params = convert.expert_shard(transformer.init(
+        spec, seed=cfg.seed, device=device), spec, mesh.ep,
+        mesh.expert_index)
+    bp = {k: v for k, v in transformer._block_params(params, 0).items()
+          if k in ("Wr", "We1", "be1", "We2", "be2")}
+    del params
+    g = torch.Generator(device=device).manual_seed(23 + mesh.rank)
+    shape = (z["rows"], cfg.seq_len, cfg.d_model)
+    a, cot = (torch.randn(shape, generator=g, device=device)
+              for _ in range(2))
+    act = _ACTIVATIONS[spec.activation]
+    out = {}
+    for _ in range(2):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in bp.items()}
+        x = a.detach().requires_grad_(True)
+        dist.barrier()
+        for key in mesh_lib.EP_BYTES:
+            mesh_lib.EP_BYTES[key] = 0
+        before = _lo_bytes()
+        dist.barrier()
+        y, _aux = transformer._moe_ffn_sparse(
+            spec, leaves, x, act, spec.compute_dtype, None, axis)
+        torch.autograd.grad(y, [x] + list(leaves.values()), cot)
+        _sync(device)
+        dist.barrier()
+        after = _lo_bytes()
+        out = dict(posted=sum(mesh_lib.EP_BYTES.values()),
+                   loopback=(None if before is None or after is None
+                             else after - before))
+    return out
+
+
+def _b8_last() -> dict:
+    """The grouped FFN wrappers' last launches: the training form's
+    plan and ``[E, C, d, ff]``, the primal form's shape."""
+    from distributed_tensorflow_example_tpu_torch.ops import fused
+
+    z1, primal = fused.moe_grouped_matmul_z1, fused.moe_grouped_matmul
+    return dict(z1_plan=getattr(z1, "last_plan", None),
+                z1_shape=getattr(z1, "last_shape", None),
+                primal_shape=getattr(primal, "last_shape", None))
+
+
+def ep_child(args: dict, rank: int) -> dict:
+    """Phase 5h's rank ``rank`` (of two): a gloo group on the card set up
+    here, which ``loop.run`` finds up and leaves; each run of
+    ``args["runs"]`` at ``--expert_parallel 2`` with its launch counts
+    and B8's last launches, then its warm steps (bytes posted, digests
+    of the replicated leaves), on the cuts its first step's gradients
+    against the one-rank run's (``args["grads"]``: this rank's experts'
+    slice of them), on the wide run one block's traffic."""
+    import torch.distributed as dist
+
+    from distributed_tensorflow_example_tpu_torch.parallel import (
+        mesh as mesh_lib)
+    from distributed_tensorflow_example_tpu_torch.train import loop
+
+    device = args["device"]
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{args['port']}",
+        world_size=EP_DEG, rank=rank,
+        timeout=datetime.timedelta(seconds=180))
+    from distributed_tensorflow_example_tpu_torch.ops import fused
+
+    runs = {}
+    for name, entry in args["runs"].items():
+        cfg = _ep_cfg(entry, device, EP_DEG)
+        for w in (fused.moe_grouped_matmul, fused.moe_grouped_matmul_z1):
+            w.last_plan = w.last_shape = None
+        m = _tp_run(cfg, f"ep {name} rank {rank}", device, echo=rank == 0)
+        m.update(b8=_b8_last(), **_ep_sizes(cfg))
+        step = _ep_step(cfg, device, grads=name in EP_CUTS)
+        got = step.pop("grads")
+        if name in EP_CUTS:
+            spec = loop.make_spec(cfg)
+            expert = mesh_lib.expert_sharded(spec, EP_DEG)
+            with np.load(args["grads"][name]) as z:
+                want = {k: (np.array_split(z[k], EP_DEG)[rank]
+                            if k in expert else z[k]) for k in z.files}
+            step["grad_errs"] = _grad_errs(got, want)
+        if name == "ep_wide":
+            m["wire"] = _ep_wire(cfg, device)
+        runs[name] = dict(m, **step)
+        log(f"[ep] rank {rank} {name}: {m['wall_s']:.1f} s on "
+            f"{args['card']}")
+    dist.barrier()
+    dist.destroy_process_group()
+    return runs
+
+
+def check_ep_kernels(card: str) -> list:
+    """The kernels at an expert-parallel rank's shapes in phase 5h's
+    wide run: B8's training form on the rank's [32, 640, 1024] x 2048
+    (its 32 experts, both shards' 320 rows each) against its plain
+    version within the Z1 tolerances, timed beside the plain version,
+    the ``baddbmm`` chain and its bound; B5's stats form, B6 and B7 on
+    the rank's token shard [16, 1024, 8, 128] (causal)."""
+    from distributed_tensorflow_example_tpu_torch.models.mlp import (
+        _ACTIVATIONS)
+    from distributed_tensorflow_example_tpu_torch.ops import fused
+
+    e, c, d, ff, cdt = 32, 640, 1024, 2048, torch.bfloat16
+    gelu = _ACTIVATIONS["gelu"]
+    g = _gen(17000)
+    args = ("gelu", cdt,
+            torch.randn(e, c, d, generator=g, device="cuda").to(cdt),
+            (torch.randn(e, d, ff, generator=g, device="cuda")
+             / d ** 0.5).to(cdt),
+            0.1 * torch.randn(e, ff, generator=g, device="cuda"),
+            (torch.randn(e, ff, d, generator=g, device="cuda")
+             / ff ** 0.5).to(cdt),
+            0.1 * torch.randn(e, d, generator=g, device="cuda"))
+    out, z1 = fused.moe_grouped_matmul_z1(*args)
+    ref_out, ref_z1 = fused.grouped_ffn_reference(*args)
+    torch.cuda.synchronize()
+    e_out, e_z1 = _errs(out, ref_out), _errs(z1, ref_z1)
+    if not (e_out[1] <= Z1_OUT_RTOL and e_z1[1] <= Z1_RTOL):
+        raise AssertionError(f"ep kernels: grouped_ffn_z1 [{e}, {c}, {d}]: "
+                             f"out {e_out[1]}, z1 {e_z1[1]} of scale")
+    del out, z1, ref_out, ref_z1
+
+    def lib(act, cdt_, x_, w1_, b1_, w2_, b2_):
+        h = gelu(torch.baddbmm(b1_[:, None].to(cdt_), x_, w1_))
+        return torch.baddbmm(b2_[:, None].to(cdt_), h, w2_)
+
+    ms = event_ms(fused.moe_grouped_matmul_z1, args)
+    plain_ms = event_ms(fused.grouped_ffn_reference, args)
+    library_ms = event_ms(lib, args)
+    nbytes = (e * c * d * 2 + 2 * e * d * ff * 2 + e * ff * 4 + e * d * 4
+              + e * c * d * 4 + e * c * ff * 4)
+    flops = 4 * e * c * d * ff
+    bound, by = _bound(nbytes, flops)
+    row = dict(kernel="grouped_ffn_z1", path="ep rank", experts=e, rows=c,
+               d=d, ff=ff, dtype="bf16", activation="gelu",
+               max_abs_err=e_z1[0], rel_err=e_z1[1],
+               out_max_abs_err=e_out[0], out_rel_err=e_out[1], ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               library_call="baddbmm bf16 + gelu + baddbmm",
+               bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops,
+               tflops=flops / ms / 1e9, x_library=ms / library_ms,
+               **_b8_plan(fused.moe_grouped_matmul_z1.last_plan, e, c, d,
+                          ff, z1=True))
+    log(f"[ep-kernel] grouped_ffn_z1 [{e}, {c}, {d}] x {ff} bf16: out "
+        f"{e_out[1]:.3g} of scale (tol {Z1_OUT_RTOL}), z1 {e_z1[1]:.3g} "
+        f"(tol {Z1_RTOL}); kernel {ms:.4f} ms ({row['tflops']:.1f} "
+        f"TFLOP/s, {row['x_library']:.2f}x the library), plain "
+        f"{plain_ms:.3f} ms, library {library_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}); {row['design']}, CTAs per launch "
+        f"{row['ctas']} on {card}")
+    del args
+    torch.cuda.empty_cache()
+    return [row] + _flash_form_rows(card, "ep", (
+        ("rank token shard", (16, 1024, 8, 128), True),))
+
+
+def phase_ep(card: str, device: str = "cuda", runs=None,
+             timeout: float = 600) -> dict:
+    """Expert parallelism at ep 2 on two gloo ranks (phase 5h): each run
+    of ``runs`` once at one rank here (no group), then both ranks in
+    their own processes (``ep_child``).  Each rank: the devices, steps
+    and host path; printed costs within EP_WIDE_COST_RTOL (the wide run)
+    or EP_COST_RTOL (the cuts) of the one-rank run's; the bytes a step
+    posted to the expert axis equal to the closed form; the replicated
+    leaves bitwise equal across the ranks after every step; on the cuts
+    the first step's gradients within EP_GRAD_RTOL of the one-rank
+    run's; on the card B8's training form launched once a block a step
+    at the rank's [El, ep C, d] x ff (none under dense dispatch), B5-B7
+    on the rank's token shard, and the loopback's bytes over one wide
+    block's exchanges within EP_WIRE_OVER of the bytes the ranks sent
+    off their own rank.  Prints each rank's launches, bytes, errors,
+    warm step ms (host clock: gloo's host staging), params held and
+    peak memory beside the one-rank run's, each line with the card's
+    name and power limit."""
+    t0 = time.monotonic()
+    if device == "cuda":
+        card = _card_limit()
+    runs = runs or EP_RUNS
+    tmp = tempfile.mkdtemp(prefix="dtx-ep-")
+    refs, grads = {}, {}
+    for name, entry in runs.items():
+        cfg = _ep_cfg(entry, device, 1)
+        ref = _tp_run(cfg, f"ep {name} one rank", device)
+        step = _ep_step(cfg, device, grads=name in EP_CUTS)
+        got = step.pop("grads")
+        if name in EP_CUTS:
+            grads[name] = os.path.join(tmp, f"{name}_grads.npz")
+            np.savez(grads[name], **got)
+        refs[name] = dict(ref, **step, **_ep_sizes(cfg))
+        del got
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        log(f"[ep] {name} one rank: {ref['wall_s']:.1f} s on {card}")
+    out = os.path.join(tmp, "ep.json")
+    args = json.dumps(dict(device=device, runs=runs, tmp=tmp, out=out,
+                           port=_free_port(), card=card, grads=grads))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ep-phase", args,
+         str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env, cwd=os.path.dirname(os.path.abspath(__file__)))
+        for r in range(EP_DEG)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        for line in text.splitlines():
+            log(f"  [ep {r}] {line}")
+        if p.returncode:
+            raise AssertionError(f"ep: rank {r} exited {p.returncode}")
+    ranks = []
+    for r in range(EP_DEG):
+        with open(f"{out}.{r}") as f:
+            ranks.append(json.load(f))
+    result, faults = {}, []
+    for name, entry in runs.items():
+        cfg = _ep_cfg(entry, device, EP_DEG)
+        ref = refs[name]
+        closed = _ep_closed_bytes(cfg)
+        mine = [rk[name] for rk in ranks]
+        bound = EP_WIDE_COST_RTOL if name == "ep_wide" else EP_COST_RTOL
+        for r, m in enumerate(mine):
+            if (m["devices"] != EP_DEG or m["steps"] != ref["steps"]
+                    or m["fast_loop"]):
+                faults.append(f"{name} rank {r}: {m['devices']} devices, "
+                              f"{m['steps']} steps, fast_loop "
+                              f"{m['fast_loop']}")
+            m["cost_rel_err"] = max(abs(a - b) / max(abs(b), 1e-6)
+                                    for a, b in zip(m["costs"], ref["costs"]))
+            if (len(m["costs"]) != len(ref["costs"])
+                    or m["cost_rel_err"] > bound):
+                faults.append(f"{name} rank {r}: costs {m['costs']} vs one "
+                              f"rank {ref['costs']} (> {bound})")
+            m["closed_bytes"] = closed
+            if m["step_bytes"] != closed:
+                faults.append(f"{name} rank {r}: {m['step_bytes']} B posted "
+                              f"a step, closed form {closed}")
+            if m["digests"] != mine[0]["digests"]:
+                faults.append(f"{name} rank {r}: the replicated leaves "
+                              f"differ from rank 0's after a step")
+            if name in EP_CUTS:
+                m["grad_worst"] = max((e, k) for k, e in
+                                      m["grad_errs"].items())
+                if not m["grad_worst"][0] <= EP_GRAD_RTOL:
+                    faults.append(f"{name} rank {r}: the first step's "
+                                  f"gradient {m['grad_worst'][1]} off the "
+                                  f"one-rank run's by "
+                                  f"{m['grad_worst'][0]:.3g} (> "
+                                  f"{EP_GRAD_RTOL})")
+            if "wire" in m:
+                sent = m["wire"]["posted"] * (EP_DEG - 1) // EP_DEG
+                if m["wire"]["posted"] != closed // cfg.num_blocks:
+                    faults.append(f"{name} rank {r}: {m['wire']['posted']} "
+                                  f"B posted a block, closed form "
+                                  f"{closed // cfg.num_blocks}")
+                lo = m["wire"]["loopback"]
+                if lo is not None and device == "cuda" and not (
+                        EP_DEG * sent <= lo <= EP_DEG * sent * EP_WIRE_OVER):
+                    faults.append(f"{name} rank {r}: the loopback carried "
+                                  f"{lo} B in a block, the ranks sent "
+                                  f"{EP_DEG * sent} off their own")
+            if device != "cuda":
+                continue
+            z1 = m["counts"]["moe_grouped_matmul_z1"]
+            want = cfg.num_blocks * m["steps"] if m["sparse"] else 0
+            if z1 != want:
+                faults.append(f"{name} rank {r}: B8's training form "
+                              f"launched {z1} times, predicted {want}")
+            b8 = [m["el"], EP_DEG * m["cap"], cfg.d_model, cfg.d_ff]
+            if m["sparse"] and list(m["b8"]["z1_shape"] or []) != b8:
+                faults.append(f"{name} rank {r}: B8 saw "
+                              f"{m['b8']['z1_shape']}, predicted {b8}")
+            for w in ("flash_forward", "flash_dq", "flash_dkv"):
+                if m["counts"][w] <= 0:
+                    faults.append(f"{name} rank {r}: {w} never launched")
+                want_shape = [m["rows"], cfg.seq_len, cfg.n_heads,
+                              cfg.d_model // cfg.n_heads]
+                if list(m["train_shapes"][w] or []) != want_shape:
+                    faults.append(f"{name} rank {r}: {w} saw "
+                                  f"{m['train_shapes'][w]}")
+        result[name] = dict(ranks=mine, ref=ref)
+        for r, m in enumerate(mine):
+            log(f"[ep] {name} rank {r} (ep {EP_DEG}, gloo on one card): "
+                f"B8 training form {m['counts']['moe_grouped_matmul_z1']} "
+                f"launches (plan {m['b8']['z1_plan']}, last at "
+                f"{m['b8']['z1_shape']}), primal form "
+                f"{m['counts']['moe_grouped_matmul']} (last at "
+                f"{m['b8']['primal_shape']}), B5/B6/B7 "
+                f"{m['counts']['flash_forward']}/{m['counts']['flash_dq']}/"
+                f"{m['counts']['flash_dkv']} at "
+                f"{m['train_shapes']['flash_dq']}, {m['step_bytes']} B "
+                f"posted a step to the expert axis (closed form {closed})"
+                + (f", one block's exchanges {m['wire']['posted']} B "
+                   f"posted and {m['wire']['loopback']} B carried by the "
+                   f"loopback for both ranks" if "wire" in m else "")
+                + (f", first step's gradient rel L2 err "
+                   f"{m['grad_errs']['all']:.3g} (worst leaf "
+                   f"{m['grad_worst'][1]} {m['grad_worst'][0]:.3g})"
+                   if name in EP_CUTS else "")
+                + f", replicated leaves bitwise equal across the ranks "
+                f"after each of {len(m['digests'])} steps, warm steps "
+                f"{[round(t, 2) for t in m['warm_step_ms']]} ms (host "
+                f"clock, gloo's host staging), {m['params_held']} params "
+                f"held ({m['expert_params_held']} of the experts), peak "
+                f"memory {m['peak_gib']} GiB, costs rel err "
+                f"{m['cost_rel_err']:.3g} on {card}")
+        log(f"[ep] {name} one rank: warm steps "
+            f"{[round(t, 2) for t in ref['warm_step_ms']]} ms, "
+            f"{ref['params_held']} params ({ref['expert_params_held']} of "
+            f"the experts), peak memory {ref['peak_gib']} GiB, B8 training "
+            f"form {ref['counts']['moe_grouped_matmul_z1']} launches on "
+            f"{card}")
+    if faults:
+        raise AssertionError("ep: " + "; ".join(faults))
+    shutil.rmtree(tmp, ignore_errors=True)
+    kernels = check_ep_kernels(card) if device == "cuda" else []
+    log(f"[ep] phase 5h took {time.monotonic() - t0:.1f} s on {card}")
+    return dict(runs=result, kernels=kernels)
 
 
 def phase_cli(card: str) -> dict:
@@ -5031,6 +5580,12 @@ def main() -> int:
         with open(f"{args['out']}.{rank}", "w") as f:
             json.dump(runs, f)
         return 0
+    if sys.argv[1:2] == ["--ep-phase"]:     # a rank of phase 5h
+        args, rank = json.loads(sys.argv[2]), int(sys.argv[3])
+        runs = ep_child(args, rank)
+        with open(f"{args['out']}.{rank}", "w") as f:
+            json.dump(runs, f)
+        return 0
     if sys.argv[1:2] == ["--site-phase"]:   # a rank of phase 5f
         args, rank = json.loads(sys.argv[2]), int(sys.argv[3])
         runs = site_child(args, rank)
@@ -5072,6 +5627,9 @@ def main() -> int:
     sp = phase_sp(card)
     for row in sp["kernels"]:
         dict(measured)[row["kernel"]].append(row)
+    ep = phase_ep(card)
+    for row in ep["kernels"]:
+        dict(measured)[row["kernel"]].append(row)
     cli = phase_cli(card)
     tfm_train = phase_transformer_train(card)
     phase_transformer_step(card)
@@ -5108,6 +5666,11 @@ def main() -> int:
                   for name, r in sp["runs"].items()
                   for i, m in enumerate(r["ranks"])},
                "sp_one_rank": sp["ref"]["counts"],
+               **{f"{name}_rank{i}": m["counts"]
+                  for name, r in ep["runs"].items()
+                  for i, m in enumerate(r["ranks"])},
+               **{f"{name}_one_rank": r["ref"]["counts"]
+                  for name, r in ep["runs"].items()},
                "mlp_cli": cli["counts"],
                "transformer_train": tfm_train["counts"],
                "moe_train": moe_train[0]["counts"],
@@ -5215,6 +5778,17 @@ def main() -> int:
                 f"memory {m['peak_gib']:.3f} GiB; one rank "
                 f"{statistics.median(sp['ref']['warm_step_ms']):.2f} ms, "
                 f"{sp['ref']['peak_gib']:.3f} GiB on {smi}")
+    for name, r in ep["runs"].items():
+        for i, m in enumerate(r["ranks"]):
+            log(f"[ep] {name} rank {i} of {EP_DEG} (gloo on one card): "
+                f"warm step {statistics.median(m['warm_step_ms']):.2f} ms "
+                f"(host clock, gloo's host staging), {m['step_bytes']} B "
+                f"posted a step to the expert axis (closed form "
+                f"{m['closed_bytes']}), {m['params_held']} params held, "
+                f"peak memory {m['peak_gib']:.3f} GiB; one rank "
+                f"{statistics.median(r['ref']['warm_step_ms']):.2f} ms, "
+                f"{r['ref']['params_held']} params, "
+                f"{r['ref']['peak_gib']:.3f} GiB on {smi}")
     for name, r in train["runs"].items():
         log(f"[train] {name}: median step {r['step_ms_median']:.3f} ms, "
             f"peak memory {r['peak_gib']:.3f} GiB on {smi}")

@@ -20,11 +20,12 @@ their combinations, ``validate_strategy_config``; multi-site local SGD
 ``--outer_momentum`` and ``--outer_quant``, with JAX's
 ``validate_local_sgd_config``; sequence parallelism
 ``--sequence_parallel`` and ``--sp_impl``, with JAX's refusals
-(``validate_sequence_config``); ``--compilation_cache`` is accepted and
-explained away), and refuses every other flag of the JAX trainer (exit
-2, naming ROADMAP.md) rather than ignore it: expert and pipeline
-parallelism (``--expert_parallel``, ``--pipeline_parallel``,
-``--virtual_stages``, ``--pp_schedule``) and ``--mnist_mirrors``.
+(``validate_sequence_config``); expert parallelism ``--expert_parallel``,
+with JAX's (``validate_expert_config``); ``--compilation_cache`` is
+accepted and explained away), and refuses every other flag of the JAX
+trainer (exit 2, naming ROADMAP.md) rather than ignore it: pipeline
+parallelism (``--pipeline_parallel``, ``--virtual_stages``,
+``--pp_schedule``) and ``--mnist_mirrors``.
 Both parsers take the multi-site family, as JAX's shared parser does.
 ``--device`` is the port's own: the card (``cuda``) unless ``cpu`` is
 asked for.
@@ -146,6 +147,9 @@ class Config:
                                     # split over a ('data', 'seq') layout
     sp_impl: str = "ring"           # ring (k/v blocks rotate) | ulysses
                                     # (head <-> seq all-to-all)
+    expert_parallel: int = 1        # MoE transformer only: the expert
+                                    # stacks split over a ('data',
+                                    # 'expert') layout
     sync_period: int = 1            # 1 = all-reduce every step; K > 1 =
                                     # local SGD, the async analog: each
                                     # rank's replica averaged every K
@@ -665,6 +669,11 @@ def build_train_parser() -> argparse.ArgumentParser:
                    help="sequence-parallel attention: the k/v ring "
                         "(send/recv) or the head<->seq all_to_all "
                         "(DeepSpeed-Ulysses style)")
+    p.add_argument("--expert_parallel", type=int,
+                   default=d.expert_parallel,
+                   help="MoE only: shard expert weights+FLOPs over a "
+                        "('data','expert') mesh (rank r at data index "
+                        "r // (ep*mp), expert index (r // mp) %% ep)")
     p.add_argument("--sync_period", type=int, default=d.sync_period,
                    help="K>1 = the LEGACY local-SGD async analog: "
                         "divergent replicas averaged every K steps "
@@ -980,7 +989,8 @@ def validate_local_sgd_config(cfg: Config) -> None:
                          "local-SGD analog; use one of the two "
                          "(--sites N --inner_steps K --outer_optimizer "
                          "sgd --outer_lr 1 reproduces --sync_period K)")
-    if cfg.fsdp or cfg.zero_opt or cfg.sequence_parallel > 1:
+    if (cfg.fsdp or cfg.zero_opt or cfg.sequence_parallel > 1
+            or cfg.expert_parallel > 1):
         raise ValueError("--sites composes with within-site data "
                          "parallelism only (no fsdp/zero_opt/"
                          "pipeline/sequence/expert parallelism)")
@@ -1034,6 +1044,35 @@ def validate_sequence_config(cfg: Config, seq_len: int) -> None:
             f"divide evenly over "
             f"sequence_parallel={cfg.sequence_parallel} "
             f"(use --sp_impl=ring for degrees beyond the head count)")
+
+
+# JAX's refusal of --fsdp, local SGD and sequence parallelism under
+# --expert_parallel (also the FSDP step's, should it be handed a mesh
+# with an expert axis)
+EP_COMPOSES_ONLY = ("--expert_parallel composes with data and tensor "
+                    "parallelism only (no fsdp, sync_period=1, "
+                    "sequence_parallel=1)")
+
+
+def validate_expert_config(cfg: Config) -> None:
+    """The ``--expert_parallel`` checks of the JAX trainer, its
+    messages: a degree of at least 1, a MoE to shard (``--num_experts``
+    > 0) whose experts split evenly over it, and no FSDP, local SGD or
+    sequence parallelism beside it.  (``--sites`` with it is refused by
+    ``validate_local_sgd_config``, as JAX's config does.)"""
+    if cfg.expert_parallel < 1:
+        raise ValueError(
+            f"expert_parallel={cfg.expert_parallel} must be >= 1")
+    if cfg.expert_parallel == 1:
+        return
+    if not cfg.num_experts:
+        raise ValueError("--expert_parallel requires --num_experts > 0")
+    if cfg.num_experts % cfg.expert_parallel:
+        raise ValueError(
+            f"num_experts={cfg.num_experts} must divide evenly over "
+            f"expert_parallel={cfg.expert_parallel}")
+    if cfg.fsdp or cfg.sync_period > 1 or cfg.sequence_parallel > 1:
+        raise ValueError(EP_COMPOSES_ONLY)
 
 
 def validate_resilience_config(cfg: Config) -> None:
@@ -1138,6 +1177,7 @@ def validate_train_config(cfg: Config) -> None:
     if cfg.moe_aux_weight < 0:
         raise ValueError(
             f"moe_aux_weight={cfg.moe_aux_weight} must be >= 0")
+    validate_expert_config(cfg)
     # the multi-site matrix, then the quantization one (--fp8_ffn,
     # --outer_quant), as the JAX trainer orders them
     validate_local_sgd_config(cfg)

@@ -13,6 +13,9 @@
   bf16 leaves decoded from their 16-bit containers.
 - ``mlp_params_from_numpy(np_params, spec, device)``: the same as
   ``params_from_numpy`` for an ``MLPSpec`` (``{W1, b1, ...}``).
+- ``expert_shard(params, spec, expert_parallel, expert_index)``: whole
+  params with each MoE block's expert leaves cut to one rank's experts
+  (the block of JAX's ``P('expert')`` that device r holds).
 - ``train_state_from_checkpoint(path, spec, optimizer, device)``: a
   whole training state (step, params, optimizer slots) of either
   family (an ``MLPSpec`` or a ``TransformerSpec``) out of a JAX
@@ -86,6 +89,16 @@ def mlp_params_from_numpy(np_params: Dict[str, np.ndarray],
                               spec.param_dtype, device)
 
 
+def expert_shard(params: tfm.Params, spec: tfm.TransformerSpec,
+                 expert_parallel: int, expert_index: int) -> tfm.Params:
+    """``params`` with every expert leaf (``tfm.expert_leaves``) cut to
+    experts ``[index * E / ep, (index + 1) * E / ep)`` on dim 0 (copies);
+    the router and the other leaves as they are."""
+    expert = set(tfm.expert_leaves(spec))
+    return {k: (v.chunk(expert_parallel, dim=0)[expert_index].clone()
+                if k in expert else v) for k, v in params.items()}
+
+
 def train_state_from_checkpoint(path: str, spec, optimizer,
                                 device: DeviceLike = None):
     """``(TrainState, step, epoch)`` from a JAX training checkpoint (a
@@ -139,4 +152,5 @@ def params_from_checkpoint(path: str, spec: tfm.TransformerSpec,
 
 
 __all__ = ["params_from_numpy", "params_from_checkpoint",
-           "mlp_params_from_numpy", "train_state_from_checkpoint"]
+           "mlp_params_from_numpy", "expert_shard",
+           "train_state_from_checkpoint"]

@@ -5,8 +5,11 @@
 The JAX trainer's flag names and defaults (``config.build_train_parser``)
 drive ``train/loop.run`` on the card; ``--device cpu`` runs on the CPU.
 A flag, value or mode of the JAX trainer that the port does not have yet
-exits 2 with a message naming ROADMAP.md.  The operator switches the JAX
-``main`` reads from the environment turn flags on as there:
+exits 2 with a message naming ROADMAP.md, and a combination of flags or
+a layout the JAX trainer refuses (``train/loop.preflight``) exits 2 with
+JAX's message, before any process group or data.  The operator
+switches the JAX ``main`` reads from the environment turn flags on as
+there:
 ``DTX_METRICS=1`` is ``--metrics``, ``DTX_FLIGHT=1`` is ``--flight`` and
 ``DTX_STATUS_PORT=P`` is ``--status_port=P`` (gated on the value: a
 templated ``DTX_METRICS=0`` stays off, and a flag already given wins).
@@ -47,11 +50,17 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     cfg = apply_env_switches(parse_train_config(argv))
     from .cluster import COMPILATION_CACHE_NOTE
-    from .train.loop import run
+    from .train.loop import preflight, run
 
     if any(a.split("=", 1)[0] == "--compilation_cache" for a in argv):
         print(COMPILATION_CACHE_NOTE)
 
+    try:
+        preflight(cfg)
+    except ValueError as e:
+        # a refused flag, combination or layout, before any training
+        print(f"dtx-train (torch): {e}", file=sys.stderr)
+        return 2
     try:
         run(cfg)
     except Unported as e:

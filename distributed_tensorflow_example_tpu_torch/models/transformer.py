@@ -54,7 +54,8 @@ its rows), the attention runs on the local heads (the flash kernels see
 product goes through ``model_copy`` and each row-split product's f32
 accumulator through ``model_psum`` before its bias (``_row_psum``), so
 the LayerNorms and the residual stream stay replicated.  A MoE block
-shards its attention only; the experts are replicated.  The decode
+shards its attention only; the experts are not split over the model
+axis (see expert parallelism below).  The decode
 (``decode_step``, ``generate``, ``generate_sharded``) runs the same way
 on a per-rank cache of the local heads.
 
@@ -67,8 +68,19 @@ blocks need no collective, and the classifier's pooled mean is completed
 with ``pmean_seq``, so the logits come out replicated over the axis.
 The MoE balance loss averages its statistics over the token-sharding
 axes (``aux_axes``: ``parallel/mesh.TokenAxes``, JAX's ``aux_axes``)
-before it combines them.  Not ported yet (ROADMAP.md): expert and
-pipeline parallelism.
+before it combines them.
+
+Expert parallelism (``expert_axis``: ``parallel/mesh.ExpertAxis``, JAX's
+``expert_axis`` name): each MoE block's expert leaves arrive as this
+rank's ``El = E / ep`` experts (``expert_leaves``).  Dense dispatch runs
+them on every token, the selection sliced at the rank's offset, and
+sums the partial outputs over the axis (``expert_psum``); its replicated
+input and selection enter through ``expert_copy``, so their gradients
+are summed over the axis (the balance loss's path to the router stays
+outside the copy).  Sparse dispatch routes locally, sends the ``[E, C,
+d]`` buffers to their experts' ranks (``expert_all_to_all``), runs the
+grouped FFN on ``[El, ep * C, d]`` and sends the rows back.  Not ported
+yet (ROADMAP.md): pipeline parallelism.
 """
 
 from __future__ import annotations
@@ -81,7 +93,8 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..ops.ring_attention import NEG_INF, attention, softmax
-from ..parallel.mesh import (model_copy, model_psum, pmean_seq,
+from ..parallel.mesh import (expert_all_to_all, expert_copy, expert_psum,
+                             model_copy, model_psum, pmean_seq,
                              pmean_tokens)
 from .mlp import _ACTIVATIONS, dot_f32
 
@@ -224,6 +237,18 @@ def param_pspecs(spec: TransformerSpec, model_axis=None
         leaf = name.split("_", 1)[1] if name.startswith("L") else None
         out[name] = _TP_DIMS.get(leaf) if model_axis and leaf else None
     return out
+
+
+# the per-expert leaves of a MoE block (dim 0 the expert), which expert
+# parallelism splits; the router Wr stays whole on every rank
+_EXPERT_LEAVES = ("We1", "be1", "We2", "be2")
+
+
+def expert_leaves(spec: TransformerSpec) -> list:
+    """The names of every MoE block's per-expert leaves (JAX's
+    ``_EXPERT_LEAVES``; none for the dense FFN)."""
+    return [n for n in param_shapes(spec)
+            if n.startswith("L") and n.split("_", 1)[1] in _EXPERT_LEAVES]
 
 
 def init(spec: TransformerSpec, seed: int = 0,
@@ -413,22 +438,34 @@ def _route_topk(spec: TransformerSpec, probs):
     return gates, idx
 
 
-def _moe_ffn(spec: TransformerSpec, bp: Params, a, act, cdt, aux_axes=None):
+def _moe_ffn(spec: TransformerSpec, bp: Params, a, act, cdt, aux_axes=None,
+             expert_axis=None):
     """Top-k MoE FFN by dense dispatch: every expert on every token, the
     gate-weighted one-hot selection combines them (exact: no capacity,
-    nothing dropped).  ``a`` [B, S, d] -> ``(out f32, aux)``."""
+    nothing dropped).  ``a`` [B, S, d] -> ``(out f32, aux)``.  Under
+    ``expert_axis`` the rank runs its ``El`` experts only, on the
+    selection's columns ``[index * El, (index + 1) * El)``, and the
+    partial outputs are summed over the axis; ``a`` and the selection
+    enter its experts through ``expert_copy`` (each rank's gradient
+    covers its experts only), the balance loss reads ``probs`` beside
+    it."""
     e = spec.num_experts
     probs = softmax(_cast_mm(a, bp["Wr"], cdt), dim=-1)     # [B, S, E]
     gates, idx = _route_topk(spec, probs)                   # [B, S, k]
     sel = torch.sum(torch.nn.functional.one_hot(idx, e).to(torch.float32)
                     * gates[..., None], dim=-2)             # [B, S, E]
+    el = bp["We1"].shape[0]
+    if expert_axis is not None:
+        off = expert_axis.index * el
+        sel = expert_copy(sel, expert_axis)[..., off:off + el]
+        a = expert_copy(a, expert_axis)
     b, s, _ = a.shape
     h1 = _cast_mm(a, bp["We1"].permute(1, 0, 2), cdt) \
-        + _f32(bp["be1"])                                   # [B, S, E, ff]
+        + _f32(bp["be1"])                                   # [B, S, El, ff]
     h1 = act(h1).to(cdt)
-    h2 = dot_f32(h1.reshape(b * s, e, -1).transpose(0, 1), bp["We2"], cdt)
-    h2 = h2.transpose(0, 1).reshape(b, s, e, -1) + _f32(bp["be2"])
-    out = torch.einsum("bsed,bse->bsd", h2, sel)
+    h2 = dot_f32(h1.reshape(b * s, el, -1).transpose(0, 1), bp["We2"], cdt)
+    h2 = h2.transpose(0, 1).reshape(b, s, el, -1) + _f32(bp["be2"])
+    out = expert_psum(torch.einsum("bsed,bse->bsd", h2, sel), expert_axis)
     return out, _load_balance_loss(spec, probs, idx[..., 0], aux_axes)
 
 
@@ -501,17 +538,27 @@ def _sparse_combine(h2, slot, gates, keep):
 
 
 def _moe_ffn_sparse(spec: TransformerSpec, bp: Params, a, act, cdt,
-                    aux_axes=None):
+                    aux_axes=None, expert_axis=None):
     """Capacity-limited top-k MoE FFN (Switch/GShard): ``_sparse_route``
     -> ``_grouped_expert_ffn`` -> ``_sparse_combine``; dropped units add
     nothing and the residual carries their tokens.  ``a`` [B, S, d] ->
     ``(out f32, aux)``; with ``capacity_factor >= E`` nothing drops and
-    it equals ``_moe_ffn`` up to the order of f32 sums."""
+    it equals ``_moe_ffn`` up to the order of f32 sums.  Under
+    ``expert_axis`` (with ``El < E`` experts here) the f32 buffers go to
+    their experts' ranks and back (``expert_all_to_all``), and the
+    grouped FFN runs on ``[El, ep * C, d]``; the capacity ``C`` is this
+    shard's."""
     b, s, d = a.shape
     buf, slot, gates, keep, probs, idx = _sparse_route(
         spec, a.reshape(b * s, d), bp["Wr"], cdt)
+    exchange = (expert_axis is not None
+                and bp["We1"].shape[0] != spec.num_experts)
+    if exchange:
+        buf = expert_all_to_all(buf, expert_axis)
     h2 = _grouped_expert_ffn(spec, buf, bp["We1"], bp["be1"], bp["We2"],
                              bp["be2"], act, cdt)
+    if exchange:
+        h2 = expert_all_to_all(h2, expert_axis, reverse=True)
     out = _sparse_combine(h2, slot, gates, keep)
     return out.reshape(b, s, d), _load_balance_loss(spec, probs, idx[:, 0],
                                                     aux_axes)
@@ -520,7 +567,7 @@ def _moe_ffn_sparse(spec: TransformerSpec, bp: Params, a, act, cdt,
 def _block_forward(spec: TransformerSpec, bp: Params, h, act, cdt,
                    kv_out: Optional[list] = None, dropout_rng=None,
                    block: int = 0, model_axis=None, seq_axis=None,
-                   aux_axes=None):
+                   aux_axes=None, expert_axis=None):
     """One pre-LN block on ``h`` [B, S, D] (f32): attention by
     ``_attend``, the attention residual add fused into ln2, then the
     FFN half, with dropout on both residual branches when
@@ -533,7 +580,7 @@ def _block_forward(spec: TransformerSpec, bp: Params, h, act, cdt,
     ``model_psum`` after ``Wo`` (and one after ``W2``).  Under
     ``seq_axis`` ``h`` is this rank's token block and the attention runs
     the sequence-parallel layout; ``aux_axes`` reach the balance
-    loss."""
+    loss, ``expert_axis`` the MoE FFN."""
     b, s, d = h.shape
     a = _ln(spec, h, bp["ln1_g"], bp["ln1_b"])
     qkv = _cast_mm(model_copy(a, model_axis), bp["Wqkv"], cdt) \
@@ -549,18 +596,20 @@ def _block_forward(spec: TransformerSpec, bp: Params, h, act, cdt,
                       spec, dropout_rng, 2 * block)
     a2, h = _ln_residual(spec, h, branch, bp["ln2_g"], bp["ln2_b"])
     return _ffn_block(spec, bp, h, act, cdt, a=a2, dropout_rng=dropout_rng,
-                      block=block, model_axis=model_axis, aux_axes=aux_axes)
+                      block=block, model_axis=model_axis, aux_axes=aux_axes,
+                      expert_axis=expert_axis)
 
 
 def _ffn_block(spec: TransformerSpec, bp: Params, h, act, cdt, a=None,
                dropout_rng=None, block: int = 0, model_axis=None,
-               aux_axes=None):
+               aux_axes=None, expert_axis=None):
     """The LN2 + FFN residual half of a block (dense, fp8 or MoE),
     shared by the training forward, the prefill and the decode step.
     ``h`` [B, S, D] -> ``(h, aux)``; ``a`` is the ln2 output when the
     caller already has it.  Under ``model_axis`` the dense FFN is
     column-split (``W1``) then row-split (``W2``, psummed); the MoE
-    FFN's experts are replicated; fp8 raises (JAX's guard)."""
+    FFN's experts are not split over it (over ``expert_axis`` under
+    expert parallelism); fp8 raises (JAX's guard)."""
     if a is None:
         a = _ln(spec, h, bp["ln2_g"], bp["ln2_b"])
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -573,7 +622,7 @@ def _ffn_block(spec: TransformerSpec, bp: Params, h, act, cdt, a=None,
             raise ValueError(
                 f"unknown moe_dispatch {spec.moe_dispatch!r}: expected "
                 f"'dense' or 'alltoall'")
-        ffn, aux = moe(spec, bp, a, act, cdt, aux_axes)
+        ffn, aux = moe(spec, bp, a, act, cdt, aux_axes, expert_axis)
     elif spec.fp8_ffn:
         if model_axis is not None:
             raise ValueError("fp8_ffn does not compose with tensor "
@@ -606,7 +655,7 @@ class _ScaleGrad(torch.autograd.Function):
 
 def apply(spec: TransformerSpec, params: Params, x: torch.Tensor,
           with_aux: bool = False, dropout_rng=None, model_axis=None,
-          seq_axis=None, aux_axes=None):
+          seq_axis=None, aux_axes=None, expert_axis=None):
     """Forward to f32 logits, differentiable by autograd: ``[B,
     num_classes]`` (classify: the blocks' mean over tokens through the
     head) or ``[B, S, vocab]`` (lm: per-position vocab logits).  ``x``:
@@ -620,7 +669,9 @@ def apply(spec: TransformerSpec, params: Params, x: torch.Tensor,
     ``pos`` sliced at its offset, the lm logits this block's
     ``[B, S/n, vocab]`` and the classifier's replicated over the axis.
     ``aux_axes`` (``parallel/mesh.TokenAxes``): the ranks the tokens
-    shard over, for the balance loss."""
+    shard over, for the balance loss.  ``expert_axis``
+    (``parallel/mesh.ExpertAxis``): ``params`` hold this rank's experts
+    and the MoE blocks run expert-parallel."""
     cdt = spec.compute_dtype
     b = x.shape[0]
     s, f = spec.seq_len, spec.d_feature
@@ -640,7 +691,7 @@ def apply(spec: TransformerSpec, params: Params, x: torch.Tensor,
         h, aux_i = _block_forward(spec, _block_params(params, i), h, act,
                                   cdt, dropout_rng=dropout_rng, block=i,
                                   model_axis=model_axis, seq_axis=seq_axis,
-                                  aux_axes=aux_axes)
+                                  aux_axes=aux_axes, expert_axis=expert_axis)
         aux = aux + aux_i
     h = _ln(spec, h, params["lnf_g"], params["lnf_b"])
     head = params

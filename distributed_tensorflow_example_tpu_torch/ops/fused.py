@@ -36,7 +36,9 @@ plan splits K;
 ``mlp_forward`` one per call, L launches for L layers);
 ``launch_counts`` and ``reset_launch_counts`` (from ``ops/_counts.py``)
 read and zero them, the flash-attention wrappers' included, so a run
-can show that its main path went through the kernels.  A CUDA graph's
+can show that its main path went through the kernels (the grouped FFN's
+two wrappers also keep their last launch's plan and ``[E, C, d, ff]`` in
+``last_plan`` and ``last_shape``).  A CUDA graph's
 replay runs no Python: the device-resident epoch (``parallel/
 epoch.py``) counts the launches of the step it captures once and adds
 them on each replay (``_counts.add_launches``).  The kernels capture as
@@ -475,6 +477,7 @@ def _grouped_forward(activation: str, cdt, buf, we1, be1, we2, be2,
     counted = moe_grouped_matmul_z1 if want_z1 else moe_grouped_matmul
     _counts.count(counted)
     counted.last_plan = plan
+    counted.last_shape = (e, c, d, ff)
     return out, z1
 
 

@@ -5,5 +5,7 @@ model groups; the Megatron operators): the synchronous step and the eval
 the ``('site', 'data')`` layout (``local_sgd``), sequence parallelism
 over the ``('data', 'seq'[, 'model'])`` layout (``mesh.build_seq_mesh``,
 its rotation and exchange; the attention in ``ops/ring_attention`` and
-``ops/ulysses_attention``), and the device-resident epoch (``epoch``),
-the trainer's default fast path."""
+``ops/ulysses_attention``), expert parallelism over the ``('data',
+'expert'[, 'model'])`` layout (``mesh.build_expert_mesh``, its exchange
+and sums; the dispatch in ``models/transformer``), and the
+device-resident epoch (``epoch``), the trainer's default fast path."""

@@ -87,6 +87,10 @@ SHUFFLE_SALT = 0x5EED
 SEQ_EPOCH_REFUSED = (
     "the device-resident epoch takes no seq axis (--sequence_parallel "
     "runs on the host path, as JAX's gate sends it; see ROADMAP.md)")
+# and expert parallelism too: the epoch's state is replicated whole
+EXPERT_EPOCH_REFUSED = (
+    "the device-resident epoch takes no expert axis (--expert_parallel "
+    "runs on the host path, as JAX's gate sends it; see ROADMAP.md)")
 
 
 def pack_images(images: np.ndarray) -> np.ndarray:
@@ -189,6 +193,8 @@ class _Runner:
         self.mesh = mesh if mesh is not None else mesh_lib.build_mesh(-1)
         if self.mesh.sp > 1:
             raise Unported(SEQ_EPOCH_REFUSED)
+        if self.mesh.ep > 1:
+            raise Unported(EXPERT_EPOCH_REFUSED)
         self.body = body or step_lib.make_sync_step_body(cfg, spec,
                                                          optimizer,
                                                          mesh=self.mesh)

@@ -44,7 +44,7 @@ from typing import Callable, Optional
 import torch
 
 from .. import cluster
-from ..config import SP_COMPOSES_ONLY
+from ..config import EP_COMPOSES_ONLY, SP_COMPOSES_ONLY
 from ..train.state import TrainState
 from ..utils.checkpoint import map_state
 from . import mesh as mesh_lib
@@ -200,6 +200,8 @@ def make_fsdp_step_body(cfg, spec, dp: int, optimizer,
     mesh = mesh if mesh is not None else mesh_lib.build_mesh(-1)
     if mesh.sp > 1:
         raise ValueError(SP_COMPOSES_ONLY)
+    if mesh.ep > 1:
+        raise ValueError(EP_COMPOSES_ONLY)
     param_dims = mesh_lib.param_pspecs(spec, mp)
     shapes = tp_local_shapes(full_template, param_dims, mp)
     names = sorted(shapes)

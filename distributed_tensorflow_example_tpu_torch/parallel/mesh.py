@@ -55,10 +55,26 @@ MoE balance loss averages its statistics (``token_axes``, JAX's
 ``aux_axes``).  ``seq_rotate`` and ``seq_all_to_all`` are the ring's
 ``ppermute`` and Ulysses' ``all_to_all``, each with its transpose as
 its backward; ``psum_tokens``/``pmean_seq``/``pmean_tokens`` the sums
-and means whose backward is JAX's transpose.  The other multi-axis
-builders (``build_expert_mesh``, ``build_stage_mesh``,
-``build_nd_mesh``) wait for expert and pipeline parallelism (ROADMAP.md
-Queue A).
+and means whose backward is JAX's transpose.
+
+Expert parallelism (``build_expert_mesh``, JAX's ``('data', 'expert'[,
+'model'])`` mesh): rank r sits at data index ``r // (ep * mp)``, expert
+index ``(r // mp) % ep`` and model index ``r % mp``.  Every MoE block's
+expert leaves (``We1``/``be1``/``We2``/``be2``) split dim 0 over the
+expert axis (``expert_sharded``; the router stays replicated, and under
+TP the experts are not split over 'model').  The **expert group** is
+the ranks of one data and model index.  Under sparse dispatch
+(``moe_dispatch='alltoall'``, ``sparse_ep_mode``) the tokens shard over
+data x expert too (``for_spec`` sets ``Mesh.ep_tokens``): a rank's rows
+are shard ``data_index * ep + expert_index`` of ``dp * ep``, and the
+token group is the ranks of one model index across data x expert, as
+for the seq axis.  Under dense dispatch the expert ranks of a data index
+share its rows and the token group is the data group.  The exchanges are
+``expert_all_to_all`` (JAX's tiled ``all_to_all``, its transpose as its
+backward), ``expert_copy`` and ``expert_psum`` (the dense dispatch's
+replicated input and partial-output sum), each tallied in ``EP_BYTES``
+where it moves a buffer.  The pipeline builders (``build_stage_mesh``,
+``build_nd_mesh``) wait for pipeline parallelism (ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -81,16 +97,19 @@ SITE_AXIS = "site"
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """``(sites x) dp x sp x mp`` ranks, this process at ``rank``; its
-    groups (None without a process group): ``data_group`` the ranks of
-    its model and seq index (within its site under ``sites`` > 1; the
-    world at ``mp`` 1, ``sp`` 1 and one site, None when ``dp`` is 1
-    under sites), ``model_group`` those of its data and seq index (None
-    at ``mp`` 1: no model axis to reduce over), ``site_group`` those of
-    its data index across the sites (None at one site), ``seq_group``
-    those of its data and model index (None at ``sp`` 1) and
-    ``token_group`` those of its model index across data and seq (the
-    data group at ``sp`` 1)."""
+    """``(sites x) dp x (sp | ep) x mp`` ranks, this process at
+    ``rank``; its groups (None without a process group): ``data_group``
+    the ranks of its model and seq (or expert) index (within its site
+    under ``sites`` > 1; the world at ``mp`` 1, ``sp`` and ``ep`` 1 and
+    one site, None when ``dp`` is 1 under sites), ``model_group`` those
+    of its data and seq (or expert) index (None at ``mp`` 1: no model
+    axis to reduce over), ``site_group`` those of its data index across
+    the sites (None at one site), ``seq_group`` those of its data and
+    model index (None at ``sp`` 1), ``expert_group`` likewise on the
+    expert axis (None at ``ep`` 1), and ``mid_token_group`` those of its
+    model index across data and the seq or expert axis.
+    ``ep_tokens``: the tokens shard over the expert axis too (sparse
+    dispatch; ``for_spec`` sets it)."""
     dp: int
     rank: int
     mp: int = 1
@@ -104,17 +123,29 @@ class Mesh:
     sp: int = 1
     seq_group: object = dataclasses.field(default=None, compare=False,
                                           repr=False)
-    seq_token_group: object = dataclasses.field(default=None, compare=False,
+    mid_token_group: object = dataclasses.field(default=None, compare=False,
                                                 repr=False)
+    ep: int = 1
+    expert_group: object = dataclasses.field(default=None, compare=False,
+                                             repr=False)
+    ep_tokens: bool = False
+
+    @property
+    def _inner(self) -> int:
+        """Ranks a data index spans: the seq or expert axis x model."""
+        return self.sp * self.ep * self.mp
 
     @property
     def data_index(self) -> int:
-        return (self.rank % (self.dp * self.sp * self.mp)) \
-            // (self.sp * self.mp)
+        return (self.rank % (self.dp * self._inner)) // self._inner
 
     @property
     def seq_index(self) -> int:
         return (self.rank // self.mp) % self.sp
+
+    @property
+    def expert_index(self) -> int:
+        return (self.rank // self.mp) % self.ep
 
     @property
     def model_index(self) -> int:
@@ -122,17 +153,49 @@ class Mesh:
 
     @property
     def site_index(self) -> int:
-        return self.rank // (self.dp * self.sp * self.mp)
+        return self.rank // (self.dp * self._inner)
 
     @property
     def devices(self) -> int:
-        return self.sites * self.dp * self.sp * self.mp
+        return self.sites * self.dp * self._inner
+
+    @property
+    def shards(self) -> int:
+        """The batch shards within a site: dp, x ep under sparse
+        dispatch (JAX's ``batch_layout`` count; not the seq axis, which
+        splits tokens, not rows)."""
+        return self.dp * (self.ep if self.ep_tokens else 1)
+
+    @property
+    def shard_index(self) -> int:
+        """This rank's batch shard within its site."""
+        if self.ep_tokens:
+            return self.data_index * self.ep + self.expert_index
+        return self.data_index
+
+    @property
+    def token_index(self) -> int:
+        """This rank's index on the axis besides 'data' its tokens
+        shard over: the seq index, the expert index under sparse
+        dispatch, else 0."""
+        return self.seq_index if self.sp > 1 else (
+            self.expert_index if self.ep_tokens else 0)
 
     @property
     def token_group(self):
-        """The group the gradients are summed over: the ranks of this
-        model index across the data and seq axes."""
-        return self.seq_token_group if self.sp > 1 else self.data_group
+        """The group the gradients of the replicated leaves are summed
+        over: the ranks of this model index across the data axis and
+        the seq axis (or the expert axis under sparse dispatch)."""
+        if self.sp > 1 or self.ep_tokens:
+            return self.mid_token_group
+        return self.data_group
+
+    @property
+    def batch_group(self):
+        """The group a per-shard cost and an eval count are summed
+        over: the ranks holding distinct rows (JAX's batch axes; a seq
+        shard's cost is the whole sequence's already)."""
+        return self.mid_token_group if self.ep_tokens else self.data_group
 
 
 # the sub-groups of each (world group, dp, mp), beside the world group
@@ -213,15 +276,16 @@ def _site_groups(sites: int, dp: int, rank: int):
     return data[rank // dp], site[rank % dp]
 
 
-def _seq_groups(dp: int, sp: int, mp: int, rank: int):
-    """``(data, model, seq, token)`` groups of ``rank`` on the ('data',
-    'seq', 'model') layout, every family created in the same order on
-    every rank: the model groups (consecutive ranks; None at mp 1), the
-    data groups (one a seq and model index), the seq groups (one a data
-    and model index), the token groups (one a model index; the world at
-    mp 1)."""
+def _mid_groups(axis: str, dp: int, sp: int, mp: int, rank: int):
+    """``(data, model, mid, token)`` groups of ``rank`` on the ('data',
+    ``axis``, 'model') layout (``axis`` 'seq' or 'expert', of size
+    ``sp``), every family created in the same order on every rank: the
+    model groups (consecutive ranks; None at mp 1), the data groups (one
+    a middle and model index), the middle axis's groups (one a data and
+    model index), the token groups (one a model index; the world at mp
+    1)."""
     world = dist.group.WORLD
-    key = ("seq", id(world), dp, sp, mp)
+    key = (axis, id(world), dp, sp, mp)
     n = dp * sp * mp
 
     def at(d, s, m):
@@ -278,10 +342,71 @@ def build_seq_mesh(data_parallel: int, sequence_parallel: int,
             f"the mesh, so their product must be the world size {n}")
     groups = (None, None, None, None)
     if world is None and cluster.collectives():
-        groups = _seq_groups(dp, sp, mp, r)
+        groups = _mid_groups(SEQ_AXIS, dp, sp, mp, r)
     return Mesh(dp=dp, rank=r, mp=mp, data_group=groups[0],
                 model_group=groups[1], sp=sp, seq_group=groups[2],
-                seq_token_group=groups[3])
+                mid_token_group=groups[3])
+
+
+def build_expert_mesh(data_parallel: int, expert_parallel: int,
+                      world: int | None = None, rank: int | None = None,
+                      model_parallel: int = 1) -> Mesh:
+    """The ('data', 'expert'[, 'model']) layout over ``world`` ranks
+    (default: the process group's) for expert-parallel MoE training:
+    rank r at data index ``r // (ep * mp)``, expert index ``(r // mp) %
+    ep``, model index ``r % mp``, as JAX's ``build_expert_mesh`` places
+    device r.  ``data_parallel`` -1 is ``world / (ep * mp)`` (JAX's
+    trainer rule); JAX's messages for a bad degree or a mesh larger than
+    the world, the port's own for one that leaves ranks off.  The groups
+    are made when a process group is up and ``world`` is not given.
+    The tokens shard over the data axis alone until ``for_spec`` sees a
+    sparse-dispatch MoE."""
+    n = cluster.process_count() if world is None else world
+    r = cluster.process_index() if rank is None else rank
+    ep, mp = expert_parallel, model_parallel
+    dp = (max(n // (ep * mp), 1) if data_parallel == -1
+          else data_parallel)
+    axes = {DATA_AXIS: dp, EXPERT_AXIS: ep}
+    if mp > 1:
+        axes[MODEL_AXIS] = mp
+    if any(v < 1 for v in axes.values()):
+        raise ValueError(f"mesh axes must be >= 1, got {axes}")
+    need = dp * ep * mp
+    if need > n:
+        raise ValueError(
+            f"mesh {'x'.join(map(str, axes.values()))} over "
+            f"{tuple(axes)} needs {need} devices, have {n}")
+    if need < n:
+        raise ValueError(
+            f"data_parallel={dp} x expert_parallel={ep} x "
+            f"model_parallel={mp} leaves {n - need} of {n} ranks off the "
+            f"mesh: in the PyTorch port every rank plays one device of "
+            f"the mesh, so their product must be the world size {n}")
+    groups = (None, None, None, None)
+    if world is None and cluster.collectives():
+        groups = _mid_groups(EXPERT_AXIS, dp, ep, mp, r)
+    return Mesh(dp=dp, rank=r, mp=mp, data_group=groups[0],
+                model_group=groups[1], ep=ep, expert_group=groups[2],
+                mid_token_group=groups[3])
+
+
+def sparse_ep_mode(mesh: Mesh, spec) -> bool:
+    """Whether the tokens shard over the expert axis too (JAX's
+    ``sparse_ep_mode``): an expert axis and a sparse-dispatch MoE
+    transformer, the GShard layout whose exchange carries distinct
+    tokens; dense dispatch replicates the batch over the axis."""
+    from ..models.transformer import TransformerSpec
+
+    return (mesh.ep > 1 and isinstance(spec, TransformerSpec)
+            and spec.num_experts > 0 and spec.moe_dispatch == "alltoall")
+
+
+def for_spec(mesh: Mesh, spec) -> Mesh:
+    """``mesh`` with ``ep_tokens`` set as ``spec``'s dispatch asks
+    (``sparse_ep_mode``)."""
+    sparse = sparse_ep_mode(mesh, spec)
+    return mesh if mesh.ep_tokens == sparse else dataclasses.replace(
+        mesh, ep_tokens=sparse)
 
 
 def build_site_mesh(sites: int, data_parallel: int = -1,
@@ -354,7 +479,8 @@ def world_all_reduce(t: torch.Tensor) -> None:
 def groups(mesh: Mesh) -> list:
     """The distinct groups the mesh's collectives run over."""
     return [g for g in (mesh.data_group, mesh.model_group, mesh.site_group,
-                        mesh.seq_group, mesh.seq_token_group)
+                        mesh.seq_group, mesh.mid_token_group,
+                        mesh.expert_group)
             if g is not None]
 
 
@@ -363,35 +489,45 @@ def uses_gloo(mesh: Mesh) -> bool:
     return any(dist.get_backend(g) == "gloo" for g in groups(mesh))
 
 
-class _ModelPsum(torch.autograd.Function):
-    """All-reduce over the model group in the forward, identity in the
-    backward (the transpose of JAX's ``psum`` of a varying value)."""
+def _group_sum(t: torch.Tensor, group, tally: Optional[str]
+               ) -> torch.Tensor:
+    """``t`` summed over ``group`` (a new tensor), its bytes added to
+    ``EP_BYTES[tally]`` when ``tally`` names an entry."""
+    out = t.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    if tally is not None:
+        EP_BYTES[tally] += out.numel() * out.element_size()
+    return out
+
+
+class _GroupPsum(torch.autograd.Function):
+    """All-reduce over a group (the model group, or the expert group) in
+    the forward, identity in the backward (the transpose of JAX's
+    ``psum`` of a varying value)."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
+    def forward(ctx, x, group, tally=None):
+        return _group_sum(x, group, tally)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
-class _ModelCopy(torch.autograd.Function):
-    """Identity in the forward, all-reduce over the model group in the
-    backward (the transpose of JAX's implicit ``pvary``)."""
+class _GroupCopy(torch.autograd.Function):
+    """Identity in the forward, all-reduce over a group in the backward
+    (the transpose of JAX's implicit ``pvary``: what ``shard_map``'s
+    transpose sums for a replicated value feeding each rank's own
+    shard of the work)."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, tally=None):
+        ctx.group, ctx.tally = group, tally
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return _group_sum(g, ctx.group, ctx.tally), None, None
 
 
 def _check_group(group) -> None:
@@ -406,14 +542,14 @@ def model_psum(x: torch.Tensor, group) -> torch.Tensor:
     """The row-split product's partial sums added over ``group`` (the
     model group; None: ``x`` as it is)."""
     _check_group(group)
-    return x if group is None else _ModelPsum.apply(x, group)
+    return x if group is None else _GroupPsum.apply(x, group)
 
 
 def model_copy(x: torch.Tensor, group) -> torch.Tensor:
     """A replicated activation entering a column-split product: its
     gradient is summed over ``group`` (None: ``x`` as it is)."""
     _check_group(group)
-    return x if group is None else _ModelCopy.apply(x, group)
+    return x if group is None else _GroupCopy.apply(x, group)
 
 
 def tp_axis(spec, model_parallel: int) -> str | None:
@@ -475,6 +611,20 @@ def param_pspecs(spec, model_parallel: int = 1) -> Dict[str, Optional[int]]:
         out[f"W{i}"] = {"col": 1, "row": 0}.get(st)
         out[f"b{i}"] = 0 if st == "col" else None
     return out
+
+
+def expert_sharded(spec, expert_parallel: int) -> frozenset:
+    """The param names split on dim 0 over the expert axis (JAX's
+    ``param_pspecs(expert_axis=...)``): every MoE block's ``We1``,
+    ``be1``, ``We2`` and ``be2`` at ``expert_parallel`` > 1, none
+    otherwise.  They are not split over the model axis
+    (``param_pspecs`` gives them None)."""
+    from ..models import transformer
+
+    if expert_parallel <= 1 or not isinstance(
+            spec, transformer.TransformerSpec):
+        return frozenset()
+    return frozenset(transformer.expert_leaves(spec))
 
 
 def state_pspecs(param_dims: Dict[str, Optional[int]]):
@@ -696,8 +846,9 @@ class TokenAxes:
 
 def token_axes(mesh: Mesh) -> Optional[TokenAxes]:
     """The mesh's token-sharding axes (None when one rank holds every
-    token, or without a process group)."""
-    n = mesh.dp * mesh.sp
+    token, or without a process group): data x seq, data x expert under
+    sparse dispatch, else data."""
+    n = mesh.shards * mesh.sp
     if n == 1 or mesh.token_group is None:
         return None
     return TokenAxes(mesh.token_group, n, mesh.sp)
@@ -757,23 +908,137 @@ def seq_columns(mesh: Mesh, length: int) -> slice:
 def batch_layout(mesh: Mesh, global_batch: int) -> slice:
     """The rows of a global batch this rank takes: the batch splits over
     the data axis into dp equal blocks, and the rank at data index d
-    takes block d (the model ranks of one data index share it), as
-    JAX's ``P('data')`` gives device r its block; under ``sites`` it
-    splits over ``sites x dp`` shards (``P(('site', 'data'))``), the
-    rank at site s and data index d taking shard ``s * dp + d``."""
-    shards = mesh.sites * mesh.dp
+    takes block d (the model ranks of one data index share it, and the
+    seq and the dense dispatch's expert ranks too), as JAX's
+    ``P('data')`` gives device r its block; under ``sites`` it splits
+    over ``sites x dp`` shards (``P(('site', 'data'))``), the rank at
+    site s and data index d taking shard ``s * dp + d``; under sparse
+    dispatch over ``dp x ep`` (``P(('data', 'expert'))``), the rank at
+    data index d and expert index x taking shard ``d * ep + x``."""
+    shards = mesh.sites * mesh.shards
     if global_batch % shards:
         over = (f"sites={mesh.sites} x " if mesh.sites > 1 else "")
+        ep = (f" x expert_parallel={mesh.ep}" if mesh.ep_tokens else "")
         raise ValueError(f"global batch {global_batch} does not split over "
-                         f"{over}data_parallel={mesh.dp}")
+                         f"{over}data_parallel={mesh.dp}{ep}")
     b = global_batch // shards
-    i = mesh.site_index * mesh.dp + mesh.data_index
+    i = mesh.site_index * mesh.shards + mesh.shard_index
     return slice(i * b, (i + 1) * b)
+
+
+# ---------------------------------------------------------------------------
+# the expert axis's collectives
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertAxis:
+    """The expert axis as the MoE blocks see it (JAX's ``expert_axis``
+    name inside ``shard_map``): its group (None: no process group, every
+    collective the identity), its size and this rank's index on it."""
+    group: object
+    size: int
+    index: int
+
+
+def expert_axis(mesh: Mesh) -> Optional[ExpertAxis]:
+    """The mesh's expert axis, or None at ``ep`` 1."""
+    if mesh.ep == 1:
+        return None
+    return ExpertAxis(mesh.expert_group, mesh.ep, mesh.expert_index)
+
+
+# bytes this process posted to the expert axis's collectives (the
+# tensors handed to them, not what the transport moved): "all_to_all"
+# the sparse dispatch's exchanges, "psum"/"copy" the dense dispatch's
+# all-reduces; read and zeroed by the code that measures a run
+EP_BYTES = {"all_to_all": 0, "psum": 0, "copy": 0}
+
+
+def expert_psum(x: torch.Tensor, axis: Optional[ExpertAxis]) -> torch.Tensor:
+    """The local experts' partial outputs summed over the expert axis
+    (``x`` itself without a live axis)."""
+    if not _live(axis):
+        return x
+    return _GroupPsum.apply(x, axis.group, "psum")
+
+
+def expert_copy(x: torch.Tensor, axis: Optional[ExpertAxis]) -> torch.Tensor:
+    """A value replicated over the expert axis entering this rank's
+    experts: its gradient is summed over the axis (``x`` itself without
+    a live axis)."""
+    if not _live(axis):
+        return x
+    return _GroupCopy.apply(x, axis.group, "copy")
+
+
+def _exchange_experts(x: torch.Tensor, axis: ExpertAxis) -> torch.Tensor:
+    """``all_to_all_single`` of ``x`` ``[ep, ...]``: chunk j goes to
+    expert index j, and chunk j of the result came from expert index
+    j."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=axis.group)
+    EP_BYTES["all_to_all"] += x.numel() * x.element_size()
+    return out
+
+
+def _dispatch(buf: torch.Tensor, axis: ExpertAxis) -> torch.Tensor:
+    """``[E, C, d]`` -> ``[El, ep * C, d]``: expert group j (experts
+    ``[j * El, (j + 1) * El)``) goes to expert index j; each rank gets
+    its experts' rows from every shard, shard j's at ``[j * C, (j + 1)
+    * C)`` of the capacity axis (JAX's ``all_to_all(split_axis=0,
+    concat_axis=2, tiled=True)``)."""
+    e, c, d = buf.shape
+    ep = axis.size
+    got = _exchange_experts(buf.reshape(ep, e // ep, c, d), axis)
+    return got.transpose(0, 1).reshape(e // ep, ep * c, d)
+
+
+def _combine(h: torch.Tensor, axis: ExpertAxis) -> torch.Tensor:
+    """``[El, ep * C, d]`` -> ``[E, C, d]``: capacity block j goes back
+    to expert index j, which gets its tokens' rows from every expert
+    group in expert order (JAX's ``all_to_all(split_axis=1,
+    concat_axis=0, tiled=True)``)."""
+    el, n, d = h.shape
+    ep = axis.size
+    send = h.reshape(el, ep, n // ep, d).transpose(0, 1)
+    return _exchange_experts(send, axis).reshape(ep * el, n // ep, d)
+
+
+class _ExpertAllToAll(torch.autograd.Function):
+    """The dispatch (``reverse`` False) or the combine; the backward of
+    each is the other (the transpose of a tiled ``all_to_all`` is the
+    ``all_to_all`` with the split and concat axes swapped)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, reverse):
+        ctx.axis, ctx.reverse = axis, reverse
+        return (_combine if reverse else _dispatch)(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = _dispatch if ctx.reverse else _combine
+        return back(g, ctx.axis), None, None
+
+
+def expert_all_to_all(x: torch.Tensor, axis: Optional[ExpertAxis],
+                      reverse: bool = False) -> torch.Tensor:
+    """The sparse dispatch's exchange over the expert axis,
+    differentiable: ``[E, C, d]`` (this shard's capacity buffers) ->
+    ``[El, ep * C, d]`` (this rank's experts' rows from every shard), or
+    with ``reverse`` back; ``x`` itself without a live axis."""
+    if not _live(axis):
+        return x
+    return _ExpertAllToAll.apply(x, axis, reverse)
 
 
 __all__ = ["DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS", "EXPERT_AXIS",
            "STAGE_AXIS", "SITE_AXIS", "Mesh", "build_mesh", "build_site_mesh",
-           "build_seq_mesh", "SeqAxis", "seq_axis",
+           "build_seq_mesh", "build_expert_mesh", "sparse_ep_mode",
+           "for_spec", "expert_sharded", "ExpertAxis", "expert_axis",
+           "expert_psum", "expert_copy", "expert_all_to_all", "EP_BYTES",
+           "SeqAxis", "seq_axis",
            "rotate_start", "seq_rotate", "seq_all_to_all", "psum_seq",
            "pmean_seq", "TokenAxes", "token_axes", "pmean_tokens",
            "seq_columns", "SEQ_BYTES",

@@ -59,8 +59,21 @@ token and sum over the seq group (``_lm_stats``), and the gradients
 are summed over the token group (data x seq at one model index: the
 transpose of the params' ``pvary`` over both axes), then divided by
 dp.  The MoE balance loss averages its statistics over the token group
-at any dp (JAX's ``aux_axes``).  Expert and pipeline parallelism are
-not ported (ROADMAP.md Queue A).
+at any dp (JAX's ``aux_axes``).
+
+Expert parallelism (``mesh.ep`` > 1, JAX's ``('data', 'expert'[,
+'model'])`` mesh): the forward runs ``apply(expert_axis=...)`` on this
+rank's experts.  Under sparse dispatch each rank takes shard
+``data_index * ep + expert_index`` of the batch (``mesh.ep_tokens``),
+the balance loss and the cost average over data x expert and the
+dropout masks differ per expert index; under dense dispatch the expert
+ranks of a data index share its rows and masks.  The gradients are
+summed by leaf: the expert leaves (``mesh_lib.expert_sharded``) over the
+data group, which holds the same experts, every other leaf over the
+token group; all are then divided by the batch shards (dp x ep sparse,
+dp dense).  The expert leaves' squared norms and non-finite counts are
+summed over the expert group, beside the model group's sum of the TP
+leaves.  Pipeline parallelism is not ported (ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -92,18 +105,20 @@ def param_shapes(spec) -> dict:
 def forward_local(spec, params, x, use_pallas: bool = False,
                   dropout_rng: Optional[int] = None, with_aux: bool = False,
                   styles=None, model_axis=None, seq_axis=None,
-                  aux_axes=None):
+                  aux_axes=None, expert_axis=None):
     """Logits: the transformer's ``apply`` (its kernels chosen on the
     spec; Megatron TP over ``model_axis``, sequence parallelism over
-    ``seq_axis``), or the MLP's fused kernel under ``--pallas`` for the
-    activations it supports when every layer is replicated (JAX's gate:
-    under TP the MLP's products are plain), else the MLP forward with
-    ``styles``.  ``with_aux`` (transformer only) returns ``(logits, the
-    MoE balance loss)``, its statistics averaged over ``aux_axes``."""
+    ``seq_axis``, expert parallelism over ``expert_axis``), or the MLP's
+    fused kernel under ``--pallas`` for the activations it supports when
+    every layer is replicated (JAX's gate: under TP the MLP's products
+    are plain), else the MLP forward with ``styles``.  ``with_aux``
+    (transformer only) returns ``(logits, the MoE balance loss)``, its
+    statistics averaged over ``aux_axes``."""
     if isinstance(spec, tfm.TransformerSpec):
         return tfm.apply(spec, params, x, with_aux=with_aux,
                          dropout_rng=dropout_rng, model_axis=model_axis,
-                         seq_axis=seq_axis, aux_axes=aux_axes)
+                         seq_axis=seq_axis, aux_axes=aux_axes,
+                         expert_axis=expert_axis)
     replicated = not styles or all(st == "rep" for st in styles)
     if (use_pallas and replicated
             and spec.activation in fused.SUPPORTED_MLP_ACTIVATIONS):
@@ -145,7 +160,8 @@ def _lm_stats(spec, logits, tokens, seq_axis=None):
 def _loss_and_acc(spec, params, x, y, naive: bool, use_pallas: bool,
                   label_smoothing: float = 0.0, remat: bool = False,
                   dropout_rng: Optional[int] = None, styles=None,
-                  model_axis=None, seq_axis=None, aux_axes=None):
+                  model_axis=None, seq_axis=None, aux_axes=None,
+                  expert_axis=None):
     """``(objective, (cost, accuracy))`` on one batch.  The cost is the
     classify objective's cross entropy, or for the lm objective the mean
     next-token cross entropy (``y`` unused); the objective, which the
@@ -155,7 +171,8 @@ def _loss_and_acc(spec, params, x, y, naive: bool, use_pallas: bool,
     (``torch.utils.checkpoint``, the JAX ``jax.checkpoint`` around the
     forward).  ``seq_axis``: sequence parallelism (the lm statistics
     over the seq group); ``aux_axes``: the token-sharding ranks the
-    balance loss averages over (only when it weighs in)."""
+    balance loss averages over (only when it weighs in);
+    ``expert_axis``: expert parallelism."""
     is_tfm = isinstance(spec, tfm.TransformerSpec)
     aux_w = spec.aux_loss_weight if is_tfm else 0.0
     aux_axes = aux_axes if aux_w > 0 else None
@@ -164,7 +181,8 @@ def _loss_and_acc(spec, params, x, y, naive: bool, use_pallas: bool,
         if is_tfm:
             return forward_local(spec, p, xx, use_pallas, dropout_rng,
                                  with_aux=True, model_axis=model_axis,
-                                 seq_axis=seq_axis, aux_axes=aux_axes)
+                                 seq_axis=seq_axis, aux_axes=aux_axes,
+                                 expert_axis=expert_axis)
         return forward_local(spec, p, xx, use_pallas, dropout_rng,
                              styles=styles, model_axis=model_axis), 0.0
 
@@ -202,9 +220,11 @@ def make_step_rng(cfg, spec, data_index: Optional[int] = None,
                   seq_index: int = 0) -> Callable:
     """``(state, step_index) -> the step's dropout seed`` (an int; None
     when the spec does not drop): seed x step, the data index (default:
-    the process index) and the seq index, so every token shard (each
-    data and seq index) draws its own masks while the model ranks of one
-    shard, whose activations are replicated, draw the same — the
+    the process index) and the seq index (``Mesh.token_index``: the
+    expert index under sparse expert dispatch), so every token shard
+    (each data and seq or expert index) draws its own masks while the
+    model ranks of one shard, and the dense dispatch's expert ranks of a
+    data index, whose activations are replicated, draw the same — the
     counterpart of the JAX ``make_step_rng``, which folds in every
     token-sharding axis (the same stream after a resume; other bits).
     The seed, the step, the data index and the seq index are folded in
@@ -246,55 +266,71 @@ def leaf_names(spec) -> list:
     return [f"[{k!r}]" for k in sorted(param_shapes(spec))]
 
 
-def _model_sum(v: torch.Tensor, names, sharded, mesh) -> torch.Tensor:
+def _shard_sum(v: torch.Tensor, names, sharded, mesh,
+               expert=()) -> torch.Tensor:
     """``v`` [n_leaves] with the entries of the leaves split over the
-    model axis (``sharded``) summed over the model group, one
-    all-reduce; the replicated leaves' entries as they are (JAX's
+    model axis (``sharded``) summed over the model group and those split
+    over the expert axis (``expert``) over the expert group, one
+    all-reduce each; the replicated leaves' entries as they are (JAX's
     ``_leaf_reduce``: each leaf psummed over the axes its spec names)."""
-    if not sharded or mesh is None or mesh.mp == 1:
+    if mesh is None:
         return v
-    mask = torch.tensor([k in sharded for k in names], device=v.device)
-    part = torch.where(mask, v, torch.zeros_like(v))
-    mesh_lib.model_all_reduce(part, mesh)
-    return torch.where(mask, part, v)
+    for split, group in ((sharded, mesh.model_group),
+                         (expert, mesh.expert_group)):
+        if not split or group is None:
+            continue
+        mask = torch.tensor([k in split for k in names], device=v.device)
+        part = torch.where(mask, v, torch.zeros_like(v))
+        dist.all_reduce(part, group=group)
+        v = torch.where(mask, part, v)
+    return v
 
 
-def _leaf_norms(tree: dict, names, sharded=(), mesh=None) -> torch.Tensor:
+def _leaf_norms(tree: dict, names, sharded=(), mesh=None,
+                expert=()) -> torch.Tensor:
     """Per-leaf L2 norms as one [n_leaves] f32 vector, in ``names``
-    order, of the full leaves under TP (``_model_sum``)."""
+    order, of the full leaves under TP and EP (``_shard_sum``)."""
     sq = torch.stack([torch.sum(torch.square(tree[k].to(torch.float32)))
                       for k in names])
-    return torch.sqrt(_model_sum(sq, names, sharded, mesh))
+    return torch.sqrt(_shard_sum(sq, names, sharded, mesh, expert))
 
 
-def _leaf_nonfinite(tree: dict, names, sharded=(), mesh=None
-                    ) -> torch.Tensor:
+def _leaf_nonfinite(tree: dict, names, sharded=(), mesh=None,
+                    expert=()) -> torch.Tensor:
     """Per-leaf non-finite element counts as one [n_leaves] int32
-    vector, in ``names`` order, of the full leaves under TP.  ``g - g``
-    is 0 exactly where ``g`` is finite and NaN where it is an inf or a
-    NaN: two elementwise passes where ``~isfinite`` takes five on the
-    card."""
-    return _model_sum(torch.stack(
+    vector, in ``names`` order, of the full leaves under TP and EP.
+    ``g - g`` is 0 exactly where ``g`` is finite and NaN where it is an
+    inf or a NaN: two elementwise passes where ``~isfinite`` takes five
+    on the card."""
+    return _shard_sum(torch.stack(
         [torch.sum(torch.isnan(tree[k] - tree[k]), dtype=torch.int32)
-         for k in names]), names, sharded, mesh)
+         for k in names]), names, sharded, mesh, expert)
 
 
 def clip_sharded(grads: dict, max_norm: float, sharded, mesh,
-                 over_data: bool = False) -> dict:
+                 over_data: bool = False, expert=()) -> dict:
     """The global-norm clip (JAX's ``_clip_sharded``): the square-sums of
     the leaves split over the model axis (``sharded``) summed over the
-    model group, the replicated leaves' counted once, so every rank
+    model group, those split over the expert axis (``expert``) over the
+    expert group, the replicated leaves' counted once, so every rank
     computes the same norm and the replicated leaves stay equal;
     ``over_data`` (FSDP's 1/dp gradient shards) sums the total over the
     data group too.  With nothing split and nothing to sum it is
     ``train/optim.clip_by_global_norm``, bit for bit (the same sum in
     the same sorted-key order)."""
     rep = sum(torch.sum(torch.square(g.to(torch.float32)))
-              for k, g in grads.items() if k not in sharded)
+              for k, g in grads.items()
+              if k not in sharded and k not in expert)
     if sharded:
         part = sum(torch.sum(torch.square(g.to(torch.float32)))
                    for k, g in grads.items() if k in sharded)
         mesh_lib.model_all_reduce(part, mesh)
+        rep = rep + part
+    if expert:
+        part = sum(torch.sum(torch.square(g.to(torch.float32)))
+                   for k, g in grads.items() if k in expert)
+        if mesh.expert_group is not None:
+            dist.all_reduce(part, group=mesh.expert_group)
         rep = rep + part
     if over_data:
         mesh_lib.data_all_reduce(rep, mesh)
@@ -323,9 +359,10 @@ def _keep_where(flag: torch.Tensor, new, old):
 
 
 def mean_over_ranks(cost: torch.Tensor, acc: torch.Tensor, mesh=None):
-    """``(cost, acc)`` averaged over the data group (JAX's ``pmean``
-    over the data axis; the world without a ``mesh``): one all-reduce of
-    both, whenever a group exists."""
+    """``(cost, acc)`` averaged over the batch shards (JAX's ``pmean``
+    over the batch axes: the data axis, and the expert axis under sparse
+    dispatch; the world without a ``mesh``): one all-reduce of both,
+    whenever a group exists."""
     if not cluster.collectives():
         return cost, acc
     stats = torch.stack([cost, acc.to(cost.dtype)])
@@ -333,8 +370,9 @@ def mean_over_ranks(cost: torch.Tensor, acc: torch.Tensor, mesh=None):
         dist.all_reduce(stats)
         n = cluster.process_count()
     else:
-        mesh_lib.data_all_reduce(stats, mesh)
-        n = mesh.dp
+        if mesh.batch_group is not None:
+            dist.all_reduce(stats, group=mesh.batch_group)
+        n = mesh.shards
     return stats[0] / n, stats[1] / n
 
 
@@ -366,7 +404,9 @@ def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
     ``mesh`` (default: the data axis over the process group) places the
     step: under ``model_parallel`` > 1 the params and slots are this
     rank's Megatron shards, the gradients are summed over the data group
-    only, and the clip, the norms and the counts read the full leaves.
+    only, and the clip, the norms and the counts read the full leaves;
+    under ``expert_parallel`` > 1 the expert leaves are this rank's
+    experts (``for_spec`` reads the dispatch from ``spec``).
 
     The step is capturable in a CUDA graph, all-reduce included: it
     reads nothing back from the card, as long as the caller passes
@@ -374,14 +414,17 @@ def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
     where the spec drops — otherwise the dropout seed reads
     ``state.step`` (``make_step_rng``).  The results are the same either
     way."""
-    mesh = mesh if mesh is not None else mesh_lib.build_mesh(-1)
+    mesh = mesh_lib.for_spec(
+        mesh if mesh is not None else mesh_lib.build_mesh(-1), spec)
     names = sorted(param_shapes(spec))
     styles = mesh_lib.layer_styles(spec, mesh.mp)
     model_axis = mesh_lib.model_axis(mesh)
     seq_axis = mesh_lib.seq_axis(mesh)
+    expert_axis = mesh_lib.expert_axis(mesh)
     aux_axes = mesh_lib.token_axes(mesh)
     sharded = tp_sharded_names(spec, mesh)
-    step_rng = make_step_rng(cfg, spec, mesh.data_index, mesh.seq_index)
+    expert = mesh_lib.expert_sharded(spec, mesh.ep)
+    step_rng = make_step_rng(cfg, spec, mesh.data_index, mesh.token_index)
     remat = getattr(cfg, "remat", False)
     skip = getattr(cfg, "on_anomaly", "") == "skip"
     detect = with_anomaly or skip
@@ -391,7 +434,7 @@ def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
         objective, (cost, acc) = _loss_and_acc(
             spec, leaves, x, y, cfg.naive_ce, cfg.pallas,
             cfg.label_smoothing, remat, rng, styles, model_axis, seq_axis,
-            aux_axes)
+            aux_axes, expert_axis)
         grads = torch.autograd.grad(objective, [leaves[k] for k in names])
         return cost.detach(), acc, dict(zip(names, grads))
 
@@ -422,20 +465,25 @@ def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
             loss_bad = (~torch.isfinite(cost)).to(torch.int32)
             mesh_lib.world_all_reduce(loss_bad)
         if mesh.token_group is not None:
-            # summed over data x seq (the data axis at sp 1)
-            for g in grads.values():
-                dist.all_reduce(g, group=mesh.token_group)
+            # summed over data x seq (the data axis at sp 1), or data x
+            # expert under sparse dispatch; the expert leaves over the
+            # data group, whose ranks hold the same experts
+            for k, g in grads.items():
+                group = mesh.data_group if k in expert else mesh.token_group
+                if group is not None:
+                    dist.all_reduce(g, group=group)
             cost, acc = mean_over_ranks(cost, acc, mesh)
             if cfg.grad_reduce == "mean":
-                grads = {k: g / mesh.dp for k, g in grads.items()}
+                grads = {k: g / mesh.shards for k, g in grads.items()}
         # the telemetry reads the raw gradients, before the clip
-        grad_norms = (_leaf_norms(grads, names, sharded, mesh)
+        grad_norms = (_leaf_norms(grads, names, sharded, mesh, expert)
                       if with_norms else None)
         if detect:
-            counts = _leaf_nonfinite(grads, names, sharded, mesh)
+            counts = _leaf_nonfinite(grads, names, sharded, mesh, expert)
             flag = torch.any(counts > 0) | (loss_bad > 0)
         if cfg.grad_clip > 0:
-            grads = clip_sharded(grads, cfg.grad_clip, sharded, mesh)
+            grads = clip_sharded(grads, cfg.grad_clip, sharded, mesh,
+                                 expert=expert)
         if zero_dp:
             new_params, new_opt = zero_lib.zero_update(
                 optimizer, grads, state.opt_state, state.params, zero_dp,
@@ -451,7 +499,7 @@ def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
         if with_norms:
             out += ({"grad": grad_norms,
                      "param": _leaf_norms(new_params, names, sharded,
-                                          mesh)},)
+                                          mesh, expert)},)
         if with_anomaly:
             out += ({"flag": flag, "counts": counts},)
         return out
@@ -569,20 +617,26 @@ def build_eval_step(cfg, spec, reduce: bool = True, mesh=None) -> Callable:
     exists; the fast eval sums its chunks first and reduces once.  Under
     sequence parallelism ``x`` is this rank's token columns and the
     count (replicated over the seq group) is summed over the data group
-    alone.  Eval never drops."""
-    mesh = mesh if mesh is not None else mesh_lib.build_mesh(-1)
+    alone; under expert parallelism the MoE blocks run on this rank's
+    experts, and the count is summed over the batch axes (data x expert
+    under sparse dispatch, whose rows differ by expert index).  Eval
+    never drops."""
+    mesh = mesh_lib.for_spec(
+        mesh if mesh is not None else mesh_lib.build_mesh(-1), spec)
     styles = mesh_lib.layer_styles(spec, mesh.mp)
     model_axis = mesh_lib.model_axis(mesh)
     seq_axis = mesh_lib.seq_axis(mesh)
+    expert_axis = mesh_lib.expert_axis(mesh)
 
     @torch.no_grad()
     def eval_step(params, x, y, mask):
         logits = forward_local(spec, params, x, cfg.pallas, styles=styles,
-                               model_axis=model_axis, seq_axis=seq_axis)
+                               model_axis=model_axis, seq_axis=seq_axis,
+                               expert_axis=expert_axis)
         count = torch.sum(_eval_correct(spec, logits, x, y, seq_axis)
                           * mask)
-        if reduce:
-            mesh_lib.data_all_reduce(count, mesh)
+        if reduce and mesh.batch_group is not None:
+            dist.all_reduce(count, group=mesh.batch_group)
         return count
 
     return eval_step

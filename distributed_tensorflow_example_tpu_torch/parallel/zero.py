@@ -11,15 +11,16 @@ params on every rank.  The optimizers are elementwise, so each rank's
 chunk update is the full update restricted to its slice.  The padded
 tail stays zero: a zero gradient on a zero param leaves zero slots.
 
-Under ``--model_parallel`` the chunking runs on the **local** (already
-Megatron-split) flat view of each leaf, the chunk index is the rank's
-data index and the all-gather runs over its data group, as JAX chunks
-each device's local block.
+Under ``--model_parallel`` (and ``--expert_parallel``) the chunking runs
+on the **local** (already Megatron- or expert-split) flat view of each
+leaf, the chunk index is the rank's data index and the all-gather runs
+over its data group, as JAX chunks each device's local block.
 
-On disk a slot leaf has JAX's global layout: ``[dp, chunk]`` for a leaf
-replicated over the model axis (data index d's chunk is row d), and
-``[mp, dp, chunk]`` for a leaf split over it (JAX's ``[|ax1|, ..., dp,
-chunk]``), so a checkpoint crosses between the packages.  Resuming
+On disk a slot leaf has JAX's global layout: ``[dp, chunk]`` for a
+replicated leaf (data index d's chunk is row d), ``[mp, dp, chunk]`` for
+a leaf split over the model axis and ``[ep, dp, chunk]`` for an expert
+leaf (JAX's ``[|ax1|, ..., dp, chunk]``), so a checkpoint crosses
+between the packages.  Resuming
 needs the same ``dp``: the trainer checks the ``zero_dp`` extra.
 ZeRO-1 runs on the host path, as in JAX.
 """

@@ -74,7 +74,19 @@ mp)``, seq index ``(r // mp) % sp``, model index ``r % mp``) and runs on
 the host path, as JAX's gate sends it: each rank takes its data index's
 rows and its seq index's token columns of every batch (train and
 eval); the state is replicated over the seq axis, so the checkpoints
-are those of the same run without it.
+are those of the same run without it.  Expert parallelism
+(``--expert_parallel N``, a MoE transformer) lays the ranks out as
+JAX's ``('data', 'expert'[, 'model'])`` mesh (data index ``r // (ep *
+mp)``, expert index ``(r // mp) % ep``, model index ``r % mp``) and runs
+on the host path, as JAX's gate sends it: each rank holds its ``E / ep``
+experts of every MoE block (and their optimizer slots; under
+``--zero_opt`` its ``[chunk]`` rows of them), takes its data index's
+rows of every batch (its ``data_index * ep + expert_index`` shard of
+``dp * ep`` under sparse dispatch), and ``--sample_after`` gathers the
+experts over the expert group before it decodes; the checkpoints hold
+the whole expert leaves (ZeRO-1's slots of them ``[ep, dp, chunk]``),
+as JAX's do.  ``preflight`` runs the flags' checks and the layout's
+before any process group or data (the CLI exits 2 on them).
 
 Resilience (``resilience/``): ``--ckpt_every N`` hands the state to the
 write-behind ``CheckpointWriter`` every N steps on the host path (on
@@ -221,12 +233,13 @@ def _eval_accuracy(eval_step, params, images: np.ndarray,
                    labels: np.ndarray, chunk: int, device,
                    mesh: mesh_lib.Mesh) -> float:
     """Accuracy over a whole split, in chunks of ``chunk`` examples
-    rounded down to a multiple of dp (at least dp); the last chunk is
+    rounded down to a multiple of the batch shards (at least one each:
+    dp, dp x ep under sparse expert dispatch); the last chunk is
     zero-padded and masked, and each rank evaluates its rows of every
     chunk (the counts summed over the ranks), as in the JAX package;
     under sequence parallelism its token columns of them."""
     n = images.shape[0]
-    dp = mesh.dp
+    dp = mesh.shards
     chunk = max(dp, (min(chunk, n) // dp) * dp)
     rows = mesh_lib.batch_layout(mesh, chunk)
     images = images[:, mesh_lib.seq_columns(mesh, images.shape[1])]
@@ -275,6 +288,15 @@ def _sample(cfg: Config, spec, params, images: np.ndarray, device,
         np.savez(path, samples=samples.cpu().numpy().astype(np.int32),
                  prompt_len=prompt_len, vocab_size=spec.vocab_size)
         print(f"Sampled {n_s} sequences -> {path}")
+
+
+def _gather_experts(params: dict, spec, mesh: mesh_lib.Mesh) -> dict:
+    """``params`` with every expert leaf whole: this rank's experts
+    all-gathered over the expert group (dim 0), the others as they
+    are."""
+    expert = mesh_lib.expert_sharded(spec, mesh.ep)
+    return {k: (mesh_lib.gather_leaf(v, 0, mesh.expert_group, mesh.ep)
+                if k in expert else v) for k, v in params.items()}
 
 
 def _fetch(*tensors) -> list:
@@ -394,7 +416,9 @@ def setup_strategy(cfg: Config, spec, optimizer, state, mesh: mesh_lib.Mesh,
     training its site's copy with the outer state beside it (one round
     a step), ZeRO-1 its ``[chunk]`` rows of the optimizer slots, the
     synchronous step the replicated state; under ``--model_parallel``
-    every layout starts from this rank's Megatron shards."""
+    every layout starts from this rank's Megatron shards, and under
+    ``--expert_parallel`` from its experts of every expert leaf (dim 0
+    of the param and each of its slots)."""
     dp, mp = mesh.dp, mesh.mp
     if mesh.sites > 1:
         outer = local_sgd_lib.outer_optimizer_from_config(cfg)
@@ -432,6 +456,14 @@ def setup_strategy(cfg: Config, spec, optimizer, state, mesh: mesh_lib.Mesh,
             step_scale=dp, sync_period=cfg.sync_period)
     if mp > 1:
         state = _tp_local(state, dims, mesh)
+    # key -> 0 for an expert leaf and its slots (split over the expert
+    # axis), None otherwise
+    edims = mesh_lib.state_pspecs(
+        {k: 0 for k in mesh_lib.expert_sharded(spec, mesh.ep)})
+    if mesh.ep > 1:
+        state = ckpt_lib.map_state(
+            lambda k, a: mesh_lib.shard_leaf(a, edims(k), mesh.ep,
+                                             mesh.expert_index), state)
     zero_dp = dp if cfg.zero_opt else 0
     if zero_dp:
         state.opt_state = zero_lib.zero_opt_state(optimizer, state.params,
@@ -440,9 +472,13 @@ def setup_strategy(cfg: Config, spec, optimizer, state, mesh: mesh_lib.Mesh,
     def block(key, leaf):
         if zero_dp and key.startswith(".opt_state") \
                 and fsdp_lib.is_sharded_leaf(leaf):
-            split = mp > 1 and dims(key) is not None
-            return ckpt_lib.Block(("model", "data") if split
-                                  else ("data",))
+            # JAX's [|axis|, dp, chunk] over the axis the param splits on
+            lead = (("expert",) if edims(key) is not None
+                    else ("model",) if mp > 1 and dims(key) is not None
+                    else ())
+            return ckpt_lib.Block(lead + ("data",))
+        if edims(key) is not None:
+            return ckpt_lib.Block(split=0, axis="expert")
         if mp > 1 and dims(key) is not None:
             return ckpt_lib.Block(split=dims(key))
         return None
@@ -452,19 +488,64 @@ def setup_strategy(cfg: Config, spec, optimizer, state, mesh: mesh_lib.Mesh,
         with_anomaly=with_anomaly, zero_dp=zero_dp, mesh=mesh)
     return Strategy(state=state, body=body,
                     layout=(ckpt_lib.Layout(mesh, block)
-                            if zero_dp or mp > 1 else None),
+                            if zero_dp or mp > 1 or mesh.ep > 1 else None),
                     tp_dims=tp_dims)
+
+
+def train_mesh(cfg: Config, spec, world: Optional[int] = None,
+               rank: Optional[int] = None) -> mesh_lib.Mesh:
+    """The layout the flags name over ``world`` ranks (default: the
+    process group's, with its groups), as JAX's trainer picks its mesh:
+    ``('site', 'data')`` under ``--sites``, ``('data', 'seq'[,
+    'model'])`` under ``--sequence_parallel``, ``('data', 'expert'[,
+    'model'])`` under ``--expert_parallel`` (its token sharding read
+    from ``spec``'s dispatch), else ``('data', 'model')``; the MLP's
+    layer styles checked against its widths."""
+    if cfg.sites > 1:
+        mesh = mesh_lib.build_site_mesh(cfg.sites, cfg.data_parallel,
+                                        world, rank)
+    elif cfg.sequence_parallel > 1:
+        mesh = mesh_lib.build_seq_mesh(
+            cfg.data_parallel, cfg.sequence_parallel, world, rank,
+            model_parallel=cfg.model_parallel)
+    elif cfg.expert_parallel > 1:
+        mesh = mesh_lib.build_expert_mesh(
+            cfg.data_parallel, cfg.expert_parallel, world, rank,
+            model_parallel=cfg.model_parallel)
+    else:
+        mesh = mesh_lib.build_mesh(cfg.data_parallel, cfg.model_parallel,
+                                   world, rank)
+    mesh_lib.layer_styles(spec, mesh.mp)
+    return mesh_lib.for_spec(mesh, spec)
+
+
+def preflight(cfg: Config):
+    """The checks ``run`` makes before it joins a process group or
+    loads data, JAX's messages (ValueError): the flags' values and
+    combinations, TP's and SP's degrees against the model, and the
+    layout against the world the flags describe (the process group's,
+    else ``--num_processes`` under a coordinator, else one).  Returns
+    the model spec."""
+    validate_train_config(cfg)
+    spec = make_spec(cfg)
+    if cfg.model == "transformer" and cfg.model_parallel > 1:
+        tfm.check_tp(spec, cfg.model_parallel)
+    validate_sequence_config(cfg, getattr(spec, "seq_len", cfg.seq_len))
+    if cluster.collectives():
+        world, rank = cluster.process_count(), cluster.process_index()
+    elif cfg.coordinator_address:
+        world, rank = cfg.num_processes, cfg.task_index
+    else:
+        world, rank = 1, 0
+    train_mesh(cfg, spec, world, rank)
+    return spec
 
 
 def run(cfg: Config) -> Dict[str, Any]:
     """Train per the config; returns the metrics the reference prints
     (the JAX ``run``'s result keys)."""
-    validate_train_config(cfg)
+    spec = preflight(cfg)
     dev = resolve_device(cfg.device)
-    spec = make_spec(cfg)
-    if cfg.model == "transformer" and cfg.model_parallel > 1:
-        tfm.check_tp(spec, cfg.model_parallel)
-    validate_sequence_config(cfg, getattr(spec, "seq_len", cfg.seq_len))
     owns_group = cluster.bootstrap(cfg)
     writer = None
     # handles bound before the try, so its except and finally can always
@@ -480,23 +561,13 @@ def run(cfg: Config) -> Dict[str, Any]:
         proc_idx = cluster.process_index()
         proc_cnt = cluster.process_count()
         chief = proc_idx == 0
-        # rank r plays device r of JAX's one-process ('data', 'model')
-        # mesh, or under --sites of its ('site', 'data') mesh; the MLP's
-        # layer styles are checked against its widths
+        # rank r plays device r of JAX's one-process mesh
         site_mode = cfg.sites > 1
-        if site_mode:
-            mesh = mesh_lib.build_site_mesh(cfg.sites, cfg.data_parallel)
-        elif cfg.sequence_parallel > 1:
-            mesh = mesh_lib.build_seq_mesh(
-                cfg.data_parallel, cfg.sequence_parallel,
-                model_parallel=cfg.model_parallel)
-        else:
-            mesh = mesh_lib.build_mesh(cfg.data_parallel,
-                                       cfg.model_parallel)
-        mesh_lib.layer_styles(spec, mesh.mp)
+        mesh = train_mesh(cfg, spec)
         dp = mesh.dp
-        # the shards the global batch splits over: site x data
-        batch_shards = mesh.sites * dp
+        # the shards the global batch splits over: site x data (x expert
+        # under sparse expert dispatch)
+        batch_shards = mesh.sites * mesh.shards
         # eval reads the consensus params and splits its chunks over
         # every rank: under --sites a data axis over the world
         eval_mesh = mesh_lib.build_mesh(-1) if site_mode else mesh
@@ -681,12 +752,13 @@ def run(cfg: Config) -> Dict[str, Any]:
         # program, with no host control for periodic checkpoints or
         # early stopping (dump and skip compose with the fast path); a
         # multi-site round is one host-path step, and the seq axis's
-        # token columns are fed from the host, as in JAX
+        # token columns and the expert axis's sharded state are fed from
+        # the host, as in JAX
         fast = (cfg.fast_loop and (cfg.shard_data or dp == 1)
                 and not cfg.ckpt_every and cfg.resume != "auto"
                 and not cfg.histograms and cfg.on_anomaly != "halt"
                 and not cfg.debug_nans and not cfg.zero_opt
-                and not site_mode and mesh.sp == 1
+                and not site_mode and mesh.sp == 1 and mesh.ep == 1
                 and not (async_mode and (cfg.checkpoint_every
                                          or cfg.model_parallel > 1
                                          or cfg.early_stop_patience)))
@@ -1544,10 +1616,15 @@ def run(cfg: Config) -> Dict[str, Any]:
         if cfg.sample_after > 0 and cfg.model == "transformer" \
                 and cfg.objective == "lm":
             # TP decode on the shards (JAX's generate_sharded); FSDP's
-            # gathered params decode whole, as JAX's generate_dp
-            _sample(cfg, spec, final_params
-                    if final_params is not None and not fsdp_mode
-                    else full_params(), dataset.test.images, dev, chief,
+            # gathered params decode whole, as JAX's generate_dp; the
+            # experts gathered over the expert group, every rank then
+            # decoding the whole prompt set
+            params = (final_params
+                      if final_params is not None and not fsdp_mode
+                      else full_params())
+            if mesh.ep > 1:
+                params = _gather_experts(params, spec, mesh)
+            _sample(cfg, spec, params, dataset.test.images, dev, chief,
                     model_axis=(None if fsdp_mode
                                 else mesh_lib.model_axis(mesh)))
         phase_s["sample"] += time.perf_counter() - t_sample

@@ -31,9 +31,11 @@ leaves (a ``Layout`` over the ``('data', 'model')`` or the ``('site',
 'data')`` mesh names them, ``Block`` by ``Block``): a row of a ``[dp,
 ...]`` leaf (ZeRO-1's optimizer slots, FSDP's flat shards, local SGD's
 replicas), a row of an ``[mp, dp, ...]`` one (FSDP x TP, ZeRO-1's slots
-of a leaf split under TP), a row of a ``[sites, ...]`` one (multi-site
-training's params, inner slots and error-feedback residual), or a
-Megatron slice of a leaf split over the model axis.  The
+of a leaf split under TP) or an ``[ep, dp, ...]`` one (ZeRO-1's slots of
+an expert leaf), a row of a ``[sites, ...]`` one (multi-site training's
+params, inner slots and error-feedback residual), a Megatron slice of a
+leaf split over the model axis, or an expert leaf's slice of the
+experts (dim 0 over the expert axis).  The
 sharded format has one rank per distinct block write it with its global
 bounds (as JAX writes each device's shard), so JAX's
 ``restore_sharded_arrays`` reassembles the global leaf; ``gather_global``
@@ -230,24 +232,27 @@ class Block:
     """Where a rank's leaf sits in its global leaf: ``lead`` names the
     mesh axes of the global leaf's leading dims (each the axis's size,
     the local leaf at the rank's index there), ``split`` the local dim
-    that is a slice of a global dim split over the model axis."""
+    that is a slice of a global dim split over the mesh axis ``axis``
+    (the model axis, or the expert axis for an expert leaf's dim 0)."""
     lead: Tuple[str, ...] = ()
     split: Optional[int] = None
+    axis: str = "model"
 
     @property
     def varies(self) -> frozenset:
         """The mesh axes along which the ranks' blocks differ."""
         return frozenset(self.lead) | (
-            frozenset(("model",)) if self.split is not None else frozenset())
+            frozenset((self.axis,)) if self.split is not None
+            else frozenset())
 
 
 class Layout:
     """The global layout of a strategy's state over a mesh
     (``parallel/mesh.Mesh``, with a 'site' axis outermost under
-    multi-site training and a 'seq' axis between 'data' and 'model'
-    under sequence parallelism, over which every leaf is replicated):
-    ``block(key, leaf)`` -> the leaf's ``Block`` or None (replicated:
-    every rank holds the whole leaf)."""
+    multi-site training, and a 'seq' axis, over which every leaf is
+    replicated, or an 'expert' axis between 'data' and 'model' under
+    sequence or expert parallelism): ``block(key, leaf)`` -> the leaf's
+    ``Block`` or None (replicated: every rank holds the whole leaf)."""
 
     def __init__(self, mesh, block: Callable):
         self.mesh = mesh
@@ -256,25 +261,30 @@ class Layout:
     def coords(self, rank: int) -> Dict[str, int]:
         """``rank``'s index along each mesh axis."""
         m = self.mesh
-        return {"site": rank // (m.dp * m.sp * m.mp),
-                "data": (rank % (m.dp * m.sp * m.mp)) // (m.sp * m.mp),
-                "seq": (rank // m.mp) % m.sp, "model": rank % m.mp}
+        inner = m.sp * m.ep * m.mp
+        return {"site": rank // (m.dp * inner),
+                "data": (rank % (m.dp * inner)) // inner,
+                "seq": (rank // m.mp) % m.sp,
+                "expert": (rank // m.mp) % m.ep, "model": rank % m.mp}
 
     def _size(self, axis: str) -> int:
         return {"site": self.mesh.sites, "data": self.mesh.dp,
-                "seq": self.mesh.sp, "model": self.mesh.mp}[axis]
+                "seq": self.mesh.sp, "expert": self.mesh.ep,
+                "model": self.mesh.mp}[axis]
 
-    def _rank(self, site: int, data: int, model: int) -> int:
-        """The rank at those coordinates and this rank's seq index
-        (every leaf is replicated over 'seq': the blocks that tile it
-        sit at one seq index)."""
+    def _rank(self, **at) -> int:
+        """The rank at the coordinates ``at`` names, at this rank's
+        index along every other axis (a block that does not vary over an
+        axis is tiled by the ranks of one index there)."""
         m = self.mesh
-        return ((site * m.dp + data) * m.sp + m.seq_index) * m.mp + model
+        c = dict(self.coords(m.rank), **at)
+        return ((((c["site"] * m.dp + c["data"]) * m.sp + c["seq"]) * m.ep
+                 + c["expert"]) * m.mp + c["model"])
 
     def global_shape(self, b: Block, shape) -> list:
         out = [int(d) for d in shape]
         if b.split is not None:
-            out[b.split] *= self.mesh.mp
+            out[b.split] *= self._size(b.axis)
         return [self._size(ax) for ax in b.lead] + out
 
     def bounds(self, b: Block, shape, rank: int) -> np.ndarray:
@@ -283,7 +293,7 @@ class Layout:
         idx = self.coords(rank)
         rows = [[idx[ax], idx[ax] + 1] for ax in b.lead]
         for i, n in enumerate(shape):
-            lo = idx["model"] * int(n) if i == b.split else 0
+            lo = idx[b.axis] * int(n) if i == b.split else 0
             rows.append([lo, lo + int(n)])
         return np.asarray(rows, np.int64).reshape(-1, 2)
 
@@ -300,18 +310,16 @@ class Layout:
         together with this rank's, in the group's rank order, and the
         group an all-gather over them runs on (None: this rank alone)."""
         mesh = self.mesh
-        s, d, m = mesh.site_index, mesh.data_index, mesh.model_index
-        if b.varies == frozenset(("model",)):
-            return ([self._rank(s, d, i) for i in range(mesh.mp)],
-                    mesh.model_group)
-        if b.varies == frozenset(("data",)):
-            return ([self._rank(s, i, m) for i in range(mesh.dp)],
-                    mesh.data_group)
-        if b.varies == frozenset(("site",)):
-            return ([self._rank(i, d, m) for i in range(mesh.sites)],
-                    mesh.site_group)
+        for axis, group in (("model", mesh.model_group),
+                            ("data", mesh.data_group),
+                            ("site", mesh.site_group),
+                            ("expert", mesh.expert_group)):
+            if b.varies == frozenset((axis,)):
+                return ([self._rank(**{axis: i})
+                         for i in range(self._size(axis))], group)
         group = None
-        if mesh.data_group is not None or mesh.site_group is not None:
+        if any(g is not None for g in (mesh.data_group, mesh.site_group,
+                                       mesh.expert_group)):
             import torch.distributed as dist
 
             group = dist.group.WORLD

@@ -280,10 +280,10 @@ def test_value_checks_match_jax(case):
         tloop.run(tconfig.Config(**kw, device="cpu"))
 
 
-def test_cli_trains_moe_and_refuses_expert_parallel(capsys):
+def test_cli_trains_moe_and_checks_the_expert_mesh(capsys):
     """``main.py --num_experts ... --grouped_moe --fp8_ffn`` trains (a
-    finite final cost); ``--expert_parallel`` exits 2 naming
-    ROADMAP.md."""
+    finite final cost); ``--expert_parallel=2`` on one process exits 2
+    with JAX's message for a mesh larger than the world."""
     argv = ["--device", "cpu", "--model=transformer", "--num_experts=4",
             "--moe_dispatch=alltoall", "--grouped_moe", "--fp8_ffn",
             "--input_size=64", "--seq_len=16", "--d_model=32",
@@ -299,4 +299,5 @@ def test_cli_trains_moe_and_refuses_expert_parallel(capsys):
     except SystemExit as e:
         rc = e.code
     assert rc == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    assert ("mesh 1x2 over ('data', 'expert') needs 2 devices, have 1"
+            in capsys.readouterr().err)

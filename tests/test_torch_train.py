@@ -483,13 +483,17 @@ def test_two_gloo_processes_equal_one(tmp_path, capsys):
     ["--dataset=mnist", "--data_dir=/nonexistent-mnist-dir"]])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
     """A flag, value or mode of the JAX trainer the port lacks exits 2
-    with a message naming ROADMAP.md, before any training."""
+    with a message naming ROADMAP.md, before any training;
+    ``--expert_parallel`` parses since expert parallelism was ported, and
+    without ``--num_experts`` exits 2 with JAX's message."""
     try:
         rc = tmain.main(argv + ["--device", "cpu", "--training_epochs=0"])
     except SystemExit as e:
         rc = e.code
     assert rc == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    want = ("--expert_parallel requires --num_experts > 0"
+            if "--expert_parallel=2" in argv else "ROADMAP")
+    assert want in capsys.readouterr().err
 
 
 def test_cli_refuses_the_jax_operator_switches(monkeypatch, tmp_path):

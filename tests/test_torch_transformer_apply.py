@@ -174,19 +174,25 @@ def test_num_params_and_flops_match_jax_at_transformer_wide_long():
     ["--expert_parallel=2"], ["--virtual_stages=2"], ["--pp_schedule=1f1b"],
     ["--mnist_mirrors=https://example.invalid/"],
     ["--model_parallel=2", "--pipeline_parallel=2"],
-    ["--pipeline_parallel=2"], ["--sp_impl=ulysses", "--expert_parallel=2"]])
+    ["--pipeline_parallel=2"],
+    ["--sequence_parallel=2", "--num_experts=4", "--expert_parallel=2"]])
 def test_cli_refuses_unported_transformer_flags(argv, capsys):
     """Each exits 2 with a message naming ROADMAP.md, before training
-    (``--sequence_parallel`` and ``--sp_impl`` parse since sequence
-    parallelism was ported; beside them an unported flag still
-    refuses)."""
+    (``--sequence_parallel``, ``--sp_impl`` and ``--expert_parallel``
+    parse since sequence and expert parallelism were ported); the
+    expert-parallel ones exit 2 with JAX's messages: no MoE to shard,
+    and sequence parallelism beside the expert axis."""
     try:
         rc = tmain.main(["--model=transformer", "--device", "cpu",
                          "--training_epochs=0"] + argv)
     except SystemExit as e:
         rc = e.code
     assert rc == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    want = ("--expert_parallel composes with data and tensor parallelism "
+            "only" if "--sequence_parallel=2" in argv
+            else "--expert_parallel requires --num_experts > 0"
+            if "--expert_parallel=2" in argv else "ROADMAP")
+    assert want in capsys.readouterr().err
 
 
 def test_serving_spec_pallas_selects_flash_and_engine_matches_jax():
