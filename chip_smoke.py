@@ -227,6 +227,24 @@ and for the MLP trainer (``main.py`` -> ``train/loop.run``):
     rank's launches, B8's plan and shape, bytes, errors, warm step ms
     (host clock: gloo's staging), params held and peak memory beside
     the one-rank run's, with the card's name and power limit;
+5i. pipeline parallelism at ``--pipeline_parallel 2`` (dp 1) on two
+    gloo ranks on the one card (each a subprocess, ``chip_smoke.py
+    --pp-phase ARGS RANK``): ``transformer_wide_long`` at full width and
+    depth (4 blocks, batch 8) on the host path, 4 microbatches, 3 steps,
+    under GPipe, 1F1B and interleaved 1F1B (2 virtual stages, one block a
+    chunk), each against a one-rank run of the same flags without the
+    stage axis in this process: every printed cost within PP_COST_RTOL,
+    each rank's first-step gradients (its stage's slice of the stacked
+    leaves) within PP_GRAD_RTOL of the one-rank run's, the replicated
+    leaves bitwise equal across the ranks after every step, the bytes a
+    step posted to the stage hops equal to the closed form, B2-B7
+    launched exactly as predicted (B5 twice a slot under 1F1B) and
+    B5-B7 at the microbatch's [2, 8192, 8, 128]; then B5's stats form,
+    B6 and B7 at [2, 8192, 8, 128] causal against their plain versions,
+    timed beside SDPA and the bound (rows added to the report); prints
+    each rank's launches, bytes, errors, warm step ms (host clock:
+    gloo's staging, not PP across cards) and peak memory beside the
+    one-rank run's, with the card's name and power limit;
 6. the reference command line on the card: ``main.py --pallas
    --training_epochs=1`` (784-100-10 sigmoid f32, batch 100, 550
    steps, the default fast path: B1's f32 launches counted through the
@@ -246,7 +264,8 @@ and for the transformer trainer (``main.py --model=transformer`` ->
     backward at 65,536 x 1024 f32, whose row also carries the route it
     took (``variant``: "warp" or "block"), its count of dg/db partial
     rows and the time of each of its two launches (``torch.profiler``,
-    after every other phase) — and time each beside its plain
+    after every other phase; null where the profiler's window lost
+    the card's events) — and time each beside its plain
     version, a PyTorch library call and its bound; the rows of the
     bf16 tensor-core forward, dq and dk/dv also carry their design,
     registers and spilled bytes (from the compiler's report of the
@@ -551,30 +570,42 @@ def event_ms(fn, args, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def launch_us(fn, args, calls: int = 10) -> dict:
-    """{kernel name: device us per call} of ``calls`` calls of
-    ``fn(*args)`` under ``torch.profiler`` (CUDA activity only), after
-    one call outside it: the time of each launch a call makes."""
+def launch_us(fn, args, calls: int = 10, tries: int = 3):
+    """``(split, call_us)``: the device us of one ``fn(*args)`` call
+    between CUDA events, and ``{kernel name: device us per call}`` of
+    ``calls`` calls under ``torch.profiler`` (CUDA activity only), the
+    time of each launch a call makes.  A window counts only where it
+    holds every launch of the ``calls`` calls: CUPTI has dropped some or
+    all of a late window's kernels in a process that had traced before.
+    Such a window is taken again, up to ``tries`` times; then ``split``
+    is None (not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn(*args)
+    call_us = event_ms(fn, args, reps=calls) * 1e3
+    seen = []
+    for _ in range(tries):
         torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        out[ev.key[:80]] = us / calls
-    if not out:
-        raise RuntimeError("the profiler recorded no device time")
-    return out
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(*args)
+            torch.cuda.synchronize()
+        out, counts = {}, []
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0.0)
+            out[ev.key[:80]] = us / calls
+            counts.append(ev.count)
+        seen.append(counts)
+        if out and all(c == calls for c in counts):
+            return out, call_us
+    log(f"[kernel] the profiler's {tries} windows held {seen} of each "
+        f"kernel's {calls} launches (a call {call_us:.2f} us by CUDA "
+        f"events): each launch's time not measured")
+    return None, call_us
 
 
 def copies(make, bytes_per_set: int):
@@ -1280,12 +1311,14 @@ def ln_bwd_launch_split(card: str, row: dict) -> None:
     (``torch.profiler``), into its report row."""
     from distributed_tensorflow_example_tpu_torch.ops import fused
 
-    row["launches_us"] = launch_us(fused.layer_norm_backward,
-                                   _ln_bwd_inputs())
+    split, call_us = launch_us(fused.layer_norm_backward, _ln_bwd_inputs())
+    row["launches_us"] = split
+    each = ("not measured" if split is None else ", ".join(
+        f"{k} {v:.2f} us" for k, v in split.items()))
     log(f"[kernel] layer_norm_backward rows={LN_BWD_SHAPE[0]} d="
-        f"{LN_BWD_SHAPE[1]} f32, each launch: "
-        + ", ".join(f"{k} {v:.2f} us" for k, v in row["launches_us"].items())
-        + f" on {card} (the column sum's time starts at its early launch)")
+        f"{LN_BWD_SHAPE[1]} f32, a call {call_us:.2f} us (CUDA events), "
+        f"each launch: {each} on {card} (the column sum's time starts at "
+        f"its early launch)")
 
 
 def check_grouped_ffn_z1(card: str) -> list:
@@ -5146,6 +5179,358 @@ def phase_ep(card: str, device: str = "cuda", runs=None,
     return dict(runs=result, kernels=kernels)
 
 
+# ---------------------------------------------------------------------------
+# phase 5i: pipeline parallelism on two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+# two gloo ranks at --pipeline_parallel 2 (dp 1), each in its own process,
+# against a one-rank run of the same flags without the stage axis in this
+# process (NCCL refuses two ranks on one card; gloo stages every hop
+# through host memory, so the step times are gloo's staging, not PP
+# across cards).  transformer_wide_long at full width and depth (S 8192,
+# 4 blocks, batch 8), 3 steps on the host path (JAX's gate), 4
+# microbatches: a microbatch is [2, 8192, 1024], each hop 64 MiB of f32
+PP_DEG = 2
+PP_MICRO = 4
+PP_BASE = WIDE_LONG_FLAGS + ["--no_fast_loop", "--synthetic_train_size=24",
+                             f"--microbatches={PP_MICRO}"]
+PP_RUNS = {
+    "pp_gpipe": PP_BASE,
+    "pp_1f1b": PP_BASE + ["--pp_schedule=1f1b"],
+    "pp_1f1b_v2": PP_BASE + ["--pp_schedule=1f1b", "--virtual_stages=2"],
+}
+# each printed cost against the one-rank run's: a microbatch's bf16
+# activations round as the whole batch's do, but the f32 sums over the
+# microbatches and the stage sum add in another order (phase 5e's bound)
+PP_COST_RTOL = TP_COST_RTOL
+# the first step's gradients (as the optimizer receives them, each rank's
+# stage slice of the stacked leaves against the one-rank run's blocks) in
+# relative L2, each leaf and the whole
+PP_GRAD_RTOL = 1e-2
+
+
+def _pp_cfg(entry, device: str, pp: int):
+    """A ``PP_RUNS`` entry's config at ``pp`` stages; at one stage the
+    same flags without the stage axis (the schedule flags need one)."""
+    import dataclasses
+
+    from distributed_tensorflow_example_tpu_torch.config import (
+        parse_train_config)
+
+    cfg = dataclasses.replace(parse_train_config(entry), device=device,
+                              pipeline_parallel=pp, checkpoint_dir="")
+    if pp == 1:
+        cfg = dataclasses.replace(cfg, pp_schedule="gpipe",
+                                  virtual_stages=1)
+    return cfg
+
+
+def _pp_closed_bytes(cfg, stage: int) -> dict:
+    """The bytes stage ``stage`` posts to the stage hops in one training
+    step, in closed form: each microbatch leaves each of the stage's v
+    chunks for the next stage (forward) but the last stage's last chunk,
+    and its gradient leaves each chunk for the previous stage (backward)
+    but stage 0's first chunk; a hop is one f32 [mb, S, D].  Summed over
+    the stages: M (p v - 1) hops a direction."""
+    p, v, m = cfg.pipeline_parallel, cfg.virtual_stages, cfg.microbatches
+    hop = (cfg.batch_size // m) * cfg.seq_len * cfg.d_model * 4
+    return dict(fwd=hop * m * (v - (stage == p - 1)),
+                bwd=hop * m * (v - (stage == 0)))
+
+
+def _pp_launches(cfg, stage: int, steps: int, eval_chunks: int) -> dict:
+    """B2-B7's launches on stage ``stage`` in a run of ``steps`` steps
+    and ``eval_chunks`` eval chunks (each split into the microbatches):
+    the stage's blocks a microbatch each forward (twice under 1F1B, whose
+    backward sub-slot re-runs the slot), B4 and B6/B7 once a microbatch
+    in each backward, the final LayerNorm once a microbatch on the last
+    stage."""
+    m = cfg.microbatches
+    k = cfg.num_blocks // cfg.pipeline_parallel
+    last = int(stage == cfg.pipeline_parallel - 1)
+    fwd = steps * m * (2 if cfg.pp_schedule == "1f1b" else 1)
+    evals = eval_chunks * m
+    return dict(flash_forward=(fwd + evals) * k, flash_dq=steps * m * k,
+                flash_dkv=steps * m * k,
+                fused_layer_norm=(fwd + evals) * (k + last),
+                fused_layer_norm_residual=(fwd + evals) * k,
+                layer_norm_backward=steps * m * (2 * k + last))
+
+
+def _pp_step(cfg, device: str, reps: int = 2) -> dict:
+    """``reps`` warm steps of ``cfg``'s strategy on one synthetic batch
+    (after a first step from the seeded init), each between a barrier of
+    the group (when one is up) and a sync (host clock: under gloo the
+    staged hops' time too); the bytes the last one posted to the stage
+    hops (``parallel/mesh.PP_BYTES``); a digest of the replicated leaves
+    after every step; the flash wrappers' last shapes (a training
+    step's); the peak memory of the steps; and the first step's
+    gradients as the optimizer received them (f32 numpy; this stage's
+    slice of the stacked leaves)."""
+    import dataclasses
+    import hashlib
+
+    import torch.distributed as dist
+
+    from distributed_tensorflow_example_tpu_torch.data import mnist
+    from distributed_tensorflow_example_tpu_torch.ops import flash_attention
+    from distributed_tensorflow_example_tpu_torch.parallel import (
+        mesh as mesh_lib)
+    from distributed_tensorflow_example_tpu_torch.train import loop, optim
+    from distributed_tensorflow_example_tpu_torch.train.state import (
+        create_train_state)
+
+    spec = loop.make_spec(cfg)
+    opt = optim.make_optimizer(cfg, 8)
+    got = {}
+
+    def update(g, opt_state, params):
+        if not got:
+            got.update({k: v.detach().float().cpu().numpy()
+                        for k, v in g.items()})
+        return opt.update(g, opt_state, params)
+
+    grabbing = dataclasses.replace(opt, update=update)
+    mesh = loop.train_mesh(cfg, spec)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if device == "cuda" else 0
+    strat = loop.setup_strategy(
+        cfg, spec, grabbing, create_train_state(spec, opt, seed=cfg.seed,
+                                                device=device), mesh,
+        fast=False)
+    split = mnist.synthesize_split(cfg.batch_size, seed=cfg.seed,
+                                   input_size=cfg.input_size)
+    rows = mesh_lib.batch_layout(mesh, cfg.batch_size)
+    x = torch.from_numpy(split.images[rows]).to(device)
+    y = torch.from_numpy(split.labels[rows]).to(device)
+    state, times, sent, digests = strat.state, [], {}, []
+    for i in range(reps + 1):
+        if dist.is_initialized():
+            dist.barrier()
+        _sync(device)
+        for k in mesh_lib.PP_BYTES:
+            mesh_lib.PP_BYTES[k] = 0
+        t0 = time.perf_counter()
+        state = strat.body(state, x, y)[0]
+        _sync(device)
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+        sent = dict(mesh_lib.PP_BYTES)
+        h = hashlib.sha256()
+        for k in sorted(state.params):
+            if not k.startswith("blk_"):
+                h.update(state.params[k].detach().cpu().numpy().tobytes())
+        digests.append(h.hexdigest())
+    shapes = {w.__name__: w.last_shape
+              for w in flash_attention.KERNEL_WRAPPERS}
+    peak = ((torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            if device == "cuda" else None)
+    del state, strat
+    return dict(warm_step_ms=times, step_bytes=sent, digests=digests,
+                train_shapes=shapes, step_peak_gib=peak, grads=got)
+
+
+def pp_child(args: dict, rank: int) -> dict:
+    """Phase 5i's rank ``rank`` (of two): a gloo group on the card set up
+    here, which ``loop.run`` finds up and leaves; each run of
+    ``args["runs"]`` at ``--pipeline_parallel 2`` with its launch
+    counts, then its warm steps (bytes posted, digests of the replicated
+    leaves, peak memory) and its first step's gradients against this
+    stage's slice of the one-rank run's, stacked at the run's (stages,
+    virtual)."""
+    import torch.distributed as dist
+
+    from distributed_tensorflow_example_tpu_torch import convert
+    from distributed_tensorflow_example_tpu_torch.train import loop
+
+    device = args["device"]
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{args['port']}",
+        world_size=PP_DEG, rank=rank,
+        timeout=datetime.timedelta(seconds=180))
+    with np.load(args["grads"]) as z:
+        flat = {k: z[k] for k in z.files}
+    runs = {}
+    for name, entry in args["runs"].items():
+        cfg = _pp_cfg(entry, device, PP_DEG)
+        m = _tp_run(cfg, f"pp {name} rank {rank}", device, echo=rank == 0)
+        step = _pp_step(cfg, device)
+        spec = loop.make_spec(cfg)
+        want = convert.stack_numpy(flat, spec, PP_DEG, cfg.virtual_stages)
+        k = cfg.num_blocks // PP_DEG
+        want = {n: (a[rank * k:(rank + 1) * k] if n.startswith("blk_")
+                    else a) for n, a in want.items()}
+        step["grad_errs"] = _grad_errs(step.pop("grads"), want)
+        runs[name] = dict(m, **step)
+        log(f"[pp] rank {rank} {name}: {m['wall_s']:.1f} s on "
+            f"{args['card']}")
+    dist.barrier()
+    dist.destroy_process_group()
+    return runs
+
+
+def check_pp_kernels(card: str) -> list:
+    """B5's stats form, B6 and B7 at a pipeline microbatch's [2, 8192, 8,
+    128] (causal), against their plain versions, timed beside SDPA and
+    the bound."""
+    return _flash_form_rows(card, "pp", (
+        ("microbatch", (2, 8192, 8, 128), True),))
+
+
+def phase_pp(card: str, device: str = "cuda", runs=None,
+             timeout: float = 600) -> dict:
+    """Pipeline parallelism at pp 2 on two gloo ranks (phase 5i): the
+    one-rank run of the same flags without the stage axis here (no
+    group), then both ranks in their own processes (``pp_child``) under
+    each schedule of ``runs``.  Each rank: the devices, steps and host
+    path; printed costs within PP_COST_RTOL of the one-rank run's; the
+    bytes a step posted to the stage hops equal to the closed form
+    (``_pp_closed_bytes``); the replicated leaves bitwise equal across
+    the ranks after every step; the first step's gradients within
+    PP_GRAD_RTOL of the one-rank run's, each leaf and the whole; on the
+    card B2-B7 launched exactly as ``_pp_launches`` predicts and B5-B7
+    at the microbatch's shape.  Prints each rank's launches, bytes (the
+    split by rank), errors, warm step ms (host clock: gloo's staging,
+    not PP across cards) and peak memory (the run's and the steps')
+    beside the one-rank run's, each line with the card's name and power
+    limit; then B5-B7 at the microbatch shape against their plain
+    versions (``check_pp_kernels``)."""
+    from distributed_tensorflow_example_tpu_torch.parallel import (
+        step as step_lib)
+    from distributed_tensorflow_example_tpu_torch.train import loop
+
+    t0 = time.monotonic()
+    if device == "cuda":
+        card = _card_limit()
+    runs = runs or PP_RUNS
+    tmp = tempfile.mkdtemp(prefix="dtx-pp-")
+    ref_cfg = _pp_cfg(next(iter(runs.values())), device, 1)
+    ref = _tp_run(ref_cfg, "pp one rank", device)
+    step = _pp_step(ref_cfg, device)
+    grads = os.path.join(tmp, "one_rank_grads.npz")
+    np.savez(grads, **step.pop("grads"))
+    ref.update(step)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[pp] one-rank run: {ref['wall_s']:.1f} s on {card}")
+    out = os.path.join(tmp, "pp.json")
+    args = json.dumps(dict(device=device, runs=runs, tmp=tmp, out=out,
+                           port=_free_port(), card=card, grads=grads))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--pp-phase", args,
+         str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env, cwd=os.path.dirname(os.path.abspath(__file__)))
+        for r in range(PP_DEG)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        for line in text.splitlines():
+            log(f"  [pp {r}] {line}")
+        if p.returncode:
+            raise AssertionError(f"pp: rank {r} exited {p.returncode}")
+    ranks = []
+    for r in range(PP_DEG):
+        with open(f"{out}.{r}") as f:
+            ranks.append(json.load(f))
+    result, faults = {}, []
+    for name, entry in runs.items():
+        cfg = _pp_cfg(entry, device, PP_DEG)
+        mine = [rk[name] for rk in ranks]
+        mb = cfg.batch_size // cfg.microbatches
+        shape = [mb, cfg.seq_len, cfg.n_heads, cfg.d_model // cfg.n_heads]
+        # the trainer's eval chunks: rounded to the batch shards (1) x
+        # the microbatches
+        n_test, unit = cfg.synthetic_test_size, cfg.microbatches
+        cap = step_lib.eval_chunk_cap(loop.make_spec(cfg),
+                                      cfg.eval_batch_size)
+        chunk = max(unit, (min(max(cap, unit), n_test) // unit) * unit)
+        eval_chunks = -(-n_test // chunk)
+        for r, m in enumerate(mine):
+            if (m["devices"] != PP_DEG or m["steps"] != ref["steps"]
+                    or m["fast_loop"]):
+                faults.append(f"{name} rank {r}: {m['devices']} devices, "
+                              f"{m['steps']} steps, fast_loop "
+                              f"{m['fast_loop']}")
+            m["cost_rel_err"] = max(abs(a - b) / max(abs(b), 1e-6)
+                                    for a, b in zip(m["costs"], ref["costs"]))
+            if (len(m["costs"]) != len(ref["costs"])
+                    or m["cost_rel_err"] > PP_COST_RTOL):
+                faults.append(f"{name} rank {r}: costs {m['costs']} vs one "
+                              f"rank {ref['costs']} (> {PP_COST_RTOL})")
+            m["closed_bytes"] = _pp_closed_bytes(cfg, r)
+            if m["step_bytes"] != m["closed_bytes"]:
+                faults.append(f"{name} rank {r}: {m['step_bytes']} B posted "
+                              f"a step, closed form {m['closed_bytes']}")
+            if m["digests"] != mine[0]["digests"]:
+                faults.append(f"{name} rank {r}: the replicated leaves "
+                              f"differ from rank 0's after a step")
+            m["grad_worst"] = max((e, k) for k, e in m["grad_errs"].items())
+            if not m["grad_worst"][0] <= PP_GRAD_RTOL:
+                faults.append(f"{name} rank {r}: the first step's gradient "
+                              f"{m['grad_worst'][1]} off the one-rank run's "
+                              f"by {m['grad_worst'][0]:.3g} (> "
+                              f"{PP_GRAD_RTOL})")
+            m["predicted"] = _pp_launches(cfg, r, m["steps"], eval_chunks)
+            if device != "cuda":
+                continue
+            for w, n in m["predicted"].items():
+                if m["counts"][w] != n:
+                    faults.append(f"{name} rank {r}: {w} launched "
+                                  f"{m['counts'][w]} times, predicted {n}")
+            for w in ("flash_forward", "flash_dq", "flash_dkv"):
+                if list(m["train_shapes"][w] or []) != shape:
+                    faults.append(f"{name} rank {r}: {w} saw "
+                                  f"{m['train_shapes'][w]}, predicted "
+                                  f"{shape}")
+        result[name] = dict(ranks=mine)
+        for r, m in enumerate(mine):
+            c = m["counts"]
+            log(f"[pp] {name} rank {r} (stage {r} of {PP_DEG}, gloo on one "
+                f"card): B2/B3/B4 {c['fused_layer_norm']}/"
+                f"{c['fused_layer_norm_residual']}/"
+                f"{c['layer_norm_backward']}, B5/B6/B7 "
+                f"{c['flash_forward']}/{c['flash_dq']}/{c['flash_dkv']} "
+                f"(predicted {m['predicted']}) at "
+                f"{m['train_shapes']['flash_dq']}, hops a step "
+                f"{m['step_bytes']} B posted (closed form "
+                f"{m['closed_bytes']}), first step's gradient rel L2 err "
+                f"{m['grad_errs']['all']:.3g} (worst leaf "
+                f"{m['grad_worst'][1]} {m['grad_worst'][0]:.3g}), "
+                f"replicated leaves bitwise equal across the ranks after "
+                f"each of {len(m['digests'])} steps, warm steps "
+                f"{[round(t, 2) for t in m['warm_step_ms']]} ms (host "
+                f"clock: gloo's host staging, not PP across cards), peak "
+                f"memory {m['peak_gib']} GiB a run, {m['step_peak_gib']} "
+                f"GiB over the steps, costs rel err "
+                f"{m['cost_rel_err']:.3g} on {card}")
+    log(f"[pp] one rank: warm steps "
+        f"{[round(t, 2) for t in ref['warm_step_ms']]} ms, peak memory "
+        f"{ref['peak_gib']} GiB a run, {ref['step_peak_gib']} GiB over the "
+        f"steps, B2-B4 {ref['counts']['fused_layer_norm']}/"
+        f"{ref['counts']['fused_layer_norm_residual']}/"
+        f"{ref['counts']['layer_norm_backward']}, B5/B6/B7 "
+        f"{ref['counts']['flash_forward']}/{ref['counts']['flash_dq']}/"
+        f"{ref['counts']['flash_dkv']} on {card}")
+    if faults:
+        raise AssertionError("pp: " + "; ".join(faults))
+    shutil.rmtree(tmp, ignore_errors=True)
+    kernels = check_pp_kernels(card) if device == "cuda" else []
+    log(f"[pp] phase 5i took {time.monotonic() - t0:.1f} s on {card}")
+    return dict(runs=result, ref=ref, kernels=kernels)
+
+
 def phase_cli(card: str) -> dict:
     """The reference command line (its defaults plus --pallas, one
     epoch) on the card: stdout in the reference's format, the event
@@ -5586,6 +5971,12 @@ def main() -> int:
         with open(f"{args['out']}.{rank}", "w") as f:
             json.dump(runs, f)
         return 0
+    if sys.argv[1:2] == ["--pp-phase"]:     # a rank of phase 5i
+        args, rank = json.loads(sys.argv[2]), int(sys.argv[3])
+        runs = pp_child(args, rank)
+        with open(f"{args['out']}.{rank}", "w") as f:
+            json.dump(runs, f)
+        return 0
     if sys.argv[1:2] == ["--site-phase"]:   # a rank of phase 5f
         args, rank = json.loads(sys.argv[2]), int(sys.argv[3])
         runs = site_child(args, rank)
@@ -5630,6 +6021,9 @@ def main() -> int:
     ep = phase_ep(card)
     for row in ep["kernels"]:
         dict(measured)[row["kernel"]].append(row)
+    pp = phase_pp(card)
+    for row in pp["kernels"]:
+        dict(measured)[row["kernel"]].append(row)
     cli = phase_cli(card)
     tfm_train = phase_transformer_train(card)
     phase_transformer_step(card)
@@ -5671,6 +6065,10 @@ def main() -> int:
                   for i, m in enumerate(r["ranks"])},
                **{f"{name}_one_rank": r["ref"]["counts"]
                   for name, r in ep["runs"].items()},
+               **{f"{name}_rank{i}": m["counts"]
+                  for name, r in pp["runs"].items()
+                  for i, m in enumerate(r["ranks"])},
+               "pp_one_rank": pp["ref"]["counts"],
                "mlp_cli": cli["counts"],
                "transformer_train": tfm_train["counts"],
                "moe_train": moe_train[0]["counts"],
@@ -5789,6 +6187,17 @@ def main() -> int:
                 f"{statistics.median(r['ref']['warm_step_ms']):.2f} ms, "
                 f"{r['ref']['params_held']} params, "
                 f"{r['ref']['peak_gib']:.3f} GiB on {smi}")
+    for name, r in pp["runs"].items():
+        for i, m in enumerate(r["ranks"]):
+            log(f"[pp] {name} stage {i} of {PP_DEG} (gloo on one card): "
+                f"warm step {statistics.median(m['warm_step_ms']):.2f} ms "
+                f"(host clock: gloo's host staging, not PP across cards), "
+                f"{m['step_bytes']} B posted a step to the stage hops "
+                f"(closed form {m['closed_bytes']}), first step's gradient "
+                f"rel L2 err {m['grad_errs']['all']:.3g}, peak memory "
+                f"{m['step_peak_gib']:.3f} GiB over the steps; one rank "
+                f"{statistics.median(pp['ref']['warm_step_ms']):.2f} ms, "
+                f"{pp['ref']['step_peak_gib']:.3f} GiB on {smi}")
     for name, r in train["runs"].items():
         log(f"[train] {name}: median step {r['step_ms_median']:.3f} ms, "
             f"peak memory {r['peak_gib']:.3f} GiB on {smi}")

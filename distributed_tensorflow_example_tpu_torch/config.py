@@ -21,11 +21,11 @@ their combinations, ``validate_strategy_config``; multi-site local SGD
 ``validate_local_sgd_config``; sequence parallelism
 ``--sequence_parallel`` and ``--sp_impl``, with JAX's refusals
 (``validate_sequence_config``); expert parallelism ``--expert_parallel``,
-with JAX's (``validate_expert_config``); ``--compilation_cache`` is
-accepted and explained away), and refuses every other flag of the JAX
-trainer (exit 2, naming ROADMAP.md) rather than ignore it: pipeline
-parallelism (``--pipeline_parallel``, ``--virtual_stages``,
-``--pp_schedule``) and ``--mnist_mirrors``.
+with JAX's (``validate_expert_config``); pipeline parallelism
+``--pipeline_parallel``, ``--virtual_stages`` and ``--pp_schedule``, with
+JAX's ``validate_pipeline_config``; ``--compilation_cache`` is accepted
+and explained away), and refuses every other flag of the JAX trainer
+(exit 2, naming ROADMAP.md) rather than ignore it: ``--mnist_mirrors``.
 Both parsers take the multi-site family, as JAX's shared parser does.
 ``--device`` is the port's own: the card (``cuda``) unless ``cpu`` is
 asked for.
@@ -142,7 +142,16 @@ class Config:
     # r of the JAX package's one-process ('data', 'model') mesh ----
     data_parallel: int = -1         # -1: world / model_parallel
     model_parallel: int = 1         # Megatron-style TP over the hidden dim
+    pipeline_parallel: int = 1      # transformer only: pipeline stages
+                                    # over a ('data', 'stage') layout
     microbatches: int = 4           # GPipe microbatches (pipeline only)
+    virtual_stages: int = 1         # > 1: Megatron interleaved virtual
+                                    # stages (each stage v chunks of
+                                    # num_blocks / (p v) blocks)
+    pp_schedule: str = "gpipe"      # gpipe (the forward's ticks, then
+                                    # their transpose in reverse) | 1f1b
+                                    # (fused ticks; the stash
+                                    # M-independent)
     sequence_parallel: int = 1      # transformer only: the token axis
                                     # split over a ('data', 'seq') layout
     sp_impl: str = "ring"           # ring (k/v blocks rotate) | ulysses
@@ -656,8 +665,25 @@ def build_train_parser() -> argparse.ArgumentParser:
                    help="Megatron tensor parallelism: ranks on the model "
                         "axis (rank r at data index r // mp, model index "
                         "r %% mp)")
+    p.add_argument("--pipeline_parallel", type=int,
+                   default=d.pipeline_parallel,
+                   help="transformer only: GPipe pipeline stages over a "
+                        "('data','stage') mesh")
     p.add_argument("--microbatches", type=int, default=d.microbatches,
                    help="GPipe microbatches per local batch")
+    p.add_argument("--virtual_stages", type=int, default=d.virtual_stages,
+                   help="interleaved virtual stages per pipeline stage "
+                        "(>1 shrinks the pipeline bubble ~v-fold; "
+                        "composes with both schedules — with "
+                        "--pp_schedule=1f1b it runs interleaved-1F1B)")
+    p.add_argument("--pp_schedule", type=str, default=d.pp_schedule,
+                   choices=["gpipe", "1f1b"],
+                   help="pipeline schedule: gpipe (all-forward then "
+                        "all-backward) vs 1f1b (fused ticks; live "
+                        "microbatch activations cap at min(vM, 2pv-1), "
+                        "M-independent; with --virtual_stages>1 the "
+                        "interleaved-1F1B schedule with async "
+                        "stage-hop overlap)")
     p.add_argument("--sequence_parallel", type=int,
                    default=d.sequence_parallel,
                    help="transformer only: shard the token axis over a "
@@ -989,8 +1015,8 @@ def validate_local_sgd_config(cfg: Config) -> None:
                          "local-SGD analog; use one of the two "
                          "(--sites N --inner_steps K --outer_optimizer "
                          "sgd --outer_lr 1 reproduces --sync_period K)")
-    if (cfg.fsdp or cfg.zero_opt or cfg.sequence_parallel > 1
-            or cfg.expert_parallel > 1):
+    if (cfg.fsdp or cfg.zero_opt or cfg.pipeline_parallel > 1
+            or cfg.sequence_parallel > 1 or cfg.expert_parallel > 1):
         raise ValueError("--sites composes with within-site data "
                          "parallelism only (no fsdp/zero_opt/"
                          "pipeline/sequence/expert parallelism)")
@@ -1010,6 +1036,88 @@ def validate_local_sgd_config(cfg: Config) -> None:
         raise ValueError("--on_anomaly=skip rides the synchronous "
                          "step's compiled update mask (sites=1); "
                          "halt/dump work on the multi-site path")
+
+
+def validate_pipeline_config(cfg: Config) -> None:
+    """The pipeline-parallelism / schedule matrix of the JAX trainer
+    (JAX's ``validate_pipeline_config``, its messages):
+
+    - ``pipeline_parallel`` >= 1; > 1 needs the transformer, divisible
+      ``num_blocks``, ``microbatches`` >= 1, and composes with data,
+      tensor, sequence and expert parallelism only (no FSDP, no local
+      SGD), seq XOR expert;
+    - ``pp_schedule`` in {gpipe, 1f1b}; 1f1b needs >= 2 stages and
+      composes with DP x PP x TP at any ``virtual_stages`` (no seq or
+      expert token sharding, no MoE balance loss, no ``--grad_accum``,
+      no ``--remat``: per-slot remat is built in);
+    - ``virtual_stages`` >= 1; > 1 (either schedule) needs >= 2 stages,
+      ``num_blocks`` divisible over stages x virtual and
+      ``microbatches`` divisible by the stage count."""
+    if cfg.pipeline_parallel < 1:
+        raise ValueError(
+            f"pipeline_parallel={cfg.pipeline_parallel} must be >= 1")
+    if cfg.pipeline_parallel > 1:
+        if cfg.model != "transformer":
+            raise ValueError("--pipeline_parallel requires "
+                             "--model=transformer (the MLP has no stages)")
+        if cfg.num_blocks % cfg.pipeline_parallel:
+            raise ValueError(
+                f"num_blocks={cfg.num_blocks} must divide evenly over "
+                f"pipeline_parallel={cfg.pipeline_parallel}")
+        if cfg.microbatches < 1:
+            raise ValueError(f"microbatches={cfg.microbatches} must be >= 1")
+        if cfg.fsdp or cfg.sync_period > 1:
+            raise ValueError("--pipeline_parallel composes with data, "
+                             "tensor, sequence and expert parallelism "
+                             "only (no fsdp, sync_period=1)")
+        if cfg.sequence_parallel > 1 and cfg.expert_parallel > 1:
+            raise ValueError(
+                "--pipeline_parallel composes with EITHER "
+                "--sequence_parallel OR --expert_parallel (plus "
+                "--model_parallel and data), not both at once")
+    if cfg.pp_schedule not in ("gpipe", "1f1b"):
+        raise ValueError(
+            f"pp_schedule={cfg.pp_schedule!r}: expected 'gpipe' or "
+            f"'1f1b'")
+    if cfg.pp_schedule == "1f1b":
+        if cfg.pipeline_parallel < 2:
+            raise ValueError("--pp_schedule=1f1b requires "
+                             "--pipeline_parallel > 1 (no schedule to "
+                             "fuse on one stage)")
+        if cfg.sequence_parallel > 1 or cfg.expert_parallel > 1:
+            raise ValueError("--pp_schedule=1f1b composes with data "
+                             "and tensor parallelism only (no "
+                             "sequence/expert token sharding)")
+        if cfg.moe_aux_weight:
+            raise ValueError("--pp_schedule=1f1b does not carry the "
+                             "MoE balance loss; use the gpipe "
+                             "schedule with --moe_aux_weight")
+        if cfg.grad_accum > 1:
+            raise ValueError("--pp_schedule=1f1b already microbatches "
+                             "the local batch; --grad_accum must be 1")
+        if cfg.remat:
+            raise ValueError("--remat has no effect under "
+                             "--pp_schedule=1f1b (the fused schedule "
+                             "already rematerializes per slot); drop "
+                             "the flag or use --pp_schedule=gpipe")
+    if cfg.virtual_stages < 1:
+        raise ValueError(
+            f"virtual_stages={cfg.virtual_stages} must be >= 1")
+    if cfg.virtual_stages > 1:
+        if cfg.pipeline_parallel < 2:
+            raise ValueError("--virtual_stages > 1 needs "
+                             "--pipeline_parallel > 1 (nothing to "
+                             "interleave on one stage)")
+        if cfg.num_blocks % (cfg.pipeline_parallel * cfg.virtual_stages):
+            raise ValueError(
+                f"num_blocks={cfg.num_blocks} must divide evenly over "
+                f"pipeline_parallel*virtual_stages="
+                f"{cfg.pipeline_parallel * cfg.virtual_stages}")
+        if cfg.microbatches % cfg.pipeline_parallel:
+            raise ValueError(
+                f"interleaved stages need microbatches "
+                f"({cfg.microbatches}) divisible by pipeline_parallel "
+                f"({cfg.pipeline_parallel})")
 
 
 # JAX's refusal of --fsdp and local SGD under --sequence_parallel (also
@@ -1124,6 +1232,7 @@ def validate_train_config(cfg: Config) -> None:
     """Value checks of the ported training flags; ``Unported`` for a
     mode of the JAX trainer the port does not have."""
     validate_strategy_config(cfg)
+    validate_pipeline_config(cfg)
     if cfg.batch_size < 1 or cfg.training_epochs < 0 or cfg.frequency < 1:
         raise ValueError("batch_size and frequency must be >= 1, "
                          "training_epochs >= 0")

@@ -13,6 +13,16 @@
   bf16 leaves decoded from their 16-bit containers.
 - ``mlp_params_from_numpy(np_params, spec, device)``: the same as
   ``params_from_numpy`` for an ``MLPSpec`` (``{W1, b1, ...}``).
+- ``pipeline_params_from_numpy(np_params, spec, device)``: the JAX
+  package's stacked pipeline params (``blk_*`` leaves ``[num_blocks,
+  ...]`` beside the embedding and head leaves, as numpy) -> the port's,
+  checked against ``transformer.pipeline_param_shapes``;
+  ``stack_numpy(np_params, spec, stages, virtual)`` and
+  ``unstack_numpy(...)`` carry a flat or stacked numpy tree (params or
+  one optimizer slot tree) into the other layout at ``(stages,
+  virtual)``, as JAX's ``pipeline_stack_params`` /
+  ``pipeline_unstack_params`` do, so a JAX pipeline checkpoint's leaves
+  and the port's cross in either direction.
 - ``expert_shard(params, spec, expert_parallel, expert_index)``: whole
   params with each MoE block's expert leaves cut to one rank's experts
   (the block of JAX's ``P('expert')`` that device r holds).
@@ -89,6 +99,43 @@ def mlp_params_from_numpy(np_params: Dict[str, np.ndarray],
                               spec.param_dtype, device)
 
 
+def pipeline_params_from_numpy(np_params: Dict[str, np.ndarray],
+                               spec: tfm.TransformerSpec,
+                               device: DeviceLike = None) -> tfm.Params:
+    """The JAX package's stacked pipeline params as numpy (``blk_*``
+    leaves ``[num_blocks, ...]``) as the port's, in ``spec.param_dtype``
+    on ``device``."""
+    return _params_from_numpy(np_params, tfm.pipeline_param_shapes(spec),
+                              spec.param_dtype, device)
+
+
+def stack_numpy(np_tree: Dict[str, np.ndarray], spec: tfm.TransformerSpec,
+                stages: int = 1, virtual: int = 1) -> Dict[str, np.ndarray]:
+    """A flat ``{name: array}`` tree (params, or one slot tree of the
+    same names) in the stacked layout at ``(stages, virtual)``: JAX's
+    ``pipeline_stack_params`` on numpy."""
+    order = tfm._pipeline_block_order(spec.num_blocks, stages, virtual)
+    out = {k: v for k, v in np_tree.items() if not k.startswith("L")}
+    for leaf in tfm._block_leaf_names(spec):
+        out[f"blk_{leaf}"] = np.stack([np.asarray(np_tree[f"L{j}_{leaf}"])
+                                       for j in order])
+    return out
+
+
+def unstack_numpy(np_tree: Dict[str, np.ndarray],
+                  spec: tfm.TransformerSpec, stages: int = 1,
+                  virtual: int = 1) -> Dict[str, np.ndarray]:
+    """The inverse of ``stack_numpy`` at the same ``(stages, virtual)``
+    (JAX's ``pipeline_unstack_params`` on numpy)."""
+    order = tfm._pipeline_block_order(spec.num_blocks, stages, virtual)
+    out = {k: v for k, v in np_tree.items() if not k.startswith("blk_")}
+    for leaf in tfm._block_leaf_names(spec):
+        stacked = np.asarray(np_tree[f"blk_{leaf}"])
+        for pos, j in enumerate(order):
+            out[f"L{j}_{leaf}"] = stacked[pos]
+    return out
+
+
 def expert_shard(params: tfm.Params, spec: tfm.TransformerSpec,
                  expert_parallel: int, expert_index: int) -> tfm.Params:
     """``params`` with every expert leaf (``tfm.expert_leaves``) cut to
@@ -152,5 +199,6 @@ def params_from_checkpoint(path: str, spec: tfm.TransformerSpec,
 
 
 __all__ = ["params_from_numpy", "params_from_checkpoint",
-           "mlp_params_from_numpy", "expert_shard",
+           "mlp_params_from_numpy", "pipeline_params_from_numpy",
+           "stack_numpy", "unstack_numpy", "expert_shard",
            "train_state_from_checkpoint"]

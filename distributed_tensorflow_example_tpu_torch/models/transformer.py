@@ -79,8 +79,18 @@ input and selection enter through ``expert_copy``, so their gradients
 are summed over the axis (the balance loss's path to the router stays
 outside the copy).  Sparse dispatch routes locally, sends the ``[E, C,
 d]`` buffers to their experts' ranks (``expert_all_to_all``), runs the
-grouped FFN on ``[El, ep * C, d]`` and sends the rows back.  Not ported
-yet (ROADMAP.md): pipeline parallelism.
+grouped FFN on ``[El, ep * C, d]`` and sends the rows back.
+
+Pipeline parallelism (``stage_axis``: ``parallel/mesh.StageAxis``, JAX's
+``stage_axis`` name): the block leaves stack into ``blk_*`` leaves with
+a leading block dim (``pipeline_stack_params``, in JAX's order, the
+interleaved permutation at ``virtual`` > 1) and each stage holds its
+contiguous slice; ``apply_pipeline`` runs GPipe or the interleaved
+schedule on it, its backward the same ticks in reverse, and
+``pipeline_value_and_grad_1f1b`` the fused 1F1B family, both reading
+this rank's row of ``parallel/pp_schedule``'s tick tables, running live
+slots only and moving a microbatch's activations between stages with
+``stage_hop_start``.
 """
 
 from __future__ import annotations
@@ -93,9 +103,11 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..ops.ring_attention import NEG_INF, attention, softmax
+from ..parallel import pp_schedule
 from ..parallel.mesh import (expert_all_to_all, expert_copy, expert_psum,
                              model_copy, model_psum, pmean_seq,
-                             pmean_tokens)
+                             pmean_tokens, stage_hop_start,
+                             stage_hop_transport, stage_psum)
 from .mlp import _ACTIVATIONS, dot_f32
 
 Params = Dict[str, torch.Tensor]
@@ -423,6 +435,19 @@ def _load_balance_loss(spec: TransformerSpec, probs, top1_idx,
     return e * torch.sum(f * p)
 
 
+def _balance_stats(spec: TransformerSpec, probs, top1_idx):
+    """Raw per-block load-balance statistics ``[2, E]`` = (f, P), the
+    top-1 routing fraction and the mean router probability as LOCAL
+    token means with no cross-rank mean (JAX's ``_balance_stats``): the
+    pipeline sums them over microbatches and combines them once after
+    its tick loop."""
+    e = spec.num_experts
+    f = torch.mean(torch.nn.functional.one_hot(
+        top1_idx.reshape(-1), e).to(torch.float32), dim=0)
+    p = torch.mean(probs.reshape(-1, e), dim=0)
+    return torch.stack([f, p])
+
+
 def _route_topk(spec: TransformerSpec, probs):
     """``(gates [..., k], idx [..., k])``, the router's top-k choices:
     a stable descending sort, so on a tie the lower expert index comes
@@ -439,7 +464,7 @@ def _route_topk(spec: TransformerSpec, probs):
 
 
 def _moe_ffn(spec: TransformerSpec, bp: Params, a, act, cdt, aux_axes=None,
-             expert_axis=None):
+             expert_axis=None, aux_stats: bool = False):
     """Top-k MoE FFN by dense dispatch: every expert on every token, the
     gate-weighted one-hot selection combines them (exact: no capacity,
     nothing dropped).  ``a`` [B, S, d] -> ``(out f32, aux)``.  Under
@@ -466,6 +491,8 @@ def _moe_ffn(spec: TransformerSpec, bp: Params, a, act, cdt, aux_axes=None,
     h2 = dot_f32(h1.reshape(b * s, el, -1).transpose(0, 1), bp["We2"], cdt)
     h2 = h2.transpose(0, 1).reshape(b, s, el, -1) + _f32(bp["be2"])
     out = expert_psum(torch.einsum("bsed,bse->bsd", h2, sel), expert_axis)
+    if aux_stats:
+        return out, _balance_stats(spec, probs, idx[..., 0])
     return out, _load_balance_loss(spec, probs, idx[..., 0], aux_axes)
 
 
@@ -538,7 +565,7 @@ def _sparse_combine(h2, slot, gates, keep):
 
 
 def _moe_ffn_sparse(spec: TransformerSpec, bp: Params, a, act, cdt,
-                    aux_axes=None, expert_axis=None):
+                    aux_axes=None, expert_axis=None, aux_stats: bool = False):
     """Capacity-limited top-k MoE FFN (Switch/GShard): ``_sparse_route``
     -> ``_grouped_expert_ffn`` -> ``_sparse_combine``; dropped units add
     nothing and the residual carries their tokens.  ``a`` [B, S, d] ->
@@ -560,6 +587,8 @@ def _moe_ffn_sparse(spec: TransformerSpec, bp: Params, a, act, cdt,
     if exchange:
         h2 = expert_all_to_all(h2, expert_axis, reverse=True)
     out = _sparse_combine(h2, slot, gates, keep)
+    if aux_stats:
+        return out.reshape(b, s, d), _balance_stats(spec, probs, idx[:, 0])
     return out.reshape(b, s, d), _load_balance_loss(spec, probs, idx[:, 0],
                                                     aux_axes)
 
@@ -567,7 +596,7 @@ def _moe_ffn_sparse(spec: TransformerSpec, bp: Params, a, act, cdt,
 def _block_forward(spec: TransformerSpec, bp: Params, h, act, cdt,
                    kv_out: Optional[list] = None, dropout_rng=None,
                    block: int = 0, model_axis=None, seq_axis=None,
-                   aux_axes=None, expert_axis=None):
+                   aux_axes=None, expert_axis=None, aux_stats: bool = False):
     """One pre-LN block on ``h`` [B, S, D] (f32): attention by
     ``_attend``, the attention residual add fused into ln2, then the
     FFN half, with dropout on both residual branches when
@@ -580,7 +609,9 @@ def _block_forward(spec: TransformerSpec, bp: Params, h, act, cdt,
     ``model_psum`` after ``Wo`` (and one after ``W2``).  Under
     ``seq_axis`` ``h`` is this rank's token block and the attention runs
     the sequence-parallel layout; ``aux_axes`` reach the balance
-    loss, ``expert_axis`` the MoE FFN."""
+    loss, ``expert_axis`` the MoE FFN.  ``aux_stats``: aux is the MoE
+    block's raw ``[2, E]`` statistics instead (``_balance_stats``; the
+    pipeline combines them)."""
     b, s, d = h.shape
     a = _ln(spec, h, bp["ln1_g"], bp["ln1_b"])
     qkv = _cast_mm(model_copy(a, model_axis), bp["Wqkv"], cdt) \
@@ -597,12 +628,12 @@ def _block_forward(spec: TransformerSpec, bp: Params, h, act, cdt,
     a2, h = _ln_residual(spec, h, branch, bp["ln2_g"], bp["ln2_b"])
     return _ffn_block(spec, bp, h, act, cdt, a=a2, dropout_rng=dropout_rng,
                       block=block, model_axis=model_axis, aux_axes=aux_axes,
-                      expert_axis=expert_axis)
+                      expert_axis=expert_axis, aux_stats=aux_stats)
 
 
 def _ffn_block(spec: TransformerSpec, bp: Params, h, act, cdt, a=None,
                dropout_rng=None, block: int = 0, model_axis=None,
-               aux_axes=None, expert_axis=None):
+               aux_axes=None, expert_axis=None, aux_stats: bool = False):
     """The LN2 + FFN residual half of a block (dense, fp8 or MoE),
     shared by the training forward, the prefill and the decode step.
     ``h`` [B, S, D] -> ``(h, aux)``; ``a`` is the ln2 output when the
@@ -612,7 +643,8 @@ def _ffn_block(spec: TransformerSpec, bp: Params, h, act, cdt, a=None,
     expert parallelism); fp8 raises (JAX's guard)."""
     if a is None:
         a = _ln(spec, h, bp["ln2_g"], bp["ln2_b"])
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    aux = torch.zeros((2, spec.num_experts) if aux_stats else (),
+                      dtype=torch.float32, device=h.device)
     if spec.num_experts:
         if spec.moe_dispatch == "alltoall":
             moe = _moe_ffn_sparse
@@ -622,7 +654,8 @@ def _ffn_block(spec: TransformerSpec, bp: Params, h, act, cdt, a=None,
             raise ValueError(
                 f"unknown moe_dispatch {spec.moe_dispatch!r}: expected "
                 f"'dense' or 'alltoall'")
-        ffn, aux = moe(spec, bp, a, act, cdt, aux_axes, expert_axis)
+        ffn, aux = moe(spec, bp, a, act, cdt, aux_axes, expert_axis,
+                       aux_stats)
     elif spec.fp8_ffn:
         if model_axis is not None:
             raise ValueError("fp8_ffn does not compose with tensor "
@@ -651,6 +684,24 @@ class _ScaleGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g * ctx.scale, None
+
+
+def _classify_head(spec: TransformerSpec, params: Params, h, seq_axis=None):
+    """The classifier's head on ``h`` [B, S(local), D]: the final
+    LayerNorm, the mean over tokens and ``W_head``; f32 ``[B,
+    num_classes]``."""
+    hl = _ln(spec, h, params["lnf_g"], params["lnf_b"])
+    pooled = torch.mean(hl, dim=1)
+    head = params
+    if seq_axis is not None:
+        # the global token mean (backward: JAX's transpose, g / n); the
+        # head then runs on a value replicated over the axis, where JAX
+        # sums its gradient over 'data' only: the step sums every
+        # gradient over data x seq, so its local gradient counts 1 / n
+        pooled = pmean_seq(pooled, seq_axis)
+        head = {k: _ScaleGrad.apply(params[k], 1.0 / seq_axis.size)
+                for k in ("W_head", "b_head")}
+    return _f32(_mm(head, pooled, "W_head", "b_head", spec.compute_dtype))
 
 
 def apply(spec: TransformerSpec, params: Params, x: torch.Tensor,
@@ -693,20 +744,11 @@ def apply(spec: TransformerSpec, params: Params, x: torch.Tensor,
                                   model_axis=model_axis, seq_axis=seq_axis,
                                   aux_axes=aux_axes, expert_axis=expert_axis)
         aux = aux + aux_i
-    h = _ln(spec, h, params["lnf_g"], params["lnf_b"])
-    head = params
-    if spec.objective != "lm":
-        h = torch.mean(h, dim=1)                 # [B, D]
-        if seq_axis is not None:
-            # the global token mean (backward: JAX's transpose, g / n);
-            # the head then runs on a value replicated over the axis,
-            # where JAX sums its gradient over 'data' only: the step
-            # sums every gradient over data x seq, so its local
-            # gradient counts 1 / n
-            h = pmean_seq(h, seq_axis)
-            head = {k: _ScaleGrad.apply(params[k], 1.0 / seq_axis.size)
-                    for k in ("W_head", "b_head")}
-    logits = _f32(_mm(head, h, "W_head", "b_head", cdt))
+    if spec.objective == "lm":
+        h = _ln(spec, h, params["lnf_g"], params["lnf_b"])
+        logits = _f32(_mm(params, h, "W_head", "b_head", cdt))
+    else:
+        logits = _classify_head(spec, params, h, seq_axis)
     if with_aux:
         return logits, aux / spec.num_blocks
     return logits
@@ -738,6 +780,582 @@ def flops_per_step(spec: TransformerSpec, batch: int) -> float:
     attn = 4.0 * batch * spec.n_heads * s * s * spec.d_head \
         * spec.num_blocks * (0.5 if spec.causal else 1.0)
     return 6.0 * macs + 3.5 * attn
+
+
+# ---------------------------------------------------------------------------
+# pipeline parallelism: the stacked layout and the schedules
+# ---------------------------------------------------------------------------
+
+_BLOCK_LEAVES = ("ln1_g", "ln1_b", "Wqkv", "bqkv", "Wo", "bo",
+                 "ln2_g", "ln2_b", "W1", "b1", "W2", "b2")
+_BLOCK_LEAVES_MOE = ("ln1_g", "ln1_b", "Wqkv", "bqkv", "Wo", "bo",
+                     "ln2_g", "ln2_b", "Wr", "We1", "be1", "We2", "be2")
+
+
+def _block_leaf_names(spec: TransformerSpec) -> tuple:
+    """The per-block leaf set the pipeline stacks: dense FFN or MoE."""
+    return _BLOCK_LEAVES_MOE if spec.num_experts else _BLOCK_LEAVES
+
+
+def _pipeline_block_order(num_blocks: int, n_stages: int,
+                          virtual: int) -> list:
+    """Stacked position -> logical block (JAX's): the identity at
+    ``virtual`` 1; with ``virtual`` > 1 (Megatron's interleaved stages)
+    stage ``s`` runs chunks ``c * p + s``, each ``num_blocks / (p * v)``
+    consecutive blocks, so stacked position ``s * K + c * k + i`` holds
+    logical block ``(c * p + s) * k + i`` and each stage's contiguous
+    slice holds its v chunks in the order it runs them."""
+    if virtual <= 1:
+        return list(range(num_blocks))
+    k = num_blocks // (n_stages * virtual)
+    order = []
+    for s in range(n_stages):
+        for c in range(virtual):
+            j0 = (c * n_stages + s) * k
+            order.extend(range(j0, j0 + k))
+    return order
+
+
+def pipeline_stack_params(spec: TransformerSpec, params: Params,
+                          n_stages: int = 1, virtual: int = 1) -> Params:
+    """The flat ``L{i}_*`` block leaves regrouped into ``blk_*`` leaves
+    with a leading ``[num_blocks, ...]`` dim in ``_pipeline_block_order``
+    (JAX's ``pipeline_stack_params``); the embedding, head and final
+    LayerNorm leaves keep their names.  Checkpoints of interleaved runs
+    are therefore pinned to their ``(n_stages, virtual)``."""
+    out = {k: v for k, v in params.items() if not k.startswith("L")}
+    order = _pipeline_block_order(spec.num_blocks, n_stages, virtual)
+    for leaf in _block_leaf_names(spec):
+        out[f"blk_{leaf}"] = torch.stack(
+            [params[f"L{j}_{leaf}"] for j in order])
+    return out
+
+
+def pipeline_unstack_params(spec: TransformerSpec, stacked: Params,
+                            n_stages: int = 1, virtual: int = 1) -> Params:
+    """The inverse of ``pipeline_stack_params`` at the same ``(n_stages,
+    virtual)`` (sampling, conversions and tests read the flat layout)."""
+    out = {k: v for k, v in stacked.items() if not k.startswith("blk_")}
+    order = _pipeline_block_order(spec.num_blocks, n_stages, virtual)
+    for leaf in _block_leaf_names(spec):
+        for pos, j in enumerate(order):
+            out[f"L{j}_{leaf}"] = stacked[f"blk_{leaf}"][pos]
+    return out
+
+
+def pipeline_train_state(spec: TransformerSpec, optimizer, state,
+                         n_stages: int = 1, virtual: int = 1):
+    """A fresh ``TrainState`` re-laid out for pipeline parallelism: the
+    stacked params, the optimizer's slots initialised on them (JAX's
+    ``pipeline_train_state``)."""
+    from ..train.state import TrainState
+
+    stacked = pipeline_stack_params(spec, state.params, n_stages, virtual)
+    return TrainState(step=state.step, params=stacked,
+                      opt_state=optimizer.init(stacked))
+
+
+def pipeline_param_shapes(spec: TransformerSpec) -> Dict[str, tuple]:
+    """``{name: global shape}`` of the stacked layout."""
+    shapes = param_shapes(spec)
+    out = {k: v for k, v in shapes.items() if not k.startswith("L")}
+    for leaf in _block_leaf_names(spec):
+        out[f"blk_{leaf}"] = (spec.num_blocks,) + shapes[f"L0_{leaf}"]
+    return out
+
+
+def pipeline_param_pspecs(spec: TransformerSpec, model_axis=None
+                          ) -> Dict[str, Optional[int]]:
+    """``{stacked name: the dim split over the model axis, or None}``:
+    each ``blk_*`` leaf's dim 0 splits over 'stage' (every stage its
+    contiguous ``num_blocks / p`` slice) and its flat leaf's Megatron dim
+    (``param_pspecs``) moves one dim in (JAX's ``pipeline_param_pspecs``,
+    reduced to the model split; the expert leaves' dim 1 splits over
+    'expert' under expert parallelism, ``pipeline_expert_leaves``)."""
+    flat = param_pspecs(spec, model_axis=model_axis)
+    out = {}
+    for name in pipeline_param_shapes(spec):
+        if name.startswith("blk_"):
+            d = flat[f"L0_{name[len('blk_'):]}"]
+            out[name] = None if d is None else d + 1
+        else:
+            out[name] = flat[name]
+    return out
+
+
+def pipeline_expert_leaves(spec: TransformerSpec) -> list:
+    """The stacked expert leaves (dim 1 the expert); none for the dense
+    FFN."""
+    return [f"blk_{x}" for x in _EXPERT_LEAVES] if spec.num_experts else []
+
+
+def _check_pipeline(spec: TransformerSpec, b: int, p: int, v: int,
+                    m_cnt: int) -> None:
+    """JAX's ``apply_pipeline`` checks, its messages."""
+    if b % m_cnt:
+        raise ValueError(
+            f"local batch {b} must divide into microbatches={m_cnt}")
+    if v < 1:
+        raise ValueError(f"virtual={v} must be >= 1")
+    if v > 1 and p < 2:
+        raise ValueError(
+            f"virtual={v} needs n_stages >= 2 (nothing to interleave "
+            f"on one stage)")
+    if v > 1 and m_cnt % p:
+        raise ValueError(
+            f"interleaved stages need microbatches ({m_cnt}) divisible "
+            f"by n_stages ({p})")
+    if spec.num_blocks % (p * v):
+        raise ValueError(
+            f"num_blocks={spec.num_blocks} must divide over "
+            f"n_stages*virtual={p * v}")
+
+
+class _Pipe:
+    """What both schedules share on one rank: the stage's chunks of
+    blocks, the slot (embed-or-consume, the chunk's blocks), the head,
+    the live pairs of each hop and the hop itself.  ``params`` are this
+    rank's leaves (``blk_*`` its stage's ``[K / p, ...]`` slice)."""
+
+    def __init__(self, spec, params, x, stage_axis, n_stages, m_cnt,
+                 virtual, model_axis, seq_axis, expert_axis, head_fn,
+                 head_width, dropout_rng, aux_stats, need_grad):
+        from ..parallel.step import microbatch_rng
+
+        p, v = n_stages, virtual
+        b = x.shape[0]
+        _check_pipeline(spec, b, p, v, m_cnt)
+        self.spec, self.p, self.v, self.m_cnt = spec, p, v, m_cnt
+        self.axis = stage_axis
+        self.sidx = stage_axis.index if stage_axis is not None else 0
+        self.mb = b // m_cnt
+        self.kc = spec.num_blocks // (p * v)
+        self.model_axis, self.seq_axis = model_axis, seq_axis
+        self.expert_axis = expert_axis
+        self.aux_stats = aux_stats
+        self.rng = lambda m: microbatch_rng(dropout_rng, m)
+        self.act = _ACTIVATIONS[spec.activation]
+        s = spec.seq_len // (seq_axis.size if seq_axis is not None else 1)
+        self.s = s
+        self.hshape = (self.mb, s, spec.d_model)
+        self.device = x.device
+        # this rank's leaves, cut off the caller's graph: each slot's
+        # backward runs against them (autograd.grad), and the blocks one
+        # leaf a block, so a slot's gradient covers its chunk's blocks
+        self.prm = {k: t.detach().requires_grad_(need_grad)
+                    for k, t in params.items() if not k.startswith("blk_")}
+        stacked = {k[len("blk_"):]: t for k, t in params.items()
+                   if k.startswith("blk_")}
+        k_local = next(iter(stacked.values())).shape[0]
+        self.blocks = [{n: t[j].detach().requires_grad_(need_grad)
+                        for n, t in stacked.items()} for j in range(k_local)]
+        if spec.objective == "lm":
+            self.micro = tokenize(spec, x).reshape(m_cnt, self.mb, s)
+        else:
+            self.micro = x.reshape(m_cnt, self.mb, s, spec.d_feature)
+        if head_fn is None:
+            head_width = spec.num_classes
+
+            def head_fn(prm, h, m):
+                return _classify_head(spec, prm, h, seq_axis)
+        elif head_width is None:
+            raise ValueError("custom head_fn needs an explicit head_width")
+        self.head_fn, self.head_width = head_fn, head_width
+        self.transport = (stage_hop_transport(stage_axis, x.device)
+                          if stage_axis is not None and p > 1 else None)
+
+    def enters(self, c: int) -> bool:
+        """Whether a slot of chunk ``c`` embeds its microbatch."""
+        return self.sidx == 0 and c == 0
+
+    def head_slot(self, c: int) -> bool:
+        return self.sidx == self.p - 1 and c == self.v - 1
+
+    def embed(self, m: int):
+        spec, prm = self.spec, self.prm
+        pos = _f32(prm["pos"])
+        if self.seq_axis is not None:
+            pos = pos[self.seq_axis.index * self.s:
+                      (self.seq_axis.index + 1) * self.s]
+        if spec.objective == "lm":
+            h = _f32(prm["W_emb"])[self.micro[m]] + pos[None]
+        else:
+            h = _mm(prm, self.micro[m].to(spec.compute_dtype), "W_in",
+                    "b_in", spec.compute_dtype) + pos[None]
+        return _dropout(h, spec, self.rng(m), 0x9999)
+
+    def chunk_blocks(self, c: int) -> list:
+        return self.blocks[c * self.kc:(c + 1) * self.kc]
+
+    def slot(self, h_in, c: int, m: int):
+        """One (stage, chunk, microbatch) unit: ``h_in`` (None: embed
+        microbatch ``m``) through chunk ``c``'s blocks, the dropout and
+        MoE salts ``base + i`` by stacked position (JAX's
+        ``_chunk_select``).  Returns ``(h_out, stats)``, stats the
+        chunk's ``[K / (p v), 2, E]`` balance statistics (None when not
+        asked for)."""
+        h = self.embed(m) if h_in is None else h_in
+        base = self.sidx * (self.spec.num_blocks // self.p) + c * self.kc
+        rng_m, stats = self.rng(m), []
+        for i, bp in enumerate(self.chunk_blocks(c)):
+            h, aux = _block_forward(
+                self.spec, bp, h, self.act, self.spec.compute_dtype,
+                dropout_rng=rng_m, block=base + i,
+                model_axis=self.model_axis, seq_axis=self.seq_axis,
+                expert_axis=self.expert_axis, aux_stats=self.aux_stats)
+            stats.append(aux)
+        return h, (torch.stack(stats) if self.aux_stats else None)
+
+    def inputs(self, h_in, c: int) -> list:
+        """The leaves a slot's backward differentiates: its input (when it
+        did not embed), its chunk's blocks and the non-block leaves."""
+        leaves = [] if h_in is None else [h_in]
+        for bp in self.chunk_blocks(c):
+            leaves.extend(bp.values())
+        return leaves + list(self.prm.values())
+
+    def accumulate(self, acc: dict, grads, h_in, c: int):
+        """Add one slot's parameter gradients into the f32 accumulators
+        ``acc`` (keyed by the leaf's id); returns the input's gradient
+        (None for an embedding slot)."""
+        grads = list(grads)
+        dh = None if h_in is None else grads.pop(0)
+        leaves = self.inputs(None, c)
+        for leaf, g in zip(leaves, grads):
+            if g is None:
+                continue
+            key = id(leaf)
+            g = g.to(torch.float32)
+            acc[key] = g if key not in acc else acc[key] + g
+        return dh
+
+    def grads_out(self, acc: dict, params: Params) -> Params:
+        """The accumulated gradients in ``params``' layout and dtypes
+        (zeros for a leaf no slot of this rank reached)."""
+        out = {}
+        for k, t in params.items():
+            if k.startswith("blk_"):
+                n = k[len("blk_"):]
+                rows = [acc.get(id(bp[n])) for bp in self.blocks]
+                g = torch.stack([r if r is not None else torch.zeros(
+                    bp[n].shape, dtype=torch.float32, device=t.device)
+                    for r, bp in zip(rows, self.blocks)])
+            else:
+                g = acc.get(id(self.prm[k]))
+                if g is None:
+                    g = torch.zeros(t.shape, dtype=torch.float32,
+                                    device=t.device)
+            out[k] = g.to(t.dtype)
+        return out
+
+    def hop(self, send, receive: bool, reverse: bool = False):
+        """Post one hop over the stage axis (``parallel/mesh.
+        stage_hop_start``): ``send`` to the next stage (previous under
+        ``reverse``) and, with ``receive``, a ``[mb, S, D]`` f32 buffer
+        from the other side."""
+        like = (torch.empty(self.hshape, dtype=torch.float32,
+                            device=self.device) if receive else None)
+        return stage_hop_start(send, like, self.axis, reverse=reverse,
+                               transport=self.transport, device=self.device)
+
+
+class _GPipeRun:
+    """The GPipe / interleaved schedule on one rank: the forward tick
+    loop over the rank's row of ``pp_schedule.gpipe_table`` (live slots
+    only), and its explicit transpose, the same ticks in reverse (see
+    ``apply_pipeline``)."""
+
+    def __init__(self, pipe: _Pipe, slot_remat: bool, aux_axes):
+        self.pipe, self.slot_remat, self.aux_axes = pipe, slot_remat, aux_axes
+        self.table = pp_schedule.gpipe_table(pipe.p, pipe.v, pipe.m_cnt)
+
+    def row(self, t: int):
+        """This rank's forward sub-slot at tick ``t`` (None: idle)."""
+        if not 0 <= t < self.table.ticks or self.table.fwd[t] is None:
+            return None
+        e = self.table.fwd[t][self.pipe.sidx]
+        return e if e.live else None
+
+    def forward(self, need_grad: bool):
+        pipe = self.pipe
+        p, v, m_cnt, mb = pipe.p, pipe.v, pipe.m_cnt, pipe.mb
+        dev = pipe.device
+        keep = need_grad and not self.slot_remat
+        collected = torch.zeros((m_cnt, mb, pipe.head_width),
+                                dtype=torch.float32, device=dev)
+        want_aux = pipe.aux_stats
+        stats_sum = (torch.zeros((v, pipe.kc, 2, pipe.spec.num_experts),
+                                 dtype=torch.float32, device=dev)
+                     if want_aux else None)
+        self.slots = {}
+        pending = None
+        for t in range(self.table.ticks):
+            recv = pending.wait()[0] if pending is not None else None
+            pending = None
+            e = self.row(t)
+            h_out = None
+            if e is not None:
+                c, m = e.chunk, e.microbatch
+                h_in = None
+                if not pipe.enters(c):
+                    h_in = recv.requires_grad_(keep)
+                with torch.set_grad_enabled(keep):
+                    h_out, st = pipe.slot(h_in, c, m)
+                    vals = (pipe.head_fn(pipe.prm, h_out, m).to(torch.float32)
+                            if pipe.head_slot(c) else None)
+                if vals is not None:
+                    collected[m] = vals.detach()
+                if want_aux:
+                    stats_sum[c] += st.detach()
+                if keep:
+                    self.slots[t] = dict(h_in=h_in, c=c, m=m, h_out=h_out,
+                                         st=st, vals=vals)
+                elif need_grad:
+                    # per-slot remat: the input alone, the slot recomputed
+                    self.slots[t] = dict(h_in=h_in, c=c, m=m)
+            if p > 1 and t < self.table.ticks - 1:
+                send = (h_out.detach() if e is not None
+                        and not pipe.head_slot(e.chunk) else None)
+                nxt = self.row(t + 1)
+                pending = pipe.hop(send, nxt is not None
+                                   and not pipe.enters(nxt.chunk))
+        out = stage_psum(collected, pipe.axis).reshape(
+            m_cnt * mb, pipe.head_width)
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        self.stats_leaf = self.aux_graph = None
+        if want_aux:
+            with torch.set_grad_enabled(need_grad):
+                leaf = stats_sum.requires_grad_(need_grad)
+                stats = leaf / m_cnt
+                f = pmean_tokens(stats[:, :, 0], self.aux_axes, grad=False)
+                pr = pmean_tokens(stats[:, :, 1], self.aux_axes)
+                local = pipe.spec.num_experts * torch.sum(f * pr)
+                aux = stage_psum(local, pipe.axis) / pipe.spec.num_blocks
+            self.stats_leaf, self.aux_graph = leaf, aux
+            aux = aux.detach()
+        return out, aux
+
+    def backward(self, g_out, g_aux, params: Params) -> Params:
+        """The transpose of ``forward``: the head's and the balance
+        loss's cotangents first, then for t from the last tick down to 0
+        on every rank the gradient hop from the next stage, the slot's
+        backward, the input's gradient posted to the previous stage."""
+        pipe = self.pipe
+        p, m_cnt, mb = pipe.p, pipe.m_cnt, pipe.mb
+        g_vals = g_out.reshape(m_cnt, mb, pipe.head_width)
+        g_stats = None
+        if self.aux_graph is not None:
+            g_stats = torch.autograd.grad(self.aux_graph, self.stats_leaf,
+                                          g_aux)[0]
+        acc: dict = {}
+        dh = None
+        for t in reversed(range(self.table.ticks)):
+            g_recv = None
+            if p > 1 and t < self.table.ticks - 1:
+                e = self.row(t)
+                receive = e is not None and not pipe.head_slot(e.chunk)
+                g_recv = pipe.hop(dh, receive, reverse=True).wait()[0]
+            dh = None
+            rec = self.slots.pop(t, None)
+            if rec is None:
+                continue
+            c, m, h_in = rec["c"], rec["m"], rec["h_in"]
+            head = pipe.head_slot(c)
+            if self.slot_remat:
+                with torch.enable_grad():
+                    if h_in is not None:
+                        h_in = h_in.detach().requires_grad_(True)
+                    h_out, st = pipe.slot(h_in, c, m)
+                    vals = (pipe.head_fn(pipe.prm, h_out, m).to(
+                        torch.float32) if head else None)
+            else:
+                h_out, st, vals = rec["h_out"], rec["st"], rec["vals"]
+            outs = [vals if head else h_out]
+            cots = [g_vals[m] if head else g_recv]
+            if g_stats is not None:
+                outs.append(st)
+                cots.append(g_stats[c])
+            grads = torch.autograd.grad(outs, pipe.inputs(h_in, c), cots,
+                                        allow_unused=True)
+            dh = pipe.accumulate(acc, grads, h_in, c)
+            if dh is not None:
+                dh = dh.detach()
+        return pipe.grads_out(acc, params)
+
+
+class _GPipeFunction(torch.autograd.Function):
+    """``apply_pipeline``'s values, with the reverse-tick schedule as
+    their backward."""
+
+    @staticmethod
+    def forward(ctx, run, names, *leaves):
+        need_grad = any(ctx.needs_input_grad[2:])
+        out, aux = run.forward(need_grad)
+        ctx.run, ctx.names = run, names
+        ctx.params = dict(zip(names, leaves))
+        return out, aux
+
+    @staticmethod
+    def backward(ctx, g_out, g_aux):
+        grads = ctx.run.backward(g_out, g_aux, ctx.params)
+        ctx.run = ctx.params = None
+        return (None, None) + tuple(grads[k] for k in ctx.names)
+
+
+def apply_pipeline(spec: TransformerSpec, params: Params, x: torch.Tensor,
+                   stage_axis, n_stages: int, num_microbatches: int,
+                   model_axis=None, virtual: int = 1, head_fn=None,
+                   head_width: Optional[int] = None, seq_axis=None,
+                   expert_axis=None, with_aux: bool = False, aux_axes=None,
+                   dropout_rng=None, slot_remat: bool = False):
+    """The pipeline-parallel forward (JAX's ``apply_pipeline``): GPipe at
+    ``virtual`` 1, Megatron's interleaved virtual stages at ``virtual`` >
+    1, on this rank's stage ``stage_axis.index`` (``parallel/mesh.
+    StageAxis``) of ``n_stages``.  ``params`` is the stacked layout
+    (``pipeline_stack_params`` at the same ``(n_stages, virtual)``) with
+    ``blk_*`` cut to this stage's ``[num_blocks / p, ...]`` slice, read
+    as ``[v, num_blocks / (p v), ...]`` chunks.  The local batch splits
+    into ``num_microbatches``; the rank runs its row of
+    ``pp_schedule.gpipe_table``: at tick t the live slot ``ts = t - s``
+    runs chunk ``(ts // p) % v`` of microbatch ``(ts // (p v)) p + ts %
+    p``; stage 0 embeds the microbatches entering chunk 0 (embedding
+    dropout salt 0x9999 on the microbatch's seed), every other slot
+    consumes the activations the previous stage (or the chunk wrap from
+    the last stage) handed it one tick earlier (``stage_hop_start``), and
+    the last stage's last chunk runs ``head_fn(params, h [mb, S, D], m)
+    -> [mb, head_width]`` (default: the pooled classify logits).  Only
+    live slots run (JAX's lockstep program computes dead ones on garbage
+    and masks them).  The head's values are summed over the stage group
+    (``stage_psum``: every stage returns the same ``[B, head_width]``).
+
+    ``with_aux`` also returns the per-block mean MoE balance loss:
+    every slot's raw ``[K / (p v), 2, E]`` statistics summed over the
+    microbatches, divided by M, averaged over ``aux_axes``, combined
+    ``E * sum(f * P)`` per block, summed over the stage group and divided
+    by ``num_blocks`` (JAX's).
+
+    Differentiable by autograd, but not by one ``autograd.backward``
+    over the tick loop: the engine would order the microbatches'
+    branches as it likes, and the hops' and the chunks' collectives
+    would run in other orders on other ranks.  The backward is the
+    explicit transpose of the loop instead (``_GPipeRun.backward``):
+    every live slot keeps its graph (under ``slot_remat``, JAX's
+    per-slot ``--remat``, its input alone, the slot recomputed), and for
+    t from the last tick down to 0 every rank takes the gradient hop
+    from the next stage, back-propagates that slot and posts its input's
+    gradient to the previous stage; the parameter gradients of the slots
+    are summed in f32.  The non-block leaves' gradients are this stage's
+    share (the embedding on stage 0, the head on the last): the step
+    sums them over the stage group."""
+    pipe = _Pipe(spec, params, x, stage_axis, n_stages, num_microbatches,
+                 virtual, model_axis, seq_axis, expert_axis, head_fn,
+                 head_width, dropout_rng,
+                 bool(with_aux and spec.num_experts),
+                 torch.is_grad_enabled() and any(
+                     t.requires_grad for t in params.values()))
+    run = _GPipeRun(pipe, slot_remat, aux_axes)
+    names = sorted(params)
+    out, aux = _GPipeFunction.apply(run, names,
+                                    *[params[k] for k in names])
+    return (out, aux) if with_aux else out
+
+
+def pipeline_value_and_grad_1f1b(spec: TransformerSpec, params: Params,
+                                 x: torch.Tensor, stage_axis, n_stages: int,
+                                 num_microbatches: int, loss_of,
+                                 head_fn=None, head_width=None,
+                                 model_axis=None, dropout_rng=None,
+                                 virtual: int = 1):
+    """The fused 1F1B schedule family (JAX's
+    ``pipeline_value_and_grad_1f1b``) at any ``virtual``, read literally
+    from this rank's row of ``pp_schedule.interleaved_1f1b_table``:
+    warm-up ticks are forward-only and drain ticks backward-only.  A
+    forward sub-slot runs without autograd and stashes only its input
+    (``stash_cap`` buffers, slot ``unit % cap``; an embedding slot
+    stashes nothing and re-embeds); the backward sub-slot re-runs the
+    slot under autograd from the stash (the per-microbatch seed is
+    recomputed, so the dropout masks are the forward's) and
+    back-propagates it: the head unit's output cotangent is 0 and its
+    loss cotangent 1, every other unit's the gradient hop's.  The
+    activation hop posts after the forward sub-slot and joins after the
+    backward; the gradient hop posts after the backward and joins after
+    the next tick's forward.  Dead slots run nothing.
+
+    ``loss_of(vals [mb, W], m) -> scalar`` is one microbatch's share of
+    the objective (classify: CE / M; lm: nll_sum / (B (S - 1))).
+    Returns ``((loss, stats [B, W]), grads)``: the loss and the head's
+    values summed over the stage group, and this rank's gradients in f32
+    sums, cast to each leaf's dtype (the non-block leaves' this stage's
+    share, summed over the stage group by the step, as it sums every
+    leaf over its batch group).  Scope DP x PP x TP, as in JAX."""
+    pipe = _Pipe(spec, params, x, stage_axis, n_stages, num_microbatches,
+                 virtual, model_axis, None, None, head_fn, head_width,
+                 dropout_rng, False, True)
+    table = pp_schedule.interleaved_1f1b_table(pipe.p, pipe.v, pipe.m_cnt)
+    s, cap, ticks = pipe.sidx, table.stash_cap, table.ticks
+
+    def live(rows, t):
+        if not 0 <= t < ticks or rows[t] is None:
+            return None
+        e = rows[t][s]
+        return e if e.live else None
+
+    collected = torch.zeros((pipe.m_cnt, pipe.mb, pipe.head_width),
+                            dtype=torch.float32, device=pipe.device)
+    stash = [None] * cap
+    acc: dict = {}
+    loss_sum = torch.zeros((), dtype=torch.float32, device=pipe.device)
+    pend_f = pend_b = None
+    for t in range(ticks):
+        recv_f = pend_f.wait()[0] if pend_f is not None else None
+        pend_f = None
+        ef, h1 = live(table.fwd, t), None
+        if ef is not None:
+            c, m = ef.chunk, ef.microbatch
+            h_in = None if pipe.enters(c) else recv_f
+            with torch.no_grad():
+                h1, _ = pipe.slot(h_in, c, m)
+                if pipe.head_slot(c):
+                    collected[m] = pipe.head_fn(pipe.prm, h1, m).to(
+                        torch.float32)
+            stash[ef.unit % cap] = h_in
+        if (table.fwd[t] is not None and t + 1 < ticks
+                and table.fwd[t + 1] is not None and pipe.p > 1):
+            nxt = live(table.fwd, t + 1)
+            pend_f = pipe.hop(
+                h1 if ef is not None and not pipe.head_slot(ef.chunk)
+                else None, nxt is not None and not pipe.enters(nxt.chunk))
+        recv_b = pend_b.wait()[0] if pend_b is not None else None
+        pend_b = None
+        eb, dh = live(table.bwd, t), None
+        if eb is not None:
+            c, m = eb.chunk, eb.microbatch
+            h_saved = stash[eb.unit % cap]
+            stash[eb.unit % cap] = None
+            with torch.enable_grad():
+                h_in = (None if h_saved is None
+                        else h_saved.detach().requires_grad_(True))
+                h_out, _ = pipe.slot(h_in, c, m)
+                if pipe.head_slot(c):
+                    vals = pipe.head_fn(pipe.prm, h_out, m).to(torch.float32)
+                    lc = loss_of(vals, m)
+                    grads = torch.autograd.grad(lc, pipe.inputs(h_in, c),
+                                                allow_unused=True)
+                    loss_sum = loss_sum + lc.detach()
+                else:
+                    grads = torch.autograd.grad(h_out, pipe.inputs(h_in, c),
+                                                recv_b, allow_unused=True)
+            dh = pipe.accumulate(acc, grads, h_in, c)
+        if (table.bwd[t] is not None and t + 1 < ticks
+                and table.bwd[t + 1] is not None and pipe.p > 1):
+            nxt = live(table.bwd, t + 1)
+            pend_b = pipe.hop(dh, nxt is not None
+                              and not pipe.head_slot(nxt.chunk),
+                              reverse=True)
+    stats = stage_psum(collected, pipe.axis).reshape(
+        pipe.m_cnt * pipe.mb, pipe.head_width)
+    loss = stage_psum(loss_sum, pipe.axis)
+    return (loss, stats), pipe.grads_out(acc, params)
 
 
 def init_decode_cache(spec: TransformerSpec, batch: int,
@@ -893,5 +1511,9 @@ def _gumbel_argmax(logits: torch.Tensor,
 
 __all__ = ["TransformerSpec", "param_shapes", "check_tp", "param_pspecs",
            "init", "tokenize", "apply", "num_params", "flops_per_step",
+           "pipeline_stack_params", "pipeline_unstack_params",
+           "pipeline_train_state", "pipeline_param_shapes",
+           "pipeline_param_pspecs", "pipeline_expert_leaves",
+           "apply_pipeline", "pipeline_value_and_grad_1f1b",
            "init_decode_cache", "decode_step", "generate",
            "generate_sharded"]

@@ -91,6 +91,10 @@ SEQ_EPOCH_REFUSED = (
 EXPERT_EPOCH_REFUSED = (
     "the device-resident epoch takes no expert axis (--expert_parallel "
     "runs on the host path, as JAX's gate sends it; see ROADMAP.md)")
+# and pipeline parallelism: the epoch's state is not the stacked layout
+STAGE_EPOCH_REFUSED = (
+    "the device-resident epoch takes no stage axis (--pipeline_parallel "
+    "runs on the host path, as JAX's gate sends it; see ROADMAP.md)")
 
 
 def pack_images(images: np.ndarray) -> np.ndarray:
@@ -195,6 +199,8 @@ class _Runner:
             raise Unported(SEQ_EPOCH_REFUSED)
         if self.mesh.ep > 1:
             raise Unported(EXPERT_EPOCH_REFUSED)
+        if self.mesh.pp > 1:
+            raise Unported(STAGE_EPOCH_REFUSED)
         self.body = body or step_lib.make_sync_step_body(cfg, spec,
                                                          optimizer,
                                                          mesh=self.mesh)

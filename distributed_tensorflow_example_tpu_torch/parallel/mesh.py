@@ -73,8 +73,23 @@ share its rows and the token group is the data group.  The exchanges are
 ``expert_all_to_all`` (JAX's tiled ``all_to_all``, its transpose as its
 backward), ``expert_copy`` and ``expert_psum`` (the dense dispatch's
 replicated input and partial-output sum), each tallied in ``EP_BYTES``
-where it moves a buffer.  The pipeline builders (``build_stage_mesh``,
-``build_nd_mesh``) wait for pipeline parallelism (ROADMAP.md Queue A).
+where it moves a buffer.
+
+Pipeline parallelism (``build_stage_mesh``, JAX's ``('data', 'stage'[,
+'seq' | 'expert'][, 'model'])`` mesh): with ``x`` the seq or expert
+degree (1 when absent), rank r sits at data index ``r // (pp * x *
+mp)``, stage index ``(r // (x * mp)) % pp``, seq or expert index ``(r //
+mp) % x`` and model index ``r % mp``, where JAX's ``np.array(devices)
+.reshape(dp, pp[, x][, mp])`` puts device r.  The **stage group** is the
+ranks of one data, seq-or-expert and model index across the stages; the
+other groups are those of the layout without the stage axis, within one
+stage.  The stage hop (``stage_hop_start``, JAX's ``_hop_start`` /
+``_hop_join``: a ``ppermute`` over the stage axis) moves one microbatch's
+activations to the next stage, or its gradient back, by the seq ring's
+two routes (``batch_isend_irecv``, or a zero-split ``all_to_all_single``
+over the stage group for gloo on CUDA tensors), each tallied in
+``PP_BYTES``; ``stage_psum`` is the sum over the stage group whose
+backward passes the gradient as it is.
 """
 
 from __future__ import annotations
@@ -97,7 +112,7 @@ SITE_AXIS = "site"
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """``(sites x) dp x (sp | ep) x mp`` ranks, this process at
+    """``(sites x) dp x (pp x) (sp | ep) x mp`` ranks, this process at
     ``rank``; its groups (None without a process group): ``data_group``
     the ranks of its model and seq (or expert) index (within its site
     under ``sites`` > 1; the world at ``mp`` 1, ``sp`` and ``ep`` 1 and
@@ -106,8 +121,10 @@ class Mesh:
     axis to reduce over), ``site_group`` those of its data index across
     the sites (None at one site), ``seq_group`` those of its data and
     model index (None at ``sp`` 1), ``expert_group`` likewise on the
-    expert axis (None at ``ep`` 1), and ``mid_token_group`` those of its
-    model index across data and the seq or expert axis.
+    expert axis (None at ``ep`` 1), ``mid_token_group`` those of its
+    model index across data and the seq or expert axis (within its
+    stage), and ``stage_group`` those of its data, seq-or-expert and
+    model index across the stages (None at ``pp`` 1).
     ``ep_tokens``: the tokens shard over the expert axis too (sparse
     dispatch; ``for_spec`` sets it)."""
     dp: int
@@ -129,11 +146,19 @@ class Mesh:
     expert_group: object = dataclasses.field(default=None, compare=False,
                                              repr=False)
     ep_tokens: bool = False
+    pp: int = 1
+    stage_group: object = dataclasses.field(default=None, compare=False,
+                                            repr=False)
 
     @property
     def _inner(self) -> int:
-        """Ranks a data index spans: the seq or expert axis x model."""
-        return self.sp * self.ep * self.mp
+        """Ranks a data index spans: the stage axis x the seq or expert
+        axis x model."""
+        return self.pp * self.sp * self.ep * self.mp
+
+    @property
+    def stage_index(self) -> int:
+        return (self.rank // (self.sp * self.ep * self.mp)) % self.pp
 
     @property
     def data_index(self) -> int:
@@ -390,6 +415,108 @@ def build_expert_mesh(data_parallel: int, expert_parallel: int,
                 mid_token_group=groups[3])
 
 
+def _stage_groups(dp: int, pp: int, x: int, mp: int, rank: int):
+    """``(data, model, mid, token, stage)`` groups of ``rank`` on the
+    ('data', 'stage', mid, 'model') layout (``x`` the middle axis's
+    size), every family created in the same order on every rank: the
+    model groups (one a data, stage and middle index; None at mp 1), the
+    data groups (one a stage, middle and model index), the middle axis's
+    groups (one a data, stage and model index; None at x 1), the token
+    groups (one a stage and model index, across data and the middle
+    axis; None at x 1) and the stage groups (one a data, middle and
+    model index)."""
+    world = dist.group.WORLD
+    key = ("stage", id(world), dp, pp, x, mp)
+
+    def at(d, s, i, m):
+        return ((d * pp + s) * x + i) * mp + m
+
+    if key not in _GROUPS:
+        model = ([dist.new_group([at(d, s, i, m) for m in range(mp)])
+                  for d in range(dp) for s in range(pp) for i in range(x)]
+                 if mp > 1 else None)
+        data = [dist.new_group([at(d, s, i, m) for d in range(dp)])
+                for s in range(pp) for i in range(x) for m in range(mp)]
+        mid = ([dist.new_group([at(d, s, i, m) for i in range(x)])
+                for d in range(dp) for s in range(pp) for m in range(mp)]
+               if x > 1 else None)
+        token = ([dist.new_group([at(d, s, i, m) for d in range(dp)
+                                  for i in range(x)])
+                  for s in range(pp) for m in range(mp)] if x > 1 else None)
+        stage = [dist.new_group([at(d, s, i, m) for s in range(pp)])
+                 for d in range(dp) for i in range(x) for m in range(mp)]
+        _GROUPS[key] = (world, model, data, mid, token, stage)
+    _world, model, data, mid, token, stage = _GROUPS[key]
+    d, s = rank // (pp * x * mp), (rank // (x * mp)) % pp
+    i, m = (rank // mp) % x, rank % mp
+    return (data[(s * x + i) * mp + m],
+            model[(d * pp + s) * x + i] if model else None,
+            mid[(d * pp + s) * mp + m] if mid else None,
+            token[s * mp + m] if token else None,
+            stage[(d * x + i) * mp + m])
+
+
+def build_stage_mesh(data_parallel: int, pipeline_parallel: int,
+                     world: int | None = None, rank: int | None = None,
+                     model_parallel: int = 1, sequence_parallel: int = 1,
+                     expert_parallel: int = 1) -> Mesh:
+    """The ('data', 'stage'[, 'seq' | 'expert'][, 'model']) layout over
+    ``world`` ranks (default: the process group's) for pipeline-parallel
+    transformer training: with ``x`` the seq or expert degree, rank r at
+    data index ``r // (pp * x * mp)``, stage index ``(r // (x * mp)) %
+    pp``, seq or expert index ``(r // mp) % x`` and model index ``r %
+    mp``, as JAX's ``build_stage_mesh`` places device r.
+    ``data_parallel`` -1 is ``world / (pp * x * mp)`` (JAX's trainer
+    rule); JAX's messages for the seq and expert axes together, a bad
+    degree or a mesh larger than the world, the port's own for one that
+    leaves ranks off.  The groups are made when a process group is up
+    and ``world`` is not given.  The tokens shard over the expert axis
+    too only once ``for_spec`` sees a sparse-dispatch MoE."""
+    n = cluster.process_count() if world is None else world
+    r = cluster.process_index() if rank is None else rank
+    pp, sp, ep, mp = (pipeline_parallel, sequence_parallel,
+                      expert_parallel, model_parallel)
+    if sp > 1 and ep > 1:
+        raise ValueError(
+            "pipeline parallelism composes with EITHER sequence_parallel "
+            "OR expert_parallel (token-sharded expert capacity pools "
+            "are not defined), not both")
+    x = max(sp, ep)
+    dp = (max(n // (pp * x * mp), 1) if data_parallel == -1
+          else data_parallel)
+    axes = {DATA_AXIS: dp, STAGE_AXIS: pp}
+    if sp > 1:
+        axes[SEQ_AXIS] = sp
+    if ep > 1:
+        axes[EXPERT_AXIS] = ep
+    if mp > 1:
+        axes[MODEL_AXIS] = mp
+    if any(v < 1 for v in (dp, pp, sp, ep, mp)):
+        raise ValueError(f"mesh axes must be >= 1, got {axes}")
+    need = dp * pp * x * mp
+    if need > n:
+        raise ValueError(
+            f"mesh {'x'.join(map(str, axes.values()))} over "
+            f"{tuple(axes)} needs {need} devices, have {n}")
+    if need < n:
+        degrees = [f"data_parallel={dp}", f"pipeline_parallel={pp}"] + [
+            f"{k}={v}" for k, v in (("sequence_parallel", sp),
+                                    ("expert_parallel", ep),
+                                    ("model_parallel", mp)) if v > 1]
+        raise ValueError(
+            f"{' x '.join(degrees)} leaves {n - need} of {n} ranks off "
+            f"the mesh: in the PyTorch port every rank plays one device "
+            f"of the mesh, so their product must be the world size {n}")
+    groups = (None,) * 5
+    if world is None and cluster.collectives():
+        groups = _stage_groups(dp, pp, x, mp, r)
+    return Mesh(dp=dp, rank=r, mp=mp, data_group=groups[0],
+                model_group=groups[1], sp=sp, ep=ep,
+                seq_group=groups[2] if sp > 1 else None,
+                expert_group=groups[2] if ep > 1 else None,
+                mid_token_group=groups[3], pp=pp, stage_group=groups[4])
+
+
 def sparse_ep_mode(mesh: Mesh, spec) -> bool:
     """Whether the tokens shard over the expert axis too (JAX's
     ``sparse_ep_mode``): an expert axis and a sparse-dispatch MoE
@@ -480,7 +607,7 @@ def groups(mesh: Mesh) -> list:
     """The distinct groups the mesh's collectives run over."""
     return [g for g in (mesh.data_group, mesh.model_group, mesh.site_group,
                         mesh.seq_group, mesh.mid_token_group,
-                        mesh.expert_group)
+                        mesh.expert_group, mesh.stage_group)
             if g is not None]
 
 
@@ -594,18 +721,23 @@ def layer_styles(spec, model_parallel: int = 1) -> list:
     return styles
 
 
-def param_pspecs(spec, model_parallel: int = 1) -> Dict[str, Optional[int]]:
+def param_pspecs(spec, model_parallel: int = 1,
+                 pipeline: bool = False) -> Dict[str, Optional[int]]:
     """``{param name: the dim split over the model axis, or None}``, with
     JAX's leaf names and placements: the MLP's col layer splits ``W``'s
     dim 1 and ``b``, its row layer ``W``'s dim 0; the transformer's
     blocks split ``Wqkv``/``bqkv`` on their last dim (whole heads),
-    ``Wo`` and ``W2`` on dim 0, ``W1``/``b1`` on the hidden dim."""
+    ``Wo`` and ``W2`` on dim 0, ``W1``/``b1`` on the hidden dim.  With
+    ``pipeline`` the names are the stacked layout's
+    (``transformer.pipeline_param_pspecs``: each dim one further in)."""
     from ..models import transformer
 
     if isinstance(spec, transformer.TransformerSpec):
         layer_styles(spec, model_parallel)
-        return transformer.param_pspecs(
-            spec, model_axis=tp_axis(spec, model_parallel))
+        axis = tp_axis(spec, model_parallel)
+        if pipeline:
+            return transformer.pipeline_param_pspecs(spec, model_axis=axis)
+        return transformer.param_pspecs(spec, model_axis=axis)
     out: Dict[str, Optional[int]] = {}
     for i, st in enumerate(layer_styles(spec, model_parallel), start=1):
         out[f"W{i}"] = {"col": 1, "row": 0}.get(st)
@@ -613,17 +745,21 @@ def param_pspecs(spec, model_parallel: int = 1) -> Dict[str, Optional[int]]:
     return out
 
 
-def expert_sharded(spec, expert_parallel: int) -> frozenset:
+def expert_sharded(spec, expert_parallel: int,
+                   pipeline: bool = False) -> frozenset:
     """The param names split on dim 0 over the expert axis (JAX's
     ``param_pspecs(expert_axis=...)``): every MoE block's ``We1``,
     ``be1``, ``We2`` and ``be2`` at ``expert_parallel`` > 1, none
     otherwise.  They are not split over the model axis
-    (``param_pspecs`` gives them None)."""
+    (``param_pspecs`` gives them None).  With ``pipeline`` the stacked
+    ``blk_*`` expert leaves, split on dim 1."""
     from ..models import transformer
 
     if expert_parallel <= 1 or not isinstance(
             spec, transformer.TransformerSpec):
         return frozenset()
+    if pipeline:
+        return frozenset(transformer.pipeline_expert_leaves(spec))
     return frozenset(transformer.expert_leaves(spec))
 
 
@@ -1033,6 +1169,116 @@ def expert_all_to_all(x: torch.Tensor, axis: Optional[ExpertAxis],
     return _ExpertAllToAll.apply(x, axis, reverse)
 
 
+# ---------------------------------------------------------------------------
+# the stage axis's hops
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class StageAxis:
+    """The stage axis as the pipeline schedules see it (JAX's
+    ``stage_axis`` name inside ``shard_map``): its group (None: no
+    process group), its size, this rank's stage index and the global
+    ranks of the group in stage order."""
+    group: object
+    size: int
+    index: int
+    ranks: tuple
+
+
+def stage_axis(mesh: Mesh) -> Optional[StageAxis]:
+    """The mesh's stage axis, or None at ``pp`` 1."""
+    if mesh.pp == 1:
+        return None
+    step = mesh.sp * mesh.ep * mesh.mp
+    base = mesh.rank - mesh.stage_index * step
+    return StageAxis(mesh.stage_group, mesh.pp, mesh.stage_index,
+                     tuple(base + s * step for s in range(mesh.pp)))
+
+
+# bytes this process posted to the stage hops ("fwd": activations to the
+# next stage, "bwd": gradients to the previous one; the tensors handed to
+# the transport), read and zeroed by the code that measures a run
+PP_BYTES = {"fwd": 0, "bwd": 0}
+
+
+def stage_hop_start(send: Optional[torch.Tensor], recv_like, axis: StageAxis,
+                    reverse: bool = False, transport: str = "p2p",
+                    device=None) -> _Pending:
+    """Post one stage hop (JAX's ``_hop_start``: a ``ppermute`` over the
+    stage axis; ``wait()`` on the result is ``_hop_join``): ``send`` (or
+    None) goes to the next stage (the previous one under ``reverse``:
+    the gradient hop), and a buffer shaped like ``recv_like`` (or None)
+    is received from the previous (next) stage; the stage index wraps,
+    so the interleaved schedule's chunk wrap ``p - 1 -> 0`` is one more
+    hop.  Only the live pairs move data: the schedule tells every rank
+    which stage sends, so each passes what it sends and receives.
+    ``transport`` (``stage_hop_transport``): ``"p2p"``
+    (``batch_isend_irecv``; nothing posted without a pair) or ``"a2a"``
+    (an ``all_to_all_single`` on ``device`` whose splits are 0 but the
+    neighbours', a collective over the stage group: every rank of the
+    group posts every hop, in the same order, and a side with nothing to
+    move sends or receives a one-element placeholder, so no rank hands
+    gloo an empty buffer).  Returns at once; ``wait()`` gives ``[the
+    received tensor or None]``.  ``PP_BYTES`` counts the payloads."""
+    n, i = axis.size, axis.index
+    shift = -1 if reverse else 1
+    dst, src = (i + shift) % n, (i - shift) % n
+    if send is not None:
+        send = send.contiguous()
+        PP_BYTES["bwd" if reverse else "fwd"] += (send.numel()
+                                                  * send.element_size())
+    out = (torch.empty(recv_like.shape, dtype=recv_like.dtype,
+                       device=recv_like.device)
+           if recv_like is not None else None)
+    if transport == "p2p":
+        ops = []
+        if send is not None:
+            ops.append(dist.P2POp(dist.isend, send, axis.ranks[dst],
+                                  group=axis.group))
+        if out is not None:
+            ops.append(dist.P2POp(dist.irecv, out, axis.ranks[src],
+                                  group=axis.group))
+        return _Pending(dist.batch_isend_irecv(ops) if ops else [], [out])
+    like = send if send is not None else out
+    dtype = like.dtype if like is not None else torch.float32
+    s_buf = (send.view(-1) if send is not None
+             else torch.zeros(1, dtype=dtype, device=device))
+    r_buf = (out.view(-1) if out is not None
+             else torch.empty(1, dtype=dtype, device=device))
+    send_n = [s_buf.numel() if j == dst else 0 for j in range(n)]
+    recv_n = [r_buf.numel() if j == src else 0 for j in range(n)]
+    work = dist.all_to_all_single(r_buf, s_buf, recv_n, send_n,
+                                  group=axis.group, async_op=True)
+    return _Pending([work], [out])
+
+
+def stage_hop_transport(axis: StageAxis, device) -> str:
+    """The route every rank of the stage group takes for a hop of
+    tensors on ``device``: the zero-split ``all_to_all_single`` for gloo
+    on the card, where a rank with nothing to move still posts."""
+    if torch.device(device).type == "cuda" \
+            and dist.get_backend(axis.group) == "gloo":
+        return "a2a"
+    return "p2p"
+
+
+def stage_psum(x: torch.Tensor, axis: Optional[StageAxis]) -> torch.Tensor:
+    """``x`` summed over the stage axis (JAX's ``psum`` over 'stage'):
+    the backward passes the gradient as it is (the transpose of a
+    ``psum`` whose result is replicated over the axis)."""
+    if axis is None or axis.group is None:
+        return x
+    return _Psum.apply(x, axis.group, 1, 1.0)
+
+
+def stage_all_reduce(t: torch.Tensor, mesh: Mesh) -> None:
+    """Sum ``t`` in place over the stage axis (under pipeline
+    parallelism, whenever a group exists)."""
+    if mesh.pp > 1 and mesh.stage_group is not None:
+        dist.all_reduce(t, group=mesh.stage_group)
+
+
 __all__ = ["DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS", "EXPERT_AXIS",
            "STAGE_AXIS", "SITE_AXIS", "Mesh", "build_mesh", "build_site_mesh",
            "build_seq_mesh", "build_expert_mesh", "sparse_ep_mode",
@@ -1043,7 +1289,10 @@ __all__ = ["DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS", "EXPERT_AXIS",
            "pmean_seq", "TokenAxes", "token_axes", "pmean_tokens",
            "seq_columns", "SEQ_BYTES",
            "model_axis", "data_all_reduce", "model_all_reduce",
-           "site_mean", "world_all_reduce",
+           "site_mean", "world_all_reduce", "build_stage_mesh",
+           "StageAxis", "stage_axis", "stage_hop_start",
+           "stage_hop_transport", "stage_psum", "stage_all_reduce",
+           "PP_BYTES",
            "groups", "uses_gloo", "model_psum", "model_copy", "tp_axis",
            "layer_styles", "param_pspecs", "state_pspecs", "shard_leaf",
            "gather_leaf", "batch_layout"]

@@ -73,7 +73,20 @@ data group, which holds the same experts, every other leaf over the
 token group; all are then divided by the batch shards (dp x ep sparse,
 dp dense).  The expert leaves' squared norms and non-finite counts are
 summed over the expert group, beside the model group's sum of the TP
-leaves.  Pipeline parallelism is not ported (ROADMAP.md Queue A).
+leaves.
+
+Pipeline parallelism (``mesh.pp`` > 1, JAX's ``('data', 'stage'[, 'seq'
+| 'expert'][, 'model'])`` mesh): the params are the stacked layout
+(``blk_*`` this stage's slice of the blocks), the forward is
+``transformer.apply_pipeline`` (GPipe or interleaved, its backward the
+reverse-tick schedule; under ``--remat`` per-slot remat) or, under
+``--pp_schedule=1f1b``, the fused ``pipeline_value_and_grad_1f1b``; the
+lm head reduces each microbatch's logits to ``(nll_sum, correct_sum)``
+on the last stage.  The gradients of the non-``blk_*`` leaves (each
+stage holds them whole and adds its share: the embedding on stage 0,
+the head on the last) are summed over the stage group first, then every
+leaf over its batch group as above; a ``blk_*`` leaf's squared norm and
+non-finite count are summed over the stage group too.
 """
 
 from __future__ import annotations
@@ -95,17 +108,40 @@ from . import mesh as mesh_lib
 from . import zero as zero_lib
 
 
-def param_shapes(spec) -> dict:
-    """``{name: shape}`` of either family's params."""
+def param_shapes(spec, pipeline: bool = False) -> dict:
+    """``{name: shape}`` of either family's params (the transformer's
+    stacked layout under ``pipeline``)."""
     if isinstance(spec, tfm.TransformerSpec):
+        if pipeline:
+            return tfm.pipeline_param_shapes(spec)
         return tfm.param_shapes(spec)
     return mlp.param_shapes(spec)
+
+
+def _lm_head(spec, x, microbatches: int, seq_axis=None):
+    """The pipeline's lm head (JAX's ``lm_head``): microbatch m's final
+    LayerNorm and vocab logits reduced on the last stage to its
+    per-example ``[mb, 2]`` ``(nll_sum, correct_sum)`` (``_lm_stats``,
+    global over the seq axis), so two numbers an example cross the stage
+    group instead of the ``[mb, S, V]`` logits."""
+    micro_t = tfm.tokenize(spec, x).reshape(
+        microbatches, x.shape[0] // microbatches, -1)
+
+    def head(prm, h, m):
+        hl = tfm._ln(spec, h, prm["lnf_g"], prm["lnf_b"])
+        logits = tfm._f32(tfm._mm(prm, hl, "W_head", "b_head",
+                                  spec.compute_dtype))
+        nll, correct, _cnt = _lm_stats(spec, logits, micro_t[m], seq_axis)
+        return torch.stack([nll, correct], dim=-1)
+
+    return head
 
 
 def forward_local(spec, params, x, use_pallas: bool = False,
                   dropout_rng: Optional[int] = None, with_aux: bool = False,
                   styles=None, model_axis=None, seq_axis=None,
-                  aux_axes=None, expert_axis=None):
+                  aux_axes=None, expert_axis=None, pipeline=None,
+                  slot_remat: bool = False):
     """Logits: the transformer's ``apply`` (its kernels chosen on the
     spec; Megatron TP over ``model_axis``, sequence parallelism over
     ``seq_axis``, expert parallelism over ``expert_axis``), or the MLP's
@@ -113,8 +149,22 @@ def forward_local(spec, params, x, use_pallas: bool = False,
     every layer is replicated (JAX's gate: under TP the MLP's products
     are plain), else the MLP forward with ``styles``.  ``with_aux``
     (transformer only) returns ``(logits, the MoE balance loss)``, its
-    statistics averaged over ``aux_axes``."""
+    statistics averaged over ``aux_axes``.  ``pipeline`` = ``(stage
+    axis, stages, microbatches, virtual)``: ``transformer.
+    apply_pipeline`` (``slot_remat``: per-slot remat), whose lm output
+    is the ``[B, 2]`` ``(nll_sum, correct_sum)`` of ``_lm_head``."""
     if isinstance(spec, tfm.TransformerSpec):
+        if pipeline is not None:
+            stage, n_stages, microbatches, virtual = pipeline
+            head = ((_lm_head(spec, x, microbatches, seq_axis), 2)
+                    if spec.objective == "lm" else (None, None))
+            return tfm.apply_pipeline(
+                spec, params, x, stage, n_stages, microbatches,
+                model_axis=model_axis, virtual=virtual, head_fn=head[0],
+                head_width=head[1], seq_axis=seq_axis,
+                expert_axis=expert_axis, with_aux=with_aux,
+                aux_axes=aux_axes, dropout_rng=dropout_rng,
+                slot_remat=slot_remat)
         return tfm.apply(spec, params, x, with_aux=with_aux,
                          dropout_rng=dropout_rng, model_axis=model_axis,
                          seq_axis=seq_axis, aux_axes=aux_axes,
@@ -161,7 +211,7 @@ def _loss_and_acc(spec, params, x, y, naive: bool, use_pallas: bool,
                   label_smoothing: float = 0.0, remat: bool = False,
                   dropout_rng: Optional[int] = None, styles=None,
                   model_axis=None, seq_axis=None, aux_axes=None,
-                  expert_axis=None):
+                  expert_axis=None, pipeline=None):
     """``(objective, (cost, accuracy))`` on one batch.  The cost is the
     classify objective's cross entropy, or for the lm objective the mean
     next-token cross entropy (``y`` unused); the objective, which the
@@ -172,7 +222,10 @@ def _loss_and_acc(spec, params, x, y, naive: bool, use_pallas: bool,
     forward).  ``seq_axis``: sequence parallelism (the lm statistics
     over the seq group); ``aux_axes``: the token-sharding ranks the
     balance loss averages over (only when it weighs in);
-    ``expert_axis``: expert parallelism."""
+    ``expert_axis``: expert parallelism; ``pipeline``: pipeline
+    parallelism (``forward_local``), where ``remat`` is per-slot remat
+    inside the tick loop (JAX's: the backward keeps each slot's input
+    alone) and the lm objective's statistics come from the last stage."""
     is_tfm = isinstance(spec, tfm.TransformerSpec)
     aux_w = spec.aux_loss_weight if is_tfm else 0.0
     aux_axes = aux_axes if aux_w > 0 else None
@@ -182,14 +235,22 @@ def _loss_and_acc(spec, params, x, y, naive: bool, use_pallas: bool,
             return forward_local(spec, p, xx, use_pallas, dropout_rng,
                                  with_aux=True, model_axis=model_axis,
                                  seq_axis=seq_axis, aux_axes=aux_axes,
-                                 expert_axis=expert_axis)
+                                 expert_axis=expert_axis, pipeline=pipeline,
+                                 slot_remat=remat)
         return forward_local(spec, p, xx, use_pallas, dropout_rng,
                              styles=styles, model_axis=model_axis), 0.0
 
-    if remat:
+    if remat and pipeline is None:
         logits, aux = checkpoint(fwd, params, x, use_reentrant=False)
     else:
         logits, aux = fwd(params, x)
+    if pipeline is not None and spec.objective == "lm":
+        # the last stage's per-example (nll_sum, correct_sum); every
+        # example counts its S - 1 targets
+        count = float(x.shape[0] * (spec.seq_len - 1))
+        cost = torch.sum(logits[:, 0]) / count
+        return cost + aux_w * aux, (cost,
+                                    torch.sum(logits[:, 1].detach()) / count)
     if getattr(spec, "objective", "classify") == "lm":
         nll, correct, count = _lm_stats(spec, logits, tfm.tokenize(spec, x),
                                         seq_axis)
@@ -257,26 +318,30 @@ def microbatch_rng(rng: Optional[int], i: int) -> Optional[int]:
     return _fold(rng, i)
 
 
-def leaf_names(spec) -> list:
+def leaf_names(spec, pipeline: bool = False) -> list:
     """The params' leaf names in the order of the step's telemetry
     vectors, spelled as the JAX package's pytree key paths (``['W1']``):
     both packages walk the param dict in sorted key order, so the norms
     and the non-finite counts line up leaf for leaf, and an anomaly's
-    blame names the same leaves in either package."""
-    return [f"[{k!r}]" for k in sorted(param_shapes(spec))]
+    blame names the same leaves in either package (the stacked layout's
+    under ``pipeline``)."""
+    return [f"[{k!r}]" for k in sorted(param_shapes(spec, pipeline))]
 
 
 def _shard_sum(v: torch.Tensor, names, sharded, mesh,
-               expert=()) -> torch.Tensor:
+               expert=(), stage=()) -> torch.Tensor:
     """``v`` [n_leaves] with the entries of the leaves split over the
-    model axis (``sharded``) summed over the model group and those split
-    over the expert axis (``expert``) over the expert group, one
-    all-reduce each; the replicated leaves' entries as they are (JAX's
-    ``_leaf_reduce``: each leaf psummed over the axes its spec names)."""
+    model axis (``sharded``) summed over the model group, those split
+    over the expert axis (``expert``) over the expert group and those
+    split over the stage axis (``stage``: the ``blk_*`` leaves) over the
+    stage group, one all-reduce each; the replicated leaves' entries as
+    they are (JAX's ``_leaf_reduce``: each leaf psummed over the axes its
+    spec names)."""
     if mesh is None:
         return v
     for split, group in ((sharded, mesh.model_group),
-                         (expert, mesh.expert_group)):
+                         (expert, mesh.expert_group),
+                         (stage, mesh.stage_group)):
         if not split or group is None:
             continue
         mask = torch.tensor([k in split for k in names], device=v.device)
@@ -287,50 +352,53 @@ def _shard_sum(v: torch.Tensor, names, sharded, mesh,
 
 
 def _leaf_norms(tree: dict, names, sharded=(), mesh=None,
-                expert=()) -> torch.Tensor:
+                expert=(), stage=()) -> torch.Tensor:
     """Per-leaf L2 norms as one [n_leaves] f32 vector, in ``names``
-    order, of the full leaves under TP and EP (``_shard_sum``)."""
+    order, of the full leaves under TP, EP and PP (``_shard_sum``)."""
     sq = torch.stack([torch.sum(torch.square(tree[k].to(torch.float32)))
                       for k in names])
-    return torch.sqrt(_shard_sum(sq, names, sharded, mesh, expert))
+    return torch.sqrt(_shard_sum(sq, names, sharded, mesh, expert, stage))
 
 
 def _leaf_nonfinite(tree: dict, names, sharded=(), mesh=None,
-                    expert=()) -> torch.Tensor:
+                    expert=(), stage=()) -> torch.Tensor:
     """Per-leaf non-finite element counts as one [n_leaves] int32
-    vector, in ``names`` order, of the full leaves under TP and EP.
+    vector, in ``names`` order, of the full leaves under TP, EP and PP.
     ``g - g`` is 0 exactly where ``g`` is finite and NaN where it is an
     inf or a NaN: two elementwise passes where ``~isfinite`` takes five
     on the card."""
     return _shard_sum(torch.stack(
         [torch.sum(torch.isnan(tree[k] - tree[k]), dtype=torch.int32)
-         for k in names]), names, sharded, mesh, expert)
+         for k in names]), names, sharded, mesh, expert, stage)
 
 
 def clip_sharded(grads: dict, max_norm: float, sharded, mesh,
-                 over_data: bool = False, expert=()) -> dict:
+                 over_data: bool = False, expert=(), stage=()) -> dict:
     """The global-norm clip (JAX's ``_clip_sharded``): the square-sums of
     the leaves split over the model axis (``sharded``) summed over the
     model group, those split over the expert axis (``expert``) over the
-    expert group, the replicated leaves' counted once, so every rank
+    expert group, those split over the stage axis (``stage``) over the
+    stage group too, the replicated leaves' counted once, so every rank
     computes the same norm and the replicated leaves stay equal;
     ``over_data`` (FSDP's 1/dp gradient shards) sums the total over the
     data group too.  With nothing split and nothing to sum it is
     ``train/optim.clip_by_global_norm``, bit for bit (the same sum in
     the same sorted-key order)."""
+    def axes(k):
+        return (k in sharded, k in expert, k in stage)
+
     rep = sum(torch.sum(torch.square(g.to(torch.float32)))
-              for k, g in grads.items()
-              if k not in sharded and k not in expert)
-    if sharded:
+              for k, g in grads.items() if not any(axes(k)))
+    # each set of axes one partial sum, in a fixed order on every rank
+    for key in sorted({axes(k) for k in grads} - {(False,) * 3},
+                      reverse=True):
         part = sum(torch.sum(torch.square(g.to(torch.float32)))
-                   for k, g in grads.items() if k in sharded)
-        mesh_lib.model_all_reduce(part, mesh)
-        rep = rep + part
-    if expert:
-        part = sum(torch.sum(torch.square(g.to(torch.float32)))
-                   for k, g in grads.items() if k in expert)
-        if mesh.expert_group is not None:
-            dist.all_reduce(part, group=mesh.expert_group)
+                   for k, g in grads.items() if axes(k) == key)
+        for on, group in zip(key, (mesh.model_group if mesh.mp > 1
+                                   else None, mesh.expert_group,
+                                   mesh.stage_group)):
+            if on and group is not None:
+                dist.all_reduce(part, group=group)
         rep = rep + part
     if over_data:
         mesh_lib.data_all_reduce(rep, mesh)
@@ -340,11 +408,29 @@ def clip_sharded(grads: dict, max_norm: float, sharded, mesh,
 
 
 def tp_sharded_names(spec, mesh) -> set:
-    """The param names split over the model axis (empty at mp 1)."""
+    """The param names split over the model axis (empty at mp 1; the
+    stacked layout's under pipeline parallelism)."""
     if mesh is None or mesh.mp == 1:
         return set()
-    return {k for k, d in mesh_lib.param_pspecs(spec, mesh.mp).items()
-            if d is not None}
+    return {k for k, d in mesh_lib.param_pspecs(
+        spec, mesh.mp, pipeline=mesh.pp > 1).items() if d is not None}
+
+
+def stage_sharded_names(spec, mesh) -> set:
+    """The param names split over the stage axis: the ``blk_*`` leaves
+    under pipeline parallelism, none otherwise."""
+    if mesh is None or mesh.pp == 1:
+        return set()
+    return {k for k in param_shapes(spec, True) if k.startswith("blk_")}
+
+
+def _pipeline(cfg, mesh):
+    """``(stage axis, stages, microbatches, virtual)`` under pipeline
+    parallelism, else None."""
+    if mesh.pp == 1:
+        return None
+    return (mesh_lib.stage_axis(mesh), mesh.pp, cfg.microbatches,
+            getattr(cfg, "virtual_stages", 1))
 
 
 def _keep_where(flag: torch.Tensor, new, old):
@@ -416,27 +502,61 @@ def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
     way."""
     mesh = mesh_lib.for_spec(
         mesh if mesh is not None else mesh_lib.build_mesh(-1), spec)
-    names = sorted(param_shapes(spec))
+    pipeline = _pipeline(cfg, mesh)
+    names = sorted(param_shapes(spec, pipeline is not None))
     styles = mesh_lib.layer_styles(spec, mesh.mp)
     model_axis = mesh_lib.model_axis(mesh)
     seq_axis = mesh_lib.seq_axis(mesh)
     expert_axis = mesh_lib.expert_axis(mesh)
     aux_axes = mesh_lib.token_axes(mesh)
     sharded = tp_sharded_names(spec, mesh)
-    expert = mesh_lib.expert_sharded(spec, mesh.ep)
+    expert = mesh_lib.expert_sharded(spec, mesh.ep, pipeline is not None)
+    stage = stage_sharded_names(spec, mesh)
     step_rng = make_step_rng(cfg, spec, mesh.data_index, mesh.token_index)
     remat = getattr(cfg, "remat", False)
     skip = getattr(cfg, "on_anomaly", "") == "skip"
     detect = with_anomaly or skip
+    use_1f1b = (pipeline is not None
+                and getattr(cfg, "pp_schedule", "gpipe") == "1f1b")
 
     def grad_of(params, x, y, rng):
         leaves = {k: params[k].detach().requires_grad_(True) for k in names}
         objective, (cost, acc) = _loss_and_acc(
             spec, leaves, x, y, cfg.naive_ce, cfg.pallas,
             cfg.label_smoothing, remat, rng, styles, model_axis, seq_axis,
-            aux_axes, expert_axis)
+            aux_axes, expert_axis, pipeline)
         grads = torch.autograd.grad(objective, [leaves[k] for k in names])
         return cost.detach(), acc, dict(zip(names, grads))
+
+    def grad_1f1b(params, x, y, rng):
+        """``(cost, acc, grads)`` by the fused 1F1B family
+        (``transformer.pipeline_value_and_grad_1f1b``), the objective's
+        plumbing as JAX's ``grad_1f1b``: each microbatch's share of the
+        loss on the last stage, the cost from the collected values."""
+        stage_ax, n_stages, microbatches, virtual = pipeline
+        mbs = x.shape[0] // microbatches
+        if spec.objective == "lm":
+            count = float(x.shape[0] * (spec.seq_len - 1))
+            (_loss, stats), grads = tfm.pipeline_value_and_grad_1f1b(
+                spec, params, x, stage_ax, n_stages, microbatches,
+                lambda vals, m: torch.sum(vals[:, 0]) / count,
+                head_fn=_lm_head(spec, x, microbatches), head_width=2,
+                model_axis=model_axis, dropout_rng=rng, virtual=virtual)
+            return (torch.sum(stats[:, 0]) / count,
+                    torch.sum(stats[:, 1]) / count, grads)
+        ys = y.reshape(microbatches, mbs, *y.shape[1:])
+
+        def loss_of(vals, m):
+            return losses.cross_entropy(
+                vals, ys[m], naive=cfg.naive_ce,
+                label_smoothing=cfg.label_smoothing) / microbatches
+
+        (_loss, stats), grads = tfm.pipeline_value_and_grad_1f1b(
+            spec, params, x, stage_ax, n_stages, microbatches, loss_of,
+            model_axis=model_axis, dropout_rng=rng, virtual=virtual)
+        cost = losses.cross_entropy(stats, y, naive=cfg.naive_ce,
+                                    label_smoothing=cfg.label_smoothing)
+        return cost, metrics.accuracy(stats, y), grads
 
     def body(state: TrainState, x, y, step_index: Optional[int] = None
              ) -> Tuple[TrainState, torch.Tensor, torch.Tensor]:
@@ -457,8 +577,14 @@ def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
                 cost, acc = cost + c, acc + a
             grads = {k: g / n for k, g in grads.items()}
             cost, acc = cost / n, acc / n
+        elif use_1f1b:
+            cost, acc, grads = grad_1f1b(state.params, x, y, rng)
         else:
             cost, acc, grads = grad_of(state.params, x, y, rng)
+        for k in grads:
+            # each stage's share of a leaf every stage holds whole
+            if pipeline is not None and k not in stage:
+                mesh_lib.stage_all_reduce(grads[k], mesh)
         if detect:
             # this rank's loss, summed over every axis (JAX's all_axes),
             # so every rank keeps or applies together
@@ -476,14 +602,15 @@ def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
             if cfg.grad_reduce == "mean":
                 grads = {k: g / mesh.shards for k, g in grads.items()}
         # the telemetry reads the raw gradients, before the clip
-        grad_norms = (_leaf_norms(grads, names, sharded, mesh, expert)
-                      if with_norms else None)
+        grad_norms = (_leaf_norms(grads, names, sharded, mesh, expert,
+                                  stage) if with_norms else None)
         if detect:
-            counts = _leaf_nonfinite(grads, names, sharded, mesh, expert)
+            counts = _leaf_nonfinite(grads, names, sharded, mesh, expert,
+                                     stage)
             flag = torch.any(counts > 0) | (loss_bad > 0)
         if cfg.grad_clip > 0:
             grads = clip_sharded(grads, cfg.grad_clip, sharded, mesh,
-                                 expert=expert)
+                                 expert=expert, stage=stage)
         if zero_dp:
             new_params, new_opt = zero_lib.zero_update(
                 optimizer, grads, state.opt_state, state.params, zero_dp,
@@ -499,7 +626,7 @@ def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
         if with_norms:
             out += ({"grad": grad_norms,
                      "param": _leaf_norms(new_params, names, sharded,
-                                          mesh, expert)},)
+                                          mesh, expert, stage)},)
         if with_anomaly:
             out += ({"flag": flag, "counts": counts},)
         return out
@@ -619,22 +746,29 @@ def build_eval_step(cfg, spec, reduce: bool = True, mesh=None) -> Callable:
     count (replicated over the seq group) is summed over the data group
     alone; under expert parallelism the MoE blocks run on this rank's
     experts, and the count is summed over the batch axes (data x expert
-    under sparse dispatch, whose rows differ by expert index).  Eval
-    never drops."""
+    under sparse dispatch, whose rows differ by expert index); under
+    pipeline parallelism the pipelined forward (every stage returns the
+    same values).  Eval never drops."""
     mesh = mesh_lib.for_spec(
         mesh if mesh is not None else mesh_lib.build_mesh(-1), spec)
     styles = mesh_lib.layer_styles(spec, mesh.mp)
     model_axis = mesh_lib.model_axis(mesh)
     seq_axis = mesh_lib.seq_axis(mesh)
     expert_axis = mesh_lib.expert_axis(mesh)
+    pipeline = _pipeline(cfg, mesh)
 
     @torch.no_grad()
     def eval_step(params, x, y, mask):
         logits = forward_local(spec, params, x, cfg.pallas, styles=styles,
                                model_axis=model_axis, seq_axis=seq_axis,
-                               expert_axis=expert_axis)
-        count = torch.sum(_eval_correct(spec, logits, x, y, seq_axis)
-                          * mask)
+                               expert_axis=expert_axis, pipeline=pipeline)
+        if pipeline is not None and spec.objective == "lm":
+            # the example's mean next-token accuracy over its S - 1
+            # targets, from the last stage's (nll_sum, correct_sum)
+            correct = logits[:, 1] / float(spec.seq_len - 1)
+        else:
+            correct = _eval_correct(spec, logits, x, y, seq_axis)
+        count = torch.sum(correct * mask)
         if reduce and mesh.batch_group is not None:
             dist.all_reduce(count, group=mesh.batch_group)
         return count

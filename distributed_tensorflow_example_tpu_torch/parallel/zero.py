@@ -16,11 +16,16 @@ on the **local** (already Megatron- or expert-split) flat view of each
 leaf, the chunk index is the rank's data index and the all-gather runs
 over its data group, as JAX chunks each device's local block.
 
+Under ``--pipeline_parallel`` the chunking runs on the local view of
+each stacked ``blk_*`` leaf too (this stage's blocks, then its Megatron
+or expert shard of them), as JAX chunks each device's block.
+
 On disk a slot leaf has JAX's global layout: ``[dp, chunk]`` for a
 replicated leaf (data index d's chunk is row d), ``[mp, dp, chunk]`` for
 a leaf split over the model axis and ``[ep, dp, chunk]`` for an expert
-leaf (JAX's ``[|ax1|, ..., dp, chunk]``), so a checkpoint crosses
-between the packages.  Resuming
+leaf, and under pipeline parallelism ``[pp, (mp | ep,) dp, chunk]`` for
+a ``blk_*`` leaf (JAX's ``[|ax1|, ..., dp, chunk]``, the axes in dim
+order), so a checkpoint crosses between the packages.  Resuming
 needs the same ``dp``: the trainer checks the ``zero_dp`` extra.
 ZeRO-1 runs on the host path, as in JAX.
 """

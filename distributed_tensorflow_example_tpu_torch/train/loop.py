@@ -85,8 +85,21 @@ rows of every batch (its ``data_index * ep + expert_index`` shard of
 ``dp * ep`` under sparse dispatch), and ``--sample_after`` gathers the
 experts over the expert group before it decodes; the checkpoints hold
 the whole expert leaves (ZeRO-1's slots of them ``[ep, dp, chunk]``),
-as JAX's do.  ``preflight`` runs the flags' checks and the layout's
-before any process group or data (the CLI exits 2 on them).
+as JAX's do.  Pipeline parallelism (``--pipeline_parallel P
+--microbatches M [--virtual_stages V] [--pp_schedule {gpipe,1f1b}]``, the
+transformer) lays the ranks out as JAX's ``('data', 'stage'[, 'seq' |
+'expert'][, 'model'])`` mesh (``parallel/mesh.build_stage_mesh``) and
+runs on the host path, as JAX's gate sends it: the state is the stacked
+layout (``blk_*``, ``transformer.pipeline_train_state``), each rank its
+stage's slice of the blocks (then its Megatron shards or its experts,
+then ZeRO-1's rows), the checkpoints hold the global stacked leaves with
+the ``pp_stages`` / ``pp_virtual`` extras (resume refuses another
+``(stages, virtual)`` where the block order depends on it, with JAX's
+message), the eval chunks split into ``batch shards x microbatches``,
+and ``--sample_after`` gathers the blocks over the stage group and
+unstacks them before it decodes.  ``preflight`` runs the flags' checks
+and the layout's before any process group or data (the CLI exits 2 on
+them).
 
 Resilience (``resilience/``): ``--ckpt_every N`` hands the state to the
 write-behind ``CheckpointWriter`` every N steps on the host path (on
@@ -143,7 +156,7 @@ import numpy as np
 import torch
 
 from .. import cluster
-from ..config import (Config, Unported, validate_sequence_config,
+from ..config import (Config, validate_sequence_config,
                       validate_train_config)
 from ..data import (CopyStreamCommit, DevicePrefetcher, EpochIterator,
                     EpochPrefetcher, load_datasets, pinned_batches, take)
@@ -231,16 +244,17 @@ def _print_window(step: int, epoch: int, batch_i: int, batch_count: int,
 
 def _eval_accuracy(eval_step, params, images: np.ndarray,
                    labels: np.ndarray, chunk: int, device,
-                   mesh: mesh_lib.Mesh) -> float:
+                   mesh: mesh_lib.Mesh, unit: Optional[int] = None) -> float:
     """Accuracy over a whole split, in chunks of ``chunk`` examples
-    rounded down to a multiple of the batch shards (at least one each:
-    dp, dp x ep under sparse expert dispatch); the last chunk is
+    rounded down to a multiple of ``unit`` (default the batch shards: dp,
+    dp x ep under sparse expert dispatch; under pipeline parallelism the
+    shards x microbatches), at least one unit; the last chunk is
     zero-padded and masked, and each rank evaluates its rows of every
     chunk (the counts summed over the ranks), as in the JAX package;
     under sequence parallelism its token columns of them."""
     n = images.shape[0]
-    dp = mesh.shards
-    chunk = max(dp, (min(chunk, n) // dp) * dp)
+    unit = unit or mesh.shards
+    chunk = max(unit, (min(chunk, n) // unit) * unit)
     rows = mesh_lib.batch_layout(mesh, chunk)
     images = images[:, mesh_lib.seq_columns(mesh, images.shape[1])]
     correct = 0.0
@@ -288,6 +302,16 @@ def _sample(cfg: Config, spec, params, images: np.ndarray, device,
         np.savez(path, samples=samples.cpu().numpy().astype(np.int32),
                  prompt_len=prompt_len, vocab_size=spec.vocab_size)
         print(f"Sampled {n_s} sequences -> {path}")
+
+
+def _gather_stages(params: dict, spec, mesh: mesh_lib.Mesh,
+                   virtual: int) -> dict:
+    """The flat params from this rank's stacked ones: every ``blk_*``
+    leaf all-gathered over the stage group (dim 0), then unstacked at
+    the run's ``(stages, virtual)``."""
+    full = {k: (mesh_lib.gather_leaf(v, 0, mesh.stage_group, mesh.pp)
+                if k.startswith("blk_") else v) for k, v in params.items()}
+    return tfm.pipeline_unstack_params(spec, full, mesh.pp, virtual)
 
 
 def _gather_experts(params: dict, spec, mesh: mesh_lib.Mesh) -> dict:
@@ -360,11 +384,6 @@ def _host_lr(cfg: Config, total_steps: int):
         mult(torch.tensor(float(step), dtype=torch.float32)))
 
 
-# the JAX trainer's checkpoint extras of layouts the port does not have:
-# their states would not restore into the port's template
-_FOREIGN_LAYOUTS = ("pp_stages", "pp_virtual")
-
-
 def _unshard_flat(data: dict, full_template, mp: int = 1,
                   tp_dims=None) -> dict:
     """FSDP's global ``[dp, chunk]`` (``[mp, dp, chunk]`` under TP,
@@ -429,7 +448,8 @@ def setup_strategy(cfg: Config, spec, optimizer, state, mesh: mesh_lib.Mesh,
             get_params=local_sgd_lib.build_site_unstack_params(mesh),
             layout=ckpt_lib.Layout(mesh, local_sgd_lib.site_block))
     d_idx, m_idx = mesh.data_index, mesh.model_index
-    dims = mesh_lib.state_pspecs(mesh_lib.param_pspecs(spec, mp))
+    pipe = mesh.pp > 1
+    dims = mesh_lib.state_pspecs(mesh_lib.param_pspecs(spec, mp, pipe))
     tp_dims = dims if mp > 1 else None
     if cfg.fsdp:
         full_template = fsdp_lib.shape_template(state)
@@ -454,12 +474,23 @@ def setup_strategy(cfg: Config, spec, optimizer, state, mesh: mesh_lib.Mesh,
             layout=ckpt_lib.Layout(mesh, lambda k, a: (
                 ckpt_lib.Block(("data",)) if k != ".step" else None)),
             step_scale=dp, sync_period=cfg.sync_period)
+    # key -> 0 for a stacked blk_* leaf and its slots (split over the
+    # stage axis), None otherwise
+    sdims = mesh_lib.state_pspecs(
+        {k: 0 for k in step_lib.stage_sharded_names(spec, mesh)})
+    if pipe:
+        state = tfm.pipeline_train_state(spec, optimizer, state, mesh.pp,
+                                         cfg.virtual_stages)
+        state = ckpt_lib.map_state(
+            lambda k, a: mesh_lib.shard_leaf(a, sdims(k), mesh.pp,
+                                             mesh.stage_index), state)
     if mp > 1:
         state = _tp_local(state, dims, mesh)
-    # key -> 0 for an expert leaf and its slots (split over the expert
-    # axis), None otherwise
+    # key -> the dim of an expert leaf and its slots split over the
+    # expert axis (0; 1 in the stacked layout), None otherwise
     edims = mesh_lib.state_pspecs(
-        {k: 0 for k in mesh_lib.expert_sharded(spec, mesh.ep)})
+        {k: int(pipe) for k in mesh_lib.expert_sharded(spec, mesh.ep,
+                                                        pipe)})
     if mesh.ep > 1:
         state = ckpt_lib.map_state(
             lambda k, a: mesh_lib.shard_leaf(a, edims(k), mesh.ep,
@@ -470,17 +501,23 @@ def setup_strategy(cfg: Config, spec, optimizer, state, mesh: mesh_lib.Mesh,
                                                   dp)
 
     def block(key, leaf):
+        stage = sdims(key)
         if zero_dp and key.startswith(".opt_state") \
                 and fsdp_lib.is_sharded_leaf(leaf):
-            # JAX's [|axis|, dp, chunk] over the axis the param splits on
-            lead = (("expert",) if edims(key) is not None
-                    else ("model",) if mp > 1 and dims(key) is not None
-                    else ())
+            # JAX's [|axis|, ..., dp, chunk] over the axes the param
+            # splits on, in dim order
+            lead = (("stage",) if stage is not None else ()) + (
+                ("expert",) if edims(key) is not None
+                else ("model",) if mp > 1 and dims(key) is not None
+                else ())
             return ckpt_lib.Block(lead + ("data",))
         if edims(key) is not None:
-            return ckpt_lib.Block(split=0, axis="expert")
+            return ckpt_lib.Block(split=edims(key), axis="expert",
+                                  stage_split=stage)
         if mp > 1 and dims(key) is not None:
-            return ckpt_lib.Block(split=dims(key))
+            return ckpt_lib.Block(split=dims(key), stage_split=stage)
+        if stage is not None:
+            return ckpt_lib.Block(stage_split=stage)
         return None
 
     body = None if fast else step_lib.make_sync_step_body(
@@ -488,7 +525,8 @@ def setup_strategy(cfg: Config, spec, optimizer, state, mesh: mesh_lib.Mesh,
         with_anomaly=with_anomaly, zero_dp=zero_dp, mesh=mesh)
     return Strategy(state=state, body=body,
                     layout=(ckpt_lib.Layout(mesh, block)
-                            if zero_dp or mp > 1 or mesh.ep > 1 else None),
+                            if zero_dp or mp > 1 or mesh.ep > 1 or pipe
+                            else None),
                     tp_dims=tp_dims)
 
 
@@ -496,14 +534,21 @@ def train_mesh(cfg: Config, spec, world: Optional[int] = None,
                rank: Optional[int] = None) -> mesh_lib.Mesh:
     """The layout the flags name over ``world`` ranks (default: the
     process group's, with its groups), as JAX's trainer picks its mesh:
-    ``('site', 'data')`` under ``--sites``, ``('data', 'seq'[,
-    'model'])`` under ``--sequence_parallel``, ``('data', 'expert'[,
-    'model'])`` under ``--expert_parallel`` (its token sharding read
-    from ``spec``'s dispatch), else ``('data', 'model')``; the MLP's
-    layer styles checked against its widths."""
+    ``('site', 'data')`` under ``--sites``, ``('data', 'stage'[,
+    'seq' | 'expert'][, 'model'])`` under ``--pipeline_parallel``,
+    ``('data', 'seq'[, 'model'])`` under ``--sequence_parallel``,
+    ``('data', 'expert'[, 'model'])`` under ``--expert_parallel`` (its
+    token sharding read from ``spec``'s dispatch), else ``('data',
+    'model')``; the MLP's layer styles checked against its widths."""
     if cfg.sites > 1:
         mesh = mesh_lib.build_site_mesh(cfg.sites, cfg.data_parallel,
                                         world, rank)
+    elif cfg.pipeline_parallel > 1:
+        mesh = mesh_lib.build_stage_mesh(
+            cfg.data_parallel, cfg.pipeline_parallel, world, rank,
+            model_parallel=cfg.model_parallel,
+            sequence_parallel=cfg.sequence_parallel,
+            expert_parallel=cfg.expert_parallel)
     elif cfg.sequence_parallel > 1:
         mesh = mesh_lib.build_seq_mesh(
             cfg.data_parallel, cfg.sequence_parallel, world, rank,
@@ -717,7 +762,8 @@ def run(cfg: Config) -> Dict[str, Any]:
         policy = None
         if cfg.on_anomaly:
             policy = anomaly_lib.AnomalyPolicy(
-                cfg.on_anomaly, leaf_names=step_lib.leaf_names(spec),
+                cfg.on_anomaly, leaf_names=step_lib.leaf_names(
+                    spec, mesh.pp > 1),
                 flight=flight, mlogger=mlogger,
                 watchdog=anomaly_lib.LossWatchdog(
                     factor=cfg.anomaly_factor))
@@ -737,6 +783,20 @@ def run(cfg: Config) -> Dict[str, Any]:
                     f"per-shard inner-step batch "
                     f"{per_shard // cfg.inner_steps} must divide into "
                     f"grad_accum={cfg.grad_accum} microbatches")
+        pp_mode = mesh.pp > 1
+        if pp_mode:
+            # the schedule sees one grad-accum chunk at a time, split
+            # into the microbatches (JAX's checks)
+            per_shard = global_batch // batch_shards
+            if per_shard % cfg.grad_accum:
+                raise ValueError(
+                    f"per-shard batch {per_shard} must divide into "
+                    f"grad_accum={cfg.grad_accum}")
+            if (per_shard // cfg.grad_accum) % cfg.microbatches:
+                raise ValueError(
+                    f"per-shard batch {per_shard // cfg.grad_accum} (after "
+                    f"grad_accum={cfg.grad_accum}) must divide into "
+                    f"microbatches={cfg.microbatches}")
         async_mode = cfg.sync_period > 1
         fsdp_mode = cfg.fsdp
         # the modes whose state needs get_params() before eval and
@@ -759,6 +819,7 @@ def run(cfg: Config) -> Dict[str, Any]:
                 and not cfg.histograms and cfg.on_anomaly != "halt"
                 and not cfg.debug_nans and not cfg.zero_opt
                 and not site_mode and mesh.sp == 1 and mesh.ep == 1
+                and not pp_mode
                 and not (async_mode and (cfg.checkpoint_every
                                          or cfg.model_parallel > 1
                                          or cfg.early_stop_patience)))
@@ -807,13 +868,22 @@ def run(cfg: Config) -> Dict[str, Any]:
             if path:
                 resumed_extras = (dict(plan.extras) if plan is not None
                                   else ckpt_lib.load_extras(path))
-                foreign = {k: resumed_extras[k] for k in _FOREIGN_LAYOUTS
-                           if k in resumed_extras}
-                if foreign:
-                    raise Unported(
-                        f"checkpoint {path} was written with {foreign}: "
-                        f"pipeline layouts are not ported to the "
-                        f"PyTorch trainer yet (see ROADMAP.md Queue A)")
+                if pp_mode:
+                    # the stacked block order is pinned to (stages,
+                    # virtual) once virtual > 1; the shapes match across
+                    # layouts, so a mismatch is refused (JAX's check)
+                    sv = int(resumed_extras.get("pp_virtual", 1))
+                    sp = int(resumed_extras.get("pp_stages",
+                                                cfg.pipeline_parallel))
+                    if (sv != cfg.virtual_stages
+                            or (sv > 1 and sp != cfg.pipeline_parallel)):
+                        raise ValueError(
+                            f"checkpoint {path} was written with pipeline "
+                            f"layout (stages={sp}, virtual={sv}): resuming "
+                            f"needs the same --virtual_stages (and the "
+                            f"same --pipeline_parallel when virtual > 1) — "
+                            f"the stacked block order is pinned to that "
+                            f"layout")
                 if site_mode or "sites" in resumed_extras:
                     # the [sites] axis and the outer-state tree are
                     # pinned: a mismatch is refused with the flag to
@@ -922,10 +992,13 @@ def run(cfg: Config) -> Dict[str, Any]:
             t0 = time.perf_counter()
             try:
                 with tracer.annotate("eval"):
+                    unit = (batch_shards * cfg.microbatches if pp_mode
+                            else batch_shards)
                     return _eval_accuracy(
                         eval_step, params, images, labels,
-                        step_lib.eval_chunk_cap(spec, cfg.eval_batch_size),
-                        dev, eval_mesh)
+                        max(step_lib.eval_chunk_cap(
+                            spec, cfg.eval_batch_size), unit),
+                        dev, eval_mesh, unit=unit)
             finally:
                 phase_s["eval"] += time.perf_counter() - t0
 
@@ -946,6 +1019,10 @@ def run(cfg: Config) -> Dict[str, Any]:
             if cfg.zero_opt:
                 # the flat slot chunking is dp-shaped; resume checks it
                 extras["zero_dp"] = dp
+            if pp_mode:
+                # the stacked block order's layout (resume checks it)
+                extras.update(pp_stages=cfg.pipeline_parallel,
+                              pp_virtual=cfg.virtual_stages)
             if fsdp_mode and cfg.sharded_checkpoints:
                 # a sharded FSDP checkpoint stores the flat [(mp,) dp,
                 # chunk] layout; resume reads the degree it was written at
@@ -1507,7 +1584,8 @@ def run(cfg: Config) -> Dict[str, Any]:
                                 and bool(extra[-1]["flag"]):
                             counts = extra[-1]["counts"].cpu().tolist()
                             blame = {n: c for n, c in zip(
-                                step_lib.leaf_names(spec), counts) if c}
+                                step_lib.leaf_names(spec, pp_mode),
+                                counts) if c}
                             raise FloatingPointError(
                                 f"--debug_nans: step {steps_done} produced "
                                 f"a non-finite loss or gradient (non-finite "
@@ -1622,6 +1700,9 @@ def run(cfg: Config) -> Dict[str, Any]:
             params = (final_params
                       if final_params is not None and not fsdp_mode
                       else full_params())
+            if pp_mode:
+                params = _gather_stages(params, spec, mesh,
+                                        cfg.virtual_stages)
             if mesh.ep > 1:
                 params = _gather_experts(params, spec, mesh)
             _sample(cfg, spec, params, dataset.test.images, dev, chief,

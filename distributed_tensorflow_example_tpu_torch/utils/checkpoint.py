@@ -35,7 +35,11 @@ of a leaf split under TP) or an ``[ep, dp, ...]`` one (ZeRO-1's slots of
 an expert leaf), a row of a ``[sites, ...]`` one (multi-site training's
 params, inner slots and error-feedback residual), a Megatron slice of a
 leaf split over the model axis, or an expert leaf's slice of the
-experts (dim 0 over the expert axis).  The
+experts (dim 0 over the expert axis); under pipeline parallelism a
+stacked ``blk_*`` leaf's slice of the blocks (dim 0 over the 'stage'
+axis) with, beside it, an inner dim over the model axis or dim 1 over
+the expert axis, and ZeRO-1's slots of it ``[pp, (mp | ep,) dp,
+chunk]``.  The
 sharded format has one rank per distinct block write it with its global
 bounds (as JAX writes each device's shard), so JAX's
 ``restore_sharded_arrays`` reassembles the global leaf; ``gather_global``
@@ -233,26 +237,36 @@ class Block:
     mesh axes of the global leaf's leading dims (each the axis's size,
     the local leaf at the rank's index there), ``split`` the local dim
     that is a slice of a global dim split over the mesh axis ``axis``
-    (the model axis, or the expert axis for an expert leaf's dim 0)."""
+    (the model axis, or the expert axis for an expert leaf's dim 0),
+    ``stage_split`` a local dim split over the 'stage' axis too (dim 0
+    of a stacked ``blk_*`` leaf)."""
     lead: Tuple[str, ...] = ()
     split: Optional[int] = None
     axis: str = "model"
+    stage_split: Optional[int] = None
+
+    @property
+    def splits(self) -> list:
+        """``[(local dim, mesh axis)]`` of every split dim."""
+        out = [] if self.split is None else [(self.split, self.axis)]
+        if self.stage_split is not None:
+            out.append((self.stage_split, "stage"))
+        return out
 
     @property
     def varies(self) -> frozenset:
         """The mesh axes along which the ranks' blocks differ."""
-        return frozenset(self.lead) | (
-            frozenset((self.axis,)) if self.split is not None
-            else frozenset())
+        return frozenset(self.lead) | frozenset(a for _, a in self.splits)
 
 
 class Layout:
     """The global layout of a strategy's state over a mesh
     (``parallel/mesh.Mesh``, with a 'site' axis outermost under
-    multi-site training, and a 'seq' axis, over which every leaf is
-    replicated, or an 'expert' axis between 'data' and 'model' under
-    sequence or expert parallelism): ``block(key, leaf)`` -> the leaf's
-    ``Block`` or None (replicated: every rank holds the whole leaf)."""
+    multi-site training, a 'stage' axis after 'data' under pipeline
+    parallelism, and a 'seq' axis, over which every leaf is replicated,
+    or an 'expert' axis before 'model' under sequence or expert
+    parallelism): ``block(key, leaf)`` -> the leaf's ``Block`` or None
+    (replicated: every rank holds the whole leaf)."""
 
     def __init__(self, mesh, block: Callable):
         self.mesh = mesh
@@ -261,16 +275,18 @@ class Layout:
     def coords(self, rank: int) -> Dict[str, int]:
         """``rank``'s index along each mesh axis."""
         m = self.mesh
-        inner = m.sp * m.ep * m.mp
+        mid = m.sp * m.ep * m.mp
+        inner = m.pp * mid
         return {"site": rank // (m.dp * inner),
                 "data": (rank % (m.dp * inner)) // inner,
+                "stage": (rank // mid) % m.pp,
                 "seq": (rank // m.mp) % m.sp,
                 "expert": (rank // m.mp) % m.ep, "model": rank % m.mp}
 
     def _size(self, axis: str) -> int:
         return {"site": self.mesh.sites, "data": self.mesh.dp,
-                "seq": self.mesh.sp, "expert": self.mesh.ep,
-                "model": self.mesh.mp}[axis]
+                "stage": self.mesh.pp, "seq": self.mesh.sp,
+                "expert": self.mesh.ep, "model": self.mesh.mp}[axis]
 
     def _rank(self, **at) -> int:
         """The rank at the coordinates ``at`` names, at this rank's
@@ -278,13 +294,14 @@ class Layout:
         axis is tiled by the ranks of one index there)."""
         m = self.mesh
         c = dict(self.coords(m.rank), **at)
-        return ((((c["site"] * m.dp + c["data"]) * m.sp + c["seq"]) * m.ep
-                 + c["expert"]) * m.mp + c["model"])
+        return (((((c["site"] * m.dp + c["data"]) * m.pp + c["stage"])
+                  * m.sp + c["seq"]) * m.ep + c["expert"]) * m.mp
+                + c["model"])
 
     def global_shape(self, b: Block, shape) -> list:
         out = [int(d) for d in shape]
-        if b.split is not None:
-            out[b.split] *= self._size(b.axis)
+        for dim, axis in b.splits:
+            out[dim] *= self._size(axis)
         return [self._size(ax) for ax in b.lead] + out
 
     def bounds(self, b: Block, shape, rank: int) -> np.ndarray:
@@ -292,8 +309,9 @@ class Layout:
         ``shape``."""
         idx = self.coords(rank)
         rows = [[idx[ax], idx[ax] + 1] for ax in b.lead]
+        split = dict(b.splits)
         for i, n in enumerate(shape):
-            lo = idx[b.axis] * int(n) if i == b.split else 0
+            lo = idx[split[i]] * int(n) if i in split else 0
             rows.append([lo, lo + int(n)])
         return np.asarray(rows, np.int64).reshape(-1, 2)
 
@@ -313,13 +331,15 @@ class Layout:
         for axis, group in (("model", mesh.model_group),
                             ("data", mesh.data_group),
                             ("site", mesh.site_group),
-                            ("expert", mesh.expert_group)):
+                            ("expert", mesh.expert_group),
+                            ("stage", mesh.stage_group)):
             if b.varies == frozenset((axis,)):
                 return ([self._rank(**{axis: i})
                          for i in range(self._size(axis))], group)
         group = None
         if any(g is not None for g in (mesh.data_group, mesh.site_group,
-                                       mesh.expert_group)):
+                                       mesh.expert_group,
+                                       mesh.stage_group)):
             import torch.distributed as dist
 
             group = dist.group.WORLD

@@ -484,15 +484,18 @@ def test_two_gloo_processes_equal_one(tmp_path, capsys):
 def test_cli_refuses_what_is_not_ported(argv, capsys):
     """A flag, value or mode of the JAX trainer the port lacks exits 2
     with a message naming ROADMAP.md, before any training;
-    ``--expert_parallel`` parses since expert parallelism was ported, and
-    without ``--num_experts`` exits 2 with JAX's message."""
+    ``--expert_parallel`` and ``--pipeline_parallel`` parse since expert
+    and pipeline parallelism were ported, and exit 2 with JAX's message
+    without ``--num_experts`` or on the MLP."""
     try:
         rc = tmain.main(argv + ["--device", "cpu", "--training_epochs=0"])
     except SystemExit as e:
         rc = e.code
     assert rc == 2
     want = ("--expert_parallel requires --num_experts > 0"
-            if "--expert_parallel=2" in argv else "ROADMAP")
+            if "--expert_parallel=2" in argv
+            else "--pipeline_parallel requires --model=transformer"
+            if "--pipeline_parallel=2" in argv else "ROADMAP")
     assert want in capsys.readouterr().err
 
 

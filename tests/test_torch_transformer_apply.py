@@ -177,11 +177,13 @@ def test_num_params_and_flops_match_jax_at_transformer_wide_long():
     ["--pipeline_parallel=2"],
     ["--sequence_parallel=2", "--num_experts=4", "--expert_parallel=2"]])
 def test_cli_refuses_unported_transformer_flags(argv, capsys):
-    """Each exits 2 with a message naming ROADMAP.md, before training
-    (``--sequence_parallel``, ``--sp_impl`` and ``--expert_parallel``
-    parse since sequence and expert parallelism were ported); the
-    expert-parallel ones exit 2 with JAX's messages: no MoE to shard,
-    and sequence parallelism beside the expert axis."""
+    """Each exits 2 before training: ``--mnist_mirrors`` with a message
+    naming ROADMAP.md; the parallelism flags (``--sequence_parallel``,
+    ``--sp_impl``, ``--expert_parallel``, ``--pipeline_parallel``,
+    ``--virtual_stages``, ``--pp_schedule`` parse since their axes were
+    ported) with JAX's messages: no MoE to shard, sequence parallelism
+    beside the expert axis, virtual stages or 1F1B without stages, and a
+    pipeline mesh larger than the one process."""
     try:
         rc = tmain.main(["--model=transformer", "--device", "cpu",
                          "--training_epochs=0"] + argv)
@@ -191,7 +193,15 @@ def test_cli_refuses_unported_transformer_flags(argv, capsys):
     want = ("--expert_parallel composes with data and tensor parallelism "
             "only" if "--sequence_parallel=2" in argv
             else "--expert_parallel requires --num_experts > 0"
-            if "--expert_parallel=2" in argv else "ROADMAP")
+            if "--expert_parallel=2" in argv
+            else "--virtual_stages > 1 needs --pipeline_parallel > 1"
+            if "--virtual_stages=2" in argv
+            else "--pp_schedule=1f1b requires --pipeline_parallel > 1"
+            if "--pp_schedule=1f1b" in argv
+            else "mesh 1x2x2 over ('data', 'stage', 'model') needs 4 "
+                 "devices, have 1" if "--model_parallel=2" in argv
+            else "mesh 1x2 over ('data', 'stage') needs 2 devices, have 1"
+            if "--pipeline_parallel=2" in argv else "ROADMAP")
     assert want in capsys.readouterr().err
 
 
