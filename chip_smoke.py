@@ -312,6 +312,28 @@ and for MoE training (``main.py --model=transformer --num_experts=64
     then, with the CPU step held to the card's choices, the updates held
     against each other.
 
+and for the operator's read side (``python -m
+distributed_tensorflow_example_tpu_torch.obs.cli``, ``dtx-obs``):
+
+9.  ``dtx-obs`` over the streams phases 4b, 4d-4g and 5c wrote on the
+    card, kept in one temporary directory (``_keep``) that the phase
+    removes: ``validate`` of every run directory, ``report`` (MFU in
+    (0, 1] at the card's peak), ``tail`` (a line a window row),
+    ``compare`` of the monitored MLP run and ``transformer_wide_long``
+    both ways on their step-time medians (exit 3 where the candidate is
+    the slower by more than 5%, 0 the other way), ``slo``, ``trace`` and
+    ``trace --export chrome`` of the traced serve (every request id in
+    the Chrome JSON), ``explain [--fleet]`` of a replay, ``collect`` and
+    ``fleet`` of the fleet and chaos runs (exactly-once, exit 0),
+    ``capture`` then ``capacity`` at the replay's measured tokens/s and
+    completed requests a second (the exit code its verdict implies; the
+    forecast and the roofline ceiling at the card's HBM peak printed
+    beside the measured tokens/s), ``history --append`` of five run
+    reports, ``drift`` and ``drift --capture`` (the card's HBM peak in
+    the join), ``serve`` answering /status, /metrics and /report and
+    stopped; each through ``obs.cli.main`` with its exit code checked,
+    each printed with its wall and the card's name and power limit.
+
 The last two lines of stdout are the kernel report JSON (each kernel's
 launches on its first main path, and under ``launches_by_path`` on
 every path that ran it: ``serve``, ``serve_int8``, ``serve_moe``,
@@ -330,6 +352,7 @@ nonzero without one.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import datetime
 import glob
@@ -1787,6 +1810,27 @@ def _get_json(port: int, path: str):
         return e.code, json.loads(e.read())
 
 
+# the files of a run directory that dtx-obs reads (phase 9)
+OBS_STREAMS = re.compile(r"(metrics|spans)\.\d+\.jsonl(\.\d+)?$|"
+                         r"heartbeat\.\d+$|restarts\.jsonl$|"
+                         r"workload\.json$|flight/\w+\.json$")
+
+
+def _keep(keep, name: str, src: str) -> None:
+    """Copy the streams dtx-obs reads (``OBS_STREAMS``) of the run
+    directories under ``src`` to ``keep/name`` for phase 9 (nothing when
+    ``keep`` is None).  Checkpoints and traces stay behind."""
+    if keep is None:
+        return
+    for root, _dirs, files in os.walk(src):
+        for f in files:
+            rel = os.path.relpath(os.path.join(root, f), src)
+            if OBS_STREAMS.search(rel.replace(os.sep, "/")):
+                dst = os.path.join(keep, name, rel)
+                os.makedirs(os.path.dirname(dst), exist_ok=True)
+                shutil.copy2(os.path.join(root, f), dst)
+
+
 def phase_http(flags=FULL_WIDTH_FLAGS) -> None:
     from distributed_tensorflow_example_tpu_torch import config
     from distributed_tensorflow_example_tpu_torch.serving import cli
@@ -1804,18 +1848,20 @@ def phase_http(flags=FULL_WIDTH_FLAGS) -> None:
 
 # the traced serve's flags (phase 4b); the SLO specs are the ones the
 # served request is read against on /slo
-TRACE_FLAGS = ["--trace_spans", "--slo=ttft_p99_ms<=250,error_rate<=0.01"]
+TRACE_SLO = "ttft_p99_ms<=250,error_rate<=0.01"
+TRACE_FLAGS = ["--trace_spans", f"--slo={TRACE_SLO}"]
 # a waterfall's segments must tile at least this share of its wall
 WATERFALL_MIN_FRAC = 0.99
 
 
-def phase_http_traced(flags=FULL_WIDTH_FLAGS) -> dict:
+def phase_http_traced(flags=FULL_WIDTH_FLAGS, keep=None) -> dict:
     """The CLI's server with ``--trace_spans --slo=...`` and logs in a
     temporary directory: one POST /generate, then /trace?rid=0 (the
     record holds submit, admit, prefill, first_token and retire), /slo
     (the parsed specs' document) and /explain?rid=0 (its segments tile
     at least WATERFALL_MIN_FRAC of submit->terminal); every span row in
-    the file passes the port's validator."""
+    the file passes the port's validator.  The streams are kept under
+    ``keep/traced`` (``_keep``)."""
     from distributed_tensorflow_example_tpu_torch import config
     from distributed_tensorflow_example_tpu_torch.obs import schema
     from distributed_tensorflow_example_tpu_torch.serving import cli
@@ -1844,6 +1890,7 @@ def phase_http_traced(flags=FULL_WIDTH_FLAGS) -> dict:
         errs = schema.validate_span_file(engine.recorder.path)
         with open(engine.recorder.path) as f:
             n_rows = sum(1 for line in f if line.strip())
+        _keep(keep, "traced", logs)
     rec = tr["record"]
     missing = [e for e in ("submit", "admit", "prefill", "first_token",
                            "retire") if f"{e}_t" not in rec]
@@ -1919,7 +1966,7 @@ def _metrics_fixture(logs: str) -> None:
             f.write(json.dumps(row) + "\n")
 
 
-def phase_status(flags=FULL_WIDTH_FLAGS) -> dict:
+def phase_status(flags=FULL_WIDTH_FLAGS, keep=None) -> dict:
     """One engine on the status server (phase 4d): the phase 4b flags
     plus ``--engine_retries=1``, logs in a temporary directory seeded
     with one metrics stream (``_metrics_fixture``).  After one POST
@@ -1927,7 +1974,8 @@ def phase_status(flags=FULL_WIDTH_FLAGS) -> dict:
     /metrics at least one dtx_generate_*, dtx_slo_* and dtx_waterfall_*
     gauge, /report a run report the port's schema accepts (its restart
     summary included), /fleet a one-source fleet report that is
-    exactly-once; the restart narrator is armed."""
+    exactly-once; the restart narrator is armed.  The streams are kept
+    under ``keep/status``."""
     from distributed_tensorflow_example_tpu_torch import config
     from distributed_tensorflow_example_tpu_torch.obs import schema
     from distributed_tensorflow_example_tpu_torch.serving import cli
@@ -1948,6 +1996,7 @@ def phase_status(flags=FULL_WIDTH_FLAGS) -> dict:
         finally:
             server.close()
             cli.stop_engines([engine])
+        _keep(keep, "status", logs)
     serving = status.get("serving") or {}
     if code_s != 200 or serving.get("completed_total") != 1 \
             or serving.get("requests_total") != 1:
@@ -2019,7 +2068,7 @@ def _post_many(port: int, prompts, n_new: int) -> dict:
 
 
 def phase_fleet(card: str, base: dict, flags=FULL_WIDTH_FLAGS,
-                device: str = "cuda") -> dict:
+                device: str = "cuda", keep=None) -> dict:
     """The fleet (phase 4e): phase 3's 8 ragged greedy requests POSTed
     at once to one engine behind the status server, then to two
     replicas behind ``RouterServer`` (``--replicas=2 --trace_spans
@@ -2032,7 +2081,8 @@ def phase_fleet(card: str, base: dict, flags=FULL_WIDTH_FLAGS,
     is exactly-once.  Then the requests (greedy and sampled) through a
     router over one replica, submitted before its engine starts: tokens
     bitwise equal to a bare engine's.  Returns the counts and both
-    serves' tokens/s and TTFT p50 (printed, not gated)."""
+    serves' tokens/s and TTFT p50 (printed, not gated).  The fleet's
+    streams are kept under ``keep/fleet`` (the one engine writes none)."""
     from distributed_tensorflow_example_tpu_torch import config
     from distributed_tensorflow_example_tpu_torch.obs import (
         collector, schema)
@@ -2075,6 +2125,7 @@ def phase_fleet(card: str, base: dict, flags=FULL_WIDTH_FLAGS,
             cli.stop_engines(engines, rt)
         rep = collector.fleet_report([os.path.join(logs, d) for d in
                                       ("replica0", "replica1", "router")])
+        _keep(keep, "fleet", logs)
     _require(counts, SERVE_WRAPPERS, (), "fleet", device)
     per = (status.get("router") or {}).get("per_replica") or []
     if code_s != 200 or [p.get("name") for p in per] != ["replica0",
@@ -2121,7 +2172,8 @@ def phase_fleet(card: str, base: dict, flags=FULL_WIDTH_FLAGS,
                 one_tps=one["tps"], one_ttft_p50=one["ttft_p50"])
 
 
-def phase_chaos(card: str, base: dict, device: str = "cuda") -> dict:
+def phase_chaos(card: str, base: dict, device: str = "cuda",
+                keep=None) -> dict:
     """Chaos on the card (phase 4f): three replicas at phase 3's model,
     replica 0 crashing at tick boundaries 1-4 under
     ``engine_retries=1``, behind a router with ``fleet_retries=2``,
@@ -2130,7 +2182,8 @@ def phase_chaos(card: str, base: dict, device: str = "cuda") -> dict:
     kept its trace id, the port's fleet_report over the three replica
     dirs and the router's is exactly-once with clean failover chains,
     and restarts.jsonl holds the narrator's engine_restart rows, which
-    the port's validator accepts."""
+    the port's validator accepts.  The streams are kept under
+    ``keep/chaos``."""
     from distributed_tensorflow_example_tpu_torch.obs import (
         collector, schema)
     from distributed_tensorflow_example_tpu_torch.obs.spans import (
@@ -2172,6 +2225,7 @@ def phase_chaos(card: str, base: dict, device: str = "cuda") -> dict:
         rows = restart.read_restarts(run_dir)
         errs = schema.validate_restart_file(narrator.path)
         stats = rt.stats()
+        _keep(keep, "chaos", run_dir)
     terminals = [r and r.get("status") for r in results]
     if not all(t in ("result", "timeout", "shed", "failed")
                for t in terminals):
@@ -2245,7 +2299,7 @@ def _tick_batches(run_dir: str) -> dict:
 
 def phase_replay(card: str, flags=FULL_WIDTH_FLAGS,
                  speed: float = REPLAY_SPEED,
-                 max_lag_s: float = REPLAY_MAX_LAG_S) -> dict:
+                 max_lag_s: float = REPLAY_MAX_LAG_S, keep=None) -> dict:
     """Workload replay (phase 4g) through ``serving/cli.main`` at phase
     3's model: a synthetic workload of REPLAY_N requests (shared-prefix
     groups, relative deadlines) written to a temporary file, replayed
@@ -2262,7 +2316,8 @@ def phase_replay(card: str, flags=FULL_WIDTH_FLAGS,
     determinism_frac of the two one-engine replays and, for each
     mismatching rid, the batch sizes of the ticks it rode in each.  The
     submits must reach the engine at most ``max_lag_s`` behind their
-    schedule (read off the first replay's re-capture)."""
+    schedule (read off the first replay's re-capture).  The workload and
+    the streams are kept under ``keep/replay``."""
     from distributed_tensorflow_example_tpu_torch.obs import (
         schema, spans, workload)
     from distributed_tensorflow_example_tpu_torch.ops import fused
@@ -2303,6 +2358,7 @@ def phase_replay(card: str, flags=FULL_WIDTH_FLAGS,
         replay.replay_sim(doc, recorder=rec)
         rec.close()
         sim_cap = workload.capture(sim_dir)
+        _keep(keep, "replay", tmp)
     _require(counts, SERVE_WRAPPERS, (), "replay", device)
     for rep in reports:
         if rep["workload_id"] != wid or rep["n_requests"] != REPLAY_N:
@@ -2351,6 +2407,8 @@ def phase_replay(card: str, flags=FULL_WIDTH_FLAGS,
         log(f"[replay] rid {rid} differs: {m['a']} vs {m['b']}; decode "
             f"tick batch sizes {ticks[0].get(rid)} vs {ticks[1].get(rid)}")
     return dict(counts=counts, tps=tps,
+                qps=[r["terminals"].get("result", 0) / r["wall_s"]
+                     for r in reports],
                 determinism_frac=ident["determinism_frac"],
                 fleet_frac=fleet_ident["determinism_frac"],
                 mismatches=[m["rid"] for m in ident["mismatches"]],
@@ -2884,7 +2942,7 @@ def _epoch_ab(cfgs: dict, rounds: int) -> dict:
 
 def phase_monitoring(card: str, graph_counts: dict, flags=MONITOR_FLAGS,
                      tfm_flags=WIDE_LONG_FLAGS, device: str = "cuda",
-                     rounds: int = 3) -> dict:
+                     rounds: int = 3, keep=None) -> dict:
     """The trainer's monitoring (phase 5c) at the mxu_wide_pallas widths
     and on transformer_wide_long:
 
@@ -2911,7 +2969,7 @@ def phase_monitoring(card: str, graph_counts: dict, flags=MONITOR_FLAGS,
 
     On the CPU (a rehearsal at narrow widths, ``device="cpu"``) the
     counters stay 0, MFU is null and (d) and the kernel names are not
-    checked."""
+    checked.  The runs' streams are kept under ``keep/monitoring``."""
     import dataclasses
 
     from distributed_tensorflow_example_tpu_torch.config import (
@@ -3137,6 +3195,7 @@ def phase_monitoring(card: str, graph_counts: dict, flags=MONITOR_FLAGS,
             f"{tcounts} ({time.monotonic() - t0:.1f} s)")
         out.update(tfm_mfu=[r["mfu"] for r in t_rows], tfm_counts=tcounts,
                    tfm_row=t_rows[-1] if t_rows else None)
+        _keep(keep, "monitoring", tmp)
     log(f"[monitoring] phase 5c took {time.monotonic() - t_phase:.1f} s")
     return out
 
@@ -5946,6 +6005,286 @@ TFM_REPORT = ("layer_norm_backward", "flash_forward", "flash_dq",
               "flash_dkv")
 
 
+# phase 9: the two monitoring runs dtx-obs compare holds against each
+# other (the wide MLP's graph path, transformer_wide_long) and the one
+# threshold it gates them on, JAX's default for the step-time median;
+# every other metric's threshold is set out of reach, so the verdict is
+# the step-time medians' alone
+OBS_COMPARE = ("mon", "tfm")
+OBS_STEP_THRESHOLD = 0.05
+# the fleet and chaos phases ran without latency objectives: their
+# fleet reports are held to exactly-once and the error budget
+OBS_FLEET_SPEC = "error_rate<=0.01"
+
+
+class _ServeStop:
+    """The CLI module's ``time`` while ``dtx-obs serve`` runs in a thread:
+    ``sleep`` waits on ``event`` and raises KeyboardInterrupt, as ^C does,
+    once it is set."""
+
+    def __init__(self):
+        self.event = threading.Event()
+
+    def sleep(self, seconds: float) -> None:
+        if self.event.wait(seconds):
+            raise KeyboardInterrupt
+
+
+def _obs_serve(logs: str, paths) -> tuple:
+    """``dtx-obs serve LOGS`` on a free port in a thread: GET each of
+    ``paths`` once it answers, then stop it as ^C would.  Returns (exit
+    code, [(path, code, body)])."""
+    from distributed_tensorflow_example_tpu_torch.obs import cli
+
+    port, stop, box = _free_port(), _ServeStop(), {}
+    argv = ["serve", logs, "--host", "127.0.0.1", "--port", str(port)]
+    thread = threading.Thread(
+        target=lambda: box.update(rc=cli.main(argv)), daemon=True)
+    real_time, cli.time = cli.time, stop
+    answers = []
+    try:
+        thread.start()
+        deadline = time.monotonic() + 30
+        while True:
+            try:
+                _get_text(port, "/status")
+                break
+            except OSError:
+                if time.monotonic() > deadline or not thread.is_alive():
+                    raise AssertionError(f"dtx-obs serve on port {port} "
+                                         f"never answered")
+                time.sleep(0.05)
+        for path in paths:
+            answers.append((path,) + _get_text(port, path))
+    finally:
+        stop.event.set()
+        thread.join(timeout=30)
+        cli.time = real_time
+    if thread.is_alive():
+        raise AssertionError("dtx-obs serve did not stop on ^C")
+    return box.get("rc"), answers
+
+
+def phase_obs(card: str, root: str, spec, replay: dict,
+              flags=FULL_WIDTH_FLAGS, device: str = "cuda") -> dict:
+    """The port's ``dtx-obs`` (phase 9) over the streams this smoke kept
+    under ``root`` (``_keep``: phases 4b, 4d-4g and 5c), each subcommand
+    through ``obs.cli.main(argv)`` in process with its exit code checked,
+    then ``root`` removed:
+
+    - ``validate`` over every kept run directory and the workload: 0;
+    - ``report --summary`` of the monitored MLP run: 0, MFU in (0, 1];
+      ``report -o`` of each monitoring run and of the status phase's;
+    - ``tail`` of the monitored run: one line per window row;
+    - ``compare`` of OBS_COMPARE's two runs both ways (every threshold
+      but the step-time median's out of reach): exit 3 where the
+      candidate's median is more than OBS_STEP_THRESHOLD slower by the
+      medians this phase reads off the rows, 0 the other way;
+    - ``slo`` (TRACE_SLO), ``trace 0`` and ``trace --export chrome`` of the
+      traced serve: the exit code the breaches imply, the record's
+      terminal, the Chrome JSON naming every request of the run;
+    - ``explain`` and ``explain --fleet`` of the first replay;
+    - ``collect`` and ``fleet`` (OBS_FLEET_SPEC) of the fleet and chaos
+      runs: 0, exactly-once;
+    - ``capture`` of the first replay, then ``capacity`` at its measured
+      tokens/s and completed requests a second: the exit code the
+      verdict implies; the forecast, the roofline ceiling of
+      ``obs/capacity`` (the card's HBM peak over the decode bytes a
+      step) and the measured tokens/s printed;
+    - ``history --append`` of the five run reports, ``history``,
+      ``drift`` (the exit code its verdict implies) and ``drift
+      --capture``: the card's HBM peak in the roofline join;
+    - ``serve`` of the monitored run: /status, /metrics and /report 200,
+      and the server stopped.
+
+    Prints an ``[obs]`` line a subcommand (exit code, wall, the card's
+    name and power limit) and the phase's wall.  On the CPU (a rehearsal
+    over narrow runs, ``device="cpu"``) MFU and the HBM peak are null
+    and not checked."""
+    from distributed_tensorflow_example_tpu_torch.obs import (
+        capacity, cli, flops, metrics, spans)
+
+    on_card = device == "cuda"
+    smi = _card_limit() if on_card else "the CPU (rehearsal)"
+    t_phase = time.monotonic()
+    ran = []
+
+    def run(argv, want=None):
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        wall = time.monotonic() - t0
+        ran.append((argv[0], rc, wall))
+        shown = " ".join(a.replace(root, "$KEPT") for a in argv)
+        log(f"[obs] dtx-obs {shown[:200]}: rc {rc} in {wall:.4f} s on {smi}")
+        if want is not None and rc != want:
+            raise AssertionError(f"dtx-obs {argv[0]} exited {rc}, not "
+                                 f"{want}: {err.getvalue()[-2000:]}")
+        return rc, out.getvalue()
+
+    def expect(argv, rc, want):
+        if rc != want:
+            raise AssertionError(f"dtx-obs {argv[0]} exited {rc}; its "
+                                 f"document implies {want}")
+
+    def kept(*parts):
+        return os.path.join(root, *parts)
+
+    run_dirs = sorted(d for d, _s, files in os.walk(root)
+                      if any(re.match(r"(metrics|spans)\.\d+\.jsonl$|"
+                                      r"restarts\.jsonl$", f)
+                             for f in files))
+    wl_in = kept("replay", "workload.json")
+    rc, out = run(["validate", *run_dirs, wl_in], 0)
+    n_ok = sum(line.startswith("OK ") for line in out.splitlines())
+
+    mon = kept("monitoring", "mon")
+    _, out = run(["report", mon, "--summary"], 0)
+    m = re.search(r"mfu=(\S+)", out)
+    mfu = float(m.group(1)) if m else None
+    if on_card and not (mfu is not None and 0 < mfu <= 1):
+        raise AssertionError(f"report --summary: {out!r}")
+    reports = []
+    for name, logs in [(n, kept("monitoring", n)) for n in
+                       ("mon", "skip", "halt", "tfm")] + [
+                           ("status", kept("status"))]:
+        reports.append(kept("reports", f"{name}.json"))
+        os.makedirs(kept("reports"), exist_ok=True)
+        run(["report", logs, "-o", reports[-1]], 0)
+
+    _, out = run(["tail", mon, "-n", "100000"], 0)
+    windows = [r["step"] for r in metrics.read_metrics(
+        os.path.join(mon, "metrics.0.jsonl")) if r["kind"] == "window"]
+    lines = [int(line.split()[2]) for line in out.splitlines()
+             if re.match(r"\[p\d+\] step ", line)]
+    if lines != windows:
+        raise AssertionError(f"tail: window lines at steps {lines}, rows "
+                             f"at {windows}")
+
+    med = {}
+    for name in OBS_COMPARE:
+        rows = metrics.read_metrics(kept("monitoring", name,
+                                         "metrics.0.jsonl"))
+        med[name] = statistics.median(r["step_time_p50_ms"] for r in rows
+                                      if r["kind"] == "window")
+    verdicts = []
+    for base, cand in (OBS_COMPARE, OBS_COMPARE[::-1]):
+        rel = (med[cand] - med[base]) / med[base]
+        if on_card and abs(rel) <= OBS_STEP_THRESHOLD:
+            raise AssertionError(f"compare: step-time medians {med} within "
+                                 f"{OBS_STEP_THRESHOLD} of each other")
+        want = 3 if rel > OBS_STEP_THRESHOLD else 0
+        _, out = run(["compare", kept("monitoring", base),
+                      kept("monitoring", cand), "--threshold", "1e9",
+                      "--thresholds",
+                      f"step_time_p50_ms={OBS_STEP_THRESHOLD}"], want)
+        st = json.loads(out)["metrics"]["step_time_p50_ms"]
+        if (st["base"], st["cand"]) != (med[base], med[cand]):
+            raise AssertionError(f"compare read medians {st}, the rows "
+                                 f"{med}")
+        verdicts.append(st["verdict"])
+
+    traced = kept("traced")
+    rids = sorted({r["rid"] for r in spans.load_spans(traced)
+                   if r.get("event") == "submit"})
+    argv = ["slo", traced, "--spec", TRACE_SLO]
+    rc, out = run(argv)
+    slo_doc = json.loads(out)
+    expect(argv, rc, 3 if slo_doc["breaches"] else 0)
+    if slo_doc["requests"] != len(rids):
+        raise AssertionError(f"slo: {slo_doc['requests']} requests, the "
+                             f"stream {len(rids)}")
+    _, out = run(["trace", traced, str(rids[0])], 0)
+    if json.loads(out)["record"].get("terminal") != "result":
+        raise AssertionError(f"trace: {out[:500]}")
+    chrome = kept("traced.chrome.json")
+    run(["trace", traced, "--export", "chrome", "-o", chrome], 0)
+    with open(chrome) as f:
+        events = json.load(f)["traceEvents"]
+    named = {e["name"] for e in events if e.get("cat") == "request"}
+    if not {f"request {rid}" for rid in rids} <= named:
+        raise AssertionError(f"chrome export names {sorted(named)}, the "
+                             f"stream's rids {rids}")
+
+    replay0 = kept("replay", "replay0")
+    _, out = run(["explain", replay0], 0)
+    if not out.splitlines()[-1].startswith(f"{REPLAY_N} request(s)"):
+        raise AssertionError(f"explain: {out.splitlines()[-1]}")
+    _, out = run(["explain", replay0, "--fleet"], 0)
+    littles = json.loads(out)["littles_law"]
+
+    for name in ("fleet", "chaos"):
+        sources = sorted(d for d in glob.glob(kept(name, "*"))
+                         if os.path.isdir(d))
+        _, out = run(["collect", *sources], 0)
+        if not out.strip():
+            raise AssertionError(f"collect {name}: no rows")
+        _, out = run(["fleet", *sources, "--spec", OBS_FLEET_SPEC], 0)
+        if not json.loads(out)["exactly_once"]:
+            raise AssertionError(f"fleet {name}: not exactly-once")
+
+    wl = kept("captured.json")
+    run(["capture", replay0, "-o", wl], 0)
+    argv = ["capacity", wl, "--service-tok-s", repr(replay["tps"][0]),
+            "--measured-qps", repr(replay["qps"][0])]
+    rc, out = run(argv)
+    fc = json.loads(out)
+    expect(argv, rc, 0 if fc["verdict"]["ok"] else 3)
+    batch = next(int(f.split("=")[1]) for f in flags
+                 if f.startswith("--decode_max_batch="))
+    kv_len = fc["mean_prompt_len"] + fc["mean_new_tokens"] / 2
+    peak = flops.chip_peak_hbm_bytes()
+    roof = capacity.roofline_decode_tok_s(spec, batch, kv_len)
+    if on_card and not (peak == 3.35e12 and roof and roof > 0):
+        raise AssertionError(f"capacity roofline {roof} (peak {peak}) on "
+                             f"{card}")
+    log(f"[obs] capacity of the first replay's capture: forecast "
+        f"{fc['sustainable_qps']} qps a replica at {fc['service_tok_s']} "
+        f"measured tokens/s (utilization target {fc['utilization_target']})"
+        f", {fc['required_replicas']} replica(s) for {fc['offered_qps']} "
+        f"offered qps; measured {fc['verdict']['measured_qps']} completed "
+        f"qps (rel_err {fc['verdict']['rel_err']}, ok "
+        f"{fc['verdict']['ok']}); roofline ceiling {roof} decode tokens/s "
+        f"(HBM peak {peak} B/s over the decode bytes a step at batch "
+        f"{batch}, kv {kv_len}) beside the measured {replay['tps'][0]} "
+        f"tokens/s on {smi}")
+
+    hist = kept("history.jsonl")
+    for path in reports:
+        run(["history", hist, "--append", path], 0)
+    run(["history", hist], 0)
+    argv = ["drift", hist]
+    rc, out = run(argv)
+    drift_doc = json.loads(out)
+    expect(argv, rc, 0 if drift_doc["ok"] else 3)
+    argv = ["drift", hist, "--capture", reports[0]]
+    rc, out = run(argv)
+    roofline = json.loads(out)["roofline"]
+    expect(argv, rc, 0 if drift_doc["ok"] else 3)
+    if on_card and roofline["chip_peak_hbm_gbps"] != round(peak / 1e9, 1):
+        raise AssertionError(f"drift --capture: {roofline}")
+
+    t0 = time.monotonic()
+    rc, answers = _obs_serve(mon, ["/status", "/metrics", "/report"])
+    ran.append(("serve", rc, time.monotonic() - t0))
+    log(f"[obs] dtx-obs serve $KEPT/monitoring/mon: GET "
+        f"{[(p, c) for p, c, _b in answers]}, rc {rc} on ^C in "
+        f"{ran[-1][2]:.4f} s on {smi}")
+    if rc != 0 or [c for _p, c, _b in answers] != [200, 200, 200]:
+        raise AssertionError(f"serve: rc {rc}, {answers}")
+    shutil.rmtree(root)
+    wall = time.monotonic() - t_phase
+    log(f"[obs] phase 9: {len(ran)} dtx-obs calls over {len(set(c for c, *_ in ran))}"
+        f" subcommands in {wall:.2f} s ({n_ok} files valid; report mfu "
+        f"{mfu}; compare {OBS_COMPARE} medians {med} ms -> {verdicts}; "
+        f"drifts {[d['metric'] for d in drift_doc['drifts']]}; Little's law "
+        f"holds {littles['holds']}; roofline join "
+        f"{roofline['chip_peak_hbm_gbps']} GB/s) on {smi}")
+    return dict(wall=wall, calls=len(ran), mfu=mfu, roof=roof,
+                forecast=fc["sustainable_qps"], peak=peak)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--dp-phase"]:     # phase 5d's own process
         args = json.loads(sys.argv[2])
@@ -5991,6 +6330,10 @@ def main() -> int:
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} on {card}")
     t0 = time.monotonic()
+    # the streams phases 4b, 4d-4g and 5c keep for phase 9 (dtx-obs),
+    # which removes the directory; removed at exit should a phase fail
+    obs_root = tempfile.mkdtemp(prefix="dtx-obs-")
+    atexit.register(shutil.rmtree, obs_root, True)
     phase_build()
     measured = (check_layer_norm(card) + check_grouped_ffn(card)
                 + check_mlp_forward(card) + check_flash(card)
@@ -6001,17 +6344,18 @@ def main() -> int:
     serve_int8 = phase_serve_int8(card, serve)
     serve_moe = phase_serve_moe(card)
     phase_http()
-    phase_http_traced()
-    phase_status()
-    fleet = phase_fleet(card, serve)
-    phase_chaos(card, serve)
-    replay = phase_replay(card)
+    phase_http_traced(keep=obs_root)
+    phase_status(keep=obs_root)
+    fleet = phase_fleet(card, serve, keep=obs_root)
+    phase_chaos(card, serve, keep=obs_root)
+    replay = phase_replay(card, keep=obs_root)
     trace = phase_trace_overhead(card, serve)
     del serve["params"]
     torch.cuda.empty_cache()
     train = phase_train(card)
     resilience = phase_resilience(card)
-    monitoring = phase_monitoring(card, train["counts"])
+    monitoring = phase_monitoring(card, train["counts"], keep=obs_root)
+    obs = phase_obs(card, obs_root, serve["spec"], replay)
     dp = phase_dp(card)
     tp = phase_tp(card)
     sites = phase_sites(card)
@@ -6139,6 +6483,10 @@ def main() -> int:
         f"flagged step {monitoring['first_flagged']}, halted at step "
         f"{monitoring['halt_step']}; transformer_wide_long mfu "
         f"{monitoring['tfm_mfu']} on {smi}")
+    log(f"[obs] phase 9: {obs['calls']} dtx-obs calls in {obs['wall']:.2f} s"
+        f" over the kept streams; report mfu {obs['mfu']}; capacity "
+        f"forecast {obs['forecast']} qps, roofline ceiling {obs['roof']} "
+        f"decode tokens/s at HBM peak {obs['peak']} B/s on {smi}")
     for name, r in dp.items():
         log(f"[dp] {name}: step {r['step_ms']:.4f} ms (CUDA events), peak "
             f"memory {r['peak_gib']:.3f} GiB, collectives device ms "

@@ -1,9 +1,10 @@
 """The row and document contracts of the port's ``obs/`` and their
-validators — the port's copy of the parts of the JAX package's
-``obs/schema.py`` that its serving stack reads and writes: the span
-rows, the metrics rows the status server and the run report read, the
-restart timeline, the run report, the fleet report, the waterfall, the
-workload document and the trainer's metrics stream and flight dumps.
+validators — the port's copy of the JAX package's ``obs/schema.py``:
+the span rows, the metrics rows the status server and the run report
+read, the engine's serving stats, the restart timeline, the bench
+history records, the run report, the fleet report, the waterfall, the
+drift report, the workload document and the trainer's metrics stream
+and flight dumps.
 
 ``SCHEMA_VERSION`` is the JAX package's (10), so the two packages'
 streams validate against each other.  Validators return a list of error
@@ -283,6 +284,88 @@ def validate_restart_file(path: str) -> List[str]:
     return errs
 
 
+# the engine's point-in-time counters (serving/engine.DecodeEngine.stats):
+# the /status "serving" section and the dtx_generate_* gauges read
+# exactly these fields; percentiles and throughput are null before the
+# first completion.  requests_total counts accepted requests only (a
+# shed request lands in shed_total); brownout_active is a 0/1 gauge
+SERVING_STATS = {
+    "requests_total": (int,),
+    "completed_total": (int,),
+    "inflight": (int,),
+    "queued": (int,),
+    "latency_p50_ms": _NUM + (type(None),),
+    "latency_p99_ms": _NUM + (type(None),),
+    "ttft_p50_ms": _NUM + (type(None),),
+    "ttft_p99_ms": _NUM + (type(None),),
+    "tokens_generated_total": (int,),
+    "tokens_per_sec": _NUM + (type(None),),
+    "page_occupancy_frac": _NUM,
+    "decode_ticks_total": (int,),
+    "prefills_total": (int,),
+    "shed_total": (int,),
+    "timeout_total": (int,),
+    "failed_total": (int,),
+    "requeued_total": (int,),
+    "engine_restarts_total": (int,),
+    "queue_limit": (int,),
+    "queue_peak": (int,),
+    "brownout_active": (int,),
+    "brownout_clamped_total": (int,),
+}
+
+
+def validate_serving_stats(doc: Dict[str, Any],
+                           where: str = "serving") -> List[str]:
+    """Validate a DecodeEngine.stats() document (no version stamp: an
+    in-process snapshot, never written to disk by obs/)."""
+    return _check(doc, SERVING_STATS, where)
+
+
+# one bench-history record (obs/history.py appends these to a
+# history.jsonl): a comparison document reduced to its gate metrics
+HISTORY_ENTRY = {
+    "v": (int,),
+    "kind": (str,),          # "bench_history"
+    "t": _NUM,
+    "label": (str,),
+    "source": (str,),
+    "metrics": (dict,),
+}
+
+
+def validate_history_entry(row: Dict[str, Any],
+                           where: str = "row") -> List[str]:
+    """Validate one history.jsonl record."""
+    if not isinstance(row, dict):
+        return [f"{where}: not an object"]
+    verrs = _version_errs(row, "v", where)
+    if verrs:
+        return verrs
+    errs = _check(row, HISTORY_ENTRY, where)
+    if row.get("kind") != "bench_history":
+        errs.append(f"{where}: kind is {row.get('kind')!r}, expected "
+                    f"'bench_history'")
+    return errs
+
+
+def validate_history_file(path: str) -> List[str]:
+    """Validate every line of a history.jsonl file."""
+    errs: List[str] = []
+    with open(path) as f:
+        for i, line in enumerate(f, 1):
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                row = json.loads(line)
+            except ValueError as e:
+                errs.append(f"line {i}: not JSON ({e})")
+                continue
+            errs += validate_history_entry(row, where=f"line {i}")
+    return errs
+
+
 # the run report obs/aggregate.py produces (the status server's
 # /report); top-level contract only, the goodput bucket names are
 # aggregate.BUCKETS
@@ -489,6 +572,44 @@ def validate_run_report(doc: Dict[str, Any],
     return errs
 
 
+# the drift report obs/drift.py produces (dtx-obs drift prints it and
+# exits 3 when "ok" is False): change-point detection over a history
+# window; each "drifts" entry names the metric, the split and the first
+# offending row label; "roofline" is the decode join of a capture
+# (None without --capture)
+DRIFT_REPORT = {
+    "v": (int,),
+    "kind": (str,),          # "drift_report"
+    "generated_t": _NUM,
+    "history_path": (str,),
+    "entries": (int,),
+    "window": (int,),
+    "metrics": (list,),
+    "drifts": (list,),
+    "roofline": (dict, type(None)),
+    "ok": (bool,),
+}
+
+
+def validate_drift_report(doc: Dict[str, Any],
+                          where: str = "drift") -> List[str]:
+    """Validate an obs/drift.py report (its top-level contract and each
+    drift entry's shape)."""
+    if not isinstance(doc, dict):
+        return [f"{where}: not an object"]
+    verrs = _version_errs(doc, "v", where)
+    if verrs:
+        return verrs
+    errs = _check(doc, DRIFT_REPORT, where)
+    if doc.get("kind") != "drift_report":
+        errs.append(f"{where}: kind is {doc.get('kind')!r}, expected "
+                    f"'drift_report'")
+    for i, d in enumerate(doc.get("drifts") or []):
+        errs += _check(d, {"metric": (str,), "first_offending": (str,),
+                           "shift_frac": _NUM}, f"{where}.drifts[{i}]")
+    return errs
+
+
 # The portable workload document ``obs/workload.py`` distills from a
 # span dir and ``serving/replay.py`` feeds back through an engine or a
 # fleet: arrivals are offsets from the first submit (seconds),
@@ -559,6 +680,24 @@ def validate_workload(doc: Dict[str, Any],
     return errs
 
 
+def validate_workload_file(path: str) -> List[str]:
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except (OSError, ValueError) as e:
+        return [f"{path}: unreadable ({e})"]
+    return validate_workload(doc, where=path)
+
+
+def validate_version(doc: Dict[str, Any], field: str = "v",
+                     where: str = "doc") -> List[str]:
+    """The version check alone, for documents whose body has no contract
+    here (the chief's flight/report.json collate)."""
+    if not isinstance(doc, dict):
+        return [f"{where}: not an object"]
+    return _version_errs(doc, field, where)
+
+
 def _check(doc: Dict[str, Any], spec: Dict[str, tuple],
            where: str) -> List[str]:
     errs = []
@@ -603,4 +742,8 @@ __all__ = ["SCHEMA_VERSION", "METRICS_COMMON", "METRICS_WINDOW",
            "validate_span_file", "validate_restart_row",
            "validate_restart_file", "validate_run_report",
            "validate_fleet_report", "validate_waterfall", "WORKLOAD",
-           "WORKLOAD_REQUEST", "validate_workload"]
+           "WORKLOAD_REQUEST", "validate_workload", "SERVING_STATS",
+           "validate_serving_stats", "HISTORY_ENTRY",
+           "validate_history_entry", "validate_history_file",
+           "DRIFT_REPORT", "validate_drift_report",
+           "validate_workload_file", "validate_version"]

@@ -5,7 +5,8 @@ counts across replays, the epoch permutation card against CPU, the
 pinned copy-stream prefetch against blocking copies, and the
 data-parallel strategies' steps in a one-rank NCCL group (ZeRO-1, FSDP,
 local SGD against the plain step; their graph epochs against the eager
-ones, the collectives captured).
+ones, the collectives captured); and ``obs/capacity``'s decode roofline
+at the card's HBM peak.
 
 Every test here carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is false (the kernels have no CPU mode).
@@ -1445,3 +1446,31 @@ def test_resumed_wide_mlp_on_card_is_bitwise(card, tmp_path):
     assert sorted(got) == sorted(want)
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_capacity_roofline_is_the_cards_hbm_closed_form(card):
+    """``capacity.roofline_decode_tok_s`` on the card: the card's HBM
+    peak (3.35e12 B/s on an H100 80GB HBM3) over the decode bytes a
+    step, times the batch, for the full-width decode model at two
+    batches and KV lengths and under an int8 pool."""
+    from distributed_tensorflow_example_tpu_torch.models import (
+        transformer)
+    from distributed_tensorflow_example_tpu_torch.obs import capacity, flops
+
+    peak = flops.chip_peak_hbm_bytes()
+    if peak is None:
+        pytest.skip(f"no HBM peak tabled for {torch.cuda.get_device_name()}")
+    if torch.cuda.get_device_name() == "NVIDIA H100 80GB HBM3":
+        assert peak == 3.35e12
+    spec = transformer.TransformerSpec(
+        input_size=1024, num_classes=10, seq_len=1024, d_model=1024,
+        n_heads=8, num_blocks=4, d_ff=4096, objective="lm",
+        vocab_size=256, causal=True, compute_dtype=torch.bfloat16)
+    for batch, kv_len, kv_bytes in ((8, 40.0, None), (1, 1023.0, None),
+                                    (8, 512.0, 1.0)):
+        got = capacity.roofline_decode_tok_s(spec, batch, kv_len,
+                                             kv_dtype_bytes=kv_bytes)
+        want = peak / flops.decode_bytes_per_step(
+            spec, batch, kv_len, kv_dtype_bytes=kv_bytes) * batch
+        assert got == want and got > 0

@@ -32,6 +32,8 @@ def test_port_imports_with_jax_and_the_jax_package_poisoned():
     assert len(mods) >= 15
     assert "distributed_tensorflow_example_tpu_torch.parallel.local_sgd" \
         in mods
+    assert {f"distributed_tensorflow_example_tpu_torch.obs.{m}" for m in
+            ("cli", "compare", "history", "drift", "capacity")} <= set(mods)
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'distributed_tensorflow_example_tpu'):\n"
