@@ -258,17 +258,21 @@ and for the transformer trainer (``main.py --model=transformer`` ->
     LayerNorm backward against their plain versions on the card — the
     attention kernels compared at [1, 8192, 8, 128] bf16 causal (the
     plain scores of the full batch would take 17 GB) and at two ragged
-    shapes, timed at the path's [8, 8192, 8, 128], where each batch
-    element of the timed launches' outputs is held against the plain
-    version on that element's inputs; the LayerNorm
+    shapes, then at the wide head dims (FLASH_WIDE_CASES: bf16 [1, 8192,
+    4, 256] and [2, 1000, 4, 256] causal, [1, 512, 2, 192] non-causal;
+    f32 [1, 1024, 2, 256] and [1, 300, 2, 200] causal), timed at the
+    path's [8, 8192, 8, 128] and at phase 7c's [8, 8192, 4, 256], where
+    each batch element of the timed launches' outputs is held against
+    the plain version on that element's inputs; the LayerNorm
     backward at 65,536 x 1024 f32, whose row also carries the route it
     took (``variant``: "warp" or "block"), its count of dg/db partial
     rows and the time of each of its two launches (``torch.profiler``,
     after every other phase; null where the profiler's window lost
     the card's events) — and time each beside its plain
     version, a PyTorch library call and its bound; the rows of the
-    bf16 tensor-core forward, dq and dk/dv also carry their design,
-    registers and spilled bytes (from the compiler's report of the
+    bf16 tensor-core forward, dq and dk/dv (narrow and wide) also carry
+    their design, registers and spilled bytes (from the compiler's report
+    of the
     loaded library's build), TFLOP/s and the factor against the library
     call;
 7. train at full width: the JAX repo's ``transformer_wide_long`` bench
@@ -283,7 +287,15 @@ and for the transformer trainer (``main.py --model=transformer`` ->
    peak memory, and the step time of a warm epoch of the same runner;
 7b. one step of the same model cut to 1 block, S 2048, batch 2, from
     one initial state on the card and on the port's CPU path, the
-    updates held against each other.
+    updates held against each other;
+7c. phase 7's run at 4 heads of 256 (WIDE_HEAD_FLAGS: the same params
+    and FLOPs, the head geometry of Gemma's head_dim 256), so B5-B7 take
+    their wide instantiations: the same launch counts and checks as
+    phase 7, B6 and B7 last at [8, 8192, 4, 256] and B5 at the eval
+    chunk's [4, 8192, 4, 256]; the median step, tokens/s, model TFLOP/s
+    and peak memory printed;
+7d. phase 7b's step at 4 heads of 256, card vs CPU path, within
+    TFM_STEP_RTOL.
 
 and for MoE training (``main.py --model=transformer --num_experts=64
 --moe_dispatch=alltoall --grouped_moe [--fp8_ffn]`` -> ``train/loop.run``):
@@ -500,6 +512,13 @@ STEP_CHECK_FLAGS = [
     "--input_size=8192", "--seq_len=2048", "--d_model=1024", "--n_heads=8",
     "--num_blocks=1", "--d_ff=4096", "--compute_dtype=bfloat16",
     "--optimizer=sgd", "--learning_rate=1e-2", "--batch_size=2"]
+# phases 7c and 7d: the same runs at 4 heads of 256 (Gemma's head dim):
+# the params and FLOPs of phases 7 and 7b, so a step-time difference is
+# the head geometry's alone; B5-B7 take their wide instantiations
+WIDE_HEAD_FLAGS = [f.replace("--n_heads=8", "--n_heads=4")
+                   for f in WIDE_LONG_FLAGS]
+WIDE_HEAD_STEP_FLAGS = [f.replace("--n_heads=8", "--n_heads=4")
+                        for f in STEP_CHECK_FLAGS]
 
 # the JAX repo's moe_wide bench row (bench.py), 4 steps; phase 8 runs it
 # with --grouped_moe, then with --grouped_moe --fp8_ffn
@@ -673,6 +692,23 @@ FLASH_TC_DEMANGLED = {"stats": "flash_fwd_tc_kernel<true, true>",
                       "dq": "flash_dq_tc_kernel<true>",
                       "dkv": "flash_dkv_tc_kernel<true>"}
 FLASH_USAGE: dict = {}
+# the wide instantiations (128 < D <= 256) of every form, keyed by
+# (dtype, form, causal): bf16 the *_wide_tc kernels, f32 the CUDA-core
+# kernels at their 32-row tiling (phase 1 prints them all; the bf16 causal
+# ones are phase 7c's and carry the wide rows' registers)
+FLASH_WIDE = {
+    (dt, form, causal): frag.format(c=int(causal))
+    for causal in (True, False)
+    for dt, form, frag in (
+        ("bf16", "stats", "flash_fwd_wide_tc_kernelILb{c}ELb1EE"),
+        ("bf16", "normalized", "flash_fwd_wide_tc_kernelILb{c}ELb0EE"),
+        ("bf16", "dq", "flash_dq_wide_tc_kernelILb{c}EE"),
+        ("bf16", "dkv", "flash_dkv_wide_tc_kernelILb{c}EE"),
+        ("f32", "stats", "flash_fwd_kernelILi32ELi256ELb{c}ELb1EE"),
+        ("f32", "normalized", "flash_fwd_kernelILi32ELi256ELb{c}ELb0EE"),
+        ("f32", "dq", "flash_dq_kernelILi32ELi256ELb{c}EE"),
+        ("f32", "dkv", "flash_dkv_kernelILi32ELi256ELb{c}EE"))}
+FLASH_WIDE_USAGE: dict = {}
 # each source that includes gemm_tc.cuh compiles its own copy of the
 # GEMM (internal linkage), so those fragments name the source too
 MLP_TC = {"hidden": ("mlp_forward_cu",
@@ -744,7 +780,8 @@ def phase_build():
     log(f"[build] kernels {how} in {secs:.2f} s "
         f"({_build.last_build.get('path')})")
     usage = ptxas_usage(_build.last_build.get("log") or "")
-    for frags, into in ((FLASH_TC, FLASH_USAGE), (MLP_TC, MLP_USAGE),
+    for frags, into in ((FLASH_TC, FLASH_USAGE),
+                        (FLASH_WIDE, FLASH_WIDE_USAGE), (MLP_TC, MLP_USAGE),
                         (B8_TC, B8_USAGE), (LN_KERNELS, LN_USAGE),
                         (LN_BWD_KERNELS, LN_BWD_USAGE),
                         (MLP_F32, MLP_F32_USAGE)):
@@ -1098,9 +1135,34 @@ def _bound(nbytes, flops, dtype=torch.bfloat16):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_flash(card: str) -> list:
-    """B5 (both forms), B6 and B7 against their plain versions, then
-    timed at the path's shape."""
+# the wide-head cases (128 < D <= 256, the wide instantiations), each
+# against the plain versions within FLASH_TOL of its dtype: bf16 at the
+# path's length (phase 7c's heads, batch 1) and at a ragged S, a D padded
+# from 192, and f32 at a causal D 256 and a ragged S with D 200
+FLASH_WIDE_CASES = ((1, 8192, 4, 256, True, torch.bfloat16),
+                    (2, 1000, 4, 256, True, torch.bfloat16),
+                    (1, 512, 2, 192, False, torch.bfloat16),
+                    (1, 1024, 2, 256, True, torch.float32),
+                    (1, 300, 2, 200, True, torch.float32))
+# the attention shape of the transformer trainer's path (phase 7) and of
+# the same model at 4 heads of 256 (phase 7c): the flash kernels are
+# timed at both
+FLASH_PATH_SHAPES = ((8, 8192, 8, 128), (8, 8192, 4, 256))
+
+
+def _flash_inputs(b, s, h, d, seed, dtype=torch.bfloat16):
+    g = _gen(seed)
+    return [torch.randn(b, s, h, d, generator=g, device="cuda").to(dtype)
+            for _ in range(4)]
+
+
+def _flash_timed(card: str, shape, seeds, errs: dict) -> list:
+    """B5's two forms, B6 and B7 at the path's bf16 causal ``shape``:
+    the plain versions timed at batch 1 (the full batch's plain scores
+    would not fit), the kernels at the full batch, each batch element of
+    the timed launches' outputs held against the plain version on that
+    element's inputs (``errs`` takes the largest errors), SDPA's forward
+    and backward and the bound beside them; the report's rows."""
     import torch.nn.functional as F
 
     from distributed_tensorflow_example_tpu_torch.ops import (
@@ -1108,55 +1170,9 @@ def check_flash(card: str) -> list:
 
     cdt = torch.bfloat16
     tol = FLASH_TOL[cdt]
-
-    def inputs(b, s, h, d, seed):
-        g = _gen(seed)
-        return [torch.randn(b, s, h, d, generator=g, device="cuda").to(cdt)
-                for _ in range(4)]
-
-    # per kernel: (largest absolute error, largest error of scale)
-    errs = {"flash_forward": (0.0, 0.0), "flash_dq": (0.0, 0.0),
-            "flash_dkv": (0.0, 0.0)}
-    # the transformer path's length at batch 1, the MoE path's whole
-    # batch (about 1 GB of f32 scores per plain tensor), then two ragged
-    # shapes
-    for b, s, h, d, causal in ((1, 8192, 8, 128, True),
-                               (32, 1024, 8, 128, True),
-                               (2, 1000, 8, 128, True),
-                               (1, 300, 8, 64, False)):
-        q, k, v, do = inputs(b, s, h, d, 11000 + s)
-        o_r = fa.flash_attention_reference(q, k, v, causal)
-        acc_r, m_r, l_r = fa.flash_stats_reference(q, k, v, causal)
-        acc, m, l = fa.flash_forward(q, k, v, causal, stats=True)
-        fwd = max(_errs(fa.flash_forward(q, k, v, causal), o_r),
-                  _errs(acc, acc_r), _errs(m, m_r), _errs(l, l_r),
-                  key=lambda e: e[1])
-        dlt = torch.sum(do.float() * o_r.float(), dim=-1)
-        want = fa.flash_backward_reference(q, k, v, do, m_r, l_r, dlt,
-                                           causal)
-        dq = fa.flash_dq(q, k, v, do, m_r, l_r, dlt, causal)
-        dk, dv = fa.flash_dkv(q, k, v, do, m_r, l_r, dlt, causal)
-        torch.cuda.synchronize()
-        e_dq = _errs(dq, want[0])
-        e_dkv = max(_errs(dk, want[1]), _errs(dv, want[2]),
-                    key=lambda e: e[1])
-        log(f"[kernel] flash [{b}, {s}, {h}, {d}] bf16 causal={causal}: "
-            f"forward {fwd[1]:.3g}, dq {e_dq[1]:.3g}, dk/dv {e_dkv[1]:.3g} "
-            f"of scale (tol {tol}); max abs {fwd[0]:.3g}, {e_dq[0]:.3g}, "
-            f"{e_dkv[0]:.3g}")
-        for name, e in (("flash_forward", fwd), ("flash_dq", e_dq),
-                        ("flash_dkv", e_dkv)):
-            if not e[1] <= tol:
-                raise AssertionError(f"{name} [{b}, {s}, {h}, {d}] causal="
-                                     f"{causal}: {e[1]} of scale > {tol}")
-            errs[name] = (max(errs[name][0], e[0]),
-                          max(errs[name][1], e[1]))
-        del o_r, acc_r, want, acc, dq, dk, dv
-        torch.cuda.empty_cache()
-
-    # the plain versions' times at batch 1 (the full batch's plain
-    # scores would take 17 GB), the kernels' at the path's batch 8
-    q1, k1, v1, do1 = inputs(1, 8192, 8, 128, 12001)
+    b, s, h, d = shape
+    wide = d > 128
+    q1, k1, v1, do1 = _flash_inputs(1, s, h, d, seeds[0])
     acc1, m1, l1 = fa.flash_forward(q1, k1, v1, True, stats=True)
     o1 = (acc1 / l1[..., None]).to(cdt)
     dlt1 = torch.sum(do1.float() * o1.float(), dim=-1)
@@ -1172,19 +1188,18 @@ def check_flash(card: str) -> list:
     del q1, k1, v1, do1, acc1, m1, l1, o1, dlt1
     torch.cuda.empty_cache()
 
-    shape = (8, 8192, 8, 128)
-    q, k, v, do = inputs(*shape, 12002)
+    q, k, v, do = _flash_inputs(*shape, seeds[1])
     acc, m, l = fa.flash_forward(q, k, v, True, stats=True)
     o = (acc / l[..., None]).to(cdt)
     dlt = torch.sum(do.float() * o.float(), dim=-1)
-    # the path's own batch-8 launches, each batch element held against
-    # the plain version on that element's inputs (batch-1 memory); the
-    # backward kernels take the stats kernel's m and l and its dlt
+    # the path's own launches, each batch element held against the plain
+    # version on that element's inputs (batch-1 memory); the backward
+    # kernels take the stats kernel's m and l and its dlt
     o_n = fa.flash_forward(q, k, v, True)
     dq = fa.flash_dq(q, k, v, do, m, l, dlt, True)
     dk, dv = fa.flash_dkv(q, k, v, do, m, l, dlt, True)
     torch.cuda.synchronize()
-    for i in range(shape[0]):
+    for i in range(b):
         e = slice(i, i + 1)
         acc_r, m_r, l_r = fa.flash_stats_reference(q[e], k[e], v[e], True)
         fwd = max(_errs(o_n[e], fa.flash_attention_reference(
@@ -1235,7 +1250,7 @@ def check_flash(card: str) -> list:
         bound, by = _bound(nbytes, flops)
         row = dict(kernel=name, form=form, shape=list(shape), dtype="bf16",
                    causal=True, ms=kern[form], plain_ms=plain[form],
-                   plain_shape=[1, 8192, 8, 128], library_ms=lib,
+                   plain_shape=[1, s, h, d], library_ms=lib,
                    library_call=("scaled_dot_product_attention(is_causal="
                                  "True) " + ("forward" if name ==
                                              "flash_forward" else
@@ -1245,9 +1260,13 @@ def check_flash(card: str) -> list:
                    tflops=flops / kern[form] / 1e9,
                    x_library=kern[form] / lib,
                    max_abs_err=errs[name][0], rel_err=errs[name][1])
-        if form in FLASH_USAGE:
-            use = FLASH_USAGE[form]
-            row.update(design="wgmma+cp.async", regs=use["regs"],
+        use = (FLASH_WIDE_USAGE.get(("bf16", form, True)) if wide
+               else FLASH_USAGE.get(form))
+        if use is not None:
+            row.update(design=("wgmma+cp.async, D padded to 256, 2-stage "
+                               "ring, products not overlapped" if wide
+                               else "wgmma+cp.async"),
+                       regs=use["regs"],
                        spill_bytes=(use.get("spill_stores", 0)
                                     + use.get("spill_loads", 0)))
         log(f"[kernel] {name} ({form}) {shape} bf16 causal: kernel "
@@ -1261,10 +1280,69 @@ def check_flash(card: str) -> list:
         rows.append(row)
     del q, k, v, do, m, l, o, dlt
     torch.cuda.empty_cache()
-    return [("flash_forward", [r for r in rows
-                               if r["kernel"] == "flash_forward"]),
-            ("flash_dq", [r for r in rows if r["kernel"] == "flash_dq"]),
-            ("flash_dkv", [r for r in rows if r["kernel"] == "flash_dkv"])]
+    return rows
+
+
+def check_flash(card: str) -> list:
+    """B5 (both forms), B6 and B7 against their plain versions, at
+    D 128 and below and at the wide head dims, then timed at the two path
+    shapes (FLASH_PATH_SHAPES)."""
+    from distributed_tensorflow_example_tpu_torch.ops import (
+        flash_attention as fa)
+
+    bf16 = torch.bfloat16
+    # per kernel: (largest absolute error, largest error of scale)
+    errs = {"flash_forward": (0.0, 0.0), "flash_dq": (0.0, 0.0),
+            "flash_dkv": (0.0, 0.0)}
+    # the transformer path's length at batch 1, the MoE path's whole
+    # batch (about 1 GB of f32 scores per plain tensor), two ragged
+    # shapes, then the wide-head cases
+    cases = [(b, s, h, d, causal, bf16, 11000 + s)
+             for b, s, h, d, causal in ((1, 8192, 8, 128, True),
+                                        (32, 1024, 8, 128, True),
+                                        (2, 1000, 8, 128, True),
+                                        (1, 300, 8, 64, False))]
+    cases += [(*c, 13000 + c[1] + c[3]) for c in FLASH_WIDE_CASES]
+    for b, s, h, d, causal, cdt, seed in cases:
+        tol = FLASH_TOL[cdt]
+        dname = "bf16" if cdt == bf16 else "f32"
+        q, k, v, do = _flash_inputs(b, s, h, d, seed, cdt)
+        o_r = fa.flash_attention_reference(q, k, v, causal)
+        acc_r, m_r, l_r = fa.flash_stats_reference(q, k, v, causal)
+        acc, m, l = fa.flash_forward(q, k, v, causal, stats=True)
+        fwd = max(_errs(fa.flash_forward(q, k, v, causal), o_r),
+                  _errs(acc, acc_r), _errs(m, m_r), _errs(l, l_r),
+                  key=lambda e: e[1])
+        dlt = torch.sum(do.float() * o_r.float(), dim=-1)
+        want = fa.flash_backward_reference(q, k, v, do, m_r, l_r, dlt,
+                                           causal)
+        dq = fa.flash_dq(q, k, v, do, m_r, l_r, dlt, causal)
+        dk, dv = fa.flash_dkv(q, k, v, do, m_r, l_r, dlt, causal)
+        torch.cuda.synchronize()
+        e_dq = _errs(dq, want[0])
+        e_dkv = max(_errs(dk, want[1]), _errs(dv, want[2]),
+                    key=lambda e: e[1])
+        log(f"[kernel] flash [{b}, {s}, {h}, {d}] {dname} causal={causal}: "
+            f"forward {fwd[1]:.3g}, dq {e_dq[1]:.3g}, dk/dv {e_dkv[1]:.3g} "
+            f"of scale (tol {tol}); max abs {fwd[0]:.3g}, {e_dq[0]:.3g}, "
+            f"{e_dkv[0]:.3g}")
+        for name, e in (("flash_forward", fwd), ("flash_dq", e_dq),
+                        ("flash_dkv", e_dkv)):
+            if not e[1] <= tol:
+                raise AssertionError(f"{name} [{b}, {s}, {h}, {d}] {dname} "
+                                     f"causal={causal}: {e[1]} of scale > "
+                                     f"{tol}")
+            errs[name] = (max(errs[name][0], e[0]),
+                          max(errs[name][1], e[1]))
+        del q, k, v, do, o_r, acc_r, want, acc, dq, dk, dv
+        torch.cuda.empty_cache()
+
+    rows = []
+    for shape, seeds in zip(FLASH_PATH_SHAPES, ((12001, 12002),
+                                                (12003, 12004))):
+        rows += _flash_timed(card, shape, seeds, errs)
+    return [(name, [r for r in rows if r["kernel"] == name])
+            for name in ("flash_forward", "flash_dq", "flash_dkv")]
 
 
 def check_layer_norm_backward(card: str) -> list:
@@ -5665,17 +5743,23 @@ def _epoch_step_ms(cfg) -> float:
     return ev[0].elapsed_time(ev[1]) / spe
 
 
-def phase_transformer_train(card: str) -> dict:
+def phase_transformer_train(card: str, flags=WIDE_LONG_FLAGS,
+                            tag: str = "tfm-train") -> dict:
     """The transformer trainer at the ``transformer_wide_long`` width
-    (WIDE_LONG_FLAGS, parsed as the CLI parses them) on the card."""
+    (WIDE_LONG_FLAGS, parsed as the CLI parses them) on the card; phase
+    7c passes WIDE_HEAD_FLAGS.  B6 and B7 must run at the training
+    batch's [B, S, H, D], B5 last at the eval chunk's."""
     from distributed_tensorflow_example_tpu_torch.config import (
         parse_train_config)
     from distributed_tensorflow_example_tpu_torch.models import (
         transformer as tfm)
     from distributed_tensorflow_example_tpu_torch.ops import fused
+    from distributed_tensorflow_example_tpu_torch.ops import (
+        flash_attention as fa)
+    from distributed_tensorflow_example_tpu_torch.parallel import step
     from distributed_tensorflow_example_tpu_torch.train import loop
 
-    cfg = parse_train_config(WIDE_LONG_FLAGS)
+    cfg = parse_train_config(flags)
     spec = loop.make_spec(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5701,6 +5785,17 @@ def phase_transformer_train(card: str) -> dict:
             math.isfinite(float(c)) for c in costs):
         raise AssertionError(f"transformer train: {steps} steps, printed "
                              f"costs {costs}")
+    heads = (spec.seq_len, spec.n_heads, spec.d_model // spec.n_heads)
+    # the fast path's eval chunk (parallel/epoch.build_fast_eval, dp 1)
+    n_test = cfg.synthetic_test_size
+    chunk = min(step.eval_chunk_cap(spec, n_test), n_test)
+    shapes = {w.__name__: w.last_shape for w in fa.KERNEL_WRAPPERS}
+    want_shapes = {"flash_forward": (chunk, *heads),
+                   "flash_dq": (cfg.batch_size, *heads),
+                   "flash_dkv": (cfg.batch_size, *heads)}
+    if shapes != want_shapes:
+        raise AssertionError(f"transformer train: flash shapes {shapes}, "
+                             f"expected {want_shapes}")
     step_ms = [float(m) for m in re.findall(r"AvgTime: +(\d+\.\d+)ms",
                                             out)]
     med = statistics.median(step_ms)
@@ -5712,22 +5807,24 @@ def phase_transformer_train(card: str) -> dict:
                tokens_per_s=tokens / med * 1e3,
                model_tflops_per_s=flops / (med / 1e3) / 1e12,
                flops_per_step=flops, peak_gib=peak_gib,
-               total_s=res["total_time_s"], counts=counts)
-    log(f"[tfm-train] transformer_wide_long, {steps} steps of batch "
+               total_s=res["total_time_s"], counts=counts, shapes=shapes)
+    log(f"[{tag}] transformer_wide_long at {spec.n_heads} heads of "
+        f"{heads[2]}, {steps} steps of batch "
         f"{cfg.batch_size} x S {spec.seq_len} on {card}: median step "
         f"{med:.1f} ms, {row['tokens_per_s']:.0f} tokens/s, "
         f"{row['model_tflops_per_s']:.2f} model TFLOP/s "
         f"({flops / 1e12:.2f} TFLOP/step), peak memory {peak_gib:.2f} GiB; "
         f"steps {step_ms} ms; whole run incl. eval {res['total_time_s']:.2f}"
-        f" s; launches {counts}; the device-resident epoch after a warm "
-        f"one: {epoch_ms:.2f} ms a step")
+        f" s; launches {counts} at {shapes}; the device-resident epoch "
+        f"after a warm one: {epoch_ms:.2f} ms a step")
     return row
 
 
-def phase_transformer_step(card: str) -> dict:
+def phase_transformer_step(card: str, flags=STEP_CHECK_FLAGS,
+                           tag: str = "tfm-step") -> dict:
     """One step of the full-width transformer cut to 1 block, S 2048,
-    batch 2 (STEP_CHECK_FLAGS) from one initial state on the card and on
-    the port's CPU path."""
+    batch 2 (STEP_CHECK_FLAGS; phase 7d WIDE_HEAD_STEP_FLAGS) from one
+    initial state on the card and on the port's CPU path."""
     from distributed_tensorflow_example_tpu_torch.config import (
         parse_train_config)
     from distributed_tensorflow_example_tpu_torch.data import mnist
@@ -5736,7 +5833,7 @@ def phase_transformer_step(card: str) -> dict:
     from distributed_tensorflow_example_tpu_torch.train.state import (
         TrainState, create_train_state)
 
-    cfg = parse_train_config(STEP_CHECK_FLAGS)
+    cfg = parse_train_config(flags)
     spec = loop.make_spec(cfg)
     opt = optim.make_optimizer(cfg, 1)
     body = step.make_sync_step_body(cfg, spec, opt)
@@ -5763,8 +5860,9 @@ def phase_transformer_step(card: str) -> dict:
                                  f"{scale} > {TFM_STEP_RTOL}")
     if not math.isfinite(float(cost_card)):
         raise AssertionError(f"transformer step: cost {float(cost_card)}")
-    log(f"[tfm-step] one step (1 block, S {spec.seq_len}, batch "
-        f"{cfg.batch_size}, d_model {spec.d_model}) card vs CPU path: cost "
+    log(f"[{tag}] one step (1 block, S {spec.seq_len}, batch "
+        f"{cfg.batch_size}, d_model {spec.d_model}, {spec.n_heads} heads of "
+        f"{spec.d_model // spec.n_heads}) card vs CPU path: cost "
         f"{float(cost_card):.6g} vs {float(cost_cpu):.6g}, worst update "
         f"difference {worst:.3g} of its scale (tol {TFM_STEP_RTOL}); CPU "
         f"step {cpu_s:.1f} s")
@@ -6371,6 +6469,8 @@ def main() -> int:
     cli = phase_cli(card)
     tfm_train = phase_transformer_train(card)
     phase_transformer_step(card)
+    tfm_wide = phase_transformer_train(card, WIDE_HEAD_FLAGS, "tfm-wide-head")
+    phase_transformer_step(card, WIDE_HEAD_STEP_FLAGS, "tfm-wide-head-step")
     moe_train = phase_moe_train(card)
     phase_moe_step(card)
     ln_bwd_launch_split(card, dict(measured)["layer_norm_backward"][0])
@@ -6415,6 +6515,7 @@ def main() -> int:
                "pp_one_rank": pp["ref"]["counts"],
                "mlp_cli": cli["counts"],
                "transformer_train": tfm_train["counts"],
+               "transformer_wide_head": tfm_wide["counts"],
                "moe_train": moe_train[0]["counts"],
                "moe_train_fp8": moe_train[1]["counts"]}
     counts.update({k: train["counts"][k] for k in TRAIN_WRAPPERS})
@@ -6551,9 +6652,11 @@ def main() -> int:
             f"peak memory {r['peak_gib']:.3f} GiB on {smi}")
     log(f"[train] graph replays alone: median step "
         f"{train['replay_ms_median']:.4f} ms on {smi}")
-    log(f"[tfm-train] peak memory {tfm_train['peak_gib']:.2f} GiB, median "
-        f"step {tfm_train['step_ms_median']:.1f} ms, warm epoch "
-        f"{tfm_train['epoch_step_ms']:.2f} ms a step on {smi}")
+    for tag, r in (("tfm-train", tfm_train), ("tfm-wide-head", tfm_wide)):
+        log(f"[{tag}] peak memory {r['peak_gib']:.2f} GiB, median step "
+            f"{r['step_ms_median']:.1f} ms, {r['tokens_per_s']:.0f} "
+            f"tokens/s, {r['model_tflops_per_s']:.2f} model TFLOP/s, warm "
+            f"epoch {r['epoch_step_ms']:.2f} ms a step on {smi}")
     for row in moe_train:
         log(f"[moe-train] {' '.join(row['flags'])}: peak memory "
             f"{row['peak_gib']:.2f} GiB, median step "

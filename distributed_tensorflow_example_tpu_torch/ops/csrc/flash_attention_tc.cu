@@ -73,7 +73,8 @@
 //     finite before a fully masked row could appear;
 //   * rows and keys past S are zero-filled in shared memory, masked
 //     and never stored, so any S runs without padding; any D <= 128 is
-//     zero-padded to 128 in shared memory and every product runs its 8
+//     zero-padded to 128 in shared memory (D up to 256: the wide kernels
+//     below) and every product runs its 8
 //     steps of 16 over it (a loop bound known to the compiler; a bound
 //     tested at each step made ptxas serialize the products): D a
 //     multiple of 8 (and 16-byte aligned tensors) takes the asynchronous
@@ -102,10 +103,42 @@
 //   * masking as above, on the transposed tile: keys past their q row
 //     (causal), and q rows or keys past S, give p = 0 and ds = 0; only
 //     tiles that cross the diagonal or S test anything.
+// Head dims 129-256 (the *_wide_tc kernels; JAX _pick_tiles takes D >
+// 128 with square tiles): tiles are zero-padded to 256 columns, and the
+// narrow design does not fit at that width, so these are simple kernels
+// that are right first:
+//   * forward: a 64-key tile is 32 KB, so the four-stage ring would take
+//     256 KB of the 227 KB a CTA can have, and q2 in registers (64 a
+//     thread) beside the 128 f32 accumulators of acc (64 rows x 256) and
+//     s passes the 255 registers a thread may use.  So Q (q2) stays in
+//     shared memory (64 KB for 128 rows, read by s = q2 . k^T as a
+//     descriptor), K and V stream through a two-stage ring one tile
+//     ahead (128 KB), and p . v is wgmma m64n256k16; 192 KB in all;
+//   * dq: Q and dO for 128 rows (128 KB) and the ring (128 KB) pass the
+//     budget, so a CTA is one warpgroup on a 64-row q tile (64 KB
+//     resident + 128 KB of ring), its 128 f32 accumulators of dq in
+//     registers, ds . k an m64n256k16;
+//   * dk/dv: dk and dv of 64 keys x 256 columns would be 256 f32
+//     registers a thread.  Of the two ways out (split the output's
+//     columns between the warpgroups, or run dv and dk in two passes
+//     over the q stream), the split is taken: a CTA owns 64 keys, both
+//     warpgroups compute the same s^T and dp^T over the whole head dim,
+//     and warpgroup w accumulates dk and dv for columns [128w, 128w +
+//     128) (64 + 64 registers, the narrow kernel's count), reading dO
+//     and q2 from that column offset.  It costs s^T and dp^T twice (12 D
+//     flops a (q, key) pair for 8 D) where two passes would cost 10 D
+//     and read the q stream twice; K and V stay resident (64 KB) beside a
+//     two-stage (Q, dO, statistics) ring (130 KB);
+//   * no product runs under another tile's elementwise work: each tile's
+//     products are waited for before its softmax (or ds) and before the
+//     next tile, so the tensor cores idle during the exp2 and the ring's
+//     barriers.  Masking, rounding points and guards are the narrow
+//     kernels'.
 // Registers and spills of each instantiation (-Xptxas -v) are printed
 // by chip_smoke.py and kept in PERF.md.  TMA loads from producer warps,
 // in place of every thread's cp.async and a CTA barrier per key tile,
-// are the next step (ROADMAP.md).
+// and for the wide kernels the overlap the narrow ones have, are the
+// next step (ROADMAP.md).
 #include "common.cuh"
 #include "tc.cuh"
 
@@ -149,19 +182,24 @@ __device__ __forceinline__ float div_rn(float x, float l, float rl) {
   return fmaf(fmaf(-q, l, x), rl, q);
 }
 
-// descriptors of the core-matrix tiles (tc.cuh): step ks of the head dim
-// of a [rows][d] tile read k-major (rows are the product's M or N), and
-// keys 16kk.. of a [keys][d] tile read MN-major (keys reduced)
+// descriptors of the core-matrix tiles (tc.cuh) of kCols columns: step
+// ks of the head dim of a [rows][d] tile read k-major (rows are the
+// product's M or N), and keys 16kk.. of a [keys][d] tile read MN-major
+// (keys reduced)
+template <int kCols = tc::kTileCols>
 __device__ __forceinline__ uint64_t desc_k(const bf16* tile, int ks) {
-  return tc::gmma_desc(tile + tc::il_off(0, 2 * ks), 128, tc::kIlGroup);
+  return tc::gmma_desc(tile + tc::il_off<kCols>(0, 2 * ks), 128,
+                       tc::il_group(kCols));
 }
 
+template <int kCols = tc::kTileCols>
 __device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int kk) {
-  return tc::gmma_desc(tile + tc::il_off(16 * kk, 0), tc::kIlGroup, 128);
+  return tc::gmma_desc(tile + tc::il_off<kCols>(16 * kk, 0),
+                       tc::il_group(kCols), 128);
 }
 
-// the geometry one CTA works on: q tile qt of head (b, h)
-template <bool kCausal>
+// the geometry one CTA works on: q tile qt (of kRowsQ rows) of head (b, h)
+template <bool kCausal, int kRowsQ = kBq>
 struct Geom {
   int qt, q0, row0, wg0, lane, last, last_wg, b, h;
   size_t ld, head;
@@ -170,13 +208,13 @@ struct Geom {
     qt = gridDim.x - 1 - blockIdx.x;   // heaviest causal q tiles first
     b = blockIdx.y / H;
     h = blockIdx.y % H;
-    q0 = qt * kBq;
+    q0 = qt * kRowsQ;
     row0 = (threadIdx.x >> 5) * 16;    // the warp's rows
     wg0 = (threadIdx.x >> 7) * 64;     // the warpgroup's rows
     lane = threadIdx.x & 31;
     // causal: up to the key tile holding the q tile's (the warpgroup's)
     // last row
-    last = (kCausal ? min(q0 + kBq, S) - 1 : S - 1) / kTile;
+    last = (kCausal ? min(q0 + kRowsQ, S) - 1 : S - 1) / kTile;
     last_wg = kCausal ? min(last, (q0 + wg0 + 63) / kTile) : last;
     ld = (size_t)H * D;                // between rows of one head
     head = (size_t)b * S * ld + (size_t)h * D;
@@ -184,30 +222,36 @@ struct Geom {
 };
 
 // The ring of (K, V) stages a CTA streams key tiles through: tile kt in
-// stage kt % kStages.  advance(kt) opens key tile kt: tile kt + 1 has
-// landed and is visible to every thread and to wgmma, and tile kt + 2's
-// copies go into the stage of tile kt - 2, whose products the barrier
-// has seen finish.  Every thread calls it once for each key tile up to
-// the CTA's last, whether its warpgroup still works or not.
-template <bool kCausal>
+// stage kt % kNStages, tiles of kCols columns filled by kRingThreads
+// threads.  The narrow kernels take four stages, two tiles ahead:
+// advance(kt) opens key tile kt: tile kt + 1 has landed and is visible
+// to every thread and to wgmma, and tile kt + 2's copies go into the
+// stage of tile kt - 2, whose products the barrier has seen finish.  The
+// wide kernels take two, one tile ahead: open(kt) makes key tile kt
+// visible, then sends key tile kt + 1's copies into the other stage,
+// whose products (key tile kt - 1's) every warpgroup retired before the
+// barrier.  Every thread calls either once for each key tile up to the
+// CTA's last, whether its warpgroup still works or not.
+template <class G, int kCols = tc::kTileCols, int kNStages = kStages,
+          int kRingThreads = kThreads>
 struct KvRing {
+  static constexpr int kElems = kTile * kCols;   // one K or V tile
   bf16* base;
   const bf16* k;
   const bf16* v;
-  const Geom<kCausal>& g;
+  const G& g;
   int S, D;
   bool vec;
 
   __device__ __forceinline__ bf16* stage(int kt) const {
-    return base + (kt % kStages) * 2 * kTileElems;
+    return base + (kt % kNStages) * 2 * kElems;
   }
   __device__ __forceinline__ void load(int kt) const {
     const int k0 = kt * kTile;
-    tc::load_tile<kTile, kThreads>(stage(kt), k + g.head + k0 * g.ld, g.ld,
-                                   S - k0, D, vec);
-    tc::load_tile<kTile, kThreads>(stage(kt) + kTileElems,
-                                   v + g.head + k0 * g.ld, g.ld, S - k0, D,
-                                   vec);
+    tc::load_tile<kTile, kRingThreads, false, kCols>(
+        stage(kt), k + g.head + k0 * g.ld, g.ld, S - k0, D, vec);
+    tc::load_tile<kTile, kRingThreads, false, kCols>(
+        stage(kt) + kElems, v + g.head + k0 * g.ld, g.ld, S - k0, D, vec);
   }
   // tiles 0 and 1 in flight, in two copy groups
   __device__ __forceinline__ void start() const {
@@ -223,15 +267,22 @@ struct KvRing {
     if (kt + 2 <= g.last) load(kt + 2);
     tc::cp_async_commit();
   }
+  __device__ __forceinline__ void open(int kt) const {
+    tc::cp_async_wait<0>();
+    tc::fence_proxy_async();
+    __syncthreads();
+    if (kt + 1 <= g.last) load(kt + 1);
+    tc::cp_async_commit();
+  }
 };
 
 // causal masking of one warp's 16 x 64 scores (accumulator layout) at
 // key tile kt: keys past S, or past the row under causal, to -1e30; for
 // dq (kRows) also rows past S.  Only tiles that cross the diagonal or S
 // (or a ragged last q tile) test anything.
-template <bool kCausal, bool kRows>
-__device__ __forceinline__ void mask(float s[32], const Geom<kCausal>& g,
-                                     int kt, int S, int qrow) {
+template <bool kCausal, bool kRows, class G>
+__device__ __forceinline__ void mask(float s[32], const G& g, int kt, int S,
+                                     int qrow) {
   const int k0 = kt * kTile;
   if (!((kCausal && k0 + kTile - 1 > g.q0 + g.row0) || k0 + kTile > S ||
         (kRows && g.q0 + g.row0 + 16 > S)))
@@ -257,8 +308,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                         int S, int H, int D, float qscale, int vec) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const Geom<kCausal> g(S, H, D);
-  const KvRing<kCausal> ring{reinterpret_cast<bf16*>(smem_raw), k, v, g, S,
-                             D, vec != 0};
+  const KvRing<Geom<kCausal>> ring{reinterpret_cast<bf16*>(smem_raw), k, v,
+                                   g, S, D, vec != 0};
   const int lane = g.lane;
 
   ring.start();
@@ -405,8 +456,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                        float qscale, float scale, int vec) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const Geom<kCausal> g(S, H, D);
-  const KvRing<kCausal> ring{reinterpret_cast<bf16*>(smem_raw), k, v, g, S,
-                             D, vec != 0};
+  const KvRing<Geom<kCausal>> ring{reinterpret_cast<bf16*>(smem_raw), k, v,
+                                   g, S, D, vec != 0};
   bf16* Qs = ring.base + kStages * 2 * kTileElems;   // resident
   bf16* dOs = Qs + kBq * tc::kTileCols;
   const int lane = g.lane;
@@ -520,20 +571,24 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ring of (Q, dO, statistics) stages
 // ---------------------------------------------------------------------------
 constexpr int kStatRows = 4 * kTile;   // m, l, dlt and 1/l of a q tile
-constexpr size_t kDkvStage = 2 * kTileElems * sizeof(bf16)
-                             + kStatRows * sizeof(float);
-constexpr size_t kDkvSmem = 2 * kBq * tc::kTileCols * sizeof(bf16)
-                            + kStages * kDkvStage;
-static_assert(kDkvStage % 128 == 0, "stages keep the tiles' alignment");
 
-// One stage: the q tile's Q (q2 after prepare), dO and its rows' f32
-// statistics: m (m * log2(e) after prepare), l (max(l, 1e-30)), dlt and
-// 1 / max(l, 1e-30), each kTile floats.  Tile i of the CTA (q tile
-// first + i) sits in stage i % kStages.  advance(i) opens tile i: tile i
-// (prepared) is visible to every thread and to wgmma, tile i + 1 has
-// landed and is prepared, and tile i + 2's copies go into the stage of
-// tile i - 2, whose products every warpgroup has retired.
+// One stage: the q tile's Q (q2 after prepare), dO (kCols columns each)
+// and its rows' f32 statistics: m (m * log2(e) after prepare), l (max(l,
+// 1e-30)), dlt and 1 / max(l, 1e-30), each kTile floats.  Tile i of the
+// CTA (q tile first + i) sits in stage i % kNStages.  The narrow kernel
+// takes four stages: advance(i) opens tile i: tile i (prepared) is
+// visible to every thread and to wgmma, tile i + 1 has landed and is
+// prepared, and tile i + 2's copies go into the stage of tile i - 2,
+// whose products every warpgroup has retired.  The wide one takes two:
+// open(i): tile i has landed and is prepared and visible, and tile i +
+// 1's copies are in flight into the other stage, whose products both
+// warpgroups retired.
+template <int kCols = tc::kTileCols, int kNStages = kStages>
 struct QRing {
+  static constexpr int kElems = kTile * kCols;   // one Q or dO tile
+  static constexpr size_t kStageBytes =
+      2 * kElems * sizeof(bf16) + kStatRows * sizeof(float);
+  static_assert(kStageBytes % 128 == 0, "stages keep the tiles' alignment");
   unsigned char* base;
   const bf16* q;
   const bf16* dout;
@@ -546,20 +601,20 @@ struct QRing {
   bool vec;
 
   __device__ __forceinline__ bf16* qs(int i) const {
-    return reinterpret_cast<bf16*>(base + (i % kStages) * kDkvStage);
+    return reinterpret_cast<bf16*>(base + (i % kNStages) * kStageBytes);
   }
   __device__ __forceinline__ bf16* dos(int i) const {
-    return qs(i) + kTileElems;
+    return qs(i) + kElems;
   }
   __device__ __forceinline__ float* stats(int i) const {
-    return reinterpret_cast<float*>(qs(i) + 2 * kTileElems);
+    return reinterpret_cast<float*>(qs(i) + 2 * kElems);
   }
   __device__ __forceinline__ void load(int i) const {
     const int q0 = (first + i) * kTile;
-    tc::load_tile<kTile, kThreads>(qs(i), q + head + q0 * ld, ld, S - q0, D,
-                                   vec);
-    tc::load_tile<kTile, kThreads>(dos(i), dout + head + q0 * ld, ld,
-                                   S - q0, D, vec);
+    tc::load_tile<kTile, kThreads, false, kCols>(qs(i), q + head + q0 * ld,
+                                                 ld, S - q0, D, vec);
+    tc::load_tile<kTile, kThreads, false, kCols>(
+        dos(i), dout + head + q0 * ld, ld, S - q0, D, vec);
     if (threadIdx.x < 3 * kTile) {
       const int which = threadIdx.x / kTile;
       const int r = threadIdx.x % kTile;
@@ -575,7 +630,7 @@ struct QRing {
   __device__ __forceinline__ void prepare(int i) const {
     uint4* t = reinterpret_cast<uint4*>(qs(i));
 #pragma unroll
-    for (int j = 0; j < kTileElems / 8 / kThreads; ++j) {
+    for (int j = 0; j < kElems / 8 / kThreads; ++j) {
       uint4 raw = t[threadIdx.x + j * kThreads];
       uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
 #pragma unroll
@@ -614,7 +669,65 @@ struct QRing {
     if (i + 2 < n) load(i + 2);
     tc::cp_async_commit();
   }
+  __device__ __forceinline__ void open(int i) const {
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    if (i + 1 < n) load(i + 1);
+    tc::cp_async_commit();
+    prepare(i);
+    tc::fence_proxy_async();
+    __syncthreads();
+  }
 };
+constexpr size_t kDkvSmem = 2 * kBq * tc::kTileCols * sizeof(bf16)
+                            + kStages * QRing<>::kStageBytes;
+
+// The elementwise pass of dk/dv on one transposed tile (the thread's
+// keys krow, krow + 8 x the tile's q rows from q0) in the accumulator
+// layout: masked entries (key past the q row under causal, or either
+// past S) get s = -1e30, so p = 0 and ds = 0, and only tiles that cross
+// the diagonal or S test anything; p = exp2(s - m log2(e)) / max(l,
+// 1e-30), unrounded, and ds = p (dp - dlt), both per q column from the
+// stage's prepared statistics ``st``, rounded to bf16 as the A operands
+// pa and da of the next products (the JAX round_T(p), round_T(ds)
+// points).
+template <bool kCausal>
+__device__ __forceinline__ void dkv_p_ds(float s[32], float dp[32],
+                                         const float* st, int krow, int q0,
+                                         int S, int lane,
+                                         uint32_t pa[kTile / 16][4],
+                                         uint32_t da[kTile / 16][4]) {
+  if ((kCausal && krow - (lane >> 2) + 15 > q0) || q0 + kTile > S ||
+      krow - (lane >> 2) + 16 > S) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int kp = krow + 8 * ((e >> 1) & 1);
+      const int qp = q0 + (e >> 2) * 8 + 2 * (lane & 3) + (e & 1);
+      if (qp >= S || kp >= S || (kCausal && kp > qp)) s[e] = kNegInf;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = j * 8 + 2 * (lane & 3);
+    const float2 ml = *reinterpret_cast<const float2*>(st + c);
+    const float2 den = *reinterpret_cast<const float2*>(st + kTile + c);
+    const float2 dl = *reinterpret_cast<const float2*>(st + 2 * kTile + c);
+    const float2 rl = *reinterpret_cast<const float2*>(st + 3 * kTile + c);
+#pragma unroll
+    for (int e = 4 * j; e < 4 * j + 4; ++e) {
+      const bool odd = e & 1;
+      const float p = div_rn(fexp2(s[e] - (odd ? ml.y : ml.x)),
+                             odd ? den.y : den.x, odd ? rl.y : rl.x);
+      dp[e] = p * (dp[e] - (odd ? dl.y : dl.x));
+      s[e] = p;
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+    tc::c_to_a(pa[kk], &s[8 * kk], &s[8 * kk + 4]);
+    tc::c_to_a(da[kk], &dp[8 * kk], &dp[8 * kk + 4]);
+  }
+}
 
 template <bool kCausal>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -640,7 +753,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const size_t head = (size_t)b * S * ld + (size_t)h * D;
   // causal: from the q tile holding the key tile's first key
   const int first = kCausal ? k0 / kTile : 0;
-  const QRing ring{smem_raw + 2 * kBq * tc::kTileCols * sizeof(bf16),
+  const QRing<> ring{smem_raw + 2 * kBq * tc::kTileCols * sizeof(bf16),
                    q, dout, m_in, l_in, dlt_in, first,
                    (S + kTile - 1) / kTile - first, S, H, D, b, h, ld, head,
                    qscale, vec != 0};
@@ -683,43 +796,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     tc::fence_regs(s);
     tc::fence_regs(dp);
 
-    // masked (key past the q row under causal, or either past S): s =
-    // -1e30, so p = 0 and ds = 0.  Only tiles that cross the diagonal or
-    // S test anything.
-    if ((kCausal && krow - (lane >> 2) + 15 > q0) || q0 + kTile > S ||
-        krow - (lane >> 2) + 16 > S) {
-#pragma unroll
-      for (int e = 0; e < 32; ++e) {
-        const int kp = krow + 8 * ((e >> 1) & 1);
-        const int qp = q0 + (e >> 2) * 8 + 2 * (lane & 3) + (e & 1);
-        if (qp >= S || kp >= S || (kCausal && kp > qp)) s[e] = kNegInf;
-      }
-    }
-    // p = exp2(s - m log2(e)) / max(l, 1e-30), unrounded; ds = p (dp -
-    // dlt); both per q column, rounded to bf16 as the A operands of the
-    // next products (the JAX round_T(p), round_T(ds) points)
     uint32_t pa[kTile / 16][4], da[kTile / 16][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = j * 8 + 2 * (lane & 3);
-      const float2 ml = *reinterpret_cast<const float2*>(st + c);
-      const float2 den = *reinterpret_cast<const float2*>(st + kTile + c);
-      const float2 dl = *reinterpret_cast<const float2*>(st + 2 * kTile + c);
-      const float2 rl = *reinterpret_cast<const float2*>(st + 3 * kTile + c);
-#pragma unroll
-      for (int e = 4 * j; e < 4 * j + 4; ++e) {
-        const bool odd = e & 1;
-        const float p = div_rn(fexp2(s[e] - (odd ? ml.y : ml.x)),
-                               odd ? den.y : den.x, odd ? rl.y : rl.x);
-        dp[e] = p * (dp[e] - (odd ? dl.y : dl.x));
-        s[e] = p;
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      tc::c_to_a(pa[kk], &s[8 * kk], &s[8 * kk + 4]);
-      tc::c_to_a(da[kk], &dp[8 * kk], &dp[8 * kk + 4]);
-    }
+    dkv_p_ds<kCausal>(s, dp, st, krow, q0, S, lane, pa, da);
     // dv += round(p)^T . do, dk += round(ds)^T . q2 (q rows reduced: do
     // and q2 read MN-major), issued; retired under the next tile's s^T
     tc::wgmma_fence();
@@ -752,6 +830,369 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// head dims 129-256: tiles zero-padded to 256 columns (kWide) in shared
+// memory, as narrower heads are padded to 128 above.  The header note
+// says what the design gives up against the narrow kernels and why.
+// ---------------------------------------------------------------------------
+constexpr int kWide = 256;                       // columns of a wide tile
+constexpr int kWideTileElems = kTile * kWide;    // 32 KB
+constexpr int kWideStages = 2;                   // of the wide rings
+constexpr int kDqWideRows = 64;                  // rows of a wide dq q tile
+constexpr int kDqWideThreads = 128;              // one warpgroup
+constexpr size_t kWideRingSmem =
+    kWideStages * 2 * kWideTileElems * sizeof(bf16);              // 128 KB
+constexpr size_t kFwdWideSmem =
+    kWideRingSmem + kBq * kWide * sizeof(bf16);                   // 192 KB
+constexpr size_t kDqWideSmem =
+    kWideRingSmem + 2 * kDqWideRows * kWide * sizeof(bf16);       // 192 KB
+
+// ---------------------------------------------------------------------------
+// wide forward: grid (q tiles of kBq, B*H)
+// ---------------------------------------------------------------------------
+template <bool kCausal, bool kStats>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_wide_tc_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             bf16* __restrict__ o,
+                             float* __restrict__ acc_out,
+                             float* __restrict__ m_out,
+                             float* __restrict__ l_out, int S, int H, int D,
+                             float qscale, int vec) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  using G = Geom<kCausal>;
+  const G g(S, H, D);
+  const KvRing<G, kWide, kWideStages> ring{reinterpret_cast<bf16*>(smem_raw),
+                                          k, v, g, S, D, vec != 0};
+  bf16* Qs = ring.base + kWideStages * 2 * kWideTileElems;   // resident
+  const int lane = g.lane;
+
+  ring.load(0);
+  tc::cp_async_commit();
+  // q2 through registers (complete on return), visible after open(0)
+  tc::load_tile<kBq, kThreads, true, kWide>(Qs, q + g.head + g.q0 * g.ld,
+                                            g.ld, S - g.q0, D, vec, qscale);
+  const bf16* Qw = Qs + tc::il_off<kWide>(g.wg0, 0);   // the warpgroup's
+
+  const int qrow = g.q0 + g.row0 + (lane >> 2);
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  float acc[2 * kWide / 4], s[32];
+#pragma unroll
+  for (int i = 0; i < 2 * kWide / 4; ++i) acc[i] = 0.f;
+  tc::fence_regs(acc);
+
+  for (int kt = 0; kt <= g.last; ++kt) {
+    ring.open(kt);
+    if (kt > g.last_wg) continue;   // past this warpgroup's causal frontier
+    // s = q2 . k^T over the 16 steps of the padded head dim
+    tc::fence_regs(s);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kWide / 16; ++ks)
+      tc::wgmma_m64n64k16_ss<0>(s, desc_k<kWide>(Qw, ks),
+                                desc_k<kWide>(ring.stage(kt), ks), ks);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_regs(s);
+    mask<kCausal, false>(s, g, kt, S, qrow);
+    // the row max, acc rescaled (no product in flight), p and l
+    float m_new[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        mx = fmaxf(mx, fmaxf(s[4 * n + 2 * r], s[4 * n + 2 * r + 1]));
+      m_new[r] = fmaxf(m[r], tc::quad_max(mx));
+      alpha[r] = fexp2(m[r] - m_new[r]);
+      m[r] = m_new[r];
+    }
+#pragma unroll
+    for (int n = 0; n < kWide / 8; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        acc[4 * n + 2 * r] *= alpha[r];
+        acc[4 * n + 2 * r + 1] *= alpha[r];
+      }
+    tc::fence_regs(acc);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float ps = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          s[4 * n + e] = fexp2(s[4 * n + e] - m_new[r]);
+          ps += s[4 * n + e];
+        }
+      l[r] = l[r] * alpha[r] + tc::quad_sum(ps);
+    }
+    // acc += round(p) . v: m64n256, V read MN-major
+    uint32_t pa[kTile / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      tc::c_to_a(pa[kk], &s[8 * kk], &s[8 * kk + 4]);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      tc::wgmma_m64n256k16_rs<1>(
+          acc, pa[kk], desc_mn<kWide>(ring.stage(kt) + kWideTileElems, kk),
+          1);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_regs(acc);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qrow + 8 * r;
+    if (row >= S) continue;
+    const size_t base = ((size_t)g.b * S + row) * H + g.h;
+    const float den = fmaxf(l[r], kTiny);
+    if (kStats && (lane & 3) == 0) {
+      m_out[base] = m[r] * kLn2;
+      l_out[base] = l[r];
+    }
+#pragma unroll
+    for (int n = 0; n < kWide / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n * 8 + 2 * (lane & 3) + e;
+        if (col >= D) continue;
+        if (kStats)
+          acc_out[base * D + col] = acc[4 * n + 2 * r + e];
+        else
+          o[base * D + col] =
+              __float2bfloat16_rn(acc[4 * n + 2 * r + e] / den);
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wide dq: grid (q tiles of kDqWideRows, B*H), one warpgroup a CTA
+// ---------------------------------------------------------------------------
+template <bool kCausal>
+__global__ void __launch_bounds__(kDqWideThreads, 1)
+    flash_dq_wide_tc_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const bf16* __restrict__ dout,
+                            const float* __restrict__ m_in,
+                            const float* __restrict__ l_in,
+                            const float* __restrict__ dlt_in,
+                            float* __restrict__ dq, int S, int H, int D,
+                            float qscale, float scale, int vec) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  using G = Geom<kCausal, kDqWideRows>;
+  const G g(S, H, D);
+  const KvRing<G, kWide, kWideStages, kDqWideThreads> ring{
+      reinterpret_cast<bf16*>(smem_raw), k, v, g, S, D, vec != 0};
+  bf16* Qs = ring.base + kWideStages * 2 * kWideTileElems;   // resident
+  bf16* dOs = Qs + kDqWideRows * kWide;
+  const int lane = g.lane;
+
+  // dO rides in the first copy group with key tile 0
+  tc::load_tile<kDqWideRows, kDqWideThreads, false, kWide>(
+      dOs, dout + g.head + g.q0 * g.ld, g.ld, S - g.q0, D, vec != 0);
+  ring.load(0);
+  tc::cp_async_commit();
+  tc::load_tile<kDqWideRows, kDqWideThreads, true, kWide>(
+      Qs, q + g.head + g.q0 * g.ld, g.ld, S - g.q0, D, vec != 0, qscale);
+
+  const int qrow = g.q0 + g.row0 + (lane >> 2);
+  float mlog2[2], lden[2], rl[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qrow + 8 * r;
+    const size_t base = ((size_t)g.b * S + row) * H + g.h;
+    mlog2[r] = row < S ? m_in[base] * kLog2e : 0.f;
+    lden[r] = row < S ? fmaxf(l_in[base], kTiny) : 1.f;
+    rl[r] = 1.f / lden[r];
+    dl[r] = row < S ? dlt_in[base] : 0.f;
+  }
+  float acc[2 * kWide / 4], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 2 * kWide / 4; ++i) acc[i] = 0.f;
+  tc::fence_regs(acc);
+
+  for (int kt = 0; kt <= g.last; ++kt) {
+    ring.open(kt);
+    // s = q2 . k^T and dp = do . v^T
+    tc::fence_regs(s);
+    tc::fence_regs(dp);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kWide / 16; ++ks)
+      tc::wgmma_m64n64k16_ss<0>(s, desc_k<kWide>(Qs, ks),
+                                desc_k<kWide>(ring.stage(kt), ks), ks);
+#pragma unroll
+    for (int ks = 0; ks < kWide / 16; ++ks)
+      tc::wgmma_m64n64k16_ss<0>(
+          dp, desc_k<kWide>(dOs, ks),
+          desc_k<kWide>(ring.stage(kt) + kWideTileElems, ks), ks);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_regs(s);
+    tc::fence_regs(dp);
+    // ds = p * (dp - dlt), rounded, and acc += ds . k (K read MN-major)
+    mask<kCausal, true>(s, g, kt, S, qrow);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const float p = div_rn(fexp2(s[i] - mlog2[r]), lden[r], rl[r]);
+      s[i] = p * (dp[i] - dl[r]);   // ds
+    }
+    uint32_t da[kTile / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      tc::c_to_a(da[kk], &s[8 * kk], &s[8 * kk + 4]);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      tc::wgmma_m64n256k16_rs<1>(acc, da[kk],
+                                 desc_mn<kWide>(ring.stage(kt), kk), 1);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_regs(acc);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qrow + 8 * r;
+    if (row >= S) continue;
+    const size_t base = ((size_t)g.b * S + row) * H + g.h;
+#pragma unroll
+    for (int n = 0; n < kWide / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n * 8 + 2 * (lane & 3) + e;
+        if (col < D) dq[base * D + col] = acc[4 * n + 2 * r + e] * scale;
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wide dk/dv: grid (key tiles of 64, B*H); K and V of the CTA's 64 keys
+// stay resident, and warpgroup w owns output columns [128w, 128w + 128)
+// of dk and dv for all 64 keys: both recompute s^T and dp^T over the
+// whole head dim.  The 64-row q tiles stream through a two-stage ring of
+// (Q, dO, statistics) stages, one tile ahead.
+// ---------------------------------------------------------------------------
+constexpr int kWideHalf = kWide / 2;    // output columns a warpgroup
+using WideQRing = QRing<kWide, kWideStages>;
+constexpr size_t kDkvWideSmem = 2 * kWideTileElems * sizeof(bf16)
+                                + kWideStages * WideQRing::kStageBytes;
+
+template <bool kCausal>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_dkv_wide_tc_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             const bf16* __restrict__ dout,
+                             const float* __restrict__ m_in,
+                             const float* __restrict__ l_in,
+                             const float* __restrict__ dlt_in,
+                             float* __restrict__ dk, float* __restrict__ dv,
+                             int S, int H, int D, float qscale,
+                             float inv_log2e, int vec) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // resident
+  bf16* Vs = Ks + kWideTileElems;
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const int k0 = blockIdx.x * kTile;   // key tile 0 (the most q tiles) first
+  const int c0 = (threadIdx.x >> 7) * kWideHalf;   // the warpgroup's columns
+  const int row0 = ((threadIdx.x >> 5) & 3) * 16;  // the warp's keys
+  const int lane = threadIdx.x & 31;
+  const size_t ld = (size_t)H * D;
+  const size_t head = (size_t)b * S * ld + (size_t)h * D;
+  // causal: from the q tile holding the key tile's first key
+  const int first = kCausal ? k0 / kTile : 0;
+  const WideQRing ring{smem_raw + 2 * kWideTileElems * sizeof(bf16), q, dout,
+                       m_in, l_in, dlt_in, first,
+                       (S + kTile - 1) / kTile - first, S, H, D, b, h, ld,
+                       head, qscale, vec != 0};
+
+  // K and V ride in the first copy group with q tile 0
+  tc::load_tile<kTile, kThreads, false, kWide>(Ks, k + head + k0 * ld, ld,
+                                               S - k0, D, vec != 0);
+  tc::load_tile<kTile, kThreads, false, kWide>(Vs, v + head + k0 * ld, ld,
+                                               S - k0, D, vec != 0);
+  ring.load(0);
+  tc::cp_async_commit();
+
+  // the thread's keys: rows g and g + 8 of the warp's 16 (r = 0, 1)
+  const int krow = k0 + row0 + (lane >> 2);
+  // the warpgroup's output columns of a q tile's dO and Q, read MN-major
+  const int cofs = tc::il_off<kWide>(0, c0 / 8);
+  float dka[2 * kWideHalf / 4], dva[2 * kWideHalf / 4], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 2 * kWideHalf / 4; ++i) dka[i] = dva[i] = 0.f;
+  tc::fence_regs(dka);
+  tc::fence_regs(dva);
+
+  for (int i = 0; i < ring.n; ++i) {
+    ring.open(i);
+    const bf16* Qt = ring.qs(i);
+    const bf16* dOt = ring.dos(i);
+    const float* st = ring.stats(i);
+    const int q0 = (first + i) * kTile;
+    // s^T = k . q2^T and dp^T = v . do^T: 64 keys x 64 q rows, over the
+    // whole head dim
+    tc::fence_regs(s);
+    tc::fence_regs(dp);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kWide / 16; ++ks)
+      tc::wgmma_m64n64k16_ss<0>(s, desc_k<kWide>(Ks, ks),
+                                desc_k<kWide>(Qt, ks), ks);
+#pragma unroll
+    for (int ks = 0; ks < kWide / 16; ++ks)
+      tc::wgmma_m64n64k16_ss<0>(dp, desc_k<kWide>(Vs, ks),
+                                desc_k<kWide>(dOt, ks), ks);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_regs(s);
+    tc::fence_regs(dp);
+
+    uint32_t pa[kTile / 16][4], da[kTile / 16][4];
+    dkv_p_ds<kCausal>(s, dp, st, krow, q0, S, lane, pa, da);
+    // dv[:, c0..] += round(p)^T . do[:, c0..], dk[:, c0..] += round(ds)^T
+    // . q2[:, c0..] (q rows reduced: do and q2 read MN-major)
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      tc::wgmma_m64n128k16_rs<1>(dva, pa[kk],
+                                 desc_mn<kWide>(dOt + cofs, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      tc::wgmma_m64n128k16_rs<1>(dka, da[kk],
+                                 desc_mn<kWide>(Qt + cofs, kk), 1);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_regs(dka);
+    tc::fence_regs(dva);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = krow + 8 * r;
+    if (row >= S) continue;
+    const size_t base = ((size_t)b * S + row) * H + h;
+#pragma unroll
+    for (int n = 0; n < kWideHalf / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = c0 + n * 8 + 2 * (lane & 3) + e;
+        if (col >= D) continue;
+        dk[base * D + col] = dka[4 * n + 2 * r + e] * inv_log2e;
+        dv[base * D + col] = dva[4 * n + 2 * r + e];
+      }
+  }
+}
+
 // 16-byte copies need D a multiple of 8 and every tensor 16-byte aligned
 bool vec_ok(int D, std::initializer_list<const void*> ptrs) {
   if (D % 8 != 0) return false;
@@ -760,16 +1201,20 @@ bool vec_ok(int D, std::initializer_list<const void*> ptrs) {
   return true;
 }
 
-template <bool kCausal, bool kStats>
+// the launchers: the narrow kernels for D <= 128, the wide ones (kWideD)
+// for 128 < D <= 256
+template <bool kCausal, bool kStats, bool kWideD>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 void* acc, void* m, void* l, int B, int S, int H, int D,
                 float qscale, cudaStream_t st) {
   static bool ready = false;
-  auto kernel = flash_fwd_tc_kernel<kCausal, kStats>;
-  cudaError_t err = allow_smem(kernel, kFwdSmem, &ready);
+  auto kernel = kWideD ? flash_fwd_wide_tc_kernel<kCausal, kStats>
+                       : flash_fwd_tc_kernel<kCausal, kStats>;
+  const size_t smem = kWideD ? kFwdWideSmem : kFwdSmem;
+  cudaError_t err = allow_smem(kernel, smem, &ready);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBq - 1) / kBq, B * H);
-  kernel<<<grid, kThreads, kFwdSmem, st>>>(
+  kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
       static_cast<float*>(acc), static_cast<float*>(m),
@@ -777,17 +1222,20 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <bool kCausal>
+template <bool kCausal, bool kWideD>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* m, const void* l,
                    const void* dlt, void* dq, int B, int S, int H, int D,
                    float qscale, float scale, cudaStream_t st) {
   static bool ready = false;
-  auto kernel = flash_dq_tc_kernel<kCausal>;
-  cudaError_t err = allow_smem(kernel, kDqSmem, &ready);
+  auto kernel = kWideD ? flash_dq_wide_tc_kernel<kCausal>
+                       : flash_dq_tc_kernel<kCausal>;
+  const size_t smem = kWideD ? kDqWideSmem : kDqSmem;
+  const int rows = kWideD ? kDqWideRows : kBq;
+  cudaError_t err = allow_smem(kernel, smem, &ready);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBq - 1) / kBq, B * H);
-  kernel<<<grid, kThreads, kDqSmem, st>>>(
+  const dim3 grid((S + rows - 1) / rows, B * H);
+  kernel<<<grid, kWideD ? kDqWideThreads : kThreads, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(m), static_cast<const float*>(l),
@@ -796,17 +1244,20 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <bool kCausal>
+template <bool kCausal, bool kWideD>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const void* m, const void* l,
                     const void* dlt, void* dk, void* dv, int B, int S, int H,
                     int D, float qscale, float inv_log2e, cudaStream_t st) {
   static bool ready = false;
-  auto kernel = flash_dkv_tc_kernel<kCausal>;
-  cudaError_t err = allow_smem(kernel, kDkvSmem, &ready);
+  auto kernel = kWideD ? flash_dkv_wide_tc_kernel<kCausal>
+                       : flash_dkv_tc_kernel<kCausal>;
+  const size_t smem = kWideD ? kDkvWideSmem : kDkvSmem;
+  const int keys = kWideD ? kTile : kBq;
+  cudaError_t err = allow_smem(kernel, smem, &ready);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBq - 1) / kBq, B * H);
-  kernel<<<grid, kThreads, kDkvSmem, st>>>(
+  const dim3 grid((S + keys - 1) / keys, B * H);
+  kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(m), static_cast<const float*>(l),
@@ -816,6 +1267,22 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <bool kWideD>
+cudaError_t fwd_route(const void* q, const void* k, const void* v, void* o,
+                      void* acc, void* m, void* l, int B, int S, int H,
+                      int D, bool causal, bool stats, float qscale,
+                      cudaStream_t st) {
+  if (causal)
+    return stats ? fwd<true, true, kWideD>(q, k, v, o, acc, m, l, B, S, H,
+                                           D, qscale, st)
+                 : fwd<true, false, kWideD>(q, k, v, o, acc, m, l, B, S, H,
+                                            D, qscale, st);
+  return stats ? fwd<false, true, kWideD>(q, k, v, o, acc, m, l, B, S, H, D,
+                                          qscale, st)
+               : fwd<false, false, kWideD>(q, k, v, o, acc, m, l, B, S, H,
+                                           D, qscale, st);
+}
+
 }  // namespace
 
 // the bf16 routes of dtx_flash_fwd, dtx_flash_bwd_dq and dtx_flash_bwd_dkv
@@ -823,15 +1290,11 @@ cudaError_t flash_fwd_bf16(const void* q, const void* k, const void* v,
                            void* o, void* acc, void* m, void* l, int B,
                            int S, int H, int D, bool causal, bool stats,
                            float qscale, cudaStream_t st) {
-  if (causal)
-    return stats ? fwd<true, true>(q, k, v, o, acc, m, l, B, S, H, D,
-                                   qscale, st)
-                 : fwd<true, false>(q, k, v, o, acc, m, l, B, S, H, D,
-                                    qscale, st);
-  return stats ? fwd<false, true>(q, k, v, o, acc, m, l, B, S, H, D, qscale,
-                                  st)
-               : fwd<false, false>(q, k, v, o, acc, m, l, B, S, H, D, qscale,
-                                   st);
+  return D > tc::kTileCols
+             ? fwd_route<true>(q, k, v, o, acc, m, l, B, S, H, D, causal,
+                               stats, qscale, st)
+             : fwd_route<false>(q, k, v, o, acc, m, l, B, S, H, D, causal,
+                                stats, qscale, st);
 }
 
 cudaError_t flash_dq_bf16(const void* q, const void* k, const void* v,
@@ -839,10 +1302,15 @@ cudaError_t flash_dq_bf16(const void* q, const void* k, const void* v,
                           const void* dlt, void* dq, int B, int S, int H,
                           int D, bool causal, float qscale, float scale,
                           cudaStream_t st) {
-  return causal ? bwd_dq<true>(q, k, v, dout, m, l, dlt, dq, B, S, H, D,
-                               qscale, scale, st)
-                : bwd_dq<false>(q, k, v, dout, m, l, dlt, dq, B, S, H, D,
-                                qscale, scale, st);
+  if (D > tc::kTileCols)
+    return causal ? bwd_dq<true, true>(q, k, v, dout, m, l, dlt, dq, B, S, H,
+                                       D, qscale, scale, st)
+                  : bwd_dq<false, true>(q, k, v, dout, m, l, dlt, dq, B, S,
+                                        H, D, qscale, scale, st);
+  return causal ? bwd_dq<true, false>(q, k, v, dout, m, l, dlt, dq, B, S, H,
+                                      D, qscale, scale, st)
+                : bwd_dq<false, false>(q, k, v, dout, m, l, dlt, dq, B, S, H,
+                                       D, qscale, scale, st);
 }
 
 cudaError_t flash_dkv_bf16(const void* q, const void* k, const void* v,
@@ -850,10 +1318,15 @@ cudaError_t flash_dkv_bf16(const void* q, const void* k, const void* v,
                            const void* dlt, void* dk, void* dv, int B, int S,
                            int H, int D, bool causal, float qscale,
                            float inv_log2e, cudaStream_t st) {
-  return causal ? bwd_dkv<true>(q, k, v, dout, m, l, dlt, dk, dv, B, S, H,
-                                D, qscale, inv_log2e, st)
-                : bwd_dkv<false>(q, k, v, dout, m, l, dlt, dk, dv, B, S, H,
-                                 D, qscale, inv_log2e, st);
+  if (D > tc::kTileCols)
+    return causal ? bwd_dkv<true, true>(q, k, v, dout, m, l, dlt, dk, dv, B,
+                                        S, H, D, qscale, inv_log2e, st)
+                  : bwd_dkv<false, true>(q, k, v, dout, m, l, dlt, dk, dv, B,
+                                         S, H, D, qscale, inv_log2e, st);
+  return causal ? bwd_dkv<true, false>(q, k, v, dout, m, l, dlt, dk, dv, B,
+                                       S, H, D, qscale, inv_log2e, st)
+                : bwd_dkv<false, false>(q, k, v, dout, m, l, dlt, dk, dv, B,
+                                        S, H, D, qscale, inv_log2e, st);
 }
 
 }  // namespace dtx

@@ -27,25 +27,30 @@
 namespace dtx {
 namespace tc {
 
-// the widest row of a tile (the widest head dim)
+// the widest row of a tile (the widest head dim of the narrow kernels;
+// the wide ones instantiate the helpers below at 256)
 constexpr int kTileCols = 128;
 
 // The tile layout: wgmma's no-swizzle ("interleave") core matrices of 8
 // rows x 16 bytes, stored as 128 contiguous bytes.  il_off gives the
-// element offset of (row, 8-element chunk) in a [rows][kTileCols] tile:
-// rows in groups of 8, kIlGroup bytes apart, and within a group the 16
-// chunks' core matrices 128 bytes apart.  A descriptor reads it with
+// element offset of (row, 8-element chunk) in a [rows][kCols] tile
+// (kCols = kTileCols unless named): rows in groups of 8, il_group(kCols)
+// bytes apart, and within a group the kCols / 8 chunks' core matrices
+// 128 bytes apart.  A descriptor reads it with
 //   k-major (the tile's rows are the product's M or N, its columns the
-//   reduction): LBO = 128 (the next 8 columns), SBO = kIlGroup (the
+//   reduction): LBO = 128 (the next 8 columns), SBO = il_group (the
 //   next 8 rows);
 //   MN-major (the rows are the reduction, read transposed): LBO =
-//   kIlGroup (the next 8 rows), SBO = 128 (the next 8 columns).
+//   il_group (the next 8 rows), SBO = 128 (the next 8 columns).
 // 8 lanes copying one chunk of 8 consecutive rows fill one core matrix,
 // and ldmatrix's 8 row addresses of a chunk hit distinct banks.
-constexpr uint32_t kIlGroup = kTileCols / 8 * 128;  // bytes per 8 rows
+__host__ __device__ constexpr uint32_t il_group(int cols) {
+  return cols / 8 * 128;   // bytes per 8 rows
+}
 
+template <int kCols = kTileCols>
 __device__ __forceinline__ int il_off(int row, int chunk) {
-  return (row >> 3) * (kIlGroup / 2) + chunk * 64 + (row & 7) * 8;
+  return (row >> 3) * (il_group(kCols) / 2) + chunk * 64 + (row & 7) * 8;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -136,21 +141,22 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Rows [0, kRows) of a [kRows][kTileCols] tile in the layout above from
-// ``src`` (row r at src + r * ld, D <= kTileCols columns).  Rows >=
+// Rows [0, kRows) of a [kRows][kCols] tile in the layout above from
+// ``src`` (row r at src + r * ld, D <= kCols columns).  Rows >=
 // ``rows`` and columns >= D are zero.  With ``vec`` (D a multiple of 8, ``src``
 // 16-byte aligned) 16-byte cp.async copies that the caller commits and
 // waits for, 8 neighbouring threads filling one core matrix; otherwise
 // guarded scalar loads and shared stores, complete on return.  With
 // kScale each value is multiplied by ``mul`` in f32 and rounded back to
 // bf16 (then always through registers, complete on return).
-template <int kRows, int kThreads, bool kScale = false>
+template <int kRows, int kThreads, bool kScale = false,
+          int kCols = kTileCols>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* __restrict__ dst,
                                           const __nv_bfloat16* __restrict__ src,
                                           size_t ld, int rows, int D,
                                           bool vec,
                                           float mul = 1.f) {
-  constexpr int kChunks = kTileCols / 8;  // 16-byte chunks of a row
+  constexpr int kChunks = kCols / 8;  // 16-byte chunks of a row
   if (vec) {
 #pragma unroll
     for (int i = 0; i < kRows * kChunks / kThreads; ++i) {
@@ -160,7 +166,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* __restrict__ dst,
       const int c = chunk * 8;
       const bool valid = r < rows && c < D;
       const __nv_bfloat16* from = valid ? src + r * ld + c : src;
-      __nv_bfloat16* to = dst + il_off(r, chunk);
+      __nv_bfloat16* to = dst + il_off<kCols>(r, chunk);
       if (!kScale) {
         cp_async16(to, from, valid);
         continue;
@@ -178,15 +184,15 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* __restrict__ dst,
     }
     return;
   }
-  for (int idx = threadIdx.x; idx < kRows * kTileCols; idx += kThreads) {
-    const int r = idx / kTileCols;
-    const int c = idx % kTileCols;
+  for (int idx = threadIdx.x; idx < kRows * kCols; idx += kThreads) {
+    const int r = idx / kCols;
+    const int c = idx % kCols;
     float x = 0.f;
     if (r < rows && c < D) {
       x = __bfloat162float(src[r * ld + c]);
       if (kScale) x *= mul;
     }
-    dst[il_off(r, c >> 3) + (c & 7)] = __float2bfloat16_rn(x);
+    dst[il_off<kCols>(r, c >> 3) + (c & 7)] = __float2bfloat16_rn(x);
   }
 }
 
@@ -408,6 +414,73 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float d[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d), "n"(kTransB));
+}
+
+// the widest product: d (+)= a . b, m64 x n256 x k16 with A from
+// registers (128 f32 accumulators a thread), for the wide flash kernels'
+// p . v and ds . k over a 256-wide head dim
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n256k16_rs(float d[128],
+                                                   const uint32_t a[4],
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d), "n"(kTransB));
 }

@@ -9,13 +9,22 @@ flash_forward             bf16: flash_attention_tc.cu  flash_attention._make_ker
                           f32: flash_attention.cu
 flash_dq                  bf16: flash_attention_tc.cu  flash_attention._make_dq_kernel
                           f32: flash_attention.cu
-flash_dkv                 flash_attention.cu           flash_attention._make_dkv_kernel
+flash_dkv                 bf16: flash_attention_tc.cu  flash_attention._make_dkv_kernel
+                          f32: flash_attention.cu
 ========================  ===========================  ==============================
 
-The bf16 forward and dq run every product on the tensor cores
-(warpgroup MMAs, wgmma, over bf16 tiles in shared memory fed by
-asynchronous copies); f32 and dk/dv run f32 FMA on the CUDA cores (``flash_attention.cu``'s note
-says why f32 stays there).
+In bf16 all three run every product on the tensor cores (warpgroup
+MMAs, wgmma, over bf16 tiles in shared memory fed by asynchronous
+copies); in f32 they run f32 FMA on the CUDA cores
+(``flash_attention.cu``'s note says why f32 stays there).
+
+Head dims up to 256 run on the card.  D <= 128 takes the narrow kernels,
+whose tiles are zero-padded to 128 columns in shared memory; 128 < D <=
+256 takes the wide instantiations, zero-padded to 256 (bf16: its own
+``*_wide_tc_kernel``s, f32: the same kernels at 32-row tiles).  Any D in
+either range runs, a multiple of 8 through the asynchronous copies, any
+other through guarded loads.  D > 256 raises ``ValueError``: the JAX
+kernels take any D, and the wider form is queued in ROADMAP.md.
 
 Layouts are the JAX package's: q, k, v, o and do are ``[B, S, H, D]``;
 the softmax statistics m (natural log), l and ``dlt = rowsum(do * o)``
@@ -171,7 +180,8 @@ def flash_backward_reference(q, k, v, do, m, l, dlt, causal: bool = False):
 def _check(q, k, v, do=None, stats=()):
     """The kernels' input contract: q, k, v (and do) contiguous
     ``[B, S, H, D]`` of one dtype (f32 or bf16), D <= the kernels'
-    limit; the statistics (m, l, dlt) contiguous f32 ``[B, S, H]``."""
+    limit (256); the statistics (m, l, dlt) contiguous f32 ``[B, S,
+    H]``."""
     _require("q", q, dtypes=_DTYPE_CODES)
     for name, t in (("k", k), ("v", v), ("do", do)):
         if t is not None:
@@ -182,8 +192,8 @@ def _check(q, k, v, do=None, stats=()):
         _require(name, t, shape=q.shape[:3], dtypes=(torch.float32,))
     limit = _build.load().dtx_flash_max_d()
     if q.shape[-1] > limit:
-        raise ValueError(f"head dim {q.shape[-1]} exceeds the flash "
-                         f"kernels' limit {limit} (wider heads are "
+        raise ValueError(f"head dim {q.shape[-1]} is above {limit}, the "
+                         f"flash kernels' limit (heads above 256 are "
                          f"queued in ROADMAP.md)")
 
 
@@ -191,9 +201,10 @@ def flash_forward(q, k, v, causal: bool = False, stats: bool = False):
     """B5.  ``stats=False``: the normalized output ``[B, S, H, D]`` in
     q's dtype; ``stats=True``: ``(acc f32 [B,S,H,D], m, l f32
     [B,S,H])``.  Equal q/k lengths.  CUDA: one CTA per (q tile,
-    batch*head) streaming 64-key tiles; bf16 ``flash_fwd_tc_kernel``
-    (128-row q tiles, two warpgroups on the tensor cores), f32
-    ``flash_fwd_kernel`` (64-row q tiles, f32 FMA)."""
+    batch*head) streaming key tiles; bf16 ``flash_fwd_tc_kernel``
+    (D <= 128) or ``flash_fwd_wide_tc_kernel`` (128-row q tiles, two
+    warpgroups on the tensor cores), f32 ``flash_fwd_kernel`` (64-row q
+    tiles at D <= 128, 32-row above; f32 FMA)."""
     if _on_cpu(q, k, v):
         if stats:
             return flash_stats_reference(q, k, v, causal)
@@ -221,9 +232,10 @@ def flash_forward(q, k, v, causal: bool = False, stats: bool = False):
 def flash_dq(q, k, v, do, m, l, dlt, causal: bool = False):
     """B6: dq f32 ``[B, S, H, D]`` from the saved statistics.  CUDA: one
     CTA per (q tile, batch*head), streaming key tiles up to the causal
-    frontier; bf16 ``flash_dq_tc_kernel`` (128-row q tiles, two
-    warpgroups on the tensor cores), f32 ``flash_dq_kernel`` (64-row q
-    tiles, f32 FMA)."""
+    frontier; bf16 ``flash_dq_tc_kernel`` (D <= 128: 128-row q tiles, two
+    warpgroups) or ``flash_dq_wide_tc_kernel`` (64-row q tiles, one
+    warpgroup) on the tensor cores, f32 ``flash_dq_kernel`` (64-row q
+    tiles at D <= 128, 32-row above; f32 FMA)."""
     if _on_cpu(q, k, v, do, m, l, dlt):
         return flash_backward_reference(q, k, v, do, m, l, dlt, causal)[0]
     _check(q, k, v, do, (m, l, dlt))
@@ -240,8 +252,12 @@ def flash_dq(q, k, v, do, m, l, dlt, causal: bool = False):
 
 def flash_dkv(q, k, v, do, m, l, dlt, causal: bool = False):
     """B7: ``(dk, dv)`` f32 ``[B, S, H, D]`` from the saved statistics.
-    CUDA: ``flash_dkv_kernel``, one CTA per (key tile, batch*head),
-    streaming q tiles from the first that sees the key tile."""
+    CUDA: one CTA per (key tile, batch*head), streaming q tiles from the
+    first that sees the key tile; bf16 ``flash_dkv_tc_kernel`` (D <= 128:
+    128 keys, a warpgroup each 64) or ``flash_dkv_wide_tc_kernel`` (64
+    keys, a warpgroup each half of the head dim) on the tensor cores,
+    f32 ``flash_dkv_kernel`` (64 keys at D <= 128, 32 above; f32
+    FMA)."""
     if _on_cpu(q, k, v, do, m, l, dlt):
         return flash_backward_reference(q, k, v, do, m, l, dlt, causal)[1:]
     _check(q, k, v, do, (m, l, dlt))

@@ -137,7 +137,9 @@ Monitoring (``obs/``), as in the JAX trainer:
   learning rate as summaries every ``--log_every`` steps (host path);
 - ``--profile`` / ``--profile_steps``: a ``torch.profiler`` capture
   written as a Chrome trace under ``<logs_path>/profile/``, the host
-  phases as ``record_function`` and NVTX ranges;
+  phases as ``record_function`` and NVTX ranges; the chief prints
+  ``PROFILE_GRAPH_NOTE`` once, since the JAX trainer's graph dump beside
+  the trace is not ported yet;
 - ``--status_port``: the status server over ``logs_path`` for the run's
   lifetime;
 - ``--early_stop_patience``: the validation split after every epoch;
@@ -176,6 +178,14 @@ from ..utils.summary import (SummaryWriter, mlp_graph_nodes,
                              transformer_graph_nodes)
 from .optim import make_optimizer
 from .state import create_train_state
+
+# what --profile / --profile_steps print once a run on the chief: the
+# graph files the JAX trainer writes beside its trace (its utils/hlo
+# dump_graph) and this package does not write yet
+PROFILE_GRAPH_NOTE = (
+    "NOTE: {flag}: the JAX trainer also writes train_step.stablehlo.txt "
+    "and train_step.hlo.txt into --logs_path; this port does not write "
+    "them yet (a torch graph dump is queued in ROADMAP.md, Queue A item 1)")
 
 
 def make_spec(cfg: Config):
@@ -751,9 +761,10 @@ def run(cfg: Config) -> Dict[str, Any]:
         from ..obs import flight as flight_lib
         from ..obs import tracer as tracer_lib
 
+        profile_window = tracer_lib.parse_profile_steps(cfg.profile_steps)
         tracer = tracer_lib.WindowedTracer(
-            cfg.logs_path, window=tracer_lib.parse_profile_steps(
-                cfg.profile_steps), whole_run=cfg.profile, enabled=chief)
+            cfg.logs_path, window=profile_window, whole_run=cfg.profile,
+            enabled=chief)
         if cfg.flight or cfg.on_anomaly:
             flight = flight_lib.FlightRecorder(
                 cfg.logs_path, process_index=proc_idx,
@@ -975,6 +986,10 @@ def run(cfg: Config) -> Dict[str, Any]:
         # whole-run --profile starts here; --profile_steps windows open
         # at their step.  Either way the finally stops the capture
         tracer.begin_run()
+        if chief and (cfg.profile or profile_window is not None):
+            print(PROFILE_GRAPH_NOTE.format(
+                flag="--profile" if cfg.profile else "--profile_steps"),
+                flush=True)
 
         # --early_stop_patience: the validation split after every epoch;
         # best_val and val_wait ride the checkpoints' extras, so a

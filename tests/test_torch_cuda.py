@@ -629,6 +629,82 @@ def test_flash_kernels_large_score_spread_on_card(card, dtype, causal):
                          f"{dtype} causal={causal} spread x4")
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 65, 300])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wide_head_kernels_match_plain_on_card(card, dtype, causal, s):
+    """The wide instantiations (128 < D <= 256, zero-padded to 256)
+    against the plain versions: D 256, 192 (16-byte asynchronous copies)
+    and 130 (guarded scalar loads), batch 2 and 3 heads; S 65 and 300
+    straddle the 32-row f32 tiles and the 64-row bf16 ones."""
+    for d in (130, 192, 256):
+        gen = torch.Generator(device=card).manual_seed(s * 1000 + d)
+        q, k, v, do = (torch.randn(2, s, 3, d, generator=gen,
+                                   device=card).to(dtype)
+                       for _ in range(4))
+        _check_flash_kernels(q, k, v, do, causal, FLASH_TOL[dtype],
+                             f"{dtype} causal={causal} S={s} D={d}")
+
+
+def _attention64(q, k, v, causal):
+    """softmax(q k^T / sqrt(D)) v in f64 over ``[B, S, H, D]``, the
+    exact function the flash kernels compute."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.shape[-1] ** 0.5
+    if causal:
+        n = s.shape[-1]
+        s = s.masked_fill(~torch.ones(n, n, dtype=torch.bool,
+                                      device=s.device).tril(), float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_f32_wide_kernels_match_f64_on_card(card, causal):
+    """The f32 kernels at D 256 (B5's normalized form, B6 and B7 on the
+    stats form's m, l and its dlt) against f64 attention and its
+    autograd gradients: within 1e-5 of each output's scale (floored at
+    1).  The f32 plain version agrees with dq, dk and dv bit for bit
+    (both sum in-order f32 FMA chains), so this holds the kernels to the
+    exact function too."""
+    gen = torch.Generator(device=card).manual_seed(8)
+    q, k, v, do = (torch.randn(1, 300, 2, 256, generator=gen, device=card)
+                   for _ in range(4))
+    leaves = [t.double().requires_grad_(True) for t in (q, k, v)]
+    o64 = _attention64(*leaves, causal)
+    want = torch.autograd.grad(o64, leaves, do.double())
+    _close_scaled(fa.flash_forward(q, k, v, causal).double(), o64.detach(),
+                  1e-5, f"o causal={causal}")
+    acc, m, l = fa.flash_forward(q, k, v, causal, stats=True)
+    dlt = torch.sum(do * (acc / l[..., None]), dim=-1)
+    got = (fa.flash_dq(q, k, v, do, m, l, dlt, causal),
+           *fa.flash_dkv(q, k, v, do, m, l, dlt, causal))
+    for g_, w_, name in zip(got, want, ("dq", "dk", "dv")):
+        _close_scaled(g_.double(), w_, 1e-5, f"{name} causal={causal}",
+                      floor=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wide_head_launches_count_on_card(card, dtype):
+    """A D-256 call launches the hand-written kernels: each wrapper's
+    count goes up by one and its last shape is the call's."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    q, k, v, do = (torch.randn(1, 128, 2, 256, generator=gen, device=card)
+                   .to(dtype) for _ in range(4))
+    fused.reset_launch_counts()
+    acc, m, l = fa.flash_forward(q, k, v, True, stats=True)
+    dlt = torch.sum(do.float() * (acc / l[..., None]), dim=-1)
+    fa.flash_dq(q, k, v, do, m, l, dlt, True)
+    fa.flash_dkv(q, k, v, do, m, l, dlt, True)
+    torch.cuda.synchronize()
+    counts = fused.launch_counts()
+    assert (counts["flash_forward"], counts["flash_dq"],
+            counts["flash_dkv"]) == (1, 1, 1)
+    for w in fa.KERNEL_WRAPPERS:
+        assert w.last_shape == (1, 128, 2, 256), w.__name__
+
+
 def _sass_functions(lib_path):
     """{mangled kernel name: its SASS} of the built kernel library."""
     import os
@@ -652,13 +728,16 @@ def _sass_functions(lib_path):
 @pytest.mark.cuda
 def test_flash_bf16_kernels_use_tensor_cores(card):
     """The bf16 forward (4 instantiations: causal x stats), dq (2) and
-    dk/dv (2), and the bf16 tensor-core GEMM that B1's layers and B8's
+    dk/dv (2), each also in its wide form for 128 < D <= 256 (as many),
+    and the bf16 tensor-core GEMM that B1's layers and B8's
     two products share (8: B1's hidden and logits outputs; B8's bf16
     hidden with and without z1 and its f32 output or split-K shares,
     each at 256- and 128-wide tiles), issue
     tensor-core MMAs (HMMA or HGMMA in their SASS; HGMMA for dk/dv and
-    the GEMM, which are wgmma only); the f32 forward (4), dq (2) and
-    dk/dv (2) and the CUDA-core GEMMs, ``gemm_bias_act_kernel`` (the f32
+    the GEMM, which are wgmma only, and for every wide form); the f32
+    forward (4), dq (2) and dk/dv (2) at each of the two tilings (64 rows
+    up to D 128, 32 above) and the CUDA-core GEMMs,
+    ``gemm_bias_act_kernel`` (the f32
     grouped FFN) and ``fma_gemm_kernel`` (the f32 MLP layers, its 4 load
     routes), issue none (f32 attention, the f32 MLP and the f32 FFN stay
     on f32 FMA: TF32 would break their 1e-4 and 1e-3); no bf16
@@ -668,12 +747,16 @@ def test_flash_bf16_kernels_use_tensor_cores(card):
 
     funcs = _sass_functions(_build.build())
     tensor_ops = ("HMMA", "HGMMA")
+    wide = ("flash_fwd_wide_tc_kernel", "flash_dq_wide_tc_kernel",
+            "flash_dkv_wide_tc_kernel")
     tc = {n: f for n, f in funcs.items()
           if "flash_fwd_tc_kernel" in n or "flash_dq_tc_kernel" in n
-          or "flash_dkv_tc_kernel" in n or "gemm_bias_act_tc_kernel" in n}
-    assert sum("flash_fwd_tc_kernel" in n for n in tc) == 4, sorted(funcs)
-    assert sum("flash_dq_tc_kernel" in n for n in tc) == 2, sorted(funcs)
-    assert sum("flash_dkv_tc_kernel" in n for n in tc) == 2, sorted(funcs)
+          or "flash_dkv_tc_kernel" in n or "gemm_bias_act_tc_kernel" in n
+          or any(w in n for w in wide)}
+    for name, count in (("flash_fwd_tc_kernel", 4), ("flash_dq_tc_kernel", 2),
+                        ("flash_dkv_tc_kernel", 2)) + tuple(zip(wide,
+                                                                (4, 2, 2))):
+        assert sum(name in n for n in tc) == count, (name, sorted(funcs))
     # each source that includes gemm_tc.cuh has its own copy (internal
     # linkage): B1's two in mlp_forward.cu; B8's six in grouped_ffn.cu,
     # bf16 out at both widths with and without z1, f32 out at both
@@ -692,12 +775,13 @@ def test_flash_bf16_kernels_use_tensor_cores(card):
             assert sum(frag in n for n in mine) == 1, (src, frag, gemm)
     for name, sass in tc.items():
         assert any(op in sass for op in tensor_ops), name
-        if "flash_dkv_tc_kernel" in name or "gemm_bias_act_tc_kernel" in name:
+        if ("flash_dkv_tc_kernel" in name or "gemm_bias_act_tc_kernel" in name
+                or any(w in name for w in wide)):
             assert "HGMMA" in sass, name
     plain = {n: f for n, f in funcs.items()
              if "flash_fwd_kernel" in n or "flash_dq_kernel" in n
              or "flash_dkv_kernel" in n}
-    assert len(plain) == 8, sorted(funcs)
+    assert len(plain) == 16, sorted(funcs)
     for name, sass in plain.items():
         assert "__nv_bfloat16" not in name, name
         assert not any(op in sass for op in tensor_ops), name
@@ -740,9 +824,11 @@ def test_flash_attention_gradients_on_card_match_cpu(card, dtype):
 
 @pytest.mark.cuda
 def test_flash_wrappers_refuse_what_the_kernels_do_not_take(card):
-    q = torch.randn(1, 64, 2, 130, device=card)
-    with pytest.raises(ValueError, match="ROADMAP"):
+    q = torch.randn(1, 64, 2, 257, device=card)
+    fused.reset_launch_counts()
+    with pytest.raises(ValueError, match="above 256.*ROADMAP"):
         fa.flash_forward(q, q, q, True)
+    assert fused.launch_counts()["flash_forward"] == 0
     q = torch.randn(1, 64, 2, 16, device=card)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_forward(q.transpose(1, 2), q.transpose(1, 2),

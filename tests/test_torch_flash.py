@@ -76,6 +76,11 @@ CASES = {
     "bf16_causal_ragged": ((1, 300, 2, 16), "bf16", True, None),
     "f32_full_ragged_dense": ((1, 300, 2, 16), "f32", False, None),
     "f32_cross_length_dense": ((1, 64, 2, 16), "f32", False, 96),
+    # wide heads (the kernels' 128 < D <= 256 instantiations on the card;
+    # JAX takes its square 512 tiles above D 128)
+    "f32_causal_d256": ((1, 512, 1, 256), "f32", True, None),
+    "bf16_causal_ragged_d256": ((1, 300, 1, 256), "bf16", True, None),
+    "f32_full_d192": ((1, 256, 2, 192), "f32", False, None),
 }
 
 
@@ -111,15 +116,11 @@ def test_flash_attention_and_its_gradients_match_jax(case):
         _close(_np(got), want, tol, name)
 
 
-@pytest.mark.parametrize("causal", [True, False])
-def test_flash_stats_and_normalized_forms_match_jax(causal):
-    """B5's two forms: the stats ``(acc, m, l)`` against JAX
-    ``_flash_stats`` (m in the natural log domain) and the normalized
-    output against ``_flash_forward`` (the no-grad path)."""
-    (jq, jk, jv, _), (tq, tk, tv, _) = _inputs((2, 512, 2, 16), "f32", 1)
+def _check_forms(shape, causal):
+    (jq, jk, jv, _), (tq, tk, tv, _) = _inputs(shape, "f32", 1)
     acc, m, l = jfa._flash_stats(jq, jk, jv, causal, 256)
     tacc, tm, tl = tfa.flash_forward(tq, tk, tv, causal, stats=True)
-    assert tm.shape == tl.shape == (2, 512, 2)
+    assert tm.shape == tl.shape == shape[:3]
     _close(_np(tacc), acc, 1e-5, "acc")
     _close(_np(tm), m[..., 0], 1e-6, "m")
     _close(_np(tl), l[..., 0], 1e-5, "l")
@@ -128,11 +129,23 @@ def test_flash_stats_and_normalized_forms_match_jax(causal):
     _close(_np(to), jfa._flash_forward(jq, jk, jv, causal, 256), 1e-5, "o")
 
 
-def test_flash_backward_reference_matches_jax_flat_backward():
-    """The plain backward on given statistics against the JAX kernels'
-    ``_flash_backward`` (interpret mode), the residuals taken from JAX's
-    own forward."""
-    (jq, jk, jv, jg), (tq, tk, tv, tg) = _inputs((1, 512, 2, 16), "f32", 2)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_stats_and_normalized_forms_match_jax(causal):
+    """B5's two forms: the stats ``(acc, m, l)`` against JAX
+    ``_flash_stats`` (m in the natural log domain) and the normalized
+    output against ``_flash_forward`` (the no-grad path)."""
+    _check_forms((2, 512, 2, 16), causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_stats_and_normalized_forms_match_jax_d256(causal):
+    """The same at a head dim of 256, the wide kernels' cap (f32: the
+    tolerances above)."""
+    _check_forms((1, 512, 1, 256), causal)
+
+
+def _check_flat_backward(shape):
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _inputs(shape, "f32", 2)
     acc, m, l = jfa._flash_stats(jq, jk, jv, True, 256)
     o = (acc / jnp.maximum(l, 1e-30)).astype(jq.dtype)
     jdq, jdk, jdv = jfa._flash_backward(jq, jk, jv, o, m, l, jg, True, 256)
@@ -144,6 +157,18 @@ def test_flash_backward_reference_matches_jax_flat_backward():
                        got[0])
     for t, want, name in zip(got, (jdq, jdk, jdv), ("dq", "dk", "dv")):
         _close(_np(t), want, 1e-5, name)
+
+
+def test_flash_backward_reference_matches_jax_flat_backward():
+    """The plain backward on given statistics against the JAX kernels'
+    ``_flash_backward`` (interpret mode), the residuals taken from JAX's
+    own forward."""
+    _check_flat_backward((1, 512, 2, 16))
+
+
+def test_flash_backward_reference_matches_jax_flat_backward_d256():
+    """The same at a head dim of 256 (f32, 1e-5 of scale)."""
+    _check_flat_backward((1, 512, 1, 256))
 
 
 @pytest.mark.parametrize("shape", [(64, 32), (2, 37, 32)])

@@ -564,3 +564,44 @@ def test_early_stop_matches_jax(tmp_path, fast):
     want = jckpt.load_extras(jckpt.latest_checkpoint(j[2].checkpoint_dir))
     assert {k: got[k] for k in ("best_val", "val_wait")} == pytest.approx(
         {k: want[k] for k in ("best_val", "val_wait")})
+
+
+# ---------------------------------------------------------------------------
+# --profile / --profile_steps: the graph files JAX writes, named, not written
+# ---------------------------------------------------------------------------
+
+# the files the JAX chief writes beside its trace under either flag
+# (its train/loop.dump_graph -> utils/hlo.dump_graph(..., "train_step"))
+JAX_GRAPH_FILES = ("train_step.stablehlo.txt", "train_step.hlo.txt")
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["host", "fast"])
+@pytest.mark.parametrize("flags", [dict(profile=True),
+                                   dict(profile_steps="1:2"), {}],
+                         ids=["profile", "profile_steps", "neither"])
+def test_profile_flags_name_the_graph_files_they_do_not_write(
+        tmp_path, flags, fast):
+    """Under ``--profile`` or ``--profile_steps`` the port's chief prints
+    one NOTE naming the two graph files the JAX trainer writes into
+    ``--logs_path``, the flag, and ROADMAP.md; it writes neither file and
+    the run finishes.  Without the flags no such NOTE appears."""
+    cfg = tconfig.Config(training_epochs=1, batch_size=16, hidden_sizes=(8,),
+                         dataset="synthetic", synthetic_train_size=64,
+                         synthetic_test_size=16, frequency=5,
+                         summaries=False, fast_loop=fast, device="cpu",
+                         logs_path=str(tmp_path), **flags)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = tloop.run(cfg)
+    assert res["fast_loop"] is fast and res["steps"] == 4
+    notes = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("NOTE:") and JAX_GRAPH_FILES[1] in ln]
+    for name in JAX_GRAPH_FILES:
+        assert not os.path.exists(os.path.join(str(tmp_path), name))
+    if not flags:
+        assert notes == []
+        return
+    flag = "--profile" if "profile" in flags else "--profile_steps"
+    assert notes == [tloop.PROFILE_GRAPH_NOTE.format(flag=flag)]
+    assert all(name in notes[0] for name in JAX_GRAPH_FILES)
+    assert f"NOTE: {flag}:" in notes[0] and "ROADMAP.md" in notes[0]

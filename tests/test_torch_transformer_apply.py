@@ -11,7 +11,9 @@ kernels are reached under ``attention="flash"``), dropout's own
 properties (JAX's bits cannot be reproduced), the trainer's refusals of
 the transformer flags it has not ported, ``num_params`` and
 ``flops_per_step`` at the ``transformer_wide_long`` width, and the
-serving engine under a flash spec (``--pallas``).
+serving engine under a flash spec (``--pallas``).  At 2 heads of 256
+(d_model 512, one block, causal flash) ``apply`` is held to JAX's within
+the same 1e-5.
 """
 
 import dataclasses
@@ -81,6 +83,29 @@ def test_apply_matches_jax(objective, attention, fused_ln):
     _close(got.detach().numpy(), want, TOL, f"{objective} {attention}")
     logits, aux = ttfm.apply(tspec, tp, torch.from_numpy(x), with_aux=True)
     assert float(aux) == 0.0 and torch.equal(logits, got)
+
+
+# d_head 256 (d_model 512 over 2 heads): the flash kernels' wide form on
+# the card; here the plain versions against JAX's Pallas kernels in
+# interpret mode, which take 512-square tiles above D 128
+_WIDE_HEAD = dict(num_classes=10, d_model=512, n_heads=2, num_blocks=1,
+                  d_ff=1024, vocab_size=32, attention="flash",
+                  fused_ln=True)
+
+
+@pytest.mark.parametrize("objective", sorted(_OBJECTIVES))
+def test_apply_matches_jax_at_head_dim_256(objective):
+    """``apply`` at 2 heads of 256, S 256, one block, causal flash (the
+    classify case made causal): f32 logits within TOL (1e-5) of their
+    scale, as at the narrow widths."""
+    kw = dict(_WIDE_HEAD, **dict(_OBJECTIVES[objective], causal=True))
+    jspec, jp, tspec, tp = _pair(**kw)
+    assert tspec.d_model // tspec.n_heads == 256
+    x = np.random.RandomState(2).rand(2, kw["input_size"]).astype(
+        np.float32)
+    want = jax.jit(lambda p, xx: jtfm.apply(jspec, p, xx))(jp, x)
+    got = ttfm.apply(tspec, tp, torch.from_numpy(x))
+    _close(got.detach().numpy(), want, TOL, f"{objective} d_head 256")
 
 
 def test_block_forward_dispatches_on_spec_attention():

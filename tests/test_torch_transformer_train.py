@@ -7,7 +7,9 @@ accuracy, the final params and checkpoints read both ways, and a
 transformer state with bf16 Adam moments carried across from a JAX
 checkpoint.  The model is tiny (2 blocks, d_model 32, 2 heads, d_ff 64,
 S 256), ``--attention=flash --causal --fused_ln``: the JAX side runs its
-Pallas kernels in interpret mode, the port its plain versions.  Both
+Pallas kernels in interpret mode, the port its plain versions; the first
+step's gradients are also held to ``jax.grad`` at 2 heads of 256
+(d_model 512, one block) within 1e-5 of each leaf's scale.  Both
 start from the JAX package's params (``convert.params_from_numpy``).
 
 Tolerances: f32 sums run in other orders, so costs agree within 1e-5
@@ -130,6 +132,33 @@ def test_step_matches_jax_build_train_step(case):
     assert int(tst.step) == int(jst.step) == n_steps
     _close_params(tst.params, jst.params, 1e-4,
                   2 * n_steps * kw["learning_rate"])
+
+
+def test_first_step_gradients_match_jax_at_head_dim_256():
+    """The objective's gradients at 2 heads of 256 (d_model 512, S 256,
+    one block, causal flash, fused LayerNorms), JAX's params carried
+    across by ``convert``: the port's autograd (the flash backward's
+    plain versions) against ``jax.grad`` of JAX's ``_loss_and_acc`` (its
+    Pallas backward in interpret mode), each leaf within 1e-5 of its
+    scale (f32 sums in other orders; measured ~1e-6)."""
+    kw = dict(TINY, d_model=512, n_heads=2, num_blocks=1, d_ff=1024)
+    jcfg, tcfg = jconfig.Config(**kw), tconfig.Config(**kw)
+    jspec, tspec = jloop.make_spec(jcfg), tloop.make_spec(tcfg)
+    assert tspec.d_model // tspec.n_heads == 256
+    jparams = jstate.create_train_state(
+        jax.random.PRNGKey(3), jspec, joptim.make_optimizer(jcfg)).params
+    tparams = convert.params_from_numpy(
+        {k: np.asarray(v) for k, v in jparams.items()}, tspec, device="cpu")
+    x, y = _batch(np.random.RandomState(4), 2, kw["input_size"])
+    jgrads = jax.jit(jax.grad(lambda p: jstep._loss_and_acc(
+        jspec, p, x, y, None, False, False)[0]))(jparams)
+    leaves = {k: v.requires_grad_(True) for k, v in tparams.items()}
+    objective, _ = tstep._loss_and_acc(tspec, leaves, torch.from_numpy(x),
+                                       torch.from_numpy(y), False, False)
+    tgrads = torch.autograd.grad(objective, list(leaves.values()))
+    assert set(leaves) == set(jgrads)
+    for k, g in zip(leaves, tgrads):
+        _close(_np(g), jgrads[k], 1e-5, k)
 
 
 @pytest.mark.parametrize("dropout_rate", [0.0, 0.2])
