@@ -3043,7 +3043,9 @@ def phase_monitoring(card: str, graph_counts: dict, flags=MONITOR_FLAGS,
         ``--histograms``;
     (e) ``transformer_wide_long`` (``tfm_flags``) under ``--metrics
         --profile_steps=1:2``: the Chrome trace names the bf16 flash
-        kernels (B5-B7) and the trace scopes; the rows' MFU printed.
+        kernels (B5-B7), the trace scopes and the ``ln`` scope, and the
+        graph dump beside it (``train_step.aten.txt``) holds a kernel
+        line for each of B2-B7; the rows' MFU printed.
 
     On the CPU (a rehearsal at narrow widths, ``device="cpu"``) the
     counters stay 0, MFU is null and (d) and the kernel names are not
@@ -3260,6 +3262,24 @@ def phase_monitoring(card: str, graph_counts: dict, flags=MONITOR_FLAGS,
                                  f"{kernels} ({len(device_names)} kernel "
                                  f"names; flash names {flash}) in "
                                  f"{traces[0]}")
+        # the graph dump of the run's first step beside the trace
+        # (utils/graph.py): a kernel line for each of B2-B7's launches
+        # on the card; the ln scopes inside the window
+        dump = f"{tmp}/tfm/train_step.aten.txt"
+        if not os.path.exists(dump):
+            raise AssertionError(f"profile: no {dump}")
+        with open(dump) as f:
+            dump_lines = f.read().splitlines()
+        dump_kernels = {}
+        for ln in dump_lines:
+            if ln.startswith("KERNEL "):
+                name = ln[7:].split("(", 1)[0]
+                dump_kernels[name] = dump_kernels.get(name, 0) + 1
+        ln_ranges = sum(1 for e in events if e.get("name") == "ln")
+        if not ln_ranges or (on_card
+                             and sorted(dump_kernels) != sorted(TFM_WRAPPERS)):
+            raise AssertionError(f"profile: {ln_ranges} ln ranges in the "
+                                 f"trace, dump kernel lines {dump_kernels}")
         t_rows = [r for r in metrics.read_metrics(
             f"{tmp}/tfm/metrics.0.jsonl") if r["kind"] == "window"]
         log(f"[monitoring] (e) transformer_wide_long under "
@@ -3270,9 +3290,13 @@ def phase_monitoring(card: str, graph_counts: dict, flags=MONITOR_FLAGS,
             f"{[r['mfu'] for r in t_rows]}, TFLOP/s "
             f"{[r['tflops_per_sec'] for r in t_rows]}, step time "
             f"{[r['step_time_p50_ms'] for r in t_rows]} ms; launches "
-            f"{tcounts} ({time.monotonic() - t0:.1f} s)")
+            f"{tcounts}; {ln_ranges} ln ranges; graph dump "
+            f"{len(dump_lines)} lines, kernel lines {dump_kernels} "
+            f"({time.monotonic() - t0:.1f} s)")
         out.update(tfm_mfu=[r["mfu"] for r in t_rows], tfm_counts=tcounts,
-                   tfm_row=t_rows[-1] if t_rows else None)
+                   tfm_row=t_rows[-1] if t_rows else None,
+                   tfm_dump=dict(kernels=dump_kernels,
+                                 lines=len(dump_lines), ln_ranges=ln_ranges))
         _keep(keep, "monitoring", tmp)
     log(f"[monitoring] phase 5c took {time.monotonic() - t_phase:.1f} s")
     return out
@@ -3290,11 +3314,13 @@ DP_RUNS = {
     "fsdp": dict(fsdp=True),
     "fsdp_host": dict(fsdp=True, fast_loop=False),
     "sync_period": dict(sync_period=2),
+    # phase 7e (e): --debug_nans under --fsdp (the host path)
+    "fsdp_nans": dict(fsdp=True, fast_loop=False, debug_nans=True),
 }
 # the plain run each is held to: the same path, so the same data order
 DP_REF = {"plain": "plain", "sync_period": "plain", "fsdp": "plain",
           "plain_host": "plain_host", "zero": "plain_host",
-          "fsdp_host": "plain_host"}
+          "fsdp_host": "plain_host", "fsdp_nans": "fsdp_host"}
 # final params against the plain run's: --sync_period=2 bitwise (at one
 # rank a replica's mean is the replica, and the local step is the sync
 # step without its identity all-reduce and /1); ZeRO-1 and FSDP bitwise
@@ -3396,7 +3422,7 @@ def dp_child(args: dict) -> dict:
     if not cluster.bootstrap(base):
         raise AssertionError("dp: cluster.bootstrap set up no group")
     tmp = tempfile.mkdtemp(prefix="dtx-dp-")
-    # the six runs train on the same synthetic split: made once (4 s a
+    # the runs train on the same synthetic split: made once (4 s a
     # time at 65,536 examples), handed to each run as load_datasets
     real_load, loaded = loop.load_datasets, {}
 
@@ -3446,7 +3472,7 @@ def dp_child(args: dict) -> dict:
                       if device == "cuda" else None))
     loop.load_datasets = real_load
     shutil.rmtree(tmp, ignore_errors=True)
-    log(f"[dp] the six runs took {time.monotonic() - t_phase:.1f} s")
+    log(f"[dp] the runs took {time.monotonic() - t_phase:.1f} s")
     for name, r in runs.items():
         ref = runs[DP_REF[name]]
         r["bitwise"] = all(np.array_equal(r["params"][k], ref["params"][k])
@@ -3458,7 +3484,7 @@ def dp_child(args: dict) -> dict:
             for k in ref["params"])
         if sorted(r["params"]) != sorted(ref["params"]):
             raise AssertionError(f"dp {name}: param keys differ")
-        if name == "sync_period" and not r["bitwise"]:
+        if name in ("sync_period", "fsdp_nans") and not r["bitwise"]:
             raise AssertionError(f"dp {name}: final params not bitwise the "
                                  f"plain run's ({r['max_rel_err']:.3g})")
         if not r["max_rel_err"] <= DP_PARAMS_RTOL:
@@ -3471,6 +3497,26 @@ def dp_child(args: dict) -> dict:
                 f" {DP_REF[name]} {ref['counts']['mlp_forward']}")
     for r in runs.values():
         del r["params"]
+    # --debug_nans on the blow-up (learning rate 1e30): the FSDP step
+    # raises at the synchronous step's first non-finite step, with its
+    # message (the same leaves, the counts of the gradient shards summed)
+    blowup = {}
+    for name, flags in (("sync", {}), ("fsdp", dict(fsdp=True))):
+        cfg = dataclasses.replace(base, **flags, fast_loop=False,
+                                  debug_nans=True, learning_rate=1e30,
+                                  naive_ce=True)
+        try:
+            _run_captured(loop.run, cfg)
+            blowup[name] = None
+        except FloatingPointError as e:
+            blowup[name] = str(e)
+    log(f"[dp] --debug_nans blow-up: sync {blowup['sync']!r}; fsdp "
+        f"{blowup['fsdp']!r}")
+    if blowup["fsdp"] is None or blowup["fsdp"] != blowup["sync"]:
+        raise AssertionError(f"dp: --debug_nans under --fsdp raised "
+                             f"{blowup['fsdp']!r}, the synchronous step "
+                             f"{blowup['sync']!r}")
+    runs["fsdp_nans"]["blowup"] = blowup["fsdp"]
 
     # each strategy's step timed, and its collectives profiled, in the
     # same group
@@ -3550,8 +3596,11 @@ def phase_dp(card: str, base=DP_BASE, device: str = "cuda",
     """Data parallelism in a one-rank process group (phase 5d), in a
     subprocess (``dp_child``): WIDE_TRAIN under Adam for 8 steps,
     plain (graph and host path), ``--zero_opt``, ``--fsdp`` (graph and
-    host path) and ``--sync_period=2`` (graph).  Each run's final params
-    against the plain run's on its path (``DP_REF``: ``--sync_period=2``
+    host path), ``--sync_period=2`` (graph) and ``--fsdp --debug_nans``
+    (host; phase 7e (e): bitwise the ``--fsdp`` host run, and on the
+    blow-up it raises the synchronous step's ``FloatingPointError``).
+    Each run's final params against the plain run's on its path
+    (``DP_REF``: ``--sync_period=2`` and ``--fsdp --debug_nans``
     bitwise, ZeRO-1 and FSDP within DP_PARAMS_RTOL), B1's launches equal
     to the plain run's (11 on the graph path: 2 warm-up steps, 8 replays
     and the eval), the all-gather, reduce-scatter and all-reduce named in
@@ -4328,6 +4377,25 @@ SP_LAUNCHES = {
                 dict(flash_forward=16, flash_dq=12, flash_dkv=12)],
     "sp_ulysses": [dict(flash_forward=8, flash_dq=6, flash_dkv=6)] * 2,
 }
+
+
+def _scope_kernels(events, scope: str) -> list:
+    """The names of the device kernels, in a Chrome trace's events,
+    whose launch (the runtime call correlated with them) lies inside a
+    ``scope`` range (a ``record_function`` range) on the host."""
+    ranges = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+              if e.get("cat") == "user_annotation"
+              and e.get("name") == scope]
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    out = []
+    for e in events:
+        t = launch.get(e.get("args", {}).get("correlation"))
+        if e.get("cat") == "kernel" and t is not None and any(
+                lo <= t <= hi for lo, hi in ranges):
+            out.append(e["name"])
+    return out
 
 
 def _card_limit() -> str:
@@ -5988,7 +6056,13 @@ def phase_moe_step(card: str) -> dict:
 
     try:
         tfm._sparse_route = record
-        new_card, cost_card, _ = body(on_card, x.cuda(), y.cuda())
+        # the card's step under a profiler window (phase 7e (c)): the
+        # MoE scopes, and B8's training form launched inside moe_expert
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            new_card, cost_card, _ = body(on_card, x.cuda(), y.cuda())
+            torch.cuda.synchronize()
         tfm._sparse_route = orig_sparse
         tfm._route_topk = card_choices
         t0 = time.monotonic()
@@ -6024,13 +6098,403 @@ def phase_moe_step(card: str) -> dict:
                                  f"> {MOE_STEP_RTOL}")
     if not math.isfinite(float(cost_card)):
         raise AssertionError(f"moe step: cost {float(cost_card)}")
+    with tempfile.TemporaryDirectory() as d:
+        prof.export_chrome_trace(os.path.join(d, "moe.json"))
+        with open(os.path.join(d, "moe.json")) as f:
+            events = json.load(f)["traceEvents"]
+    scopes = {n: sum(1 for e in events if e.get("name") == n
+                     and e.get("cat") == "user_annotation")
+              for n in ("moe_dispatch", "moe_expert")}
+    inside = sorted(set(_scope_kernels(events, "moe_expert")))
+    b8 = [k for k in inside if "gemm_bias_act_tc_kernel" in k]
+    log(f"[moe-step] 7e (c) the card's step under a profiler window: "
+        f"ranges {scopes}; kernels launched inside moe_expert "
+        f"{[k[:60] for k in inside]} on {card}")
+    if not all(scopes.values()) or not b8:
+        raise AssertionError(f"moe step: ranges {scopes}, no B8 kernel "
+                             f"inside moe_expert ({inside})")
     log(f"[moe-step] one step (1 block, E {spec.num_experts}, S "
         f"{spec.seq_len}, batch {cfg.batch_size}, d_model {spec.d_model}, "
         f"aux weight {spec.aux_loss_weight}) card vs CPU path: cost "
         f"{float(cost_card):.6g} vs {float(cost_cpu):.6g}, worst update "
         f"difference {worst:.3g} of its scale (tol {MOE_STEP_RTOL}); CPU "
         f"step {cpu_s:.1f} s")
-    return dict(worst=worst, flips=flips[0], dropped=dropped)
+    return dict(worst=worst, flips=flips[0], dropped=dropped,
+                scopes=scopes, b8_in_expert=len(b8))
+
+
+# phase 7e: the trainer's last outputs.  (a) --sample_after sharded over
+# the data axis (generate_dp) on two gloo ranks on the one card, after a
+# 2-step run at the serving model's widths under --attention=flash
+# --fused_ln (global batch 8): 8 greedy prompts, 4 a rank
+SAMPLE_FLAGS = [
+    "--model=transformer", "--objective=lm", "--input_size=1024",
+    "--vocab_size=256", "--d_model=1024", "--n_heads=8", "--num_blocks=4",
+    "--d_ff=4096", "--activation=gelu", "--compute_dtype=bfloat16",
+    "--attention=flash", "--fused_ln", "--optimizer=adam",
+    "--learning_rate=1e-3", "--batch_size=8", "--dataset=synthetic",
+    "--synthetic_train_size=16", "--synthetic_test_size=8",
+    "--no_summaries", "--frequency=1", "--training_epochs=1",
+    "--sample_after=8", "--sample_temperature=0", "--seed=0"]
+SAMPLE_DP = 2
+# the named scopes' cost: rounds of scopes on and off, interleaved
+SCOPE_ROUNDS = 3
+
+
+@contextlib.contextmanager
+def _scopes_as(way: str):
+    """``obs/tracer.scope`` while inside (every site looks it up on the
+    module): ``"shipped"`` as it is (ranges only inside a profiler
+    capture), ``"open"`` its two ranges always open, ``"none"`` no
+    range at all."""
+    from distributed_tensorflow_example_tpu_torch.obs import tracer
+
+    real = tracer.scope
+    if way == "open":
+        tracer.scope = tracer._named_range
+    elif way == "none":
+        tracer.scope = lambda name: contextlib.nullcontext()
+    try:
+        yield
+    finally:
+        tracer.scope = real
+
+
+def _range_us(make, n: int = 20000) -> float:
+    """The host microseconds of one empty ``with make():`` block."""
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with make():
+            pass
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def phase_serve_scopes(card: str, base: dict, rounds: int = SCOPE_ROUNDS,
+                       device: str = "cuda") -> dict:
+    """Phase 7e (d): phase 3's serve under a ``torch.profiler`` window
+    names ``prefill``, ``decode``, ``sampling`` and ``ln``; the named
+    scopes' cost: the same serve with the scopes as shipped (no range
+    outside a capture), with their ranges always open, and with no
+    scope at all, interleaved over ``rounds`` rounds (each run's median
+    decode tick), and the host microseconds of one empty scope outside
+    a capture, and of one ``record_function`` and one NVTX range alone.
+    Printed, not gated."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_tensorflow_example_tpu_torch.obs import tracer
+    from distributed_tensorflow_example_tpu_torch.obs.buckets import (
+        NAMED_SCOPES)
+
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device == "cuda" else [])
+    with profile(activities=acts) as prof:
+        run = serve_run(base["spec"], base["params"], device)
+    seen = {}
+    for e in prof.events():
+        if e.name in NAMED_SCOPES:
+            seen[e.name] = seen.get(e.name, 0) + 1
+    if not {"prefill", "decode", "sampling", "ln"} <= set(seen):
+        raise AssertionError(f"serve scopes: the window names {seen}")
+    ways = ("shipped", "open", "none")
+    ticks = {w: [] for w in ways}
+    for r in range(rounds):
+        for way in (ways if r % 2 == 0 else ways[::-1]):
+            with _scopes_as(way):
+                ticks[way].append(serve_run(base["spec"], base["params"],
+                                            device)["tick_ms"])
+    us = dict(scope=_range_us(lambda: tracer.scope("ln")),
+              record_function=_range_us(
+                  lambda: torch.profiler.record_function("ln")),
+              nvtx=(_range_us(lambda: torch.cuda.nvtx.range("ln"))
+                    if device == "cuda" else None))
+    med = {w: statistics.median(t) for w, t in ticks.items()}
+    out = dict(ranges=seen, ranges_per_tick=sum(seen.values()) / run["ticks"],
+               tick_ms=med, ticks=ticks, us=us)
+    log(f"[scopes] 7e (d) phase 3's serve under a profiler window: ranges "
+        f"{seen} over {run['ticks']} ticks ({out['ranges_per_tick']:.2f} a "
+        f"tick); decode tick ms, {rounds} interleaved rounds: scopes as "
+        f"shipped {ticks['shipped']}, ranges always open {ticks['open']}, "
+        f"no scopes {ticks['none']}, medians {med}; one empty scope outside"
+        f" a capture {us['scope']:.3f} us, record_function alone "
+        f"{us['record_function']:.3f}, NVTX alone {us['nvtx']} on "
+        f"{_card_limit() if device == 'cuda' else card}")
+    return out
+
+
+def sample_child(args: dict, rank: int) -> dict:
+    """Phase 7e (a)'s rank ``rank`` (of two): a gloo group on the card,
+    which ``loop.run`` finds up and leaves; the SAMPLE_FLAGS run with the
+    launch counts zeroed just before and read just after, its decode
+    (``generate`` inside ``generate_dp``) timed, then the same rows
+    decoded again by this rank alone at the same batch; rank 0 also
+    decodes all the prompts at once, for the wall."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from distributed_tensorflow_example_tpu_torch.config import (
+        parse_train_config)
+    from distributed_tensorflow_example_tpu_torch.models import (
+        transformer as tfm)
+    from distributed_tensorflow_example_tpu_torch.ops import fused
+    from distributed_tensorflow_example_tpu_torch.train import loop
+
+    device = args["device"]
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{args['port']}",
+        world_size=SAMPLE_DP, rank=rank,
+        timeout=datetime.timedelta(seconds=120))
+    cfg = dataclasses.replace(parse_train_config(args["flags"]),
+                              device=device)
+    seen = {}
+    real_dp, real_gen = tfm.generate_dp, tfm.generate
+
+    def generate_dp(spec, params, prompts, mesh, **kw):
+        seen.update(spec=spec, params=params, prompts=prompts)
+        return real_dp(spec, params, prompts, mesh, **kw)
+
+    def generate(spec, params, prompt, **kw):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = real_gen(spec, params, prompt, **kw)
+        _sync(device)
+        seen.update(rows=prompt, tokens=out,
+                    ms=(time.perf_counter() - t0) * 1e3)
+        return out
+
+    tfm.generate_dp, tfm.generate = generate_dp, generate
+    tfm.DP_SAMPLE_BYTES["all_gather"] = 0
+    fused.reset_launch_counts()
+    try:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = loop.run(cfg)
+    finally:
+        tfm.generate_dp, tfm.generate = real_dp, real_gen
+    _sync(device)
+    counts = fused.launch_counts()
+    # the graph dump's first arming in a trainer process (its dispatch
+    # mode's first use), which a --profile run pays once
+    from distributed_tensorflow_example_tpu_torch.utils import graph
+
+    t0 = time.perf_counter()
+    graph.GraphDump(os.path.dirname(args["out"]))
+    arm_ms = (time.perf_counter() - t0) * 1e3
+    again = real_gen(seen["spec"], seen["params"], seen["rows"])
+    out = dict(rows=int(seen["rows"].shape[0]), decode_ms=seen["ms"],
+               equal=bool(torch.equal(again, seen["tokens"])),
+               tokens=seen["tokens"].cpu().tolist(), counts=counts,
+               gather_bytes=tfm.DP_SAMPLE_BYTES["all_gather"],
+               steps=res["steps"], stdout=buf.getvalue(),
+               seq_len=seen["spec"].seq_len, dump_arm_ms=arm_ms)
+    if rank == 0:
+        _sync(device)
+        t0 = time.perf_counter()
+        real_gen(seen["spec"], seen["params"], seen["prompts"])
+        _sync(device)
+        out["all_ms"] = (time.perf_counter() - t0) * 1e3
+        out["prompts"] = int(seen["prompts"].shape[0])
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def _sample_phase(card: str, device: str, timeout: float,
+                  flags=SAMPLE_FLAGS) -> dict:
+    """Phase 7e (a): the two ranks of ``sample_child``; each decoded the
+    4 rows of its data index, equal to its own one-rank decode of them,
+    the chief's ``samples.npz`` holds the 8 rows gathered in data-index
+    order, and B2-B7 launched in every rank."""
+    tmp = tempfile.mkdtemp(prefix="dtx-sample-")
+    out = os.path.join(tmp, "sample.json")
+    args = json.dumps(dict(device=device, out=out, port=_free_port(),
+                           flags=list(flags) + [f"--logs_path={tmp}/logs"]))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sample-phase", args,
+         str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env, cwd=os.path.dirname(os.path.abspath(__file__)))
+        for r in range(SAMPLE_DP)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        for line in text.splitlines():
+            log(f"  [sample {r}] {line}")
+        if p.returncode:
+            raise AssertionError(f"sample: rank {r} exited {p.returncode}")
+    ranks = []
+    for r in range(SAMPLE_DP):
+        with open(f"{out}.{r}") as f:
+            ranks.append(json.load(f))
+    for line in ranks[0].pop("stdout").splitlines():
+        log(f"  | {line}")
+    with np.load(os.path.join(tmp, "logs", "samples.npz")) as z:
+        samples = z["samples"]
+    shutil.rmtree(tmp, ignore_errors=True)
+    n, rows = ranks[0]["prompts"], ranks[0]["prompts"] // SAMPLE_DP
+    faults = []
+    if samples.shape != (n, ranks[0]["seq_len"]) or n != 8:
+        faults.append(f"samples.npz holds {samples.shape}")
+    for r, m in enumerate(ranks):
+        if m["rows"] != rows or not m["equal"]:
+            faults.append(f"rank {r} decoded {m['rows']} rows, equal to "
+                          f"its own decode of them: {m['equal']}")
+        if not np.array_equal(samples[r * rows:(r + 1) * rows],
+                              np.asarray(m["tokens"], np.int32)):
+            faults.append(f"rank {r}'s rows differ in samples.npz")
+        for w in TFM_WRAPPERS:
+            if device == "cuda" and m["counts"][w] <= 0:
+                faults.append(f"rank {r}: {w} never launched")
+    if faults:
+        raise AssertionError("sample: " + "; ".join(faults))
+    log(f"[sample] 7e (a) --sample_after={n} greedy over {SAMPLE_DP} gloo "
+        f"ranks at the serving widths: rank decodes of {rows} rows "
+        f"{[round(m['decode_ms'], 1) for m in ranks]} ms (both ranks on "
+        f"the one card at once), one rank's decode of all {n} "
+        f"{ranks[0]['all_ms']:.1f} ms; each rank's rows equal its own "
+        f"decode at batch {rows}; the gather posted "
+        f"{[m['gather_bytes'] for m in ranks]} B a rank (n_pad x seq_len "
+        f"x 4 = {n * ranks[0]['seq_len'] * 4}); the graph dump's first "
+        f"arming in each rank's process "
+        f"{[round(m['dump_arm_ms'], 1) for m in ranks]} ms; launches "
+        f"{[m['counts'] for m in ranks]} on "
+        f"{_card_limit() if device == 'cuda' else card}")
+    return dict(ranks=ranks, all_ms=ranks[0]["all_ms"])
+
+
+def _dump_phase(card: str, monitoring: dict, device: str,
+                rounds: int = SCOPE_ROUNDS, tfm_flags=WIDE_LONG_FLAGS,
+                mlp_fields=WIDE_TRAIN) -> dict:
+    """Phase 7e (b): one ``transformer_wide_long`` step (the fast path's
+    body) after a warm one, timed three ways in interleaved rounds:
+    plain, recorded by the graph dump (``utils/graph.GraphDump``) and
+    with the named scopes off; the dump's kernel lines equal that
+    step's launches and phase 5c's in-run dump's.  Then the MLP's
+    captured epoch (WIDE_TRAIN) under ``--profile``: its
+    ``train_step.cudagraph.dot`` names B1's kernel."""
+    import dataclasses
+
+    from distributed_tensorflow_example_tpu_torch.config import (
+        Config, parse_train_config)
+    from distributed_tensorflow_example_tpu_torch.data import mnist
+    from distributed_tensorflow_example_tpu_torch.ops import fused
+    from distributed_tensorflow_example_tpu_torch.parallel import step
+    from distributed_tensorflow_example_tpu_torch.train import loop, optim
+    from distributed_tensorflow_example_tpu_torch.train.state import (
+        create_train_state)
+    from distributed_tensorflow_example_tpu_torch.utils import graph
+
+    tmp = tempfile.mkdtemp(prefix="dtx-dump-")
+    cfg = dataclasses.replace(parse_train_config(tfm_flags), device=device)
+    spec = loop.make_spec(cfg)
+    opt = optim.make_optimizer(cfg, 8)
+    body = step.make_sync_step_body(cfg, spec, opt)
+    split = mnist.synthesize_split(cfg.batch_size, seed=cfg.seed,
+                                   input_size=cfg.input_size)
+    x = torch.from_numpy(split.images).to(device)
+    y = torch.from_numpy(split.labels).to(device)
+    state = [create_train_state(spec, opt, seed=cfg.seed, device=device)]
+    # armed before the timed steps (arming's one-time cost is sample
+    # phase's to measure)
+    armed = [graph.GraphDump(os.path.join(tmp, str(i)))
+             for i in range(rounds)]
+    dumps = []
+
+    def plain():
+        return body(state[0], x, y)
+
+    def dumped():
+        dumps.append(armed.pop())
+        return dumps[-1].record(body, state[0], x, y)
+
+    def unscoped():
+        with _scopes_as("none"):
+            return body(state[0], x, y)
+
+    ways = {"plain": plain, "dump": dumped, "scopes_off": unscoped}
+    times = {k: {"host": [], "wall": []} for k in ways}
+    counts = []
+    state[0] = plain()[0]
+    for r in range(rounds):
+        for name in (list(ways) if r % 2 == 0 else list(ways)[::-1]):
+            _sync(device)
+            fused.reset_launch_counts()
+            t0 = time.perf_counter()
+            state[0] = ways[name]()[0]
+            host = time.perf_counter() - t0
+            _sync(device)
+            times[name]["host"].append(host * 1e3)
+            times[name]["wall"].append((time.perf_counter() - t0) * 1e3)
+            if name == "dump":
+                counts.append({k: v for k, v in fused.launch_counts().items()
+                               if v})
+    del state[0]
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    med = {k: {t: statistics.median(v) for t, v in d.items()}
+           for k, d in times.items()}
+    in_run = monitoring["tfm_dump"]["kernels"]
+    faults = [f"dump {i}: kernel lines {d.launches}, launches {c}"
+              for i, (d, c) in enumerate(zip(dumps, counts))
+              if d.launches != c or not d.paths]
+    if device == "cuda" and in_run != counts[0]:
+        faults.append(f"phase 5c's in-run dump: kernel lines {in_run}, one "
+                      f"step's launches {counts[0]}")
+    # the MLP's captured epoch under --profile: the graph's debug dump
+    mlp = Config(**dict(mlp_fields, hidden_sizes=tuple(
+        mlp_fields["hidden_sizes"])), device=device, profile=True,
+        logs_path=os.path.join(tmp, "mlp"))
+    fused.reset_launch_counts()
+    res, out = _run_captured(loop.run, mlp)
+    dot = os.path.join(tmp, "mlp", "train_step.cudagraph.dot")
+    text = ""
+    if os.path.exists(dot):
+        with open(dot) as f:
+            text = f.read()
+    with open(os.path.join(tmp, "mlp", "train_step.aten.txt")) as f:
+        b1_lines = sum(1 for ln in f if ln.startswith("KERNEL mlp_forward("))
+    if device == "cuda" and ("gemm_bias_act_tc_kernel" not in text
+                             or b1_lines != 1 or not res["fast_loop"]):
+        faults.append(f"the MLP's captured epoch: {dot} "
+                      f"{'written' if text else 'missing'} "
+                      f"({len(text)} bytes), B1 kernel lines {b1_lines}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    if faults:
+        raise AssertionError("graph dump: " + "; ".join(faults))
+    log(f"[dump] 7e (b) transformer_wide_long's step, {rounds} interleaved "
+        f"rounds, host ms to return / wall ms to the card's end: plain "
+        f"{times['plain']}, recorded by the graph dump {times['dump']}, "
+        f"named scopes off {times['scopes_off']}; medians {med}; the "
+        f"dump's kernel lines {counts[0]} (phase 5c's in-run dump "
+        f"{in_run}); the MLP's captured epoch under --profile: "
+        f"train_step.cudagraph.dot {len(text)} bytes naming B1's kernel, "
+        f"{b1_lines} B1 line in train_step.aten.txt on "
+        f"{_card_limit() if device == 'cuda' else card}")
+    return dict(times=times, medians=med, kernels=counts[0],
+                dot_bytes=len(text))
+
+
+def phase_last_outputs(card: str, monitoring: dict, device: str = "cuda",
+                       timeout: float = 600) -> dict:
+    """Phase 7e, the trainer's last outputs: (a) ``--sample_after``
+    sharded over the data axis (``_sample_phase``), (b) the graph dump
+    and the named scopes' cost on the transformer step
+    (``_dump_phase``); (c) is phase 8b's profiler window, (d)
+    ``phase_serve_scopes`` and (e) phase 5d's ``fsdp_nans`` run."""
+    t0 = time.monotonic()
+    out = dict(sample=_sample_phase(card, device, timeout),
+               dump=_dump_phase(card, monitoring, device))
+    log(f"[7e] phases 7e (a) and (b) took {time.monotonic() - t0:.1f} s")
+    return out
 
 
 KERNEL_META = {
@@ -6414,6 +6878,12 @@ def main() -> int:
         with open(f"{args['out']}.{rank}", "w") as f:
             json.dump(runs, f)
         return 0
+    if sys.argv[1:2] == ["--sample-phase"]:     # a rank of phase 7e (a)
+        args, rank = json.loads(sys.argv[2]), int(sys.argv[3])
+        runs = sample_child(args, rank)
+        with open(f"{args['out']}.{rank}", "w") as f:
+            json.dump(runs, f)
+        return 0
     if sys.argv[1:2] == ["--site-phase"]:   # a rank of phase 5f
         args, rank = json.loads(sys.argv[2]), int(sys.argv[3])
         runs = site_child(args, rank)
@@ -6448,6 +6918,7 @@ def main() -> int:
     phase_chaos(card, serve, keep=obs_root)
     replay = phase_replay(card, keep=obs_root)
     trace = phase_trace_overhead(card, serve)
+    serve_scopes = phase_serve_scopes(card, serve)
     del serve["params"]
     torch.cuda.empty_cache()
     train = phase_train(card)
@@ -6472,7 +6943,8 @@ def main() -> int:
     tfm_wide = phase_transformer_train(card, WIDE_HEAD_FLAGS, "tfm-wide-head")
     phase_transformer_step(card, WIDE_HEAD_STEP_FLAGS, "tfm-wide-head-step")
     moe_train = phase_moe_train(card)
-    phase_moe_step(card)
+    moe_step = phase_moe_step(card)
+    last = phase_last_outputs(card, monitoring)
     ln_bwd_launch_split(card, dict(measured)["layer_norm_backward"][0])
     # each kernel's launches on its own main path: the full-width serve
     # (phase 3) for the serving kernels (the int8 and MoE serves, phases
@@ -6517,7 +6989,9 @@ def main() -> int:
                "transformer_train": tfm_train["counts"],
                "transformer_wide_head": tfm_wide["counts"],
                "moe_train": moe_train[0]["counts"],
-               "moe_train_fp8": moe_train[1]["counts"]}
+               "moe_train_fp8": moe_train[1]["counts"],
+               **{f"sample_rank{i}": m["counts"]
+                  for i, m in enumerate(last["sample"]["ranks"])}}
     counts.update({k: train["counts"][k] for k in TRAIN_WRAPPERS})
     counts.update({k: tfm_train["counts"][k] for k in TFM_REPORT})
     counts["moe_grouped_matmul_z1"] = \
@@ -6662,6 +7136,20 @@ def main() -> int:
             f"{row['peak_gib']:.2f} GiB, median step "
             f"{row['step_ms_median']:.1f} ms, warm epoch "
             f"{row['epoch_step_ms']:.2f} ms a step on {smi}")
+    sample, med = last["sample"], last["dump"]["medians"]
+    log(f"[7e] sampling over {SAMPLE_DP} data ranks: rank decodes "
+        f"{[round(m['decode_ms'], 1) for m in sample['ranks']]} ms vs one "
+        f"rank's decode of all {sample['ranks'][0]['prompts']} "
+        f"{sample['all_ms']:.1f} ms; graph dump host cost on "
+        f"transformer_wide_long's step "
+        f"{med['dump']['host'] - med['plain']['host']:.2f} ms (plain host "
+        f"{med['plain']['host']:.2f} ms, wall {med['plain']['wall']:.2f}); "
+        f"named scopes: step wall on {med['plain']['wall']:.2f} vs off "
+        f"{med['scopes_off']['wall']:.2f} ms, decode tick (shipped, open, "
+        f"none) {serve_scopes['tick_ms']}, one empty scope "
+        f"{serve_scopes['us']['scope']:.3f} us; MoE "
+        f"ranges {moe_step['scopes']}; --fsdp --debug_nans blow-up "
+        f"{dp['fsdp_nans']['blowup']!r} on {smi}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

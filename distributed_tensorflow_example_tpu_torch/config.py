@@ -946,9 +946,7 @@ def validate_strategy_config(cfg: Config) -> None:
     messages: ``--fsdp`` and ``--zero_opt`` run on the synchronous step,
     and the features that ride the synchronous step's outputs
     (``--histograms``, ``--on_anomaly=skip``, ``--grad_accum``,
-    ``--dropout_rate``) are refused under ``--fsdp`` or local SGD.
-    ``--debug_nans`` reads the synchronous step's non-finite flag, which
-    the FSDP and local-SGD steps do not return: ``Unported`` there."""
+    ``--dropout_rate``) are refused under ``--fsdp`` or local SGD."""
     local_sgd = cfg.sync_period > 1
     if local_sgd and cfg.model_parallel != 1:
         raise ValueError(LOCAL_SGD_TP_REFUSED)
@@ -977,10 +975,6 @@ def validate_strategy_config(cfg: Config) -> None:
     if cfg.grad_accum > 1 and (cfg.fsdp or local_sgd):
         raise ValueError("--grad_accum runs on the synchronous step "
                          "(no --fsdp, sync_period=1)")
-    if cfg.debug_nans and (cfg.fsdp or local_sgd):
-        raise Unported("--debug_nans under --fsdp or --sync_period > 1: "
-                       "the port's check reads the synchronous step's "
-                       "non-finite flag (see ROADMAP.md)")
 
 
 def validate_local_sgd_config(cfg: Config) -> None:

@@ -16,7 +16,9 @@ dispatch ``_moe_ffn`` and the capacity-limited sparse dispatch
 ``spec.grouped_moe`` or ``spec.fp8_ffn``), ``apply`` (logits and the
 balance loss, differentiable by autograd), ``num_params``/
 ``flops_per_step``, and the KV-cached decode (``init_decode_cache``,
-``_DenseKV``, ``_decode_forward``, ``decode_step``, ``generate``).
+``_DenseKV``, ``_decode_forward``, ``decode_step``, ``generate``, and
+``generate_dp``/``dp_samples_host``: the prompts sharded over the data
+axis, the rows gathered back).
 
 Params are a flat ``{name: tensor}`` dict with the JAX package's
 names and layouts (``Wqkv`` is ``[d, 3, d]``), so ``convert.py``
@@ -102,6 +104,7 @@ from typing import Dict, Optional
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..obs import tracer as tracer_lib
 from ..ops.ring_attention import NEG_INF, attention, softmax
 from ..parallel import pp_schedule
 from ..parallel.mesh import (expert_all_to_all, expert_copy, expert_psum,
@@ -322,23 +325,26 @@ def _layer_norm(x, g, b):
 
 def _ln(spec: TransformerSpec, x, g, b):
     """The model's LayerNorm: the fused kernel under ``spec.fused_ln``,
-    the reference otherwise."""
-    if spec.fused_ln:
-        from ..ops.fused import fused_layer_norm
+    the reference otherwise, in the ``ln`` scope (as every LayerNorm of
+    the model)."""
+    with tracer_lib.scope("ln"):
+        if spec.fused_ln:
+            from ..ops.fused import fused_layer_norm
 
-        return fused_layer_norm(x, g, b)
-    return _layer_norm(x, g, b)
+            return fused_layer_norm(x, g, b)
+        return _layer_norm(x, g, b)
 
 
 def _ln_residual(spec: TransformerSpec, h, branch, g, b):
     """``s = h + branch; return (LN(s), s)`` — one kernel pass under
     ``spec.fused_ln``."""
-    if spec.fused_ln:
-        from ..ops.fused import fused_layer_norm_residual
+    with tracer_lib.scope("ln"):
+        if spec.fused_ln:
+            from ..ops.fused import fused_layer_norm_residual
 
-        return fused_layer_norm_residual(h, branch, g, b)
-    s = h + branch
-    return _layer_norm(s, g, b), s
+            return fused_layer_norm_residual(h, branch, g, b)
+        s = h + branch
+        return _layer_norm(s, g, b), s
 
 
 def _mm(params_or_bp: Params, a, w_name: str, b_name: str, cdt):
@@ -473,24 +479,30 @@ def _moe_ffn(spec: TransformerSpec, bp: Params, a, act, cdt, aux_axes=None,
     partial outputs are summed over the axis; ``a`` and the selection
     enter its experts through ``expert_copy`` (each rank's gradient
     covers its experts only), the balance loss reads ``probs`` beside
-    it."""
+    it.  The router and the selection, then the combine, run in the
+    ``moe_dispatch`` scope, the experts in ``moe_expert``."""
     e = spec.num_experts
-    probs = softmax(_cast_mm(a, bp["Wr"], cdt), dim=-1)     # [B, S, E]
-    gates, idx = _route_topk(spec, probs)                   # [B, S, k]
-    sel = torch.sum(torch.nn.functional.one_hot(idx, e).to(torch.float32)
-                    * gates[..., None], dim=-2)             # [B, S, E]
+    with tracer_lib.scope("moe_dispatch"):
+        probs = softmax(_cast_mm(a, bp["Wr"], cdt), dim=-1)  # [B, S, E]
+        gates, idx = _route_topk(spec, probs)                # [B, S, k]
+        sel = torch.sum(torch.nn.functional.one_hot(idx, e).to(
+            torch.float32) * gates[..., None], dim=-2)       # [B, S, E]
     el = bp["We1"].shape[0]
     if expert_axis is not None:
         off = expert_axis.index * el
         sel = expert_copy(sel, expert_axis)[..., off:off + el]
         a = expert_copy(a, expert_axis)
     b, s, _ = a.shape
-    h1 = _cast_mm(a, bp["We1"].permute(1, 0, 2), cdt) \
-        + _f32(bp["be1"])                                   # [B, S, El, ff]
-    h1 = act(h1).to(cdt)
-    h2 = dot_f32(h1.reshape(b * s, el, -1).transpose(0, 1), bp["We2"], cdt)
-    h2 = h2.transpose(0, 1).reshape(b, s, el, -1) + _f32(bp["be2"])
-    out = expert_psum(torch.einsum("bsed,bse->bsd", h2, sel), expert_axis)
+    with tracer_lib.scope("moe_expert"):
+        h1 = _cast_mm(a, bp["We1"].permute(1, 0, 2), cdt) \
+            + _f32(bp["be1"])                               # [B, S, El, ff]
+        h1 = act(h1).to(cdt)
+        h2 = dot_f32(h1.reshape(b * s, el, -1).transpose(0, 1), bp["We2"],
+                     cdt)
+        h2 = h2.transpose(0, 1).reshape(b, s, el, -1) + _f32(bp["be2"])
+    with tracer_lib.scope("moe_dispatch"):
+        out = torch.einsum("bsed,bse->bsd", h2, sel)
+    out = expert_psum(out, expert_axis)
     if aux_stats:
         return out, _balance_stats(spec, probs, idx[..., 0])
     return out, _load_balance_loss(spec, probs, idx[..., 0], aux_axes)
@@ -574,19 +586,24 @@ def _moe_ffn_sparse(spec: TransformerSpec, bp: Params, a, act, cdt,
     ``expert_axis`` (with ``El < E`` experts here) the f32 buffers go to
     their experts' ranks and back (``expert_all_to_all``), and the
     grouped FFN runs on ``[El, ep * C, d]``; the capacity ``C`` is this
-    shard's."""
+    shard's.  The route and the combine run in the ``moe_dispatch``
+    scope, the grouped FFN in ``moe_expert``; the exchanges outside
+    both."""
     b, s, d = a.shape
-    buf, slot, gates, keep, probs, idx = _sparse_route(
-        spec, a.reshape(b * s, d), bp["Wr"], cdt)
+    with tracer_lib.scope("moe_dispatch"):
+        buf, slot, gates, keep, probs, idx = _sparse_route(
+            spec, a.reshape(b * s, d), bp["Wr"], cdt)
     exchange = (expert_axis is not None
                 and bp["We1"].shape[0] != spec.num_experts)
     if exchange:
         buf = expert_all_to_all(buf, expert_axis)
-    h2 = _grouped_expert_ffn(spec, buf, bp["We1"], bp["be1"], bp["We2"],
-                             bp["be2"], act, cdt)
+    with tracer_lib.scope("moe_expert"):
+        h2 = _grouped_expert_ffn(spec, buf, bp["We1"], bp["be1"],
+                                 bp["We2"], bp["be2"], act, cdt)
     if exchange:
         h2 = expert_all_to_all(h2, expert_axis, reverse=True)
-    out = _sparse_combine(h2, slot, gates, keep)
+    with tracer_lib.scope("moe_dispatch"):
+        out = _sparse_combine(h2, slot, gates, keep)
     if aux_stats:
         return out.reshape(b, s, d), _balance_stats(spec, probs, idx[:, 0])
     return out.reshape(b, s, d), _load_balance_loss(spec, probs, idx[:, 0],
@@ -1052,11 +1069,13 @@ class _Pipe:
         """Post one hop over the stage axis (``parallel/mesh.
         stage_hop_start``): ``send`` to the next stage (previous under
         ``reverse``) and, with ``receive``, a ``[mb, S, D]`` f32 buffer
-        from the other side."""
+        from the other side, in the ``pp_comm`` scope."""
         like = (torch.empty(self.hshape, dtype=torch.float32,
                             device=self.device) if receive else None)
-        return stage_hop_start(send, like, self.axis, reverse=reverse,
-                               transport=self.transport, device=self.device)
+        with tracer_lib.scope("pp_comm"):
+            return stage_hop_start(send, like, self.axis, reverse=reverse,
+                                   transport=self.transport,
+                                   device=self.device)
 
 
 class _GPipeRun:
@@ -1498,6 +1517,69 @@ def generate_sharded(spec: TransformerSpec, params: Params,
                     temperature=temperature, model_axis=model_axis)
 
 
+def generate_dp(spec: TransformerSpec, params: Params,
+                prompts: torch.Tensor, mesh, model_axis=None,
+                generator_seed: Optional[int] = None,
+                temperature: float = 1.0) -> tuple:
+    """``generate`` sharded over the data axis of ``mesh``
+    (``parallel/mesh.Mesh``; JAX's ``generate_dp``): the ``n`` prompts
+    are padded with copies of row 0 up to a multiple of ``mesh.dp``, and
+    this rank decodes the rows of its data index, so the ranks that
+    share a data index (its stage, seq, expert and model ranks) decode
+    the same rows, as JAX's devices along those axes hold the same
+    ``P('data')`` shard.  ``params`` are whole (callers gather FSDP's
+    shards, the stages and the experts first); with ``model_axis`` they
+    are this rank's Megatron shards and each data shard decodes
+    tensor-parallel (``generate_sharded``).  Greedy unless
+    ``generator_seed`` is given and ``temperature`` > 0; then each data
+    index draws from a ``torch.Generator`` seeded by the seed folded
+    with its index (``parallel/step._fold``, the port's form of JAX's
+    ``fold_in(key, axis_index('data'))``; other bits).
+
+    Returns ``(tokens, n)``: where JAX returns the padded, data-sharded
+    global array, this returns this rank's ``[n_pad / dp, seq_len]``
+    rows of it; ``dp_samples_host`` gathers them and drops the pad."""
+    from ..parallel.step import _fold
+
+    n = int(prompts.shape[0])
+    pad = (-n) % mesh.dp
+    if pad:
+        prompts = torch.cat([prompts, prompts[:1].expand(pad, -1)])
+    rows = prompts.shape[0] // mesh.dp
+    index = mesh.data_index
+    gen = None
+    if generator_seed is not None and temperature > 0:
+        gen = torch.Generator(device=prompts.device).manual_seed(
+            _fold(generator_seed, index))
+    return generate(spec, params, prompts[index * rows:(index + 1) * rows],
+                    generator=gen, temperature=temperature,
+                    model_axis=model_axis), n
+
+
+# bytes dp_samples_host posted (the gathered int32 rows, n_pad *
+# seq_len * 4 a call at dp > 1), read and zeroed by the code that
+# measures a run
+DP_SAMPLE_BYTES = {"all_gather": 0}
+
+
+def dp_samples_host(tokens: torch.Tensor, n: int, mesh) -> torch.Tensor:
+    """The first ``n`` rows of ``generate_dp``'s padded batch on every
+    rank (JAX's ``dp_samples_host``): one all-gather of this rank's
+    int32 rows over the data group, in data-index order, then ``[:n]``;
+    at dp 1 no collective."""
+    from .. import cluster
+
+    tokens = tokens.to(torch.int32).contiguous()
+    if mesh.dp > 1:
+        out = tokens.new_empty((mesh.dp * tokens.shape[0],
+                                tokens.shape[1]))
+        cluster.all_gather_flat(out.view(-1), tokens.view(-1),
+                                group=mesh.data_group)
+        DP_SAMPLE_BYTES["all_gather"] += out.numel() * out.element_size()
+        tokens = out
+    return tokens[:int(n)]
+
+
 def _gumbel_argmax(logits: torch.Tensor,
                    generator: torch.Generator) -> torch.Tensor:
     """A categorical draw per row by the Gumbel-max trick (the method
@@ -1516,4 +1598,5 @@ __all__ = ["TransformerSpec", "param_shapes", "check_tp", "param_pspecs",
            "pipeline_param_pspecs", "pipeline_expert_leaves",
            "apply_pipeline", "pipeline_value_and_grad_1f1b",
            "init_decode_cache", "decode_step", "generate",
-           "generate_sharded"]
+           "generate_sharded", "generate_dp", "dp_samples_host",
+           "DP_SAMPLE_BYTES"]

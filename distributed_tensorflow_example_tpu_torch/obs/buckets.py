@@ -1,6 +1,5 @@
 """The name registries of the port's ``obs/`` — its copy of the JAX
-package's ``obs/buckets.py`` (all but the named scopes, which name
-regions inside JAX's compiled step).
+package's ``obs/buckets.py``.
 
 ``SPAN_EVENTS`` is the one vocabulary of the ``spans.<proc>.jsonl``
 stream: ``SpanRecorder.emit`` refuses any other name, and
@@ -20,7 +19,11 @@ narration.
 
 ``WINDOW_BUCKETS``/``HOST_BUCKET`` name the timing fields of a metrics
 window row, ``TRACE_SCOPES`` the ``torch.profiler`` and NVTX ranges the
-trainer's ``--profile_steps`` capture annotates (``obs/tracer.py``), and ``GOODPUT_BUCKETS`` the run report's wall decomposition
+trainer's ``--profile_steps`` capture annotates (``obs/tracer.py``),
+``NAMED_SCOPES`` the regions inside the model, the engine and the
+local-SGD round that ``obs/tracer.scope`` names (JAX's
+``jax.named_scope`` names), and ``GOODPUT_BUCKETS`` the run report's
+wall decomposition
 (``obs/aggregate.py``); ``RESTART_EVENTS`` is the vocabulary of the
 ``restarts.jsonl`` timeline (``resilience/restart.RestartNarrator``).
 """
@@ -57,6 +60,23 @@ HOST_BUCKET = "host"
 # valid WindowedTracer.annotate range names: the charge buckets plus the
 # host phases outside the step window
 TRACE_SCOPES = WINDOW_BUCKETS + ("eval", "checkpoint")
+
+# the regions inside the step, in JAX's names and order (obs/tracer.scope
+# opens them): "ln" every LayerNorm of the transformer (models/
+# transformer._ln, _ln_residual); "moe_dispatch" the router, the
+# selection and the combine, "moe_expert" the expert FFN between them
+# (_moe_ffn, _moe_ffn_sparse); "pp_comm" a stage hop (the pipeline's
+# hop); "prefill", "decode" and "sampling" the engine's prompt
+# ingestion, paged decode step and token draw (serving/engine.py);
+# "outer_sync" the multi-site round's cross-site mean and outer update
+# (parallel/local_sgd.py); "quant" the quantize/dequantize edges (the
+# int8 KV pool in serving/kv_cache.py, the fp8 operand rounding in
+# ops/fused.py, the compressed outer sync), so a capture attributes the
+# conversions apart from the compute they feed.  A range covers the
+# forward's operators: autograd's backward runs outside it
+NAMED_SCOPES = ("ln", "moe_dispatch", "moe_expert", "pp_comm",
+                "prefill", "decode", "sampling", "outer_sync",
+                "quant")
 
 # run-level goodput/badput decomposition, in presentation order ("train"
 # is the goodput bucket, "eval"/"sample" auxiliary useful work, the rest

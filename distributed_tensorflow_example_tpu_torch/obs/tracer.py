@@ -25,6 +25,16 @@ timeline lines up with the metrics split (``obs/metrics.py`` buckets).
   The names come from ``obs/buckets.TRACE_SCOPES`` (the metrics buckets
   plus ``eval`` and ``checkpoint``).
 
+``scope`` is JAX's ``jax.named_scope`` for the port: the model, the
+engine and the local-SGD round name their regions (``obs/buckets.
+NAMED_SCOPES``: ``ln``, ``moe_dispatch``, ``moe_expert``, ``pp_comm``,
+``prefill``, ``decode``, ``sampling``, ``outer_sync``, ``quant``) with
+the same two ranges, opened only while a profiler captures (any
+capture, windowed or not), so a capture attributes them as JAX's does.
+A JAX scope names the transposed operators too; a torch range covers
+the operators issued inside it, so autograd's backward runs outside
+it.
+
 The trace's kernel rows come from CUPTI: on the H100 the kernels inside
 the MLP's CUDA graph replays appear by name, as the transformer's eager
 epoch's do (the flash forward, dq and dk/dv among them).
@@ -42,7 +52,9 @@ import contextlib
 import os
 from typing import List, Optional, Tuple
 
-from .buckets import TRACE_SCOPES
+import torch
+
+from .buckets import NAMED_SCOPES, TRACE_SCOPES
 
 
 def parse_profile_steps(s: str) -> Optional[Tuple[int, int]]:
@@ -70,8 +82,6 @@ def parse_profile_steps(s: str) -> Optional[Tuple[int, int]]:
 def _named_range(name: str):
     """A ``record_function`` range in the profiler's trace and, on the
     card, an NVTX range of the same name."""
-    import torch
-
     nvtx = torch.cuda.is_available()
     with torch.profiler.record_function(name):
         if nvtx:
@@ -81,6 +91,28 @@ def _named_range(name: str):
         finally:
             if nvtx:
                 torch.cuda.nvtx.range_pop()
+
+
+# the scope's ranges outside a profiler capture: none (a range costs
+# microseconds of host time, and a decode tick opens dozens: PERF.md §6)
+_NO_RANGE = contextlib.nullcontext()
+
+
+def scope(name: str):
+    """A region of ``NAMED_SCOPES`` (``jax.named_scope(name)``) around
+    what runs inside: while a profiler captures, ``_named_range``'s
+    ``record_function`` range and, on the card, NVTX range; otherwise
+    nothing, as ``annotate`` opens a range only while a capture is open
+    (a tool that reads NVTX sees them in a ``--profile`` or
+    ``--profile_steps`` window).  A name outside ``NAMED_SCOPES`` raises
+    ``ValueError``, as ``annotate`` refuses one outside
+    ``TRACE_SCOPES``."""
+    if name not in NAMED_SCOPES:
+        raise ValueError(f"unknown named scope {name!r}: expected one of "
+                         f"{NAMED_SCOPES}")
+    if not torch.autograd._profiler_enabled():
+        return _NO_RANGE
+    return _named_range(name)
 
 
 class TorchProfiler:
@@ -94,8 +126,6 @@ class TorchProfiler:
         self.trace_paths: List[str] = []
 
     def start_trace(self, trace_dir: str) -> None:
-        import torch
-
         acts = [torch.profiler.ProfilerActivity.CPU]
         if torch.cuda.is_available():
             acts.append(torch.profiler.ProfilerActivity.CUDA)

@@ -10,6 +10,13 @@ registered wrapper's count, so a run can show that its main path went
 through the kernels.  A CUDA graph's replay runs no Python, so the
 code that replays one raises the counts by the launches its capture
 recorded (``add_launches``).
+
+While the trainer's graph dump records a step (``utils/graph.py``), a
+recorder is set (``set_recorder``): ``count`` hands it the wrapper's
+name, its tensors and its launch plan at each launch, and each
+wrapper's CPU branch calls ``plain`` to say its plain version ran.
+The kernels go through ctypes, never through the dispatcher, so these
+calls are the dump's only view of them.
 Importing ``ops`` imports both wrapper modules, so the registry is
 complete whichever of them a caller imports.
 """
@@ -20,6 +27,8 @@ import threading
 
 _WRAPPERS: list = []
 _lock = threading.Lock()
+# the graph dump's recorder while it records a step, else None
+_recorder = None
 
 
 def register(*wrappers) -> None:
@@ -29,10 +38,31 @@ def register(*wrappers) -> None:
         _WRAPPERS.append(w)
 
 
-def count(wrapper) -> None:
-    """Raise ``wrapper``'s count by one (the one call site per launch)."""
+def count(wrapper, *tensors, plan=None) -> None:
+    """Raise ``wrapper``'s count by one (the one call site per launch);
+    ``tensors`` and ``plan`` (the launch's inputs and plan) go to the
+    recorder, when one is set."""
     with _lock:
         wrapper.launches += 1
+    rec = _recorder
+    if rec is not None:
+        rec(wrapper.__name__, tensors, plan, True)
+
+
+def plain(wrapper, *tensors) -> None:
+    """Tell the recorder, when one is set, that ``wrapper`` ran its
+    plain version on ``tensors`` (CPU tensors: no launch, no count)."""
+    rec = _recorder
+    if rec is not None:
+        rec(wrapper.__name__, tensors, None, False)
+
+
+def set_recorder(fn):
+    """Set the recorder (None: none); returns the one it replaces."""
+    global _recorder
+    with _lock:
+        old, _recorder = _recorder, fn
+    return old
 
 
 def launch_counts() -> dict:

@@ -60,6 +60,8 @@ zero padding.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -197,6 +199,16 @@ def _check(q, k, v, do=None, stats=()):
                          f"queued in ROADMAP.md)")
 
 
+def _plan(d: int, causal: bool, stats: Optional[bool] = None) -> tuple:
+    """A launch's plan as the graph dump lists it: the head-dim form
+    (``narrow`` at D <= 128, ``wide`` above), causal, and the forward's
+    output form."""
+    plan = ("wide" if d > 128 else "narrow", "causal" if causal else "full")
+    if stats is not None:
+        plan += ("stats" if stats else "normalized",)
+    return plan
+
+
 def flash_forward(q, k, v, causal: bool = False, stats: bool = False):
     """B5.  ``stats=False``: the normalized output ``[B, S, H, D]`` in
     q's dtype; ``stats=True``: ``(acc f32 [B,S,H,D], m, l f32
@@ -206,6 +218,7 @@ def flash_forward(q, k, v, causal: bool = False, stats: bool = False):
     warpgroups on the tensor cores), f32 ``flash_fwd_kernel`` (64-row q
     tiles at D <= 128, 32-row above; f32 FMA)."""
     if _on_cpu(q, k, v):
+        _counts.plain(flash_forward, q, k, v)
         if stats:
             return flash_stats_reference(q, k, v, causal)
         return flash_attention_reference(q, k, v, causal)
@@ -224,7 +237,7 @@ def flash_forward(q, k, v, causal: bool = False, stats: bool = False):
     _launch("dtx_flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             *ptrs, b, s, h, d, int(causal), int(stats),
             _DTYPE_CODES[q.dtype], _qscale(d))
-    _counts.count(flash_forward)
+    _counts.count(flash_forward, q, k, v, plan=_plan(d, causal, stats))
     flash_forward.last_shape = (b, s, h, d)
     return (acc, m, l) if stats else o
 
@@ -237,6 +250,7 @@ def flash_dq(q, k, v, do, m, l, dlt, causal: bool = False):
     warpgroup) on the tensor cores, f32 ``flash_dq_kernel`` (64-row q
     tiles at D <= 128, 32-row above; f32 FMA)."""
     if _on_cpu(q, k, v, do, m, l, dlt):
+        _counts.plain(flash_dq, q, k, v, do, m, l, dlt)
         return flash_backward_reference(q, k, v, do, m, l, dlt, causal)[0]
     _check(q, k, v, do, (m, l, dlt))
     b, s, h, d = q.shape
@@ -245,7 +259,7 @@ def flash_dq(q, k, v, do, m, l, dlt, causal: bool = False):
             do.data_ptr(), m.data_ptr(), l.data_ptr(), dlt.data_ptr(),
             dq.data_ptr(), b, s, h, d, int(causal), _DTYPE_CODES[q.dtype],
             _qscale(d), float(np.float32(1.0 / np.sqrt(d))))
-    _counts.count(flash_dq)
+    _counts.count(flash_dq, q, k, v, do, m, l, dlt, plan=_plan(d, causal))
     flash_dq.last_shape = (b, s, h, d)
     return dq
 
@@ -259,6 +273,7 @@ def flash_dkv(q, k, v, do, m, l, dlt, causal: bool = False):
     f32 ``flash_dkv_kernel`` (64 keys at D <= 128, 32 above; f32
     FMA)."""
     if _on_cpu(q, k, v, do, m, l, dlt):
+        _counts.plain(flash_dkv, q, k, v, do, m, l, dlt)
         return flash_backward_reference(q, k, v, do, m, l, dlt, causal)[1:]
     _check(q, k, v, do, (m, l, dlt))
     b, s, h, d = q.shape
@@ -269,7 +284,8 @@ def flash_dkv(q, k, v, do, m, l, dlt, causal: bool = False):
             dk.data_ptr(), dv.data_ptr(), b, s, h, d, int(causal),
             _DTYPE_CODES[q.dtype], _qscale(d),
             float(np.float32(1.0 / _LOG2E)))
-    _counts.count(flash_dkv)
+    _counts.count(flash_dkv, q, k, v, do, m, l, dlt,
+                  plan=_plan(d, causal))
     flash_dkv.last_shape = (b, s, h, d)
     return dk, dv
 

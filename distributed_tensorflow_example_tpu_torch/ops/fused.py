@@ -72,6 +72,7 @@ import torch
 from . import _build, _counts
 from ._counts import launch_counts, reset_launch_counts
 from ..models.mlp import _ACTIVATIONS, apply_with_hiddens, dot_f32
+from ..obs import tracer as tracer_lib
 
 LN_EPS = 1e-6
 
@@ -217,6 +218,7 @@ def _ln_max_d(name: str, d: int) -> None:
 
 def _ln_forward(x, g, b):
     if _on_cpu(x, g, b):
+        _counts.plain(fused_layer_norm, x, g, b)
         return layer_norm_reference(x, g, b)
     d = x.shape[-1]
     _require("x", x, dtypes=_DTYPE_CODES)
@@ -226,12 +228,13 @@ def _ln_forward(x, g, b):
     _launch("dtx_layer_norm_fwd", x.data_ptr(), g32.data_ptr(),
             b32.data_ptr(), y.data_ptr(), x.numel() // d, d,
             _DTYPE_CODES[x.dtype])
-    _counts.count(fused_layer_norm)
+    _counts.count(fused_layer_norm, x, g, b)
     return y
 
 
 def _ln_residual_forward(x, r, g, b):
     if _on_cpu(x, r, g, b):
+        _counts.plain(fused_layer_norm_residual, x, r, g, b)
         return layer_norm_residual_reference(x, r, g, b)
     d = x.shape[-1]
     _require("x", x, dtypes=_DTYPE_CODES)
@@ -243,7 +246,7 @@ def _ln_residual_forward(x, r, g, b):
     _launch("dtx_layer_norm_residual_fwd", x.data_ptr(), r.data_ptr(),
             g32.data_ptr(), b32.data_ptr(), y.data_ptr(), s.data_ptr(),
             x.numel() // d, d, _DTYPE_CODES[x.dtype])
-    _counts.count(fused_layer_norm_residual)
+    _counts.count(fused_layer_norm_residual, x, r, g, b)
     return y, s
 
 
@@ -295,6 +298,7 @@ def layer_norm_backward(dy, x, g):
     rows of dg/db partials, then a second launch that sums them in a
     fixed order; dy f32, x f32 or bf16, both contiguous, g [d]."""
     if _on_cpu(dy, x, g):
+        _counts.plain(layer_norm_backward, dy, x, g)
         return layer_norm_backward_reference(dy, x, g)
     d = x.shape[-1]
     _require("x", x, dtypes=_DTYPE_CODES)
@@ -315,7 +319,7 @@ def layer_norm_backward(dy, x, g):
     _launch("dtx_layer_norm_bwd", dy.data_ptr(), x.data_ptr(),
             g32.data_ptr(), dx.data_ptr(), part.data_ptr(), dg.data_ptr(),
             db.data_ptr(), rows, d, ctas, _LN_BWD_ROUTES[route], code)
-    _counts.count(layer_norm_backward)
+    _counts.count(layer_norm_backward, dy, x, g, plan=(route, ctas))
     layer_norm_backward.last_plan = (route, ctas)
     return dx, dg, db
 
@@ -439,6 +443,8 @@ def _grouped_forward(activation: str, cdt, buf, we1, be1, we2, be2,
     counted on ``moe_grouped_matmul`` (primal form) or
     ``moe_grouped_matmul_z1`` (training form)."""
     if _on_cpu(buf, we1, be1, we2, be2):
+        _counts.plain(moe_grouped_matmul_z1 if want_z1
+                      else moe_grouped_matmul, buf, we1, be1, we2, be2)
         out, z1 = grouped_ffn_reference(activation, cdt, buf, we1, be1,
                                         we2, be2)
         return out, (z1 if want_z1 else None)
@@ -475,7 +481,7 @@ def _grouped_forward(activation: str, cdt, buf, we1, be1, we2, be2,
             part.data_ptr() if part is not None else None, e, c, d, ff,
             _ACT_CODES[activation], _DTYPE_CODES[cdt], *plan[0], *plan[1])
     counted = moe_grouped_matmul_z1 if want_z1 else moe_grouped_matmul
-    _counts.count(counted)
+    _counts.count(counted, buf, we1, be1, we2, be2, plan=plan)
     counted.last_plan = plan
     counted.last_shape = (e, c, d, ff)
     return out, z1
@@ -633,8 +639,10 @@ def _mlp_forward_cuda(spec, params, x):
         if not last:
             hiddens.append(out)
             h = out
-    _counts.count(mlp_forward)
     mlp_forward.last_plan = ("fma" if plans else "wgmma", tuple(plans))
+    _counts.count(mlp_forward, x, *(params[f"W{i}"] for i in
+                                    range(1, L + 1)),
+                  plan=mlp_forward.last_plan)
     return out, tuple(hiddens)
 
 
@@ -649,6 +657,7 @@ class _MLPForward(torch.autograd.Function):
     def forward(ctx, spec, x, *flat):
         params = dict(zip(_mlp_names(spec), flat))
         if _on_cpu(x, *flat):
+            _counts.plain(mlp_forward, x, *flat)
             logits, hiddens = mlp_forward_reference(spec, params, x)
         else:
             logits, hiddens = _mlp_forward_cuda(spec, params, x)
@@ -692,11 +701,13 @@ def mlp_forward(spec, params, x):
 
 def _fp8_operands(buf, we1, we2):
     """Round the three matmul operands onto their per-expert fp8 grids
-    (axis (1, 2): everything but the leading expert dim)."""
+    (axis (1, 2): everything but the leading expert dim), in the
+    ``quant`` scope."""
     from .quant import fp8_round
 
-    return (fp8_round(buf, axis=(1, 2)), fp8_round(we1, axis=(1, 2)),
-            fp8_round(we2, axis=(1, 2)))
+    with tracer_lib.scope("quant"):
+        return (fp8_round(buf, axis=(1, 2)), fp8_round(we1, axis=(1, 2)),
+                fp8_round(we2, axis=(1, 2)))
 
 
 def fp8_grouped_matmul(activation: str, cdt, buf, we1, be1, we2, be2):

@@ -57,6 +57,7 @@ graph to capture).  The choice is static; a capture that fails raises.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Optional, Tuple
 
@@ -208,6 +209,9 @@ class _Runner:
         self.rank = self.mesh.data_index
         self._shuf = None           # (images, labels), allocated once
         self.compile_s = 0.0
+        # --profile's graph dump (utils/graph.GraphDump): the first step
+        # (the captured one on the card's graph path) runs through it
+        self.dump = None
 
     def _syncs(self, global_step: int) -> bool:
         """Whether the step at 0-based ``global_step`` ends with the
@@ -254,7 +258,11 @@ class _EagerRunner(_Runner):
                 x = normalize(shuf_img[i * b:(i + 1) * b], divisor)
                 y = shuf_lbl[i * b:(i + 1) * b]
                 g = epoch * self.spe + i
-                new, cost, acc = self.body(state, x, y, step_index=g)
+                if self.dump is not None:
+                    new, cost, acc = self.dump.record(self.body, state, x,
+                                                      y, step_index=g)
+                else:
+                    new, cost, acc = self.body(state, x, y, step_index=g)
                 if self._syncs(g):
                     new = step_lib.param_sync(new)
                 state.step, state.params, state.opt_state = (
@@ -334,7 +342,12 @@ class _GraphRunner(_Runner):
         self.graphs, pool = {}, None
         for average in variants:
             before = _counts.launch_counts()
-            graph = torch.cuda.CUDAGraph()
+            # the graph dump records the first form's capture and writes
+            # its debug dump, which needs the graph kept past its
+            # instantiation
+            dump = (self.dump if self.dump is not None and self.dump.pending
+                    else None)
+            graph = torch.cuda.CUDAGraph(keep_graph=dump is not None)
             # capture_begin/end on the side stream, not ``torch.cuda.
             # graph``, whose entry synchronizes and empties the
             # allocator's cache (and may run a full garbage collection):
@@ -344,9 +357,14 @@ class _GraphRunner(_Runner):
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
                 graph.capture_begin(pool=pool)
-                self._step(x_all, y_all, b, average)
+                with (dump.recording() if dump is not None
+                      else contextlib.nullcontext()):
+                    self._step(x_all, y_all, b, average)
                 graph.capture_end()
             torch.cuda.current_stream(dev).wait_stream(side)
+            if dump is not None:
+                graph.instantiate()
+                dump.write(graph=graph)
             pool = graph.pool()
             after = _counts.launch_counts()
             # the capture recorded launches without running them

@@ -190,13 +190,18 @@ def tp_local_shapes(full_template: TrainState, param_dims: dict,
 
 def make_fsdp_step_body(cfg, spec, dp: int, optimizer,
                         full_template: TrainState, mp: int = 1,
-                        mesh=None) -> Callable:
+                        mesh=None, with_anomaly: bool = False) -> Callable:
     """``(state, x, y, step_index=None) -> (state, cost, acc)`` on this
     rank's shard state and rows: the body the host path and the
     device-resident epoch share.  Under ``mp`` > 1 the gathered params
     are the TP-local shards and the forward runs over the ``mesh``'s
     model group.  Capturable in a CUDA graph (it reads nothing back from
-    the card)."""
+    the card).  ``with_anomaly`` (``--debug_nans``) appends the
+    synchronous step's ``{"flag", "counts"}``: the non-finite elements
+    of this rank's gradient shards summed over the data group (and the
+    model group for the leaves split over it), in ``leaf_names`` order,
+    and the flag over them and every rank's loss, the same on every
+    rank."""
     mesh = mesh if mesh is not None else mesh_lib.build_mesh(-1)
     if mesh.sp > 1:
         raise ValueError(SP_COMPOSES_ONLY)
@@ -223,6 +228,12 @@ def make_fsdp_step_body(cfg, spec, dp: int, optimizer,
                                          [leaves[k] for k in names])
         grads = {k: _scatter_grad(g, state.params[k].shape[-1], dp, group)
                  for k, g in zip(names, grads_full)}
+        if with_anomaly:
+            loss_bad = (~torch.isfinite(cost.detach())).to(torch.int32)
+            mesh_lib.world_all_reduce(loss_bad)
+            counts = step_lib._leaf_nonfinite(grads, names, sharded, mesh)
+            mesh_lib.data_all_reduce(counts, mesh)
+            flag = torch.any(counts > 0) | (loss_bad > 0)
         if cfg.grad_reduce == "mean" and dp > 1:
             grads = {k: g / dp for k, g in grads.items()}
         if cfg.grad_clip > 0:
@@ -230,7 +241,10 @@ def make_fsdp_step_body(cfg, spec, dp: int, optimizer,
                                           mesh, over_data=True)
         new_p, new_o = optimizer.update(grads, state.opt_state, state.params)
         cost, acc = step_lib.mean_over_ranks(cost.detach(), acc, mesh)
-        return TrainState(state.step + 1, new_p, new_o), cost, acc
+        out = (TrainState(state.step + 1, new_p, new_o), cost, acc)
+        if with_anomaly:
+            out += ({"flag": flag, "counts": counts},)
+        return out
 
     return body
 

@@ -34,8 +34,9 @@ import dataclasses
 from typing import Any, Callable, Tuple
 
 import torch
-from torch.profiler import record_function
+import torch.distributed as dist
 
+from ..obs import tracer as tracer_lib
 from ..ops import quant as quant_lib
 from ..train.optim import tree_map
 from ..train.state import TrainState
@@ -151,7 +152,8 @@ def _site_mean_tree(tree: dict, mesh) -> dict:
 
 
 def build_local_sgd_step(cfg, mesh, spec, optimizer,
-                         outer: OuterOptimizer) -> Callable:
+                         outer: OuterOptimizer,
+                         with_anomaly: bool = False) -> Callable:
     """One multi-site round: ``(state, x, y) -> (state, cost, acc)`` on
     this rank's rows ``x``/``y`` of the round's global batch (its
     ``('site', 'data')`` shard).  The rows split into ``inner_steps``
@@ -159,7 +161,11 @@ def build_local_sgd_step(cfg, mesh, spec, optimizer,
     site's data group; then the pseudo-gradient, its int8 compression
     under ``--outer_quant``, its mean over the site group and the outer
     step.  The cost and accuracy are the last inner step's, averaged
-    over the site group; ``state.step`` advances by H."""
+    over the site group; ``state.step`` advances by H.
+    ``with_anomaly`` (``--debug_nans``) appends the synchronous step's
+    ``{"flag", "counts"}`` over the round: the inner steps' flags or-ed
+    and their counts summed, then summed over the site group, so every
+    rank flags the same round."""
     if mesh.sites < 2:
         raise ValueError("build_local_sgd_step needs a ('site','data') "
                          "mesh (mesh_lib.build_site_mesh)")
@@ -169,6 +175,7 @@ def build_local_sgd_step(cfg, mesh, spec, optimizer,
                          "(model_parallel=1)")
     H = int(cfg.inner_steps)
     inner_body = step_lib.make_sync_step_body(cfg, spec, optimizer,
+                                              with_anomaly=with_anomaly,
                                               mesh=mesh)
     quantize = getattr(cfg, "outer_quant", "") == "int8"
 
@@ -179,27 +186,38 @@ def build_local_sgd_step(cfg, mesh, spec, optimizer,
                 f"inner_steps={H} chunks")
         params0 = state.params
         st = TrainState(state.step, params0, state.opt_state["inner"])
+        flag = counts = None
         for xc, yc in zip(x.chunk(H), y.chunk(H)):
-            st, cost, acc = inner_body(st, xc, yc)
+            st, cost, acc, *extra = inner_body(st, xc, yc)
+            if with_anomaly:
+                a = extra[-1]
+                flag = a["flag"] if flag is None else flag | a["flag"]
+                counts = (a["counts"] if counts is None
+                          else counts + a["counts"])
         # what this site's H steps moved the round-start weights by, in
         # f32 so small steps on low-precision params average exactly
         delta = {k: p0.to(torch.float32) - st.params[k].to(torch.float32)
                  for k, p0 in params0.items()}
         new_opt = {"inner": st.opt_state}
         if quantize:
-            with record_function("quant"):
+            with tracer_lib.scope("quant"):
                 pairs = {k: quant_lib.ef_compress_int8(
                     d, state.opt_state["ef"][k]) for k, d in delta.items()}
             delta = {k: p[0] for k, p in pairs.items()}
             new_opt["ef"] = {k: p[1] for k, p in pairs.items()}
-        with record_function("outer_sync"):
+        with tracer_lib.scope("outer_sync"):
             # the one parameter-sized collective crossing 'site'
             delta = _site_mean_tree(delta, mesh)
             new_params, new_opt["outer"] = outer.update(
                 delta, state.opt_state["outer"], params0)
         stats = mesh_lib.site_mean(
             torch.stack([cost, acc.to(cost.dtype)]), mesh)
-        return TrainState(st.step, new_params, new_opt), stats[0], stats[1]
+        out = (TrainState(st.step, new_params, new_opt), stats[0], stats[1])
+        if with_anomaly:
+            dist.all_reduce(counts, group=mesh.site_group)
+            out += ({"flag": flag | torch.any(counts > 0),
+                     "counts": counts},)
+        return out
 
     return round_step
 

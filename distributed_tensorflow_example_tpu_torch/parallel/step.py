@@ -634,8 +634,8 @@ def make_sync_step_body(cfg, spec, optimizer, with_norms: bool = False,
     return body
 
 
-def make_local_step_body(cfg, spec, optimizer, host: bool = True
-                         ) -> Callable:
+def make_local_step_body(cfg, spec, optimizer, host: bool = True,
+                         with_anomaly: bool = False) -> Callable:
     """The async analog's step (local SGD): ``(state, x, y,
     step_index=None) -> (state, cost, acc)`` on this rank's own replica
     and rows, with no collective on the params: each rank applies its
@@ -645,7 +645,10 @@ def make_local_step_body(cfg, spec, optimizer, host: bool = True
     device-resident epoch's (``host=False``, JAX's whole-run local
     program) applies neither, as JAX's does.  No dropout: the config
     refuses ``--dropout_rate`` with ``--sync_period`` > 1, and tensor
-    parallelism, with JAX's message."""
+    parallelism, with JAX's message.  ``with_anomaly`` (``--debug_nans``)
+    appends the synchronous step's ``{"flag", "counts"}``: the
+    non-finite elements of the replicas' gradients and losses summed
+    over the ranks, so every rank flags the same step."""
     if getattr(cfg, "model_parallel", 1) != 1:
         raise ValueError(LOCAL_SGD_TP_REFUSED)
     names = sorted(param_shapes(spec))
@@ -659,12 +662,22 @@ def make_local_step_body(cfg, spec, optimizer, host: bool = True
             spec, leaves, x, y, cfg.naive_ce, cfg.pallas, smoothing, remat)
         grads = dict(zip(names, torch.autograd.grad(
             objective, [leaves[k] for k in names])))
+        if with_anomaly:
+            bad = torch.cat([_leaf_nonfinite(grads, names),
+                             (~torch.isfinite(cost.detach())).to(
+                                 torch.int32)[None]])
+            mesh_lib.world_all_reduce(bad)
+            counts = bad[:-1]
+            flag = torch.any(bad > 0)
         if host and cfg.grad_clip > 0:
             grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
         new_params, new_opt = optimizer.update(grads, state.opt_state,
                                                state.params)
         cost, acc = mean_over_ranks(cost.detach(), acc)
-        return TrainState(state.step + 1, new_params, new_opt), cost, acc
+        out = (TrainState(state.step + 1, new_params, new_opt), cost, acc)
+        if with_anomaly:
+            out += ({"flag": flag, "counts": counts},)
+        return out
 
     return body
 

@@ -54,6 +54,7 @@ import torch
 from . import kv_cache as kvc
 from . import scheduler as sched_lib
 from ..device import DeviceLike, resolve_device
+from ..obs import tracer as tracer_lib
 from ..obs.spans import new_trace_id, parse_traceparent
 from ..resilience.restart import backoff_s
 from .admission import BrownoutPolicy, ShedError, retry_after_hint
@@ -483,7 +484,8 @@ class DecodeEngine:
         """[B] sampled tokens as a host array; no noise is drawn when
         every row is greedy."""
         gen = self._generator(domain) if (temps > 0).any() else None
-        nxt = kvc.sample_tokens(logits, gen, self._tensor(temps))
+        with tracer_lib.scope("sampling"):
+            nxt = kvc.sample_tokens(logits, gen, self._tensor(temps))
         return nxt.cpu().numpy()
 
     def _run_prefill(self, rid: int) -> None:
@@ -501,9 +503,10 @@ class DecodeEngine:
         bt[0, :len(own)] = own
         toks = np.zeros((1, pb), np.int64)
         toks[0, :p] = res.prompt
-        logits, self.cache = kvc.prefill_into_pages(
-            self.spec, self.params, self.cache, self._tensor(bt),
-            self._tensor(toks), self._tensor(np.asarray([p], np.int64)))
+        with tracer_lib.scope("prefill"):
+            logits, self.cache = kvc.prefill_into_pages(
+                self.spec, self.params, self.cache, self._tensor(bt),
+                self._tensor(toks), self._tensor(np.asarray([p], np.int64)))
         tok = int(self._sample(
             logits, np.asarray([self._temps[rid]], np.float32),
             2 * rid)[0])
@@ -535,9 +538,10 @@ class DecodeEngine:
             pos[i] = seq.length - 1
             temp[i] = self._temps[rid]
         self._tick += 1
-        logits, self.cache = kvc.paged_decode_step(
-            self.spec, self.params, self.cache, self._tensor(bt),
-            self._tensor(tok), self._tensor(pos))
+        with tracer_lib.scope("decode"):
+            logits, self.cache = kvc.paged_decode_step(
+                self.spec, self.params, self.cache, self._tensor(bt),
+                self._tensor(tok), self._tensor(pos))
         out = self._sample(logits, temp, 2 * self._tick + 1)
         now = time.monotonic()
         for i, rid in enumerate(rids):

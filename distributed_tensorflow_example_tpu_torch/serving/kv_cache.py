@@ -37,6 +37,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..models import transformer as tfm
 from ..models.mlp import _ACTIVATIONS
+from ..obs import tracer as tracer_lib
 from ..ops import paged_attention as pa
 from ..ops import quant as quant_lib
 
@@ -103,15 +104,17 @@ class PagedKV:
             pool = pa.scatter_kv_rows(self.cache[name], self._page_ids,
                                       self._rows, vals)
             return pa.gather_kv(pool, self.block_table)
-        q, s = quant_lib.quantize_int8(vals, axis=-1)       # [B, H, (1)]
+        with tracer_lib.scope("quant"):
+            q, s = quant_lib.quantize_int8(vals, axis=-1)   # [B, H, (1)]
         pool = pa.scatter_kv_rows(self.cache[name], self._page_ids,
                                   self._rows, q)
         plane = pa.scatter_kv_rows(self.cache[f"{name}_s"], self._page_ids,
                                    self._rows, s[..., 0])
         cq = pa.gather_kv(pool, self.block_table)           # int8
         cs = pa.gather_kv(plane, self.block_table)          # [B, S, H]
-        return quant_lib.dequantize_int8(cq, cs[..., None],
-                                         self.dequant_dtype)
+        with tracer_lib.scope("quant"):
+            return quant_lib.dequantize_int8(cq, cs[..., None],
+                                             self.dequant_dtype)
 
     def update(self, i: int, kk, vv):
         # gather AFTER the write: position pos attends to itself
@@ -173,7 +176,8 @@ def prefill_into_pages(spec: tfm.TransformerSpec, params, cache,
         if not quantized:
             pa.scatter_prefill_rows(cache[name], page_ids, rows, vals)
             return
-        q, s = quant_lib.quantize_int8(vals, axis=-1)
+        with tracer_lib.scope("quant"):
+            q, s = quant_lib.quantize_int8(vals, axis=-1)
         pa.scatter_prefill_rows(cache[name], page_ids, rows, q)
         pa.scatter_prefill_rows(cache[f"{name}_s"], page_ids, rows,
                                 s[..., 0])

@@ -38,8 +38,11 @@ write the ``cost``/``accuracy`` scalar summaries every step and the
 graph record once (``--logs_path``; chief only unless
 ``--summaries_all_hosts``), evaluate the test split in chunks
 (``step.eval_chunk_cap`` bounds a transformer's), for the lm objective
-sample ``--sample_after`` sequences with the KV-cached ``generate``
-into ``logs_path/samples.npz``, save ``.npz`` checkpoints in the JAX
+sample ``--sample_after`` sequences with the KV-cached decode into
+``logs_path/samples.npz`` (routed as JAX's trainer routes them:
+``generate_sharded`` on the Megatron shards under TP outside PP, FSDP
+and local SGD, else ``generate_dp`` over the data axis and
+``dp_samples_host``), save ``.npz`` checkpoints in the JAX
 package's layouts (``--checkpoint_dir``, every ``--checkpoint_every``
 steps, at epoch ends on the fast path, and at the end; one ``.npz``, or
 ``ckpt-N.shards/`` under ``--sharded_checkpoints``, written from a
@@ -137,14 +140,17 @@ Monitoring (``obs/``), as in the JAX trainer:
   learning rate as summaries every ``--log_every`` steps (host path);
 - ``--profile`` / ``--profile_steps``: a ``torch.profiler`` capture
   written as a Chrome trace under ``<logs_path>/profile/``, the host
-  phases as ``record_function`` and NVTX ranges; the chief prints
-  ``PROFILE_GRAPH_NOTE`` once, since the JAX trainer's graph dump beside
-  the trace is not ported yet;
+  phases as ``record_function`` and NVTX ranges; the chief dumps the
+  first step's graph beside it (``utils/graph.py``, JAX's ``utils/hlo``
+  dump): ``train_step.aten.txt``, and ``train_step.cudagraph.dot`` where
+  the step is a captured CUDA graph;
 - ``--status_port``: the status server over ``logs_path`` for the run's
   lifetime;
 - ``--early_stop_patience``: the validation split after every epoch;
   ``--debug_nans``: the host path, ``FloatingPointError`` at the first
-  non-finite loss or gradient.
+  non-finite loss or gradient, on every strategy (the synchronous,
+  FSDP, local-SGD and site steps return the flag, reduced over every
+  rank, so all ranks raise at one step).
 """
 
 from __future__ import annotations
@@ -172,20 +178,13 @@ from ..parallel import mesh as mesh_lib
 from ..parallel import step as step_lib
 from ..parallel import zero as zero_lib
 from ..utils import checkpoint as ckpt_lib
+from ..utils import graph as graph_lib
 from ..utils import prng
 from ..utils.sync import hard_sync
 from ..utils.summary import (SummaryWriter, mlp_graph_nodes,
                              transformer_graph_nodes)
 from .optim import make_optimizer
 from .state import create_train_state
-
-# what --profile / --profile_steps print once a run on the chief: the
-# graph files the JAX trainer writes beside its trace (its utils/hlo
-# dump_graph) and this package does not write yet
-PROFILE_GRAPH_NOTE = (
-    "NOTE: {flag}: the JAX trainer also writes train_step.stablehlo.txt "
-    "and train_step.hlo.txt into --logs_path; this port does not write "
-    "them yet (a torch graph dump is queued in ROADMAP.md, Queue A item 1)")
 
 
 def make_spec(cfg: Config):
@@ -285,33 +284,61 @@ def _eval_accuracy(eval_step, params, images: np.ndarray,
 
 
 def _sample(cfg: Config, spec, params, images: np.ndarray, device,
-            chief: bool, model_axis=None) -> None:
+            chief: bool, mesh: mesh_lib.Mesh, tp_decode: bool) -> None:
     """KV-cached decoding from the first test examples' opening
     ``seq_len // 8`` tokens (greedy at ``--sample_temperature`` 0), saved
     by the chief to ``logs_path/samples.npz`` as the JAX trainer saves
-    them.  ``model_axis``: ``params`` are this rank's Megatron shards
-    and the decode runs tensor-parallel (``generate_sharded``)."""
+    them, routed as JAX's trainer routes them: under ``tp_decode``
+    ``params`` are this rank's Megatron shards and every rank decodes
+    the whole prompt set tensor-parallel (``generate_sharded``);
+    otherwise ``params`` are whole and the prompts shard over the data
+    axis (``generate_dp``), their rows gathered back on every rank
+    (``dp_samples_host``)."""
     n_s = min(cfg.sample_after, images.shape[0])
     if not n_s:
         return
     prompt_len = max(1, spec.seq_len // 8)
     prompts = tfm.tokenize(spec, torch.from_numpy(images[:n_s]).to(
         device))[:, :prompt_len]
-    gen = (torch.Generator(device=device).manual_seed(cfg.seed)
-           if cfg.sample_temperature > 0 else None)
-    if model_axis is not None:
-        samples = tfm.generate_sharded(spec, params, prompts, model_axis,
+    sampled = cfg.sample_temperature > 0
+    if tp_decode:
+        gen = (torch.Generator(device=device).manual_seed(cfg.seed)
+               if sampled else None)
+        samples = tfm.generate_sharded(spec, params, prompts,
+                                       mesh_lib.model_axis(mesh),
                                        generator=gen,
                                        temperature=cfg.sample_temperature)
     else:
-        samples = tfm.generate(spec, params, prompts, generator=gen,
-                               temperature=cfg.sample_temperature)
+        out, n = tfm.generate_dp(
+            spec, params, prompts, mesh,
+            generator_seed=cfg.seed if sampled else None,
+            temperature=cfg.sample_temperature)
+        samples = tfm.dp_samples_host(out, n, mesh)
     if chief:
         os.makedirs(cfg.logs_path, exist_ok=True)
         path = os.path.join(cfg.logs_path, "samples.npz")
         np.savez(path, samples=samples.cpu().numpy().astype(np.int32),
                  prompt_len=prompt_len, vocab_size=spec.vocab_size)
         print(f"Sampled {n_s} sequences -> {path}")
+
+
+def tp_decode(cfg: Config, mesh: mesh_lib.Mesh) -> bool:
+    """Whether ``--sample_after`` decodes tensor-parallel on the Megatron
+    shards (``generate_sharded``), as JAX's trainer routes it: TP live
+    and the run neither PP, FSDP nor local SGD (``--sites`` is not in
+    the condition: it refuses TP); else ``generate_dp``."""
+    return mesh.mp > 1 and not (mesh.pp > 1 or cfg.fsdp
+                                or cfg.sync_period > 1)
+
+
+def _gather_model(params: dict, spec, mesh: mesh_lib.Mesh,
+                  pipeline: bool) -> dict:
+    """``params`` with every leaf split over the model axis whole: this
+    rank's Megatron shard all-gathered over the model group (the
+    stacked layout's dims under ``pipeline``)."""
+    dims = mesh_lib.param_pspecs(spec, mesh.mp, pipeline)
+    return {k: mesh_lib.gather_leaf(v, dims.get(k), mesh.model_group,
+                                    mesh.mp) for k, v in params.items()}
 
 
 def _gather_stages(params: dict, spec, mesh: mesh_lib.Mesh,
@@ -453,8 +480,9 @@ def setup_strategy(cfg: Config, spec, optimizer, state, mesh: mesh_lib.Mesh,
         outer = local_sgd_lib.outer_optimizer_from_config(cfg)
         return Strategy(
             state=local_sgd_lib.site_state(state, outer, cfg.outer_quant),
-            body=local_sgd_lib.build_local_sgd_step(cfg, mesh, spec,
-                                                    optimizer, outer),
+            body=local_sgd_lib.build_local_sgd_step(
+                cfg, mesh, spec, optimizer, outer,
+                with_anomaly=cfg.debug_nans),
             get_params=local_sgd_lib.build_site_unstack_params(mesh),
             layout=ckpt_lib.Layout(mesh, local_sgd_lib.site_block))
     d_idx, m_idx = mesh.data_index, mesh.model_index
@@ -467,8 +495,9 @@ def setup_strategy(cfg: Config, spec, optimizer, state, mesh: mesh_lib.Mesh,
         return Strategy(
             state=fsdp_lib.local_rows(fsdp_lib.shard_state_host(
                 state, dp, mp, tp_dims), d_idx, m_idx, mp),
-            body=fsdp_lib.make_fsdp_step_body(cfg, spec, dp, optimizer,
-                                              full_template, mp, mesh),
+            body=fsdp_lib.make_fsdp_step_body(
+                cfg, spec, dp, optimizer, full_template, mp, mesh,
+                with_anomaly=cfg.debug_nans),
             get_params=fsdp_lib.build_gather_params(full_template, mesh,
                                                     spec),
             layout=ckpt_lib.Layout(mesh, lambda k, a: (
@@ -478,8 +507,9 @@ def setup_strategy(cfg: Config, spec, optimizer, state, mesh: mesh_lib.Mesh,
     if cfg.sync_period > 1:
         return Strategy(
             state=state,
-            body=step_lib.make_local_step_body(cfg, spec, optimizer,
-                                               host=not fast),
+            body=step_lib.make_local_step_body(
+                cfg, spec, optimizer, host=not fast,
+                with_anomaly=cfg.debug_nans),
             get_params=step_lib.consensus_params,
             layout=ckpt_lib.Layout(mesh, lambda k, a: (
                 ckpt_lib.Block(("data",)) if k != ".step" else None)),
@@ -986,10 +1016,12 @@ def run(cfg: Config) -> Dict[str, Any]:
         # whole-run --profile starts here; --profile_steps windows open
         # at their step.  Either way the finally stops the capture
         tracer.begin_run()
-        if chief and (cfg.profile or profile_window is not None):
-            print(PROFILE_GRAPH_NOTE.format(
-                flag="--profile" if cfg.profile else "--profile_steps"),
-                flush=True)
+        # and the chief dumps the first step's graph beside the trace
+        # (utils/graph.py, JAX's utils/hlo dump): the fast path's first
+        # step (its capture on the MLP's graph path), or the host path's
+        graph_dump = (graph_lib.GraphDump(cfg.logs_path)
+                      if chief and (cfg.profile or profile_window is not None)
+                      else None)
 
         # --early_stop_patience: the validation split after every epoch;
         # best_val and val_wait ride the checkpoints' extras, so a
@@ -1266,6 +1298,7 @@ def run(cfg: Config) -> Dict[str, Any]:
                     cfg, spec, optimizer, batch_count, n_ep, dev,
                     body=train_body, sync_period=strat.sync_period,
                     mesh=mesh)
+                runner.dump = graph_dump
                 tracer.on_range(start_epoch * batch_count,
                                 (start_epoch + n_ep) * batch_count)
                 if flight is not None:
@@ -1296,6 +1329,7 @@ def run(cfg: Config) -> Dict[str, Any]:
                 epoch_runner = epoch_lib.build_epoch_runner(
                     cfg, spec, optimizer, batch_count, dev, body=train_body,
                     mesh=mesh)
+                epoch_runner.run1.dump = graph_dump
                 for epoch in range(start_epoch, cfg.training_epochs):
                     tracer.on_range(epoch * batch_count,
                                     (epoch + 1) * batch_count)
@@ -1328,10 +1362,11 @@ def run(cfg: Config) -> Dict[str, Any]:
                         break
         else:
             # the sync step returns its non-finite flag and counts; the
-            # FSDP and local-SGD steps do not, and there the policy reads
-            # the loss at the print fetch, as in JAX
-            want_anomaly = ((policy is not None or cfg.debug_nans)
-                            and not unstack_mode)
+            # FSDP, local-SGD and site steps only under --debug_nans, and
+            # there the policy reads the loss at the print fetch, as in
+            # JAX
+            want_anomaly = ((policy is not None and not unstack_mode)
+                            or cfg.debug_nans)
             # every rank draws the global batch JAX's one-process loader
             # draws and takes its rows of it, as device r does (and its
             # token columns under sequence parallelism: a view of the
@@ -1563,8 +1598,12 @@ def run(cfg: Config) -> Dict[str, Any]:
                         t_disp = time.perf_counter()
                         with tracer.step_annotation(steps_done), \
                                 tracer.annotate("dispatch"):
-                            state, cost_dev, acc_dev, *extra = train_body(
-                                state, x, y)
+                            if graph_dump is not None:
+                                state, cost_dev, acc_dev, *extra = \
+                                    graph_dump.record(train_body, state, x, y)
+                            else:
+                                state, cost_dev, acc_dev, *extra = \
+                                    train_body(state, x, y)
                         if site_mode:
                             # one step = one round (H inner steps and
                             # the outer sync): its host dispatch wall
@@ -1708,21 +1747,21 @@ def run(cfg: Config) -> Dict[str, Any]:
         t_sample = time.perf_counter()
         if cfg.sample_after > 0 and cfg.model == "transformer" \
                 and cfg.objective == "lm":
-            # TP decode on the shards (JAX's generate_sharded); FSDP's
-            # gathered params decode whole, as JAX's generate_dp; the
-            # experts gathered over the expert group, every rank then
-            # decoding the whole prompt set
+            # outside TP decode (tp_decode) whole params: FSDP's
+            # gathered, the stages (and a PP run's Megatron shards) and
+            # the experts gathered first
             params = (final_params
                       if final_params is not None and not fsdp_mode
                       else full_params())
             if pp_mode:
+                if mesh.mp > 1:
+                    params = _gather_model(params, spec, mesh, True)
                 params = _gather_stages(params, spec, mesh,
                                         cfg.virtual_stages)
             if mesh.ep > 1:
                 params = _gather_experts(params, spec, mesh)
             _sample(cfg, spec, params, dataset.test.images, dev, chief,
-                    model_axis=(None if fsdp_mode
-                                else mesh_lib.model_axis(mesh)))
+                    mesh, tp_decode(cfg, mesh))
         phase_s["sample"] += time.perf_counter() - t_sample
         ckpt_stats = None
         if cfg.checkpoint_dir:

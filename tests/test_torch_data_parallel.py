@@ -20,7 +20,18 @@ with ``convert.mlp_params_from_numpy``) on the same synthetic data.
 - a top-2 MoE transformer (dense dispatch) under ``--moe_aux_weight``:
   the balance loss's f and P are means over the data axis before they
   combine, as JAX's ``pmean`` over ``aux_axes`` makes them, so the
-  costs and the final params equal JAX's dp=2 run.
+  costs and the final params equal JAX's dp=2 run;
+- ``--sample_after`` through ``generate_dp``: a tiny lm at dp 2, 3
+  greedy prompts (each rank decodes the 2 rows of its data index), its
+  ``samples.npz`` bitwise JAX's dp=2 run's; at a temperature, each
+  rank's generator seeded from the seed folded with its data index;
+- ``--debug_nans`` on the blow-up under ``--fsdp``, ``--sync_period=3``
+  and ``--sites=2``: both ranks raise at JAX's step (JAX's runs each in
+  a process of its own), FSDP's blame the synchronous step's;
+- a CPU profiler over a site round and a pipeline run: the
+  ``outer_sync``, ``quant`` and ``pp_comm`` scopes; and, in this
+  process, ``generate_dp``'s padding and count, its dp-1 form and its
+  ``model_axis`` form against ``generate_sharded``.
 
 Tolerances (f32; the sums run in other orders): printed costs as parsed
 numbers within 1e-4 (one unit in their last printed place), test
@@ -32,6 +43,7 @@ and ``launch_ranks`` also serve ``tests/test_torch_sharded_state.py``.
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import socket
@@ -42,6 +54,8 @@ import time
 import jax
 import numpy as np
 import pytest
+import torch
+import torch.distributed as dist
 
 from distributed_tensorflow_example_tpu import config as jconfig
 from distributed_tensorflow_example_tpu.data import mnist as jmnist
@@ -49,6 +63,7 @@ from distributed_tensorflow_example_tpu.train import loop as jloop
 from distributed_tensorflow_example_tpu.train import optim as joptim
 from distributed_tensorflow_example_tpu.train import state as jstate
 from distributed_tensorflow_example_tpu_torch import main as tmain
+from distributed_tensorflow_example_tpu_torch.train import loop as tloop
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -69,6 +84,7 @@ from distributed_tensorflow_example_tpu_torch import config as tconfig
 from distributed_tensorflow_example_tpu_torch import convert
 from distributed_tensorflow_example_tpu_torch.data import mnist as tmnist
 from distributed_tensorflow_example_tpu_torch.models import transformer
+from distributed_tensorflow_example_tpu_torch.obs.buckets import NAMED_SCOPES
 from distributed_tensorflow_example_tpu_torch.train import loop as tloop
 from distributed_tensorflow_example_tpu_torch.train import state as tstate
 
@@ -100,16 +116,34 @@ def run_job(job):
     data = tmnist.synthesize_dataset(seed=0, **job["sizes"])
     tloop.load_datasets = lambda *a, **k: data
     tloop.create_train_state = port_init(job["init"])
+    # each decode this rank runs: its rows and its generator's seed
+    decodes, real_generate = [], transformer.generate
+
+    def generate(spec, params, prompt, generator=None, **kw):
+        decodes.append({"rows": int(prompt.shape[0]), "seed": (
+            None if generator is None else generator.initial_seed())})
+        return real_generate(spec, params, prompt, generator=generator,
+                             **kw)
+
+    transformer.generate = generate
+    # the named scopes a CPU profiler saw over the whole run
+    prof = (torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+        if job.get("scopes") else contextlib.nullcontext())
     buf = io.StringIO()
     try:
-        with contextlib.redirect_stdout(buf):
+        with contextlib.redirect_stdout(buf), prof:
             res = tloop.run(cfg)
         err = None
     except Exception as e:
         res, err = None, f"{type(e).__name__}: {e}"
+    finally:
+        transformer.generate = real_generate
+    scopes = (sorted({e.name for e in prof.events()} & set(NAMED_SCOPES))
+              if job.get("scopes") else None)
     with open(os.path.join(out_dir, f"{job['name']}.{rank}.json"), "w") as f:
-        json.dump({"stdout": buf.getvalue(), "result": res, "error": err},
-                  f, default=str)
+        json.dump({"stdout": buf.getvalue(), "result": res, "error": err,
+                   "decodes": decodes, "scopes": scopes}, f, default=str)
 
 
 def step_checks(job):
@@ -156,6 +190,36 @@ def step_checks(job):
 for job in plan["jobs"]:
     (step_checks if job.get("steps") else run_job)(job)
 dist.destroy_process_group()
+'''
+
+
+# one JAX --debug_nans run in a process of its own (JAX sets
+# jax_debug_nans for the process, and a second such run in the same
+# process dies in JAX's re-trace): its stdout and the error it raised
+JAX_NANS_SCRIPT = r'''
+import contextlib, io, json, os, sys
+sys.path.insert(0, os.getcwd())
+from __graft_entry__ import force_cpu_device_flags
+os.environ["XLA_FLAGS"] = force_cpu_device_flags(
+    os.environ.get("XLA_FLAGS", ""), 8)
+import jax
+jax.config.update("jax_platforms", "cpu")
+from distributed_tensorflow_example_tpu import config as jconfig
+from distributed_tensorflow_example_tpu.data import mnist as jmnist
+from distributed_tensorflow_example_tpu.train import loop as jloop
+
+job = json.loads(sys.argv[1])
+data = jmnist.synthesize_dataset(seed=0, **job["sizes"])
+jloop.load_datasets = lambda *a, **k: data
+buf = io.StringIO()
+try:
+    with contextlib.redirect_stdout(buf):
+        jloop.run(jconfig.Config(**job["cfg"]))
+    err = None
+except FloatingPointError as e:
+    err = f"FloatingPointError: {e}"
+with open(job["out"], "w") as f:
+    json.dump({"stdout": buf.getvalue(), "error": err}, f)
 '''
 
 
@@ -301,6 +365,22 @@ MOE_AUX_KW = dict(model="transformer", input_size=64, seq_len=16,
                   eval_batch_size=16, summaries=False, training_epochs=1,
                   seed=3)
 MOE_AUX_SIZES = dict(train_size=64, test_size=16, input_size=64)
+# a tiny lm sampled after 2 steps: 3 prompts (odd, so one pad row at dp
+# 2), greedy and at a temperature
+LM_KW = dict(model="transformer", objective="lm", input_size=16,
+             seq_len=16, vocab_size=32, d_model=16, n_heads=2, num_blocks=1,
+             d_ff=32, dataset="synthetic", batch_size=8, learning_rate=0.1,
+             optimizer="momentum", frequency=1, eval_batch_size=8,
+             summaries=False, training_epochs=1, seed=3, sample_after=3,
+             sample_temperature=0.0)
+LM_SIZES = dict(train_size=16, test_size=4, input_size=16)
+# --debug_nans on the blow-up (the MLP at learning rate 1e30) under each
+# strategy that took no non-finite flag before; "nans_sync" is the
+# synchronous step's, whose blame FSDP's must equal
+NANS_KW = dict(MLP_KW, learning_rate=1e30, naive_ce=True, frequency=1,
+               optimizer="sgd", fast_loop=False, debug_nans=True)
+NANS = {"nans_sync": {}, "nans_fsdp": dict(fsdp=True),
+        "nans_local": dict(sync_period=3), "nans_sites": dict(sites=2)}
 
 
 @pytest.fixture(scope="module")
@@ -321,8 +401,52 @@ def dp_runs(tmp_path_factory):
     jobs.append(dict(name="moe_aux", init=moe_init, sizes=MOE_AUX_SIZES,
                      cfg=dict(MOE_AUX_KW,
                               checkpoint_dir=str(tmp / "torch_moe_aux"))))
-    port = launch_ranks(dict(out=str(tmp / "out"), jobs=jobs), tmp)
+    lm_init = str(tmp / "init_lm.npz")
+    save_init(jconfig.Config(**LM_KW), lm_init)
+    pp_init = str(tmp / "init_pp.npz")
+    save_init(jconfig.Config(**dict(LM_KW, num_blocks=2)), pp_init)
+    for name, extra in (("lm_greedy", {}),
+                        ("lm_temp", dict(sample_temperature=0.7))):
+        jobs.append(dict(name=name, init=lm_init, sizes=LM_SIZES, cfg=dict(
+            LM_KW, **extra, logs_path=str(tmp / f"torch_logs_{name}"))))
+    for name, extra in NANS.items():
+        jobs.append(dict(name=name, init=init, sizes=SIZES,
+                         cfg=dict(NANS_KW, **extra)))
+    # the scopes that run only across ranks: the site round's outer sync
+    # and its int8 compression, the pipeline's stage hops
+    jobs.append(dict(name="scopes_sites", init=init, sizes=SIZES,
+                     scopes=True, cfg=dict(MLP_KW, fast_loop=False,
+                                           sites=2, outer_quant="int8")))
+    jobs.append(dict(name="scopes_pp", init=pp_init, sizes=LM_SIZES,
+                     scopes=True, cfg=dict(
+                         LM_KW, num_blocks=2, fast_loop=False,
+                         pipeline_parallel=2, microbatches=2,
+                         sample_after=0)))
+    # JAX's --debug_nans runs, each in its own process, beside the ranks
+    nans = {}
+    for name, extra in NANS.items():
+        if name == "nans_sync":
+            continue
+        cfg = dict(NANS_KW, **extra, compilation_cache="",
+                   data_parallel=1 if "sites" in extra else 2)
+        job = dict(cfg=cfg, sizes=SIZES, out=str(tmp / f"jax_{name}.json"))
+        nans[name] = subprocess.Popen(
+            [sys.executable, "-c", JAX_NANS_SCRIPT, json.dumps(job)],
+            cwd=REPO, env=dict(os.environ, OMP_NUM_THREADS="1"),
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    try:
+        port = launch_ranks(dict(out=str(tmp / "out"), jobs=jobs), tmp)
+    finally:
+        for proc in nans.values():
+            if proc.poll() is None and sys.exc_info()[0] is not None:
+                proc.kill()
     jax_runs = {}
+    for name, proc in nans.items():
+        _out, err = proc.communicate(timeout=120)
+        assert proc.returncode == 0, err[-3000:]
+        with open(tmp / f"jax_{name}.json") as f:
+            got = json.load(f)
+        jax_runs[name] = (got["stdout"], got["error"], None)
     for name, extra in CASES.items():
         jcfg = jconfig.Config(**MLP_KW, **extra, data_parallel=2,
                               compilation_cache="",
@@ -332,6 +456,9 @@ def dp_runs(tmp_path_factory):
                           compilation_cache="",
                           checkpoint_dir=str(tmp / "jax_moe_aux"))
     jax_runs["moe_aux"] = run_jax(jcfg, MOE_AUX_SIZES) + (jcfg,)
+    jcfg = jconfig.Config(**LM_KW, data_parallel=2, compilation_cache="",
+                          logs_path=str(tmp / "jax_logs_lm_greedy"))
+    jax_runs["lm_greedy"] = run_jax(jcfg, LM_SIZES) + (jcfg,)
     return dict(port=port, jax=jax_runs, tmp=tmp)
 
 
@@ -486,3 +613,187 @@ def test_chip_smoke_phase_5d_rehearsed_on_the_cpu(monkeypatch):
     assert sorted(runs["fsdp_host"]["collectives_ms"]) == sorted(
         chip_smoke.DP_COLLECTIVES)
     assert runs["zero"]["fast_loop"] is False
+
+
+def test_sample_after_decodes_a_data_shard_and_equals_jax(dp_runs):
+    """``--sample_after=3`` greedy at dp 2 (``generate_dp``): the three
+    prompts padded with a copy of the first to four, each rank decodes
+    the two rows of its data index, and the gathered ``samples.npz`` the
+    chief writes equals JAX's ``--data_parallel=2`` run's, bitwise."""
+    for r in range(2):
+        run = dp_runs["port"]["lm_greedy", r]
+        assert run["error"] is None, run["error"]
+        assert run["decodes"] == [{"rows": 2, "seed": None}]
+    t = npz(dp_runs["tmp"] / "torch_logs_lm_greedy" / "samples.npz")
+    jcfg = dp_runs["jax"]["lm_greedy"][2]
+    j = npz(os.path.join(jcfg.logs_path, "samples.npz"))
+    assert sorted(t) == sorted(j) and t["samples"].shape == (3, 16)
+    for k in j:
+        np.testing.assert_array_equal(t[k], j[k])
+
+
+def test_sample_temperature_draws_per_data_index(dp_runs):
+    """At ``--sample_temperature=0.7`` each rank seeds its generator from
+    the run's seed folded with its data index (so the ranks are seeded
+    apart), and the gathered samples keep the prompt columns and stay in
+    the vocabulary."""
+    from distributed_tensorflow_example_tpu_torch.parallel import step
+
+    seeds = []
+    for r in range(2):
+        run = dp_runs["port"]["lm_temp", r]
+        assert run["error"] is None, run["error"]
+        (decode,) = run["decodes"]
+        assert decode["rows"] == 2
+        seeds.append(decode["seed"])
+    assert seeds == [step._fold(LM_KW["seed"], i) for i in range(2)]
+    assert seeds[0] != seeds[1]
+    t = npz(dp_runs["tmp"] / "torch_logs_lm_temp" / "samples.npz")
+    greedy = npz(dp_runs["tmp"] / "torch_logs_lm_greedy" / "samples.npz")
+    p = int(t["prompt_len"])
+    assert t["samples"].shape == (3, 16)
+    np.testing.assert_array_equal(t["samples"][:, :p],
+                                  greedy["samples"][:, :p])
+    assert 0 <= t["samples"].min() and t["samples"].max() < 32
+
+
+@pytest.mark.parametrize("name", ["nans_fsdp", "nans_local", "nans_sites"])
+def test_debug_nans_raises_on_every_rank_at_jax_step(dp_runs, name):
+    """``--debug_nans`` on the blow-up under ``--fsdp``,
+    ``--sync_period=3`` and ``--sites=2``: both ranks print JAX's steps
+    and raise ``FloatingPointError`` at the step JAX's run raises at (the
+    one after its last print), with one message; FSDP's blame (its
+    gradient shards' counts summed) is the synchronous step's."""
+    j_out, j_err, _ = dp_runs["jax"][name]
+    assert j_err and j_err.startswith("FloatingPointError"), j_err
+    want = len(steps_printed(j_out)) + 1
+    errs = []
+    for r in range(2):
+        run = dp_runs["port"][name, r]
+        assert steps_printed(run["stdout"]) == steps_printed(j_out)
+        assert run["error"].startswith(
+            f"FloatingPointError: --debug_nans: step {want} "), run["error"]
+        errs.append(run["error"])
+    assert errs[0] == errs[1] and "['W1']" in errs[0]
+    if name == "nans_fsdp":
+        assert errs[0] == dp_runs["port"]["nans_sync", 0]["error"]
+
+
+def test_named_scopes_of_the_multi_rank_modes(dp_runs):
+    """A CPU profiler over each rank's run sees the scopes that run only
+    across ranks: ``outer_sync`` and ``quant`` in a site round under
+    ``--outer_quant=int8``, ``pp_comm`` (and ``ln``) in a pipeline run."""
+    for r in range(2):
+        sites = dp_runs["port"]["scopes_sites", r]
+        pp = dp_runs["port"]["scopes_pp", r]
+        assert sites["error"] is None and pp["error"] is None
+        assert {"outer_sync", "quant"} <= set(sites["scopes"])
+        assert {"pp_comm", "ln"} <= set(pp["scopes"])
+
+
+# ---------------------------------------------------------------------------
+# generate_dp and dp_samples_host in this process (no rank launch)
+# ---------------------------------------------------------------------------
+
+# layouts of 8 ranks: (the flags, the mesh's axes)
+ROUTES = {"dp": ({}, {}), "tp": (dict(model_parallel=2), dict(mp=2)),
+          "pp_tp": (dict(model_parallel=2, pipeline_parallel=2),
+                    dict(mp=2, pp=2)),
+          "fsdp_tp": (dict(model_parallel=2, fsdp=True), dict(mp=2)),
+          "ep_tp": (dict(model_parallel=2, expert_parallel=2,
+                         num_experts=4), dict(mp=2, ep=2)),
+          "sp_tp": (dict(model_parallel=2, sequence_parallel=2),
+                    dict(mp=2, sp=2)),
+          "local": (dict(sync_period=3), {}),
+          "sites": (dict(sites=2), dict(sites=2))}
+
+
+@pytest.mark.parametrize("name", sorted(ROUTES))
+def test_sample_route_is_jax(name):
+    """``--sample_after``'s route is JAX's ``train/loop.py`` condition,
+    letter for letter: ``generate_sharded`` where TP is live and the run
+    is neither PP, FSDP nor async (sites refuse TP), ``generate_dp``
+    everywhere else."""
+    from distributed_tensorflow_example_tpu.parallel import mesh as jmesh
+    from distributed_tensorflow_example_tpu_torch.config import Config
+    from distributed_tensorflow_example_tpu_torch.parallel import mesh
+
+    flags, axes = ROUTES[name]
+    cfg = Config(model="transformer", objective="lm", **flags)
+    lay = mesh.Mesh(dp=8 // math.prod(axes.values()), rank=0, **axes)
+    jcfg = jconfig.Config(model="transformer", objective="lm", **flags)
+    want = bool(jmesh.tp_axis(jloop.make_spec(jcfg), jcfg.model_parallel)
+                and not (jcfg.pipeline_parallel > 1 or jcfg.fsdp
+                         or jcfg.sync_period > 1))
+    assert tloop.tp_decode(cfg, lay) is want
+    assert want is (name in ("tp", "ep_tp", "sp_tp"))
+
+
+def _tiny_lm():
+    from distributed_tensorflow_example_tpu_torch.models import (
+        transformer as ttfm)
+
+    spec = ttfm.TransformerSpec(input_size=12, seq_len=12, vocab_size=16,
+                                d_model=16, n_heads=2, num_blocks=1,
+                                d_ff=32, objective="lm", causal=True)
+    params = ttfm.init(spec, seed=0, device="cpu")
+    prompts = torch.randint(0, 16, (5, 3),
+                            generator=torch.Generator().manual_seed(1))
+    return ttfm, spec, params, prompts
+
+
+def test_generate_dp_pads_with_row_0_and_counts():
+    """``generate_dp`` at dp 3 over 5 prompts: padded to 6 with a copy of
+    row 0, rank r decodes rows [2r, 2r + 2) of the padded batch (equal to
+    ``generate`` on them), ``n`` is 5; ``dp_samples_host`` at dp 1 takes
+    ``[:n]`` as int32 with no collective."""
+    from distributed_tensorflow_example_tpu_torch.parallel import mesh
+
+    ttfm, spec, params, prompts = _tiny_lm()
+    padded = torch.cat([prompts, prompts[:1]])
+    for r in range(3):
+        got, n = ttfm.generate_dp(spec, params, prompts,
+                                  mesh.build_mesh(-1, world=3, rank=r))
+        assert n == 5
+        assert torch.equal(got, ttfm.generate(spec, params,
+                                              padded[2 * r:2 * r + 2]))
+    one = mesh.build_mesh(-1)
+    rows, n = ttfm.generate_dp(spec, params, prompts, one)
+    host = ttfm.dp_samples_host(torch.cat([rows, rows[:1]]), n, one)
+    assert host.dtype == torch.int32
+    assert torch.equal(host, rows.to(torch.int32))
+
+
+def test_generate_dp_equals_generate_at_dp_1():
+    """At dp 1 ``generate_dp`` is ``generate`` over every prompt, greedy
+    and, at a temperature, with the generator seeded ``_fold(seed, 0)``."""
+    from distributed_tensorflow_example_tpu_torch.parallel import mesh, step
+
+    ttfm, spec, params, prompts = _tiny_lm()
+    one = mesh.build_mesh(-1)
+    got, n = ttfm.generate_dp(spec, params, prompts, one)
+    assert n == 5 and torch.equal(got, ttfm.generate(spec, params, prompts))
+    got, _ = ttfm.generate_dp(spec, params, prompts, one, generator_seed=7,
+                              temperature=0.8)
+    gen = torch.Generator().manual_seed(step._fold(7, 0))
+    assert torch.equal(got, ttfm.generate(spec, params, prompts,
+                                          generator=gen, temperature=0.8))
+
+
+def test_generate_dp_model_axis_is_generate_sharded():
+    """With ``model_axis`` (a one-rank gloo group in this process) each
+    data shard decodes tensor-parallel: at dp 1 the tokens are
+    ``generate_sharded``'s over the same group."""
+    from distributed_tensorflow_example_tpu_torch.parallel import mesh
+
+    ttfm, spec, params, prompts = _tiny_lm()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        group = dist.group.WORLD
+        got, n = ttfm.generate_dp(spec, params, prompts,
+                                  mesh.build_mesh(-1), model_axis=group)
+        want = ttfm.generate_sharded(spec, params, prompts, group)
+    finally:
+        dist.destroy_process_group()
+    assert n == 5 and torch.equal(got, want)

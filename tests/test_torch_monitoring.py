@@ -23,13 +23,20 @@ on the CPU.
   poller while the port trainer runs.
 - ``--early_stop_patience`` stops at JAX's epoch with JAX's
   ``Validation-Accuracy`` prints and checkpoint extras, on both paths.
+- ``--profile`` / ``--profile_steps`` write the graph dump
+  (``utils/graph.py``) and no JAX file; a failing dump prints its NOTE
+  and the run goes on; a run is bitwise the same with and without
+  ``--profile``; ``NAMED_SCOPES`` is JAX's, and a profiler capture of a
+  MoE step and serve ticks holds seven of the nine scopes.
 """
 
 import contextlib
+import dataclasses
 import glob
 import io
 import json
 import os
+import re
 import socket
 import threading
 import time
@@ -58,6 +65,7 @@ from distributed_tensorflow_example_tpu_torch import convert
 from distributed_tensorflow_example_tpu_torch import main as tmain
 from distributed_tensorflow_example_tpu_torch.data import mnist as tmnist
 from distributed_tensorflow_example_tpu_torch.models import mlp as tmlp
+from distributed_tensorflow_example_tpu_torch.obs import buckets as tbuckets
 from distributed_tensorflow_example_tpu_torch.obs import flops as tflops
 from distributed_tensorflow_example_tpu_torch.obs import metrics as tmetrics
 from distributed_tensorflow_example_tpu_torch.obs import schema as tschema
@@ -65,6 +73,7 @@ from distributed_tensorflow_example_tpu_torch.parallel import step as tstep
 from distributed_tensorflow_example_tpu_torch.train import loop as tloop
 from distributed_tensorflow_example_tpu_torch.train import optim as toptim
 from distributed_tensorflow_example_tpu_torch.train import state as tstate
+from distributed_tensorflow_example_tpu_torch.utils import graph as tgraph
 from distributed_tensorflow_example_tpu_torch.utils import summary as tsummary
 
 # one intra-op thread: the suite runs six test workers (and the rank
@@ -567,12 +576,27 @@ def test_early_stop_matches_jax(tmp_path, fast):
 
 
 # ---------------------------------------------------------------------------
-# --profile / --profile_steps: the graph files JAX writes, named, not written
+# --profile / --profile_steps: the graph dump (utils/graph.py, JAX's
+# utils/hlo) and the named scopes (obs/tracer.scope)
 # ---------------------------------------------------------------------------
 
 # the files the JAX chief writes beside its trace under either flag
 # (its train/loop.dump_graph -> utils/hlo.dump_graph(..., "train_step"))
 JAX_GRAPH_FILES = ("train_step.stablehlo.txt", "train_step.hlo.txt")
+# a --pallas MLP run small enough for the CPU (4 steps)
+GRAPH_RUN = dict(training_epochs=1, batch_size=16, hidden_sizes=(8,),
+                 dataset="synthetic", synthetic_train_size=64,
+                 synthetic_test_size=16, frequency=1, summaries=False,
+                 pallas=True, device="cpu")
+
+
+def _graph_run(tmp, fast, **flags):
+    cfg = tconfig.Config(**GRAPH_RUN, fast_loop=fast, logs_path=str(tmp),
+                         **flags)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = tloop.run(cfg)
+    return res, buf.getvalue()
 
 
 @pytest.mark.parametrize("fast", [False, True], ids=["host", "fast"])
@@ -581,27 +605,175 @@ JAX_GRAPH_FILES = ("train_step.stablehlo.txt", "train_step.hlo.txt")
                          ids=["profile", "profile_steps", "neither"])
 def test_profile_flags_name_the_graph_files_they_do_not_write(
         tmp_path, flags, fast):
-    """Under ``--profile`` or ``--profile_steps`` the port's chief prints
-    one NOTE naming the two graph files the JAX trainer writes into
-    ``--logs_path``, the flag, and ROADMAP.md; it writes neither file and
-    the run finishes.  Without the flags no such NOTE appears."""
-    cfg = tconfig.Config(training_epochs=1, batch_size=16, hidden_sizes=(8,),
-                         dataset="synthetic", synthetic_train_size=64,
-                         synthetic_test_size=16, frequency=5,
-                         summaries=False, fast_loop=fast, device="cpu",
-                         logs_path=str(tmp_path), **flags)
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        res = tloop.run(cfg)
+    """Under ``--profile`` or ``--profile_steps`` the port's chief writes
+    its graph dump into ``--logs_path`` in place of JAX's two files
+    (which it does not write): ``train_step.aten.txt``, one step's ATen
+    operators (forward, backward and the update) with the kernel
+    wrapper's line in its place (on the CPU: ``PLAIN mlp_forward``, its
+    plain version's operators after it), and one NOTE saying why no
+    ``train_step.cudagraph.dot`` (on the CPU no step is a captured CUDA
+    graph); the run finishes.  Without the flags nothing is written."""
+    res, out = _graph_run(tmp_path, fast, **flags)
     assert res["fast_loop"] is fast and res["steps"] == 4
-    notes = [ln for ln in buf.getvalue().splitlines()
-             if ln.startswith("NOTE:") and JAX_GRAPH_FILES[1] in ln]
+    written = sorted(f for f in os.listdir(str(tmp_path))
+                     if f.startswith("train_step."))
     for name in JAX_GRAPH_FILES:
-        assert not os.path.exists(os.path.join(str(tmp_path), name))
+        assert name not in written
+    notes = [ln for ln in out.splitlines()
+             if ln.startswith("NOTE:") and "train_step" in ln]
     if not flags:
-        assert notes == []
+        assert written == [] and notes == []
         return
-    flag = "--profile" if "profile" in flags else "--profile_steps"
-    assert notes == [tloop.PROFILE_GRAPH_NOTE.format(flag=flag)]
-    assert all(name in notes[0] for name in JAX_GRAPH_FILES)
-    assert f"NOTE: {flag}:" in notes[0] and "ROADMAP.md" in notes[0]
+    assert written == ["train_step.aten.txt"]
+    assert notes == [f"NOTE: no train_step.cudagraph.dot: {tgraph.NO_GRAPH}"]
+    with open(os.path.join(str(tmp_path), "train_step.aten.txt")) as f:
+        lines = f.read().splitlines()
+    assert lines[0].startswith("# train_step: the ATen operators")
+    ops = [ln.split("(", 1)[0] for ln in lines if ln.startswith("aten.")]
+    # the forward's two products and the backward's three, the loss's
+    # backward, SGD's update
+    assert ops.count("aten.mm.default") == 5
+    assert "aten._log_softmax_backward_data.default" in ops
+    assert "aten.sub.Tensor" in ops
+    plain = [i for i, ln in enumerate(lines)
+             if ln.startswith("PLAIN mlp_forward(f32[16, 784] cpu")]
+    assert len(plain) == 1 and lines[plain[0] + 1].startswith("aten.")
+    assert not any(ln.startswith("KERNEL ") for ln in lines)
+
+
+def test_graph_dump_failure_prints_a_note_and_the_run_goes_on(
+        tmp_path, monkeypatch):
+    """A dump whose recording raises writes nothing, prints ``NOTE: graph
+    dump for 'train_step' failed: ...`` once, and the run finishes with
+    the costs of a run without the flag."""
+    def boom(_x):
+        raise RuntimeError("no describing this")
+
+    plain_res, plain_out = _graph_run(tmp_path / "plain", False)
+    monkeypatch.setattr(tgraph, "_describe", boom)
+    res, out = _graph_run(tmp_path / "prof", False, profile=True)
+    assert [ln for ln in out.splitlines() if "graph dump" in ln] == [
+        "NOTE: graph dump for 'train_step' failed: no describing this"]
+    assert not any(f.startswith("train_step.")
+                   for f in os.listdir(str(tmp_path / "prof")))
+    assert res["steps"] == plain_res["steps"] == 4
+    assert COSTS.findall(out) == COSTS.findall(plain_out)
+
+
+COSTS = re.compile(r"Cost: (\S+)|Test-Accuracy: (\S+)|Final Cost: (\S+)")
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["host", "fast"])
+def test_profile_run_is_bitwise_a_run_without_it(tmp_path, fast):
+    """The dump records the step the run takes anyway: every printed
+    cost and accuracy, and the final params, are bitwise those of the
+    same run without ``--profile`` (an MLP under ``--pallas`` and a
+    flash + fused-LN transformer, whose plain versions run inside the
+    recorded step)."""
+    tfm = dict(model="transformer", attention="flash", fused_ln=True,
+               causal=True, input_size=32, seq_len=16, d_model=16,
+               n_heads=2, num_blocks=1, d_ff=32, optimizer="adam",
+               batch_size=4, synthetic_train_size=16, synthetic_test_size=4)
+    for name, extra in (("mlp", {}), ("tfm", tfm)):
+        got = {}
+        for flag in (False, True):
+            d = tmp_path / f"{name}_{flag}"
+            cfg = tconfig.Config(**dict(GRAPH_RUN, **extra), fast_loop=fast,
+                                 profile=flag, logs_path=str(d),
+                                 checkpoint_dir=str(d / "ckpt"))
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                tloop.run(cfg)
+            with np.load(glob.glob(str(d / "ckpt" / "*.npz"))[-1]) as z:
+                params = {k: z[k] for k in z.files}
+            got[flag] = (COSTS.findall(buf.getvalue()), params)
+        assert got[True][0] == got[False][0] and got[False][0], name
+        assert sorted(got[True][1]) == sorted(got[False][1])
+        for k, v in got[False][1].items():
+            np.testing.assert_array_equal(got[True][1][k], v, err_msg=k)
+
+
+def test_dump_graph_runs_the_step_once_and_writes_its_operators(tmp_path):
+    """``dump_graph(step, args, logs_path, name)`` calls ``step`` once,
+    returns its result with the paths written, and the file lists the
+    step's operators in order with their shapes, dtypes and devices."""
+    calls = []
+
+    def step(a, b):
+        calls.append(1)
+        return (a @ b).relu().sum()
+
+    a, b = torch.ones(3, 4), torch.ones(4, 2)
+    out, paths = tgraph.dump_graph(step, (a, b), str(tmp_path), "probe")
+    assert calls == [1] and float(out) == 24.0
+    assert paths == [str(tmp_path / "probe.aten.txt")]
+    with open(paths[0]) as f:
+        lines = f.read().splitlines()
+    assert lines[2:] == [
+        "aten.mm.default(f32[3, 4] cpu, f32[4, 2] cpu) -> f32[3, 2] cpu",
+        "aten.relu.default(f32[3, 2] cpu) -> f32[3, 2] cpu",
+        "aten.sum.default(f32[3, 2] cpu) -> f32[] cpu"]
+
+
+def test_named_scopes_are_jax_and_unknown_names_raise():
+    """The port's ``NAMED_SCOPES`` is JAX's tuple (names and order);
+    ``scope`` opens each and refuses any other name, as ``annotate``
+    refuses a name outside ``TRACE_SCOPES``."""
+    from distributed_tensorflow_example_tpu.obs import buckets as jbuckets
+    from distributed_tensorflow_example_tpu_torch.obs import buckets, tracer
+
+    assert buckets.NAMED_SCOPES == jbuckets.NAMED_SCOPES
+    for name in buckets.NAMED_SCOPES:
+        with tracer.scope(name):
+            pass
+    with pytest.raises(ValueError, match="unknown named scope 'lnf'"):
+        tracer.scope("lnf")
+
+
+def test_named_scopes_in_a_moe_step_and_serve_ticks():
+    """A CPU ``torch.profiler`` capture of one step of a tiny MoE lm
+    (sparse dispatch under ``--fp8_ffn``, fused LayerNorm) and of a few
+    ticks of an engine over an int8 KV pool holds, in JAX's places,
+    ``ln``, ``moe_dispatch``, ``moe_expert`` and ``quant`` (the fp8
+    rounding, the pool's quantize and dequantize), ``prefill``,
+    ``decode`` and ``sampling``; the other two, ``pp_comm`` and
+    ``outer_sync``, run across ranks (``tests/test_torch_data_parallel.
+    py``).  B8's plain version runs inside ``moe_expert``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_tensorflow_example_tpu_torch.models import (
+        transformer as ttfm)
+    from distributed_tensorflow_example_tpu_torch.serving.engine import (
+        DecodeEngine)
+
+    cfg = tconfig.Config(model="transformer", objective="lm", input_size=16,
+                         seq_len=16, vocab_size=32, d_model=16, n_heads=2,
+                         num_blocks=1, d_ff=32, num_experts=4,
+                         moe_dispatch="alltoall", moe_topk=2, fp8_ffn=True,
+                         fused_ln=True, optimizer="sgd", device="cpu")
+    spec = tloop.make_spec(cfg)
+    opt = toptim.make_optimizer(cfg, 1)
+    state = tstate.create_train_state(spec, opt, seed=0, device="cpu")
+    body = tstep.make_sync_step_body(cfg, spec, opt)
+    x = torch.rand(2, 16)
+    y = torch.zeros(2, 10)
+    serve = dataclasses.replace(spec, moe_dispatch="dense", fp8_ffn=False)
+    eng = DecodeEngine(serve, ttfm.init(serve, seed=0, device="cpu"),
+                       page_size=4, max_batch=2, kv_quant="int8",
+                       device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        body(state, x, y)
+        for p in ([1, 2, 3], [4, 5]):
+            eng.submit(p, 3)
+        eng.run_until_idle()
+    names = {e.name for e in prof.events()}
+    assert set(tbuckets.NAMED_SCOPES) - names == {"pp_comm", "outer_sync"}
+    expert = [e for e in prof.events() if e.name == "moe_expert"]
+    assert any(c.name == "aten::baddbmm" or c.name == "aten::bmm"
+               for e in expert for c in _descendants(e)), expert
+
+
+def _descendants(event):
+    for c in event.cpu_children:
+        yield c
+        yield from _descendants(c)
