@@ -346,6 +346,32 @@ distributed_tensorflow_example_tpu_torch.obs.cli``, ``dtx-obs``):
     stopped; each through ``obs.cli.main`` with its exit code checked,
     each printed with its wall and the card's name and power limit.
 
+and for the last modules (the port's ``dtx-lint``, ``native`` and the
+MNIST download):
+
+10. (a) the port's ``dtx-lint`` (``analysis.cli``) over the port's package
+    on this machine: exit 0 and ``--json`` ``"ok": true`` against its
+    baseline, its module count and wall printed; a planted tree with
+    one torch-form violation of each rule exits 1 naming all nine;
+    (b) ``native``: the g++ library builds (``native_available()``),
+    CRC32C's check value, ``masked_crc32c`` equal to the Python table's
+    on a 1 MiB seeded buffer, ``gather_batch`` and ``u8_to_f32_scaled``
+    bitwise equal to numpy's form of the same arithmetic; one 100-row
+    gather from 55,000 x 784 f32 and the CRC32C rate timed, native
+    against numpy / Python; (c) four gz IDX files at MNIST's sizes
+    (60,000 and 10,000 images of 28 x 28, the synthetic digits of
+    ``--seed``) served by an in-process ``http.server`` on 127.0.0.1
+    behind a corrupt first mirror, which ``download_file`` rejects by
+    each file's SHA-256 before it takes the good one; the reference
+    MLP (``--pallas``, 784-100-10 f32) trained one epoch on them with
+    ``--dataset=mnist`` on the host path (``--no_fast_loop``) and on
+    the fast path, B1's
+    launches as predicted, every cost finite; then ``--dataset=mnist
+    --mnist_mirrors http://127.0.0.1:<port>/`` into an empty directory
+    in a subprocess, which the published digests refuse: exit 1 with
+    JAX's ``FileNotFoundError``.  Nothing is fetched from outside the
+    machine.
+
 The last two lines of stdout are the kernel report JSON (each kernel's
 launches on its first main path, and under ``launches_by_path`` on
 every path that ran it: ``serve``, ``serve_int8``, ``serve_moe``,
@@ -353,8 +379,9 @@ every path that ran it: ``serve``, ``serve_int8``, ``serve_moe``,
 ``resilience_resumed``, phase 5c's ``monitoring`` runs, phase 5d's
 ``dp_*`` runs, phase 5e's ``tp_*`` runs, each rank's and the one-rank
 reference's, phase 5f's ``site_*`` runs, each rank's, phase 5g's
-``sp_*`` runs, each rank's and ``sp_one_rank``, and phase 5h's ``ep_*``
-runs, each rank's and the one-rank run's; the flash kernels' and B8's
+``sp_*`` runs, each rank's and ``sp_one_rank``, phase 5h's ``ep_*``
+runs, each rank's and the one-rank run's, and phase 10's ``mnist_host``
+and ``mnist_fast`` runs; the flash kernels' and B8's
 training form's ``shapes`` also hold phase 5g's and 5h's forms) and the
 result JSON; the card's name and power limit
 come just before them.
@@ -377,6 +404,7 @@ import shutil
 import signal
 import socket
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -6847,6 +6875,319 @@ def phase_obs(card: str, root: str, spec, replay: dict,
                 forecast=fc["sustainable_qps"], peak=peak)
 
 
+# phase 10 (a): one torch-form violation of each of the port's nine
+# dtx-lint rules, planted in a temporary tree (the CPU tests hold each
+# rule on its own bad, good and edge fixtures)
+LINT_PLANTED = {
+    "parallel/mesh.py": (
+        "import dataclasses\n\n\n@dataclasses.dataclass\nclass Mesh:\n"
+        "    dp: int\n    data_group: object = None\n"),
+    "parallel/step.py": (
+        "import torch.distributed as dist\n\n\ndef f(x, mesh):\n"
+        "    dist.all_reduce(x)\n"),
+    "train/loop.py": (
+        "def run(feed, timed_batches, step):\n"
+        "    for i, batch in timed_batches(feed):\n"
+        "        cost_dev = step(batch)\n"
+        "        print(cost_dev.item())\n"),
+    "obs/schema.py": 'METRICS_COMMON = {"v": (int,), "ghost": (int,)}\n',
+    "obs/metrics.py": 'def row():\n    return {"v": 10}\n',
+    "ops/fused.py": (
+        "import torch\n\n\nclass Mul(torch.autograd.Function):\n"
+        "    @staticmethod\n    def forward(ctx, x, y):\n"
+        "        return x * y\n\n    @staticmethod\n"
+        "    def backward(ctx, g):\n        return g, g, g\n"),
+    "parallel/epoch.py": (
+        "import torch\n\n\ndef capture(n):\n    for _ in range(n):\n"
+        "        torch.cuda.CUDAGraph()\n"),
+    "models/mlp.py": "import torch\n\n\ndef init():\n"
+                     "    return torch.randn(3)\n",
+    "config.py": ("def build(p):\n"
+                  '    p.add_argument("--undocumented_flag", type=int)\n'),
+    "obs/serve.py": 'def render(gauge):\n    gauge("dtx_ghost_total", 1)\n',
+    "obs/buckets.py": 'WINDOW_BUCKETS = ("data_wait",)\n'
+                      'TRACE_SCOPES = WINDOW_BUCKETS\nNAMED_SCOPES = ("ln",)\n',
+    "obs/tracer.py": "def f(timer, t):\n    timer.charge('data_wiat', t)\n",
+}
+
+# phase 10 (c): the seed of the served IDX files and of the runs on them
+MNIST_SEED = 1
+MNIST_SIZES = (60000, 10000)     # MNIST's own train and test files
+
+
+def _lint_json(argv) -> tuple:
+    """The port's dtx-lint ``--json`` in process: (exit code, document,
+    wall s)."""
+    from distributed_tensorflow_example_tpu_torch.analysis import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv) + ["--json"])
+    return rc, json.loads(buf.getvalue()), time.perf_counter() - t0
+
+
+def phase_lint(card: str) -> dict:
+    """Phase 10 (a): the port's lint over the port exits 0 with ``"ok":
+    true``; the planted tree exits 1 and names every rule."""
+    import distributed_tensorflow_example_tpu_torch as port
+    from distributed_tensorflow_example_tpu_torch.analysis import cli
+
+    pkg = os.path.dirname(os.path.abspath(port.__file__))
+    rc, doc, wall = _lint_json([pkg])
+    if rc != 0 or doc["ok"] is not True:
+        raise AssertionError(f"lint: exit {rc} over the port, new "
+                             f"findings {doc['new']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        for rel, src in LINT_PLANTED.items():
+            path = os.path.join(tmp, "pkg", rel)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "w") as f:
+                f.write(src)
+        os.makedirs(os.path.join(tmp, "docs"))
+        for name in ("API.md", "observability.md"):
+            with open(os.path.join(tmp, "docs", name), "w") as f:
+                f.write("# nothing documented\n")
+        prc, pdoc, _ = _lint_json([os.path.join(tmp, "pkg")])
+    named = {f["rule"] for f in pdoc["new"]}
+    want = {r.id for r in cli.ALL_RULES}
+    if prc != 1 or named != want:
+        raise AssertionError(f"lint: the planted tree exited {prc} naming "
+                             f"{sorted(named)}, want all of {sorted(want)}")
+    log(f"[lint] phase 10 (a): the port's dtx-lint over {doc['modules']} "
+        f"modules: exit 0, ok, {doc['suppressed']} findings under a "
+        f"reasoned noqa, "
+        f"{len(doc['baselined'])} baselined, in {wall:.3f} s; the planted "
+        f"tree exits 1 naming all {len(want)} rules on {_card_limit()}")
+    return dict(modules=doc["modules"], wall=wall,
+                suppressed=doc["suppressed"])
+
+
+def _masked(crc: int) -> int:
+    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def _median_s(fn, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def phase_native(card: str) -> dict:
+    """Phase 10 (b): the g++ library builds and loads, its functions
+    equal their numpy / Python forms bit for bit, and its gather and
+    CRC32C are timed against them (host clock, median of repeats)."""
+    from distributed_tensorflow_example_tpu_torch import native
+
+    if os.environ.get("DTX_NO_NATIVE"):
+        raise AssertionError("native: DTX_NO_NATIVE is set")
+    t0 = time.perf_counter()
+    if not native.native_available():
+        raise AssertionError("native: the g++ library did not build or "
+                             "load")
+    load_s = time.perf_counter() - t0
+    rng = np.random.RandomState(MNIST_SEED)
+    if native.crc32c(b"123456789") != 0xE3069283:
+        raise AssertionError("native: CRC32C check value")
+    buf = rng.bytes(1 << 20)
+    t0 = time.perf_counter()
+    py = native.py_crc32c(buf)
+    py_s = time.perf_counter() - t0
+    if native.masked_crc32c(buf) != _masked(py):
+        raise AssertionError("native: masked_crc32c differs from the "
+                             "Python table's on 1 MiB")
+    crc_s = _median_s(lambda: native.crc32c(buf), 50)
+    images = rng.rand(55000, 784).astype(np.float32)
+    labels = np.eye(10, dtype=np.float32)[rng.randint(0, 10, 55000)]
+    idx = rng.permutation(55000)[:100]
+    gi, gl = native.gather_batch(images, labels, idx)
+    if not (np.array_equal(gi, images[idx]) and np.array_equal(
+            gl, labels[idx])):
+        raise AssertionError("native: gather_batch differs from numpy")
+    gather_s = _median_s(lambda: native.gather_batch(images, labels, idx),
+                         200)
+    numpy_s = _median_s(lambda: (images[idx], labels[idx]), 200)
+    pix = rng.randint(0, 256, (10000, 784)).astype(np.uint8)
+    # the library's arithmetic: a 256-entry table of i * (1/255) in f32
+    lut = np.arange(256, dtype=np.float32) * (np.float32(1)
+                                              / np.float32(255))
+    got = native.u8_to_f32_scaled(pix)
+    if not np.array_equal(got.view(np.uint32), lut[pix].view(np.uint32)):
+        raise AssertionError("native: u8_to_f32_scaled differs from numpy")
+    ulps = int(np.count_nonzero(
+        lut != np.arange(256, dtype=np.float32) / np.float32(255)))
+    smi = _card_limit()
+    log(f"[native] phase 10 (b): built and loaded in {load_s:.3f} s; "
+        f"one 100-row gather from 55,000 x 784 f32: native "
+        f"{gather_s * 1e6:.2f} us, numpy {numpy_s * 1e6:.2f} us (median of "
+        f"200, host clock); CRC32C native {len(buf) / crc_s / 1e6:.1f} "
+        f"MB/s, Python {len(buf) / py_s / 1e6:.3f} MB/s on 1 MiB; "
+        f"u8_to_f32_scaled bitwise numpy's i * (1/255) ({ulps} of 256 "
+        f"values one ulp from i / 255) on {smi}")
+    return dict(gather_us=gather_s * 1e6, numpy_us=numpy_s * 1e6,
+                crc_mb_s=len(buf) / crc_s / 1e6,
+                py_crc_mb_s=len(buf) / py_s / 1e6, load_s=load_s)
+
+
+def _idx_archives(seed: int, sizes=MNIST_SIZES) -> dict:
+    """MNIST's four gz IDX files at its own sizes, holding the port's
+    synthetic digits of ``seed`` on the 8-bit pixel grid."""
+    import gzip
+
+    from distributed_tensorflow_example_tpu_torch.data import mnist
+
+    out = {}
+    for (img, lbl), n, s in (
+            ((mnist.TRAIN_IMAGES, mnist.TRAIN_LABELS), sizes[0], 1),
+            ((mnist.TEST_IMAGES, mnist.TEST_LABELS), sizes[1], 3)):
+        split = mnist.synthesize_split(n, seed=seed + s)
+        pix = np.round(split.images * 255.0).astype(np.uint8)
+        out[img + ".gz"] = gzip.compress(
+            struct.pack(">IIII", mnist.IMAGE_MAGIC, n, 28, 28)
+            + pix.tobytes(), compresslevel=6, mtime=0)
+        out[lbl + ".gz"] = gzip.compress(
+            struct.pack(">II", mnist.LABEL_MAGIC, n)
+            + split.labels.argmax(1).astype(np.uint8).tobytes(),
+            compresslevel=6, mtime=0)
+    return out
+
+
+def _mirror(files: dict):
+    """An in-process HTTP mirror of ``files`` on 127.0.0.1: (server,
+    base URL, the names it was asked for)."""
+    import http.server
+
+    hits: list = []
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):
+            name = self.path.rsplit("/", 1)[-1]
+            hits.append(name)
+            payload = files.get(name)
+            if payload is None:
+                self.send_error(404)
+                return
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(payload)))
+            self.end_headers()
+            self.wfile.write(payload)
+
+        def log_message(self, *a):
+            pass
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}/mnist/", hits
+
+
+def phase_download(card: str, device: str = "cuda",
+                   sizes=MNIST_SIZES) -> dict:
+    """Phase 10 (c): the download behind a corrupt first mirror, the
+    reference MLP trained on the downloaded files on both paths, and
+    the refusal of the published digests end to end (``device`` and
+    ``sizes`` let the CPU rehearse it at a small size)."""
+    import hashlib
+
+    from distributed_tensorflow_example_tpu_torch.data import download
+    from distributed_tensorflow_example_tpu_torch.parallel import epoch
+
+    t0 = time.perf_counter()
+    files = _idx_archives(MNIST_SEED, sizes)
+    make_s = time.perf_counter() - t0
+    digests = {k: hashlib.sha256(v).hexdigest() for k, v in files.items()}
+    corrupt = {k: v[:-4] + b"XXXX" for k, v in files.items()}
+    good, good_base, good_hits = _mirror(files)
+    bad, bad_base, bad_hits = _mirror(corrupt)
+    runs = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            data_dir = os.path.join(tmp, "mnist")
+            t0 = time.perf_counter()
+            for name, digest in digests.items():
+                path = download.download_file(
+                    name, data_dir, mirrors=(bad_base, good_base),
+                    sha256=digest)
+                if download.sha256_file(path) != digest:
+                    raise AssertionError(f"download: {name} digest")
+            download_s = time.perf_counter() - t0
+            if sorted(bad_hits) != sorted(files) \
+                    or sorted(good_hits) != sorted(files):
+                raise AssertionError(f"download: corrupt mirror asked for "
+                                     f"{bad_hits}, good one for {good_hits}")
+            for name, fast in (("mnist_host", False), ("mnist_fast", True)):
+                argv = ["--pallas", "--training_epochs=1",
+                        "--dataset=mnist", f"--data_dir={data_dir}",
+                        f"--seed={MNIST_SEED}", f"--device={device}",
+                        f"--logs_path={os.path.join(tmp, name)}"]
+                if not fast:
+                    argv.append("--no_fast_loop")
+                res, out, counts = _run_trainer(argv, name, device,
+                                                fast=fast)
+                costs = re.findall(r"Cost: ([^,\s]+)", out)
+                acc = re.findall(r"^Test-Accuracy: (\d+\.\d{2})$", out,
+                                 flags=re.M)
+                if not costs or not all(math.isfinite(float(c))
+                                        for c in costs) or len(acc) != 1:
+                    raise AssertionError(f"{name}: costs {costs}, "
+                                         f"accuracy {acc}")
+                # B1 a step, plus the test split's eval: 5 chunks of
+                # --eval_batch_size 2000 on the host path; on the fast
+                # path the epoch's eager warm-up steps and one chunk
+                steps = res["steps"]
+                want = (steps + epoch.WARMUP_STEPS + 1 if fast
+                        else steps + -(-sizes[1] // 2000))
+                if device == "cuda" and counts["mlp_forward"] != want:
+                    raise AssertionError(
+                        f"{name}: B1 launched {counts['mlp_forward']} "
+                        f"times, predicted {want} ({steps} steps)")
+                runs[name] = dict(counts=counts, steps=steps,
+                                  first_cost=float(costs[0]),
+                                  final_cost=float(costs[-1]),
+                                  accuracy=float(acc[0]))
+            # the published digests refuse the synthetic files: the first
+            # archive is asked for once and refused, and the run exits
+            # with JAX's FileNotFoundError and exit code 1; nothing is
+            # fetched beyond 127.0.0.1
+            n_good = len(good_hits)
+            here = os.path.dirname(os.path.abspath(__file__))
+            proc = subprocess.run(
+                [sys.executable, "-m",
+                 "distributed_tensorflow_example_tpu_torch.main",
+                 "--dataset=mnist", f"--mnist_mirrors={good_base}",
+                 f"--data_dir={os.path.join(tmp, 'empty')}",
+                 "--training_epochs=0", f"--device={device}",
+                 f"--logs_path={os.path.join(tmp, 'refused')}"],
+                capture_output=True, text=True, timeout=300, cwd=here,
+                env=dict(os.environ, PYTHONPATH=here))
+            err = proc.stderr
+            if proc.returncode != 1 or "FileNotFoundError: MNIST IDX files " \
+                    "not found in" not in err or "SHA-256 mismatch" not in err \
+                    or len(good_hits) - n_good != 1:
+                raise AssertionError(f"download refusal: exit "
+                                     f"{proc.returncode}, stderr "
+                                     f"{err[-2000:]}")
+    finally:
+        for srv in (good, bad):
+            srv.shutdown()
+            srv.server_close()
+    smi = _card_limit()
+    sizes = sum(len(v) for v in files.values())
+    log(f"[download] phase 10 (c): {sizes} B of gz IDX files made in "
+        f"{make_s:.2f} s, downloaded behind a corrupt first mirror (4 "
+        f"rejected by SHA-256) in {download_s:.3f} s; "
+        + "; ".join(f"{n}: {r['steps']} steps, cost {r['first_cost']:.4f} "
+                    f"-> {r['final_cost']:.4f}, Test-Accuracy "
+                    f"{r['accuracy']:.2f}, B1 {r['counts']['mlp_forward']}"
+                    for n, r in runs.items())
+        + f"; the published digests refuse them (exit 1, JAX's message) on "
+        f"{smi}")
+    return dict(runs=runs, download_s=download_s, make_s=make_s,
+                bytes=sizes)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--dp-phase"]:     # phase 5d's own process
         args = json.loads(sys.argv[2])
@@ -6945,6 +7286,9 @@ def main() -> int:
     moe_train = phase_moe_train(card)
     moe_step = phase_moe_step(card)
     last = phase_last_outputs(card, monitoring)
+    lint = phase_lint(card)
+    native = phase_native(card)
+    mnist_dl = phase_download(card)
     ln_bwd_launch_split(card, dict(measured)["layer_norm_backward"][0])
     # each kernel's launches on its own main path: the full-width serve
     # (phase 3) for the serving kernels (the int8 and MoE serves, phases
@@ -6991,7 +7335,8 @@ def main() -> int:
                "moe_train": moe_train[0]["counts"],
                "moe_train_fp8": moe_train[1]["counts"],
                **{f"sample_rank{i}": m["counts"]
-                  for i, m in enumerate(last["sample"]["ranks"])}}
+                  for i, m in enumerate(last["sample"]["ranks"])},
+               **{name: r["counts"] for name, r in mnist_dl["runs"].items()}}
     counts.update({k: train["counts"][k] for k in TRAIN_WRAPPERS})
     counts.update({k: tfm_train["counts"][k] for k in TFM_REPORT})
     counts["moe_grouped_matmul_z1"] = \
@@ -7150,6 +7495,11 @@ def main() -> int:
         f"{serve_scopes['us']['scope']:.3f} us; MoE "
         f"ranges {moe_step['scopes']}; --fsdp --debug_nans blow-up "
         f"{dp['fsdp_nans']['blowup']!r} on {smi}")
+    log(f"[10] dtx-lint {lint['modules']} modules in {lint['wall']:.3f} s; "
+        f"native gather {native['gather_us']:.2f} us vs numpy "
+        f"{native['numpy_us']:.2f} us, CRC32C {native['crc_mb_s']:.1f} vs "
+        f"{native['py_crc_mb_s']:.3f} MB/s; MNIST download "
+        f"{mnist_dl['download_s']:.3f} s on {smi}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

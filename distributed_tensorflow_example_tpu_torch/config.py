@@ -23,9 +23,10 @@ their combinations, ``validate_strategy_config``; multi-site local SGD
 (``validate_sequence_config``); expert parallelism ``--expert_parallel``,
 with JAX's (``validate_expert_config``); pipeline parallelism
 ``--pipeline_parallel``, ``--virtual_stages`` and ``--pp_schedule``, with
-JAX's ``validate_pipeline_config``; ``--compilation_cache`` is accepted
-and explained away), and refuses every other flag of the JAX trainer
-(exit 2, naming ROADMAP.md) rather than ignore it: ``--mnist_mirrors``.
+JAX's ``validate_pipeline_config``; the MNIST download's
+``--mnist_mirrors``; ``--compilation_cache`` is accepted and explained
+away).  Between them the two parsers take all of the JAX parser's flags;
+a flag the trainer does not know exits 2 rather than being ignored.
 Both parsers take the multi-site family, as JAX's shared parser does.
 ``--device`` is the port's own: the card (``cuda``) unless ``cpu`` is
 asked for.
@@ -169,6 +170,7 @@ class Config:
                                     # flash attention for the transformer
     data_dir: str = "MNIST_data"
     dataset: str = "auto"
+    mnist_mirrors: Tuple[str, ...] = ()  # override download mirrors
     synthetic_train_size: int = 55000
     synthetic_test_size: int = 10000
     shard_data: bool = True
@@ -727,6 +729,10 @@ def build_train_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_dir", type=str, default=d.data_dir)
     p.add_argument("--dataset", type=str, default=d.dataset,
                    choices=["auto", "mnist", "synthetic"])
+    p.add_argument("--mnist_mirrors",
+                   type=lambda s: tuple(filter(None, s.split(","))),
+                   default=d.mnist_mirrors, metavar="URL1,URL2,...",
+                   help="override MNIST download mirrors (base URLs)")
     p.add_argument("--synthetic_train_size", type=int,
                    default=d.synthetic_train_size)
     p.add_argument("--synthetic_test_size", type=int,
@@ -869,15 +875,15 @@ def build_train_parser() -> argparse.ArgumentParser:
 
 
 def parse_train_config(argv: Sequence[str] | None = None) -> Config:
-    """The trainer's flags; any flag the port does not have exits 2 with
-    a message naming ROADMAP.md."""
+    """The trainer's flags; any other flag (the serving CLI's) exits 2
+    with a message naming ROADMAP.md."""
     p = build_train_parser()
     ns, rest = p.parse_known_args(argv)
     if rest:
         flags = sorted({a.split("=", 1)[0] for a in rest
                         if a.startswith("-")}) or rest
-        p.error(f"{', '.join(flags)}: not ported to the PyTorch trainer "
-                f"yet (see ROADMAP.md Queue A)")
+        p.error(f"{', '.join(flags)}: not a flag of the PyTorch trainer "
+                f"(the serving flags are the serving CLI's; see ROADMAP.md)")
     if ns.profile_port:
         p.error(PROFILE_PORT_REFUSED)
     return Config(**vars(ns))

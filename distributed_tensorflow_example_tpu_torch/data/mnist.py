@@ -13,9 +13,11 @@
   ``p::P`` over processes; batches are numpy fancy indexing, the same
   arrays as the JAX package's native gather.
 
-The port does not download: ``--dataset=mnist`` without the IDX files in
-``--data_dir`` is refused (``config.Unported``).  ``auto`` uses the files
-when present and the synthetic data otherwise.
+``--dataset=mnist`` without the IDX files in ``--data_dir`` downloads
+them (``data/download.py``, ``--mnist_mirrors``): rank 0 fetches, every
+rank of a process group passes one barrier, then re-checks the files.
+``auto`` uses the files when present and the synthetic data otherwise,
+never touching the network.
 """
 
 from __future__ import annotations
@@ -27,6 +29,9 @@ import struct
 from typing import Iterator, List, Tuple
 
 import numpy as np
+import torch.distributed as dist
+
+from .. import cluster
 
 IMAGE_MAGIC = 0x00000803
 LABEL_MAGIC = 0x00000801
@@ -197,16 +202,22 @@ def idx_files_present(data_dir: str) -> bool:
         for n in (TRAIN_IMAGES, TRAIN_LABELS, TEST_IMAGES, TEST_LABELS))
 
 
+def _download_barrier() -> None:
+    """One world barrier (gloo or NCCL) around the chief's download."""
+    dist.barrier()  # dtx: noqa[axis-consistency] every process of the run loads the dataset, before any mesh is built: the world is the set that waits for the chief's download
+
+
 def load_datasets(data_dir: str = "MNIST_data", dataset: str = "auto",
                   seed: int = 0, synthetic_train_size: int = 55000,
-                  synthetic_test_size: int = 10000,
+                  synthetic_test_size: int = 10000, mirrors=None,
                   input_size: int = 784) -> Dataset:
-    """``mnist``: the IDX files in ``data_dir`` (refused when absent: the
-    port does not download); ``auto``: those files when present, else
-    the synthetic data; ``synthetic``: the synthetic data.  A width
-    other than 784 needs the synthetic data."""
-    from ..config import Unported
-
+    """``mnist``: the IDX files in ``data_dir``, downloaded from
+    ``mirrors`` (default ``download.MIRRORS``) when absent, by rank 0
+    only; every rank of a process group then passes one barrier (on the
+    files-present path too) and re-checks the files.  ``auto``: those
+    files when present, else the synthetic data, never downloading;
+    ``synthetic``: the synthetic data.  A width other than 784 needs the
+    synthetic data."""
     if input_size != 784:
         if dataset == "mnist" or (dataset == "auto"
                                   and idx_files_present(data_dir)):
@@ -216,14 +227,36 @@ def load_datasets(data_dir: str = "MNIST_data", dataset: str = "auto",
                 f"configs")
         dataset = "synthetic"
     if dataset in ("mnist", "auto") and idx_files_present(data_dir):
+        if dataset == "mnist" and cluster.process_count() > 1:
+            # join the barrier on the files-present path too: a peer
+            # that raced ahead (the chief after its download) waits in
+            # it, and every process takes one of the two mnist branches
+            _download_barrier()
         return load_idx_dataset(data_dir)
     if dataset == "mnist":
-        raise Unported(
-            f"MNIST IDX files not found in {data_dir!r}, and the MNIST "
-            f"download is not ported to the PyTorch trainer yet (see "
-            f"ROADMAP.md Queue A): drop {TRAIN_IMAGES}, {TRAIN_LABELS}, "
-            f"{TEST_IMAGES}, {TEST_LABELS} (optionally .gz) there, or "
-            f"use --dataset=synthetic")
+        from .download import download_mnist
+
+        # only the chief downloads (data_dir is commonly shared); every
+        # rank barriers, then re-checks the files
+        err: Exception | None = None
+        if cluster.process_index() == 0:
+            try:
+                download_mnist(data_dir, mirrors=mirrors or None)
+            except Exception as e:  # noqa: BLE001 — ANY chief failure
+                # must still reach the barrier below, or every other
+                # process hangs in it (a PermissionError from makedirs
+                # is not a DownloadError)
+                err = e
+        if cluster.process_count() > 1:
+            _download_barrier()
+        if not idx_files_present(data_dir):
+            raise FileNotFoundError(
+                f"MNIST IDX files not found in {data_dir!r} and download "
+                f"failed:\n{err}\nDrop {TRAIN_IMAGES}, {TRAIN_LABELS}, "
+                f"{TEST_IMAGES}, {TEST_LABELS} (optionally .gz) into "
+                f"{data_dir!r} to train on real MNIST offline."
+            ) from err
+        return load_idx_dataset(data_dir)
     return synthesize_dataset(seed=seed, train_size=synthetic_train_size,
                               test_size=synthetic_test_size,
                               input_size=input_size)

@@ -21,6 +21,46 @@ from .buckets import HOST_BUCKET, WINDOW_BUCKETS
 
 _NUM = (int, float)
 
+# The one version number for everything obs/ writes, shared with the
+# JAX package so the two packages' streams validate against each other:
+# stamped as "v" into every metrics row and as "version" into every
+# flight dump, and checked FIRST by the validators.  Bump it (in both
+# packages) whenever a field is renamed/retyped/removed.
+# History: v1 = unstamped metrics rows, flight "version": 1;
+# v2 = the stamp itself + the run_end goodput fields
+# (compile_s/eval_s/sample_s); v3 = the h2d_s window bucket (the
+# batch device-commit wall) + the matching h2d goodput bucket;
+# v4 = the serving request-lifecycle span stream (spans.<proc>.jsonl,
+# SPAN_* contracts below), the bench history records
+# (HISTORY_ENTRY) and the ttft_p99_ms serving-stats field;
+# v5 = the resilience subsystem: the ckpt_s window/goodput bucket
+# (async-checkpoint submit stall), the restart-timeline stream
+# (restarts.jsonl, RESTART_EVENT below) and the run report's
+# "restarts" section;
+# v6 = fail-open serving: the typed-terminal span events
+# (timeout/shed/failed) + the supervision records
+# (requeue/engine_restart) in SPAN_FIELDS/SPAN_REQUIRED, the
+# "engine_restart" restart-timeline event, and the SERVING_STATS
+# shed/timeout/failed/requeue/restart/queue/brownout counters;
+# v7 = fleet observability: trace-context propagation
+# (trace_id/parent_id on every span, W3C traceparent at the serving
+# edge), the training-side "phase" span event (phase/dur_ms), the
+# collector's "source" stamp on merged rows, and the FLEET_REPORT
+# document (obs/collector.py fleet timeline + federated SLO);
+# v8 = latency attribution: the "tick_done" span event (the engine
+# closes each tick with its execution-only dur_ms so stall time is
+# separable), the WATERFALL document (obs/waterfall.py), the
+# DRIFT_REPORT document (obs/drift.py), and the FLEET_REPORT's
+# optional "queueing" section (obs/queueing.py);
+# v9 = fleet serving: the router narration span events
+# ("route"/"failover" with the per-replica "replica" field in
+# SPAN_FIELDS/SPAN_REQUIRED) and the FLEET_REPORT's "failover"
+# section (per-trace hop chains, intermediates excluded from the
+# federated SLO so a failed-over request counts once);
+# v10 = workload capture/replay: the WORKLOAD document (obs/workload.py
+# distills a span dir into a portable request schedule), the
+# "fingerprint" submit-span payload and the "replay_of" stamp (every
+# row a serving/replay.py run writes names the source workload id).
 SCHEMA_VERSION = 10
 
 # every metrics row's envelope

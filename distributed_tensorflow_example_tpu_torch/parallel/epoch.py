@@ -347,7 +347,7 @@ class _GraphRunner(_Runner):
             # instantiation
             dump = (self.dump if self.dump is not None and self.dump.pending
                     else None)
-            graph = torch.cuda.CUDAGraph(keep_graph=dump is not None)
+            graph = torch.cuda.CUDAGraph(keep_graph=dump is not None)  # dtx: noqa[recapture] one capture per step form at set-up, kept in self.graphs and replayed every step
             # capture_begin/end on the side stream, not ``torch.cuda.
             # graph``, whose entry synchronizes and empties the
             # allocator's cache (and may run a full garbage collection):

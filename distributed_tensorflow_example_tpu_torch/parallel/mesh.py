@@ -600,7 +600,7 @@ def site_mean(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def world_all_reduce(t: torch.Tensor) -> None:
     """Sum ``t`` in place over every rank (JAX's psum over all axes)."""
     if cluster.collectives():
-        dist.all_reduce(t)
+        dist.all_reduce(t)  # dtx: noqa[axis-consistency] the anomaly flags are JAX's psum over every mesh axis, and the mesh spans the world
 
 
 def groups(mesh: Mesh) -> list:

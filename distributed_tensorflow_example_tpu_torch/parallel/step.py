@@ -453,7 +453,7 @@ def mean_over_ranks(cost: torch.Tensor, acc: torch.Tensor, mesh=None):
         return cost, acc
     stats = torch.stack([cost, acc.to(cost.dtype)])
     if mesh is None:
-        dist.all_reduce(stats)
+        dist.all_reduce(stats)  # dtx: noqa[axis-consistency] no mesh is the --sync_period local step's call, whose one axis (data) is the world, as JAX's pmean over 'data' there
         n = cluster.process_count()
     else:
         if mesh.batch_group is not None:
@@ -690,7 +690,7 @@ def _average(tree, world: int):
         return {k: _average(v, world) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor) and tree.dtype.is_floating_point:
         out = tree.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out)  # dtx: noqa[axis-consistency] param_sync runs only under --sync_period, which is data parallelism alone: the world is the data axis (JAX's pmean over 'data')
         return out / world
     return tree
 

@@ -710,7 +710,7 @@ def run(cfg: Config) -> Dict[str, Any]:
             cfg.data_dir, cfg.dataset, seed=0,
             synthetic_train_size=cfg.synthetic_train_size,
             synthetic_test_size=cfg.synthetic_test_size,
-            input_size=cfg.input_size)
+            mirrors=cfg.mnist_mirrors, input_size=cfg.input_size)
         global_batch = _global_batch(cfg, batch_shards)
         total_steps = cfg.training_epochs * max(
             1, dataset.train.images.shape[0] // global_batch)
@@ -1635,8 +1635,8 @@ def run(cfg: Config) -> Dict[str, Any]:
                             flight.record_step(steps_done, epoch=epoch,
                                                batch_index=i)
                         if cfg.debug_nans and want_anomaly \
-                                and bool(extra[-1]["flag"]):
-                            counts = extra[-1]["counts"].cpu().tolist()
+                                and bool(extra[-1]["flag"]):  # dtx: noqa[host-sync] --debug_nans stops at the first non-finite step, so it reads every step's flag (JAX's jax_debug_nans syncs every op)
+                            counts = extra[-1]["counts"].cpu().tolist()  # dtx: noqa[host-sync] read once, on the flagged step the run then raises on
                             blame = {n: c for n, c in zip(
                                 step_lib.leaf_names(spec, pp_mode),
                                 counts) if c}

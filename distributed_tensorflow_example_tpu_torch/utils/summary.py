@@ -4,9 +4,8 @@ JAX package's ``utils/summary.py``.
 - the ``Event``/``Summary``/``GraphDef`` protobuf subset is hand-encoded
   in the wire format (varint, 64-bit and length-delimited fields);
 - TFRecord framing (little-endian length, masked CRC32C of the length,
-  payload, masked CRC32C of the payload), with the CRC32C in pure Python
-  (``masked_crc32c``; an event is tens of bytes, so the table-driven
-  loop costs microseconds);
+  payload, masked CRC32C of the payload), the CRC32C from ``native``
+  (the C++ library, or its table-driven Python fallback);
 - files are named ``events.out.tfevents.<ts>.<host>`` and open with a
   ``file_version: "brain.Event:2"`` event, as TensorBoard expects.
 
@@ -22,34 +21,7 @@ import struct
 import time
 from typing import Iterator, Tuple
 
-
-# --- CRC32C (Castagnoli), as TFRecord frames it ----------------------------
-
-
-def _crc32c_table() -> list:
-    table = []
-    for i in range(256):
-        c = i
-        for _ in range(8):
-            c = (0x82F63B78 ^ (c >> 1)) if c & 1 else (c >> 1)
-        table.append(c)
-    return table
-
-
-_CRC_TABLE = _crc32c_table()
-
-
-def crc32c(data: bytes) -> int:
-    crc = 0xFFFFFFFF
-    for b in data:
-        crc = _CRC_TABLE[(crc ^ b) & 0xFF] ^ (crc >> 8)
-    return crc ^ 0xFFFFFFFF
-
-
-def masked_crc32c(data: bytes) -> int:
-    """TFRecord CRC masking (the RecordWriter convention)."""
-    crc = crc32c(data)
-    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+from ..native import masked_crc32c
 
 
 # --- minimal protobuf wire-format encoders -------------------------------

@@ -478,12 +478,35 @@ def test_two_gloo_processes_equal_one(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--pipeline_parallel=2"], ["--mnist_mirrors=http://localhost:1/"],
-    ["--model=transformer", "--expert_parallel=2"],
-    ["--dataset=mnist", "--data_dir=/nonexistent-mnist-dir"]])
+    ["--mnist_mirrors=http://127.0.0.1:1/"],
+    ["--mnist_mirrors=http://127.0.0.1:1/,http://127.0.0.1:1/b/"]])
+def test_cli_mnist_mirrors_parse_and_fail_offline_as_jax(argv, tmp_path):
+    """``--mnist_mirrors`` parses to JAX's tuple; ``--dataset=mnist``
+    with no IDX files in ``--data_dir`` tries each mirror (a closed
+    local port: nothing leaves the machine) and raises JAX's
+    ``FileNotFoundError`` (JAX's exit code 1) before any training."""
+    data_dir = tmp_path / "nonexistent-mnist-dir"
+    argv = argv + ["--dataset=mnist", f"--data_dir={data_dir}",
+                   "--training_epochs=0"]
+    t = tconfig.parse_train_config(argv)
+    assert t.mnist_mirrors == jconfig.parse_config(argv).mnist_mirrors
+    assert t.mnist_mirrors[0] == "http://127.0.0.1:1/"
+    with pytest.raises(FileNotFoundError) as got:
+        tmain.main(argv + ["--device", "cpu"])
+    with pytest.raises(FileNotFoundError) as want:
+        jmnist.load_datasets(str(data_dir), "mnist",
+                             mirrors=t.mnist_mirrors)
+    first = str(want.value).split("\n", 1)[0]
+    assert str(got.value).startswith(first)
+    assert "download failed" in first and "127.0.0.1:1" in str(got.value)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--pipeline_parallel=2"], ["--serve_port=8000"],
+    ["--model=transformer", "--expert_parallel=2"], ["--replicas=2"]])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
-    """A flag, value or mode of the JAX trainer the port lacks exits 2
-    with a message naming ROADMAP.md, before any training;
+    """A flag the trainer does not have (the serving CLI's) exits 2 with
+    a message naming ROADMAP.md, before any training;
     ``--expert_parallel`` and ``--pipeline_parallel`` parse since expert
     and pipeline parallelism were ported, and exit 2 with JAX's message
     without ``--num_experts`` or on the MLP."""

@@ -197,13 +197,13 @@ def test_num_params_and_flops_match_jax_at_transformer_wide_long():
 
 @pytest.mark.parametrize("argv", [
     ["--expert_parallel=2"], ["--virtual_stages=2"], ["--pp_schedule=1f1b"],
-    ["--mnist_mirrors=https://example.invalid/"],
+    ["--kv_quant=int8"],
     ["--model_parallel=2", "--pipeline_parallel=2"],
     ["--pipeline_parallel=2"],
     ["--sequence_parallel=2", "--num_experts=4", "--expert_parallel=2"]])
 def test_cli_refuses_unported_transformer_flags(argv, capsys):
-    """Each exits 2 before training: ``--mnist_mirrors`` with a message
-    naming ROADMAP.md; the parallelism flags (``--sequence_parallel``,
+    """Each exits 2 before training: a serving flag (``--kv_quant``) with
+    a message naming ROADMAP.md; the parallelism flags (``--sequence_parallel``,
     ``--sp_impl``, ``--expert_parallel``, ``--pipeline_parallel``,
     ``--virtual_stages``, ``--pp_schedule`` parse since their axes were
     ported) with JAX's messages: no MoE to shard, sequence parallelism
@@ -228,6 +228,19 @@ def test_cli_refuses_unported_transformer_flags(argv, capsys):
             else "mesh 1x2 over ('data', 'stage') needs 2 devices, have 1"
             if "--pipeline_parallel=2" in argv else "ROADMAP")
     assert want in capsys.readouterr().err
+
+
+def test_cli_transformer_parses_mnist_mirrors(tmp_path):
+    """The transformer trainer parses ``--mnist_mirrors`` (JAX's tuple)
+    and, with ``--dataset=mnist`` and no IDX files, fails over the
+    mirrors (a closed local port) with JAX's ``FileNotFoundError``."""
+    argv = ["--model=transformer", "--device", "cpu", "--training_epochs=0",
+            "--mnist_mirrors=http://127.0.0.1:1/", "--dataset=mnist",
+            f"--data_dir={tmp_path / 'mnist'}"]
+    assert tconfig.parse_train_config(argv).mnist_mirrors == (
+        "http://127.0.0.1:1/",)
+    with pytest.raises(FileNotFoundError, match="download failed"):
+        tmain.main(argv)
 
 
 def test_serving_spec_pallas_selects_flash_and_engine_matches_jax():
