@@ -737,6 +737,21 @@ FLASH_WIDE = {
         ("f32", "dq", "flash_dq_kernelILi32ELi256ELb{c}EE"),
         ("f32", "dkv", "flash_dkv_kernelILi32ELi256ELb{c}EE"))}
 FLASH_WIDE_USAGE: dict = {}
+# the wide bf16 kernels' designs, as the phase 2c rows print them
+FLASH_WIDE_DESIGN = {
+    "stats": "wgmma+cp.async, D padded to 256, 2-stage ring, products "
+             "not overlapped",
+    "normalized": "wgmma+cp.async, D padded to 256, 2-stage ring, "
+                  "products not overlapped",
+    "dq": "warp-specialized: a TMA producer warpgroup streams 32-key K/V "
+          "tiles through a 3-stage ring; two consumer warpgroups of 64 "
+          "rows (a 128-row q tile, Q and dO resident); setmaxnreg 56/224",
+    "dkv": "warp-specialized: a TMA producer warpgroup streams 32-row "
+           "Q/dO tiles through a 4-stage ring and makes q2 in place; the "
+           "consumers split by product (s^T, p, dv | dp^T, ds, dk; p "
+           "passed through shared memory), each tile's scores issued "
+           "behind the last tile's dv / dk products; the overlap is across "
+           "the two consumers; setmaxnreg 56/224"}
 # each source that includes gemm_tc.cuh compiles its own copy of the
 # GEMM (internal linkage), so those fragments name the source too
 MLP_TC = {"hidden": ("mlp_forward_cu",
@@ -1291,8 +1306,7 @@ def _flash_timed(card: str, shape, seeds, errs: dict) -> list:
         use = (FLASH_WIDE_USAGE.get(("bf16", form, True)) if wide
                else FLASH_USAGE.get(form))
         if use is not None:
-            row.update(design=("wgmma+cp.async, D padded to 256, 2-stage "
-                               "ring, products not overlapped" if wide
+            row.update(design=(FLASH_WIDE_DESIGN[form] if wide
                                else "wgmma+cp.async"),
                        regs=use["regs"],
                        spill_bytes=(use.get("spill_stores", 0)

@@ -104,41 +104,68 @@
 //     (causal), and q rows or keys past S, give p = 0 and ds = 0; only
 //     tiles that cross the diagonal or S test anything.
 // Head dims 129-256 (the *_wide_tc kernels; JAX _pick_tiles takes D >
-// 128 with square tiles): tiles are zero-padded to 256 columns, and the
-// narrow design does not fit at that width, so these are simple kernels
-// that are right first:
-//   * forward: a 64-key tile is 32 KB, so the four-stage ring would take
-//     256 KB of the 227 KB a CTA can have, and q2 in registers (64 a
-//     thread) beside the 128 f32 accumulators of acc (64 rows x 256) and
-//     s passes the 255 registers a thread may use.  So Q (q2) stays in
-//     shared memory (64 KB for 128 rows, read by s = q2 . k^T as a
-//     descriptor), K and V stream through a two-stage ring one tile
-//     ahead (128 KB), and p . v is wgmma m64n256k16; 192 KB in all;
-//   * dq: Q and dO for 128 rows (128 KB) and the ring (128 KB) pass the
-//     budget, so a CTA is one warpgroup on a 64-row q tile (64 KB
-//     resident + 128 KB of ring), its 128 f32 accumulators of dq in
-//     registers, ds . k an m64n256k16;
-//   * dk/dv: dk and dv of 64 keys x 256 columns would be 256 f32
-//     registers a thread.  Of the two ways out (split the output's
-//     columns between the warpgroups, or run dv and dk in two passes
-//     over the q stream), the split is taken: a CTA owns 64 keys, both
-//     warpgroups compute the same s^T and dp^T over the whole head dim,
-//     and warpgroup w accumulates dk and dv for columns [128w, 128w +
-//     128) (64 + 64 registers, the narrow kernel's count), reading dO
-//     and q2 from that column offset.  It costs s^T and dp^T twice (12 D
-//     flops a (q, key) pair for 8 D) where two passes would cost 10 D
-//     and read the q stream twice; K and V stay resident (64 KB) beside a
-//     two-stage (Q, dO, statistics) ring (130 KB);
-//   * no product runs under another tile's elementwise work: each tile's
-//     products are waited for before its softmax (or ds) and before the
-//     next tile, so the tensor cores idle during the exp2 and the ring's
-//     barriers.  Masking, rounding points and guards are the narrow
-//     kernels'.
+// 128 with square tiles): tiles are zero-padded to 256 columns, where
+// the narrow design does not fit.
+//   * forward (a simple kernel that is right first): a 64-key tile is
+//     32 KB, so the four-stage ring would take 256 KB of the 227 KB a CTA
+//     can have, and q2 in registers (64 a thread) beside the 128 f32
+//     accumulators of acc (64 rows x 256) and s passes the 255 registers
+//     a thread may use.  So Q (q2) stays in shared memory (64 KB for 128
+//     rows, read by s = q2 . k^T as a descriptor), K and V stream through
+//     a two-stage ring one tile ahead (128 KB), and p . v is wgmma
+//     m64n256k16; 192 KB in all; no product runs under another tile's
+//     elementwise work.
+//   * dq and dk/dv are warp specialized (FlashAttention-3's producer and
+//     consumers): a producer warpgroup keeps 56 registers (setmaxnreg) and
+//     streams 32-row tiles of one head by TMA (rank-4 maps of [B, S, H,
+//     D], 128-byte swizzled boxes of [32][64]) through a ring of stages
+//     handed over on full / empty mbarriers; two consumer warpgroups of
+//     224 registers run the products, with no CTA-wide barrier after the
+//     start.  What bounds them: with every thread's cp.async feeding the
+//     streamed tiles (2.35 TB/s from L2 on the H100) both kernels ran at
+//     the copies' pace, well behind their products; TMA (15.89 TB/s)
+//     leaves dq bound by its products and dk/dv by its products and the
+//     q2 pass, which three producer warps run as each tile lands while
+//     the fourth issues the loads, up to four tiles ahead.
+//   * dq: a CTA owns a 128-row q tile, Q2 and dO resident (128 KB,
+//     loaded by cp.async, q2 made in place); consumer c owns 64 rows and
+//     streams 32-key (K, V) tiles (32 KB) through three stages up to its
+//     causal frontier: s and dp as m64n32k16 over the 16 steps of the
+//     head dim, ds in registers, dq += round(ds) . k as m64n256k16 over
+//     the tile's two 16-key steps.  Each K and V tile is read once for
+//     128 q rows.  The two consumers share nothing but the ring, so one's
+//     exp2 / ds pass runs under the other's products.  Shared memory
+//     98,304 + 131,072 + 56 = 229,432 B.
+//   * dk/dv: a CTA owns 64 keys, K and V resident (64 KB, cp.async), and
+//     streams 32-row (Q, dO) tiles through four stages (32 KB each; their
+//     statistics 512 B each beside).  dk and dv of 64 keys x 256 columns
+//     would be 256 f32 registers a thread, so the consumers split the
+//     work by product: warpgroup 1 runs s^T = k . q2^T (m64n32k16), p in
+//     its registers and dv += round(p)^T . do (m64n256k16, all 256
+//     columns); warpgroup 2 runs dp^T = v . do^T, ds = p (dp - dlt) and
+//     dk += round(ds)^T . q2.  Each (q, key) pair's s^T and dp^T are
+//     computed once in the CTA (8 D flops a pair); warpgroup 1 hands p
+//     (f32, unrounded, so ds keeps the JAX rounding point) to warpgroup 2
+//     through a double buffer on named barriers, so 1 may run two tiles
+//     ahead and the two are never in lock-step; while 1 runs its exp2
+//     pass, 2's products (and the other way for its ds pass) keep the
+//     tensor cores busy.  Issuing the next tile's scores before this
+//     tile's elementwise pass (retiring dk / dv with wgmma_wait<1>) was
+//     measured slower on the H100 (6.07 ms against 5.48 at [8, 8192, 4,
+//     256]; 48 B spilled), so each tile's scores are issued behind the
+//     last tile's dv (dk) products and retired together.  Shared memory
+//     65,536 + 131,072 + 2,048 + 16,384 (p) + 104 = 215,144 B.
+//   * registers (-Xptxas -v): both 168 at launch (384 threads), setmaxnreg
+//     56 / 224, 0 bytes spilled.  Masking, rounding points, the guards
+//     for ragged S and the zero padding are the narrow kernels'; where D
+//     is not a multiple of 8 (or a tensor not 16-byte aligned) the
+//     producer fills the same swizzled layout with guarded scalar loads.
+//     No atomics: every output element is summed by one thread in a fixed
+//     order, the same bits from call to call.
 // Registers and spills of each instantiation (-Xptxas -v) are printed
-// by chip_smoke.py and kept in PERF.md.  TMA loads from producer warps,
-// in place of every thread's cp.async and a CTA barrier per key tile,
-// and for the wide kernels the overlap the narrow ones have, are the
-// next step (ROADMAP.md).
+// by chip_smoke.py and kept in PERF.md.  Times above: an NVIDIA H100 80GB
+// HBM3 at 700.00 W (scripts/torch_flash_bench.py and the copy rates of
+// scripts/torch_copy_bench.py).
 #include "common.cuh"
 #include "tc.cuh"
 
@@ -222,18 +249,17 @@ struct Geom {
 };
 
 // The ring of (K, V) stages a CTA streams key tiles through: tile kt in
-// stage kt % kNStages, tiles of kCols columns filled by kRingThreads
+// stage kt % kNStages, tiles of kCols columns filled by the CTA's
 // threads.  The narrow kernels take four stages, two tiles ahead:
 // advance(kt) opens key tile kt: tile kt + 1 has landed and is visible
 // to every thread and to wgmma, and tile kt + 2's copies go into the
 // stage of tile kt - 2, whose products the barrier has seen finish.  The
-// wide kernels take two, one tile ahead: open(kt) makes key tile kt
+// wide forward takes two, one tile ahead: open(kt) makes key tile kt
 // visible, then sends key tile kt + 1's copies into the other stage,
 // whose products (key tile kt - 1's) every warpgroup retired before the
 // barrier.  Every thread calls either once for each key tile up to the
 // CTA's last, whether its warpgroup still works or not.
-template <class G, int kCols = tc::kTileCols, int kNStages = kStages,
-          int kRingThreads = kThreads>
+template <class G, int kCols = tc::kTileCols, int kNStages = kStages>
 struct KvRing {
   static constexpr int kElems = kTile * kCols;   // one K or V tile
   bf16* base;
@@ -248,9 +274,9 @@ struct KvRing {
   }
   __device__ __forceinline__ void load(int kt) const {
     const int k0 = kt * kTile;
-    tc::load_tile<kTile, kRingThreads, false, kCols>(
+    tc::load_tile<kTile, kThreads, false, kCols>(
         stage(kt), k + g.head + k0 * g.ld, g.ld, S - k0, D, vec);
-    tc::load_tile<kTile, kRingThreads, false, kCols>(
+    tc::load_tile<kTile, kThreads, false, kCols>(
         stage(kt) + kElems, v + g.head + k0 * g.ld, g.ld, S - k0, D, vec);
   }
   // tiles 0 and 1 in flight, in two copy groups
@@ -572,20 +598,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ---------------------------------------------------------------------------
 constexpr int kStatRows = 4 * kTile;   // m, l, dlt and 1/l of a q tile
 
-// One stage: the q tile's Q (q2 after prepare), dO (kCols columns each)
+// One stage: the q tile's Q (q2 after prepare), dO (128 columns each)
 // and its rows' f32 statistics: m (m * log2(e) after prepare), l (max(l,
 // 1e-30)), dlt and 1 / max(l, 1e-30), each kTile floats.  Tile i of the
-// CTA (q tile first + i) sits in stage i % kNStages.  The narrow kernel
-// takes four stages: advance(i) opens tile i: tile i (prepared) is
-// visible to every thread and to wgmma, tile i + 1 has landed and is
-// prepared, and tile i + 2's copies go into the stage of tile i - 2,
-// whose products every warpgroup has retired.  The wide one takes two:
-// open(i): tile i has landed and is prepared and visible, and tile i +
-// 1's copies are in flight into the other stage, whose products both
-// warpgroups retired.
-template <int kCols = tc::kTileCols, int kNStages = kStages>
+// CTA (q tile first + i) sits in stage i % kStages: advance(i) opens
+// tile i: tile i (prepared) is visible to every thread and to wgmma,
+// tile i + 1 has landed and is prepared, and tile i + 2's copies go into
+// the stage of tile i - 2, whose products every warpgroup has retired.
 struct QRing {
-  static constexpr int kElems = kTile * kCols;   // one Q or dO tile
+  static constexpr int kElems = kTile * tc::kTileCols;   // one Q or dO tile
   static constexpr size_t kStageBytes =
       2 * kElems * sizeof(bf16) + kStatRows * sizeof(float);
   static_assert(kStageBytes % 128 == 0, "stages keep the tiles' alignment");
@@ -601,7 +622,7 @@ struct QRing {
   bool vec;
 
   __device__ __forceinline__ bf16* qs(int i) const {
-    return reinterpret_cast<bf16*>(base + (i % kNStages) * kStageBytes);
+    return reinterpret_cast<bf16*>(base + (i % kStages) * kStageBytes);
   }
   __device__ __forceinline__ bf16* dos(int i) const {
     return qs(i) + kElems;
@@ -611,9 +632,9 @@ struct QRing {
   }
   __device__ __forceinline__ void load(int i) const {
     const int q0 = (first + i) * kTile;
-    tc::load_tile<kTile, kThreads, false, kCols>(qs(i), q + head + q0 * ld,
+    tc::load_tile<kTile, kThreads, false, tc::kTileCols>(qs(i), q + head + q0 * ld,
                                                  ld, S - q0, D, vec);
-    tc::load_tile<kTile, kThreads, false, kCols>(
+    tc::load_tile<kTile, kThreads, false, tc::kTileCols>(
         dos(i), dout + head + q0 * ld, ld, S - q0, D, vec);
     if (threadIdx.x < 3 * kTile) {
       const int which = threadIdx.x / kTile;
@@ -669,18 +690,9 @@ struct QRing {
     if (i + 2 < n) load(i + 2);
     tc::cp_async_commit();
   }
-  __device__ __forceinline__ void open(int i) const {
-    tc::cp_async_wait<0>();
-    __syncthreads();
-    if (i + 1 < n) load(i + 1);
-    tc::cp_async_commit();
-    prepare(i);
-    tc::fence_proxy_async();
-    __syncthreads();
-  }
 };
 constexpr size_t kDkvSmem = 2 * kBq * tc::kTileCols * sizeof(bf16)
-                            + kStages * QRing<>::kStageBytes;
+                            + kStages * QRing::kStageBytes;
 
 // The elementwise pass of dk/dv on one transposed tile (the thread's
 // keys krow, krow + 8 x the tile's q rows from q0) in the accumulator
@@ -753,7 +765,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const size_t head = (size_t)b * S * ld + (size_t)h * D;
   // causal: from the q tile holding the key tile's first key
   const int first = kCausal ? k0 / kTile : 0;
-  const QRing<> ring{smem_raw + 2 * kBq * tc::kTileCols * sizeof(bf16),
+  const QRing ring{smem_raw + 2 * kBq * tc::kTileCols * sizeof(bf16),
                    q, dout, m_in, l_in, dlt_in, first,
                    (S + kTile - 1) / kTile - first, S, H, D, b, h, ld, head,
                    qscale, vec != 0};
@@ -833,19 +845,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ---------------------------------------------------------------------------
 // head dims 129-256: tiles zero-padded to 256 columns (kWide) in shared
 // memory, as narrower heads are padded to 128 above.  The header note
-// says what the design gives up against the narrow kernels and why.
+// says what bounds each wide kernel and what its design does about it.
 // ---------------------------------------------------------------------------
 constexpr int kWide = 256;                       // columns of a wide tile
 constexpr int kWideTileElems = kTile * kWide;    // 32 KB
-constexpr int kWideStages = 2;                   // of the wide rings
-constexpr int kDqWideRows = 64;                  // rows of a wide dq q tile
-constexpr int kDqWideThreads = 128;              // one warpgroup
+constexpr int kWideStages = 2;                   // of the wide forward's ring
 constexpr size_t kWideRingSmem =
     kWideStages * 2 * kWideTileElems * sizeof(bf16);              // 128 KB
 constexpr size_t kFwdWideSmem =
     kWideRingSmem + kBq * kWide * sizeof(bf16);                   // 192 KB
-constexpr size_t kDqWideSmem =
-    kWideRingSmem + 2 * kDqWideRows * kWide * sizeof(bf16);       // 192 KB
 
 // ---------------------------------------------------------------------------
 // wide forward: grid (q tiles of kBq, B*H)
@@ -971,11 +979,159 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// wide dq: grid (q tiles of kDqWideRows, B*H), one warpgroup a CTA
+// The wide backward kernels (dq and dk/dv at 128 < D <= 256) are warp
+// specialized.  Warpgroup 0 is the producer: it loads the CTA's resident
+// tiles (cp.async into the no-swizzle layout) and streams 32-row tiles of
+// one head through a ring of stages by TMA (four 128-byte swizzled boxes
+// of [32][64] a tile, on a rank-4 map of [B, S, H, D]; where D is not a
+// multiple of 8, or a tensor not 16-byte aligned, guarded scalar loads
+// into the same layout).  Warpgroups 1 and 2 consume the stages on the
+// tensor cores.  Stages are handed over on mbarriers: full (dq: TMA's
+// bytes, or the producer's arrival once its own stores are fenced; dk/dv:
+// the arrivals of the three producer warps that made the landed tile's
+// q2 and statistics) and empty (lane 0 of each of the 8 consumer warps,
+// once the products that read the stage have retired); a stage's j-th
+// fill is phase j of each, so a wait names the parity j & 1.  The
+// producer keeps 56 registers a thread and gives the rest to the
+// consumers (setmaxnreg: 128 x 56 + 256 x 224 of the SM's 65,536).
 // ---------------------------------------------------------------------------
+constexpr int kWideThreads = 384;     // producer + two consumer warpgroups
+constexpr int kProducerRegs = 56;
+constexpr int kConsumerRegs = 224;
+static_assert(128 * kProducerRegs + 256 * kConsumerRegs <= 65536,
+              "the registers the warpgroups keep fit the SM's file");
+constexpr int kBarProducer = 1;       // named barrier of the producer's 128
+constexpr int kStream = 32;           // rows of a streamed tile
+constexpr int kStreamElems = kStream * kWide;   // 16 KB
+constexpr int kBox = kStream * 64;              // one TMA box's elements
+
+// a consumer warp done with a stage (after the wgmma_wait that retired
+// the products reading it)
+__device__ __forceinline__ void stage_release(uint64_t* empty, int lane) {
+  if (lane == 0) tc::mbar_arrive(empty);
+}
+
+// descriptors of a streamed (swizzled) tile: step ks of the head dim read
+// k-major (the tile's rows are the product's N: box ks / 4, 32 bytes a
+// step within it), and rows 16kk.. read MN-major (the rows reduced; the
+// next 64 columns a box away)
+__device__ __forceinline__ uint64_t desc_sw_k(const bf16* tile, int ks) {
+  return tc::gmma_desc_sw128(tile + (ks >> 2) * kBox + (ks & 3) * 16, 16);
+}
+
+__device__ __forceinline__ uint64_t desc_sw_mn(const bf16* tile, int kk) {
+  return tc::gmma_desc_sw128(tile + 16 * kk * 64, kBox * sizeof(bf16));
+}
+
+// Rows [0, kRows) of a resident [kRows][kWide] tile (tc.cuh's no-swizzle
+// layout) from ``src`` (row r at src + r * ld), rows >= ``rows`` and
+// columns >= D zero, by the producer's 128 threads: with ``vec`` one
+// 16-byte cp.async a step, which the caller commits and waits for, else
+// load_tile's guarded scalar loads (complete on return).  The loop is not
+// unrolled: the producer keeps few registers.
+template <int kRows>
+__device__ __forceinline__ void produce_tile(bf16* __restrict__ dst,
+                                             const bf16* __restrict__ src,
+                                             size_t ld, int rows, int D,
+                                             bool vec) {
+  if (!vec) {
+    tc::load_tile<kRows, 128, false, kWide>(dst, src, ld, rows, D, false);
+    return;
+  }
+  constexpr int kChunks = kWide / 8;
+#pragma unroll 1
+  for (int idx = threadIdx.x; idx < kRows * kChunks; idx += 128) {
+    const int r = (idx / (8 * kChunks)) * 8 + (idx & 7);
+    const int chunk = (idx >> 3) % kChunks;
+    const bool valid = r < rows && chunk * 8 < D;
+    tc::cp_async16(dst + tc::il_off<kWide>(r, chunk),
+                   valid ? src + r * ld + chunk * 8 : src, valid);
+  }
+}
+
+// A streamed tile: rows [r0, r0 + 32) of head (b, h) into ``dst``'s four
+// swizzled boxes.  With TMA, thread ``tid`` 0 issues the boxes on ``bar``
+// (whose bytes its caller expects); otherwise threads ``tid`` 0..nthr-1
+// each store their share, guarded (rows past S and columns past D zero),
+// complete on return.
+__device__ __forceinline__ void stream_tile(bf16* __restrict__ dst,
+                                            const CUtensorMap* map,
+                                            const bf16* __restrict__ src,
+                                            size_t ld, int r0, int S, int D,
+                                            int b, int h, uint64_t* bar,
+                                            bool tma, int tid, int nthr) {
+  if (tma) {
+    if (tid == 0)
+      for (int c = 0; c < kWide / 64; ++c)
+        tc::tma_load_4d(dst + c * kBox, map, 64 * c, h, r0, b, bar);
+    return;
+  }
+  for (int idx = tid; idx < kStreamElems; idx += nthr) {
+    const int r = idx / kWide;
+    const int c = idx % kWide;
+    dst[(c >> 6) * kBox + tc::sw128_off(r, c & 63)] =
+        r0 + r < S && c < D ? src[(size_t)(r0 + r) * ld + c]
+                            : __float2bfloat16_rn(0.f);
+  }
+}
+
+// q2 = round_bf16(q * qscale) in place over a landed tile of ``elems``
+// values (the JAX rounding point; any layout), by threads ``tid`` 0..nthr-1
+__device__ __forceinline__ void scale_in_place(bf16* tile, int elems,
+                                               float qscale, int tid,
+                                               int nthr) {
+  uint4* t = reinterpret_cast<uint4*>(tile);
+#pragma unroll 4
+  for (int j = tid; j < elems / 8; j += nthr) {
+    uint4 raw = t[j];
+    uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+      w[e] = tc::pack_bf16(f.x * qscale, f.y * qscale);
+    }
+    t[j] = raw;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wide dq: grid (q tiles of kBq, B*H), the heaviest causal q tiles first.
+// Q2 and dO of the CTA's 128 rows stay resident; consumer c owns rows
+// [64c, 64c + 64) and streams 32-key (K, V) tiles through a three-stage
+// ring up to its causal frontier: s = q2 . k^T and dp = do . v^T as
+// m64n32k16 over the 16 steps of the head dim, ds in registers, and dq +=
+// round(ds) . k as m64n256k16 over the tile's 2 steps of 16 keys.
+// ---------------------------------------------------------------------------
+constexpr int kDqWideStages = 3;
+constexpr size_t kDqWideSmem =
+    kDqWideStages * 2 * kStreamElems * sizeof(bf16)           // 96 KB
+    + 2 * kBq * kWide * sizeof(bf16)                          // 128 KB
+    + (2 * kDqWideStages + 1) * sizeof(uint64_t);             // 229,432 B
+
+// masking of one warp's 16 x 32 scores (accumulator layout) at the key
+// tile from k0: keys past S or past the row (causal), and rows past S,
+// to -1e30; ``wrow0`` is the warp's first row.  Only tiles that cross
+// the diagonal or S test anything.
 template <bool kCausal>
-__global__ void __launch_bounds__(kDqWideThreads, 1)
-    flash_dq_wide_tc_kernel(const bf16* __restrict__ q,
+__device__ __forceinline__ void mask_dq_wide(float s[16], int k0, int wrow0,
+                                             int qrow, int S, int lane) {
+  if (!((kCausal && k0 + kStream - 1 > wrow0) || k0 + kStream > S ||
+        wrow0 + 16 > S))
+    return;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int kp = k0 + (i >> 2) * 8 + 2 * (lane & 3) + (i & 1);
+    const int qp = qrow + 8 * ((i >> 1) & 1);
+    if (kp >= S || (kCausal && kp > qp) || qp >= S) s[i] = kNegInf;
+  }
+}
+
+template <bool kCausal>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    flash_dq_wide_tc_kernel(const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v,
+                            const bf16* __restrict__ q,
                             const bf16* __restrict__ k,
                             const bf16* __restrict__ v,
                             const bf16* __restrict__ dout,
@@ -984,85 +1140,156 @@ __global__ void __launch_bounds__(kDqWideThreads, 1)
                             const float* __restrict__ dlt_in,
                             float* __restrict__ dq, int S, int H, int D,
                             float qscale, float scale, int vec) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  using G = Geom<kCausal, kDqWideRows>;
-  const G g(S, H, D);
-  const KvRing<G, kWide, kWideStages, kDqWideThreads> ring{
-      reinterpret_cast<bf16*>(smem_raw), k, v, g, S, D, vec != 0};
-  bf16* Qs = ring.base + kWideStages * 2 * kWideTileElems;   // resident
-  bf16* dOs = Qs + kDqWideRows * kWide;
-  const int lane = g.lane;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);   // swizzled (K, V)
+  bf16* Qs = ring + kDqWideStages * 2 * kStreamElems;   // q2, resident
+  bf16* dOs = Qs + kBq * kWide;                          // resident
+  uint64_t* full = reinterpret_cast<uint64_t*>(dOs + kBq * kWide);
+  uint64_t* empty = full + kDqWideStages;
+  uint64_t* resident = empty + kDqWideStages;   // Q2 and dO
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBq;
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const size_t ld = (size_t)H * D;
+  const size_t head = (size_t)b * S * ld + (size_t)h * D;
+  // causal: up to the key tile holding the q tile's last row
+  const int last = (kCausal ? min(q0 + kBq, S) - 1 : S - 1) / kStream;
+  // the thread's warpgroup, uniform over each warp as the compiler can
+  // see: setmaxnreg needs the role branch warp-uniform
+  const int wg = __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0);
+  auto stage = [&](int j) {
+    return ring + (j % kDqWideStages) * 2 * kStreamElems;
+  };
 
-  // dO rides in the first copy group with key tile 0
-  tc::load_tile<kDqWideRows, kDqWideThreads, false, kWide>(
-      dOs, dout + g.head + g.q0 * g.ld, g.ld, S - g.q0, D, vec != 0);
-  ring.load(0);
-  tc::cp_async_commit();
-  tc::load_tile<kDqWideRows, kDqWideThreads, true, kWide>(
-      Qs, q + g.head + g.q0 * g.ld, g.ld, S - g.q0, D, vec != 0, qscale);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kDqWideStages; ++i) {
+      tc::mbar_init(&full[i], 1);
+      tc::mbar_init(&empty[i], 8);
+    }
+    tc::mbar_init(resident, 128);
+    tc::mbar_init_fence();
+  }
+  __syncthreads();
 
-  const int qrow = g.q0 + g.row0 + (lane >> 2);
+  if (wg == 0) {
+    // the producer: dO and Q by cp.async, q2 made in place once Q has
+    // landed; key tiles 0-2 in flight, then tile j + 3 into tile j's stage
+    // once the consumers are done with it
+    tc::setmaxnreg_dec<kProducerRegs>();
+    const bool tma = vec != 0;
+    auto load = [&](int j) {
+      uint64_t* bar = &full[j % kDqWideStages];
+      const int k0 = j * kStream;
+      if (tma && threadIdx.x == 0)
+        tc::mbar_expect_tx(bar, 2 * kStreamElems * sizeof(bf16));
+      stream_tile(stage(j), &map_k, k + head, ld, k0, S, D, b, h, bar, tma,
+                  threadIdx.x, 128);
+      stream_tile(stage(j) + kStreamElems, &map_v, v + head, ld, k0, S, D,
+                  b, h, bar, tma, threadIdx.x, 128);
+      if (!tma) {
+        tc::fence_proxy_async();
+        tc::bar_sync(kBarProducer, 128);
+        if (threadIdx.x == 0) tc::mbar_arrive(bar);
+      }
+    };
+    produce_tile<kBq>(dOs, dout + head + q0 * ld, ld, S - q0, D, tma);
+    produce_tile<kBq>(Qs, q + head + q0 * ld, ld, S - q0, D, tma);
+    tc::cp_async_commit();
+    for (int j = 0; j < kDqWideStages && j <= last; ++j) load(j);
+    tc::cp_async_wait<0>();
+    tc::bar_sync(kBarProducer, 128);   // every producer thread's copies
+    scale_in_place(Qs, kBq * kWide, qscale, threadIdx.x, 128);
+    tc::fence_proxy_async();
+    tc::mbar_arrive(resident);
+    if (tma && threadIdx.x != 0) return;   // thread 0 issues the rest
+#pragma unroll 1
+    for (int j = 0; j + kDqWideStages <= last; ++j) {
+      tc::mbar_wait(&empty[j % kDqWideStages], (j / kDqWideStages) & 1);
+      load(j + kDqWideStages);
+    }
+    return;
+  }
+
+  // the consumers
+  tc::setmaxnreg_inc<kConsumerRegs>();
+  const int c = wg - 1;
+  const int ct = threadIdx.x & 127;
+  const int lane = ct & 31;
+  const int wrow0 = q0 + 64 * c + (ct >> 5) * 16;   // the warp's first row
+  const int qrow = wrow0 + (lane >> 2);
+  const int last_c = kCausal ? min(last, (q0 + 64 * c + 63) / kStream) : last;
   float mlog2[2], lden[2], rl[2], dl[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = qrow + 8 * r;
-    const size_t base = ((size_t)g.b * S + row) * H + g.h;
+    const size_t base = ((size_t)b * S + row) * H + h;
     mlog2[r] = row < S ? m_in[base] * kLog2e : 0.f;
     lden[r] = row < S ? fmaxf(l_in[base], kTiny) : 1.f;
     rl[r] = 1.f / lden[r];
     dl[r] = row < S ? dlt_in[base] : 0.f;
   }
-  float acc[2 * kWide / 4], s[32], dp[32];
+  const bf16* Qw = Qs + tc::il_off<kWide>(64 * c, 0);   // the rows it owns
+  const bf16* dOw = dOs + tc::il_off<kWide>(64 * c, 0);
+  float acc[2 * kWide / 4], s[16], dp[16];
 #pragma unroll
   for (int i = 0; i < 2 * kWide / 4; ++i) acc[i] = 0.f;
   tc::fence_regs(acc);
+  tc::mbar_wait(resident, 0);
 
-  for (int kt = 0; kt <= g.last; ++kt) {
-    ring.open(kt);
-    // s = q2 . k^T and dp = do . v^T
-    tc::fence_regs(s);
-    tc::fence_regs(dp);
-    tc::wgmma_fence();
+  for (int j = 0; j <= last; ++j) {
+    tc::mbar_wait(&full[j % kDqWideStages], (j / kDqWideStages) & 1);
+    const bf16* Kt = stage(j);
+    if (j <= last_c) {
+      // s and dp, issued behind the last tile's dq products, all retired
+      tc::fence_regs(s);
+      tc::fence_regs(dp);
+      tc::wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < kWide / 16; ++ks)
-      tc::wgmma_m64n64k16_ss<0>(s, desc_k<kWide>(Qs, ks),
-                                desc_k<kWide>(ring.stage(kt), ks), ks);
+      for (int ks = 0; ks < kWide / 16; ++ks)
+        tc::wgmma_m64n32k16_ss<0>(s, desc_k<kWide>(Qw, ks),
+                                  desc_sw_k(Kt, ks), ks);
 #pragma unroll
-    for (int ks = 0; ks < kWide / 16; ++ks)
-      tc::wgmma_m64n64k16_ss<0>(
-          dp, desc_k<kWide>(dOs, ks),
-          desc_k<kWide>(ring.stage(kt) + kWideTileElems, ks), ks);
-    tc::wgmma_commit();
-    tc::wgmma_wait<0>();
-    tc::fence_regs(s);
-    tc::fence_regs(dp);
-    // ds = p * (dp - dlt), rounded, and acc += ds . k (K read MN-major)
-    mask<kCausal, true>(s, g, kt, S, qrow);
+      for (int ks = 0; ks < kWide / 16; ++ks)
+        tc::wgmma_m64n32k16_ss<0>(dp, desc_k<kWide>(dOw, ks),
+                                  desc_sw_k(Kt + kStreamElems, ks), ks);
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_regs(s);
+      tc::fence_regs(dp);
+      tc::fence_regs(acc);
+      if (j >= 1) stage_release(&empty[(j - 1) % kDqWideStages], lane);
+      // ds = p * (dp - dlt), rounded, and acc += ds . k (K read MN-major)
+      mask_dq_wide<kCausal>(s, j * kStream, wrow0, qrow, S, lane);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int r = (i >> 1) & 1;
-      const float p = div_rn(fexp2(s[i] - mlog2[r]), lden[r], rl[r]);
-      s[i] = p * (dp[i] - dl[r]);   // ds
+      for (int i = 0; i < 16; ++i) {
+        const int r = (i >> 1) & 1;
+        const float p = div_rn(fexp2(s[i] - mlog2[r]), lden[r], rl[r]);
+        s[i] = p * (dp[i] - dl[r]);   // ds
+      }
+      uint32_t da[kStream / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kStream / 16; ++kk)
+        tc::c_to_a(da[kk], &s[8 * kk], &s[8 * kk + 4]);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kStream / 16; ++kk)
+        tc::wgmma_m64n256k16_rs<1>(acc, da[kk], desc_sw_mn(Kt, kk), 1);
+      tc::wgmma_commit();
+    } else {
+      // past this warpgroup's causal frontier: it only hands stages back
+      tc::wgmma_wait<0>();
+      tc::fence_regs(acc);
+      stage_release(&empty[(j - 1) % kDqWideStages], lane);
     }
-    uint32_t da[kTile / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk)
-      tc::c_to_a(da[kk], &s[8 * kk], &s[8 * kk + 4]);
-    tc::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk)
-      tc::wgmma_m64n256k16_rs<1>(acc, da[kk],
-                                 desc_mn<kWide>(ring.stage(kt), kk), 1);
-    tc::wgmma_commit();
-    tc::wgmma_wait<0>();
-    tc::fence_regs(acc);
   }
+  tc::wgmma_wait<0>();
+  tc::fence_regs(acc);
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = qrow + 8 * r;
     if (row >= S) continue;
-    const size_t base = ((size_t)g.b * S + row) * H + g.h;
+    const size_t base = ((size_t)b * S + row) * H + h;
 #pragma unroll
     for (int n = 0; n < kWide / 8; ++n)
 #pragma unroll
@@ -1074,20 +1301,96 @@ __global__ void __launch_bounds__(kDqWideThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// wide dk/dv: grid (key tiles of 64, B*H); K and V of the CTA's 64 keys
-// stay resident, and warpgroup w owns output columns [128w, 128w + 128)
-// of dk and dv for all 64 keys: both recompute s^T and dp^T over the
-// whole head dim.  The 64-row q tiles stream through a two-stage ring of
-// (Q, dO, statistics) stages, one tile ahead.
+// wide dk/dv: grid (key tiles of 64, B*H), key tile 0 (the most q tiles
+// under causal) first.  K and V of the CTA's 64 keys stay resident, and
+// the 32-row q tiles from the first that sees the key tile stream through
+// a four-stage ring: the producer's warp 0 issues their Q and dO boxes
+// (TMA) up to four tiles ahead, and its warps 1-3 make q2 in place and
+// load the tile's statistics as each lands.  The two consumers split the work by product, so
+// each (q, key) pair's s^T and dp^T are computed once in the CTA (8 D
+// flops a pair):
+//   * warpgroup 1: s^T = k . q2^T (m64n32k16), p = exp2(s - m) / l in
+//     its registers, p (f32) to shared memory for warpgroup 2, and dv +=
+//     round(p)^T . do over all 256 columns (m64n256k16, A from registers);
+//   * warpgroup 2: dp^T = v . do^T, ds = p (dp - dlt) with warpgroup 1's
+//     p, and dk += round(ds)^T . q2 over all 256 columns.
+// p passes through a double buffer on named barriers (full: warpgroup 1
+// arrives, 2 syncs; empty: the other way), so warpgroup 1 may run up to
+// two q tiles ahead and neither holds the other in lock-step.
 // ---------------------------------------------------------------------------
-constexpr int kWideHalf = kWide / 2;    // output columns a warpgroup
-using WideQRing = QRing<kWide, kWideStages>;
-constexpr size_t kDkvWideSmem = 2 * kWideTileElems * sizeof(bf16)
-                                + kWideStages * WideQRing::kStageBytes;
+constexpr int kDkvWideStages = 4;
+constexpr int kStatFloats = 4 * kStream;   // m, l, dlt and 1/l of a tile
+constexpr int kPElems = kTile * kStream;   // f32 p of a tile
+constexpr int kBarPFull = 2;               // + buffer (2, 3)
+constexpr int kBarPEmpty = 4;              // + buffer (4, 5)
+constexpr size_t kDkvWideSmem =
+    2 * kWideTileElems * sizeof(bf16)                      // K, V: 64 KB
+    + kDkvWideStages * 2 * kStreamElems * sizeof(bf16)     // Q, dO: 128 KB
+    + kDkvWideStages * kStatFloats * sizeof(float)         // 2 KB
+    + 2 * kPElems * sizeof(float)                          // p: 16 KB
+    + (3 * kDkvWideStages + 1) * sizeof(uint64_t);         // 215,144 B
+
+// The wide dk/dv's masked p of one transposed tile (the thread's keys
+// krow, krow + 8 x the tile's 32 q rows from q0), in place of s: masked
+// entries (key past the q row under causal, or either past S) get s =
+// -1e30, so p = 0, and only tiles that cross the diagonal or S test
+// anything; p = exp2(s - m log2(e)) / max(l, 1e-30), unrounded, per q
+// column from the stage's prepared statistics ``st``.
+template <bool kCausal>
+__device__ __forceinline__ void dkv_wide_p(float s[16], const float* st,
+                                           int krow, int q0, int S,
+                                           int lane) {
+  if ((kCausal && krow - (lane >> 2) + 15 > q0) || q0 + kStream > S ||
+      krow - (lane >> 2) + 16 > S) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int kp = krow + 8 * ((e >> 1) & 1);
+      const int qp = q0 + (e >> 2) * 8 + 2 * (lane & 3) + (e & 1);
+      if (qp >= S || kp >= S || (kCausal && kp > qp)) s[e] = kNegInf;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kStream / 8; ++j) {
+    const int c = j * 8 + 2 * (lane & 3);
+    const float2 ml = *reinterpret_cast<const float2*>(st + c);
+    const float2 den = *reinterpret_cast<const float2*>(st + kStream + c);
+    const float2 rl = *reinterpret_cast<const float2*>(st + 3 * kStream + c);
+#pragma unroll
+    for (int e = 4 * j; e < 4 * j + 4; ++e) {
+      const bool odd = e & 1;
+      s[e] = div_rn(fexp2(s[e] - (odd ? ml.y : ml.x)), odd ? den.y : den.x,
+                    odd ? rl.y : rl.x);
+    }
+  }
+}
+
+// the wide stores of one consumer's 64 x 256 accumulator (times ``mul``)
+// into rows krow, krow + 8 of out
+__device__ __forceinline__ void store_wide_rows(float* __restrict__ out,
+                                                const float (&a)[128],
+                                                float mul, int krow, int S,
+                                                int H, int D, int b, int h,
+                                                int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = krow + 8 * r;
+    if (row >= S) continue;
+    const size_t base = ((size_t)b * S + row) * H + h;
+#pragma unroll
+    for (int n = 0; n < kWide / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n * 8 + 2 * (lane & 3) + e;
+        if (col < D) out[base * D + col] = a[4 * n + 2 * r + e] * mul;
+      }
+  }
+}
 
 template <bool kCausal>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_dkv_wide_tc_kernel(const bf16* __restrict__ q,
+__global__ void __launch_bounds__(kWideThreads, 1)
+    flash_dkv_wide_tc_kernel(const __grid_constant__ CUtensorMap map_q,
+                             const __grid_constant__ CUtensorMap map_do,
+                             const bf16* __restrict__ q,
                              const bf16* __restrict__ k,
                              const bf16* __restrict__ v,
                              const bf16* __restrict__ dout,
@@ -1097,100 +1400,186 @@ __global__ void __launch_bounds__(kThreads, 1)
                              float* __restrict__ dk, float* __restrict__ dv,
                              int S, int H, int D, float qscale,
                              float inv_log2e, int vec) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // resident
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);   // swizzled (Q, dO)
+  bf16* Ks = ring + kDkvWideStages * 2 * kStreamElems;   // resident
   bf16* Vs = Ks + kWideTileElems;
+  float* statbuf = reinterpret_cast<float*>(Vs + kWideTileElems);
+  float* pbuf = statbuf + kDkvWideStages * kStatFloats;
+  uint64_t* landed = reinterpret_cast<uint64_t*>(pbuf + 2 * kPElems);
+  uint64_t* full = landed + kDkvWideStages;
+  uint64_t* empty = full + kDkvWideStages;
+  uint64_t* resident = empty + kDkvWideStages;   // K and V
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
-  const int k0 = blockIdx.x * kTile;   // key tile 0 (the most q tiles) first
-  const int c0 = (threadIdx.x >> 7) * kWideHalf;   // the warpgroup's columns
-  const int row0 = ((threadIdx.x >> 5) & 3) * 16;  // the warp's keys
-  const int lane = threadIdx.x & 31;
+  const int k0 = blockIdx.x * kTile;
   const size_t ld = (size_t)H * D;
   const size_t head = (size_t)b * S * ld + (size_t)h * D;
   // causal: from the q tile holding the key tile's first key
-  const int first = kCausal ? k0 / kTile : 0;
-  const WideQRing ring{smem_raw + 2 * kWideTileElems * sizeof(bf16), q, dout,
-                       m_in, l_in, dlt_in, first,
-                       (S + kTile - 1) / kTile - first, S, H, D, b, h, ld,
-                       head, qscale, vec != 0};
+  const int first = kCausal ? k0 / kStream : 0;
+  const int n = (S + kStream - 1) / kStream - first;
+  // the thread's warpgroup, uniform over each warp as the compiler can
+  // see: setmaxnreg needs the role branch warp-uniform
+  const int wg = __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0);
+  // stage i's q tile (q2 once prepared) and dO, and its statistics: m
+  // (m * log2(e) once prepared), max(l, 1e-30), dlt, 1 / max(l, 1e-30)
+  auto qs = [&](int i) {
+    return ring + (i % kDkvWideStages) * 2 * kStreamElems;
+  };
+  auto stats = [&](int i) {
+    return statbuf + (i % kDkvWideStages) * kStatFloats;
+  };
 
-  // K and V ride in the first copy group with q tile 0
-  tc::load_tile<kTile, kThreads, false, kWide>(Ks, k + head + k0 * ld, ld,
-                                               S - k0, D, vec != 0);
-  tc::load_tile<kTile, kThreads, false, kWide>(Vs, v + head + k0 * ld, ld,
-                                               S - k0, D, vec != 0);
-  ring.load(0);
-  tc::cp_async_commit();
-
-  // the thread's keys: rows g and g + 8 of the warp's 16 (r = 0, 1)
-  const int krow = k0 + row0 + (lane >> 2);
-  // the warpgroup's output columns of a q tile's dO and Q, read MN-major
-  const int cofs = tc::il_off<kWide>(0, c0 / 8);
-  float dka[2 * kWideHalf / 4], dva[2 * kWideHalf / 4], s[32], dp[32];
-#pragma unroll
-  for (int i = 0; i < 2 * kWideHalf / 4; ++i) dka[i] = dva[i] = 0.f;
-  tc::fence_regs(dka);
-  tc::fence_regs(dva);
-
-  for (int i = 0; i < ring.n; ++i) {
-    ring.open(i);
-    const bf16* Qt = ring.qs(i);
-    const bf16* dOt = ring.dos(i);
-    const float* st = ring.stats(i);
-    const int q0 = (first + i) * kTile;
-    // s^T = k . q2^T and dp^T = v . do^T: 64 keys x 64 q rows, over the
-    // whole head dim
-    tc::fence_regs(s);
-    tc::fence_regs(dp);
-    tc::wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < kWide / 16; ++ks)
-      tc::wgmma_m64n64k16_ss<0>(s, desc_k<kWide>(Ks, ks),
-                                desc_k<kWide>(Qt, ks), ks);
-#pragma unroll
-    for (int ks = 0; ks < kWide / 16; ++ks)
-      tc::wgmma_m64n64k16_ss<0>(dp, desc_k<kWide>(Vs, ks),
-                                desc_k<kWide>(dOt, ks), ks);
-    tc::wgmma_commit();
-    tc::wgmma_wait<0>();
-    tc::fence_regs(s);
-    tc::fence_regs(dp);
-
-    uint32_t pa[kTile / 16][4], da[kTile / 16][4];
-    dkv_p_ds<kCausal>(s, dp, st, krow, q0, S, lane, pa, da);
-    // dv[:, c0..] += round(p)^T . do[:, c0..], dk[:, c0..] += round(ds)^T
-    // . q2[:, c0..] (q rows reduced: do and q2 read MN-major)
-    tc::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk)
-      tc::wgmma_m64n128k16_rs<1>(dva, pa[kk],
-                                 desc_mn<kWide>(dOt + cofs, kk), 1);
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk)
-      tc::wgmma_m64n128k16_rs<1>(dka, da[kk],
-                                 desc_mn<kWide>(Qt + cofs, kk), 1);
-    tc::wgmma_commit();
-    tc::wgmma_wait<0>();
-    tc::fence_regs(dka);
-    tc::fence_regs(dva);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kDkvWideStages; ++i) {
+      // TMA's bytes and thread 0's arrival, or warp 0's 32 arrivals
+      tc::mbar_init(&landed[i], vec ? 1 : 32);
+      tc::mbar_init(&full[i], 96);
+      tc::mbar_init(&empty[i], 8);
+    }
+    tc::mbar_init(resident, 128);
+    tc::mbar_init_fence();
   }
+  __syncthreads();
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = krow + 8 * r;
-    if (row >= S) continue;
-    const size_t base = ((size_t)b * S + row) * H + h;
-#pragma unroll
-    for (int n = 0; n < kWideHalf / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = c0 + n * 8 + 2 * (lane & 3) + e;
-        if (col >= D) continue;
-        dk[base * D + col] = dka[4 * n + 2 * r + e] * inv_log2e;
-        dv[base * D + col] = dva[4 * n + 2 * r + e];
+  if (wg == 0) {
+    // the producer.  All 128 threads load K and V (cp.async); then warp 0
+    // streams the q tiles' Q and dO into the ring, up to four tiles ahead,
+    // and warps 1-3 make each landed tile's q2 and statistics in place, so
+    // neither job waits on the other
+    tc::setmaxnreg_dec<kProducerRegs>();
+    const bool tma = vec != 0;
+    const int t = threadIdx.x;
+    produce_tile<kTile>(Ks, k + head + k0 * ld, ld, S - k0, D, tma);
+    produce_tile<kTile>(Vs, v + head + k0 * ld, ld, S - k0, D, tma);
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
+    tc::fence_proxy_async();
+    tc::mbar_arrive(resident);
+    if (t < 32) {
+      if (tma && t != 0) return;   // thread 0 issues every TMA box
+#pragma unroll 1
+      for (int i = 0; i < n; ++i) {
+        const int sidx = i % kDkvWideStages;
+        if (i >= kDkvWideStages)   // tile i - 4 has left the stage
+          tc::mbar_wait(&empty[sidx], (i / kDkvWideStages - 1) & 1);
+        const int r0 = (first + i) * kStream;
+        if (tma)
+          tc::mbar_expect_tx(&landed[sidx], 2 * kStreamElems * sizeof(bf16));
+        stream_tile(qs(i), &map_q, q + head, ld, r0, S, D, b, h,
+                    &landed[sidx], tma, t, 32);
+        stream_tile(qs(i) + kStreamElems, &map_do, dout + head, ld, r0, S,
+                    D, b, h, &landed[sidx], tma, t, 32);
+        if (!tma) {
+          tc::fence_proxy_async();
+          tc::mbar_arrive(&landed[sidx]);
+        }
       }
+      return;
+    }
+    // warps 1-3 (p = 0..95): q2 = round_bf16(q * qscale) in place, and
+    // the statistics, one a thread: m * log2(e), max(l, 1e-30) and its
+    // reciprocal, dlt
+    const int pt = t - 32;
+    const int which = pt / kStream;
+    const int r = pt % kStream;
+    const float* src = which == 0 ? m_in : which == 1 ? l_in : dlt_in;
+#pragma unroll 1
+    for (int i = 0; i < n; ++i) {
+      const int sidx = i % kDkvWideStages;
+      const int row = (first + i) * kStream + r;
+      // the statistic's load runs under the wait and the q2 pass
+      const float x = row < S ? src[((size_t)b * S + row) * H + h] : 0.f;
+      tc::mbar_wait(&landed[sidx], (i / kDkvWideStages) & 1);
+      if (i >= kDkvWideStages)   // the consumers have read tile i - 4's
+        tc::mbar_wait(&empty[sidx], (i / kDkvWideStages - 1) & 1);
+      scale_in_place(qs(i), kStreamElems, qscale, pt, 96);
+      float* st = stats(i);
+      if (which == 0) {
+        st[r] = x * kLog2e;
+      } else if (which == 1) {
+        const float den = fmaxf(x, kTiny);
+        st[kStream + r] = den;
+        st[3 * kStream + r] = 1.f / den;
+      } else {
+        st[2 * kStream + r] = x;
+      }
+      tc::fence_proxy_async();
+      tc::mbar_arrive(&full[sidx]);
+    }
+    return;
   }
+
+  tc::setmaxnreg_inc<kConsumerRegs>();
+  const int ct = threadIdx.x & 127;
+  const int lane = ct & 31;
+  // the thread's keys: rows g and g + 8 of its warp's 16 (r = 0, 1)
+  const int krow = k0 + (ct >> 5) * 16 + (lane >> 2);
+  float acc[2 * kWide / 4], sc[16];   // dv and s^T, or dk and dp^T
+#pragma unroll
+  for (int i = 0; i < 2 * kWide / 4; ++i) acc[i] = 0.f;
+  tc::fence_regs(acc);
+  tc::mbar_wait(resident, 0);
+
+  for (int i = 0; i < n; ++i) {
+    const int buf = i % 2;
+    float* pb = pbuf + buf * kPElems;
+    tc::mbar_wait(&full[i % kDkvWideStages], (i / kDkvWideStages) & 1);
+    const bf16* Qt = qs(i);
+    const bf16* dOt = Qt + kStreamElems;
+    const float* st = stats(i);
+    // warpgroup 1: s^T = k . q2^T; 2: dp^T = v . do^T (64 keys x 32 q
+    // rows), issued behind the last tile's dv (dk) products, all retired
+    const bf16* A = wg == 1 ? Ks : Vs;
+    const bf16* B = wg == 1 ? Qt : dOt;
+    tc::fence_regs(sc);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kWide / 16; ++ks)
+      tc::wgmma_m64n32k16_ss<0>(sc, desc_k<kWide>(A, ks), desc_sw_k(B, ks),
+                                ks);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_regs(sc);
+    tc::fence_regs(acc);
+    if (i >= 1) stage_release(&empty[(i - 1) % kDkvWideStages], lane);
+    if (wg == 1) {
+      dkv_wide_p<kCausal>(sc, st, krow, (first + i) * kStream, S, lane);
+      if (i >= 2) tc::bar_sync(kBarPEmpty + buf, 256);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) pb[e * 128 + ct] = sc[e];
+      tc::bar_arrive(kBarPFull + buf, 256);
+    } else {
+      tc::bar_sync(kBarPFull + buf, 256);
+#pragma unroll
+      for (int j = 0; j < kStream / 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(
+            st + 2 * kStream + j * 8 + 2 * (lane & 3));
+#pragma unroll
+        for (int e = 4 * j; e < 4 * j + 4; ++e)
+          sc[e] = pb[e * 128 + ct] * (sc[e] - (e & 1 ? dl.y : dl.x));  // ds
+      }
+      if (i + 2 < n) tc::bar_arrive(kBarPEmpty + buf, 256);
+    }
+    // dv += round(p)^T . do, or dk += round(ds)^T . q2 (q rows reduced: do
+    // and q2 read MN-major), issued; retired with the next tile's scores
+    uint32_t a[kStream / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kStream / 16; ++kk)
+      tc::c_to_a(a[kk], &sc[8 * kk], &sc[8 * kk + 4]);
+    const bf16* Bt = wg == 1 ? dOt : Qt;
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kStream / 16; ++kk)
+      tc::wgmma_m64n256k16_rs<1>(acc, a[kk], desc_sw_mn(Bt, kk), 1);
+    tc::wgmma_commit();
+  }
+  tc::wgmma_wait<0>();
+  tc::fence_regs(acc);
+  if (wg == 1)
+    store_wide_rows(dv, acc, 1.f, krow, S, H, D, b, h, lane);
+  else
+    store_wide_rows(dk, acc, inv_log2e, krow, S, H, D, b, h, lane);
 }
 
 // 16-byte copies need D a multiple of 8 and every tensor 16-byte aligned
@@ -1222,25 +1611,49 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// the wide backward kernels' two streamed tensors as TMA maps, where the
+// 16-byte copies (and so TMA) can take them
+cudaError_t stream_maps(CUtensorMap* a, CUtensorMap* b, const void* x,
+                        const void* y, int B, int S, int H, int D,
+                        bool vec) {
+  if (!vec) return cudaSuccess;
+  const cudaError_t err = tc::encode_heads_map(a, x, B, S, H, D, kStream);
+  return err != cudaSuccess ? err
+                            : tc::encode_heads_map(b, y, B, S, H, D, kStream);
+}
+
 template <bool kCausal, bool kWideD>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* m, const void* l,
                    const void* dlt, void* dq, int B, int S, int H, int D,
                    float qscale, float scale, cudaStream_t st) {
   static bool ready = false;
-  auto kernel = kWideD ? flash_dq_wide_tc_kernel<kCausal>
-                       : flash_dq_tc_kernel<kCausal>;
-  const size_t smem = kWideD ? kDqWideSmem : kDqSmem;
-  const int rows = kWideD ? kDqWideRows : kBq;
-  cudaError_t err = allow_smem(kernel, smem, &ready);
+  const bool vec = vec_ok(D, {q, k, v, dout});
+  const dim3 grid((S + kBq - 1) / kBq, B * H);
+  if constexpr (kWideD) {
+    auto kernel = flash_dq_wide_tc_kernel<kCausal>;
+    cudaError_t err = allow_smem(kernel, kDqWideSmem, &ready);
+    CUtensorMap map_k = {}, map_v = {};
+    if (err == cudaSuccess)
+      err = stream_maps(&map_k, &map_v, k, v, B, S, H, D, vec);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kWideThreads, kDqWideSmem, st>>>(
+        map_k, map_v, static_cast<const bf16*>(q),
+        static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), static_cast<const float*>(m),
+        static_cast<const float*>(l), static_cast<const float*>(dlt),
+        static_cast<float*>(dq), S, H, D, qscale, scale, vec);
+    return cudaGetLastError();
+  }
+  auto kernel = flash_dq_tc_kernel<kCausal>;
+  cudaError_t err = allow_smem(kernel, kDqSmem, &ready);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + rows - 1) / rows, B * H);
-  kernel<<<grid, kWideD ? kDqWideThreads : kThreads, smem, st>>>(
+  kernel<<<grid, kThreads, kDqSmem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(m), static_cast<const float*>(l),
       static_cast<const float*>(dlt), static_cast<float*>(dq), S, H, D,
-      qscale, scale, vec_ok(D, {q, k, v, dout}));
+      qscale, scale, vec);
   return cudaGetLastError();
 }
 
@@ -1250,20 +1663,34 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dlt, void* dk, void* dv, int B, int S, int H,
                     int D, float qscale, float inv_log2e, cudaStream_t st) {
   static bool ready = false;
-  auto kernel = kWideD ? flash_dkv_wide_tc_kernel<kCausal>
-                       : flash_dkv_tc_kernel<kCausal>;
-  const size_t smem = kWideD ? kDkvWideSmem : kDkvSmem;
-  const int keys = kWideD ? kTile : kBq;
-  cudaError_t err = allow_smem(kernel, smem, &ready);
+  const bool vec = vec_ok(D, {q, k, v, dout});
+  if constexpr (kWideD) {
+    auto kernel = flash_dkv_wide_tc_kernel<kCausal>;
+    cudaError_t err = allow_smem(kernel, kDkvWideSmem, &ready);
+    CUtensorMap map_q = {}, map_do = {};
+    if (err == cudaSuccess)
+      err = stream_maps(&map_q, &map_do, q, dout, B, S, H, D, vec);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((S + kTile - 1) / kTile, B * H);
+    kernel<<<grid, kWideThreads, kDkvWideSmem, st>>>(
+        map_q, map_do, static_cast<const bf16*>(q),
+        static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), static_cast<const float*>(m),
+        static_cast<const float*>(l), static_cast<const float*>(dlt),
+        static_cast<float*>(dk), static_cast<float*>(dv), S, H, D, qscale,
+        inv_log2e, vec);
+    return cudaGetLastError();
+  }
+  auto kernel = flash_dkv_tc_kernel<kCausal>;
+  cudaError_t err = allow_smem(kernel, kDkvSmem, &ready);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + keys - 1) / keys, B * H);
-  kernel<<<grid, kThreads, smem, st>>>(
+  const dim3 grid((S + kBq - 1) / kBq, B * H);
+  kernel<<<grid, kThreads, kDkvSmem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(m), static_cast<const float*>(l),
       static_cast<const float*>(dlt), static_cast<float*>(dk),
-      static_cast<float*>(dv), S, H, D, qscale, inv_log2e,
-      vec_ok(D, {q, k, v, dout}));
+      static_cast<float*>(dv), S, H, D, qscale, inv_log2e, vec);
   return cudaGetLastError();
 }
 

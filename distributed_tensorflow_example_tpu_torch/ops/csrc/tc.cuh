@@ -4,8 +4,9 @@
 // matrices, and the 128-byte swizzle), asynchronous global -> shared
 // copies that fill them (cp.async of 16 or 4 bytes, and TMA boxes that
 // complete on an mbarrier), the ldmatrix load of an A operand into
-// registers, and the bf16 packing of an f32 accumulator into the A
-// operand of the next product.
+// registers, the bf16 packing of an f32 accumulator into the A operand
+// of the next product, and what warp-specialized kernels hand stages
+// over with (mbarrier arrivals, named barriers, setmaxnreg).
 //
 // Register layouts (g = lane / 4, t = lane % 4).  A wgmma m64nNk16 is
 // issued by a warpgroup of 4 warps; warp w of the group holds rows
@@ -238,6 +239,38 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
+// one plain arrival (release at CTA scope): a consumer done with a stage,
+// or a producer thread whose copies into a stage are complete and fenced
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Named barriers (ids 1-15; 0 is __syncthreads) among ``n`` threads, a
+// multiple of 32: bar_sync waits for the phase, bar_arrive counts
+// towards it and goes on.  A warpgroup that arrives hands its prior
+// shared-memory writes to the one that syncs (producer / consumer).
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// a warpgroup's registers a thread: a producer warpgroup gives some back
+// (dec) so that the consumer warpgroups can take them (inc)
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // the box at element coordinates (c0 innermost, c1, c2) of a rank-3
 // tensor map, e.g. (K, rows, expert) of a batch of matrices, into
 // ``dst`` (1024-byte aligned for the 128-byte swizzle), completing on
@@ -251,6 +284,20 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(smem_addr(bar))
+      : "memory");
+}
+
+// the box at element coordinates (c0 innermost, .., c3) of a rank-4
+// tensor map, e.g. (column, head, row, batch) of a [B, S, H, D] tensor,
+// into ``dst`` (1024-byte aligned), completing on ``bar``
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -273,18 +320,15 @@ __device__ __forceinline__ uint64_t gmma_desc_sw128(const void* p,
   return gmma_desc(p, lbo, 1024) | (uint64_t)1 << 62;
 }
 
-// The rank-3 tensor map of a batch of ``depth`` >= 1 row-major bf16
-// matrices [depth][outer][inner] (rows ``row_bytes`` apart and matrices
-// ``plane_bytes`` apart, both multiples of 16; ``base`` 16-byte aligned)
-// read in boxes of [1][box_outer][box_inner] elements (tma_load_3d),
-// box_inner * 2 <= 128, written 128-byte swizzled; one matrix is depth 1.
-// cuTensorMapEncodeTiled is looked up at run time through the CUDA
-// runtime, so nothing links against libcuda.
-inline cudaError_t encode_sw128_map(CUtensorMap* map, const void* base,
-                                    uint64_t inner, uint64_t outer,
-                                    uint64_t row_bytes, uint32_t box_inner,
-                                    uint32_t box_outer, uint64_t depth,
-                                    uint64_t plane_bytes) {
+// A bf16 tensor map of ``rank`` dims (innermost first; strides in bytes
+// of dims 1..rank-1, multiples of 16; ``base`` 16-byte aligned), read in
+// ``box``es written 128-byte swizzled (box[0] * 2 <= 128 bytes); elements
+// past an edge are zero.  cuTensorMapEncodeTiled is looked up at run time
+// through the CUDA runtime, so nothing links against libcuda.
+inline cudaError_t encode_sw128(CUtensorMap* map, const void* base,
+                                uint32_t rank, const cuuint64_t* dims,
+                                const cuuint64_t* strides,
+                                const cuuint32_t* box) {
   using Encode = CUresult (*)(
       CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
       const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -306,16 +350,43 @@ inline cudaError_t encode_sw128_map(CUtensorMap* map, const void* base,
       return cudaErrorNotSupported;
     encode = reinterpret_cast<Encode>(fn);
   }
-  const cuuint64_t dims[3] = {inner, outer, depth};
-  const cuuint64_t strides[2] = {row_bytes, plane_bytes};
-  const cuuint32_t box[3] = {box_inner, box_outer, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
       dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The rank-3 map of a batch of ``depth`` >= 1 row-major bf16 matrices
+// [depth][outer][inner] (rows ``row_bytes`` apart and matrices
+// ``plane_bytes`` apart) read in boxes of [1][box_outer][box_inner]
+// elements (tma_load_3d); one matrix is depth 1.
+inline cudaError_t encode_sw128_map(CUtensorMap* map, const void* base,
+                                    uint64_t inner, uint64_t outer,
+                                    uint64_t row_bytes, uint32_t box_inner,
+                                    uint32_t box_outer, uint64_t depth,
+                                    uint64_t plane_bytes) {
+  const cuuint64_t dims[3] = {inner, outer, depth};
+  const cuuint64_t strides[2] = {row_bytes, plane_bytes};
+  const cuuint32_t box[3] = {box_inner, box_outer, 1};
+  return encode_sw128(map, base, 3, dims, strides, box);
+}
+
+// The rank-4 map of a [B, S, H, D] bf16 tensor (D a multiple of 8, 16-byte
+// aligned) as (column, head, row, batch), read in boxes of 64 columns x
+// ``box_rows`` rows of one head (tma_load_4d): one head's rows of a
+// 128-byte swizzled [box_rows][64] tile
+inline cudaError_t encode_heads_map(CUtensorMap* map, const void* base,
+                                    int B, int S, int H, int D,
+                                    uint32_t box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)S * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, box_rows, 1};
+  return encode_sw128(map, base, 4, dims, strides, box);
 }
 
 // ---------------------------------------------------------------------------
@@ -483,6 +554,28 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float d[128],
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d), "n"(kTransB));
+}
+
+// the narrowest product the wide dq takes: its scores over 32 keys
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float d[16],
+                                                  uint64_t desc_a,
+                                                  uint64_t desc_b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, %19;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
 }
 
 template <int kTransB>

@@ -246,9 +246,10 @@ def flash_dq(q, k, v, do, m, l, dlt, causal: bool = False):
     """B6: dq f32 ``[B, S, H, D]`` from the saved statistics.  CUDA: one
     CTA per (q tile, batch*head), streaming key tiles up to the causal
     frontier; bf16 ``flash_dq_tc_kernel`` (D <= 128: 128-row q tiles, two
-    warpgroups) or ``flash_dq_wide_tc_kernel`` (64-row q tiles, one
-    warpgroup) on the tensor cores, f32 ``flash_dq_kernel`` (64-row q
-    tiles at D <= 128, 32-row above; f32 FMA)."""
+    warpgroups) or ``flash_dq_wide_tc_kernel`` (128-row q tiles: a
+    producer warpgroup streams 32-key K/V tiles by TMA, two consumer
+    warpgroups of 64 rows) on the tensor cores, f32 ``flash_dq_kernel``
+    (64-row q tiles at D <= 128, 32-row above; f32 FMA)."""
     if _on_cpu(q, k, v, do, m, l, dlt):
         _counts.plain(flash_dq, q, k, v, do, m, l, dlt)
         return flash_backward_reference(q, k, v, do, m, l, dlt, causal)[0]
@@ -269,9 +270,10 @@ def flash_dkv(q, k, v, do, m, l, dlt, causal: bool = False):
     CUDA: one CTA per (key tile, batch*head), streaming q tiles from the
     first that sees the key tile; bf16 ``flash_dkv_tc_kernel`` (D <= 128:
     128 keys, a warpgroup each 64) or ``flash_dkv_wide_tc_kernel`` (64
-    keys, a warpgroup each half of the head dim) on the tensor cores,
-    f32 ``flash_dkv_kernel`` (64 keys at D <= 128, 32 above; f32
-    FMA)."""
+    keys: a producer warpgroup streams 32-row Q/dO tiles by TMA and makes
+    q2; one consumer warpgroup runs s^T, p and dv, the other dp^T, ds and
+    dk, each pair's scores computed once) on the tensor cores, f32
+    ``flash_dkv_kernel`` (64 keys at D <= 128, 32 above; f32 FMA)."""
     if _on_cpu(q, k, v, do, m, l, dlt):
         _counts.plain(flash_dkv, q, k, v, do, m, l, dlt)
         return flash_backward_reference(q, k, v, do, m, l, dlt, causal)[1:]

@@ -1,12 +1,15 @@
 """Where a full-width transformer training step of the PyTorch port
 spends its time.
 
-    python3 scripts/torch_transformer_profile.py [--steps 2] [--out FILE]
+    python3 scripts/torch_transformer_profile.py [--steps 2] [--wide-heads]
+        [--root DIR] [--out FILE]
 
 Builds ``chip_smoke.py``'s transformer configuration on the card (the
 JAX repo's ``transformer_wide_long`` bench row: causal flash attention,
 ``--fused_ln``, d_model 1024, 8 heads of 128, 4 blocks, d_ff 4096,
-S 8192, bf16 compute, Adam with bf16 moments, batch 8) and runs the host
+S 8192, bf16 compute, Adam with bf16 moments, batch 8; with
+``--wide-heads`` phase 7c's form of it, 4 heads of 256, which runs the
+flash kernels' wide instantiations) and runs the host
 loop's step exactly as ``train/loop.run`` does — a numpy batch from
 ``EpochIterator``, copied to the card, one step, the cost fetched —
 first one warm-up step, then ``--steps`` steps timed on the host clock,
@@ -15,7 +18,9 @@ per step (the unprofiled pass), the device busy time per step (the sum
 of CUDA kernel times, profiled pass), the idle share ``1 - busy /
 wall``, the kernels by device time, and the share of the busy time in
 the port's own kernels (flash forward, dq, dk/dv, the LayerNorms); the
-same numbers go to ``--out`` as JSON.  Needs one card.
+same numbers go to ``--out`` as JSON.  ``--root`` imports the package
+and ``chip_smoke.py`` from another tree unpacked at DIR, so two trees
+can be profiled in one call.  Needs one card.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -43,14 +49,20 @@ OWN_KERNELS = {"flash_fwd_": "flash forward (B5)",
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--wide-heads", action="store_true",
+                    help="4 heads of 256 (chip_smoke.py phase 7c)")
+    ap.add_argument("--root", default=_REPO)
     ap.add_argument("--out", default=os.path.join(
         _REPO, "build", "torch_transformer_profile.json"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
-    import chip_smoke
+    # torch_serving_profile puts this tree first on the path: import it
+    # before the tree under --root goes in front
     from torch_serving_profile import _kernel_table, _print
+    sys.path.insert(0, os.path.abspath(args.root))
+    import chip_smoke
 
     from distributed_tensorflow_example_tpu_torch.config import (
         parse_train_config)
@@ -62,8 +74,14 @@ def main(argv=None) -> int:
     from distributed_tensorflow_example_tpu_torch.train.state import (
         create_train_state)
 
-    card = torch.cuda.get_device_name(0)
-    cfg = parse_train_config(chip_smoke.WIDE_LONG_FLAGS)
+    # the card's name and power limit, beside every number printed
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    flags = (chip_smoke.WIDE_HEAD_FLAGS if args.wide_heads
+             else chip_smoke.WIDE_LONG_FLAGS)
+    cfg = parse_train_config(flags)
     spec = loop.make_spec(cfg)
     opt = optim.make_optimizer(cfg)
     body = step.make_sync_step_body(cfg, spec, opt)
@@ -101,7 +119,8 @@ def main(argv=None) -> int:
             if frag in r["name"]:
                 own[label] = own.get(label, 0.0) + r["device_us_per_tick"]
     flops = tfm.flops_per_step(spec, cfg.batch_size)
-    report = {"card": card, "flags": chip_smoke.WIDE_LONG_FLAGS,
+    report = {"card": card, "root": os.path.abspath(args.root),
+              "flags": flags,
               "step": doc,
               "own_kernels_ms_per_step": {k: v / 1e3
                                           for k, v in own.items()},

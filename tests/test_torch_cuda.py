@@ -647,6 +647,55 @@ def test_flash_wide_head_kernels_match_plain_on_card(card, dtype, causal, s):
                              f"{dtype} causal={causal} S={s} D={d}")
 
 
+def _wide_backward(q, k, v, do, causal):
+    """B6 and B7 on the plain forward's statistics and dlt, and the
+    plain backward on the same inputs."""
+    o = fa.flash_attention_reference(q, k, v, causal)
+    _acc, m, l = fa.flash_stats_reference(q, k, v, causal)
+    dlt = torch.sum(do.float() * o.float(), dim=-1)
+    got = (fa.flash_dq(q, k, v, do, m, l, dlt, causal),
+           *fa.flash_dkv(q, k, v, do, m, l, dlt, causal))
+    return got, (q, k, v, do, m, l, dlt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 63, 65, 127, 129, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wide_backward_tile_edges_on_card(card, causal, s):
+    """The bf16 wide dq and dk/dv against their plain versions at S on
+    either side of their tiles' edges: dq's 32-key tiles and 128-row q
+    tiles (two warpgroups of 64 rows), dk/dv's 64-key CTAs and 64-row q
+    tiles; D 256 and 192 (16-byte asynchronous copies) and 130 (guarded
+    scalar loads, zero-padded to 256), batch 2 and 3 heads."""
+    for d in (130, 192, 256):
+        gen = torch.Generator(device=card).manual_seed(7000 + s * 10 + d)
+        q, k, v, do = (torch.randn(2, s, 3, d, generator=gen,
+                                   device=card).to(torch.bfloat16)
+                       for _ in range(4))
+        got, args = _wide_backward(q, k, v, do, causal)
+        want = fa.flash_backward_reference(*args, causal)
+        for g_, w_, name in zip(got, want, ("dq", "dk", "dv")):
+            _close_scaled(g_, w_, FLASH_TOL[torch.bfloat16],
+                          f"{name} causal={causal} S={s} D={d}", floor=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [130, 256])
+def test_flash_wide_backward_is_deterministic_on_card(card, d):
+    """The wide dq, dk and dv are the same bits over two calls (no
+    atomics: each output element is summed by one thread in a fixed
+    order), causal and not, at a ragged S over many tiles."""
+    gen = torch.Generator(device=card).manual_seed(d)
+    q, k, v, do = (torch.randn(2, 1000, 3, d, generator=gen,
+                               device=card).to(torch.bfloat16)
+                   for _ in range(4))
+    for causal in (True, False):
+        first, args = _wide_backward(q, k, v, do, causal)
+        again = (fa.flash_dq(*args, causal), *fa.flash_dkv(*args, causal))
+        for a, b, name in zip(first, again, ("dq", "dk", "dv")):
+            assert torch.equal(a, b), f"{name} causal={causal} D={d}"
+
+
 def _attention64(q, k, v, causal):
     """softmax(q k^T / sqrt(D)) v in f64 over ``[B, S, H, D]``, the
     exact function the flash kernels compute."""
