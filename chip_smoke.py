@@ -6,7 +6,8 @@ Phases (any failure exits nonzero; none is caught and skipped):
 
 1. build the CUDA kernels from ``distributed_tensorflow_example_tpu_
    torch/ops/csrc`` with nvcc for sm_90a, and print the build time and
-   each kernel's registers and spills from the compiler's report;
+   each kernel's registers and spills from the compiler's report, which
+   must name no kernel whose wgmma products it serialized;
 2. hold each kernel (fused LayerNorm, LayerNorm+residual, grouped FFN)
    against its plain PyTorch version on the card at the serving path's
    shapes (and the two LayerNorm forms at the transformer trainer's
@@ -706,6 +707,15 @@ def ptxas_usage(text: str) -> dict:
     return usage
 
 
+def wgmma_serialized(text: str) -> list:
+    """The kernels whose wgmma products the compiler's ``-Xptxas -v``
+    report says it serialized (its "Potential Performance Loss" notes:
+    a product waits for the one before, so none overlaps other work)."""
+    return sorted(set(re.findall(
+        r"wgmma\.mma_async instructions are serialized.*? in the function "
+        r"'([\w$]+)'", text)))
+
+
 # the bf16 tensor-core kernels behind B5's two forms, B6 and B7 at the
 # path's causal shape and behind B1's bf16 layers (fragments of their
 # mangled names), and their registers and spills from the compiler's
@@ -738,11 +748,15 @@ FLASH_WIDE = {
         ("f32", "dkv", "flash_dkv_kernelILi32ELi256ELb{c}EE"))}
 FLASH_WIDE_USAGE: dict = {}
 # the wide bf16 kernels' designs, as the phase 2c rows print them
+_FWD_WIDE_DESIGN = ("warp-specialized: a TMA producer warpgroup loads Q "
+                    "and streams 80-key K/V tiles through a 2-stage ring, K "
+                    "and V on their own mbarriers; two consumer warpgroups "
+                    "of 64 rows (a 128-row q tile, q2 made in place) take "
+                    "turns on named barriers, one's softmax under the "
+                    "other's products; setmaxnreg 56/224")
 FLASH_WIDE_DESIGN = {
-    "stats": "wgmma+cp.async, D padded to 256, 2-stage ring, products "
-             "not overlapped",
-    "normalized": "wgmma+cp.async, D padded to 256, 2-stage ring, "
-                  "products not overlapped",
+    "stats": _FWD_WIDE_DESIGN,
+    "normalized": _FWD_WIDE_DESIGN,
     "dq": "warp-specialized: a TMA producer warpgroup streams 32-key K/V "
           "tiles through a 3-stage ring; two consumer warpgroups of 64 "
           "rows (a 128-row q tile, Q and dO resident); setmaxnreg 56/224",
@@ -841,6 +855,11 @@ def phase_build():
                 f"spill stores "
                 f"{use.get('spill_stores', 0)} B, loads "
                 f"{use.get('spill_loads', 0)} B")
+    serial = wgmma_serialized(_build.last_build.get("log") or "")
+    if serial:
+        raise RuntimeError(f"the compiler serialized the wgmma products of "
+                           f"{serial}")
+    log("[build]   no kernel's wgmma products serialized")
 
 
 def _gen(seed: int):

@@ -104,29 +104,49 @@
 //     (causal), and q rows or keys past S, give p = 0 and ds = 0; only
 //     tiles that cross the diagonal or S test anything.
 // Head dims 129-256 (the *_wide_tc kernels; JAX _pick_tiles takes D >
-// 128 with square tiles): tiles are zero-padded to 256 columns, where
-// the narrow design does not fit.
-//   * forward (a simple kernel that is right first): a 64-key tile is
-//     32 KB, so the four-stage ring would take 256 KB of the 227 KB a CTA
-//     can have, and q2 in registers (64 a thread) beside the 128 f32
-//     accumulators of acc (64 rows x 256) and s passes the 255 registers
-//     a thread may use.  So Q (q2) stays in shared memory (64 KB for 128
-//     rows, read by s = q2 . k^T as a descriptor), K and V stream through
-//     a two-stage ring one tile ahead (128 KB), and p . v is wgmma
-//     m64n256k16; 192 KB in all; no product runs under another tile's
-//     elementwise work.
-//   * dq and dk/dv are warp specialized (FlashAttention-3's producer and
-//     consumers): a producer warpgroup keeps 56 registers (setmaxnreg) and
-//     streams 32-row tiles of one head by TMA (rank-4 maps of [B, S, H,
-//     D], 128-byte swizzled boxes of [32][64]) through a ring of stages
-//     handed over on full / empty mbarriers; two consumer warpgroups of
-//     224 registers run the products, with no CTA-wide barrier after the
-//     start.  What bounds them: with every thread's cp.async feeding the
-//     streamed tiles (2.35 TB/s from L2 on the H100) both kernels ran at
-//     the copies' pace, well behind their products; TMA (15.89 TB/s)
-//     leaves dq bound by its products and dk/dv by its products and the
-//     q2 pass, which three producer warps run as each tile lands while
-//     the fourth issues the loads, up to four tiles ahead.
+// 128 with square tiles): tiles are zero-padded to 256 columns, where the
+// narrow design does not fit (its four stages of 64-key tiles would take
+// 256 KB of the 227 KB a CTA can have, and q2 in registers beside a 64 x
+// 256 f32 output, 128 registers a thread, passes the 255 a thread may
+// use).  All three are warp specialized (FlashAttention-3's producer and
+// consumers): a producer warpgroup keeps 56 registers (setmaxnreg) and
+// streams tiles of one head by TMA (rank-4 maps of [B, S, H, D],
+// 128-byte swizzled boxes of [rows][64]) through a ring of stages handed
+// over on full / empty mbarriers; two consumer warpgroups of 224
+// registers run the products, with no CTA-wide barrier after the start.
+// What bounds them: with every thread's cp.async feeding the streamed
+// tiles (2.35 TB/s from L2 on the H100) each ran at the copies' pace, far
+// behind its products; TMA (15.89 TB/s) leaves each bound by its products
+// and what feeds them from shared memory.
+//   * forward: a CTA owns a 128-row q tile, Q resident (64 KB, four
+//     [128][64] boxes by TMA; each consumer makes q2 in place over its 64
+//     rows), and streams 80-key K and V tiles (40 KB each) through two
+//     stages, K and V on mbarriers of their own, so a tile's s starts as
+//     soon as its K lands and V's stage goes back once its p . v has
+//     retired.  Consumer c owns 64 rows: s = q2 . k^T as m64n80k16 over
+//     the 16 steps of the head dim (Q and K read from shared memory), acc
+//     += round(p) . v as m64n256k16 (p from registers, V read MN-major).
+//     The consumers take turns on two named barriers (FlashAttention-3's
+//     ping-pong): a turn issues the last tile's p . v and this tile's s
+//     together and hands the turn on, so one consumer's row max, rescale
+//     of acc (no product of its own in flight) and exp2 pass run while
+//     the other's products keep the tensor cores busy.  What is left: a
+//     key tile's products take 32 tensor-core clocks a key, and its
+//     shared-memory traffic (s reads Q and K and p . v reads V, once per
+//     consumer; TMA writes K and V) 3.8 KB a key, 30 clocks at 128 B a
+//     clock: the two co-limit.  Hence 80 keys (FlashAttention-3's width
+//     at this head dim), the widest tile two stages of K and V leave room
+//     for beside Q: Q's reads per key fall with the width (64 keys: 4 KB
+//     a key, 32 clocks).  Issuing tile j + 1's s ahead of tile j's
+//     softmax as well (acc rescaled between the two products, p packed
+//     after the wait) measured no faster, and packing p while its product
+//     was in flight made ptxas serialize the products; not kept.  Shared
+//     memory 65,536 + 163,840 + 72 = 229,448 B.  At [8, 8192, 4, 256]
+//     causal 1.6966-1.7031 ms (645.7-648.2 TFLOP/s, 1.05x SDPA's forward;
+//     bound 1.112 ms by operations) on an NVIDIA H100 80GB HBM3 at 700.00
+//     W, where the design before it (every thread's cp.async into a
+//     two-stage ring, no product under another tile's softmax) took
+//     4.2206-4.2520 ms in the same call.
 //   * dq: a CTA owns a 128-row q tile, Q2 and dO resident (128 KB,
 //     loaded by cp.async, q2 made in place); consumer c owns 64 rows and
 //     streams 32-key (K, V) tiles (32 KB) through three stages up to its
@@ -155,8 +175,9 @@
 //     256]; 48 B spilled), so each tile's scores are issued behind the
 //     last tile's dv (dk) products and retired together.  Shared memory
 //     65,536 + 131,072 + 2,048 + 16,384 (p) + 104 = 215,144 B.
-//   * registers (-Xptxas -v): both 168 at launch (384 threads), setmaxnreg
-//     56 / 224, 0 bytes spilled.  Masking, rounding points, the guards
+//   * registers (-Xptxas -v): all three 168 at launch (384 threads),
+//     setmaxnreg 56 / 224, 0 bytes spilled (the forward's producer spilled
+//     at 24, 32 and 40).  Masking, rounding points, the guards
 //     for ragged S and the zero padding are the narrow kernels'; where D
 //     is not a multiple of 8 (or a tensor not 16-byte aligned) the
 //     producer fills the same swizzled layout with guarded scalar loads.
@@ -209,8 +230,8 @@ __device__ __forceinline__ float div_rn(float x, float l, float rl) {
   return fmaf(fmaf(-q, l, x), rl, q);
 }
 
-// descriptors of the core-matrix tiles (tc.cuh) of kCols columns: step
-// ks of the head dim of a [rows][d] tile read k-major (rows are the
+// descriptors of the core-matrix tiles (tc.cuh): step ks of the head
+// dim of a [rows][d] tile of kCols columns read k-major (rows are the
 // product's M or N), and keys 16kk.. of a [keys][d] tile read MN-major
 // (keys reduced)
 template <int kCols = tc::kTileCols>
@@ -219,10 +240,9 @@ __device__ __forceinline__ uint64_t desc_k(const bf16* tile, int ks) {
                        tc::il_group(kCols));
 }
 
-template <int kCols = tc::kTileCols>
 __device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int kk) {
-  return tc::gmma_desc(tile + tc::il_off<kCols>(16 * kk, 0),
-                       tc::il_group(kCols), 128);
+  return tc::gmma_desc(tile + tc::il_off(16 * kk, 0),
+                       tc::il_group(tc::kTileCols), 128);
 }
 
 // the geometry one CTA works on: q tile qt (of kRowsQ rows) of head (b, h)
@@ -249,19 +269,15 @@ struct Geom {
 };
 
 // The ring of (K, V) stages a CTA streams key tiles through: tile kt in
-// stage kt % kNStages, tiles of kCols columns filled by the CTA's
-// threads.  The narrow kernels take four stages, two tiles ahead:
+// stage kt % kStages, filled by the CTA's threads, two tiles ahead:
 // advance(kt) opens key tile kt: tile kt + 1 has landed and is visible
 // to every thread and to wgmma, and tile kt + 2's copies go into the
-// stage of tile kt - 2, whose products the barrier has seen finish.  The
-// wide forward takes two, one tile ahead: open(kt) makes key tile kt
-// visible, then sends key tile kt + 1's copies into the other stage,
-// whose products (key tile kt - 1's) every warpgroup retired before the
-// barrier.  Every thread calls either once for each key tile up to the
-// CTA's last, whether its warpgroup still works or not.
-template <class G, int kCols = tc::kTileCols, int kNStages = kStages>
+// stage of tile kt - 2, whose products the barrier has seen finish.
+// Every thread calls it once for each key tile up to the CTA's last,
+// whether its warpgroup still works or not.
+template <class G>
 struct KvRing {
-  static constexpr int kElems = kTile * kCols;   // one K or V tile
+  static constexpr int kElems = kTileElems;   // one K or V tile
   bf16* base;
   const bf16* k;
   const bf16* v;
@@ -270,14 +286,15 @@ struct KvRing {
   bool vec;
 
   __device__ __forceinline__ bf16* stage(int kt) const {
-    return base + (kt % kNStages) * 2 * kElems;
+    return base + (kt % kStages) * 2 * kElems;
   }
   __device__ __forceinline__ void load(int kt) const {
     const int k0 = kt * kTile;
-    tc::load_tile<kTile, kThreads, false, kCols>(
-        stage(kt), k + g.head + k0 * g.ld, g.ld, S - k0, D, vec);
-    tc::load_tile<kTile, kThreads, false, kCols>(
-        stage(kt) + kElems, v + g.head + k0 * g.ld, g.ld, S - k0, D, vec);
+    tc::load_tile<kTile, kThreads>(stage(kt), k + g.head + k0 * g.ld, g.ld,
+                                   S - k0, D, vec);
+    tc::load_tile<kTile, kThreads>(stage(kt) + kElems,
+                                   v + g.head + k0 * g.ld, g.ld, S - k0, D,
+                                   vec);
   }
   // tiles 0 and 1 in flight, in two copy groups
   __device__ __forceinline__ void start() const {
@@ -291,13 +308,6 @@ struct KvRing {
     tc::fence_proxy_async();
     __syncthreads();
     if (kt + 2 <= g.last) load(kt + 2);
-    tc::cp_async_commit();
-  }
-  __device__ __forceinline__ void open(int kt) const {
-    tc::cp_async_wait<0>();
-    tc::fence_proxy_async();
-    __syncthreads();
-    if (kt + 1 <= g.last) load(kt + 1);
     tc::cp_async_commit();
   }
 };
@@ -849,161 +859,36 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ---------------------------------------------------------------------------
 constexpr int kWide = 256;                       // columns of a wide tile
 constexpr int kWideTileElems = kTile * kWide;    // 32 KB
-constexpr int kWideStages = 2;                   // of the wide forward's ring
-constexpr size_t kWideRingSmem =
-    kWideStages * 2 * kWideTileElems * sizeof(bf16);              // 128 KB
-constexpr size_t kFwdWideSmem =
-    kWideRingSmem + kBq * kWide * sizeof(bf16);                   // 192 KB
 
 // ---------------------------------------------------------------------------
-// wide forward: grid (q tiles of kBq, B*H)
-// ---------------------------------------------------------------------------
-template <bool kCausal, bool kStats>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_fwd_wide_tc_kernel(const bf16* __restrict__ q,
-                             const bf16* __restrict__ k,
-                             const bf16* __restrict__ v,
-                             bf16* __restrict__ o,
-                             float* __restrict__ acc_out,
-                             float* __restrict__ m_out,
-                             float* __restrict__ l_out, int S, int H, int D,
-                             float qscale, int vec) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  using G = Geom<kCausal>;
-  const G g(S, H, D);
-  const KvRing<G, kWide, kWideStages> ring{reinterpret_cast<bf16*>(smem_raw),
-                                          k, v, g, S, D, vec != 0};
-  bf16* Qs = ring.base + kWideStages * 2 * kWideTileElems;   // resident
-  const int lane = g.lane;
-
-  ring.load(0);
-  tc::cp_async_commit();
-  // q2 through registers (complete on return), visible after open(0)
-  tc::load_tile<kBq, kThreads, true, kWide>(Qs, q + g.head + g.q0 * g.ld,
-                                            g.ld, S - g.q0, D, vec, qscale);
-  const bf16* Qw = Qs + tc::il_off<kWide>(g.wg0, 0);   // the warpgroup's
-
-  const int qrow = g.q0 + g.row0 + (lane >> 2);
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-  float acc[2 * kWide / 4], s[32];
-#pragma unroll
-  for (int i = 0; i < 2 * kWide / 4; ++i) acc[i] = 0.f;
-  tc::fence_regs(acc);
-
-  for (int kt = 0; kt <= g.last; ++kt) {
-    ring.open(kt);
-    if (kt > g.last_wg) continue;   // past this warpgroup's causal frontier
-    // s = q2 . k^T over the 16 steps of the padded head dim
-    tc::fence_regs(s);
-    tc::wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < kWide / 16; ++ks)
-      tc::wgmma_m64n64k16_ss<0>(s, desc_k<kWide>(Qw, ks),
-                                desc_k<kWide>(ring.stage(kt), ks), ks);
-    tc::wgmma_commit();
-    tc::wgmma_wait<0>();
-    tc::fence_regs(s);
-    mask<kCausal, false>(s, g, kt, S, qrow);
-    // the row max, acc rescaled (no product in flight), p and l
-    float m_new[2], alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        mx = fmaxf(mx, fmaxf(s[4 * n + 2 * r], s[4 * n + 2 * r + 1]));
-      m_new[r] = fmaxf(m[r], tc::quad_max(mx));
-      alpha[r] = fexp2(m[r] - m_new[r]);
-      m[r] = m_new[r];
-    }
-#pragma unroll
-    for (int n = 0; n < kWide / 8; ++n)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        acc[4 * n + 2 * r] *= alpha[r];
-        acc[4 * n + 2 * r + 1] *= alpha[r];
-      }
-    tc::fence_regs(acc);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float ps = 0.f;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 2 * r; e < 2 * r + 2; ++e) {
-          s[4 * n + e] = fexp2(s[4 * n + e] - m_new[r]);
-          ps += s[4 * n + e];
-        }
-      l[r] = l[r] * alpha[r] + tc::quad_sum(ps);
-    }
-    // acc += round(p) . v: m64n256, V read MN-major
-    uint32_t pa[kTile / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk)
-      tc::c_to_a(pa[kk], &s[8 * kk], &s[8 * kk + 4]);
-    tc::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk)
-      tc::wgmma_m64n256k16_rs<1>(
-          acc, pa[kk], desc_mn<kWide>(ring.stage(kt) + kWideTileElems, kk),
-          1);
-    tc::wgmma_commit();
-    tc::wgmma_wait<0>();
-    tc::fence_regs(acc);
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = qrow + 8 * r;
-    if (row >= S) continue;
-    const size_t base = ((size_t)g.b * S + row) * H + g.h;
-    const float den = fmaxf(l[r], kTiny);
-    if (kStats && (lane & 3) == 0) {
-      m_out[base] = m[r] * kLn2;
-      l_out[base] = l[r];
-    }
-#pragma unroll
-    for (int n = 0; n < kWide / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = n * 8 + 2 * (lane & 3) + e;
-        if (col >= D) continue;
-        if (kStats)
-          acc_out[base * D + col] = acc[4 * n + 2 * r + e];
-        else
-          o[base * D + col] =
-              __float2bfloat16_rn(acc[4 * n + 2 * r + e] / den);
-      }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The wide backward kernels (dq and dk/dv at 128 < D <= 256) are warp
+// The wide kernels (forward, dq and dk/dv at 128 < D <= 256) are warp
 // specialized.  Warpgroup 0 is the producer: it loads the CTA's resident
-// tiles (cp.async into the no-swizzle layout) and streams 32-row tiles of
-// one head through a ring of stages by TMA (four 128-byte swizzled boxes
-// of [32][64] a tile, on a rank-4 map of [B, S, H, D]; where D is not a
-// multiple of 8, or a tensor not 16-byte aligned, guarded scalar loads
-// into the same layout).  Warpgroups 1 and 2 consume the stages on the
-// tensor cores.  Stages are handed over on mbarriers: full (dq: TMA's
-// bytes, or the producer's arrival once its own stores are fenced; dk/dv:
-// the arrivals of the three producer warps that made the landed tile's
-// q2 and statistics) and empty (lane 0 of each of the 8 consumer warps,
-// once the products that read the stage have retired); a stage's j-th
-// fill is phase j of each, so a wait names the parity j & 1.  The
-// producer keeps 56 registers a thread and gives the rest to the
-// consumers (setmaxnreg: 128 x 56 + 256 x 224 of the SM's 65,536).
+// tiles (the backward's by cp.async into the no-swizzle layout, the
+// forward's Q by TMA) and streams tiles of one head through a ring of
+// stages by TMA (128-byte swizzled boxes of [rows][64], four a tile, on a
+// rank-4 map of [B, S, H, D]; where D is not a multiple of 8, or a tensor
+// not 16-byte aligned, guarded scalar loads into the same layout).
+// Warpgroups 1 and 2 consume the stages on the tensor cores.  Stages are
+// handed over on mbarriers: full (TMA's bytes, or the producer's arrival
+// once its own stores are fenced; dk/dv: the arrivals of the three
+// producer warps that made the landed tile's q2 and statistics) and empty
+// (lane 0 of each of the 8 consumer warps, once the products that read
+// the stage have retired); a stage's j-th fill is phase j of each, so a
+// wait names the parity j & 1.  The producer keeps 56 registers a thread
+// and gives the rest to the consumers (setmaxnreg: 128 x 56 + 256 x 224
+// = 384 x 168, what the CTA is given at launch; the forward's producer
+// spilled at 24, 32 and 40).
 // ---------------------------------------------------------------------------
 constexpr int kWideThreads = 384;     // producer + two consumer warpgroups
+constexpr int kLaunchRegs = 65536 / kWideThreads / 8 * 8;   // 168 a thread
 constexpr int kProducerRegs = 56;
 constexpr int kConsumerRegs = 224;
-static_assert(128 * kProducerRegs + 256 * kConsumerRegs <= 65536,
-              "the registers the warpgroups keep fit the SM's file");
+static_assert(128 * kProducerRegs + 256 * kConsumerRegs <=
+                  kWideThreads * kLaunchRegs,
+              "the registers the warpgroups keep fit the CTA's");
 constexpr int kBarProducer = 1;       // named barrier of the producer's 128
 constexpr int kStream = 32;           // rows of a streamed tile
 constexpr int kStreamElems = kStream * kWide;   // 16 KB
-constexpr int kBox = kStream * 64;              // one TMA box's elements
 
 // a consumer warp done with a stage (after the wgmma_wait that retired
 // the products reading it)
@@ -1011,16 +896,20 @@ __device__ __forceinline__ void stage_release(uint64_t* empty, int lane) {
   if (lane == 0) tc::mbar_arrive(empty);
 }
 
-// descriptors of a streamed (swizzled) tile: step ks of the head dim read
-// k-major (the tile's rows are the product's N: box ks / 4, 32 bytes a
-// step within it), and rows 16kk.. read MN-major (the rows reduced; the
-// next 64 columns a box away)
+// descriptors of a streamed (swizzled) tile of four [kRows][64] boxes:
+// step ks of the head dim read k-major (the tile's rows are the product's
+// M or N: box ks / 4, 32 bytes a step within it), and rows 16kk.. read
+// MN-major (the rows reduced; the next 64 columns a box away)
+template <int kRows = kStream>
 __device__ __forceinline__ uint64_t desc_sw_k(const bf16* tile, int ks) {
-  return tc::gmma_desc_sw128(tile + (ks >> 2) * kBox + (ks & 3) * 16, 16);
+  return tc::gmma_desc_sw128(tile + (ks >> 2) * kRows * 64 + (ks & 3) * 16,
+                             16);
 }
 
+template <int kRows = kStream>
 __device__ __forceinline__ uint64_t desc_sw_mn(const bf16* tile, int kk) {
-  return tc::gmma_desc_sw128(tile + 16 * kk * 64, kBox * sizeof(bf16));
+  return tc::gmma_desc_sw128(tile + 16 * kk * 64,
+                             kRows * 64 * sizeof(bf16));
 }
 
 // Rows [0, kRows) of a resident [kRows][kWide] tile (tc.cuh's no-swizzle
@@ -1049,11 +938,12 @@ __device__ __forceinline__ void produce_tile(bf16* __restrict__ dst,
   }
 }
 
-// A streamed tile: rows [r0, r0 + 32) of head (b, h) into ``dst``'s four
-// swizzled boxes.  With TMA, thread ``tid`` 0 issues the boxes on ``bar``
-// (whose bytes its caller expects); otherwise threads ``tid`` 0..nthr-1
-// each store their share, guarded (rows past S and columns past D zero),
-// complete on return.
+// A streamed tile: rows [r0, r0 + kRows) of head (b, h) into ``dst``'s
+// four swizzled boxes.  With TMA (a map of kRows-row boxes), thread
+// ``tid`` 0 issues the boxes on ``bar`` (whose bytes its caller expects);
+// otherwise threads ``tid`` 0..nthr-1 each store their share, guarded
+// (rows past S and columns past D zero), complete on return.
+template <int kRows = kStream>
 __device__ __forceinline__ void stream_tile(bf16* __restrict__ dst,
                                             const CUtensorMap* map,
                                             const bf16* __restrict__ src,
@@ -1063,13 +953,13 @@ __device__ __forceinline__ void stream_tile(bf16* __restrict__ dst,
   if (tma) {
     if (tid == 0)
       for (int c = 0; c < kWide / 64; ++c)
-        tc::tma_load_4d(dst + c * kBox, map, 64 * c, h, r0, b, bar);
+        tc::tma_load_4d(dst + c * kRows * 64, map, 64 * c, h, r0, b, bar);
     return;
   }
-  for (int idx = tid; idx < kStreamElems; idx += nthr) {
+  for (int idx = tid; idx < kRows * kWide; idx += nthr) {
     const int r = idx / kWide;
     const int c = idx % kWide;
-    dst[(c >> 6) * kBox + tc::sw128_off(r, c & 63)] =
+    dst[(c >> 6) * kRows * 64 + tc::sw128_off(r, c & 63)] =
         r0 + r < S && c < D ? src[(size_t)(r0 + r) * ld + c]
                             : __float2bfloat16_rn(0.f);
   }
@@ -1095,6 +985,292 @@ __device__ __forceinline__ void scale_in_place(bf16* tile, int elems,
   }
 }
 
+// masking of one warp's 16 x kKeys scores (accumulator layout) at the
+// key tile from k0: keys past S or past the row (causal), and with kRows
+// rows past S, to -1e30; ``wrow0`` is the warp's first row.  Only tiles
+// that cross the diagonal or S test anything.
+template <bool kCausal, int kKeys, bool kRows>
+__device__ __forceinline__ void mask_wide(float (&s)[kKeys / 2], int k0,
+                                          int wrow0, int qrow, int S,
+                                          int lane) {
+  if (!((kCausal && k0 + kKeys - 1 > wrow0) || k0 + kKeys > S ||
+        (kRows && wrow0 + 16 > S)))
+    return;
+#pragma unroll
+  for (int i = 0; i < kKeys / 2; ++i) {
+    const int kp = k0 + (i >> 2) * 8 + 2 * (lane & 3) + (i & 1);
+    const int qp = qrow + 8 * ((i >> 1) & 1);
+    if (kp >= S || (kCausal && kp > qp) || (kRows && qp >= S))
+      s[i] = kNegInf;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wide forward: grid (q tiles of kBq, B*H), the heaviest causal q tiles
+// first; the header note gives the design and what bounds it.  Q is four
+// [128][64] swizzled boxes, a K or V tile four [80][64]; K (x = 0) and V
+// (x = 1) of a stage are handed over on barriers of their own.
+// ---------------------------------------------------------------------------
+constexpr int kFwdWideStages = 2;        // of the (K, V) ring
+constexpr int kFwdKeys = 80;             // keys of a streamed tile
+constexpr int kFwdTileElems = kFwdKeys * kWide;   // 40 KB
+constexpr int kBarTurn = 2;              // + consumer: its turn (2, 3)
+constexpr int kBarQ2 = 4;                // + consumer: its q2 pass (4, 5)
+constexpr size_t kFwdWideSmem =
+    kBq * kWide * sizeof(bf16)                                // Q: 64 KB
+    + kFwdWideStages * 2 * kFwdTileElems * sizeof(bf16)       // 160 KB
+    + (4 * kFwdWideStages + 1) * sizeof(uint64_t);            // 229,448 B
+
+template <bool kCausal, bool kStats>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    flash_fwd_wide_tc_kernel(const __grid_constant__ CUtensorMap map_q,
+                             const __grid_constant__ CUtensorMap map_k,
+                             const __grid_constant__ CUtensorMap map_v,
+                             const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             bf16* __restrict__ o,
+                             float* __restrict__ acc_out,
+                             float* __restrict__ m_out,
+                             float* __restrict__ l_out, int S, int H, int D,
+                             float qscale, int vec) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // swizzled, q2 in place
+  bf16* ring = Qs + kBq * kWide;                  // swizzled (K, V)
+  // full[0, kFwdWideStages) K's stages, then V's; empty the same
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + kFwdWideStages * 2 * kFwdTileElems);
+  uint64_t* empty = full + 2 * kFwdWideStages;
+  uint64_t* landed_q = empty + 2 * kFwdWideStages;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBq;
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const size_t ld = (size_t)H * D;
+  const size_t head = (size_t)b * S * ld + (size_t)h * D;
+  // causal: up to the key tile holding the q tile's last row
+  const int last = (kCausal ? min(q0 + kBq, S) - 1 : S - 1) / kFwdKeys;
+  // the thread's warpgroup, uniform over each warp as the compiler can
+  // see: setmaxnreg needs the role branch warp-uniform
+  const int wg = __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0);
+  // key tile j's K (x = 0) or V (x = 1), and its stage's barriers
+  auto tile = [&](int x, int j) {
+    return ring + ((j % kFwdWideStages) * 2 + x) * kFwdTileElems;
+  };
+  auto slot = [&](int x, int j) {
+    return x * kFwdWideStages + j % kFwdWideStages;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * kFwdWideStages; ++i) {
+      tc::mbar_init(&full[i], 1);
+      tc::mbar_init(&empty[i], 8);
+    }
+    tc::mbar_init(landed_q, 1);
+    tc::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // the producer: Q, then each key tile's K and V into their stages
+    // once both consumers are done with the tile two before (with TMA
+    // thread 0 alone, otherwise all 128 threads' guarded stores)
+    tc::setmaxnreg_dec<kProducerRegs>();
+    const bool tma = vec != 0;
+    const int t = threadIdx.x;
+    if (tma && t != 0) return;
+    auto done = [&](uint64_t* bar) {   // the scalar route's stores landed
+      if (tma) return;
+      tc::fence_proxy_async();
+      tc::bar_sync(kBarProducer, 128);
+      if (t == 0) tc::mbar_arrive(bar);
+    };
+    if (tma) tc::mbar_expect_tx(landed_q, kBq * kWide * sizeof(bf16));
+    stream_tile<kBq>(Qs, &map_q, q + head, ld, q0, S, D, b, h, landed_q, tma,
+                     t, 128);
+    done(landed_q);
+#pragma unroll 1
+    for (int j = 0; j <= last; ++j) {
+#pragma unroll 1
+      for (int x = 0; x < 2; ++x) {
+        uint64_t* bar = &full[slot(x, j)];
+        if (j >= kFwdWideStages)
+          tc::mbar_wait(&empty[slot(x, j)], (j / kFwdWideStages - 1) & 1);
+        if (tma) tc::mbar_expect_tx(bar, kFwdTileElems * sizeof(bf16));
+        stream_tile<kFwdKeys>(tile(x, j), x ? &map_v : &map_k,
+                              (x ? v : k) + head, ld, j * kFwdKeys, S, D, b,
+                              h, bar, tma, t, 128);
+        done(bar);
+      }
+    }
+    return;
+  }
+
+  // the consumers
+  tc::setmaxnreg_inc<kConsumerRegs>();
+  const int c = wg - 1;
+  const int ct = threadIdx.x & 127;
+  const int lane = ct & 31;
+  const int wrow0 = q0 + 64 * c + (ct >> 5) * 16;   // the warp's first row
+  const int qrow = wrow0 + (lane >> 2);
+  const int last_c = kCausal ? min(last, (q0 + 64 * c + 63) / kFwdKeys) : last;
+  bf16* Qc = Qs + 64 * c * 64;   // its rows of each [128][64] box
+
+  // q2 = round_bf16(q * qscale) in place over its own rows (the JAX
+  // rounding point), visible to its warpgroup's products
+  tc::mbar_wait(landed_q, 0);
+#pragma unroll
+  for (int box = 0; box < kWide / 64; ++box)
+    scale_in_place(Qc + box * kBq * 64, 64 * 64, qscale, ct, 128);
+  tc::fence_proxy_async();
+  tc::bar_sync(kBarQ2 + c, 128);
+
+  // the thread's rows: g and g + 8 of the warp's 16 (r = 0, 1)
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  float acc[2 * kWide / 4], s[2 * kFwdKeys / 4];
+  uint32_t pa[kFwdKeys / 16][4];   // round(p) of the last tile, the A operand
+#pragma unroll
+  for (int i = 0; i < 2 * kWide / 4; ++i) acc[i] = 0.f;
+  tc::fence_regs(acc);
+
+  auto wait_full = [&](int x, int j) {
+    tc::mbar_wait(&full[slot(x, j)], (j / kFwdWideStages) & 1);
+  };
+  // s = q2 . k^T of key tile j, and acc += round(p) . v of key tile j
+  auto issue_s = [&](int j) {
+#pragma unroll
+    for (int ks = 0; ks < kWide / 16; ++ks)
+      tc::wgmma_m64n80k16_ss<0>(s, desc_sw_k<kBq>(Qc, ks),
+                                desc_sw_k<kFwdKeys>(tile(0, j), ks), ks);
+  };
+  auto issue_pv = [&](int j) {
+#pragma unroll
+    for (int kk = 0; kk < kFwdKeys / 16; ++kk)
+      tc::wgmma_m64n256k16_rs<1>(acc, pa[kk],
+                                 desc_sw_mn<kFwdKeys>(tile(1, j), kk), 1);
+  };
+  // a turn: consumer 0 goes first; the other's turn is handed on when
+  // this one's products are issued (consumer 1's last turn hands on
+  // nothing: each consumer takes last + 2 turns)
+  if (c == 1) tc::bar_arrive(kBarTurn, 256);
+  auto turn = [&] { tc::bar_sync(kBarTurn + c, 256); };
+  auto hand_on = [&](bool final) {
+    if (c == 0 || !final) tc::bar_arrive(kBarTurn + 1 - c, 256);
+  };
+  // key tile j's scores retired: the new row max, acc rescaled (no
+  // product in flight), p = exp2(s - m), l, and round(p) into pa
+  auto softmax = [&](int j) {
+    mask_wide<kCausal, kFwdKeys, false>(s, j * kFwdKeys, wrow0, qrow, S, lane);
+    float m_new[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int n = 0; n < kFwdKeys / 8; ++n)
+        mx = fmaxf(mx, fmaxf(s[4 * n + 2 * r], s[4 * n + 2 * r + 1]));
+      m_new[r] = fmaxf(m[r], tc::quad_max(mx));
+      alpha[r] = fexp2(m[r] - m_new[r]);
+      m[r] = m_new[r];
+    }
+#pragma unroll
+    for (int n = 0; n < kWide / 8; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        acc[4 * n + 2 * r] *= alpha[r];
+        acc[4 * n + 2 * r + 1] *= alpha[r];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float ps = 0.f;
+#pragma unroll
+      for (int n = 0; n < kFwdKeys / 8; ++n)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          s[4 * n + e] = fexp2(s[4 * n + e] - m_new[r]);
+          ps += s[4 * n + e];
+        }
+      l[r] = l[r] * alpha[r] + tc::quad_sum(ps);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kFwdKeys / 16; ++kk)
+      tc::c_to_a(pa[kk], &s[8 * kk], &s[8 * kk + 4]);
+  };
+
+  // turn 0: key tile 0's scores
+  wait_full(0, 0);
+  turn();
+  tc::fence_regs(s);
+  tc::wgmma_fence();
+  issue_s(0);
+  tc::wgmma_commit();
+  hand_on(false);
+  tc::wgmma_wait<0>();
+  tc::fence_regs(s);
+  stage_release(&empty[slot(0, 0)], lane);
+  softmax(0);
+  // turns 1..last_c: key tile j - 1's p . v and key tile j's scores
+#pragma unroll 1
+  for (int j = 1; j <= last_c; ++j) {
+    wait_full(0, j);
+    wait_full(1, j - 1);
+    turn();
+    tc::fence_regs(s);
+    tc::fence_regs(acc);
+    tc::wgmma_fence();
+    issue_pv(j - 1);
+    issue_s(j);
+    tc::wgmma_commit();
+    hand_on(false);
+    tc::wgmma_wait<0>();
+    tc::fence_regs(s);
+    tc::fence_regs(acc);
+    stage_release(&empty[slot(1, j - 1)], lane);
+    stage_release(&empty[slot(0, j)], lane);
+    softmax(j);
+  }
+  // the last tile's p . v
+  wait_full(1, last_c);
+  turn();
+  tc::fence_regs(acc);
+  tc::wgmma_fence();
+  issue_pv(last_c);
+  tc::wgmma_commit();
+  hand_on(last_c == last);
+  tc::wgmma_wait<0>();
+  tc::fence_regs(acc);
+  // consumer 0 past its causal frontier (key tile last, consumer 1's
+  // alone) keeps taking its turns; no stage it skips is loaded again
+  for (int j = last_c + 1; j <= last; ++j) {
+    turn();
+    hand_on(j == last);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qrow + 8 * r;
+    if (row >= S) continue;
+    const size_t base = ((size_t)b * S + row) * H + h;
+    const float den = fmaxf(l[r], kTiny);
+    const float rl = 1.f / den;
+    if (kStats && (lane & 3) == 0) {
+      m_out[base] = m[r] * kLn2;
+      l_out[base] = l[r];
+    }
+#pragma unroll
+    for (int n = 0; n < kWide / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n * 8 + 2 * (lane & 3) + e;
+        if (col >= D) continue;
+        if (kStats)
+          acc_out[base * D + col] = acc[4 * n + 2 * r + e];
+        else
+          o[base * D + col] =
+              __float2bfloat16_rn(div_rn(acc[4 * n + 2 * r + e], den, rl));
+      }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // wide dq: grid (q tiles of kBq, B*H), the heaviest causal q tiles first.
 // Q2 and dO of the CTA's 128 rows stay resident; consumer c owns rows
@@ -1108,24 +1284,6 @@ constexpr size_t kDqWideSmem =
     kDqWideStages * 2 * kStreamElems * sizeof(bf16)           // 96 KB
     + 2 * kBq * kWide * sizeof(bf16)                          // 128 KB
     + (2 * kDqWideStages + 1) * sizeof(uint64_t);             // 229,432 B
-
-// masking of one warp's 16 x 32 scores (accumulator layout) at the key
-// tile from k0: keys past S or past the row (causal), and rows past S,
-// to -1e30; ``wrow0`` is the warp's first row.  Only tiles that cross
-// the diagonal or S test anything.
-template <bool kCausal>
-__device__ __forceinline__ void mask_dq_wide(float s[16], int k0, int wrow0,
-                                             int qrow, int S, int lane) {
-  if (!((kCausal && k0 + kStream - 1 > wrow0) || k0 + kStream > S ||
-        wrow0 + 16 > S))
-    return;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int kp = k0 + (i >> 2) * 8 + 2 * (lane & 3) + (i & 1);
-    const int qp = qrow + 8 * ((i >> 1) & 1);
-    if (kp >= S || (kCausal && kp > qp) || qp >= S) s[i] = kNegInf;
-  }
-}
 
 template <bool kCausal>
 __global__ void __launch_bounds__(kWideThreads, 1)
@@ -1259,7 +1417,8 @@ __global__ void __launch_bounds__(kWideThreads, 1)
       tc::fence_regs(acc);
       if (j >= 1) stage_release(&empty[(j - 1) % kDqWideStages], lane);
       // ds = p * (dp - dlt), rounded, and acc += ds . k (K read MN-major)
-      mask_dq_wide<kCausal>(s, j * kStream, wrow0, qrow, S, lane);
+      mask_wide<kCausal, kStream, true>(s, j * kStream, wrow0, qrow, S,
+                                        lane);
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
         const int r = (i >> 1) & 1;
@@ -1590,6 +1749,18 @@ bool vec_ok(int D, std::initializer_list<const void*> ptrs) {
   return true;
 }
 
+// the wide kernels' streamed tensors as TMA maps of ``box_rows``-row
+// boxes, where the 16-byte copies (and so TMA) can take them
+cudaError_t stream_maps(CUtensorMap* a, CUtensorMap* b, const void* x,
+                        const void* y, int B, int S, int H, int D,
+                        bool vec, uint32_t box_rows = kStream) {
+  if (!vec) return cudaSuccess;
+  const cudaError_t err = tc::encode_heads_map(a, x, B, S, H, D, box_rows);
+  return err != cudaSuccess ? err
+                            : tc::encode_heads_map(b, y, B, S, H, D,
+                                                   box_rows);
+}
+
 // the launchers: the narrow kernels for D <= 128, the wide ones (kWideD)
 // for 128 < D <= 256
 template <bool kCausal, bool kStats, bool kWideD>
@@ -1597,29 +1768,34 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 void* acc, void* m, void* l, int B, int S, int H, int D,
                 float qscale, cudaStream_t st) {
   static bool ready = false;
-  auto kernel = kWideD ? flash_fwd_wide_tc_kernel<kCausal, kStats>
-                       : flash_fwd_tc_kernel<kCausal, kStats>;
-  const size_t smem = kWideD ? kFwdWideSmem : kFwdSmem;
-  cudaError_t err = allow_smem(kernel, smem, &ready);
-  if (err != cudaSuccess) return err;
+  const bool vec = vec_ok(D, {q, k, v});
   const dim3 grid((S + kBq - 1) / kBq, B * H);
-  kernel<<<grid, kThreads, smem, st>>>(
+  if constexpr (kWideD) {
+    auto kernel = flash_fwd_wide_tc_kernel<kCausal, kStats>;
+    cudaError_t err = allow_smem(kernel, kFwdWideSmem, &ready);
+    CUtensorMap map_q = {}, map_k = {}, map_v = {};
+    if (err == cudaSuccess && vec)
+      err = tc::encode_heads_map(&map_q, q, B, S, H, D, kBq);
+    if (err == cudaSuccess)
+      err = stream_maps(&map_k, &map_v, k, v, B, S, H, D, vec, kFwdKeys);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kWideThreads, kFwdWideSmem, st>>>(
+        map_q, map_k, map_v, static_cast<const bf16*>(q),
+        static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), static_cast<float*>(acc),
+        static_cast<float*>(m), static_cast<float*>(l), S, H, D, qscale,
+        vec);
+    return cudaGetLastError();
+  }
+  auto kernel = flash_fwd_tc_kernel<kCausal, kStats>;
+  cudaError_t err = allow_smem(kernel, kFwdSmem, &ready);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, kFwdSmem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
       static_cast<float*>(acc), static_cast<float*>(m),
-      static_cast<float*>(l), S, H, D, qscale, vec_ok(D, {q, k, v}));
+      static_cast<float*>(l), S, H, D, qscale, vec);
   return cudaGetLastError();
-}
-
-// the wide backward kernels' two streamed tensors as TMA maps, where the
-// 16-byte copies (and so TMA) can take them
-cudaError_t stream_maps(CUtensorMap* a, CUtensorMap* b, const void* x,
-                        const void* y, int B, int S, int H, int D,
-                        bool vec) {
-  if (!vec) return cudaSuccess;
-  const cudaError_t err = tc::encode_heads_map(a, x, B, S, H, D, kStream);
-  return err != cudaSuccess ? err
-                            : tc::encode_heads_map(b, y, B, S, H, D, kStream);
 }
 
 template <bool kCausal, bool kWideD>

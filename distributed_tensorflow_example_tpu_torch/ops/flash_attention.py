@@ -214,9 +214,11 @@ def flash_forward(q, k, v, causal: bool = False, stats: bool = False):
     q's dtype; ``stats=True``: ``(acc f32 [B,S,H,D], m, l f32
     [B,S,H])``.  Equal q/k lengths.  CUDA: one CTA per (q tile,
     batch*head) streaming key tiles; bf16 ``flash_fwd_tc_kernel``
-    (D <= 128) or ``flash_fwd_wide_tc_kernel`` (128-row q tiles, two
-    warpgroups on the tensor cores), f32 ``flash_fwd_kernel`` (64-row q
-    tiles at D <= 128, 32-row above; f32 FMA)."""
+    (D <= 128) or ``flash_fwd_wide_tc_kernel`` (128-row q tiles: a
+    producer warpgroup streams 80-key K/V tiles by TMA, two consumer
+    warpgroups of 64 rows take turns on the tensor cores), f32
+    ``flash_fwd_kernel`` (64-row q tiles at D <= 128, 32-row above; f32
+    FMA)."""
     if _on_cpu(q, k, v):
         _counts.plain(flash_forward, q, k, v)
         if stats:

@@ -13,7 +13,11 @@ kernel's device time between CUDA events with the card kept busy, its
 TFLOP/s and bound, its plain version's time at batch 1, SDPA's forward
 or backward on the same inputs (the yardstick, never called by the
 port), and the largest errors against the plain version over the batch
-elements.  This script adds whether two calls give the same bits.
+elements.  This script adds whether two calls give the same bits, and
+each form timed again after a pause with the card idle, with the SM
+clock before and after: the rows time the four forms back to back, so
+each carries the clock the one before it left (a faster forward draws
+more power and leaves a lower clock to the dq timed next).
 
 Prints one line per row with the card's name and power limit and
 writes the rows to ``--out`` as JSON.  Needs one card.
@@ -26,6 +30,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -35,9 +40,12 @@ _HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEEDS = ((24001, 24002), (24003, 24004))
 
 
-def bitwise(smoke, shape, seed: int) -> dict:
-    """Per form: whether two calls on the inputs ``_flash_timed`` times
-    give the same bits."""
+# seconds the card idles before each form's idle-start timing
+PAUSE_S = 3.0
+
+
+def _calls(smoke, shape, seed: int) -> dict:
+    """Per form: the call ``_flash_timed`` times, on its inputs."""
     from distributed_tensorflow_example_tpu_torch.ops import (
         flash_attention as fa)
 
@@ -46,10 +54,39 @@ def bitwise(smoke, shape, seed: int) -> dict:
     dlt = torch.sum(do.float() * (acc / l[..., None]).to(q.dtype).float(),
                     dim=-1)
     del acc
-    calls = {"stats": (fa.flash_forward, (q, k, v, True, True)),
-             "normalized": (fa.flash_forward, (q, k, v, True)),
-             "dq": (fa.flash_dq, (q, k, v, do, m, l, dlt, True)),
-             "dkv": (fa.flash_dkv, (q, k, v, do, m, l, dlt, True))}
+    return {"stats": (fa.flash_forward, (q, k, v, True, True)),
+            "normalized": (fa.flash_forward, (q, k, v, True)),
+            "dq": (fa.flash_dq, (q, k, v, do, m, l, dlt, True)),
+            "dkv": (fa.flash_dkv, (q, k, v, do, m, l, dlt, True))}
+
+
+def _sm_mhz() -> int:
+    return int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+
+
+def idle_start(smoke, shape, seed: int) -> dict:
+    """Per form: its time (``event_ms``) when it runs after PAUSE_S s of
+    an idle card, and the SM clock just before and just after."""
+    calls = _calls(smoke, shape, seed)
+    out = {}
+    for form, (fn, args) in calls.items():
+        torch.cuda.synchronize()
+        time.sleep(PAUSE_S)
+        before = _sm_mhz()
+        ms = smoke.event_ms(fn, args)
+        out[form] = dict(ms=ms, sm_mhz_before=before, sm_mhz_after=_sm_mhz())
+    del calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def bitwise(smoke, shape, seed: int) -> dict:
+    """Per form: whether two calls on the inputs ``_flash_timed`` times
+    give the same bits."""
+    calls = _calls(smoke, shape, seed)
     same = {}
     for form, (fn, args) in calls.items():
         first, again = fn(*args), fn(*args)
@@ -58,7 +95,7 @@ def bitwise(smoke, shape, seed: int) -> dict:
         same[form] = all(bool(torch.equal(x, y))
                          for x, y in zip(first, again))
         del first, again
-    del q, k, v, do, m, l, dlt, calls
+    del calls
     torch.cuda.empty_cache()
     return same
 
@@ -86,8 +123,10 @@ def main(argv=None) -> int:
                 "flash_dkv": (0.0, 0.0)}
         timed = chip_smoke._flash_timed(smi, shape, seeds, errs)
         same = bitwise(chip_smoke, shape, seeds[1])
+        idle = idle_start(chip_smoke, shape, seeds[1])
         for row in timed:
-            row.update(bitwise_run_to_run=same[row["form"]], card=smi)
+            row.update(bitwise_run_to_run=same[row["form"]], card=smi,
+                       idle_start=idle[row["form"]])
             print(f"[flash] {row['form']} {row['shape']} bf16 causal: "
                   f"{row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s), "
                   f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
@@ -95,6 +134,11 @@ def main(argv=None) -> int:
                   f"({row['x_library']:.2f}x), {row['rel_err']:.3g} of "
                   f"scale, bitwise run to run {same[row['form']]} on {smi}",
                   flush=True)
+            cold = idle[row["form"]]
+            print(f"[flash idle start] {row['form']} {row['shape']}: "
+                  f"{cold['ms']:.4f} ms after {PAUSE_S:g} s idle, SM "
+                  f"{cold['sm_mhz_before']} -> {cold['sm_mhz_after']} MHz "
+                  f"on {smi}", flush=True)
         rows += timed
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -696,6 +696,71 @@ def test_flash_wide_backward_is_deterministic_on_card(card, d):
             assert torch.equal(a, b), f"{name} causal={causal} D={d}"
 
 
+def _wide_forward(q, k, v, causal):
+    """B5's wide forward on the card, both forms: (o, acc, m, l)."""
+    return (fa.flash_forward(q, k, v, causal),
+            *fa.flash_forward(q, k, v, causal, stats=True))
+
+
+def _check_wide_forward(q, k, v, causal, what):
+    want = (fa.flash_attention_reference(q, k, v, causal),
+            *fa.flash_stats_reference(q, k, v, causal))
+    for got, w_, name in zip(_wide_forward(q, k, v, causal), want,
+                             ("o", "acc", "m", "l")):
+        _close_scaled(got, w_, FLASH_TOL[torch.bfloat16], f"{name} {what}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 63, 64, 65, 79, 80, 81, 127,
+                               128, 129, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wide_forward_tile_edges_on_card(card, causal, s):
+    """The bf16 wide forward, the normalized o and the stats form's acc,
+    m and l, against the plain versions at S on either side of its
+    tiles' edges: 80-key K/V tiles, 128-row q tiles and the two consumer
+    warpgroups' 64 rows each (causal: the first may stop a key tile
+    before the second, which alone reads the last).  D 256 and 192 (TMA)
+    and 130 (the producer's guarded scalar stores, zero-padded to 256),
+    batch 2 and 3 heads."""
+    for d in (130, 192, 256):
+        gen = torch.Generator(device=card).manual_seed(9000 + s * 10 + d)
+        q, k, v = (torch.randn(2, s, 3, d, generator=gen,
+                               device=card).to(torch.bfloat16)
+                   for _ in range(3))
+        _check_wide_forward(q, k, v, causal, f"causal={causal} S={s} D={d}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wide_forward_large_score_spread_on_card(card, causal):
+    """q and k scaled by 4 at D 256, S 1000 over 16 key tiles: a row's
+    running max moves across key tiles, so acc's rescale by alpha (made
+    while the other consumer's products run) carries real weight."""
+    gen = torch.Generator(device=card).manual_seed(256)
+    q, k, v = (torch.randn(2, 1000, 2, 256, generator=gen, device=card)
+               for _ in range(3))
+    q, k, v = ((4 * q).to(torch.bfloat16), (4 * k).to(torch.bfloat16),
+               v.to(torch.bfloat16))
+    _check_wide_forward(q, k, v, causal, f"causal={causal} spread x4")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [130, 256])
+def test_flash_wide_forward_is_deterministic_on_card(card, d):
+    """Both forms of the wide forward are the same bits over two calls
+    (no atomics, and the consumers' turns order nothing either sums),
+    causal and not, at a ragged S over many tiles."""
+    gen = torch.Generator(device=card).manual_seed(d + 1)
+    q, k, v = (torch.randn(2, 1000, 3, d, generator=gen,
+                           device=card).to(torch.bfloat16)
+               for _ in range(3))
+    for causal in (True, False):
+        first = _wide_forward(q, k, v, causal)
+        again = _wide_forward(q, k, v, causal)
+        for a, b, name in zip(first, again, ("o", "acc", "m", "l")):
+            assert torch.equal(a, b), f"{name} causal={causal} D={d}"
+
+
 def _attention64(q, k, v, causal):
     """softmax(q k^T / sqrt(D)) v in f64 over ``[B, S, H, D]``, the
     exact function the flash kernels compute."""
